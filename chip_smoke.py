@@ -1,0 +1,575 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py            # needs one CUDA card; exits non-zero
+                                     # without one, printing no result
+
+Phases, in order; any failure exits non-zero (nothing is caught):
+
+1. Device and build: the card's name and power limit (nvidia-smi), then
+   the kernels built from pilosa_tpu_torch/csrc with nvcc.
+2. Server (the main path): the port's Server on a temp data dir; an index
+   with existence tracking and a set field of 8 rows over 1024 shards
+   (8.5k-40k bits per shard and row) loaded through API.import_bits plus
+   one JSON import; PQL over HTTP, including Counts over 40 Rows (40
+   leaves), checked against a numpy oracle built from the generated
+   columns; then 32 concurrent clients x 64 Count(Intersect) queries.
+   Launch counts are zeroed before the server starts and read after the
+   last query: every kernel of the path must have launched. With
+   --profile, a further concurrent pass runs under torch.profiler and the
+   device's idle share over it is printed.
+3. Kernels at full width: W = 32768 words, S = 1024 shards (1.07B
+   columns), random planes from a seeded torch.Generator on the card. Each
+   kernel is held against its plain torch version, exactly (integer
+   counts, tolerance 0): pair_stream_counts for all 5 ops at K = 1024 over
+   a 32-row slab (4 GiB), and at the batch sizes the server issued (its
+   mean batch, and the batcher's cap of 512) over 8 rows; program_count on
+   a 4-leaf program with xor/andnot/not and on a 40-leaf one;
+   intersect_count. Times by CUDA events (warm, median).
+4. The last lines: nvidia-smi's name and power limit, one JSON object with
+   a record per kernel, and {"ok": true, "device": {...}}.
+
+Bounds: the larger of the bytes each input read once over HBM's 3.35 TB/s
+and the operations over the card's rate for their type. The integer rates
+come from the CUDA C++ Programming Guide's arithmetic-instruction
+throughput table for compute capability 9.0 (results per clock per SM: 64
+for 32-bit integer add and bitwise ops, 16 for __popc), times the SM count
+and the card's maximum SM clock as nvidia-smi reports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import http.client
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+# results per clock per SM on compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput)
+INT32_PER_CLK_SM = 64   # 32-bit integer add, and/or/xor/not
+POPC_PER_CLK_SM = 16    # __popc
+SHARD_WIDTH = 1 << 20
+SOURCE = "pilosa_tpu_torch/csrc/bitmap_kernels.cu"
+REPLACES = {
+    "pair_stream_counts": "pilosa_tpu/ops/pallas_kernels.py:234",
+    "program_count": "pilosa_tpu/ops/pallas_kernels.py:108",
+    "intersect_count": "pilosa_tpu/ops/pallas_kernels.py:59",
+}
+# the 4-leaf program_count case: per word 4 combining ops, a popc, an add
+PROGRAM = ("or", ("xor", ("leaf", 0), ("leaf", 1)),
+           ("andnot", ("leaf", 2), ("not", ("leaf", 3))))
+# 40 leaves, as Count(Union(...)) of 40 Rows gives: 39 combining ops
+WIDE_PROGRAM = ("or", ("xor", *[("leaf", i) for i in range(0, 40, 2)]),
+                ("andnot", *[("leaf", i) for i in range(1, 40, 2)]))
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi(query: str, *fmt: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}",
+         "--format=" + ",".join(("csv", "noheader", *fmt))],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def int_rates() -> tuple[float, float]:
+    """(32-bit integer ops/s, popc/s) of card 0 at its maximum SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clk = float(smi("clocks.max.sm", "nounits")) * 1e6
+    return sms * clk * INT32_PER_CLK_SM, sms * clk * POPC_PER_CLK_SM
+
+
+def cuda_ms(fn, runs: int, warm: int = 2) -> float:
+    """Median wall time of fn() on the card by CUDA events."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, int_ops: float, popcs: float,
+          rates: tuple[float, float]) -> tuple[float, str]:
+    """Least time in ms: bytes over HBM's rate, or each operation type
+    over its own rate (the slower type; the two can issue together)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(int_ops / rates[0], popcs / rates[1]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(a, b) -> int:
+    return int((a.to("cpu").long() - b.to("cpu").long()).abs().max().item())
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def kernel_phase(device, n_shards: int, words: int, slab_rows: int,
+                 k_check: int, k_served: int, seed: int, runs: int) -> dict:
+    """Each kernel against its plain version at the main path's shapes;
+    returns name -> measurements. The record's ms, plain_ms and bound_ms
+    are taken at the shapes the server gave the kernel."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+
+    rates = int_rates()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    slab = torch.empty((slab_rows, n_shards, words), dtype=torch.int32,
+                       device=device)
+    for r in range(slab_rows):
+        slab[r] = torch.randint(-2**31, 2**31, (n_shards, words),
+                                dtype=torch.int64, device=device,
+                                generator=gen).to(torch.int32)
+    slab[0, :, :64] = -1           # all-ones words
+    slab[1, :, :64] = -2**31       # 0x80000000
+    leaves = list(slab.unbind(0))
+    plane_bytes = n_shards * words * 4
+    n_words = n_shards * words
+    n_chunks = -(-n_shards // kernels.SUM_SHARD_CHUNK)
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"(max abs err {err})")
+        return err
+
+    # pair_stream_counts: all five ops at K = k_check over the whole slab
+    ii = rng.integers(0, slab_rows, size=k_check)
+    jj = rng.integers(0, slab_rows, size=k_check)
+    per_op = {}
+    for op in kernels.PAIR_OPS:
+        check(f"pair_stream_counts[{op}] K={k_check}",
+              kernels.pair_stream_counts(leaves, ii, jj, op),
+              kernels.pair_stream_counts_plain(leaves, ii, jj, op))
+        per_op[op] = cuda_ms(
+            lambda: kernels.pair_stream_counts(leaves, ii, jj, op), runs)
+        log(f"  pair_stream_counts[{op}] K={k_check}: "
+            f"{per_op[op] * 1e3:.1f} us, exact")
+
+    # ... and "and" at the batch sizes the server issued, over its 8 rows
+    by_k = {}
+    for k in sorted({k_served, 512}):
+        ii = rng.integers(0, 8, size=k)
+        jj = rng.integers(0, 8, size=k)
+        check(f"pair_stream_counts[and] K={k}",
+              kernels.pair_stream_counts(leaves, ii, jj, "and"),
+              kernels.pair_stream_counts_plain(leaves, ii, jj, "and"))
+        ms = cuda_ms(lambda: kernels.pair_stream_counts(leaves, ii, jj, "and"),
+                     runs)
+        plain = cuda_ms(
+            lambda: kernels.pair_stream_counts_plain(leaves, ii, jj, "and"),
+            3, 1)
+        # each input once: the referenced rows, ii/jj, the int32 partials
+        distinct = len(set(ii.tolist()) | set(jj.tolist()))
+        nbytes = distinct * plane_bytes + 2 * k * 8 + k * n_chunks * 4
+        b_ms, b_by = bound(nbytes, 2.0 * k * n_words, 1.0 * k * n_words,
+                           rates)
+        by_k[k] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                   "bound_by": b_by, "bytes_once": nbytes,
+                   "streamed_bytes": 2 * k * plane_bytes}
+        log(f"  pair_stream_counts[and] K={k}, 8 rows: {ms * 1e3:.1f} us "
+            f"(bound {b_ms * 1e3:.1f} us by {b_by}), exact")
+    out["pair_stream_counts"] = {**by_k[k_served], "k": k_served,
+                                 "max_abs_err": 0, "per_op_ms_k_check":
+                                 per_op, "k_check": k_check, "by_k": by_k}
+
+    # program_count: 4 leaves with xor/andnot/not, and 40 leaf pointers
+    progs = {}
+    for label, program, progleaves in (
+            ("4 leaves", PROGRAM, leaves[:4]),
+            ("40 leaves", WIDE_PROGRAM, [leaves[i % 8] for i in range(40)])):
+        check(f"program_count {label}",
+              kernels.program_count(progleaves, program),
+              kernels.program_count_plain(progleaves, program))
+        ms = cuda_ms(lambda: kernels.program_count(progleaves, program), runs)
+        plain = cuda_ms(
+            lambda: kernels.program_count_plain(progleaves, program), 3, 1)
+        codes = kernels.encode_program(program)[0]
+        combining = sum(c != kernels.LEAF for c in codes)
+        distinct = len({t.data_ptr() for t in progleaves})
+        nbytes = distinct * plane_bytes + n_shards * 4
+        b_ms, b_by = bound(nbytes, (combining + 1.0) * n_words,
+                           1.0 * n_words, rates)
+        progs[label] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                        "bound_by": b_by, "bytes_once": nbytes}
+        log(f"  program_count {label}: {ms * 1e3:.1f} us "
+            f"(bound {b_ms * 1e3:.1f} us by {b_by}), exact")
+    out["program_count"] = {**progs["4 leaves"], "max_abs_err": 0,
+                            "wide": progs["40 leaves"]}
+
+    # intersect_count
+    err = check("intersect_count", kernels.intersect_count(leaves[0], leaves[1]),
+                kernels.intersect_count_plain(leaves[0], leaves[1]))
+    ms = cuda_ms(lambda: kernels.intersect_count(leaves[0], leaves[1]), runs)
+    plain = cuda_ms(
+        lambda: kernels.intersect_count_plain(leaves[0], leaves[1]), 3, 1)
+    nbytes = 2 * plane_bytes + n_shards * 4
+    b_ms, b_by = bound(nbytes, 2.0 * n_words, 1.0 * n_words, rates)
+    out["intersect_count"] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                              "bound_by": b_by, "max_abs_err": err,
+                              "bytes_once": nbytes}
+    log(f"  intersect_count: {ms * 1e3:.1f} us, exact")
+    del slab, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------- server
+
+
+def _http(uri_port: int, method: str, path: str, body: bytes = b"",
+          conn=None):
+    own = conn is None
+    if own:
+        conn = http.client.HTTPConnection("localhost", uri_port, timeout=600)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        payload = json.loads(resp.read() or b"null")
+        if resp.status != 200:
+            raise AssertionError(f"{method} {path} -> {resp.status}: {payload}")
+        return payload
+    finally:
+        if own:
+            conn.close()
+
+
+def _popcount(packed: np.ndarray) -> int:
+    if hasattr(np, "bitwise_count"):
+        return int(np.bitwise_count(packed).sum(dtype=np.int64))
+    table = np.array([bin(i).count("1") for i in range(256)], dtype=np.int64)
+    return int(table[packed].sum())
+
+
+def make_rows(n_rows: int, n_shards: int, seed: int) -> list[np.ndarray]:
+    """Per row, sorted unique global columns with 8.5k-40k bits per shard
+    (after dedup at least 8k: every row stays above the JAX planner's
+    4096-bit sparse threshold, so its leaves are dense planes)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n_rows):
+        cards = rng.integers(8500, 40001, size=n_shards)
+        shard_of = np.repeat(np.arange(n_shards, dtype=np.int64), cards)
+        cols = shard_of * SHARD_WIDTH + rng.integers(
+            0, SHARD_WIDTH, size=int(cards.sum()))
+        cols.sort()
+        keep = np.concatenate(([True], cols[1:] != cols[:-1]))
+        rows.append(cols[keep])
+    return rows
+
+
+def packed_row(cols: np.ndarray, n_shards: int) -> np.ndarray:
+    bits = np.zeros(n_shards * SHARD_WIDTH, dtype=bool)
+    bits[cols] = True
+    return np.packbits(bits, bitorder="little")
+
+
+def device_busy_ms(prof) -> float | None:
+    """Union of the device intervals a torch.profiler run recorded, in ms
+    (None where it recorded none)."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e3
+
+
+def server_phase(device, n_shards: int, n_rows: int, seed: int,
+                 clients: int, per_client: int, profile: bool) -> dict:
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.server import Server
+
+    t0 = time.perf_counter()
+    rows = make_rows(n_rows, n_shards, seed)
+    extra = np.array([3, 99, SHARD_WIDTH + 5, 2 * SHARD_WIDTH + 7],
+                     dtype=np.int64) % (n_shards * SHARD_WIDTH)
+    log(f"  data: {n_rows} rows x {n_shards} shards, "
+        f"{sum(r.size for r in rows)} bits "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    kernels.reset_launch_counts()  # the main path starts here
+    with tempfile.TemporaryDirectory(prefix="pilosa_torch_smoke_") as tmp:
+        srv = Server(os.path.join(tmp, "data"), port=0, device=device).open()
+        port = srv.http.port
+        try:
+            _http(port, "POST", "/index/i",
+                  json.dumps({"options": {"trackExistence": True}}).encode())
+            _http(port, "POST", "/index/i/field/f", b"{}")
+            t0 = time.perf_counter()
+            for r, cols in enumerate(rows):
+                srv.api.import_bits("i", "f", np.full(cols.size, r), cols)
+            _http(port, "POST", "/index/i/field/f/import", json.dumps(
+                {"rowIDs": [0] * extra.size,
+                 "columnIDs": extra.tolist()}).encode())
+            load_s = time.perf_counter() - t0
+            log(f"  import: {load_s:.1f} s")
+            rows[0] = np.union1d(rows[0], extra)
+
+            t0 = time.perf_counter()
+            packed = [packed_row(c, n_shards) for c in rows]
+            exists = packed[0].copy()
+            for x in packed[1:]:
+                exists |= x
+            log(f"  oracle: {time.perf_counter() - t0:.1f} s")
+            p = packed
+
+            checks = [
+                ("Count(Row(f=0))", _popcount(p[0])),
+                ("Count(Row(f=6))", _popcount(p[6])),
+                ("Count(Intersect(Row(f=0), Row(f=1)))", _popcount(p[0] & p[1])),
+                ("Count(Intersect(Row(f=1), Row(f=2), Row(f=3)))",
+                 _popcount(p[1] & p[2] & p[3])),
+                ("Count(Intersect(Row(f=0), Row(f=1), Row(f=2), Row(f=3)))",
+                 _popcount(p[0] & p[1] & p[2] & p[3])),
+                ("Count(Union(Row(f=2), Row(f=5)))", _popcount(p[2] | p[5])),
+                ("Count(Xor(Row(f=3), Row(f=4)))", _popcount(p[3] ^ p[4])),
+                ("Count(Difference(Row(f=5), Row(f=6)))",
+                 _popcount(p[5] & ~p[6])),
+                ("Count(Not(Row(f=7)))", _popcount(exists & ~p[7])),
+                ("Count(Not(Union(Row(f=0), Row(f=1))))",
+                 _popcount(exists & ~(p[0] | p[1]))),
+                ("Count(Union(Intersect(Row(f=0), Row(f=1)), "
+                 "Xor(Row(f=2), Row(f=3)), Not(Row(f=4))))",
+                 _popcount((p[0] & p[1]) | (p[2] ^ p[3]) | (exists & ~p[4]))),
+            ]
+            # 40 Rows resolve to 40 leaves, each read by the kernel
+            wide = [int(r) for r in np.random.default_rng(seed).permutation(
+                np.arange(40) % n_rows)]
+            rows_pql = ", ".join(f"Row(f={r})" for r in wide)
+            xor_all = np.zeros_like(p[0])
+            for r in wide:
+                xor_all ^= p[r]
+            checks += [(f"Count(Union({rows_pql}))", _popcount(exists)),
+                       (f"Count(Xor({rows_pql}))", _popcount(xor_all))]
+            t0 = time.perf_counter()
+            for pql, want in checks:
+                got = _http(port, "POST", "/index/i/query",
+                            pql.encode())["results"][0]
+                if got != want:
+                    raise AssertionError(f"{pql}: port {got} != oracle {want}")
+                log(f"  {pql[:100]} = {got} (oracle agrees)")
+            sub = [s for s in (0, 1) if s < n_shards]
+            got = _http(port, "POST", "/index/i/query?shards="
+                        + ",".join(map(str, sub)), b"Row(f=2)")
+            want_cols = rows[2][rows[2] < (max(sub) + 1) * SHARD_WIDTH]
+            if got["results"][0]["columns"] != want_cols.tolist():
+                raise AssertionError("Row(f=2) ?shards=0,1 differs from the "
+                                     "oracle")
+            log(f"  Row(f=2) ?shards={sub}: {want_cols.size} columns "
+                "(oracle agrees)")
+            single_s = time.perf_counter() - t0
+
+            pair = np.array([[_popcount(p[a] & p[b]) for b in range(n_rows)]
+                             for a in range(n_rows)])
+
+            def run_clients(n_per_client: int, salt: int):
+                """clients threads x n_per_client Count(Intersect) over
+                HTTP -> (latencies, wall seconds); answers checked."""
+                lat: list = []
+                errors: list = []
+                lock = threading.Lock()
+
+                def client(cid: int) -> None:
+                    rng = np.random.default_rng(seed + salt + cid)
+                    conn = http.client.HTTPConnection("localhost", port,
+                                                      timeout=600)
+                    try:
+                        for _ in range(n_per_client):
+                            a, b = (int(x)
+                                    for x in rng.integers(n_rows, size=2))
+                            q = f"Count(Intersect(Row(f={a}), Row(f={b})))"
+                            t = time.perf_counter()
+                            got = _http(port, "POST", "/index/i/query",
+                                        q.encode(), conn)["results"][0]
+                            dt = time.perf_counter() - t
+                            with lock:
+                                lat.append(dt)
+                                if got != int(pair[a, b]):
+                                    errors.append((q, got, int(pair[a, b])))
+                    finally:
+                        conn.close()
+
+                threads = [threading.Thread(target=client, args=(c,))
+                           for c in range(clients)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                wall = time.perf_counter() - t0
+                if errors or len(lat) != clients * n_per_client:
+                    raise AssertionError(
+                        f"{len(errors)} concurrent answers differ, "
+                        f"{clients * n_per_client - len(lat)} missing; "
+                        f"first {errors[:1]}")
+                return lat, wall
+
+            lat, wall = run_clients(per_client, 1000)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()  # the main path ends here
+            batcher = srv.executor.batcher.snapshot()
+            res = srv.executor.residency.snapshot()
+            stats = {
+                "queries": len(lat), "qps": len(lat) / wall,
+                "p50_ms": statistics.median(lat) * 1e3,
+                "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+                "max_batch_seen": batcher["max_batch_seen"],
+                "batches": batcher["batches"],
+                "batched_queries": batcher["batched_queries"],
+                "resident_bytes": res["bytes"],
+                "resident_entries": res["entries"],
+                "import_s": load_s, "single_queries_s": single_s,
+            }
+            log(f"  concurrent: {clients} clients x {per_client} "
+                f"Count(Intersect): {stats['qps']:.1f} q/s, p50 "
+                f"{stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms, "
+                f"max_batch_seen {stats['max_batch_seen']}")
+            log(f"  resident leaves: {res['entries']} entries, "
+                f"{res['bytes']} bytes")
+            if profile:
+                from torch.profiler import ProfilerActivity
+                from torch.profiler import profile as torch_profile
+
+                n = max(per_client // 4, 1)
+                with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    _, pwall = run_clients(n, 2000)
+                    torch.cuda.synchronize()
+                busy = device_busy_ms(prof)
+                stats["profiled_queries"] = clients * n
+                stats["profiled_wall_ms"] = pwall * 1e3
+                stats["device_busy_ms"] = busy
+                stats["device_idle_share"] = (
+                    None if busy is None else 1.0 - busy / (pwall * 1e3))
+                log(f"  profiled pass: {clients} clients x {n} queries in "
+                    f"{pwall * 1e3:.1f} ms, device busy "
+                    + ("not measured (the profiler saw no device events)"
+                       if busy is None else
+                       f"{busy:.3f} ms, idle share "
+                       f"{stats['device_idle_share']:.4f}"))
+            log(f"  launches on the main path: {launches}")
+            for name in ("pair_stream_counts", "program_count",
+                         "intersect_count"):
+                if launches[name] < 1:
+                    raise AssertionError(
+                        f"{name} never launched on the main path")
+            if stats["max_batch_seen"] < 2:
+                raise AssertionError("the CountBatcher never coalesced")
+            return {"launches": launches, "stats": stats}
+        finally:
+            srv.close()
+
+
+# -------------------------------------------------------------------- main
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shards", type=int, default=1024)
+    ap.add_argument("--rows", type=int, default=8)
+    ap.add_argument("--slab-rows", type=int, default=32)
+    ap.add_argument("--k", type=int, default=1024)
+    ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--clients", type=int, default=32)
+    ap.add_argument("--per-client", type=int, default=64)
+    ap.add_argument("--profile", action="store_true",
+                    help="after the measured pass, run one more under "
+                         "torch.profiler and print the device's idle share")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "False); nothing was run", file=sys.stderr)
+        return 2
+    from pilosa_tpu_torch.ops import _build
+
+    device = "cuda"
+    t_start = time.perf_counter()
+    smi_name = smi("name,power.limit")
+    log(f"phase 1: {smi_name}")
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    _build.load()
+    log(f"  kernels built in {_build.build_info['seconds']:.1f} s: "
+        f"{_build.build_info['path']}")
+    for line in _build.build_info["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    log(f"phase 2: server over {args.shards} shards")
+    served = server_phase(device, args.shards, args.rows, args.seed,
+                          args.clients, args.per_client, args.profile)
+    st = served["stats"]
+    k_served = max(1, round(st["batched_queries"] / max(st["batches"], 1)))
+
+    log(f"phase 3: kernels at S={args.shards}, W=32768 (served mean "
+        f"batch K={k_served})")
+    measured = kernel_phase(device, args.shards, 32768, args.slab_rows,
+                            args.k, k_served, args.seed, args.runs)
+
+    records = []
+    for name, m in measured.items():
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name],
+            "launches": served["launches"][name],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None})
+    log("  library_ms: none (no single PyTorch call computes a popcount of "
+        "a bitwise op)")
+    log(f"  details: {json.dumps({'kernels': measured, **served})}")
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    print(smi_name)
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,369 @@
+"""Wrappers of the hand-written Hopper kernels, with their plain versions.
+
+Three kernels (csrc/bitmap_kernels.cu) carry the dense read path:
+
+* ``pair_stream_counts``: K queries popcount(op(leaf[ii], leaf[jj])) as
+  int32 partials per 2016-shard chunk. Replaces Pallas pair_stream_counts
+  (pilosa_tpu/ops/pallas_kernels.py:234) and serves the CountBatcher, whose
+  XLA form is pilosa_tpu/parallel/batcher.py _batched_counts (:436).
+* ``program_count``: a nested bitmap program + popcount per shard, the
+  program encoded as postfix bytecode over a device table of leaf
+  pointers (any number of leaves, any length). Replaces Pallas
+  program_count (pallas_kernels.py:108).
+* ``intersect_count``: per-shard popcount(a & b). Replaces Pallas
+  intersect_count (pallas_kernels.py:59).
+
+Routing: a CPU tensor takes the plain version (``<name>_plain``, plain
+torch). A CUDA tensor launches the kernel or raises; nothing falls back.
+Each wrapper adds one to its launch count where it launches its kernel.
+
+Layout checks: planes are C-contiguous int32 [S, W] tensors with W a
+multiple of 4 (the kernels load 16 bytes at a time), all on one device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from pilosa_tpu_torch.ops import bitvector as bv
+
+# int32 partials per chunk of shards: 2016 shards x 2^20 bits < 2^31, so a
+# chunk's count cannot wrap; the host finishes the sum in int64
+# (pilosa_tpu/parallel/batcher.py:74-78).
+SUM_SHARD_CHUNK = 2016
+
+PAIR_OPS = ("and", "or", "xor", "andnot", "id")
+
+# operand stack slots of the program interpreter (the kernel's kMaxStack)
+MAX_STACK = 16
+
+# postfix opcodes, shared with the kernel; RANDNOT is b &~ a for the stack
+# [.., a, b], so a minuend can be pushed after its deeper subtrahend
+LEAF, AND, OR, XOR, ANDNOT, NOT, RANDNOT = range(7)
+_BINARY = {"and": AND, "or": OR, "xor": XOR, "andnot": ANDNOT}
+
+# enough resident blocks to fill the 132 SMs of an H100 a few times over
+_TARGET_BLOCKS = 132 * 4
+_THREADS = 256
+
+_launch_lock = threading.Lock()
+_launches = {"pair_stream_counts": 0, "program_count": 0,
+             "intersect_count": 0}
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    with _launch_lock:
+        return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    with _launch_lock:
+        for k in _launches:
+            _launches[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _launch_lock:
+        _launches[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# Program encoding: nested tuples -> postfix bytecode
+# ---------------------------------------------------------------------------
+# program: ("leaf", i) | ("not", p) | (op, p1, p2, ...) with op in
+# and/or/xor/andnot (pilosa_tpu/parallel/mesh.py:192-216). An n-ary op is a
+# left fold. Operands go deepest first (Sethi-Ullman order): and/or/xor
+# commute, and andnot's subtrahends commute among themselves, with RANDNOT
+# when the deepest subtrahend goes before the minuend. The stack then grows
+# with the tree's Strahler number, not its nesting depth: only a program
+# over 2^MAX_STACK leaves or more overflows it.
+
+
+def _encode(p) -> tuple[list, int]:
+    """([(opcode, arg), ...] postfix code of p, stack depth it needs)."""
+    op = p[0]
+    if op == "leaf":
+        return [(LEAF, int(p[1]))], 1
+    if op == "not":
+        code, depth = _encode(p[1])
+        return code + [(NOT, 0)], depth
+    if op not in _BINARY:
+        raise ValueError(f"unknown op {op!r}")
+    kids = [_encode(q) for q in p[1:]]
+    if op == "andnot":
+        first = kids[0]
+        rest = sorted(kids[1:], key=lambda k: -k[1])
+        if rest and rest[0][1] > first[1]:
+            order = [rest[0], first, *rest[1:]]
+            ops = [RANDNOT] + [ANDNOT] * (len(rest) - 1)
+        else:
+            order = [first, *rest]
+            ops = [ANDNOT] * len(rest)
+    else:
+        order = sorted(kids, key=lambda k: -k[1])
+        ops = [_BINARY[op]] * (len(kids) - 1)
+    code, depth = list(order[0][0]), order[0][1]
+    for (kid_code, kid_depth), o in zip(order[1:], ops):
+        code += kid_code
+        code.append((o, 0))
+        depth = max(depth, 1 + kid_depth)
+    return code, depth
+
+
+@functools.lru_cache(maxsize=4096)
+def encode_program(program) -> tuple:
+    """(codes, args, stack depth) of `program`'s postfix bytecode."""
+    code, depth = _encode(program)
+    codes, args = zip(*code)
+    return codes, args, depth
+
+
+def _check_program(program, n_leaves: int) -> tuple:
+    """`program`'s bytecode; raises where the kernel cannot run it."""
+    codes, args, depth = encode_program(program)
+    if depth > MAX_STACK:
+        raise ValueError(
+            f"program needs an operand stack of {depth} (kernel caps: stack "
+            f"{MAX_STACK}, reached only by a program over 2^{MAX_STACK} "
+            "leaves)")
+    if max(args) >= n_leaves:
+        raise ValueError("program references a missing leaf")
+    return codes, args
+
+
+def eval_program_plain(leaves, program) -> torch.Tensor:
+    """Evaluate a nested program over [S, W] leaves in plain torch — the
+    _eval of pilosa_tpu/parallel/mesh.py:197."""
+    op = program[0]
+    if op == "leaf":
+        return leaves[program[1]]
+    if op == "not":
+        return bv.bnot(eval_program_plain(leaves, program[1]))
+    fn = {"and": bv.band, "or": bv.bor, "xor": bv.bxor,
+          "andnot": bv.bandnot}.get(op)
+    if fn is None:
+        raise ValueError(f"unknown op {op!r}")
+    acc = eval_program_plain(leaves, program[1])
+    for q in program[2:]:
+        acc = fn(acc, eval_program_plain(leaves, q))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Argument checks
+# ---------------------------------------------------------------------------
+
+
+def _leaf_list(leaves) -> list:
+    if isinstance(leaves, torch.Tensor):
+        if leaves.dim() != 3:
+            raise ValueError(f"stacked leaves must be [L, S, W], got "
+                             f"{tuple(leaves.shape)}")
+        return list(leaves.unbind(0))
+    return list(leaves)
+
+
+def _check_planes(planes: Sequence[torch.Tensor]) -> torch.device:
+    if not planes:
+        raise ValueError("no leaves")
+    first = planes[0]
+    for t in planes:
+        if t.dtype != torch.int32:
+            raise TypeError(f"planes are int32 tensors, got {t.dtype}")
+        if t.dim() != 2 or t.shape != first.shape:
+            raise ValueError(f"leaves must share one [S, W] shape, got "
+                             f"{tuple(t.shape)} and {tuple(first.shape)}")
+        if t.device != first.device:
+            raise ValueError("leaves on different devices")
+        if not t.is_contiguous():
+            raise ValueError("leaves must be contiguous")
+    dev = first.device
+    if dev.type == "cuda":
+        if first.shape[1] % 4:
+            raise ValueError(f"W={first.shape[1]} must be a multiple of 4 "
+                             "for the kernels' 16-byte loads")
+        for t in planes:
+            if t.data_ptr() % 16:
+                raise ValueError("leaf storage must be 16-byte aligned")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _split(work_items: int, vec_per_item: int) -> int:
+    """Blocks per work item: enough blocks overall to fill the card, but
+    at least one 16-byte load per thread per block."""
+    want = -(-_TARGET_BLOCKS // max(work_items, 1))
+    most = max(1, vec_per_item // _THREADS)
+    return int(max(1, min(want, most, 65535)))
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _device_table(parts, dev: torch.device) -> torch.Tensor:
+    """int64 arrays concatenated into one table on the device (one
+    pinned host-to-device copy, ordered on the current stream)."""
+    table = torch.from_numpy(np.concatenate(parts).astype(np.int64))
+    return table.pin_memory().to(dev, non_blocking=True)
+
+
+def _load():
+    from pilosa_tpu_torch.ops import _build
+
+    return _build, _build.load()
+
+
+# ---------------------------------------------------------------------------
+# intersect_count
+# ---------------------------------------------------------------------------
+
+
+def intersect_count_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[S, W] x [S, W] -> int32[S] per-shard popcount(a & b)."""
+    return bv.intersect_count(a, b)
+
+
+def intersect_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[S, W] x [S, W] -> int32[S] per-shard intersection counts."""
+    dev = _check_planes([a, b])
+    if dev.type == "cpu":
+        return intersect_count_plain(a, b)
+    s, w = a.shape
+    out = torch.zeros(s, dtype=torch.int32, device=dev)
+    if s == 0:
+        return out
+    build, lib = _load()
+    w4 = w // 4
+    rc = lib.pbk_intersect_count(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                 s, w4, _split(s, w4), _stream(dev))
+    build.check(lib, rc, "intersect_count")
+    _count_launch("intersect_count")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# program_count
+# ---------------------------------------------------------------------------
+
+
+def program_count_plain(leaves, program) -> torch.Tensor:
+    """L x [S, W] + nested program -> int32[S] per-shard counts."""
+    return bv.popcount(eval_program_plain(_leaf_list(leaves), program))
+
+
+def program_count(leaves, program) -> torch.Tensor:
+    """L x [S, W] leaves (list or stacked [L, S, W]) + nested program ->
+    int32[S]: the whole program and its popcount in one pass, no
+    intermediate planes. The kernel reads the bytecode and a table of leaf
+    pointers from device memory, so neither is capped; raises only for a
+    program whose operand stack exceeds MAX_STACK (on any device)."""
+    leaves = _leaf_list(leaves)
+    dev = _check_planes(leaves)
+    codes, args = _check_program(program, len(leaves))
+    if dev.type == "cpu":
+        return program_count_plain(leaves, program)
+    s, w = leaves[0].shape
+    out = torch.zeros(s, dtype=torch.int32, device=dev)
+    if s == 0:
+        return out
+    build, lib = _load()
+    ptrs = np.array([t.data_ptr() for t in leaves], dtype=np.int64)
+    instr = (np.array(codes, dtype=np.int64)
+             | (np.array(args, dtype=np.int64) << 8))
+    meta = _device_table([ptrs, instr], dev)
+    w4 = w // 4
+    rc = lib.pbk_program_count(meta.data_ptr(), len(leaves), len(codes),
+                               out.data_ptr(), s, w4, _split(s, w4),
+                               _stream(dev))
+    build.check(lib, rc, "program_count")
+    _count_launch("program_count")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# pair_stream_counts
+# ---------------------------------------------------------------------------
+
+
+def _n_chunks(s: int) -> int:
+    return -(-s // SUM_SHARD_CHUNK)
+
+
+def _pair_fn(op: str):
+    if op not in PAIR_OPS:
+        raise ValueError(f"unknown pair op {op!r}")
+    return {"and": bv.band, "or": bv.bor, "xor": bv.bxor,
+            "andnot": bv.bandnot, "id": lambda a, b: a}[op]
+
+
+def _indices(ii, jj, n_leaves: int) -> tuple[np.ndarray, np.ndarray]:
+    ii = np.asarray(ii.cpu() if isinstance(ii, torch.Tensor) else ii,
+                    dtype=np.int64).reshape(-1)
+    jj = np.asarray(jj.cpu() if isinstance(jj, torch.Tensor) else jj,
+                    dtype=np.int64).reshape(-1)
+    if ii.shape != jj.shape:
+        raise ValueError("ii and jj differ in length")
+    if ii.size and (min(ii.min(), jj.min()) < 0
+                    or max(ii.max(), jj.max()) >= n_leaves):
+        raise ValueError("query index out of leaf range")
+    return ii, jj
+
+
+def pair_stream_counts_plain(leaves, ii, jj, op: str = "and") -> torch.Tensor:
+    """K queries op(leaves[ii[k]], leaves[jj[k]]) -> int32[K, C] partial
+    counts per 2016-shard chunk, C = ceil(S / 2016)."""
+    leaves = _leaf_list(leaves)
+    ii, jj = _indices(ii, jj, len(leaves))
+    fn = _pair_fn(op)
+    s = leaves[0].shape[0]
+    c = _n_chunks(s)
+    out = torch.zeros((len(ii), c), dtype=torch.int32,
+                      device=leaves[0].device)
+    for q, (i, j) in enumerate(zip(ii.tolist(), jj.tolist())):
+        per_shard = bv.popcount(fn(leaves[i], leaves[j])).to(torch.int64)
+        pad = c * SUM_SHARD_CHUNK - s
+        per_shard = torch.nn.functional.pad(per_shard, (0, pad))
+        out[q] = per_shard.view(c, SUM_SHARD_CHUNK).sum(dim=1).to(torch.int32)
+    return out
+
+
+def pair_stream_counts(leaves, ii, jj, op: str = "and") -> torch.Tensor:
+    """K queries op(leaves[ii[k]], leaves[jj[k]]) over L x [S, W] leaves
+    (list of resident tensors, or stacked [L, S, W]) -> int32[K, C]
+    partials per 2016-shard chunk. op in and/or/xor/andnot/id; id reads
+    only leaves[ii[k]]. The leaves are passed to the kernel as a device
+    table of pointers, so they are never restacked."""
+    leaves = _leaf_list(leaves)
+    dev = _check_planes(leaves)
+    if dev.type == "cpu":
+        return pair_stream_counts_plain(leaves, ii, jj, op)
+    code = PAIR_OPS.index(op) if op in PAIR_OPS else None
+    if code is None:
+        raise ValueError(f"unknown pair op {op!r}")
+    ii, jj = _indices(ii, jj, len(leaves))
+    s, w = leaves[0].shape
+    k = int(ii.size)
+    c = _n_chunks(s)
+    out = torch.zeros((k, c), dtype=torch.int32, device=dev)
+    if k == 0 or s == 0:
+        return out
+    build, lib = _load()
+    ptrs = np.array([t.data_ptr() for t in leaves], dtype=np.int64)
+    meta = _device_table([ptrs, ii, jj], dev)
+    w4 = w // 4
+    chunk_vec = min(s, SUM_SHARD_CHUNK) * w4
+    rc = lib.pbk_pair_stream_counts(meta.data_ptr(), len(leaves), k, code,
+                                    out.data_ptr(), s, w4, SUM_SHARD_CHUNK,
+                                    c, _split(k * c, chunk_vec), _stream(dev))
+    build.check(lib, rc, "pair_stream_counts")
+    _count_launch("pair_stream_counts")
+    return out

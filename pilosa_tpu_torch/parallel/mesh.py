@@ -1,0 +1,78 @@
+"""Device runner: bitmap programs over HBM-resident [S, W] leaves.
+
+Trimmed port of pilosa_tpu/parallel/mesh.py: the single-device
+DeviceRunner (put_leaf / row_leaves_dev / count_total_leaves, :479-611)
+and the nested-tuple programs of :192-216:
+
+    ("leaf", i) | ("not", p) | (op, p1, p2, ...), op in and/or/xor/andnot
+
+"not" complements the full shard width; the executor composes Not() as
+existence &~ child. Rows are evaluated with plain torch bitwise ops, as the
+reference leaves eval_row to XLA outside any Pallas kernel; counts go
+through the program_count kernel (intersect_count for the 2-leaf AND form)
+and finish in int64 on the host. On one device there are no pad shards.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pilosa_tpu_torch.device import planes_to_tensor, resolve_device
+from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.ops.bitvector import total_count
+
+_AND2 = ("and", ("leaf", 0), ("leaf", 1))
+
+
+class DeviceRunner:
+    """Executes bitmap programs over resident leaves on one device."""
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            self._self_check()
+
+    def _self_check(self) -> None:
+        """Run intersect_count on a small known input and raise on a
+        mismatch: a broken kernel build fails at server start, loudly,
+        not at the first query (the port's pallas_kernels.available())."""
+        rng = np.random.default_rng(0)
+        a = rng.integers(0, 2**32, size=(3, 64), dtype=np.uint64)
+        b = rng.integers(0, 2**32, size=(3, 64), dtype=np.uint64)
+        a, b = a.astype(np.uint32), b.astype(np.uint32)
+        a[0, :8] = 0xFFFFFFFF
+        b[0, :8] = 0xFFFFFFFF
+        a[1, :8] = 0x80000000
+        b[1, :8] = 0x80000000
+        want = np.unpackbits((a & b).view(np.uint8), axis=1).sum(axis=1)
+        got = kernels.intersect_count(planes_to_tensor(a, self.device),
+                                      planes_to_tensor(b, self.device))
+        got = got.cpu().numpy()
+        if not np.array_equal(got.astype(np.int64), want.astype(np.int64)):
+            raise RuntimeError(
+                f"intersect_count self-check failed on {self.device}: "
+                f"kernel {got.tolist()} != expected {want.tolist()}")
+
+    def put_leaf(self, rows: np.ndarray) -> torch.Tensor:
+        """Place one uint32 [S, W] leaf on the device as int32 planes."""
+        return planes_to_tensor(rows, self.device)
+
+    def row_leaves_dev(self, leaves: list, program) -> torch.Tensor:
+        """Dense result [S, W] of `program`, left on the device."""
+        return kernels.eval_program_plain(list(leaves), program)
+
+    def row_leaves(self, leaves: list, program) -> np.ndarray:
+        """Dense result as a host uint32 [S, W] array."""
+        out = self.row_leaves_dev(leaves, program)
+        return out.contiguous().cpu().numpy().view(np.uint32)
+
+    def count_total_leaves(self, leaves: list, program) -> int:
+        """Total popcount of `program`: per-shard int32 counts from the
+        kernels, summed in int64 on the host."""
+        leaves = list(leaves)
+        if program == _AND2 and len(leaves) == 2:
+            per_shard = kernels.intersect_count(leaves[0], leaves[1])
+        else:
+            per_shard = kernels.program_count(leaves, program)
+        return total_count(per_shard)

@@ -1,0 +1,220 @@
+"""Fragment: the (index, field, view, shard) storage unit.
+
+Trimmed copy of pilosa_tpu/storage/fragment.py (:192-560, :873): one
+roaring file with a CRC-framed WAL, snapshot compaction after MAX_OP_N ops,
+row generations and dense row materialization, in the reference's on-disk
+format. Left out: the frozen store, anti-entropy blocks, BSI values, mutex
+paths, corruption quarantine (a damaged file raises at open) and hints.
+
+Row r of the shard occupies absolute bit positions [r*2^20, (r+1)*2^20).
+"""
+
+from __future__ import annotations
+
+import fcntl
+import functools
+import os
+import threading
+from typing import Iterable, Optional
+
+import numpy as np
+
+from pilosa_tpu_torch.constants import MAX_OP_N, SHARD_WIDTH
+from pilosa_tpu_torch.storage.roaring import Bitmap, sorted_unique
+
+SNAPSHOT_EXT = ".snapshotting"
+LOCK_EXT = ".lock"
+
+
+def _locked(method):
+    """Serialize a mutating method under the per-fragment write lock."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        with self.mu:
+            return method(self, *args, **kwargs)
+    return wrapper
+
+
+def pos(row_id: int, column: int) -> int:
+    """Absolute bit position of (row, column-within-shard)."""
+    return row_id * SHARD_WIDTH + (column % SHARD_WIDTH)
+
+
+class Fragment:
+    """Host-authoritative storage for one shard of one view of one field."""
+
+    def __init__(self, path: str, index: str, field: str, view: str,
+                 shard: int, wal_fsync: bool = False):
+        self.path = path
+        self.index = index
+        self.field = field
+        self.view = view
+        self.shard = shard
+        self.wal_fsync = wal_fsync
+        self.mu = threading.RLock()  # snapshot() runs under bulk paths
+        self.storage = Bitmap()
+        self.op_n = 0
+        self._op_file = None
+        self._lock_file = None
+        self.closed = True
+        # row generations: bumped on any mutation touching the row; the
+        # device leaf cache keys on them
+        self.generation = 0
+        self._row_gen: dict[int, int] = {}
+        # torn WAL tail dropped at the last open
+        self.wal_truncated_bytes = 0
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def open(self) -> "Fragment":
+        """flock the sidecar lock file, parse snapshot + WAL, truncate a
+        torn WAL tail, attach the WAL appender."""
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self._lock_file = open(self.path + LOCK_EXT, "ab")
+        try:
+            fcntl.flock(self._lock_file.fileno(),
+                        fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            self._lock_file.close()
+            self._lock_file = None
+            raise RuntimeError(
+                f"fragment file locked by another process: {self.path}")
+        try:
+            # unbuffered: an acked op reaches the kernel before the write
+            # returns
+            self._op_file = open(self.path, "ab", buffering=0)
+            if os.path.getsize(self.path) == 0:
+                self.storage.write_snapshot(self._op_file)
+            with open(self.path, "rb") as f:
+                data = f.read()
+            self.storage = Bitmap.from_bytes(data, recover_wal=True)
+        except Exception:
+            if self._op_file is not None:
+                self._op_file.close()
+                self._op_file = None
+            self._lock_file.close()
+            self._lock_file = None
+            raise
+        if self.storage.wal_error is not None:
+            valid_end = self.storage.wal_valid_end
+            self.wal_truncated_bytes = len(data) - valid_end
+            os.truncate(self.path, valid_end)
+        self.op_n = self.storage.op_n
+        self.storage.op_writer = self._op_file
+        self.storage.op_sync = self.wal_fsync
+        self.closed = False
+        return self
+
+    def close(self) -> None:
+        if self._op_file is not None:
+            self._op_file.close()
+            self._op_file = None
+        self.storage.op_writer = None
+        if self._lock_file is not None:
+            self._lock_file.close()  # releases the flock
+            self._lock_file = None
+        self.closed = True
+
+    # -- mutation -----------------------------------------------------------
+
+    def _touch(self, row_id: int) -> None:
+        self.generation += 1
+        self._row_gen[row_id] = self.generation
+
+    def row_generation(self, row_id: int) -> int:
+        return self._row_gen.get(row_id, 0)
+
+    @_locked
+    def set_bit(self, row_id: int, column: int) -> bool:
+        """Set one bit; appends to the WAL, snapshots past MAX_OP_N."""
+        changed = self.storage.add(pos(row_id, column))
+        if changed:
+            self._touch(row_id)
+        self._increment_op_n()
+        return changed
+
+    @_locked
+    def clear_bit(self, row_id: int, column: int) -> bool:
+        changed = self.storage.remove(pos(row_id, column))
+        if changed:
+            self._touch(row_id)
+        self._increment_op_n()
+        return changed
+
+    def _increment_op_n(self) -> None:
+        self.op_n += 1
+        if self.op_n > MAX_OP_N:
+            self.snapshot()
+
+    def _bulk_positions(self, row_ids: Iterable[int],
+                        columns: Iterable[int]) -> tuple:
+        rows = np.asarray(row_ids, dtype=np.uint64)
+        cols = np.asarray(columns, dtype=np.uint64)
+        if rows.shape != cols.shape:
+            raise ValueError("row/column length mismatch")
+        positions = rows * np.uint64(SHARD_WIDTH) + cols % np.uint64(SHARD_WIDTH)
+        return rows, positions
+
+    @_locked
+    def bulk_import(self, row_ids: Iterable[int],
+                    columns: Iterable[int]) -> None:
+        """Bulk set: merge all bits, then one snapshot."""
+        rows, positions = self._bulk_positions(row_ids, columns)
+        self.storage.add_many(positions)
+        for rid in sorted_unique(rows).tolist():
+            self._touch(int(rid))
+        self.snapshot()
+
+    @_locked
+    def bulk_clear(self, row_ids: Iterable[int],
+                   columns: Iterable[int]) -> None:
+        """Bulk clear: remove all bits, then one snapshot."""
+        rows, positions = self._bulk_positions(row_ids, columns)
+        self.storage.remove_many(positions)
+        for rid in sorted_unique(rows).tolist():
+            self._touch(int(rid))
+        self.snapshot()
+
+    # -- reads --------------------------------------------------------------
+
+    def row_dense(self, row_id: int) -> np.ndarray:
+        """A row as a dense uint32[32768] bitvector."""
+        base = row_id * SHARD_WIDTH
+        return self.storage.to_dense_words(base, base + SHARD_WIDTH)
+
+    def row_columns(self, row_id: int) -> np.ndarray:
+        """Set columns of a row as shard-local int64 offsets."""
+        base = row_id * SHARD_WIDTH
+        return (self.storage.slice(base, base + SHARD_WIDTH)
+                - np.uint64(base)).astype(np.int64)
+
+    def row_ids(self) -> list[int]:
+        """Distinct row ids with any set bit, ascending."""
+        return sorted({key // 16 for key in self.storage.containers})
+
+    # -- snapshot / WAL compaction ------------------------------------------
+
+    @_locked
+    def snapshot(self) -> None:
+        """Rewrite the file as one snapshot (with integrity trailer) via a
+        temp file and an atomic rename; the WAL restarts empty."""
+        tmp = self.path + SNAPSHOT_EXT
+        if self._op_file is not None:
+            self._op_file.close()
+            self._op_file = None
+        try:
+            self.storage.optimize()
+            with open(tmp, "wb") as f:
+                self.storage.write_snapshot(f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self.path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            if not self.closed:
+                self._op_file = open(self.path, "ab", buffering=0)
+            self.storage.op_writer = self._op_file
+            self.storage.op_sync = self.wal_fsync
+        self.op_n = 0
+        self.storage.op_n = 0

@@ -1,0 +1,133 @@
+"""The port's CUDA kernels and server on an NVIDIA card.
+
+Imports neither JAX nor pilosa_tpu, so it runs on a machine that has only
+PyTorch. Run on the card with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_card.py
+
+(--noconftest: tests/conftest.py sets up JAX). Without a card the gpu tests
+skip; the tests that check the port refuses a missing card run anywhere.
+Kernel and plain version agree exactly (integer counts, tolerance 0).
+"""
+
+import json
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from pilosa_tpu_torch.device import resolve_device
+from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.parallel.mesh import DeviceRunner
+from pilosa_tpu_torch.server import Server
+
+PROGRAMS = [
+    ("leaf", 0),
+    ("and", ("leaf", 0), ("leaf", 1)),
+    ("andnot", ("or", ("leaf", 0), ("leaf", 1)), ("leaf", 2)),
+    ("not", ("xor", ("leaf", 0), ("leaf", 1))),
+    ("and", ("leaf", 0), ("leaf", 1), ("leaf", 2), ("leaf", 3), ("leaf", 4)),
+    ("or", ("and", ("leaf", 0), ("not", ("leaf", 3))),
+     ("xor", ("leaf", 1), ("andnot", ("leaf", 2), ("leaf", 4), ("leaf", 0)))),
+    # the minuend goes after its deeper subtrahend (RANDNOT)
+    ("andnot", ("leaf", 4), ("or", ("leaf", 0), ("xor", ("leaf", 1),
+                                                 ("leaf", 2)))),
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _planes(rng, device, *shape) -> torch.Tensor:
+    x = rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
+    x[..., :7] = 0xFFFFFFFF
+    x[..., 7:13] = 0x80000000
+    return torch.from_numpy(x.view(np.int32)).to(device)
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceRunner()  # the default device is cuda
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,w", [(3, 64), (2100, 256), (64, 32768)])
+def test_kernels_match_plain_on_card(cuda_device, s, w):
+    rng = np.random.default_rng(s)
+    rows = list(_planes(rng, cuda_device, 5, s, w).unbind(0))
+    kernels.reset_launch_counts()
+    assert torch.equal(kernels.intersect_count(rows[0], rows[1]),
+                       kernels.intersect_count_plain(rows[0], rows[1]))
+    for program in PROGRAMS:
+        assert torch.equal(kernels.program_count(rows, program),
+                           kernels.program_count_plain(rows, program)), program
+    wide = ("xor", *[("leaf", i) for i in range(40)])  # 40 leaf pointers
+    many = [rows[i % 5] for i in range(40)]
+    assert torch.equal(kernels.program_count(many, wide),
+                       kernels.program_count_plain(many, wide))
+    ii = rng.integers(0, 5, size=300)
+    jj = rng.integers(0, 5, size=300)
+    for op in kernels.PAIR_OPS:
+        assert torch.equal(kernels.pair_stream_counts(rows, ii, jj, op),
+                           kernels.pair_stream_counts_plain(rows, ii, jj, op)), op
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"pair_stream_counts": 5,
+                                       "program_count": len(PROGRAMS) + 1,
+                                       "intersect_count": 1}
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_instead_of_falling_back(cuda_device):
+    x = torch.zeros((4, 30), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kernels.intersect_count(x, x)
+    deep = ("leaf", 0)
+    for _ in range(16):  # a complete tree over 2^16 leaves: stack 17
+        deep = ("and", deep, deep)
+    y = torch.zeros((4, 32), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="caps"):
+        kernels.program_count([y], deep)
+
+
+@pytest.mark.gpu
+def test_server_on_card_matches_numpy(cuda_device, tmp_path):
+    rng = np.random.default_rng(9)
+    cols = [np.unique(rng.integers(0, 3 << 20, size=30000)) for _ in range(3)]
+    srv = Server(str(tmp_path / "d"), port=0).open()  # device defaults to cuda
+    try:
+        def post(path, body):
+            req = urllib.request.Request(srv.uri + path, data=body.encode(),
+                                         method="POST")
+            with urllib.request.urlopen(req) as resp:
+                return json.loads(resp.read())
+
+        post("/index/i", "{}")
+        post("/index/i/field/f", "{}")
+        for r, c in enumerate(cols):
+            srv.api.import_bits("i", "f", np.full(c.size, r), c)
+        a, b, c = (set(x.tolist()) for x in cols)
+        exists = a | b | c
+        want = {
+            "Count(Row(f=0))": len(a),
+            "Count(Intersect(Row(f=0), Row(f=1)))": len(a & b),
+            "Count(Intersect(Row(f=0), Row(f=1), Row(f=2)))": len(a & b & c),
+            "Count(Union(Row(f=0), Row(f=2)))": len(a | c),
+            "Count(Not(Row(f=1)))": len(exists - b),
+            "Count(Xor(Row(f=1), Union(Row(f=0), Row(f=2))))":
+                len(b ^ (a | c)),
+        }
+        for pql, n in want.items():
+            assert post("/index/i/query", pql)["results"] == [n], pql
+        got = post("/index/i/query?shards=1", "Row(f=2)")["results"][0]
+        assert got["columns"] == sorted(x for x in c if (x >> 20) == 1)
+    finally:
+        srv.close()
