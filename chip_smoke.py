@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
    the kernels built from pilosa_tpu_torch/csrc with nvcc.
-2. Server (the main path): the port's Server on a temp data dir; an index
+2. Server, Count path: the port's Server on a temp data dir; an index
    with existence tracking and a set field of 8 rows over 1024 shards
    (8.5k-40k bits per shard and row) loaded through API.import_bits plus
    one JSON import; PQL over HTTP, including Counts over 40 Rows (40
@@ -18,15 +18,32 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    last query: every kernel of the path must have launched. With
    --profile, a further concurrent pass runs under torch.profiler and the
    device's idle share over it is printed.
-3. Kernels at full width: W = 32768 words, S = 1024 shards (1.07B
+3. Server, BSI path, on the same server and index (BASELINE.json
+   configs[3], "BSI int field Range + Sum/Min/Max over 1B rows", the field
+   of bench.py:837-842): an int field v with min 0 and max 1023 (depth 10)
+   over the same 1024 shards. One reduction: values on 32768 random
+   columns per shard (33.5M, uniform 0..1023) instead of every column;
+   the device slab (11 planes of 128 MiB) is the same whatever the fill.
+   Loaded through API.import_values, one JSON values import and a few
+   Set(col, v=x) over HTTP; the cold slab build is timed apart; Sum, Min,
+   Max (with and without a filter on f), Range counts, BETWEEN, != null,
+   Not, a clamp and a ?shards= column list checked against a numpy
+   oracle; then 32 clients x 16 Sum(Range(v > x), field=v) with varying
+   thresholds (bench.py:870), every answer checked. Launch counts are
+   zeroed before the phase: bsi_compare and bsi_sum_counts must launch,
+   and the sum batcher must coalesce.
+4. Kernels at full width: W = 32768 words, S = 1024 shards (1.07B
    columns), random planes from a seeded torch.Generator on the card. Each
    kernel is held against its plain torch version, exactly (integer
    counts, tolerance 0): pair_stream_counts for all 5 ops at K = 1024 over
    a 32-row slab (4 GiB), and at the batch sizes the server issued (its
    mean batch, and the batcher's cap of 512) over 8 rows; program_count on
    a 4-leaf program with xor/andnot/not and on a 40-leaf one;
-   intersect_count. Times by CUDA events (warm, median).
-4. The last lines: nvidia-smi's name and power limit, one JSON object with
+   intersect_count; bsi_compare for all 6 ops at depth 10 and gt at depth
+   32 (4 GiB of planes); bsi_sum_counts at K = 1 and the served mean
+   batch at depth 10, and K = 1 at depth 32. Times by CUDA events (warm,
+   median).
+5. The last lines: nvidia-smi's name and power limit, one JSON object with
    a record per kernel, and {"ok": true, "device": {...}}.
 
 Bounds: the larger of the bytes each input read once over HBM's 3.35 TB/s
@@ -63,7 +80,16 @@ REPLACES = {
     "pair_stream_counts": "pilosa_tpu/ops/pallas_kernels.py:234",
     "program_count": "pilosa_tpu/ops/pallas_kernels.py:108",
     "intersect_count": "pilosa_tpu/ops/pallas_kernels.py:59",
+    "bsi_compare": "pilosa_tpu/ops/pallas_kernels.py:451",
+    "bsi_sum_counts": "pilosa_tpu/ops/pallas_kernels.py:504",
 }
+COUNT_KERNELS = ("pair_stream_counts", "program_count", "intersect_count")
+BSI_KERNELS = ("bsi_compare", "bsi_sum_counts")
+BSI_DEPTH = 10  # the int field v: min 0, max 1023
+# int32 operations per plane word of the compare sweep (lt/gt: and, not,
+# or, xor, not, and) and of the sum (and, add; plus one __popc)
+CMP_OPS_PER_PLANE_WORD = 6
+SUM_OPS_PER_PLANE_WORD = 2
 # the 4-leaf program_count case: per word 4 combining ops, a popc, an add
 PROGRAM = ("or", ("xor", ("leaf", 0), ("leaf", 1)),
            ("andnot", ("leaf", 2), ("not", ("leaf", 3))))
@@ -243,6 +269,97 @@ def kernel_phase(device, n_shards: int, words: int, slab_rows: int,
     return out
 
 
+def bsi_kernel_phase(device, n_shards: int, words: int, k_served: int,
+                     seed: int, runs: int) -> dict:
+    """bsi_compare and bsi_sum_counts against their plain versions at
+    depth 10 (the served field) and depth 32; the record's numbers are
+    taken at the shapes the server gave each kernel (gt over depth 10, the
+    sum batcher's mean batch)."""
+    import torch
+
+    from pilosa_tpu_torch.ops import bsi, kernels
+
+    rates = int_rates()
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    plane_bytes = n_shards * words * 4
+    n_words = n_shards * words
+
+    def rand(*shape):
+        t = torch.randint(-2**31, 2**31, shape, dtype=torch.int64,
+                          device=device, generator=gen).to(torch.int32)
+        t[..., :64] = -1           # all-ones words
+        t[..., 64:96] = -2**31     # 0x80000000
+        return t
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"(max abs err {err})")
+        return err
+
+    out = {"bsi_compare": {}, "bsi_sum_counts": {}}
+    for depth in (BSI_DEPTH, 32):
+        planes = torch.empty((depth, n_shards, words), dtype=torch.int32,
+                             device=device)
+        for d in range(depth):
+            planes[d] = rand(n_shards, words)
+        exists = rand(n_shards, words)
+        bits = bsi.value_to_bits(
+            int(np.random.default_rng(seed).integers(1, 1 << depth)), depth)
+        ops = kernels.BSI_OPS if depth == BSI_DEPTH else ("gt",)
+        for op in ops:
+            name = f"bsi_compare[{op}] D={depth}"
+            check(name, kernels.bsi_compare(planes, exists, bits, op),
+                  kernels.bsi_compare_plain(planes, exists, bits, op))
+            ms = cuda_ms(lambda: kernels.bsi_compare(planes, exists, bits, op),
+                         runs)
+            plain = cuda_ms(
+                lambda: kernels.bsi_compare_plain(planes, exists, bits, op),
+                3, 1)
+            # each input once (planes, exists, predicate), the mask out
+            nbytes = (depth + 2) * plane_bytes + depth * 4
+            b_ms, b_by = bound(nbytes,
+                               CMP_OPS_PER_PLANE_WORD * depth * n_words, 0.0,
+                               rates)
+            out["bsi_compare"][f"{op} D={depth}"] = {
+                "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                "bound_by": b_by, "bytes_once": nbytes}
+            log(f"  {name}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by "
+                f"{b_by}), plain {plain:.2f} ms, exact")
+        for k in sorted({1, k_served} if depth == BSI_DEPTH else {1}):
+            filters = [exists] + [rand(n_shards, words) for _ in range(k - 1)]
+            name = f"bsi_sum_counts K={k} D={depth}"
+            check(name, kernels.bsi_sum_counts(planes, filters),
+                  kernels.bsi_sum_counts_plain(planes, filters))
+            ms = cuda_ms(lambda: kernels.bsi_sum_counts(planes, filters), runs)
+            plain = cuda_ms(
+                lambda: kernels.bsi_sum_counts_plain(planes, filters), 3, 1)
+            nbytes = (depth + k) * plane_bytes + k * (depth + 1) * n_shards * 4
+            b_ms, b_by = bound(nbytes,
+                               SUM_OPS_PER_PLANE_WORD * k * depth * n_words,
+                               1.0 * k * (depth + 1) * n_words, rates)
+            out["bsi_sum_counts"][f"K={k} D={depth}"] = {
+                "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                "bound_by": b_by, "bytes_once": nbytes}
+            log(f"  {name}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by "
+                f"{b_by}), plain {plain:.2f} ms, exact")
+            del filters
+        del planes, exists
+        torch.cuda.empty_cache()
+    cmp_ = out["bsi_compare"]
+    sums = out["bsi_sum_counts"]
+    return {
+        "bsi_compare": {**cmp_[f"gt D={BSI_DEPTH}"], "max_abs_err": 0,
+                        "shape": f"gt D={BSI_DEPTH}", "all": cmp_},
+        "bsi_sum_counts": {**sums[f"K={k_served} D={BSI_DEPTH}"],
+                           "max_abs_err": 0,
+                           "shape": f"K={k_served} D={BSI_DEPTH}",
+                           "all": sums},
+    }
+
+
 # ----------------------------------------------------------------- server
 
 
@@ -293,6 +410,197 @@ def packed_row(cols: np.ndarray, n_shards: int) -> np.ndarray:
     return np.packbits(bits, bitorder="little")
 
 
+def _bit_test(packed: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """Whether each global column is set in a little-endian packed row."""
+    return ((packed[cols >> 3] >> (cols & 7).astype(np.uint8)) & 1).astype(bool)
+
+
+def make_values(n_shards: int, per_shard: int, seed: int):
+    """(sorted global columns, values): per_shard distinct random columns
+    in every shard, values uniform in 0..1023."""
+    rng = np.random.default_rng(seed + 7)
+    offs = np.stack([rng.choice(SHARD_WIDTH, size=per_shard, replace=False)
+                     for _ in range(n_shards)])
+    offs.sort(axis=1)
+    cols = (np.arange(n_shards, dtype=np.int64)[:, None] * SHARD_WIDTH
+            + offs).reshape(-1)
+    vals = rng.integers(0, 1 << BSI_DEPTH, size=cols.size, dtype=np.int64)
+    return cols, vals
+
+
+def last_wins(cols: np.ndarray, vals: np.ndarray) -> tuple:
+    """Sorted unique columns with the last value written to each."""
+    order = np.argsort(cols, kind="stable")
+    cols, vals = cols[order], vals[order]
+    last = np.concatenate([cols[1:] != cols[:-1], [True]])
+    return cols[last], vals[last]
+
+
+def bsi_phase(srv, port: int, packed: list, exists: np.ndarray,
+              n_shards: int, per_shard: int, seed: int, clients: int,
+              per_client: int) -> dict:
+    """The BSI path on the Count phase's server and index; its own launch
+    counts (zeroed before its first query, read after its last)."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    cols, vals = make_values(n_shards, per_shard, seed)
+    log(f"  bsi data: {cols.size} values over {n_shards} shards "
+        f"({per_shard} columns per shard, reduced from {SHARD_WIDTH}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    _http(port, "POST", "/index/i/field/v", json.dumps(
+        {"options": {"type": "int", "min": 0,
+                     "max": (1 << BSI_DEPTH) - 1}}).encode())
+    t0 = time.perf_counter()
+    srv.api.import_values("i", "v", cols, vals)
+    rng = np.random.default_rng(seed + 8)
+    n_total = n_shards * SHARD_WIDTH
+    json_cols = np.concatenate([rng.choice(cols, size=500, replace=False),
+                                rng.integers(0, n_total, size=500)])
+    json_vals = rng.integers(0, 1 << BSI_DEPTH, size=json_cols.size)
+    _http(port, "POST", "/index/i/field/v/import", json.dumps(
+        {"columnIDs": json_cols.tolist(),
+         "values": json_vals.tolist()}).encode())
+    set_cols = np.array([int(cols[0]), int(cols[-1]), 3, n_total - 1],
+                        dtype=np.int64)
+    set_vals = np.array([1023, 0, 7, 512], dtype=np.int64)
+    for c, x in zip(set_cols.tolist(), set_vals.tolist()):
+        _http(port, "POST", "/index/i/query", f"Set({c}, v={x})".encode())
+    import_s = time.perf_counter() - t0
+    log(f"  bsi import: {import_s:.1f} s")
+    cols, vals = last_wins(np.concatenate([cols, json_cols, set_cols]),
+                           np.concatenate([vals, json_vals, set_vals]))
+    hist = np.bincount(vals, minlength=1 << BSI_DEPTH).astype(np.int64)
+    wsum = hist * np.arange(hist.size, dtype=np.int64)
+    in_f1 = _bit_test(packed[1], cols)
+    in_f0 = _bit_test(packed[0], cols)
+    n_exists = _popcount(exists) + int((~_bit_test(exists, cols)).sum())
+
+    def vc(sel) -> dict:
+        return {"value": int(vals[sel].sum()), "count": int(sel.sum())}
+
+    def extreme(sel, fn) -> dict:
+        if not sel.any():
+            return {"value": 0, "count": 0}
+        x = int(fn(vals[sel]))
+        return {"value": x, "count": int((vals[sel] == x).sum())}
+
+    def query(pql: str, path: str = "/index/i/query"):
+        return _http(port, "POST", path, pql.encode())["results"][0]
+
+    kernels.reset_launch_counts()  # the BSI path starts here
+    t0 = time.perf_counter()
+    got = query("Sum(field=v)")
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    if got != vc(np.ones(vals.size, bool)):
+        raise AssertionError(f"Sum(field=v): port {got}")
+    log(f"  cold Sum(field=v) (plane slab built from the fragments): "
+        f"{cold_ms:.1f} ms")
+    everything = np.ones(vals.size, bool)
+    checks = [
+        ("Sum(field=v)", vc(everything)),
+        ("Sum(Range(v > 511), field=v)",
+         {"value": int(wsum[512:].sum()), "count": int(hist[512:].sum())}),
+        ("Sum(Row(f=1), field=v)", vc(in_f1)),
+        ("Min(field=v)", extreme(everything, np.min)),
+        ("Max(field=v)", extreme(everything, np.max)),
+        ("Min(Row(f=1), field=v)", extreme(in_f1, np.min)),
+        ("Max(Intersect(Row(f=0), Row(f=1)), field=v)",
+         extreme(in_f0 & in_f1, np.max)),
+        ("Count(Range(v >< [100, 200]))", int(hist[100:201].sum())),
+        ("Count(Intersect(Row(f=0), Range(v < 300)))",
+         int((in_f0 & (vals < 300)).sum())),
+        ("Count(Range(v != null))", int(vals.size)),
+        ("Count(Not(Range(v == 7)))", n_exists - int(hist[7])),
+        ("Count(Range(v > 5000))", 0),
+    ]
+    t0 = time.perf_counter()
+    for pql, want in checks:
+        got = query(pql)
+        if got != want:
+            raise AssertionError(f"{pql}: port {got} != oracle {want}")
+        log(f"  {pql} = {got} (oracle agrees)")
+    sub = [s for s in (0, 1) if s < n_shards]
+    got = query("Range(v == 7)", "/index/i/query?shards="
+                + ",".join(map(str, sub)))
+    want_cols = cols[(vals == 7) & (cols < (max(sub) + 1) * SHARD_WIDTH)]
+    if got["columns"] != want_cols.tolist():
+        raise AssertionError("Range(v == 7) ?shards=0,1 differs from the "
+                             "oracle")
+    log(f"  Range(v == 7) ?shards={sub}: {want_cols.size} columns "
+        "(oracle agrees)")
+    single_s = time.perf_counter() - t0
+
+    lat: list = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def client(cid: int) -> None:
+        conn = http.client.HTTPConnection("localhost", port, timeout=600)
+        try:
+            for i in range(per_client):
+                x = 128 + 8 * ((cid * per_client + i) % 96)
+                q = f"Sum(Range(v > {x}), field=v)"
+                t = time.perf_counter()
+                got = _http(port, "POST", "/index/i/query", q.encode(),
+                            conn)["results"][0]
+                dt = time.perf_counter() - t
+                want = {"value": int(wsum[x + 1:].sum()),
+                        "count": int(hist[x + 1:].sum())}
+                with lock:
+                    lat.append(dt)
+                    if got != want:
+                        errors.append((q, got, want))
+        finally:
+            conn.close()
+
+    batcher = srv.executor.sum_batcher
+    before = batcher.snapshot()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors or len(lat) != clients * per_client:
+        raise AssertionError(
+            f"{len(errors)} concurrent Sums differ, "
+            f"{clients * per_client - len(lat)} missing; first {errors[:1]}")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()  # the BSI path ends here
+    after = batcher.snapshot()
+    res = srv.executor.residency.snapshot()
+    stats = {
+        "queries": len(lat), "qps": len(lat) / wall,
+        "p50_ms": statistics.median(lat) * 1e3,
+        "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "max_batch_seen": after["max_batch_seen"],
+        "batches": after["batches"] - before["batches"],
+        "batched_queries": after["batched_queries"]
+        - before["batched_queries"],
+        "values": int(vals.size), "per_shard": per_shard,
+        "import_s": import_s, "cold_slab_query_ms": cold_ms,
+        "single_queries_s": single_s, "resident_bytes": res["bytes"],
+        "resident_entries": res["entries"],
+    }
+    log(f"  concurrent: {clients} clients x {per_client} Sum(Range(v > x), "
+        f"field=v): {stats['qps']:.1f} q/s, p50 {stats['p50_ms']:.2f} ms, "
+        f"p99 {stats['p99_ms']:.2f} ms, max_batch_seen "
+        f"{stats['max_batch_seen']} ({stats['batches']} batches)")
+    log(f"  resident leaves: {res['entries']} entries, {res['bytes']} bytes")
+    log(f"  launches on the BSI path: {launches}")
+    for name in BSI_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the BSI path")
+    if stats["max_batch_seen"] < 2:
+        raise AssertionError("the PlaneSumBatcher never coalesced")
+    return {"launches": launches, "stats": stats}
+
+
 def device_busy_ms(prof) -> float | None:
     """Union of the device intervals a torch.profiler run recorded, in ms
     (None where it recorded none)."""
@@ -314,7 +622,10 @@ def device_busy_ms(prof) -> float | None:
 
 
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
-                 clients: int, per_client: int, profile: bool) -> dict:
+                 clients: int, per_client: int, profile: bool,
+                 bsi: tuple) -> dict:
+    """The Count path, then the BSI path on the same server and index
+    (bsi = values per shard, seed, clients, queries per client)."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels
@@ -487,15 +798,16 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                        if busy is None else
                        f"{busy:.3f} ms, idle share "
                        f"{stats['device_idle_share']:.4f}"))
-            log(f"  launches on the main path: {launches}")
-            for name in ("pair_stream_counts", "program_count",
-                         "intersect_count"):
+            log(f"  launches on the Count path: {launches}")
+            for name in COUNT_KERNELS:
                 if launches[name] < 1:
                     raise AssertionError(
-                        f"{name} never launched on the main path")
+                        f"{name} never launched on the Count path")
             if stats["max_batch_seen"] < 2:
                 raise AssertionError("the CountBatcher never coalesced")
-            return {"launches": launches, "stats": stats}
+            log("phase 3: BSI path on the same server")
+            bsi_served = bsi_phase(srv, port, p, exists, n_shards, *bsi)
+            return {"launches": launches, "stats": stats, "bsi": bsi_served}
         finally:
             srv.close()
 
@@ -513,6 +825,10 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--clients", type=int, default=32)
     ap.add_argument("--per-client", type=int, default=64)
+    ap.add_argument("--bsi-per-shard", type=int, default=32768,
+                    help="int values per shard of the BSI phase")
+    ap.add_argument("--bsi-clients", type=int, default=32)
+    ap.add_argument("--bsi-per-client", type=int, default=16)
     ap.add_argument("--profile", action="store_true",
                     help="after the measured pass, run one more under "
                          "torch.profiler and print the device's idle share")
@@ -539,28 +855,36 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
-    log(f"phase 2: server over {args.shards} shards")
+    log(f"phase 2: server over {args.shards} shards, Count path")
     served = server_phase(device, args.shards, args.rows, args.seed,
-                          args.clients, args.per_client, args.profile)
+                          args.clients, args.per_client, args.profile,
+                          (args.bsi_per_shard, args.seed, args.bsi_clients,
+                           args.bsi_per_client))
     st = served["stats"]
     k_served = max(1, round(st["batched_queries"] / max(st["batches"], 1)))
+    bst = served["bsi"]["stats"]
+    k_sum = max(1, round(bst["batched_queries"] / max(bst["batches"], 1)))
 
-    log(f"phase 3: kernels at S={args.shards}, W=32768 (served mean "
-        f"batch K={k_served})")
+    log(f"phase 4: kernels at S={args.shards}, W=32768 (served mean "
+        f"batches: pair stream K={k_served}, BSI sum K={k_sum})")
     measured = kernel_phase(device, args.shards, 32768, args.slab_rows,
                             args.k, k_served, args.seed, args.runs)
+    measured.update(bsi_kernel_phase(device, args.shards, 32768, k_sum,
+                                     args.seed, args.runs))
 
     records = []
     for name, m in measured.items():
+        launches = (served["bsi"] if name in BSI_KERNELS
+                    else served)["launches"][name]
         records.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name],
-            "launches": served["launches"][name],
+            "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None})
     log("  library_ms: none (no single PyTorch call computes a popcount of "
-        "a bitwise op)")
+        "a bitwise op, a bit-sliced comparison or per-plane filtered "
+        "popcounts)")
     log(f"  details: {json.dumps({'kernels': measured, **served})}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi_name)

@@ -1,9 +1,10 @@
 """API: the validated facade over holder + executor.
 
 Trimmed port of pilosa_tpu/api.py: create/delete index (with
-trackExistence), create field, bulk import with existence marking,
-queries, schema and status. Result JSON is the reference's
-(api.py:567-603) for the result types of this slice: Row, int and bool.
+trackExistence), create field, bulk imports of bits and of int values
+with existence marking (api.py:820-842), queries, schema and status.
+Result JSON is the reference's (api.py:567-603) for the result types of
+this slice: Row, ValCount ({"value", "count"}), int and bool.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Optional
 import numpy as np
 
 from pilosa_tpu_torch import __version__
-from pilosa_tpu_torch.executor import ExecutionError, Executor
+from pilosa_tpu_torch.executor import ExecutionError, Executor, ValCount
 from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.models.row import Row
@@ -72,6 +73,8 @@ class API:
             d = result.to_json_dict()
             d.setdefault("attrs", {})
             return d
+        if isinstance(result, ValCount):
+            return result.to_json_dict()
         return result  # int / bool
 
     # -- schema -------------------------------------------------------------
@@ -137,6 +140,27 @@ class API:
             # clears do not retract existence: other fields may still
             # hold the column
             index.mark_exists(cols)
+
+    def import_values(self, index_name: str, field_name: str,
+                      column_ids, values) -> None:
+        """Bulk import of int values (the last value of a column wins);
+        marks the columns in the existence field."""
+        index = self.holder.index(index_name)
+        if index is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        f = index.field(field_name)
+        if f is None:
+            raise NotFoundError(f"field not found: {field_name}")
+        if column_ids is None or values is None:
+            raise ApiError("import requires columns and values")
+        cols = np.asarray(column_ids, dtype=np.int64).reshape(-1)
+        if cols.size and cols.min() < 0:
+            raise ApiError("column ids must be non-negative")
+        try:
+            f.import_values(cols, values)
+        except ValueError as e:
+            raise ApiError(str(e))
+        index.mark_exists(cols)
 
     # -- status -------------------------------------------------------------
 

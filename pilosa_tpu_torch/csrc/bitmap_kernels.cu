@@ -1,6 +1,7 @@
-// Hand-written Hopper (sm_90a) kernels for the dense bitmap read path.
+// Hand-written Hopper (sm_90a) kernels for the dense bitmap read path and
+// the bit-sliced integer (BSI) path.
 //
-// Three kernels, one device code base:
+// Five kernels, one device code base. The dense read path:
 //
 //   pbk_pair_stream_counts  replaces pilosa_tpu/ops/pallas_kernels.py
 //       pair_stream_counts (:234, body _pair_stream_kernel :216) and the
@@ -30,6 +31,39 @@
 //     (exact in any order). A loop inside the block replaces the Pallas
 //     grid's sequential shard axis; grid dimensions split a query or a
 //     shard row across enough blocks to fill the 132 SMs.
+//
+// The BSI path (planes [D, S, W]: plane d holds bit d of every column's
+// stored value; exists [S, W] is the not-null row):
+//
+//   pbk_bsi_compare         replaces pallas_kernels.py bsi_compare (:451,
+//       body _bsi_compare_kernel :414): the lt/lte/gt/gte/eq/neq sweep over
+//       the planes -> match mask int32[S, W].
+//   pbk_bsi_sum_counts      replaces pallas_kernels.py bsi_sum_counts (:504,
+//       body _bsi_sum_kernel :485) and the batcher's XLA form
+//       pilosa_tpu/parallel/batcher.py _batched_plane_sums (:590): for K
+//       filters, popcount(plane_d & filter_k) per plane and shard plus the
+//       filter's own count -> int32[K, D+1, S].
+//
+// Bound: both read every plane word once and do a few integer operations
+// on it, so memory bounds them (bytes / 3.35 TB/s): D + 1 planes of
+// S x 128 KiB in, plus the 128 KiB-per-shard mask out for the compare.
+//
+// Design of the BSI kernels:
+//   * bsi_compare: one thread per 16-byte vector keeps `matched` and
+//     `remaining` (or `r` for eq/neq) in registers while it walks the
+//     planes in the op's order, so each plane word is read once and no
+//     intermediate reaches HBM. The predicate is a device int32[D] of
+//     bits, read as broadcasts; each bit becomes an all-ones or all-zeros
+//     mask (0u - bit). The op is one of six template instantiations picked
+//     at run time: nothing is compiled per query.
+//   * bsi_sum_counts: a block takes (filter k, shard s, a slice of 4096
+//     words), keeps its filter words in registers, then loops over the D
+//     planes: per plane a warp-shuffle sum into shared memory, and one
+//     block-wide pass per 32 planes that adds each (k, d, s) partial with
+//     one integer atomicAdd into the zeroed output (exact in any order).
+//     Planes are reduced in chunks of 32, so the depth is not capped. The
+//     Pallas kernel carried these sums across its sequential word-block
+//     grid axis in the output tile; on Hopper the atomics replace that.
 //
 // Every C entry point returns cudaGetLastError() right after its launch.
 
@@ -197,6 +231,133 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------------------ BSI
+
+// comparison ops (ops/kernels.py BSI_OPS order)
+constexpr int kLt = 0;
+constexpr int kLte = 1;
+constexpr int kGt = 2;
+constexpr int kGte = 3;
+constexpr int kEq = 4;
+constexpr int kNeq = 5;
+
+__device__ __forceinline__ uint4 splat(unsigned m) {
+  return make_uint4(m, m, m, m);
+}
+
+// all-ones when predicate bit i is 1, all-zeros when it is 0
+__device__ __forceinline__ uint4 pred_mask(const int* __restrict__ pred,
+                                           int i) {
+  return splat(0u - (static_cast<unsigned>(__ldg(pred + i)) & 1u));
+}
+
+// grid-stride over the n 16-byte vectors of one [S, W] plane; plane d
+// starts at planes + d * n
+template <int kCmp>
+__global__ void __launch_bounds__(kThreads)
+    bsi_compare_kernel(const uint4* __restrict__ planes,
+                       const uint4* __restrict__ exists,
+                       const int* __restrict__ pred, int depth,
+                       uint4* __restrict__ out, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long idx = static_cast<long long>(blockIdx.x) * kThreads +
+                       threadIdx.x;
+       idx < n; idx += stride) {
+    const uint4 ex = __ldg(exists + idx);
+    uint4 r;
+    if (kCmp == kEq || kCmp == kNeq) {
+      r = ex;
+#pragma unroll 4
+      for (int i = 0; i < depth; ++i) {
+        // keep the columns whose plane bit equals the predicate bit
+        const uint4 p = __ldg(planes + i * n + idx);
+        r = and4(r, not4(xor4(p, pred_mask(pred, i))));
+      }
+      if (kCmp == kNeq) r = andnot4(ex, r);
+    } else {
+      uint4 matched = splat(0u);
+      uint4 remaining = ex;  // columns equal to the predicate so far
+#pragma unroll 4
+      for (int i = depth - 1; i >= 0; --i) {
+        const uint4 m = pred_mask(pred, i);
+        const uint4 p = __ldg(planes + i * n + idx);
+        if (kCmp == kLt || kCmp == kLte) {
+          // predicate bit 1: a 0 here is strictly less
+          matched = or4(matched, and4(andnot4(remaining, p), m));
+        } else {
+          // predicate bit 0: a 1 here is strictly greater
+          matched = or4(matched, andnot4(and4(remaining, p), m));
+        }
+        remaining = and4(remaining, not4(xor4(p, m)));
+      }
+      if (kCmp == kLte || kCmp == kGte) matched = or4(matched, remaining);
+      r = matched;
+    }
+    out[idx] = r;
+  }
+}
+
+// filter vectors a thread keeps in registers, and planes per shared pass
+constexpr int kSumVec = 4;
+constexpr int kSumChunk = 32;
+constexpr int kSumSpan = kThreads * kSumVec;  // 16-byte vectors per block
+
+// grid (S * parts, K): block (s * parts + part, k) counts vectors
+// [part * kSumSpan, (part + 1) * kSumSpan) of shard s against filter k.
+// filters = K filter pointers as int64 on the device.
+__global__ void __launch_bounds__(kThreads)
+    bsi_sum_kernel(const uint4* __restrict__ planes,
+                   const long long* __restrict__ filters, int depth,
+                   int* __restrict__ out, long long n_shards, long long w4,
+                   int parts) {
+  __shared__ unsigned sums[kSumChunk][kThreads / 32];
+  const long long shard = blockIdx.x / parts;
+  const long long lo = static_cast<long long>(blockIdx.x % parts) * kSumSpan;
+  const int k = blockIdx.y;
+  const uint4* filt =
+      reinterpret_cast<const uint4*>(__ldg(filters + k)) + shard * w4;
+  uint4 f[kSumVec];
+#pragma unroll
+  for (int v = 0; v < kSumVec; ++v) {
+    const long long i = lo + v * kThreads + threadIdx.x;
+    f[v] = i < w4 ? __ldg(filt + i) : splat(0u);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long plane_stride = n_shards * w4;
+  int* out_k = out + static_cast<long long>(k) * (depth + 1) * n_shards;
+  for (int d0 = 0; d0 <= depth; d0 += kSumChunk) {
+    const int d1 = d0 + kSumChunk < depth + 1 ? d0 + kSumChunk : depth + 1;
+    for (int d = d0; d < d1; ++d) {
+      unsigned acc = 0;
+      if (d == depth) {  // the filter's own count
+#pragma unroll
+        for (int v = 0; v < kSumVec; ++v) acc += popc4(f[v]);
+      } else {
+        const uint4* p = planes + d * plane_stride + shard * w4;
+#pragma unroll
+        for (int v = 0; v < kSumVec; ++v) {
+          const long long i = lo + v * kThreads + threadIdx.x;
+          if (i < w4) acc += popc4(and4(__ldg(p + i), f[v]));
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+      if (lane == 0) sums[d - d0][warp] = acc;
+    }
+    __syncthreads();
+    if (threadIdx.x < d1 - d0) {
+      unsigned t = 0;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) t += sums[threadIdx.x][w];
+      if (t) {
+        atomicAdd(out_k + (d0 + threadIdx.x) * n_shards + shard,
+                  static_cast<int>(t));
+      }
+    }
+    __syncthreads();  // sums is rewritten by the next chunk
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -256,6 +417,50 @@ int pbk_intersect_count(const void* a, const void* b, int* out,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(a), static_cast<const uint4*>(b), nullptr, 0,
       0, out, w4, split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pbk_bsi_compare(const void* planes, const void* exists, const int* pred,
+                    int depth, int op, void* out, long long n, int blocks,
+                    void* stream) {
+  const uint4* p = static_cast<const uint4*>(planes);
+  const uint4* e = static_cast<const uint4*>(exists);
+  uint4* o = static_cast<uint4*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (op) {
+    case kLt:
+      bsi_compare_kernel<kLt><<<blocks, kThreads, 0, st>>>(p, e, pred, depth, o, n);
+      break;
+    case kLte:
+      bsi_compare_kernel<kLte><<<blocks, kThreads, 0, st>>>(p, e, pred, depth, o, n);
+      break;
+    case kGt:
+      bsi_compare_kernel<kGt><<<blocks, kThreads, 0, st>>>(p, e, pred, depth, o, n);
+      break;
+    case kGte:
+      bsi_compare_kernel<kGte><<<blocks, kThreads, 0, st>>>(p, e, pred, depth, o, n);
+      break;
+    case kEq:
+      bsi_compare_kernel<kEq><<<blocks, kThreads, 0, st>>>(p, e, pred, depth, o, n);
+      break;
+    case kNeq:
+      bsi_compare_kernel<kNeq><<<blocks, kThreads, 0, st>>>(p, e, pred, depth, o, n);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pbk_bsi_sum_counts(const void* planes, const long long* filters, int k,
+                       int depth, int* out, long long n_shards, long long w4,
+                       void* stream) {
+  const long long parts = (w4 + kSumSpan - 1) / kSumSpan;
+  const dim3 grid(static_cast<unsigned>(n_shards * parts),
+                  static_cast<unsigned>(k));
+  bsi_sum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(planes), filters, depth, out, n_shards, w4,
+      static_cast<int>(parts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,14 @@
 """Field: a typed sub-matrix of an index.
 
 Trimmed copy of pilosa_tpu/models/field.py: `set` fields on the standard
-view only. Options and the available-shards bitmap persist in the
-reference's files (`.meta` JSON, `.available.shards` roaring), so either
-package opens a field the other wrote. Other field types open (so a data
-dir the JAX package wrote loads whole) but cannot be created or queried
-here: they are not ported yet.
+view, and `int` fields whose values live bit-sliced in the `bsig_<field>`
+view (rows 0..depth-1 the place values of value - min, row depth the
+not-null row; :95-107, :245-277, :340-383). Options and the
+available-shards bitmap persist in the reference's files (`.meta` JSON,
+`.available.shards` roaring), so either package opens a field the other
+wrote. Keys, time quantums and the mutex, bool and time types open (so a
+data dir the JAX package wrote loads whole) but cannot be created or
+queried here: they are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +23,12 @@ from typing import Optional
 import numpy as np
 
 from pilosa_tpu_torch.constants import DEFAULT_CACHE_SIZE, SHARD_WIDTH
-from pilosa_tpu_torch.models.view import VIEW_STANDARD, View, view_path
+from pilosa_tpu_torch.models.view import (
+    VIEW_BSI_PREFIX,
+    VIEW_STANDARD,
+    View,
+    view_path,
+)
 from pilosa_tpu_torch.storage.roaring import Bitmap
 
 CACHE_TYPES = ("ranked", "lru", "none")
@@ -45,8 +53,10 @@ class FieldOptions:
     keys: bool = False
 
     def validate(self) -> None:
-        if self.type != "set":
+        if self.type not in ("set", "int"):
             raise NotPortedError(f"field type {self.type!r} not ported yet")
+        if self.type == "int" and self.max < self.min:
+            raise ValueError("int field max must be >= min")
         if self.keys:
             raise NotPortedError("keyed fields not ported yet")
         if self.time_quantum:
@@ -68,6 +78,21 @@ class Field:
         # bumped on every available-shards change (Index memoizes on it)
         self.shards_version = 0
         self._shards_mu = threading.Lock()
+
+    # -- BSI layout (int fields) ---------------------------------------------
+
+    @property
+    def bsi_view_name(self) -> str:
+        return VIEW_BSI_PREFIX + self.name
+
+    @property
+    def base(self) -> int:
+        """BSI offset: stored value = actual - base."""
+        return self.options.min
+
+    @property
+    def bit_depth(self) -> int:
+        return max((self.options.max - self.options.min).bit_length(), 1)
 
     def open(self) -> "Field":
         os.makedirs(self.path, exist_ok=True)
@@ -166,6 +191,80 @@ class Field:
                 frag.bulk_clear(g_rows, local)
             else:
                 frag.bulk_import(g_rows, local)
+
+        if len(groups) == 1:
+            apply(groups[0])
+        else:
+            with ThreadPoolExecutor(max_workers=IMPORT_WORKERS) as pool:
+                list(pool.map(apply, groups))
+        self.add_available_shards([g[0] for g in groups])
+
+    # -- BSI values (int fields) ----------------------------------------------
+
+    def _require_int(self) -> None:
+        if self.options.type != "int":
+            raise ValueError(f"field {self.name} is not an int field")
+
+    def set_value(self, column: int, value: int) -> bool:
+        """Store value - base in the BSI view."""
+        self._require_int()
+        if value < self.options.min or value > self.options.max:
+            raise ValueError(f"value {value} out of range "
+                             f"[{self.options.min}, {self.options.max}]")
+        shard = column // SHARD_WIDTH
+        frag = self._open_view(self.bsi_view_name) \
+            .create_fragment_if_not_exists(shard)
+        changed = frag.set_value(column % SHARD_WIDTH, self.bit_depth,
+                                 value - self.base)
+        self.add_available_shards([shard])
+        return changed
+
+    def _bsi_fragment(self, column: int):
+        v = self.views.get(self.bsi_view_name)
+        return None if v is None else v.fragment(column // SHARD_WIDTH)
+
+    def value(self, column: int) -> tuple[int, bool]:
+        frag = self._bsi_fragment(column)
+        if frag is None:
+            return 0, False
+        raw, ok = frag.value(column % SHARD_WIDTH, self.bit_depth)
+        return (raw + self.base, True) if ok else (0, False)
+
+    def clear_value(self, column: int) -> bool:
+        frag = self._bsi_fragment(column)
+        if frag is None:
+            return False
+        return frag.clear_value(column % SHARD_WIDTH, self.bit_depth)
+
+    def import_values(self, columns, values) -> None:
+        """BSI bulk import: the last value of a column wins; one plane-mask
+        merge and one snapshot per shard, shards on a thread pool."""
+        self._require_int()
+        cols = np.asarray(columns, dtype=np.uint64).reshape(-1)
+        vals = np.asarray(values, dtype=np.int64).reshape(-1)
+        if cols.size != vals.size:
+            raise ValueError("column/value length mismatch")
+        bad = vals[(vals < self.options.min) | (vals > self.options.max)]
+        if bad.size:
+            raise ValueError(f"value {int(bad[0])} out of range")
+        if cols.size == 0:
+            return
+        order = np.argsort(cols, kind="stable")
+        cols, vals = cols[order], vals[order]
+        # after a stable sort the last duplicate is last in input order
+        last = np.concatenate([cols[1:] != cols[:-1], [True]])
+        cols, vals = cols[last], vals[last] - self.base
+        shards = cols // np.uint64(SHARD_WIDTH)
+        bounds = np.flatnonzero(np.diff(shards)) + 1
+        view = self._open_view(self.bsi_view_name)
+        groups = list(zip(shards[np.concatenate(([0], bounds))].tolist(),
+                          np.split(cols, bounds), np.split(vals, bounds)))
+        depth = self.bit_depth
+
+        def apply(group) -> None:
+            shard, g_cols, g_vals = group
+            view.create_fragment_if_not_exists(shard).bulk_import_values(
+                g_cols % np.uint64(SHARD_WIDTH), g_vals, depth)
 
         if len(groups) == 1:
             apply(groups[0])

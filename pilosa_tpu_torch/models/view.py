@@ -1,8 +1,8 @@
 """View: a named sub-bitmap of a field, owning fragments by shard.
 
-Trimmed copy of pilosa_tpu/models/view.py: the standard view only, no
-rank caches (a view written here gets its rank cache rebuilt from the
-fragments when the JAX package opens it).
+Trimmed copy of pilosa_tpu/models/view.py: the standard view and an int
+field's `bsig_<field>` BSI view, no rank caches (a view written here gets
+its rank cache rebuilt from the fragments when the JAX package opens it).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from pilosa_tpu_torch.constants import SHARD_WIDTH
 from pilosa_tpu_torch.storage.fragment import Fragment
 
 VIEW_STANDARD = "standard"
+VIEW_BSI_PREFIX = "bsig_"
 
 
 def view_path(field_path: str, name: str) -> str:

@@ -6,7 +6,7 @@ JSON shapes for the endpoints of this slice:
     POST/DELETE /index/{i}
     POST        /index/{i}/field/{f}
     POST        /index/{i}/query               (raw PQL body, ?shards=)
-    POST        /index/{i}/field/{f}/import    (JSON body)
+    POST        /index/{i}/field/{f}/import    (JSON body: rowIDs or values)
     GET         /schema
     GET         /status
 """
@@ -137,9 +137,14 @@ class Handler:
 
     def post_import(self, params, query, body):
         req = self._body_json(body)
-        for key in ("values", "rowKeys", "columnKeys", "timestamps"):
+        for key in ("rowKeys", "columnKeys", "timestamps"):
             if req.get(key):
                 raise ApiError(f"import with {key} not ported yet")
+        if "values" in req:
+            self.api.import_values(params["index"], params["field"],
+                                   column_ids=req.get("columnIDs"),
+                                   values=req.get("values"))
+            return self._json({})
         clear = (self._arg(query, "clear") == "true"
                  or bool(req.get("clear", False)))
         self.api.import_bits(params["index"], params["field"],

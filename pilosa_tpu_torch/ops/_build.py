@@ -86,6 +86,10 @@ def load() -> ctypes.CDLL:
         lib.pbk_program_count.restype = i
         lib.pbk_intersect_count.argtypes = [vp, vp, vp, ll, ll, i, vp]
         lib.pbk_intersect_count.restype = i
+        lib.pbk_bsi_compare.argtypes = [vp, vp, vp, i, i, vp, ll, i, vp]
+        lib.pbk_bsi_compare.restype = i
+        lib.pbk_bsi_sum_counts.argtypes = [vp, vp, i, i, vp, ll, ll, vp]
+        lib.pbk_bsi_sum_counts.restype = i
         _lib = lib
         return lib
 

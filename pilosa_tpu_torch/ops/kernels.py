@@ -13,12 +13,23 @@ Three kernels (csrc/bitmap_kernels.cu) carry the dense read path:
 * ``intersect_count``: per-shard popcount(a & b). Replaces Pallas
   intersect_count (pallas_kernels.py:59).
 
+Two more carry the BSI path (int fields), over a [D, S, W] plane slab:
+
+* ``bsi_compare``: the lt/lte/gt/gte/eq/neq plane sweep against a
+  predicate given as D bits -> int32[S, W] match mask. Replaces Pallas
+  bsi_compare (pallas_kernels.py:451).
+* ``bsi_sum_counts``: per-plane popcount(plane & filter) per shard plus the
+  filter's own count, for one filter or K of them in one launch. Replaces
+  Pallas bsi_sum_counts (pallas_kernels.py:504) and the PlaneSumBatcher's
+  XLA form pilosa_tpu/parallel/batcher.py _batched_plane_sums (:590).
+
 Routing: a CPU tensor takes the plain version (``<name>_plain``, plain
 torch). A CUDA tensor launches the kernel or raises; nothing falls back.
 Each wrapper adds one to its launch count where it launches its kernel.
 
-Layout checks: planes are C-contiguous int32 [S, W] tensors with W a
-multiple of 4 (the kernels load 16 bytes at a time), all on one device.
+Layout checks: planes are C-contiguous int32 [S, W] tensors (a BSI slab
+[D, S, W]) with W a multiple of 4 (the kernels load 16 bytes at a time),
+all on one device.
 """
 
 from __future__ import annotations
@@ -40,6 +51,12 @@ SUM_SHARD_CHUNK = 2016
 
 PAIR_OPS = ("and", "or", "xor", "andnot", "id")
 
+# BSI comparison ops, in the kernel's order (csrc kLt..kNeq)
+BSI_OPS = ("lt", "lte", "gt", "gte", "eq", "neq")
+
+# the BSI sum kernel's grid carries the filter index in gridDim.y
+MAX_SUM_FILTERS = 65535
+
 # operand stack slots of the program interpreter (the kernel's kMaxStack)
 MAX_STACK = 16
 
@@ -54,7 +71,7 @@ _THREADS = 256
 
 _launch_lock = threading.Lock()
 _launches = {"pair_stream_counts": 0, "program_count": 0,
-             "intersect_count": 0}
+             "intersect_count": 0, "bsi_compare": 0, "bsi_sum_counts": 0}
 
 
 def launch_counts() -> dict:
@@ -367,3 +384,148 @@ def pair_stream_counts(leaves, ii, jj, op: str = "and") -> torch.Tensor:
     build.check(lib, rc, "pair_stream_counts")
     _count_launch("pair_stream_counts")
     return out
+
+
+# ---------------------------------------------------------------------------
+# BSI: bsi_compare and bsi_sum_counts over a [D, S, W] plane slab
+# ---------------------------------------------------------------------------
+
+
+def _check_slab(planes: torch.Tensor, masks: Sequence[torch.Tensor]):
+    """Device of a [D, S, W] slab and its [S, W] masks; raises where the
+    kernels cannot take them."""
+    if not isinstance(planes, torch.Tensor) or planes.dim() != 3:
+        raise ValueError("planes must be an int32 [D, S, W] tensor")
+    if planes.shape[0] < 1:
+        raise ValueError("planes must have a depth of at least 1")
+    if planes.dtype != torch.int32:
+        raise TypeError(f"planes are int32 tensors, got {planes.dtype}")
+    if not planes.is_contiguous():
+        raise ValueError("planes must be contiguous")
+    for m in masks:
+        if m.shape != planes.shape[1:]:
+            raise ValueError(f"mask shape {tuple(m.shape)} does not match "
+                             f"the planes' [S, W] {tuple(planes.shape[1:])}")
+    dev = _check_planes(list(masks))
+    if planes.device != dev:
+        raise ValueError("planes and masks on different devices")
+    if dev.type == "cuda" and planes.data_ptr() % 16:
+        raise ValueError("plane storage must be 16-byte aligned")
+    return dev
+
+
+def _pred_tensor(pred_bits, depth: int, dev: torch.device) -> torch.Tensor:
+    """Predicate bits as an int32[depth] tensor on `dev`."""
+    if isinstance(pred_bits, torch.Tensor):
+        pred = pred_bits.to(device=dev, dtype=torch.int32).reshape(-1)
+    else:
+        arr = np.asarray(pred_bits, dtype=np.int32).reshape(-1)
+        pred = torch.from_numpy(arr)
+        if dev.type == "cuda":
+            pred = pred.pin_memory().to(dev, non_blocking=True)
+    if pred.shape[0] != depth:
+        raise ValueError(f"{pred.shape[0]} predicate bits for a depth of "
+                         f"{depth}")
+    return pred.contiguous()
+
+
+def bsi_compare_plain(planes: torch.Tensor, exists: torch.Tensor, pred_bits,
+                      op: str) -> torch.Tensor:
+    """The comparison sweep of pilosa_tpu/ops/bsi.py:124-163 in torch
+    bitwise ops on int32: columns of `exists` whose stored value `op` the
+    predicate, as an [S, W] mask."""
+    if op not in BSI_OPS:
+        raise ValueError(f"unknown comparison op {op!r}")
+    depth = planes.shape[0]
+    # -bit: all ones (-1) where the predicate bit is 1, else 0
+    m = -(_pred_tensor(pred_bits, depth, planes.device) & 1)
+    if op in ("eq", "neq"):
+        r = exists
+        for i in range(depth):
+            r = bv.band(r, bv.bnot(bv.bxor(planes[i], m[i])))
+        return bv.bandnot(exists, r) if op == "neq" else r
+    matched = torch.zeros_like(exists)
+    remaining = exists
+    for i in range(depth - 1, -1, -1):
+        p = planes[i]
+        if op in ("lt", "lte"):
+            # predicate bit 1: a 0 here is strictly less
+            matched = bv.bor(matched, bv.band(bv.bandnot(remaining, p), m[i]))
+        else:
+            # predicate bit 0: a 1 here is strictly greater
+            matched = bv.bor(matched, bv.bandnot(bv.band(remaining, p), m[i]))
+        remaining = bv.band(remaining, bv.bnot(bv.bxor(p, m[i])))
+    if op in ("lte", "gte"):
+        matched = bv.bor(matched, remaining)
+    return matched
+
+
+def bsi_compare(planes: torch.Tensor, exists: torch.Tensor, pred_bits,
+                op: str) -> torch.Tensor:
+    """[D, S, W] planes x [S, W] exists x int32[D] predicate bits (LSB
+    first) -> int32[S, W] mask of the columns whose stored value `op` the
+    predicate, op in lt/lte/gt/gte/eq/neq. One pass over the planes; the
+    predicate reaches the kernel as data."""
+    if op not in BSI_OPS:
+        raise ValueError(f"unknown comparison op {op!r}")
+    dev = _check_slab(planes, [exists])
+    if dev.type == "cpu":
+        return bsi_compare_plain(planes, exists, pred_bits, op)
+    d, s, w = planes.shape
+    pred = _pred_tensor(pred_bits, d, dev)
+    out = torch.empty((s, w), dtype=torch.int32, device=dev)
+    n = s * w // 4
+    if n == 0:
+        return out
+    build, lib = _load()
+    blocks = min(-(-n // _THREADS), 1 << 20)
+    rc = lib.pbk_bsi_compare(planes.data_ptr(), exists.data_ptr(),
+                             pred.data_ptr(), d, BSI_OPS.index(op),
+                             out.data_ptr(), n, blocks, _stream(dev))
+    build.check(lib, rc, "bsi_compare")
+    _count_launch("bsi_compare")
+    return out
+
+
+def bsi_sum_counts_plain(planes: torch.Tensor, filters) -> torch.Tensor:
+    """Per plane popcount(plane & filter) per shard, plus the filter's own
+    count: int32[D+1, S] for one [S, W] filter, int32[K, D+1, S] for a
+    list of K."""
+    single = isinstance(filters, torch.Tensor)
+    out = []
+    for f in ([filters] if single else list(filters)):
+        rows = [bv.popcount(bv.band(planes[d], f))
+                for d in range(planes.shape[0])]
+        out.append(torch.stack(rows + [bv.popcount(f)]))
+    return out[0] if single else torch.stack(out)
+
+
+def bsi_sum_counts(planes: torch.Tensor, filters) -> torch.Tensor:
+    """[D, S, W] planes x filters -> per-plane per-shard counts of
+    plane & filter with the filter's own count as row D: int32[D+1, S]
+    (the Pallas layout) for one [S, W] filter tensor, int32[K, D+1, S] for
+    a list of K resident filter tensors, passed to one launch as a device
+    table of pointers. No depth cap; a count is at most 2^20, so int32
+    cannot wrap, and the caller finishes totals in int64."""
+    single = isinstance(filters, torch.Tensor)
+    masks = [filters] if single else list(filters)
+    if not masks:
+        raise ValueError("no filters")
+    if len(masks) > MAX_SUM_FILTERS:
+        raise ValueError(f"{len(masks)} filters in one launch (the kernel "
+                         f"takes at most {MAX_SUM_FILTERS})")
+    dev = _check_slab(planes, masks)
+    if dev.type == "cpu":
+        return bsi_sum_counts_plain(planes, filters)
+    d, s, w = planes.shape
+    k = len(masks)
+    out = torch.zeros((k, d + 1, s), dtype=torch.int32, device=dev)
+    if s and w:
+        build, lib = _load()
+        table = _device_table(
+            [np.array([t.data_ptr() for t in masks], dtype=np.int64)], dev)
+        rc = lib.pbk_bsi_sum_counts(planes.data_ptr(), table.data_ptr(), k, d,
+                                    out.data_ptr(), s, w // 4, _stream(dev))
+        build.check(lib, rc, "bsi_sum_counts")
+        _count_launch("bsi_sum_counts")
+    return out[0] if single else out

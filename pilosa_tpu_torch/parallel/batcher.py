@@ -1,9 +1,12 @@
-"""Continuous batching of concurrent Count queries into single launches.
+"""Continuous batching of concurrent Count and Sum queries into single
+launches.
 
 Trimmed port of pilosa_tpu/parallel/batcher.py: the ContinuousBatcher
 leadership protocol (:128-430) without its QoS, accounting and profile
-hooks, and the CountBatcher (:511-565), whose dispatch launches the
-pair-stream kernel (ops/kernels.py pair_stream_counts).
+hooks; the CountBatcher (:511-565), whose dispatch launches the
+pair-stream kernel (ops/kernels.py pair_stream_counts); and the
+PlaneSumBatcher (:571-587, :639-660), whose dispatch launches the
+bsi_sum_counts kernel once over K filters.
 
 Leadership protocol: the first arrival for a compatibility key becomes
 leader and serves exactly ONE batch, with its own request at the head; it
@@ -236,3 +239,38 @@ class CountBatcher(ContinuousBatcher):
         parts = handle.cpu().numpy()  # the batch's one device->host fetch
         counts = parts.astype(np.int64).sum(axis=-1)  # exact int64 finish
         return [int(c) for c in counts]
+
+
+class PlaneSumBatcher(ContinuousBatcher):
+    """Batches BSI Sums that share a resident plane slab (same field,
+    shard set and generations): concurrent Sum(Range(v > x)) with varying
+    thresholds coalesce into one bsi_sum_counts launch over a device table
+    of K filter pointers. Compatibility key = identity of the slab.
+    Identical filter tensors (every unfiltered Sum passes the resident
+    not-null row) are counted once."""
+
+    def plane_sums(self, planes: torch.Tensor,
+                   mask: torch.Tensor) -> np.ndarray:
+        """int64[D + 1] totals: per-plane popcount(planes & mask), then the
+        mask's own count."""
+        return self.submit((id(planes), tuple(planes.shape),
+                            str(planes.device)), (planes, mask))
+
+    def _dispatch(self, key: tuple, payloads: list):
+        slots: dict[int, int] = {}
+        masks: list = []
+        idx = []
+        for _, m in payloads:
+            s = slots.get(id(m))
+            if s is None:
+                s = slots[id(m)] = len(masks)
+                masks.append(m)
+            idx.append(s)
+        # launched, not fetched: int32[K, D+1, S] stays on the device
+        return kernels.bsi_sum_counts(payloads[0][0], masks), idx
+
+    def _finalize(self, key: tuple, handle, payloads: list) -> list:
+        counts, idx = handle
+        # the batch's one device->host fetch; exact int64 finish over shards
+        totals = counts.cpu().numpy().astype(np.int64).sum(axis=-1)
+        return [totals[i] for i in idx]

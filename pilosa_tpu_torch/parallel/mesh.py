@@ -1,7 +1,8 @@
 """Device runner: bitmap programs over HBM-resident [S, W] leaves.
 
 Trimmed port of pilosa_tpu/parallel/mesh.py: the single-device
-DeviceRunner (put_leaf / row_leaves_dev / count_total_leaves, :479-611)
+DeviceRunner (put_leaf / put_plane_slab / row_leaves_dev /
+count_total_leaves, :479-611)
 and the nested-tuple programs of :192-216:
 
     ("leaf", i) | ("not", p) | (op, p1, p2, ...), op in and/or/xor/andnot
@@ -57,6 +58,13 @@ class DeviceRunner:
     def put_leaf(self, rows: np.ndarray) -> torch.Tensor:
         """Place one uint32 [S, W] leaf on the device as int32 planes."""
         return planes_to_tensor(rows, self.device)
+
+    def put_plane_slab(self, planes: np.ndarray) -> torch.Tensor:
+        """Place one uint32 [D, S, W] BSI plane slab on the device as
+        int32 planes (one device: no pad shards)."""
+        if planes.ndim != 3:
+            raise ValueError(f"a plane slab is [D, S, W], got {planes.shape}")
+        return planes_to_tensor(planes, self.device)
 
     def row_leaves_dev(self, leaves: list, program) -> torch.Tensor:
         """Dense result [S, W] of `program`, left on the device."""

@@ -1,8 +1,8 @@
 """Device residency: an LRU cache of query leaves on the device.
 
 Trimmed port of pilosa_tpu/parallel/residency.py DeviceResidency: each
-leaf (one row over a shard set) stays resident keyed by its content
-generations, so repeat queries run without host->device transfers and a
+leaf (one row over a shard set, a BSI plane slab, a Range mask) stays
+resident keyed by its content generations, so repeat queries run without host->device transfers and a
 write changes the key. Eviction is LRU by byte budget; a leaf costs its
 tensor.nbytes.
 
@@ -44,9 +44,11 @@ class DeviceResidency:
         self.evictions = 0
         self.epoch = 0  # bumped by clear(); fences in-flight misses
 
-    def leaf(self, key: tuple, make: Callable[[], np.ndarray]) -> torch.Tensor:
+    def leaf(self, key: tuple,
+             make: Callable[[], "np.ndarray | torch.Tensor"]) -> torch.Tensor:
         """The device tensor for `key`, uploading make()'s host array on a
-        miss. `key` must encode content generations."""
+        miss (or keeping its device tensor: a BSI slab or a Range mask
+        computed on the device). `key` must encode content generations."""
         with self._lock:
             arr = self._lru.get(key)
             if arr is not None:
@@ -56,7 +58,9 @@ class DeviceResidency:
             epoch = self.epoch
         # built and uploaded outside the lock: concurrent misses of other
         # keys must not serialize behind one host->device transfer
-        arr = self.runner.put_leaf(make())
+        arr = make()
+        if not isinstance(arr, torch.Tensor):
+            arr = self.runner.put_leaf(arr)
         with self._lock:
             self.misses += 1
             if self.epoch != epoch:

@@ -1,12 +1,15 @@
 """Fragment: the (index, field, view, shard) storage unit.
 
-Trimmed copy of pilosa_tpu/storage/fragment.py (:192-560, :873): one
-roaring file with a CRC-framed WAL, snapshot compaction after MAX_OP_N ops,
-row generations and dense row materialization, in the reference's on-disk
-format. Left out: the frozen store, anti-entropy blocks, BSI values, mutex
-paths, corruption quarantine (a damaged file raises at open) and hints.
+Trimmed copy of pilosa_tpu/storage/fragment.py (:192-560, :873, :952-979):
+one roaring file with a CRC-framed WAL, snapshot compaction after MAX_OP_N
+ops, row generations, dense row materialization and BSI values, in the
+reference's on-disk format. Left out: the frozen store, anti-entropy
+blocks, mutex paths, corruption quarantine (a damaged file raises at open)
+and hints.
 
 Row r of the shard occupies absolute bit positions [r*2^20, (r+1)*2^20).
+In a BSI view rows 0..depth-1 hold the place values of each column's
+stored value and row `depth` is the not-null row.
 """
 
 from __future__ import annotations
@@ -173,6 +176,63 @@ class Fragment:
         self.storage.remove_many(positions)
         for rid in sorted_unique(rows).tolist():
             self._touch(int(rid))
+        self.snapshot()
+
+    # -- BSI values ---------------------------------------------------------
+
+    @_locked
+    def set_value(self, column: int, bit_depth: int, value: int) -> bool:
+        """Write a stored (non-negative) BSI value and its not-null bit."""
+        changed = False
+        for i in range(bit_depth):
+            if (value >> i) & 1:
+                changed |= self.set_bit(i, column)
+            else:
+                changed |= self.clear_bit(i, column)
+        changed |= self.set_bit(bit_depth, column)
+        return changed
+
+    @_locked
+    def clear_value(self, column: int, bit_depth: int) -> bool:
+        changed = False
+        for i in range(bit_depth + 1):
+            changed |= self.clear_bit(i, column)
+        return changed
+
+    def value(self, column: int, bit_depth: int) -> tuple[int, bool]:
+        """(stored value, True), or (0, False) where the column has none."""
+        if not self.storage.contains(pos(bit_depth, column)):
+            return 0, False
+        v = 0
+        for i in range(bit_depth):
+            if self.storage.contains(pos(i, column)):
+                v |= 1 << i
+        return v, True
+
+    @_locked
+    def bulk_import_values(self, columns: Iterable[int],
+                           values: Iterable[int], bit_depth: int) -> None:
+        """BSI bulk import: numpy plane masks, one merge, one snapshot. The
+        zero planes are cleared only where the fragment already holds bits
+        (a fresh fragment has nothing to overwrite)."""
+        cols = np.asarray(columns, dtype=np.uint64) % np.uint64(SHARD_WIDTH)
+        vals = np.asarray(values, dtype=np.int64)
+        if cols.shape != vals.shape:
+            raise ValueError("column/value length mismatch")
+        empty = not self.storage.containers
+        add, clear = [], []
+        for i in range(bit_depth):
+            base = np.uint64(i * SHARD_WIDTH)
+            mask = ((vals >> i) & 1).astype(bool)
+            add.append(cols[mask] + base)
+            if not empty:
+                clear.append(cols[~mask] + base)
+        add.append(cols + np.uint64(bit_depth * SHARD_WIDTH))  # not-null
+        if clear:
+            self.storage.remove_many(np.concatenate(clear))
+        self.storage.add_many(np.concatenate(add))
+        for i in range(bit_depth + 1):
+            self._touch(i)
         self.snapshot()
 
     # -- reads --------------------------------------------------------------

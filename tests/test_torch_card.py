@@ -82,7 +82,39 @@ def test_kernels_match_plain_on_card(cuda_device, s, w):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"pair_stream_counts": 5,
                                        "program_count": len(PROGRAMS) + 1,
-                                       "intersect_count": 1}
+                                       "intersect_count": 1,
+                                       "bsi_compare": 0,
+                                       "bsi_sum_counts": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 10, 33])
+@pytest.mark.parametrize("s,w", [(3, 64), (64, 32768)])
+def test_bsi_kernels_match_plain_on_card(cuda_device, depth, s, w):
+    from pilosa_tpu_torch.ops import bsi
+
+    rng = np.random.default_rng(depth * 100 + s)
+    planes = _planes(rng, cuda_device, depth, s, w)
+    exists = _planes(rng, cuda_device, s, w)
+    exists[-1, 20:40] = 0
+    pred = int(rng.integers(0, 1 << min(depth, 62)))
+    kernels.reset_launch_counts()
+    for value in (0, (1 << depth) - 1, pred):
+        bits = bsi.value_to_bits(value, depth)
+        for op in kernels.BSI_OPS:
+            assert torch.equal(
+                kernels.bsi_compare(planes, exists, bits, op),
+                kernels.bsi_compare_plain(planes, exists, bits, op)), (op, value)
+    filters = [exists] + [_planes(rng, cuda_device, s, w) for _ in range(2)]
+    for k in (1, 3):
+        assert torch.equal(kernels.bsi_sum_counts(planes, filters[:k]),
+                           kernels.bsi_sum_counts_plain(planes, filters[:k])), k
+    assert torch.equal(kernels.bsi_sum_counts(planes, exists),
+                       kernels.bsi_sum_counts_plain(planes, exists))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["bsi_compare"] == 3 * len(kernels.BSI_OPS)
+    assert counts["bsi_sum_counts"] == 3
 
 
 @pytest.mark.gpu
@@ -129,5 +161,28 @@ def test_server_on_card_matches_numpy(cuda_device, tmp_path):
             assert post("/index/i/query", pql)["results"] == [n], pql
         got = post("/index/i/query?shards=1", "Row(f=2)")["results"][0]
         assert got["columns"] == sorted(x for x in c if (x >> 20) == 1)
+
+        # BSI: an int field with a negative min, values on the columns of
+        # row 0, Sum/Min/Max and Range through both BSI kernels
+        post("/index/i/field/v",
+             '{"options": {"type": "int", "min": -50, "max": 1000}}')
+        vals = rng.integers(-50, 1001, size=cols[0].size)
+        srv.api.import_values("i", "v", cols[0], vals)
+        kernels.reset_launch_counts()
+        bsi_want = {
+            "Sum(field=v)": {"value": int(vals.sum()), "count": vals.size},
+            "Sum(Range(v > 100), field=v)": {
+                "value": int(vals[vals > 100].sum()),
+                "count": int((vals > 100).sum())},
+            "Min(field=v)": {"value": int(vals.min()),
+                             "count": int((vals == vals.min()).sum())},
+            "Max(field=v)": {"value": int(vals.max()),
+                             "count": int((vals == vals.max()).sum())},
+            "Count(Range(v >< [0, 10]))": int(((vals >= 0) & (vals <= 10)).sum()),
+        }
+        for pql, res in bsi_want.items():
+            assert post("/index/i/query", pql)["results"] == [res], pql
+        counts = kernels.launch_counts()
+        assert counts["bsi_compare"] >= 2 and counts["bsi_sum_counts"] >= 2
     finally:
         srv.close()

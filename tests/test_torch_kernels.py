@@ -284,4 +284,6 @@ def test_cpu_tensors_take_the_plain_path():
     kernels.pair_stream_counts([x], [0], [0], "id")
     assert kernels.launch_counts() == {"pair_stream_counts": 0,
                                        "program_count": 0,
-                                       "intersect_count": 0}
+                                       "intersect_count": 0,
+                                       "bsi_compare": 0,
+                                       "bsi_sum_counts": 0}

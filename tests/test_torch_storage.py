@@ -187,3 +187,97 @@ def test_state_planes_roundtrip_bit_for_bit():
     planes = state.planes_from_numpy(words, device="cpu")
     assert planes.dtype.is_signed and planes.dtype.itemsize == 4
     np.testing.assert_array_equal(state.numpy_from_planes(planes), words)
+
+
+# -- BSI values -----------------------------------------------------------------
+
+DEPTH = 10
+
+
+def _bsi_write(frag, rng) -> None:
+    """Bulk value imports (a fresh fragment, then an overwrite that needs
+    the zero-plane clears), then single-value sets and clears (WAL)."""
+    cols = rng.integers(0, 1 << 20, size=6000)
+    frag.bulk_import_values(cols, rng.integers(0, 1 << DEPTH, size=cols.size),
+                            DEPTH)
+    again = np.concatenate([cols[:2000], rng.integers(0, 1 << 20, size=500)])
+    frag.bulk_import_values(again, rng.integers(0, 1 << DEPTH, size=again.size),
+                            DEPTH)
+    for c in cols[2000:2300]:
+        frag.set_value(int(c), DEPTH, int(rng.integers(0, 1 << DEPTH)))
+    for c in cols[2300:2400]:
+        frag.clear_value(int(c), DEPTH)
+    frag.set_value(5, DEPTH, 0)
+    frag.set_value(6, DEPTH, (1 << DEPTH) - 1)
+
+
+def _bsi_rows(frag) -> dict:
+    return {r: frag.row_dense(r) for r in range(DEPTH + 1)}
+
+
+def _bsi_values(frag, cols) -> list:
+    return [frag.value(int(c), DEPTH) for c in cols]
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_bsi_fragments_match_and_open_in_the_other_package(tmp_path, writer):
+    """The same value traffic gives the same planes in both packages, and
+    a BSI fragment file written by either opens in the other with the same
+    values."""
+    probe = np.concatenate([np.arange(0, 20),
+                            np.random.default_rng(9).integers(0, 1 << 20,
+                                                              size=3000)])
+    frags = {}
+    for name, cls in (("jax", JaxFragment), ("torch", Fragment)):
+        path = str(tmp_path / name / "0")
+        frag = cls(path, "i", "v", "bsig_v", 0).open()
+        _bsi_write(frag, np.random.default_rng(8))
+        frags[name] = (path, frag)
+    want_rows = _bsi_rows(frags["jax"][1])
+    for r, words in _bsi_rows(frags["torch"][1]).items():
+        np.testing.assert_array_equal(words, want_rows[r], err_msg=f"row {r}")
+    want = _bsi_values(frags["jax"][1], probe)
+    assert _bsi_values(frags["torch"][1], probe) == want
+    assert frags["torch"][1].value(5, DEPTH) == (0, True)
+    assert frags["torch"][1].value(6, DEPTH) == ((1 << DEPTH) - 1, True)
+    for _, frag in frags.values():
+        frag.close()
+    reader = Fragment if writer == "jax" else JaxFragment
+    frag = reader(frags[writer][0], "i", "v", "bsig_v", 0).open()
+    assert _bsi_values(frag, probe) == want
+    for r, words in _bsi_rows(frag).items():
+        np.testing.assert_array_equal(words, want_rows[r], err_msg=f"row {r}")
+    frag.close()
+
+
+def test_bsi_field_values_open_in_the_jax_package(tmp_path):
+    """An int field with a negative min written by the port: the JAX
+    package reads the same values, and the port reads them back after a
+    reopen."""
+    from pilosa_tpu_torch.models.field import FieldOptions
+
+    rng = np.random.default_rng(10)
+    cols = rng.integers(0, 3 << 20, size=4000)
+    vals = rng.integers(-500, 1001, size=cols.size)
+    d = str(tmp_path / "d")
+    th = Holder(d).open()
+    idx = th.create_index("i")
+    f = idx.create_field("v", FieldOptions(type="int", min=-500, max=1000))
+    f.import_values(cols, vals)
+    f.set_value(7, -500)
+    f.set_value(8, 1000)
+    assert f.clear_value(int(cols[0]))
+    with pytest.raises(ValueError, match="out of range"):
+        f.set_value(9, 1001)
+    probe = [int(c) for c in cols[:200]] + [7, 8, 9]
+    want = [f.value(c) for c in probe]
+    assert want[-3:] == [(-500, True), (1000, True), (0, False)]
+    assert want[0] == (0, False)
+    th.close()
+    jh = JaxHolder(d).open()
+    jf = jh.index("i").field("v")
+    assert [jf.value(c) for c in probe] == want
+    jh.close()
+    th = Holder(d).open()
+    assert [th.index("i").field("v").value(c) for c in probe] == want
+    th.close()
