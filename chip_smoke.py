@@ -32,7 +32,20 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    thresholds (bench.py:870), every answer checked. Launch counts are
    zeroed before the phase: bsi_compare and bsi_sum_counts must launch,
    and the sum batcher must coalesce.
-4. Kernels at full width: W = 32768 words, S = 1024 shards (1.07B
+4. Server, TopN/Rows/GroupBy path, on the same server and index: a ranked
+   set field t of 64 rows, row r with about 12000 / (r + 1) random bits
+   per shard (a Zipf-like spread of segment sizes, about 58M bits), loaded
+   through API.import_bits plus one JSON import, then Set/Clear over HTTP
+   that must move the rank caches. TopN (the cache path; a Src Row(f=a) for
+   every a; tanimotoThreshold; threshold; ids= with a Src), Rows (plain,
+   limit/previous, column) and GroupBy (f x t: 8 x 64 groups, with limit,
+   with filter=Range(v > 500); and three axes with limited Rows) checked
+   against a numpy oracle; the cold first Src TopN (64 leaves of 128 MiB
+   built from the host) and the cold first GroupBy (the 8 GiB rows slab)
+   timed apart from warm repeats; then 32 clients x 16 TopN(t, Row(f=a),
+   n=10) with varying a, every answer checked. Launch counts are zeroed
+   before the phase: topn_counts_packed and cross_count_matrix must launch.
+5. Kernels at full width: W = 32768 words, S = 1024 shards (1.07B
    columns), random planes from a seeded torch.Generator on the card. Each
    kernel is held against its plain torch version, exactly (integer
    counts, tolerance 0): pair_stream_counts for all 5 ops at K = 1024 over
@@ -41,9 +54,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    a 4-leaf program with xor/andnot/not and on a 40-leaf one;
    intersect_count; bsi_compare for all 6 ops at depth 10 and gt at depth
    32 (4 GiB of planes); bsi_sum_counts at K = 1 and the served mean
-   batch at depth 10, and K = 1 at depth 32. Times by CUDA events (warm,
-   median).
-5. The last lines: nvidia-smi's name and power limit, one JSON object with
+   batch at depth 10, and K = 1 at depth 32; topn_counts_packed at R = 64
+   (the server's launch size) and at R = 130 over 256 shards (past the
+   Pallas kernel's 128-row block); cross_count_matrix at P = 8 (the
+   GroupBy's valid prefixes) and P = 16 (its chunk), R = 64. Times by CUDA
+   events (warm, median).
+6. The last lines: nvidia-smi's name and power limit, one JSON object with
    a record per kernel, and {"ok": true, "device": {...}}.
 
 Bounds: the larger of the bytes each input read once over HBM's 3.35 TB/s
@@ -57,6 +73,7 @@ and the card's maximum SM clock as nvidia-smi reports them.
 from __future__ import annotations
 
 import argparse
+import gc
 import http.client
 import json
 import os
@@ -82,9 +99,15 @@ REPLACES = {
     "intersect_count": "pilosa_tpu/ops/pallas_kernels.py:59",
     "bsi_compare": "pilosa_tpu/ops/pallas_kernels.py:451",
     "bsi_sum_counts": "pilosa_tpu/ops/pallas_kernels.py:504",
+    "topn_counts_packed": "pilosa_tpu/ops/pallas_kernels.py:364",
+    "cross_count_matrix": "pilosa_tpu/ops/pallas_kernels.py:182",
 }
 COUNT_KERNELS = ("pair_stream_counts", "program_count", "intersect_count")
 BSI_KERNELS = ("bsi_compare", "bsi_sum_counts")
+TOPN_KERNELS = ("topn_counts_packed", "cross_count_matrix")
+TOPN_ROWS = 64  # rows of the set field t
+TOPN_BITS = 12000  # bits per shard of t's row 0; row r holds ~this/(r+1)
+TOPN_CLIENTS, TOPN_PER_CLIENT = 32, 16  # the TopN phase's concurrent pass
 BSI_DEPTH = 10  # the int field v: min 0, max 1023
 # int32 operations per plane word of the compare sweep (lt/gt: and, not,
 # or, xor, not, and) and of the sum (and, add; plus one __popc)
@@ -360,6 +383,94 @@ def bsi_kernel_phase(device, n_shards: int, words: int, k_served: int,
     }
 
 
+def topn_kernel_phase(device, n_shards: int, words: int, seed: int,
+                      runs: int) -> dict:
+    """topn_counts_packed at R = 64 over n_shards and R = 130 over 256
+    shards, cross_count_matrix at P = 8 and 16 against R = 64 rows, each
+    against its plain version; the records' numbers are taken at the
+    shapes the server gave each kernel (R = 64; P = 8, R = 64)."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    rates = int_rates()
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+
+    def rand(*shape):
+        t = torch.empty(shape, dtype=torch.int32, device=device)
+        for i in range(shape[0]):  # one plane at a time: int64 staging
+            t[i] = torch.randint(-2**31, 2**31, shape[1:], dtype=torch.int64,
+                                 device=device, generator=gen).to(torch.int32)
+        t[..., :64] = -1           # all-ones words
+        t[..., 64:96] = -2**31     # 0x80000000
+        return t
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"(max abs err {err})")
+        return err
+
+    out = {"topn_counts_packed": {}, "cross_count_matrix": {}}
+    for r, s in ((TOPN_ROWS, n_shards), (130, min(256, n_shards))):
+        rows = rand(r, s, words)
+        src = rand(1, s, words)[0]
+        leaves = list(rows.unbind(0))
+        name = f"topn_counts_packed R={r} S={s}"
+        check(name, kernels.topn_counts_packed(leaves, src),
+              kernels.topn_counts_packed_plain(leaves, src))
+        ms = cuda_ms(lambda: kernels.topn_counts_packed(leaves, src), runs)
+        plain = cuda_ms(lambda: kernels.topn_counts_packed_plain(leaves, src),
+                        2, 1)
+        n_words = s * words
+        chunks = -(-s // kernels.SUM_SHARD_CHUNK)
+        # each row and src once, the R leaf pointers, the int32 partials
+        nbytes = (r + 1) * n_words * 4 + r * 8 + chunks * 3 * r * 4
+        b_ms, b_by = bound(nbytes, 2.0 * r * n_words,
+                           (2.0 * r + 1) * n_words, rates)
+        out["topn_counts_packed"][f"R={r} S={s}"] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes_once": nbytes}
+        log(f"  {name}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by "
+            f"{b_by}), plain {plain:.2f} ms, exact")
+        del rows, src, leaves
+        torch.cuda.empty_cache()
+    axis = rand(TOPN_ROWS, n_shards, words)
+    prefix = rand(16, n_shards, words)
+    n_words = n_shards * words
+    chunks = -(-n_shards // kernels.SUM_SHARD_CHUNK)
+    for p in (8, 16):
+        pre = prefix[:p]
+        name = f"cross_count_matrix P={p} R={TOPN_ROWS}"
+        check(name, kernels.cross_count_matrix(pre, axis),
+              kernels.cross_count_matrix_plain(pre, axis))
+        ms = cuda_ms(lambda: kernels.cross_count_matrix(pre, axis), runs)
+        plain = cuda_ms(lambda: kernels.cross_count_matrix_plain(pre, axis),
+                        1, 1)
+        nbytes = (p + TOPN_ROWS) * n_words * 4 + chunks * p * TOPN_ROWS * 4
+        ops = 1.0 * p * TOPN_ROWS * n_words
+        b_ms, b_by = bound(nbytes, 2.0 * ops, ops, rates)
+        out["cross_count_matrix"][f"P={p} R={TOPN_ROWS}"] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes_once": nbytes}
+        log(f"  {name}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by "
+            f"{b_by}), plain {plain:.2f} ms, exact")
+    del axis, prefix
+    torch.cuda.empty_cache()
+    log(f"  TopN/GroupBy kernels: {time.perf_counter() - t_phase:.1f} s")
+    tn, cc = out["topn_counts_packed"], out["cross_count_matrix"]
+    first = f"R={TOPN_ROWS} S={n_shards}"
+    return {
+        "topn_counts_packed": {**tn[first], "max_abs_err": 0,
+                               "shape": first, "all": tn},
+        "cross_count_matrix": {**cc[f"P=8 R={TOPN_ROWS}"], "max_abs_err": 0,
+                               "shape": f"P=8 R={TOPN_ROWS}", "all": cc},
+    }
+
+
 # ----------------------------------------------------------------- server
 
 
@@ -402,6 +513,21 @@ def make_rows(n_rows: int, n_shards: int, seed: int) -> list[np.ndarray]:
         keep = np.concatenate(([True], cols[1:] != cols[:-1]))
         rows.append(cols[keep])
     return rows
+
+
+def shard_major(rows: list, n_shards: int) -> tuple:
+    """(row ids, columns) of sorted per-row column arrays, ordered by shard
+    and then by row: one import call whose shard grouping is a no-op
+    sort, and one snapshot per fragment."""
+    edges = np.arange(n_shards + 1, dtype=np.int64) * SHARD_WIDTH
+    bounds = [np.searchsorted(r, edges) for r in rows]
+    ids, cols = [], []
+    for s in range(n_shards):
+        for i, r in enumerate(rows):
+            seg = r[bounds[i][s]:bounds[i][s + 1]]
+            ids.append(np.full(seg.size, i, dtype=np.int64))
+            cols.append(seg)
+    return np.concatenate(ids), np.concatenate(cols)
 
 
 def packed_row(cols: np.ndarray, n_shards: int) -> np.ndarray:
@@ -598,6 +724,229 @@ def bsi_phase(srv, port: int, packed: list, exists: np.ndarray,
             raise AssertionError(f"{name} never launched on the BSI path")
     if stats["max_batch_seen"] < 2:
         raise AssertionError("the PlaneSumBatcher never coalesced")
+    return {"launches": launches, "stats": stats}, (cols, vals)
+
+
+def make_topn_rows(n_shards: int, top_bits: int, seed: int) -> list:
+    """Sorted unique global columns of the TOPN_ROWS rows of t: row r with
+    about top_bits / (r + 1) random bits per shard."""
+    rng = np.random.default_rng(seed + 11)
+    rows = []
+    for r in range(TOPN_ROWS):
+        card = max(top_bits // (r + 1), 1)
+        cols = (np.repeat(np.arange(n_shards, dtype=np.int64), card)
+                * SHARD_WIDTH
+                + rng.integers(0, SHARD_WIDTH, size=card * n_shards))
+        cols.sort()
+        rows.append(cols[np.concatenate(([True], cols[1:] != cols[:-1]))])
+    return rows
+
+
+def _pairs(counts, ids=None) -> list:
+    """TopN JSON of {row: count}: count desc, id asc, zeros dropped."""
+    ids = range(len(counts)) if ids is None else ids
+    got = sorted(((int(counts[i]), int(i)) for i in ids if counts[i] > 0),
+                 key=lambda x: (-x[0], x[1]))
+    return [{"id": i, "count": c} for c, i in got]
+
+
+def _groups(names: list, counts: dict) -> list:
+    """GroupBy JSON of {(row, ...): count}, lexicographic, zeros dropped."""
+    return [{"group": [{"field": f, "rowID": int(r)}
+                       for f, r in zip(names, key)], "count": int(c)}
+            for key, c in sorted(counts.items()) if c > 0]
+
+
+def topn_phase(srv, port: int, packed: list, values: tuple, rows: list,
+               n_shards: int, seed: int, clients: int,
+               per_client: int) -> dict:
+    """TopN, Rows and GroupBy on the Count phase's server and index; its
+    own launch counts (zeroed before its first query, read after its
+    last). packed = the packed rows of f; values = (columns, values) of
+    the int field v; rows = the columns of t's rows (make_topn_rows)."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    _http(port, "POST", "/index/i/field/t",
+          json.dumps({"options": {"cacheType": "ranked"}}).encode())
+    t0 = time.perf_counter()
+    srv.api.import_bits("i", "t", *shard_major(rows, n_shards))
+    rng = np.random.default_rng(seed + 12)
+    n_total = n_shards * SHARD_WIDTH
+    extra = np.unique(rng.integers(0, n_total, size=5000))
+    _http(port, "POST", "/index/i/field/t/import", json.dumps(
+        {"rowIDs": [TOPN_ROWS - 1] * extra.size,
+         "columnIDs": extra.tolist()}).encode())
+    rows[-1] = np.union1d(rows[-1], extra)
+    # single bits: row 40 gains four columns of shard 0, row 0 loses one
+    gain = np.setdiff1d(np.arange(100, 1100, 250), rows[40])[:4]
+    for c in gain.tolist():
+        _http(port, "POST", "/index/i/query", f"Set({c}, t=40)".encode())
+    lose = int(rows[0][0])
+    _http(port, "POST", "/index/i/query", f"Clear({lose}, t=0)".encode())
+    rows[40] = np.union1d(rows[40], gain)
+    rows[0] = rows[0][1:]
+    import_s = time.perf_counter() - t0
+    log(f"  topn import: {import_s:.1f} s")
+    view = srv.holder.index("i").field("t").view("standard")
+    frag0, cache0 = view.fragment(0), view.rank_caches[0]
+    for r in (0, 40):
+        want = int((rows[r] < SHARD_WIDTH).sum())
+        if cache0.counts.get(r) != want or frag0.row_count(r) != want:
+            raise AssertionError(f"rank cache of shard 0 row {r}: "
+                                 f"{cache0.counts.get(r)} != {want}")
+    log("  Set/Clear moved the rank cache of shard 0 (rows 0 and 40)")
+
+    t0 = time.perf_counter()
+    sizes = np.array([r.size for r in rows], dtype=np.int64)
+    inter = np.array([[int(_bit_test(packed[a], rows[r]).sum())
+                       for r in range(TOPN_ROWS)] for a in range(len(packed))])
+    vcols, vvals = values
+    packed_v = packed_row(vcols[vvals > 500], n_shards)
+    log(f"  topn oracle: {time.perf_counter() - t0:.1f} s")
+
+    def query(pql: str):
+        return _http(port, "POST", "/index/i/query", pql.encode())["results"][0]
+
+    def timed(pql: str, want, what: str) -> float:
+        t = time.perf_counter()
+        got = query(pql)
+        ms = (time.perf_counter() - t) * 1e3
+        if got != want:
+            raise AssertionError(f"{pql}: port {str(got)[:300]} != oracle "
+                                 f"{str(want)[:300]}")
+        log(f"  {what}{pql[:100]}: {ms:.1f} ms (oracle agrees)")
+        return ms
+
+    kernels.reset_launch_counts()  # the TopN/GroupBy path starts here
+    times = {
+        "topn_cache_cold_ms": timed("TopN(t, n=10)", _pairs(sizes)[:10],
+                                    "cold "),
+        "topn_src_cold_ms": timed("TopN(t, Row(f=0), n=10)",
+                                  _pairs(inter[0])[:10], "cold "),
+        "topn_src_warm_ms": timed("TopN(t, Row(f=0), n=10)",
+                                  _pairs(inter[0])[:10], "warm "),
+    }
+    fxt = {(a, r): inter[a, r] for a in range(len(packed))
+           for r in range(TOPN_ROWS)}
+    names = ["f", "t"]
+    times["groupby_cold_ms"] = timed("GroupBy(Rows(field=f), Rows(field=t))",
+                                     _groups(names, fxt), "cold ")
+    times["groupby_warm_ms"] = timed("GroupBy(Rows(field=f), Rows(field=t))",
+                                     _groups(names, fxt), "warm ")
+
+    # Tanimoto against row 5 itself: only rows near |t_5| are recounted
+    packed5 = packed_row(rows[5], n_shards)
+    with5 = np.array([int(_bit_test(packed5, rows[r]).sum())
+                      for r in range(TOPN_ROWS)])
+    union = sizes + sizes[5] - with5
+    tani = np.where(100 * with5 > 50 * union, with5, 0)
+    band = (sizes > sizes[5] * 0.5) & (sizes < sizes[5] * 2)
+    tani = np.where(band, tani, 0)
+    x = int(np.sort(inter[1])[TOPN_ROWS // 2])  # a threshold mid-way
+    thr = np.where(inter[1] >= x, inter[1], 0)
+    ids = [0, 5, 17, TOPN_ROWS - 1, 99]
+    probe = int(rows[3][len(rows[3]) // 2])
+    with_col = [r for r in range(TOPN_ROWS)
+                if np.searchsorted(rows[r], probe) < rows[r].size
+                and rows[r][np.searchsorted(rows[r], probe)] == probe]
+    filt = {}
+    for r in range(TOPN_ROWS):
+        sel = rows[r][_bit_test(packed_v, rows[r])]
+        for a in range(len(packed)):
+            filt[(a, r)] = int(_bit_test(packed[a], sel).sum())
+    three = {}
+    for r in range(3):
+        for a in range(2):
+            in_a = _bit_test(packed[a], rows[r])
+            for b in (6, 7):
+                three[(a, r, b)] = int((in_a & _bit_test(packed[b],
+                                                         rows[r])).sum())
+    checks = [
+        ("TopN(t, n=0)", _pairs(sizes)),
+        ("TopN(t, Row(t=5), n=5, tanimotoThreshold=50)", _pairs(tani)[:5]),
+        (f"TopN(t, Row(f=1), threshold={x}, n=10)", _pairs(thr)[:10]),
+        ("TopN(t, Row(f=2), ids=[" + ", ".join(map(str, ids)) + "])",
+         _pairs(np.append(inter[2], [0] * (100 - TOPN_ROWS)), ids)),
+        ("Rows(field=t)", {"rows": list(range(TOPN_ROWS))}),
+        ("Rows(field=t, limit=5, previous=3)", {"rows": [4, 5, 6, 7, 8]}),
+        (f"Rows(field=t, column={probe})", {"rows": with_col}),
+        ("GroupBy(Rows(field=f), Rows(field=t), limit=20)",
+         _groups(names, fxt)[:20]),
+        ("GroupBy(Rows(field=f), Rows(field=t), filter=Range(v > 500))",
+         _groups(names, filt)),
+        ("GroupBy(Rows(field=f, limit=2), Rows(field=t, limit=3), "
+         "Rows(field=f, previous=5), limit=7)",
+         _groups(["f", "t", "f"], three)[:7]),
+    ]
+    for a in range(1, len(packed)):
+        checks.append((f"TopN(t, Row(f={a}), n=10)", _pairs(inter[a])[:10]))
+    t0 = time.perf_counter()
+    for pql, want in checks:
+        timed(pql, want, "")
+    single_s = time.perf_counter() - t0
+
+    lat: list = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def client(cid: int) -> None:
+        conn = http.client.HTTPConnection("localhost", port, timeout=600)
+        try:
+            for i in range(per_client):
+                a = (cid + i) % len(packed)
+                q = f"TopN(t, Row(f={a}), n=10)"
+                t = time.perf_counter()
+                got = _http(port, "POST", "/index/i/query", q.encode(),
+                            conn)["results"][0]
+                dt = time.perf_counter() - t
+                with lock:
+                    lat.append(dt)
+                    if got != _pairs(inter[a])[:10]:
+                        errors.append((q, got))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors or len(lat) != clients * per_client:
+        raise AssertionError(
+            f"{len(errors)} concurrent TopNs differ, "
+            f"{clients * per_client - len(lat)} missing; first {errors[:1]}")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()  # the TopN/GroupBy path ends here
+    res = srv.executor.residency.snapshot()
+    stats = {
+        "queries": len(lat), "qps": len(lat) / wall,
+        "p50_ms": statistics.median(lat) * 1e3,
+        "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "bits": int(sizes.sum()), "import_s": import_s,
+        "single_queries_s": single_s, **times,
+        "topn_recount_rows": srv.executor.topn_recount_rows,
+        "groupby_host_syncs": srv.executor.groupby_host_syncs,
+        "resident_bytes": res["bytes"], "resident_entries": res["entries"],
+        "evictions": res["evictions"],
+    }
+    log(f"  concurrent: {clients} clients x {per_client} TopN(t, Row(f=a), "
+        f"n=10): {stats['qps']:.1f} q/s, p50 {stats['p50_ms']:.2f} ms, p99 "
+        f"{stats['p99_ms']:.2f} ms")
+    log(f"  resident leaves: {res['entries']} entries, {res['bytes']} bytes, "
+        f"{res['evictions']} evictions")
+    log(f"  launches on the TopN/GroupBy path: {launches}")
+    for name in TOPN_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the TopN/GroupBy "
+                                 "path")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"  TopN/GroupBy phase: {stats['phase_s']:.1f} s")
     return {"launches": launches, "stats": stats}
 
 
@@ -623,9 +972,11 @@ def device_busy_ms(prof) -> float | None:
 
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
                  clients: int, per_client: int, profile: bool,
-                 bsi: tuple) -> dict:
-    """The Count path, then the BSI path on the same server and index
-    (bsi = values per shard, seed, clients, queries per client)."""
+                 bsi: tuple, topn: tuple) -> dict:
+    """The Count path, then the BSI path and the TopN/GroupBy path on the
+    same server and index (bsi = values per shard, seed, clients, queries
+    per client; topn = bits per shard of t's row 0, seed, clients,
+    queries per client)."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels
@@ -635,8 +986,10 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
     rows = make_rows(n_rows, n_shards, seed)
     extra = np.array([3, 99, SHARD_WIDTH + 5, 2 * SHARD_WIDTH + 7],
                      dtype=np.int64) % (n_shards * SHARD_WIDTH)
+    t_rows = make_topn_rows(n_shards, topn[0], topn[1])
     log(f"  data: {n_rows} rows x {n_shards} shards, "
-        f"{sum(r.size for r in rows)} bits "
+        f"{sum(r.size for r in rows)} bits; {TOPN_ROWS} rows of t, "
+        f"{sum(r.size for r in t_rows)} bits "
         f"({time.perf_counter() - t0:.1f} s)")
 
     kernels.reset_launch_counts()  # the main path starts here
@@ -648,8 +1001,7 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                   json.dumps({"options": {"trackExistence": True}}).encode())
             _http(port, "POST", "/index/i/field/f", b"{}")
             t0 = time.perf_counter()
-            for r, cols in enumerate(rows):
-                srv.api.import_bits("i", "f", np.full(cols.size, r), cols)
+            srv.api.import_bits("i", "f", *shard_major(rows, n_shards))
             _http(port, "POST", "/index/i/field/f/import", json.dumps(
                 {"rowIDs": [0] * extra.size,
                  "columnIDs": extra.tolist()}).encode())
@@ -806,8 +1158,13 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
             if stats["max_batch_seen"] < 2:
                 raise AssertionError("the CountBatcher never coalesced")
             log("phase 3: BSI path on the same server")
-            bsi_served = bsi_phase(srv, port, p, exists, n_shards, *bsi)
-            return {"launches": launches, "stats": stats, "bsi": bsi_served}
+            bsi_served, values = bsi_phase(srv, port, p, exists, n_shards,
+                                           *bsi)
+            log("phase 4: TopN/Rows/GroupBy path on the same server")
+            topn_served = topn_phase(srv, port, p, values, t_rows, n_shards,
+                                     *topn[1:])
+            return {"launches": launches, "stats": stats, "bsi": bsi_served,
+                    "topn": topn_served}
         finally:
             srv.close()
 
@@ -859,23 +1216,30 @@ def main(argv=None) -> int:
     served = server_phase(device, args.shards, args.rows, args.seed,
                           args.clients, args.per_client, args.profile,
                           (args.bsi_per_shard, args.seed, args.bsi_clients,
-                           args.bsi_per_client))
+                           args.bsi_per_client),
+                          (TOPN_BITS, args.seed, TOPN_CLIENTS,
+                           TOPN_PER_CLIENT))
     st = served["stats"]
     k_served = max(1, round(st["batched_queries"] / max(st["batches"], 1)))
     bst = served["bsi"]["stats"]
     k_sum = max(1, round(bst["batched_queries"] / max(bst["batches"], 1)))
 
-    log(f"phase 4: kernels at S={args.shards}, W=32768 (served mean "
+    gc.collect()  # the closed server's resident tensors
+    torch.cuda.empty_cache()
+    log(f"phase 5: kernels at S={args.shards}, W=32768 (served mean "
         f"batches: pair stream K={k_served}, BSI sum K={k_sum})")
     measured = kernel_phase(device, args.shards, 32768, args.slab_rows,
                             args.k, k_served, args.seed, args.runs)
     measured.update(bsi_kernel_phase(device, args.shards, 32768, k_sum,
                                      args.seed, args.runs))
+    measured.update(topn_kernel_phase(device, args.shards, 32768, args.seed,
+                                      args.runs))
 
     records = []
     for name, m in measured.items():
-        launches = (served["bsi"] if name in BSI_KERNELS
-                    else served)["launches"][name]
+        phase = (served["bsi"] if name in BSI_KERNELS
+                 else served["topn"] if name in TOPN_KERNELS else served)
+        launches = phase["launches"][name]
         records.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches,
@@ -883,8 +1247,9 @@ def main(argv=None) -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None})
     log("  library_ms: none (no single PyTorch call computes a popcount of "
-        "a bitwise op, a bit-sliced comparison or per-plane filtered "
-        "popcounts)")
+        "a bitwise op, a bit-sliced comparison, per-plane filtered "
+        "popcounts, packed TopN counts or a popcount cross matrix: torch "
+        "has no popcount)")
     log(f"  details: {json.dumps({'kernels': measured, **served})}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi_name)

@@ -4,7 +4,8 @@ Trimmed port of pilosa_tpu/api.py: create/delete index (with
 trackExistence), create field, bulk imports of bits and of int values
 with existence marking (api.py:820-842), queries, schema and status.
 Result JSON is the reference's (api.py:567-603) for the result types of
-this slice: Row, ValCount ({"value", "count"}), int and bool.
+this slice: Row, ValCount ({"value", "count"}), Pairs ([{"id", "count"}]),
+RowIdentifiers ({"rows": [...]}), GroupCounts (a list), int and bool.
 """
 
 from __future__ import annotations
@@ -16,7 +17,14 @@ from typing import Optional
 import numpy as np
 
 from pilosa_tpu_torch import __version__
-from pilosa_tpu_torch.executor import ExecutionError, Executor, ValCount
+from pilosa_tpu_torch.executor import (
+    ExecutionError,
+    Executor,
+    GroupCounts,
+    Pairs,
+    RowIdentifiers,
+    ValCount,
+)
 from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.models.row import Row
@@ -52,7 +60,7 @@ class API:
 
     def query_results(self, index_name: str, pql: str,
                       shards: Optional[list[int]] = None) -> list:
-        """Execute PQL and return the raw results (Row / int / bool)."""
+        """Execute PQL and return the raw results."""
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
         try:
@@ -75,6 +83,12 @@ class API:
             return d
         if isinstance(result, ValCount):
             return result.to_json_dict()
+        if isinstance(result, Pairs):
+            return [{"id": i, "count": c} for i, c in result]
+        if isinstance(result, RowIdentifiers):
+            return {"rows": list(result)}
+        if isinstance(result, GroupCounts):
+            return list(result)
         return result  # int / bool
 
     # -- schema -------------------------------------------------------------

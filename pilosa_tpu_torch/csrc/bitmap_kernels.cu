@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the dense bitmap read path and
 // the bit-sliced integer (BSI) path.
 //
-// Five kernels, one device code base. The dense read path:
+// Seven kernels, one device code base. The dense read path:
 //
 //   pbk_pair_stream_counts  replaces pilosa_tpu/ops/pallas_kernels.py
 //       pair_stream_counts (:234, body _pair_stream_kernel :216) and the
@@ -64,6 +64,45 @@
 //     Planes are reduced in chunks of 32, so the depth is not capped. The
 //     Pallas kernel carried these sums across its sequential word-block
 //     grid axis in the output tile; on Hopper the atomics replace that.
+//
+// Two more carry TopN and GroupBy:
+//
+//   pbk_topn_counts         replaces pallas_kernels.py topn_counts_packed
+//       (:364, body _topn_counts_kernel :336; top_rows :388 calls it with a
+//       zero src): for R candidate rows (a device table of leaf pointers)
+//       and one src plane, |row & src|, |row| and |src| per row, as int32
+//       partials per 2016-shard chunk -> int32[C, 3, R].
+//   pbk_cross_count         replaces pallas_kernels.py cross_count_matrix
+//       (:182, body _cross_count_kernel :158): counts[p, r] =
+//       popcount(prefix[p] & axis[r]) over all shards and words, as int32
+//       partials per 2016-shard chunk -> int32[C, P, R].
+//
+// Bounds: topn_counts reads every row and src once and does two __popc
+// per row word, so bytes bound it. cross_count does one __popc per
+// (prefix, row, word) triple: at the GroupBy shapes (P = 8, R = 64) that is
+// 512 popcounts per 72 words read, so the popcount rate (16 per clock per
+// SM) bounds it, not HBM.
+//
+// Design of the TopN and GroupBy kernels:
+//   * topn_counts: a block takes (shard s, a slice of 4096 words), keeps
+//     that slice of src in registers and its |src| partial in shared
+//     memory, then walks the R rows: per row a warp-shuffle sum of both
+//     counts into shared memory, and one block-wide pass per 32 rows adds
+//     each (row, count) partial, and the block's |src| partial, with one
+//     integer atomicAdd into the zeroed output. src is read once per launch
+//     and every row once. The Pallas grid re-read src for every 128-row
+//     block; here |src| is charged once per (block, row), so each row's
+//     total is exactly |src| whatever R is.
+//   * cross_count: split-K over the words, like a GEMM of popcounts. A
+//     block owns an output tile of 4*PT prefixes x 64 axis rows and a
+//     slice of one chunk's words; per step it stages 128 words of each of
+//     its prefixes and rows in shared memory (row stride padded by one
+//     16-byte vector, so the column reads are free of bank conflicts), and
+//     each thread counts its PT prefixes against one row into registers:
+//     every operand word is read from HBM once per tile, and its reuse
+//     across the tile comes from shared memory. PT in {1, 2, 4} follows P,
+//     so P = 8 runs with no padded prefixes. At the end each thread adds
+//     its PT partials with integer atomics into the zeroed output.
 //
 // Every C entry point returns cudaGetLastError() right after its launch.
 
@@ -358,6 +397,157 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ----------------------------------------------------------------- TopN
+
+constexpr int kTopnVec = 4;                     // src vectors per thread
+constexpr int kTopnSpan = kThreads * kTopnVec;  // 16-byte vectors per block
+constexpr int kTopnRows = 32;                   // rows per shared pass
+
+// grid (S * parts): block (s * parts + part) counts vectors
+// [part * kTopnSpan, (part + 1) * kTopnSpan) of shard s. rows = R leaf
+// pointers as int64 on the device; out = int32[C, 3, R], zeroed.
+__global__ void __launch_bounds__(kThreads)
+    topn_counts_kernel(const long long* __restrict__ rows, int n_rows,
+                       const uint4* __restrict__ src, int* __restrict__ out,
+                       long long w4, int parts, long long chunk_shards) {
+  __shared__ unsigned sums[2][kTopnRows][kThreads / 32];
+  __shared__ unsigned src_total;
+  const long long shard = blockIdx.x / parts;
+  const long long lo = static_cast<long long>(blockIdx.x % parts) * kTopnSpan;
+  const long long base = shard * w4;
+  uint4 s[kTopnVec];
+  unsigned scount = 0;
+#pragma unroll
+  for (int v = 0; v < kTopnVec; ++v) {
+    const long long i = lo + v * kThreads + threadIdx.x;
+    s[v] = i < w4 ? __ldg(src + base + i) : splat(0u);
+    scount += popc4(s[v]);
+  }
+  scount = block_sum(scount);
+  if (threadIdx.x == 0) src_total = scount;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int* out_c = out + (shard / chunk_shards) * 3LL * n_rows;
+  for (int r0 = 0; r0 < n_rows; r0 += kTopnRows) {
+    const int r1 = r0 + kTopnRows < n_rows ? r0 + kTopnRows : n_rows;
+    for (int r = r0; r < r1; ++r) {
+      const uint4* row =
+          reinterpret_cast<const uint4*>(__ldg(rows + r)) + base;
+      unsigned inter = 0, cnt = 0;
+#pragma unroll
+      for (int v = 0; v < kTopnVec; ++v) {
+        const long long i = lo + v * kThreads + threadIdx.x;
+        if (i < w4) {
+          const uint4 x = __ldg(row + i);
+          inter += popc4(and4(x, s[v]));
+          cnt += popc4(x);
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        inter += __shfl_down_sync(0xffffffffu, inter, o);
+        cnt += __shfl_down_sync(0xffffffffu, cnt, o);
+      }
+      if (lane == 0) {
+        sums[0][r - r0][warp] = inter;
+        sums[1][r - r0][warp] = cnt;
+      }
+    }
+    __syncthreads();  // also publishes src_total on the first pass
+    if (threadIdx.x < r1 - r0) {
+      unsigned inter = 0, cnt = 0;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) {
+        inter += sums[0][threadIdx.x][w];
+        cnt += sums[1][threadIdx.x][w];
+      }
+      const int r = r0 + threadIdx.x;
+      if (inter) atomicAdd(out_c + r, static_cast<int>(inter));
+      if (cnt) atomicAdd(out_c + n_rows + r, static_cast<int>(cnt));
+      if (src_total) {
+        atomicAdd(out_c + 2 * n_rows + r, static_cast<int>(src_total));
+      }
+    }
+    __syncthreads();  // sums is rewritten by the next pass
+  }
+}
+
+// -------------------------------------------------------------- GroupBy
+
+constexpr int kCcRows = 64;  // axis rows per block tile, one per thread
+constexpr int kCcVec = 32;   // 16-byte vectors per operand row and step
+
+// grid (C * split, P tiles, R tiles): block (c * split + part, pt, rt)
+// counts its share of chunk c's words for prefixes [pt * 4PT, +4PT) x
+// axis rows [rt * 64, +64). Thread (ty, tx) = (tid / 64, tid % 64) owns
+// prefixes ty * PT .. ty * PT + PT - 1 of the tile against row tx.
+// prefix = [P, S, w4] and axis = [R, S, w4] contiguous; out = int32[C, P,
+// R], zeroed.
+template <int PT>
+__global__ void __launch_bounds__(kThreads)
+    cross_count_kernel(const uint4* __restrict__ prefix,
+                       const uint4* __restrict__ axis, int n_prefix,
+                       int n_axis, int* __restrict__ out, long long n_shards,
+                       long long w4, long long chunk_shards, int split) {
+  constexpr int kTileP = 4 * PT;
+  __shared__ uint4 ps[kTileP][kCcVec];
+  __shared__ uint4 rs[kCcRows][kCcVec + 1];
+  const int c = blockIdx.x / split;
+  const int part = blockIdx.x % split;
+  const int p0 = blockIdx.y * kTileP;
+  const int r0 = blockIdx.z * kCcRows;
+  const long long plane = n_shards * w4;
+  const long long s0 = chunk_shards * c;
+  const long long s1 = s0 + chunk_shards < n_shards ? s0 + chunk_shards
+                                                    : n_shards;
+  const long long off = s0 * w4;
+  const long long n = (s1 - s0) * w4;
+  const long long steps = (n + kCcVec - 1) / kCcVec;
+  const long long per = (steps + split - 1) / split;
+  const long long t0 = per * part;
+  const long long t1 = t0 + per < steps ? t0 + per : steps;
+  const int ty = threadIdx.x / kCcRows;
+  const int tx = threadIdx.x % kCcRows;
+  const bool live = p0 + ty * PT < n_prefix && r0 + tx < n_axis;
+  unsigned acc[PT];
+#pragma unroll
+  for (int i = 0; i < PT; ++i) acc[i] = 0;
+  for (long long t = t0; t < t1; ++t) {
+    const long long k0 = t * kCcVec;
+    for (int e = threadIdx.x; e < kTileP * kCcVec; e += kThreads) {
+      const int p = e / kCcVec, k = e % kCcVec;
+      ps[p][k] = p0 + p < n_prefix && k0 + k < n
+                     ? __ldg(prefix + (p0 + p) * plane + off + k0 + k)
+                     : splat(0u);
+    }
+    for (int e = threadIdx.x; e < kCcRows * kCcVec; e += kThreads) {
+      const int r = e / kCcVec, k = e % kCcVec;
+      rs[r][k] = r0 + r < n_axis && k0 + k < n
+                     ? __ldg(axis + (r0 + r) * plane + off + k0 + k)
+                     : splat(0u);
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll 8
+      for (int k = 0; k < kCcVec; ++k) {
+        const uint4 b = rs[tx][k];
+#pragma unroll
+        for (int i = 0; i < PT; ++i) acc[i] += popc4(and4(ps[ty * PT + i][k], b));
+      }
+    }
+    __syncthreads();  // the tiles are rewritten by the next step
+  }
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < PT; ++i) {
+    const int p = p0 + ty * PT + i;
+    if (p < n_prefix && acc[i]) {
+      atomicAdd(out + (static_cast<long long>(c) * n_prefix + p) * n_axis +
+                    r0 + tx,
+                static_cast<int>(acc[i]));
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -461,6 +651,41 @@ int pbk_bsi_sum_counts(const void* planes, const long long* filters, int k,
   bsi_sum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(planes), filters, depth, out, n_shards, w4,
       static_cast<int>(parts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pbk_topn_counts(const long long* rows, int n_rows, const void* src,
+                    int* out, long long n_shards, long long w4,
+                    long long chunk_shards, void* stream) {
+  const long long parts = (w4 + kTopnSpan - 1) / kTopnSpan;
+  topn_counts_kernel<<<static_cast<unsigned>(n_shards * parts), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      rows, n_rows, static_cast<const uint4*>(src), out, w4,
+      static_cast<int>(parts), chunk_shards);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pbk_cross_count(const void* prefix, const void* axis, int n_prefix,
+                    int n_axis, int* out, long long n_shards, long long w4,
+                    long long chunk_shards, int n_chunks, int split,
+                    void* stream) {
+  const uint4* p = static_cast<const uint4*>(prefix);
+  const uint4* a = static_cast<const uint4*>(axis);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int pt = n_prefix <= 4 ? 1 : n_prefix <= 8 ? 2 : 4;
+  const dim3 grid(static_cast<unsigned>(n_chunks * split),
+                  static_cast<unsigned>((n_prefix + 4 * pt - 1) / (4 * pt)),
+                  static_cast<unsigned>((n_axis + kCcRows - 1) / kCcRows));
+  if (pt == 1) {
+    cross_count_kernel<1><<<grid, kThreads, 0, st>>>(
+        p, a, n_prefix, n_axis, out, n_shards, w4, chunk_shards, split);
+  } else if (pt == 2) {
+    cross_count_kernel<2><<<grid, kThreads, 0, st>>>(
+        p, a, n_prefix, n_axis, out, n_shards, w4, chunk_shards, split);
+  } else {
+    cross_count_kernel<4><<<grid, kThreads, 0, st>>>(
+        p, a, n_prefix, n_axis, out, n_shards, w4, chunk_shards, split);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

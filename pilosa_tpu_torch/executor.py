@@ -20,25 +20,41 @@ device, and run Sum through the PlaneSumBatcher (bsi_sum_counts kernel),
 Min/Max through the greedy descents of ops/bsi.py. Totals finish exactly
 on the host: value = sum of 2^i * count_i + min * count.
 
+TopN (:1835-2164) picks candidates from the per-shard rank caches (merged
+across shards, memoized on the caches' versions) and recounts them
+exactly: from container metadata without a Src, through the
+topn_counts_packed kernel with one (the threshold-pruned walk over
+256-row blocks, the Tanimoto band, the ids= recount). Rows (:2168-2215)
+reads row ids from the fragments. GroupBy (:2217-2423) stacks each Rows
+axis into one resident [R, S, W] slab and counts every level past the
+first with the cross_count_matrix kernel, pruned on the device, one host
+fetch per level.
+
 Not(x) is existence &~ x (executor.py:1317-1322). Left out: the planner
 and plan cache, hybrid sparse/run leaves, heat, the cluster, key
-translation and the MinMaxBatcher. None of them changes an answer. Calls,
-field types and options outside the slice raise NotPortedError (a 400 at
-the API).
+translation, row attributes and the MinMaxBatcher. None of them changes
+an answer. Calls, field types and options outside the slice raise
+NotPortedError (a 400 at the API).
 """
 
 from __future__ import annotations
 
+import heapq
 import os
+import threading
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
+import torch
 
 from pilosa_tpu_torch.constants import (
     EXISTENCE_FIELD_NAME,
     SHARD_WIDTH,
     WORDS_PER_SHARD,
 )
+from pilosa_tpu_torch.device import planes_to_tensor
+from pilosa_tpu_torch.models.cache import merge_pair_arrays, merge_pairs
 from pilosa_tpu_torch.models.field import NotPortedError
 from pilosa_tpu_torch.models.index import Index
 from pilosa_tpu_torch.models.row import Row
@@ -46,6 +62,7 @@ from pilosa_tpu_torch.models.view import VIEW_STANDARD
 from pilosa_tpu_torch.ops import bsi
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.ops.bitvector import band, columns_from_dense
+from pilosa_tpu_torch.ops.topn import tanimoto_mask
 from pilosa_tpu_torch.parallel.batcher import CountBatcher, PlaneSumBatcher
 from pilosa_tpu_torch.parallel.mesh import DeviceRunner
 from pilosa_tpu_torch.parallel.residency import DeviceResidency
@@ -66,6 +83,16 @@ BITMAP_CALLS = {"Row", "Union", "Intersect", "Difference", "Xor", "Not",
 _BATCHABLE_OPS = ("and", "or", "xor", "andnot")
 _BSI_OPS = {LT: bsi.LT, LTE: bsi.LTE, GT: bsi.GT, GTE: bsi.GTE, EQ: bsi.EQ,
             NEQ: bsi.NEQ}
+# candidates per step of the TopN walk: the unit of its prune test, as in
+# the JAX package, so both stop at the same block
+TOPN_BLOCK = 256
+# leaves per topn_counts_packed launch: 64 x 128 MiB at 1024 shards
+TOPN_LAUNCH_ROWS = 64
+# cross-shard TopN candidate merges kept (LRU)
+TOPN_MEMO_ENTRIES = 256
+# static bound of a GroupBy chunk's pruned transfer; a chunk with more
+# live groups refetches its whole count matrix
+GROUPBY_LIVE_CAP = 1 << 16
 
 
 class ExecutionError(ValueError):
@@ -92,6 +119,18 @@ class ValCount:
         return f"ValCount(val={self.val}, count={self.count})"
 
 
+class Pairs(list):
+    """TopN result: [(row_id, count)] (pilosa_tpu/executor.py:63-71)."""
+
+
+class RowIdentifiers(list):
+    """Rows result: ascending row ids (executor.py:73-79)."""
+
+
+class GroupCounts(list):
+    """GroupBy result: [{"group": [...], "count": n}] (executor.py:81-82)."""
+
+
 class Executor:
     def __init__(self, holder, device="cuda"):
         self.holder = holder
@@ -102,11 +141,22 @@ class Executor:
         batch = os.environ.get("PILOSA_TPU_TORCH_BATCH", "1") != "0"
         self.batcher = CountBatcher() if batch else None
         self.sum_batcher = PlaneSumBatcher() if batch else None
+        # rows recounted by TopN walks, and GroupBy's blocking fetches (at
+        # most one per level, plus one per overflowing chunk)
+        self.topn_recount_rows = 0
+        self.groupby_host_syncs = 0
+        self._stats_lock = threading.Lock()  # request threads share them
+        self.groupby_live_cap = GROUPBY_LIVE_CAP
+        # (index, field, shards) -> (cache versions, merged ids, counts)
+        self._topn_merge_memo: OrderedDict = OrderedDict()
+        self._topn_memo_lock = threading.Lock()
 
     def clear_caches(self) -> None:
-        """Drop every resident leaf (index/field deletion: a recreated
-        schema object restarts its generations)."""
+        """Drop every resident leaf and TopN merge (index/field deletion: a
+        recreated schema object restarts its generations and versions)."""
         self.residency.clear()
+        with self._topn_memo_lock:
+            self._topn_merge_memo.clear()
 
     # ------------------------------------------------------------------ API
 
@@ -135,6 +185,12 @@ class Executor:
             return self._execute_set(index, call)
         if call.name == "Clear":
             return self._execute_clear(index, call)
+        if call.name == "TopN":
+            return self._execute_topn(index, call, shards)
+        if call.name == "Rows":
+            return self._execute_rows(index, call, shards)
+        if call.name == "GroupBy":
+            return self._execute_group_by(index, call, shards)
         if call.name in BITMAP_CALLS:
             return self._execute_bitmap_call(index, call, shards)
         raise NotPortedError(f"call {call.name}() not ported yet")
@@ -240,6 +296,12 @@ class Executor:
 
         program = walk(call)
         return program, leaves
+
+    def _composed_row_dev(self, index: Index, call: Call, shards: list):
+        """[S, W] device result of a bitmap call tree (a Sum/Min/Max or
+        GroupBy filter, a TopN Src), composed through row_leaves_dev."""
+        program, leaves = self._compile(index, call, shards)
+        return self.runner.row_leaves_dev(leaves, program)
 
     def _execute_bitmap_call(self, index: Index, call: Call, shards) -> Row:
         shards = self._query_shards(index, shards)
@@ -400,8 +462,8 @@ class Executor:
         planes = self._bsi_planes(index, f, shards, state)
         cand = self._bsi_exists(index, f, shards, state)
         if call.children:
-            program, leaves = self._compile(index, call.children[0], shards)
-            cand = band(cand, self.runner.row_leaves_dev(leaves, program))
+            cand = band(cand, self._composed_row_dev(index, call.children[0],
+                                                     shards))
         return f, shards, planes, cand
 
     def _execute_sum(self, index: Index, call: Call, shards) -> ValCount:
@@ -433,6 +495,397 @@ class Executor:
         if best_val is None:
             return ValCount(0, 0)
         return ValCount(best_val, best_cnt)
+
+    # ----------------------------------------------------------------- TopN
+
+    def _execute_topn(self, index: Index, call: Call, shards) -> Pairs:
+        """Two-phase TopN: rank-cache candidates, then exact counts of the
+        winners (executor.py:1835-1922). Without a Src the cached counts
+        pick the winners and container metadata recounts them; with one,
+        the walk recounts |row & src| on the device."""
+        field_name = call.args.get("_field")
+        f = index.field(field_name)
+        if f is None:
+            raise ExecutionError(f"field not found: {field_name}")
+        # n=0 means unlimited, as does leaving it out
+        n = call.uint_arg("n") or None
+        shards = self._query_shards(index, shards)
+        src = None
+        if call.children:
+            src = self._composed_row_dev(index, call.children[0], shards)
+        ids_arg = call.uint_slice_arg("ids")
+        threshold = call.uint_arg("threshold") or 0
+        tanimoto = call.uint_arg("tanimotoThreshold") or 0
+        # the attribute filter exists only when both are given
+        if call.string_arg("attrName") and call.args.get("attrValues") is not None:
+            raise NotPortedError("TopN attrName/attrValues (row attributes) "
+                                 "not ported yet")
+        if ids_arg is not None:
+            ids = list(ids_arg)
+            if src is None:
+                pairs = self._host_row_counts(f, shards, ids)
+            else:
+                pairs = self._exact_counts(index, f, shards, ids, src,
+                                           tanimoto)
+        else:
+            cand_ids, cand_counts = self._topn_candidate_arrays(index, f,
+                                                                shards)
+            if threshold:
+                # a cached count bounds the row's final count from above
+                keep = cand_counts >= threshold
+                cand_ids, cand_counts = cand_ids[keep], cand_counts[keep]
+            if src is not None:
+                pairs = self._topn_src_walk(index, f, shards, cand_ids,
+                                            cand_counts, src, n, tanimoto)
+            else:
+                # a row may be missing from some shard's cache, so the
+                # winners are recounted
+                winners = cand_ids[:n] if n is not None else cand_ids
+                pairs = self._host_row_counts(f, shards, winners.tolist())
+        if threshold:
+            pairs = [(i, c) for i, c in pairs if c >= threshold]
+        merged = merge_pairs([pairs])
+        if n is not None and ids_arg is None:
+            merged = merged[:n]
+        return Pairs((i, c) for i, c in merged if c > 0)
+
+    def _topn_candidate_arrays(self, index: Index, f, shards: list):
+        """Merged (ids, cached counts) int64 arrays of the shards' rank
+        caches, count desc then id asc (executor.py:1924-1966). An empty
+        cache of a ranked field whose fragment holds bits is rebuilt in
+        place; a field without caches has no candidates. The merge is
+        memoized on the caches' versions."""
+        view = f.view(VIEW_STANDARD)
+        if view is None:
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        per_shard, versions = [], []
+        for s in shards:
+            cache = view.rank_caches.get(s)
+            if (cache is None or not len(cache)) and view.track_rank:
+                frag = view.fragment(s)
+                if frag is not None and frag.bit_count() > 0:
+                    view.refresh_rank_cache(s)
+                    cache = view.rank_caches.get(s)
+            if cache is not None and len(cache):
+                # version read before the arrays: a racing write makes the
+                # tag stale, never the data sticky
+                versions.append((s, cache._version))
+                per_shard.append(cache.top_arrays())
+        key = (index.name, f.name, tuple(shards))
+        vt = tuple(versions)
+        with self._topn_memo_lock:
+            memo = self._topn_merge_memo.get(key)
+            if memo is not None and memo[0] == vt:
+                self._topn_merge_memo.move_to_end(key)
+                return memo[1], memo[2]
+        ids, counts = merge_pair_arrays(per_shard)
+        with self._topn_memo_lock:
+            self._topn_merge_memo[key] = (vt, ids, counts)
+            self._topn_merge_memo.move_to_end(key)
+            while len(self._topn_merge_memo) > TOPN_MEMO_ENTRIES:
+                self._topn_merge_memo.popitem(last=False)
+        return ids, counts
+
+    def _recount(self, index: Index, f, shards: list, row_ids: list,
+                 src) -> np.ndarray:
+        """int64[3, len(row_ids)] of topn_counts_packed over the rows'
+        resident leaves and src, TOPN_LAUNCH_ROWS leaves per launch, one
+        fetch."""
+        parts = []
+        for start in range(0, len(row_ids), TOPN_LAUNCH_ROWS):
+            leaves = [self._row_leaf_dev(index, f.name, shards, rid)
+                      for rid in row_ids[start:start + TOPN_LAUNCH_ROWS]]
+            parts.append(kernels.topn_counts_packed(leaves, src))
+        with self._stats_lock:
+            self.topn_recount_rows += len(row_ids)
+        return torch.cat(parts, dim=1).cpu().numpy()
+
+    def _topn_src_walk(self, index: Index, f, shards: list,
+                       cand_ids: np.ndarray, cand_counts: np.ndarray, src,
+                       n, tanimoto: int) -> list:
+        """Ranking by |row & src| (executor.py:1968-2064): candidates in
+        count-desc blocks of TOPN_BLOCK, recounted on the device, stopping
+        once the next cached count (an upper bound of every remaining
+        intersection) cannot beat the n-th best. Ties are exact on the host
+        by (count, -row_id). The JAX package first tries a sparse host path
+        that needs every fragment frozen (_topn_src_sparse); the port has
+        no frozen store, so it always walks densely, as the JAX package
+        does over mutable fragments. The answers are the same."""
+        if tanimoto:
+            # tanimoto > T/100 needs |row| in (|src| T/100, |src| 100/T):
+            # rows outside the band are dropped unread, tested on exact
+            # counts (a cached count can be short of a row's total)
+            scount = int(kernels.topn_counts_packed([src], src)[2, 0])
+            lo, hi = scount * tanimoto / 100, scount * 100 / tanimoto
+            exact = self._host_row_count_arr(f, shards, cand_ids)
+            keep = (exact > lo) & (exact < hi)
+            cand_ids, cand_counts = cand_ids[keep], exact[keep]
+        pairs = list(zip(cand_ids.tolist(), cand_counts.tolist()))
+        # min-heap of (count, -row_id): evicts the lowest count, then the
+        # largest id, so the boundary keeps Pairs order
+        heap: list = []
+        out: list = []
+        for start in range(0, len(pairs), TOPN_BLOCK):
+            block = pairs[start:start + TOPN_BLOCK]
+            if n is not None and len(heap) >= n and block[0][1] < heap[0][0]:
+                break  # no remaining row can reach the top n
+            packed = self._recount(index, f, shards,
+                                   [rid for rid, _ in block], src)
+            counts = packed[0]
+            if tanimoto:
+                keep = tanimoto_mask(packed[0], packed[1], packed[2, 0],
+                                     tanimoto)
+                counts = np.where(keep, counts, 0)
+            block_pairs = [(rid, int(c))
+                           for (rid, _), c in zip(block, counts.tolist())]
+            if n is None:
+                out.extend(block_pairs)
+                continue
+            for rid, c in block_pairs:
+                if c <= 0:
+                    continue
+                item = (c, -rid)
+                if len(heap) < n:
+                    heapq.heappush(heap, item)
+                elif item > heap[0]:
+                    heapq.heapreplace(heap, item)
+        if n is None:
+            return out
+        return [(-nrid, c) for c, nrid in heap]
+
+    def _host_row_count_arr(self, f, shards: list, row_ids) -> np.ndarray:
+        """Exact row counts summed over the shards, from container metadata
+        (one Fragment.row_counts per shard)."""
+        view = f.view(VIEW_STANDARD)
+        totals = np.zeros(len(row_ids), dtype=np.int64)
+        if view is not None:
+            for s in shards:
+                frag = view.fragment(s)
+                if frag is not None:
+                    totals += frag.row_counts(row_ids)
+        return totals
+
+    def _host_row_counts(self, f, shards: list, row_ids: list) -> list:
+        totals = self._host_row_count_arr(f, shards, row_ids)
+        return [(rid, int(c)) for rid, c in zip(row_ids, totals)]
+
+    def _exact_counts(self, index: Index, f, shards: list, row_ids: list,
+                      src, tanimoto: int) -> list:
+        """|row & src| of the given rows through topn_counts_packed, zero
+        where the strict Tanimoto mask drops them (executor.py:2133-2164)."""
+        pairs = []
+        for start in range(0, len(row_ids), TOPN_BLOCK):
+            chunk = row_ids[start:start + TOPN_BLOCK]
+            packed = self._recount(index, f, shards, chunk, src)
+            counts = packed[0]
+            if tanimoto:
+                keep = tanimoto_mask(packed[0], packed[1], packed[2, 0],
+                                     tanimoto)
+                counts = np.where(keep, counts, 0)
+            pairs.extend(zip(chunk, counts.tolist()))
+        return pairs
+
+    # ------------------------------------------------------- Rows / GroupBy
+
+    def _execute_rows(self, index: Index, call: Call,
+                      shards) -> RowIdentifiers:
+        """Row ids with any bit, ascending, from `previous` + 1, at most
+        `limit`, or those holding `column` (executor.py:2168-2215)."""
+        field_name = call.args.get("_field") or call.args.get("field")
+        f = index.field(field_name)
+        if f is None:
+            raise ExecutionError(f"field not found: {field_name}")
+        shards = self._query_shards(index, shards)
+        limit = call.uint_arg("limit")
+        if isinstance(call.args.get("previous"), str):
+            raise NotPortedError("Rows(previous=<key>): keyed fields not "
+                                 "ported yet")
+        previous = call.uint_arg("previous")
+        column = call.uint_arg("column")
+        view = f.view(VIEW_STANDARD)
+        out: set = set()
+        start = previous + 1 if previous is not None else 0
+        if view is not None:
+            for s in shards:
+                frag = view.fragment(s)
+                if frag is None:
+                    continue
+                if column is not None:
+                    if column // SHARD_WIDTH == s:
+                        out.update(r for r in frag.rows_for_column(column)
+                                   if r >= start)
+                else:
+                    # the global ascending first `limit` rows lie within
+                    # the union of every shard's first `limit`
+                    out.update(frag.row_ids(start=start, limit=limit))
+        rows = sorted(out)
+        if limit is not None:
+            rows = rows[:limit]
+        return RowIdentifiers(rows)
+
+    def _rows_slab(self, index: Index, field_name: str, shards: list,
+                   row_ids: list):
+        """One resident [R, S, W] slab of a GroupBy axis, keyed by every
+        row's per-shard generations, built row by row from the host."""
+        frags = self._fragments(index, field_name, VIEW_STANDARD, shards)
+        gens = tuple(tuple(0 if fr is None else fr.row_generation(rid)
+                           for fr in frags) for rid in row_ids)
+        key = ("rows_slab", index.name, field_name, VIEW_STANDARD,
+               tuple(shards), tuple(row_ids), gens)
+
+        def make():
+            slab = torch.empty((len(row_ids), len(shards), WORDS_PER_SHARD),
+                               dtype=torch.int32, device=self.runner.device)
+            host = np.zeros((len(shards), WORDS_PER_SHARD), dtype=np.uint32)
+            for i, rid in enumerate(row_ids):
+                for j, fr in enumerate(frags):
+                    host[j] = 0 if fr is None else fr.row_dense(rid)
+                slab[i].copy_(planes_to_tensor(host, "cpu"))
+            return slab
+
+        return self.residency.leaf(key, make)
+
+    def _count_sync(self) -> None:
+        with self._stats_lock:
+            self.groupby_host_syncs += 1
+
+    @staticmethod
+    def _chunk_for(slab) -> int:
+        """Prefixes per GroupBy chunk (executor.py:2307-2309)."""
+        r, s, w = slab.shape
+        return int(min(512, max(16, (1 << 31) // max(1, r * s * w))))
+
+    def _execute_group_by(self, index: Index, call: Call,
+                          shards) -> GroupCounts:
+        """GroupBy(Rows(...), ..., limit=, filter=) (executor.py:2217-2423):
+        each Rows axis is one resident slab; level l counts every live
+        prefix (an AND of one row per earlier axis) against axis l with the
+        cross_count_matrix kernel, pruned to its nonzero groups on the
+        device. A level's chunks are all launched before its one fetch; a
+        limited last level probes its first chunk alone. Groups come out in
+        the reference's lexicographic order. The port launches each chunk
+        over its valid prefixes only (the JAX package pads to a static
+        chunk and masks); the answers are the same."""
+        shards = self._query_shards(index, shards)
+        limit = call.uint_arg("limit")
+        rows_calls = [c for c in call.children if c.name == "Rows"]
+        if not rows_calls:
+            raise ExecutionError("GroupBy requires at least one Rows() call")
+        filt_calls = [c for c in call.children if c.name != "Rows"]
+        named_filter = call.args.get("filter")
+        if isinstance(named_filter, Call):
+            filt_calls.append(named_filter)
+        if len(filt_calls) > 1:
+            raise ExecutionError("GroupBy supports at most one filter call")
+        filt = None
+        if filt_calls:
+            filt = self._composed_row_dev(index, filt_calls[0], shards)
+
+        axes = []
+        for rc in rows_calls:
+            fname = rc.args.get("_field") or rc.args.get("field")
+            if index.field(fname) is None:
+                raise ExecutionError(f"field not found: {fname}")
+            row_ids = list(self._execute_rows(index, rc, shards))
+            if not row_ids:
+                return GroupCounts([])
+            axes.append((fname, row_ids,
+                         self._rows_slab(index, fname, shards, row_ids)))
+
+        fname0, rows0, slab0 = axes[0]
+        if len(axes) == 1:
+            # per-row counts of slab0 & filter: one kernel pass, one fetch
+            src = filt if filt is not None else torch.zeros_like(slab0[0])
+            packed = kernels.topn_counts_packed(slab0, src).cpu().numpy()
+            counts = packed[0] if filt is not None else packed[1]
+            self._count_sync()
+            live = np.nonzero(counts)[0]
+            comb, counts = [live], counts[live]
+        else:
+            if filt is not None:
+                slab0 = torch.bitwise_and(slab0, filt)
+            axis_slabs = [slab0] + [a[2] for a in axes[1:]]
+            comb = [np.arange(len(rows0))]
+            for li in range(1, len(axes)):
+                comb, counts = self._group_level(axis_slabs, comb, li,
+                                                 axes[li][1], limit,
+                                                 li == len(axes) - 1)
+                if comb is None:
+                    return GroupCounts([])
+
+        results = []
+        axis_rows = [a[1] for a in axes]
+        axis_names = [a[0] for a in axes]
+        for k in range(len(counts)):
+            if limit is not None and len(results) >= limit:
+                break  # before the append: limit=0 gives []
+            results.append({
+                "group": [{"field": axis_names[a],
+                           "rowID": int(axis_rows[a][comb[a][k]])}
+                          for a in range(len(comb))],
+                "count": int(counts[k]),
+            })
+        return GroupCounts(results)
+
+    def _group_level(self, axis_slabs: list, comb: list, li: int,
+                     row_ids: list, limit, last: bool):
+        """One level of the cross product -> (comb, counts) of its live
+        groups, or (None, None) when none is live."""
+        slab = axis_slabs[li]
+        limited_last = last and limit is not None
+        n_prefix, n_rows = len(comb[0]), len(row_ids)
+        p_chunk = self._chunk_for(slab)
+        bound = max(1, min(p_chunk * n_rows, self.groupby_live_cap))
+        if limited_last:
+            # the result is a lexicographic prefix: no chunk can add more
+            # than `limit` groups, so a live set past the bound needs no
+            # refetch
+            bound = max(1, min(bound, limit))
+        starts = list(range(0, n_prefix, p_chunk))
+        # a limited last level probes its lex-first chunk alone
+        waves = [starts[:1], starts[1:]] if limited_last else [starts]
+        live_p, live_r, cvals = [], [], []
+        found = 0
+        for wave in waves:
+            if not wave or (limited_last and found >= limit):
+                continue
+            pending = []
+            for st in wave:
+                en = min(st + p_chunk, n_prefix)
+                idx = [ci[st:en] for ci in comb]
+                pending.append((st, idx, self.runner.groupby_chunk(
+                    axis_slabs[:li], idx, slab, en - st, bound)))
+            # the wave's one blocking fetch
+            fetched = torch.stack([
+                torch.cat([n_live.view(1).to(torch.int64),
+                           flat.to(torch.int64), cv.to(torch.int64)])
+                for _, _, (n_live, flat, cv) in pending]).cpu().numpy()
+            self._count_sync()
+            for (st, idx, _), row in zip(pending, fetched):
+                n_live = int(row[0])
+                if n_live > bound and not (limited_last and bound >= limit):
+                    # the chunk overflowed the bound: refetch its matrix
+                    cmat = self.runner.groupby_cmat(
+                        axis_slabs[:li], idx, slab, len(idx[0])).cpu().numpy()
+                    self._count_sync()
+                    lp, lr = np.nonzero(cmat)
+                    cv = cmat[lp, lr]
+                else:
+                    k = min(n_live, bound)
+                    fi = row[1:1 + k]
+                    lp, lr = fi // n_rows, fi % n_rows
+                    cv = row[1 + bound:1 + bound + k]
+                live_p.append(lp.astype(np.int64) + st)
+                live_r.append(lr.astype(np.int64))
+                cvals.append(cv.astype(np.int64))
+                found += lp.size
+                if limited_last and found >= limit:
+                    break  # lexicographic order: nothing later precedes
+        if not live_p or sum(x.size for x in live_p) == 0:
+            return None, None
+        lp_all = np.concatenate(live_p)
+        return ([ci[lp_all] for ci in comb] + [np.concatenate(live_r)],
+                np.concatenate(cvals))
 
     # --------------------------------------------------------------- writes
 

@@ -9,6 +9,11 @@ available-shards bitmap persist in the reference's files (`.meta` JSON,
 wrote. Keys, time quantums and the mutex, bool and time types open (so a
 data dir the JAX package wrote loads whole) but cannot be created or
 queried here: they are not ported yet.
+
+A set field's standard view tracks rank (a rank cache per fragment, the
+TopN candidates) unless its cache type is "none"; `bsig_` views never do
+(:109-111, :152-166). A bulk import rebuilds each touched shard's cache
+after its apply (:309).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Optional
 import numpy as np
 
 from pilosa_tpu_torch.constants import DEFAULT_CACHE_SIZE, SHARD_WIDTH
+from pilosa_tpu_torch.models.cache import CACHE_TYPE_NONE, CACHE_TYPES
 from pilosa_tpu_torch.models.view import (
     VIEW_BSI_PREFIX,
     VIEW_STANDARD,
@@ -31,7 +37,6 @@ from pilosa_tpu_torch.models.view import (
 )
 from pilosa_tpu_torch.storage.roaring import Bitmap
 
-CACHE_TYPES = ("ranked", "lru", "none")
 # threads applying one bulk import's per-shard groups
 IMPORT_WORKERS = min(8, os.cpu_count() or 1)
 
@@ -94,6 +99,10 @@ class Field:
     def bit_depth(self) -> int:
         return max((self.options.max - self.options.min).bit_length(), 1)
 
+    def _track_rank(self) -> bool:
+        return (self.options.type == "set"
+                and self.options.cache_type != CACHE_TYPE_NONE)
+
     def open(self) -> "Field":
         os.makedirs(self.path, exist_ok=True)
         meta = os.path.join(self.path, ".meta")
@@ -132,7 +141,11 @@ class Field:
                 v = self.views.get(name)
                 if v is None:
                     v = View(view_path(self.path, name), self.index,
-                             self.name, name).open()
+                             self.name, name,
+                             track_rank=self._track_rank()
+                             and not name.startswith(VIEW_BSI_PREFIX),
+                             cache_size=self.options.cache_size,
+                             cache_type=self.options.cache_type).open()
                     self.views[name] = v
         return v
 
@@ -191,6 +204,7 @@ class Field:
                 frag.bulk_clear(g_rows, local)
             else:
                 frag.bulk_import(g_rows, local)
+            view.refresh_rank_cache(shard)
 
         if len(groups) == 1:
             apply(groups[0])

@@ -90,6 +90,11 @@ def load() -> ctypes.CDLL:
         lib.pbk_bsi_compare.restype = i
         lib.pbk_bsi_sum_counts.argtypes = [vp, vp, i, i, vp, ll, ll, vp]
         lib.pbk_bsi_sum_counts.restype = i
+        lib.pbk_topn_counts.argtypes = [vp, i, vp, vp, ll, ll, ll, vp]
+        lib.pbk_topn_counts.restype = i
+        lib.pbk_cross_count.argtypes = [vp, vp, i, i, vp, ll, ll, ll, i, i,
+                                        vp]
+        lib.pbk_cross_count.restype = i
         _lib = lib
         return lib
 

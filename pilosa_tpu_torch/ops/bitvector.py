@@ -1,8 +1,8 @@
 """Dense shard-bitvector algebra and popcounts in plain torch.
 
 Trimmed port of pilosa_tpu/ops/bitvector.py:37-131 (dense algebra and
-popcounts) plus numpy copies of its host conversions dense_from_columns /
-columns_from_dense (:788, :803).
+popcounts), the GroupBy chunk helpers (:158-221), and numpy copies of its
+host conversions dense_from_columns / columns_from_dense (:788, :803).
 
 Planes are int32 tensors, bit-identical views of the reference's uint32
 words. The bitwise ops act on bits, so signedness does not matter there.
@@ -81,6 +81,89 @@ def xor_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def total_count(per_shard: torch.Tensor) -> int:
     """Exact int64 host finish of per-shard int32 counts."""
     return int(per_shard.detach().cpu().numpy().astype(np.int64).sum())
+
+
+# ---------------------------------------------------------------------------
+# GroupBy chunk helpers: one level of the cross product is a [P, R] count
+# matrix of P prefixes (ANDs of rows of the axes consumed so far) against
+# the R rows of the next axis, pruned to its nonzero entries on the device.
+# `cross_fn` is the matrix kernel, ops/kernels.py cross_count_matrix unless
+# a caller passes another (the tests pass the plain version).
+# ---------------------------------------------------------------------------
+
+
+def gather_prefix(axis_slabs, idx) -> torch.Tensor:
+    """AND of the rows idx[k] of axis_slabs[k] -> [chunk, S, W]."""
+    dev = axis_slabs[0].device
+    pref = None
+    for slab, ix in zip(axis_slabs, idx):
+        rows = slab.index_select(0, torch.as_tensor(ix, dtype=torch.int64,
+                                                    device=dev))
+        pref = rows if pref is None else pref.bitwise_and_(rows)
+    return pref
+
+
+def mask_prefix_rows(cmat: torch.Tensor, n_valid: int,
+                     n_rows: int) -> torch.Tensor:
+    """cmat [n_valid, R] padded with zero rows to [n_rows, R]: a chunk's
+    padding prefixes count nothing (the JAX package crosses the padding and
+    zeroes it afterwards; here it is never crossed)."""
+    if n_rows == n_valid:
+        return cmat
+    out = cmat.new_zeros((n_rows, cmat.shape[1]))
+    out[:n_valid] = cmat[:n_valid]
+    return out
+
+
+def live_from_matrix(cmat: torch.Tensor, bound: int):
+    """On-device zero pruning -> (n_live, flat_idx[bound], counts[bound]).
+
+    flat_idx ascends over the row-major flattening of cmat (the
+    reference's lexicographic group order); slots past the live count hold
+    the sentinel P * R with count 0. n_live is the true number of nonzero
+    entries: above `bound` the caller refetches the whole matrix. No host
+    sync: the live entries are placed by a prefix sum and a scatter."""
+    flat = cmat.reshape(-1)
+    n = flat.shape[0]
+    live = flat != 0
+    n_live = live.sum()
+    pos = torch.cumsum(live, dim=0) - 1
+    slot = torch.where(live & (pos < bound), pos, bound)
+    idx = torch.full((bound + 1,), n, dtype=torch.int64, device=flat.device)
+    idx.scatter_(0, slot, torch.arange(n, dtype=torch.int64,
+                                       device=flat.device))
+    idx = idx[:bound]
+    counts = torch.where(idx < n, flat[idx.clamp(max=max(n - 1, 0))], 0)
+    return n_live, idx.to(torch.int32), counts
+
+
+def chunk_count_matrix(axis_slabs, idx, axis: torch.Tensor, n_valid: int,
+                       cross_fn=None) -> torch.Tensor:
+    """[len(idx[0]), R] count matrix of one chunk: the first n_valid
+    prefixes gathered and crossed with `axis`, padding rows zero."""
+    if cross_fn is None:
+        from pilosa_tpu_torch.ops.kernels import cross_count_matrix
+
+        cross_fn = cross_count_matrix
+    n_valid = int(n_valid)
+    valid = [np.asarray(ix)[:n_valid] for ix in idx]
+    cmat = cross_fn(gather_prefix(axis_slabs, valid), axis)
+    return mask_prefix_rows(cmat, n_valid, len(idx[0]))
+
+
+def groupby_chunk_live(axis_slabs, idx, axis: torch.Tensor, n_valid: int,
+                       bound: int, cross_fn=None):
+    """One GroupBy level chunk: count matrix and zero pruning, all on the
+    device (device tensors out; the executor fetches a level at once)."""
+    cmat = chunk_count_matrix(axis_slabs, idx, axis, n_valid, cross_fn)
+    return live_from_matrix(cmat, bound)
+
+
+def groupby_chunk_matrix(axis_slabs, idx, axis: torch.Tensor, n_valid: int,
+                         cross_fn=None) -> torch.Tensor:
+    """The whole [chunk, R] count matrix: the refetch when a chunk's live
+    set overflows the pruning bound."""
+    return chunk_count_matrix(axis_slabs, idx, axis, n_valid, cross_fn)
 
 
 # ---------------------------------------------------------------------------

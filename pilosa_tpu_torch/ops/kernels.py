@@ -23,6 +23,22 @@ Two more carry the BSI path (int fields), over a [D, S, W] plane slab:
   Pallas bsi_sum_counts (pallas_kernels.py:504) and the PlaneSumBatcher's
   XLA form pilosa_tpu/parallel/batcher.py _batched_plane_sums (:590).
 
+Two more carry TopN and GroupBy:
+
+* ``topn_counts_packed``: per candidate leaf |leaf & src| and |leaf|, and
+  |src| broadcast -> the Pallas [3, R] layout. Replaces Pallas
+  topn_counts_packed (pallas_kernels.py:364; top_rows :388 calls it with a
+  zero src). Serves the TopN walk and recount, and one-axis GroupBy.
+* ``cross_count_matrix``: counts[p, r] = popcount(prefix[p] & axis[r])
+  over all shards -> [P, R]. Replaces Pallas cross_count_matrix
+  (pallas_kernels.py:182). Serves every GroupBy level past the first.
+
+Both kernels write int32 partials per 2016-shard chunk ([C, 3, R] and
+[C, P, R]): a full row holds 2^30 bits at 1024 shards, so from 2048 shards
+on a total no longer fits int32. The wrappers finish the sum over chunks
+in int64 on the device and return int64 tensors; their plain versions
+count in int64 throughout.
+
 Routing: a CPU tensor takes the plain version (``<name>_plain``, plain
 torch). A CUDA tensor launches the kernel or raises; nothing falls back.
 Each wrapper adds one to its launch count where it launches its kernel.
@@ -71,7 +87,8 @@ _THREADS = 256
 
 _launch_lock = threading.Lock()
 _launches = {"pair_stream_counts": 0, "program_count": 0,
-             "intersect_count": 0, "bsi_compare": 0, "bsi_sum_counts": 0}
+             "intersect_count": 0, "bsi_compare": 0, "bsi_sum_counts": 0,
+             "topn_counts_packed": 0, "cross_count_matrix": 0}
 
 
 def launch_counts() -> dict:
@@ -529,3 +546,118 @@ def bsi_sum_counts(planes: torch.Tensor, filters) -> torch.Tensor:
         build.check(lib, rc, "bsi_sum_counts")
         _count_launch("bsi_sum_counts")
     return out[0] if single else out
+
+
+# ---------------------------------------------------------------------------
+# TopN and GroupBy: topn_counts_packed and cross_count_matrix
+# ---------------------------------------------------------------------------
+
+
+def _total(x: torch.Tensor) -> torch.Tensor:
+    """int64 sum of an [S, W] tensor's set bits (a 0-dim tensor)."""
+    return bv.word_popcounts(x).sum()
+
+
+def topn_counts_packed_plain(leaves, src: torch.Tensor) -> torch.Tensor:
+    """R x [S, W] leaves x [S, W] src -> int64[3, R]: |leaf & src|, |leaf|,
+    |src| broadcast."""
+    leaves = _leaf_list(leaves)
+    r = len(leaves)
+    if r == 0:
+        return torch.zeros((3, 0), dtype=torch.int64, device=src.device)
+    inter = torch.stack([_total(bv.band(t, src)) for t in leaves])
+    rows = torch.stack([_total(t) for t in leaves])
+    return torch.stack([inter, rows, _total(src).expand(r)])
+
+
+def topn_counts_packed(leaves, src: torch.Tensor) -> torch.Tensor:
+    """R candidate leaves (list of [S, W] tensors, or stacked [R, S, W]) x
+    [S, W] src -> int64[3, R]: row 0 |leaf & src|, row 1 |leaf|, row 2
+    |src| broadcast (the Pallas layout). The leaves reach the kernel as a
+    device table of pointers, never restacked; each is read once, and src
+    once per launch."""
+    leaves = _leaf_list(leaves)
+    dev = _check_planes(leaves + [src])
+    if dev.type == "cpu":
+        return topn_counts_packed_plain(leaves, src)
+    s, w = src.shape
+    r = len(leaves)
+    out = torch.zeros((_n_chunks(s), 3, r), dtype=torch.int32, device=dev)
+    if r and s and w:
+        build, lib = _load()
+        table = _device_table(
+            [np.array([t.data_ptr() for t in leaves], dtype=np.int64)], dev)
+        rc = lib.pbk_topn_counts(table.data_ptr(), r, src.data_ptr(),
+                                 out.data_ptr(), s, w // 4, SUM_SHARD_CHUNK,
+                                 _stream(dev))
+        build.check(lib, rc, "topn_counts_packed")
+        _count_launch("topn_counts_packed")
+    return out.sum(dim=0, dtype=torch.int64)
+
+
+def _check_cross(prefix: torch.Tensor, axis: torch.Tensor) -> torch.device:
+    for name, t in (("prefix", prefix), ("axis", axis)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 3:
+            raise ValueError(f"{name} must be an int32 [N, S, W] tensor")
+        if t.dtype != torch.int32:
+            raise TypeError(f"planes are int32 tensors, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if prefix.shape[1:] != axis.shape[1:]:
+        raise ValueError(f"prefix [S, W] {tuple(prefix.shape[1:])} differs "
+                         f"from axis [S, W] {tuple(axis.shape[1:])}")
+    if prefix.device != axis.device:
+        raise ValueError("prefix and axis on different devices")
+    dev = prefix.device
+    if dev.type == "cuda":
+        if prefix.shape[2] % 4:
+            raise ValueError(f"W={prefix.shape[2]} must be a multiple of 4 "
+                             "for the kernels' 16-byte loads")
+        if prefix.data_ptr() % 16 or axis.data_ptr() % 16:
+            raise ValueError("plane storage must be 16-byte aligned")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def cross_count_matrix_plain(prefix: torch.Tensor,
+                             axis: torch.Tensor) -> torch.Tensor:
+    """[P, S, W] x [R, S, W] -> int64[P, R] intersection counts, a block
+    of axis rows at a time (at most 2^28 words of temporaries)."""
+    p, s, w = prefix.shape
+    r = axis.shape[0]
+    out = torch.zeros((p, r), dtype=torch.int64, device=prefix.device)
+    step = max(1, (1 << 28) // max(1, s * w))
+    for i in range(p):
+        for r0 in range(0, r, step):
+            both = bv.band(axis[r0:r0 + step], prefix[i])
+            out[i, r0:r0 + step] = bv.word_popcounts(both).sum(dim=(1, 2))
+    return out
+
+
+def cross_count_matrix(prefix: torch.Tensor,
+                       axis: torch.Tensor) -> torch.Tensor:
+    """[P, S, W] prefixes x [R, S, W] axis rows -> int64[P, R]:
+    counts[p, r] = popcount(prefix[p] & axis[r]) over all shards and
+    words. Every operand word is read from device memory once per output
+    tile of the kernel (16 prefixes x 64 rows at most)."""
+    dev = _check_cross(prefix, axis)
+    if dev.type == "cpu":
+        return cross_count_matrix_plain(prefix, axis)
+    p, s, w = prefix.shape
+    r = axis.shape[0]
+    c = _n_chunks(s)
+    out = torch.zeros((c, p, r), dtype=torch.int32, device=dev)
+    if p and r and s and w:
+        build, lib = _load()
+        w4 = w // 4
+        tile_p = 4 if p <= 4 else 8 if p <= 8 else 16
+        tiles = c * -(-p // tile_p) * -(-r // 64)
+        steps = -(-min(s, SUM_SHARD_CHUNK) * w4 // 32)
+        split = int(max(1, min(steps, -(-2 * _TARGET_BLOCKS // tiles))))
+        rc = lib.pbk_cross_count(prefix.data_ptr(), axis.data_ptr(), p, r,
+                                 out.data_ptr(), s, w4, SUM_SHARD_CHUNK, c,
+                                 split, _stream(dev))
+        build.check(lib, rc, "cross_count_matrix")
+        _count_launch("cross_count_matrix")
+    return out.sum(dim=0, dtype=torch.int64)

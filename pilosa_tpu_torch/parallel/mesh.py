@@ -2,7 +2,8 @@
 
 Trimmed port of pilosa_tpu/parallel/mesh.py: the single-device
 DeviceRunner (put_leaf / put_plane_slab / row_leaves_dev /
-count_total_leaves, :479-611)
+count_total_leaves, :479-611; groupby_chunk / groupby_cmat, :613-640, on
+one device with no psum)
 and the nested-tuple programs of :192-216:
 
     ("leaf", i) | ("not", p) | (op, p1, p2, ...), op in and/or/xor/andnot
@@ -21,7 +22,11 @@ import torch
 
 from pilosa_tpu_torch.device import planes_to_tensor, resolve_device
 from pilosa_tpu_torch.ops import kernels
-from pilosa_tpu_torch.ops.bitvector import total_count
+from pilosa_tpu_torch.ops.bitvector import (
+    groupby_chunk_live,
+    groupby_chunk_matrix,
+    total_count,
+)
 
 _AND2 = ("and", ("leaf", 0), ("leaf", 1))
 
@@ -84,3 +89,18 @@ class DeviceRunner:
         else:
             per_shard = kernels.program_count(leaves, program)
         return total_count(per_shard)
+
+    def groupby_chunk(self, axis_slabs, idx, axis: torch.Tensor,
+                      n_valid: int, bound: int):
+        """(n_live, flat_idx[bound], counts[bound]) device tensors of one
+        GroupBy level chunk, through the cross_count_matrix kernel. Nothing
+        is fetched: the executor enqueues a whole level first."""
+        return groupby_chunk_live(axis_slabs, idx, axis, n_valid, bound,
+                                  kernels.cross_count_matrix)
+
+    def groupby_cmat(self, axis_slabs, idx, axis: torch.Tensor,
+                     n_valid: int) -> torch.Tensor:
+        """The chunk's whole [chunk, R] count matrix (device tensor): the
+        refetch when its live set overflows the pruning bound."""
+        return groupby_chunk_matrix(axis_slabs, idx, axis, n_valid,
+                                    kernels.cross_count_matrix)

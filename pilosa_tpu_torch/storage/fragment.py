@@ -3,9 +3,11 @@
 Trimmed copy of pilosa_tpu/storage/fragment.py (:192-560, :873, :952-979):
 one roaring file with a CRC-framed WAL, snapshot compaction after MAX_OP_N
 ops, row generations, dense row materialization and BSI values, in the
-reference's on-disk format. Left out: the frozen store, anti-entropy
-blocks, mutex paths, corruption quarantine (a damaged file raises at open)
-and hints.
+reference's on-disk format; and the row reads of TopN, Rows and GroupBy
+(row_count, row_counts, row_ids, rows_for_column, bit_count; :565-577,
+:644-707, :807-868) over the dict container store. Left out: the frozen
+store, anti-entropy blocks, mutex paths, corruption quarantine (a damaged
+file raises at open) and hints.
 
 Row r of the shard occupies absolute bit positions [r*2^20, (r+1)*2^20).
 In a BSI view rows 0..depth-1 hold the place values of each column's
@@ -14,6 +16,7 @@ stored value and row `depth` is the not-null row.
 
 from __future__ import annotations
 
+import bisect
 import fcntl
 import functools
 import os
@@ -22,7 +25,11 @@ from typing import Iterable, Optional
 
 import numpy as np
 
-from pilosa_tpu_torch.constants import MAX_OP_N, SHARD_WIDTH
+from pilosa_tpu_torch.constants import (
+    CONTAINERS_PER_SHARD,
+    MAX_OP_N,
+    SHARD_WIDTH,
+)
 from pilosa_tpu_torch.storage.roaring import Bitmap, sorted_unique
 
 SNAPSHOT_EXT = ".snapshotting"
@@ -64,6 +71,11 @@ class Fragment:
         # device leaf cache keys on them
         self.generation = 0
         self._row_gen: dict[int, int] = {}
+        # generation of the last bulk write: row_counts rebuilds its base
+        # map when it moves, and re-probes rows written singly since
+        self._bulk_gen = 0
+        self._row_counts_cache = None  # (bulk gen, gen, map, overlay)
+        self._row_ids_cache = None  # (generation, sorted row ids)
         # torn WAL tail dropped at the last open
         self.wal_truncated_bytes = 0
 
@@ -166,6 +178,7 @@ class Fragment:
         self.storage.add_many(positions)
         for rid in sorted_unique(rows).tolist():
             self._touch(int(rid))
+        self._bulk_gen = self.generation
         self.snapshot()
 
     @_locked
@@ -176,6 +189,7 @@ class Fragment:
         self.storage.remove_many(positions)
         for rid in sorted_unique(rows).tolist():
             self._touch(int(rid))
+        self._bulk_gen = self.generation
         self.snapshot()
 
     # -- BSI values ---------------------------------------------------------
@@ -233,6 +247,7 @@ class Fragment:
         self.storage.add_many(np.concatenate(add))
         for i in range(bit_depth + 1):
             self._touch(i)
+        self._bulk_gen = self.generation
         self.snapshot()
 
     # -- reads --------------------------------------------------------------
@@ -248,9 +263,74 @@ class Fragment:
         return (self.storage.slice(base, base + SHARD_WIDTH)
                 - np.uint64(base)).astype(np.int64)
 
-    def row_ids(self) -> list[int]:
-        """Distinct row ids with any set bit, ascending."""
-        return sorted({key // 16 for key in self.storage.containers})
+    def row_count(self, row_id: int) -> int:
+        """Set bits of one row: the sum of its containers' cardinalities
+        (rows are container-aligned, so no key-space scan)."""
+        base = row_id * CONTAINERS_PER_SHARD
+        get = self.storage.containers.get
+        total = 0
+        for j in range(CONTAINERS_PER_SHARD):
+            c = get(base + j)
+            if c is not None:
+                total += c.n
+        return total
+
+    def row_counts(self, row_ids) -> np.ndarray:
+        """Exact counts of many rows -> int64 array. One pass over the
+        container keys builds a row -> count map, rebuilt only after a bulk
+        write; rows written singly since are re-probed through a per-row
+        overlay keyed by their generations."""
+        cached = self._row_counts_cache
+        if cached is None or cached[0] != self._bulk_gen:
+            items = list(self.storage.containers.items())
+            m: dict[int, int] = {}
+            for key, c in items:
+                r = key // CONTAINERS_PER_SHARD
+                m[r] = m.get(r, 0) + c.n
+            cached = (self._bulk_gen, self.generation, m, {})
+            self._row_counts_cache = cached
+        _, base_gen, m, overlay = cached
+        rows = np.asarray(row_ids, dtype=np.int64).reshape(-1).tolist()
+        out = np.zeros(len(rows), dtype=np.int64)
+        for x, r in enumerate(rows):
+            rg = self._row_gen.get(r, 0)
+            if rg > base_gen:
+                og = overlay.get(r)
+                if og is None or og[0] != rg:
+                    og = (rg, self.row_count(r))
+                    overlay[r] = og
+                out[x] = og[1]
+            else:
+                out[x] = m.get(r, 0)
+        return out
+
+    def row_ids(self, start: int = 0, limit: Optional[int] = None) -> list[int]:
+        """Distinct row ids >= start with any set bit, ascending, at most
+        `limit` of them. The full list is cached per generation."""
+        cached = self._row_ids_cache
+        if cached is None or cached[0] != self.generation:
+            cached = (self.generation,
+                      sorted({key // CONTAINERS_PER_SHARD
+                              for key in list(self.storage.containers)}))
+            self._row_ids_cache = cached
+        ids = cached[1]
+        if start:
+            ids = ids[bisect.bisect_left(ids, start):]
+        return ids[:limit] if limit is not None else list(ids)
+
+    def rows_for_column(self, column: int) -> list[int]:
+        """Row ids with this column's bit set: only the containers that can
+        hold the column (key = column >> 16 modulo the keys per row) are
+        probed."""
+        col = column % SHARD_WIDTH
+        sub, low = col >> 16, col & 0xFFFF
+        out = [key // CONTAINERS_PER_SHARD
+               for key, c in list(self.storage.containers.items())
+               if key % CONTAINERS_PER_SHARD == sub and c.contains(low)]
+        return sorted(out)
+
+    def bit_count(self) -> int:
+        return sum(c.n for c in list(self.storage.containers.values()))
 
     # -- snapshot / WAL compaction ------------------------------------------
 

@@ -84,7 +84,9 @@ def test_kernels_match_plain_on_card(cuda_device, s, w):
                                        "program_count": len(PROGRAMS) + 1,
                                        "intersect_count": 1,
                                        "bsi_compare": 0,
-                                       "bsi_sum_counts": 0}
+                                       "bsi_sum_counts": 0,
+                                       "topn_counts_packed": 0,
+                                       "cross_count_matrix": 0}
 
 
 @pytest.mark.gpu
@@ -115,6 +117,49 @@ def test_bsi_kernels_match_plain_on_card(cuda_device, depth, s, w):
     counts = kernels.launch_counts()
     assert counts["bsi_compare"] == 3 * len(kernels.BSI_OPS)
     assert counts["bsi_sum_counts"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,w", [(3, 64), (2100, 256)])
+def test_topn_and_cross_kernels_match_plain_on_card(cuda_device, s, w):
+    """R = 130 candidates (past the Pallas 128-row block) and P = 9
+    prefixes (past a 8-prefix tile); S = 2100 spans two 2016-shard chunks
+    of partials."""
+    rng = np.random.default_rng(s + w)
+    rows = _planes(rng, cuda_device, 130, s, w)
+    src = _planes(rng, cuda_device, s, w)
+    prefix = _planes(rng, cuda_device, 9, s, w)
+    kernels.reset_launch_counts()
+    for r in (1, 8, 100, 130):
+        assert torch.equal(
+            kernels.topn_counts_packed(list(rows[:r].unbind(0)), src),
+            kernels.topn_counts_packed_plain(list(rows[:r].unbind(0)), src)), r
+    assert torch.equal(kernels.topn_counts_packed(rows, src),
+                       kernels.topn_counts_packed_plain(rows, src))
+    for p, r in ((1, 1), (8, 64), (9, 130), (4, 3)):
+        assert torch.equal(
+            kernels.cross_count_matrix(prefix[:p].contiguous(),
+                                       rows[:r].contiguous()),
+            kernels.cross_count_matrix_plain(prefix[:p], rows[:r])), (p, r)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["topn_counts_packed"] == 5
+    assert counts["cross_count_matrix"] == 4
+
+
+@pytest.mark.gpu
+def test_counts_past_int32_finish_in_int64(cuda_device):
+    """Full rows over 2100 shards hold 2100 * 2^20 bits, past 2^31: the
+    per-chunk int32 partials must sum exactly in int64."""
+    s, w = 2100, 32768
+    ones = torch.full((2, s, w), -1, dtype=torch.int32, device=cuda_device)
+    full = s * w * 32
+    assert full > 2**31
+    packed = kernels.topn_counts_packed(ones, ones[0])
+    assert packed.dtype == torch.int64
+    assert packed.cpu().tolist() == [[full, full]] * 3
+    cmat = kernels.cross_count_matrix(ones[:1].contiguous(), ones)
+    assert cmat.cpu().tolist() == [[full, full]]
 
 
 @pytest.mark.gpu
@@ -184,5 +229,24 @@ def test_server_on_card_matches_numpy(cuda_device, tmp_path):
             assert post("/index/i/query", pql)["results"] == [res], pql
         counts = kernels.launch_counts()
         assert counts["bsi_compare"] >= 2 and counts["bsi_sum_counts"] >= 2
+
+        # TopN with a Src and a two-axis GroupBy, through both new kernels
+        kernels.reset_launch_counts()
+        inter = sorted(((len(x & a), -r) for r, x in enumerate((a, b, c))),
+                       reverse=True)
+        want_topn = [{"id": -nr, "count": n} for n, nr in inter[:2]]
+        got = post("/index/i/query", "TopN(f, Row(f=0), n=2)")["results"][0]
+        assert got == want_topn
+        got = post("/index/i/query",
+                   "GroupBy(Rows(field=f), Rows(field=f))")["results"][0]
+        sets = (a, b, c)
+        assert got == [{"group": [{"field": "f", "rowID": x},
+                                  {"field": "f", "rowID": y}],
+                        "count": len(sets[x] & sets[y])}
+                       for x in range(3) for y in range(3)
+                       if sets[x] & sets[y]]
+        counts = kernels.launch_counts()
+        assert counts["topn_counts_packed"] >= 1
+        assert counts["cross_count_matrix"] >= 1
     finally:
         srv.close()

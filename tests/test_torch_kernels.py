@@ -282,8 +282,12 @@ def test_cpu_tensors_take_the_plain_path():
     kernels.intersect_count(x, x)
     kernels.program_count([x], ("leaf", 0))
     kernels.pair_stream_counts([x], [0], [0], "id")
+    kernels.topn_counts_packed([x], x)
+    kernels.cross_count_matrix(x[None], x[None])
     assert kernels.launch_counts() == {"pair_stream_counts": 0,
                                        "program_count": 0,
                                        "intersect_count": 0,
                                        "bsi_compare": 0,
-                                       "bsi_sum_counts": 0}
+                                       "bsi_sum_counts": 0,
+                                       "topn_counts_packed": 0,
+                                       "cross_count_matrix": 0}
