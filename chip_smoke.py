@@ -45,7 +45,22 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    timed apart from warm repeats; then 32 clients x 16 TopN(t, Row(f=a),
    n=10) with varying a, every answer checked. Launch counts are zeroed
    before the phase: topn_counts_packed and cross_count_matrix must launch.
-5. Kernels at full width: W = 32768 words, S = 1024 shards (1.07B
+5. Server, hybrid sparse/run path, on the same server and index (Pilosa's
+   Getting Started "Star Trace": a stargazer row holds the few
+   repositories one user starred), with no rank caches: a set field s of
+   32 rows, row a with
+   min(4096, 8 * 2^(a mod 10)) random bits per shard (every row plans
+   sparse, K = 8..4096; about 25M bits), and a set field r of 4 rows with
+   2-16 intervals per shard totalling 5000-8000 bits (they plan run, about
+   26M bits). sparse∩dense, sparse∩sparse, union, xor, difference, Not,
+   sparse∩run, run∩dense, run∩run, a Range filter, Sum and a TopN Src over
+   a sparse row checked against a numpy oracle, the cold first sparse
+   leaf timed apart; Count(Row(s=a)) for every a, so that the leaves are
+   resident; then 32 clients x 16 Count(Intersect(Row(s=a),
+   Row(f=b))) with varying a and b, every answer checked. Launch counts
+   are zeroed before the phase: sparse_intersect_dense must launch, and
+   the port must have uploaded sparse and run leaves.
+6. Kernels at full width: W = 32768 words, S = 1024 shards (1.07B
    columns), random planes from a seeded torch.Generator on the card. Each
    kernel is held against its plain torch version, exactly (integer
    counts, tolerance 0): pair_stream_counts for all 5 ops at K = 1024 over
@@ -57,9 +72,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    batch at depth 10, and K = 1 at depth 32; topn_counts_packed at R = 64
    (the server's launch size) and at R = 130 over 256 shards (past the
    Pallas kernel's 128-row block); cross_count_matrix at P = 8 (the
-   GroupBy's valid prefixes) and P = 16 (its chunk), R = 64. Times by CUDA
-   events (warm, median).
-6. The last lines: nvidia-smi's name and power limit, one JSON object with
+   GroupBy's valid prefixes) and P = 16 (its chunk), R = 64;
+   sparse_intersect_dense, both modes, at every K the hybrid phase served
+   and at K = 16384. Times by CUDA events (warm, median).
+7. The last lines: nvidia-smi's name and power limit, one JSON object with
    a record per kernel, and {"ok": true, "device": {...}}.
 
 Bounds: the larger of the bytes each input read once over HBM's 3.35 TB/s
@@ -68,6 +84,8 @@ come from the CUDA C++ Programming Guide's arithmetic-instruction
 throughput table for compute capability 9.0 (results per clock per SM: 64
 for 32-bit integer add and bitwise ops, 16 for __popc), times the SM count
 and the card's maximum SM clock as nvidia-smi reports them.
+sparse_intersect_dense's bytes depend on the data: its indices in, its
+output out, and the distinct 32-byte plane sectors its entries touch.
 """
 
 from __future__ import annotations
@@ -101,10 +119,16 @@ REPLACES = {
     "bsi_sum_counts": "pilosa_tpu/ops/pallas_kernels.py:504",
     "topn_counts_packed": "pilosa_tpu/ops/pallas_kernels.py:364",
     "cross_count_matrix": "pilosa_tpu/ops/pallas_kernels.py:182",
+    "sparse_intersect_dense": "pilosa_tpu/ops/pallas_kernels.py:295",
 }
 COUNT_KERNELS = ("pair_stream_counts", "program_count", "intersect_count")
 BSI_KERNELS = ("bsi_compare", "bsi_sum_counts")
 TOPN_KERNELS = ("topn_counts_packed", "cross_count_matrix")
+HYBRID_KERNELS = ("sparse_intersect_dense",)
+HYBRID_S_ROWS = 32  # rows of the stargazer-like set field s
+HYBRID_R_ROWS = 4   # rows of the run field r
+HYBRID_CLIENTS, HYBRID_PER_CLIENT = 32, 16  # the hybrid phase's pass
+SPARSE_SENTINEL = SHARD_WIDTH
 TOPN_ROWS = 64  # rows of the set field t
 TOPN_BITS = 12000  # bits per shard of t's row 0; row r holds ~this/(r+1)
 TOPN_CLIENTS, TOPN_PER_CLIENT = 32, 16  # the TopN phase's concurrent pass
@@ -469,6 +493,81 @@ def topn_kernel_phase(device, n_shards: int, words: int, seed: int,
         "cross_count_matrix": {**cc[f"P=8 R={TOPN_ROWS}"], "max_abs_err": 0,
                                "shape": f"P=8 R={TOPN_ROWS}", "all": cc},
     }
+
+
+def hybrid_kernel_phase(device, n_shards: int, words: int, served_k: list,
+                        seed: int, runs: int) -> dict:
+    """sparse_intersect_dense (and its keep-misses mode) against its plain
+    version at every K the server gave it and at K = 16384 (the JAX
+    package's union cap), over n_shards random planes; the record's
+    numbers are taken at the largest served K."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    rates = int_rates()
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    dense = torch.randint(-2**31, 2**31, (n_shards, words), dtype=torch.int64,
+                          device=device, generator=gen).to(torch.int32)
+    dense[:, :64] = -1  # all-ones words: every entry there hits
+
+    def sparse_rows(k: int):
+        """[n_shards, k] sorted unique ids, sentinel-padded after dedup;
+        the last row sentinel only, the one before it half full."""
+        idx = torch.randint(0, SHARD_WIDTH, (n_shards, k), dtype=torch.int32,
+                            device=device, generator=gen)
+        idx = torch.sort(idx, dim=1).values
+        dup = torch.zeros_like(idx, dtype=torch.bool)
+        dup[:, 1:] = idx[:, 1:] == idx[:, :-1]
+        idx = torch.where(dup, SPARSE_SENTINEL, idx)
+        idx[-2, k // 2:] = SPARSE_SENTINEL
+        idx[-1] = SPARSE_SENTINEL
+        return torch.sort(idx, dim=1).values.contiguous()
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"(max abs err {err})")
+        return err
+
+    out = {}
+    for k in sorted(set(served_k) | {16384}):
+        sp = sparse_rows(k)
+        check(f"sparse_intersect_dense K={k}",
+              kernels.sparse_intersect_dense(sp, dense),
+              kernels.sparse_intersect_dense_plain(sp, dense))
+        check(f"sparse_difference_dense K={k}",
+              kernels.sparse_difference_dense(sp, dense),
+              kernels.sparse_difference_dense_plain(sp, dense))
+        ms = cuda_ms(lambda: kernels.sparse_intersect_dense(sp, dense), runs)
+        plain = cuda_ms(
+            lambda: kernels.sparse_intersect_dense_plain(sp, dense), 3, 1)
+        # each index read once, each slot written once, and the distinct
+        # 32-byte plane sectors the entries below the sentinel touch
+        live = sp < SPARSE_SENTINEL
+        shard = torch.arange(n_shards, device=device,
+                             dtype=torch.int64)[:, None].expand_as(sp)
+        sector = shard * (words // 8) + (sp.to(torch.int64) >> 8)
+        sectors = int(torch.unique(sector[live]).numel())
+        entries = n_shards * k
+        nbytes = 2 * entries * 4 + 32 * sectors
+        b_ms, b_by = bound(nbytes, 8.0 * entries, 1.0 * entries, rates)
+        out[f"K={k}"] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                         "bound_by": b_by, "bytes_once": nbytes,
+                         "sectors": sectors}
+        log(f"  sparse_intersect_dense K={k} S={n_shards}: {ms * 1e3:.1f} us "
+            f"(bound {b_ms * 1e3:.1f} us by {b_by}), plain {plain:.2f} ms, "
+            "both modes exact")
+        del sp, shard, sector, live
+    del dense
+    torch.cuda.empty_cache()
+    log(f"  hybrid kernels: {time.perf_counter() - t_phase:.1f} s")
+    first = f"K={max(served_k)}"
+    return {"sparse_intersect_dense": {**out[first], "max_abs_err": 0,
+                                       "shape": first, "all": out}}
 
 
 # ----------------------------------------------------------------- server
@@ -946,7 +1045,242 @@ def topn_phase(srv, port: int, packed: list, values: tuple, rows: list,
             raise AssertionError(f"{name} never launched on the TopN/GroupBy "
                                  "path")
     stats["phase_s"] = time.perf_counter() - t_phase
+    stats["cleared_t0_column"] = lose
     log(f"  TopN/GroupBy phase: {stats['phase_s']:.1f} s")
+    return {"launches": launches, "stats": stats}
+
+
+def make_hybrid_rows(n_shards: int, seed: int) -> tuple:
+    """(s rows, r rows): sorted unique global columns. Row a of s holds
+    min(4096, 8 * 2^(a mod 10)) random bits in every shard (after dedup a
+    few fewer), so it plans sparse with K = 8..4096; each row of r holds
+    2-16 intervals per shard totalling 5000-8000 bits (over the sparse
+    threshold, far under 2048 intervals), so it plans run. Interval i of a
+    shard starts at a distinct multiple of 8192 and is at most 8000 long:
+    the intervals are disjoint and never adjacent."""
+    rng = np.random.default_rng(seed + 21)
+    shard_base = np.arange(n_shards, dtype=np.int64) * SHARD_WIDTH
+    s_rows = []
+    for a in range(HYBRID_S_ROWS):
+        card = min(4096, 8 << (a % 10))
+        cols = (np.repeat(shard_base, card)
+                + rng.integers(0, SHARD_WIDTH, size=card * n_shards))
+        cols.sort()
+        s_rows.append(cols[np.concatenate(([True], cols[1:] != cols[:-1]))])
+    r_rows = []
+    slots = SHARD_WIDTH // 8192
+    for _ in range(HYBRID_R_ROWS):
+        parts = []
+        for base in shard_base.tolist():
+            n_iv = int(rng.integers(2, 17))
+            total = int(rng.integers(5000, 8001))
+            cuts = np.sort(rng.choice(np.arange(1, total), size=n_iv - 1,
+                                      replace=False))
+            lengths = np.diff(np.concatenate(([0], cuts, [total])))
+            starts = np.sort(rng.choice(slots, size=n_iv,
+                                        replace=False)) * 8192 + base
+            parts += [np.arange(st, st + ln, dtype=np.int64)
+                      for st, ln in zip(starts.tolist(), lengths.tolist())]
+        r_rows.append(np.concatenate(parts))
+    return s_rows, r_rows
+
+
+def _contains(sorted_cols: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """Whether each of cols lies in the sorted array sorted_cols."""
+    i = np.searchsorted(sorted_cols, cols)
+    i_c = np.minimum(i, max(sorted_cols.size - 1, 0))
+    return (i < sorted_cols.size) & (sorted_cols[i_c] == cols)
+
+
+def hybrid_phase(srv, port: int, packed: list, exists: np.ndarray,
+                 values: tuple, t_rows: list, t_cleared: int,
+                 n_shards: int, seed: int, clients: int,
+                 per_client: int) -> dict:
+    """Sparse and run leaves on the Count phase's server and index: a
+    stargazer-like set field s and a run field r, checked against a numpy
+    oracle, then clients x per_client Count(Intersect(Row(s=a), Row(f=b)));
+    its own launch counts (zeroed before its first query, read after its
+    last). packed = the packed rows of f; exists = their union; values =
+    (columns, values) of v; t_rows = the columns of t's rows and
+    t_cleared the column cleared from t's row 0 (still existent)."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel.residency import HybridManager
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    s_rows, r_rows = make_hybrid_rows(n_shards, seed)
+    log(f"  hybrid data: {HYBRID_S_ROWS} rows of s, "
+        f"{sum(r.size for r in s_rows)} bits; {HYBRID_R_ROWS} rows of r, "
+        f"{sum(r.size for r in r_rows)} bits "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # no rank caches: no query ranks s or r, and the import skips the
+    # per-shard cache rebuild
+    for name in ("s", "r"):
+        _http(port, "POST", f"/index/i/field/{name}",
+              json.dumps({"options": {"cacheType": "none"}}).encode())
+    t0 = time.perf_counter()
+    srv.api.import_bits("i", "s", *shard_major(s_rows, n_shards))
+    srv.api.import_bits("i", "r", *shard_major(r_rows, n_shards))
+    import_s = time.perf_counter() - t0
+    log(f"  hybrid import: {import_s:.1f} s")
+
+    t0 = time.perf_counter()
+    vcols, vvals = values
+    bits = np.zeros(n_shards * SHARD_WIDTH, dtype=bool)
+    for cols in [vcols, *t_rows, [t_cleared], *s_rows, *r_rows]:
+        bits[cols] = True
+    exists_all = np.packbits(bits, bitorder="little") | exists
+    del bits
+    n_exists = _popcount(exists_all)
+    packed_r = [packed_row(c, n_shards) for c in r_rows[:2]]
+    packed_v500 = packed_row(vcols[vvals > 500], n_shards)
+    pair = np.array([[int(_bit_test(packed[b], s_rows[a]).sum())
+                      for b in range(len(packed))]
+                     for a in range(HYBRID_S_ROWS)])
+    log(f"  hybrid oracle: {time.perf_counter() - t0:.1f} s")
+
+    def query(pql: str):
+        return _http(port, "POST", "/index/i/query", pql.encode())["results"][0]
+
+    def inter(a_cols: np.ndarray, b_cols: np.ndarray) -> int:
+        return int(_contains(b_cols, a_cols).sum())
+
+    a, c, b = 3, 7, 1  # s rows of 64 and 1024 bits per shard, f row 1
+    in_v = _contains(s_rows[5], vcols)
+    packed_s5 = packed_row(s_rows[5], n_shards)
+    tcounts = np.array([int(_bit_test(packed_s5, rows).sum())
+                        for rows in t_rows])
+    want_cols = s_rows[a][_bit_test(packed[b], s_rows[a])]
+    checks = [
+        (f"Count(Intersect(Row(s={a}), Row(f={b})))", int(pair[a, b])),
+        (f"Count(Intersect(Row(f={b}), Row(s={a})))", int(pair[a, b])),
+        (f"Intersect(Row(s={a}), Row(f={b}))",
+         {"attrs": {}, "columns": want_cols.tolist()}),
+        (f"Count(Intersect(Row(s={a}), Row(s={c})))",
+         inter(s_rows[a], s_rows[c])),
+        (f"Count(Union(Row(s={a}), Row(s={c})))",
+         int(np.union1d(s_rows[a], s_rows[c]).size)),
+        (f"Count(Xor(Row(s={a}), Row(s={c})))",
+         int(np.setxor1d(s_rows[a], s_rows[c], assume_unique=True).size)),
+        (f"Count(Difference(Row(s=9), Row(f={b})))",
+         int(s_rows[9].size - pair[9, b])),
+        (f"Count(Not(Row(s={c})))", n_exists - int(s_rows[c].size)),
+        (f"Count(Intersect(Row(s=9), Row(r=0)))", inter(s_rows[9], r_rows[0])),
+        (f"Count(Intersect(Row(r=0), Row(f={b})))",
+         int(_bit_test(packed[b], r_rows[0]).sum())),
+        ("Count(Intersect(Row(r=0), Row(r=1)))",
+         int(_bit_test(packed_r[1], r_rows[0]).sum())),
+        ("Count(Row(r=2))", int(r_rows[2].size)),
+        ("Count(Intersect(Row(s=9), Range(v > 500)))",
+         int(_bit_test(packed_v500, s_rows[9]).sum())),
+        ("Sum(Row(s=5), field=v)",
+         {"value": int(vvals[in_v].sum()), "count": int(in_v.sum())}),
+        ("TopN(t, Row(s=5), n=5)", _pairs(tcounts)[:5]),
+    ]
+    kernels.reset_launch_counts()  # the hybrid path starts here
+    t0 = time.perf_counter()
+    got = query("Count(Row(s=9))")
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    if got != int(s_rows[9].size):
+        raise AssertionError(f"Count(Row(s=9)): port {got} != oracle "
+                             f"{s_rows[9].size}")
+    log(f"  cold Count(Row(s=9)) (one sparse leaf, K = 4096, built from "
+        f"{n_shards} fragments): {cold_ms:.1f} ms (oracle agrees)")
+    t0 = time.perf_counter()
+    for pql, want in checks:
+        got = query(pql)
+        if got != want:
+            raise AssertionError(f"{pql}: port {str(got)[:300]} != oracle "
+                                 f"{str(want)[:300]}")
+        log(f"  {pql[:100]} = {str(got)[:60]} (oracle agrees)")
+    single_s = time.perf_counter() - t0
+    # every row of s once, so the concurrent pass runs on resident leaves
+    # (a burst of cold misses would build each leaf once per thread)
+    t0 = time.perf_counter()
+    for sa in range(HYBRID_S_ROWS):
+        got = query(f"Count(Row(s={sa}))")
+        if got != int(s_rows[sa].size):
+            raise AssertionError(f"Count(Row(s={sa})): port {got} != oracle "
+                                 f"{s_rows[sa].size}")
+    warm_s = time.perf_counter() - t0
+    log(f"  Count(Row(s=a)) for all {HYBRID_S_ROWS} rows (the leaves not yet "
+        f"resident built from the host): {warm_s:.1f} s (oracle agrees)")
+
+    lat: list = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def client(cid: int) -> None:
+        rng = np.random.default_rng(seed + 3000 + cid)
+        conn = http.client.HTTPConnection("localhost", port, timeout=600)
+        try:
+            for _ in range(per_client):
+                sa = int(rng.integers(HYBRID_S_ROWS))
+                fb = int(rng.integers(len(packed)))
+                q = f"Count(Intersect(Row(s={sa}), Row(f={fb})))"
+                t = time.perf_counter()
+                got = _http(port, "POST", "/index/i/query", q.encode(),
+                            conn)["results"][0]
+                dt = time.perf_counter() - t
+                with lock:
+                    lat.append(dt)
+                    if got != int(pair[sa, fb]):
+                        errors.append((q, got, int(pair[sa, fb])))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors or len(lat) != clients * per_client:
+        raise AssertionError(
+            f"{len(errors)} concurrent hybrid Counts differ, "
+            f"{clients * per_client - len(lat)} missing; first {errors[:1]}")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()  # the hybrid path ends here
+    hyb = srv.executor.hybrid_snapshot()
+    dense_equiv = HYBRID_S_ROWS * n_shards * SHARD_WIDTH // 8
+    # the K of each row of s: its largest shard, padded as the chooser pads
+    served_k = sorted({HybridManager.pad_slots(int(np.bincount(
+        r // SHARD_WIDTH, minlength=n_shards).max())) for r in s_rows})
+    stats = {
+        "queries": len(lat), "qps": len(lat) / wall,
+        "p50_ms": statistics.median(lat) * 1e3,
+        "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "s_bits": int(sum(r.size for r in s_rows)),
+        "r_bits": int(sum(r.size for r in r_rows)),
+        "import_s": import_s, "cold_sparse_leaf_ms": cold_ms,
+        "single_queries_s": single_s, "warm_s_rows_s": warm_s,
+        "hybrid": hyb,
+        "s_rows_as_dense_bytes": dense_equiv, "served_k": served_k,
+    }
+    log(f"  concurrent: {clients} clients x {per_client} Count(Intersect("
+        f"Row(s=a), Row(f=b))): {stats['qps']:.1f} q/s, p50 "
+        f"{stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms")
+    log(f"  resident by form: sparse {hyb['residentSparseLeaves']} leaves, "
+        f"{hyb['residentSparseBytes']} bytes (the {HYBRID_S_ROWS} rows of s "
+        f"as planes: {dense_equiv} bytes); run {hyb['residentRunLeaves']} "
+        f"leaves, {hyb['residentRunBytes']} bytes; dense "
+        f"{hyb['residentDenseLeaves']} leaves, {hyb['residentDenseBytes']} "
+        f"bytes")
+    log(f"  hybrid uploads: sparse {hyb['sparseUploads']}, run "
+        f"{hyb['runUploads']}, dense {hyb['denseUploads']}; expanded on the "
+        f"device {hyb['materialized']}")
+    log(f"  launches on the hybrid path: {launches}")
+    if launches["sparse_intersect_dense"] < 1:
+        raise AssertionError("sparse_intersect_dense never launched on the "
+                             "hybrid path")
+    if hyb["sparseUploads"] < 1 or hyb["runUploads"] < 1:
+        raise AssertionError(f"no sparse or no run upload: {hyb}")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"  hybrid phase: {stats['phase_s']:.1f} s")
     return {"launches": launches, "stats": stats}
 
 
@@ -972,11 +1306,12 @@ def device_busy_ms(prof) -> float | None:
 
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
                  clients: int, per_client: int, profile: bool,
-                 bsi: tuple, topn: tuple) -> dict:
-    """The Count path, then the BSI path and the TopN/GroupBy path on the
-    same server and index (bsi = values per shard, seed, clients, queries
-    per client; topn = bits per shard of t's row 0, seed, clients,
-    queries per client)."""
+                 bsi: tuple, topn: tuple, hybrid: tuple) -> dict:
+    """The Count path, then the BSI path, the TopN/GroupBy path and the
+    hybrid path on the same server and index (bsi = values per shard,
+    seed, clients, queries per client; topn = bits per shard of t's row 0,
+    seed, clients, queries per client; hybrid = seed, clients, queries per
+    client)."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels
@@ -1163,8 +1498,12 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
             log("phase 4: TopN/Rows/GroupBy path on the same server")
             topn_served = topn_phase(srv, port, p, values, t_rows, n_shards,
                                      *topn[1:])
+            log("phase 5: hybrid sparse/run leaves on the same server")
+            hybrid_served = hybrid_phase(
+                srv, port, p, exists, values, t_rows,
+                topn_served["stats"]["cleared_t0_column"], n_shards, *hybrid)
             return {"launches": launches, "stats": stats, "bsi": bsi_served,
-                    "topn": topn_served}
+                    "topn": topn_served, "hybrid": hybrid_served}
         finally:
             srv.close()
 
@@ -1218,7 +1557,8 @@ def main(argv=None) -> int:
                           (args.bsi_per_shard, args.seed, args.bsi_clients,
                            args.bsi_per_client),
                           (TOPN_BITS, args.seed, TOPN_CLIENTS,
-                           TOPN_PER_CLIENT))
+                           TOPN_PER_CLIENT),
+                          (args.seed, HYBRID_CLIENTS, HYBRID_PER_CLIENT))
     st = served["stats"]
     k_served = max(1, round(st["batched_queries"] / max(st["batches"], 1)))
     bst = served["bsi"]["stats"]
@@ -1226,19 +1566,24 @@ def main(argv=None) -> int:
 
     gc.collect()  # the closed server's resident tensors
     torch.cuda.empty_cache()
-    log(f"phase 5: kernels at S={args.shards}, W=32768 (served mean "
-        f"batches: pair stream K={k_served}, BSI sum K={k_sum})")
+    served_k = served["hybrid"]["stats"]["served_k"]
+    log(f"phase 6: kernels at S={args.shards}, W=32768 (served mean "
+        f"batches: pair stream K={k_served}, BSI sum K={k_sum}; sparse "
+        f"rows K={served_k})")
     measured = kernel_phase(device, args.shards, 32768, args.slab_rows,
                             args.k, k_served, args.seed, args.runs)
     measured.update(bsi_kernel_phase(device, args.shards, 32768, k_sum,
                                      args.seed, args.runs))
     measured.update(topn_kernel_phase(device, args.shards, 32768, args.seed,
                                       args.runs))
+    measured.update(hybrid_kernel_phase(device, args.shards, 32768, served_k,
+                                        args.seed, args.runs))
 
     records = []
     for name, m in measured.items():
         phase = (served["bsi"] if name in BSI_KERNELS
-                 else served["topn"] if name in TOPN_KERNELS else served)
+                 else served["topn"] if name in TOPN_KERNELS
+                 else served["hybrid"] if name in HYBRID_KERNELS else served)
         launches = phase["launches"][name]
         records.append({
             "name": name, "route": "cuda", "source": SOURCE,
@@ -1249,7 +1594,7 @@ def main(argv=None) -> int:
     log("  library_ms: none (no single PyTorch call computes a popcount of "
         "a bitwise op, a bit-sliced comparison, per-plane filtered "
         "popcounts, packed TopN counts or a popcount cross matrix: torch "
-        "has no popcount)")
+        "has no popcount; nor a gather, bit test and ordered compaction)")
     log(f"  details: {json.dumps({'kernels': measured, **served})}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi_name)

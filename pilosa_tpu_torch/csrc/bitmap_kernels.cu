@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the dense bitmap read path and
 // the bit-sliced integer (BSI) path.
 //
-// Seven kernels, one device code base. The dense read path:
+// Eight kernels, one device code base. The dense read path:
 //
 //   pbk_pair_stream_counts  replaces pilosa_tpu/ops/pallas_kernels.py
 //       pair_stream_counts (:234, body _pair_stream_kernel :216) and the
@@ -103,6 +103,31 @@
 //     across the tile comes from shared memory. PT in {1, 2, 4} follows P,
 //     so P = 8 runs with no padded prefixes. At the end each thread adds
 //     its PT partials with integer atomics into the zeroed output.
+//
+// One more carries the hybrid sparse/run read path:
+//
+//   pbk_sparse_intersect_dense  replaces pallas_kernels.py
+//       sparse_intersect_dense (:295, body _sparse_dense_kernel :282): for
+//       a sparse row int32[S, K] (sorted shard-local column ids padded with
+//       the sentinel 2^20) and a dense plane [S, W], keep each entry whose
+//       bit is set -> sorted sentinel-padded int32[S, K]. With keep_hits 0
+//       it keeps the entries whose bit is clear instead (sparse &~ dense).
+//
+// Bound: bytes. Each index is read and each output slot written once, and
+// each entry below the sentinel reads one 4-byte word of the plane, so
+// the plane bytes that must move are the distinct 32-byte sectors its
+// entries touch; a few integer operations per entry.
+//
+// Design: one block per shard walks its K entries in tiles of 256. A
+// thread loads one index, skips the plane for a sentinel, else tests bit
+// idx & 31 of word idx >> 5 (read through the read-only cache). Kept
+// entries are compacted in order: __ballot_sync and __popc of the lanes
+// below give the rank in the warp, the eight warp counts in shared memory
+// the warp's offset in the tile, and a running offset carries from tile to
+// tile; the block then fills the row's tail with the sentinel. The input
+// rows are sorted and unique, so compaction in order gives exactly
+// sort(where(kept, idx, sentinel)): no sort, where the Pallas kernel
+// masked and then sorted.
 //
 // Every C entry point returns cudaGetLastError() right after its launch.
 
@@ -548,6 +573,54 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------- sparse ∩ dense
+
+constexpr int kSentinel = 1 << 20;  // ops/hybrid.py SPARSE_SENTINEL
+constexpr int kWarps = kThreads / 32;
+
+// grid (S): block s compacts row s of sp [S, k] against plane s of dense
+// [S, w] into out [S, k]. kKeepHits keeps the entries whose bit is set,
+// else those whose bit is clear; sentinel entries are never kept.
+template <bool kKeepHits>
+__global__ void __launch_bounds__(kThreads)
+    sparse_dense_kernel(const int* __restrict__ sp,
+                        const unsigned* __restrict__ dense,
+                        int* __restrict__ out, int k, long long w) {
+  __shared__ int warp_counts[kWarps];
+  const long long shard = blockIdx.x;
+  const int* row = sp + shard * k;
+  const unsigned* plane = dense + shard * w;
+  int* dst = out + shard * k;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+  int filled = 0;
+  for (int base = 0; base < k; base += kThreads) {
+    const int i = base + threadIdx.x;
+    const int idx = i < k ? __ldg(row + i) : kSentinel;
+    bool keep = false;
+    if (static_cast<unsigned>(idx) < static_cast<unsigned>(kSentinel)) {
+      const unsigned word = __ldg(plane + (idx >> 5));
+      const bool bit = (word >> (idx & 31)) & 1u;
+      keep = kKeepHits ? bit : !bit;
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_counts[warp] = __popc(ballot);
+    __syncthreads();
+    int offset = filled, total = 0;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) {
+      const int c = warp_counts[v];
+      offset += v < warp ? c : 0;
+      total += c;
+    }
+    if (keep) dst[offset + __popc(ballot & below)] = idx;
+    filled += total;
+    __syncthreads();  // warp_counts is rewritten by the next tile
+  }
+  for (int i = filled + threadIdx.x; i < k; i += kThreads) dst[i] = kSentinel;
+}
+
 }  // namespace
 
 extern "C" {
@@ -685,6 +758,22 @@ int pbk_cross_count(const void* prefix, const void* axis, int n_prefix,
   } else {
     cross_count_kernel<4><<<grid, kThreads, 0, st>>>(
         p, a, n_prefix, n_axis, out, n_shards, w4, chunk_shards, split);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pbk_sparse_intersect_dense(const void* sp, const void* dense, void* out,
+                               long long n_shards, int k, long long w,
+                               int keep_hits, void* stream) {
+  const int* s = static_cast<const int*>(sp);
+  const unsigned* d = static_cast<const unsigned*>(dense);
+  int* o = static_cast<int*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n_shards));
+  if (keep_hits) {
+    sparse_dense_kernel<true><<<grid, kThreads, 0, st>>>(s, d, o, k, w);
+  } else {
+    sparse_dense_kernel<false><<<grid, kThreads, 0, st>>>(s, d, o, k, w);
   }
   return static_cast<int>(cudaGetLastError());
 }

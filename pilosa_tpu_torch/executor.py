@@ -30,11 +30,23 @@ axis into one resident [R, S, W] slab and counts every level past the
 first with the cross_count_matrix kernel, pruned on the device, one host
 fetch per level.
 
-Not(x) is existence &~ x (executor.py:1317-1322). Left out: the planner
-and plan cache, hybrid sparse/run leaves, heat, the cluster, key
-translation, row attributes and the MinMaxBatcher. None of them changes
-an answer. Calls, field types and options outside the slice raise
-NotPortedError (a 400 at the API).
+Not(x) is existence &~ x (executor.py:1317-1322).
+
+Row and existence leaves take the form the HybridManager picks per row
+(planner.choose_representation; executor.py:1209-1292): a sparse index
+array, run intervals or a dense plane. A program with a sparse or run leaf
+evaluates through ops/hybrid.py eval_hybrid, every sparse∩dense node on
+the sparse_intersect_dense kernel; its Count finishes through
+hybrid_count before the CountBatcher, whose kernels read only planes
+(:1537-1557). A dense consumer of a row (a TopN recount, a Sum filter)
+gets the plane from a resident sparse or run twin on the device rather
+than from the host (:665-696).
+
+Left out: the rest of the planner and the plan cache, heat, in-place
+patching of resident leaves after a write, the cluster, key translation,
+row attributes and the MinMaxBatcher. None of them changes an answer.
+Calls, field types and options outside the slice raise NotPortedError (a
+400 at the API).
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import planner
 from pilosa_tpu_torch.constants import (
     EXISTENCE_FIELD_NAME,
     SHARD_WIDTH,
@@ -60,12 +73,16 @@ from pilosa_tpu_torch.models.index import Index
 from pilosa_tpu_torch.models.row import Row
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
 from pilosa_tpu_torch.ops import bsi
+from pilosa_tpu_torch.ops import hybrid as hy
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.ops.bitvector import band, columns_from_dense
 from pilosa_tpu_torch.ops.topn import tanimoto_mask
 from pilosa_tpu_torch.parallel.batcher import CountBatcher, PlaneSumBatcher
 from pilosa_tpu_torch.parallel.mesh import DeviceRunner
-from pilosa_tpu_torch.parallel.residency import DeviceResidency
+from pilosa_tpu_torch.parallel.residency import (
+    DeviceResidency,
+    HybridManager,
+)
 from pilosa_tpu_torch.pql import Call, Query, parse_string_cached
 from pilosa_tpu_torch.pql.ast import (
     BETWEEN,
@@ -136,6 +153,7 @@ class Executor:
         self.holder = holder
         self.runner = DeviceRunner(device)
         self.residency = DeviceResidency(self.runner)
+        self.hybrid = HybridManager()
         # PILOSA_TPU_TORCH_BATCH=0: one launch per Count and per Sum, no
         # coalescing
         batch = os.environ.get("PILOSA_TPU_TORCH_BATCH", "1") != "0"
@@ -152,9 +170,11 @@ class Executor:
         self._topn_memo_lock = threading.Lock()
 
     def clear_caches(self) -> None:
-        """Drop every resident leaf and TopN merge (index/field deletion: a
-        recreated schema object restarts its generations and versions)."""
+        """Drop every resident leaf, leaf statistic and TopN merge
+        (index/field deletion: a recreated schema object restarts its
+        generations and versions)."""
         self.residency.clear()
+        self.hybrid.clear_stats()
         with self._topn_memo_lock:
             self._topn_merge_memo.clear()
 
@@ -231,7 +251,9 @@ class Executor:
                       frags: Optional[list] = None,
                       gens: Optional[tuple] = None):
         """Device-resident [S, W] leaf of one row, keyed by the per-shard
-        row generations (a write changes the key)."""
+        row generations (a write changes the key). On a miss, a resident
+        sparse or run twin under the same generations is expanded on the
+        device; only without one is the plane built from the host."""
         if frags is None:
             frags = self._fragments(index, field_name, view_name, shards)
         if gens is None:
@@ -240,21 +262,131 @@ class Executor:
         key = ("row", index.name, field_name, view_name, row_id,
                tuple(shards), gens)
 
-        def make() -> np.ndarray:
+        def make():
+            twin = self._dense_from_twin(index, field_name, view_name,
+                                         shards, row_id, frags, gens)
+            if twin is not None:
+                return twin
             out = np.zeros((len(shards), WORDS_PER_SHARD), dtype=np.uint32)
             for i, fr in enumerate(frags):
                 if fr is not None:
                     out[i] = fr.row_dense(row_id)
+            self.hybrid.record_upload("dense", out.nbytes)
             return out
 
         return self.residency.leaf(key, make)
 
-    def _compile(self, index: Index, call: Call, shards: list):
-        """Walk the call tree -> (program, leaves)."""
-        leaves: list = []
+    def _dense_from_twin(self, index: Index, field_name: str, view_name: str,
+                         shards: list, row_id: int, frags: list, gens: tuple):
+        """The row's plane expanded on the device from its resident sparse
+        or run leaf under `gens`, or None. Only the form the chooser last
+        picked for the row is probed (executor.py:665-696 probes both,
+        reading the run statistics of every dense row it builds)."""
+        hyb = self.hybrid
+        if not hyb.active():
+            return None
+        last = hyb.last((index.name, field_name, view_name, row_id))
+        if last == "sparse":
+            stat = max((fr.row_cardinality(row_id) for fr in frags
+                        if fr is not None), default=0)
+        elif last == "run":
+            stat = max((fr.row_interval_count(row_id) for fr in frags
+                        if fr is not None), default=0)
+        else:
+            return None
+        twin = self.residency.peek(
+            (last, index.name, field_name, view_name, row_id, tuple(shards),
+             hyb.pad_slots(max(stat, 1)), gens))
+        if twin is None:
+            return None
+        hyb.record_materialize()
+        if last == "sparse":
+            return hy.sparse_to_dense(twin)
+        return hy.run_to_dense(twin)
 
-        def leaf(t):
+    def _row_leaf_sparse_dev(self, index: Index, field_name: str,
+                             view_name: str, shards: list, row_id: int,
+                             frags: list, gens: tuple, slots: int):
+        """Resident sparse leaf int32[S, slots]: each shard's sorted column
+        ids, SPARSE_SENTINEL-padded (executor.py:785-827). A write racing
+        the sizing read can overflow the slots; the row is then cut, as a
+        dense row tears per shard, and the write's generation re-keys the
+        next read."""
+        key = ("sparse", index.name, field_name, view_name, row_id,
+               tuple(shards), slots, gens)
+
+        def make():
+            arr = np.full((len(shards), slots), hy.SPARSE_SENTINEL,
+                          dtype=np.int32)
+            for i, fr in enumerate(frags):
+                if fr is not None:
+                    cols = fr.row_columns(row_id)
+                    n = min(cols.size, slots)
+                    arr[i, :n] = cols[:n]
+            self.hybrid.record_upload("sparse", arr.nbytes)
+            return self.runner.put_index_leaf(arr)
+
+        return self.residency.leaf(key, make)
+
+    def _row_leaf_run_dev(self, index: Index, field_name: str,
+                          view_name: str, shards: list, row_id: int,
+                          frags: list, gens: tuple, slots: int):
+        """Resident run leaf int32[S, 2, slots]: each shard's intervals
+        straight from its containers (Fragment.row_runs), RUN_SENTINEL-
+        padded (executor.py:739-783)."""
+        key = ("run", index.name, field_name, view_name, row_id,
+               tuple(shards), slots, gens)
+
+        def make():
+            arr = np.full((len(shards), 2, slots), hy.RUN_SENTINEL,
+                          dtype=np.int32)
+            for i, fr in enumerate(frags):
+                if fr is not None:
+                    arr[i] = hy.runs_from_intervals(fr.row_runs(row_id),
+                                                    slots)
+            self.hybrid.record_upload("run", arr.nbytes)
+            return self.runner.put_index_leaf(arr)
+
+        return self.residency.leaf(key, make)
+
+    def _chosen_leaf(self, index: Index, field_name: str, shards: list,
+                     row_id: int) -> tuple:
+        """(leaf, kind) of one row in the form the chooser picks."""
+        rep, slots, frags, gens = planner.choose_representation(
+            self.hybrid, index, field_name, VIEW_STANDARD, shards, row_id)
+        if rep == "sparse":
+            return self._row_leaf_sparse_dev(index, field_name, VIEW_STANDARD,
+                                             shards, row_id, frags, gens,
+                                             slots), rep
+        if rep == "run":
+            return self._row_leaf_run_dev(index, field_name, VIEW_STANDARD,
+                                          shards, row_id, frags, gens,
+                                          slots), rep
+        return self._row_leaf_dev(index, field_name, shards, row_id,
+                                  VIEW_STANDARD, frags, gens), "dense"
+
+    def hybrid_snapshot(self) -> dict:
+        """The chooser's counters with the resident leaves by form."""
+        out = self.hybrid.snapshot()
+        by_kind = self.residency.snapshot()["by_kind"]
+        for name, kind in (("Sparse", "sparse"), ("Run", "run"),
+                           ("Dense", "row")):
+            k = by_kind.get(kind, {})
+            out[f"resident{name}Leaves"] = k.get("entries", 0)
+            out[f"resident{name}Bytes"] = k.get("bytes", 0)
+        return out
+
+    def _compile(self, index: Index, call: Call, shards: list):
+        """Walk the call tree -> (program, leaves, kinds): kinds[i] is
+        "dense" ([S, W] int32 planes), "sparse" ([S, K] column ids) or
+        "run" ([S, 2, R] intervals), the form the chooser picked for each
+        row and existence leaf (Range masks and empty rows are dense)."""
+        leaves: list = []
+        kinds: list = []
+
+        def leaf(t, kind: str = "dense"):
             leaves.append(t)
+            kinds.append(kind)
             return ("leaf", len(leaves) - 1)
 
         def zeros():
@@ -268,7 +400,7 @@ class Executor:
                 field_name = c.field_arg()
                 self._set_field(index, field_name)
                 row_id = self._row_id(c.args[field_name])
-                return leaf(self._row_leaf_dev(index, field_name, shards,
+                return leaf(*self._chosen_leaf(index, field_name, shards,
                                                row_id))
             if c.name in ("Union", "Xor"):
                 if not c.children:  # zero-arg Union()/Xor(): empty row
@@ -287,7 +419,7 @@ class Executor:
                 if index.existence_field() is None:
                     raise ExecutionError(f"index {index.name} does not "
                                          "support existence tracking")
-                ex = leaf(self._row_leaf_dev(index, EXISTENCE_FIELD_NAME,
+                ex = leaf(*self._chosen_leaf(index, EXISTENCE_FIELD_NAME,
                                              shards, 0))
                 return ("andnot", ex, walk(c.children[0]))
             if c.name == "Range":
@@ -295,21 +427,53 @@ class Executor:
             raise ExecutionError(f"expected bitmap call, got {c.name}")
 
         program = walk(call)
-        return program, leaves
+        return program, leaves, kinds
+
+    def _eval_program(self, program, leaves: list, kinds: list) -> tuple:
+        """(kind, device result) of a compiled program: an all-dense one
+        through row_leaves_dev, a hybrid one through eval_hybrid with the
+        sparse∩dense (and sparse&~dense) nodes on the kernel."""
+        if "sparse" not in kinds and "run" not in kinds:
+            return "dense", self.runner.row_leaves_dev(leaves, program)
+        return hy.eval_hybrid(program, leaves, kinds, WORDS_PER_SHARD,
+                              kernels.sparse_intersect_dense,
+                              kernels.sparse_difference_dense)
+
+    def _eval_program_dense(self, program, leaves: list,
+                            kinds: list) -> torch.Tensor:
+        """[S, W] device result of a compiled program; a sparse or run root
+        is expanded to planes (executor.py:1384-1403)."""
+        kind, arr = self._eval_program(program, leaves, kinds)
+        if kind == "sparse":
+            self.hybrid.record_materialize()
+            return hy.sparse_to_dense(arr)
+        if kind == "run":
+            self.hybrid.record_materialize()
+            return hy.run_to_dense(arr)
+        return arr
 
     def _composed_row_dev(self, index: Index, call: Call, shards: list):
         """[S, W] device result of a bitmap call tree (a Sum/Min/Max or
-        GroupBy filter, a TopN Src), composed through row_leaves_dev."""
-        program, leaves = self._compile(index, call, shards)
-        return self.runner.row_leaves_dev(leaves, program)
+        GroupBy filter, a TopN Src)."""
+        return self._eval_program_dense(*self._compile(index, call, shards))
 
     def _execute_bitmap_call(self, index: Index, call: Call, shards) -> Row:
+        """A Row result: a sparse root gives its columns straight from the
+        index array, anything else from the planes."""
         shards = self._query_shards(index, shards)
-        program, leaves = self._compile(index, call, shards)
-        dense = self.runner.row_leaves(leaves, program)
+        program, leaves, kinds = self._compile(index, call, shards)
+        kind, arr = self._eval_program(program, leaves, kinds)
+        if kind == "sparse":
+            host = arr.cpu().numpy()
+            per_shard = [r[r < hy.SPARSE_SENTINEL].astype(np.int64)
+                         for r in host]
+        else:
+            if kind == "run":
+                arr = hy.run_to_dense(arr)
+            dense = arr.contiguous().cpu().numpy().view(np.uint32)
+            per_shard = [columns_from_dense(d) for d in dense]
         out = Row()
-        for i, shard in enumerate(shards):
-            cols = columns_from_dense(dense[i])
+        for shard, cols in zip(shards, per_shard):
             if cols.size:
                 out.segments[shard] = (cols.astype(np.uint64)
                                        + np.uint64(shard * SHARD_WIDTH))
@@ -322,7 +486,12 @@ class Executor:
         if child.name in ("Union", "Xor") and not child.children:
             return 0
         shards = self._query_shards(index, shards)
-        program, leaves = self._compile(index, child, shards)
+        program, leaves, kinds = self._compile(index, child, shards)
+        if "sparse" in kinds or "run" in kinds:
+            # before the batcher: its kernels read only [S, W] planes
+            return hy.hybrid_count(program, leaves, kinds, WORDS_PER_SHARD,
+                                   kernels.sparse_intersect_dense,
+                                   kernels.sparse_difference_dense)
         if self.batcher is not None:
             # concurrent Counts coalesce into one pair-stream launch
             if program == ("leaf", 0) and len(leaves) == 1:

@@ -95,6 +95,9 @@ def load() -> ctypes.CDLL:
         lib.pbk_cross_count.argtypes = [vp, vp, i, i, vp, ll, ll, ll, i, i,
                                         vp]
         lib.pbk_cross_count.restype = i
+        lib.pbk_sparse_intersect_dense.argtypes = [vp, vp, vp, ll, i, ll, i,
+                                                   vp]
+        lib.pbk_sparse_intersect_dense.restype = i
         _lib = lib
         return lib
 

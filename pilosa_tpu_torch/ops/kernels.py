@@ -39,6 +39,16 @@ on a total no longer fits int32. The wrappers finish the sum over chunks
 in int64 on the device and return int64 tensors; their plain versions
 count in int64 throughout.
 
+One more carries the hybrid sparse/run read path (ops/hybrid.py):
+
+* ``sparse_intersect_dense``: a sparse row int32[S, K] x a dense plane
+  int32[S, W] -> the sorted sentinel-padded int32[S, K] of the entries
+  whose bit is set. Replaces Pallas sparse_intersect_dense
+  (pallas_kernels.py:295). Serves every sparse∩dense node of eval_hybrid.
+  ``sparse_difference_dense`` launches the same kernel keeping the entries
+  whose bit is clear (sparse &~ dense; XLA in the JAX package); both
+  count as launches of sparse_intersect_dense.
+
 Routing: a CPU tensor takes the plain version (``<name>_plain``, plain
 torch). A CUDA tensor launches the kernel or raises; nothing falls back.
 Each wrapper adds one to its launch count where it launches its kernel.
@@ -58,7 +68,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.constants import WORDS_PER_SHARD
 from pilosa_tpu_torch.ops import bitvector as bv
+from pilosa_tpu_torch.ops import hybrid
 
 # int32 partials per chunk of shards: 2016 shards x 2^20 bits < 2^31, so a
 # chunk's count cannot wrap; the host finishes the sum in int64
@@ -88,7 +100,8 @@ _THREADS = 256
 _launch_lock = threading.Lock()
 _launches = {"pair_stream_counts": 0, "program_count": 0,
              "intersect_count": 0, "bsi_compare": 0, "bsi_sum_counts": 0,
-             "topn_counts_packed": 0, "cross_count_matrix": 0}
+             "topn_counts_packed": 0, "cross_count_matrix": 0,
+             "sparse_intersect_dense": 0}
 
 
 def launch_counts() -> dict:
@@ -661,3 +674,90 @@ def cross_count_matrix(prefix: torch.Tensor,
         build.check(lib, rc, "cross_count_matrix")
         _count_launch("cross_count_matrix")
     return out.sum(dim=0, dtype=torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# Hybrid leaves: sparse_intersect_dense
+# ---------------------------------------------------------------------------
+
+
+def _check_sparse_dense(sp: torch.Tensor, dense: torch.Tensor):
+    for name, t in (("sp", sp), ("dense", dense)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 2:
+            raise ValueError(f"{name} must be an int32 [S, N] tensor")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if sp.shape[0] != dense.shape[0]:
+        raise ValueError(f"{sp.shape[0]} sparse rows for {dense.shape[0]} "
+                         "dense shards")
+    if sp.device != dense.device:
+        raise ValueError("sp and dense on different devices")
+    dev = sp.device
+    if dev.type == "cuda":
+        if dense.shape[1] != WORDS_PER_SHARD:
+            raise ValueError(f"dense planes must be {WORDS_PER_SHARD} words "
+                             f"wide (every column id indexes one), got "
+                             f"{dense.shape[1]}")
+        if sp.shape[1] >= 1 << 31:
+            raise ValueError("K must fit an int")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def sparse_intersect_dense_plain(sp: torch.Tensor,
+                                 dense: torch.Tensor) -> torch.Tensor:
+    """_resort(sp, _dense_bit_test(sp, dense)) in plain torch."""
+    return hybrid.sparse_intersect_dense(sp, dense)
+
+
+def sparse_difference_dense_plain(sp: torch.Tensor,
+                                  dense: torch.Tensor) -> torch.Tensor:
+    """sparse &~ dense in plain torch."""
+    return hybrid.sparse_difference_dense(sp, dense)
+
+
+def _sparse_dense_launch(sp: torch.Tensor, dense: torch.Tensor,
+                         keep_hits: bool) -> torch.Tensor:
+    dev = sp.device
+    s, k = sp.shape
+    out = torch.empty_like(sp)
+    if s == 0 or k == 0:
+        return out
+    build, lib = _load()
+    rc = lib.pbk_sparse_intersect_dense(sp.data_ptr(), dense.data_ptr(),
+                                        out.data_ptr(), s, k, dense.shape[1],
+                                        int(keep_hits), _stream(dev))
+    build.check(lib, rc, "sparse_intersect_dense")
+    _count_launch("sparse_intersect_dense")
+    return out
+
+
+def sparse_intersect_dense(sp: torch.Tensor,
+                           dense: torch.Tensor) -> torch.Tensor:
+    """int32[S, K] sparse rows x int32[S, W] planes -> int32[S, K]: each
+    row's entries whose bit is set in its plane, in order, then
+    SPARSE_SENTINEL to the end of the row.
+
+    Contract: every row of sp is sorted ascending, its entries below the
+    sentinel are unique, and sentinels fill its tail (every sparse leaf
+    and every output of ops/hybrid.py is). Compaction in order then gives
+    exactly the plain version's sort(where(hit, idx, sentinel)); the
+    kernel does not check the contract."""
+    dev = _check_sparse_dense(sp, dense)
+    if dev.type == "cpu":
+        return sparse_intersect_dense_plain(sp, dense)
+    return _sparse_dense_launch(sp, dense, keep_hits=True)
+
+
+def sparse_difference_dense(sp: torch.Tensor,
+                            dense: torch.Tensor) -> torch.Tensor:
+    """int32[S, K] x int32[S, W] -> int32[S, K]: the entries whose bit is
+    clear (sparse &~ dense), under sparse_intersect_dense's contract and
+    through its kernel (counted as its launch)."""
+    dev = _check_sparse_dense(sp, dense)
+    if dev.type == "cpu":
+        return sparse_difference_dense_plain(sp, dense)
+    return _sparse_dense_launch(sp, dense, keep_hits=False)

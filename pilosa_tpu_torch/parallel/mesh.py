@@ -3,8 +3,8 @@
 Trimmed port of pilosa_tpu/parallel/mesh.py: the single-device
 DeviceRunner (put_leaf / put_plane_slab / row_leaves_dev /
 count_total_leaves, :479-611; groupby_chunk / groupby_cmat, :613-640, on
-one device with no psum)
-and the nested-tuple programs of :192-216:
+one device with no psum; put_index_leaf for sparse and run leaves) and
+the nested-tuple programs of :192-216:
 
     ("leaf", i) | ("not", p) | (op, p1, p2, ...), op in and/or/xor/andnot
 
@@ -64,6 +64,14 @@ class DeviceRunner:
         """Place one uint32 [S, W] leaf on the device as int32 planes."""
         return planes_to_tensor(rows, self.device)
 
+    def put_index_leaf(self, arr: np.ndarray) -> torch.Tensor:
+        """Place one sparse ([S, K]) or run ([S, 2, R]) leaf on the device:
+        int32 column ids, uploaded by value (they are ids, not planes)."""
+        if arr.dtype != np.int32:
+            raise TypeError(f"index leaves are int32, got {arr.dtype}")
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t if self.device.type == "cpu" else t.to(self.device)
+
     def put_plane_slab(self, planes: np.ndarray) -> torch.Tensor:
         """Place one uint32 [D, S, W] BSI plane slab on the device as
         int32 planes (one device: no pad shards)."""
@@ -74,11 +82,6 @@ class DeviceRunner:
     def row_leaves_dev(self, leaves: list, program) -> torch.Tensor:
         """Dense result [S, W] of `program`, left on the device."""
         return kernels.eval_program_plain(list(leaves), program)
-
-    def row_leaves(self, leaves: list, program) -> np.ndarray:
-        """Dense result as a host uint32 [S, W] array."""
-        out = self.row_leaves_dev(leaves, program)
-        return out.contiguous().cpu().numpy().view(np.uint32)
 
     def count_total_leaves(self, leaves: list, program) -> int:
         """Total popcount of `program`: per-shard int32 counts from the

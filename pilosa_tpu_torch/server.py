@@ -5,6 +5,12 @@
     srv.close()
 
 A single node on one device: no cluster, gossip, QoS or telemetry.
+
+sparse_threshold and run_threshold are the JAX server's [query]
+sparse-threshold and run-threshold (pilosa_tpu/server.py:245-260): rows
+with at most sparse_threshold bits in every shard load as sparse leaves,
+rows above it with at most run_threshold intervals as run leaves; 0
+disables a form.
 """
 
 from __future__ import annotations
@@ -12,16 +18,29 @@ from __future__ import annotations
 from pilosa_tpu_torch.api import API
 from pilosa_tpu_torch.executor import Executor
 from pilosa_tpu_torch.net.http_server import Handler, HTTPServer
+from pilosa_tpu_torch.parallel.residency import (
+    DEFAULT_RUN_THRESHOLD,
+    DEFAULT_SPARSE_THRESHOLD,
+)
 from pilosa_tpu_torch.state import open_holder
 
 
 class Server:
     def __init__(self, data_dir: str, host: str = "localhost", port: int = 0,
-                 device="cuda"):
+                 device="cuda",
+                 sparse_threshold: int = DEFAULT_SPARSE_THRESHOLD,
+                 run_threshold: int = DEFAULT_RUN_THRESHOLD):
+        for name, value in (("sparse-threshold", sparse_threshold),
+                            ("run-threshold", run_threshold)):
+            if value < 0:
+                raise ValueError(f"invalid [query] {name} {value!r} "
+                                 "(expected >= 0)")
         self.data_dir = data_dir
         self.host = host
         self.port = port
         self.device = device
+        self.sparse_threshold = sparse_threshold
+        self.run_threshold = run_threshold
         self.holder = None
         self.executor = None
         self.api = None
@@ -30,6 +49,8 @@ class Server:
     def open(self) -> "Server":
         self.holder = open_holder(self.data_dir)
         self.executor = Executor(self.holder, device=self.device)
+        self.executor.hybrid.threshold = self.sparse_threshold
+        self.executor.hybrid.run_threshold = self.run_threshold
         self.api = API(self.holder, self.executor)
         self.http = HTTPServer(Handler(self.api), self.host, self.port)
         self.api.uri = self.http.uri

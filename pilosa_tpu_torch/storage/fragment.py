@@ -5,7 +5,9 @@ one roaring file with a CRC-framed WAL, snapshot compaction after MAX_OP_N
 ops, row generations, dense row materialization and BSI values, in the
 reference's on-disk format; and the row reads of TopN, Rows and GroupBy
 (row_count, row_counts, row_ids, rows_for_column, bit_count; :565-577,
-:644-707, :807-868) over the dict container store. Left out: the frozen
+:644-707, :807-868) over the dict container store; the hybrid chooser's
+statistics (row_cardinality, row_runs, row_run_stats; :709-769). Left
+out: the frozen
 store, anti-entropy blocks, mutex paths, corruption quarantine (a damaged
 file raises at open) and hints.
 
@@ -76,6 +78,10 @@ class Fragment:
         self._bulk_gen = 0
         self._row_counts_cache = None  # (bulk gen, gen, map, overlay)
         self._row_ids_cache = None  # (generation, sorted row ids)
+        # row -> (row generation, interval count, max run length)
+        self._row_run_stats: dict[int, tuple] = {}
+        # row -> (row generation, interval count)
+        self._row_intervals: dict[int, tuple] = {}
         # torn WAL tail dropped at the last open
         self.wal_truncated_bytes = 0
 
@@ -303,6 +309,87 @@ class Fragment:
             else:
                 out[x] = m.get(r, 0)
         return out
+
+    def row_cardinality(self, row_id: int) -> int:
+        """Exact set bits of one row, through the row_counts cache: the
+        hybrid chooser's statistic (fragment.py:709). row_counts for one
+        row without its array conversions: the chooser asks once per
+        fragment and leaf."""
+        cached = self._row_counts_cache
+        if cached is None or cached[0] != self._bulk_gen:
+            return int(self.row_counts([row_id])[0])
+        _, base_gen, m, overlay = cached
+        rg = self._row_gen.get(row_id, 0)
+        if rg <= base_gen:
+            return m.get(row_id, 0)
+        og = overlay.get(row_id)
+        if og is None or og[0] != rg:
+            og = (rg, self.row_count(row_id))
+            overlay[row_id] = og
+        return og[1]
+
+    def row_runs(self, row_id: int) -> np.ndarray:
+        """int64[n, 2] inclusive shard-local [start, last] intervals of a
+        row, from its containers (run containers verbatim, the others by
+        their break scan), merged across container boundaries
+        (fragment.py:719-747). No dense plane is built."""
+        base = row_id * CONTAINERS_PER_SHARD
+        get = self.storage.containers.get
+        parts = []
+        for j in range(CONTAINERS_PER_SHARD):
+            c = get(base + j)
+            if c is None or not c.n:
+                continue
+            iv = c._runs().astype(np.int64)
+            if iv.shape[0]:
+                parts.append(iv + (j << 16))
+        if not parts:
+            return np.empty((0, 2), dtype=np.int64)
+        iv = np.concatenate(parts)
+        if iv.shape[0] > 1:
+            gap = iv[1:, 0] > iv[:-1, 1] + 1
+            starts = iv[np.concatenate(([True], gap)), 0]
+            lasts = iv[np.concatenate((gap, [True])), 1]
+            iv = np.stack([starts, lasts], axis=1)
+        return iv
+
+    def row_interval_count(self, row_id: int) -> int:
+        """Number of intervals of a row, row_runs(row_id).shape[0], from
+        each container's run count (bit arithmetic on a bitmap container,
+        no member array) less the runs that continue across a container
+        boundary; cached per row generation. The hybrid chooser reads only
+        this part of row_run_stats."""
+        gen = self.row_generation(row_id)
+        entry = self._row_intervals.get(row_id)
+        if entry is not None and entry[0] == gen:
+            return entry[1]
+        base = row_id * CONTAINERS_PER_SHARD
+        get = self.storage.containers.get
+        n, carry = 0, False
+        for j in range(CONTAINERS_PER_SHARD):
+            c = get(base + j)
+            if c is None or not c.n:
+                carry = False
+                continue
+            n += c.n_runs() - int(carry and c.contains(0))
+            carry = c.contains(0xFFFF)
+        self._row_intervals[row_id] = (gen, n)
+        return n
+
+    def row_run_stats(self, row_id: int) -> tuple[int, int]:
+        """(interval count, max run length) of one row, cached per row
+        generation (fragment.py:749-769). The JAX package also updates the
+        entry in place on single-bit writes (_run_stats_update); here a
+        write changes the generation and the next read recounts."""
+        gen = self.row_generation(row_id)
+        entry = self._row_run_stats.get(row_id)
+        if entry is not None and entry[0] == gen:
+            return entry[1], entry[2]
+        iv = self.row_runs(row_id)
+        n = int(iv.shape[0])
+        maxr = int((iv[:, 1] - iv[:, 0] + 1).max()) if n else 0
+        self._row_run_stats[row_id] = (gen, n, maxr)
+        return n, maxr
 
     def row_ids(self, start: int = 0, limit: Optional[int] = None) -> list[int]:
         """Distinct row ids >= start with any set bit, ascending, at most

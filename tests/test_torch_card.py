@@ -86,7 +86,8 @@ def test_kernels_match_plain_on_card(cuda_device, s, w):
                                        "bsi_compare": 0,
                                        "bsi_sum_counts": 0,
                                        "topn_counts_packed": 0,
-                                       "cross_count_matrix": 0}
+                                       "cross_count_matrix": 0,
+                                       "sparse_intersect_dense": 0}
 
 
 @pytest.mark.gpu
@@ -145,6 +146,50 @@ def test_topn_and_cross_kernels_match_plain_on_card(cuda_device, s, w):
     counts = kernels.launch_counts()
     assert counts["topn_counts_packed"] == 5
     assert counts["cross_count_matrix"] == 4
+
+
+def _sparse_rows(rng, s: int, k: int) -> np.ndarray:
+    """[s, k] sorted sentinel-padded rows: full rows, half-full rows, an
+    empty (sentinel-only) row, entries on bit 31 and the last column."""
+    sent = 1 << 20
+    out = np.full((s, k), sent, dtype=np.int32)
+    for i in range(s):
+        if i % 5 == 2:
+            continue  # sentinel only
+        n = k if i % 2 == 0 else k // 2
+        cols = np.sort(rng.choice(sent, size=n, replace=False))
+        if n >= 3:
+            cols[:3] = [31, 63, sent - 1]
+            cols = np.sort(np.unique(cols))
+            n = cols.size
+        out[i, :n] = cols
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,k", [(3, 8), (1029, 8), (37, 16384), (257, 300)])
+def test_sparse_intersect_dense_matches_plain_on_card(cuda_device, s, k):
+    """S not a multiple of any block size; rows of all hits (an all-ones
+    plane), all misses (a zero plane), sentinel only, half full; both
+    modes of the kernel (keep hits, keep misses)."""
+    rng = np.random.default_rng(s * 7 + k)
+    sp = torch.from_numpy(_sparse_rows(rng, s, k)).to(cuda_device)
+    dense = _planes(rng, cuda_device, s, 1 << 15)
+    dense[0] = -1  # every entry of row 0 hits
+    dense[1] = 0   # every entry of row 1 misses
+    kernels.reset_launch_counts()
+    for fn, plain in ((kernels.sparse_intersect_dense,
+                       kernels.sparse_intersect_dense_plain),
+                      (kernels.sparse_difference_dense,
+                       kernels.sparse_difference_dense_plain)):
+        got = fn(sp, dense)
+        assert torch.equal(got, plain(sp, dense)), fn.__name__
+        assert torch.equal(plain(sp.cpu(), dense.cpu()), got.cpu())
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sparse_intersect_dense"] == 2
+    hits = kernels.sparse_intersect_dense(sp, dense)
+    assert torch.equal(hits[0], sp[0])
+    assert bool((hits[1] == 1 << 20).all())
 
 
 @pytest.mark.gpu
@@ -248,5 +293,21 @@ def test_server_on_card_matches_numpy(cuda_device, tmp_path):
         counts = kernels.launch_counts()
         assert counts["topn_counts_packed"] >= 1
         assert counts["cross_count_matrix"] >= 1
+
+        # a sparse row (under 4096 bits per shard) against the dense rows:
+        # the hybrid path, through sparse_intersect_dense
+        d = np.unique(rng.integers(0, 3 << 20, size=900))
+        post("/index/i/field/s", "{}")
+        srv.api.import_bits("i", "s", np.zeros(d.size, np.int64), d)
+        d = set(d.tolist())
+        kernels.reset_launch_counts()
+        assert post("/index/i/query", "Count(Intersect(Row(s=0), Row(f=1)))"
+                    )["results"] == [len(d & b)]
+        assert post("/index/i/query", "Count(Difference(Row(s=0), Row(f=2)))"
+                    )["results"] == [len(d - c)]
+        got = post("/index/i/query", "Intersect(Row(f=0), Row(s=0))")
+        assert got["results"][0]["columns"] == sorted(d & a)
+        assert kernels.launch_counts()["sparse_intersect_dense"] == 3
+        assert srv.executor.hybrid.sparse_uploads == 1
     finally:
         srv.close()

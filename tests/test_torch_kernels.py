@@ -284,10 +284,15 @@ def test_cpu_tensors_take_the_plain_path():
     kernels.pair_stream_counts([x], [0], [0], "id")
     kernels.topn_counts_packed([x], x)
     kernels.cross_count_matrix(x[None], x[None])
+    sp = torch.full((2, 8), 1 << 20, dtype=torch.int32)
+    plane = torch.zeros((2, 1 << 15), dtype=torch.int32)
+    kernels.sparse_intersect_dense(sp, plane)
+    kernels.sparse_difference_dense(sp, plane)
     assert kernels.launch_counts() == {"pair_stream_counts": 0,
                                        "program_count": 0,
                                        "intersect_count": 0,
                                        "bsi_compare": 0,
                                        "bsi_sum_counts": 0,
                                        "topn_counts_packed": 0,
-                                       "cross_count_matrix": 0}
+                                       "cross_count_matrix": 0,
+                                       "sparse_intersect_dense": 0}

@@ -176,7 +176,8 @@ def test_concurrent_counts_coalesce(tmp_path):
         _post(srv.uri, "/index/i/field/f", {})
         rng = np.random.default_rng(5)
         for r in range(4):
-            cols = rng.integers(0, 2 * SHARD_WIDTH, size=3000).tolist()
+            # above 4096 bits per shard: dense leaves, which the batcher takes
+            cols = rng.integers(0, 2 * SHARD_WIDTH, size=12000).tolist()
             _post(srv.uri, "/index/i/field/f/import",
                   {"rowIDs": [r] * len(cols), "columnIDs": cols})
         want = {}
@@ -225,7 +226,8 @@ def test_unbatched_counts_answer_the_same(tmp_path, monkeypatch):
         f = idx.create_field("f")
         rng = np.random.default_rng(11)
         for r in range(3):
-            cols = rng.integers(0, 2 * SHARD_WIDTH, size=4000)
+            # above 4096 bits per shard: dense leaves, as the batcher needs
+            cols = rng.integers(0, 2 * SHARD_WIDTH, size=12000)
             f.import_bits(np.full(cols.size, r), cols)
             idx.mark_exists(cols)
         queries = ["Count(Intersect(Row(f=0), Row(f=1)))", "Count(Row(f=2))",
