@@ -64,19 +64,33 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    columns), random planes from a seeded torch.Generator on the card. Each
    kernel is held against its plain torch version, exactly (integer
    counts, tolerance 0): pair_stream_counts for all 5 ops at K = 1024 over
-   a 32-row slab (4 GiB), and at the batch sizes the server issued (its
-   mean batch, and the batcher's cap of 512) over 8 rows; program_count on
+   a 32-row slab (4 GiB), over every query and as the CountBatcher
+   launches it (over the distinct canonical pairs); then both launches
+   timed in turns (every, distinct, distinct, every) at bench.py's headline
+   batch (K = 512 pairs of distinct rows among 16), at the batcher's cap
+   of 512 and the server's mean batch over its 8 rows; program_count on
    a 4-leaf program with xor/andnot/not and on a 40-leaf one;
    intersect_count; bsi_compare for all 6 ops at depth 10 and gt at depth
-   32 (4 GiB of planes); bsi_sum_counts at K = 1 and the served mean
-   batch at depth 10, and K = 1 at depth 32; topn_counts_packed at R = 64
+   32 (4 GiB of planes); bsi_sum_counts, both forms (grid and staged)
+   timed in turns, at K = 1, 2, 32 and the served mean batch at depth 10,
+   and K = 1 at depth 32; topn_counts_packed at R = 64
    (the server's launch size) and at R = 130 over 256 shards (past the
    Pallas kernel's 128-row block); cross_count_matrix at P = 8 (the
    GroupBy's valid prefixes) and P = 16 (its chunk), R = 64;
    sparse_intersect_dense, both modes, at every K the hybrid phase served
    and at K = 16384. Times by CUDA events (warm, median).
 7. The last lines: nvidia-smi's name and power limit, one JSON object with
-   a record per kernel, and {"ok": true, "device": {...}}.
+   a record per kernel (bsi_sum_counts adds its launches by form and the
+   form the served shape takes), and {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --count-only   # phases 1-2 only, then the Count
+                                         # path's numbers as one JSON line
+
+--count-only drives the Count path alone (same data, same clients) and
+prints its served rate, latencies and the CountBatcher's host time per
+batch. It reads only the Server, its CountBatcher and residency snapshots
+and the launch counts, so a copy of this script beside an older checkout
+of the port times that checkout the same way.
 
 Bounds: the larger of the bytes each input read once over HBM's 3.35 TB/s
 and the operations over the card's rate for their type. The integer rates
@@ -85,7 +99,10 @@ throughput table for compute capability 9.0 (results per clock per SM: 64
 for 32-bit integer add and bitwise ops, 16 for __popc), times the SM count
 and the card's maximum SM clock as nvidia-smi reports them.
 sparse_intersect_dense's bytes depend on the data: its indices in, its
-output out, and the distinct 32-byte plane sectors its entries touch.
+output out, and the distinct 32-byte plane sectors its entries touch. The
+pair stream's bound counts the distinct rows' bytes and the distinct
+canonical pairs' operations (what the answers need); the earlier
+formula, operations for every query, is printed beside it.
 """
 
 from __future__ import annotations
@@ -125,6 +142,10 @@ COUNT_KERNELS = ("pair_stream_counts", "program_count", "intersect_count")
 BSI_KERNELS = ("bsi_compare", "bsi_sum_counts")
 TOPN_KERNELS = ("topn_counts_packed", "cross_count_matrix")
 HYBRID_KERNELS = ("sparse_intersect_dense",)
+# the device kernel of each form of bsi_sum_counts, as the profiler names
+# it
+SUM_FORM_KERNELS = {"grid": "bsi_sum_kernel",
+                    "staged": "bsi_sum_staged_kernel"}
 HYBRID_S_ROWS = 32  # rows of the stargazer-like set field s
 HYBRID_R_ROWS = 4   # rows of the run field r
 HYBRID_CLIENTS, HYBRID_PER_CLIENT = 32, 16  # the hybrid phase's pass
@@ -185,6 +206,58 @@ def cuda_ms(fn, runs: int, warm: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, runs: int, kernel: str) -> float | None:
+    """Mean device time per fn() call of the kernels whose name holds
+    `kernel`, by torch.profiler's CUDA activity (CUPTI); None where the
+    profiler saw none. Unlike cuda_ms it leaves out the wrapper's host
+    work and the other launches of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    return sum(spans) / runs / 1e3 if spans else None
+
+
+def host_ms(fn, runs: int) -> float:
+    """Mean host time per fn() call: the wrapper's work up to the launch
+    being queued (no synchronisation inside the loop)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    t = (time.perf_counter() - t0) / runs * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def batched_pairs(leaves, ii, jj, op: str, gather: bool = False):
+    """pair_stream_counts as the CountBatcher launches it: over the
+    queries' distinct canonical pairs (ops/kernels.py plan_pairs). Returns
+    the [P, C] partials, or with gather the [K, C] partials of the
+    queries."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+
+    plan = kernels.plan_pairs(ii, jj, op)
+    out = kernels.pair_stream_counts(leaves, plan.a, plan.b, op)
+    if gather:
+        inverse = torch.from_numpy(plan.inverse).to(out.device)
+        out = out.index_select(0, inverse)
+    return out
+
+
 def bound(nbytes: float, int_ops: float, popcs: float,
           rates: tuple[float, float]) -> tuple[float, str]:
     """Least time in ms: bytes over HBM's rate, or each operation type
@@ -192,6 +265,10 @@ def bound(nbytes: float, int_ops: float, popcs: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(int_ops / rates[0], popcs / rates[1]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _us(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms * 1e3:.1f}"
 
 
 def max_abs_err(a, b) -> int:
@@ -235,45 +312,101 @@ def kernel_phase(device, n_shards: int, words: int, slab_rows: int,
                                  f"(max abs err {err})")
         return err
 
-    # pair_stream_counts: all five ops at K = k_check over the whole slab
+    # pair_stream_counts: all five ops at K = k_check over the whole slab,
+    # over every query and as the CountBatcher launches it (over the
+    # distinct canonical pairs, mapped back to the queries)
     ii = rng.integers(0, slab_rows, size=k_check)
     jj = rng.integers(0, slab_rows, size=k_check)
     per_op = {}
     for op in kernels.PAIR_OPS:
+        want = kernels.pair_stream_counts_plain(leaves, ii, jj, op)
         check(f"pair_stream_counts[{op}] K={k_check}",
-              kernels.pair_stream_counts(leaves, ii, jj, op),
-              kernels.pair_stream_counts_plain(leaves, ii, jj, op))
-        per_op[op] = cuda_ms(
-            lambda: kernels.pair_stream_counts(leaves, ii, jj, op), runs)
+              kernels.pair_stream_counts(leaves, ii, jj, op), want)
+        check(f"pair_stream_counts[{op}] K={k_check} distinct pairs",
+              batched_pairs(leaves, ii, jj, op, gather=True), want)
+        per_op[op] = cuda_ms(lambda: batched_pairs(leaves, ii, jj, op), runs)
         log(f"  pair_stream_counts[{op}] K={k_check}: "
-            f"{per_op[op] * 1e3:.1f} us, exact")
+            f"{per_op[op] * 1e3:.1f} us over the distinct pairs, exact")
 
-    # ... and "and" at the batch sizes the server issued, over its 8 rows
-    by_k = {}
+    # ... and "and" at a table of shapes, the launch over every query (the
+    # batcher's before it deduplicated) and over the distinct pairs (the
+    # batcher's now) timed in turns (every, distinct, distinct, every):
+    # bench.py's headline batch (K = 512 pairs of distinct rows among 16,
+    # bench.py:295-299), K = 512 and the served mean batch over the
+    # server's 8 rows
+    bench_rng = np.random.default_rng(23)
+    bench = [tuple(bench_rng.choice(16, size=2, replace=False))
+             for _ in range(512)]
+    # the 8-row batches are drawn in the order (and from the generator
+    # state) in which earlier versions of this script drew them, so
+    # versions time the same queries
+    eight = {}
     for k in sorted({k_served, 512}):
-        ii = rng.integers(0, 8, size=k)
-        jj = rng.integers(0, 8, size=k)
-        check(f"pair_stream_counts[and] K={k}",
-              kernels.pair_stream_counts(leaves, ii, jj, "and"),
-              kernels.pair_stream_counts_plain(leaves, ii, jj, "and"))
-        ms = cuda_ms(lambda: kernels.pair_stream_counts(leaves, ii, jj, "and"),
-                     runs)
+        eight[k] = (rng.integers(0, 8, size=k), rng.integers(0, 8, size=k))
+    shapes = {
+        "K=512 16 rows i!=j": ([p[0] for p in bench], [p[1] for p in bench]),
+        "K=512 8 rows": eight[512],
+        f"K={k_served} 8 rows (served)": eight[k_served],
+    }
+    ways = {"every_query": lambda ii, jj: kernels.pair_stream_counts(
+                leaves, ii, jj, "and"),
+            "distinct_pairs": lambda ii, jj: batched_pairs(leaves, ii, jj,
+                                                           "and")}
+    by_shape = {}
+    for label, (ii, jj) in shapes.items():
+        ii, jj = np.asarray(ii), np.asarray(jj)
+        k = ii.size
+        plan = kernels.plan_pairs(ii, jj, "and")
+        want = kernels.pair_stream_counts_plain(leaves, ii, jj, "and")
+        check(f"pair_stream_counts[and] {label}", ways["every_query"](ii, jj),
+              want)
+        check(f"pair_stream_counts[and] {label} distinct pairs",
+              batched_pairs(leaves, ii, jj, "and", gather=True), want)
+        turns = {w: [] for w in ways}
+        for way in ("every_query", "distinct_pairs", "distinct_pairs",
+                    "every_query"):
+            turns[way].append(cuda_ms(lambda: ways[way](ii, jj), runs))
+        ms = {w: statistics.mean(t) for w, t in turns.items()}
+        dev = {w: device_ms(lambda: ways[w](ii, jj), runs,
+                            "pair_stream_kernel") for w in ways}
+        host = {w: host_ms(lambda: ways[w](ii, jj), runs) for w in ways}
         plain = cuda_ms(
             lambda: kernels.pair_stream_counts_plain(leaves, ii, jj, "and"),
-            3, 1)
-        # each input once: the referenced rows, ii/jj, the int32 partials
-        distinct = len(set(ii.tolist()) | set(jj.tolist()))
-        nbytes = distinct * plane_bytes + 2 * k * 8 + k * n_chunks * 4
-        b_ms, b_by = bound(nbytes, 2.0 * k * n_words, 1.0 * k * n_words,
+            1 if k > 64 else 3, 1)
+        # each input once: the distinct rows, ii/jj, the int32 partials;
+        # operations for the distinct pairs (what the answers need) and,
+        # labelled apart, for every query (the earlier formula)
+        p = plan.a.size
+        nbytes = plan.leaves.size * plane_bytes + 2 * k * 8 + k * n_chunks * 4
+        b_ms, b_by = bound(nbytes, 2.0 * p * n_words, 1.0 * p * n_words,
                            rates)
-        by_k[k] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                   "bound_by": b_by, "bytes_once": nbytes,
-                   "streamed_bytes": 2 * k * plane_bytes}
-        log(f"  pair_stream_counts[and] K={k}, 8 rows: {ms * 1e3:.1f} us "
-            f"(bound {b_ms * 1e3:.1f} us by {b_by}), exact")
-    out["pair_stream_counts"] = {**by_k[k_served], "k": k_served,
-                                 "max_abs_err": 0, "per_op_ms_k_check":
-                                 per_op, "k_check": k_check, "by_k": by_k}
+        q_ms, q_by = bound(nbytes, 2.0 * k * n_words, 1.0 * k * n_words,
+                           rates)
+        by_shape[label] = {
+            "k": k, "distinct_leaves": int(plan.leaves.size),
+            "distinct_pairs": int(p), "ms": ms["distinct_pairs"],
+            "ms_by_way": ms, "turns": turns, "device_ms_by_way": dev,
+            "host_ms_by_way": host, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_ms_per_query": q_ms,
+            "bound_by_per_query": q_by, "bytes_once": nbytes,
+            # planes each launch streams (2 per pair it runs over)
+            "plane_reads": {"every_query": 2 * k, "distinct_pairs": 2 * p},
+            "streamed_bytes_per_query": 2 * k * plane_bytes}
+        log(f"  pair_stream_counts[and] {label} ({plan.leaves.size} rows, "
+            f"{p} distinct pairs): every query {ms['every_query'] * 1e3:.1f} "
+            f"us, distinct pairs {ms['distinct_pairs'] * 1e3:.1f} us (turns "
+            f"{[round(x * 1e3, 1) for x in turns['every_query']]} / "
+            f"{[round(x * 1e3, 1) for x in turns['distinct_pairs']]}); "
+            f"device {_us(dev['every_query'])} / "
+            f"{_us(dev['distinct_pairs'])} us, host "
+            f"{_us(host['every_query'])} / {_us(host['distinct_pairs'])} us; "
+            f"bound {b_ms * 1e3:.1f} us by {b_by} (distinct pairs), "
+            f"{q_ms * 1e3:.1f} us by {q_by} (every query); plain "
+            f"{plain:.2f} ms; both exact")
+    served = by_shape[f"K={k_served} 8 rows (served)"]
+    out["pair_stream_counts"] = {**served, "max_abs_err": 0,
+                                 "per_op_ms_k_check": per_op,
+                                 "k_check": k_check, "by_shape": by_shape}
 
     # program_count: 4 leaves with xor/andnot/not, and 40 leaf pointers
     progs = {}
@@ -375,23 +508,50 @@ def bsi_kernel_phase(device, n_shards: int, words: int, k_served: int,
                 "bound_by": b_by, "bytes_once": nbytes}
             log(f"  {name}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by "
                 f"{b_by}), plain {plain:.2f} ms, exact")
-        for k in sorted({1, k_served} if depth == BSI_DEPTH else {1}):
+        for k in sorted({1, 2, 32, k_served} if depth == BSI_DEPTH
+                        else {1}):
             filters = [exists] + [rand(n_shards, words) for _ in range(k - 1)]
             name = f"bsi_sum_counts K={k} D={depth}"
-            check(name, kernels.bsi_sum_counts(planes, filters),
-                  kernels.bsi_sum_counts_plain(planes, filters))
-            ms = cuda_ms(lambda: kernels.bsi_sum_counts(planes, filters), runs)
+            want = kernels.bsi_sum_counts_plain(planes, filters)
+            for form in kernels.SUM_FORMS:
+                check(f"{name} [{form}]",
+                      kernels.bsi_sum_counts(planes, filters, form=form),
+                      want)
+            del want
+            # both forms in turns (grid, staged, staged, grid)
+            turns = {f: [] for f in kernels.SUM_FORMS}
+            for form in ("grid", "staged", "staged", "grid"):
+                turns[form].append(cuda_ms(
+                    lambda: kernels.bsi_sum_counts(planes, filters,
+                                                   form=form), runs))
+            ms = {f: statistics.mean(t) for f, t in turns.items()}
+            dev = {f: device_ms(
+                lambda: kernels.bsi_sum_counts(planes, filters, form=f), runs,
+                SUM_FORM_KERNELS[f])
+                for f in kernels.SUM_FORMS}
+            form = kernels.sum_form(k)  # the wrapper's default
             plain = cuda_ms(
-                lambda: kernels.bsi_sum_counts_plain(planes, filters), 3, 1)
+                lambda: kernels.bsi_sum_counts_plain(planes, filters),
+                3 if k < 8 else 1, 1)
             nbytes = (depth + k) * plane_bytes + k * (depth + 1) * n_shards * 4
             b_ms, b_by = bound(nbytes,
                                SUM_OPS_PER_PLANE_WORD * k * depth * n_words,
                                1.0 * k * (depth + 1) * n_words, rates)
             out["bsi_sum_counts"][f"K={k} D={depth}"] = {
-                "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                "bound_by": b_by, "bytes_once": nbytes}
-            log(f"  {name}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by "
-                f"{b_by}), plain {plain:.2f} ms, exact")
+                "k": k, "form": form, "ms": ms[form], "ms_by_form": ms,
+                "turns": turns, "device_ms_by_form": dev, "plain_ms": plain,
+                "bound_ms": b_ms,
+                "bound_by": b_by, "bytes_once": nbytes,
+                # planes (and filters) each form reads from HBM
+                "plane_reads": {"grid": k * depth + k,
+                                "staged": -(-k // 32) * depth + k}}
+            log(f"  {name}: grid {ms['grid'] * 1e3:.1f} us, staged "
+                f"{ms['staged'] * 1e3:.1f} us (turns "
+                f"{[round(x * 1e3, 1) for x in turns['grid']]} / "
+                f"{[round(x * 1e3, 1) for x in turns['staged']]}); device "
+                f"{_us(dev['grid'])} / {_us(dev['staged'])} us; default "
+                f"{form}; bound {b_ms * 1e3:.1f} us by {b_by}; plain "
+                f"{plain:.2f} ms; both forms exact")
             del filters
         del planes, exists
         torch.cuda.empty_cache()
@@ -797,6 +957,7 @@ def bsi_phase(srv, port: int, packed: list, exists: np.ndarray,
             f"{clients * per_client - len(lat)} missing; first {errors[:1]}")
     torch.cuda.synchronize()
     launches = kernels.launch_counts()  # the BSI path ends here
+    forms = kernels.form_launch_counts()
     after = batcher.snapshot()
     res = srv.executor.residency.snapshot()
     stats = {
@@ -817,13 +978,13 @@ def bsi_phase(srv, port: int, packed: list, exists: np.ndarray,
         f"p99 {stats['p99_ms']:.2f} ms, max_batch_seen "
         f"{stats['max_batch_seen']} ({stats['batches']} batches)")
     log(f"  resident leaves: {res['entries']} entries, {res['bytes']} bytes")
-    log(f"  launches on the BSI path: {launches}")
+    log(f"  launches on the BSI path: {launches}; by form: {forms}")
     for name in BSI_KERNELS:
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched on the BSI path")
     if stats["max_batch_seen"] < 2:
         raise AssertionError("the PlaneSumBatcher never coalesced")
-    return {"launches": launches, "stats": stats}, (cols, vals)
+    return {"launches": launches, "forms": forms, "stats": stats}, (cols, vals)
 
 
 def make_topn_rows(n_shards: int, top_bits: int, seed: int) -> list:
@@ -1306,12 +1467,13 @@ def device_busy_ms(prof) -> float | None:
 
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
                  clients: int, per_client: int, profile: bool,
-                 bsi: tuple, topn: tuple, hybrid: tuple) -> dict:
-    """The Count path, then the BSI path, the TopN/GroupBy path and the
-    hybrid path on the same server and index (bsi = values per shard,
-    seed, clients, queries per client; topn = bits per shard of t's row 0,
-    seed, clients, queries per client; hybrid = seed, clients, queries per
-    client)."""
+                 bsi: tuple, topn: tuple, hybrid: tuple,
+                 count_only: bool = False) -> dict:
+    """The Count path, then (unless count_only) the BSI path, the
+    TopN/GroupBy path and the hybrid path on the same server and index
+    (bsi = values per shard, seed, clients, queries per client; topn = bits
+    per shard of t's row 0, seed, clients, queries per client; hybrid =
+    seed, clients, queries per client)."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels
@@ -1321,9 +1483,9 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
     rows = make_rows(n_rows, n_shards, seed)
     extra = np.array([3, 99, SHARD_WIDTH + 5, 2 * SHARD_WIDTH + 7],
                      dtype=np.int64) % (n_shards * SHARD_WIDTH)
-    t_rows = make_topn_rows(n_shards, topn[0], topn[1])
+    t_rows = [] if count_only else make_topn_rows(n_shards, *topn[:2])
     log(f"  data: {n_rows} rows x {n_shards} shards, "
-        f"{sum(r.size for r in rows)} bits; {TOPN_ROWS} rows of t, "
+        f"{sum(r.size for r in rows)} bits; {len(t_rows)} rows of t, "
         f"{sum(r.size for r in t_rows)} bits "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1443,10 +1605,24 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                         f"first {errors[:1]}")
                 return lat, wall
 
+            # host time of each batch's dispatch (plan, pointer table,
+            # launch), timed around the CountBatcher's own method
+            count_batcher = srv.executor.batcher
+            dispatch, dispatch_s = count_batcher._dispatch, []
+
+            def timed_dispatch(key, payloads):
+                t = time.perf_counter()
+                try:
+                    return dispatch(key, payloads)
+                finally:
+                    dispatch_s.append(time.perf_counter() - t)
+
+            count_batcher._dispatch = timed_dispatch
             lat, wall = run_clients(per_client, 1000)
             torch.cuda.synchronize()
             launches = kernels.launch_counts()  # the main path ends here
-            batcher = srv.executor.batcher.snapshot()
+            del count_batcher._dispatch
+            batcher = count_batcher.snapshot()
             res = srv.executor.residency.snapshot()
             stats = {
                 "queries": len(lat), "qps": len(lat) / wall,
@@ -1458,11 +1634,16 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                 "resident_bytes": res["bytes"],
                 "resident_entries": res["entries"],
                 "import_s": load_s, "single_queries_s": single_s,
+                "dispatch_host_ms": (statistics.mean(dispatch_s) * 1e3
+                                     if dispatch_s else None),
+                "dispatch_host_ms_p50": (statistics.median(dispatch_s) * 1e3
+                                         if dispatch_s else None),
             }
             log(f"  concurrent: {clients} clients x {per_client} "
                 f"Count(Intersect): {stats['qps']:.1f} q/s, p50 "
                 f"{stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms, "
-                f"max_batch_seen {stats['max_batch_seen']}")
+                f"max_batch_seen {stats['max_batch_seen']}; dispatch host "
+                f"{_us(stats['dispatch_host_ms'])} us a batch (mean)")
             log(f"  resident leaves: {res['entries']} entries, "
                 f"{res['bytes']} bytes")
             if profile:
@@ -1492,6 +1673,8 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                         f"{name} never launched on the Count path")
             if stats["max_batch_seen"] < 2:
                 raise AssertionError("the CountBatcher never coalesced")
+            if count_only:
+                return {"launches": launches, "stats": stats}
             log("phase 3: BSI path on the same server")
             bsi_served, values = bsi_phase(srv, port, p, exists, n_shards,
                                            *bsi)
@@ -1502,7 +1685,8 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
             hybrid_served = hybrid_phase(
                 srv, port, p, exists, values, t_rows,
                 topn_served["stats"]["cleared_t0_column"], n_shards, *hybrid)
-            return {"launches": launches, "stats": stats, "bsi": bsi_served,
+            return {"launches": launches, "stats": stats,
+                    "bsi": bsi_served,
                     "topn": topn_served, "hybrid": hybrid_served}
         finally:
             srv.close()
@@ -1528,6 +1712,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after the measured pass, run one more under "
                          "torch.profiler and print the device's idle share")
+    ap.add_argument("--count-only", action="store_true",
+                    help="drive the Count path alone and print its numbers")
     args = ap.parse_args(argv)
 
     import torch
@@ -1558,8 +1744,15 @@ def main(argv=None) -> int:
                            args.bsi_per_client),
                           (TOPN_BITS, args.seed, TOPN_CLIENTS,
                            TOPN_PER_CLIENT),
-                          (args.seed, HYBRID_CLIENTS, HYBRID_PER_CLIENT))
+                          (args.seed, HYBRID_CLIENTS, HYBRID_PER_CLIENT),
+                          args.count_only)
     st = served["stats"]
+    if args.count_only:
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        print(smi_name)
+        print(json.dumps({"count_path": st, "launches": served["launches"]}),
+              flush=True)
+        return 0
     k_served = max(1, round(st["batched_queries"] / max(st["batches"], 1)))
     bst = served["bsi"]["stats"]
     k_sum = max(1, round(bst["batched_queries"] / max(bst["batches"], 1)))
@@ -1585,12 +1778,19 @@ def main(argv=None) -> int:
                  else served["topn"] if name in TOPN_KERNELS
                  else served["hybrid"] if name in HYBRID_KERNELS else served)
         launches = phase["launches"][name]
-        records.append({
+        record = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": None})
+            "bound_by": m["bound_by"], "library_ms": None}
+        by_form = {k.split("/", 1)[1]: v
+                   for k, v in phase.get("forms", {}).items()
+                   if k.startswith(name + "/")}
+        if by_form:
+            record["launches_by_form"] = by_form
+            record["form"] = m["form"]
+        records.append(record)
     log("  library_ms: none (no single PyTorch call computes a popcount of "
         "a bitwise op, a bit-sliced comparison, per-plane filtered "
         "popcounts, packed TopN counts or a popcount cross matrix: torch "

@@ -23,6 +23,16 @@
 // least time is bytes read / 3.35 TB/s (H100 SXM HBM3). There is no matrix
 // product, so no wgmma or TMA.
 //
+// The pair stream's HBM reads per launch: grid (K, C, split), a block
+// streams both operands of its query (one for id), so 2K planes. The
+// CountBatcher launches a batch over its distinct canonical pairs only
+// (ops/kernels.py plan_pairs: (i, j) and (j, i) are one pair for and, or
+// and xor), so K is the number of distinct pairs; blocks of pairs that
+// share a leaf run together and mostly meet in L2, so what reaches HBM is
+// nearer the distinct leaves' planes. The least time for such a batch is
+// the larger of the distinct leaves' bytes over HBM's rate and the
+// distinct pairs' words over the __popc rate.
+//
 // Design (a simple right kernel first, not yet a fast one):
 //   * 16-byte uint4 loads, neighbouring threads on neighbouring addresses;
 //   * __popc per 32-bit word, accumulated in a per-thread unsigned int;
@@ -42,11 +52,15 @@
 //       body _bsi_sum_kernel :485) and the batcher's XLA form
 //       pilosa_tpu/parallel/batcher.py _batched_plane_sums (:590): for K
 //       filters, popcount(plane_d & filter_k) per plane and shard plus the
-//       filter's own count -> int32[K, D+1, S].
+//       filter's own count -> int32[K, D+1, S]. pbk_bsi_sum_staged is its
+//       second form (below).
 //
 // Bound: both read every plane word once and do a few integer operations
 // on it, so memory bounds them (bytes / 3.35 TB/s): D + 1 planes of
 // S x 128 KiB in, plus the 128 KiB-per-shard mask out for the compare.
+// The sum over K filters reads D + K planes but does K popcounts per plane
+// word, so from K = 6 or so the __popc rate (16 per clock per SM) bounds
+// it instead.
 //
 // Design of the BSI kernels:
 //   * bsi_compare: one thread per 16-byte vector keeps `matched` and
@@ -56,11 +70,27 @@
 //     bits, read as broadcasts; each bit becomes an all-ones or all-zeros
 //     mask (0u - bit). The op is one of six template instantiations picked
 //     at run time: nothing is compiled per query.
-//   * bsi_sum_counts: a block takes (filter k, shard s, a slice of 4096
-//     words), keeps its filter words in registers, then loops over the D
-//     planes: per plane a warp-shuffle sum into shared memory, and one
-//     block-wide pass per 32 planes that adds each (k, d, s) partial with
-//     one integer atomicAdd into the zeroed output (exact in any order).
+//   * bsi_sum_counts, two forms:
+//     - grid (bsi_sum_kernel, the first design, the K = 1 form): a block
+//       takes (filter k, shard s, a slice of 4096 words), keeps its filter
+//       words in registers, then loops over the D planes: per plane a
+//       warp-shuffle sum into shared memory, and one block-wide pass per
+//       32 planes that adds each (k, d, s) partial with one integer
+//       atomicAdd into the zeroed output (exact in any order). HBM reads
+//       per launch: K x D planes plus the K filters.
+//     - staged (bsi_sum_staged_kernel, the K > 1 form): a block of 128
+//       threads takes (shard s, a run of 128-vector tiles, a group of up
+//       to 32 filters). Per tile each thread stages its vector of every
+//       filter of the group in shared memory (64 KiB at 32 filters, so
+//       three blocks share an SM), then streams the D planes once, four
+//       plane vectors in flight in registers, and counts two planes at a
+//       time against every staged filter (one shared load per filter
+//       feeds both); a warp reduce-scatter leaves filter k's warp total
+//       in one lane, which adds it to a shared (d, k) sum; one integer
+//       atomicAdd per (k, d, s) per block at the end. Row D (the filter's
+//       own count) is counted once per filter, as a plane of ones. HBM reads
+//       per launch: ceil(K / 32) x D planes plus the K filters, each once
+//       per 32 planes of depth (one pass at any depth below 32).
 //     Planes are reduced in chunks of 32, so the depth is not capped. The
 //     Pallas kernel carried these sums across its sequential word-block
 //     grid axis in the output tile; on Hopper the atomics replace that.
@@ -173,8 +203,45 @@ __device__ __forceinline__ uint4 andnot4(uint4 a, uint4 b) {
 __device__ __forceinline__ uint4 not4(uint4 a) {
   return make_uint4(~a.x, ~a.y, ~a.z, ~a.w);
 }
+__device__ __forceinline__ uint4 splat(unsigned m) {
+  return make_uint4(m, m, m, m);
+}
 __device__ __forceinline__ unsigned popc4(uint4 v) {
   return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+}
+
+// Warp reduce-scatter of N per-thread values (N a power of 2, at most 32):
+// returns in lane l the warp's total of value l >> (5 - log2 N), so each
+// value's total sits in 32 / N neighbouring lanes. N - 1 + 5 - log2 N
+// shuffles, against 5 N for N separate warp sums. Every loop has a
+// constant trip count, so v stays in registers. v is clobbered.
+template <int N>
+__device__ __forceinline__ unsigned warp_reduce_scatter(unsigned (&v)[N]) {
+  constexpr int kSteps = N >= 32 ? 5 : N >= 16 ? 4 : N >= 8 ? 3 : N >= 4 ? 2
+                         : N >= 2 ? 1 : 0;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    // the lane with bit (16 >> s) set keeps the upper half of the values
+    // still held, its partner the lower; each sends the half it gives up
+    const int half = N >> (s + 1);
+    const int mask = 16 >> s;
+    const bool upper = lane & mask;
+#pragma unroll
+    for (int i = 0; i < (N > 1 ? N / 2 : 1); ++i) {
+      if (i < half) {
+        const unsigned send = upper ? v[i] : v[i + half];
+        const unsigned keep = upper ? v[i + half] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+      }
+    }
+  }
+  unsigned r = v[0];
+#pragma unroll
+  for (int s = kSteps; s < 5; ++s) {
+    r += __shfl_xor_sync(0xffffffffu, r, 16 >> s);
+  }
+  return r;
 }
 
 // Sum of v over the block; the result is valid in thread 0.
@@ -305,10 +372,6 @@ constexpr int kGte = 3;
 constexpr int kEq = 4;
 constexpr int kNeq = 5;
 
-__device__ __forceinline__ uint4 splat(unsigned m) {
-  return make_uint4(m, m, m, m);
-}
-
 // all-ones when predicate bit i is 1, all-zeros when it is 0
 __device__ __forceinline__ uint4 pred_mask(const int* __restrict__ pred,
                                            int i) {
@@ -415,6 +478,109 @@ __global__ void __launch_bounds__(kThreads)
       for (int w = 0; w < kThreads / 32; ++w) t += sums[threadIdx.x][w];
       if (t) {
         atomicAdd(out_k + (d0 + threadIdx.x) * n_shards + shard,
+                  static_cast<int>(t));
+      }
+    }
+    __syncthreads();  // sums is rewritten by the next chunk
+  }
+}
+
+constexpr int kSumFilters = 32;  // filters per staged group (K_tile)
+constexpr int kSumStagedThreads = 128;  // = vectors per filter per tile
+constexpr int kSumPlanesInFlight = 4;
+
+// grid (S * parts, groups): block (s * parts + part, g) counts its run of
+// 128-vector tiles of shard s against filters [g * KT, g * KT + KT) (the
+// last group may hold fewer). filters = K filter pointers as int64 on the
+// device; out = int32[K, D+1, S], zeroed. Dynamic shared memory: KT x
+// kSumStagedThreads vectors (64 KiB at KT = 32, so three blocks share an
+// SM and one block's loads overlap another's counting); thread t's vector
+// of filter k at [k][t]. Row D, the filter's own count, is counted as a
+// plane of all ones.
+template <int KT>
+__global__ void __launch_bounds__(kSumStagedThreads)
+    bsi_sum_staged_kernel(const uint4* __restrict__ planes,
+                          const long long* __restrict__ filters,
+                          int n_filters, int depth, int* __restrict__ out,
+                          long long n_shards, long long w4, int parts) {
+  extern __shared__ uint4 fstage[];
+  __shared__ unsigned sums[kSumChunk][KT];
+  __shared__ const uint4* fptr[KT];
+  const long long shard = blockIdx.x / parts;
+  const int part = blockIdx.x % parts;
+  const int k0 = blockIdx.y * KT;
+  const int nk = n_filters - k0 < KT ? n_filters - k0 : KT;
+  const long long tiles =
+      (w4 + kSumStagedThreads - 1) / kSumStagedThreads;
+  const long long per = (tiles + parts - 1) / parts;
+  const long long t0 = per * part;
+  const long long t1 = t0 + per < tiles ? t0 + per : tiles;
+  if (threadIdx.x < KT) {
+    fptr[threadIdx.x] =
+        threadIdx.x < nk
+            ? reinterpret_cast<const uint4*>(__ldg(filters + k0 + threadIdx.x)) +
+                  shard * w4
+            : nullptr;
+  }
+  const int lane = threadIdx.x & 31;
+  constexpr int kLanesPerFilter = 32 / KT;
+  const long long plane_stride = n_shards * w4;
+  const uint4* pbase = planes + shard * w4;
+  // filter k's vector at mine[k * kSumStagedThreads]
+  uint4* mine = fstage + threadIdx.x;
+  for (int d0 = 0; d0 <= depth; d0 += kSumChunk) {
+    const int d1 = d0 + kSumChunk < depth + 1 ? d0 + kSumChunk : depth + 1;
+    for (int e = threadIdx.x; e < kSumChunk * KT; e += kSumStagedThreads) {
+      sums[e / KT][e % KT] = 0;
+    }
+    __syncthreads();  // also publishes fptr
+    for (long long t = t0; t < t1; ++t) {
+      const long long i = t * kSumStagedThreads + threadIdx.x;
+      const bool live = i < w4;
+      // each thread reads back only its own vectors: no barrier needed
+#pragma unroll
+      for (int k = 0; k < KT; ++k) {
+        mine[k * kSumStagedThreads] =
+            live && k < nk ? __ldg(fptr[k] + i) : splat(0u);
+      }
+      for (int d = d0; d < d1; d += kSumPlanesInFlight) {
+        uint4 p[kSumPlanesInFlight];
+#pragma unroll
+        for (int j = 0; j < kSumPlanesInFlight; ++j) {
+          const int dd = d + j;
+          p[j] = dd == depth ? splat(~0u)  // the filter's own count
+                 : live && dd < d1 ? __ldg(pbase + dd * plane_stride + i)
+                                   : splat(0u);
+        }
+        // two planes per pass over the staged filters: one shared load
+        // of a filter vector feeds both
+#pragma unroll
+        for (int j = 0; j < kSumPlanesInFlight; j += 2) {
+          if (d + j >= d1) break;  // uniform across the block
+          unsigned acc0[KT], acc1[KT];
+#pragma unroll
+          for (int k = 0; k < KT; ++k) {
+            const uint4 f = mine[k * kSumStagedThreads];
+            acc0[k] = popc4(and4(p[j], f));
+            acc1[k] = popc4(and4(p[j + 1], f));
+          }
+          const unsigned v0 = warp_reduce_scatter<KT>(acc0);
+          const unsigned v1 = warp_reduce_scatter<KT>(acc1);
+          if ((lane & (kLanesPerFilter - 1)) == 0) {
+            const int k = lane / kLanesPerFilter;
+            if (v0) atomicAdd(&sums[d + j - d0][k], v0);
+            if (v1 && d + j + 1 < d1) atomicAdd(&sums[d + j + 1 - d0][k], v1);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < (d1 - d0) * KT; e += kSumStagedThreads) {
+      const int dd = e / KT, k = e % KT;
+      const unsigned t = sums[dd][k];
+      if (k < nk && t) {
+        atomicAdd(out + (static_cast<long long>(k0 + k) * (depth + 1) + d0 +
+                         dd) * n_shards + shard,
                   static_cast<int>(t));
       }
     }
@@ -621,6 +787,24 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = filled + threadIdx.x; i < k; i += kThreads) dst[i] = kSentinel;
 }
 
+// Launcher of the staged sum: its dynamic shared memory above 48 KB
+// must be allowed before its first launch.
+template <int KT>
+cudaError_t launch_sum_staged(dim3 grid, cudaStream_t st,
+                              const uint4* planes, const long long* filters,
+                              int k, int depth, int* out, long long n_shards,
+                              long long w4, int parts) {
+  const size_t smem =
+      static_cast<size_t>(KT) * kSumStagedThreads * sizeof(uint4);
+  static const cudaError_t e = cudaFuncSetAttribute(
+      bsi_sum_staged_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  bsi_sum_staged_kernel<KT><<<grid, kSumStagedThreads, smem, st>>>(
+      planes, filters, k, depth, out, n_shards, w4, parts);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -725,6 +909,45 @@ int pbk_bsi_sum_counts(const void* planes, const long long* filters, int k,
       static_cast<const uint4*>(planes), filters, depth, out, n_shards, w4,
       static_cast<int>(parts));
   return static_cast<int>(cudaGetLastError());
+}
+
+// parts = blocks per (shard, filter group), from ops/kernels.py _split.
+int pbk_bsi_sum_staged(const void* planes, const long long* filters, int k,
+                       int depth, int* out, long long n_shards, long long w4,
+                       int parts, void* stream) {
+  int kt = 1;
+  while (kt < k && kt < kSumFilters) kt <<= 1;
+  const long long groups = (k + kt - 1) / kt;
+  if (parts < 1 || groups > 65535 || n_shards * parts > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(n_shards * parts),
+                  static_cast<unsigned>(groups));
+  const uint4* p = static_cast<const uint4*>(planes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int pa = parts;
+  cudaError_t e;
+  switch (kt) {
+    case 1:
+      e = launch_sum_staged<1>(grid, st, p, filters, k, depth, out, n_shards, w4, pa);
+      break;
+    case 2:
+      e = launch_sum_staged<2>(grid, st, p, filters, k, depth, out, n_shards, w4, pa);
+      break;
+    case 4:
+      e = launch_sum_staged<4>(grid, st, p, filters, k, depth, out, n_shards, w4, pa);
+      break;
+    case 8:
+      e = launch_sum_staged<8>(grid, st, p, filters, k, depth, out, n_shards, w4, pa);
+      break;
+    case 16:
+      e = launch_sum_staged<16>(grid, st, p, filters, k, depth, out, n_shards, w4, pa);
+      break;
+    default:
+      e = launch_sum_staged<32>(grid, st, p, filters, k, depth, out, n_shards, w4, pa);
+      break;
+  }
+  return static_cast<int>(e);
 }
 
 int pbk_topn_counts(const long long* rows, int n_rows, const void* src,

@@ -90,6 +90,8 @@ def load() -> ctypes.CDLL:
         lib.pbk_bsi_compare.restype = i
         lib.pbk_bsi_sum_counts.argtypes = [vp, vp, i, i, vp, ll, ll, vp]
         lib.pbk_bsi_sum_counts.restype = i
+        lib.pbk_bsi_sum_staged.argtypes = [vp, vp, i, i, vp, ll, ll, i, vp]
+        lib.pbk_bsi_sum_staged.restype = i
         lib.pbk_topn_counts.argtypes = [vp, i, vp, vp, ll, ll, ll, vp]
         lib.pbk_topn_counts.restype = i
         lib.pbk_cross_count.argtypes = [vp, vp, i, i, vp, ll, ll, ll, i, i,

@@ -5,7 +5,9 @@ Three kernels (csrc/bitmap_kernels.cu) carry the dense read path:
 * ``pair_stream_counts``: K queries popcount(op(leaf[ii], leaf[jj])) as
   int32 partials per 2016-shard chunk. Replaces Pallas pair_stream_counts
   (pilosa_tpu/ops/pallas_kernels.py:234) and serves the CountBatcher, whose
-  XLA form is pilosa_tpu/parallel/batcher.py _batched_counts (:436).
+  XLA form is pilosa_tpu/parallel/batcher.py _batched_counts (:436). The
+  batcher launches it over a batch's distinct canonical pairs
+  (``plan_pairs``) and maps the counts back to its queries on the host.
 * ``program_count``: a nested bitmap program + popcount per shard, the
   program encoded as postfix bytecode over a device table of leaf
   pointers (any number of leaves, any length). Replaces Pallas
@@ -21,7 +23,11 @@ Two more carry the BSI path (int fields), over a [D, S, W] plane slab:
 * ``bsi_sum_counts``: per-plane popcount(plane & filter) per shard plus the
   filter's own count, for one filter or K of them in one launch. Replaces
   Pallas bsi_sum_counts (pallas_kernels.py:504) and the PlaneSumBatcher's
-  XLA form pilosa_tpu/parallel/batcher.py _batched_plane_sums (:590).
+  XLA form pilosa_tpu/parallel/batcher.py _batched_plane_sums (:590). Two
+  forms (``form=``): "grid" holds one filter per block and streams the
+  planes once per filter; "staged" stages up to 32 filters per block in
+  shared memory and streams the planes once per group of 32. By default
+  one filter takes "grid", more take "staged".
 
 Two more carry TopN and GroupBy:
 
@@ -51,7 +57,9 @@ One more carries the hybrid sparse/run read path (ops/hybrid.py):
 
 Routing: a CPU tensor takes the plain version (``<name>_plain``, plain
 torch). A CUDA tensor launches the kernel or raises; nothing falls back.
-Each wrapper adds one to its launch count where it launches its kernel.
+Each wrapper adds one to its launch count where it launches its kernel;
+bsi_sum_counts, which has two forms, also counts each launch under its
+form (``form_launch_counts``).
 
 Layout checks: planes are C-contiguous int32 [S, W] tensors (a BSI slab
 [D, S, W]) with W a multiple of 4 (the kernels load 16 bytes at a time),
@@ -63,7 +71,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -85,6 +93,12 @@ BSI_OPS = ("lt", "lte", "gt", "gte", "eq", "neq")
 # the BSI sum kernel's grid carries the filter index in gridDim.y
 MAX_SUM_FILTERS = 65535
 
+# the two forms of bsi_sum_counts (csrc/bitmap_kernels.cu), and the staged
+# form's filters per group (the kernel's kSumFilters) and block size
+SUM_FORMS = ("grid", "staged")
+SUM_GROUP = 32
+_SUM_STAGED_THREADS = 128
+
 # operand stack slots of the program interpreter (the kernel's kMaxStack)
 MAX_STACK = 16
 
@@ -102,6 +116,7 @@ _launches = {"pair_stream_counts": 0, "program_count": 0,
              "intersect_count": 0, "bsi_compare": 0, "bsi_sum_counts": 0,
              "topn_counts_packed": 0, "cross_count_matrix": 0,
              "sparse_intersect_dense": 0}
+_form_launches = {f"bsi_sum_counts/{f}": 0 for f in SUM_FORMS}
 
 
 def launch_counts() -> dict:
@@ -110,15 +125,26 @@ def launch_counts() -> dict:
         return dict(_launches)
 
 
+def form_launch_counts() -> dict:
+    """Launches of bsi_sum_counts per "bsi_sum_counts/<form>" since the
+    last reset; they sum to its launch_counts() entry."""
+    with _launch_lock:
+        return dict(_form_launches)
+
+
 def reset_launch_counts() -> None:
     with _launch_lock:
         for k in _launches:
             _launches[k] = 0
+        for k in _form_launches:
+            _form_launches[k] = 0
 
 
-def _count_launch(name: str) -> None:
+def _count_launch(name: str, form: str | None = None) -> None:
     with _launch_lock:
         _launches[name] += 1
+        if form is not None:
+            _form_launches[f"{name}/{form}"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -244,11 +270,12 @@ def _check_planes(planes: Sequence[torch.Tensor]) -> torch.device:
     return dev
 
 
-def _split(work_items: int, vec_per_item: int) -> int:
-    """Blocks per work item: enough blocks overall to fill the card, but
-    at least one 16-byte load per thread per block."""
-    want = -(-_TARGET_BLOCKS // max(work_items, 1))
-    most = max(1, vec_per_item // _THREADS)
+def _split(work_items: int, vec_per_item: int, target: int = _TARGET_BLOCKS,
+           threads: int = _THREADS) -> int:
+    """Blocks per work item: `target` blocks overall, but at least one
+    16-byte load per thread per block."""
+    want = -(-target // max(work_items, 1))
+    most = max(1, vec_per_item // threads)
     return int(max(1, min(want, most, 65535)))
 
 
@@ -381,6 +408,44 @@ def pair_stream_counts_plain(leaves, ii, jj, op: str = "and") -> torch.Tensor:
         per_shard = torch.nn.functional.pad(per_shard, (0, pad))
         out[q] = per_shard.view(c, SUM_SHARD_CHUNK).sum(dim=1).to(torch.int32)
     return out
+
+
+class PairPlan(NamedTuple):
+    """A batch of K pair queries reduced to P distinct canonical pairs:
+    a, b int64[P], the leaf indices of pair p (b == a for "id"), in order
+    of first use; inverse int64[K], query k's pair."""
+
+    a: np.ndarray
+    b: np.ndarray
+    inverse: np.ndarray
+
+    @property
+    def leaves(self) -> np.ndarray:
+        """The distinct leaves the pairs use, sorted."""
+        return np.union1d(self.a, self.b)
+
+
+def plan_pairs(ii, jj, op: str) -> PairPlan:
+    """The distinct canonical pairs of the queries op(leaf[ii[k]],
+    leaf[jj[k]]) and the inverse map (host only, no torch). and/or/xor
+    commute, so (i, j) and (j, i) are one pair (i <= j); andnot does not;
+    id keys on i alone."""
+    _pair_fn(op)
+    ii = np.asarray(ii, dtype=np.int64).reshape(-1).tolist()
+    jj = np.asarray(jj, dtype=np.int64).reshape(-1).tolist()
+    if len(ii) != len(jj):
+        raise ValueError("ii and jj differ in length")
+    rows: dict = {}
+    inverse = []
+    for i, j in zip(ii, jj):
+        if op == "id":
+            j = i
+        elif op != "andnot" and j < i:
+            i, j = j, i
+        inverse.append(rows.setdefault((i, j), len(rows)))
+    pairs = np.array(list(rows), dtype=np.int64).reshape(-1, 2)
+    return PairPlan(a=pairs[:, 0], b=pairs[:, 1],
+                    inverse=np.array(inverse, dtype=np.int64))
 
 
 def pair_stream_counts(leaves, ii, jj, op: str = "and") -> torch.Tensor:
@@ -530,17 +595,27 @@ def bsi_sum_counts_plain(planes: torch.Tensor, filters) -> torch.Tensor:
     return out[0] if single else torch.stack(out)
 
 
-def bsi_sum_counts(planes: torch.Tensor, filters) -> torch.Tensor:
+def sum_form(k: int) -> str:
+    """The form a K-filter sum takes by default: the grid form for one
+    filter (it reads each plane once already), staged for more."""
+    return "grid" if k == 1 else "staged"
+
+
+def bsi_sum_counts(planes: torch.Tensor, filters,
+                   form: str | None = None) -> torch.Tensor:
     """[D, S, W] planes x filters -> per-plane per-shard counts of
     plane & filter with the filter's own count as row D: int32[D+1, S]
     (the Pallas layout) for one [S, W] filter tensor, int32[K, D+1, S] for
     a list of K resident filter tensors, passed to one launch as a device
-    table of pointers. No depth cap; a count is at most 2^20, so int32
-    cannot wrap, and the caller finishes totals in int64."""
+    table of pointers. form is "grid", "staged" or None (sum_form picks).
+    No depth cap; a count is at most 2^20, so int32 cannot wrap, and the
+    caller finishes totals in int64."""
     single = isinstance(filters, torch.Tensor)
     masks = [filters] if single else list(filters)
     if not masks:
         raise ValueError("no filters")
+    if form is not None and form not in SUM_FORMS:
+        raise ValueError(f"unknown bsi_sum_counts form {form!r}")
     if len(masks) > MAX_SUM_FILTERS:
         raise ValueError(f"{len(masks)} filters in one launch (the kernel "
                          f"takes at most {MAX_SUM_FILTERS})")
@@ -551,13 +626,24 @@ def bsi_sum_counts(planes: torch.Tensor, filters) -> torch.Tensor:
     k = len(masks)
     out = torch.zeros((k, d + 1, s), dtype=torch.int32, device=dev)
     if s and w:
+        form = form or sum_form(k)
         build, lib = _load()
         table = _device_table(
             [np.array([t.data_ptr() for t in masks], dtype=np.int64)], dev)
-        rc = lib.pbk_bsi_sum_counts(planes.data_ptr(), table.data_ptr(), k, d,
-                                    out.data_ptr(), s, w // 4, _stream(dev))
+        if form == "grid":
+            rc = lib.pbk_bsi_sum_counts(planes.data_ptr(), table.data_ptr(),
+                                        k, d, out.data_ptr(), s, w // 4,
+                                        _stream(dev))
+        else:
+            # about 24 blocks an SM (three resident at a time): a short
+            # last wave
+            parts = _split(s * -(-k // SUM_GROUP), w // 4,
+                           6 * _TARGET_BLOCKS, _SUM_STAGED_THREADS)
+            rc = lib.pbk_bsi_sum_staged(planes.data_ptr(), table.data_ptr(),
+                                        k, d, out.data_ptr(), s, w // 4,
+                                        parts, _stream(dev))
         build.check(lib, rc, "bsi_sum_counts")
-        _count_launch("bsi_sum_counts")
+        _count_launch("bsi_sum_counts", form)
     return out[0] if single else out
 
 

@@ -4,9 +4,9 @@ launches.
 Trimmed port of pilosa_tpu/parallel/batcher.py: the ContinuousBatcher
 leadership protocol (:128-430) without its QoS, accounting and profile
 hooks; the CountBatcher (:511-565), whose dispatch launches the
-pair-stream kernel (ops/kernels.py pair_stream_counts); and the
-PlaneSumBatcher (:571-587, :639-660), whose dispatch launches the
-bsi_sum_counts kernel once over K filters.
+pair-stream kernel (ops/kernels.py pair_stream_counts) over a batch's
+distinct pairs; and the PlaneSumBatcher (:571-587, :639-660), whose
+dispatch launches the bsi_sum_counts kernel once over K filters.
 
 Leadership protocol: the first arrival for a compatibility key becomes
 leader and serves exactly ONE batch, with its own request at the head; it
@@ -209,7 +209,9 @@ class ContinuousBatcher:
 
 class CountBatcher(ContinuousBatcher):
     """Batches Count over 1- and 2-leaf programs into one pair-stream
-    launch. Compatibility key = (op, leaf shape, dtype, device)."""
+    launch. Compatibility key = (op, leaf shape, dtype, device). A batch is
+    launched over its distinct canonical pairs (ops/kernels.py plan_pairs:
+    concurrent clients asking about the same rows are counted once)."""
 
     def count(self, op: str, a: torch.Tensor,
               b: Optional[torch.Tensor]) -> int:
@@ -229,16 +231,18 @@ class CountBatcher(ContinuousBatcher):
                 leaves.append(t)
             return s
 
-        ii = np.array([slot(a) for a, _ in payloads], dtype=np.int64)
-        jj = np.array([slot(b) for _, b in payloads], dtype=np.int64)
-        # launched, not fetched: the int32[K, C] partials stay on the
+        plan = kernels.plan_pairs([slot(a) for a, _ in payloads],
+                                  [slot(b) for _, b in payloads], key[0])
+        # launched, not fetched: the int32[P, C] partials stay on the
         # device until _finalize
-        return kernels.pair_stream_counts(leaves, ii, jj, key[0])
+        return (kernels.pair_stream_counts(leaves, plan.a, plan.b, key[0]),
+                plan.inverse)
 
     def _finalize(self, key: tuple, handle, payloads: list) -> list:
-        parts = handle.cpu().numpy()  # the batch's one device->host fetch
-        counts = parts.astype(np.int64).sum(axis=-1)  # exact int64 finish
-        return [int(c) for c in counts]
+        parts, inverse = handle
+        # the batch's one device->host fetch; exact int64 finish
+        counts = parts.cpu().numpy().astype(np.int64).sum(axis=-1)
+        return counts[inverse].tolist()
 
 
 class PlaneSumBatcher(ContinuousBatcher):

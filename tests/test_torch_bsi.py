@@ -124,11 +124,12 @@ def test_bsi_sum_counts_matches_pallas_and_xla(depth):
 
 
 @pytest.mark.parametrize("s,w", [(3, W), (2017, 32)])
-@pytest.mark.parametrize("k", (1, 3))
+@pytest.mark.parametrize("k", (1, 3, 33))
 def test_bsi_sum_counts_k_filters_match_batched_plane_sums(k, s, w):
     """The batcher's K-filter form: per-shard counts summed over shards
     equal the JAX batcher's per-chunk partials summed over chunks (two
-    2016-shard chunks at S = 2017)."""
+    2016-shard chunks at S = 2017; K = 33 is one past the staged kernel's
+    32-filter group)."""
     rng = np.random.default_rng(200 + k + s)
     planes, _ = _slab(rng, 10, s, w)
     filts = [_slab(rng, 1, s, w)[1] for _ in range(k)]

@@ -121,6 +121,62 @@ def test_bsi_kernels_match_plain_on_card(cuda_device, depth, s, w):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s,w", [(1029, 32768), (2017, 1000), (3, 1000)])
+def test_pair_stream_distinct_pairs_match_plain_on_card(cuda_device, s, w):
+    """The pair stream as the CountBatcher launches it, every op: over the
+    distinct canonical pairs of 300 queries on 50 leaves (ii == jj, (i, j)
+    beside (j, i)) and of three queries on three leaves, mapped back to
+    the queries, and over every query. S = 2017 spans two chunks; W = 1000
+    is no multiple of the kernel's loop stride."""
+    rng = np.random.default_rng(s + w)
+    rows = list(_planes(rng, cuda_device, 50, s, w).unbind(0))
+    ii = rng.integers(0, 50, size=300)
+    jj = rng.integers(0, 50, size=300)
+    ii[0], ii[1], jj[1], ii[2], jj[2] = jj[0], 3, 4, 4, 3
+    kernels.reset_launch_counts()
+    for op in kernels.PAIR_OPS:
+        for qi, qj in ((ii, jj), ([0, 1, 0], [1, 0, 2])):
+            want = kernels.pair_stream_counts_plain(rows, qi, qj, op)
+            plan = kernels.plan_pairs(qi, qj, op)
+            got = kernels.pair_stream_counts(rows, plan.a, plan.b, op)
+            inverse = torch.from_numpy(plan.inverse).to(cuda_device)
+            assert torch.equal(got.index_select(0, inverse), want), (op, len(qi))
+            got = kernels.pair_stream_counts(rows, qi, qj, op)
+            assert torch.equal(got, want), (op, len(qi))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["pair_stream_counts"] == 20
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [10, 33])
+@pytest.mark.parametrize("s,w", [(1029, 32768), (2017, 1000)])
+def test_bsi_sum_forms_match_plain_on_card(cuda_device, depth, s, w):
+    """Both forms of bsi_sum_counts at K = 1, 2, 32 and 33 filters (one
+    past the staged form's 32-filter group), one filter given twice;
+    depth 33 takes two 32-plane passes; W = 1000 is no multiple of the
+    staged form's 128-vector tile."""
+    rng = np.random.default_rng(depth * 10 + s)
+    planes = _planes(rng, cuda_device, depth, s, w)
+    filters = list(_planes(rng, cuda_device, 32, s, w).unbind(0))
+    filters[1][:, 100:200] = 0
+    filters.append(filters[2])
+    kernels.reset_launch_counts()
+    for k in (1, 2, 32, 33):
+        want = kernels.bsi_sum_counts_plain(planes, filters[:k])
+        for form in kernels.SUM_FORMS:
+            got = kernels.bsi_sum_counts(planes, filters[:k], form=form)
+            assert torch.equal(got, want), (k, form)
+    for form in kernels.SUM_FORMS:
+        assert torch.equal(
+            kernels.bsi_sum_counts(planes, filters[0], form=form),
+            kernels.bsi_sum_counts_plain(planes, filters[0])), form
+    torch.cuda.synchronize()
+    assert kernels.form_launch_counts() == {
+        "bsi_sum_counts/grid": 5, "bsi_sum_counts/staged": 5}
+    assert kernels.launch_counts()["bsi_sum_counts"] == 10
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("s,w", [(3, 64), (2100, 256)])
 def test_topn_and_cross_kernels_match_plain_on_card(cuda_device, s, w):
     """R = 130 candidates (past the Pallas 128-row block) and P = 9
