@@ -7,7 +7,10 @@
 Phases, in order; any failure exits non-zero (nothing is caught):
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   the kernels built from pilosa_tpu_torch/csrc with nvcc.
+   the kernels built from pilosa_tpu_torch/csrc with nvcc, and what
+   ptxas -v reported per kernel (lines "ptxas: <kernel><template args>:
+   registers, stack frame, spills"), with whether program_count's
+   instantiations up to depth 4 keep their operand stack in registers.
 2. Server, Count path: the port's Server on a temp data dir; an index
    with existence tracking and a set field of 8 rows over 1024 shards
    (8.5k-40k bits per shard and row) loaded through API.import_bits plus
@@ -69,19 +72,24 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    timed in turns (every, distinct, distinct, every) at bench.py's headline
    batch (K = 512 pairs of distinct rows among 16), at the batcher's cap
    of 512 and the server's mean batch over its 8 rows; program_count on
-   a 4-leaf program with xor/andnot/not and on a 40-leaf one;
-   intersect_count; bsi_compare for all 6 ops at depth 10 and gt at depth
+   a 4-leaf program with xor/andnot/not, a 40-leaf one and the BSI
+   descents' two programs (each timed by CUDA events, on the device by
+   torch.profiler and on the host), a balanced 16-leaf one (the deepest
+   class) and 300-leaf ones that take the device table at each depth
+   class; intersect_count (three times as well); bsi_compare for all 6 ops at depth 10 and gt at depth
    32 (4 GiB of planes); bsi_sum_counts, both forms (grid and staged)
    timed in turns, at K = 1, 2, 32 and the served mean batch at depth 10,
    and K = 1 at depth 32; topn_counts_packed at R = 64
    (the server's launch size) and at R = 130 over 256 shards (past the
    Pallas kernel's 128-row block); cross_count_matrix at P = 8 (the
    GroupBy's valid prefixes) and P = 16 (its chunk), R = 64;
-   sparse_intersect_dense, both modes, at every K the hybrid phase served
-   and at K = 16384. Times by CUDA events (warm, median).
+   sparse_intersect_dense, both modes, at K past each edge of its work
+   units, at every K the hybrid phase served and at K = 16384 (event,
+   device and host times). Times by CUDA events (warm, median).
 7. The last lines: nvidia-smi's name and power limit, one JSON object with
-   a record per kernel (bsi_sum_counts adds its launches by form and the
-   form the served shape takes), and {"ok": true, "device": {...}}.
+   a record per kernel (its launches summed over the four paths, with
+   launches_by_path beside; bsi_sum_counts adds its launches by form and
+   the form the served shape takes), and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --count-only   # phases 1-2 only, then the Count
                                          # path's numbers as one JSON line
@@ -91,6 +99,15 @@ prints its served rate, latencies and the CountBatcher's host time per
 batch. It reads only the Server, its CountBatcher and residency snapshots
 and the launch counts, so a copy of this script beside an older checkout
 of the port times that checkout the same way.
+
+    python3 chip_smoke.py --kernel-times # phase 1, then program_count,
+                                         # intersect_count and
+                                         # sparse_intersect_dense alone
+
+--kernel-times runs the program and sparse parts of phase 6 without the
+server (8 random planes; K = 8..4096 as the hybrid phase serves them, and
+16384) and prints their numbers as one JSON line. It calls only wrapper
+functions an older checkout also has, so a copy beside one times it too.
 
 Bounds: the larger of the bytes each input read once over HBM's 3.35 TB/s
 and the operations over the card's rate for their type. The integer rates
@@ -150,6 +167,10 @@ HYBRID_S_ROWS = 32  # rows of the stargazer-like set field s
 HYBRID_R_ROWS = 4   # rows of the run field r
 HYBRID_CLIENTS, HYBRID_PER_CLIENT = 32, 16  # the hybrid phase's pass
 SPARSE_SENTINEL = SHARD_WIDTH
+# the K of the hybrid phase's rows (min(4096, 8 x 2^(a mod 10)) bits per
+# shard, padded as the chooser pads), for runs without the server
+SERVED_SPARSE_K = [8 << i for i in range(10)]
+SPARSE_EDGE_K = (1, 31, 33, 255, 257, 511, 513, 2049, 4097)
 TOPN_ROWS = 64  # rows of the set field t
 TOPN_BITS = 12000  # bits per shard of t's row 0; row r holds ~this/(r+1)
 TOPN_CLIENTS, TOPN_PER_CLIENT = 32, 16  # the TopN phase's concurrent pass
@@ -164,6 +185,9 @@ PROGRAM = ("or", ("xor", ("leaf", 0), ("leaf", 1)),
 # 40 leaves, as Count(Union(...)) of 40 Rows gives: 39 combining ops
 WIDE_PROGRAM = ("or", ("xor", *[("leaf", i) for i in range(0, 40, 2)]),
                 ("andnot", *[("leaf", i) for i in range(1, 40, 2)]))
+# the BSI Min descent's program (ops/bsi.py _ANDNOT2), launched D times a
+# query, and ("leaf", 0) once
+DESCENT_PROGRAM = ("andnot", ("leaf", 0), ("leaf", 1))
 
 
 def log(msg: str) -> None:
@@ -206,24 +230,30 @@ def cuda_ms(fn, runs: int, warm: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int, kernel: str) -> float | None:
+def device_ms(fn, runs: int, kernel, per_call: int = 1) -> float | None:
     """Mean device time per fn() call of the kernels whose name holds
-    `kernel`, by torch.profiler's CUDA activity (CUPTI); None where the
-    profiler saw none. Unlike cuda_ms it leaves out the wrapper's host
-    work and the other launches of the call."""
+    `kernel` (a string, or a tuple of alternatives), by torch.profiler's
+    CUDA activity (CUPTI). A pass counts only if the profiler saw all
+    runs x per_call launches; None where no pass of three did. Unlike
+    cuda_ms it leaves out the wrapper's host work and the other launches
+    of the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    return sum(spans) / runs / 1e3 if spans else None
+    for _ in range(3):  # CUPTI now and then drops some of a pass's spans
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(n in e.name for n in names)]
+        if len(spans) == runs * per_call:
+            return sum(spans) / runs / 1e3
+    return None
 
 
 def host_ms(fn, runs: int) -> float:
@@ -408,44 +438,122 @@ def kernel_phase(device, n_shards: int, words: int, slab_rows: int,
                                  "per_op_ms_k_check": per_op,
                                  "k_check": k_check, "by_shape": by_shape}
 
-    # program_count: 4 leaves with xor/andnot/not, and 40 leaf pointers
-    progs = {}
-    for label, program, progleaves in (
-            ("4 leaves", PROGRAM, leaves[:4]),
-            ("40 leaves", WIDE_PROGRAM, [leaves[i % 8] for i in range(40)])):
-        check(f"program_count {label}",
-              kernels.program_count(progleaves, program),
-              kernels.program_count_plain(progleaves, program))
-        ms = cuda_ms(lambda: kernels.program_count(progleaves, program), runs)
-        plain = cuda_ms(
-            lambda: kernels.program_count_plain(progleaves, program), 3, 1)
-        codes = kernels.encode_program(program)[0]
-        combining = sum(c != kernels.LEAF for c in codes)
-        distinct = len({t.data_ptr() for t in progleaves})
-        nbytes = distinct * plane_bytes + n_shards * 4
-        b_ms, b_by = bound(nbytes, (combining + 1.0) * n_words,
-                           1.0 * n_words, rates)
-        progs[label] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                        "bound_by": b_by, "bytes_once": nbytes}
-        log(f"  program_count {label}: {ms * 1e3:.1f} us "
-            f"(bound {b_ms * 1e3:.1f} us by {b_by}), exact")
-    out["program_count"] = {**progs["4 leaves"], "max_abs_err": 0,
-                            "wide": progs["40 leaves"]}
+    out.update(program_kernel_phase(leaves[:8], rates, runs))
+    del slab, leaves
+    torch.cuda.empty_cache()
+    return out
 
-    # intersect_count
+
+def balanced(lo: int, hi: int):
+    """A complete binary tree of and/or/xor over leaves lo..hi-1 (hi - lo
+    a power of 2): stack depth log2(hi - lo) + 1."""
+    if hi - lo == 1:
+        return ("leaf", lo)
+    mid = (lo + hi) // 2
+    op = ("and", "or", "xor")[(hi - lo).bit_length() % 3]
+    return (op, balanced(lo, mid), balanced(mid, hi))
+
+
+def time_three(fn, runs: int, kernel) -> dict:
+    """Event, device and host ms of fn() (see cuda_ms, device_ms, host_ms)."""
+    return {"ms": cuda_ms(fn, runs), "device_ms": device_ms(fn, runs, kernel),
+            "host_ms": host_ms(fn, runs)}
+
+
+def program_kernel_phase(leaves: list, rates: tuple, runs: int) -> dict:
+    """program_count and intersect_count against their plain versions over
+    8 random [S, W] planes: the 4-leaf PROGRAM (xor/andnot/not), the
+    40-leaf WIDE_PROGRAM over the 8 planes, the BSI descents' ("andnot",
+    0, 1) and ("leaf", 0), a balanced 16-leaf program (stack depth 5, the
+    deepest class), and programs too long for the kernel's parameter (a
+    300-leaf chain, alone and combined with balanced trees of depth 3 and
+    5), which take the device table at each depth class. Event, device and
+    host ms of each served program, and of intersect_count."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+
+    n_shards, words = leaves[0].shape
+    plane_bytes = n_shards * words * 4
+    n_words = n_shards * words
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"(max abs err {err})")
+        return err
+
+    def count(progleaves, program):
+        return kernels.program_count(progleaves, program)
+
+    long_chain = ("or", *[("leaf", i) for i in range(300)])
+    chain_leaves = [leaves[i % 8] for i in range(300)]
+    cases = (
+        ("4 leaves", PROGRAM, leaves[:4], True),
+        ("40 leaves", WIDE_PROGRAM, [leaves[i % 8] for i in range(40)], True),
+        ("descent andnot", DESCENT_PROGRAM, leaves[:2], True),
+        ("descent leaf", ("leaf", 0), leaves[:1], True),
+        ("16 leaves balanced", balanced(0, 16),
+         [leaves[i % 8] for i in range(16)], False),
+        ("300-leaf chain", long_chain, chain_leaves, False),
+        ("300-leaf chain xor balanced(0, 4)",
+         ("xor", long_chain, balanced(0, 4)), chain_leaves, False),
+        ("300-leaf chain xor balanced(0, 16)",
+         ("xor", long_chain, balanced(0, 16)), chain_leaves, False),
+    )
+    progs = {}
+    for label, program, progleaves, timed in cases:
+        want = kernels.program_count_plain(progleaves, program)
+        plan = (kernels.program_plan(program, len(progleaves))
+                if hasattr(kernels, "program_plan") else None)
+        check(f"program_count {label}", count(progleaves, program), want)
+        del want
+        codes, _, depth = kernels.encode_program(program)
+        rec = {"leaves": len(progleaves), "instructions": len(codes),
+               "depth": depth}
+        if plan is not None:
+            rec.update(depth_class=plan.depth_class, form=plan.form)
+        if timed:
+            rec.update(time_three(lambda: count(progleaves, program), runs,
+                                  "program_count"))
+            rec["plain_ms"] = cuda_ms(
+                lambda: kernels.program_count_plain(progleaves, program), 3, 1)
+            combining = sum(c != kernels.LEAF for c in codes)
+            distinct = len({t.data_ptr() for t in progleaves})
+            nbytes = distinct * plane_bytes + n_shards * 4
+            b_ms, b_by = bound(nbytes, (combining + 1.0) * n_words,
+                               1.0 * n_words, rates)
+            rec.update(bound_ms=b_ms, bound_by=b_by, bytes_once=nbytes)
+            log(f"  program_count {label}: {rec['ms'] * 1e3:.1f} us, device "
+                f"{_us(rec['device_ms'])} us, host {_us(rec['host_ms'])} us "
+                f"(bound {b_ms * 1e3:.1f} us by {b_by}; depth {depth}"
+                + (f", class {plan.depth_class}, {plan.form}" if plan else "")
+                + "), exact")
+        else:
+            log(f"  program_count {label}: depth {depth}"
+                + (f", class {plan.depth_class}, {plan.form}" if plan else "")
+                + ", exact")
+        progs[label] = rec
+    out = {"program_count": {**progs["4 leaves"], "max_abs_err": 0,
+                             "shape": "4 leaves", "all": progs,
+                             "wide": progs["40 leaves"]}}
+
     err = check("intersect_count", kernels.intersect_count(leaves[0], leaves[1]),
                 kernels.intersect_count_plain(leaves[0], leaves[1]))
-    ms = cuda_ms(lambda: kernels.intersect_count(leaves[0], leaves[1]), runs)
+    rec = time_three(lambda: kernels.intersect_count(leaves[0], leaves[1]),
+                     runs, ("intersect_count", "program_count"))
     plain = cuda_ms(
         lambda: kernels.intersect_count_plain(leaves[0], leaves[1]), 3, 1)
     nbytes = 2 * plane_bytes + n_shards * 4
     b_ms, b_by = bound(nbytes, 2.0 * n_words, 1.0 * n_words, rates)
-    out["intersect_count"] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+    out["intersect_count"] = {**rec, "plain_ms": plain, "bound_ms": b_ms,
                               "bound_by": b_by, "max_abs_err": err,
                               "bytes_once": nbytes}
-    log(f"  intersect_count: {ms * 1e3:.1f} us, exact")
-    del slab, leaves
-    torch.cuda.empty_cache()
+    log(f"  intersect_count: {rec['ms'] * 1e3:.1f} us, device "
+        f"{_us(rec['device_ms'])} us, host {_us(rec['host_ms'])} us (bound "
+        f"{b_ms * 1e3:.1f} us by {b_by}), exact")
     return out
 
 
@@ -693,6 +801,16 @@ def hybrid_kernel_phase(device, n_shards: int, words: int, served_k: list,
                                  f"(max abs err {err})")
         return err
 
+    # K past each edge of the kernel's work units (warp: 32 x 8 entries;
+    # block: thread steps of 256 entries, tiles of 2048), odd K: exact only
+    for k in SPARSE_EDGE_K:
+        sp = sparse_rows(k)
+        for fn, plain in ((kernels.sparse_intersect_dense,
+                           kernels.sparse_intersect_dense_plain),
+                          (kernels.sparse_difference_dense,
+                           kernels.sparse_difference_dense_plain)):
+            check(f"{fn.__name__} K={k}", fn(sp, dense), plain(sp, dense))
+    log(f"  sparse_intersect_dense K={list(SPARSE_EDGE_K)}: both modes exact")
     out = {}
     for k in sorted(set(served_k) | {16384}):
         sp = sparse_rows(k)
@@ -702,7 +820,8 @@ def hybrid_kernel_phase(device, n_shards: int, words: int, served_k: list,
         check(f"sparse_difference_dense K={k}",
               kernels.sparse_difference_dense(sp, dense),
               kernels.sparse_difference_dense_plain(sp, dense))
-        ms = cuda_ms(lambda: kernels.sparse_intersect_dense(sp, dense), runs)
+        rec = time_three(lambda: kernels.sparse_intersect_dense(sp, dense),
+                         runs, "sparse_dense_kernel")
         plain = cuda_ms(
             lambda: kernels.sparse_intersect_dense_plain(sp, dense), 3, 1)
         # each index read once, each slot written once, and the distinct
@@ -715,12 +834,15 @@ def hybrid_kernel_phase(device, n_shards: int, words: int, served_k: list,
         entries = n_shards * k
         nbytes = 2 * entries * 4 + 32 * sectors
         b_ms, b_by = bound(nbytes, 8.0 * entries, 1.0 * entries, rates)
-        out[f"K={k}"] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+        plan = (kernels.sparse_plan(k, n_shards)._asdict()
+                if hasattr(kernels, "sparse_plan") else None)
+        out[f"K={k}"] = {**rec, "plain_ms": plain, "bound_ms": b_ms,
                          "bound_by": b_by, "bytes_once": nbytes,
-                         "sectors": sectors}
-        log(f"  sparse_intersect_dense K={k} S={n_shards}: {ms * 1e3:.1f} us "
-            f"(bound {b_ms * 1e3:.1f} us by {b_by}), plain {plain:.2f} ms, "
-            "both modes exact")
+                         "sectors": sectors, "plan": plan}
+        log(f"  sparse_intersect_dense K={k} S={n_shards}: "
+            f"{rec['ms'] * 1e3:.1f} us, device {_us(rec['device_ms'])} us, "
+            f"host {_us(rec['host_ms'])} us (bound {b_ms * 1e3:.1f} us by "
+            f"{b_by}; {plan}), plain {plain:.2f} ms, both modes exact")
         del sp, shard, sector, live
     del dense
     torch.cuda.empty_cache()
@@ -728,6 +850,78 @@ def hybrid_kernel_phase(device, n_shards: int, words: int, served_k: list,
     first = f"K={max(served_k)}"
     return {"sparse_intersect_dense": {**out[first], "max_abs_err": 0,
                                        "shape": first, "all": out}}
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name, e.g.
+    program_count_kernel<4> (the kernels live in one anonymous namespace:
+    _ZN <len> <namespace> <len> <name> [I <args> E] ...)."""
+    import re
+
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    pos = m.end() + int(m.group(1))
+    m = re.match(r"(\d+)", mangled[pos:])
+    if not m:
+        return mangled
+    end = pos + m.end() + int(m.group(1))
+    name, rest = mangled[pos + m.end():end], mangled[end:]
+    args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]) \
+        if rest.startswith("I") else []
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_phase(build) -> dict:
+    """Print what ptxas -v reported per kernel (registers, stack frame,
+    spills) and whether every program_count instantiation of the classes
+    up to depth 4 keeps its stack in registers (0-byte frame, no spills);
+    the deepest class keeps a local stack by design."""
+    if not hasattr(build, "ptxas_report"):  # an older checkout
+        for line in build.build_info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+        return {}
+    report = {}
+    for mangled, r in build.ptxas_report(build.build_log()).items():
+        if "registers" in r:
+            report[kernel_label(mangled)] = r
+    for label, r in sorted(report.items()):
+        log(f"  ptxas: {label}: {r.get('registers')} registers, "
+            f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')} / "
+            f"{r.get('spill_loads')} bytes spill stores / loads")
+    shallow = {k: r for k, r in report.items()
+               if k.startswith("program_count") and k.endswith(("<2>", "<4>"))}
+    ok = bool(shallow) and all(
+        r.get("stack") == 0 and r.get("spill_stores") == 0
+        and r.get("spill_loads") == 0 for r in shallow.values())
+    log(f"  program_count classes up to depth 4 ({len(shallow)} "
+        f"instantiations): stack in registers "
+        + ("(0-byte frames, no spills)" if ok else "NOT confirmed"))
+    return {"kernels": report, "program_count_register_stack": ok}
+
+
+def kernel_times(device, n_shards: int, words: int, seed: int,
+                 runs: int) -> dict:
+    """program_count, intersect_count and sparse_intersect_dense alone, at
+    the shapes the server phases give them: 8 random planes for the
+    programs, the hybrid phase's K for the sparse rows."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    slab = torch.empty((8, n_shards, words), dtype=torch.int32, device=device)
+    for r in range(8):
+        slab[r] = torch.randint(-2**31, 2**31, (n_shards, words),
+                                dtype=torch.int64, device=device,
+                                generator=gen).to(torch.int32)
+    log("phase 6: program_count and intersect_count")
+    out = program_kernel_phase(list(slab.unbind(0)), int_rates(), runs)
+    del slab
+    torch.cuda.empty_cache()
+    log("phase 6: sparse_intersect_dense")
+    out.update(hybrid_kernel_phase(device, n_shards, words, SERVED_SPARSE_K,
+                                   seed, runs))
+    return out
 
 
 # ----------------------------------------------------------------- server
@@ -1714,6 +1908,10 @@ def main(argv=None) -> int:
                          "torch.profiler and print the device's idle share")
     ap.add_argument("--count-only", action="store_true",
                     help="drive the Count path alone and print its numbers")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="time program_count, intersect_count and "
+                         "sparse_intersect_dense alone (no server) and "
+                         "print their numbers")
     args = ap.parse_args(argv)
 
     import torch
@@ -1733,10 +1931,16 @@ def main(argv=None) -> int:
     _build.load()
     log(f"  kernels built in {_build.build_info['seconds']:.1f} s: "
         f"{_build.build_info['path']}")
-    for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    ptxas = ptxas_phase(_build)
 
+    if args.kernel_times:
+        measured = kernel_times(device, args.shards, 32768, args.seed,
+                                args.runs)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        print(smi_name)
+        print(json.dumps({"kernel_times": measured, "ptxas": ptxas}),
+              flush=True)
+        return 0
     log(f"phase 2: server over {args.shards} shards, Count path")
     served = server_phase(device, args.shards, args.rows, args.seed,
                           args.clients, args.per_client, args.profile,
@@ -1773,14 +1977,19 @@ def main(argv=None) -> int:
                                         args.seed, args.runs))
 
     records = []
+    paths = {"count": served, "bsi": served["bsi"], "topn": served["topn"],
+             "hybrid": served["hybrid"]}
     for name, m in measured.items():
+        # launches on every path of the main run (each path zeroes the
+        # counts before its first query and reads them after its last)
+        by_path = {p: paths[p]["launches"][name] for p in paths}
         phase = (served["bsi"] if name in BSI_KERNELS
                  else served["topn"] if name in TOPN_KERNELS
                  else served["hybrid"] if name in HYBRID_KERNELS else served)
-        launches = phase["launches"][name]
         record = {
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches,
+            "replaces": REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None}

@@ -11,12 +11,10 @@
 //       2016-shard chunk -> int32[K, C].
 //   pbk_program_count       replaces pallas_kernels.py program_count (:108,
 //       body _program_count_kernel :80): a whole nested bitmap program
-//       (postfix bytecode and a table of leaf pointers, both in device
-//       memory, so neither the leaf count nor the program length is
-//       capped) + popcount -> int32[S].
+//       (postfix bytecode over a table of leaf pointers) + popcount ->
+//       int32[S]. pbk_program_count_table is its form for long programs.
 //   pbk_intersect_count     replaces pallas_kernels.py intersect_count (:59,
-//       body _and_count_kernel :34): the same kernel as program_count,
-//       instantiated with the fixed program ("and", 0, 1).
+//       body _and_count_kernel :34): the fixed program ("and", 0, 1).
 //
 // Bound: all three are popcount streams. Each input word is read once per
 // query and reduced to a few int32 counts, so memory bounds them: the
@@ -33,7 +31,7 @@
 // the larger of the distinct leaves' bytes over HBM's rate and the
 // distinct pairs' words over the __popc rate.
 //
-// Design (a simple right kernel first, not yet a fast one):
+// Design (the pair stream and intersect_count):
 //   * 16-byte uint4 loads, neighbouring threads on neighbouring addresses;
 //   * __popc per 32-bit word, accumulated in a per-thread unsigned int;
 //   * warp __shfl_down_sync reduction, then shared memory across warps;
@@ -41,6 +39,30 @@
 //     (exact in any order). A loop inside the block replaces the Pallas
 //     grid's sequential shard axis; grid dimensions split a query or a
 //     shard row across enough blocks to fill the 132 SMs.
+//   * intersect_count loads 2 uint4 of each operand per thread per pass.
+//
+// Design of program_count (an interpreter, so nothing is compiled per
+// query). What held the first form to 26-28 % of its bound: its operand
+// stack, indexed at run time, lived in local memory (16 slots of 16 bytes
+// a thread, far past L1 at full occupancy, so pushes and pops went to L2);
+// each leaf load waited on two dependent loads (the instruction, then the
+// leaf pointer); one 16-byte load per thread was in flight; and each call
+// copied the table from pinned host memory. Now:
+//   * the table (leaf pointers, then instructions) is a by-value kernel
+//     parameter of 4032 bytes when it fits (every served program does: the
+//     widest has 40 leaves and 79 instructions), read as uniform
+//     constant-bank loads;
+//     a longer one stays a device table that each block stages into
+//     shared memory, with the same body;
+//   * the stack is instantiated per depth class (the encoder's Strahler
+//     depth <= 2, <= 4, <= 16). Its top stays in registers; the slots below
+//     it are registers addressed only by unrolled selects on sp for the
+//     classes up to 4 (no local memory), and a local array only in the
+//     deepest class, which only balanced programs of 16 or more leaves reach;
+//   * a leaf followed by a binary op is combined straight into the top, so
+//     a chain such as Intersect or Union of many Rows uses no slot;
+//   * each thread takes V uint4 per pass (4, 2, 1 by class: the slots cost
+//     4 V registers each) and issues a leaf's V loads together.
 //
 // The BSI path (planes [D, S, W]: plane d holds bit d of every column's
 // stored value; exists [S, W] is the not-null row):
@@ -148,21 +170,43 @@
 // the plane bytes that must move are the distinct 32-byte sectors its
 // entries touch; a few integer operations per entry.
 //
-// Design: one block per shard walks its K entries in tiles of 256. A
-// thread loads one index, skips the plane for a sentinel, else tests bit
-// idx & 31 of word idx >> 5 (read through the read-only cache). Kept
-// entries are compacted in order: __ballot_sync and __popc of the lanes
-// below give the rank in the warp, the eight warp counts in shared memory
-// the warp's offset in the tile, and a running offset carries from tile to
-// tile; the block then fills the row's tail with the sentinel. The input
-// rows are sorted and unique, so compaction in order gives exactly
-// sort(where(kept, idx, sentinel)): no sort, where the Pallas kernel
+// Design. The first form (one block of 256 threads per shard, one entry a
+// thread per tile, two barriers per 256 entries) was latency-bound: one
+// index load, then one dependent gather, in flight per thread, and most of
+// each block idle at small K. Now:
+//   * a warp owns a chunk of 32 V consecutive entries (V = 8), striped:
+//     lane l holds entries 32 j + l of the chunk, so each index load and
+//     each plane gather instruction covers 32 consecutive entries
+//     (sorted, so near each other in the plane). Each thread issues all V
+//     gathers (through the read-only cache: they touch 32-byte sectors at
+//     random) before it tests any. A first cut in which a thread owned V
+//     consecutive entries (16-byte index loads, one shuffle scan of the
+//     per-thread counts) spread every gather instruction over 32 V entries
+//     and lost to the first form from K = 1024 on. V = 16 or 64-256
+//     threads moved the device time by under 5 % from K = 1024 on and lost
+//     10 % at K = 512: the gathers' sectors bound it, not the occupancy;
+//   * compaction in order: per stripe j one __ballot_sync gives each kept
+//     lane its rank (the popcount of the kept lanes below it), so the kept
+//     lanes of a stripe write neighbouring slots; in the block unit the
+//     warps' totals pass once per tile through shared memory: one barrier
+//     per tile of blockDim.x * V entries (two buffers), a running offset
+//     carried from tile to tile, and the next tile's indices load while
+//     this tile's gathers are in flight;
+//   * the work unit follows K (ops/kernels.py sparse_plan): for K <= 32 V
+//     one warp takes a shard and several shards share a block, with no
+//     barrier; above, one block per shard, its thread count following K up
+//     to 256;
+//   * the sentinel tail goes out in 16-byte stores where K % 4 == 0.
+// The input rows are sorted and unique, so compaction in order gives
+// exactly sort(where(kept, idx, sentinel)): no sort, where the Pallas kernel
 // masked and then sorted.
 //
 // Every C entry point returns cudaGetLastError() right after its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cstring>
 
 namespace {
 
@@ -260,62 +304,252 @@ __device__ __forceinline__ unsigned block_sum(unsigned v) {
   return v;
 }
 
-// One uint4 of the program's result at element idx of every leaf.
-// meta = [leaf pointers (n_leaves) | instructions (n_instr)] as int64 on
-// the device, an instruction being opcode | leaf << 8. Every thread reads
-// the same instruction, so the loads are broadcasts that hit in L1. The
-// operand stack lives in local memory (dynamically indexed); leaves are
-// read straight from the resident tensors, so no intermediate plane ever
-// reaches HBM.
-__device__ __forceinline__ uint4 eval_program(const long long* __restrict__ meta,
-                                              int n_leaves, int n_instr,
-                                              long long idx) {
-  uint4 stack[kMaxStack];
-  int sp = 0;
-  for (int pc = 0; pc < n_instr; ++pc) {
-    const long long ins = __ldg(meta + n_leaves + pc);
-    const unsigned char c = static_cast<unsigned char>(ins & 0xff);
-    if (c == kLeaf) {
-      const uint4* leaf = reinterpret_cast<const uint4*>(__ldg(meta + (ins >> 8)));
-      stack[sp++] = __ldg(leaf + idx);
-    } else if (c == kNot) {
-      stack[sp - 1] = not4(stack[sp - 1]);
-    } else {
-      const uint4 b = stack[--sp];
-      const uint4 a = stack[sp - 1];
-      stack[sp - 1] = c == kAnd      ? and4(a, b)
-                      : c == kOr     ? or4(a, b)
-                      : c == kXor    ? xor4(a, b)
-                      : c == kAndNot ? andnot4(a, b)
-                                     : andnot4(b, a);  // kRAndNot
+// ------------------------------------------------------ program_count
+
+// The program's table: leaf pointers (n_leaves), then instructions
+// (n_instr), as int64; an instruction is opcode | leaf << 8. The wrapper
+// passes it by value in ProgramParam when n_leaves + n_instr <= kParamMeta
+// (4032 bytes, so that with the other arguments the kernel's parameters
+// stay within the classic 4 KB), else as a device table that each block
+// stages into shared memory (or reads from global memory past kStagedMeta
+// entries).
+constexpr int kParamMeta = 504;
+constexpr int kStagedMeta = 48 * 1024 / 8;
+struct ProgramParam {
+  long long meta[kParamMeta];
+};
+static_assert(sizeof(ProgramParam) == 4032, "within 4 KB of kernel parameters");
+
+// the table read from the kernel's parameter bank: every thread reads the
+// same entry, so each read is one uniform constant-bank load
+struct ParamProgram {
+  const ProgramParam& p;
+  int n_leaves;
+  __device__ __forceinline__ const uint4* leaf(long long i) const {
+    return reinterpret_cast<const uint4*>(p.meta[i]);
+  }
+  __device__ __forceinline__ long long ins(int pc) const {
+    return p.meta[n_leaves + pc];
+  }
+};
+
+// the table read from shared memory (or global memory when too long)
+struct TableProgram {
+  const long long* meta;
+  int n_leaves;
+  __device__ __forceinline__ const uint4* leaf(long long i) const {
+    return reinterpret_cast<const uint4*>(meta[i]);
+  }
+  __device__ __forceinline__ long long ins(int pc) const {
+    return meta[n_leaves + pc];
+  }
+};
+
+// The operands below the top of the stack, kSlots of them, each V uint4.
+// Registers: push and pop address the slots only with compile-time
+// indices (an unrolled select on sp), so nothing reaches local memory.
+template <int kSlots, int V, bool kLocal>
+struct OperandStack {
+  uint4 s[kSlots][V];
+  __device__ __forceinline__ void push(int sp, const uint4 (&x)[V]) {
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      if (i == sp) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) s[i][j] = x[j];
+      }
     }
   }
-  return stack[0];
+  __device__ __forceinline__ void pop(int sp, uint4 (&x)[V]) {
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      if (i == sp) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) x[j] = s[i][j];
+      }
+    }
+  }
+};
+
+// The deepest class: indexed at run time, so in local memory.
+template <int kSlots, int V>
+struct OperandStack<kSlots, V, true> {
+  uint4 s[kSlots][V];
+  __device__ __forceinline__ void push(int sp, const uint4 (&x)[V]) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) s[sp][j] = x[j];
+  }
+  __device__ __forceinline__ void pop(int sp, uint4 (&x)[V]) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) x[j] = s[sp][j];
+  }
+};
+
+__device__ __forceinline__ bool is_binary(int c) {
+  return c != kLeaf && c != kNot;
 }
 
-// grid (S, split): block (s, part) counts part of shard s's w4 uint4s.
-// kFixedAnd counts a & b (intersect_count) and ignores meta.
-template <bool kFixedAnd>
-__global__ void __launch_bounds__(kThreads)
-    program_count_kernel(const uint4* __restrict__ a,
-                         const uint4* __restrict__ b,
-                         const long long* __restrict__ meta, int n_leaves,
-                         int n_instr, int* __restrict__ out, long long w4,
-                         int split) {
-  const long long shard = blockIdx.x;
+// r = a op b for the stack [.., a, b]; r may be a or b
+template <int V>
+__device__ __forceinline__ void apply(int c, const uint4 (&a)[V],
+                                      const uint4 (&b)[V], uint4 (&r)[V]) {
+  switch (c) {
+    case kAnd:
+#pragma unroll
+      for (int j = 0; j < V; ++j) r[j] = and4(a[j], b[j]);
+      break;
+    case kOr:
+#pragma unroll
+      for (int j = 0; j < V; ++j) r[j] = or4(a[j], b[j]);
+      break;
+    case kXor:
+#pragma unroll
+      for (int j = 0; j < V; ++j) r[j] = xor4(a[j], b[j]);
+      break;
+    case kAndNot:
+#pragma unroll
+      for (int j = 0; j < V; ++j) r[j] = andnot4(a[j], b[j]);
+      break;
+    default:  // kRAndNot
+#pragma unroll
+      for (int j = 0; j < V; ++j) r[j] = andnot4(b[j], a[j]);
+      break;
+  }
+}
+
+// Popcount of the program's result over elements [lo, hi) of one shard
+// row (base = the row's first element), V uint4 per thread per pass:
+// element i0 + j * kThreads for j < V. For each leaf instruction all V
+// loads go out together. The top of the stack stays in registers apart
+// from the kDepth - 1 slots below it, and a leaf followed by a binary op
+// is combined straight into the top, so a chain (Intersect or Union of
+// many Rows) never touches the slots.
+template <int kDepth, int V, class Program>
+__device__ __forceinline__ unsigned count_program(const Program& prog,
+                                                  int n_instr, long long base,
+                                                  long long lo, long long hi) {
+  constexpr int kSlots = kDepth - 1;
+  unsigned acc = 0;
+  for (long long i0 = lo + threadIdx.x; i0 < hi; i0 += kThreads * V) {
+    OperandStack<kSlots, V, (kDepth > 4)> stack;
+    uint4 top[V];
+    int sp = 0;
+    for (int pc = 0; pc < n_instr; ++pc) {
+      const long long ins = prog.ins(pc);
+      const int c = static_cast<int>(ins & 0xff);
+      if (c == kLeaf) {
+        const uint4* leaf = prog.leaf(ins >> 8) + base;
+        uint4 x[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const long long i = i0 + j * kThreads;
+          x[j] = i < hi ? __ldg(leaf + i) : splat(0u);
+        }
+        const int next =
+            pc + 1 < n_instr ? static_cast<int>(prog.ins(pc + 1) & 0xff) : kLeaf;
+        if (pc > 0 && is_binary(next)) {
+          apply<V>(next, top, x, top);
+          ++pc;
+        } else {
+          if (pc > 0) stack.push(sp++, top);
+#pragma unroll
+          for (int j = 0; j < V; ++j) top[j] = x[j];
+        }
+      } else if (c == kNot) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) top[j] = not4(top[j]);
+      } else {
+        uint4 a[V];
+        stack.pop(--sp, a);
+        apply<V>(c, a, top, top);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (i0 + j * kThreads < hi) acc += popc4(top[j]);
+    }
+  }
+  return acc;
+}
+
+// uint4 per thread per pass, by depth class: the slots cost 4 V registers
+// each, so the deeper classes take fewer
+template <int kDepth>
+struct ProgramVec {
+  static constexpr int value = kDepth <= 2 ? 4 : kDepth <= 4 ? 2 : 1;
+};
+
+// The block's share of shard blockIdx.x: grid (S, split).
+__device__ __forceinline__ void block_range(long long w4, int split,
+                                            long long& lo, long long& hi) {
   const long long per = (w4 + split - 1) / split;
-  const long long lo = per * blockIdx.y;
-  const long long hi = lo + per < w4 ? lo + per : w4;
+  lo = per * blockIdx.y;
+  hi = lo + per < w4 ? lo + per : w4;
+}
+
+// program_count with the table in the parameter bank
+template <int kDepth>
+__global__ void __launch_bounds__(kThreads)
+    program_count_kernel(const __grid_constant__ ProgramParam prog,
+                         int n_leaves, int n_instr, int* __restrict__ out,
+                         long long w4, int split) {
+  long long lo, hi;
+  block_range(w4, split, lo, hi);
+  const long long shard = blockIdx.x;
+  const ParamProgram p{prog, n_leaves};
+  const unsigned total = block_sum(count_program<kDepth, ProgramVec<kDepth>::value>(
+      p, n_instr, shard * w4, lo, hi));
+  if (threadIdx.x == 0 && total) atomicAdd(out + shard, static_cast<int>(total));
+}
+
+// program_count with the table in device memory, staged into shared
+// memory when it fits kStagedMeta entries (stage = 1)
+template <int kDepth>
+__global__ void __launch_bounds__(kThreads)
+    program_count_table_kernel(const long long* __restrict__ meta,
+                               int n_leaves, int n_instr, int stage,
+                               int* __restrict__ out, long long w4,
+                               int split) {
+  extern __shared__ long long staged[];
+  const long long* table = meta;
+  if (stage) {
+    for (int i = threadIdx.x; i < n_leaves + n_instr; i += kThreads) {
+      staged[i] = __ldg(meta + i);
+    }
+    __syncthreads();
+    table = staged;
+  }
+  long long lo, hi;
+  block_range(w4, split, lo, hi);
+  const long long shard = blockIdx.x;
+  const TableProgram p{table, n_leaves};
+  const unsigned total = block_sum(count_program<kDepth, ProgramVec<kDepth>::value>(
+      p, n_instr, shard * w4, lo, hi));
+  if (threadIdx.x == 0 && total) atomicAdd(out + shard, static_cast<int>(total));
+}
+
+// intersect_count: the fixed program ("and", 0, 1), both operands' V
+// vectors loaded together
+constexpr int kIntersectVec = 2;
+__global__ void __launch_bounds__(kThreads)
+    intersect_count_kernel(const uint4* __restrict__ a,
+                           const uint4* __restrict__ b, int* __restrict__ out,
+                           long long w4, int split) {
+  long long lo, hi;
+  block_range(w4, split, lo, hi);
+  const long long shard = blockIdx.x;
   const long long base = shard * w4;
   unsigned acc = 0;
-  for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
-    uint4 v;
-    if (kFixedAnd) {
-      v = and4(__ldg(a + base + i), __ldg(b + base + i));
-    } else {
-      v = eval_program(meta, n_leaves, n_instr, base + i);
+  for (long long i0 = lo + threadIdx.x; i0 < hi; i0 += kThreads * kIntersectVec) {
+    uint4 x[kIntersectVec], y[kIntersectVec];
+#pragma unroll
+    for (int j = 0; j < kIntersectVec; ++j) {
+      const long long i = i0 + j * kThreads;
+      x[j] = i < hi ? __ldg(a + base + i) : splat(0u);
+      y[j] = i < hi ? __ldg(b + base + i) : splat(0u);
     }
-    acc += popc4(v);
+#pragma unroll
+    for (int j = 0; j < kIntersectVec; ++j) acc += popc4(and4(x[j], y[j]));
   }
   const unsigned total = block_sum(acc);
   if (threadIdx.x == 0 && total) atomicAdd(out + shard, static_cast<int>(total));
@@ -742,49 +976,158 @@ __global__ void __launch_bounds__(kThreads)
 // ------------------------------------------------------- sparse ∩ dense
 
 constexpr int kSentinel = 1 << 20;  // ops/hybrid.py SPARSE_SENTINEL
-constexpr int kWarps = kThreads / 32;
+constexpr int kSparseMaxWarps = kThreads / 32;
+constexpr int kSparseVec = 8;  // entries per thread
 
-// grid (S): block s compacts row s of sp [S, k] against plane s of dense
-// [S, w] into out [S, k]. kKeepHits keeps the entries whose bit is set,
-// else those whose bit is clear; sentinel entries are never kept.
-template <bool kKeepHits>
+// A warp's chunk of 32 V consecutive entries from entry c0 on, striped:
+// lane l holds entries c0 + 32 j + l (the sentinel past k), so each load,
+// and each gather below, covers 32 consecutive entries of the row.
+template <int V>
+__device__ __forceinline__ void load_chunk(const int* __restrict__ row,
+                                           int c0, int k, int lane,
+                                           int (&idx)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int e = c0 + 32 * j + lane;
+    idx[j] = e < k ? __ldcs(row + e) : kSentinel;
+  }
+}
+
+// ballot[j]: the lanes whose entry j is kept. All V plane words are
+// loaded before any is tested, so V gathers are in flight per thread.
+// Returns the chunk's kept count.
+template <bool kKeepHits, int V>
+__device__ __forceinline__ int keep_ballots(const unsigned* __restrict__ plane,
+                                            const int (&idx)[V],
+                                            unsigned (&ballot)[V]) {
+  unsigned word[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    word[j] = static_cast<unsigned>(idx[j]) < static_cast<unsigned>(kSentinel)
+                  ? __ldg(plane + (idx[j] >> 5))
+                  : 0u;
+  }
+  int total = 0;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const bool live =
+        static_cast<unsigned>(idx[j]) < static_cast<unsigned>(kSentinel);
+    const bool bit = (word[j] >> (idx[j] & 31)) & 1u;
+    ballot[j] = __ballot_sync(0xffffffffu, live && (kKeepHits ? bit : !bit));
+    total += __popc(ballot[j]);
+  }
+  return total;
+}
+
+// The chunk's kept entries, in order, from dst[pos] on: per stripe j the
+// kept lanes write neighbouring slots.
+template <int V>
+__device__ __forceinline__ void write_kept(int* __restrict__ dst, int pos,
+                                           const unsigned (&ballot)[V],
+                                           const int (&idx)[V], int lane) {
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    if ((ballot[j] >> lane) & 1u) dst[pos + __popc(ballot[j] & below)] = idx[j];
+    pos += __popc(ballot[j]);
+  }
+}
+
+// dst[filled, k) = sentinel, thread t of nt; 16-byte stores from the
+// first multiple of 4 on when kVec4.
+template <bool kVec4>
+__device__ __forceinline__ void fill_tail(int* __restrict__ dst, int filled,
+                                          int k, int t, int nt) {
+  if (kVec4) {
+    const int head = ((filled + 3) & ~3) < k ? ((filled + 3) & ~3) : k;
+    for (int i = filled + t; i < head; i += nt) dst[i] = kSentinel;
+    const int4 s4 = make_int4(kSentinel, kSentinel, kSentinel, kSentinel);
+    for (int i = head + 4 * t; i < k; i += 4 * nt) {
+      *reinterpret_cast<int4*>(dst + i) = s4;
+    }
+  } else {
+    for (int i = filled + t; i < k; i += nt) dst[i] = kSentinel;
+  }
+}
+
+// Compaction of row s of sp [S, k] against plane s of dense [S, 32768]
+// into out [S, k]; kKeepHits keeps the entries whose bit is set, else
+// those whose bit is clear; sentinel entries are never kept. Warp w of a
+// tile owns its chunk of 32 V consecutive entries (load_chunk).
+//   kWarpUnit: k <= 32 V; warp w of block b takes shard b * warps + w, in
+//     one chunk, with no barrier.
+//   else: block b takes shard b in tiles of blockDim.x * V entries; the
+//     warp totals pass through shared memory (two buffers, so one barrier
+//     per tile), a running offset carries from tile to tile, and the next
+//     tile's indices load while this tile's gathers are in flight.
+// kVec4 (k % 4 == 0, out 16-byte aligned): the sentinel tail in 16-byte
+// stores.
+template <bool kKeepHits, int V, bool kWarpUnit, bool kVec4>
 __global__ void __launch_bounds__(kThreads)
     sparse_dense_kernel(const int* __restrict__ sp,
                         const unsigned* __restrict__ dense,
-                        int* __restrict__ out, int k, long long w) {
-  __shared__ int warp_counts[kWarps];
-  const long long shard = blockIdx.x;
+                        int* __restrict__ out, long long n_shards, int k,
+                        long long w) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long shard =
+      kWarpUnit ? static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp
+                : static_cast<long long>(blockIdx.x);
+  if (shard >= n_shards) return;  // whole warps: the warp unit's last block
   const int* row = sp + shard * k;
   const unsigned* plane = dense + shard * w;
   int* dst = out + shard * k;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
-  int filled = 0;
-  for (int base = 0; base < k; base += kThreads) {
-    const int i = base + threadIdx.x;
-    const int idx = i < k ? __ldg(row + i) : kSentinel;
-    bool keep = false;
-    if (static_cast<unsigned>(idx) < static_cast<unsigned>(kSentinel)) {
-      const unsigned word = __ldg(plane + (idx >> 5));
-      const bool bit = (word >> (idx & 31)) & 1u;
-      keep = kKeepHits ? bit : !bit;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) warp_counts[warp] = __popc(ballot);
-    __syncthreads();
-    int offset = filled, total = 0;
-#pragma unroll
-    for (int v = 0; v < kWarps; ++v) {
-      const int c = warp_counts[v];
-      offset += v < warp ? c : 0;
-      total += c;
-    }
-    if (keep) dst[offset + __popc(ballot & below)] = idx;
-    filled += total;
-    __syncthreads();  // warp_counts is rewritten by the next tile
+  int idx[V];
+  unsigned ballot[V];
+  if (kWarpUnit) {
+    load_chunk<V>(row, 0, k, lane, idx);
+    const int total = keep_ballots<kKeepHits, V>(plane, idx, ballot);
+    write_kept<V>(dst, 0, ballot, idx, lane);
+    fill_tail<kVec4>(dst, total, k, lane, 32);
+    return;
   }
-  for (int i = filled + threadIdx.x; i < k; i += kThreads) dst[i] = kSentinel;
+  __shared__ int warp_totals[2][kSparseMaxWarps];
+  const int n_warps = blockDim.x >> 5;
+  const int tile = blockDim.x * V;
+  const int chunk = warp * 32 * V;
+  int filled = 0;
+  int parity = 0;
+  load_chunk<V>(row, chunk, k, lane, idx);
+  for (int base = 0; base < k; base += tile) {
+    const int total = keep_ballots<kKeepHits, V>(plane, idx, ballot);
+    int next[V];
+    load_chunk<V>(row, base + tile + chunk, k, lane, next);
+    if (lane == 0) warp_totals[parity][warp] = total;
+    __syncthreads();
+    int offset = filled, tile_total = 0;
+#pragma unroll
+    for (int v = 0; v < kSparseMaxWarps; ++v) {
+      const int c = v < n_warps ? warp_totals[parity][v] : 0;
+      offset += v < warp ? c : 0;
+      tile_total += c;
+    }
+    write_kept<V>(dst, offset, ballot, idx, lane);
+    filled += tile_total;
+    parity ^= 1;
+#pragma unroll
+    for (int j = 0; j < V; ++j) idx[j] = next[j];
+  }
+  fill_tail<kVec4>(dst, filled, k, threadIdx.x, blockDim.x);
+}
+
+template <bool kKeepHits, int V, bool kWarpUnit>
+cudaError_t launch_sparse_dense(unsigned grid, int threads, cudaStream_t st,
+                                const int* sp, const unsigned* dense, int* out,
+                                long long n_shards, int k, long long w,
+                                bool vec4) {
+  if (vec4) {
+    sparse_dense_kernel<kKeepHits, V, kWarpUnit, true>
+        <<<grid, threads, 0, st>>>(sp, dense, out, n_shards, k, w);
+  } else {
+    sparse_dense_kernel<kKeepHits, V, kWarpUnit, false>
+        <<<grid, threads, 0, st>>>(sp, dense, out, n_shards, k, w);
+  }
+  return cudaGetLastError();
 }
 
 // Launcher of the staged sum: its dynamic shared memory above 48 KB
@@ -846,24 +1189,88 @@ int pbk_pair_stream_counts(const long long* meta, int n_leaves, int k, int op,
   return static_cast<int>(cudaGetLastError());
 }
 
-int pbk_program_count(const long long* meta, int n_leaves, int n_instr,
-                      int* out, long long n_shards, long long w4, int split,
+// The program's table as int64: ptrs (n_leaves leaf pointers), then instr
+// (n_instr instructions); depth = the depth class (2, 4 or 16) from
+// ops/kernels.py program_plan. pbk_program_count copies host arrays of at
+// most kParamMeta entries together into the kernel's parameters;
+// pbk_program_count_table takes one device table of any length. Both
+// zero out (int32[S]) on the stream first.
+int pbk_program_count(const long long* ptrs, const long long* instr,
+                      int n_leaves, int n_instr, int depth, int* out,
+                      long long n_shards, long long w4, int split,
                       void* stream) {
+  if (n_leaves < 1 || n_instr < 1 || n_leaves + n_instr > kParamMeta) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ProgramParam prog;
+  std::memcpy(prog.meta, ptrs, sizeof(long long) * n_leaves);
+  std::memcpy(prog.meta + n_leaves, instr, sizeof(long long) * n_instr);
   const dim3 grid(static_cast<unsigned>(n_shards), split);
-  program_count_kernel<false><<<grid, kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      nullptr, nullptr, meta, n_leaves, n_instr, out, w4, split);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(out, 0, sizeof(int) * n_shards, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  switch (depth) {
+    case 2:
+      program_count_kernel<2><<<grid, kThreads, 0, st>>>(prog, n_leaves,
+                                                         n_instr, out, w4, split);
+      break;
+    case 4:
+      program_count_kernel<4><<<grid, kThreads, 0, st>>>(prog, n_leaves,
+                                                         n_instr, out, w4, split);
+      break;
+    case kMaxStack:
+      program_count_kernel<kMaxStack><<<grid, kThreads, 0, st>>>(
+          prog, n_leaves, n_instr, out, w4, split);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+int pbk_program_count_table(const long long* meta, int n_leaves, int n_instr,
+                            int depth, int* out, long long n_shards,
+                            long long w4, int split, void* stream) {
+  if (n_leaves < 1 || n_instr < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int stage = n_leaves + n_instr <= kStagedMeta;
+  const size_t smem =
+      stage ? sizeof(long long) * static_cast<size_t>(n_leaves + n_instr) : 0;
+  const dim3 grid(static_cast<unsigned>(n_shards), split);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(out, 0, sizeof(int) * n_shards, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  switch (depth) {
+    case 2:
+      program_count_table_kernel<2><<<grid, kThreads, smem, st>>>(
+          meta, n_leaves, n_instr, stage, out, w4, split);
+      break;
+    case 4:
+      program_count_table_kernel<4><<<grid, kThreads, smem, st>>>(
+          meta, n_leaves, n_instr, stage, out, w4, split);
+      break;
+    case kMaxStack:
+      program_count_table_kernel<kMaxStack><<<grid, kThreads, smem, st>>>(
+          meta, n_leaves, n_instr, stage, out, w4, split);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// zeroes out (int32[S]) on the stream first
 int pbk_intersect_count(const void* a, const void* b, int* out,
                         long long n_shards, long long w4, int split,
                         void* stream) {
   const dim3 grid(static_cast<unsigned>(n_shards), split);
-  program_count_kernel<true><<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(a), static_cast<const uint4*>(b), nullptr, 0,
-      0, out, w4, split);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = cudaMemsetAsync(out, 0, sizeof(int) * n_shards, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  intersect_count_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const uint4*>(a), static_cast<const uint4*>(b), out, w4,
+      split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -985,20 +1392,39 @@ int pbk_cross_count(const void* prefix, const void* axis, int n_prefix,
   return static_cast<int>(cudaGetLastError());
 }
 
+// block_unit, threads and grid from ops/kernels.py sparse_plan: the warp
+// unit (block_unit 0) needs k <= 32 kSparseVec and takes threads / 32
+// shards a block; the block unit takes one shard a block.
 int pbk_sparse_intersect_dense(const void* sp, const void* dense, void* out,
                                long long n_shards, int k, long long w,
-                               int keep_hits, void* stream) {
+                               int keep_hits, int block_unit, int threads,
+                               long long grid, void* stream) {
+  const bool unit_ok = block_unit || k <= 32 * kSparseVec;
+  const long long per_block = block_unit ? 1 : threads / 32;
+  if (!unit_ok || threads < 32 || threads > kThreads || threads % 32 ||
+      grid < 1 || grid > 0x7fffffffLL || grid * per_block < n_shards) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int* s = static_cast<const int*>(sp);
   const unsigned* d = static_cast<const unsigned*>(dense);
   int* o = static_cast<int*>(out);
+  const bool vec4 = k % 4 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(n_shards));
+  const unsigned g = static_cast<unsigned>(grid);
+  constexpr int V = kSparseVec;
+  cudaError_t e;
   if (keep_hits) {
-    sparse_dense_kernel<true><<<grid, kThreads, 0, st>>>(s, d, o, k, w);
+    e = block_unit ? launch_sparse_dense<true, V, false>(
+                         g, threads, st, s, d, o, n_shards, k, w, vec4)
+                   : launch_sparse_dense<true, V, true>(
+                         g, threads, st, s, d, o, n_shards, k, w, vec4);
   } else {
-    sparse_dense_kernel<false><<<grid, kThreads, 0, st>>>(s, d, o, k, w);
+    e = block_unit ? launch_sparse_dense<false, V, false>(
+                         g, threads, st, s, d, o, n_shards, k, w, vec4)
+                   : launch_sparse_dense<false, V, true>(
+                         g, threads, st, s, d, o, n_shards, k, w, vec4);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -82,8 +83,12 @@ def load() -> ctypes.CDLL:
         lib.pbk_pair_stream_counts.argtypes = [vp, i, i, i, vp, ll, ll, ll,
                                                i, i, vp]
         lib.pbk_pair_stream_counts.restype = i
-        lib.pbk_program_count.argtypes = [vp, i, i, vp, ll, ll, i, vp]
+        lib.pbk_program_count.argtypes = [vp, vp, i, i, i, vp, ll, ll, i,
+                                          vp]
         lib.pbk_program_count.restype = i
+        lib.pbk_program_count_table.argtypes = [vp, i, i, i, vp, ll, ll, i,
+                                                vp]
+        lib.pbk_program_count_table.restype = i
         lib.pbk_intersect_count.argtypes = [vp, vp, vp, ll, ll, i, vp]
         lib.pbk_intersect_count.restype = i
         lib.pbk_bsi_compare.argtypes = [vp, vp, vp, i, i, vp, ll, i, vp]
@@ -98,7 +103,7 @@ def load() -> ctypes.CDLL:
                                         vp]
         lib.pbk_cross_count.restype = i
         lib.pbk_sparse_intersect_dense.argtypes = [vp, vp, vp, ll, i, ll, i,
-                                                   vp]
+                                                   i, i, ll, vp]
         lib.pbk_sparse_intersect_dense.restype = i
         _lib = lib
         return lib
@@ -109,3 +114,38 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.pbk_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def build_log() -> str:
+    """The compiler's log of the loaded build (read back from beside the
+    library when this process did not compile it)."""
+    if build_info["log"] or not build_info["path"]:
+        return build_info["log"]
+    log = Path(build_info["path"]).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def ptxas_report(log: str) -> dict:
+    """Per compiled function (mangled name), what ptxas -v reported:
+    registers and the bytes of stack frame, spill stores and spill loads."""
+    report: dict = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            report.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            report[name].update(stack=int(m.group(1)),
+                                spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    return report

@@ -9,9 +9,10 @@ Three kernels (csrc/bitmap_kernels.cu) carry the dense read path:
   batcher launches it over a batch's distinct canonical pairs
   (``plan_pairs``) and maps the counts back to its queries on the host.
 * ``program_count``: a nested bitmap program + popcount per shard, the
-  program encoded as postfix bytecode over a device table of leaf
-  pointers (any number of leaves, any length). Replaces Pallas
-  program_count (pallas_kernels.py:108).
+  program encoded as postfix bytecode over a table of leaf pointers (any
+  number of leaves, any length): a by-value kernel parameter when it fits
+  (``program_plan``), else a device table. Replaces Pallas program_count
+  (pallas_kernels.py:108).
 * ``intersect_count``: per-shard popcount(a & b). Replaces Pallas
   intersect_count (pallas_kernels.py:59).
 
@@ -53,7 +54,8 @@ One more carries the hybrid sparse/run read path (ops/hybrid.py):
   (pallas_kernels.py:295). Serves every sparse∩dense node of eval_hybrid.
   ``sparse_difference_dense`` launches the same kernel keeping the entries
   whose bit is clear (sparse &~ dense; XLA in the JAX package); both
-  count as launches of sparse_intersect_dense.
+  count as launches of sparse_intersect_dense. Its work unit (a warp or a
+  block per shard) and entries per thread follow K (``sparse_plan``).
 
 Routing: a CPU tensor takes the plain version (``<name>_plain``, plain
 torch). A CUDA tensor launches the kernel or raises; nothing falls back.
@@ -77,6 +79,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.constants import WORDS_PER_SHARD
+from pilosa_tpu_torch.ops import _build
 from pilosa_tpu_torch.ops import bitvector as bv
 from pilosa_tpu_torch.ops import hybrid
 
@@ -101,6 +104,20 @@ _SUM_STAGED_THREADS = 128
 
 # operand stack slots of the program interpreter (the kernel's kMaxStack)
 MAX_STACK = 16
+
+# the kernel is instantiated per class of stack depth: the classes up to 4
+# keep the stack in registers, the last in local memory
+DEPTH_CLASSES = (2, 4, MAX_STACK)
+
+# int64 entries of the program table (leaf pointers, then instructions)
+# that fit the kernel's by-value parameter (the kernel's kParamMeta: 4032
+# bytes, within the classic 4 KB of kernel parameters)
+PARAM_META = 504
+
+# sparse_intersect_dense: shards per block of the warp unit, and entries
+# per thread (the kernel's kSparseVec)
+SPARSE_WARPS = 4
+SPARSE_V = 8
 
 # postfix opcodes, shared with the kernel; RANDNOT is b &~ a for the stack
 # [.., a, b], so a minuend can be pushed after its deeper subtrahend
@@ -229,6 +246,51 @@ def eval_program_plain(leaves, program) -> torch.Tensor:
     return acc
 
 
+def depth_class(depth: int) -> int:
+    """The kernel instantiation a program of stack `depth` runs in."""
+    for c in DEPTH_CLASSES:
+        if depth <= c:
+            return c
+    raise ValueError(f"program needs an operand stack of {depth} (kernel "
+                     f"caps: stack {MAX_STACK})")
+
+
+@functools.lru_cache(maxsize=4096)
+def _instructions(program) -> np.ndarray:
+    """int64 instructions of `program`: opcode | leaf << 8."""
+    codes, args, _ = encode_program(program)
+    return (np.array(codes, dtype=np.int64)
+            | (np.array(args, dtype=np.int64) << 8))
+
+
+def pack_program(ptrs, program) -> np.ndarray:
+    """The kernel's program table: int64 leaf pointers, then `program`'s
+    instructions (opcode | leaf << 8), as the parameter and the device
+    table hold it."""
+    return np.concatenate([np.asarray(ptrs, dtype=np.int64),
+                           _instructions(program)])
+
+
+def program_fits_param(n_leaves: int, n_instr: int) -> bool:
+    """Whether the table fits the kernel's by-value parameter."""
+    return n_leaves + n_instr <= PARAM_META
+
+
+class ProgramPlan(NamedTuple):
+    """How program_count runs a program: its stack depth, the kernel's
+    depth class, and the table's form ("param" or "table")."""
+
+    depth: int
+    depth_class: int
+    form: str
+
+
+def program_plan(program, n_leaves: int) -> ProgramPlan:
+    codes, _, depth = encode_program(program)
+    form = "param" if program_fits_param(n_leaves, len(codes)) else "table"
+    return ProgramPlan(depth, depth_class(depth), form)
+
+
 # ---------------------------------------------------------------------------
 # Argument checks
 # ---------------------------------------------------------------------------
@@ -270,6 +332,7 @@ def _check_planes(planes: Sequence[torch.Tensor]) -> torch.device:
     return dev
 
 
+@functools.lru_cache(maxsize=1024)
 def _split(work_items: int, vec_per_item: int, target: int = _TARGET_BLOCKS,
            threads: int = _THREADS) -> int:
     """Blocks per work item: `target` blocks overall, but at least one
@@ -279,8 +342,14 @@ def _split(work_items: int, vec_per_item: int, target: int = _TARGET_BLOCKS,
     return int(max(1, min(want, most, 65535)))
 
 
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(dev: torch.device) -> int:
+    """The handle of the current CUDA stream of `dev`, in one call."""
+    if _raw_stream is not None:
+        return _raw_stream(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _device_table(parts, dev: torch.device) -> torch.Tensor:
@@ -290,10 +359,15 @@ def _device_table(parts, dev: torch.device) -> torch.Tensor:
     return table.pin_memory().to(dev, non_blocking=True)
 
 
-def _load():
-    from pilosa_tpu_torch.ops import _build
+_LIB = None
 
-    return _build, _build.load()
+
+def _lib() -> ctypes.CDLL:
+    """The kernel library, built and loaded at first use."""
+    global _LIB
+    if _LIB is None:
+        _LIB = _build.load()
+    return _LIB
 
 
 # ---------------------------------------------------------------------------
@@ -312,14 +386,14 @@ def intersect_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if dev.type == "cpu":
         return intersect_count_plain(a, b)
     s, w = a.shape
-    out = torch.zeros(s, dtype=torch.int32, device=dev)
+    out = torch.empty(s, dtype=torch.int32, device=dev)
     if s == 0:
         return out
-    build, lib = _load()
+    lib = _lib()
     w4 = w // 4
     rc = lib.pbk_intersect_count(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                                  s, w4, _split(s, w4), _stream(dev))
-    build.check(lib, rc, "intersect_count")
+    _build.check(lib, rc, "intersect_count")
     _count_launch("intersect_count")
     return out
 
@@ -334,31 +408,45 @@ def program_count_plain(leaves, program) -> torch.Tensor:
     return bv.popcount(eval_program_plain(_leaf_list(leaves), program))
 
 
+@functools.lru_cache(maxsize=4096)
+def _program_static(program, n_leaves: int) -> tuple:
+    """(instruction count, program_plan, int64 instructions) of a program
+    the kernel can run over n_leaves leaves; raises where it cannot."""
+    codes, _ = _check_program(program, n_leaves)
+    return len(codes), program_plan(program, n_leaves), _instructions(program)
+
+
 def program_count(leaves, program) -> torch.Tensor:
     """L x [S, W] leaves (list or stacked [L, S, W]) + nested program ->
     int32[S]: the whole program and its popcount in one pass, no
-    intermediate planes. The kernel reads the bytecode and a table of leaf
-    pointers from device memory, so neither is capped; raises only for a
-    program whose operand stack exceeds MAX_STACK (on any device)."""
+    intermediate planes. The leaf pointers and bytecode go to the kernel
+    as a by-value parameter when they fit, else as a device table
+    (program_plan's form), so neither is capped; raises only for a program
+    whose operand stack exceeds MAX_STACK (on any device)."""
     leaves = _leaf_list(leaves)
     dev = _check_planes(leaves)
-    codes, args = _check_program(program, len(leaves))
+    n_instr, plan, instr = _program_static(program, len(leaves))
     if dev.type == "cpu":
         return program_count_plain(leaves, program)
     s, w = leaves[0].shape
-    out = torch.zeros(s, dtype=torch.int32, device=dev)
+    out = torch.empty(s, dtype=torch.int32, device=dev)
     if s == 0:
         return out
-    build, lib = _load()
+    lib = _lib()
     ptrs = np.array([t.data_ptr() for t in leaves], dtype=np.int64)
-    instr = (np.array(codes, dtype=np.int64)
-             | (np.array(args, dtype=np.int64) << 8))
-    meta = _device_table([ptrs, instr], dev)
     w4 = w // 4
-    rc = lib.pbk_program_count(meta.data_ptr(), len(leaves), len(codes),
-                               out.data_ptr(), s, w4, _split(s, w4),
-                               _stream(dev))
-    build.check(lib, rc, "program_count")
+    if plan.form == "param":
+        rc = lib.pbk_program_count(ptrs.ctypes.data, instr.ctypes.data,
+                                   len(leaves), n_instr, plan.depth_class,
+                                   out.data_ptr(), s, w4, _split(s, w4),
+                                   _stream(dev))
+    else:
+        table = _device_table([pack_program(ptrs, program)], dev)
+        rc = lib.pbk_program_count_table(table.data_ptr(), len(leaves),
+                                         n_instr, plan.depth_class,
+                                         out.data_ptr(), s, w4, _split(s, w4),
+                                         _stream(dev))
+    _build.check(lib, rc, "program_count")
     _count_launch("program_count")
     return out
 
@@ -468,7 +556,7 @@ def pair_stream_counts(leaves, ii, jj, op: str = "and") -> torch.Tensor:
     out = torch.zeros((k, c), dtype=torch.int32, device=dev)
     if k == 0 or s == 0:
         return out
-    build, lib = _load()
+    lib = _lib()
     ptrs = np.array([t.data_ptr() for t in leaves], dtype=np.int64)
     meta = _device_table([ptrs, ii, jj], dev)
     w4 = w // 4
@@ -476,7 +564,7 @@ def pair_stream_counts(leaves, ii, jj, op: str = "and") -> torch.Tensor:
     rc = lib.pbk_pair_stream_counts(meta.data_ptr(), len(leaves), k, code,
                                     out.data_ptr(), s, w4, SUM_SHARD_CHUNK,
                                     c, _split(k * c, chunk_vec), _stream(dev))
-    build.check(lib, rc, "pair_stream_counts")
+    _build.check(lib, rc, "pair_stream_counts")
     _count_launch("pair_stream_counts")
     return out
 
@@ -572,12 +660,12 @@ def bsi_compare(planes: torch.Tensor, exists: torch.Tensor, pred_bits,
     n = s * w // 4
     if n == 0:
         return out
-    build, lib = _load()
+    lib = _lib()
     blocks = min(-(-n // _THREADS), 1 << 20)
     rc = lib.pbk_bsi_compare(planes.data_ptr(), exists.data_ptr(),
                              pred.data_ptr(), d, BSI_OPS.index(op),
                              out.data_ptr(), n, blocks, _stream(dev))
-    build.check(lib, rc, "bsi_compare")
+    _build.check(lib, rc, "bsi_compare")
     _count_launch("bsi_compare")
     return out
 
@@ -627,7 +715,7 @@ def bsi_sum_counts(planes: torch.Tensor, filters,
     out = torch.zeros((k, d + 1, s), dtype=torch.int32, device=dev)
     if s and w:
         form = form or sum_form(k)
-        build, lib = _load()
+        lib = _lib()
         table = _device_table(
             [np.array([t.data_ptr() for t in masks], dtype=np.int64)], dev)
         if form == "grid":
@@ -642,7 +730,7 @@ def bsi_sum_counts(planes: torch.Tensor, filters,
             rc = lib.pbk_bsi_sum_staged(planes.data_ptr(), table.data_ptr(),
                                         k, d, out.data_ptr(), s, w // 4,
                                         parts, _stream(dev))
-        build.check(lib, rc, "bsi_sum_counts")
+        _build.check(lib, rc, "bsi_sum_counts")
         _count_launch("bsi_sum_counts", form)
     return out[0] if single else out
 
@@ -683,13 +771,13 @@ def topn_counts_packed(leaves, src: torch.Tensor) -> torch.Tensor:
     r = len(leaves)
     out = torch.zeros((_n_chunks(s), 3, r), dtype=torch.int32, device=dev)
     if r and s and w:
-        build, lib = _load()
+        lib = _lib()
         table = _device_table(
             [np.array([t.data_ptr() for t in leaves], dtype=np.int64)], dev)
         rc = lib.pbk_topn_counts(table.data_ptr(), r, src.data_ptr(),
                                  out.data_ptr(), s, w // 4, SUM_SHARD_CHUNK,
                                  _stream(dev))
-        build.check(lib, rc, "topn_counts_packed")
+        _build.check(lib, rc, "topn_counts_packed")
         _count_launch("topn_counts_packed")
     return out.sum(dim=0, dtype=torch.int64)
 
@@ -748,7 +836,7 @@ def cross_count_matrix(prefix: torch.Tensor,
     c = _n_chunks(s)
     out = torch.zeros((c, p, r), dtype=torch.int32, device=dev)
     if p and r and s and w:
-        build, lib = _load()
+        lib = _lib()
         w4 = w // 4
         tile_p = 4 if p <= 4 else 8 if p <= 8 else 16
         tiles = c * -(-p // tile_p) * -(-r // 64)
@@ -757,7 +845,7 @@ def cross_count_matrix(prefix: torch.Tensor,
         rc = lib.pbk_cross_count(prefix.data_ptr(), axis.data_ptr(), p, r,
                                  out.data_ptr(), s, w4, SUM_SHARD_CHUNK, c,
                                  split, _stream(dev))
-        build.check(lib, rc, "cross_count_matrix")
+        _build.check(lib, rc, "cross_count_matrix")
         _count_launch("cross_count_matrix")
     return out.sum(dim=0, dtype=torch.int64)
 
@@ -805,18 +893,41 @@ def sparse_difference_dense_plain(sp: torch.Tensor,
     return hybrid.sparse_difference_dense(sp, dense)
 
 
+class SparsePlan(NamedTuple):
+    """sparse_intersect_dense's launch for K entries a row over S shards:
+    unit "warp" (a warp per shard, SPARSE_WARPS shards a block, K <= 32
+    SPARSE_V) or "block" (a block per shard, tiles of threads * SPARSE_V
+    entries; a warp owns 32 SPARSE_V consecutive entries of a tile, in
+    SPARSE_V stripes of 32); threads per block; grid blocks."""
+
+    unit: str
+    threads: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=1024)
+def sparse_plan(k: int, s: int) -> SparsePlan:
+    if k <= 32 * SPARSE_V:
+        return SparsePlan("warp", 32 * SPARSE_WARPS,
+                          max(1, -(-s // SPARSE_WARPS)))
+    threads = min(_THREADS, 32 * -(-k // (32 * SPARSE_V)))
+    return SparsePlan("block", threads, s)
+
+
 def _sparse_dense_launch(sp: torch.Tensor, dense: torch.Tensor,
-                         keep_hits: bool) -> torch.Tensor:
-    dev = sp.device
+                         keep_hits: int) -> torch.Tensor:
     s, k = sp.shape
     out = torch.empty_like(sp)
     if s == 0 or k == 0:
         return out
-    build, lib = _load()
-    rc = lib.pbk_sparse_intersect_dense(sp.data_ptr(), dense.data_ptr(),
-                                        out.data_ptr(), s, k, dense.shape[1],
-                                        int(keep_hits), _stream(dev))
-    build.check(lib, rc, "sparse_intersect_dense")
+    plan = sparse_plan(k, s)
+    lib = _lib()
+    rc = lib.pbk_sparse_intersect_dense(
+        sp.data_ptr(), dense.data_ptr(), out.data_ptr(), s, k, WORDS_PER_SHARD,
+        keep_hits, plan.unit == "block", plan.threads, plan.grid,
+        _stream(sp.device))
+    if rc:
+        _build.check(lib, rc, "sparse_intersect_dense")
     _count_launch("sparse_intersect_dense")
     return out
 
@@ -835,7 +946,7 @@ def sparse_intersect_dense(sp: torch.Tensor,
     dev = _check_sparse_dense(sp, dense)
     if dev.type == "cpu":
         return sparse_intersect_dense_plain(sp, dense)
-    return _sparse_dense_launch(sp, dense, keep_hits=True)
+    return _sparse_dense_launch(sp, dense, 1)
 
 
 def sparse_difference_dense(sp: torch.Tensor,
@@ -846,4 +957,4 @@ def sparse_difference_dense(sp: torch.Tensor,
     dev = _check_sparse_dense(sp, dense)
     if dev.type == "cpu":
         return sparse_difference_dense_plain(sp, dense)
-    return _sparse_dense_launch(sp, dense, keep_hits=False)
+    return _sparse_dense_launch(sp, dense, 0)

@@ -223,11 +223,18 @@ def _sparse_rows(rng, s: int, k: int) -> np.ndarray:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s,k", [(3, 8), (1029, 8), (37, 16384), (257, 300)])
+@pytest.mark.parametrize("s,k", [(3, 8), (1029, 8), (37, 16384), (257, 300),
+                                 (9, 1), (9, 31), (9, 32), (9, 33), (9, 255),
+                                 (9, 256), (9, 257), (9, 511), (9, 512),
+                                 (9, 513), (9, 2048), (9, 2049), (9, 4096),
+                                 (9, 4097), (130, 2048)])
 def test_sparse_intersect_dense_matches_plain_on_card(cuda_device, s, k):
-    """S not a multiple of any block size; rows of all hits (an all-ones
-    plane), all misses (a zero plane), sentinel only, half full; both
-    modes of the kernel (keep hits, keep misses)."""
+    """S not a multiple of any block size; K at each edge of the work
+    units (sparse_plan: a warp per shard up to 32 x 8 entries, then a
+    block per shard in tiles of up to 2048) and odd K (no 16-byte tail
+    stores); rows of all hits (an all-ones plane), all misses (a zero
+    plane), sentinel only, half full; both modes of the kernel (keep
+    hits, keep misses)."""
     rng = np.random.default_rng(s * 7 + k)
     sp = torch.from_numpy(_sparse_rows(rng, s, k)).to(cuda_device)
     dense = _planes(rng, cuda_device, s, 1 << 15)
@@ -246,6 +253,97 @@ def test_sparse_intersect_dense_matches_plain_on_card(cuda_device, s, k):
     hits = kernels.sparse_intersect_dense(sp, dense)
     assert torch.equal(hits[0], sp[0])
     assert bool((hits[1] == 1 << 20).all())
+
+
+@pytest.mark.gpu
+def test_sparse_intersect_dense_unaligned_rows_on_card(cuda_device):
+    """K a multiple of 4 but the rows, and so the output's tail, not on
+    16-byte boundaries: the kernel reads any alignment."""
+    rng = np.random.default_rng(11)
+    s, k = 33, 64
+    flat = torch.from_numpy(_sparse_rows(rng, s, k).reshape(-1)).to(cuda_device)
+    buf = torch.empty(s * k + 1, dtype=torch.int32, device=cuda_device)
+    buf[1:] = flat
+    sp = buf[1:].view(s, k)
+    assert sp.is_contiguous() and sp.data_ptr() % 16 == 4
+    dense = _planes(rng, cuda_device, s, 1 << 15)
+    assert torch.equal(kernels.sparse_intersect_dense(sp, dense),
+                       kernels.sparse_intersect_dense_plain(sp, dense))
+    assert torch.equal(kernels.sparse_difference_dense(sp, dense),
+                       kernels.sparse_difference_dense_plain(sp, dense))
+
+
+def _balanced(lo: int, hi: int):
+    if hi - lo == 1:
+        return ("leaf", lo)
+    mid = (lo + hi) // 2
+    op = ("and", "or", "xor")[(hi - lo).bit_length() % 3]
+    return (op, _balanced(lo, mid), _balanced(mid, hi))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,w", [(3, 64), (130, 32768)])
+def test_program_count_classes_and_forms_on_card(cuda_device, s, w):
+    """Every depth class of the kernel (2, 4, 16) in both forms of the
+    table: short programs take the kernel parameter, 300-leaf ones the
+    device table (staged into shared memory), and a 7000-leaf chain a
+    table read from device memory."""
+    rng = np.random.default_rng(s + w)
+    rows = list(_planes(rng, cuda_device, 8, s, w).unbind(0))
+    leaves16 = [rows[i % 8] for i in range(16)]
+    many = [rows[i % 8] for i in range(300)]
+    chain = ("or", *[("leaf", i) for i in range(300)])
+    cases = [
+        (("andnot", ("leaf", 0), ("leaf", 1)), rows, 2, "param"),
+        (("leaf", 3), rows, 2, "param"),
+        (("and", *[("leaf", i) for i in range(8)]), rows, 2, "param"),
+        (("or", ("xor", ("leaf", 0), ("leaf", 1)),
+          ("andnot", ("leaf", 2), ("not", ("leaf", 3)))), rows, 4, "param"),
+        (("not", ("andnot", ("leaf", 4), ("or", ("leaf", 0),
+                                          ("xor", ("leaf", 1), ("leaf", 2))))),
+         rows, 2, "param"),
+        (_balanced(0, 8), rows, 4, "param"),
+        (("andnot", ("leaf", 7), _balanced(0, 4), ("not", _balanced(4, 8))),
+         rows, 4, "param"),
+        (_balanced(0, 16), leaves16, 16, "param"),
+        (("xor", _balanced(0, 8), ("not", _balanced(8, 16))), leaves16, 16,
+         "param"),
+        (chain, many, 2, "table"),
+        (("xor", chain, _balanced(0, 4)), many, 4, "table"),
+        (("andnot", _balanced(0, 8), ("not", chain)), many, 4, "table"),
+        (("xor", chain, _balanced(0, 16)), many, 16, "table"),
+    ]
+    kernels.reset_launch_counts()
+    for program, leaves, cls, form in cases:
+        plan = kernels.program_plan(program, len(leaves))
+        assert (plan.depth_class, plan.form) == (cls, form), program
+        got = kernels.program_count(leaves, program)
+        assert torch.equal(got, kernels.program_count_plain(leaves, program)), \
+            program
+    n = 7000  # past the shared-memory staging: read from device memory
+    long_chain = ("or", *[("leaf", i) for i in range(n)])
+    longest = [rows[i % 8] for i in range(n)]
+    assert kernels.program_plan(long_chain, n).form == "table"
+    assert torch.equal(kernels.program_count(longest, long_chain),
+                       kernels.program_count_plain(longest, long_chain))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["program_count"] == len(cases) + 1
+
+
+@pytest.mark.gpu
+def test_program_count_stack_in_registers_on_card(cuda_device):
+    """ptxas -v: the classes up to depth 4 keep the operand stack in
+    registers (0-byte stack frame, no spills), in both forms."""
+    from pilosa_tpu_torch.ops import _build
+
+    _build.load()
+    report = _build.ptxas_report(_build.build_log())
+    shallow = {name: r for name, r in report.items()
+               if "program_count" in name and ("ILi2E" in name or "ILi4E" in name)}
+    assert len(shallow) == 4, sorted(report)
+    for name, r in shallow.items():
+        assert (r["stack"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), (
+            name, r)
 
 
 @pytest.mark.gpu

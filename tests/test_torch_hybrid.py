@@ -203,7 +203,7 @@ def test_run_to_dense_word_edges():
 # -- the kernel's plain route against the Pallas kernel ----------------------------
 
 
-@pytest.mark.parametrize("k", [8, 512, 4096])
+@pytest.mark.parametrize("k", [8, 31, 32, 33, 255, 256, 257, 512, 4096])
 def test_sparse_intersect_dense_matches_pallas(k):
     rng = np.random.default_rng(k)
     cards = [k, k // 2, -1]

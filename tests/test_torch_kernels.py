@@ -103,6 +103,16 @@ def test_intersect_count_matches_pallas(s):
 
 # -- program_count --------------------------------------------------------------
 
+def _balanced(lo: int, hi: int):
+    """A complete binary tree over leaf references lo..hi-1 (of 5 leaves):
+    stack depth log2(hi - lo) + 1."""
+    if hi - lo == 1:
+        return ("leaf", lo % 5)
+    mid = (lo + hi) // 2
+    op = ("and", "or", "xor")[(hi - lo).bit_length() % 3]
+    return (op, _balanced(lo, mid), _balanced(mid, hi))
+
+
 PROGRAMS = {
     "nested": ("andnot", ("or", ("leaf", 0), ("leaf", 1)), ("leaf", 2)),
     "not_rooted": ("not", ("xor", ("leaf", 0), ("leaf", 1))),
@@ -111,6 +121,16 @@ PROGRAMS = {
     "mixed": ("or", ("and", ("leaf", 0), ("not", ("leaf", 3))),
               ("xor", ("leaf", 1), ("andnot", ("leaf", 2), ("leaf", 4),
                                     ("leaf", 0)))),
+    # stack depth 5: the kernel's deepest class (a local stack)
+    "balanced16": _balanced(0, 16),
+    # 5 leaves + 502 to 531 instructions: past the kernel's parameter
+    # table, at each depth class (2, 4, 16)
+    "table": ("xor", *[("leaf", i % 5) for i in range(250)],
+              ("not", ("leaf", 3))),
+    "table4": ("andnot", _balanced(0, 4),
+               ("or", *[("leaf", i % 5) for i in range(250)])),
+    "table16": ("xor", ("and", *[("leaf", i % 5) for i in range(250)]),
+                _balanced(0, 16)),
 }
 
 
@@ -121,6 +141,10 @@ def test_program_count_matches_pallas(name, s):
     leaves = _with_edge_words(_planes(rng, 5, s, W))
     leaves[2, :, 100:200] = 0
     program = PROGRAMS[name]
+    plan = kernels.program_plan(program, 5)
+    assert plan.depth_class == {"balanced16": 16, "table": 2, "table4": 4,
+                                "table16": 16}.get(name, plan.depth_class)
+    assert plan.form == ("table" if name.startswith("table") else "param")
     got = kernels.program_count([_t(x) for x in leaves], program)
     want = pk.program_count(tuple(jnp.asarray(x) for x in leaves), program)
     assert got.shape == (s,)
