@@ -63,7 +63,29 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    Row(f=b))) with varying a and b, every answer checked. Launch counts
    are zeroed before the phase: sparse_intersect_dense must launch, and
    the port must have uploaded sparse and run leaves.
-6. Kernels at full width: W = 32768 words, S = 1024 shards (1.07B
+6. Server, write path, on the same server and index (bench.py's ingest
+   stage, bench.py:1824-1935, cut to a fixed length): 8 keep-alive writers
+   each send 40 envelopes of 500 calls, 80 % Set of a column of their own
+   (column % 8 = writer) anywhere in the 1024 shards on one of f rows 0-7
+   (dense), s rows 1-8 (sparse, K = 16..2048) or r row 0 (run), 20 %
+   Clear of a (row, column) the writer set earlier: 160,000 mutations,
+   served through the IngestBatcher, Fragment.apply_batch and the
+   in-place patches of the resident leaves, while 32 clients run
+   Count(Intersect(Row(f=a), Row(f=b))). Every changed flag is checked
+   against a numpy oracle updated in each writer's own order (columns are
+   disjoint per writer, so the state is exact whatever the interleaving);
+   then read-backs (Count of every written row, 8 f pairs, 8 s∩f, a
+   3-way Intersect, TopN with and without a Src, Not) are exact, the f
+   rows are served from their patched leaves (no dense upload), no dense
+   patch was dropped, and pair_stream_counts, program_count,
+   sparse_intersect_dense and topn_counts_packed launch after the writes.
+   Printed: acked mutations/s, the readers' p50/p99 against a writer-free
+   round, the group-commit ratio, batches, patches and drops, the bytes
+   uploaded by form after the writes, and the first Count(Intersect)
+   after a burst of 5 envelopes a writer with ingest on, then off
+   (PILOSA_TPU_TORCH_INGEST=0), with the sparse rows read back after the
+   batched burst. Launch counts are zeroed before the phase.
+7. Kernels at full width: W = 32768 words, S = 1024 shards (1.07B
    columns), random planes from a seeded torch.Generator on the card. Each
    kernel is held against its plain torch version, exactly (integer
    counts, tolerance 0): pair_stream_counts for all 5 ops at K = 1024 over
@@ -86,8 +108,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    sparse_intersect_dense, both modes, at K past each edge of its work
    units, at every K the hybrid phase served and at K = 16384 (event,
    device and host times). Times by CUDA events (warm, median).
-7. The last lines: nvidia-smi's name and power limit, one JSON object with
-   a record per kernel (its launches summed over the four paths, with
+8. The last lines: nvidia-smi's name and power limit, one JSON object with
+   a record per kernel (its launches summed over the five paths, with
    launches_by_path beside; bsi_sum_counts adds its launches by form and
    the form the served shape takes), and {"ok": true, "device": {...}}.
 
@@ -104,10 +126,16 @@ of the port times that checkout the same way.
                                          # intersect_count and
                                          # sparse_intersect_dense alone
 
---kernel-times runs the program and sparse parts of phase 6 without the
+--kernel-times runs the program and sparse parts of phase 7 without the
 server (8 random planes; K = 8..4096 as the hybrid phase serves them, and
 16384) and prints their numbers as one JSON line. It calls only wrapper
 functions an older checkout also has, so a copy beside one times it too.
+
+    python3 chip_smoke.py --ingest-only  # phases 1-2, then phase 6 on
+                                         # s and r loaded without phase 5
+
+--ingest-only runs the Count path, loads s and r as phase 5 would, and
+runs the write path, printing its numbers as one JSON line.
 
 Bounds: the larger of the bytes each input read once over HBM's 3.35 TB/s
 and the operations over the card's rate for their type. The integer rates
@@ -167,6 +195,14 @@ HYBRID_S_ROWS = 32  # rows of the stargazer-like set field s
 HYBRID_R_ROWS = 4   # rows of the run field r
 HYBRID_CLIENTS, HYBRID_PER_CLIENT = 32, 16  # the hybrid phase's pass
 SPARSE_SENTINEL = SHARD_WIDTH
+# the write phase (bench.py:1824-1827 and 1830-1935, cut to a fixed length)
+INGEST_WRITERS = 8      # keep-alive writer threads (bench.py:1824)
+INGEST_CALLS = 500      # Set/Clear calls per envelope (bench.py:1825)
+INGEST_ENVELOPES = 40   # envelopes per writer in the measured window
+INGEST_TURN_ENVELOPES = 5  # per writer in each ingest on/off turn
+INGEST_READERS = 32     # Count(Intersect) clients during the window
+INGEST_S_ROWS = tuple(range(1, 9))  # rows of s written: K = 16..2048
+INGEST_TURNS = ("on", "off")
 # the K of the hybrid phase's rows (min(4096, 8 x 2^(a mod 10)) bits per
 # shard, padded as the chooser pads), for runs without the server
 SERVED_SPARSE_K = [8 << i for i in range(10)]
@@ -914,11 +950,11 @@ def kernel_times(device, n_shards: int, words: int, seed: int,
         slab[r] = torch.randint(-2**31, 2**31, (n_shards, words),
                                 dtype=torch.int64, device=device,
                                 generator=gen).to(torch.int32)
-    log("phase 6: program_count and intersect_count")
+    log("phase 7: program_count and intersect_count")
     out = program_kernel_phase(list(slab.unbind(0)), int_rates(), runs)
     del slab
     torch.cuda.empty_cache()
-    log("phase 6: sparse_intersect_dense")
+    log("phase 7: sparse_intersect_dense")
     out.update(hybrid_kernel_phase(device, n_shards, words, SERVED_SPARSE_K,
                                    seed, runs))
     return out
@@ -942,6 +978,22 @@ def _http(uri_port: int, method: str, path: str, body: bytes = b"",
     finally:
         if own:
             conn.close()
+
+
+def _and_count(*packed: np.ndarray) -> int:
+    """Set bits of the AND of packed rows, in 16 MiB slices (no
+    full-size temporary)."""
+    step = 1 << 24
+    buf = np.empty(min(step, packed[0].size), dtype=np.uint8)
+    total = 0
+    for lo in range(0, packed[0].size, step):
+        n = min(step, packed[0].size - lo)
+        out = buf[:n]
+        np.copyto(out, packed[0][lo:lo + n])
+        for x in packed[1:]:
+            np.bitwise_and(out, x[lo:lo + n], out=out)
+        total += _popcount(out)
+    return total
 
 
 def _popcount(packed: np.ndarray) -> int:
@@ -1447,6 +1499,28 @@ def _contains(sorted_cols: np.ndarray, cols: np.ndarray) -> np.ndarray:
     return (i < sorted_cols.size) & (sorted_cols[i_c] == cols)
 
 
+def load_hybrid_fields(srv, port: int, n_shards: int, seed: int) -> tuple:
+    """Create the set fields s and r and import make_hybrid_rows' rows ->
+    (s rows, r rows, import seconds)."""
+    t0 = time.perf_counter()
+    s_rows, r_rows = make_hybrid_rows(n_shards, seed)
+    log(f"  hybrid data: {HYBRID_S_ROWS} rows of s, "
+        f"{sum(r.size for r in s_rows)} bits; {HYBRID_R_ROWS} rows of r, "
+        f"{sum(r.size for r in r_rows)} bits "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # no rank caches: no query ranks s or r, and the import skips the
+    # per-shard cache rebuild
+    for name in ("s", "r"):
+        _http(port, "POST", f"/index/i/field/{name}",
+              json.dumps({"options": {"cacheType": "none"}}).encode())
+    t0 = time.perf_counter()
+    srv.api.import_bits("i", "s", *shard_major(s_rows, n_shards))
+    srv.api.import_bits("i", "r", *shard_major(r_rows, n_shards))
+    import_s = time.perf_counter() - t0
+    log(f"  hybrid import: {import_s:.1f} s")
+    return s_rows, r_rows, import_s
+
+
 def hybrid_phase(srv, port: int, packed: list, exists: np.ndarray,
                  values: tuple, t_rows: list, t_cleared: int,
                  n_shards: int, seed: int, clients: int,
@@ -1464,22 +1538,7 @@ def hybrid_phase(srv, port: int, packed: list, exists: np.ndarray,
     from pilosa_tpu_torch.parallel.residency import HybridManager
 
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    s_rows, r_rows = make_hybrid_rows(n_shards, seed)
-    log(f"  hybrid data: {HYBRID_S_ROWS} rows of s, "
-        f"{sum(r.size for r in s_rows)} bits; {HYBRID_R_ROWS} rows of r, "
-        f"{sum(r.size for r in r_rows)} bits "
-        f"({time.perf_counter() - t0:.1f} s)")
-    # no rank caches: no query ranks s or r, and the import skips the
-    # per-shard cache rebuild
-    for name in ("s", "r"):
-        _http(port, "POST", f"/index/i/field/{name}",
-              json.dumps({"options": {"cacheType": "none"}}).encode())
-    t0 = time.perf_counter()
-    srv.api.import_bits("i", "s", *shard_major(s_rows, n_shards))
-    srv.api.import_bits("i", "r", *shard_major(r_rows, n_shards))
-    import_s = time.perf_counter() - t0
-    log(f"  hybrid import: {import_s:.1f} s")
+    s_rows, r_rows, import_s = load_hybrid_fields(srv, port, n_shards, seed)
 
     t0 = time.perf_counter()
     vcols, vvals = values
@@ -1636,6 +1695,420 @@ def hybrid_phase(srv, port: int, packed: list, exists: np.ndarray,
         raise AssertionError(f"no sparse or no run upload: {hyb}")
     stats["phase_s"] = time.perf_counter() - t_phase
     log(f"  hybrid phase: {stats['phase_s']:.1f} s")
+    return {"launches": launches, "stats": stats,
+            "data": (exists_all, s_rows, r_rows)}
+
+
+def make_ingest_ops(n_shards: int, seed: int, writers: int, n_env: int,
+                    calls: int, targets: list) -> list:
+    """Per writer, n_env envelopes of `calls` (is_set, field, row, col)
+    ops: 80 % Set of a random column of its own (col % writers ==
+    writer) over all shards on a random target row, 20 % Clear of a
+    (row, column) it set earlier (bench.py:1888-1897)."""
+    n_cols = n_shards * SHARD_WIDTH
+    out = []
+    for w in range(writers):
+        rng = np.random.default_rng(seed + 5000 + w)
+        n = n_env * calls
+        is_set = (rng.random(n) >= 0.2).tolist()
+        tgt = rng.integers(len(targets), size=n).tolist()
+        cols = (rng.integers(n_cols // writers, size=n) * writers
+                + w).tolist()
+        pick = rng.random(n).tolist()
+        ops, done = [], []
+        for k in range(n):
+            if is_set[k] or not done:
+                f, r = targets[tgt[k]]
+                ops.append((True, f, r, cols[k]))
+                done.append((f, r, cols[k]))
+            else:
+                f, r, c = done[int(pick[k] * len(done))]
+                ops.append((False, f, r, c))
+        out.append([ops[e * calls:(e + 1) * calls] for e in range(n_env)])
+    return out
+
+
+def envelope_pql(ops: list) -> bytes:
+    return "".join(f"{'Set' if s else 'Clear'}({c}, {f}={r})"
+                   for s, f, r, c in ops).encode()
+
+
+class WriteOracle:
+    """The bits the writers leave, updated in each writer's own order:
+    columns are disjoint per writer, so the final state and every changed
+    flag are exact whatever the interleaving."""
+
+    def __init__(self, packed_f: list, exists: np.ndarray, sorted_rows: dict):
+        self.packed_f = packed_f        # f row -> packed bits (updated)
+        self.exists = exists            # packed existence (updated)
+        self.base = sorted_rows         # (field, row) -> sorted columns
+        self.rows = dict(sorted_rows)   # (field, row) -> current columns
+        self.state: dict = {}           # (field, row, col) -> bit
+
+    def _base_bits(self, keys: list) -> list:
+        by_row: dict = {}
+        for i, (f, r, c) in enumerate(keys):
+            by_row.setdefault((f, r), []).append((i, c))
+        out = [False] * len(keys)
+        for (f, r), items in by_row.items():
+            cols = np.array([c for _, c in items], dtype=np.int64)
+            hit = (_bit_test(self.packed_f[r], cols) if f == "f"
+                   else _contains(self.base[(f, r)], cols))
+            for (i, _), h in zip(items, hit.tolist()):
+                out[i] = h
+        return out
+
+    def flags(self, ops: list) -> list:
+        """Each op's changed flag, in order; records the new state."""
+        new = list({(f, r, c) for _, f, r, c in ops} - self.state.keys())
+        self.state.update(zip(new, self._base_bits(new)))
+        out = []
+        for is_set, f, r, c in ops:
+            key = (f, r, c)
+            out.append(self.state[key] != is_set)
+            self.state[key] = is_set
+        return out
+
+    def settle(self, set_cols: list) -> None:
+        """Fold the state flags() recorded so far into the rows; set_cols:
+        every column a Set named since the last settle (existence is never
+        cleared)."""
+        on: dict = {}
+        off: dict = {}
+        for (f, r, c), bit in self.state.items():
+            (on if bit else off).setdefault((f, r), []).append(c)
+        for key in set(on) | set(off):
+            f, r = key
+            a = np.array(on.get(key, []), dtype=np.int64)
+            b = np.array(off.get(key, []), dtype=np.int64)
+            if f == "f":
+                p = self.packed_f[r]
+                np.bitwise_or.at(p, a >> 3,
+                                 np.left_shift(1, a & 7).astype(np.uint8))
+                np.bitwise_and.at(p, b >> 3, ~np.left_shift(
+                    1, b & 7).astype(np.uint8))
+            else:
+                self.rows[key] = np.union1d(
+                    np.setdiff1d(self.base[key], b), a)
+        if set_cols:
+            c = np.asarray(set_cols, dtype=np.int64)
+            np.bitwise_or.at(self.exists, c >> 3,
+                             np.left_shift(1, c & 7).astype(np.uint8))
+
+    def count(self, field: str, row: int) -> int:
+        if field == "f":
+            return _popcount(self.packed_f[row])
+        return int(self.rows[(field, row)].size)
+
+
+def _percentiles(lat: list) -> tuple:
+    return (statistics.median(lat) * 1e3,
+            float(np.percentile(lat, 99)) * 1e3)
+
+
+def ingest_phase(srv, port: int, packed: list, exists: np.ndarray,
+                 s_rows: list, r_rows: list, n_shards: int, seed: int,
+                 writers: int, envelopes: int, calls: int, readers: int,
+                 turn_envelopes: int) -> dict:
+    """The coalesced write path on the earlier phases' server and index:
+    `writers` keep-alive writers send `envelopes` envelopes of `calls`
+    Set/Clear each (80/20) on f rows 0-7 (dense), the s rows
+    INGEST_S_ROWS (sparse) and r row 0 (run), all resident, while
+    `readers` clients run Count(Intersect(Row(f=a), Row(f=b))); then exact
+    read-backs against the numpy oracle, and the first Count(Intersect)
+    after a burst with ingest on, then off (PILOSA_TPU_TORCH_INGEST=0).
+    Its own launch counts (zeroed before its first query). packed =
+    the packed rows of f; exists = the packed existence row; s_rows /
+    r_rows = the columns of s's and r's rows."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    ex = srv.executor
+    n_f = len(packed)
+    # the interpreter's collector pauses, by generation, over the phase
+    gc_pause = {0: 0.0, 1: 0.0, 2: 0.0}
+    gc_t0: list = [0.0]
+
+    def gc_watch(phase: str, info: dict) -> None:
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_pause[info["generation"]] += time.perf_counter() - gc_t0[0]
+
+    gc.callbacks.append(gc_watch)
+    targets = ([("f", a) for a in range(n_f)]
+               + [("s", a) for a in INGEST_S_ROWS] + [("r", 0)])
+    t0 = time.perf_counter()
+    n_env = envelopes + len(INGEST_TURNS) * turn_envelopes
+    ops = make_ingest_ops(n_shards, seed, writers, n_env, calls, targets)
+    bodies = [[envelope_pql(e) for e in w] for w in ops]
+    oracle = WriteOracle(packed, exists,
+                         {**{("s", a): s_rows[a] for a in INGEST_S_ROWS},
+                          ("r", 0): r_rows[0]})
+    want_flags: list = [[None] * n_env for _ in ops]
+    log(f"  write traffic: {writers} writers x {n_env} envelopes x {calls} "
+        f"calls, {sum(f[0] for w in ops for e in w for f in e)} Sets "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    def query(pql: str, conn=None):
+        return _http(port, "POST", "/index/i/query", pql.encode(),
+                     conn)["results"]
+
+    def send(w: int, lo: int, hi: int, acked: list, errors: list) -> None:
+        conn = http.client.HTTPConnection("localhost", port, timeout=600)
+        try:
+            for e in range(lo, hi):
+                got = query(bodies[w][e].decode(), conn)
+                if got != want_flags[w][e]:
+                    errors.append(f"writer {w} envelope {e}: changed flags "
+                                  "differ from the oracle")
+                acked[w] += len(got)
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(f"writer {w}: {e!r}")
+        finally:
+            conn.close()
+
+    def write_burst(lo: int, hi: int) -> tuple:
+        """Every writer sends its envelopes lo..hi-1 -> (acked, seconds);
+        their flags are simulated first, the oracle updated after."""
+        for w in range(writers):
+            for e in range(lo, hi):
+                want_flags[w][e] = oracle.flags(ops[w][e])
+        acked = [0] * writers
+        errors: list = []
+        ts = [threading.Thread(target=send, args=(w, lo, hi, acked, errors))
+              for w in range(writers)]
+        log(f"  writers start: envelopes {lo}..{hi - 1} each "
+            f"({time.perf_counter() - t_phase:.1f} s into the phase)")
+        t = time.perf_counter()
+        for th in ts:
+            th.start()
+        for th in ts:
+            th.join()
+        wall = time.perf_counter() - t
+        log(f"  writers done in {wall:.2f} s")
+        if errors:
+            raise AssertionError(f"{len(errors)} writer errors: {errors[:3]}")
+        oracle.settle([c for w in ops for e in w[lo:hi]
+                       for s, _, _, c in e if s])
+        return sum(acked), wall
+
+    kernels.reset_launch_counts()  # the write path starts here
+    # every written row resident before the writes
+    for f, r in targets:
+        if query(f"Count(Row({f}={r}))")[0] != oracle.count(f, r):
+            raise AssertionError(f"Count(Row({f}={r})) differs before writes")
+    pair = np.zeros((n_f, n_f), dtype=np.int64)
+    for a in range(n_f):
+        for b in range(a, n_f):
+            pair[a, b] = pair[b, a] = _and_count(packed[a], packed[b])
+
+    def reader(rid: int, stop, n: int, lat: list, errors: list,
+               check: bool) -> None:
+        rng = np.random.default_rng(seed + 9000 + rid)
+        conn = http.client.HTTPConnection("localhost", port, timeout=600)
+        try:
+            k = 0
+            while (stop is None and k < n) or (stop is not None
+                                               and not stop.is_set()):
+                a, b = (int(x) for x in rng.integers(n_f, size=2))
+                t = time.perf_counter()
+                got = query(f"Count(Intersect(Row(f={a}), Row(f={b})))",
+                            conn)[0]
+                lat.append(time.perf_counter() - t)
+                if check and got != int(pair[a, b]):
+                    errors.append((a, b, got, int(pair[a, b])))
+                k += 1
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(repr(e))
+        finally:
+            conn.close()
+
+    def read_round(stop=None, n: int = 16, check: bool = True) -> list:
+        lat: list = []
+        errors: list = []
+        ts = [threading.Thread(target=reader,
+                               args=(i, stop, n, lat, errors, check))
+              for i in range(readers)]
+        for t in ts:
+            t.start()
+        return ts, lat, errors
+
+    ts, base_lat, errors = read_round()
+    for t in ts:
+        t.join()
+    if errors:
+        raise AssertionError(f"writer-free round: {errors[:3]}")
+    base_p50, base_p99 = _percentiles(base_lat)
+
+    # -- the measured window: writers and readers together -------------
+    before = ex.ingest_snapshot()
+    hyb_before = ex.hybrid_snapshot()
+    stop = threading.Event()
+    ts, win_lat, errors = read_round(stop=stop, check=False)
+    acked, wall = write_burst(0, envelopes)
+    stop.set()
+    for t in ts:
+        t.join()
+    if errors:
+        raise AssertionError(f"readers during the writes: {errors[:3]}")
+    after = ex.ingest_snapshot()
+    win_uploads = ex.hybrid_snapshot()["denseUploads"] - hyb_before[
+        "denseUploads"]
+    win_p50, win_p99 = _percentiles(win_lat)
+    delta = {k: after[k] - before[k]
+             for k in ("batches", "batched_queries", "mutations",
+                       "setMutations", "clearMutations", "appliedBatches",
+                       "walAppends", "walOps", "errors", "patchedDense",
+                       "patchedSparse", "patchDropped", "patchDroppedDense",
+                       "patchDroppedSparse", "hybridEvals", "applySeconds")}
+    commit_ratio = ((delta["mutations"] + delta["setMutations"])
+                    / max(delta["walAppends"], 1))
+    log(f"  window: {acked} mutations acked in {wall:.2f} s = "
+        f"{acked / wall:.1f} mutations/s; {len(win_lat)} reads, p50 "
+        f"{win_p50:.2f} ms, p99 {win_p99:.2f} ms (writer-free round: p50 "
+        f"{base_p50:.2f} ms, p99 {base_p99:.2f} ms); {win_uploads} dense "
+        "leaves built from the host during the window")
+    log(f"  apply: {delta['applySeconds']:.2f} s of host time in "
+        f"{delta['batches']} batches (max_batch_seen "
+        f"{after['max_batch_seen']} requests), fragment applies "
+        f"{delta['appliedBatches']}, WAL appends {delta['walAppends']}, "
+        f"group-commit ratio {commit_ratio:.2f}; patchedDense "
+        f"{delta['patchedDense']}, patchedSparse {delta['patchedSparse']}, "
+        f"patchDropped {delta['patchDropped']} (sparse bucket moves "
+        f"{delta['patchDroppedSparse']}, dense {delta['patchDroppedDense']})")
+
+    # -- read-backs: the f rows first, which must not be re-uploaded -----
+    torch.cuda.synchronize()
+    launches_writes = kernels.launch_counts()
+    shards = srv.holder.index("i").available_shards_list()
+    fview = srv.holder.index("i").field("f").view("standard")
+    for a in range(n_f):
+        gens = tuple(fview.fragment(s).row_generation(a) for s in shards)
+        if ex.residency.peek(("row", "i", "f", "standard", a, tuple(shards),
+                              gens)) is None:
+            raise AssertionError(f"f row {a}: no resident leaf under its "
+                                 "post-write generations (a patch missed)")
+    p = packed
+    pairs = [(a, (a + 1 + a // 4) % n_f) for a in range(n_f)]
+    f_checks = ([(f"Count(Row(f={a}))", _popcount(p[a])) for a in range(n_f)]
+                + [(f"Count(Intersect(Row(f={a}), Row(f={b})))",
+                    _and_count(p[a], p[b])) for a, b in pairs]
+                + [("Count(Intersect(Row(f=0), Row(f=1), Row(f=2)))",
+                    _and_count(p[0], p[1], p[2])),
+                   ("TopN(f, Row(f=0), n=8)",
+                    _pairs([_and_count(p[a], p[0]) for a in range(n_f)])[:8])])
+    s_list = list(INGEST_S_ROWS)
+    other_checks = (
+        [(f"Count(Row(s={a}))", oracle.count("s", a)) for a in s_list]
+        + [("Count(Row(r=0))", oracle.count("r", 0))]
+        + [(f"Count(Intersect(Row(s={a}), Row(f={a % n_f})))",
+            int(_bit_test(p[a % n_f], oracle.rows[("s", a)]).sum()))
+           for a in s_list]
+        + [("TopN(f, n=8)", _pairs([_popcount(x) for x in p])[:8]),
+           ("Count(Not(Row(f=0)))", _popcount(oracle.exists & ~p[0]))])
+    hyb0 = ex.hybrid_snapshot()
+    for i, (pql, want) in enumerate(f_checks + other_checks):
+        if i == len(f_checks):
+            hyb1 = ex.hybrid_snapshot()
+            if hyb1["denseUploads"] != hyb0["denseUploads"]:
+                raise AssertionError(
+                    f"{hyb1['denseUploads'] - hyb0['denseUploads']} dense "
+                    "uploads while reading the written f rows: a patch was "
+                    "missed")
+        got = query(pql)[0]
+        if got != want:
+            raise AssertionError(f"{pql} after the writes: port "
+                                 f"{str(got)[:200]} != oracle "
+                                 f"{str(want)[:200]}")
+        log(f"  {pql} = {str(got)[:60]} (oracle agrees)")
+    torch.cuda.synchronize()
+    launches_reads = kernels.launch_counts()
+    hyb2 = ex.hybrid_snapshot()
+    uploads_after = {
+        form: {"uploads": hyb2[f"{form}Uploads"] - hyb0[f"{form}Uploads"],
+               "bytes": (hyb2[f"{form}BytesUploaded"]
+                         - hyb0[f"{form}BytesUploaded"])}
+        for form in ("dense", "sparse", "run")}
+    log(f"  read-backs done ({time.perf_counter() - t_phase:.1f} s into "
+        "the phase)")
+    log(f"  uploaded by form after the writes: {uploads_after} (the "
+        "existence row and the dropped sparse and run leaves)")
+    for name in ("pair_stream_counts", "program_count",
+                 "sparse_intersect_dense", "topn_counts_packed"):
+        if launches_reads[name] <= launches_writes[name]:
+            raise AssertionError(f"{name} never launched after the writes")
+    if delta["patchedDense"] < 1:
+        raise AssertionError("no resident dense leaf was patched")
+    if after["patchDroppedDense"]:
+        raise AssertionError(f"{after['patchDroppedDense']} dense patches "
+                             "raised and were dropped")
+
+    # -- the first read after a burst, ingest on, then off --------------
+    turns = []
+    lo = envelopes
+    pair_q = "Count(Intersect(Row(f=0), Row(f=1)))"
+    for mode in INGEST_TURNS:
+        hi = lo + turn_envelopes
+        if mode == "off":
+            os.environ["PILOSA_TPU_TORCH_INGEST"] = "0"
+        try:
+            n_acked, burst_s = write_burst(lo, hi)
+        finally:
+            os.environ.pop("PILOSA_TPU_TORCH_INGEST", None)
+        lo = hi
+        hyb_a = ex.hybrid_snapshot()
+        t = time.perf_counter()
+        got = query(pair_q)[0]
+        first_ms = (time.perf_counter() - t) * 1e3
+        hyb_b = ex.hybrid_snapshot()
+        want = _and_count(p[0], p[1])
+        if got != want:
+            raise AssertionError(f"{pair_q} after an ingest-{mode} burst: "
+                                 f"port {got} != oracle {want}")
+        # after a batched burst, the sparse rows the read-backs made
+        # resident were patched (or dropped on a bucket move): check them
+        for a in s_list if mode == "on" else ():
+            if query(f"Count(Row(s={a}))")[0] != oracle.count("s", a):
+                raise AssertionError(f"Count(Row(s={a})) after an "
+                                     f"ingest-{mode} burst")
+        turns.append({"ingest": mode, "mutations": n_acked,
+                      "mutations_per_s": n_acked / burst_s,
+                      "first_read_ms": first_ms,
+                      "first_read_dense_uploads": (hyb_b["denseUploads"]
+                                                   - hyb_a["denseUploads"])})
+        log(f"  ingest {mode}: {n_acked} mutations in {burst_s:.2f} s "
+            f"({n_acked / burst_s:.1f} /s); first {pair_q} "
+            f"{first_ms:.2f} ms, {turns[-1]['first_read_dense_uploads']} "
+            "dense uploads (oracle agrees)")
+    for a in range(n_f):
+        if query(f"Count(Row(f={a}))")[0] != _popcount(p[a]):
+            raise AssertionError(f"Count(Row(f={a})) after the turns")
+    if query("Count(Not(Row(f=0)))")[0] != _popcount(oracle.exists & ~p[0]):
+        raise AssertionError("Count(Not(Row(f=0))) after the turns")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()  # the write path ends here
+    final = ex.ingest_snapshot()
+    log(f"  launches on the write path: {launches}")
+    stats = {
+        "mutations": acked, "window_s": wall,
+        "mutations_per_s": acked / wall, "group_commit_ratio": commit_ratio,
+        "reads_in_window": len(win_lat), "read_p50_ms": win_p50,
+        "read_p99_ms": win_p99, "base_read_p50_ms": base_p50,
+        "base_read_p99_ms": base_p99, "window": delta,
+        "max_batch_seen": after["max_batch_seen"],
+        "dense_uploads_in_window": win_uploads,
+        "uploads_after_writes": uploads_after, "turns": turns,
+        "patched_sparse_total": final["patchedSparse"],
+        "patch_dropped_sparse_total": final["patchDroppedSparse"],
+    }
+    gc.callbacks.remove(gc_watch)
+    stats["gc_pause_s"] = gc_pause
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"  write phase: {stats['phase_s']:.1f} s (garbage-collector "
+        f"pauses by generation: {gc_pause})")
     return {"launches": launches, "stats": stats}
 
 
@@ -1661,13 +2134,16 @@ def device_busy_ms(prof) -> float | None:
 
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
                  clients: int, per_client: int, profile: bool,
-                 bsi: tuple, topn: tuple, hybrid: tuple,
-                 count_only: bool = False) -> dict:
-    """The Count path, then (unless count_only) the BSI path, the
-    TopN/GroupBy path and the hybrid path on the same server and index
-    (bsi = values per shard, seed, clients, queries per client; topn = bits
-    per shard of t's row 0, seed, clients, queries per client; hybrid =
-    seed, clients, queries per client)."""
+                 bsi: tuple, topn: tuple, hybrid: tuple, ingest: tuple,
+                 count_only: bool = False, ingest_only: bool = False) -> dict:
+    """The Count path, then (unless count_only or ingest_only) the BSI
+    path, the TopN/GroupBy path and the hybrid path, then (unless
+    count_only) the write path, on the same server and index (bsi = values
+    per shard, seed, clients, queries per client; topn = bits per shard of
+    t's row 0, seed, clients, queries per client; hybrid = seed, clients,
+    queries per client; ingest = writers, envelopes per writer, calls per
+    envelope, readers, envelopes per writer in each on/off turn).
+    ingest_only loads s and r without the hybrid phase's checks."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels
@@ -1677,7 +2153,8 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
     rows = make_rows(n_rows, n_shards, seed)
     extra = np.array([3, 99, SHARD_WIDTH + 5, 2 * SHARD_WIDTH + 7],
                      dtype=np.int64) % (n_shards * SHARD_WIDTH)
-    t_rows = [] if count_only else make_topn_rows(n_shards, *topn[:2])
+    t_rows = ([] if count_only or ingest_only
+              else make_topn_rows(n_shards, *topn[:2]))
     log(f"  data: {n_rows} rows x {n_shards} shards, "
         f"{sum(r.size for r in rows)} bits; {len(t_rows)} rows of t, "
         f"{sum(r.size for r in t_rows)} bits "
@@ -1869,19 +2346,31 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                 raise AssertionError("the CountBatcher never coalesced")
             if count_only:
                 return {"launches": launches, "stats": stats}
-            log("phase 3: BSI path on the same server")
-            bsi_served, values = bsi_phase(srv, port, p, exists, n_shards,
-                                           *bsi)
-            log("phase 4: TopN/Rows/GroupBy path on the same server")
-            topn_served = topn_phase(srv, port, p, values, t_rows, n_shards,
-                                     *topn[1:])
-            log("phase 5: hybrid sparse/run leaves on the same server")
-            hybrid_served = hybrid_phase(
-                srv, port, p, exists, values, t_rows,
-                topn_served["stats"]["cleared_t0_column"], n_shards, *hybrid)
-            return {"launches": launches, "stats": stats,
-                    "bsi": bsi_served,
-                    "topn": topn_served, "hybrid": hybrid_served}
+            out = {"launches": launches, "stats": stats}
+            if ingest_only:
+                s_rows, r_rows, _ = load_hybrid_fields(srv, port, n_shards,
+                                                       hybrid[0])
+                exists_all = exists.copy()
+                for cols in (*s_rows, *r_rows):
+                    exists_all |= packed_row(cols, n_shards)
+            else:
+                log("phase 3: BSI path on the same server")
+                out["bsi"], values = bsi_phase(srv, port, p, exists,
+                                               n_shards, *bsi)
+                log("phase 4: TopN/Rows/GroupBy path on the same server")
+                out["topn"] = topn_phase(srv, port, p, values, t_rows,
+                                         n_shards, *topn[1:])
+                log("phase 5: hybrid sparse/run leaves on the same server")
+                out["hybrid"] = hybrid_phase(
+                    srv, port, p, exists, values, t_rows,
+                    out["topn"]["stats"]["cleared_t0_column"], n_shards,
+                    *hybrid)
+                exists_all, s_rows, r_rows = out["hybrid"].pop("data")
+            log("phase 6: write path (coalesced Set/Clear) on the same "
+                "server, under concurrent reads")
+            out["ingest"] = ingest_phase(srv, port, p, exists_all, s_rows,
+                                         r_rows, n_shards, seed, *ingest)
+            return out
         finally:
             srv.close()
 
@@ -1908,6 +2397,9 @@ def main(argv=None) -> int:
                          "torch.profiler and print the device's idle share")
     ap.add_argument("--count-only", action="store_true",
                     help="drive the Count path alone and print its numbers")
+    ap.add_argument("--ingest-only", action="store_true",
+                    help="drive the Count path's import and the write path "
+                         "alone and print the write path's numbers")
     ap.add_argument("--kernel-times", action="store_true",
                     help="time program_count, intersect_count and "
                          "sparse_intersect_dense alone (no server) and "
@@ -1949,12 +2441,21 @@ def main(argv=None) -> int:
                           (TOPN_BITS, args.seed, TOPN_CLIENTS,
                            TOPN_PER_CLIENT),
                           (args.seed, HYBRID_CLIENTS, HYBRID_PER_CLIENT),
-                          args.count_only)
+                          (INGEST_WRITERS, INGEST_ENVELOPES, INGEST_CALLS,
+                           INGEST_READERS, INGEST_TURN_ENVELOPES),
+                          args.count_only, args.ingest_only)
     st = served["stats"]
     if args.count_only:
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         print(smi_name)
         print(json.dumps({"count_path": st, "launches": served["launches"]}),
+              flush=True)
+        return 0
+    if args.ingest_only:
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        print(smi_name)
+        print(json.dumps({"write_path": served["ingest"]["stats"],
+                          "launches": served["ingest"]["launches"]}),
               flush=True)
         return 0
     k_served = max(1, round(st["batched_queries"] / max(st["batches"], 1)))
@@ -1964,7 +2465,7 @@ def main(argv=None) -> int:
     gc.collect()  # the closed server's resident tensors
     torch.cuda.empty_cache()
     served_k = served["hybrid"]["stats"]["served_k"]
-    log(f"phase 6: kernels at S={args.shards}, W=32768 (served mean "
+    log(f"phase 7: kernels at S={args.shards}, W=32768 (served mean "
         f"batches: pair stream K={k_served}, BSI sum K={k_sum}; sparse "
         f"rows K={served_k})")
     measured = kernel_phase(device, args.shards, 32768, args.slab_rows,
@@ -1978,7 +2479,7 @@ def main(argv=None) -> int:
 
     records = []
     paths = {"count": served, "bsi": served["bsi"], "topn": served["topn"],
-             "hybrid": served["hybrid"]}
+             "hybrid": served["hybrid"], "ingest": served["ingest"]}
     for name, m in measured.items():
         # launches on every path of the main run (each path zeroes the
         # counts before its first query and reads them after its last)

@@ -29,6 +29,7 @@ from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.models.row import Row
 from pilosa_tpu_torch.pql import parse_string_cached
+from pilosa_tpu_torch.pql.parser import parse_mutations_fast
 
 
 class ApiError(Exception):
@@ -64,7 +65,9 @@ class API:
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
         try:
-            query = parse_string_cached(pql)
+            # Set/Clear envelopes take the linear scanner: their unique
+            # columns would only churn the parse cache
+            query = parse_mutations_fast(pql) or parse_string_cached(pql)
             return self.executor.execute(index_name, query, shards=shards)
         except (ExecutionError, ValueError) as e:
             raise ApiError(str(e))

@@ -42,8 +42,23 @@ hybrid_count before the CountBatcher, whose kernels read only planes
 gets the plane from a resident sparse or run twin on the device rather
 than from the host (:665-696).
 
-Left out: the rest of the planner and the plan cache, heat, in-place
-patching of resident leaves after a write, the cluster, key translation,
+Writes (:500-540, :3169-3760): a query of Set/Clear calls only goes
+through the IngestBatcher (parallel/ingest.py) while
+PILOSA_TPU_TORCH_INGEST is not 0. Each batch is applied once per fragment
+(Fragment.apply_batch: one WAL group commit, one generation bump), the
+rank caches and the hybrid hysteresis are updated once per changed row,
+existence is marked through the same batch apply, and the resident dense
+and sparse leaves of the changed rows are patched in place on the device
+(DeviceResidency.patch_entries; run leaves are dropped), so a read after
+a write uploads nothing. What the batch cannot take as the per-bit path
+would (int fields, other field types, timestamps, string keys, missing
+fields) takes the per-bit path. Reads of an index wait while a batch is
+applied to it and its leaves patched (ApplyFence, the port's own), so no
+read builds a key whose generations are half before and half after a
+batch.
+
+Left out: the rest of the planner and the plan cache, heat, the cluster
+(its distributed and remote ingest applies included), key translation,
 row attributes and the MinMaxBatcher. None of them changes an answer.
 Calls, field types and options outside the slice raise NotPortedError (a
 400 at the API).
@@ -54,6 +69,7 @@ from __future__ import annotations
 import heapq
 import os
 import threading
+import time
 from collections import OrderedDict
 from typing import Optional
 
@@ -75,15 +91,27 @@ from pilosa_tpu_torch.models.view import VIEW_STANDARD
 from pilosa_tpu_torch.ops import bsi
 from pilosa_tpu_torch.ops import hybrid as hy
 from pilosa_tpu_torch.ops import kernels
-from pilosa_tpu_torch.ops.bitvector import band, columns_from_dense
+from pilosa_tpu_torch.ops.bitvector import (
+    band,
+    columns_from_dense,
+    patch_dense_words,
+    patch_sparse_rows,
+)
 from pilosa_tpu_torch.ops.topn import tanimoto_mask
 from pilosa_tpu_torch.parallel.batcher import CountBatcher, PlaneSumBatcher
+from pilosa_tpu_torch.parallel.ingest import (
+    ApplyFence,
+    IngestBatcher,
+    Mutation,
+    ingest_env_enabled,
+)
 from pilosa_tpu_torch.parallel.mesh import DeviceRunner
 from pilosa_tpu_torch.parallel.residency import (
     DeviceResidency,
     HybridManager,
 )
 from pilosa_tpu_torch.pql import Call, Query, parse_string_cached
+from pilosa_tpu_torch.pql.parser import parse_mutations_fast
 from pilosa_tpu_torch.pql.ast import (
     BETWEEN,
     EQ,
@@ -168,6 +196,24 @@ class Executor:
         # (index, field, shards) -> (cache versions, merged ids, counts)
         self._topn_merge_memo: OrderedDict = OrderedDict()
         self._topn_memo_lock = threading.Lock()
+        # coalesced Set/Clear (parallel/ingest.py); the kill switch is read
+        # per query in execute(), so the batcher always exists
+        self.ingest = IngestBatcher(self._apply_ingest_batch)
+        self._ingest_lock = threading.Lock()
+        self._fences: dict = {}  # index name -> ApplyFence
+        self.ingest_stats = {
+            "appliedBatches": 0,   # per-fragment batch applies
+            "walAppends": 0,       # WAL group commits (one fsync at most)
+            "walOps": 0,           # net records written
+            "errors": 0,           # failed mutations
+            "patchedDense": 0,     # resident dense leaves patched
+            "patchedSparse": 0,    # resident sparse leaves patched
+            "patchDropped": 0,     # resident leaves dropped, not patched
+            "patchDroppedDense": 0,  # of those, dense patches that raised
+            "patchDroppedSparse": 0,  # and sparse rows that changed bucket
+            "hybridEvals": 0,      # write-side hysteresis ticks
+            "applySeconds": 0.0,   # host wall time of the batch applies
+        }
 
     def clear_caches(self) -> None:
         """Drop every resident leaf, leaf statistic and TopN merge
@@ -182,16 +228,35 @@ class Executor:
 
     def execute(self, index_name: str, query,
                 shards: Optional[list[int]] = None) -> list:
-        """Execute PQL; returns one result per call."""
+        """Execute PQL; returns one result per call. An envelope of
+        Set/Clear calls only goes through the IngestBatcher while
+        PILOSA_TPU_TORCH_INGEST is not 0; what it declines runs per bit."""
         if isinstance(query, str):
-            query = parse_string_cached(query)
+            # the linear mutation scanner first: bulk envelopes of unique
+            # columns would only churn the parse cache
+            query = parse_mutations_fast(query) or parse_string_cached(query)
         if not isinstance(query, Query):
             raise TypeError("query must be a PQL string or Query")
         index = self.holder.index(index_name)
         if index is None:
             raise ExecutionError(f"index not found: {index_name}")
-        return [self._execute_call(index, call, shards)
-                for call in query.calls]
+        if (query.calls and ingest_env_enabled()
+                and all(c.name in ("Set", "Clear") for c in query.calls)):
+            handled = self._execute_ingest(index, query)
+            if handled is not None:
+                return handled
+        with self._fence(index.name).read():
+            return [self._execute_call(index, call, shards)
+                    for call in query.calls]
+
+    def _fence(self, index_name: str) -> ApplyFence:
+        """The index's ApplyFence: reads share it, a batch apply (with its
+        patches) holds it alone."""
+        fence = self._fences.get(index_name)
+        if fence is None:
+            with self._ingest_lock:
+                fence = self._fences.setdefault(index_name, ApplyFence())
+        return fence
 
     def _execute_call(self, index: Index, call: Call, shards):
         if call.name == "Count":
@@ -532,7 +597,7 @@ class Executor:
     def _bsi_planes(self, index: Index, f, shards: list, state: tuple):
         """The field's [D, S, W] plane slab, resident under the generations
         of all D planes and the not-null row. A write rebuilds the whole
-        slab from the host rows (in-place patching is not ported yet)."""
+        slab from the host rows (the JAX package patches no slab either)."""
         frags, gens = state
         depth = f.bit_depth
 
@@ -1092,3 +1157,364 @@ class Executor:
         if col is None:
             raise ExecutionError(f"{call.name}() requires a column")
         return int(col)
+
+    # ------------------------------------------------ coalesced ingest
+
+    def _ingest_mutation(self, index: Index, call: Call, fields: dict):
+        """One Set/Clear -> a Mutation, or None where only the per-bit path
+        answers as it does (executor.py:3169): a missing field (its error),
+        a field that is not a set field (int fields write per plane),
+        timestamps, string keys. `fields` caches field resolution across
+        the envelope (False: not batchable)."""
+        args = call.args
+        fname = None
+        for k, v in args.items():  # call.field_arg(), without the raise
+            if k[0] != "_" and not isinstance(v, Condition):
+                fname = k
+                break
+        f = fields.get(fname)
+        if f is None:
+            if fname is None:
+                return None
+            f = index.field(fname)
+            if f is None or f.options.type != "set":
+                fields[fname] = False
+                return None
+            fields[fname] = f
+        elif f is False:
+            return None
+        if args.get("_timestamp") is not None:
+            return None
+        col, row = args["_col"], args[fname]
+        if isinstance(col, str) or isinstance(row, str):
+            return None
+        return Mutation(call.name == "Set", fname, self._row_id(row),
+                        int(col))
+
+    def _ingest_prepare(self, index: Index, query: Query):
+        """The Mutations of an all-Set/Clear query, or None for the per-bit
+        path (executor.py:3212)."""
+        muts: list = []
+        fields: dict = {}
+        try:
+            for call in query.calls:
+                m = self._ingest_mutation(index, call, fields)
+                if m is None:
+                    return None
+                muts.append(m)
+        except ExecutionError:
+            raise
+        except Exception:  # noqa: BLE001 — any oddity: the per-bit path decides
+            return None
+        return muts
+
+    @staticmethod
+    def _ingest_unpack(outcomes: list) -> list:
+        """Per-call results of one request's outcomes; the first error
+        raises (executor.py:3240)."""
+        results = []
+        for status, val in outcomes:
+            if status == "err":
+                raise val
+            results.append(val)
+        return results
+
+    def _execute_ingest(self, index: Index, query: Query) -> Optional[list]:
+        """Queue the query's mutations under the index's key and wait for a
+        batch leader to apply them (executor.py:3252); None: the per-bit
+        path serves the query."""
+        muts = self._ingest_prepare(index, query)
+        if muts is None:
+            return None
+        return self._ingest_unpack(self.ingest.submit((index.name,), muts))
+
+    def _apply_ingest_batch(self, index_name: str, muts: list) -> list:
+        """The IngestBatcher's apply, on the batch leader's thread."""
+        index = self.holder.index(index_name)
+        if index is None:
+            e = ExecutionError(f"index not found: {index_name}")
+            return [("err", e)] * len(muts)
+        with self._fence(index_name).apply():
+            t0 = time.perf_counter()
+            try:
+                return self._apply_ingest_local(index, muts)
+            finally:
+                with self._ingest_lock:
+                    self.ingest_stats["applySeconds"] += (
+                        time.perf_counter() - t0)
+
+    def _apply_ingest_local(self, index: Index, muts: list) -> list:
+        """Apply one batch (executor.py:3429-3565): grouped per fragment,
+        one Fragment.apply_batch each, then per changed row one rank-cache
+        update and one hysteresis tick, existence marked through the same
+        batch apply, the available shards once per field, and the resident
+        leaves patched. Returns ("ok", changed) or ("err", exception) per
+        mutation, in order. The port's set fields have only the standard
+        view, which is all a Clear touches on the per-bit path too."""
+        outcomes: list = [None] * len(muts)
+        groups: dict = {}
+        fields: dict = {}
+        for mi, m in enumerate(muts):
+            f = fields.get(m.field_name)
+            if f is None:
+                f = index.field(m.field_name)
+                if f is None:
+                    outcomes[mi] = ("err", ExecutionError(
+                        f"field not found: {m.field_name}"))
+                    continue
+                fields[m.field_name] = f
+            shard = m.shard
+            if m.is_set:
+                f.create_view_if_not_exists(VIEW_STANDARD) \
+                    .create_fragment_if_not_exists(shard)
+            else:
+                view = f.view(VIEW_STANDARD)
+                if view is None or view.fragment(shard) is None:
+                    outcomes[mi] = ("ok", False)  # nothing to clear
+                    continue
+            groups.setdefault((m.field_name, shard), []).append((mi, m))
+        hyb = self.hybrid
+        # (field, view, row) -> {shard: [pre gen, post gen, net set local
+        # columns, net cleared local columns]}: the residency patch input
+        touched: dict = {}
+        set_cols_by_shard: dict = {}
+        set_shards: dict = {}
+        hybrid_evals = 0
+        for (fname, shard), items in groups.items():
+            view = fields[fname].view(VIEW_STANDARD)
+            frag = view.fragment(shard)
+            pre = {m.row_id: frag.row_generation(m.row_id) for _, m in items}
+            try:
+                changed, wal_ops, wal_appends = frag.apply_batch(
+                    [(m.is_set, m.row_id, m.col) for _, m in items])
+            except Exception as e:  # noqa: BLE001 — fails this group only
+                for mi, _m in items:
+                    outcomes[mi] = ("err", e)
+                continue
+            net: dict = {}
+            changed_rows: set = set()
+            for (mi, m), ch in zip(items, changed):
+                outcomes[mi] = ("ok", ch)
+                if ch:
+                    changed_rows.add(m.row_id)
+                # last write wins per (row, column): the idempotent patch
+                s_, c_ = net.setdefault(m.row_id, (set(), set()))
+                lc = m.col % SHARD_WIDTH
+                (s_ if m.is_set else c_).add(lc)
+                (c_ if m.is_set else s_).discard(lc)
+            for r in changed_rows:
+                view._update_rank(shard, frag, r)
+                touched.setdefault((fname, VIEW_STANDARD, r), {})[shard] = [
+                    pre[r], frag.row_generation(r), net[r][0], net[r][1]]
+            if hyb.active():
+                for r in changed_rows:
+                    row_key = (index.name, fname, VIEW_STANDARD, r)
+                    prev = hyb.last(row_key)
+                    if prev is None:
+                        continue  # never chosen: the next read decides
+                    card = frag.row_cardinality(r)
+                    # the planner's rule (planner.py): intervals wherever
+                    # the run band is reachable or the row is run now
+                    read_runs = (prev == "run" or (card > hyb.threshold
+                                                   and hyb.run_threshold > 0))
+                    hyb.observe(row_key, card, run_stats=(
+                        (frag.row_interval_count(r),) if read_runs else None))
+                    hybrid_evals += 1
+            if any(m.is_set for _, m in items):
+                set_shards.setdefault(fname, []).append(shard)
+                set_cols_by_shard.setdefault(shard, set()).update(
+                    m.col for _, m in items if m.is_set)
+            with self._ingest_lock:
+                st = self.ingest_stats
+                st["appliedBatches"] += 1
+                st["walAppends"] += wal_appends
+                st["walOps"] += wal_ops
+        for fname, shards in set_shards.items():
+            fields[fname].add_available_shards(shards)
+        self._ingest_mark_exists(index, set_cols_by_shard, outcomes, muts)
+        if touched:
+            try:
+                self._ingest_patch_residency(index, touched)
+            except Exception:  # noqa: BLE001 — a patch never fails a write
+                # the writes are durable and the generations re-key every
+                # touched leaf: a failed patch costs a re-upload only
+                with self._ingest_lock:
+                    self.ingest_stats["patchDropped"] += 1
+        n_err = sum(1 for o in outcomes if o is not None and o[0] == "err")
+        with self._ingest_lock:
+            self.ingest_stats["errors"] += n_err
+            self.ingest_stats["hybridEvals"] += hybrid_evals
+        return [o if o is not None else ("ok", False) for o in outcomes]
+
+    def _ingest_mark_exists(self, index: Index, set_cols_by_shard: dict,
+                            outcomes: list, muts: list) -> None:
+        """Existence of the batch's Set columns through
+        Fragment.apply_batch, one WAL append per existence fragment
+        (executor.py:3567); the per-bit path pays one per Set. A failure
+        fails that shard's Sets, as the per-bit mark_exists would."""
+        if not set_cols_by_shard or not index.track_existence:
+            return
+        ef = index.existence_field()
+        if ef is None:
+            return
+        ev = ef.create_view_if_not_exists(VIEW_STANDARD)
+        marked = []
+        for shard, cols in sorted(set_cols_by_shard.items()):
+            efrag = ev.create_fragment_if_not_exists(shard)
+            try:
+                ech, wal_ops, wal_appends = efrag.apply_batch(
+                    [(True, 0, c) for c in sorted(cols)])
+            except Exception as e:  # noqa: BLE001 — fails this shard's Sets
+                for mi, m in enumerate(muts):
+                    if m.is_set and m.shard == shard:
+                        outcomes[mi] = ("err", e)
+                continue
+            if any(ech):
+                ev._update_rank(shard, efrag, 0)
+            marked.append(shard)
+            with self._ingest_lock:
+                st = self.ingest_stats
+                st["appliedBatches"] += 1
+                st["walAppends"] += wal_appends
+                st["walOps"] += wal_ops
+        ef.add_available_shards(marked)
+
+    def _ingest_patch_residency(self, index: Index, touched: dict) -> None:
+        """Patch the resident leaves of the batch's changed rows instead of
+        stranding them (executor.py:3600-3736): a dense leaf takes per-word
+        set/clear masks, a sparse leaf sorted add/remove arrays while its
+        row stays in its slot bucket; a run leaf, and a sparse leaf whose
+        row changes bucket, are dropped. Every leaf key carries its row's
+        generations, so a dropped or unmatched entry is re-uploaded
+        correctly by its next read."""
+        iname = index.name
+
+        def parse(key):
+            if not (isinstance(key, tuple) and key[1:2] == (iname,)):
+                return None
+            if key[0] == "row" and len(key) == 7:
+                out = key[2], key[3], key[4], key[5], key[6], 0
+            elif key[0] in ("sparse", "run") and len(key) == 8:
+                out = key[2], key[3], key[4], key[5], key[7], key[6]
+            else:
+                return None
+            if len(out[3]) != len(out[4]):
+                return None
+            return out
+
+        def matcher(key) -> bool:
+            p = parse(key)
+            if p is None:
+                return False
+            fld, vw, row, shards_t, gens, _slots = p
+            t = touched.get((fld, vw, row))
+            if t is None:
+                return False
+            hit = False
+            for s, g in zip(shards_t, gens):
+                e = t.get(s)
+                if e is not None:
+                    if g != e[0]:
+                        return False  # older than the batch: leave it
+                    hit = True
+            return hit
+
+        def count(name: str) -> None:
+            with self._ingest_lock:
+                self.ingest_stats[name] += 1
+
+        def patcher(key, arr):
+            fld, vw, row, shards_t, gens, slots = parse(key)
+            t = touched[(fld, vw, row)]
+            new_gens = tuple(t[s][1] if s in t else g
+                             for s, g in zip(shards_t, gens))
+            if key[0] == "row":
+                try:
+                    new_arr = patch_dense_words(
+                        arr, *self._dense_patch_masks(shards_t, t))
+                except Exception:
+                    count("patchDroppedDense")
+                    raise
+                count("patchedDense")
+                return ("row", iname, fld, vw, row, shards_t,
+                        new_gens), new_arr
+            if key[0] == "run":
+                # a point write can split, merge or extend intervals: no
+                # patch; drop it so its memory frees now, and the next
+                # read re-encodes the row from its run containers
+                count("patchDropped")
+                return None
+            view = index.field(fld).view(vw)
+            max_card = max((view.fragment(s).row_cardinality(row)
+                            for s in shards_t
+                            if view.fragment(s) is not None), default=0)
+            if self.hybrid.pad_slots(max(max_card, 1)) != slots:
+                # the read path probes pad_slots(current cardinality): a
+                # leaf in another bucket would never be hit
+                count("patchDropped")
+                count("patchDroppedSparse")
+                return None
+            na = max((len(e[2]) for e in t.values()), default=0)
+            nr = max((len(e[3]) for e in t.values()), default=0)
+            adds = np.full((arr.shape[0], max(na, 1)), hy.SPARSE_SENTINEL,
+                           dtype=np.int32)
+            rems = np.full((arr.shape[0], max(nr, 1)), hy.SPARSE_SENTINEL,
+                           dtype=np.int32)
+            for i, s in enumerate(shards_t):
+                e = t.get(s)
+                if e is None:
+                    continue
+                if e[2]:
+                    adds[i, :len(e[2])] = sorted(e[2])
+                if e[3]:
+                    rems[i, :len(e[3])] = sorted(e[3])
+            new_arr = patch_sparse_rows(arr, adds, rems)
+            count("patchedSparse")
+            return ("sparse", iname, fld, vw, row, shards_t, slots,
+                    new_gens), new_arr
+
+        self.residency.patch_entries(matcher, patcher)
+
+    @staticmethod
+    def _dense_patch_masks(shards_t: tuple, t: dict) -> tuple:
+        """(shard slots, words, set masks, clear masks) of a dense leaf
+        over `shards_t`: the batch's net columns reduced to one uint32
+        mask pair per (shard, word), so every coordinate appears once."""
+        slot_parts, col_parts, set_parts = [], [], []
+        for i, s in enumerate(shards_t):
+            e = t.get(s)
+            if e is None:
+                continue
+            for cols, is_set in ((e[2], True), (e[3], False)):
+                if cols:
+                    c = np.fromiter(cols, dtype=np.int64, count=len(cols))
+                    slot_parts.append(np.full(c.size, i, dtype=np.int64))
+                    col_parts.append(c)
+                    set_parts.append(np.full(c.size, is_set))
+        if not col_parts:
+            empty = np.empty(0, dtype=np.int64)
+            return empty, empty, empty.astype(np.uint32), \
+                empty.astype(np.uint32)
+        slot = np.concatenate(slot_parts)
+        col = np.concatenate(col_parts)
+        is_set = np.concatenate(set_parts)
+        coord = slot * WORDS_PER_SHARD + (col >> 5)
+        uniq, inv = np.unique(coord, return_inverse=True)
+        bits = np.left_shift(np.uint32(1), (col & 31).astype(np.uint32))
+        smask = np.zeros(uniq.size, dtype=np.uint32)
+        cmask = np.zeros(uniq.size, dtype=np.uint32)
+        np.bitwise_or.at(smask, inv[is_set], bits[is_set])
+        np.bitwise_or.at(cmask, inv[~is_set], bits[~is_set])
+        return (uniq // WORDS_PER_SHARD, uniq % WORDS_PER_SHARD, smask,
+                cmask)
+
+    def ingest_snapshot(self) -> dict:
+        """The batcher's counters merged with the apply, WAL and patch
+        counters (executor.py:3738, the JAX package's /debug/vars
+        `ingest` block, not served by the port)."""
+        out = self.ingest.snapshot()
+        with self._ingest_lock:
+            out.update(self.ingest_stats)
+        out["enabled"] = ingest_env_enabled()
+        out["maxBatch"] = self.ingest.max_batch
+        return out

@@ -121,7 +121,7 @@ class Field:
         views_dir = os.path.join(self.path, "views")
         if os.path.isdir(views_dir):
             for vname in os.listdir(views_dir):
-                self._open_view(vname)
+                self.create_view_if_not_exists(vname)
         return self
 
     def close(self) -> None:
@@ -134,7 +134,7 @@ class Field:
         with open(os.path.join(self.path, ".meta"), "w") as f:
             json.dump(asdict(self.options), f)
 
-    def _open_view(self, name: str) -> View:
+    def create_view_if_not_exists(self, name: str) -> View:
         v = self.views.get(name)
         if v is None:
             with self._view_mu:
@@ -169,7 +169,8 @@ class Field:
     # -- writes -------------------------------------------------------------
 
     def set_bit(self, row_id: int, column: int) -> bool:
-        changed = self._open_view(VIEW_STANDARD).set_bit(row_id, column)
+        view = self.create_view_if_not_exists(VIEW_STANDARD)
+        changed = view.set_bit(row_id, column)
         self.add_available_shards([column // SHARD_WIDTH])
         return changed
 
@@ -192,7 +193,7 @@ class Field:
         order = np.argsort(shards, kind="stable")
         shards, rows, cols = shards[order], rows[order], cols[order]
         bounds = np.flatnonzero(np.diff(shards)) + 1
-        view = self._open_view(VIEW_STANDARD)
+        view = self.create_view_if_not_exists(VIEW_STANDARD)
         groups = list(zip(shards[np.concatenate(([0], bounds))].tolist(),
                           np.split(rows, bounds), np.split(cols, bounds)))
 
@@ -226,7 +227,7 @@ class Field:
             raise ValueError(f"value {value} out of range "
                              f"[{self.options.min}, {self.options.max}]")
         shard = column // SHARD_WIDTH
-        frag = self._open_view(self.bsi_view_name) \
+        frag = self.create_view_if_not_exists(self.bsi_view_name) \
             .create_fragment_if_not_exists(shard)
         changed = frag.set_value(column % SHARD_WIDTH, self.bit_depth,
                                  value - self.base)
@@ -270,7 +271,7 @@ class Field:
         cols, vals = cols[last], vals[last] - self.base
         shards = cols // np.uint64(SHARD_WIDTH)
         bounds = np.flatnonzero(np.diff(shards)) + 1
-        view = self._open_view(self.bsi_view_name)
+        view = self.create_view_if_not_exists(self.bsi_view_name)
         groups = list(zip(shards[np.concatenate(([0], bounds))].tolist(),
                           np.split(cols, bounds), np.split(vals, bounds)))
         depth = self.bit_depth

@@ -130,9 +130,11 @@ class View:
         cache = self.rank_caches.get(shard)
         if cache is not None:
             # count and store under the fragment's lock: two racing writers
-            # could otherwise store their counts out of order
+            # could otherwise store their counts out of order. The count
+            # goes through row_cardinality's per-generation cache, which
+            # the chooser reads next
             with frag.mu:
-                cache.add(row_id, frag.row_count(row_id))
+                cache.add(row_id, frag.row_cardinality(row_id))
 
     def refresh_rank_cache(self, shard: int) -> None:
         """Rebuild one shard's rank cache from its fragment (after a bulk

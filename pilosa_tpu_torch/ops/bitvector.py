@@ -1,8 +1,10 @@
 """Dense shard-bitvector algebra and popcounts in plain torch.
 
 Trimmed port of pilosa_tpu/ops/bitvector.py:37-131 (dense algebra and
-popcounts), the GroupBy chunk helpers (:158-221), and numpy copies of its
-host conversions dense_from_columns / columns_from_dense (:788, :803).
+popcounts), the GroupBy chunk helpers (:158-221), the ingest patches of
+resident leaves with their sorted-membership helper (:292, :629-660), and
+numpy copies of its host conversions dense_from_columns /
+columns_from_dense (:788, :803).
 
 Planes are int32 tensors, bit-identical views of the reference's uint32
 words. The bitwise ops act on bits, so signedness does not matter there.
@@ -164,6 +166,98 @@ def groupby_chunk_matrix(axis_slabs, idx, axis: torch.Tensor, n_valid: int,
     """The whole [chunk, R] count matrix: the refetch when a chunk's live
     set overflows the pruning bound."""
     return chunk_count_matrix(axis_slabs, idx, axis, n_valid, cross_fn)
+
+
+# ---------------------------------------------------------------------------
+# Ingest patches of resident leaves. A batch's net effect is reduced on the
+# host to per-word masks (dense) or per-shard sorted add/remove arrays
+# (sparse); the device work is one gather, bitwise op and scatter, or one
+# sorted merge. Each returns a NEW tensor: request threads may still hold
+# the resident one under its pre-write key, so it is never changed in place.
+# ---------------------------------------------------------------------------
+
+# one past the last legal column offset: sorts after every real entry of a
+# sparse leaf (ops/hybrid.py)
+SPARSE_SENTINEL = SHARD_WIDTH
+
+
+def _member_in_sorted(vals: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Membership of vals[..., Kv] in sorted ref[..., Kr], elementwise bool:
+    one binary probe per value (bitvector.py:292). Sentinel pads never
+    match."""
+    kr = ref.shape[-1]
+    ref = ref if ref.is_contiguous() else ref.contiguous()
+    vals_c = vals if vals.is_contiguous() else vals.contiguous()
+    pos = torch.searchsorted(ref, vals_c).clamp_(max=kr - 1)
+    hit = torch.gather(ref, -1, pos) == vals
+    return hit & (vals < SPARSE_SENTINEL)
+
+
+def patch_dense_words(plane: torch.Tensor, sidx, widx, set_mask,
+                      clear_mask) -> torch.Tensor:
+    """A patched copy of a dense row leaf int32[S, W]: at each (sidx[j],
+    widx[j]) word, new = (old | set_mask[j]) & ~clear_mask[j]
+    (bitvector.py:629). The four arguments are host arrays: indices, and
+    masks as uint32 words (bit 31 included). Each coordinate must appear
+    once (the caller reduces a batch per word first: with duplicates a
+    scatter's result depends on write order on the card) and lie inside
+    the plane. The JAX package pads to a static length with an
+    out-of-range shard and lets the scatter drop it; torch has no dropping
+    scatter (an out-of-range index raises on the CPU and is a device-side
+    assert on CUDA), and needs no static shapes, so nothing is padded and
+    both rules are checked here on the host."""
+    s, w = plane.shape
+    sidx = np.asarray(sidx, dtype=np.int64).reshape(-1)
+    widx = np.asarray(widx, dtype=np.int64).reshape(-1)
+    smask = np.asarray(set_mask, dtype=np.uint32).reshape(-1)
+    cmask = np.asarray(clear_mask, dtype=np.uint32).reshape(-1)
+    if not sidx.size == widx.size == smask.size == cmask.size:
+        raise ValueError("patch coordinates and masks differ in length")
+    out = plane.clone()
+    if not sidx.size:
+        return out
+    if (sidx.min() < 0 or sidx.max() >= s or widx.min() < 0
+            or widx.max() >= w):
+        raise IndexError(f"patch coordinate outside the [{s}, {w}] plane")
+    if np.unique(sidx * w + widx).size != sidx.size:
+        raise ValueError("patch coordinates repeat: reduce them per word")
+    # one upload: the int32 views of the masks ride beside the indices
+    host = np.stack([sidx, widx, smask.view(np.int32).astype(np.int64),
+                     cmask.view(np.int32).astype(np.int64)])
+    dev = torch.from_numpy(host).to(plane.device)
+    si, wi = dev[0], dev[1]
+    sm, cm = dev[2].to(torch.int32), dev[3].to(torch.int32)
+    # ~ on the int32 view: torch's uint32 has no bitwise_not
+    out[si, wi] = torch.bitwise_and(torch.bitwise_or(out[si, wi], sm),
+                                    torch.bitwise_not(cm))
+    return out
+
+
+def patch_sparse_rows(sp: torch.Tensor, adds, removes) -> torch.Tensor:
+    """A patched copy of a sparse row leaf int32[S, K]: per shard, the
+    sorted-dedup union of its entries and adds[S, A] minus removes[S, R]
+    (both sorted and SPARSE_SENTINEL-padded, host arrays or tensors),
+    re-padded to the same K slots (bitvector.py:645). The caller has
+    checked that the patched row still fits K; otherwise it drops the leaf
+    and the next read re-uploads it."""
+    k = sp.shape[-1]
+
+    def on_device(x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(device=sp.device, dtype=torch.int32)
+        arr = np.ascontiguousarray(np.asarray(x, dtype=np.int32))
+        return torch.from_numpy(arr).to(sp.device)
+
+    adds, removes = on_device(adds), on_device(removes)
+    srt = torch.sort(torch.cat([sp, adds], dim=-1), dim=-1).values
+    edge = torch.full(srt.shape[:-1] + (1,), -1, dtype=srt.dtype,
+                      device=srt.device)
+    dup_prev = srt == torch.cat([edge, srt[..., :-1]], dim=-1)
+    sentinel = torch.full_like(srt, SPARSE_SENTINEL)
+    merged = torch.sort(torch.where(dup_prev, sentinel, srt), dim=-1).values
+    keep = ~_member_in_sorted(merged, removes) & (merged < SPARSE_SENTINEL)
+    out = torch.sort(torch.where(keep, merged, sentinel), dim=-1).values
+    return out[..., :k].contiguous()
 
 
 # ---------------------------------------------------------------------------

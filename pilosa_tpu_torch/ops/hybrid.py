@@ -27,12 +27,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pilosa_tpu_torch.constants import SHARD_WIDTH, WORD_BITS, WORDS_PER_SHARD
+from pilosa_tpu_torch.constants import WORD_BITS, WORDS_PER_SHARD
 from pilosa_tpu_torch.ops import bitvector as bv
-
-# one past the last legal column offset: sorts after every real entry; its
-# word index (SHARD_WIDTH >> 5) is one past the last dense word
-SPARSE_SENTINEL = SHARD_WIDTH
+# SPARSE_SENTINEL is one past the last legal column offset: it sorts after
+# every real entry; its word index (SHARD_WIDTH >> 5) is one past the last
+# dense word
+from pilosa_tpu_torch.ops.bitvector import (
+    SPARSE_SENTINEL,
+    _member_in_sorted,
+)
 
 # sparse ∪ sparse keeps Ka + Kb slots; past this eval_hybrid densifies
 SPARSE_UNION_CAP = 1 << 14
@@ -55,16 +58,6 @@ def _contiguous(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Sparse rows
 # ---------------------------------------------------------------------------
-
-
-def _member_in_sorted(vals: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    """Membership of vals[..., Kv] in sorted ref[..., Kr], elementwise bool:
-    one binary probe per value. Sentinel pads never match."""
-    kr = ref.shape[-1]
-    ref = _contiguous(ref)
-    pos = torch.searchsorted(ref, _contiguous(vals)).clamp_(max=kr - 1)
-    hit = torch.gather(ref, -1, pos) == vals
-    return hit & (vals < SPARSE_SENTINEL)
 
 
 def _resort(vals: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:

@@ -9,11 +9,13 @@ distinct pairs; and the PlaneSumBatcher (:571-587, :639-660), whose
 dispatch launches the bsi_sum_counts kernel once over K filters.
 
 Leadership protocol: the first arrival for a compatibility key becomes
-leader and serves exactly ONE batch, with its own request at the head; it
-hands leadership to the next queued request at the cut, before launching,
-so the next batch's admission overlaps this batch's launch and result
-fetch. A short admission window gathers the resubmit burst that follows
-each delivered batch. Errors wake every waiter of the failed batch.
+leader and serves exactly ONE batch, with its own request at the head.
+The read batchers hand leadership to the next queued request at the cut,
+before launching, so the next batch's admission overlaps this batch's
+launch and result fetch; the write-side IngestBatcher (parallel/ingest.py)
+holds it through its apply instead (HANDOFF_AT_CUT, :153-157, :253-312).
+A short admission window gathers the resubmit burst that follows each
+delivered batch. Errors wake every waiter of the failed batch.
 """
 
 from __future__ import annotations
@@ -58,7 +60,18 @@ class ContinuousBatcher:
     """Leadership/queue machinery; subclasses implement _dispatch and
     _finalize."""
 
-    def __init__(self):
+    # whether leadership passes on at the cut (before the launch) or after
+    # the batch has run. At the cut suits reads: the next batch's
+    # admission overlaps this one's launch and fetch. The IngestBatcher
+    # holds it through the apply: group commit coalesces only if arrivals
+    # pile up behind the apply in flight, and at most one batch per key is
+    # applied at a time
+    HANDOFF_AT_CUT = True
+
+    def __init__(self, max_batch: int = MAX_BATCH,
+                 admission_s: float = _ADMISSION_S):
+        self.max_batch = max_batch
+        self.admission_s = admission_s
         self._lock = threading.Lock()
         self._pending: dict[tuple, list[_Req]] = defaultdict(list)
         self._leaders: set[tuple] = set()
@@ -130,37 +143,54 @@ class ContinuousBatcher:
             self._leader_threads[key] = threading.current_thread()
         # wait out the resubmit burst until an arrival lull (one tick
         # without growth), so it lands in one launch
-        deadline = time.perf_counter() + _ADMISSION_S
-        last = -1
-        while True:
-            with self._lock:
-                n = len(self._pending.get(key, ()))
-            if n >= MAX_BATCH or n == last or time.perf_counter() >= deadline:
-                break
-            last = n
-            time.sleep(0.0005)
+        if self.admission_s > 0:
+            deadline = time.perf_counter() + self.admission_s
+            last = -1
+            while True:
+                with self._lock:
+                    n = len(self._pending.get(key, ()))
+                if (n >= self.max_batch or n == last
+                        or time.perf_counter() >= deadline):
+                    break
+                last = n
+                time.sleep(0.0005)
         with self._lock:
             q = self._pending[key]
-            batch, q[:] = q[:MAX_BATCH], q[MAX_BATCH:]
+            batch, q[:] = q[:self.max_batch], q[self.max_batch:]
             for r in batch:
                 r.server = threading.current_thread()
-            # leadership hands off here, before the launch
-            if q:
-                q[0].promoted = True
-                q[0].event.set()
-            else:
-                self._leaders.discard(key)
-                self._leader_threads.pop(key, None)
-                del self._pending[key]
-        if not batch:
-            return
-        handle = _FAILED
+            if self.HANDOFF_AT_CUT:
+                # leadership hands off here, before the launch
+                self._hand_off_locked(key)
         try:
-            handle = self._dispatch(key, [r.payload for r in batch])
-        except BaseException as e:  # noqa: BLE001 — every waiter must wake
-            self._deliver_exc(batch, e)
-        if handle is not _FAILED:
-            self._run(key, batch, handle)
+            if not batch:
+                return
+            handle = _FAILED
+            try:
+                handle = self._dispatch(key, [r.payload for r in batch])
+            except BaseException as e:  # noqa: BLE001 — every waiter wakes
+                self._deliver_exc(batch, e)
+            if handle is not _FAILED:
+                self._run(key, batch, handle)
+        finally:
+            if not self.HANDOFF_AT_CUT:
+                # after the apply, on every exit path: this thread stays
+                # leader through it and returns alive, so the followers'
+                # dead-leader reclaim never fires for it
+                with self._lock:
+                    self._hand_off_locked(key)
+
+    def _hand_off_locked(self, key: tuple) -> None:
+        """Promote the next queued request to leader, or release the key
+        when its queue is empty. Called with self._lock held."""
+        q = self._pending.get(key)
+        if q:
+            q[0].promoted = True
+            q[0].event.set()
+        else:
+            self._leaders.discard(key)
+            self._leader_threads.pop(key, None)
+            self._pending.pop(key, None)
 
     def _run(self, key: tuple, batch: list[_Req], handle) -> None:
         try:

@@ -5,8 +5,9 @@ Trimmed port of pilosa_tpu/parallel/residency.py DeviceResidency: each
 leaf (one row over a shard set in its dense, sparse or run form, a BSI
 plane slab, a Range mask) stays resident keyed by its content
 generations, so repeat queries run without host->device transfers and a
-write changes the key. Eviction is LRU by byte budget; a leaf costs its
-tensor.nbytes.
+write changes the key; after an ingest batch, patch_entries (:169-212)
+moves the written rows' leaves to their new keys with the batch applied.
+Eviction is LRU by byte budget; a leaf costs its tensor.nbytes.
 
 The default budget is half of the card's memory
 (torch.cuda.get_device_properties(0).total_memory // 2), leaving the rest
@@ -78,11 +79,60 @@ class DeviceResidency:
                 self.bytes -= displaced.nbytes
             self._lru[key] = arr
             self.bytes += arr.nbytes
-            while self.bytes > self.budget and len(self._lru) > 1:
-                _, old = self._lru.popitem(last=False)
-                self.bytes -= old.nbytes
-                self.evictions += 1
+            self._evict_locked()
         return arr
+
+    def _evict_locked(self) -> None:
+        """Evict least-recently-used entries until under budget, never the
+        newest (the entry just inserted). Called with self._lock held."""
+        while self.bytes > self.budget and len(self._lru) > 1:
+            _, old = self._lru.popitem(last=False)
+            self.bytes -= old.nbytes
+            self.evictions += 1
+
+    def patch_entries(self, matcher: Callable[[tuple], bool],
+                      patcher: Callable) -> tuple[int, int]:
+        """Rewrite every resident entry whose key `matcher` selects: the
+        ingest path's write-through (pilosa_tpu/parallel/residency.py:
+        169-212). `patcher(key, tensor)` runs outside the lock and returns
+        (new_key, new_tensor), the patched leaf under its post-write key,
+        or None to drop the entry. Either way the old key goes: it carries
+        pre-write generations and can never be hit again. A patcher that
+        raises drops its entry (the next read re-uploads it). A clear()
+        meanwhile (index or field deleted) stops the swaps, as it fences
+        leaf(). Returns (patched, dropped)."""
+        with self._lock:
+            keys = [k for k in self._lru if matcher(k)]
+            epoch = self.epoch
+        patched = dropped = 0
+        for k in keys:
+            with self._lock:
+                arr = self._lru.get(k)
+            if arr is None:
+                continue
+            try:
+                res = patcher(k, arr)
+            except Exception:  # noqa: BLE001 — the next read re-uploads
+                res = None
+            with self._lock:
+                if self.epoch != epoch:
+                    break
+                old = self._lru.pop(k, None)
+                if old is None:
+                    continue
+                self.bytes -= old.nbytes
+                if res is None:
+                    dropped += 1
+                    continue
+                new_key, new_arr = res
+                displaced = self._lru.pop(new_key, None)
+                if displaced is not None:
+                    self.bytes -= displaced.nbytes
+                self._lru[new_key] = new_arr
+                self.bytes += new_arr.nbytes
+                patched += 1
+                self._evict_locked()
+        return patched, dropped
 
     def peek(self, key: tuple) -> Optional[torch.Tensor]:
         """The resident tensor for `key`, or None, without counting a hit
@@ -271,8 +321,10 @@ class HybridManager:
             return self._rep.get(row_key)
 
     def observe(self, row_key: tuple, max_card: int, run_stats=None) -> None:
-        """Write-side hysteresis tick for a row with history: the same
-        transition rule as choose(); rows never chosen are left alone."""
+        """Write-side hysteresis tick for a row with history, once per
+        touched row and fragment per applied ingest batch (residency.py:
+        458-474): the same transition rule as choose(); rows never chosen
+        are left alone."""
         if not self.active():
             return
         with self._lock:

@@ -6,8 +6,9 @@ ops, row generations, dense row materialization and BSI values, in the
 reference's on-disk format; and the row reads of TopN, Rows and GroupBy
 (row_count, row_counts, row_ids, rows_for_column, bit_count; :565-577,
 :644-707, :807-868) over the dict container store; the hybrid chooser's
-statistics (row_cardinality, row_runs, row_run_stats; :709-769). Left
-out: the frozen
+statistics (row_cardinality, row_runs, row_run_stats with its
+incremental _run_stats_update; :709-800); and the coalesced write path's
+apply_batch (:431-500). Left out: the frozen
 store, anti-entropy blocks, mutex paths, corruption quarantine (a damaged
 file raises at open) and hints.
 
@@ -148,19 +149,83 @@ class Fragment:
     @_locked
     def set_bit(self, row_id: int, column: int) -> bool:
         """Set one bit; appends to the WAL, snapshots past MAX_OP_N."""
+        prev_gen = self.row_generation(row_id)
         changed = self.storage.add(pos(row_id, column))
         if changed:
             self._touch(row_id)
+            self._run_stats_update(row_id, column, prev_gen, added=True)
         self._increment_op_n()
         return changed
 
     @_locked
     def clear_bit(self, row_id: int, column: int) -> bool:
+        prev_gen = self.row_generation(row_id)
         changed = self.storage.remove(pos(row_id, column))
         if changed:
             self._touch(row_id)
+            self._run_stats_update(row_id, column, prev_gen, added=False)
         self._increment_op_n()
         return changed
+
+    @_locked
+    def apply_batch(self, muts) -> tuple[list, int, int]:
+        """Apply one batch of ordered (is_set, row_id, column) mutations
+        (pilosa_tpu/storage/fragment.py:431-500): one sorted-dedup merge
+        per touched container, one generation bump for every changed row
+        and one WAL group commit (Bitmap.append_ops) instead of a write per
+        bit. Membership is probed once (contains_many) and then tracked
+        through the batch in order, so each `changed` flag is what the
+        per-bit path would return. Only the net effect per position goes
+        to the WAL, each position at most once, so replay lands on the
+        same state; a set then clear of an absent bit logs nothing while
+        both report changed. Returns (changed, n_wal_ops, n_wal_appends)."""
+        if not muts:
+            return [], 0, 0
+        positions = [pos(r, c) for _, r, c in muts]
+        uniq = sorted(set(positions))
+        initial_mask = self.storage.contains_many(
+            np.asarray(uniq, dtype=np.uint64))
+        state = dict(zip(uniq, initial_mask.tolist()))
+        initial = dict(state)
+        changed = []
+        changed_rows = set()
+        for (is_set, row_id, _col), p in zip(muts, positions):
+            cur = state[p]
+            ch = (not cur) if is_set else cur
+            state[p] = bool(is_set)
+            changed.append(ch)
+            if ch:
+                changed_rows.add(row_id)
+        net_adds = np.array([p for p, s in state.items()
+                             if s and not initial[p]], dtype=np.uint64)
+        net_removes = np.array([p for p, s in state.items()
+                                if not s and initial[p]], dtype=np.uint64)
+        if net_adds.size:
+            self.storage.add_many(net_adds)
+        if net_removes.size:
+            self.storage.remove_many(net_removes)
+        n_net = int(net_adds.size + net_removes.size)
+        wal_appends = 0
+        if changed_rows:
+            # one generation for the whole batch; the run statistics of
+            # changed rows recount on their next read (a batch can split
+            # and merge any number of runs), the interval counts are
+            # carried across
+            pre_gen = {rid: self.row_generation(rid) for rid in changed_rows}
+            self.generation += 1
+            for rid in changed_rows:
+                self._row_gen[rid] = self.generation
+                self._row_run_stats.pop(rid, None)
+            self._intervals_after_batch(
+                net_adds.tolist() + net_removes.tolist(), pre_gen)
+        if n_net:
+            if self.storage.op_writer is not None:
+                self.storage.append_ops(net_adds, net_removes)
+                wal_appends = 1
+            self.op_n += n_net
+            if self.op_n > MAX_OP_N:
+                self.snapshot()
+        return changed, n_net, wal_appends
 
     def _increment_op_n(self) -> None:
         self.op_n += 1
@@ -378,18 +443,98 @@ class Fragment:
 
     def row_run_stats(self, row_id: int) -> tuple[int, int]:
         """(interval count, max run length) of one row, cached per row
-        generation (fragment.py:749-769). The JAX package also updates the
-        entry in place on single-bit writes (_run_stats_update); here a
-        write changes the generation and the next read recounts."""
+        generation (fragment.py:749-769). Single-bit writes keep the entry
+        current (_run_stats_update); an add that grows a run marks the
+        max run length for a recount (-1), and a batch drops the entry.
+        After clears the max run length can stay an upper bound until the
+        next recount."""
         gen = self.row_generation(row_id)
         entry = self._row_run_stats.get(row_id)
-        if entry is not None and entry[0] == gen:
+        if entry is not None and entry[0] == gen and entry[2] >= 0:
             return entry[1], entry[2]
         iv = self.row_runs(row_id)
         n = int(iv.shape[0])
         maxr = int((iv[:, 1] - iv[:, 0] + 1).max()) if n else 0
         self._row_run_stats[row_id] = (gen, n, maxr)
         return n, maxr
+
+    def _run_stats_update(self, row_id: int, column: int, prev_gen: int,
+                          added: bool) -> None:
+        """Keep one row's run statistics current across one changed bit
+        (fragment.py:771-800): the interval-count delta follows from the
+        two neighbour bits, probed after the write (which never changes
+        them). An isolated add makes a run (+1), an add touching one
+        neighbour extends one (0), an add bridging two merges them (-1);
+        clears are the mirror image. Only an entry current for the row's
+        pre-write generation is updated; any other is dropped. The
+        chooser's interval count (row_interval_count) moves by the same
+        delta."""
+        entry = self._row_run_stats.get(row_id)
+        iv_entry = self._row_intervals.get(row_id)
+        if entry is not None and entry[0] != prev_gen:
+            self._row_run_stats.pop(row_id, None)
+            entry = None
+        if iv_entry is not None and iv_entry[0] != prev_gen:
+            iv_entry = None
+        if entry is None and iv_entry is None:
+            return
+        col = column % SHARD_WIDTH
+        left = col > 0 and self.storage.contains(pos(row_id, col - 1))
+        right = (col < SHARD_WIDTH - 1
+                 and self.storage.contains(pos(row_id, col + 1)))
+        if added:
+            delta = 1 - int(left) - int(right)
+        else:
+            delta = int(left) + int(right) - 1
+        gen = self.row_generation(row_id)
+        if iv_entry is not None:
+            self._row_intervals[row_id] = (gen, iv_entry[1] + delta)
+        if entry is None:
+            return
+        maxr = entry[2]
+        if added:
+            # an isolated add is a run of 1; a grown run's length needs a
+            # recount, and so does a length already unknown (-1): the JAX
+            # package's max(-1, 1) reads 1 there, short of a longer run
+            # (ROADMAP Queue C 3; its chooser never reads the length)
+            maxr = -1 if left or right or maxr < 0 else max(maxr, 1)
+        self._row_run_stats[row_id] = (gen, entry[1] + delta, maxr)
+
+    def _intervals_after_batch(self, changed: list, pre_gen: dict) -> None:
+        """Carry the cached interval counts (row_interval_count) of a
+        batch's changed rows across it, where the entry was current before
+        the batch; the JAX package recounts them on the next read. A
+        row's count is its number of run starts (a set bit whose left
+        neighbour in the shard is clear), and only the net-changed
+        positions and their right neighbours can gain or lose one: their
+        bits after the batch are probed, and before it they differ
+        exactly at the changed positions. changed: the batch's net-changed
+        absolute positions."""
+        live = {r: e[1] for r, g in pre_gen.items()
+                if (e := self._row_intervals.get(r)) is not None
+                and e[0] == g}
+        if not live:
+            return
+        moved = {p for p in changed if p // SHARD_WIDTH in live}
+        contains = self.storage.contains
+        memo: dict = {}
+
+        def bit(x: int, before: bool) -> bool:
+            b = memo.get(x)
+            if b is None:
+                b = memo[x] = contains(x)
+            return b != (before and x in moved)
+
+        def starts(x: int, before: bool) -> int:
+            if not bit(x, before):
+                return 0
+            return int(x % SHARD_WIDTH == 0 or not bit(x - 1, before))
+
+        delta = dict.fromkeys(live, 0)
+        for q in moved | {p + 1 for p in moved if (p + 1) % SHARD_WIDTH}:
+            delta[q // SHARD_WIDTH] += starts(q, False) - starts(q, True)
+        for r, n in live.items():
+            self._row_intervals[r] = (self.row_generation(r), n + delta[r])
 
     def row_ids(self, start: int = 0, limit: Optional[int] = None) -> list[int]:
         """Distinct row ids >= start with any set bit, ascending, at most

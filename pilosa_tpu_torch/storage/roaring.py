@@ -53,6 +53,10 @@ OP_MAGIC = 0xFA
 OP_VERSION = 1
 FRAMED_OP_SIZE = 15  # magic u8 | version u8 | type u8 | value u64 | crc32 u32
 
+# at most this many values, add_many / remove_many / contains_many take a
+# plain Python path (the ingest path's few values per fragment and batch)
+SMALL_BATCH = 64
+
 SNAP_TRAILER_MAGIC = b"PTS1"
 SNAP_TRAILER_SIZE = 4 + 8 + 16
 
@@ -156,6 +160,23 @@ def _runs_to_values(iv: np.ndarray) -> np.ndarray:
         return np.empty(0, dtype=np.uint16)
     return np.concatenate([np.arange(s, last + 1, dtype=np.uint16)
                            for s, last in iv.astype(np.int64)])
+
+
+def container_contains_many(c: "Container", lows: np.ndarray) -> np.ndarray:
+    """Vectorized membership of uint16 `lows` in one container, by kind
+    (pilosa_tpu/storage/roaring.py:176)."""
+    if c.kind == "array":
+        idx = np.searchsorted(c.data, lows)
+        idx_c = np.minimum(idx, c.data.size - 1)
+        return (idx < c.data.size) & (c.data[idx_c] == lows)
+    if c.kind == "run":
+        i = np.searchsorted(c.data[:, 0], lows, side="right") - 1
+        i_c = np.maximum(i, 0)
+        return (i >= 0) & (lows <= c.data[i_c, 1])
+    li = lows.astype(np.int64)
+    w = c.data[li >> 6]
+    return ((w >> (li.astype(np.uint64) & np.uint64(63)))
+            & np.uint64(1)).astype(bool)
 
 
 class Container:
@@ -346,7 +367,17 @@ class Bitmap:
 
     def _chunks(self, values: np.ndarray):
         """(key, sorted lows) per container of the unique values."""
-        values = sorted_unique(np.asarray(values, dtype=np.uint64))
+        values = np.asarray(values, dtype=np.uint64)
+        if values.size <= SMALL_BATCH:
+            # a write batch's few values per fragment: grouping in Python
+            # costs less than the numpy calls below
+            by_key: dict = {}
+            for v in sorted(set(values.tolist())):
+                by_key.setdefault(v >> 16, []).append(v & 0xFFFF)
+            for key, lows in by_key.items():
+                yield key, np.array(lows, dtype=np.uint16)
+            return
+        values = sorted_unique(values)
         if values.size == 0:
             return
         keys = (values >> np.uint64(16)).astype(np.int64)
@@ -392,7 +423,45 @@ class Bitmap:
             os.fsync(self.op_writer.fileno())
         self.op_n += 1
 
+    def append_ops(self, adds: np.ndarray, removes: np.ndarray) -> None:
+        """WAL-append a batch's net deltas as OP_ADD / OP_REMOVE records in
+        ONE write, with one fsync when op_sync is set (pilosa_tpu/storage/
+        roaring.py:677). The caller has already applied them; these are
+        redo records for replay. The port has no failpoints, so the JAX
+        package's torn-write rewind (_rewind_torn_write) and WAL poisoning
+        are left out: a failed write raises to the caller."""
+        if self.op_writer is None:
+            return
+        parts = [frame_op(typ, v)
+                 for typ, vals in ((OP_ADD, adds), (OP_REMOVE, removes))
+                 for v in np.asarray(vals, dtype=np.uint64).tolist()]
+        if not parts:
+            return
+        self.op_writer.write(b"".join(parts))
+        if self.op_sync:
+            os.fsync(self.op_writer.fileno())
+        self.op_n += len(parts)
+
     # -- queries ------------------------------------------------------------
+
+    def contains_many(self, values: np.ndarray) -> np.ndarray:
+        """Vectorized membership: a bool per value, probed container by
+        container (pilosa_tpu/storage/roaring.py:705, the dict-store
+        branch; the port has no frozen store)."""
+        values = np.asarray(values, dtype=np.uint64)
+        if values.size <= SMALL_BATCH:
+            return np.array([self.contains(v) for v in values.tolist()],
+                            dtype=bool)
+        out = np.zeros(values.size, dtype=bool)
+        keys = (values >> np.uint64(16)).astype(np.int64)
+        lows = (values & np.uint64(0xFFFF)).astype(np.uint16)
+        for key in np.unique(keys).tolist():
+            c = self.containers.get(key)
+            if c is None or c.n == 0:
+                continue
+            m = keys == key
+            out[m] = container_contains_many(c, lows[m])
+        return out
 
     def contains(self, value: int) -> bool:
         c = self.containers.get(int(value) >> 16)

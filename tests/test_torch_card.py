@@ -465,3 +465,124 @@ def test_server_on_card_matches_numpy(cuda_device, tmp_path):
         assert srv.executor.hybrid.sparse_uploads == 1
     finally:
         srv.close()
+
+
+@pytest.mark.gpu
+def test_patch_functions_match_cpu_on_card(cuda_device):
+    """patch_dense_words and patch_sparse_rows on CUDA tensors against the
+    same calls on the CPU: bit 31, the last shard and word, an empty
+    patch, a sparse row filled to K."""
+    from pilosa_tpu_torch.ops import bitvector as bv
+
+    rng = np.random.default_rng(17)
+    s, w = 1024, 32768
+    plane = _planes(rng, "cpu", s, w)
+    flat = rng.choice(s * w, size=5000, replace=False)
+    flat[:2] = [s * w - 1, (s - 1) * w]
+    sidx, widx = flat // w, flat % w
+    smask = rng.integers(0, 2**32, size=flat.size, dtype=np.uint64)
+    smask = smask.astype(np.uint32)
+    smask[:2] = 0x80000000
+    cmask = rng.integers(0, 2**32, size=flat.size, dtype=np.uint64)
+    cmask = cmask.astype(np.uint32) & ~smask
+    dev = plane.to(cuda_device)
+    got = bv.patch_dense_words(dev, sidx, widx, smask, cmask)
+    want = bv.patch_dense_words(plane, sidx, widx, smask, cmask)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(dev.cpu(), plane), "the resident tensor changed"
+    empty = np.empty(0, np.int64)
+    assert torch.equal(bv.patch_dense_words(dev, empty, empty, empty,
+                                            empty).cpu(), plane)
+    k = 64
+    cards = rng.integers(0, k + 1, size=s)
+    cards[:3] = [k, 0, k - 1]
+    sp = np.full((s, k), bv.SPARSE_SENTINEL, np.int32)
+    adds = np.full((s, 4), bv.SPARSE_SENTINEL, np.int32)
+    rems = np.full((s, 4), bv.SPARSE_SENTINEL, np.int32)
+    for i, c in enumerate(cards.tolist()):
+        cols = np.sort(rng.choice(1 << 20, size=c + 2, replace=False))
+        sp[i, :c] = cols[:c]
+        rems[i, :min(c, 2)] = cols[:min(c, 2)]
+        if c + 2 - min(c, 2) <= k:  # stays within K
+            adds[i, :2] = cols[c:c + 2]
+    got = bv.patch_sparse_rows(torch.from_numpy(sp).to(cuda_device), adds,
+                               rems)
+    want = bv.patch_sparse_rows(torch.from_numpy(sp), adds, rems)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_ingest_apply_patch_and_read_on_card(cuda_device, tmp_path):
+    """Set/Clear envelopes through the IngestBatcher on the card: the
+    resident dense and sparse leaves are patched on the device and the
+    reads after the writes, through the kernels, match numpy with no
+    dense re-upload of a written row."""
+    rng = np.random.default_rng(23)
+    n_cols = 3 << 20
+    dense = [np.unique(rng.integers(0, n_cols, size=40000))
+             for _ in range(3)]
+    sparse = np.unique(rng.integers(0, n_cols, size=600))
+    srv = Server(str(tmp_path / "d"), port=0).open()  # device: cuda
+    try:
+        def post(path, body):
+            req = urllib.request.Request(srv.uri + path, data=body.encode(),
+                                         method="POST")
+            with urllib.request.urlopen(req) as resp:
+                return json.loads(resp.read())
+
+        def query(pql):
+            return post("/index/i/query", pql)["results"]
+
+        post("/index/i", "{}")
+        post("/index/i/field/f", "{}")
+        post("/index/i/field/s", "{}")
+        for r, c in enumerate(dense):
+            srv.api.import_bits("i", "f", np.full(c.size, r), c)
+        srv.api.import_bits("i", "s", np.zeros(sparse.size, np.int64),
+                            sparse)
+        rows = [set(c.tolist()) for c in dense]
+        srow = set(sparse.tolist())
+        for q in ("Count(Row(f=0))", "Count(Row(f=1))", "Count(Row(f=2))",
+                  "Count(Row(s=0))", "Count(Not(Row(f=0)))"):
+            query(q)  # resident before the writes
+        calls = []
+        for _ in range(2000):
+            col = int(rng.integers(0, n_cols))
+            r = int(rng.integers(0, 4))
+            target = srow if r == 3 else rows[r]
+            field = "s=0" if r == 3 else f"f={r}"
+            if rng.random() < 0.3 and target:
+                col = next(iter(target))
+                calls.append(f"Clear({col}, {field})")
+                target.discard(col)
+            else:
+                calls.append(f"Set({col}, {field})")
+                target.add(col)
+        exists = set().union(*[set(c.tolist()) for c in dense],
+                             set(sparse.tolist()))
+        exists |= {int(c.split("(")[1].split(",")[0]) for c in calls
+                   if c.startswith("Set")}
+        before = srv.executor.hybrid_snapshot()
+        for k in range(0, len(calls), 250):
+            assert len(query("".join(calls[k:k + 250]))) == len(calls[k:k + 250])
+        snap = srv.executor.ingest_snapshot()
+        assert snap["patchedDense"] >= 3 and snap["patchDroppedDense"] == 0
+        kernels.reset_launch_counts()
+        a, b, c = rows
+        want = {
+            "Count(Row(f=0))": len(a),
+            "Count(Intersect(Row(f=0), Row(f=1)))": len(a & b),
+            "Count(Intersect(Row(f=0), Row(f=1), Row(f=2)))": len(a & b & c),
+            "Count(Intersect(Row(s=0), Row(f=1)))": len(srow & b),
+        }
+        for pql, n in want.items():
+            assert query(pql) == [n], pql
+        assert srv.executor.hybrid_snapshot()["denseUploads"] == \
+            before["denseUploads"]
+        assert query("Count(Not(Row(f=0)))") == [len(exists - a)]
+        counts = kernels.launch_counts()
+        assert counts["pair_stream_counts"] >= 2
+        assert counts["program_count"] >= 1
+        assert counts["sparse_intersect_dense"] >= 1
+    finally:
+        srv.close()
