@@ -111,16 +111,46 @@ Phases, in order; any failure exits non-zero (nothing is caught):
 8. The last lines: nvidia-smi's name and power limit, one JSON object with
    a record per kernel (its launches summed over the five paths, with
    launches_by_path beside; bsi_sum_counts adds its launches by form and
-   the form the served shape takes), and {"ok": true, "device": {...}}.
+   the form the served shape takes; served_device_ms_p50 is its device
+   ms as served, from the paths' device-profile captures, over
+   served_device_launches launches; served_stream_ms_p50 the time
+   between the CUDA events around its launches, over the pairs that no
+   other launch began or ended inside (an upper bound: plain-torch work
+   of other request threads can fall between), served_stream_pairs how
+   many, and served_stream_overlapped the pairs left out), and {"ok":
+   true, "device": {...}}.
+
+Observability, on every server path (phases 2-6), riding its concurrent
+pass: one POST /debug/device-profile (2 s on the Count and write paths,
+1 s on the others) whose spooled trace must name a port kernel, with the
+device's idle share over it and each port kernel's device ms; one ?profile=true query whose tree must
+hold the expected batcher dispatch record (CountBatcher on Count,
+PlaneSumBatcher on Sum, none on TopN and hybrid), residency hits with no
+host-to-device bytes, and calls within its elapsed time. At the end of
+the path's window (launch counts and kernel statistics zeroed together):
+/debug/vars, /metrics, /debug/hbm and /debug/heat scraped; the "pallas"
+dispatches equal the eight kernels' launches, each kernel's launches in
+the kernel statistics equal its count, every CUDA event pair resolved;
+accounted device bytes fit in torch.cuda.memory_allocated() (the drift
+printed); stream ms by events (p50, p99) beside host ms per kernel. On
+the write path the ingest counters of /metrics equal
+Executor.ingest_snapshot(), and the heat map's writes equal the oracle's
+count (every Set, and a Clear that changed a bit). The Count path also
+runs fifteen rounds of its pass, three of each: everything on, the heat
+map off, the kernel statistics off, the telemetry sampler stopped, all
+off. After the hybrid path,
+phase 5b reads five fields in turn (5 x 1024 fragments, past the heat
+map's 4096) in six rounds with the heat map on and off: the heat-on
+rounds must spill. Phase 1 times HeatTracker.touch_many over 1024 shards
+(at most 100 µs), and charges that spill.
 
     python3 chip_smoke.py --count-only   # phases 1-2 only, then the Count
                                          # path's numbers as one JSON line
 
 --count-only drives the Count path alone (same data, same clients) and
-prints its served rate, latencies and the CountBatcher's host time per
-batch. It reads only the Server, its CountBatcher and residency snapshots
-and the launch counts, so a copy of this script beside an older checkout
-of the port times that checkout the same way.
+prints its served rate, latencies, the CountBatcher's host time per
+batch and the path's observability checks (which need the routes of
+the observability layer: a checkout older than it no longer runs here).
 
     python3 chip_smoke.py --kernel-times # phase 1, then program_count,
                                          # intersect_count and
@@ -1121,7 +1151,7 @@ def bsi_phase(srv, port: int, packed: list, exists: np.ndarray,
     def query(pql: str, path: str = "/index/i/query"):
         return _http(port, "POST", path, pql.encode())["results"][0]
 
-    kernels.reset_launch_counts()  # the BSI path starts here
+    start_window()  # the BSI path starts here
     t0 = time.perf_counter()
     got = query("Sum(field=v)")
     cold_ms = (time.perf_counter() - t0) * 1e3
@@ -1194,6 +1224,8 @@ def bsi_phase(srv, port: int, packed: list, exists: np.ndarray,
     t0 = time.perf_counter()
     for t in threads:
         t.start()
+    obs = during_pass(port, ("Sum(Range(v > 300), field=v)",
+                             "PlaneSumBatcher"), SHORT_CAPTURE_S)
     for t in threads:
         t.join()
     wall = time.perf_counter() - t0
@@ -1204,6 +1236,7 @@ def bsi_phase(srv, port: int, packed: list, exists: np.ndarray,
     torch.cuda.synchronize()
     launches = kernels.launch_counts()  # the BSI path ends here
     forms = kernels.form_launch_counts()
+    obs["scrape"] = observe_path(srv, port, "bsi", launches)
     after = batcher.snapshot()
     res = srv.executor.residency.snapshot()
     stats = {
@@ -1230,7 +1263,8 @@ def bsi_phase(srv, port: int, packed: list, exists: np.ndarray,
             raise AssertionError(f"{name} never launched on the BSI path")
     if stats["max_batch_seen"] < 2:
         raise AssertionError("the PlaneSumBatcher never coalesced")
-    return {"launches": launches, "forms": forms, "stats": stats}, (cols, vals)
+    return ({"launches": launches, "forms": forms, "stats": stats,
+             "obs": obs}, (cols, vals))
 
 
 def make_topn_rows(n_shards: int, top_bits: int, seed: int) -> list:
@@ -1326,7 +1360,7 @@ def topn_phase(srv, port: int, packed: list, values: tuple, rows: list,
         log(f"  {what}{pql[:100]}: {ms:.1f} ms (oracle agrees)")
         return ms
 
-    kernels.reset_launch_counts()  # the TopN/GroupBy path starts here
+    start_window()  # the TopN/GroupBy path starts here
     times = {
         "topn_cache_cold_ms": timed("TopN(t, n=10)", _pairs(sizes)[:10],
                                     "cold "),
@@ -1420,6 +1454,8 @@ def topn_phase(srv, port: int, packed: list, values: tuple, rows: list,
     t0 = time.perf_counter()
     for t in threads:
         t.start()
+    obs = during_pass(port, ("TopN(t, Row(f=1), n=10)", None),
+                      TOPN_CAPTURE_S)
     for t in threads:
         t.join()
     wall = time.perf_counter() - t0
@@ -1429,6 +1465,7 @@ def topn_phase(srv, port: int, packed: list, values: tuple, rows: list,
             f"{clients * per_client - len(lat)} missing; first {errors[:1]}")
     torch.cuda.synchronize()
     launches = kernels.launch_counts()  # the TopN/GroupBy path ends here
+    obs["scrape"] = observe_path(srv, port, "topn", launches)
     res = srv.executor.residency.snapshot()
     stats = {
         "queries": len(lat), "qps": len(lat) / wall,
@@ -1454,7 +1491,7 @@ def topn_phase(srv, port: int, packed: list, values: tuple, rows: list,
     stats["phase_s"] = time.perf_counter() - t_phase
     stats["cleared_t0_column"] = lose
     log(f"  TopN/GroupBy phase: {stats['phase_s']:.1f} s")
-    return {"launches": launches, "stats": stats}
+    return {"launches": launches, "stats": stats, "obs": obs}
 
 
 def make_hybrid_rows(n_shards: int, seed: int) -> tuple:
@@ -1593,7 +1630,7 @@ def hybrid_phase(srv, port: int, packed: list, exists: np.ndarray,
          {"value": int(vvals[in_v].sum()), "count": int(in_v.sum())}),
         ("TopN(t, Row(s=5), n=5)", _pairs(tcounts)[:5]),
     ]
-    kernels.reset_launch_counts()  # the hybrid path starts here
+    start_window()  # the hybrid path starts here
     t0 = time.perf_counter()
     got = query("Count(Row(s=9))")
     cold_ms = (time.perf_counter() - t0) * 1e3
@@ -1650,6 +1687,8 @@ def hybrid_phase(srv, port: int, packed: list, exists: np.ndarray,
     t0 = time.perf_counter()
     for t in threads:
         t.start()
+    obs = during_pass(port, ("Count(Intersect(Row(s=3), Row(f=1)))", None),
+                      SHORT_CAPTURE_S)
     for t in threads:
         t.join()
     wall = time.perf_counter() - t0
@@ -1659,6 +1698,7 @@ def hybrid_phase(srv, port: int, packed: list, exists: np.ndarray,
             f"{clients * per_client - len(lat)} missing; first {errors[:1]}")
     torch.cuda.synchronize()
     launches = kernels.launch_counts()  # the hybrid path ends here
+    obs["scrape"] = observe_path(srv, port, "hybrid", launches)
     hyb = srv.executor.hybrid_snapshot()
     dense_equiv = HYBRID_S_ROWS * n_shards * SHARD_WIDTH // 8
     # the K of each row of s: its largest shard, padded as the chooser pads
@@ -1682,7 +1722,7 @@ def hybrid_phase(srv, port: int, packed: list, exists: np.ndarray,
         f"{hyb['residentSparseBytes']} bytes (the {HYBRID_S_ROWS} rows of s "
         f"as planes: {dense_equiv} bytes); run {hyb['residentRunLeaves']} "
         f"leaves, {hyb['residentRunBytes']} bytes; dense "
-        f"{hyb['residentDenseLeaves']} leaves, {hyb['residentDenseBytes']} "
+        f"{hyb['residentDenseRowLeaves']} leaves, {hyb['residentDenseRowBytes']} "
         f"bytes")
     log(f"  hybrid uploads: sparse {hyb['sparseUploads']}, run "
         f"{hyb['runUploads']}, dense {hyb['denseUploads']}; expanded on the "
@@ -1695,7 +1735,7 @@ def hybrid_phase(srv, port: int, packed: list, exists: np.ndarray,
         raise AssertionError(f"no sparse or no run upload: {hyb}")
     stats["phase_s"] = time.perf_counter() - t_phase
     log(f"  hybrid phase: {stats['phase_s']:.1f} s")
-    return {"launches": launches, "stats": stats,
+    return {"launches": launches, "stats": stats, "obs": obs,
             "data": (exists_all, s_rows, r_rows)}
 
 
@@ -1895,7 +1935,8 @@ def ingest_phase(srv, port: int, packed: list, exists: np.ndarray,
                        for s, _, _, c in e if s])
         return sum(acked), wall
 
-    kernels.reset_launch_counts()  # the write path starts here
+    start_window()  # the write path starts here
+    heat_writes0 = _http(port, "GET", "/debug/heat")["totals"]["writes"]
     # every written row resident before the writes
     for f, r in targets:
         if query(f"Count(Row({f}={r}))")[0] != oracle.count(f, r):
@@ -1948,10 +1989,26 @@ def ingest_phase(srv, port: int, packed: list, exists: np.ndarray,
     hyb_before = ex.hybrid_snapshot()
     stop = threading.Event()
     ts, win_lat, errors = read_round(stop=stop, check=False)
+    obs: dict = {}
+    obs_errors: list = []
+
+    def observe_window() -> None:
+        try:
+            obs.update(during_pass(
+                port, ("Count(Intersect(Row(f=0), Row(f=1)))",
+                       "CountBatcher"), CAPTURE_S))
+        except Exception as e:  # noqa: BLE001 — raised after the join
+            obs_errors.append(e)
+
+    watcher = threading.Thread(target=observe_window)
+    watcher.start()
     acked, wall = write_burst(0, envelopes)
     stop.set()
+    watcher.join()
     for t in ts:
         t.join()
+    if obs_errors:
+        raise obs_errors[0]
     if errors:
         raise AssertionError(f"readers during the writes: {errors[:3]}")
     after = ex.ingest_snapshot()
@@ -2091,6 +2148,37 @@ def ingest_phase(srv, port: int, packed: list, exists: np.ndarray,
     torch.cuda.synchronize()
     launches = kernels.launch_counts()  # the write path ends here
     final = ex.ingest_snapshot()
+    obs["scrape"] = observe_path(srv, port, "ingest", launches)
+    # the ingest counters of /metrics are the executor's
+    _, samples = parse_metrics(_text(port, "/metrics"))
+    for label, k in (('{op="set"}', "setMutations"),
+                     ('{op="clear"}', "clearMutations")):
+        if samples[("pilosa_ingest_total", label)] != final[k]:
+            raise AssertionError(f"/metrics ingest {label} != {k}")
+    for fam, label, k in (
+            ("pilosa_ingestBatches_total", '{kind="applied"}',
+             "appliedBatches"),
+            ("pilosa_ingestWal_total", '{key="appends"}', "walAppends"),
+            ("pilosa_ingestWal_total", '{key="ops"}', "walOps"),
+            ("pilosa_ingestPatch_total", '{kind="dense"}', "patchedDense"),
+            ("pilosa_ingestPatch_total", '{kind="sparse"}', "patchedSparse"),
+            ("pilosa_ingestPatch_total", '{kind="dropped"}', "patchDropped")):
+        if samples[(fam, label)] != final[k]:
+            raise AssertionError(f"/metrics {fam}{label} "
+                                 f"{samples[(fam, label)]} != {k} {final[k]}")
+    # the write heat: every Set, and a Clear that changed a bit (the batched
+    # apply and the per-bit path alike, executor.py:3528-3540, :2495-2532)
+    want_writes = sum(1 for w in range(writers) for e in range(n_env)
+                      for op, ch in zip(ops[w][e], want_flags[w][e])
+                      if op[0] or ch)
+    heat_writes = (_http(port, "GET", "/debug/heat")["totals"]["writes"]
+                   - heat_writes0)
+    if heat_writes != want_writes:
+        raise AssertionError(f"heat writes {heat_writes} != the oracle's "
+                             f"{want_writes}")
+    log(f"  /metrics ingest counters = Executor.ingest_snapshot(); heat "
+        f"writes {heat_writes} = oracle {want_writes}")
+    obs["heat_writes"] = heat_writes
     log(f"  launches on the write path: {launches}")
     stats = {
         "mutations": acked, "window_s": wall,
@@ -2109,7 +2197,7 @@ def ingest_phase(srv, port: int, packed: list, exists: np.ndarray,
     stats["phase_s"] = time.perf_counter() - t_phase
     log(f"  write phase: {stats['phase_s']:.1f} s (garbage-collector "
         f"pauses by generation: {gc_pause})")
-    return {"launches": launches, "stats": stats}
+    return {"launches": launches, "stats": stats, "obs": obs}
 
 
 def device_busy_ms(prof) -> float | None:
@@ -2130,6 +2218,423 @@ def device_busy_ms(prof) -> float | None:
         else:
             hi = max(hi, b)
     return (busy + hi - lo) / 1e3
+
+
+# -------------------------------------------------- observability checks
+
+# the eight hand kernels' wrappers (the "pallas" kernel family)
+PORT_KERNELS = tuple(REPLACES)
+CAPTURE_S = 2.0        # device-profile capture on the Count and write paths
+SHORT_CAPTURE_S = 1.0  # on the BSI and hybrid paths (shorter passes)
+# On the TopN pass the 32 clients advance together through about 2.2 s of
+# host work a query (p50 2220 ms, p99 2446 ms on NVIDIA H100 80GB HBM3,
+# 700.00 W) and launch in waves: a 1 s window opened after one wave's first
+# launch can close before the next wave. Six seconds hold at least two.
+TOPN_CAPTURE_S = 6.0
+COUNT_ROUND_QUERIES = 32  # per client in each telemetry on/off round
+# the Count pass's rounds: everything on, the heat map off, the kernel
+# statistics off, the telemetry sampler stopped, all off; three rounds of
+# each, in turn and back
+OBS_MODES = ("on", "heat_off", "kernel_stats_off", "sampler_off", "off")
+OBS_SWITCHES = OBS_MODES + OBS_MODES[::-1] + OBS_MODES
+SPILL_ROUND_QUERIES = 16  # per client in each heat on/off round of five
+SPILL_SWITCHES = ("on", "off", "off", "on", "on", "off")  # fields
+METRIC_LINE = None  # compiled at first use
+
+
+def start_window() -> None:
+    """Zero the launch counts and the kernel statistics together: a path's
+    window starts here."""
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.utils import telemetry
+
+    kernels.reset_launch_counts()
+    telemetry.kernels.reset()
+
+
+def _text(port: int, path: str) -> str:
+    conn = http.client.HTTPConnection("localhost", port, timeout=600)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        if resp.status != 200:
+            raise AssertionError(f"GET {path} -> {resp.status}: {body[:200]}")
+        return body
+    finally:
+        conn.close()
+
+
+def parse_metrics(text: str) -> tuple:
+    """({family: type}, {(name, labels): value}) of a Prometheus text
+    exposition; raises on a line that does not parse, a sample of no
+    declared family or a family declared twice."""
+    import re
+
+    global METRIC_LINE
+    if METRIC_LINE is None:
+        METRIC_LINE = re.compile(
+            r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? "
+            r"([0-9eE+.\-]+|NaN|\+Inf|-Inf)$")
+    types: dict = {}
+    samples: dict = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            fam, kind = line[7:].split(" ")
+            if fam in types:
+                raise AssertionError(f"/metrics: {fam} declared twice")
+            types[fam] = kind
+            continue
+        m = METRIC_LINE.match(line)
+        if m is None:
+            raise AssertionError(f"/metrics: unparseable line {line!r}")
+        name = m.group(1)
+        base = next((name[:-len(x)] for x in ("_bucket", "_sum", "_count")
+                     if name.endswith(x) and name[:-len(x)] in types), name)
+        if base not in types:
+            raise AssertionError(f"/metrics: {name} has no # TYPE")
+        samples[(name, m.group(2) or "")] = float(m.group(3))
+    return types, samples
+
+
+def profile_probe(port: int, pql: str, batcher, warm: bool = True) -> dict:
+    """One ?profile=true query: its tree must hold a dispatch record of
+    `batcher` (or none), residency hits and no host-to-device bytes on
+    warm leaves, and calls that fit in the query's elapsed time."""
+    got = _http(port, "POST", "/index/i/query?profile=true", pql.encode())
+    prof = got["profile"]
+    batchers = [d["batcher"] for d in prof["dispatches"]]
+    if batchers != ([batcher] if batcher else []):
+        raise AssertionError(f"{pql}: dispatch records {batchers}, "
+                             f"expected {batcher}")
+    res = prof["residency"]
+    if warm and (res["hits"] < 1 or res["hostToDeviceBytes"]):
+        raise AssertionError(f"{pql}: warm leaves but residency {res}")
+    calls_ms = sum(c["ms"] for c in prof["calls"])
+    if calls_ms > prof["elapsedMs"] + 1e-3:
+        raise AssertionError(f"{pql}: calls {calls_ms} ms > elapsed "
+                             f"{prof['elapsedMs']} ms")
+    log(f"  ?profile=true {pql}: elapsed {prof['elapsedMs']} ms, calls "
+        f"{prof['calls']}, dispatches {prof['dispatches']}, residency {res}")
+    return {"pql": pql, "elapsedMs": prof["elapsedMs"],
+            "calls": prof["calls"], "dispatches": prof["dispatches"],
+            "residency": res}
+
+
+def device_capture(port: int, seconds: float) -> dict:
+    """POST /debug/device-profile during a pass: the spooled trace must
+    name one of the port's kernels, and the capture gives the device's
+    idle share over its window."""
+    from pilosa_tpu_torch.ops import kernels
+
+    doc = _http(port, "POST", f"/debug/device-profile?seconds={seconds}")
+    if doc["status"] != "ok":
+        raise AssertionError(f"device-profile capture: {doc}")
+    with open(doc["trace"]) as f:
+        trace = f.read()
+    named = sorted(k for k in kernels.DEVICE_KERNELS if k in trace)
+    if not named or not doc["kernels"]:
+        raise AssertionError(f"the capture's trace names no port kernel: "
+                             f"{doc}")
+    log(f"  device-profile capture: {doc['seconds']} s, device busy "
+        f"{doc['deviceBusyMs']} ms, idle share {doc['idleShare']}, kernels "
+        f"{doc['kernels']}, device ms {doc['kernelMs']} ({doc['bytes']} "
+        "bytes spooled)")
+    return {k: doc[k] for k in ("seconds", "deviceBusyMs", "idleShare",
+                                "kernels", "kernelMs", "bytes")}
+
+
+def during_pass(port: int, probe: tuple, seconds: float) -> dict:
+    """What every path does while its concurrent clients run: one
+    device-profile capture, from the pass's first kernel launch on (a
+    TopN pass spends its first seconds on the host), then one profiled
+    query."""
+    from pilosa_tpu_torch.ops import kernels
+
+    start = sum(kernels.launch_counts().values())
+    deadline = time.perf_counter() + 60
+    while sum(kernels.launch_counts().values()) == start:
+        if time.perf_counter() > deadline:
+            raise AssertionError("no kernel launched in the pass's first "
+                                 "60 s")
+        time.sleep(0.01)
+    capture = device_capture(port, seconds)
+    return {"capture": capture, "profile": profile_probe(port, *probe)}
+
+
+def observe_path(srv, port: int, path: str, launches: dict) -> dict:
+    """Scrape /debug/vars, /metrics, /debug/hbm and /debug/heat at the end
+    of a path's window (zeroed by start_window, the card synchronized):
+    the "pallas" dispatches equal the eight kernels' launches, each
+    kernel's launches in the kernel statistics equal its launch count and
+    every event pair resolved; the accounted device bytes fit in the
+    allocator's."""
+    import torch
+
+    torch.cuda.synchronize()
+    dv = _http(port, "GET", "/debug/vars")
+    kb = dv["kernels"]
+    pallas = sum(c["dispatches"] for c in kb["calls"]
+                 if c["family"] == "pallas")
+    total = sum(launches.values())
+    if pallas != total:
+        raise AssertionError(f"{path}: {pallas} pallas dispatches in "
+                             f"/debug/vars, {total} launches")
+    dev = kb["streamTimes"]
+    if dev["pending"]:
+        raise AssertionError(f"{path}: {dev['pending']} event pairs "
+                             "unresolved after a synchronize")
+    per_kernel = {}
+    for name in PORT_KERNELS:
+        rec = dev["byKernel"].get(name)
+        n = launches[name]
+        if (rec["launches"] if rec else 0) != n:
+            raise AssertionError(f"{path}: {name} launched {n} times, "
+                                 f"kernel statistics {rec}")
+        if not n:
+            continue
+        per_kernel[name] = {k: rec.get(k) for k in (
+            "launches", "timed", "overlapped", "p50Ms", "p99Ms",
+            "hostAvgMs")}
+        log(f"  {path} {name}: {n} launches, stream ms by events p50 "
+            f"{rec.get('p50Ms')} p99 {rec.get('p99Ms')} ({rec['timed']} "
+            f"pairs alone on the stream, {rec['overlapped']} overlapped), "
+            f"host ms {rec['hostAvgMs']}")
+    types, samples = parse_metrics(_text(port, "/metrics"))
+    key = ("pilosa_kernelsDispatches_total", '{key="pallas",rep="dense"}')
+    if samples.get(key, 0.0) != pallas:
+        raise AssertionError(f"{path}: /metrics {key} = {samples.get(key)} "
+                             f"!= /debug/vars {pallas}")
+    hbm = _http(port, "GET", "/debug/hbm?top=8")
+    allocated = torch.cuda.memory_allocated()
+    if hbm["accountedBytes"] > allocated:
+        raise AssertionError(f"{path}: accounted {hbm['accountedBytes']} "
+                             f"bytes > allocated {allocated}")
+    heat = _http(port, "GET", "/debug/heat?top=3")
+    out = {"pallas_dispatches": pallas, "untimed": dev["untimed"],
+           "overlapped": dev["overlapped"],
+           "event_pool_pairs": dev["poolPairs"], "kernels": per_kernel,
+           "families": dev["byFamily"], "metric_families": len(types),
+           "hbm_accounted_bytes": hbm["accountedBytes"],
+           "hbm_allocated_bytes": allocated,
+           "hbm_drift_bytes": hbm["hbmDriftBytes"],
+           "heat_totals": heat["totals"],
+           "heat_tracked": heat["trackedFragments"],
+           "heat_spilled": heat["spilledFragments"]}
+    log(f"  {path}: /debug/vars pallas dispatches {pallas} = launches; "
+        f"/metrics {len(types)} families; /debug/hbm accounted "
+        f"{hbm['accountedBytes']} of {allocated} allocated bytes (drift "
+        f"{hbm['hbmDriftBytes']}); heat {heat['totals']}, "
+        f"{heat['trackedFragments']} tracked, {heat['spilledFragments']} "
+        "spilled")
+    return out
+
+
+def heat_touch_us(n_shards: int, runs: int = 2000) -> dict:
+    """Host µs of one HeatTracker.touch_many over n_shards shards, the
+    charge applied (flush): the Frags form on a tracked field (a fresh
+    shard tuple each call, as the executor passes it), the same keys as a
+    list, and charges that spill at the default bound of 4096 fragments:
+    five fields read in turn (every charge spills a field's worth), and a
+    table full of hot fields that new keys enter by spilling each
+    other."""
+    from pilosa_tpu_torch.utils.heat import Frags, HeatTracker
+
+    shards = tuple(range(n_shards))
+
+    def timed(tr, keys_of, n: int, reads: int = 1) -> list:
+        out = []
+        for i in range(n):
+            keys = keys_of(i)
+            t = time.perf_counter()
+            tr.touch_many(keys, reads=reads)
+            tr.flush()
+            out.append(time.perf_counter() - t)
+        return out
+
+    tr = HeatTracker()
+    tr.touch_many(Frags("i", "g", "standard", shards), reads=1)
+    arrays = timed(tr, lambda i: Frags("i", "g", "standard",
+                                       tuple(shards)), runs)
+    keys = Frags("i", "g", "standard", shards).keys()
+    as_list = timed(tr, lambda i: keys, 200)
+    tr = HeatTracker()
+    rotation = timed(tr, lambda i: Frags("i", "abcde"[i % 5], "standard",
+                                         tuple(shards)), 100)[5:]
+    spilled = tr.spilled_fragments
+    tr = HeatTracker()
+    for f in "abcd":
+        for _ in range(3):
+            tr.touch_many(Frags("i", f, "standard", shards), reads=1)
+    hot = timed(tr, lambda i: Frags("i", "xy"[i % 2], "standard",
+                                    tuple(shards)), 40)
+    out = {"arrays_us_p50": statistics.median(arrays) * 1e6,
+           "arrays_us_p99": float(np.percentile(arrays, 99)) * 1e6,
+           "list_us_p50": statistics.median(as_list) * 1e6,
+           "spill_rotation_us_p50": statistics.median(rotation) * 1e6,
+           "spill_rotation_spilled": spilled,
+           "spill_hot_us_p50": statistics.median(hot) * 1e6,
+           "spill_hot_spilled": tr.spilled_fragments}
+    log(f"  heat: touch_many over {n_shards} shards, applied: "
+        f"{out['arrays_us_p50']:.1f} us (p99 {out['arrays_us_p99']:.1f}); "
+        f"as a list of keys {out['list_us_p50']:.1f} us; spilling at 4096: "
+        f"{out['spill_rotation_us_p50']:.1f} us a charge over five fields "
+        f"in turn ({spilled} spilled), {out['spill_hot_us_p50']:.1f} us "
+        f"into a hot table ({out['spill_hot_spilled']} spilled)")
+    if out["arrays_us_p50"] > 100:
+        raise AssertionError("touch_many over a shard set takes more than "
+                             "100 us")
+    return out
+
+
+def _switch(srv, mode: str) -> None:
+    """Turn off what `mode` names (OBS_MODES; "on" turns nothing off)."""
+    if mode in ("heat_off", "off"):
+        os.environ["PILOSA_TPU_TORCH_HEAT"] = "0"
+        srv.executor.heat.enabled = False
+    if mode == "kernel_stats_off":
+        os.environ["PILOSA_TPU_TORCH_KERNEL_STATS"] = "0"
+    if mode == "off":
+        os.environ["PILOSA_TPU_TORCH_TELEMETRY"] = "0"
+    if mode in ("sampler_off", "off"):
+        srv.telemetry.stop()
+
+
+def _switch_back(srv, mode: str) -> None:
+    for env in ("PILOSA_TPU_TORCH_TELEMETRY", "PILOSA_TPU_TORCH_HEAT",
+                "PILOSA_TPU_TORCH_KERNEL_STATS"):
+        os.environ.pop(env, None)
+    srv.executor.heat.enabled = True
+    if mode in ("sampler_off", "off"):
+        srv.telemetry.start()
+
+
+def obs_rounds(srv, run_clients) -> list:
+    """The Count pass in interleaved rounds (OBS_SWITCHES): everything
+    on, the heat map off (PILOSA_TPU_TORCH_HEAT=0 and its runtime
+    toggle), the kernel statistics off (PILOSA_TPU_TORCH_KERNEL_STATS=0),
+    the telemetry sampler stopped, and telemetry and heat off (the sampler
+    stopped too): served q/s and p50 of each round, and the median of each
+    mode."""
+    rounds = []
+    for i, mode in enumerate(OBS_SWITCHES):
+        _switch(srv, mode)
+        try:
+            lat, wall, _ = run_clients(COUNT_ROUND_QUERIES, 3000 + 100 * i)
+        finally:
+            _switch_back(srv, mode)
+        rounds.append({"mode": mode, "queries": len(lat),
+                       "qps": len(lat) / wall,
+                       "p50_ms": statistics.median(lat) * 1e3,
+                       "p99_ms": float(np.percentile(lat, 99)) * 1e3})
+        log(f"  round {i + 1} ({mode}): {rounds[-1]['qps']:.1f} q/s, p50 "
+            f"{rounds[-1]['p50_ms']:.2f} ms, p99 "
+            f"{rounds[-1]['p99_ms']:.2f} ms")
+    for mode in OBS_MODES:
+        mine = [r for r in rounds if r["mode"] == mode]
+        log(f"  {mode}: median {statistics.median(r['qps'] for r in mine):.1f}"
+            f" q/s, p50 {statistics.median(r['p50_ms'] for r in mine):.2f} "
+            f"ms over {len(mine)} rounds")
+    return rounds
+
+
+def concurrent_mix(port: int, clients: int, n_per_client: int,
+                   queries: list, seed: int, during=None) -> tuple:
+    """clients threads x n_per_client queries drawn from (pql, answer)
+    pairs over HTTP -> (latencies, wall seconds, what during() gave while
+    they ran); answers checked."""
+    lat: list = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def client(cid: int) -> None:
+        rng = np.random.default_rng(seed + cid)
+        conn = http.client.HTTPConnection("localhost", port, timeout=600)
+        try:
+            for k in rng.integers(len(queries), size=n_per_client):
+                pql, want = queries[int(k)]
+                t = time.perf_counter()
+                got = _http(port, "POST", "/index/i/query", pql.encode(),
+                            conn)["results"][0]
+                with lock:
+                    lat.append(time.perf_counter() - t)
+                    if got != want:
+                        errors.append((pql, got, want))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    seen = during() if during is not None else None
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors or len(lat) != clients * n_per_client:
+        raise AssertionError(f"{len(errors)} concurrent answers differ, "
+                             f"{clients * n_per_client - len(lat)} missing; "
+                             f"first {errors[:1]}")
+    return lat, wall, seen
+
+
+def five_field_queries(packed: list, values: tuple, t_rows: list,
+                       s_rows: list, r_rows: list) -> list:
+    """(pql, oracle answer) Counts over f, t, s, r and v: one row leaf or
+    comparison mask each, 1024 shards a leaf (t's row 0 lost a column to
+    the TopN phase and is left out)."""
+    vals = values[1]
+    return ([(f"Count(Row(f={a}))", _popcount(packed[a])) for a in range(4)]
+            + [(f"Count(Row(t={a}))", int(t_rows[a].size)) for a in (1, 2)]
+            + [(f"Count(Row(s={a}))", int(s_rows[a].size))
+               for a in range(4)]
+            + [(f"Count(Row(r={a}))", int(r_rows[a].size)) for a in (0, 1)]
+            + [(f"Count(Range(v > {x}))", int((vals > x).sum()))
+               for x in (300, 700)])
+
+
+def spill_rounds(srv, port: int, clients: int, queries: list,
+                 seed: int) -> dict:
+    """Counts over five fields (f, t, s, r and v's bit planes: 5 x 1024
+    fragments, past the heat map's bound of 4096) in interleaved rounds
+    with the heat map on and off (SPILL_SWITCHES): with it on, a charge
+    of a field not wholly tracked spills. Served q/s and p50 of each
+    round and the fragments spilled in it (the heat-on rounds must
+    spill); answers checked against the oracle."""
+    heat = srv.executor.heat
+    for pql, want in queries:  # every leaf resident before the rounds
+        got = _http(port, "POST", "/index/i/query", pql.encode())
+        if got["results"][0] != want:
+            raise AssertionError(f"{pql}: port {got['results'][0]} != "
+                                 f"oracle {want}")
+    rounds = []
+    for i, mode in enumerate(SPILL_SWITCHES):
+        heat.flush()
+        before = heat.spilled_fragments
+        switch = "heat_off" if mode == "off" else "on"
+        _switch(srv, switch)
+        try:
+            lat, wall, _ = concurrent_mix(port, clients,
+                                          SPILL_ROUND_QUERIES, queries,
+                                          seed + 5000 + 100 * i)
+        finally:
+            _switch_back(srv, switch)
+        heat.flush()
+        rounds.append({"heat": mode, "queries": len(lat),
+                       "qps": len(lat) / wall,
+                       "p50_ms": statistics.median(lat) * 1e3,
+                       "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+                       "spilled": heat.spilled_fragments - before})
+        log(f"  five-field round {i + 1} (heat {mode}): "
+            f"{rounds[-1]['qps']:.1f} q/s, p50 {rounds[-1]['p50_ms']:.2f} "
+            f"ms, p99 {rounds[-1]['p99_ms']:.2f} ms, "
+            f"{rounds[-1]['spilled']} fragments spilled")
+    if not all(r["spilled"] for r in rounds if r["heat"] == "on"):
+        raise AssertionError("a heat-on round over five fields spilled "
+                             "nothing")
+    return {"rounds": rounds,
+            "tracked": heat.snapshot(top=1)["trackedFragments"]}
 
 
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
@@ -2160,7 +2665,7 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
         f"{sum(r.size for r in t_rows)} bits "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    kernels.reset_launch_counts()  # the main path starts here
+    start_window()  # the main path starts here
     with tempfile.TemporaryDirectory(prefix="pilosa_torch_smoke_") as tmp:
         srv = Server(os.path.join(tmp, "data"), port=0, device=device).open()
         port = srv.http.port
@@ -2234,47 +2739,16 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
             pair = np.array([[_popcount(p[a] & p[b]) for b in range(n_rows)]
                              for a in range(n_rows)])
 
-            def run_clients(n_per_client: int, salt: int):
+            count_mix = [(f"Count(Intersect(Row(f={a}), Row(f={b})))",
+                          int(pair[a, b]))
+                         for a in range(n_rows) for b in range(n_rows)]
+
+            def run_clients(n_per_client: int, salt: int, during=None):
                 """clients threads x n_per_client Count(Intersect) over
-                HTTP -> (latencies, wall seconds); answers checked."""
-                lat: list = []
-                errors: list = []
-                lock = threading.Lock()
-
-                def client(cid: int) -> None:
-                    rng = np.random.default_rng(seed + salt + cid)
-                    conn = http.client.HTTPConnection("localhost", port,
-                                                      timeout=600)
-                    try:
-                        for _ in range(n_per_client):
-                            a, b = (int(x)
-                                    for x in rng.integers(n_rows, size=2))
-                            q = f"Count(Intersect(Row(f={a}), Row(f={b})))"
-                            t = time.perf_counter()
-                            got = _http(port, "POST", "/index/i/query",
-                                        q.encode(), conn)["results"][0]
-                            dt = time.perf_counter() - t
-                            with lock:
-                                lat.append(dt)
-                                if got != int(pair[a, b]):
-                                    errors.append((q, got, int(pair[a, b])))
-                    finally:
-                        conn.close()
-
-                threads = [threading.Thread(target=client, args=(c,))
-                           for c in range(clients)]
-                t0 = time.perf_counter()
-                for t in threads:
-                    t.start()
-                for t in threads:
-                    t.join()
-                wall = time.perf_counter() - t0
-                if errors or len(lat) != clients * n_per_client:
-                    raise AssertionError(
-                        f"{len(errors)} concurrent answers differ, "
-                        f"{clients * n_per_client - len(lat)} missing; "
-                        f"first {errors[:1]}")
-                return lat, wall
+                HTTP -> (latencies, wall seconds, what during() gave while
+                they ran); answers checked."""
+                return concurrent_mix(port, clients, n_per_client,
+                                      count_mix, seed + salt, during)
 
             # host time of each batch's dispatch (plan, pointer table,
             # launch), timed around the CountBatcher's own method
@@ -2289,10 +2763,13 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                     dispatch_s.append(time.perf_counter() - t)
 
             count_batcher._dispatch = timed_dispatch
-            lat, wall = run_clients(per_client, 1000)
+            lat, wall, obs = run_clients(per_client, 1000, lambda: during_pass(
+                port, ("Count(Intersect(Row(f=0), Row(f=1)))",
+                       "CountBatcher"), CAPTURE_S))
             torch.cuda.synchronize()
             launches = kernels.launch_counts()  # the main path ends here
             del count_batcher._dispatch
+            obs["scrape"] = observe_path(srv, port, "count", launches)
             batcher = count_batcher.snapshot()
             res = srv.executor.residency.snapshot()
             stats = {
@@ -2323,7 +2800,7 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
 
                 n = max(per_client // 4, 1)
                 with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    _, pwall = run_clients(n, 2000)
+                    _, pwall, _ = run_clients(n, 2000)
                     torch.cuda.synchronize()
                 busy = device_busy_ms(prof)
                 stats["profiled_queries"] = clients * n
@@ -2344,9 +2821,10 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                         f"{name} never launched on the Count path")
             if stats["max_batch_seen"] < 2:
                 raise AssertionError("the CountBatcher never coalesced")
+            obs["rounds"] = obs_rounds(srv, run_clients)
             if count_only:
-                return {"launches": launches, "stats": stats}
-            out = {"launches": launches, "stats": stats}
+                return {"launches": launches, "stats": stats, "obs": obs}
+            out = {"launches": launches, "stats": stats, "obs": obs}
             if ingest_only:
                 s_rows, r_rows, _ = load_hybrid_fields(srv, port, n_shards,
                                                        hybrid[0])
@@ -2366,6 +2844,11 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                     out["topn"]["stats"]["cleared_t0_column"], n_shards,
                     *hybrid)
                 exists_all, s_rows, r_rows = out["hybrid"].pop("data")
+                log("phase 5b: five fields read in turn, the heat map "
+                    "spilling")
+                out["spill"] = spill_rounds(
+                    srv, port, clients, five_field_queries(
+                        p, values, t_rows, s_rows, r_rows), seed)
             log("phase 6: write path (coalesced Set/Clear) on the same "
                 "server, under concurrent reads")
             out["ingest"] = ingest_phase(srv, port, p, exists_all, s_rows,
@@ -2373,6 +2856,64 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
             return out
         finally:
             srv.close()
+
+
+# the device kernels of each wrapper, as a capture's trace names them
+DEVICE_NAMES = {"pair_stream_counts": ("pair_stream_kernel",),
+                "program_count": ("program_count_kernel",
+                                  "program_count_table_kernel"),
+                "intersect_count": ("intersect_count_kernel",),
+                "bsi_compare": ("bsi_compare_kernel",),
+                "bsi_sum_counts": tuple(SUM_FORM_KERNELS.values()),
+                "topn_counts_packed": ("topn_counts_kernel",),
+                "cross_count_matrix": ("cross_count_kernel",),
+                "sparse_intersect_dense": ("sparse_dense_kernel",)}
+
+
+def served_times(name: str, paths: dict) -> dict:
+    """A kernel as served: its device ms p50 from the path captures (the
+    device kernel the captures saw most, on the capture that saw it most;
+    None where none did), and its stream ms p50 by CUDA events over the
+    pairs alone on the stream (on the path with the most such pairs;
+    None where none was), how many, and the pairs overlapped on every
+    path."""
+    dev, seen = None, 0
+    for p in paths.values():
+        cap = p["obs"]["capture"]
+        for k in DEVICE_NAMES[name]:
+            if cap["kernels"].get(k, 0) > seen:
+                seen, dev = cap["kernels"][k], cap["kernelMs"][k]["p50Ms"]
+    best, over = None, 0
+    for p in paths.values():
+        rec = p["obs"]["scrape"]["kernels"].get(name)
+        if rec is None:
+            continue
+        over += rec["overlapped"]
+        if rec["timed"] and (best is None or rec["timed"] > best["timed"]):
+            best = rec
+    return {"served_device_ms_p50": dev, "served_device_launches": seen,
+            "served_stream_ms_p50": None if best is None else best["p50Ms"],
+            "served_stream_pairs": 0 if best is None else best["timed"],
+            "served_stream_overlapped": over}
+
+
+def obs_summary(paths: dict, touch: dict, spill: dict) -> dict:
+    """Per path: the capture's idle share, the profiled query, the event
+    pool; the Count pass's telemetry on/off rounds; the five-field heat
+    on/off rounds; touch_many's µs."""
+    out = {"heat_touch": touch, "rounds": paths["count"]["obs"]["rounds"],
+           "spill_rounds": spill}
+    for name, p in paths.items():
+        o = p["obs"]
+        out[name] = {"capture": o["capture"],
+                     "profile": {k: o["profile"][k] for k in
+                                 ("pql", "elapsedMs", "residency")},
+                     "untimed": o["scrape"]["untimed"],
+                     "overlapped": o["scrape"]["overlapped"],
+                     "event_pool_pairs": o["scrape"]["event_pool_pairs"],
+                     "hbm_drift_bytes": o["scrape"]["hbm_drift_bytes"],
+                     "heat_totals": o["scrape"]["heat_totals"]}
+    return out
 
 
 # -------------------------------------------------------------------- main
@@ -2424,6 +2965,7 @@ def main(argv=None) -> int:
     log(f"  kernels built in {_build.build_info['seconds']:.1f} s: "
         f"{_build.build_info['path']}")
     ptxas = ptxas_phase(_build)
+    touch = heat_touch_us(args.shards)
 
     if args.kernel_times:
         measured = kernel_times(device, args.shards, 32768, args.seed,
@@ -2448,7 +2990,8 @@ def main(argv=None) -> int:
     if args.count_only:
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         print(smi_name)
-        print(json.dumps({"count_path": st, "launches": served["launches"]}),
+        print(json.dumps({"count_path": st, "launches": served["launches"],
+                          "obs": served["obs"], "heat_touch": touch}),
               flush=True)
         return 0
     if args.ingest_only:
@@ -2493,7 +3036,8 @@ def main(argv=None) -> int:
             "launches_by_path": by_path,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": None}
+            "bound_by": m["bound_by"], "library_ms": None,
+            **served_times(name, paths)}
         by_form = {k.split("/", 1)[1]: v
                    for k, v in phase.get("forms", {}).items()
                    if k.startswith(name + "/")}
@@ -2506,6 +3050,8 @@ def main(argv=None) -> int:
         "popcounts, packed TopN counts or a popcount cross matrix: torch "
         "has no popcount; nor a gather, bit test and ordered compaction)")
     log(f"  details: {json.dumps({'kernels': measured, **served})}")
+    log("  observability: "
+        + json.dumps(obs_summary(paths, touch, served["spill"])))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi_name)
     print(json.dumps({"kernels": records}))

@@ -6,12 +6,19 @@ with existence marking (api.py:820-842), queries, schema and status.
 Result JSON is the reference's (api.py:567-603) for the result types of
 this slice: Row, ValCount ({"value", "count"}), Pairs ([{"id", "count"}]),
 RowIdentifiers ({"rows": [...]}), GroupCounts (a list), int and bool.
+
+Per-request profiling (api.py:109-125, :270-360): a query gets a
+QueryProfile when the request asks (?profile=true) or while
+long_query_time > 0; such a query also gets a trace id for the whole
+request. Queries slower than long_query_time land in query_history
+(GET /debug/query-history) with their profile.
 """
 
 from __future__ import annotations
 
 import time
 import uuid
+from datetime import datetime, timezone
 from typing import Optional
 
 import numpy as np
@@ -30,6 +37,8 @@ from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.models.row import Row
 from pilosa_tpu_torch.pql import parse_string_cached
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
+from pilosa_tpu_torch.utils import profile as qprofile
+from pilosa_tpu_torch.utils import tracing
 
 
 class ApiError(Exception):
@@ -56,14 +65,35 @@ class API:
         self.node_id = str(uuid.uuid4())
         self.uri = ""  # set by Server once the listener is bound
         self.start_time = time.monotonic()
+        # slow-query threshold in seconds (0: off), and the ring of the
+        # queries over it
+        self.long_query_time = 0.0
+        self.query_history = qprofile.QueryHistory(100)
 
     # -- queries ------------------------------------------------------------
 
     def query_results(self, index_name: str, pql: str,
-                      shards: Optional[list[int]] = None) -> list:
-        """Execute PQL and return the raw results."""
+                      shards: Optional[list[int]] = None,
+                      profile: bool = False) -> list:
+        """Execute PQL and return the raw results; the query's profile,
+        when it had one, is published in qprofile.last_profile."""
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
+        slow_armed = self.long_query_time > 0
+        profiling = profile or slow_armed
+        trace_tok = None
+        if profiling and tracing.current_trace_id.get() is None:
+            # one trace id for the whole request: the history entry, the
+            # profile and the spans join on it
+            trace_tok = tracing.current_trace_id.set(tracing.new_trace_id())
+        prof = prof_tok = None
+        if profiling and qprofile.current_profile.get() is None:
+            prof = qprofile.QueryProfile(
+                trace_id=tracing.current_trace_id.get() or "",
+                node_id=self.node_id, index=index_name,
+                pql=qprofile.truncate_pql(pql))
+            prof_tok = qprofile.current_profile.set(prof)
+        start = time.perf_counter()
         try:
             # Set/Clear envelopes take the linear scanner: their unique
             # columns would only churn the parse cache
@@ -71,12 +101,38 @@ class API:
             return self.executor.execute(index_name, query, shards=shards)
         except (ExecutionError, ValueError) as e:
             raise ApiError(str(e))
+        finally:
+            elapsed = time.perf_counter() - start
+            if prof_tok is not None:
+                qprofile.current_profile.reset(prof_tok)
+            if prof is not None:
+                prof.finish()
+            qprofile.last_profile.set(prof)
+            if slow_armed and elapsed > self.long_query_time:
+                self.query_history.append({
+                    "time": datetime.now(timezone.utc).isoformat(),
+                    "index": index_name,
+                    "pql": qprofile.truncate_pql(pql),
+                    "elapsed": round(elapsed, 6),
+                    "traceId": tracing.current_trace_id.get() or "-",
+                    "profile": prof.to_dict() if prof is not None else None,
+                })
+            if trace_tok is not None:
+                tracing.current_trace_id.reset(trace_tok)
 
     def query(self, index_name: str, pql: str,
-              shards: Optional[list[int]] = None) -> dict:
-        """POST /index/{index}/query."""
-        results = self.query_results(index_name, pql, shards=shards)
-        return {"results": [self._result_to_json(r) for r in results]}
+              shards: Optional[list[int]] = None,
+              profile: bool = False) -> dict:
+        """POST /index/{index}/query; `profile` adds the query's profile
+        tree under "profile"."""
+        results = self.query_results(index_name, pql, shards=shards,
+                                     profile=profile)
+        out = {"results": [self._result_to_json(r) for r in results]}
+        if profile:
+            prof = qprofile.last_profile.get()
+            if prof is not None:
+                out["profile"] = prof.to_dict()
+        return out
 
     @staticmethod
     def _result_to_json(result):

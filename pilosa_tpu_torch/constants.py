@@ -1,8 +1,9 @@
-"""Layout constants of the bitmap index.
+"""Layout constants of the bitmap index, and the kernel families.
 
 Trimmed copy of pilosa_tpu/constants.py:13-45: the on-disk and in-memory
 layout must stay identical to the reference, so that the port opens the
-fragments the JAX package writes and the reverse.
+fragments the JAX package writes and the reverse. KERNEL_FAMILY_REPS is
+the JAX package's table (:54-71), so both servers label /metrics alike.
 """
 
 # Row r of shard s covers absolute bit positions [r * SHARD_WIDTH,
@@ -32,3 +33,29 @@ EXISTENCE_FIELD_NAME = "_exists"
 # On-disk roaring format magic.
 MAGIC_NUMBER = 12348
 STORAGE_VERSION = 0
+
+# Kernel families and the device representation each operates on: the
+# label space of the pilosa_kernels* metric families (utils/telemetry.py
+# KernelStats). The port's launches map onto it as follows: the eight
+# hand kernels of ops/kernels.py -> "pallas" (their TPU twins' family);
+# the sparse and run steps of ops/hybrid.py -> "sparse" / "run"; the write
+# path's leaf patches -> "ingest"; the plain-torch TopN ranking and BSI
+# descents -> "topn" / "bsi"; the batchers' queue wait -> "batcher".
+KERNEL_FAMILY_REPS = {
+    "pallas": "dense",
+    "topn": "dense",
+    "bsi": "dense",
+    "bitwise": "dense",
+    "count": "dense",
+    "groupby": "dense",
+    "sparse": "sparse",
+    "run": "run",
+    "ingest": "dense",
+    "program": "dense",
+    "stream": "dense",
+    "batcher": "dense",
+    "ici_program": "dense",
+    "stream_mesh": "dense",
+    "groupby_mesh": "dense",
+}
+KERNEL_FAMILIES = frozenset(KERNEL_FAMILY_REPS)

@@ -57,11 +57,22 @@ applied to it and its leaves patched (ApplyFence, the port's own), so no
 read builds a key whose generations are half before and half after a
 batch.
 
-Left out: the rest of the planner and the plan cache, heat, the cluster
-(its distributed and remote ingest applies included), key translation,
-row attributes and the MinMaxBatcher. None of them changes an answer.
-Calls, field types and options outside the slice raise NotPortedError (a
-400 at the API).
+Observability (executor.py:118, :151-169, :546-560): the executor owns a
+stats client, a tracer and the fragment heat map. Each call counts
+`query/<name>`, runs under an `executor.<name>` span and records its time
+on the query's profile. Every row leaf read charges the heat map once
+over its shard set (:656-663, :755, :797), a write charges its fragments
+(the batched apply once per (field, view), :3528-3540; the per-bit path
+as :2495-2532), and hbm_snapshot (:877) joins the resident bytes with the
+CUDA allocator's. The sparse and run steps, the BSI descents, the TopN
+recounts and the write path's patches are timed as kernel families
+(utils/telemetry.py).
+
+Left out: the rest of the planner and the plan cache, the cluster (its
+distributed and remote ingest applies included), key translation, row
+attributes and the MinMaxBatcher. None of them changes an answer. Calls,
+field types and options outside the slice raise NotPortedError (a 400 at
+the API).
 """
 
 from __future__ import annotations
@@ -122,6 +133,11 @@ from pilosa_tpu_torch.pql.ast import (
     NEQ,
     Condition,
 )
+from pilosa_tpu_torch.utils import heat as _heat
+from pilosa_tpu_torch.utils import profile as qprofile
+from pilosa_tpu_torch.utils import telemetry
+from pilosa_tpu_torch.utils.stats import NopStatsClient
+from pilosa_tpu_torch.utils.tracing import NopTracer
 
 BITMAP_CALLS = {"Row", "Union", "Intersect", "Difference", "Xor", "Not",
                 "Range"}
@@ -180,8 +196,14 @@ class Executor:
     def __init__(self, holder, device="cuda"):
         self.holder = holder
         self.runner = DeviceRunner(device)
+        # observability: nop until a Server installs its stats client and
+        # tracer; the heat map unless PILOSA_TPU_TORCH_HEAT=0
+        self.stats = NopStatsClient()
+        self.tracer = NopTracer()
+        self.heat = _heat.HeatTracker() if _heat.enabled() else None
         self.residency = DeviceResidency(self.runner)
-        self.hybrid = HybridManager()
+        self.residency.heat = self.heat
+        self.hybrid = HybridManager(heat=self.heat)
         # PILOSA_TPU_TORCH_BATCH=0: one launch per Count and per Sum, no
         # coalescing
         batch = os.environ.get("PILOSA_TPU_TORCH_BATCH", "1") != "0"
@@ -245,9 +267,19 @@ class Executor:
             handled = self._execute_ingest(index, query)
             if handled is not None:
                 return handled
+        prof = qprofile.current_profile.get()
+        results = []
         with self._fence(index.name).read():
-            return [self._execute_call(index, call, shards)
-                    for call in query.calls]
+            for call in query.calls:
+                self.stats.count(f"query/{call.name}")
+                t_call = time.perf_counter() if prof is not None else 0.0
+                with self.tracer.start_span(f"executor.{call.name}") as span:
+                    results.append(self._execute_call(index, call, shards))
+                    span.set_tag("index", index_name)
+                if prof is not None:
+                    prof.record_call(call.name,
+                                     (time.perf_counter() - t_call) * 1e3)
+        return results
 
     def _fence(self, index_name: str) -> ApplyFence:
         """The index's ApplyFence: reads share it, a batch apply (with its
@@ -311,6 +343,15 @@ class Executor:
         view = f.view(view_name) if f is not None else None
         return [None if view is None else view.fragment(s) for s in shards]
 
+    def _charge_read(self, index: Index, field_name: str, view_name: str,
+                     shards_t: tuple) -> None:
+        """The read charge of one row leaf over its shard set (every leaf
+        read, resident or not: executor.py:656-663)."""
+        tracker = self.heat
+        if tracker is not None and tracker.enabled:
+            tracker.touch_many(_heat.Frags(index.name, field_name,
+                                           view_name, shards_t), reads=1)
+
     def _row_leaf_dev(self, index: Index, field_name: str, shards: list,
                       row_id: int, view_name: str = VIEW_STANDARD,
                       frags: Optional[list] = None,
@@ -324,8 +365,10 @@ class Executor:
         if gens is None:
             gens = tuple(0 if fr is None else fr.row_generation(row_id)
                          for fr in frags)
-        key = ("row", index.name, field_name, view_name, row_id,
-               tuple(shards), gens)
+        shards_t = tuple(shards)
+        key = ("row", index.name, field_name, view_name, row_id, shards_t,
+               gens)
+        self._charge_read(index, field_name, view_name, shards_t)
 
         def make():
             twin = self._dense_from_twin(index, field_name, view_name,
@@ -377,8 +420,10 @@ class Executor:
         the sizing read can overflow the slots; the row is then cut, as a
         dense row tears per shard, and the write's generation re-keys the
         next read."""
-        key = ("sparse", index.name, field_name, view_name, row_id,
-               tuple(shards), slots, gens)
+        shards_t = tuple(shards)
+        key = ("sparse", index.name, field_name, view_name, row_id, shards_t,
+               slots, gens)
+        self._charge_read(index, field_name, view_name, shards_t)
 
         def make():
             arr = np.full((len(shards), slots), hy.SPARSE_SENTINEL,
@@ -388,10 +433,17 @@ class Executor:
                     cols = fr.row_columns(row_id)
                     n = min(cols.size, slots)
                     arr[i, :n] = cols[:n]
-            self.hybrid.record_upload("sparse", arr.nbytes)
-            return self.runner.put_index_leaf(arr)
+            return arr
 
-        return self.residency.leaf(key, make)
+        return self.residency.leaf(key, make, self._put_index("sparse"))
+
+    def _put_index(self, rep: str):
+        """The upload of a sparse or run leaf's host array, counted as the
+        chooser's upload of that form."""
+        def put(arr: np.ndarray) -> torch.Tensor:
+            self.hybrid.record_upload(rep, arr.nbytes)
+            return self.runner.put_index_leaf(arr)
+        return put
 
     def _row_leaf_run_dev(self, index: Index, field_name: str,
                           view_name: str, shards: list, row_id: int,
@@ -399,8 +451,10 @@ class Executor:
         """Resident run leaf int32[S, 2, slots]: each shard's intervals
         straight from its containers (Fragment.row_runs), RUN_SENTINEL-
         padded (executor.py:739-783)."""
-        key = ("run", index.name, field_name, view_name, row_id,
-               tuple(shards), slots, gens)
+        shards_t = tuple(shards)
+        key = ("run", index.name, field_name, view_name, row_id, shards_t,
+               slots, gens)
+        self._charge_read(index, field_name, view_name, shards_t)
 
         def make():
             arr = np.full((len(shards), 2, slots), hy.RUN_SENTINEL,
@@ -409,10 +463,9 @@ class Executor:
                 if fr is not None:
                     arr[i] = hy.runs_from_intervals(fr.row_runs(row_id),
                                                     slots)
-            self.hybrid.record_upload("run", arr.nbytes)
-            return self.runner.put_index_leaf(arr)
+            return arr
 
-        return self.residency.leaf(key, make)
+        return self.residency.leaf(key, make, self._put_index("run"))
 
     def _chosen_leaf(self, index: Index, field_name: str, shards: list,
                      row_id: int) -> tuple:
@@ -435,7 +488,7 @@ class Executor:
         out = self.hybrid.snapshot()
         by_kind = self.residency.snapshot()["by_kind"]
         for name, kind in (("Sparse", "sparse"), ("Run", "run"),
-                           ("Dense", "row")):
+                           ("DenseRow", "row")):
             k = by_kind.get(kind, {})
             out[f"resident{name}Leaves"] = k.get("entries", 0)
             out[f"resident{name}Bytes"] = k.get("bytes", 0)
@@ -500,9 +553,16 @@ class Executor:
         sparse∩dense (and sparse&~dense) nodes on the kernel."""
         if "sparse" not in kinds and "run" not in kinds:
             return "dense", self.runner.row_leaves_dev(leaves, program)
-        return hy.eval_hybrid(program, leaves, kinds, WORDS_PER_SHARD,
-                              kernels.sparse_intersect_dense,
-                              kernels.sparse_difference_dense)
+        with self._hybrid_timed(kinds, "eval_hybrid"):
+            return hy.eval_hybrid(program, leaves, kinds, WORDS_PER_SHARD,
+                                  kernels.sparse_intersect_dense,
+                                  kernels.sparse_difference_dense)
+
+    def _hybrid_timed(self, kinds: list, name: str):
+        """A hybrid program timed as the "sparse" family, or "run" when it
+        has no sparse leaf."""
+        return telemetry.timed("sparse" if "sparse" in kinds else "run",
+                               name, self.runner.device, len(kinds))
 
     def _eval_program_dense(self, program, leaves: list,
                             kinds: list) -> torch.Tensor:
@@ -554,9 +614,11 @@ class Executor:
         program, leaves, kinds = self._compile(index, child, shards)
         if "sparse" in kinds or "run" in kinds:
             # before the batcher: its kernels read only [S, W] planes
-            return hy.hybrid_count(program, leaves, kinds, WORDS_PER_SHARD,
-                                   kernels.sparse_intersect_dense,
-                                   kernels.sparse_difference_dense)
+            with self._hybrid_timed(kinds, "hybrid_count"):
+                return hy.hybrid_count(program, leaves, kinds,
+                                       WORDS_PER_SHARD,
+                                       kernels.sparse_intersect_dense,
+                                       kernels.sparse_difference_dense)
         if self.batcher is not None:
             # concurrent Counts coalesce into one pair-stream launch
             if program == ("leaf", 0) and len(leaves) == 1:
@@ -641,7 +703,10 @@ class Executor:
         BETWEEN (GTE & LTE)."""
         depth, lo_f, hi_f, base = (f.bit_depth, f.options.min, f.options.max,
                                    f.base)
+        # the not-null row, then the slab, before any clamp: the JAX
+        # package's order (_bsi_planes), so both read and upload alike
         exists = self._bsi_exists(index, f, shards, state)
+        planes = self._bsi_planes(index, f, shards, state)
         op = cond.op
 
         def empty():
@@ -649,7 +714,6 @@ class Executor:
                 np.zeros((len(shards), WORDS_PER_SHARD), dtype=np.uint32))
 
         def sweep(value: int, bop: str):
-            planes = self._bsi_planes(index, f, shards, state)
             return bsi.compare(planes, exists, bsi.value_to_bits(value, depth),
                                bop)
 
@@ -715,7 +779,8 @@ class Executor:
                          is_min: bool) -> ValCount:
         f, shards, planes, cand = self._bsi_inputs(index, call, shards)
         fn = bsi.bsi_min_packed if is_min else bsi.bsi_max_packed
-        packed = fn(planes, cand).cpu().numpy().astype(np.int64)  # one fetch
+        with telemetry.timed("bsi", fn.__name__, self.runner.device, 2):
+            packed = fn(planes, cand).cpu().numpy().astype(np.int64)  # 1 fetch
         bits, cnt = packed[:-1], packed[-1]
         best_val, best_cnt = None, 0
         for i in range(len(shards)):
@@ -825,14 +890,16 @@ class Executor:
         """int64[3, len(row_ids)] of topn_counts_packed over the rows'
         resident leaves and src, TOPN_LAUNCH_ROWS leaves per launch, one
         fetch."""
-        parts = []
-        for start in range(0, len(row_ids), TOPN_LAUNCH_ROWS):
-            leaves = [self._row_leaf_dev(index, f.name, shards, rid)
-                      for rid in row_ids[start:start + TOPN_LAUNCH_ROWS]]
-            parts.append(kernels.topn_counts_packed(leaves, src))
-        with self._stats_lock:
-            self.topn_recount_rows += len(row_ids)
-        return torch.cat(parts, dim=1).cpu().numpy()
+        with telemetry.timed("topn", "topn_recount", self.runner.device,
+                             len(row_ids) + 1):
+            parts = []
+            for start in range(0, len(row_ids), TOPN_LAUNCH_ROWS):
+                leaves = [self._row_leaf_dev(index, f.name, shards, rid)
+                          for rid in row_ids[start:start + TOPN_LAUNCH_ROWS]]
+                parts.append(kernels.topn_counts_packed(leaves, src))
+            with self._stats_lock:
+                self.topn_recount_rows += len(row_ids)
+            return torch.cat(parts, dim=1).cpu().numpy()
 
     def _topn_src_walk(self, index: Index, f, shards: list,
                        cand_ids: np.ndarray, cand_counts: np.ndarray, src,
@@ -1140,14 +1207,28 @@ class Executor:
                 raise NotPortedError("timestamps not ported yet")
             changed = f.set_bit(self._row_id(call.args[f.name]), col)
         index.mark_exists([col])
+        self._heat_write(index, f, col)  # every Set, as executor.py:2499
         return changed
 
     def _execute_clear(self, index: Index, call: Call) -> bool:
         col = self._column(call)
         f = self._write_field(index, call)
         if f.options.type == "int":
-            return f.clear_value(col)
-        return f.clear_bit(self._row_id(call.args[f.name]), col)
+            changed = f.clear_value(col)
+        else:
+            changed = f.clear_bit(self._row_id(call.args[f.name]), col)
+        if changed:
+            self._heat_write(index, f, col)
+        return changed
+
+    def _heat_write(self, index: Index, f, col: int) -> None:
+        """The per-bit path's write charge of one column's fragment, at
+        the BSI view for an int field (executor.py:2502-2512)."""
+        tracker = self.heat
+        if tracker is None or not tracker.enabled:
+            return
+        view = f.bsi_view_name if f.options.type == "int" else VIEW_STANDARD
+        tracker.touch(index.name, f.name, view, col // SHARD_WIDTH, writes=1)
 
     @staticmethod
     def _column(call: Call) -> int:
@@ -1279,6 +1360,9 @@ class Executor:
         touched: dict = {}
         set_cols_by_shard: dict = {}
         set_shards: dict = {}
+        # (field, view) -> ([shard], [write heat]): every Set charges, a
+        # Clear only when it changed a bit (executor.py:3528-3540)
+        write_heat: dict = {}
         hybrid_evals = 0
         for (fname, shard), items in groups.items():
             view = fields[fname].view(VIEW_STANDARD)
@@ -1317,9 +1401,18 @@ class Executor:
                     # the run band is reachable or the row is run now
                     read_runs = (prev == "run" or (card > hyb.threshold
                                                    and hyb.run_threshold > 0))
-                    hyb.observe(row_key, card, run_stats=(
-                        (frag.row_interval_count(r),) if read_runs else None))
+                    hyb.observe(row_key, card,
+                                _heat.Frags(index.name, fname, VIEW_STANDARD,
+                                            (shard,)),
+                                run_stats=((frag.row_interval_count(r),)
+                                           if read_runs else None))
                     hybrid_evals += 1
+            w = sum(1 for (_mi, m), ch in zip(items, changed)
+                    if m.is_set or ch)
+            if w:
+                wh = write_heat.setdefault((fname, VIEW_STANDARD), ([], []))
+                wh[0].append(shard)
+                wh[1].append(w)
             if any(m.is_set for _, m in items):
                 set_shards.setdefault(fname, []).append(shard)
                 set_cols_by_shard.setdefault(shard, set()).update(
@@ -1329,6 +1422,7 @@ class Executor:
                 st["appliedBatches"] += 1
                 st["walAppends"] += wal_appends
                 st["walOps"] += wal_ops
+        self._charge_writes(index, write_heat)
         for fname, shards in set_shards.items():
             fields[fname].add_available_shards(shards)
         self._ingest_mark_exists(index, set_cols_by_shard, outcomes, muts)
@@ -1345,6 +1439,19 @@ class Executor:
             self.ingest_stats["errors"] += n_err
             self.ingest_stats["hybridEvals"] += hybrid_evals
         return [o if o is not None else ("ok", False) for o in outcomes]
+
+    def _charge_writes(self, index: Index, write_heat: dict) -> None:
+        """One heat charge per (field, view) of a batch, each shard with
+        its own write count."""
+        tracker = self.heat
+        if tracker is None or not tracker.enabled:
+            return
+        for (fname, vname), (shards, weights) in write_heat.items():
+            order = np.argsort(shards, kind="stable")
+            tracker.touch_many(
+                _heat.Frags(index.name, fname, vname,
+                            tuple(int(shards[i]) for i in order)),
+                writes=np.asarray(weights)[order])
 
     def _ingest_mark_exists(self, index: Index, set_cols_by_shard: dict,
                             outcomes: list, muts: list) -> None:
@@ -1430,8 +1537,10 @@ class Executor:
                              for s, g in zip(shards_t, gens))
             if key[0] == "row":
                 try:
-                    new_arr = patch_dense_words(
-                        arr, *self._dense_patch_masks(shards_t, t))
+                    with telemetry.timed("ingest", "patch_dense_words",
+                                         arr.device):
+                        new_arr = patch_dense_words(
+                            arr, *self._dense_patch_masks(shards_t, t))
                 except Exception:
                     count("patchDroppedDense")
                     raise
@@ -1468,7 +1577,8 @@ class Executor:
                     adds[i, :len(e[2])] = sorted(e[2])
                 if e[3]:
                     rems[i, :len(e[3])] = sorted(e[3])
-            new_arr = patch_sparse_rows(arr, adds, rems)
+            with telemetry.timed("ingest", "patch_sparse_rows", arr.device):
+                new_arr = patch_sparse_rows(arr, adds, rems)
             count("patchedSparse")
             return ("sparse", iname, fld, vw, row, shards_t, slots,
                     new_gens), new_arr
@@ -1518,3 +1628,93 @@ class Executor:
         out["enabled"] = ingest_env_enabled()
         out["maxBatch"] = self.ingest.max_batch
         return out
+
+    # -------------------------------------------------------------- HBM map
+
+    _LEAF_KIND_REP = {"row": "dense", "sparse": "sparse", "run": "run"}
+
+    def _leaf_waste(self, key: tuple, nbytes: int) -> int:
+        """Padding of one resident row leaf: bytes beyond what its
+        cardinality (sparse) or interval count (run) needs; a dense plane
+        on one device has none (executor.py:850-876)."""
+        kind, shards = key[0], key[5]
+        if kind == "row":
+            return max(0, nbytes - len(shards) * WORDS_PER_SHARD * 4)
+        index = self.holder.index(key[1])
+        f = index.field(key[2]) if index is not None else None
+        view = f.view(key[3]) if f is not None else None
+        useful = 0
+        if view is not None:
+            slots = key[6]
+            for s in shards:
+                frag = view.fragment(s)
+                if frag is None:
+                    continue
+                if kind == "sparse":
+                    useful += min(frag.row_cardinality(key[4]), slots) * 4
+                else:  # run: [start, last] int32 pairs
+                    useful += min(frag.row_interval_count(key[4]),
+                                  slots) * 8
+        return max(0, nbytes - useful)
+
+    def hbm_snapshot(self, top: int = 64) -> dict:
+        """GET /debug/hbm (executor.py:877): resident row leaves by
+        (index, field, form) with bytes and padding, other kinds by kind,
+        the budget and headroom, joined with the CUDA caching allocator
+        (allocated and reserved bytes). accountedBytes is the device
+        memory the resident entries hold, each storage once (entries may
+        alias one tensor; residentBytes counts every entry, as the budget
+        does); hbmDriftBytes is allocated minus accounted: memory the
+        residency does not hold (query intermediates, the batchers'
+        outputs, leaks). The port has no plan cache."""
+        by_field: dict = {}
+        other: dict = {}
+        storages: dict = {}
+        waste_by_rep = {"dense": 0, "sparse": 0, "run": 0}
+        for key, nbytes, (ptr, st_bytes) in \
+                self.residency.entries_snapshot():
+            storages[ptr] = st_bytes
+            kind = key[0] if isinstance(key, tuple) and key else "?"
+            rep = self._LEAF_KIND_REP.get(kind)
+            if rep is not None and len(key) >= 6:
+                g = by_field.setdefault(
+                    (key[1], key[2], rep),
+                    {"leaves": 0, "bytes": 0, "wasteBytes": 0})
+                g["leaves"] += 1
+                g["bytes"] += nbytes
+                w = self._leaf_waste(key, nbytes)
+                g["wasteBytes"] += w
+                waste_by_rep[rep] += w
+            else:
+                o = other.setdefault(str(kind), {"entries": 0, "bytes": 0})
+                o["entries"] += 1
+                o["bytes"] += nbytes
+        fields = [{"index": idx, "field": fld, "rep": rep, **g}
+                  for (idx, fld, rep), g in by_field.items()]
+        fields.sort(key=lambda e: (-e["bytes"], e["index"], e["field"],
+                                   e["rep"]))
+        res = self.residency.snapshot()
+        accounted = sum(storages.values())
+        alloc = None
+        dev = self.runner.device
+        for d in telemetry.device_memory_stats():
+            if dev.type == "cuda" and d["device"] == f"cuda:{dev.index}":
+                ms = d["memoryStats"]
+                alloc = {"bytesInUse": ms["bytes_in_use"],
+                         "bytesReserved": ms["bytes_reserved"],
+                         "bytesLimit": ms["bytes_limit"], "devices": 1}
+        return {
+            "budgetBytes": self.residency.budget,
+            "residentBytes": res["bytes"],
+            "headroomBytes": max(0, self.residency.budget - res["bytes"]),
+            "entries": res["entries"],
+            "evictions": res["evictions"],
+            "accountedBytes": accounted,
+            "allocator": alloc,
+            "hbmDriftBytes": (alloc["bytesInUse"] - accounted)
+            if alloc is not None else None,
+            "wasteByRep": waste_by_rep,
+            "byField": fields[:max(0, int(top))] if top else fields,
+            "byFieldTruncated": bool(top) and len(fields) > int(top),
+            "otherKinds": other,
+        }

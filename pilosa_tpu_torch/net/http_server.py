@@ -5,23 +5,47 @@ JSON shapes for the endpoints of this slice:
 
     POST/DELETE /index/{i}
     POST        /index/{i}/field/{f}
-    POST        /index/{i}/query               (raw PQL body, ?shards=)
+    POST        /index/{i}/query               (raw PQL body, ?shards=,
+                                                ?profile=true)
     POST        /index/{i}/field/{f}/import    (JSON body: rowIDs or values)
     GET         /schema
     GET         /status
+
+and the observability surface (:610-1330), with the JAX paths, query
+arguments and JSON keys, and only the blocks the port has:
+
+    GET         /debug/vars                    (expvar JSON)
+    GET         /metrics                       (Prometheus text)
+    GET         /debug/hbm                     (?top=)
+    GET         /debug/heat                    (?since=, ?limit=, ?top=)
+    GET         /debug/timeseries              (?since=, ?limit=)
+    GET         /debug/query-history
+    POST        /debug/device-profile          (?seconds=)
+    GET         /debug/pprof[/goroutine|/profile]  (?seconds=)
+
+An X-Pilosa-Trace-Id request header becomes the request's trace id.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import re
+import sys
 import threading
+import time
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch.api import API, ApiError
 from pilosa_tpu_torch.models.field import FieldOptions
+from pilosa_tpu_torch.constants import KERNEL_FAMILY_REPS
+from pilosa_tpu_torch.utils import heat as _heat
+from pilosa_tpu_torch.utils import telemetry as _telemetry
+from pilosa_tpu_torch.utils import tracing
+from pilosa_tpu_torch.utils.stats import prometheus_exposition
 
 ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/index/(?P<index>[^/]+)$"), "post_index"),
@@ -34,22 +58,52 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/index/(?P<index>[^/]+)/query$"), "post_query"),
     ("GET", re.compile(r"^/schema$"), "get_schema"),
     ("GET", re.compile(r"^/status$"), "get_status"),
+    ("GET", re.compile(r"^/debug/vars$"), "get_debug_vars"),
+    ("GET", re.compile(r"^/debug/heat$"), "get_debug_heat"),
+    ("GET", re.compile(r"^/debug/hbm$"), "get_debug_hbm"),
+    ("POST", re.compile(r"^/debug/device-profile$"), "post_device_profile"),
+    ("GET", re.compile(r"^/debug/query-history$"), "get_query_history"),
+    ("GET", re.compile(r"^/debug/timeseries$"), "get_debug_timeseries"),
+    ("GET", re.compile(r"^/metrics$"), "get_metrics"),
+    ("GET", re.compile(r"^/debug/pprof(?:/(?P<profile>[^/]*))?$"),
+     "get_debug_pprof"),
 ]
 
 # unknown query arguments on these routes are a 400 (a typo like ?shard=)
-ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards"}),
-                      "post_import": frozenset({"clear"})}
+ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "profile"}),
+                      "post_import": frozenset({"clear"}),
+                      "get_debug_pprof": frozenset({"seconds"}),
+                      "get_debug_timeseries": frozenset({"since", "limit"}),
+                      "get_debug_heat": frozenset({"since", "limit", "top"}),
+                      "get_debug_hbm": frozenset({"top"}),
+                      "post_device_profile": frozenset({"seconds"})}
 
 
 class Handler:
-    """Route dispatch against an API instance."""
+    """Route dispatch against an API instance; `stats`, `telemetry` (the
+    TelemetrySampler) and `device_profiler` back the observability
+    routes."""
 
-    def __init__(self, api: API):
+    def __init__(self, api: API, stats=None, telemetry=None,
+                 device_profiler=None):
         self.api = api
+        self.stats = stats
+        self.telemetry = telemetry
+        self.device_profiler = device_profiler
 
     def dispatch(self, method: str, path: str, query: dict,
-                 body: bytes) -> tuple[int, str, bytes]:
+                 body: bytes, headers=None) -> tuple[int, str, bytes]:
         """-> (status, content type, payload)."""
+        trace = headers.get(tracing.TRACE_HEADER) if headers else None
+        token = tracing.current_trace_id.set(trace) if trace else None
+        try:
+            return self._route(method, path, query, body)
+        finally:
+            if token is not None:
+                tracing.current_trace_id.reset(token)
+
+    def _route(self, method: str, path: str, query: dict,
+               body: bytes) -> tuple[int, str, bytes]:
         for m, rx, name in ROUTES:
             if m != method:
                 continue
@@ -66,6 +120,8 @@ class Handler:
             except ApiError as e:
                 return self._error(e.status, str(e), e.code)
             except Exception as e:  # noqa: BLE001 — surface as a 500
+                if self.stats is not None:
+                    self.stats.count("http/serverErrors")
                 return self._error(500, str(e))
         if any(rx.match(path) for _, rx, _ in ROUTES):
             return 405, "application/json", b'{"error": "method not allowed"}'
@@ -108,8 +164,9 @@ class Handler:
                           if shards else None)
         except ValueError:
             raise ApiError(f"invalid shards argument: {shards!r}")
+        profile = self._arg(query, "profile") in ("1", "true")
         return self._json(self.api.query(params["index"], body.decode(),
-                                         shards=shard_list))
+                                         shards=shard_list, profile=profile))
 
     def post_index(self, params, query, body):
         opts = self._body_json(body).get("options", {})
@@ -158,6 +215,219 @@ class Handler:
     def get_status(self, params, query, body):
         return self._json(self.api.status())
 
+    # -- observability ------------------------------------------------------
+
+    def _int_args(self, query: dict, **defaults) -> list:
+        try:
+            return [int(self._arg(query, k, str(v)))
+                    for k, v in defaults.items()]
+        except ValueError:
+            raise ApiError(" and ".join(defaults) + " must be integers")
+
+    def get_debug_vars(self, params, query, body):
+        """The expvar dump (:610-757): the stats snapshot and every block
+        of the JAX package's /debug/vars that the port has."""
+        snap = self.stats.snapshot() if self.stats is not None else {}
+        ex = self.api.executor
+        snap["deviceResidency"] = ex.residency.snapshot()
+        snap["topnRecountRows"] = ex.topn_recount_rows
+        snap["groupByHostSyncs"] = ex.groupby_host_syncs
+        if ex.batcher is not None:
+            snap["countBatcher"] = ex.batcher.snapshot()
+        if ex.sum_batcher is not None:
+            snap["planeSumBatcher"] = ex.sum_batcher.snapshot()
+        hbm = ex.hbm_snapshot(top=0)
+        snap["hbm"] = {k: hbm[k] for k in (
+            "budgetBytes", "residentBytes", "headroomBytes",
+            "accountedBytes", "wasteByRep", "allocator", "hbmDriftBytes")}
+        snap["hybrid"] = ex.hybrid_snapshot()
+        snap["ingest"] = ex.ingest_snapshot()
+        if ex.heat is not None:
+            snap["heat"] = ex.heat.snapshot(top=10)
+        snap["kernels"] = _telemetry.kernels.snapshot()
+        if self.device_profiler is not None:
+            snap["deviceProfiler"] = self.device_profiler.snapshot()
+        return self._json(snap)
+
+    def get_debug_hbm(self, params, query, body):
+        """Device memory by what the residency accounts (:759), joined
+        with the CUDA allocator; ?top= bounds the per-field list (default
+        64, 0: all)."""
+        top, = self._int_args(query, top=64)
+        return self._json(self.api.executor.hbm_snapshot(top=top))
+
+    def post_device_profile(self, params, query, body):
+        """?seconds= of live traffic under torch.profiler (:786): the
+        capture's spool path, the device's busy ms and idle share, and the
+        port's kernels the trace names; "busy" or "disabled" answer 200
+        too."""
+        try:
+            seconds = float(self._arg(query, "seconds", "2"))
+        except ValueError:
+            raise ApiError("seconds must be a number")
+        if self.device_profiler is None:
+            raise ApiError("device profile not supported", status=501)
+        return self._json(self.device_profiler.capture(seconds))
+
+    def get_query_history(self, params, query, body):
+        """The queries over long-query-time, newest first (:801)."""
+        return self._json({"queries": self.api.query_history.snapshot()})
+
+    def get_debug_timeseries(self, params, query, body):
+        """The sampler's ring since the ?since= cursor (:810)."""
+        since, limit = self._int_args(query, since=0, limit=0)
+        if self.telemetry is None:
+            return self._json({"seq": 0, "interval": 0.0, "ringSize": 0,
+                               "enabled": False, "samples": []})
+        out = self.telemetry.ring.since(since, limit)
+        out["interval"] = self.telemetry.interval
+        out["ringSize"] = self.telemetry.ring.size
+        out["enabled"] = _telemetry.enabled() and self.telemetry.running
+        return self._json(out)
+
+    def get_debug_heat(self, params, query, body):
+        """The fragment heat map (:861): hot and cold lists, exact totals,
+        the distribution and skew, and the summary ring since ?since=.
+        With heat off (PILOSA_TPU_TORCH_HEAT=0) an empty document."""
+        since, limit, top = self._int_args(query, since=0, limit=0, top=20)
+        tracker = self.api.executor.heat
+        if tracker is None:
+            return self._json({"enabled": False, "hot": [], "cold": [],
+                               "totals": {}, "trackedFragments": 0,
+                               "spilledFragments": 0, "hotFragments": 0,
+                               "skew": 1.0, "seq": 0, "samples": []})
+        out = tracker.snapshot(top=top)
+        out.update(tracker.since(since, limit))
+        out["enabled"] = tracker.enabled and _heat.enabled()
+        return self._json(out)
+
+    def get_metrics(self, params, query, body):
+        """Prometheus text exposition (:974-1287): the stats snapshot with
+        the residency, batcher, ingest, hybrid, heat, kernel and device
+        memory families merged in, each family the port shares with the
+        JAX server under the same name and type; families of full label
+        spaces are emitted with zeros, so no alert waits for a first
+        event."""
+        snap = self.stats.snapshot() if self.stats is not None else {}
+        counts = dict(snap.get("counts", {}))
+        gauges = dict(snap.get("gauges", {}))
+        ex = self.api.executor
+        res = ex.residency
+        rs = res.snapshot()
+        gauges["residency/bytes"] = rs["bytes"]
+        gauges["residency/budget"] = float(res.budget)
+        gauges["residency/entries"] = rs["entries"]
+        latest = (self.telemetry.ring.latest()
+                  if self.telemetry is not None else {})
+        lookups = rs["hits"] + rs["misses"]
+        gauges["residency/hitRate"] = latest.get(
+            "residency.hit_rate", rs["hits"] / lookups if lookups else 1.0)
+        counts["residency/hits"] = rs["hits"]
+        counts["residency/misses"] = rs["misses"]
+        counts["residency/evictions"] = rs["evictions"]
+        counts["residency/heatEvictions"] = rs["heatEvictions"]
+        for b, kind in ((ex.batcher, "count"), (ex.sum_batcher, "planeSum")):
+            if b is None:
+                continue
+            bs = b.snapshot()
+            counts[f"batcher/{kind}/batches"] = bs["batches"]
+            counts[f"batcher/{kind}/queries"] = bs["batched_queries"]
+            gauges[f"batcher/{kind}/queueDepth"] = bs["queue_depth"]
+        ing = ex.ingest_snapshot()
+        counts["ingest,op:set"] = ing["setMutations"]
+        counts["ingest,op:clear"] = ing["clearMutations"]
+        counts["ingestBatches,kind:applied"] = ing["appliedBatches"]
+        counts["ingestWal/appends"] = ing["walAppends"]
+        counts["ingestWal/ops"] = ing["walOps"]
+        counts["ingestPatch,kind:dense"] = ing["patchedDense"]
+        counts["ingestPatch,kind:sparse"] = ing["patchedSparse"]
+        counts["ingestPatch,kind:dropped"] = ing["patchDropped"]
+        counts["ingest/errors"] = ing["errors"]
+        gauges["ingest/queueDepth"] = ing["queue_depth"]
+        gauges["ingest/enabled"] = 1.0 if ing["enabled"] else 0.0
+        hy = ex.hybrid_snapshot()
+        counts["hybrid,rep:sparse"] = hy["sparseUploads"]
+        counts["hybrid,rep:run"] = hy["runUploads"]
+        counts["hybrid,rep:dense"] = hy["denseUploads"]
+        counts["hybrid,transition:promoted"] = hy["promoted"]
+        counts["hybrid,transition:demoted"] = hy["demoted"]
+        counts["hybrid,transition:materialized"] = hy["materialized"]
+        counts["hybrid,transition:run"] = hy["runTransitions"]
+        for rep, name in (("sparse", "Sparse"), ("run", "Run"),
+                          ("dense", "DenseRow")):
+            gauges[f"hybridLeaves,rep:{rep}"] = hy[f"resident{name}Leaves"]
+            gauges[f"hybridBytes,rep:{rep}"] = hy[f"resident{name}Bytes"]
+        gauges["hybrid/threshold"] = float(hy["threshold"])
+        gauges["hybrid/runThreshold"] = float(hy["runThreshold"])
+        gauges["hybrid/enabled"] = 1.0 if hy["enabled"] else 0.0
+        if ex.heat is not None:
+            hsnap = ex.heat.snapshot(top=0)
+            for f, v in hsnap["totals"].items():
+                counts[f"heat/{f}"] = round(v, 3)
+            gauges["heat/trackedFragments"] = hsnap["trackedFragments"]
+            gauges["heat/spilledFragments"] = hsnap["spilledFragments"]
+            gauges["heat/hotFragments"] = hsnap["hotFragments"]
+            gauges["heat/skew"] = hsnap["skew"]
+            for le, n in hsnap["distribution"].items():
+                gauges[f"heatDistribution/score,le:{le}"] = float(n)
+        for fam, rep in sorted(KERNEL_FAMILY_REPS.items()):
+            for k in ("kernelsDispatches", "kernelsWaitMs", "kernelsWaited",
+                      "kernelsH2dBytes", "kernelsD2hBytes"):
+                counts.setdefault(f"{k}/{fam},rep:{rep}", 0)
+        kcounts, ktimings = _telemetry.kernels.metrics_view()
+        counts.update(kcounts)
+        timings = dict(snap.get("timings", {}))
+        timings.update(ktimings)
+        hbm_rep_of = {"row": "dense", "sparse": "sparse", "run": "run"}
+        for rep in ("dense", "sparse", "run", "other"):
+            gauges[f"hbmResidentBytes,rep:{rep}"] = 0.0
+            gauges[f"hbmResidentEntries,rep:{rep}"] = 0.0
+        for kind, e in rs["by_kind"].items():
+            rep = hbm_rep_of.get(kind, "other")
+            gauges[f"hbmResidentBytes,rep:{rep}"] += float(e["bytes"])
+            gauges[f"hbmResidentEntries,rep:{rep}"] += float(e["entries"])
+        gauges["hbmBudgetBytes"] = float(res.budget)
+        gauges["hbmHeadroomBytes"] = float(max(0, res.budget - rs["bytes"]))
+        drift = ex.hbm_snapshot(top=1)["hbmDriftBytes"]
+        gauges["hbmDriftBytes"] = float(drift) if drift is not None else 0.0
+        snap = dict(snap, counts=counts, gauges=gauges, timings=timings)
+        return (200, "text/plain; version=0.0.4; charset=utf-8",
+                prometheus_exposition(snap).encode())
+
+    def get_debug_pprof(self, params, query, body):
+        """Runtime profiling (:1288): `goroutine` is every thread's stack,
+        `profile` samples every thread's frame for ?seconds= (default 2,
+        at most 30) and reports the hottest sites."""
+        profile = params.get("profile") or ""
+        if profile in ("", "index"):
+            return self._json({"profiles": ["goroutine", "profile"]})
+        if profile == "goroutine":
+            stacks = {str(tid): traceback.format_stack(frame)
+                      for tid, frame in sys._current_frames().items()}
+            return self._json({"threads": len(stacks), "stacks": stacks})
+        if profile == "profile":
+            try:
+                seconds = min(float(self._arg(query, "seconds", 2)), 30.0)
+            except ValueError:
+                raise ApiError("seconds must be a number")
+            hits: collections.Counter = collections.Counter()
+            me = threading.get_ident()
+            deadline = time.monotonic() + seconds
+            samples = 0
+            while time.monotonic() < deadline:
+                for tid, frame in sys._current_frames().items():
+                    if tid == me:
+                        continue
+                    code = frame.f_code
+                    hits[f"{code.co_filename}:{frame.f_lineno} "
+                         f"{code.co_name}"] += 1
+                samples += 1
+                time.sleep(0.005)
+            return self._json({"samples": samples, "top": [
+                {"site": site, "samples": n}
+                for site, n in hits.most_common(50)]})
+        return self._error(404, f"unknown profile: {profile}")
+
 
 class _RequestHandler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
@@ -169,7 +439,7 @@ class _RequestHandler(BaseHTTPRequestHandler):
         length = int(self.headers.get("Content-Length", 0) or 0)
         body = self.rfile.read(length) if length else b""
         status, ctype, payload = self.handler.dispatch(
-            method, parsed.path, parse_qs(parsed.query), body)
+            method, parsed.path, parse_qs(parsed.query), body, self.headers)
         self.send_response(status)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(payload)))

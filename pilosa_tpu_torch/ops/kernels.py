@@ -61,7 +61,11 @@ Routing: a CPU tensor takes the plain version (``<name>_plain``, plain
 torch). A CUDA tensor launches the kernel or raises; nothing falls back.
 Each wrapper adds one to its launch count where it launches its kernel;
 bsi_sum_counts, which has two forms, also counts each launch under its
-form (``form_launch_counts``).
+form (``form_launch_counts``). The same place records the launch in the
+kernel statistics (utils/telemetry.py) under the family "pallas", the
+family their TPU twins are counted under: the wrapper's host time since
+its entry, the bytes it staged from the host, and the device time between
+two CUDA events recorded on the launch's stream around the launch.
 
 Layout checks: planes are C-contiguous int32 [S, W] tensors (a BSI slab
 [D, S, W]) with W a multiple of 4 (the kernels load 16 bytes at a time),
@@ -73,6 +77,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+import time
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -82,6 +87,7 @@ from pilosa_tpu_torch.constants import WORDS_PER_SHARD
 from pilosa_tpu_torch.ops import _build
 from pilosa_tpu_torch.ops import bitvector as bv
 from pilosa_tpu_torch.ops import hybrid
+from pilosa_tpu_torch.utils import telemetry
 
 # int32 partials per chunk of shards: 2016 shards x 2^20 bits < 2^31, so a
 # chunk's count cannot wrap; the host finishes the sum in int64
@@ -135,6 +141,17 @@ _launches = {"pair_stream_counts": 0, "program_count": 0,
              "sparse_intersect_dense": 0}
 _form_launches = {f"bsi_sum_counts/{f}": 0 for f in SUM_FORMS}
 
+# the kernel family of every launch here (constants.KERNEL_FAMILY_REPS)
+FAMILY = "pallas"
+
+# the __global__ functions of csrc/bitmap_kernels.cu: what a device trace
+# names (torch.profiler, DeviceProfiler)
+DEVICE_KERNELS = ("pair_stream_kernel", "program_count_kernel",
+                  "program_count_table_kernel", "intersect_count_kernel",
+                  "bsi_compare_kernel", "bsi_sum_kernel",
+                  "bsi_sum_staged_kernel", "topn_counts_kernel",
+                  "cross_count_kernel", "sparse_dense_kernel")
+
 
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset."""
@@ -157,11 +174,24 @@ def reset_launch_counts() -> None:
             _form_launches[k] = 0
 
 
-def _count_launch(name: str, form: str | None = None) -> None:
+def _checked(lib, rc: int, what: str, token) -> None:
+    """_build.check of a launch's return code; a failed launch first
+    closes its kernel statistics token (telemetry.launch_begin's)."""
+    if rc:
+        telemetry.launch_abort(token)
+    _build.check(lib, rc, what)
+
+
+def _count_launch(name: str, token, t0: float, dev: torch.device,
+                  arity: int, h2d_bytes: int = 0,
+                  form: str | None = None) -> None:
+    """One launch of `name`: its count, and its kernel statistics (token:
+    telemetry.launch_begin's, taken right before the launch)."""
     with _launch_lock:
         _launches[name] += 1
         if form is not None:
             _form_launches[f"{name}/{form}"] += 1
+    telemetry.launch_end(token, FAMILY, name, arity, t0, dev, h2d_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +412,7 @@ def intersect_count_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def intersect_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[S, W] x [S, W] -> int32[S] per-shard intersection counts."""
+    t0 = time.perf_counter()
     dev = _check_planes([a, b])
     if dev.type == "cpu":
         return intersect_count_plain(a, b)
@@ -391,10 +422,11 @@ def intersect_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     lib = _lib()
     w4 = w // 4
+    tok = telemetry.launch_begin(dev)
     rc = lib.pbk_intersect_count(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                                  s, w4, _split(s, w4), _stream(dev))
-    _build.check(lib, rc, "intersect_count")
-    _count_launch("intersect_count")
+    _checked(lib, rc, "intersect_count", tok)
+    _count_launch("intersect_count", tok, t0, dev, 2)
     return out
 
 
@@ -423,6 +455,7 @@ def program_count(leaves, program) -> torch.Tensor:
     as a by-value parameter when they fit, else as a device table
     (program_plan's form), so neither is capped; raises only for a program
     whose operand stack exceeds MAX_STACK (on any device)."""
+    t0 = time.perf_counter()
     leaves = _leaf_list(leaves)
     dev = _check_planes(leaves)
     n_instr, plan, instr = _program_static(program, len(leaves))
@@ -435,19 +468,23 @@ def program_count(leaves, program) -> torch.Tensor:
     lib = _lib()
     ptrs = np.array([t.data_ptr() for t in leaves], dtype=np.int64)
     w4 = w // 4
+    staged = 0
     if plan.form == "param":
+        tok = telemetry.launch_begin(dev)
         rc = lib.pbk_program_count(ptrs.ctypes.data, instr.ctypes.data,
                                    len(leaves), n_instr, plan.depth_class,
                                    out.data_ptr(), s, w4, _split(s, w4),
                                    _stream(dev))
     else:
         table = _device_table([pack_program(ptrs, program)], dev)
+        staged = table.numel() * 8
+        tok = telemetry.launch_begin(dev)
         rc = lib.pbk_program_count_table(table.data_ptr(), len(leaves),
                                          n_instr, plan.depth_class,
                                          out.data_ptr(), s, w4, _split(s, w4),
                                          _stream(dev))
-    _build.check(lib, rc, "program_count")
-    _count_launch("program_count")
+    _checked(lib, rc, "program_count", tok)
+    _count_launch("program_count", tok, t0, dev, len(leaves), staged)
     return out
 
 
@@ -542,6 +579,7 @@ def pair_stream_counts(leaves, ii, jj, op: str = "and") -> torch.Tensor:
     partials per 2016-shard chunk. op in and/or/xor/andnot/id; id reads
     only leaves[ii[k]]. The leaves are passed to the kernel as a device
     table of pointers, so they are never restacked."""
+    t0 = time.perf_counter()
     leaves = _leaf_list(leaves)
     dev = _check_planes(leaves)
     if dev.type == "cpu":
@@ -561,11 +599,13 @@ def pair_stream_counts(leaves, ii, jj, op: str = "and") -> torch.Tensor:
     meta = _device_table([ptrs, ii, jj], dev)
     w4 = w // 4
     chunk_vec = min(s, SUM_SHARD_CHUNK) * w4
+    tok = telemetry.launch_begin(dev)
     rc = lib.pbk_pair_stream_counts(meta.data_ptr(), len(leaves), k, code,
                                     out.data_ptr(), s, w4, SUM_SHARD_CHUNK,
                                     c, _split(k * c, chunk_vec), _stream(dev))
-    _build.check(lib, rc, "pair_stream_counts")
-    _count_launch("pair_stream_counts")
+    _checked(lib, rc, "pair_stream_counts", tok)
+    _count_launch("pair_stream_counts", tok, t0, dev, len(leaves),
+                  meta.numel() * 8)
     return out
 
 
@@ -649,6 +689,7 @@ def bsi_compare(planes: torch.Tensor, exists: torch.Tensor, pred_bits,
     first) -> int32[S, W] mask of the columns whose stored value `op` the
     predicate, op in lt/lte/gt/gte/eq/neq. One pass over the planes; the
     predicate reaches the kernel as data."""
+    t0 = time.perf_counter()
     if op not in BSI_OPS:
         raise ValueError(f"unknown comparison op {op!r}")
     dev = _check_slab(planes, [exists])
@@ -662,11 +703,13 @@ def bsi_compare(planes: torch.Tensor, exists: torch.Tensor, pred_bits,
         return out
     lib = _lib()
     blocks = min(-(-n // _THREADS), 1 << 20)
+    tok = telemetry.launch_begin(dev)
     rc = lib.pbk_bsi_compare(planes.data_ptr(), exists.data_ptr(),
                              pred.data_ptr(), d, BSI_OPS.index(op),
                              out.data_ptr(), n, blocks, _stream(dev))
-    _build.check(lib, rc, "bsi_compare")
-    _count_launch("bsi_compare")
+    _checked(lib, rc, "bsi_compare", tok)
+    _count_launch("bsi_compare", tok, t0, dev, 2,
+                  0 if isinstance(pred_bits, torch.Tensor) else d * 4)
     return out
 
 
@@ -698,6 +741,7 @@ def bsi_sum_counts(planes: torch.Tensor, filters,
     table of pointers. form is "grid", "staged" or None (sum_form picks).
     No depth cap; a count is at most 2^20, so int32 cannot wrap, and the
     caller finishes totals in int64."""
+    t0 = time.perf_counter()
     single = isinstance(filters, torch.Tensor)
     masks = [filters] if single else list(filters)
     if not masks:
@@ -718,6 +762,7 @@ def bsi_sum_counts(planes: torch.Tensor, filters,
         lib = _lib()
         table = _device_table(
             [np.array([t.data_ptr() for t in masks], dtype=np.int64)], dev)
+        tok = telemetry.launch_begin(dev)
         if form == "grid":
             rc = lib.pbk_bsi_sum_counts(planes.data_ptr(), table.data_ptr(),
                                         k, d, out.data_ptr(), s, w // 4,
@@ -730,8 +775,8 @@ def bsi_sum_counts(planes: torch.Tensor, filters,
             rc = lib.pbk_bsi_sum_staged(planes.data_ptr(), table.data_ptr(),
                                         k, d, out.data_ptr(), s, w // 4,
                                         parts, _stream(dev))
-        _build.check(lib, rc, "bsi_sum_counts")
-        _count_launch("bsi_sum_counts", form)
+        _checked(lib, rc, "bsi_sum_counts", tok)
+        _count_launch("bsi_sum_counts", tok, t0, dev, 1 + k, k * 8, form)
     return out[0] if single else out
 
 
@@ -763,6 +808,7 @@ def topn_counts_packed(leaves, src: torch.Tensor) -> torch.Tensor:
     |src| broadcast (the Pallas layout). The leaves reach the kernel as a
     device table of pointers, never restacked; each is read once, and src
     once per launch."""
+    t0 = time.perf_counter()
     leaves = _leaf_list(leaves)
     dev = _check_planes(leaves + [src])
     if dev.type == "cpu":
@@ -774,11 +820,12 @@ def topn_counts_packed(leaves, src: torch.Tensor) -> torch.Tensor:
         lib = _lib()
         table = _device_table(
             [np.array([t.data_ptr() for t in leaves], dtype=np.int64)], dev)
+        tok = telemetry.launch_begin(dev)
         rc = lib.pbk_topn_counts(table.data_ptr(), r, src.data_ptr(),
                                  out.data_ptr(), s, w // 4, SUM_SHARD_CHUNK,
                                  _stream(dev))
-        _build.check(lib, rc, "topn_counts_packed")
-        _count_launch("topn_counts_packed")
+        _checked(lib, rc, "topn_counts_packed", tok)
+        _count_launch("topn_counts_packed", tok, t0, dev, r + 1, r * 8)
     return out.sum(dim=0, dtype=torch.int64)
 
 
@@ -828,6 +875,7 @@ def cross_count_matrix(prefix: torch.Tensor,
     counts[p, r] = popcount(prefix[p] & axis[r]) over all shards and
     words. Every operand word is read from device memory once per output
     tile of the kernel (16 prefixes x 64 rows at most)."""
+    t0 = time.perf_counter()
     dev = _check_cross(prefix, axis)
     if dev.type == "cpu":
         return cross_count_matrix_plain(prefix, axis)
@@ -842,11 +890,12 @@ def cross_count_matrix(prefix: torch.Tensor,
         tiles = c * -(-p // tile_p) * -(-r // 64)
         steps = -(-min(s, SUM_SHARD_CHUNK) * w4 // 32)
         split = int(max(1, min(steps, -(-2 * _TARGET_BLOCKS // tiles))))
+        tok = telemetry.launch_begin(dev)
         rc = lib.pbk_cross_count(prefix.data_ptr(), axis.data_ptr(), p, r,
                                  out.data_ptr(), s, w4, SUM_SHARD_CHUNK, c,
                                  split, _stream(dev))
-        _build.check(lib, rc, "cross_count_matrix")
-        _count_launch("cross_count_matrix")
+        _checked(lib, rc, "cross_count_matrix", tok)
+        _count_launch("cross_count_matrix", tok, t0, dev, 2)
     return out.sum(dim=0, dtype=torch.int64)
 
 
@@ -915,20 +964,20 @@ def sparse_plan(k: int, s: int) -> SparsePlan:
 
 
 def _sparse_dense_launch(sp: torch.Tensor, dense: torch.Tensor,
-                         keep_hits: int) -> torch.Tensor:
+                         keep_hits: int, t0: float) -> torch.Tensor:
     s, k = sp.shape
     out = torch.empty_like(sp)
     if s == 0 or k == 0:
         return out
     plan = sparse_plan(k, s)
     lib = _lib()
+    tok = telemetry.launch_begin(sp.device)
     rc = lib.pbk_sparse_intersect_dense(
         sp.data_ptr(), dense.data_ptr(), out.data_ptr(), s, k, WORDS_PER_SHARD,
         keep_hits, plan.unit == "block", plan.threads, plan.grid,
         _stream(sp.device))
-    if rc:
-        _build.check(lib, rc, "sparse_intersect_dense")
-    _count_launch("sparse_intersect_dense")
+    _checked(lib, rc, "sparse_intersect_dense", tok)
+    _count_launch("sparse_intersect_dense", tok, t0, sp.device, 2)
     return out
 
 
@@ -943,10 +992,11 @@ def sparse_intersect_dense(sp: torch.Tensor,
     and every output of ops/hybrid.py is). Compaction in order then gives
     exactly the plain version's sort(where(hit, idx, sentinel)); the
     kernel does not check the contract."""
+    t0 = time.perf_counter()
     dev = _check_sparse_dense(sp, dense)
     if dev.type == "cpu":
         return sparse_intersect_dense_plain(sp, dense)
-    return _sparse_dense_launch(sp, dense, 1)
+    return _sparse_dense_launch(sp, dense, 1, t0)
 
 
 def sparse_difference_dense(sp: torch.Tensor,
@@ -954,7 +1004,8 @@ def sparse_difference_dense(sp: torch.Tensor,
     """int32[S, K] x int32[S, W] -> int32[S, K]: the entries whose bit is
     clear (sparse &~ dense), under sparse_intersect_dense's contract and
     through its kernel (counted as its launch)."""
+    t0 = time.perf_counter()
     dev = _check_sparse_dense(sp, dense)
     if dev.type == "cpu":
         return sparse_difference_dense_plain(sp, dense)
-    return _sparse_dense_launch(sp, dense, 0)
+    return _sparse_dense_launch(sp, dense, 0, t0)

@@ -2,8 +2,8 @@
 launches.
 
 Trimmed port of pilosa_tpu/parallel/batcher.py: the ContinuousBatcher
-leadership protocol (:128-430) without its QoS, accounting and profile
-hooks; the CountBatcher (:511-565), whose dispatch launches the
+leadership protocol (:128-430) with its profile and queue-wait hooks
+(:116, :339-370), without QoS and accounting; the CountBatcher (:511-565), whose dispatch launches the
 pair-stream kernel (ops/kernels.py pair_stream_counts) over a batch's
 distinct pairs; and the PlaneSumBatcher (:571-587, :639-660), whose
 dispatch launches the bsi_sum_counts kernel once over K filters.
@@ -29,6 +29,8 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.utils import profile as qprofile
+from pilosa_tpu_torch.utils import telemetry
 
 MAX_BATCH = 512
 _FAILED = object()  # dispatch raised; error already delivered to the batch
@@ -41,11 +43,14 @@ _ADMISSION_S = 0.004
 
 class _Req:
     __slots__ = ("payload", "event", "result", "exc", "promoted", "done",
-                 "server", "t_submit")
+                 "server", "t_submit", "profile")
 
     def __init__(self, payload):
         self.payload = payload
         self.t_submit = time.perf_counter()
+        # the submitter's query profile: the leader records the dispatch
+        # that served this request into it
+        self.profile = qprofile.current_profile.get()
         self.event = threading.Event()
         self.result = None
         self.exc: Optional[BaseException] = None
@@ -67,6 +72,10 @@ class ContinuousBatcher:
     # pile up behind the apply in flight, and at most one batch per key is
     # applied at a time
     HANDOFF_AT_CUT = True
+
+    # the kernel family a batch's queue wait is attributed to
+    # (utils/telemetry.py KernelStats.record_wait)
+    KERNEL_FAMILY = "batcher"
 
     def __init__(self, max_batch: int = MAX_BATCH,
                  admission_s: float = _ADMISSION_S):
@@ -162,6 +171,7 @@ class ContinuousBatcher:
             if self.HANDOFF_AT_CUT:
                 # leadership hands off here, before the launch
                 self._hand_off_locked(key)
+        t_cut = time.perf_counter()
         try:
             if not batch:
                 return
@@ -171,7 +181,7 @@ class ContinuousBatcher:
             except BaseException as e:  # noqa: BLE001 — every waiter wakes
                 self._deliver_exc(batch, e)
             if handle is not _FAILED:
-                self._run(key, batch, handle)
+                self._run(key, batch, handle, t_cut)
         finally:
             if not self.HANDOFF_AT_CUT:
                 # after the apply, on every exit path: this thread stays
@@ -192,7 +202,8 @@ class ContinuousBatcher:
             self._leader_threads.pop(key, None)
             self._pending.pop(key, None)
 
-    def _run(self, key: tuple, batch: list[_Req], handle) -> None:
+    def _run(self, key: tuple, batch: list[_Req], handle,
+             t_cut: float) -> None:
         try:
             results = self._finalize(key, handle, [r.payload for r in batch])
             if len(results) != len(batch):
@@ -200,13 +211,24 @@ class ContinuousBatcher:
                     f"batcher returned {len(results)} results for "
                     f"{len(batch)} payloads")
             t_done = time.perf_counter()
+            batch_wait_ms = sum((t_done - r.t_submit) * 1e3 for r in batch)
             with self._lock:
                 self.batches += 1
                 self.batched_queries += len(batch)
                 self.max_batch_seen = max(self.max_batch_seen, len(batch))
-                self.wait_ms_total += sum(
-                    (t_done - r.t_submit) * 1e3 for r in batch)
+                self.wait_ms_total += batch_wait_ms
                 self.waited += len(batch)
+                seq = self.batches
+            if telemetry.kernel_stats_enabled():
+                telemetry.kernels.record_wait(self.KERNEL_FAMILY,
+                                              batch_wait_ms, len(batch))
+            wall_ms = (t_done - t_cut) * 1e3
+            kind = type(self).__name__
+            for r in batch:
+                # every profiled co-batched query learns the dispatch that
+                # served it, the batch size and its wall-time share
+                if r.profile is not None:
+                    r.profile.record_dispatch(kind, seq, len(batch), wall_ms)
             for r, res in zip(batch, results):
                 r.result = res
                 r.done = True
@@ -228,13 +250,17 @@ class ContinuousBatcher:
         raise NotImplementedError
 
     def snapshot(self) -> dict:
+        """The JAX batcher's snapshot keys (:418), which /debug/vars and
+        /metrics read."""
         with self._lock:
             return {"batches": self.batches,
                     "batched_queries": self.batched_queries,
                     "max_batch_seen": self.max_batch_seen,
                     "queue_depth": sum(len(q) for q in self._pending.values()),
-                    "avg_wait_ms": (self.wait_ms_total / self.waited
-                                    if self.waited else 0.0)}
+                    "wait_ms_total": round(self.wait_ms_total, 3),
+                    "waited": self.waited,
+                    "avg_wait_ms": round(self.wait_ms_total / self.waited, 3)
+                    if self.waited else 0.0}
 
 
 class CountBatcher(ContinuousBatcher):

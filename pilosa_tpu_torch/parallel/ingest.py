@@ -75,6 +75,7 @@ class IngestBatcher(ContinuousBatcher):
     the request whose mutation raised it."""
 
     HANDOFF_AT_CUT = False
+    KERNEL_FAMILY = "ingest"
 
     def __init__(self, apply_fn: Callable, max_batch: int = DEFAULT_MAX_BATCH):
         # no admission window: arrivals pile up behind the apply in flight

@@ -7,7 +7,13 @@ plane slab, a Range mask) stays resident keyed by its content
 generations, so repeat queries run without host->device transfers and a
 write changes the key; after an ingest batch, patch_entries (:169-212)
 moves the written rows' leaves to their new keys with the batch applied.
-Eviction is LRU by byte budget; a leaf costs its tensor.nbytes.
+Eviction is LRU by byte budget; a leaf costs its tensor.nbytes. With
+`eviction = "heat"` (:128-170) the victim is the occupant whose fragments
+are coldest by the heat map (utils/heat.py), LRU order breaking ties;
+any kill switch forces LRU. A leaf read records a hit or a miss with its
+upload bytes on the query's profile (:72), and uploads and evictions
+charge the heat map. Lock order: the residency lock, then the heat
+tracker's, never the reverse.
 
 The default budget is half of the card's memory
 (torch.cuda.get_device_properties(0).total_memory // 2), leaving the rest
@@ -22,11 +28,16 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from collections import OrderedDict
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from pilosa_tpu_torch.utils import heat as _heat
+from pilosa_tpu_torch.utils import profile as qprofile
+from pilosa_tpu_torch.utils import telemetry
 
 BUDGET_FRACTION = 0.5
 CPU_BUDGET_BYTES = 1 << 30
@@ -50,24 +61,43 @@ class DeviceResidency:
         self.misses = 0
         self.evictions = 0
         self.epoch = 0  # bumped by clear(); fences in-flight misses
+        # the heat map (set by the Executor; None: untracked) and the
+        # [storage] eviction policy, lru or heat
+        self.heat = None
+        self.eviction = "lru"
+        self.heat_evictions = 0  # victims chosen by heat, not LRU order
 
     def leaf(self, key: tuple,
-             make: Callable[[], "np.ndarray | torch.Tensor"]) -> torch.Tensor:
-        """The device tensor for `key`, uploading make()'s host array on a
-        miss (or keeping its device tensor: a BSI slab or a Range mask
-        computed on the device). `key` must encode content generations."""
+             make: Callable[[], "np.ndarray | torch.Tensor"],
+             put: Optional[Callable] = None) -> torch.Tensor:
+        """The device tensor for `key`. On a miss make() gives a host array,
+        uploaded by `put` (default runner.put_leaf), or a tensor already on
+        the device (a BSI slab, a Range mask), cached as it is; only the
+        former counts as an upload, as in the JAX package. `key` must
+        encode content generations."""
+        prof = qprofile.current_profile.get()
         with self._lock:
             arr = self._lru.get(key)
             if arr is not None:
                 self._lru.move_to_end(key)
                 self.hits += 1
-                return arr
             epoch = self.epoch
+        if arr is not None:
+            if prof is not None:
+                prof.record_residency(hit=True)
+            return arr
         # built and uploaded outside the lock: concurrent misses of other
         # keys must not serialize behind one host->device transfer
-        arr = make()
-        if not isinstance(arr, torch.Tensor):
-            arr = self.runner.put_leaf(arr)
+        host = make()
+        uploaded = not isinstance(host, torch.Tensor)
+        arr = (put or self.runner.put_leaf)(host) if uploaded else host
+        if prof is not None:
+            prof.record_residency(hit=False,
+                                  nbytes=arr.nbytes if uploaded else 0)
+        tracker = self.heat
+        if uploaded and tracker is not None and tracker.enabled:
+            for fr in _heat.leaf_frags(key):
+                tracker.touch_many(fr, h2d_bytes=arr.nbytes, uploads=1)
         with self._lock:
             self.misses += 1
             if self.epoch != epoch:
@@ -79,16 +109,41 @@ class DeviceResidency:
                 self.bytes -= displaced.nbytes
             self._lru[key] = arr
             self.bytes += arr.nbytes
-            self._evict_locked()
+            self._evict_locked(key)
         return arr
 
-    def _evict_locked(self) -> None:
-        """Evict least-recently-used entries until under budget, never the
-        newest (the entry just inserted). Called with self._lock held."""
+    def _evict_locked(self, protect: tuple) -> None:
+        """Evict until under budget, never `protect` (the entry just
+        inserted): the least recently used entry, or with eviction "heat"
+        the one whose fragments' summed scores are lowest (the first in
+        LRU order on a tie). Heat eviction needs a tracker that is on and
+        the env switch on; any of them off means LRU. Called with
+        self._lock held."""
+        tracker = self.heat
+        by_heat = (self.eviction == "heat" and tracker is not None
+                   and tracker.enabled and _heat.enabled())
         while self.bytes > self.budget and len(self._lru) > 1:
-            _, old = self._lru.popitem(last=False)
+            victim_key = None
+            if by_heat:
+                best = None
+                now = time.monotonic()  # one clock for the whole ranking
+                for k in self._lru:
+                    if k == protect:
+                        continue
+                    s = sum(x for fr in _heat.leaf_frags(k)
+                            for x in tracker.scores_for(fr, now).tolist())
+                    if best is None or s < best:
+                        victim_key, best = k, s
+            if victim_key is not None:
+                old = self._lru.pop(victim_key)
+                self.heat_evictions += 1
+            else:
+                victim_key, old = self._lru.popitem(last=False)
             self.bytes -= old.nbytes
             self.evictions += 1
+            if tracker is not None and tracker.enabled:
+                for fr in _heat.leaf_frags(victim_key):
+                    tracker.touch_many(fr, evictions=1)
 
     def patch_entries(self, matcher: Callable[[tuple], bool],
                       patcher: Callable) -> tuple[int, int]:
@@ -131,7 +186,7 @@ class DeviceResidency:
                 self._lru[new_key] = new_arr
                 self.bytes += new_arr.nbytes
                 patched += 1
-                self._evict_locked()
+                self._evict_locked(new_key)
         return patched, dropped
 
     def peek(self, key: tuple) -> Optional[torch.Tensor]:
@@ -143,6 +198,18 @@ class DeviceResidency:
             if arr is not None:
                 self._lru.move_to_end(key)
             return arr
+
+    def entries_snapshot(self) -> list[tuple]:
+        """[(key, nbytes, storage)] of every resident entry (GET
+        /debug/hbm): storage is (data pointer, bytes) of the memory the
+        tensor views, shared where entries alias one tensor (a Range mask
+        that is the field's not-null row is cached under both keys)."""
+        with self._lock:
+            out = []
+            for key, arr in self._lru.items():
+                st = arr.untyped_storage()
+                out.append((key, arr.nbytes, (st.data_ptr(), st.nbytes())))
+            return out
 
     def clear(self) -> None:
         with self._lock:
@@ -162,7 +229,8 @@ class DeviceResidency:
             return {"entries": len(self._lru), "bytes": self.bytes,
                     "budget": self.budget, "hits": self.hits,
                     "misses": self.misses, "evictions": self.evictions,
-                    "by_kind": by_kind}
+                    "heatEvictions": self.heat_evictions,
+                    "eviction": self.eviction, "by_kind": by_kind}
 
 
 # ---------------------------------------------------------------------------
@@ -202,20 +270,23 @@ def hybrid_env_enabled() -> bool:
 
 class HybridManager:
     """Per-row choice of sparse, run or dense leaves, with promote/demote
-    hysteresis. Port of pilosa_tpu/parallel/residency.py HybridManager
-    (:324-520) without the heat tracker: the port has none, so a row is
-    never cold (_cold is always False) and hysteresis alone keeps a
-    heavier row in its band. The choice never changes an answer: the
-    three forms evaluate bit-identically (ops/hybrid.py)."""
+    hysteresis and heat-informed demotion. Port of pilosa_tpu/parallel/
+    residency.py HybridManager (:324-520): inside a band, a heavier row
+    keeps its form while any of its fragments is hot, and demotes when all
+    are cold or its signal falls below the band floor. Without a tracker
+    (PILOSA_TPU_TORCH_HEAT=0) a row is never cold. The choice never
+    changes an answer: the three forms evaluate bit-identically
+    (ops/hybrid.py)."""
 
     def __init__(self, threshold: int = DEFAULT_SPARSE_THRESHOLD,
-                 hysteresis: float = 0.25,
+                 hysteresis: float = 0.25, heat=None,
                  run_threshold: int = DEFAULT_RUN_THRESHOLD):
         self.threshold = int(threshold)
         self.run_threshold = int(run_threshold)
         # a heavier row keeps its form until its signal falls below
-        # threshold * (1 - hysteresis)
+        # threshold * (1 - hysteresis), or its fragments go cold
         self.hysteresis = float(hysteresis)
+        self.heat = heat  # utils/heat.py HeatTracker or None
         self._lock = threading.Lock()
         self._rep: "OrderedDict[tuple, str]" = OrderedDict()
         self._stats: "OrderedDict[tuple, tuple]" = OrderedDict()
@@ -241,13 +312,28 @@ class HybridManager:
             k <<= 1
         return k
 
-    def _transition(self, prev, max_card: int, run_stats=None) -> str:
+    def _cold(self, frags) -> bool:
+        """True when every fragment of the row scores below HOT_SCORE.
+        `frags` is a heat.Frags or a list of fragment keys; no tracker, or
+        no fragments, is never cold."""
+        tracker = self.heat
+        if tracker is None or not tracker.enabled or frags is None:
+            return False
+        n = len(frags.shards) if isinstance(frags, _heat.Frags) \
+            else len(frags)
+        if not n:
+            return False
+        return max(tracker.scores_for(frags)) < _heat.HOT_SCORE
+
+    def _transition(self, prev, max_card: int, frags=None,
+                    run_stats=None) -> str:
         """Crossing a threshold upward promotes at once; inside a band a
-        heavier row keeps its form, and demotes below the band floor.
-        run_stats is a sequence whose first item is the row's interval
-        count (the JAX package passes (count, max run length); only the
-        count decides), or None where the caller has none: then a run row
-        stays run, anything else decides sparse or dense."""
+        heavier row keeps its form while any of its fragments is hot, and
+        demotes when they are all cold or below the band floor. run_stats
+        is a sequence whose first item is the row's interval count (the
+        JAX package passes (count, max run length); only the count
+        decides), or None where the caller has none: then a run row stays
+        run, anything else decides sparse or dense."""
         lo = self.threshold * (1.0 - self.hysteresis)
         if max_card > self.threshold:
             n_iv = None if run_stats is None else int(run_stats[0])
@@ -257,10 +343,10 @@ class HybridManager:
             if n_iv > self.run_threshold:
                 return "dense"
             if prev == "dense" and n_iv > run_lo:
-                return "dense"
+                return "run" if self._cold(frags) else "dense"
             return "run"
         if prev in ("dense", "run") and max_card > lo:
-            return prev
+            return "sparse" if self._cold(frags) else prev
         return "sparse"
 
     def _remember(self, row_key: tuple, prev, rep: str) -> None:
@@ -277,17 +363,18 @@ class HybridManager:
             while len(self._rep) > REP_MEMORY_BOUND:
                 self._rep.popitem(last=False)
 
-    def choose(self, row_key: tuple, max_card: int, run_stats=None,
-               peek: bool = False) -> tuple[str, int]:
+    def choose(self, row_key: tuple, max_card: int, frags=None,
+               run_stats=None, peek: bool = False) -> tuple[str, int]:
         """(form, padded slots) of one row leaf whose largest per-shard
         cardinality is max_card: interval-pair slots for "run", index
-        slots for "sparse", 0 for "dense". peek=True leaves the hysteresis
-        memory as it is."""
+        slots for "sparse", 0 for "dense". frags are the leaf's fragments
+        (heat.Frags), read for the cold test. peek=True leaves the
+        hysteresis memory as it is."""
         if not self.active():
             return "dense", 0
         with self._lock:
             prev = self._rep.get(row_key)
-        rep = self._transition(prev, max_card, run_stats)
+        rep = self._transition(prev, max_card, frags, run_stats)
         if not peek:
             self._remember(row_key, prev, rep)
         if rep == "run":
@@ -320,7 +407,8 @@ class HybridManager:
         with self._lock:
             return self._rep.get(row_key)
 
-    def observe(self, row_key: tuple, max_card: int, run_stats=None) -> None:
+    def observe(self, row_key: tuple, max_card: int, frags=None,
+                run_stats=None) -> None:
         """Write-side hysteresis tick for a row with history, once per
         touched row and fragment per applied ingest batch (residency.py:
         458-474): the same transition rule as choose(); rows never chosen
@@ -332,7 +420,7 @@ class HybridManager:
         if prev is None:
             return
         self._remember(row_key, prev, self._transition(prev, max_card,
-                                                        run_stats))
+                                                        frags, run_stats))
 
     def record_upload(self, rep: str, nbytes: int) -> None:
         with self._lock:
@@ -345,6 +433,11 @@ class HybridManager:
             else:
                 self.dense_uploads += 1
                 self.dense_bytes_uploaded += int(nbytes)
+        # h2d bytes per kernel family: the leaf uploads are the dominant
+        # host->device traffic, charged to the family that reads the form
+        if telemetry.kernel_stats_enabled():
+            fam = {"sparse": "sparse", "run": "run"}.get(rep, "bitwise")
+            telemetry.kernels.record_bytes(fam, h2d=int(nbytes))
 
     def record_materialize(self) -> None:
         with self._lock:

@@ -1,14 +1,16 @@
 """The planner's per-leaf representation choice.
 
 Port of pilosa_tpu/planner.py choose_representation (:522-597) without
-its plan-node recording (the port has no query profiler). The rest of the
-JAX planner (reorders, short-circuits, the plan cache) is not ported:
-none of it changes an answer.
+its plan-node recording. The rest of the JAX planner (reorders,
+short-circuits, the plan cache) is not ported: none of it changes an
+answer.
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+from pilosa_tpu_torch.utils.heat import Frags
 
 
 def choose_representation(hybrid, index, field_name: str, view_name: str,
@@ -33,8 +35,9 @@ def choose_representation(hybrid, index, field_name: str, view_name: str,
                  for fr in frags)
     if hybrid is None or not hybrid.active():
         return "dense", 0, frags, gens
+    shards_t = tuple(shards)
     stats = hybrid.leaf_stats(
-        (index.name, field_name, view_name, row_id, tuple(shards)), gens)
+        (index.name, field_name, view_name, row_id, shards_t), gens)
     if stats[0] is None:
         stats[0] = max((fr.row_cardinality(row_id) for fr in frags
                         if fr is not None), default=0)
@@ -50,7 +53,10 @@ def choose_representation(hybrid, index, field_name: str, view_name: str,
     if max_card > hybrid.threshold and hybrid.run_threshold > 0:
         run_stats = (intervals(),)
     rep, slots = hybrid.choose((index.name, field_name, view_name, row_id),
-                               max_card, run_stats=run_stats)
+                               max_card,
+                               Frags(index.name, field_name, view_name,
+                                     shards_t),
+                               run_stats=run_stats)
     if rep == "run" and run_stats is None:
         # hysteresis kept a run row run without its statistics (the row
         # fell into the sparse band, or runs were switched off): the JAX
