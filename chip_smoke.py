@@ -63,6 +63,27 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    Row(f=b))) with varying a and b, every answer checked. Launch counts
    are zeroed before the phase: sparse_intersect_dense must launch, and
    the port must have uploaded sparse and run leaves.
+5c. Server, planner and plan cache, on the same server and index
+   (bench.py bench_planner, :2015-2195, at full width): (a) a 4-row
+   Count(Intersect) sequentially, the cache off, the planner off then on
+   in 3 interleaved rounds of 40: p50 a side; (b) a dashboard of 32
+   clients x 16 queries, 80 % ten shared 3-row Count(Intersect) panels
+   over f and 20 % twenty 3-row Count(Union), each in a random operand
+   order, in 3 rounds of cache off (cleared), on (warm), on (measured):
+   q/s, p50/p99 and the hit rate (a device-profile capture in the first
+   cache-off round); (c) a Count(Intersect) with a row of no bits: the
+   planner answers 0 with no leaf read, upload or launch, and without the
+   planner it uploads and launches; (d) three Intersect(Row(s=a),
+   Row(f=b)) Row results read twice each: the second read hits, each
+   holds 134,217,728 bytes, the 256 MiB default holds two and the third
+   evicts one, and a Set into a row of the first (ingest path) reads back
+   with the bit; (e) ?explain=true on a Count, BSI, TopN and hybrid query
+   launches nothing and predicts no upload for resident leaves; a dense
+   row written through the per-bit path predicts one 128 MiB plane, and
+   executing the query uploads exactly that. /debug/vars planner and
+   planCache equal /metrics planner_* and planCache_*. Launch counts are
+   zeroed before the phase. Every other server pass runs with the plan
+   cache off (Executor.plan_cache.enabled, the planner on) and says so.
 6. Server, write path, on the same server and index (bench.py's ingest
    stage, bench.py:1824-1935, cut to a fixed length): 8 keep-alive writers
    each send 40 envelopes of 500 calls, 80 % Set of a column of their own
@@ -109,7 +130,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    units, at every K the hybrid phase served and at K = 16384 (event,
    device and host times). Times by CUDA events (warm, median).
 8. The last lines: nvidia-smi's name and power limit, one JSON object with
-   a record per kernel (its launches summed over the five paths, with
+   a record per kernel (its launches summed over the six paths, with
    launches_by_path beside; bsi_sum_counts adds its launches by form and
    the form the served shape takes; served_device_ms_p50 is its device
    ms as served, from the paths' device-profile captures, over
@@ -131,8 +152,10 @@ the path's window (launch counts and kernel statistics zeroed together):
 /debug/vars, /metrics, /debug/hbm and /debug/heat scraped; the "pallas"
 dispatches equal the eight kernels' launches, each kernel's launches in
 the kernel statistics equal its count, every CUDA event pair resolved;
-accounted device bytes fit in torch.cuda.memory_allocated() (the drift
-printed); stream ms by events (p50, p99) beside host ms per kernel. On
+accounted device bytes, the distinct storages of the residency and the
+plan cache (scalars hold none), fit in torch.cuda.memory_allocated() (the drift printed, with the JAX package's
+sum of resident and plan-cache entry bytes beside); stream ms by events
+(p50, p99) beside host ms per kernel. On
 the write path the ingest counters of /metrics equal
 Executor.ingest_snapshot(), and the heat map's writes equal the oracle's
 count (every Set, and a Clear that changed a bit). The Count path also
@@ -1236,7 +1259,7 @@ def bsi_phase(srv, port: int, packed: list, exists: np.ndarray,
     torch.cuda.synchronize()
     launches = kernels.launch_counts()  # the BSI path ends here
     forms = kernels.form_launch_counts()
-    obs["scrape"] = observe_path(srv, port, "bsi", launches)
+    obs["scrape"] = observe_path(port, "bsi", launches)
     after = batcher.snapshot()
     res = srv.executor.residency.snapshot()
     stats = {
@@ -1253,9 +1276,10 @@ def bsi_phase(srv, port: int, packed: list, exists: np.ndarray,
         "resident_entries": res["entries"],
     }
     log(f"  concurrent: {clients} clients x {per_client} Sum(Range(v > x), "
-        f"field=v): {stats['qps']:.1f} q/s, p50 {stats['p50_ms']:.2f} ms, "
-        f"p99 {stats['p99_ms']:.2f} ms, max_batch_seen "
-        f"{stats['max_batch_seen']} ({stats['batches']} batches)")
+        f"field=v), plan cache off: {stats['qps']:.1f} q/s, p50 "
+        f"{stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms, "
+        f"max_batch_seen {stats['max_batch_seen']} ({stats['batches']} "
+        "batches)")
     log(f"  resident leaves: {res['entries']} entries, {res['bytes']} bytes")
     log(f"  launches on the BSI path: {launches}; by form: {forms}")
     for name in BSI_KERNELS:
@@ -1465,7 +1489,7 @@ def topn_phase(srv, port: int, packed: list, values: tuple, rows: list,
             f"{clients * per_client - len(lat)} missing; first {errors[:1]}")
     torch.cuda.synchronize()
     launches = kernels.launch_counts()  # the TopN/GroupBy path ends here
-    obs["scrape"] = observe_path(srv, port, "topn", launches)
+    obs["scrape"] = observe_path(port, "topn", launches)
     res = srv.executor.residency.snapshot()
     stats = {
         "queries": len(lat), "qps": len(lat) / wall,
@@ -1479,8 +1503,8 @@ def topn_phase(srv, port: int, packed: list, values: tuple, rows: list,
         "evictions": res["evictions"],
     }
     log(f"  concurrent: {clients} clients x {per_client} TopN(t, Row(f=a), "
-        f"n=10): {stats['qps']:.1f} q/s, p50 {stats['p50_ms']:.2f} ms, p99 "
-        f"{stats['p99_ms']:.2f} ms")
+        f"n=10), plan cache off: {stats['qps']:.1f} q/s, p50 "
+        f"{stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms")
     log(f"  resident leaves: {res['entries']} entries, {res['bytes']} bytes, "
         f"{res['evictions']} evictions")
     log(f"  launches on the TopN/GroupBy path: {launches}")
@@ -1698,7 +1722,7 @@ def hybrid_phase(srv, port: int, packed: list, exists: np.ndarray,
             f"{clients * per_client - len(lat)} missing; first {errors[:1]}")
     torch.cuda.synchronize()
     launches = kernels.launch_counts()  # the hybrid path ends here
-    obs["scrape"] = observe_path(srv, port, "hybrid", launches)
+    obs["scrape"] = observe_path(port, "hybrid", launches)
     hyb = srv.executor.hybrid_snapshot()
     dense_equiv = HYBRID_S_ROWS * n_shards * SHARD_WIDTH // 8
     # the K of each row of s: its largest shard, padded as the chooser pads
@@ -1716,7 +1740,7 @@ def hybrid_phase(srv, port: int, packed: list, exists: np.ndarray,
         "s_rows_as_dense_bytes": dense_equiv, "served_k": served_k,
     }
     log(f"  concurrent: {clients} clients x {per_client} Count(Intersect("
-        f"Row(s=a), Row(f=b))): {stats['qps']:.1f} q/s, p50 "
+        f"Row(s=a), Row(f=b))), plan cache off: {stats['qps']:.1f} q/s, p50 "
         f"{stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms")
     log(f"  resident by form: sparse {hyb['residentSparseLeaves']} leaves, "
         f"{hyb['residentSparseBytes']} bytes (the {HYBRID_S_ROWS} rows of s "
@@ -2023,7 +2047,8 @@ def ingest_phase(srv, port: int, packed: list, exists: np.ndarray,
                        "patchDroppedSparse", "hybridEvals", "applySeconds")}
     commit_ratio = ((delta["mutations"] + delta["setMutations"])
                     / max(delta["walAppends"], 1))
-    log(f"  window: {acked} mutations acked in {wall:.2f} s = "
+    log(f"  window (plan cache off): {acked} mutations acked in {wall:.2f} "
+        "s = "
         f"{acked / wall:.1f} mutations/s; {len(win_lat)} reads, p50 "
         f"{win_p50:.2f} ms, p99 {win_p99:.2f} ms (writer-free round: p50 "
         f"{base_p50:.2f} ms, p99 {base_p99:.2f} ms); {win_uploads} dense "
@@ -2148,7 +2173,7 @@ def ingest_phase(srv, port: int, packed: list, exists: np.ndarray,
     torch.cuda.synchronize()
     launches = kernels.launch_counts()  # the write path ends here
     final = ex.ingest_snapshot()
-    obs["scrape"] = observe_path(srv, port, "ingest", launches)
+    obs["scrape"] = observe_path(port, "ingest", launches)
     # the ingest counters of /metrics are the executor's
     _, samples = parse_metrics(_text(port, "/metrics"))
     for label, k in (('{op="set"}', "setMutations"),
@@ -2362,12 +2387,13 @@ def during_pass(port: int, probe: tuple, seconds: float) -> dict:
     return {"capture": capture, "profile": profile_probe(port, *probe)}
 
 
-def observe_path(srv, port: int, path: str, launches: dict) -> dict:
+def observe_path(port: int, path: str, launches: dict) -> dict:
     """Scrape /debug/vars, /metrics, /debug/hbm and /debug/heat at the end
     of a path's window (zeroed by start_window, the card synchronized):
     the "pallas" dispatches equal the eight kernels' launches, each
     kernel's launches in the kernel statistics equal its launch count and
-    every event pair resolved; the accounted device bytes fit in the
+    every event pair resolved; the accounted device bytes (the distinct
+    storages of the residency and the plan cache) fit in the
     allocator's."""
     import torch
 
@@ -2410,12 +2436,16 @@ def observe_path(srv, port: int, path: str, launches: dict) -> dict:
     if hbm["accountedBytes"] > allocated:
         raise AssertionError(f"{path}: accounted {hbm['accountedBytes']} "
                              f"bytes > allocated {allocated}")
+    # the JAX package's accountedBytes: every entry, scalars at 256 bytes
+    nominal = hbm["residentBytes"] + hbm["planCacheBytes"]
     heat = _http(port, "GET", "/debug/heat?top=3")
     out = {"pallas_dispatches": pallas, "untimed": dev["untimed"],
            "overlapped": dev["overlapped"],
            "event_pool_pairs": dev["poolPairs"], "kernels": per_kernel,
            "families": dev["byFamily"], "metric_families": len(types),
            "hbm_accounted_bytes": hbm["accountedBytes"],
+           "hbm_nominal_bytes": nominal,
+           "hbm_plan_cache_bytes": hbm["planCacheBytes"],
            "hbm_allocated_bytes": allocated,
            "hbm_drift_bytes": hbm["hbmDriftBytes"],
            "heat_totals": heat["totals"],
@@ -2423,8 +2453,11 @@ def observe_path(srv, port: int, path: str, launches: dict) -> dict:
            "heat_spilled": heat["spilledFragments"]}
     log(f"  {path}: /debug/vars pallas dispatches {pallas} = launches; "
         f"/metrics {len(types)} families; /debug/hbm accounted "
-        f"{hbm['accountedBytes']} of {allocated} allocated bytes (drift "
-        f"{hbm['hbmDriftBytes']}); heat {heat['totals']}, "
+        f"{hbm['accountedBytes']} of {allocated} allocated bytes (distinct "
+        f"storages of the residency and the plan cache; drift "
+        f"{hbm['hbmDriftBytes']}; resident + plan-cache entries "
+        f"{nominal}, of which plan cache {hbm['planCacheBytes']}); heat "
+        f"{heat['totals']}, "
         f"{heat['trackedFragments']} tracked, {heat['spilledFragments']} "
         "spilled")
     return out
@@ -2527,7 +2560,8 @@ def obs_rounds(srv, run_clients) -> list:
                        "qps": len(lat) / wall,
                        "p50_ms": statistics.median(lat) * 1e3,
                        "p99_ms": float(np.percentile(lat, 99)) * 1e3})
-        log(f"  round {i + 1} ({mode}): {rounds[-1]['qps']:.1f} q/s, p50 "
+        log(f"  round {i + 1} ({mode}, plan cache off): "
+            f"{rounds[-1]['qps']:.1f} q/s, p50 "
             f"{rounds[-1]['p50_ms']:.2f} ms, p99 "
             f"{rounds[-1]['p99_ms']:.2f} ms")
     for mode in OBS_MODES:
@@ -2539,20 +2573,26 @@ def obs_rounds(srv, run_clients) -> list:
 
 
 def concurrent_mix(port: int, clients: int, n_per_client: int,
-                   queries: list, seed: int, during=None) -> tuple:
+                   queries: list, seed: int, during=None,
+                   dealt=None) -> tuple:
     """clients threads x n_per_client queries drawn from (pql, answer)
-    pairs over HTTP -> (latencies, wall seconds, what during() gave while
-    they ran); answers checked."""
+    pairs over HTTP, or each client's own list of them in `dealt` ->
+    (latencies, wall seconds, what during() gave while they ran); answers
+    checked."""
     lat: list = []
     errors: list = []
     lock = threading.Lock()
 
     def client(cid: int) -> None:
-        rng = np.random.default_rng(seed + cid)
+        if dealt is not None:
+            mine = dealt[cid]
+        else:
+            rng = np.random.default_rng(seed + cid)
+            mine = [queries[int(k)]
+                    for k in rng.integers(len(queries), size=n_per_client)]
         conn = http.client.HTTPConnection("localhost", port, timeout=600)
         try:
-            for k in rng.integers(len(queries), size=n_per_client):
-                pql, want = queries[int(k)]
+            for pql, want in mine:
                 t = time.perf_counter()
                 got = _http(port, "POST", "/index/i/query", pql.encode(),
                             conn)["results"][0]
@@ -2626,7 +2666,7 @@ def spill_rounds(srv, port: int, clients: int, queries: list,
                        "p50_ms": statistics.median(lat) * 1e3,
                        "p99_ms": float(np.percentile(lat, 99)) * 1e3,
                        "spilled": heat.spilled_fragments - before})
-        log(f"  five-field round {i + 1} (heat {mode}): "
+        log(f"  five-field round {i + 1} (heat {mode}, plan cache off): "
             f"{rounds[-1]['qps']:.1f} q/s, p50 {rounds[-1]['p50_ms']:.2f} "
             f"ms, p99 {rounds[-1]['p99_ms']:.2f} ms, "
             f"{rounds[-1]['spilled']} fragments spilled")
@@ -2635,6 +2675,414 @@ def spill_rounds(srv, port: int, clients: int, queries: list,
                              "nothing")
     return {"rounds": rounds,
             "tracked": heat.snapshot(top=1)["trackedFragments"]}
+
+
+PLANNER_CHAIN = "Count(Intersect(Row(f=0), Row(f=5), Row(f=2), Row(f=7)))"
+PLANNER_CHAIN_QUERIES = 40  # sequential queries a side in each round
+PLANNER_ROUNDS = 3
+PLANNER_PANELS = 10  # shared 3-row Count(Intersect) dashboard panels
+PLANNER_PER_CLIENT = 16
+PLANNER_EMPTY_ROW = 4242  # a row of f that holds no bit
+
+
+def planner_phase(srv, port: int, packed: list, rows: list, s_rows: list,
+                  pair: np.ndarray, n_shards: int, clients: int,
+                  seed: int) -> dict:
+    """The planner and the plan cache on the Count phase's server and
+    index (bench.py bench_planner, at full width), against the numpy
+    oracle; its own launch counts (zeroed before its first query, read
+    after its last):
+
+    (a) PLANNER_CHAIN sequentially, the cache off, the planner off then
+        on, PLANNER_ROUNDS rounds of PLANNER_CHAIN_QUERIES a side: p50;
+    (b) a dashboard: clients x PLANNER_PER_CLIENT queries a side, 80 %
+        the PLANNER_PANELS 3-row Count(Intersect) panels over f, each
+        asked equally often, each time in a random operand order, and
+        20 % ad-hoc Counts over three of f's rows (a Union, a Union of
+        an Intersect, an Intersect of a Union) that no other query of the
+        round asks; each round clears the cache and runs cache off, cache
+        on (warm: the panels and its own ad-hoc queries) and cache on
+        (measured: the cache-off side's queries again): q/s, p50, p99,
+        the hit rate over warm and measured (as bench.py reports it) and
+        the measured side's, which must hit every panel and miss every
+        ad-hoc query; a device-profile capture in the first cache-off
+        round;
+    (c) Count(Intersect(Row(f=0), Row(f=PLANNER_EMPTY_ROW))): the planner
+        short-circuits it (no leaf read, no upload, no launch); with the
+        planner off it gives 0 by uploading and launching;
+    (d) three Intersect(Row(s=a), Row(f=b)) Row results, each read
+        twice: the second read hits, a result holds one [S, W] plane, the
+        default 256 MiB budget holds two, and the third evicts; a Set
+        through the ingest path into a row of the first reads back with
+        the bit (a miss: the write changed the key), a Clear takes it out;
+    (e) ?explain=true on a Count, a BSI, a TopN and a hybrid query
+        launches nothing; a resident leaf predicts 0 upload bytes, a
+        dense row written through the per-bit path (its leaf stale)
+        predicts one plane, and executing the query uploads what EXPLAIN
+        predicted.
+
+    The existing passes run with the cache off; this phase leaves it
+    off."""
+    import itertools
+
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.utils import telemetry
+
+    t_phase = time.perf_counter()
+    ex = srv.executor
+    pc, pl = ex.plan_cache, ex.planner
+    plane = n_shards * 32768 * 4  # one composed [S, W] row
+    conn = http.client.HTTPConnection("localhost", port, timeout=600)
+
+    def query(pql: str, args: str = "") -> dict:
+        return _http(port, "POST", "/index/i/query" + args, pql.encode(),
+                     conn)
+
+    def check(pql: str, got, want) -> None:
+        if got != want:
+            raise AssertionError(f"{pql}: port {got} != oracle {want}")
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 7000)
+    triples = list(itertools.combinations(range(len(packed)), 3))
+    panels = [triples[i] for i in
+              rng.permutation(len(triples))[:PLANNER_PANELS]]
+    inter = {t: _and_count(*(packed[i] for i in t)) for t in triples}
+
+    def rows_pql(rows, r) -> str:
+        return ", ".join(f"Row(f={i})" for i in r.permutation(rows))
+
+    def tri(*rows) -> int:
+        return int(inter[tuple(sorted(rows))])
+
+    # every ad-hoc shape over three rows, with its count from pair's
+    # counts and the triple's (inclusion-exclusion): 56 + 168 + 168
+    adhoc = []
+    for a, b, c in triples:
+        adhoc.append((lambda r, t=(a, b, c): (
+            f"Count(Union({rows_pql(t, r)}))"),
+            int(pair[a, a] + pair[b, b] + pair[c, c] - pair[a, b]
+                - pair[a, c] - pair[b, c] + tri(a, b, c))))
+    for a, b in itertools.combinations(range(len(packed)), 2):
+        for c in set(range(len(packed))) - {a, b}:
+            adhoc.append((lambda r, ab=(a, b), c=c: (
+                f"Count(Union(Intersect({rows_pql(ab, r)}), Row(f={c})))"),
+                int(pair[a, b] + pair[c, c] - tri(a, b, c))))
+            adhoc.append((lambda r, ab=(a, b), c=c: (
+                f"Count(Intersect(Union({rows_pql(ab, r)}), Row(f={c})))"),
+                int(pair[a, c] + pair[b, c] - tri(a, b, c))))
+    n_side = clients * PLANNER_PER_CLIENT
+    n_adhoc = n_side // 5
+    if 2 * n_adhoc > len(adhoc):
+        raise AssertionError(f"{len(adhoc)} ad-hoc shapes for two sides of "
+                             f"{n_adhoc}")
+
+    def deal(r, fresh: list) -> list:
+        """One side's queries, dealt to the clients: the panels equally
+        often in random operand orders, then the fresh ad-hoc ones."""
+        qs = [(f"Count(Intersect({rows_pql(panels[i % PLANNER_PANELS], r)}"
+               "))", tri(*panels[i % PLANNER_PANELS]))
+              for i in range(n_side - n_adhoc)]
+        qs += [(make(r), want) for make, want in fresh]
+        qs = [qs[i] for i in r.permutation(n_side)]
+        return [qs[c::clients] for c in range(clients)]
+    chain_want = _and_count(*(packed[i] for i in (0, 5, 2, 7)))
+    log(f"  planner oracle: {time.perf_counter() - t0:.1f} s")
+
+    start_window()  # the planner path starts here
+    stats: dict = {"step_s": {}}
+    t_step = [time.perf_counter()]
+
+    def step(name: str) -> str:
+        """Seconds since the previous step ended, kept under `name`."""
+        now = time.perf_counter()
+        stats["step_s"][name] = now - t_step[0]
+        t_step[0] = now
+        return f"({name}: {stats['step_s'][name]:.1f} s)"
+
+    # (a) planning's own cost: the cache off, the planner off then on
+    pc.enabled = False
+    for _ in range(5):
+        check(PLANNER_CHAIN, query(PLANNER_CHAIN)["results"][0], chain_want)
+    chain = []
+    for rnd in range(PLANNER_ROUNDS):
+        p50 = {}
+        for side in ("off", "on"):
+            pl.enabled = side == "on"
+            lat = []
+            try:
+                for _ in range(PLANNER_CHAIN_QUERIES):
+                    t = time.perf_counter()
+                    got = query(PLANNER_CHAIN)["results"][0]
+                    lat.append(time.perf_counter() - t)
+                    check(PLANNER_CHAIN, got, chain_want)
+            finally:
+                pl.enabled = True
+            p50[side] = statistics.median(lat) * 1e3
+        chain.append({"p50_ms_planner_off": p50["off"],
+                      "p50_ms_planner_on": p50["on"]})
+        log(f"  (a) round {rnd + 1}: {PLANNER_CHAIN}, plan cache off, "
+            f"{PLANNER_CHAIN_QUERIES} sequential a side: p50 planner off "
+            f"{p50['off']:.3f} ms, on {p50['on']:.3f} ms")
+    stats["chain"] = chain
+    log(f"  {step('a')}")
+
+    # (b) the dashboard: cache off (cleared), on (warm), on (measured)
+    probe = f"Count(Intersect({', '.join(f'Row(f={i})' for i in panels[0])}))"
+    dash = []
+    obs: dict = {}
+    for rnd in range(PLANNER_ROUNDS):
+        drng = np.random.default_rng(seed + 8000 + 100 * rnd)
+        pick = drng.permutation(len(adhoc))
+        warm = deal(drng, [adhoc[i] for i in pick[:n_adhoc]])
+        measured = deal(drng,
+                        [adhoc[i] for i in pick[n_adhoc:2 * n_adhoc]])
+        pc.enabled = False
+        pc.clear()
+        during = ((lambda: during_pass(port, (probe, None), CAPTURE_S))
+                  if rnd == 0 else None)
+        lat_off, wall_off, seen = concurrent_mix(
+            port, clients, PLANNER_PER_CLIENT, None, 0, during, measured)
+        if seen is not None:
+            obs.update(seen)
+        pc.enabled = True
+        s0 = pc.snapshot()
+        concurrent_mix(port, clients, PLANNER_PER_CLIENT, None, 0, None,
+                       warm)
+        sw = pc.snapshot()
+        lat_on, wall_on, _ = concurrent_mix(
+            port, clients, PLANNER_PER_CLIENT, None, 0, None, measured)
+        s1 = pc.snapshot()
+        hits, misses = s1["hits"] - sw["hits"], s1["misses"] - sw["misses"]
+        if (hits, misses) != (n_side - n_adhoc, n_adhoc):
+            raise AssertionError(
+                f"dashboard round {rnd + 1}: the measured side hit {hits} "
+                f"and missed {misses} times; every one of its "
+                f"{n_side - n_adhoc} panel queries must hit and each of its "
+                f"{n_adhoc} ad-hoc queries miss")
+        look = (s1["hits"] - s0["hits"]) + (s1["misses"] - s0["misses"])
+        r = {"qps_cache_off": len(lat_off) / wall_off,
+             "p50_ms_cache_off": statistics.median(lat_off) * 1e3,
+             "p99_ms_cache_off": float(np.percentile(lat_off, 99)) * 1e3,
+             "qps_cache_on": len(lat_on) / wall_on,
+             "p50_ms_cache_on": statistics.median(lat_on) * 1e3,
+             "p99_ms_cache_on": float(np.percentile(lat_on, 99)) * 1e3,
+             "hit_rate": (s1["hits"] - s0["hits"]) / look,
+             "hit_rate_measured": hits / (hits + misses),
+             "plan_cache_bytes": s1["bytes"],
+             "plan_cache_entries": s1["entries"]}
+        dash.append(r)
+        log(f"  (b) round {rnd + 1}: {clients} clients x "
+            f"{PLANNER_PER_CLIENT} dashboard Counts; cache off "
+            f"{r['qps_cache_off']:.1f} q/s, p50 {r['p50_ms_cache_off']:.2f} "
+            f"ms, p99 {r['p99_ms_cache_off']:.2f} ms; cache on "
+            f"{r['qps_cache_on']:.1f} q/s, p50 {r['p50_ms_cache_on']:.2f} "
+            f"ms, p99 {r['p99_ms_cache_on']:.2f} ms; hit rate over warm "
+            f"and measured {r['hit_rate']:.4f}, measured "
+            f"{r['hit_rate_measured']:.4f} ({s1['entries']} entries, "
+            f"{s1['bytes']} bytes)")
+    stats["dashboard"] = dash
+    log(f"  {step('b')}")
+
+    # (c) the short-circuit
+    pc.enabled = False
+    empty = f"Count(Intersect(Row(f=0), Row(f={PLANNER_EMPTY_ROW})))"
+    before = kernels.launch_counts()
+    got = query(empty, "?profile=true")
+    prof = got["profile"]
+    if (got["results"] != [0] or prof["plan"][0]["shortCircuits"] != 1
+            or prof["residency"] != {"hits": 0, "misses": 0,
+                                     "hostToDeviceBytes": 0}
+            or prof["dispatches"] or kernels.launch_counts() != before):
+        raise AssertionError(f"{empty}: the short-circuit read, uploaded "
+                             f"or launched: {got}")
+    pl.enabled = False
+    try:
+        got_off = query(empty, "?profile=true")
+    finally:
+        pl.enabled = True
+    res_off = got_off["profile"]["residency"]
+    launched = sum(kernels.launch_counts().values()) - sum(before.values())
+    if got_off["results"] != [0] or not res_off["hostToDeviceBytes"] \
+            or launched < 1:
+        raise AssertionError(f"{empty} with the planner off: {got_off}, "
+                             f"{launched} launches")
+    stats["short_circuit"] = {"residency_on": prof["residency"],
+                              "residency_off": res_off,
+                              "launches_off": launched}
+    log(f"  (c) {empty}: planner on 0 with residency {prof['residency']}, "
+        f"no dispatch, no launch; planner off 0 with residency {res_off}, "
+        f"{launched} launches {step('c')}")
+
+    # (d) Row results in the cache: two fit, the third evicts
+    if pc.budget != 2 * plane:
+        raise AssertionError(f"plan-cache budget {pc.budget} does not hold "
+                             f"exactly two {plane}-byte rows")
+    pc.clear()
+    pc.enabled = True
+    ev0 = pc.snapshot()["evictions"]
+
+    def row_want(sa: int, fb: int, extra=()) -> list:
+        cols = np.union1d(s_rows[sa], np.asarray(extra, dtype=np.int64))
+        return cols[_bit_test(packed[fb], cols)].tolist()
+
+    def read(sa: int, fb: int, hit: bool, want: list) -> None:
+        pql = f"Intersect(Row(s={sa}), Row(f={fb}))"
+        got = query(pql, "?profile=true")
+        events = got["profile"]["plan"][0]["cache"]
+        if [e["hit"] for e in events] != [hit]:
+            raise AssertionError(f"{pql}: cache events {events}, expected "
+                                 f"hit={hit}")
+        check(pql, got["results"][0]["columns"], want)
+
+    def held(n_entries: int, evictions: int) -> None:
+        hbm = _http(port, "GET", "/debug/hbm?top=0")
+        n_ev = pc.snapshot()["evictions"] - ev0
+        if (hbm["planCacheBytes"], hbm["planCacheEntries"], n_ev) != \
+                (n_entries * plane, n_entries, evictions):
+            raise AssertionError(
+                f"plan cache holds {hbm['planCacheBytes']} bytes in "
+                f"{hbm['planCacheEntries']} entries after {n_ev} "
+                f"evictions; expected {n_entries} x {plane}, {evictions}")
+
+    grown = []
+    results = ((0, 1), (1, 2), (2, 3))
+    for i, (sa, fb) in enumerate(results[:2]):
+        read(sa, fb, False, row_want(sa, fb))
+        read(sa, fb, True, row_want(sa, fb))
+        held(i + 1, 0)
+        grown.append(pc.snapshot()["bytes"])
+    sa, fb = results[0]
+    cand = rows[fb][:4096]  # a column of f=fb outside s=sa
+    col = int(cand[~_contains(np.sort(s_rows[sa]), cand)][0])
+    check(f"Set({col}, s={sa})", query(f"Set({col}, s={sa})")["results"],
+          [True])
+    read(sa, fb, False, row_want(sa, fb, [col]))  # the old key is stale
+    held(2, 1)
+    read(sa, fb, True, row_want(sa, fb, [col]))
+    sc, fc = results[2]
+    read(sc, fc, False, row_want(sc, fc))
+    read(sc, fc, True, row_want(sc, fc))
+    held(2, 2)
+    check(f"Clear({col}, s={sa})", query(f"Clear({col}, s={sa})")["results"],
+          [True])
+    read(sa, fb, False, row_want(sa, fb))
+    stats["row_cache"] = {"bytes_after_each": grown + [
+        pc.snapshot()["bytes"]], "evictions": pc.snapshot()["evictions"] - ev0,
+        "written_column": col}
+    log(f"  (d) Row results: {plane} bytes each, plan cache "
+        f"{' -> '.join(map(str, grown))} bytes; the third evicted one; "
+        f"Set({col}, s={sa}) read back with the bit, Clear without it "
+        f"{step('d')}")
+    pc.enabled = False
+
+    # (e) EXPLAIN launches nothing and predicts the uploads
+    def explain(pql: str) -> dict:
+        before = (kernels.launch_counts(),
+                  telemetry.kernels.totals()["dispatches"],
+                  ex.residency.snapshot()["misses"])
+        doc = query(pql, "?explain=true")["explain"][0]
+        after = (kernels.launch_counts(),
+                 telemetry.kernels.totals()["dispatches"],
+                 ex.residency.snapshot()["misses"])
+        if after != before:
+            raise AssertionError(f"EXPLAIN {pql} launched or read: "
+                                 f"{before} -> {after}")
+        return doc
+
+    def leaves(node: dict) -> list:
+        if node.get("kind") == "op":
+            return [x for ch in node["children"] for x in leaves(ch)]
+        return [node]
+
+    explained = {}
+    for name, pql in (
+            ("count", "Count(Intersect(Row(f=0), Row(f=1), Row(f=2)))"),
+            ("bsi", "Sum(Range(v > 500), field=v)"),
+            ("topn", "TopN(t, Row(f=3), n=5)"),
+            ("hybrid", "Count(Intersect(Row(s=5), Row(f=2)))")):
+        doc = explain(pql)
+        lv = leaves(doc["tree"])
+        if name != "bsi" and any(x["estimatedH2dBytes"] for x in lv):
+            raise AssertionError(f"EXPLAIN {pql}: a resident leaf predicts "
+                                 f"an upload: {lv}")
+        explained[name] = {"pql": pql, "estimatedH2dBytes":
+                           doc["estimatedH2dBytes"],
+                           "leaves": [(x["expr"], x["rep"],
+                                       x["kernelFamily"],
+                                       x["residency"]["resident"])
+                                      for x in lv]}
+        log(f"  (e) EXPLAIN {pql}: no launch; leaves "
+            f"{explained[name]['leaves']}, estimatedH2dBytes "
+            f"{doc['estimatedH2dBytes']}")
+    cand = rows[6][:4096]  # a column of f=6 outside f=7
+    col7 = int(cand[~_contains(rows[7], cand)][0])
+
+    def per_bit(pql: str) -> None:
+        os.environ["PILOSA_TPU_TORCH_INGEST"] = "0"
+        try:
+            check(pql, query(pql)["results"], [True])
+        finally:
+            os.environ.pop("PILOSA_TPU_TORCH_INGEST", None)
+
+    per_bit(f"Set({col7}, f=7)")
+    cold = "Count(Intersect(Row(f=7), Row(f=6)))"
+    doc = explain(cold)
+    f7 = [x for x in leaves(doc["tree"]) if x["expr"] == "Row(f=7)"][0]
+    if (f7["rep"], f7["residency"]["generationMatch"],
+            f7["estimatedH2dBytes"], doc["estimatedH2dBytes"]) != \
+            ("dense", False, plane, plane):
+        raise AssertionError(f"EXPLAIN {cold} after a per-bit write: {doc}")
+    got = query(cold, "?profile=true")
+    check(cold, got["results"][0], int(pair[6, 7]) + 1)
+    res = got["profile"]["residency"]
+    if res["hostToDeviceBytes"] != doc["estimatedH2dBytes"]:
+        raise AssertionError(f"{cold}: uploaded {res}, EXPLAIN predicted "
+                             f"{doc['estimatedH2dBytes']}")
+    per_bit(f"Clear({col7}, f=7)")
+    check("Count(Row(f=7))", query("Count(Row(f=7))")["results"][0],
+          int(pair[7, 7]))  # resident again before the write path
+    explained["cold"] = {"pql": cold, "predicted": doc["estimatedH2dBytes"],
+                         "uploaded": res["hostToDeviceBytes"]}
+    log(f"  (e) EXPLAIN {cold} after a per-bit Set: Row(f=7) dense, stale "
+        f"generations, {f7['estimatedH2dBytes']} bytes predicted; executed: "
+        f"{res['hostToDeviceBytes']} bytes uploaded {step('e')}")
+    stats["explain"] = explained
+    conn.close()
+
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()  # the planner path ends here
+    obs["scrape"] = observe_path(port, "planner", launches)
+    dv = _http(port, "GET", "/debug/vars")
+    _, samples = parse_metrics(_text(port, "/metrics"))
+    pairs = [(("pilosa_planner_total", f'{{key="{k}"}}'), dv["planner"][k])
+             for k in ("plans", "reorders", "pushdowns", "shortCircuits")]
+    pairs += [(("pilosa_planCache_total", f'{{key="{k}"}}'),
+               dv["planCache"][k]) for k in ("hits", "misses", "evictions")]
+    pairs += [(("pilosa_planCache", f'{{key="{k}"}}'), dv["planCache"][k])
+              for k in ("bytes", "entries")]
+    for key, want in pairs:
+        if samples.get(key) != want:
+            raise AssertionError(f"/metrics {key} = {samples.get(key)}, "
+                                 f"/debug/vars {want}")
+    stats["planner"] = {k: v for k, v in dv["planner"].items()
+                        if k != "calibration"}
+    stats["plan_cache"] = dv["planCache"]
+    stats["calibration"] = {k: v for k, v in
+                            dv["planner"]["calibration"].items()
+                            if k != "entries"}
+    log(f"  /debug/vars planner {stats['planner']} and planCache "
+        f"{stats['plan_cache']} = /metrics planner_* and planCache_*; "
+        f"calibration {stats['calibration']}")
+    log(f"  launches on the planner path: {launches} {step('observe')}")
+    if launches["program_count"] < 1:
+        raise AssertionError("program_count never launched on the planner "
+                             "path")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"  planner phase: {stats['phase_s']:.1f} s")
+    return {"launches": launches, "stats": stats, "obs": obs}
 
 
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
@@ -2669,6 +3117,10 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
     with tempfile.TemporaryDirectory(prefix="pilosa_torch_smoke_") as tmp:
         srv = Server(os.path.join(tmp, "data"), port=0, device=device).open()
         port = srv.http.port
+        # every pass but the planner phase's runs with the plan cache off
+        # (the planner on): repeated queries would hit it and launch
+        # nothing, and the passes measure the kernels
+        srv.executor.plan_cache.enabled = False
         try:
             _http(port, "POST", "/index/i",
                   json.dumps({"options": {"trackExistence": True}}).encode())
@@ -2769,7 +3221,7 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
             torch.cuda.synchronize()
             launches = kernels.launch_counts()  # the main path ends here
             del count_batcher._dispatch
-            obs["scrape"] = observe_path(srv, port, "count", launches)
+            obs["scrape"] = observe_path(port, "count", launches)
             batcher = count_batcher.snapshot()
             res = srv.executor.residency.snapshot()
             stats = {
@@ -2788,7 +3240,8 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                                          if dispatch_s else None),
             }
             log(f"  concurrent: {clients} clients x {per_client} "
-                f"Count(Intersect): {stats['qps']:.1f} q/s, p50 "
+                f"Count(Intersect), plan cache off: {stats['qps']:.1f} q/s, "
+                f"p50 "
                 f"{stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms, "
                 f"max_batch_seen {stats['max_batch_seen']}; dispatch host "
                 f"{_us(stats['dispatch_host_ms'])} us a batch (mean)")
@@ -2849,6 +3302,10 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                 out["spill"] = spill_rounds(
                     srv, port, clients, five_field_queries(
                         p, values, t_rows, s_rows, r_rows), seed)
+                log("phase 5c: the planner and the plan cache on the same "
+                    "server")
+                out["planner"] = planner_phase(srv, port, p, rows, s_rows,
+                                               pair, n_shards, clients, seed)
             log("phase 6: write path (coalesced Set/Clear) on the same "
                 "server, under concurrent reads")
             out["ingest"] = ingest_phase(srv, port, p, exists_all, s_rows,
@@ -3022,7 +3479,8 @@ def main(argv=None) -> int:
 
     records = []
     paths = {"count": served, "bsi": served["bsi"], "topn": served["topn"],
-             "hybrid": served["hybrid"], "ingest": served["ingest"]}
+             "hybrid": served["hybrid"], "planner": served["planner"],
+             "ingest": served["ingest"]}
     for name, m in measured.items():
         # launches on every path of the main run (each path zeroes the
         # counts before its first query and reads them after its last)

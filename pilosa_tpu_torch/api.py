@@ -11,7 +11,9 @@ Per-request profiling (api.py:109-125, :270-360): a query gets a
 QueryProfile when the request asks (?profile=true) or while
 long_query_time > 0; such a query also gets a trace id for the whole
 request. Queries slower than long_query_time land in query_history
-(GET /debug/query-history) with their profile.
+(GET /debug/query-history) with their profile. A profiled query that
+succeeds feeds the planner's calibration ring (api.py:320-331), and
+explain() answers ?explain=true (:399-440).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Optional
 
 import numpy as np
 
-from pilosa_tpu_torch import __version__
+from pilosa_tpu_torch import __version__, planner
 from pilosa_tpu_torch.executor import (
     ExecutionError,
     Executor,
@@ -36,6 +38,7 @@ from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.models.row import Row
 from pilosa_tpu_torch.pql import parse_string_cached
+from pilosa_tpu_torch.pql.ast import WRITE_CALLS
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import tracing
@@ -94,11 +97,13 @@ class API:
                 pql=qprofile.truncate_pql(pql))
             prof_tok = qprofile.current_profile.set(prof)
         start = time.perf_counter()
+        query = results = None
         try:
             # Set/Clear envelopes take the linear scanner: their unique
             # columns would only churn the parse cache
             query = parse_mutations_fast(pql) or parse_string_cached(pql)
-            return self.executor.execute(index_name, query, shards=shards)
+            results = self.executor.execute(index_name, query, shards=shards)
+            return results
         except (ExecutionError, ValueError) as e:
             raise ApiError(str(e))
         finally:
@@ -107,6 +112,9 @@ class API:
                 qprofile.current_profile.reset(prof_tok)
             if prof is not None:
                 prof.finish()
+                if results is not None:
+                    # each plan node's estimate beside its call's result
+                    planner.record_calibration(prof, query.calls, results)
             qprofile.last_profile.set(prof)
             if slow_armed and elapsed > self.long_query_time:
                 self.query_history.append({
@@ -133,6 +141,37 @@ class API:
             if prof is not None:
                 out["profile"] = prof.to_dict()
         return out
+
+    def explain(self, index_name: str, pql: str,
+                shards: Optional[list[int]] = None) -> dict:
+        """POST /index/{index}/query?explain=true: the planned tree of each
+        call, executing nothing (Executor.explain_call); write calls and
+        calls without a device plan say so. The calibration ring's
+        aggregates ride along."""
+        index = self.holder.index(index_name)
+        if index is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        try:
+            query = parse_string_cached(pql)
+        except ValueError as e:
+            raise ApiError(str(e))
+        out = []
+        for call in query.calls:
+            if call.name in WRITE_CALLS:
+                out.append({"call": call.name, "planned": False,
+                            "note": "write call: nothing to plan"})
+                continue
+            if call.name not in planner.PLANNED_CALLS:
+                out.append({"call": call.name, "planned": False,
+                            "note": "call is executed host-side; no "
+                                    "device plan"})
+                continue
+            try:
+                out.append(self.executor.explain_call(index, call, shards))
+            except (ExecutionError, ValueError) as e:
+                raise ApiError(str(e))
+        return {"index": index_name, "explain": out,
+                "calibration": planner.calibration.snapshot(limit=0)}
 
     @staticmethod
     def _result_to_json(result):

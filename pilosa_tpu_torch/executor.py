@@ -68,11 +68,25 @@ CUDA allocator's. The sparse and run steps, the BSI descents, the TopN
 recounts and the write path's patches are timed as kernel families
 (utils/telemetry.py).
 
-Left out: the rest of the planner and the plan cache, the cluster (its
-distributed and remote ingest applies included), key translation, row
-attributes and the MinMaxBatcher. None of them changes an answer. Calls,
-field types and options outside the slice raise NotPortedError (a 400 at
-the API).
+Planning (executor.py:243-259, :573-594, :1333-1521): every Count, TopN,
+Sum/Min/Max, GroupBy and bitmap call first passes the QueryPlanner
+(planner.py), which reorders commutative operands into one canonical
+order, rewrites provably empty branches to Union() and marks pushdowns;
+its plan node rides the query's profile. Evaluated bitmap subtrees (a Row
+result, a TopN Src, a Sum or GroupBy filter) and Count scalars are kept
+in the PlanCache (parallel/residency.py) under the planner's generation
+keys: a hit reads no leaf and launches nothing, a write changes the key.
+A Count or Row of Union() answers with no leaf and no launch.
+explain_call (:958-1186) gives the planned tree with each leaf's form,
+residency and estimated upload bytes without launching anything.
+PILOSA_TPU_TORCH_PLANNER=0 and PILOSA_TPU_TORCH_PLAN_CACHE=0 switch them
+off when the executor is built; `plan_cache.enabled` switches the cache at
+run time.
+
+Left out: the cluster (its distributed and remote ingest applies
+included), key translation, time views, row attributes and the
+MinMaxBatcher. None of them changes an answer. Calls, field types and
+options outside the slice raise NotPortedError (a 400 at the API).
 """
 
 from __future__ import annotations
@@ -98,13 +112,13 @@ from pilosa_tpu_torch.models.cache import merge_pair_arrays, merge_pairs
 from pilosa_tpu_torch.models.field import NotPortedError
 from pilosa_tpu_torch.models.index import Index
 from pilosa_tpu_torch.models.row import Row
-from pilosa_tpu_torch.models.view import VIEW_STANDARD
+from pilosa_tpu_torch.models.view import VIEW_BSI_PREFIX, VIEW_STANDARD
 from pilosa_tpu_torch.ops import bsi
 from pilosa_tpu_torch.ops import hybrid as hy
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.ops.bitvector import (
     band,
-    columns_from_dense,
+    columns_from_planes,
     patch_dense_words,
     patch_sparse_rows,
 )
@@ -120,6 +134,7 @@ from pilosa_tpu_torch.parallel.mesh import DeviceRunner
 from pilosa_tpu_torch.parallel.residency import (
     DeviceResidency,
     HybridManager,
+    PlanCache,
 )
 from pilosa_tpu_torch.pql import Call, Query, parse_string_cached
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
@@ -139,8 +154,7 @@ from pilosa_tpu_torch.utils import telemetry
 from pilosa_tpu_torch.utils.stats import NopStatsClient
 from pilosa_tpu_torch.utils.tracing import NopTracer
 
-BITMAP_CALLS = {"Row", "Union", "Intersect", "Difference", "Xor", "Not",
-                "Range"}
+BITMAP_CALLS = planner.BITMAP_CALLS
 _BATCHABLE_OPS = ("and", "or", "xor", "andnot")
 _BSI_OPS = {LT: bsi.LT, LTE: bsi.LTE, GT: bsi.GT, GTE: bsi.GTE, EQ: bsi.EQ,
             NEQ: bsi.NEQ}
@@ -209,6 +223,15 @@ class Executor:
         batch = os.environ.get("PILOSA_TPU_TORCH_BATCH", "1") != "0"
         self.batcher = CountBatcher() if batch else None
         self.sum_batcher = PlaneSumBatcher() if batch else None
+        # the planner and the plan cache, unless PILOSA_TPU_TORCH_PLANNER=0
+        # or PILOSA_TPU_TORCH_PLAN_CACHE=0 (Server(plan=, plan_cache_bytes=)
+        # can turn them off too)
+        self.planner = None
+        if os.environ.get("PILOSA_TPU_TORCH_PLANNER", "1") != "0":
+            self.planner = planner.QueryPlanner(self)
+        self.plan_cache = None
+        if os.environ.get("PILOSA_TPU_TORCH_PLAN_CACHE", "1") != "0":
+            self.plan_cache = PlanCache()
         # rows recounted by TopN walks, and GroupBy's blocking fetches (at
         # most one per level, plus one per overflowing chunk)
         self.topn_recount_rows = 0
@@ -238,10 +261,12 @@ class Executor:
         }
 
     def clear_caches(self) -> None:
-        """Drop every resident leaf, leaf statistic and TopN merge
-        (index/field deletion: a recreated schema object restarts its
+        """Drop every resident leaf, cached result, leaf statistic and TopN
+        merge (index/field deletion: a recreated schema object restarts its
         generations and versions)."""
         self.residency.clear()
+        if self.plan_cache is not None:
+            self.plan_cache.clear()
         self.hybrid.clear_stats()
         with self._topn_memo_lock:
             self._topn_merge_memo.clear()
@@ -291,6 +316,24 @@ class Executor:
         return fence
 
     def _execute_call(self, index: Index, call: Call, shards):
+        """Plan the call, install its plan node for the evaluation to fill
+        (cache events, hybrid choices, the actual cardinality) and record
+        it on the profile, then dispatch (executor.py:573-594)."""
+        plan_tok = None
+        if self.planner is not None and call.name in planner.PLANNED_CALLS:
+            call, plan_info = self.planner.plan_call(
+                index, call, self._query_shards(index, shards))
+            plan_tok = planner.current_plan.set(plan_info)
+            prof = qprofile.current_profile.get()
+            if prof is not None:
+                prof.record_plan(plan_info)
+        try:
+            return self._dispatch_call(index, call, shards)
+        finally:
+            if plan_tok is not None:
+                planner.current_plan.reset(plan_tok)
+
+    def _dispatch_call(self, index: Index, call: Call, shards):
         if call.name == "Count":
             return self._execute_count(index, call, shards)
         if call.name == "Sum":
@@ -335,6 +378,21 @@ class Executor:
         if isinstance(value, str):
             raise NotPortedError("string keys not ported yet")
         return int(value)
+
+    @staticmethod
+    def _leaf_gens(index: Index, field_name: str, view_name: str, shards,
+                   row_id: int) -> tuple:
+        """Per-shard generations of one row, () without the view: the
+        version part of a plan-cache key (executor.py:626)."""
+        f = index.field(field_name)
+        view = f.view(view_name) if f is not None else None
+        if view is None:
+            return ()
+        out = []
+        for s in shards:
+            frag = view.fragment(s)
+            out.append(0 if frag is None else frag.row_generation(row_id))
+        return tuple(out)
 
     @staticmethod
     def _fragments(index: Index, field_name: str, view_name: str,
@@ -468,10 +526,12 @@ class Executor:
         return self.residency.leaf(key, make, self._put_index("run"))
 
     def _chosen_leaf(self, index: Index, field_name: str, shards: list,
-                     row_id: int) -> tuple:
-        """(leaf, kind) of one row in the form the chooser picks."""
+                     row_id: int, call: Optional[Call] = None) -> tuple:
+        """(leaf, kind) of one row in the form the chooser picks; with the
+        Row `call`, the choice is recorded on the plan node."""
         rep, slots, frags, gens = planner.choose_representation(
-            self.hybrid, index, field_name, VIEW_STANDARD, shards, row_id)
+            self.hybrid, index, field_name, VIEW_STANDARD, shards, row_id,
+            call=call)
         if rep == "sparse":
             return self._row_leaf_sparse_dev(index, field_name, VIEW_STANDARD,
                                              shards, row_id, frags, gens,
@@ -519,7 +579,7 @@ class Executor:
                 self._set_field(index, field_name)
                 row_id = self._row_id(c.args[field_name])
                 return leaf(*self._chosen_leaf(index, field_name, shards,
-                                               row_id))
+                                               row_id, c))
             if c.name in ("Union", "Xor"):
                 if not c.children:  # zero-arg Union()/Xor(): empty row
                     return zeros()
@@ -527,8 +587,7 @@ class Executor:
                 return (op, *[walk(ch) for ch in c.children])
             if c.name in ("Intersect", "Difference"):
                 if not c.children:
-                    raise ExecutionError(
-                        f"{c.name}() requires at least one argument")
+                    raise planner.empty_operand_error(c)
                 op = "and" if c.name == "Intersect" else "andnot"
                 return (op, *[walk(ch) for ch in c.children])
             if c.name == "Not":
@@ -577,17 +636,93 @@ class Executor:
             return hy.run_to_dense(arr)
         return arr
 
+    def _plan_cache_key(self, index: Index, call: Call,
+                        shards: list) -> Optional[tuple]:
+        """The plan-cache key of a bitmap subtree, or None while the cache
+        is off or the shape cannot be keyed."""
+        pc = self.plan_cache
+        if (pc is None or not pc.enabled or call.name not in BITMAP_CALLS
+                or planner.is_empty_call(call)):
+            return None
+        return planner.subtree_cache_key(self, index, call, shards)
+
+    def _composed_row(self, index: Index, call: Call, shards: list,
+                      sparse_root: bool = False) -> tuple:
+        """(kind, device result) of a bitmap call tree through the plan
+        cache (executor.py:1333-1382): a hit returns the cached [S, W]
+        result, heating the tree's fragments as a read; a miss evaluates
+        and caches the planes. With the cache off or the shape unkeyable
+        and `sparse_root`, a sparse or run root comes back as it is."""
+        pc = self.plan_cache
+        key = self._plan_cache_key(index, call, shards)
+        epoch = 0
+        if key is not None:
+            epoch = pc.epoch
+            hit = pc.get(key)
+            planner.record_cache_event(call, hit is not None)
+            if hit is not None:
+                self._heat_call_touch(index, call, shards)
+                return "dense", hit
+        program, leaves, kinds = self._compile(index, call, shards)
+        if key is None and sparse_root:
+            return self._eval_program(program, leaves, kinds)
+        dev = self._eval_program_dense(program, leaves, kinds)
+        if key is not None:
+            pc.put(key, dev, dev.nbytes, epoch=epoch)
+        return "dense", dev
+
     def _composed_row_dev(self, index: Index, call: Call, shards: list):
         """[S, W] device result of a bitmap call tree (a Sum/Min/Max or
         GroupBy filter, a TopN Src)."""
-        return self._eval_program_dense(*self._compile(index, call, shards))
+        return self._composed_row(index, call, shards)[1]
+
+    def _heat_call_touch(self, index: Index, call: Call, shards) -> None:
+        """One read charge of every fragment under a bitmap call tree, on
+        a plan-cache hit (executor.py:1414-1453): the hit never reaches
+        the leaf reads, and the caller still read exactly these
+        fragments. Row: the standard view; Range: the BSI view; Not: the
+        existence row."""
+        tracker = self.heat
+        if tracker is None or not tracker.enabled:
+            return
+        pairs: list = []
+
+        def walk(c: Call) -> None:
+            if c.name == "Row":
+                pairs.append((c.field_arg(), VIEW_STANDARD))
+            elif c.name == "Range":
+                for k, v in c.args.items():
+                    if isinstance(v, Condition):
+                        pairs.append((k, VIEW_BSI_PREFIX + k))
+                        break
+            elif c.name == "Not":
+                pairs.append((EXISTENCE_FIELD_NAME, VIEW_STANDARD))
+            for ch in c.children:
+                walk(ch)
+
+        walk(call)
+        now = time.monotonic()  # one clock for the whole charge
+        shards_t = tuple(shards)
+        for field_name, view_name in pairs:
+            tracker.touch_many(_heat.Frags(index.name, field_name, view_name,
+                                           shards_t), reads=1, now=now)
+
+    @staticmethod
+    def _record_actual(count) -> None:
+        """The result's cardinality on the executing plan node (the
+        profile's estimate against actual)."""
+        plan = planner.current_plan.get()
+        if plan is not None:
+            plan["actualCardinality"] = int(count)
 
     def _execute_bitmap_call(self, index: Index, call: Call, shards) -> Row:
-        """A Row result: a sparse root gives its columns straight from the
-        index array, anything else from the planes."""
+        """A Row result: a planned-empty call reads nothing; a sparse root
+        not cached gives its columns straight from the index array,
+        anything else comes from the planes."""
         shards = self._query_shards(index, shards)
-        program, leaves, kinds = self._compile(index, call, shards)
-        kind, arr = self._eval_program(program, leaves, kinds)
+        if planner.is_empty_call(call):
+            return Row()
+        kind, arr = self._composed_row(index, call, shards, sparse_root=True)
         if kind == "sparse":
             host = arr.cpu().numpy()
             per_shard = [r[r < hy.SPARSE_SENTINEL].astype(np.int64)
@@ -595,22 +730,49 @@ class Executor:
         else:
             if kind == "run":
                 arr = hy.run_to_dense(arr)
-            dense = arr.contiguous().cpu().numpy().view(np.uint32)
-            per_shard = [columns_from_dense(d) for d in dense]
+            per_shard = columns_from_planes(arr)
         out = Row()
+        n_cols = 0
         for shard, cols in zip(shards, per_shard):
             if cols.size:
+                n_cols += cols.size
                 out.segments[shard] = (cols.astype(np.uint64)
                                        + np.uint64(shard * SHARD_WIDTH))
+        self._record_actual(n_cols)
         return out
 
     def _execute_count(self, index: Index, call: Call, shards) -> int:
+        """Count of a bitmap call tree: 0 for an empty call (no leaf, no
+        launch), else through the plan cache's ("count",) + key scalar
+        (executor.py:1486-1521), else on the device."""
         if len(call.children) != 1:
             raise ExecutionError("Count() takes exactly one argument")
         child = call.children[0]
         if child.name in ("Union", "Xor") and not child.children:
             return 0
         shards = self._query_shards(index, shards)
+        key = self._plan_cache_key(index, child, shards)
+        pc = self.plan_cache
+        epoch = 0
+        if key is not None:
+            key = ("count",) + key  # apart from the subtree's row result
+            epoch = pc.epoch
+            cached = pc.get(key)
+            planner.record_cache_event(child, cached is not None)
+            if cached is not None:
+                self._heat_call_touch(index, child, shards)
+                self._record_actual(cached)
+                return cached
+        n = self._count_device(index, child, shards)
+        if key is not None:
+            pc.put(key, int(n), PlanCache.SCALAR_COST, epoch=epoch)
+        self._record_actual(n)
+        return n
+
+    def _count_device(self, index: Index, child: Call, shards: list) -> int:
+        """Count of a compiled tree on the device: a hybrid program
+        through hybrid_count, a 1- or 2-leaf dense one through the
+        CountBatcher, anything else through program_count."""
         program, leaves, kinds = self._compile(index, child, shards)
         if "sparse" in kinds or "run" in kinds:
             # before the batcher: its kernels read only [S, W] planes
@@ -1629,6 +1791,174 @@ class Executor:
         out["maxBatch"] = self.ingest.max_batch
         return out
 
+    # --------------------------------------------------------------- EXPLAIN
+
+    def explain_call(self, index: Index, call: Call, shards) -> dict:
+        """?explain=true (executor.py:958-1186): the planned tree with each
+        leaf's form, sizing statistics, kernel family, residency state and
+        estimated host-to-device bytes, without a launch, an upload or a
+        change to the hysteresis (choose_representation peeks); the
+        residency is probed without a hit, a miss or an LRU touch. The
+        planner's counters move, as in the JAX package. The walk follows
+        _compile's leaf discovery, so executing the query next makes the
+        same choices."""
+        shards = self._query_shards(index, shards)
+        shards_t = tuple(shards)
+        info = None
+        planned = call
+        if self.planner is not None and call.name in planner.PLANNED_CALLS:
+            planned, info = self.planner.plan_call(index, call, shards)
+        leaf_reps: list[str] = []
+        kinds = self._LEAF_KIND_REP
+        plane_bytes = len(shards) * WORDS_PER_SHARD * 4
+
+        def probe_residency(field_name: str, row_id: int,
+                            gens: tuple) -> dict:
+            def match(key: tuple, need_gens: bool) -> bool:
+                return (isinstance(key, tuple) and len(key) >= 7
+                        and key[0] in kinds and key[1] == index.name
+                        and key[2] == field_name
+                        and key[3] == VIEW_STANDARD and key[4] == row_id
+                        and key[5] == shards_t
+                        and (not need_gens or key[-1] == gens))
+
+            for need_gens in (True, False):
+                hit = self.residency.probe_where(
+                    lambda k: match(k, need_gens))
+                if hit is not None:
+                    # without the generations: a write landed since the
+                    # upload; the entry is never hit again and ages out
+                    return {"resident": True, "rep": kinds[hit[0][0]],
+                            "generationMatch": need_gens, "bytes": hit[1]}
+            return {"resident": False, "rep": None,
+                    "generationMatch": False}
+
+        def est_bytes(rep: str, slots: int) -> int:
+            if rep == "sparse":
+                return len(shards) * slots * 4
+            if rep == "run":
+                return len(shards) * 2 * slots * 4
+            return plane_bytes
+
+        def explain_row(field_name: str, row_id: int, c: Optional[Call],
+                        expr: str) -> dict:
+            stats: dict = {}
+            rep, slots, _frags, gens = planner.choose_representation(
+                self.hybrid, index, field_name, VIEW_STANDARD, shards,
+                row_id, call=c, peek=True, stats_out=stats)
+            leaf_reps.append(rep)
+            res = probe_residency(field_name, row_id, gens)
+            return {
+                "kind": "row", "expr": expr, "field": field_name,
+                "rowId": row_id, "rep": rep, "slots": slots,
+                "maxShardCardinality": stats.get("maxShardCardinality"),
+                "runIntervals": stats.get("runIntervals"),
+                "residency": res,
+                "estimatedH2dBytes":
+                    0 if res["resident"] and res["generationMatch"]
+                    else est_bytes(rep, slots),
+            }
+
+        def row_leaf(c: Call) -> dict:
+            field_name = c.field_arg()
+            if index.field(field_name) is None:
+                raise ExecutionError(f"field not found: {field_name}")
+            return explain_row(field_name, self._row_id(c.args[field_name]),
+                               c, qprofile.truncate_pql(c.to_pql(), 96))
+
+        def range_leaf(c: Call) -> dict:
+            if "_start" in c.args or "_end" in c.args:
+                raise NotPortedError("time ranges not ported yet")
+            cond_field, cond = None, None
+            for k, v in c.args.items():
+                if isinstance(v, Condition):
+                    cond_field, cond = k, v
+            if cond is None:
+                raise ExecutionError(
+                    "Range() requires a condition or time bounds")
+            f = self._bsi_field(index, cond_field)
+            depth = f.bit_depth
+            leaf_reps.append("dense")
+            val = (tuple(cond.value) if isinstance(cond.value, list)
+                   else cond.value)
+            nbytes = self.residency.probe(
+                ("bsicmp", index.name, cond_field, cond.op, val, depth,
+                 shards_t, self._bsi_state(index, f, shards)[1]))
+            return {"kind": "bsicmp",
+                    "expr": qprofile.truncate_pql(c.to_pql(), 96),
+                    "field": cond_field, "op": cond.op, "bitDepth": depth,
+                    "rep": "dense", "kernelFamily": "bsi",
+                    "composedOnDevice": True,
+                    "residency": {"resident": nbytes is not None,
+                                  "rep": "dense"
+                                  if nbytes is not None else None,
+                                  "generationMatch": nbytes is not None},
+                    # a miss composes the mask from the planes: depth + 1
+                    # plane uploads when those are cold too (a bound)
+                    "estimatedH2dBytes":
+                        0 if nbytes is not None
+                        else (depth + 1) * plane_bytes}
+
+        def existence_leaf() -> dict:
+            if index.existence_field() is None:
+                raise ExecutionError(f"index {index.name} does not "
+                                     "support existence tracking")
+            return explain_row(EXISTENCE_FIELD_NAME, 0, None,
+                               f"Not() existence ({EXISTENCE_FIELD_NAME})")
+
+        def walk(c: Call) -> dict:
+            if c.name == "Row":
+                return row_leaf(c)
+            if c.name == "Range":
+                return range_leaf(c)
+            if c.name in ("Union", "Xor", "Intersect", "Difference"):
+                return {"kind": "op", "op": c.name,
+                        "children": [walk(ch) for ch in c.children]}
+            if c.name == "Not":
+                if len(c.children) != 1:
+                    raise ExecutionError("Not() takes exactly one argument")
+                return {"kind": "op", "op": "Not",
+                        "children": [existence_leaf(),
+                                     walk(c.children[0])]}
+            raise ExecutionError(f"expected bitmap call, got {c.name}")
+
+        doc: dict = {"call": call.name, "shards": len(shards),
+                     "planned": info is not None}
+        if info is not None:
+            doc["plan"] = info
+        if planned.name in BITMAP_CALLS:
+            doc["tree"] = walk(planned)
+        else:
+            operands = [walk(ch) for ch in planned.children
+                        if ch.name in BITMAP_CALLS]
+            if operands:
+                doc["tree"] = (operands[0] if len(operands) == 1
+                               else {"kind": "op", "op": "operands",
+                                     "children": operands})
+        if "tree" not in doc:
+            return doc
+        # the kernel family of each row leaf, decided over the whole
+        # tree: an all-dense program runs as one program, a hybrid one
+        # through the sparse and run families
+        all_dense = all(r == "dense" for r in leaf_reps)
+        fam_of = {"dense": "program" if all_dense else "bitwise",
+                  "sparse": "sparse", "run": "run"}
+        est = 0
+
+        def finish(node: dict) -> None:
+            nonlocal est
+            if node.get("kind") == "op":
+                for ch in node.get("children", ()):
+                    finish(ch)
+                return
+            if "kernelFamily" not in node and "rep" in node:
+                node["kernelFamily"] = fam_of.get(node["rep"], "bitwise")
+            est += int(node.get("estimatedH2dBytes") or 0)
+
+        finish(doc["tree"])
+        doc["estimatedH2dBytes"] = est
+        return doc
+
     # -------------------------------------------------------------- HBM map
 
     _LEAF_KIND_REP = {"row": "dense", "sparse": "sparse", "run": "run"}
@@ -1661,12 +1991,16 @@ class Executor:
         """GET /debug/hbm (executor.py:877): resident row leaves by
         (index, field, form) with bytes and padding, other kinds by kind,
         the budget and headroom, joined with the CUDA caching allocator
-        (allocated and reserved bytes). accountedBytes is the device
-        memory the resident entries hold, each storage once (entries may
-        alias one tensor; residentBytes counts every entry, as the budget
-        does); hbmDriftBytes is allocated minus accounted: memory the
-        residency does not hold (query intermediates, the batchers'
-        outputs, leaks). The port has no plan cache."""
+        (allocated and reserved bytes). planCacheBytes and
+        planCacheEntries are the plan cache's, as the JAX package counts
+        them (a scalar at its nominal 256 bytes). accountedBytes is the
+        device memory the resident leaves and the cached tensors hold,
+        each storage once: entries may alias one tensor (a Range mask that
+        is the not-null row, a cached Row result that is the resident
+        leaf), and residentBytes and planCacheBytes count every entry, as
+        the budgets do; the JAX package sums those two instead.
+        hbmDriftBytes is allocated minus accounted: memory neither cache
+        holds (query intermediates, the batchers' outputs, leaks)."""
         by_field: dict = {}
         other: dict = {}
         storages: dict = {}
@@ -1694,6 +2028,10 @@ class Executor:
         fields.sort(key=lambda e: (-e["bytes"], e["index"], e["field"],
                                    e["rep"]))
         res = self.residency.snapshot()
+        pc = {"bytes": 0, "entries": 0}
+        if self.plan_cache is not None:
+            pc = self.plan_cache.snapshot()
+            storages.update(self.plan_cache.storages())
         accounted = sum(storages.values())
         alloc = None
         dev = self.runner.device
@@ -1709,6 +2047,8 @@ class Executor:
             "headroomBytes": max(0, self.residency.budget - res["bytes"]),
             "entries": res["entries"],
             "evictions": res["evictions"],
+            "planCacheBytes": pc["bytes"],
+            "planCacheEntries": pc["entries"],
             "accountedBytes": accounted,
             "allocator": alloc,
             "hbmDriftBytes": (alloc["bytesInUse"] - accounted)

@@ -6,7 +6,8 @@ JSON shapes for the endpoints of this slice:
     POST/DELETE /index/{i}
     POST        /index/{i}/field/{f}
     POST        /index/{i}/query               (raw PQL body, ?shards=,
-                                                ?profile=true)
+                                                ?profile=true,
+                                                ?explain=true)
     POST        /index/{i}/field/{f}/import    (JSON body: rowIDs or values)
     GET         /schema
     GET         /status
@@ -39,6 +40,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
+from pilosa_tpu_torch import planner as _planner
 from pilosa_tpu_torch.api import API, ApiError
 from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.constants import KERNEL_FAMILY_REPS
@@ -70,7 +72,8 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
 ]
 
 # unknown query arguments on these routes are a 400 (a typo like ?shard=)
-ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "profile"}),
+ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "profile",
+                                               "explain"}),
                       "post_import": frozenset({"clear"}),
                       "get_debug_pprof": frozenset({"seconds"}),
                       "get_debug_timeseries": frozenset({"since", "limit"}),
@@ -164,6 +167,11 @@ class Handler:
                           if shards else None)
         except ValueError:
             raise ApiError(f"invalid shards argument: {shards!r}")
+        if self._arg(query, "explain") in ("1", "true"):
+            # the planned tree instead of the answer: nothing launches
+            return self._json(self.api.explain(params["index"],
+                                               body.decode(),
+                                               shards=shard_list))
         profile = self._arg(query, "profile") in ("1", "true")
         return self._json(self.api.query(params["index"], body.decode(),
                                          shards=shard_list, profile=profile))
@@ -236,10 +244,16 @@ class Handler:
             snap["countBatcher"] = ex.batcher.snapshot()
         if ex.sum_batcher is not None:
             snap["planeSumBatcher"] = ex.sum_batcher.snapshot()
+        if ex.planner is not None:
+            snap["planner"] = ex.planner.snapshot()
+            snap["planner"]["calibration"] = _planner.calibration.snapshot()
+        if ex.plan_cache is not None:
+            snap["planCache"] = ex.plan_cache.snapshot()
         hbm = ex.hbm_snapshot(top=0)
         snap["hbm"] = {k: hbm[k] for k in (
             "budgetBytes", "residentBytes", "headroomBytes",
-            "accountedBytes", "wasteByRep", "allocator", "hbmDriftBytes")}
+            "accountedBytes", "planCacheBytes", "wasteByRep", "allocator",
+            "hbmDriftBytes")}
         snap["hybrid"] = ex.hybrid_snapshot()
         snap["ingest"] = ex.ingest_snapshot()
         if ex.heat is not None:
@@ -333,6 +347,22 @@ class Handler:
             counts[f"batcher/{kind}/batches"] = bs["batches"]
             counts[f"batcher/{kind}/queries"] = bs["batched_queries"]
             gauges[f"batcher/{kind}/queueDepth"] = bs["queue_depth"]
+        # the planner and the plan cache, zeros included (:1062-1080)
+        if ex.planner is not None:
+            ps = ex.planner.snapshot()
+            counts["planner/plans"] = ps["plans"]
+            counts["planner/reorders"] = ps["reorders"]
+            counts["planner/pushdowns"] = ps["pushdowns"]
+            counts["planner/shortCircuits"] = ps["shortCircuits"]
+        pc_bytes = 0
+        if ex.plan_cache is not None:
+            cs = ex.plan_cache.snapshot()
+            counts["planCache/hits"] = cs["hits"]
+            counts["planCache/misses"] = cs["misses"]
+            counts["planCache/evictions"] = cs["evictions"]
+            gauges["planCache/bytes"] = cs["bytes"]
+            gauges["planCache/entries"] = cs["entries"]
+            pc_bytes = cs["bytes"]
         ing = ex.ingest_snapshot()
         counts["ingest,op:set"] = ing["setMutations"]
         counts["ingest,op:clear"] = ing["clearMutations"]
@@ -386,6 +416,7 @@ class Handler:
             rep = hbm_rep_of.get(kind, "other")
             gauges[f"hbmResidentBytes,rep:{rep}"] += float(e["bytes"])
             gauges[f"hbmResidentEntries,rep:{rep}"] += float(e["entries"])
+        gauges["hbmPlanCacheBytes"] = float(pc_bytes)
         gauges["hbmBudgetBytes"] = float(res.budget)
         gauges["hbmHeadroomBytes"] = float(max(0, res.budget - rs["bytes"]))
         drift = ex.hbm_snapshot(top=1)["hbmDriftBytes"]

@@ -3,8 +3,9 @@
 Trimmed port of pilosa_tpu/ops/bitvector.py:37-131 (dense algebra and
 popcounts), the GroupBy chunk helpers (:158-221), the ingest patches of
 resident leaves with their sorted-membership helper (:292, :629-660), and
-numpy copies of its host conversions dense_from_columns /
-columns_from_dense (:788, :803).
+numpy copies of its host conversions: dense_from_columns (:788), and
+columns_from_planes, which decodes a whole [S, W] result the way
+columns_from_dense (:803) decodes one row.
 
 Planes are int32 tensors, bit-identical views of the reference's uint32
 words. The bitwise ops act on bits, so signedness does not matter there.
@@ -280,8 +281,21 @@ def dense_from_columns(columns: np.ndarray, width: int = SHARD_WIDTH) -> np.ndar
     return packed.view("<u4").copy()
 
 
-def columns_from_dense(words: np.ndarray) -> np.ndarray:
-    """Inverse of dense_from_columns: set-bit positions as int64 offsets."""
-    words = np.ascontiguousarray(np.asarray(words, dtype=np.uint32))
-    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
-    return np.flatnonzero(bits).astype(np.int64)
+def columns_from_planes(planes: torch.Tensor) -> list:
+    """Inverse of dense_from_columns for each row of an [S, W] tensor of
+    words: each row's set-bit positions as int64 offsets. The nonzero
+    words are found where the tensor lies and only they go to the host: a
+    Row result at 1024 shards is 32M words (128 MiB), and it holds a few
+    thousand bits."""
+    s, w = planes.shape
+    flat = planes.reshape(-1)
+    idx = torch.nonzero(flat).squeeze(1)  # ascending, as flatnonzero
+    words = flat[idx].cpu().numpy()
+    idx = idx.cpu().numpy()
+    bits = np.unpackbits(words.view(np.uint8).reshape(-1, 4), axis=1,
+                         bitorder="little")
+    r, b = np.nonzero(bits)
+    pos = idx[r] * 32 + b  # ascending: words in order, bits in order
+    row_bits = w * 32
+    edges = np.searchsorted(pos, np.arange(s + 1, dtype=np.int64) * row_bits)
+    return [pos[edges[i]:edges[i + 1]] - i * row_bits for i in range(s)]

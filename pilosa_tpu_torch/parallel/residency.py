@@ -21,7 +21,8 @@ to query intermediates and the batcher's outputs. On the CPU (tests) it is
 a fixed 1 GiB.
 
 HybridManager (:290-520) picks each row leaf's form: sparse index array,
-run intervals or dense plane.
+run intervals or dense plane. PlanCache (:520-609) holds evaluated bitmap
+subtrees and Count scalars under the planner's generation keys.
 """
 
 from __future__ import annotations
@@ -199,17 +200,35 @@ class DeviceResidency:
                 self._lru.move_to_end(key)
             return arr
 
+    def probe(self, key: tuple) -> Optional[int]:
+        """Byte size of the entry under `key`, or None, with no hit or miss
+        counted and no LRU touch: EXPLAIN observes the cache without
+        changing its eviction order (:225-233)."""
+        with self._lock:
+            arr = self._lru.get(key)
+            return None if arr is None else arr.nbytes
+
+    def probe_where(self, pred: Callable[[tuple], bool]) -> Optional[tuple]:
+        """(key, nbytes) of the first entry, in LRU order, whose key
+        satisfies `pred`, or None; read-only like probe() (EXPLAIN's
+        stale-generation probe, :235-245)."""
+        with self._lock:
+            for key, arr in self._lru.items():
+                try:
+                    if pred(key):
+                        return key, arr.nbytes
+                except Exception:  # noqa: BLE001 — a malformed key
+                    continue
+            return None
+
     def entries_snapshot(self) -> list[tuple]:
         """[(key, nbytes, storage)] of every resident entry (GET
         /debug/hbm): storage is (data pointer, bytes) of the memory the
         tensor views, shared where entries alias one tensor (a Range mask
         that is the field's not-null row is cached under both keys)."""
         with self._lock:
-            out = []
-            for key, arr in self._lru.items():
-                st = arr.untyped_storage()
-                out.append((key, arr.nbytes, (st.data_ptr(), st.nbytes())))
-            return out
+            return [(key, arr.nbytes, tensor_storage(arr))
+                    for key, arr in self._lru.items()]
 
     def clear(self) -> None:
         with self._lock:
@@ -462,3 +481,97 @@ class HybridManager:
                 "denseBytesUploaded": self.dense_bytes_uploaded,
                 "trackedRows": len(self._rep),
             }
+
+
+def tensor_storage(t: torch.Tensor) -> tuple:
+    """(data pointer, bytes) of the memory a tensor views: entries that
+    alias one tensor share it, so device memory is counted once."""
+    st = t.untyped_storage()
+    return st.data_ptr(), st.nbytes()
+
+
+class PlanCache:
+    """Generation-keyed cross-query result cache (:520-609).
+
+    Where DeviceResidency holds query leaves, this holds evaluated
+    subexpressions: the [S, W] device result of a bitmap call tree, or the
+    int of a Count over one, under the planner's key (planner.
+    subtree_cache_key: index, canonical PQL, shard set, per-leaf
+    generations). A write changes the key; the stale entry ages out by
+    LRU. A tensor is charged its nbytes, an int the nominal SCALAR_COST,
+    so a flood of distinct Counts still evicts. A cached tensor may be a
+    resident leaf itself (a Row(f=a) result, a Range mask): a write moves
+    that leaf to a new key with a patched copy (DeviceResidency.
+    patch_entries), and the old plan-cache key, which carries the old
+    generations, is never computed again. `enabled` flips at run time
+    without tearing down the executor."""
+
+    SCALAR_COST = 256  # nominal bytes of a cached scalar
+
+    DEFAULT_BUDGET_BYTES = 256 << 20
+
+    def __init__(self, budget_bytes: int = DEFAULT_BUDGET_BYTES):
+        self.budget = budget_bytes
+        self.enabled = True
+        self._lru: OrderedDict = OrderedDict()  # key -> (value, nbytes)
+        self._lock = threading.Lock()
+        self.bytes = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.epoch = 0  # bumped by clear(); fences in-flight computes
+
+    def get(self, key: tuple):
+        """The cached value, or None (a miss; a zero count is cached as
+        the int 0)."""
+        if not self.enabled:
+            return None
+        with self._lock:
+            entry = self._lru.get(key)
+            if entry is None:
+                self.misses += 1
+                return None
+            self._lru.move_to_end(key)
+            self.hits += 1
+            return entry[0]
+
+    def put(self, key: tuple, value, nbytes: int,
+            epoch: Optional[int] = None) -> None:
+        """Insert `value` (a device tensor or an int). `epoch` is the one
+        the caller read before computing: a clear() since (index or field
+        deleted) means the value may describe deleted schema, so it is
+        served and not cached."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if epoch is not None and epoch != self.epoch:
+                return
+            displaced = self._lru.pop(key, None)
+            if displaced is not None:
+                self.bytes -= displaced[1]
+            self._lru[key] = (value, nbytes)
+            self.bytes += nbytes
+            while self.bytes > self.budget and len(self._lru) > 1:
+                _, (_, old_bytes) = self._lru.popitem(last=False)
+                self.bytes -= old_bytes
+                self.evictions += 1
+
+    def storages(self) -> list[tuple]:
+        """(data pointer, bytes) of every cached tensor's memory; scalars
+        hold none."""
+        with self._lock:
+            return [tensor_storage(v) for v, _ in self._lru.values()
+                    if isinstance(v, torch.Tensor)]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._lru.clear()
+            self.bytes = 0
+            self.epoch += 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"entries": len(self._lru), "bytes": self.bytes,
+                    "budget": self.budget, "enabled": self.enabled,
+                    "hits": self.hits, "misses": self.misses,
+                    "evictions": self.evictions}

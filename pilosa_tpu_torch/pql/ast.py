@@ -1,6 +1,7 @@
 """PQL AST: Query / Call / Condition (reference: pql/ast.go:27,247,451).
 
-Copied whole from pilosa_tpu/pql/ast.py (pure Python).
+Copied from pilosa_tpu/pql/ast.py (pure Python); the set of mutating
+calls is a module constant here, shared by the AST and EXPLAIN.
 """
 
 from __future__ import annotations
@@ -9,6 +10,10 @@ from typing import Any, Optional
 
 # Condition ops (reference: pql/token.go)
 ASSIGN, EQ, NEQ, LT, LTE, GT, GTE, BETWEEN = "=", "==", "!=", "<", "<=", ">", ">=", "><"
+
+# Mutating calls (WriteCallN, pql/ast.go:219).
+WRITE_CALLS = frozenset({"Set", "Clear", "ClearRow", "Store",
+                         "SetRowAttrs", "SetColumnAttrs"})
 
 
 class Condition:
@@ -175,8 +180,7 @@ class Query:
 
     def write_call_count(self) -> int:
         """Number of mutating calls (WriteCallN, pql/ast.go:219)."""
-        writes = {"Set", "Clear", "ClearRow", "Store", "SetRowAttrs", "SetColumnAttrs"}
-        return sum(1 for c in self.calls if c.name in writes)
+        return sum(1 for c in self.calls if c.name in WRITE_CALLS)
 
     def __repr__(self):
         return f"Query({self.calls!r})"

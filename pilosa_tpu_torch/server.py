@@ -10,7 +10,11 @@ sparse_threshold and run_threshold are the JAX server's [query]
 sparse-threshold and run-threshold (pilosa_tpu/server.py:245-260): rows
 with at most sparse_threshold bits in every shard load as sparse leaves,
 rows above it with at most run_threshold intervals as run leaves; 0
-disables a form.
+disables a form. plan ("on" | "off") and plan_cache_bytes (0: off) are
+its [query] plan and plan-cache-bytes (:84-85, :131-134, :235-244): the
+planner and the plan cache, on by default with a 256 MiB budget; the
+PILOSA_TPU_TORCH_PLANNER=0 and PILOSA_TPU_TORCH_PLAN_CACHE=0 switches win
+over them.
 
 Observability (pilosa_tpu/server.py:57, :118-137, :274-279, :392,
 :2095): the server owns the StatsClient and the Tracer it gives the
@@ -33,6 +37,7 @@ from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.parallel.residency import (
     DEFAULT_RUN_THRESHOLD,
     DEFAULT_SPARSE_THRESHOLD,
+    PlanCache,
 )
 from pilosa_tpu_torch.state import open_holder
 from pilosa_tpu_torch.utils import telemetry as _telemetry
@@ -59,12 +64,17 @@ class Server:
                  run_threshold: int = DEFAULT_RUN_THRESHOLD,
                  long_query_time: float = 0.0,
                  eviction: str = "lru",
-                 telemetry_interval: float = 5.0):
+                 telemetry_interval: float = 5.0,
+                 plan: str = "on",
+                 plan_cache_bytes: int = PlanCache.DEFAULT_BUDGET_BYTES):
         for name, value in (("sparse-threshold", sparse_threshold),
                             ("run-threshold", run_threshold)):
             if value < 0:
                 raise ValueError(f"invalid [query] {name} {value!r} "
                                  "(expected >= 0)")
+        if plan not in ("on", "off"):
+            raise ValueError(f"invalid [query] plan {plan!r} "
+                             "(expected on | off)")
         if eviction not in ("lru", "heat"):
             raise ValueError(f"invalid [storage] eviction {eviction!r} "
                              "(expected lru | heat)")
@@ -76,12 +86,15 @@ class Server:
         self.run_threshold = run_threshold
         self.long_query_time = long_query_time
         self.eviction = eviction
+        self.plan = plan
+        self.plan_cache_bytes = plan_cache_bytes
         self.stats = StatsClient()
         self.tracer = Tracer()
         self.telemetry = _telemetry.TelemetrySampler(
             interval=telemetry_interval, source=self.sample_gauges)
         self._telemetry_prev: tuple = (None, 0.0)
         self._last_hit_rate = 1.0  # carried through windows without lookups
+        self._last_plan_hit_rate = 0.0  # the plan cache starts cold
         self.holder = None
         self.executor = None
         self.api = None
@@ -94,6 +107,12 @@ class Server:
         self.executor.hybrid.threshold = self.sparse_threshold
         self.executor.hybrid.run_threshold = self.run_threshold
         self.executor.residency.eviction = self.eviction
+        if self.plan == "off":
+            self.executor.planner = None
+        if self.plan_cache_bytes <= 0:
+            self.executor.plan_cache = None
+        elif self.executor.plan_cache is not None:
+            self.executor.plan_cache.budget = self.plan_cache_bytes
         self.executor.stats = self.stats
         self.executor.tracer = self.tracer
         self.device_profiler = _telemetry.DeviceProfiler(
@@ -123,10 +142,11 @@ class Server:
 
     def sample_gauges(self) -> dict:
         """One telemetry tick (pilosa_tpu/server.py:2095, the parts the
-        port has): gauges of the residency, batchers, ingest, hybrid
-        leaves, heat map, kernels, device memory and the process, and
-        rates over the window since the previous tick. It also resolves
-        the finished kernel event pairs and ticks the heat map's ring."""
+        port has): gauges of the residency, plan cache, planner, batchers,
+        ingest, hybrid leaves, heat map, kernels, device memory and the
+        process, and rates over the window since the previous tick. It
+        also resolves the finished kernel event pairs and ticks the heat
+        map's ring."""
         now = time.monotonic()
         g: dict = {}
         raw: dict = {}
@@ -138,6 +158,19 @@ class Server:
         raw["residency.hits"] = res["hits"]
         raw["residency.lookups"] = res["hits"] + res["misses"]
         raw["residency.evictions"] = res["evictions"]
+        pc, pl = ex.plan_cache, ex.planner
+        if pc is not None:
+            cs = pc.snapshot()
+            g["plancache.bytes"] = float(cs["bytes"])
+            g["plancache.entries"] = float(cs["entries"])
+            raw["plancache.hits"] = cs["hits"]
+            raw["plancache.lookups"] = cs["hits"] + cs["misses"]
+            raw["plancache.evictions"] = cs["evictions"]
+        if pl is not None:
+            ps = pl.snapshot()
+            raw["planner.reorders"] = ps["reorders"]
+            raw["planner.pushdowns"] = ps["pushdowns"]
+            raw["planner.short_circuits"] = ps["shortCircuits"]
         if ex.heat is not None:
             hsum = ex.heat.sample_tick()
             g["heat.hot_fragments"] = float(hsum["hotFragments"])
@@ -198,6 +231,19 @@ class Server:
                                    / delta("residency.lookups"))
         g["residency.hit_rate"] = self._last_hit_rate
         g["residency.evictions_per_s"] = rate("residency.evictions")
+        if pc is not None:
+            # over the window, as the residency's: a lifetime ratio hides
+            # a cache that just began to thrash
+            if prev is not None and delta("plancache.lookups") > 0:
+                self._last_plan_hit_rate = (max(0.0, delta("plancache.hits"))
+                                            / delta("plancache.lookups"))
+            g["plancache.hit_rate"] = self._last_plan_hit_rate
+            g["plancache.evictions_per_s"] = rate("plancache.evictions")
+        if pl is not None:
+            g["planner.reorders_per_s"] = rate("planner.reorders")
+            g["planner.pushdowns_per_s"] = rate("planner.pushdowns")
+            g["planner.short_circuits_per_s"] = rate(
+                "planner.short_circuits")
         g["batcher.avg_wait_ms"] = (
             max(0.0, delta("batcher.wait_ms_total")) / delta("batcher.waited")
             if prev is not None and delta("batcher.waited") > 0 else 0.0)

@@ -4,10 +4,12 @@ Trimmed port of pilosa_tpu/utils/profile.py: QueryProfile (:60) rides a
 contextvar, and every layer a query passes appends its record: one per
 call (executor), the batched dispatch that served it with the batch size
 it shared and its wall-time share (parallel/batcher.py), residency hits,
-misses and host-to-device bytes (parallel/residency.py). to_dict() has
-the JAX package's keys; on one node `fanout`, `plan`, `route` and
-`remoteProfiles` stay empty, as they do in the JAX package without a
-cluster, planner or router. QueryHistory (:243) is the slow-query ring of
+misses and host-to-device bytes (parallel/residency.py), and the
+planner's node of each planned call (planner.py), into which the executor
+writes cache events, hybrid choices and the actual cardinality while the
+call runs. to_dict() has the JAX package's keys; on one node `fanout`,
+`route` and `remoteProfiles` stay empty, as they do in the JAX package
+without a cluster or router. QueryHistory (:243) is the slow-query ring of
 GET /debug/query-history.
 
 Disabled cost: one ContextVar.get() returning None per site.
@@ -38,7 +40,8 @@ class QueryProfile:
 
     __slots__ = ("trace_id", "node_id", "index", "pql", "start",
                  "start_wall", "elapsed_ms", "calls", "dispatches",
-                 "residency_hits", "residency_misses", "h2d_bytes", "_lock",
+                 "residency_hits", "residency_misses", "h2d_bytes", "plans",
+                 "_lock",
                  "_sealed", "_cached_dict")
 
     def __init__(self, trace_id: str = "", node_id: str = "",
@@ -57,6 +60,7 @@ class QueryProfile:
         self.residency_hits = 0
         self.residency_misses = 0
         self.h2d_bytes = 0
+        self.plans: list[dict] = []
         self._lock = threading.Lock()
 
     def record_call(self, name: str, ms: float) -> None:
@@ -77,6 +81,15 @@ class QueryProfile:
                 "batcher": batcher, "dispatch": seq,
                 "batchSize": batch_size, "wallMs": round(wall_ms, 3),
                 "shareMs": round(wall_ms / max(1, batch_size), 3)})
+
+    def record_plan(self, plan: dict) -> None:
+        """One planner node (planner.QueryPlanner.plan_call), appended by
+        reference: the executor fills it while the call runs, and
+        to_dict() serializes what it holds then (:156)."""
+        with self._lock:
+            if self._sealed:
+                return
+            self.plans.append(plan)
 
     def record_residency(self, hit: bool, nbytes: int = 0) -> None:
         with self._lock:
@@ -112,7 +125,7 @@ class QueryProfile:
                 "residency": {"hits": self.residency_hits,
                               "misses": self.residency_misses,
                               "hostToDeviceBytes": self.h2d_bytes},
-                "plan": [],
+                "plan": [dict(p) for p in self.plans],
                 "route": [],
                 "remoteProfiles": [],
             }

@@ -84,7 +84,26 @@ def test_dense_columns_roundtrip_matches_jax():
     cols = np.unique(rng.integers(0, 1 << 20, size=5000))
     dense = tbv.dense_from_columns(cols)
     np.testing.assert_array_equal(dense, jbv.dense_from_columns(cols))
-    np.testing.assert_array_equal(tbv.columns_from_dense(dense), cols)
+    np.testing.assert_array_equal(
+        tbv.columns_from_planes(_t(dense.reshape(1, -1)))[0], cols)
+
+
+@pytest.mark.parametrize("density", [0.0, 1e-5, 0.01, 0.9])
+def test_columns_from_planes_matches_jax_per_row(density):
+    """The Row result decode over nonzero words only gives each shard
+    row's columns as the JAX package's columns_from_dense does, empty
+    rows, bit 31 and full words included."""
+    rng = np.random.default_rng(int(density * 1e6))
+    planes = (rng.random((5, 32768 * 32)) < density)
+    planes = np.packbits(planes, axis=1, bitorder="little").view(np.uint32)
+    planes = planes.reshape(5, 32768).copy()
+    planes[1] = 0
+    planes[2, :3] = (0xFFFFFFFF, 0x80000000, 1)
+    got = tbv.columns_from_planes(_t(planes))
+    assert len(got) == 5
+    for row, cols in zip(planes, got):
+        np.testing.assert_array_equal(cols, jbv.columns_from_dense(row))
+        assert cols.dtype == np.int64
 
 
 # -- intersect_count ------------------------------------------------------------

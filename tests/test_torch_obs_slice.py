@@ -17,22 +17,24 @@ a per-bit write. Then:
     hits, misses and host-to-device bytes;
   * /debug/query-history fills, /debug/heat totals of reads and writes
     are equal, /debug/vars has the JAX block names;
-  * the kill switches PILOSA_TPU_TORCH_TELEMETRY=0 and
-    PILOSA_TPU_TORCH_HEAT=0 give the same answers and empty blocks.
+  * the kill switches PILOSA_TPU_TORCH_TELEMETRY=0,
+    PILOSA_TPU_TORCH_HEAT=0, PILOSA_TPU_TORCH_PLANNER=0 and
+    PILOSA_TPU_TORCH_PLAN_CACHE=0 give the same answers and empty blocks.
 
-The JAX server runs with its planner and plan cache off
-(PILOSA_TPU_PLANNER=0, PILOSA_TPU_PLAN_CACHE=0): the port has neither,
-and a plan-cache hit skips the leaf reads that the residency counters,
-the profiles and the heat map record. Answers are the same either way.
+Both servers run with their planner and plan cache on, as they do by
+default. A plan-cache hit reads no leaf and launches nothing, so the
+profile test checks the batchers' dispatch records with the cache off at
+run time (plan_cache.enabled, the planner still on), then the plan nodes
+with it on.
 """
 
 import http.client
 import json
-import os
 from urllib.parse import urlparse
 
 import numpy as np
 import pytest
+import torch
 
 from pilosa_tpu.server import Server as JaxServer
 from pilosa_tpu_torch.server import Server
@@ -150,18 +152,8 @@ def _mix() -> list:
 
 @pytest.fixture(scope="module")
 def servers(tmp_path_factory):
-    saved = {k: os.environ.get(k) for k in
-             ("PILOSA_TPU_PLANNER", "PILOSA_TPU_PLAN_CACHE")}
-    os.environ.update(PILOSA_TPU_PLANNER="0", PILOSA_TPU_PLAN_CACHE="0")
-    try:
-        jax_srv = JaxServer(str(tmp_path_factory.mktemp("jax")), port=0,
-                            long_query_time=1e-9).open()
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    jax_srv = JaxServer(str(tmp_path_factory.mktemp("jax")), port=0,
+                        long_query_time=1e-9).open()
     port_srv = Server(str(tmp_path_factory.mktemp("port")), port=0,
                       device="cpu", long_query_time=1e-9,
                       telemetry_interval=0.05).open()
@@ -242,9 +234,17 @@ def _profiled(srv, pql: str) -> dict:
 ])
 def test_profile_trees_match_jax(servers, pql, batcher):
     jax_srv, port_srv, _ = servers
-    for _ in range(2):  # cold, then warm leaves
-        j = _profiled(jax_srv, pql)
-        t = _profiled(port_srv, pql)
+    caches = [jax_srv.executor.plan_cache, port_srv.executor.plan_cache]
+    # cold, then warm leaves with the cache off; then twice with it on
+    for cache_on in (False, False, True, True):
+        for pc in caches:
+            pc.enabled = cache_on
+        try:
+            j = _profiled(jax_srv, pql)
+            t = _profiled(port_srv, pql)
+        finally:
+            for pc in caches:
+                pc.enabled = True
         assert t["results"] == j["results"]
         jp, tp = j["profile"], t["profile"]
         # "qos" is the JAX server's QoS plane, which the port has not
@@ -252,14 +252,25 @@ def test_profile_trees_match_jax(servers, pql, batcher):
         assert [c["call"] for c in tp["calls"]] == \
             [c["call"] for c in jp["calls"]]
         assert tp["residency"] == jp["residency"], pql
+        assert tp["plan"] == jp["plan"], pql
         assert [d["batcher"] for d in tp["dispatches"]] == \
             [d["batcher"] for d in jp["dispatches"]]
-        assert [d["batcher"] for d in tp["dispatches"]] == \
-            ([batcher] if batcher else [])
+        if not cache_on:
+            assert [d["batcher"] for d in tp["dispatches"]] == \
+                ([batcher] if batcher else [])
         assert tp["traceId"] and tp["index"] == "i"
         assert sum(c["ms"] for c in tp["calls"]) <= tp["elapsedMs"] + 1e-3
-    assert tp["residency"]["hits"] > 0 and tp["residency"]["misses"] == 0
+        if not cache_on:
+            warm = tp["residency"]
+    assert warm["hits"] > 0 and warm["misses"] == 0
+    assert warm["hostToDeviceBytes"] == 0
+    # warm, with the cache on: a cached answer reads no leaf at all
+    assert tp["residency"]["misses"] == 0
     assert tp["residency"]["hostToDeviceBytes"] == 0
+    events = tp["plan"][0]["cache"]
+    assert all(e["hit"] for e in events)
+    if events and pql.startswith(("Count", "Row")):
+        assert tp["residency"]["hits"] == 0 and tp["dispatches"] == []
 
 
 def test_query_history_and_trace_ids(servers):
@@ -311,7 +322,10 @@ def test_debug_vars_blocks(servers):
                   "heat"):
         assert set(t[block]) - {"streamTimes"} <= set(j[block]), block
     # each storage once: at most the entries' bytes, which count aliases
-    assert 0 < t["hbm"]["accountedBytes"] <= t["deviceResidency"]["bytes"]
+    assert 0 < t["hbm"]["accountedBytes"] <= \
+        t["deviceResidency"]["bytes"] + t["planCache"]["bytes"]
+    for block in ("planner", "planCache"):
+        assert set(t[block]) == set(j[block]), block
     assert t["hbm"]["allocator"] is None  # the CPU has no allocator view
     assert t["kernels"]["wait"]["batcher"]["waited"] > 0
     fams = {c["family"] for c in t["kernels"]["calls"]}
@@ -323,11 +337,20 @@ def test_debug_routes(servers):
     uri = port_srv.uri
     _, hbm = _call(uri, "GET", "/debug/hbm?top=2")
     assert len(hbm["byField"]) <= 2 and hbm["byFieldTruncated"]
-    # Range(v != null) is the not-null row, cached under both keys: its
-    # memory is accounted once
+    # Range(v != null) is the not-null row, cached under both keys, and a
+    # cached Row result may be its resident leaf: memory is accounted once
     _post(uri, "/index/i/query", "Count(Range(v != null))")
     _, hbm = _call(uri, "GET", "/debug/hbm")
-    assert hbm["accountedBytes"] < hbm["residentBytes"]
+    ex = port_srv.executor
+    held = list(ex.residency._lru.values())
+    held += [v for v, _ in ex.plan_cache._lru.values()
+             if isinstance(v, torch.Tensor)]
+    storages = {a.untyped_storage().data_ptr(): a.untyped_storage().nbytes()
+                for a in held}
+    assert len(storages) < len(held)
+    assert hbm["accountedBytes"] == sum(storages.values())
+    assert hbm["accountedBytes"] < hbm["residentBytes"] + \
+        hbm["planCacheBytes"]
     assert {e["rep"] for e in _call(uri, "GET", "/debug/hbm?top=0")[1][
         "byField"]} == {"dense", "sparse", "run"}
     _, ts = _call(uri, "GET", "/debug/timeseries")
@@ -350,10 +373,13 @@ def test_debug_routes(servers):
 
 
 @pytest.mark.parametrize("switch", ["PILOSA_TPU_TORCH_TELEMETRY",
-                                    "PILOSA_TPU_TORCH_HEAT"])
+                                    "PILOSA_TPU_TORCH_HEAT",
+                                    "PILOSA_TPU_TORCH_PLANNER",
+                                    "PILOSA_TPU_TORCH_PLAN_CACHE"])
 def test_kill_switches(servers, tmp_path, monkeypatch, switch):
     """With a switch off the answers stay the same and its surfaces go
-    empty: no heat map, or no samples and no kernel statistics."""
+    empty: no heat map, no samples and no kernel statistics, or no
+    planner or plan-cache block and family."""
     _, port_srv, answers = servers
     monkeypatch.setenv(switch, "0")
     srv = Server(str(tmp_path / "d"), port=0, device="cpu",
@@ -373,6 +399,15 @@ def test_kill_switches(servers, tmp_path, monkeypatch, switch):
             assert heat["enabled"] is False and heat["hot"] == []
             assert "heat" not in dv and srv.executor.heat is None
             assert "pilosa_heat_total" not in text
+        elif switch == "PILOSA_TPU_TORCH_PLANNER":
+            assert srv.executor.planner is None and "planner" not in dv
+            assert "pilosa_planner_total" not in text
+            assert dv["planCache"]["hits"] > 0
+        elif switch == "PILOSA_TPU_TORCH_PLAN_CACHE":
+            assert srv.executor.plan_cache is None and "planCache" not in dv
+            assert "pilosa_planCache_total" not in text
+            assert dv["planner"]["plans"] > 0
+            assert dv["hbm"]["planCacheBytes"] == 0
         else:
             assert ts["enabled"] is False and ts["samples"] == []
             assert dv["kernels"]["enabled"] is False
