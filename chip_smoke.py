@@ -45,7 +45,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    with filter=Range(v > 500); and three axes with limited Rows) checked
    against a numpy oracle; the cold first Src TopN (64 leaves of 128 MiB
    built from the host) and the cold first GroupBy (the 8 GiB rows slab)
-   timed apart from warm repeats; then 32 clients x 16 TopN(t, Row(f=a),
+   timed apart from warm repeats; then 32 clients x 8 TopN(t, Row(f=a),
    n=10) with varying a, every answer checked. Launch counts are zeroed
    before the phase: topn_counts_packed and cross_count_matrix must launch.
 5. Server, hybrid sparse/run path, on the same server and index (Pilosa's
@@ -84,12 +84,41 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    planCache equal /metrics planner_* and planCache_*. Launch counts are
    zeroed before the phase. Every other server pass runs with the plan
    cache off (Executor.plan_cache.enabled, the planner on) and says so.
+5d. Server, frozen bulk loads, on the same server, each configuration in
+   an index of its own loaded through Field.import_rows_frozen,
+   View.load_frozen_fragment or Field.import_values_frozen on the
+   server's holder, at the shapes of benches/scale_configs.py (BASELINE
+   configs 2-4) and examples/similarity.py, cut only in row, shard or
+   molecule counts (printed): config 2, 64 rows of 2000 bits and 1-bit
+   tail rows over 10K columns (10M rows of 100M), Count of Union,
+   Intersect, Xor and Difference, p50 of 9; config 3, a Zipf head of 50k
+   rows and a 1-bit tail striped over 8 shards (50M rows of 1B),
+   TopN(t, n=1000) exact with its p50 and topnRecountRows, Rows pages
+   with previous=; config 4, an int field 0..1023 on every column of 128
+   shards (of 953), Sum(Range), Min and Max with and without a filter,
+   then 32 clients x 16 Min(Range(v > x))/Max(Range(v < x)) through the
+   MinMaxBatcher with a device-profile capture (q/s, p50/p99, batches,
+   mean batch, bsi_sum_counts launches per batch, which must stay under
+   (D + 1) x queries); similarity, 500,000 molecules of 48 of 2048
+   fingerprint bits in families of 100 (75 % motif retention) with a rank
+   cache the size of the corpus, TopN(fingerprint, Row(fingerprint=7),
+   n=20) and tanimotoThreshold 90, 70, 50 exact against a numpy brute
+   force, through the sparse host walk (no topn_counts_packed launch,
+   every candidate recounted once); a small frozen field (3000 rows of 40
+   bits over 2 shards) where a Set into a candidate row sends the walk
+   down the dense path (topn_counts_packed launches, exact). /debug/vars
+   volatileFragments lists every frozen fragment with its mutations; the
+   similarity fragment, snapshotted and reopened, parses frozen, answers
+   the same and leaves the list. Per configuration: build seconds, bits,
+   host RSS (ru_maxrss), device bytes resident. The indexes are deleted
+   at the end (their host memory). Launch counts are zeroed before the
+   phase.
 6. Server, write path, on the same server and index (bench.py's ingest
    stage, bench.py:1824-1935, cut to a fixed length): 8 keep-alive writers
-   each send 40 envelopes of 500 calls, 80 % Set of a column of their own
+   each send 30 envelopes of 500 calls, 80 % Set of a column of their own
    (column % 8 = writer) anywhere in the 1024 shards on one of f rows 0-7
    (dense), s rows 1-8 (sparse, K = 16..2048) or r row 0 (run), 20 %
-   Clear of a (row, column) the writer set earlier: 160,000 mutations,
+   Clear of a (row, column) the writer set earlier: 120,000 mutations,
    served through the IngestBatcher, Fragment.apply_batch and the
    in-place patches of the resident leaves, while 32 clients run
    Count(Intersect(Row(f=a), Row(f=b))). Every changed flag is checked
@@ -130,7 +159,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    units, at every K the hybrid phase served and at K = 16384 (event,
    device and host times). Times by CUDA events (warm, median).
 8. The last lines: nvidia-smi's name and power limit, one JSON object with
-   a record per kernel (its launches summed over the six paths, with
+   a record per kernel (its launches summed over the seven paths, with
    launches_by_path beside; bsi_sum_counts adds its launches by form and
    the form the served shape takes; served_device_ms_p50 is its device
    ms as served, from the paths' device-profile captures, over
@@ -183,6 +212,17 @@ the observability layer: a checkout older than it no longer runs here).
 server (8 random planes; K = 8..4096 as the hybrid phase serves them, and
 16384) and prints their numbers as one JSON line. It calls only wrapper
 functions an older checkout also has, so a copy beside one times it too.
+
+    python3 chip_smoke.py --frozen-only         # phases 1 and 5d alone
+    python3 chip_smoke.py --frozen-scale 1.0    # ... at full sizes
+    python3 chip_smoke.py --frozen-scale 1.0 --frozen-configs 3
+
+--frozen-only runs phase 5d on a fresh server at its own cuts;
+--frozen-scale S at S of every configuration's full size (1.0: BASELINE's
+100M rows, 1B rows, 953 shards; the similarity corpus at 10 S of its
+500,000 molecules, at most all), and --frozen-configs picks among 2, 3, 4
+and sim. Both print the host's free memory first and the phase's
+numbers as one JSON line.
 
     python3 chip_smoke.py --ingest-only  # phases 1-2, then phase 6 on
                                          # s and r loaded without phase 5
@@ -251,7 +291,9 @@ SPARSE_SENTINEL = SHARD_WIDTH
 # the write phase (bench.py:1824-1827 and 1830-1935, cut to a fixed length)
 INGEST_WRITERS = 8      # keep-alive writer threads (bench.py:1824)
 INGEST_CALLS = 500      # Set/Clear calls per envelope (bench.py:1825)
-INGEST_ENVELOPES = 40   # envelopes per writer in the measured window
+# envelopes per writer in the measured window: 30 since phase 5d joined
+# the run (40 before), to keep the whole run inside its time limit
+INGEST_ENVELOPES = 30
 INGEST_TURN_ENVELOPES = 5  # per writer in each ingest on/off turn
 INGEST_READERS = 32     # Count(Intersect) clients during the window
 INGEST_S_ROWS = tuple(range(1, 9))  # rows of s written: K = 16..2048
@@ -262,7 +304,9 @@ SERVED_SPARSE_K = [8 << i for i in range(10)]
 SPARSE_EDGE_K = (1, 31, 33, 255, 257, 511, 513, 2049, 4097)
 TOPN_ROWS = 64  # rows of the set field t
 TOPN_BITS = 12000  # bits per shard of t's row 0; row r holds ~this/(r+1)
-TOPN_CLIENTS, TOPN_PER_CLIENT = 32, 16  # the TopN phase's concurrent pass
+# the TopN phase's concurrent pass: 8 per client since phase 5d joined the
+# run (16 before), to keep the whole run inside its time limit
+TOPN_CLIENTS, TOPN_PER_CLIENT = 32, 8
 BSI_DEPTH = 10  # the int field v: min 0, max 1023
 # int32 operations per plane word of the compare sweep (lt/gt: and, not,
 # or, xor, not, and) and of the sum (and, add; plus one __popc)
@@ -643,6 +687,47 @@ def program_kernel_phase(leaves: list, rates: tuple, runs: int) -> dict:
     log(f"  intersect_count: {rec['ms'] * 1e3:.1f} us, device "
         f"{_us(rec['device_ms'])} us, host {_us(rec['host_ms'])} us (bound "
         f"{b_ms * 1e3:.1f} us by {b_by}), exact")
+    return out
+
+
+def minmax_descent_phase(device, n_shards: int, words: int, k_served: int,
+                         seed: int, runs: int) -> dict:
+    """The MinMaxBatcher's batched descent (ops/bsi.py bsi_min_max_batched,
+    D + 1 bsi_sum_counts launches over one plane each) against its plain
+    version at depth 10, at the batch phase 5d served and at K = 32: exact,
+    with CUDA event ms beside the plain version's."""
+    import torch
+
+    from pilosa_tpu_torch.ops import bsi
+
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+
+    def rand(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int64,
+                             device=device, generator=gen).to(torch.int32)
+
+    planes = rand(BSI_DEPTH, n_shards, words)
+    out = {}
+    for k in sorted({max(1, k_served), 32}):
+        cands = list(rand(k, n_shards, words).unbind(0))
+        for is_min in (True, False):
+            got = bsi.bsi_min_max_batched(planes, cands, is_min)
+            want = bsi.bsi_min_max_batched_plain(planes, cands, is_min)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if err:
+                raise AssertionError(f"batched descent at K = {k} differs "
+                                     f"from its plain version ({err})")
+        ms = cuda_ms(lambda: bsi.bsi_min_max_batched(planes, cands, True),
+                     runs)
+        plain = cuda_ms(
+            lambda: bsi.bsi_min_max_batched_plain(planes, cands, True),
+            max(2, runs // 4))
+        out[k] = {"ms": ms, "plain_ms": plain, "max_abs_err": 0}
+        log(f"  batched Min/Max descent, K = {k}, depth {BSI_DEPTH}: exact "
+            f"against its plain version; {ms:.3f} ms a batch "
+            f"({ms / k:.3f} ms a query), plain {plain:.3f} ms")
+        del cands
     return out
 
 
@@ -2256,13 +2341,17 @@ SHORT_CAPTURE_S = 1.0  # on the BSI and hybrid paths (shorter passes)
 # 700.00 W) and launch in waves: a 1 s window opened after one wave's first
 # launch can close before the next wave. Six seconds hold at least two.
 TOPN_CAPTURE_S = 6.0
-COUNT_ROUND_QUERIES = 32  # per client in each telemetry on/off round
+# per client in each telemetry on/off round: 16 since phase 5d joined the
+# run (32 before), to keep the whole run inside its time limit
+COUNT_ROUND_QUERIES = 16
 # the Count pass's rounds: everything on, the heat map off, the kernel
 # statistics off, the telemetry sampler stopped, all off; three rounds of
 # each, in turn and back
 OBS_MODES = ("on", "heat_off", "kernel_stats_off", "sampler_off", "off")
 OBS_SWITCHES = OBS_MODES + OBS_MODES[::-1] + OBS_MODES
-SPILL_ROUND_QUERIES = 16  # per client in each heat on/off round of five
+# per client in each heat on/off round of five: 8 since phase 5d joined
+# the run (16 before), to keep the whole run inside its time limit
+SPILL_ROUND_QUERIES = 8
 SPILL_SWITCHES = ("on", "off", "off", "on", "on", "off")  # fields
 METRIC_LINE = None  # compiled at first use
 
@@ -2322,11 +2411,13 @@ def parse_metrics(text: str) -> tuple:
     return types, samples
 
 
-def profile_probe(port: int, pql: str, batcher, warm: bool = True) -> dict:
+def profile_probe(port: int, pql: str, batcher, warm: bool = True,
+                  index: str = "i") -> dict:
     """One ?profile=true query: its tree must hold a dispatch record of
     `batcher` (or none), residency hits and no host-to-device bytes on
     warm leaves, and calls that fit in the query's elapsed time."""
-    got = _http(port, "POST", "/index/i/query?profile=true", pql.encode())
+    got = _http(port, "POST", f"/index/{index}/query?profile=true",
+                pql.encode())
     prof = got["profile"]
     batchers = [d["batcher"] for d in prof["dispatches"]]
     if batchers != ([batcher] if batcher else []):
@@ -2574,7 +2665,7 @@ def obs_rounds(srv, run_clients) -> list:
 
 def concurrent_mix(port: int, clients: int, n_per_client: int,
                    queries: list, seed: int, during=None,
-                   dealt=None) -> tuple:
+                   dealt=None, index: str = "i") -> tuple:
     """clients threads x n_per_client queries drawn from (pql, answer)
     pairs over HTTP, or each client's own list of them in `dealt` ->
     (latencies, wall seconds, what during() gave while they ran); answers
@@ -2594,8 +2685,8 @@ def concurrent_mix(port: int, clients: int, n_per_client: int,
         try:
             for pql, want in mine:
                 t = time.perf_counter()
-                got = _http(port, "POST", "/index/i/query", pql.encode(),
-                            conn)["results"][0]
+                got = _http(port, "POST", f"/index/{index}/query",
+                            pql.encode(), conn)["results"][0]
                 with lock:
                     lat.append(time.perf_counter() - t)
                     if got != want:
@@ -3085,18 +3176,521 @@ def planner_phase(srv, port: int, packed: list, rows: list, s_rows: list,
     return {"launches": launches, "stats": stats, "obs": obs}
 
 
+# ------------------------------------------------------ phase 5d: frozen
+
+# BASELINE.json's configurations 2-4 (benches/scale_configs.py) and the
+# chemical-similarity showcase (examples/similarity.py), and what phase 5d
+# loads of each by default: only row, shard or molecule counts are cut,
+# never a shape (shard width 2^20, depth 10, the distributions)
+FROZEN_FULL = {"c2_rows": 100_000_000, "c3_rows": 1_000_000_000,
+               "c4_shards": 953, "sim_molecules": 500_000}
+FROZEN_CUTS = {"c2_rows": 10_000_000, "c3_rows": 50_000_000,
+               "c4_shards": 128, "sim_molecules": 500_000}
+FROZEN_CONFIGS = ("2", "3", "4", "sim")
+C2_COLS, C2_HEAD, C2_HEAD_BITS = 10_000, 64, 2000  # scale_configs.py:65-113
+C3_SHARDS, C3_HEAD, C3_HEAD_CAP = 8, 50_000, 2000  # :115-194
+C3_TOPN = 1000
+C4_DEPTH_MAX = 1023  # :197-240, values uniform in 0..1023
+FP_BITS, FP_PER_MOL, FP_FAMILY = 2048, 48, 100  # examples/similarity.py
+FP_KEEP = 0.75
+FP_QUERY = 7
+FP_THRESHOLDS = (90, 70, 50)
+FZ_ROWS, FZ_BITS = 3000, 40  # tests/test_topn.py:245-285
+MINMAX_CLIENTS, MINMAX_PER_CLIENT = 32, 16
+FROZEN_REPEATS = 9  # timed repeats of each query (scale_configs.py: 9)
+
+
+def _rss_bytes() -> int:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _top_pairs(ids: np.ndarray, counts: np.ndarray, n) -> list:
+    """[[id, count]] of the nonzero counts, count desc then id asc, at
+    most n (the JSON of TopN's Pairs)."""
+    keep = counts > 0
+    ids, counts = ids[keep], counts[keep]
+    order = np.lexsort((ids, -counts))
+    if n:
+        order = order[:n]
+    return [{"id": int(i), "count": int(c)}
+            for i, c in zip(ids[order], counts[order])]
+
+
+def _p50_ms(fn, runs: int = FROZEN_REPEATS) -> float:
+    samples = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        samples.append(time.perf_counter() - t)
+    return statistics.median(samples) * 1e3
+
+
+def frozen_phase(srv, port: int, cuts: dict, configs, seed: int,
+                 clients: int = MINMAX_CLIENTS,
+                 per_client: int = MINMAX_PER_CLIENT) -> dict:
+    """Phase 5d: the frozen bulk loads on the running server's holder, each
+    configuration in an index of its own, queried over HTTP and checked
+    exactly against numpy oracles built from the generated arrays; the
+    sparse Src TopN walk; concurrent Min/Max through the MinMaxBatcher
+    with a device-profile capture; the volatility contract. Its own launch
+    counts (zeroed before its first load, read after its last query)."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.storage import frozen as tfrozen
+
+    t_phase = time.perf_counter()
+    start_window()  # the frozen path starts here
+    ex = srv.executor
+    holder = srv.holder
+    stats: dict = {"cuts": {k: {"loaded": cuts[k], "full": FROZEN_FULL[k]}
+                            for k in cuts}}
+    cut_text = ", ".join(
+        f"{k} {cuts[k]:,} of {FROZEN_FULL[k]:,}" for k in cuts
+        if cuts[k] != FROZEN_FULL[k]) or "none"
+    log(f"  cuts (row, shard or molecule counts only): {cut_text}")
+    rng = np.random.default_rng(seed + 5)
+    made = []
+    clock = [time.perf_counter()]  # when the configuration under way began
+
+    def index(name: str, fields: list) -> None:
+        clock[0] = time.perf_counter()
+        _http(port, "POST", f"/index/{name}",
+              json.dumps({"options": {"trackExistence": False}}).encode())
+        for fname, opts in fields:
+            _http(port, "POST", f"/index/{name}/field/{fname}",
+                  json.dumps({"options": opts}).encode())
+        made.append(name)
+
+    def query(name: str, pql: str):
+        return _http(port, "POST", f"/index/{name}/query",
+                     pql.encode())["results"][0]
+
+    def check(name: str, pql: str, want):
+        got = query(name, pql)
+        if got != want:
+            raise AssertionError(f"{name} {pql}: port {str(got)[:300]} != "
+                                 f"oracle {str(want)[:300]}")
+        return got
+
+    def resident() -> int:
+        return ex.residency.snapshot()["bytes"]
+
+    def loaded(key: str, build_s: float, bits: int) -> dict:
+        rec = {"build_s": build_s, "bits": bits, "rss_bytes": _rss_bytes()}
+        log(f"  {key}: built in {build_s:.1f} s, {bits:,} bits, host RSS "
+            f"{rec['rss_bytes']:,} bytes (ru_maxrss, the process's peak)")
+        return rec
+
+    def queried(key: str, rec: dict, res0: int) -> None:
+        """The device bytes the configuration's queries left resident, and
+        its seconds, oracles included."""
+        rec["device_resident_bytes"] = resident() - res0
+        rec["config_s"] = time.perf_counter() - clock[0]
+        log(f"  {key}: {rec['device_resident_bytes']:,} device bytes "
+            f"resident after its queries; {rec['config_s']:.1f} s in all")
+
+    # -- config 2: a set field of many 1-bit rows and 64 heavy rows -------
+    if "2" in configs:
+        res0 = resident()
+        index("c2", [("f", {"type": "set"})])
+        t0 = time.perf_counter()
+        n_rows = cuts["c2_rows"]
+        head_rows = np.repeat(np.arange(C2_HEAD, dtype=np.uint64),
+                              C2_HEAD_BITS)
+        head_cols = rng.integers(0, C2_COLS, head_rows.size).astype(np.uint64)
+        tail_rows = np.arange(C2_HEAD, n_rows, dtype=np.uint64)
+        tail_cols = rng.integers(0, C2_COLS, tail_rows.size).astype(np.uint64)
+        holder.index("c2").field("f").import_rows_frozen(
+            np.concatenate([head_rows, tail_rows]),
+            np.concatenate([head_cols, tail_cols]))
+        build_s = time.perf_counter() - t0
+        del tail_rows, tail_cols
+        rec = loaded("config 2", build_s, int(head_rows.size) + n_rows
+                     - C2_HEAD)
+        sets = [np.unique(head_cols[head_rows == r]) for r in (0, 1)]
+        want = {"Union": np.union1d(*sets).size,
+                "Intersect": np.intersect1d(*sets).size,
+                "Xor": np.setxor1d(*sets).size,
+                "Difference": np.setdiff1d(*sets).size}
+        rec["p50_ms"] = {}
+        for op, n in want.items():
+            pql = f"Count({op}(Row(f=0), Row(f=1)))"
+            check("c2", pql, int(n))
+            rec["p50_ms"][op] = _p50_ms(lambda: check("c2", pql, int(n)))
+        check("c2", f"Count(Row(f={n_rows - 1}))", 1)
+        log(f"  config 2 ({n_rows:,} rows x {C2_COLS:,} columns): Count of "
+            f"Union/Intersect/Xor/Difference exact, p50 ms "
+            f"{rec['p50_ms']}")
+        queried("config 2", rec, res0)
+        stats["config2"] = rec
+
+    # -- config 3: TopN over a Zipf head and a 1-bit tail ------------------
+    if "3" in configs:
+        res0 = resident()
+        index("c3", [("t", {"type": "set"})])
+        t0 = time.perf_counter()
+        n_rows = cuts["c3_rows"]
+        head_n = np.maximum(np.minimum(
+            C3_HEAD_CAP, n_rows // (10 * (np.arange(C3_HEAD) + 1))), 1)
+        head_rows_all = np.repeat(np.arange(C3_HEAD, dtype=np.uint64), head_n)
+        t_field = holder.index("c3").field("t")
+        view = t_field.create_view_if_not_exists("standard")
+        w = np.uint64(SHARD_WIDTH)
+
+        def shard(s: int) -> tuple:
+            """Generate and load one shard (each its own generator, so the
+            shards build in parallel); its head rows' counts and bits."""
+            r = np.random.default_rng([seed, 3, s])
+            h_rows = head_rows_all[r.integers(0, C3_SHARDS,
+                                              head_rows_all.size) == s]
+            h_cols = r.integers(0, SHARD_WIDTH, h_rows.size).astype(
+                np.uint64)
+            head_pos = np.unique(h_rows * w + h_cols)
+            del h_rows, h_cols
+            t_rows = np.arange(C3_HEAD + s, n_rows, C3_SHARDS,
+                               dtype=np.uint64)
+            t_pos = t_rows * w + r.integers(0, SHARD_WIDTH, t_rows.size
+                                            ).astype(np.uint64)
+            del t_rows
+            # the tail rows follow the head's: sorted and unique as is
+            positions = np.concatenate([head_pos, t_pos])
+            del t_pos
+            view.load_frozen_fragment(s, positions, presorted=True)
+            return (np.bincount((head_pos // w).astype(np.int64),
+                                minlength=C3_HEAD), positions.size)
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        # a shard's build holds several transient arrays of 8 bytes a row:
+        # all 8 shards at once at the cut's 50M rows, 2 at 1B rows
+        workers = max(2, min(C3_SHARDS, 400_000_000 // n_rows))
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            built = list(pool.map(shard, range(C3_SHARDS)))
+        t_field.add_available_shards(list(range(C3_SHARDS)))
+        head_counts = sum(b[0] for b in built)
+        n_bits = sum(b[1] for b in built)
+        build_s = time.perf_counter() - t0
+        del head_rows_all
+        rec = loaded("config 3", build_s, n_bits)
+        want = _top_pairs(np.arange(C3_HEAD), head_counts, C3_TOPN)
+        r0 = ex.topn_recount_rows
+        check("c3", f"TopN(t, n={C3_TOPN})", want)
+        rec["topn_p50_ms"] = _p50_ms(
+            lambda: check("c3", f"TopN(t, n={C3_TOPN})", want))
+        rec["topn_recount_rows"] = ex.topn_recount_rows - r0
+        if rec["topn_recount_rows"] >= n_rows // 1000:
+            raise AssertionError(f"TopN recounted {rec['topn_recount_rows']} "
+                                 f"of {n_rows} rows")
+        # every tail row holds a bit; a head row only where one of its
+        # bits was drawn for some shard
+        present = np.flatnonzero(head_counts)
+
+        def rows_after(p: int) -> dict:
+            head = present[present > p][:100].tolist()
+            tail = range(max(p + 1, C3_HEAD), n_rows)
+            return {"rows": (head + list(tail[:100 - len(head)]))}
+
+        check("c3", "Rows(field=t, limit=100)", rows_after(-1))
+        pages = iter(range(FROZEN_REPEATS * 2))
+
+        def page():
+            p = next(pages) * 997
+            check("c3", f"Rows(field=t, previous={p}, limit=100)",
+                  rows_after(p))
+
+        page()
+        rec["rows_page100_p50_ms"] = _p50_ms(page)
+        log(f"  config 3 ({n_rows:,} rows over {C3_SHARDS} shards): "
+            f"TopN(t, n={C3_TOPN}) exact, p50 {rec['topn_p50_ms']:.3f} ms, "
+            f"topnRecountRows {rec['topn_recount_rows']}; Rows(field=t, "
+            f"limit=100) and previous= pages exact, p50 "
+            f"{rec['rows_page100_p50_ms']:.3f} ms")
+        queried("config 3", rec, res0)
+        stats["config3"] = rec
+
+    # -- config 4: an int field on every column, Min/Max batched -----------
+    if "4" in configs:
+        res0 = resident()
+        index("c4", [("v", {"type": "int", "min": 0,
+                            "max": C4_DEPTH_MAX})])
+        t0 = time.perf_counter()
+        n_shards = cuts["c4_shards"]
+        v_field = holder.index("c4").field("v")
+        hist = np.zeros(C4_DEPTH_MAX + 1, dtype=np.int64)
+        chunk = 16 * SHARD_WIDTH
+        for lo in range(0, n_shards * SHARD_WIDTH, chunk):
+            hi = min(lo + chunk, n_shards * SHARD_WIDTH)
+            vals = rng.integers(0, C4_DEPTH_MAX + 1, hi - lo)
+            v_field.import_values_frozen(np.arange(lo, hi, dtype=np.uint64),
+                                         vals)
+            hist += np.bincount(vals, minlength=C4_DEPTH_MAX + 1)
+            del vals
+        build_s = time.perf_counter() - t0
+        depth = v_field.bit_depth
+        rec = loaded("config 4", build_s,
+                     int(sum(int(h) * bin(v).count("1")
+                             for v, h in enumerate(hist)) + hist.sum()))
+        vals_all = np.arange(C4_DEPTH_MAX + 1)
+
+        def vc_sum(sel) -> dict:
+            return {"value": int((vals_all[sel] * hist[sel]).sum()),
+                    "count": int(hist[sel].sum())}
+
+        def vc_ext(sel, is_min: bool) -> dict:
+            have = np.flatnonzero(sel & (hist > 0))
+            if not have.size:
+                return {"value": 0, "count": 0}
+            v = int(have[0] if is_min else have[-1])
+            return {"value": v, "count": int(hist[v])}
+
+        every = np.ones(hist.size, dtype=bool)
+        check("c4", "Sum(field=v)", vc_sum(every))
+        rec["sum_range_p50_ms"] = {}
+        for x in (255, 511, 900):
+            pql = f"Sum(Range(v > {x}), field=v)"
+            check("c4", pql, vc_sum(vals_all > x))
+            rec["sum_range_p50_ms"][x] = _p50_ms(
+                lambda: check("c4", pql, vc_sum(vals_all > x)))
+        for is_min in (True, False):
+            agg = "Min" if is_min else "Max"
+            check("c4", f"{agg}(field=v)", vc_ext(every, is_min))
+            for x in (100, 700):
+                check("c4", f"{agg}(Range(v > {x}), field=v)",
+                      vc_ext(vals_all > x, is_min))
+                check("c4", f"{agg}(Range(v < {x}), field=v)",
+                      vc_ext(vals_all < x, is_min))
+        # the concurrent pass: Min(Range(v > x)) and Max(Range(v < x))
+        mix = []
+        for x in range(0, C4_DEPTH_MAX + 1, 8):
+            mix.append((f"Min(Range(v > {x}), field=v)",
+                        vc_ext(vals_all > x, True)))
+            mix.append((f"Max(Range(v < {x}), field=v)",
+                        vc_ext(vals_all < x, False)))
+        mm = ex.minmax_batcher
+        snap0 = mm.snapshot()
+        l0 = kernels.launch_counts()
+        lat, wall, obs = concurrent_mix(
+            port, clients, per_client, mix, seed + 4000,
+            lambda: during_pass(port, ("Min(Range(v > 300), field=v)",
+                                       "MinMaxBatcher", True, "c4"),
+                                SHORT_CAPTURE_S), index="c4")
+        torch.cuda.synchronize()
+        l1 = kernels.launch_counts()
+        snap1 = mm.snapshot()
+        batches = snap1["batches"] - snap0["batches"]
+        queries = snap1["batched_queries"] - snap0["batched_queries"]
+        descent = l1["bsi_sum_counts"] - l0["bsi_sum_counts"]
+        p50, p99 = _percentiles(lat)
+        rec["minmax"] = {
+            "queries": len(lat), "qps": len(lat) / wall, "p50_ms": p50,
+            "p99_ms": p99, "batches": batches, "batched_queries": queries,
+            "mean_batch": queries / max(batches, 1),
+            "descent_launches": descent,
+            "descent_launches_per_batch": descent / max(batches, 1),
+            "unbatched_launches": (depth + 1) * queries,
+            "capture": obs["capture"]}
+        log(f"  config 4 ({n_shards} shards, {n_shards * SHARD_WIDTH:,} "
+            f"columns, depth {depth}): Sum/Min/Max with and without a "
+            f"filter exact; Sum(Range) p50 ms {rec['sum_range_p50_ms']}")
+        log(f"  concurrent: {clients} clients x {per_client} Min(Range(v > "
+            f"x))/Max(Range(v < x)), plan cache off: "
+            f"{rec['minmax']['qps']:.1f} q/s, p50 {p50:.2f} ms, p99 "
+            f"{p99:.2f} ms; minMaxBatcher {batches} batches, mean batch "
+            f"{rec['minmax']['mean_batch']:.2f}; bsi_sum_counts (the "
+            f"descent's kernel) {descent} launches, "
+            f"{rec['minmax']['descent_launches_per_batch']:.2f} a batch, "
+            f"against (D + 1) x queries = {(depth + 1) * queries} one "
+            f"query at a time")
+        if queries < len(lat) or descent >= (depth + 1) * queries:
+            raise AssertionError(f"the Min/Max pass did not batch: "
+                                 f"{queries} queries batched of {len(lat)}, "
+                                 f"{descent} descent launches")
+        queried("config 4", rec, res0)
+        stats["config4"] = rec
+        phase_obs = obs
+    else:
+        phase_obs = None
+
+    # -- similarity: the sparse Src TopN walk ------------------------------
+    if "sim" in configs:
+        res0 = resident()
+        n = cuts["sim_molecules"]
+        index("sim", [("fingerprint", {"type": "set", "cacheSize": n})])
+        t0 = time.perf_counter()
+        n_fam = max(n // FP_FAMILY, 1)
+        motifs = np.argsort(rng.random((n_fam, FP_BITS)),
+                            axis=1)[:, :FP_PER_MOL]
+        keep = rng.random((n, FP_PER_MOL)) < FP_KEEP
+        noise = rng.integers(0, FP_BITS, (n, FP_PER_MOL))
+        bits = np.where(keep, motifs[np.arange(n) % n_fam], noise)
+        del keep, noise, motifs
+        rows = np.repeat(np.arange(n, dtype=np.uint64), FP_PER_MOL)
+        fp = holder.index("sim").field("fingerprint")
+        fp.import_rows_frozen(rows, bits.reshape(-1).astype(np.uint64))
+        build_s = time.perf_counter() - t0
+        pos = np.unique(rows * np.uint64(SHARD_WIDTH)
+                        + bits.reshape(-1).astype(np.uint64))
+        del rows, bits
+        mol = (pos // np.uint64(SHARD_WIDTH)).astype(np.int64)
+        col = (pos % np.uint64(SHARD_WIDTH)).astype(np.int64)
+        rec = loaded("similarity", build_s, int(pos.size))
+        sizes = np.bincount(mol, minlength=n)
+        ids = np.arange(n)
+
+        src = col[mol == FP_QUERY]
+        inter_all = np.bincount(mol, weights=np.isin(col, src),
+                                minlength=n).astype(np.int64)
+
+        def oracle(thr: int) -> tuple:
+            inter = inter_all
+            cand = np.ones(n, dtype=bool)
+            if thr:
+                lo, hi = src.size * thr / 100, src.size * 100 / thr
+                cand = (sizes > lo) & (sizes < hi)
+                inter = np.where(
+                    cand & (100 * inter > thr * (sizes + src.size - inter)),
+                    inter, 0)
+            return _top_pairs(ids, np.where(cand, inter, 0), 20), \
+                int(cand.sum())
+
+        rec["topn"] = {}
+        for thr in (0, *FP_THRESHOLDS):
+            pql = (f"TopN(fingerprint, Row(fingerprint={FP_QUERY}), n=20"
+                   + (f", tanimotoThreshold={thr})" if thr else ")"))
+            want, n_cand = oracle(thr)
+            l0, r0 = kernels.launch_counts(), ex.topn_recount_rows
+            t = time.perf_counter()
+            check("sim", pql, want)
+            times = [time.perf_counter() - t]
+            l1, r1 = kernels.launch_counts(), ex.topn_recount_rows
+            if l1["topn_counts_packed"] != l0["topn_counts_packed"]:
+                raise AssertionError(f"{pql} launched topn_counts_packed: "
+                                     "the sparse walk was not taken")
+            if r1 - r0 != n_cand:
+                raise AssertionError(f"{pql} recounted {r1 - r0} rows, "
+                                     f"{n_cand} candidates")
+            for _ in range(0 if thr else 2):  # the base query's p50 of 3
+                t = time.perf_counter()
+                check("sim", pql, want)
+                times.append(time.perf_counter() - t)
+            p50 = statistics.median(times) * 1e3
+            rec["topn"][thr] = {"hits": len(want), "candidates": n_cand,
+                                "first_ms": times[0] * 1e3, "p50_ms": p50,
+                                "runs": len(times), "top": want[:3]}
+            log(f"  {pql}: {len(want)} hits exact against the brute force, "
+                f"{n_cand} candidates each recounted once on the host, no "
+                f"topn_counts_packed launch; first {times[0] * 1e3:.1f} ms, "
+                f"p50 {p50:.1f} ms ({len(times)} runs)")
+        queried("similarity", rec, res0)
+        stats["similarity"] = rec
+
+    # -- the dense fallback: a Set into a frozen candidate row ------------
+    index("fz", [("fz", {"type": "set", "cacheSize": 5000})])
+    sets, rows_l, cols_l = {}, [], []
+    for r in range(FZ_ROWS):
+        c = np.unique(rng.integers(0, 2 * SHARD_WIDTH, FZ_BITS))
+        sets[r] = c
+        rows_l.append(np.full(c.size, r, dtype=np.uint64))
+        cols_l.append(c.astype(np.uint64))
+    holder.index("fz").field("fz").import_rows_frozen(
+        np.concatenate(rows_l), np.concatenate(cols_l))
+    extra = 2 * SHARD_WIDTH - 1
+    _http(port, "POST", "/index/fz/query", f"Set({extra}, fz=7)".encode())
+    sets[7] = np.union1d(sets[7], [extra])
+    inter = np.array([np.intersect1d(sets[r], sets[7]).size
+                      for r in range(FZ_ROWS)])
+    l0 = kernels.launch_counts()
+    check("fz", "TopN(fz, Row(fz=7), n=15)",
+          _top_pairs(np.arange(FZ_ROWS), inter, 15))
+    fell_back = (kernels.launch_counts()["topn_counts_packed"]
+                 - l0["topn_counts_packed"])
+    if fell_back < 1:
+        raise AssertionError("the walk after a Set into a frozen candidate "
+                             "row launched no topn_counts_packed")
+    log(f"  fallback: after Set({extra}, fz=7) into a frozen candidate "
+        f"row, TopN(fz, Row(fz=7), n=15) walks densely: exact, "
+        f"{fell_back} topn_counts_packed launches")
+    stats["fallback_launches"] = fell_back
+    stats["fallback_s"] = time.perf_counter() - clock[0]
+
+    # -- volatility ---------------------------------------------------------
+    dv = _http(port, "GET", "/debug/vars")
+    vol = {(v["index"], v["field"], v["view"], v["shard"]): v["mutations"]
+           for v in dv.get("volatileFragments", [])}
+    frozen_frags = {(i, f, v, s): fr.volatile_mutations
+                    for i, f, v, s, fr in holder.walk_fragments()
+                    if i in made}
+    if vol != frozen_frags or vol.get(("fz", "fz", "standard", 1)) != 1:
+        raise AssertionError(f"volatileFragments {len(vol)} entries, "
+                             f"{len(frozen_frags)} frozen fragments loaded")
+    log(f"  volatileFragments: {len(vol)} frozen fragments, mutations "
+        f"{sum(vol.values())} (the fallback's Set)")
+    if "sim" in configs:
+        frag = holder.index("sim").field("fingerprint").view(
+            "standard").fragment(0)
+        pql = (f"TopN(fingerprint, Row(fingerprint={FP_QUERY}), n=20, "
+               f"tanimotoThreshold={FP_THRESHOLDS[-1]})")
+        want = query("sim", pql)
+        t0 = time.perf_counter()
+        frag.snapshot()
+        snap_s = time.perf_counter() - t0
+        n_containers = len(frag.storage.containers)
+        frag.close()
+        t0 = time.perf_counter()
+        frag.open()
+        open_s = time.perf_counter() - t0
+        # a file of FROZEN_PARSE_MIN containers or more parses frozen (the
+        # full corpus holds one container per molecule)
+        parsed_frozen = isinstance(frag.storage.containers,
+                                   tfrozen.FrozenContainers)
+        if parsed_frozen != (n_containers >= tfrozen.FROZEN_PARSE_MIN):
+            raise AssertionError(f"{n_containers} containers reopened "
+                                 f"frozen={parsed_frozen}")
+        check("sim", pql, want)
+        dv = _http(port, "GET", "/debug/vars")
+        if any(v["index"] == "sim" for v in dv.get("volatileFragments", [])):
+            raise AssertionError("a snapshotted fragment is still volatile")
+        stats["similarity"]["snapshot"] = {
+            "snapshot_s": snap_s, "open_s": open_s,
+            "file_bytes": os.path.getsize(frag.path),
+            "containers": n_containers, "frozen_parse": parsed_frozen}
+        log(f"  similarity fragment snapshotted in {snap_s:.2f} s "
+            f"({os.path.getsize(frag.path):,} bytes, {n_containers:,} "
+            f"containers), reopened in {open_s:.2f} s "
+            + ("through the frozen parse" if parsed_frozen else
+               "into a dict store (under FROZEN_PARSE_MIN)")
+            + ": same answer, no longer in volatileFragments")
+
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()  # the frozen path ends here
+    obs = phase_obs if phase_obs is not None else {}
+    obs["scrape"] = observe_path(port, "frozen", launches)
+    log(f"  launches on the frozen path: {launches}")
+    for name in made:
+        holder.delete_index(name)  # the host memory of the loads
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"  frozen phase: {stats['phase_s']:.1f} s")
+    return {"launches": launches, "stats": stats, "obs": obs}
+
+
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
                  clients: int, per_client: int, profile: bool,
                  bsi: tuple, topn: tuple, hybrid: tuple, ingest: tuple,
-                 count_only: bool = False, ingest_only: bool = False) -> dict:
+                 count_only: bool = False, ingest_only: bool = False,
+                 frozen: tuple = (FROZEN_CUTS, FROZEN_CONFIGS)) -> dict:
     """The Count path, then (unless count_only or ingest_only) the BSI
-    path, the TopN/GroupBy path and the hybrid path, then (unless
-    count_only) the write path, on the same server and index (bsi = values
-    per shard, seed, clients, queries per client; topn = bits per shard of
-    t's row 0, seed, clients, queries per client; hybrid = seed, clients,
-    queries per client; ingest = writers, envelopes per writer, calls per
-    envelope, readers, envelopes per writer in each on/off turn).
-    ingest_only loads s and r without the hybrid phase's checks."""
+    path, the TopN/GroupBy path, the hybrid path, the planner and the
+    frozen loads, then (unless count_only) the write path, on the same
+    server (bsi = values per shard, seed, clients, queries per client;
+    topn = bits per shard of t's row 0, seed, clients, queries per client;
+    hybrid = seed, clients, queries per client; ingest = writers,
+    envelopes per writer, calls per envelope, readers, envelopes per
+    writer in each on/off turn; frozen = phase 5d's cuts and
+    configurations). ingest_only loads s and r without the hybrid phase's
+    checks."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels
@@ -3306,6 +3900,8 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                     "server")
                 out["planner"] = planner_phase(srv, port, p, rows, s_rows,
                                                pair, n_shards, clients, seed)
+                log("phase 5d: frozen bulk loads on the same server")
+                out["frozen"] = frozen_phase(srv, port, *frozen, seed)
             log("phase 6: write path (coalesced Set/Clear) on the same "
                 "server, under concurrent reads")
             out["ingest"] = ingest_phase(srv, port, p, exists_all, s_rows,
@@ -3336,7 +3932,9 @@ def served_times(name: str, paths: dict) -> dict:
     path."""
     dev, seen = None, 0
     for p in paths.values():
-        cap = p["obs"]["capture"]
+        cap = p["obs"].get("capture")
+        if cap is None:  # a path without a concurrent pass
+            continue
         for k in DEVICE_NAMES[name]:
             if cap["kernels"].get(k, 0) > seen:
                 seen, dev = cap["kernels"][k], cap["kernelMs"][k]["p50Ms"]
@@ -3362,6 +3960,8 @@ def obs_summary(paths: dict, touch: dict, spill: dict) -> dict:
            "spill_rounds": spill}
     for name, p in paths.items():
         o = p["obs"]
+        if "capture" not in o:
+            continue
         out[name] = {"capture": o["capture"],
                      "profile": {k: o["profile"][k] for k in
                                  ("pql", "elapsedMs", "residency")},
@@ -3371,6 +3971,35 @@ def obs_summary(paths: dict, touch: dict, spill: dict) -> dict:
                      "hbm_drift_bytes": o["scrape"]["hbm_drift_bytes"],
                      "heat_totals": o["scrape"]["heat_totals"]}
     return out
+
+
+def frozen_only(device, scale, configs, seed: int) -> dict:
+    """Phase 5d alone on a fresh server: at its own cuts (scale None), or
+    every configuration at `scale` of its full size (the similarity corpus
+    at ten times that share, at most its full 500,000 molecules)."""
+    from pilosa_tpu_torch.server import Server
+
+    if scale is None:
+        cuts = dict(FROZEN_CUTS)
+    else:
+        cuts = {k: max(1, int(round(v * scale)))
+                for k, v in FROZEN_FULL.items()}
+        cuts["c2_rows"] = max(cuts["c2_rows"], 2 * C2_HEAD)
+        cuts["c3_rows"] = max(cuts["c3_rows"], 2 * C3_HEAD)
+        cuts["sim_molecules"] = min(FROZEN_FULL["sim_molecules"], max(
+            1000, int(FROZEN_FULL["sim_molecules"] * scale * 10)))
+    free = subprocess.run(["free", "-g"], capture_output=True,
+                          text=True).stdout
+    log(f"phase 5d alone at scale {scale}: {cuts}; host memory (free -g):"
+        f"\n{free}")
+    with tempfile.TemporaryDirectory(prefix="pilosa_torch_frozen_") as tmp:
+        srv = Server(os.path.join(tmp, "data"), port=0, device=device).open()
+        srv.executor.plan_cache.enabled = False
+        try:
+            out = frozen_phase(srv, srv.http.port, cuts, configs, seed)
+        finally:
+            srv.close()
+    return {"scale": scale, "launches": out["launches"], **out["stats"]}
 
 
 # -------------------------------------------------------------------- main
@@ -3398,6 +4027,16 @@ def main(argv=None) -> int:
     ap.add_argument("--ingest-only", action="store_true",
                     help="drive the Count path's import and the write path "
                          "alone and print the write path's numbers")
+    ap.add_argument("--frozen-only", action="store_true",
+                    help="run phases 1 and 5d alone at phase 5d's own cuts "
+                         "and print their numbers")
+    ap.add_argument("--frozen-scale", type=float, default=None,
+                    help="run phases 1 and 5d alone, every configuration "
+                         "at this share of its full size (1.0: the "
+                         "BASELINE's sizes), and print their numbers")
+    ap.add_argument("--frozen-configs", default=",".join(FROZEN_CONFIGS),
+                    help="phase 5d's configurations, comma-separated, of "
+                         + ", ".join(FROZEN_CONFIGS))
     ap.add_argument("--kernel-times", action="store_true",
                     help="time program_count, intersect_count and "
                          "sparse_intersect_dense alone (no server) and "
@@ -3432,6 +4071,15 @@ def main(argv=None) -> int:
         print(json.dumps({"kernel_times": measured, "ptxas": ptxas}),
               flush=True)
         return 0
+    configs = tuple(c for c in args.frozen_configs.split(",") if c)
+    if set(configs) - set(FROZEN_CONFIGS):
+        raise SystemExit(f"unknown configurations {configs}")
+    if args.frozen_only or args.frozen_scale is not None:
+        measured = frozen_only(device, args.frozen_scale, configs, args.seed)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        print(smi_name)
+        print(json.dumps({"frozen": measured}), flush=True)
+        return 0
     log(f"phase 2: server over {args.shards} shards, Count path")
     served = server_phase(device, args.shards, args.rows, args.seed,
                           args.clients, args.per_client, args.profile,
@@ -3442,7 +4090,8 @@ def main(argv=None) -> int:
                           (args.seed, HYBRID_CLIENTS, HYBRID_PER_CLIENT),
                           (INGEST_WRITERS, INGEST_ENVELOPES, INGEST_CALLS,
                            INGEST_READERS, INGEST_TURN_ENVELOPES),
-                          args.count_only, args.ingest_only)
+                          args.count_only, args.ingest_only,
+                          (FROZEN_CUTS, configs))
     st = served["stats"]
     if args.count_only:
         log(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -3458,6 +4107,8 @@ def main(argv=None) -> int:
                           "launches": served["ingest"]["launches"]}),
               flush=True)
         return 0
+    log(f"  phases 2-6: {time.perf_counter() - t_start:.1f} s since the "
+        "start")
     k_served = max(1, round(st["batched_queries"] / max(st["batches"], 1)))
     bst = served["bsi"]["stats"]
     k_sum = max(1, round(bst["batched_queries"] / max(bst["batches"], 1)))
@@ -3472,6 +4123,10 @@ def main(argv=None) -> int:
                             args.k, k_served, args.seed, args.runs)
     measured.update(bsi_kernel_phase(device, args.shards, 32768, k_sum,
                                      args.seed, args.runs))
+    fst = served["frozen"]["stats"].get("config4")
+    k_minmax = round(fst["minmax"]["mean_batch"]) if fst else 1
+    descent = minmax_descent_phase(device, args.shards, 32768, k_minmax,
+                                   args.seed, args.runs)
     measured.update(topn_kernel_phase(device, args.shards, 32768, args.seed,
                                       args.runs))
     measured.update(hybrid_kernel_phase(device, args.shards, 32768, served_k,
@@ -3480,7 +4135,7 @@ def main(argv=None) -> int:
     records = []
     paths = {"count": served, "bsi": served["bsi"], "topn": served["topn"],
              "hybrid": served["hybrid"], "planner": served["planner"],
-             "ingest": served["ingest"]}
+             "frozen": served["frozen"], "ingest": served["ingest"]}
     for name, m in measured.items():
         # launches on every path of the main run (each path zeroes the
         # counts before its first query and reads them after its last)
@@ -3507,7 +4162,8 @@ def main(argv=None) -> int:
         "a bitwise op, a bit-sliced comparison, per-plane filtered "
         "popcounts, packed TopN counts or a popcount cross matrix: torch "
         "has no popcount; nor a gather, bit test and ordered compaction)")
-    log(f"  details: {json.dumps({'kernels': measured, **served})}")
+    details = {"kernels": measured, **served, "minmax_descent": descent}
+    log(f"  details: {json.dumps(details)}")
     log("  observability: "
         + json.dumps(obs_summary(paths, touch, served["spill"])))
     log(f"  total {time.perf_counter() - t_start:.1f} s")

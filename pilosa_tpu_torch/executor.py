@@ -17,14 +17,19 @@ Trimmed port of pilosa_tpu/executor.py. For a query the executor
 Sum/Min/Max over an int field (:1651-1831) take the field's [D, S, W]
 plane slab and its not-null row, AND in an optional filter composed on the
 device, and run Sum through the PlaneSumBatcher (bsi_sum_counts kernel),
-Min/Max through the greedy descents of ops/bsi.py. Totals finish exactly
-on the host: value = sum of 2^i * count_i + min * count.
+Min/Max through the MinMaxBatcher (:175-184, :1812-1817; the batched
+descent of ops/bsi.py, D + 1 bsi_sum_counts launches a batch), or one
+query at a time through the greedy descents of ops/bsi.py when batching is
+off. Totals finish exactly on the host: value = sum of 2^i * count_i +
+min * count.
 
 TopN (:1835-2164) picks candidates from the per-shard rank caches (merged
 across shards, memoized on the caches' versions) and recounts them
-exactly: from container metadata without a Src, through the
-topn_counts_packed kernel with one (the threshold-pruned walk over
-256-row blocks, the Tanimoto band, the ids= recount). Rows (:2168-2215)
+exactly: from container metadata without a Src; with one, over frozen
+fragments in host array math linear in the candidates' stored bits
+(_topn_src_sparse, :2066-2112), else through the topn_counts_packed
+kernel (the threshold-pruned walk over 256-row blocks, the Tanimoto band,
+the ids= recount). Rows (:2168-2215)
 reads row ids from the fragments. GroupBy (:2217-2423) stacks each Rows
 axis into one resident [R, S, W] slab and counts every level past the
 first with the cross_count_matrix kernel, pruned on the device, one host
@@ -84,8 +89,8 @@ off when the executor is built; `plan_cache.enabled` switches the cache at
 run time.
 
 Left out: the cluster (its distributed and remote ingest applies
-included), key translation, time views, row attributes and the
-MinMaxBatcher. None of them changes an answer. Calls, field types and
+included), key translation, time views and row attributes. None of them
+changes an answer. Calls, field types and
 options outside the slice raise NotPortedError (a 400 at the API).
 """
 
@@ -123,7 +128,11 @@ from pilosa_tpu_torch.ops.bitvector import (
     patch_sparse_rows,
 )
 from pilosa_tpu_torch.ops.topn import tanimoto_mask
-from pilosa_tpu_torch.parallel.batcher import CountBatcher, PlaneSumBatcher
+from pilosa_tpu_torch.parallel.batcher import (
+    CountBatcher,
+    MinMaxBatcher,
+    PlaneSumBatcher,
+)
 from pilosa_tpu_torch.parallel.ingest import (
     ApplyFence,
     IngestBatcher,
@@ -165,6 +174,8 @@ TOPN_BLOCK = 256
 TOPN_LAUNCH_ROWS = 64
 # cross-shard TopN candidate merges kept (LRU)
 TOPN_MEMO_ENTRIES = 256
+# where host work (the sparse Src walk) is timed as a kernel family
+_HOST = torch.device("cpu")
 # static bound of a GroupBy chunk's pruned transfer; a chunk with more
 # live groups refetches its whole count matrix
 GROUPBY_LIVE_CAP = 1 << 16
@@ -223,6 +234,7 @@ class Executor:
         batch = os.environ.get("PILOSA_TPU_TORCH_BATCH", "1") != "0"
         self.batcher = CountBatcher() if batch else None
         self.sum_batcher = PlaneSumBatcher() if batch else None
+        self.minmax_batcher = MinMaxBatcher() if batch else None
         # the planner and the plan cache, unless PILOSA_TPU_TORCH_PLANNER=0
         # or PILOSA_TPU_TORCH_PLAN_CACHE=0 (Server(plan=, plan_cache_bytes=)
         # can turn them off too)
@@ -940,9 +952,13 @@ class Executor:
     def _execute_min_max(self, index: Index, call: Call, shards,
                          is_min: bool) -> ValCount:
         f, shards, planes, cand = self._bsi_inputs(index, call, shards)
-        fn = bsi.bsi_min_packed if is_min else bsi.bsi_max_packed
-        with telemetry.timed("bsi", fn.__name__, self.runner.device, 2):
-            packed = fn(planes, cand).cpu().numpy().astype(np.int64)  # 1 fetch
+        if self.minmax_batcher is not None:
+            # concurrent descents over this slab share one batched descent
+            packed = self.minmax_batcher.packed(planes, cand, is_min)
+        else:
+            fn = bsi.bsi_min_packed if is_min else bsi.bsi_max_packed
+            with telemetry.timed("bsi", fn.__name__, self.runner.device, 2):
+                packed = fn(planes, cand).cpu().numpy().astype(np.int64)
         bits, cnt = packed[:-1], packed[-1]
         best_val, best_cnt = None, 0
         for i in range(len(shards)):
@@ -1066,23 +1082,42 @@ class Executor:
     def _topn_src_walk(self, index: Index, f, shards: list,
                        cand_ids: np.ndarray, cand_counts: np.ndarray, src,
                        n, tanimoto: int) -> list:
-        """Ranking by |row & src| (executor.py:1968-2064): candidates in
-        count-desc blocks of TOPN_BLOCK, recounted on the device, stopping
-        once the next cached count (an upper bound of every remaining
-        intersection) cannot beat the n-th best. Ties are exact on the host
-        by (count, -row_id). The JAX package first tries a sparse host path
-        that needs every fragment frozen (_topn_src_sparse); the port has
-        no frozen store, so it always walks densely, as the JAX package
-        does over mutable fragments. The answers are the same."""
+        """Ranking by |row & src| (executor.py:1968-2064). Where every
+        fragment of the field is frozen, the sparse host path
+        (_topn_src_sparse) counts every candidate from the stores' arrays;
+        where it cannot (a dict store, or a candidate row the overlay
+        touched) the walk goes densely, as in the JAX package: candidates
+        in count-desc blocks of TOPN_BLOCK, recounted on the device,
+        stopping once the next cached count (an upper bound of every
+        remaining intersection) cannot beat the n-th best. Ties are exact
+        on the host by (count, -row_id)."""
+        view = f.view(VIEW_STANDARD)
+        frags = [] if view is None else [view.fragment(s) for s in shards]
+        # the src's columns per shard, read from the device only when the
+        # sparse path can run
+        src_cols, scount = None, 0
+        if view is not None and cand_ids.size and all(
+                fr is None or fr.frozen for fr in frags):
+            src_cols = columns_from_planes(src)
         if tanimoto:
             # tanimoto > T/100 needs |row| in (|src| T/100, |src| 100/T):
             # rows outside the band are dropped unread, tested on exact
             # counts (a cached count can be short of a row's total)
-            scount = int(kernels.topn_counts_packed([src], src)[2, 0])
+            if src_cols is not None:
+                scount = sum(c.size for c in src_cols)
+            else:
+                scount = int(kernels.topn_counts_packed([src], src)[2, 0])
             lo, hi = scount * tanimoto / 100, scount * 100 / tanimoto
             exact = self._host_row_count_arr(f, shards, cand_ids)
             keep = (exact > lo) & (exact < hi)
             cand_ids, cand_counts = cand_ids[keep], exact[keep]
+        if view is None or cand_ids.size == 0:
+            return []
+        if src_cols is not None:
+            sparse = self._topn_src_sparse(frags, cand_ids, cand_counts,
+                                           src_cols, n, tanimoto, scount)
+            if sparse is not None:
+                return sparse
         pairs = list(zip(cand_ids.tolist(), cand_counts.tolist()))
         # min-heap of (count, -row_id): evicts the lowest count, then the
         # largest id, so the boundary keeps Pairs order
@@ -1115,6 +1150,42 @@ class Executor:
         if n is None:
             return out
         return [(-nrid, c) for c, nrid in heap]
+
+    def _topn_src_sparse(self, frags: list, cand_ids: np.ndarray,
+                         cand_counts: np.ndarray, src_cols: list, n,
+                         tanimoto: int, scount: int):
+        """The sparse host path of the Src ranking (executor.py:2066-2112):
+        |row & src| of every candidate from the frozen stores' flat arrays
+        (Fragment.rows_intersection_counts), linear in the candidates'
+        stored bits, not candidates x the dense shard width: the regime of
+        the reference's chemical-similarity search, where uniform
+        fingerprint cardinalities defeat the count-bound pruning and every
+        cached row is intersected. None where a fragment cannot take it
+        (a candidate row touched by the overlay): the dense walk then
+        answers."""
+        totals = np.zeros(cand_ids.size, dtype=np.int64)
+        with telemetry.timed("topn", "topn_src_sparse", _HOST,
+                             cand_ids.size + 1):
+            for frag, cols in zip(frags, src_cols):
+                if frag is None:
+                    continue
+                got = frag.rows_intersection_counts(cand_ids, cols)
+                if got is None:
+                    return None
+                totals += got
+        with self._stats_lock:
+            self.topn_recount_rows += int(cand_ids.size)
+        keep = totals > 0
+        if tanimoto:
+            # cand_counts are exact here (the band recounted them); strict,
+            # as the dense tanimoto_mask
+            keep &= 100 * totals > tanimoto * (cand_counts + scount - totals)
+        ids, counts = cand_ids[keep], totals[keep]
+        if n is not None and ids.size > n:
+            # top n by (count desc, id asc), as the dense walk's heap
+            order = np.lexsort((ids, -counts))[:n]
+            ids, counts = ids[order], counts[order]
+        return list(zip(ids.tolist(), counts.tolist()))
 
     def _host_row_count_arr(self, f, shards: list, row_ids) -> np.ndarray:
         """Exact row counts summed over the shards, from container metadata

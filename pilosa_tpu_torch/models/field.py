@@ -13,7 +13,10 @@ queried here: they are not ported yet.
 A set field's standard view tracks rank (a rank cache per fragment, the
 TopN candidates) unless its cache type is "none"; `bsig_` views never do
 (:109-111, :152-166). A bulk import rebuilds each touched shard's cache
-after its apply (:309).
+after its apply (:309). import_rows_frozen and import_values_frozen
+(:312-338, :385-410) are the BASELINE-scale loads: each shard's fragment
+freezes in one shot from a numpy position array (storage/frozen.py),
+volatile until it is snapshotted.
 """
 
 from __future__ import annotations
@@ -39,6 +42,17 @@ from pilosa_tpu_torch.storage.roaring import Bitmap
 
 # threads applying one bulk import's per-shard groups
 IMPORT_WORKERS = min(8, os.cpu_count() or 1)
+
+
+def _each(apply, groups: list) -> None:
+    """apply() over per-shard groups: shards are independent fragments, so
+    more than one go to a thread pool (numpy's sorts and the snapshots'
+    writes release the GIL)."""
+    if len(groups) == 1:
+        apply(groups[0])
+    elif groups:
+        with ThreadPoolExecutor(max_workers=IMPORT_WORKERS) as pool:
+            list(pool.map(apply, groups))
 
 
 class NotPortedError(ValueError):
@@ -207,11 +221,7 @@ class Field:
                 frag.bulk_import(g_rows, local)
             view.refresh_rank_cache(shard)
 
-        if len(groups) == 1:
-            apply(groups[0])
-        else:
-            with ThreadPoolExecutor(max_workers=IMPORT_WORKERS) as pool:
-                list(pool.map(apply, groups))
+        _each(apply, groups)
         self.add_available_shards([g[0] for g in groups])
 
     # -- BSI values (int fields) ----------------------------------------------
@@ -251,10 +261,12 @@ class Field:
             return False
         return frag.clear_value(column % SHARD_WIDTH, self.bit_depth)
 
-    def import_values(self, columns, values) -> None:
-        """BSI bulk import: the last value of a column wins; one plane-mask
-        merge and one snapshot per shard, shards on a thread pool."""
-        self._require_int()
+    def _values_shard_groups(self, columns, values) -> list:
+        """Validate a BSI import, keep the last value of each column (the
+        reference's importValue: both would leave the OR of the two) and
+        split it by shard (:340-373), in numpy: [(shard, shard-local
+        columns, stored values)]. A list, so that a rejected import
+        creates no view."""
         cols = np.asarray(columns, dtype=np.uint64).reshape(-1)
         vals = np.asarray(values, dtype=np.int64).reshape(-1)
         if cols.size != vals.size:
@@ -263,7 +275,7 @@ class Field:
         if bad.size:
             raise ValueError(f"value {int(bad[0])} out of range")
         if cols.size == 0:
-            return
+            return []
         order = np.argsort(cols, kind="stable")
         cols, vals = cols[order], vals[order]
         # after a stable sort the last duplicate is last in input order
@@ -271,19 +283,76 @@ class Field:
         cols, vals = cols[last], vals[last] - self.base
         shards = cols // np.uint64(SHARD_WIDTH)
         bounds = np.flatnonzero(np.diff(shards)) + 1
+        return list(zip(shards[np.concatenate(([0], bounds))].tolist(),
+                        np.split(cols % np.uint64(SHARD_WIDTH), bounds),
+                        np.split(vals, bounds)))
+
+    def import_values(self, columns, values) -> None:
+        """BSI bulk import: the last value of a column wins; one plane-mask
+        merge and one snapshot per shard, shards on a thread pool."""
+        self._require_int()
+        groups = self._values_shard_groups(columns, values)
+        if not groups:
+            return
         view = self.create_view_if_not_exists(self.bsi_view_name)
-        groups = list(zip(shards[np.concatenate(([0], bounds))].tolist(),
-                          np.split(cols, bounds), np.split(vals, bounds)))
         depth = self.bit_depth
 
         def apply(group) -> None:
             shard, g_cols, g_vals = group
             view.create_fragment_if_not_exists(shard).bulk_import_values(
-                g_cols % np.uint64(SHARD_WIDTH), g_vals, depth)
+                g_cols, g_vals, depth)
 
-        if len(groups) == 1:
-            apply(groups[0])
-        else:
-            with ThreadPoolExecutor(max_workers=IMPORT_WORKERS) as pool:
-                list(pool.map(apply, groups))
+        _each(apply, groups)
+        self.add_available_shards([g[0] for g in groups])
+
+    # -- frozen bulk loads (BASELINE scale) -----------------------------------
+
+    def import_rows_frozen(self, row_ids, columns) -> None:
+        """Set-field bulk load through the frozen store: the shard split
+        and the bit positions in numpy, each shard's (empty) fragment
+        frozen in one shot with its rank cache built from the store's
+        arrays (View.load_frozen_fragment). Standard view only."""
+        if self.options.type != "set" or self.options.time_quantum:
+            raise ValueError(
+                "import_rows_frozen supports plain set fields only")
+        rows = np.asarray(row_ids, dtype=np.uint64).reshape(-1)
+        cols = np.asarray(columns, dtype=np.uint64).reshape(-1)
+        if rows.size != cols.size:
+            raise ValueError("row/column length mismatch")
+        w = np.uint64(SHARD_WIDTH)
+        shards = (cols // w).astype(np.int64)
+        positions = rows * w + cols % w
+        order = np.lexsort((positions, shards))
+        shards, positions = shards[order], positions[order]
+        bounds = np.flatnonzero(np.diff(shards)) + 1
+        view = self.create_view_if_not_exists(VIEW_STANDARD)
+        groups = list(zip(np.split(shards, bounds),
+                          np.split(positions, bounds)))
+        groups = [(int(g_shards[0]), g_pos) for g_shards, g_pos in groups
+                  if g_shards.size]
+        _each(lambda g: view.load_frozen_fragment(*g), groups)
+        self.add_available_shards([g[0] for g in groups])
+
+    def import_values_frozen(self, columns, values) -> None:
+        """Int-field bulk load through the frozen store: per shard the
+        plane masks become one sorted position array (plane ranges are
+        disjoint and the columns sorted and unique, so plane order is
+        sorted order) and the empty fragment freezes in one shot. Volatile
+        like import_rows_frozen."""
+        if self.options.type != "int":
+            raise ValueError("import_values_frozen supports int fields only")
+        groups = self._values_shard_groups(columns, values)
+        view = self.create_view_if_not_exists(self.bsi_view_name)
+        depth = self.bit_depth
+        sw = np.uint64(SHARD_WIDTH)
+
+        def apply(group) -> None:
+            shard, g_cols, g_vals = group
+            planes = [g_cols[((g_vals >> i) & 1).astype(bool)]
+                      + np.uint64(i) * sw for i in range(depth)]
+            planes.append(g_cols + np.uint64(depth) * sw)  # not-null row
+            view.load_frozen_fragment(shard, np.concatenate(planes),
+                                      presorted=True)
+
+        _each(apply, groups)
         self.add_available_shards([g[0] for g in groups])

@@ -56,5 +56,15 @@ class Holder:
         idx.close()
         shutil.rmtree(idx.path, ignore_errors=True)
 
+    def walk_fragments(self):
+        """Every (index, field, view, shard, fragment), over copies of the
+        tree (pilosa_tpu/models/holder.py:96): request threads create
+        schema objects concurrently."""
+        for iname, idx in list(self.indexes.items()):
+            for fname, fld in list(idx.fields.items()):
+                for vname, view in list(fld.views.items()):
+                    for shard, frag in list(view.fragments.items()):
+                        yield iname, fname, vname, shard, frag
+
     def schema(self) -> list[dict]:
         return [idx.schema_dict() for _, idx in sorted(self.indexes.items())]

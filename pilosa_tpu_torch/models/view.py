@@ -7,6 +7,8 @@ sidecar at open, or built from the fragment where there is none, updated
 under the fragment's lock by every single-bit write, rebuilt after a bulk
 import, and saved on close in the JAX package's format, so either package
 reopens a data dir the other wrote with caches that match the bits.
+load_frozen_fragment (:180-203) bulk-loads a fragment into the frozen
+store and builds its rank cache from the store's arrays.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import os
 import threading
 from typing import Optional
+
+import numpy as np
 
 from pilosa_tpu_torch.constants import SHARD_WIDTH
 from pilosa_tpu_torch.models.cache import (
@@ -23,7 +27,7 @@ from pilosa_tpu_torch.models.cache import (
     load_cache,
     make_cache,
 )
-from pilosa_tpu_torch.storage.fragment import Fragment
+from pilosa_tpu_torch.storage.fragment import Fragment, frozen_row_arrays
 
 VIEW_STANDARD = "standard"
 VIEW_BSI_PREFIX = "bsig_"
@@ -144,3 +148,25 @@ class View:
         frag = self.fragments.get(shard)
         if frag is not None:
             self.rank_caches[shard] = self._build_cache(frag)
+
+    def load_frozen_fragment(self, shard: int, positions: np.ndarray,
+                             presorted: bool = False) -> Fragment:
+        """Bulk-load one shard's fragment from shard-local bit positions
+        through the frozen store (Fragment.import_frozen), and build its
+        rank cache from the store's key layout: per-row counts as arrays,
+        and only the top cache_size rows enter the cache, picked by the
+        JAX package's np.argpartition, so the same rows enter a full cache
+        as there (the reference's add-then-prune, without a Python walk
+        over every row)."""
+        frag = self.create_fragment_if_not_exists(shard)
+        frag.import_frozen(positions, presorted=presorted)
+        if self.track_rank:
+            cache = make_cache(self.cache_type, self.cache_size)
+            uids, sums = frozen_row_arrays(frag.storage.containers)
+            k = cache.cache_size
+            if uids.size > k:
+                top = np.argpartition(-sums, k - 1)[:k]
+                uids, sums = uids[top], sums[top]
+            cache.bulk_add(zip(uids.tolist(), sums.tolist()))
+            self.rank_caches[shard] = cache
+        return frag

@@ -244,6 +244,8 @@ class Handler:
             snap["countBatcher"] = ex.batcher.snapshot()
         if ex.sum_batcher is not None:
             snap["planeSumBatcher"] = ex.sum_batcher.snapshot()
+        if ex.minmax_batcher is not None:
+            snap["minMaxBatcher"] = ex.minmax_batcher.snapshot()
         if ex.planner is not None:
             snap["planner"] = ex.planner.snapshot()
             snap["planner"]["calibration"] = _planner.calibration.snapshot()
@@ -261,6 +263,15 @@ class Handler:
         snap["kernels"] = _telemetry.kernels.snapshot()
         if self.device_profiler is not None:
             snap["deviceProfiler"] = self.device_profiler.snapshot()
+        # frozen bulk loads are not durable until snapshotted (:711-724):
+        # the fragments that would lose acknowledged writes on a restart,
+        # and how many they have taken
+        vol = [{"index": i, "field": f, "view": v, "shard": shard,
+                "mutations": frag.volatile_mutations}
+               for i, f, v, shard, frag in self.api.holder.walk_fragments()
+               if frag._volatile]
+        if vol:
+            snap["volatileFragments"] = vol
         return self._json(snap)
 
     def get_debug_hbm(self, params, query, body):
@@ -340,7 +351,8 @@ class Handler:
         counts["residency/misses"] = rs["misses"]
         counts["residency/evictions"] = rs["evictions"]
         counts["residency/heatEvictions"] = rs["heatEvictions"]
-        for b, kind in ((ex.batcher, "count"), (ex.sum_batcher, "planeSum")):
+        for b, kind in ((ex.batcher, "count"), (ex.sum_batcher, "planeSum"),
+                        (ex.minmax_batcher, "minMax")):
             if b is None:
                 continue
             bs = b.snapshot()

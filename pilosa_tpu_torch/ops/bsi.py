@@ -13,6 +13,15 @@ are int32 [D, S, W] bit views on the device.
   (program_count over ("andnot", cand, plane) for Min, intersect_count for
   Max) and its keep decision is a torch.where on the device: no host sync
   per plane, one fetch of the packed [D+1, S] result at the end.
+* ``bsi_min_max_batched``: the same descent for K candidate masks at once
+  (the MinMaxBatcher's; pilosa_tpu/parallel/batcher.py _batched_min_max,
+  :607-615, a vmap of the single descent). Each plane costs one
+  bsi_sum_counts launch over the contiguous view planes[i:i+1] with the K
+  candidates as its filters: row 0 of its int32[K, 2, S] is |plane & cand|
+  per shard (Max's "any one"), row 1 is |cand|, so row 1 - row 0 > 0 is
+  Min's "any zero". One more launch after the last step counts the
+  attaining columns: D + 1 launches for the batch, against K x (D + 1)
+  one query at a time.
 
 The host finishes every total exactly: ``counts_to_sum`` builds a Python
 int from per-plane counts (bsi.py:197-211).
@@ -98,3 +107,53 @@ def bits_to_value(bits) -> int:
 def counts_to_sum(counts) -> int:
     """sum of 2^i * counts[i] as an exact Python int."""
     return sum(int(c) << i for i, c in enumerate(np.asarray(counts).tolist()))
+
+
+# ---------------------------------------------------------------------------
+# The batched descent (the MinMaxBatcher's)
+# ---------------------------------------------------------------------------
+
+
+def _batched_descent(planes: torch.Tensor, candidates, is_min: bool,
+                     sum_counts) -> torch.Tensor:
+    depth, s, _ = planes.shape
+    cand = torch.stack(list(candidates))  # [K, S, W], updated in place
+    k = cand.shape[0]
+    out = torch.empty((k, depth + 1, s), dtype=torch.int32,
+                      device=planes.device)
+    for i in range(depth - 1, -1, -1):
+        counts = sum_counts(planes[i:i + 1], list(cand.unbind(0)))
+        ones = counts[:, 0]  # |plane & cand| per (query, shard)
+        if is_min:
+            # any zero here: keep the zeros (cand &~ plane), bit 0
+            has = counts[:, 1] - ones > 0
+            out[:, i] = (~has).to(torch.int32)
+            flip = -has.to(torch.int32)
+        else:
+            # any one here: keep the ones (cand & plane), bit 1
+            has = ones > 0
+            out[:, i] = has.to(torch.int32)
+            flip = has.to(torch.int32) - 1
+        # plane where it keeps the ones, ~plane where it keeps the zeros
+        cand.bitwise_and_(torch.bitwise_xor(planes[i][None],
+                                            flip[:, :, None]))
+    out[:, depth] = sum_counts(planes[:1], list(cand.unbind(0)))[:, 1]
+    return out
+
+
+def bsi_min_max_batched(planes: torch.Tensor, candidates,
+                        is_min: bool) -> torch.Tensor:
+    """int32[K, D+1, S]: bsi_min_packed (is_min) or bsi_max_packed of each
+    of K [S, W] candidate masks over one [D, S, W] slab, their counts from
+    D + 1 bsi_sum_counts launches in all."""
+    return _batched_descent(planes, candidates, is_min,
+                            kernels.bsi_sum_counts)
+
+
+def bsi_min_max_batched_plain(planes: torch.Tensor, candidates,
+                              is_min: bool) -> torch.Tensor:
+    """bsi_min_max_batched with its counts in plain torch on any device
+    (kernels.bsi_sum_counts_plain): what the card checks the kernel route
+    against."""
+    return _batched_descent(planes, candidates, is_min,
+                            kernels.bsi_sum_counts_plain)

@@ -1,12 +1,15 @@
-"""Continuous batching of concurrent Count and Sum queries into single
-launches.
+"""Continuous batching of concurrent Count, Sum and Min/Max queries into
+single launches.
 
 Trimmed port of pilosa_tpu/parallel/batcher.py: the ContinuousBatcher
 leadership protocol (:128-430) with its profile and queue-wait hooks
-(:116, :339-370), without QoS and accounting; the CountBatcher (:511-565), whose dispatch launches the
-pair-stream kernel (ops/kernels.py pair_stream_counts) over a batch's
-distinct pairs; and the PlaneSumBatcher (:571-587, :639-660), whose
-dispatch launches the bsi_sum_counts kernel once over K filters.
+(:116, :339-370), without QoS and accounting; the CountBatcher
+(:511-565), whose dispatch launches the pair-stream kernel (ops/kernels.py
+pair_stream_counts) over a batch's distinct pairs; the PlaneSumBatcher
+(:571-587, :639-660), whose dispatch launches the bsi_sum_counts kernel
+once over K filters; and the MinMaxBatcher (:607-636), whose dispatch
+runs the batched Min or Max descent (ops/bsi.py bsi_min_max_batched: D + 1
+bsi_sum_counts launches for the whole batch).
 
 Leadership protocol: the first arrival for a compatibility key becomes
 leader and serves exactly ONE batch, with its own request at the head.
@@ -28,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.ops import bsi, kernels
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import telemetry
 
@@ -301,6 +304,23 @@ class CountBatcher(ContinuousBatcher):
         return counts[inverse].tolist()
 
 
+def _dedup_masks(payloads: list) -> tuple[list, list[int]]:
+    """(distinct mask tensors, each payload's index among them): identical
+    tensors (every unfiltered Sum or Min passes the resident not-null
+    row) are counted once (:571-586; no power-of-two padding here, there
+    is no compile cache to bound)."""
+    slots: dict[int, int] = {}
+    masks: list = []
+    idx = []
+    for _, m in payloads:
+        s = slots.get(id(m))
+        if s is None:
+            s = slots[id(m)] = len(masks)
+            masks.append(m)
+        idx.append(s)
+    return masks, idx
+
+
 class PlaneSumBatcher(ContinuousBatcher):
     """Batches BSI Sums that share a resident plane slab (same field,
     shard set and generations): concurrent Sum(Range(v > x)) with varying
@@ -317,15 +337,7 @@ class PlaneSumBatcher(ContinuousBatcher):
                             str(planes.device)), (planes, mask))
 
     def _dispatch(self, key: tuple, payloads: list):
-        slots: dict[int, int] = {}
-        masks: list = []
-        idx = []
-        for _, m in payloads:
-            s = slots.get(id(m))
-            if s is None:
-                s = slots[id(m)] = len(masks)
-                masks.append(m)
-            idx.append(s)
+        masks, idx = _dedup_masks(payloads)
         # launched, not fetched: int32[K, D+1, S] stays on the device
         return kernels.bsi_sum_counts(payloads[0][0], masks), idx
 
@@ -334,3 +346,40 @@ class PlaneSumBatcher(ContinuousBatcher):
         # the batch's one device->host fetch; exact int64 finish over shards
         totals = counts.cpu().numpy().astype(np.int64).sum(axis=-1)
         return [totals[i] for i in idx]
+
+
+class MinMaxBatcher(ContinuousBatcher):
+    """Batches BSI Min/Max descents that share a resident plane slab: one
+    batched descent (ops/bsi.py bsi_min_max_batched) serves every
+    concurrent Min, or every concurrent Max, over it. Compatibility key =
+    (identity of the slab, is_min).
+
+    Leadership is held through the descent, as the IngestBatcher holds it
+    through its apply: this dispatch is the whole descent (D + 1 launches
+    and the candidate updates, issued from the leader's thread), not one
+    asynchronous call as in the JAX package, so a hand-off at the cut
+    would start the next arrival's descent beside it at once and no batch
+    would form. Arrivals queue behind the running descent instead and the
+    next leader takes them all."""
+
+    HANDOFF_AT_CUT = False
+
+    def packed(self, planes: torch.Tensor, mask: torch.Tensor,
+               is_min: bool) -> np.ndarray:
+        """int64[D + 1, S]: the query's packed bits and attaining count
+        per shard, as bsi_min_packed / bsi_max_packed give them."""
+        return self.submit((id(planes), tuple(planes.shape),
+                            str(planes.device), is_min), (planes, mask))
+
+    def _dispatch(self, key: tuple, payloads: list):
+        planes = payloads[0][0]
+        masks, idx = _dedup_masks(payloads)
+        name = "bsi_min_batched" if key[3] else "bsi_max_batched"
+        with telemetry.timed("bsi", name, planes.device, 1 + len(masks)):
+            out = bsi.bsi_min_max_batched(planes, masks, key[3])
+        return out, idx
+
+    def _finalize(self, key: tuple, handle, payloads: list) -> list:
+        out, idx = handle
+        arr = out.cpu().numpy().astype(np.int64)  # the batch's one fetch
+        return [arr[i] for i in idx]

@@ -3,14 +3,23 @@
 Trimmed copy of pilosa_tpu/storage/fragment.py (:192-560, :873, :952-979):
 one roaring file with a CRC-framed WAL, snapshot compaction after MAX_OP_N
 ops, row generations, dense row materialization and BSI values, in the
-reference's on-disk format; and the row reads of TopN, Rows and GroupBy
+reference's on-disk format; the row reads of TopN, Rows and GroupBy
 (row_count, row_counts, row_ids, rows_for_column, bit_count; :565-577,
-:644-707, :807-868) over the dict container store; the hybrid chooser's
-statistics (row_cardinality, row_runs, row_run_stats with its
-incremental _run_stats_update; :709-800); and the coalesced write path's
-apply_batch (:431-500). Left out: the frozen
-store, anti-entropy blocks, mutex paths, corruption quarantine (a damaged
-file raises at open) and hints.
+:644-707, :807-868); the hybrid chooser's statistics (row_cardinality,
+row_runs, row_run_stats with its incremental _run_stats_update;
+:709-800); and the coalesced write path's apply_batch (:431-500).
+
+Each read works over either container store: the dict, or the frozen
+array-backed store of storage/frozen.py that import_frozen (:982-1010)
+installs for BASELINE-scale bulk loads, where row_counts, row_ids,
+rows_for_column and bit_count answer from the flat arrays and
+rows_intersection_counts (:582-635) counts |row & src| for many rows at
+once (the sparse Src TopN walk). A frozen fragment is volatile (:158-167,
+:1061): it has no WAL, skips the automatic snapshots, and counts the
+writes it takes in volatile_mutations until snapshot() makes it durable
+and re-attaches the WAL. Left out: anti-entropy blocks, mutex paths (and
+the frozen mutex rewrite), import_roaring, corruption quarantine (a
+damaged file raises at open) and hints.
 
 Row r of the shard occupies absolute bit positions [r*2^20, (r+1)*2^20).
 In a BSI view rows 0..depth-1 hold the place values of each column's
@@ -33,7 +42,11 @@ from pilosa_tpu_torch.constants import (
     MAX_OP_N,
     SHARD_WIDTH,
 )
-from pilosa_tpu_torch.storage.roaring import Bitmap, sorted_unique
+from pilosa_tpu_torch.storage.roaring import (
+    Bitmap,
+    is_frozen_store,
+    sorted_unique,
+)
 
 SNAPSHOT_EXT = ".snapshotting"
 LOCK_EXT = ".lock"
@@ -46,6 +59,18 @@ def _locked(method):
         with self.mu:
             return method(self, *args, **kwargs)
     return wrapper
+
+
+def frozen_row_arrays(store) -> tuple[np.ndarray, np.ndarray]:
+    """(row ids, counts) ascending arrays from a frozen store's sorted key
+    layout, in one reduceat pass (:95, :637): the vectorized base of
+    row_counts, row_ids and the rank cache of a frozen load."""
+    keys, ns = store.key_and_count_arrays()
+    if keys.size == 0:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    rids = keys // CONTAINERS_PER_SHARD
+    starts = np.flatnonzero(np.concatenate([[True], rids[1:] != rids[:-1]]))
+    return rids[starts], np.add.reduceat(ns.astype(np.int64), starts)
 
 
 def pos(row_id: int, column: int) -> int:
@@ -77,6 +102,15 @@ class Fragment:
         # generation of the last bulk write: row_counts rebuilds its base
         # map when it moves, and re-probes rows written singly since
         self._bulk_gen = 0
+        # every row's generation is at least this: import_frozen replaces
+        # the whole store without a generation per row (the JAX package's
+        # row_generation floors at its _bulk_gen)
+        self._gen_floor = 0
+        # storage came from import_frozen and has not been snapshotted:
+        # no WAL, no automatic snapshot; the writes taken since count in
+        # volatile_mutations (/debug/vars volatileFragments)
+        self._volatile = False
+        self.volatile_mutations = 0
         self._row_counts_cache = None  # (bulk gen, gen, map, overlay)
         self._row_ids_cache = None  # (generation, sorted row ids)
         # row -> (row generation, interval count, max run length)
@@ -142,9 +176,17 @@ class Fragment:
     def _touch(self, row_id: int) -> None:
         self.generation += 1
         self._row_gen[row_id] = self.generation
+        if self._volatile:
+            self.volatile_mutations += 1
+
+    @property
+    def frozen(self) -> bool:
+        """Whether the storage is the frozen array-backed store."""
+        return is_frozen_store(self.storage.containers)
 
     def row_generation(self, row_id: int) -> int:
-        return self._row_gen.get(row_id, 0)
+        g = self._row_gen.get(row_id, 0)
+        return g if g > self._gen_floor else self._gen_floor
 
     @_locked
     def set_bit(self, row_id: int, column: int) -> bool:
@@ -189,6 +231,7 @@ class Fragment:
         initial = dict(state)
         changed = []
         changed_rows = set()
+        n_changed = 0
         for (is_set, row_id, _col), p in zip(muts, positions):
             cur = state[p]
             ch = (not cur) if is_set else cur
@@ -196,6 +239,7 @@ class Fragment:
             changed.append(ch)
             if ch:
                 changed_rows.add(row_id)
+                n_changed += 1
         net_adds = np.array([p for p, s in state.items()
                              if s and not initial[p]], dtype=np.uint64)
         net_removes = np.array([p for p, s in state.items()
@@ -218,7 +262,9 @@ class Fragment:
                 self._row_run_stats.pop(rid, None)
             self._intervals_after_batch(
                 net_adds.tolist() + net_removes.tolist(), pre_gen)
-        if n_net:
+            if self._volatile:
+                self.volatile_mutations += n_changed
+        if n_net and not self._volatile:
             if self.storage.op_writer is not None:
                 self.storage.append_ops(net_adds, net_removes)
                 wal_appends = 1
@@ -230,6 +276,12 @@ class Fragment:
     def _increment_op_n(self) -> None:
         self.op_n += 1
         if self.op_n > MAX_OP_N:
+            self._maybe_snapshot()
+
+    def _maybe_snapshot(self) -> None:
+        """The mutating paths' snapshot (:1061): a volatile (frozen)
+        fragment skips it; its durability is an explicit snapshot()."""
+        if not self._volatile:
             self.snapshot()
 
     def _bulk_positions(self, row_ids: Iterable[int],
@@ -250,7 +302,7 @@ class Fragment:
         for rid in sorted_unique(rows).tolist():
             self._touch(int(rid))
         self._bulk_gen = self.generation
-        self.snapshot()
+        self._maybe_snapshot()
 
     @_locked
     def bulk_clear(self, row_ids: Iterable[int],
@@ -261,7 +313,7 @@ class Fragment:
         for rid in sorted_unique(rows).tolist():
             self._touch(int(rid))
         self._bulk_gen = self.generation
-        self.snapshot()
+        self._maybe_snapshot()
 
     # -- BSI values ---------------------------------------------------------
 
@@ -319,7 +371,30 @@ class Fragment:
         for i in range(bit_depth + 1):
             self._touch(i)
         self._bulk_gen = self.generation
-        self.snapshot()
+        self._maybe_snapshot()
+
+    @_locked
+    def import_frozen(self, positions: np.ndarray,
+                      presorted: bool = False) -> None:
+        """BASELINE-scale bulk load (:982-1010): replace this empty
+        fragment's storage with a frozen store built from its shard-local
+        bit positions in numpy. Volatile by design: nothing goes to the
+        WAL or a snapshot (the load is reproducible from its source), and
+        the WAL stays detached, since an op record against the unwritten
+        base would replay into an empty fragment after a restart.
+        snapshot() persists the whole store and re-attaches the WAL."""
+        if self.storage.containers:
+            raise ValueError("import_frozen requires an empty fragment")
+        self.storage = Bitmap.frozen(positions, presorted=presorted)
+        self.storage.op_writer = None  # volatile: see the docstring
+        self._volatile = True
+        self.generation += 1
+        self._row_gen.clear()
+        self._gen_floor = self._bulk_gen = self.generation
+        self._row_counts_cache = None
+        self._row_ids_cache = None
+        self._row_run_stats.clear()
+        self._row_intervals.clear()
 
     # -- reads --------------------------------------------------------------
 
@@ -351,47 +426,74 @@ class Fragment:
         container keys builds a row -> count map, rebuilt only after a bulk
         write; rows written singly since are re-probed through a per-row
         overlay keyed by their generations."""
-        cached = self._row_counts_cache
-        if cached is None or cached[0] != self._bulk_gen:
-            items = list(self.storage.containers.items())
-            m: dict[int, int] = {}
-            for key, c in items:
-                r = key // CONTAINERS_PER_SHARD
-                m[r] = m.get(r, 0) + c.n
-            cached = (self._bulk_gen, self.generation, m, {})
-            self._row_counts_cache = cached
-        _, base_gen, m, overlay = cached
-        rows = np.asarray(row_ids, dtype=np.int64).reshape(-1).tolist()
+        _, base_gen, m, overlay = self._row_counts_base()
+        rows_arr = np.asarray(row_ids, dtype=np.int64).reshape(-1)
+        if isinstance(m, tuple):
+            # frozen: one vectorized lookup, then the rows written since
+            uids, sums = m
+            out = np.zeros(rows_arr.size, dtype=np.int64)
+            if uids.size:
+                idx = np.minimum(np.searchsorted(uids, rows_arr),
+                                 uids.size - 1)
+                hit = uids[idx] == rows_arr
+                out[hit] = sums[idx[hit]]
+            if not self._row_gen:
+                return out
+            for x, r in enumerate(rows_arr.tolist()):
+                if self._row_gen.get(r, 0) > base_gen:
+                    out[x] = self._overlay_count(overlay, r)
+            return out
+        rows = rows_arr.tolist()
         out = np.zeros(len(rows), dtype=np.int64)
         for x, r in enumerate(rows):
-            rg = self._row_gen.get(r, 0)
-            if rg > base_gen:
-                og = overlay.get(r)
-                if og is None or og[0] != rg:
-                    og = (rg, self.row_count(r))
-                    overlay[r] = og
-                out[x] = og[1]
+            if self._row_gen.get(r, 0) > base_gen:
+                out[x] = self._overlay_count(overlay, r)
             else:
                 out[x] = m.get(r, 0)
         return out
+
+    def _row_counts_base(self) -> tuple:
+        """(bulk gen, generation at build, base map, overlay) of
+        row_counts, rebuilt after a bulk write. The base map is a dict
+        row -> count over a dict store, and (row ids, counts) sorted arrays
+        over a frozen one (no dict of a billion rows)."""
+        cached = self._row_counts_cache
+        if cached is None or cached[0] != self._bulk_gen:
+            store = self.storage.containers
+            if is_frozen_store(store):
+                m = frozen_row_arrays(store)
+            else:
+                m = {}
+                for key, c in list(store.items()):
+                    r = key // CONTAINERS_PER_SHARD
+                    m[r] = m.get(r, 0) + c.n
+            cached = (self._bulk_gen, self.generation, m, {})
+            self._row_counts_cache = cached
+        return cached
+
+    def _overlay_count(self, overlay: dict, row_id: int) -> int:
+        """A row written since the base map was built: its count, kept per
+        row generation."""
+        rg = self._row_gen.get(row_id, 0)
+        og = overlay.get(row_id)
+        if og is None or og[0] != rg:
+            og = (rg, self.row_count(row_id))
+            overlay[row_id] = og
+        return og[1]
 
     def row_cardinality(self, row_id: int) -> int:
         """Exact set bits of one row, through the row_counts cache: the
         hybrid chooser's statistic (fragment.py:709). row_counts for one
         row without its array conversions: the chooser asks once per
         fragment and leaf."""
-        cached = self._row_counts_cache
-        if cached is None or cached[0] != self._bulk_gen:
-            return int(self.row_counts([row_id])[0])
-        _, base_gen, m, overlay = cached
-        rg = self._row_gen.get(row_id, 0)
-        if rg <= base_gen:
-            return m.get(row_id, 0)
-        og = overlay.get(row_id)
-        if og is None or og[0] != rg:
-            og = (rg, self.row_count(row_id))
-            overlay[row_id] = og
-        return og[1]
+        _, base_gen, m, overlay = self._row_counts_base()
+        if self._row_gen.get(row_id, 0) > base_gen:
+            return self._overlay_count(overlay, row_id)
+        if isinstance(m, tuple):
+            uids, sums = m
+            i = int(np.searchsorted(uids, row_id))
+            return int(sums[i]) if i < uids.size and uids[i] == row_id else 0
+        return m.get(row_id, 0)
 
     def row_runs(self, row_id: int) -> np.ndarray:
         """int64[n, 2] inclusive shard-local [start, last] intervals of a
@@ -538,14 +640,28 @@ class Fragment:
 
     def row_ids(self, start: int = 0, limit: Optional[int] = None) -> list[int]:
         """Distinct row ids >= start with any set bit, ascending, at most
-        `limit` of them. The full list is cached per generation."""
+        `limit` of them. The full list is cached per generation; over a
+        frozen store as a numpy array (:812-834), boxed only for a walk
+        without a limit."""
         cached = self._row_ids_cache
         if cached is None or cached[0] != self.generation:
-            cached = (self.generation,
-                      sorted({key // CONTAINERS_PER_SHARD
-                              for key in list(self.storage.containers)}))
+            store = self.storage.containers
+            if is_frozen_store(store):
+                cached = (self.generation, frozen_row_arrays(store)[0])
+            else:
+                cached = (self.generation,
+                          sorted({key // CONTAINERS_PER_SHARD
+                                  for key in list(store)}))
             self._row_ids_cache = cached
         ids = cached[1]
+        if isinstance(ids, np.ndarray):
+            if limit is not None or start:
+                if start:
+                    ids = ids[int(np.searchsorted(ids, start)):]
+                return ids[:limit].tolist()
+            full = ids.tolist()
+            self._row_ids_cache = (cached[0], full)
+            return list(full)
         if start:
             ids = ids[bisect.bisect_left(ids, start):]
         return ids[:limit] if limit is not None else list(ids)
@@ -553,16 +669,76 @@ class Fragment:
     def rows_for_column(self, column: int) -> list[int]:
         """Row ids with this column's bit set: only the containers that can
         hold the column (key = column >> 16 modulo the keys per row) are
-        probed."""
+        probed; over a frozen store with one vectorized membership call
+        (:856)."""
         col = column % SHARD_WIDTH
         sub, low = col >> 16, col & 0xFFFF
+        store = self.storage.containers
+        if is_frozen_store(store):
+            keys = store.key_and_count_arrays()[0]
+            cand = keys[keys % CONTAINERS_PER_SHARD == sub]
+            if cand.size == 0:
+                return []
+            probe = (cand.astype(np.uint64) << np.uint64(16)) | np.uint64(low)
+            hit = self.storage.contains_many(probe)
+            return np.sort(cand[hit] // CONTAINERS_PER_SHARD).tolist()
         out = [key // CONTAINERS_PER_SHARD
-               for key, c in list(self.storage.containers.items())
+               for key, c in list(store.items())
                if key % CONTAINERS_PER_SHARD == sub and c.contains(low)]
         return sorted(out)
 
+    def rows_intersection_counts(self, row_ids, src_cols: np.ndarray):
+        """|row & src| for many rows against a sorted shard-local column
+        set, in array math over the frozen store's flat layout: one
+        gather, one searchsorted and one segment sum for all rows
+        (:582-635). This makes the Src TopN walk linear in the candidates'
+        stored bits rather than candidates x the dense shard width.
+        int64[len(row_ids)], or None where the vectorized path does not
+        apply (a dict store, or a candidate row touched by the overlay):
+        the caller walks densely."""
+        store = self.storage.containers
+        if not is_frozen_store(store):
+            return None
+        kpr = CONTAINERS_PER_SHARD
+        rids = np.asarray(row_ids, dtype=np.int64)
+        if src_cols.size == 0:  # src empty in this shard
+            return np.zeros(rids.size, dtype=np.int64)
+        if store._overlay or store._deleted:
+            touched = ({k // kpr for k in store._overlay}
+                       | {k // kpr for k in store._deleted})
+            if touched.intersection(rids.tolist()):
+                return None
+        keys, starts, ends = store._keys, store._starts, store._ends
+        lo = np.searchsorted(keys, rids * kpr)
+        hi = np.searchsorted(keys, (rids + 1) * kpr)
+        n_conts = hi - lo  # containers per row
+        n_all = int(n_conts.sum())
+        if n_all == 0:
+            return np.zeros(rids.size, dtype=np.int64)
+        # every container of every row, then every element of those
+        cont_idx = (np.arange(n_all, dtype=np.int64)
+                    + np.repeat(lo - np.concatenate(
+                        [[0], np.cumsum(n_conts)[:-1]]), n_conts))
+        cont_row = np.repeat(np.arange(rids.size), n_conts)
+        c_starts = starts[cont_idx]
+        c_lens = (ends - starts)[cont_idx]
+        total = int(c_lens.sum())
+        if total == 0:
+            return np.zeros(rids.size, dtype=np.int64)
+        elem_idx = (np.arange(total, dtype=np.int64)
+                    + np.repeat(c_starts - np.concatenate(
+                        [[0], np.cumsum(c_lens)[:-1]]), c_lens))
+        elem_row = np.repeat(cont_row, c_lens)
+        # shard-local column of each element: (key % kpr) << 16 | low
+        cols = (((keys[cont_idx] % kpr) << 16).repeat(c_lens)
+                | store._lows[elem_idx].astype(np.int64))
+        at = np.minimum(np.searchsorted(src_cols, cols), src_cols.size - 1)
+        member = src_cols[at] == cols
+        return np.bincount(elem_row, weights=member,
+                           minlength=rids.size).astype(np.int64)
+
     def bit_count(self) -> int:
-        return sum(c.n for c in list(self.storage.containers.values()))
+        return self.storage.count()
 
     # -- snapshot / WAL compaction ------------------------------------------
 
@@ -590,3 +766,5 @@ class Fragment:
             self.storage.op_sync = self.wal_fsync
         self.op_n = 0
         self.storage.op_n = 0
+        self._volatile = False  # persisted: the WAL is attached again
+        self.volatile_mutations = 0

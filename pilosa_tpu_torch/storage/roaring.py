@@ -2,10 +2,13 @@
 
 Trimmed copy of pilosa_tpu/storage/roaring.py: the numpy path only (the
 reference's optional C++ accelerator in pilosa_tpu/native is left out),
-eager parsing from bytes (no mmap-lazy containers, no frozen store), a
-plain dict of containers (the B+Tree store of pilosa_tpu/storage/
-containers.py is left out: keys are sorted where order matters), and only
-what the fragment layer of the dense read path needs.
+eager parsing from bytes (no mmap-lazy containers), two container stores
+(a plain dict, and the frozen array-backed store of storage/frozen.py for
+bulk loads; the B+Tree store of pilosa_tpu/storage/containers.py is left
+out: keys are sorted where order matters), and only what the fragment
+layer needs. A file of at least frozen.FROZEN_PARSE_MIN containers parses
+into a frozen store (the JAX package takes that branch on its lazy mmap
+opens; the port parses eagerly, so it takes it by size alone).
 
 The on-disk format is the reference's, byte for byte compatible:
   bytes 0-1  magic 12348        (u16 LE)
@@ -179,6 +182,27 @@ def container_contains_many(c: "Container", lows: np.ndarray) -> np.ndarray:
             & np.uint64(1)).astype(bool)
 
 
+def _payload_size(code: int, card: int, buf, offset: int) -> int:
+    """Byte length of a container payload without parsing it
+    (pilosa_tpu/storage/roaring.py:527)."""
+    if code == TYPE_ARRAY:
+        return 2 * card
+    if code == TYPE_BITMAP:
+        return 8 * BITMAP_WORDS
+    if code == TYPE_RUN:
+        if offset + 2 > len(buf):
+            raise ValueError("run container header out of bounds")
+        (nruns,) = struct.unpack_from("<H", buf, offset)
+        return 2 + 4 * nruns
+    raise ValueError(f"unknown container type {code}")
+
+
+def is_frozen_store(store) -> bool:
+    """Whether a container store is the frozen array-backed one (the
+    capability marker of storage/frozen.py)."""
+    return getattr(store, "VECTORIZED_STORE", False)
+
+
 class Container:
     """One 2^16-bit container: sorted uint16 array, uint64[1024] bitmap, or
     [nruns, 2] (start, last) run intervals."""
@@ -339,8 +363,10 @@ class Container:
 class Bitmap:
     """64-bit roaring bitmap: {key = position >> 16} -> Container.
 
-    `op_writer` is the WAL hook: when set, single-value add/remove append
-    one framed op record each."""
+    `containers` is a dict, or a FrozenContainers after `frozen()` or the
+    frozen parse; both serve the mapping protocol. `op_writer` is the WAL
+    hook: when set, single-value add/remove append one framed op record
+    each."""
 
     def __init__(self):
         self.containers: dict[int, Container] = {}
@@ -351,6 +377,23 @@ class Bitmap:
         # WAL recovery report of from_bytes(recover_wal=True)
         self.wal_valid_end: Optional[int] = None
         self.wal_error: Optional[str] = None
+
+    @classmethod
+    def frozen(cls, positions: np.ndarray,
+               presorted: bool = False) -> "Bitmap":
+        """Bulk-load constructor (pilosa_tpu/storage/roaring.py:737): the
+        whole position set becomes a frozen array-backed store in numpy,
+        with no per-container Python loop. presorted=True skips the dedup
+        sort for callers whose positions are already sorted and unique.
+        Later mutations go to the store's copy-on-write overlay."""
+        from pilosa_tpu_torch.storage.frozen import FrozenContainers
+
+        b = cls()
+        positions = np.asarray(positions, dtype=np.uint64)
+        if not presorted:
+            positions = sorted_unique(positions)
+        b.containers = FrozenContainers.from_positions(positions)
+        return b
 
     # -- mutation -----------------------------------------------------------
 
@@ -446,9 +489,11 @@ class Bitmap:
 
     def contains_many(self, values: np.ndarray) -> np.ndarray:
         """Vectorized membership: a bool per value, probed container by
-        container (pilosa_tpu/storage/roaring.py:705, the dict-store
-        branch; the port has no frozen store)."""
+        container (pilosa_tpu/storage/roaring.py:705); a frozen store
+        answers from its flat arrays in one pass."""
         values = np.asarray(values, dtype=np.uint64)
+        if is_frozen_store(self.containers):
+            return self.containers.contains_positions(values)
         if values.size <= SMALL_BATCH:
             return np.array([self.contains(v) for v in values.tolist()],
                             dtype=bool)
@@ -467,10 +512,25 @@ class Bitmap:
         c = self.containers.get(int(value) >> 16)
         return c is not None and c.contains(int(value) & 0xFFFF)
 
+    def count(self) -> int:
+        """Set bits in all (pilosa_tpu/storage/roaring.py:758)."""
+        if is_frozen_store(self.containers):
+            return self.containers.total_count()
+        return sum(c.n for c in list(self.containers.values()))
+
+    def positions(self) -> np.ndarray:
+        """All set positions as one sorted uint64 array (:728); a frozen
+        store answers from its flat arrays."""
+        if is_frozen_store(self.containers):
+            return self.containers.all_positions()
+        return self.slice(0)
+
     def _keys_in(self, start: int, stop: int) -> list[int]:
         if stop <= start:
             return []
         lo, hi = start >> 16, (stop - 1) >> 16
+        if is_frozen_store(self.containers):
+            return list(self.containers.irange(lo, hi))
         return sorted(k for k in self.containers if lo <= k <= hi)
 
     def slice(self, start: int = 0, stop: Optional[int] = None) -> np.ndarray:
@@ -506,7 +566,10 @@ class Bitmap:
 
     def write_to(self, w) -> int:
         """Serialize in Pilosa roaring format (no op-log, no trailer),
-        each container in its current encoding."""
+        each container in its current encoding; a frozen store writes
+        itself from its arrays (write_pilosa, :975)."""
+        if is_frozen_store(self.containers):
+            return self.containers.write_pilosa(w)
         keys = sorted(k for k, c in self.containers.items() if c.n > 0)
         encs = []
         for k in keys:
@@ -553,6 +616,14 @@ class Bitmap:
         if ops_offset > len(data):
             raise ValueError(f"header overruns buffer: {key_n} containers "
                              f"need {ops_offset} bytes, have {len(data)}")
+        from pilosa_tpu_torch.storage import frozen
+
+        if key_n >= frozen.FROZEN_PARSE_MIN:
+            # vectorized parse into the frozen store (:1052-1064): the
+            # array payloads stay views of `data`, which they keep alive
+            b.containers, ops_offset = frozen.parse_pilosa_frozen(
+                data, key_n, desc_off, off_off)
+            return cls._replay_ops(b, data, ops_offset, recover=recover_wal)
         for i in range(key_n):
             key, code, n_minus_1 = struct.unpack_from("<QHH", data,
                                                       desc_off + i * 12)
@@ -654,7 +725,11 @@ class Bitmap:
 
     def optimize(self) -> None:
         """Re-pick the encoding (runs where smallest) of every container
-        changed since the last call; the others are already optimal."""
+        changed since the last call; the others are already optimal. A
+        frozen store picks encodings as it writes itself (:1284)."""
+        if is_frozen_store(self.containers):
+            self._dirty.clear()
+            return
         for key in self._dirty:
             c = self.containers.get(key)
             if c is not None:

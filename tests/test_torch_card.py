@@ -177,6 +177,32 @@ def test_bsi_sum_forms_match_plain_on_card(cuda_device, depth, s, w):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 32])
+def test_batched_min_max_matches_plain_on_card(cuda_device, k):
+    """The MinMaxBatcher's descent at S = 1024, W = 32768, depth 10: the
+    kernel route equals its plain version and K single descents, with
+    D + 1 bsi_sum_counts launches for the batch."""
+    from pilosa_tpu_torch.ops import bsi
+
+    depth = 10
+    rng = np.random.default_rng(k)
+    planes = _planes(rng, cuda_device, depth, 1024, 32768)
+    cands = list(_planes(rng, cuda_device, k, 1024, 32768).unbind(0))
+    cands[0][7] = 0  # an empty shard
+    for is_min in (True, False):
+        kernels.reset_launch_counts()
+        got = bsi.bsi_min_max_batched(planes, cands, is_min)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["bsi_sum_counts"] == depth + 1
+        assert torch.equal(got, bsi.bsi_min_max_batched_plain(planes, cands,
+                                                              is_min))
+        single = bsi.bsi_min_packed if is_min else bsi.bsi_max_packed
+        for i in (0, k - 1):
+            assert torch.equal(got[i], single(planes, cands[i])), (is_min, i)
+        assert int(got[0, depth, 7]) == 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("s,w", [(3, 64), (2100, 256)])
 def test_topn_and_cross_kernels_match_plain_on_card(cuda_device, s, w):
     """R = 130 candidates (past the Pallas 128-row block) and P = 9

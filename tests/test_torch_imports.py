@@ -63,5 +63,6 @@ def test_cuda_never_quietly_becomes_cpu(path):
 
 def test_the_walk_covers_the_port():
     names = {p.name for p in FILES}
-    assert {"kernels.py", "executor.py", "server.py", "chip_smoke.py"} <= names
+    assert {"kernels.py", "executor.py", "server.py", "chip_smoke.py",
+            "frozen.py", "batcher.py", "bsi.py"} <= names
     assert (ROOT / "pilosa_tpu_torch" / "csrc" / "bitmap_kernels.cu").exists()
