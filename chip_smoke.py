@@ -16,7 +16,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    (8.5k-40k bits per shard and row) loaded through API.import_bits plus
    one JSON import; PQL over HTTP, including Counts over 40 Rows (40
    leaves), checked against a numpy oracle built from the generated
-   columns; then 32 concurrent clients x 64 Count(Intersect) queries.
+   columns; then 32 concurrent clients x 32 Count(Intersect) queries.
    Launch counts are zeroed before the server starts and read after the
    last query: every kernel of the path must have launched. With
    --profile, a further concurrent pass runs under torch.profiler and the
@@ -45,7 +45,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    with filter=Range(v > 500); and three axes with limited Rows) checked
    against a numpy oracle; the cold first Src TopN (64 leaves of 128 MiB
    built from the host) and the cold first GroupBy (the 8 GiB rows slab)
-   timed apart from warm repeats; then 32 clients x 8 TopN(t, Row(f=a),
+   timed apart from warm repeats; then 32 clients x 4 TopN(t, Row(f=a),
    n=10) with varying a, every answer checked. Launch counts are zeroed
    before the phase: topn_counts_packed and cross_count_matrix must launch.
 5. Server, hybrid sparse/run path, on the same server and index (Pilosa's
@@ -66,10 +66,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
 5c. Server, planner and plan cache, on the same server and index
    (bench.py bench_planner, :2015-2195, at full width): (a) a 4-row
    Count(Intersect) sequentially, the cache off, the planner off then on
-   in 3 interleaved rounds of 40: p50 a side; (b) a dashboard of 32
+   in 2 interleaved rounds of 40: p50 a side; (b) a dashboard of 32
    clients x 16 queries, 80 % ten shared 3-row Count(Intersect) panels
    over f and 20 % twenty 3-row Count(Union), each in a random operand
-   order, in 3 rounds of cache off (cleared), on (warm), on (measured):
+   order, in 2 rounds of cache off (cleared), on (warm), on (measured):
    q/s, p50/p99 and the hit rate (a device-profile capture in the first
    cache-off round); (c) a Count(Intersect) with a row of no bits: the
    planner answers 0 with no leaf read, upload or launch, and without the
@@ -113,12 +113,41 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    host RSS (ru_maxrss), device bytes resident. The indexes are deleted
    at the end (their host memory). Launch counts are zeroed before the
    phase.
+5e. Server, typed fields (Star Trace), on the same server: index
+   startrace, the reference's getting-started schema (examples/
+   star_trace.py, docs/getting-started.md) over 1024 shards, loaded
+   through POST /import in chunks of 64 shards: a time field stargazer
+   (quantum YMD) where user u of 256 stars about 200,000 / (u + 1)
+   uniformly random repositories (about 1.2M stars; the shape's 2,000,000
+   cut ten times, see TYPED_STARS_HEAD) at uniform timestamps over
+   2019-01-01..2019-03-31 (90 day views, 3 month views, the year view and
+   the standard view; epoch numbers, the last chunk ISO-8601 strings); a
+   mutex field license of 16 rows over the starred repositories, imported
+   once and then a seeded 10 % reassigned (the last write wins); a bool
+   field fork, about 20 % true; one shard of a set field extra through
+   POST /import-roaring with a standard and a time view built with the
+   port's roaring writer. Count(Range(stargazer=u, start, end)) over one
+   week (7 day views), one month (1 view), a ragged span (day, month and
+   day views) and the year (1 view), each window's cold first query and
+   warm p50; Intersects with mutex and bool rows (2 and 3 leaves, and 3
+   dense range leaves); TopN(stargazer), TopN(license, Range(...)), Rows,
+   GroupBy(license x fork); then 32 clients x 16 Count(Intersect(Range(
+   stargazer=u, window), Row(license=l))) over 8 users x 4 windows x 4
+   licenses with a device-profile capture; then writes over HTTP with the
+   reads they change (a timestamped Set into a covered day view, a mutex
+   Set moving a column between rows, a bool Set, ClearRow, Store) and
+   Options (shards=, excludeColumns). Every answer is exact against a
+   numpy oracle of the generated arrays. Printed: the import seconds per
+   field, positions per view family, host RSS, device bytes resident, the
+   phase's seconds. Launch counts are zeroed before the first query:
+   pair_stream_counts, program_count, sparse_intersect_dense and
+   topn_counts_packed must launch. The index is deleted at the end.
 6. Server, write path, on the same server and index (bench.py's ingest
    stage, bench.py:1824-1935, cut to a fixed length): 8 keep-alive writers
-   each send 30 envelopes of 500 calls, 80 % Set of a column of their own
+   each send 20 envelopes of 500 calls, 80 % Set of a column of their own
    (column % 8 = writer) anywhere in the 1024 shards on one of f rows 0-7
    (dense), s rows 1-8 (sparse, K = 16..2048) or r row 0 (run), 20 %
-   Clear of a (row, column) the writer set earlier: 120,000 mutations,
+   Clear of a (row, column) the writer set earlier: 80,000 mutations,
    served through the IngestBatcher, Fragment.apply_batch and the
    in-place patches of the resident leaves, while 32 clients run
    Count(Intersect(Row(f=a), Row(f=b))). Every changed flag is checked
@@ -132,7 +161,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    Printed: acked mutations/s, the readers' p50/p99 against a writer-free
    round, the group-commit ratio, batches, patches and drops, the bytes
    uploaded by form after the writes, and the first Count(Intersect)
-   after a burst of 5 envelopes a writer with ingest on, then off
+   after a burst of 3 envelopes a writer with ingest on, then off
    (PILOSA_TPU_TORCH_INGEST=0), with the sparse rows read back after the
    batched burst. Launch counts are zeroed before the phase.
 7. Kernels at full width: W = 32768 words, S = 1024 shards (1.07B
@@ -159,7 +188,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    units, at every K the hybrid phase served and at K = 16384 (event,
    device and host times). Times by CUDA events (warm, median).
 8. The last lines: nvidia-smi's name and power limit, one JSON object with
-   a record per kernel (its launches summed over the seven paths, with
+   a record per kernel (its launches summed over the eight paths, with
    launches_by_path beside; bsi_sum_counts adds its launches by form and
    the form the served shape takes; served_device_ms_p50 is its device
    ms as served, from the paths' device-profile captures, over
@@ -223,6 +252,11 @@ functions an older checkout also has, so a copy beside one times it too.
 500,000 molecules, at most all), and --frozen-configs picks among 2, 3, 4
 and sim. Both print the host's free memory first and the phase's
 numbers as one JSON line.
+
+    python3 chip_smoke.py --typed-only   # phases 1 and 5e alone
+
+--typed-only runs phase 5e on a fresh server and prints its numbers as
+one JSON line.
 
     python3 chip_smoke.py --ingest-only  # phases 1-2, then phase 6 on
                                          # s and r loaded without phase 5
@@ -291,10 +325,13 @@ SPARSE_SENTINEL = SHARD_WIDTH
 # the write phase (bench.py:1824-1827 and 1830-1935, cut to a fixed length)
 INGEST_WRITERS = 8      # keep-alive writer threads (bench.py:1824)
 INGEST_CALLS = 500      # Set/Clear calls per envelope (bench.py:1825)
-# envelopes per writer in the measured window: 30 since phase 5d joined
-# the run (40 before), to keep the whole run inside its time limit
-INGEST_ENVELOPES = 30
-INGEST_TURN_ENVELOPES = 5  # per writer in each ingest on/off turn
+# envelopes per writer in the measured window: 20 since phase 5e joined
+# the run (30 since 5d, 40 before), to keep the whole run inside its time
+# limit
+INGEST_ENVELOPES = 20
+# per writer in each ingest on/off turn: 3 since phase 5e joined the run
+# (5 before), to keep the whole run inside its time limit
+INGEST_TURN_ENVELOPES = 3
 INGEST_READERS = 32     # Count(Intersect) clients during the window
 INGEST_S_ROWS = tuple(range(1, 9))  # rows of s written: K = 16..2048
 INGEST_TURNS = ("on", "off")
@@ -304,9 +341,9 @@ SERVED_SPARSE_K = [8 << i for i in range(10)]
 SPARSE_EDGE_K = (1, 31, 33, 255, 257, 511, 513, 2049, 4097)
 TOPN_ROWS = 64  # rows of the set field t
 TOPN_BITS = 12000  # bits per shard of t's row 0; row r holds ~this/(r+1)
-# the TopN phase's concurrent pass: 8 per client since phase 5d joined the
-# run (16 before), to keep the whole run inside its time limit
-TOPN_CLIENTS, TOPN_PER_CLIENT = 32, 8
+# the TopN phase's concurrent pass: 4 per client since phase 5e joined the
+# run (8 since 5d, 16 before), to keep the whole run inside its time limit
+TOPN_CLIENTS, TOPN_PER_CLIENT = 32, 4
 BSI_DEPTH = 10  # the int field v: min 0, max 1023
 # int32 operations per plane word of the compare sweep (lt/gt: and, not,
 # or, xor, not, and) and of the sum (and, add; plus one __popc)
@@ -2341,17 +2378,18 @@ SHORT_CAPTURE_S = 1.0  # on the BSI and hybrid paths (shorter passes)
 # 700.00 W) and launch in waves: a 1 s window opened after one wave's first
 # launch can close before the next wave. Six seconds hold at least two.
 TOPN_CAPTURE_S = 6.0
-# per client in each telemetry on/off round: 16 since phase 5d joined the
-# run (32 before), to keep the whole run inside its time limit
-COUNT_ROUND_QUERIES = 16
+# per client in each telemetry on/off round: 8 since phase 5e joined the
+# run (16 since 5d, 32 before), to keep the whole run inside its time limit
+COUNT_ROUND_QUERIES = 8
 # the Count pass's rounds: everything on, the heat map off, the kernel
 # statistics off, the telemetry sampler stopped, all off; three rounds of
 # each, in turn and back
 OBS_MODES = ("on", "heat_off", "kernel_stats_off", "sampler_off", "off")
 OBS_SWITCHES = OBS_MODES + OBS_MODES[::-1] + OBS_MODES
-# per client in each heat on/off round of five: 8 since phase 5d joined
-# the run (16 before), to keep the whole run inside its time limit
-SPILL_ROUND_QUERIES = 8
+# per client in each heat on/off round of five: 4 since phase 5e joined
+# the run (8 since 5d, 16 before), to keep the whole run inside its time
+# limit
+SPILL_ROUND_QUERIES = 4
 SPILL_SWITCHES = ("on", "off", "off", "on", "on", "off")  # fields
 METRIC_LINE = None  # compiled at first use
 
@@ -2770,7 +2808,8 @@ def spill_rounds(srv, port: int, clients: int, queries: list,
 
 PLANNER_CHAIN = "Count(Intersect(Row(f=0), Row(f=5), Row(f=2), Row(f=7)))"
 PLANNER_CHAIN_QUERIES = 40  # sequential queries a side in each round
-PLANNER_ROUNDS = 3
+# 2 since phase 5e joined the run (3 before), for the time limit
+PLANNER_ROUNDS = 2
 PLANNER_PANELS = 10  # shared 3-row Count(Intersect) dashboard panels
 PLANNER_PER_CLIENT = 16
 PLANNER_EMPTY_ROW = 4242  # a row of f that holds no bit
@@ -3676,11 +3715,394 @@ def frozen_phase(srv, port: int, cuts: dict, configs, seed: int,
     return {"launches": launches, "stats": stats, "obs": obs}
 
 
+# -------------------------------------------------------- phase 5e: typed
+
+TYPED_INDEX = "startrace"
+TYPED_USERS = 256
+# user u stars about this / (u + 1) repositories: the Star Trace shape's
+# 2,000,000 cut ten times (about 1.2M stars, not 12M): every star of a
+# time field costs a container in each of its four views, and the port's
+# per-container host storage takes about 10 us each to load
+TYPED_STARS_HEAD = 200_000
+TYPED_LICENSES = 16
+TYPED_FORK_SHARE = 0.2
+TYPED_MOVED_SHARE = 0.1
+TYPED_CHUNK_SHARDS = 64  # shards per HTTP import request
+TYPED_T0 = "2019-01-01T00:00:00"
+TYPED_DAYS = 90  # 2019-01-01 .. 2019-03-31
+TYPED_WINDOWS = (("2019-02-04T00:00", "2019-02-11T00:00", "one week"),
+                 ("2019-02-01T00:00", "2019-03-01T00:00", "one month"),
+                 ("2019-01-15T00:00", "2019-03-10T00:00", "ragged span"),
+                 ("2019-01-01T00:00", "2020-01-01T00:00", "whole year"))
+TYPED_USERS_MIX = (0, 1, 2, 3, 5, 8, 13, 21)  # the concurrent pass
+TYPED_LICENSES_MIX = (0, 3, 7, 12)
+TYPED_CLIENTS, TYPED_PER_CLIENT = 32, 16
+TYPED_WARM_REPEATS = 10
+
+
+def make_typed_data(n_shards: int, seed: int) -> dict:
+    """The Star Trace-shaped data, vectorized from the seed: stars (user,
+    repository, epoch second), every starred repository's license before
+    and after a 10 % reassignment, and its fork flag."""
+    rng = np.random.default_rng(seed + 5000)
+    counts = np.maximum(1, np.round(
+        TYPED_STARS_HEAD / (np.arange(TYPED_USERS) + 1)).astype(np.int64))
+    users = np.repeat(np.arange(TYPED_USERS, dtype=np.int64), counts)
+    repos = rng.integers(0, n_shards * SHARD_WIDTH, users.size)
+    t0 = int(np.datetime64(TYPED_T0, "s").astype(np.int64))
+    secs = t0 + rng.integers(0, TYPED_DAYS * 86400, users.size)
+    starred = np.unique(repos)
+    lic0 = rng.integers(0, TYPED_LICENSES, starred.size)
+    moved = np.sort(rng.choice(starred.size,
+                               int(starred.size * TYPED_MOVED_SHARE),
+                               replace=False))
+    moved_to = rng.integers(0, TYPED_LICENSES, moved.size)
+    lic = lic0.copy()
+    lic[moved] = moved_to
+    fork = (rng.random(starred.size) < TYPED_FORK_SHARE).astype(np.int64)
+    return {"users": users, "repos": repos, "secs": secs,
+            "starred": starred, "lic0": lic0, "moved": moved,
+            "moved_to": moved_to, "license": lic, "fork": fork}
+
+
+def _epoch(ts: str) -> int:
+    return int(np.datetime64(ts, "s").astype(np.int64))
+
+
+def _window_repos(d: dict, user: int, window) -> np.ndarray:
+    """Sorted repositories `user` starred within [start, end)."""
+    m = ((d["users"] == user) & (d["secs"] >= _epoch(window[0]))
+         & (d["secs"] < _epoch(window[1])))
+    return np.unique(d["repos"][m])
+
+
+def _post_import(port: int, path: str, body: dict) -> None:
+    _http(port, "POST", path, json.dumps(body).encode())
+
+
+def typed_import(port: int, d: dict, n_shards: int) -> dict:
+    """The three fields through /import in chunks of TYPED_CHUNK_SHARDS
+    shards (each fragment written by one request): stargazer with epoch
+    timestamps (the last chunk as ISO-8601 strings), license, then the
+    reassignment, fork. -> seconds per field."""
+    out = {}
+    sw = SHARD_WIDTH
+    bounds = list(range(0, n_shards + 1, TYPED_CHUNK_SHARDS))
+    if bounds[-1] != n_shards:
+        bounds.append(n_shards)
+    spans = list(zip(bounds[:-1], bounds[1:]))
+
+    def chunks(cols: np.ndarray):
+        order = np.argsort(cols, kind="stable")
+        cuts = np.searchsorted(cols[order], [b * sw for b in bounds])
+        for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            yield i, order[lo:hi]
+
+    t0 = time.perf_counter()
+    for i, idx in chunks(d["repos"]):
+        secs = d["secs"][idx]
+        stamps = (secs.tolist() if i < len(spans) - 1 else
+                  [str(np.datetime64(int(s), "s")) + "Z" for s in secs])
+        _post_import(port, f"/index/{TYPED_INDEX}/field/stargazer/import", {
+            "rowIDs": d["users"][idx].tolist(),
+            "columnIDs": d["repos"][idx].tolist(), "timestamps": stamps})
+    out["stargazer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for rows, cols in ((d["lic0"], d["starred"]),
+                       (d["moved_to"], d["starred"][d["moved"]])):
+        for _, idx in chunks(cols):
+            _post_import(port, f"/index/{TYPED_INDEX}/field/license/import",
+                         {"rowIDs": rows[idx].tolist(),
+                          "columnIDs": cols[idx].tolist()})
+    out["license"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _, idx in chunks(d["starred"]):
+        _post_import(port, f"/index/{TYPED_INDEX}/field/fork/import",
+                     {"rowIDs": d["fork"][idx].tolist(),
+                      "columnIDs": d["starred"][idx].tolist()})
+    out["fork"] = time.perf_counter() - t0
+    return out
+
+
+def _roaring_b64(positions: np.ndarray) -> str:
+    """Shard-local positions as the port's roaring writer serializes them,
+    base64 (the /import-roaring body)."""
+    import base64
+    import io
+
+    from pilosa_tpu_torch.storage.roaring import Bitmap
+
+    b = Bitmap()
+    b.add_many(np.asarray(positions, dtype=np.uint64))
+    buf = io.BytesIO()
+    b.write_to(buf)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def typed_phase(srv, port: int, n_shards: int, seed: int, clients: int,
+                per_client: int) -> dict:
+    """Phase 5e, typed fields (Star Trace): index startrace with a time
+    field stargazer (quantum YMD), a mutex field license, a bool field
+    fork and one shard of a set field extra loaded through
+    /import-roaring; windows, intersections, TopN, Rows, GroupBy, writes
+    (timestamped, mutex and bool Set, ClearRow, Store) and Options checked
+    exactly against a numpy oracle, then clients x per_client
+    Count(Intersect(Range(stargazer=u, window), Row(license=l))). Its own
+    launch counts (zeroed before its first query, read after its last)."""
+    import torch
+
+    from pilosa_tpu_torch.models.timequantum import views_by_time_range
+    from pilosa_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    d = make_typed_data(n_shards, seed)
+    log(f"  data: {d['users'].size} stars by {TYPED_USERS} users over "
+        f"{d['starred'].size} repositories in {n_shards} shards (user u "
+        f"about {TYPED_STARS_HEAD} / (u + 1); cut ten times from "
+        f"2,000,000 / (u + 1)), timestamps over {TYPED_DAYS} days; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    _http(port, "POST", f"/index/{TYPED_INDEX}",
+          json.dumps({"options": {"trackExistence": True}}).encode())
+    for name, opts in (("stargazer", {"type": "time", "timeQuantum": "YMD"}),
+                       ("license", {"type": "mutex"}),
+                       ("fork", {"type": "bool"}), ("extra", {})):
+        _http(port, "POST", f"/index/{TYPED_INDEX}/field/{name}",
+              json.dumps({"options": opts}).encode())
+    import_s = typed_import(port, d, n_shards)
+    rng = np.random.default_rng(seed + 5100)
+    extra = [np.unique(rng.integers(0, SHARD_WIDTH, 3000 // (r + 1)))
+             for r in range(4)]
+    std = np.concatenate([c + r * SHARD_WIDTH for r, c in enumerate(extra)])
+    day = extra[0][::3]
+    t0 = time.perf_counter()
+    _post_import(port, f"/index/{TYPED_INDEX}/field/extra/import-roaring/0",
+                 {"views": {"": _roaring_b64(std),
+                            "standard_20190203": _roaring_b64(day)}})
+    import_s["extra"] = time.perf_counter() - t0
+    f_star = srv.holder.index(TYPED_INDEX).field("stargazer")
+    family = {"standard": 0, "year": 0, "month": 0, "day": 0}
+    frags = 0
+    for name, view in f_star.views.items():
+        fam = ("standard" if name == "standard" else
+               {4: "year", 6: "month", 8: "day"}[len(name) - 9])
+        for frag in view.fragments.values():
+            family[fam] += frag.bit_count()
+            frags += 1
+    log(f"  imports over HTTP: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in import_s.items())
+        + f"; stargazer positions by view family {family} in {len(f_star.views)}"
+        f" views and {frags} fragments; host RSS {_rss_bytes():,} bytes")
+    xv = srv.holder.index(TYPED_INDEX).field("extra").view(
+        "standard_20190203")
+    if xv is None or xv.fragment(0).bit_count() != day.size:
+        raise AssertionError("the import-roaring time view lost bits")
+
+    t0 = time.perf_counter()
+    lic_of = d["license"]
+    starred = d["starred"]
+    wrepos = {(u, k): _window_repos(d, u, w)
+              for u in set(TYPED_USERS_MIX) | {7, 4}
+              for k, w in enumerate(TYPED_WINDOWS)}
+
+    def lic_counts(repos: np.ndarray) -> np.ndarray:
+        return np.bincount(lic_of[np.searchsorted(starred, repos)],
+                           minlength=TYPED_LICENSES)
+
+    per_user = np.bincount(
+        np.unique(d["users"] * (n_shards * SHARD_WIDTH) + d["repos"])
+        // (n_shards * SHARD_WIDTH), minlength=TYPED_USERS)
+    fork_of = d["fork"]
+    w02 = ("2019-01-01T00:00", "2019-03-01T00:00")
+    u0_w02 = _window_repos(d, 0, w02)
+    u0_w02_l3 = u0_w02[lic_of[np.searchsorted(starred, u0_w02)] == 3]
+    lic_in_w = lic_counts(wrepos[(0, 2)])
+    group = {}
+    for lic_r in range(TYPED_LICENSES):
+        for fk in (0, 1):
+            group[(lic_r, fk)] = int(((lic_of == lic_r) & (fork_of == fk)).sum())
+    log(f"  typed oracle: {time.perf_counter() - t0:.1f} s")
+
+    def query(pql: str):
+        return _http(port, "POST", f"/index/{TYPED_INDEX}/query",
+                     pql.encode())["results"][0]
+
+    def check(pql: str, want) -> None:
+        t = time.perf_counter()
+        got = query(pql)
+        ms = (time.perf_counter() - t) * 1e3
+        if got != want:
+            raise AssertionError(f"{pql}: port {str(got)[:300]} != oracle "
+                                 f"{str(want)[:300]}")
+        log(f"  {pql[:110]} = {str(got)[:60]} (oracle agrees; {ms:.1f} ms)")
+
+    def rng_pql(u: int, k: int) -> str:
+        w = TYPED_WINDOWS[k]
+        return f"Range(stargazer={u}, {w[0]}, {w[1]})"
+
+    start_window()  # the typed path starts here
+    windows = []
+    for k, w in enumerate(TYPED_WINDOWS):
+        n_views = len(views_by_time_range("standard",
+                                          np.datetime64(w[0]).item(),
+                                          np.datetime64(w[1]).item(), "YMD"))
+        pql = f"Count({rng_pql(0, k)})"
+        want = int(wrepos[(0, k)].size)
+        t0 = time.perf_counter()
+        got = query(pql)
+        cold = (time.perf_counter() - t0) * 1e3
+        if got != want:
+            raise AssertionError(f"{pql}: port {got} != oracle {want}")
+        warm = []
+        for _ in range(TYPED_WARM_REPEATS):
+            t0 = time.perf_counter()
+            if query(pql) != want:
+                raise AssertionError(f"{pql}: a warm answer differs")
+            warm.append((time.perf_counter() - t0) * 1e3)
+        windows.append({"window": w[2], "views": n_views, "count": got,
+                        "cold_ms": cold,
+                        "warm_p50_ms": statistics.median(warm)})
+        log(f"  {pql} = {got} (oracle agrees): {n_views} views, cold "
+            f"{cold:.1f} ms (the leaf built from {n_views} x {n_shards} "
+            f"fragments), warm p50 {statistics.median(warm):.2f} ms")
+    checks = [
+        (f"Count(Intersect(Range(stargazer=0, {w02[0]}, {w02[1]}), "
+         "Row(license=3)))", int(u0_w02_l3.size)),
+        (f"Count(Intersect(Range(stargazer=0, {w02[0]}, {w02[1]}), "
+         "Row(license=3), Row(fork=true)))",
+         int((fork_of[np.searchsorted(starred, u0_w02_l3)] == 1).sum())),
+        # three dense leaves: the program kernel's form
+        (f"Count(Intersect({rng_pql(0, 3)}, {rng_pql(1, 3)}, "
+         f"{rng_pql(2, 3)}))",
+         int(np.intersect1d(np.intersect1d(wrepos[(0, 3)], wrepos[(1, 3)]),
+                            wrepos[(2, 3)]).size)),
+        (f"Count(Union({rng_pql(3, 0)}, {rng_pql(4, 1)}, {rng_pql(5, 2)}))",
+         int(np.union1d(np.union1d(wrepos[(3, 0)], wrepos[(4, 1)]),
+                        wrepos[(5, 2)]).size)),
+        ("TopN(stargazer, n=10)", _pairs(per_user)[:10]),
+        (f"TopN(license, {rng_pql(0, 2)}, n=5)", _pairs(lic_in_w)[:5]),
+        ("Rows(field=license)", {"rows": list(range(TYPED_LICENSES))}),
+        ("GroupBy(Rows(field=license), Rows(field=fork))",
+         _groups(["license", "fork"], group)),
+        ("Count(Row(fork=true))", int(fork_of.sum())),
+        ("Count(Row(extra=1))", int(extra[1].size)),
+    ]
+    t0 = time.perf_counter()
+    for pql, want in checks:
+        check(pql, want)
+    single_s = time.perf_counter() - t0
+
+    # the concurrent pass over resident leaves: 32 range leaves and the
+    # four license rows read once first
+    mix = []
+    t0 = time.perf_counter()
+    for u in TYPED_USERS_MIX:
+        for k in range(len(TYPED_WINDOWS)):
+            check(f"Count({rng_pql(u, k)})", int(wrepos[(u, k)].size))
+            lc = lic_counts(wrepos[(u, k)])
+            mix += [(f"Count(Intersect({rng_pql(u, k)}, Row(license={lr})))",
+                     int(lc[lr])) for lr in TYPED_LICENSES_MIX]
+    for lr in TYPED_LICENSES_MIX:
+        check(f"Count(Row(license={lr}))", int((lic_of == lr).sum()))
+    warm_s = time.perf_counter() - t0
+    lat, wall, obs = concurrent_mix(
+        port, clients, per_client, mix, seed + 5200,
+        lambda: during_pass(port, (mix[0][0], None, True, TYPED_INDEX),
+                            SHORT_CAPTURE_S),
+        index=TYPED_INDEX)
+    stats = {"queries": len(lat), "qps": len(lat) / wall,
+             "p50_ms": statistics.median(lat) * 1e3,
+             "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+             "stars": int(d["users"].size),
+             "repositories": int(starred.size),
+             "import_s": import_s, "positions_by_view_family": family,
+             "stargazer_views": len(f_star.views),
+             "stargazer_fragments": frags, "windows": windows,
+             "single_queries_s": single_s, "warm_leaves_s": warm_s}
+    log(f"  concurrent: {clients} clients x {per_client} Count(Intersect("
+        f"Range(stargazer=u, window), Row(license=l))) over "
+        f"{len(TYPED_USERS_MIX)} users x {len(TYPED_WINDOWS)} windows x "
+        f"{len(TYPED_LICENSES_MIX)} licenses, plan cache off: "
+        f"{stats['qps']:.1f} q/s, p50 {stats['p50_ms']:.2f} ms, p99 "
+        f"{stats['p99_ms']:.2f} ms")
+
+    # writes over HTTP, each followed by the reads it changes
+    t0 = time.perf_counter()
+    free_col = int(np.setdiff1d(np.arange(10_000, 20_000), d["repos"])[0])
+    want = int(wrepos[(3, 0)].size) + 1
+    check(f"Set({free_col}, stargazer=3, 2019-02-05T10:00)", True)
+    check(f"Count({rng_pql(3, 0)})", want)
+    lic2 = starred[lic_of == 2]
+    c2 = int(lic2[0])
+    n2, n5 = int(lic2.size), int((lic_of == 5).sum())
+    check(f"Set({c2}, license=5)", True)
+    check("Count(Row(license=2))", n2 - 1)
+    check("Count(Row(license=5))", n5 + 1)
+    check(f"Count(Intersect(Row(license=2), Row(license=5)))", 0)
+    cf = int(starred[fork_of == 1][0])
+    check(f"Set({cf}, fork=false)", True)
+    check("Count(Row(fork=true))", int(fork_of.sum()) - 1)
+    check("ClearRow(stargazer=7)", True)
+    for k in range(len(TYPED_WINDOWS)):
+        check(f"Count({rng_pql(7, k)})", 0)
+    u0_w02_l3 = u0_w02_l3[u0_w02_l3 != c2]  # c2 had license 2, not 3
+    check(f"Store(Intersect(Range(stargazer=0, {w02[0]}, {w02[1]}), "
+          "Row(license=3)), saved=1)", True)
+    check("Count(Row(saved=1))", int(u0_w02_l3.size))
+    sub = (0, 5, 9)
+    l3 = starred[lic_of == 3]
+    check(f"Options(Row(license=3), shards=[{', '.join(map(str, sub))}])",
+          {"attrs": {}, "columns": l3[np.isin(l3 // SHARD_WIDTH,
+                                              sub)].tolist()})
+    check("Options(Row(license=3), excludeColumns=true)",
+          {"attrs": {}, "columns": []})
+    writes_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()  # the typed path ends here
+    obs["scrape"] = observe_path(port, "typed", launches)
+    res = srv.executor.residency.snapshot()
+    stats.update({"writes_s": writes_s, "resident_bytes": res["bytes"],
+                  "device_allocated_bytes": torch.cuda.memory_allocated(),
+                  "host_rss_bytes": _rss_bytes()})
+    log(f"  launches on the typed path: {launches}")
+    log(f"  device bytes resident {res['bytes']:,} (allocated "
+        f"{stats['device_allocated_bytes']:,}); host RSS "
+        f"{stats['host_rss_bytes']:,} bytes; writes and their reads "
+        f"{writes_s:.1f} s")
+    for name in ("pair_stream_counts", "program_count",
+                 "sparse_intersect_dense", "topn_counts_packed"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the typed path")
+    t0 = time.perf_counter()
+    srv.holder.delete_index(TYPED_INDEX)  # its host memory and files
+    stats["delete_s"] = time.perf_counter() - t0
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"  index deleted in {stats['delete_s']:.1f} s; typed phase: "
+        f"{stats['phase_s']:.1f} s")
+    return {"launches": launches, "stats": stats, "obs": obs}
+
+
+def typed_only(device, seed: int) -> dict:
+    """Phase 5e alone on a fresh server."""
+    from pilosa_tpu_torch.server import Server
+
+    with tempfile.TemporaryDirectory(prefix="pilosa_torch_typed_") as tmp:
+        srv = Server(os.path.join(tmp, "data"), port=0, device=device).open()
+        srv.executor.plan_cache.enabled = False
+        try:
+            out = typed_phase(srv, srv.http.port, 1024, seed,
+                              TYPED_CLIENTS, TYPED_PER_CLIENT)
+        finally:
+            srv.close()
+    return {"launches": out["launches"], **out["stats"]}
+
+
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
                  clients: int, per_client: int, profile: bool,
                  bsi: tuple, topn: tuple, hybrid: tuple, ingest: tuple,
                  count_only: bool = False, ingest_only: bool = False,
-                 frozen: tuple = (FROZEN_CUTS, FROZEN_CONFIGS)) -> dict:
+                 frozen: tuple = (FROZEN_CUTS, FROZEN_CONFIGS),
+                 typed: tuple = (TYPED_CLIENTS, TYPED_PER_CLIENT)) -> dict:
     """The Count path, then (unless count_only or ingest_only) the BSI
     path, the TopN/GroupBy path, the hybrid path, the planner and the
     frozen loads, then (unless count_only) the write path, on the same
@@ -3689,8 +4111,8 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
     hybrid = seed, clients, queries per client; ingest = writers,
     envelopes per writer, calls per envelope, readers, envelopes per
     writer in each on/off turn; frozen = phase 5d's cuts and
-    configurations). ingest_only loads s and r without the hybrid phase's
-    checks."""
+    configurations; typed = phase 5e's clients and queries per client).
+    ingest_only loads s and r without the hybrid phase's checks."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels
@@ -3902,6 +4324,8 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                                                pair, n_shards, clients, seed)
                 log("phase 5d: frozen bulk loads on the same server")
                 out["frozen"] = frozen_phase(srv, port, *frozen, seed)
+                log("phase 5e: typed fields (Star Trace) on the same server")
+                out["typed"] = typed_phase(srv, port, n_shards, seed, *typed)
             log("phase 6: write path (coalesced Set/Clear) on the same "
                 "server, under concurrent reads")
             out["ingest"] = ingest_phase(srv, port, p, exists_all, s_rows,
@@ -4012,9 +4436,12 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=8)
     ap.add_argument("--slab-rows", type=int, default=32)
     ap.add_argument("--k", type=int, default=1024)
-    ap.add_argument("--runs", type=int, default=10)
+    # timed runs a kernel measurement: 6 since phase 5e joined the run (10
+    # before), to keep the whole run inside its time limit
+    ap.add_argument("--runs", type=int, default=6)
     ap.add_argument("--clients", type=int, default=32)
-    ap.add_argument("--per-client", type=int, default=64)
+    # the Count pass: 32 a client since phase 5e joined the run (64 before)
+    ap.add_argument("--per-client", type=int, default=32)
     ap.add_argument("--bsi-per-shard", type=int, default=32768,
                     help="int values per shard of the BSI phase")
     ap.add_argument("--bsi-clients", type=int, default=32)
@@ -4037,6 +4464,9 @@ def main(argv=None) -> int:
     ap.add_argument("--frozen-configs", default=",".join(FROZEN_CONFIGS),
                     help="phase 5d's configurations, comma-separated, of "
                          + ", ".join(FROZEN_CONFIGS))
+    ap.add_argument("--typed-only", action="store_true",
+                    help="run phases 1 and 5e alone and print their "
+                         "numbers")
     ap.add_argument("--kernel-times", action="store_true",
                     help="time program_count, intersect_count and "
                          "sparse_intersect_dense alone (no server) and "
@@ -4074,6 +4504,12 @@ def main(argv=None) -> int:
     configs = tuple(c for c in args.frozen_configs.split(",") if c)
     if set(configs) - set(FROZEN_CONFIGS):
         raise SystemExit(f"unknown configurations {configs}")
+    if args.typed_only:
+        measured = typed_only(device, args.seed)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        print(smi_name)
+        print(json.dumps({"typed": measured}), flush=True)
+        return 0
     if args.frozen_only or args.frozen_scale is not None:
         measured = frozen_only(device, args.frozen_scale, configs, args.seed)
         log(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -4135,7 +4571,8 @@ def main(argv=None) -> int:
     records = []
     paths = {"count": served, "bsi": served["bsi"], "topn": served["topn"],
              "hybrid": served["hybrid"], "planner": served["planner"],
-             "frozen": served["frozen"], "ingest": served["ingest"]}
+             "frozen": served["frozen"], "typed": served["typed"],
+             "ingest": served["ingest"]}
     for name, m in measured.items():
         # launches on every path of the main run (each path zeroes the
         # counts before its first query and reads them after its last)

@@ -1,8 +1,10 @@
 """API: the validated facade over holder + executor.
 
 Trimmed port of pilosa_tpu/api.py: create/delete index (with
-trackExistence), create field, bulk imports of bits and of int values
-with existence marking (api.py:820-842), queries, schema and status.
+trackExistence), create field, bulk imports of bits (with timestamps for
+a time field's views, :681-745) and of int values with existence marking
+(api.py:820-842), the per-shard roaring import (:844-880), queries,
+schema and status.
 Result JSON is the reference's (api.py:567-603) for the result types of
 this slice: Row, ValCount ({"value", "count"}), Pairs ([{"id", "count"}]),
 RowIdentifiers ({"rows": [...]}), GroupCounts (a list), int and bool.
@@ -37,11 +39,49 @@ from pilosa_tpu_torch.executor import (
 from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.models.row import Row
+from pilosa_tpu_torch.models.view import VIEW_STANDARD
 from pilosa_tpu_torch.pql import parse_string_cached
 from pilosa_tpu_torch.pql.ast import WRITE_CALLS
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import tracing
+
+
+_EPOCH = datetime(1970, 1, 1)
+
+
+def import_timestamps(timestamps) -> np.ndarray:
+    """An import's timestamps as datetime64[us] with NaT for "none", read
+    as the JAX package's import_bits reads them (api.py:697-741): epoch
+    seconds (0 and None: no timestamp) or ISO-8601 strings, with or
+    without a Z; anything else is a 400. A list of plain numbers converts
+    in numpy without a Python loop."""
+    ts = list(timestamps)
+    if set(map(type, ts)) <= {int, float, type(None)}:
+        # 0 and None mean "no timestamp", as the wire's zero value does
+        secs = np.asarray([0 if t is None else t for t in ts],
+                          dtype=np.float64)
+        us = np.round(secs * 1e6).astype(np.int64).astype("datetime64[us]")
+        return np.where(secs != 0, us, np.datetime64("NaT", "us"))
+    out = np.full(len(ts), np.datetime64("NaT", "us"))
+    for i, t in enumerate(ts):
+        if isinstance(t, str):
+            try:
+                t = datetime.fromisoformat(
+                    t[:-1] + "+00:00" if t[-1:] in ("Z", "z") else t)
+            except ValueError:
+                raise ApiError(f"invalid import timestamp: {t!r}")
+            if t.tzinfo is not None:
+                t = t.astimezone(timezone.utc).replace(tzinfo=None)
+            if t != _EPOCH:  # epoch 0 is "no timestamp" there too
+                out[i] = np.datetime64(t, "us")
+        elif t is None or isinstance(t, (int, float)) \
+                and not isinstance(t, bool):
+            if t:
+                out[i] = np.datetime64(round(t * 1e6), "us")
+        else:
+            raise ApiError(f"invalid import timestamp: {t!r}")
+    return out
 
 
 class ApiError(Exception):
@@ -228,17 +268,18 @@ class API:
     # -- imports ------------------------------------------------------------
 
     def import_bits(self, index_name: str, field_name: str,
-                    row_ids, column_ids, clear: bool = False) -> None:
+                    row_ids, column_ids, clear: bool = False,
+                    timestamps=None) -> None:
         """Bulk import of (row, column) bits; marks the columns in the
-        existence field unless clearing."""
+        existence field unless clearing. `timestamps` (one per bit, as
+        import_timestamps reads them) place a time field's bits in their
+        quantum's views; other field types ignore them."""
         index = self.holder.index(index_name)
         if index is None:
             raise NotFoundError(f"index not found: {index_name}")
         f = index.field(field_name)
         if f is None:
             raise NotFoundError(f"field not found: {field_name}")
-        if f.options.type != "set":
-            raise ApiError(f"field type {f.options.type!r} not ported yet")
         if row_ids is None or column_ids is None:
             raise ApiError("import requires rows and columns")
         rows = np.asarray(row_ids, dtype=np.int64).reshape(-1)
@@ -247,7 +288,11 @@ class API:
             raise ApiError("row/column length mismatch")
         if rows.size and (rows.min() < 0 or cols.min() < 0):
             raise ApiError("row and column ids must be non-negative")
-        f.import_bits(rows, cols, clear=clear)
+        ts = import_timestamps(timestamps) if timestamps else None
+        try:
+            f.import_bits(rows, cols, ts, clear=clear)
+        except ValueError as e:
+            raise ApiError(str(e))
         if not clear:
             # clears do not retract existence: other fields may still
             # hold the column
@@ -273,6 +318,29 @@ class API:
         except ValueError as e:
             raise ApiError(str(e))
         index.mark_exists(cols)
+
+    def import_roaring(self, index_name: str, field_name: str, shard: int,
+                       views: dict, clear: bool = False) -> None:
+        """POST /index/{i}/field/{f}/import-roaring/{shard} (:844-880):
+        one serialized roaring bitmap of shard-local positions per view
+        ("" is the standard view), unioned into (or cleared from) that
+        view's fragment of the shard. Existence is not marked, as in the
+        JAX package."""
+        index = self.holder.index(index_name)
+        if index is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        f = index.field(field_name)
+        if f is None:
+            raise NotFoundError(f"field not found: {field_name}")
+        for vname, data in views.items():
+            view = f.create_view_if_not_exists(vname or VIEW_STANDARD)
+            frag = view.create_fragment_if_not_exists(shard)
+            try:
+                frag.import_roaring(data, clear=clear)
+            except ValueError as e:
+                raise ApiError(f"unmarshalling roaring data: {e}")
+            view.refresh_rank_cache(shard)
+        f.add_available_shards([shard])
 
     # -- status -------------------------------------------------------------
 

@@ -35,7 +35,14 @@ axis into one resident [R, S, W] slab and counts every level past the
 first with the cross_count_matrix kernel, pruned on the device, one host
 fetch per level.
 
-Not(x) is existence &~ x (executor.py:1317-1322).
+Not(x) is existence &~ x (executor.py:1317-1322). A time Range(f=row,
+start, end) is a leaf too: the OR of the row over the views that cover
+[start, end) (models/timequantum.py), built on the host and resident
+under every covered view's generations (:1236-1252, :1622-1640).
+
+Rows are read the same way from set, mutex, bool and time fields (the
+standard view holds every bit of a time field); a bool row may be given
+as true or false.
 
 Row and existence leaves take the form the HybridManager picks per row
 (planner.choose_representation; executor.py:1209-1292): a sparse index
@@ -56,8 +63,11 @@ existence is marked through the same batch apply, and the resident dense
 and sparse leaves of the changed rows are patched in place on the device
 (DeviceResidency.patch_entries; run leaves are dropped), so a read after
 a write uploads nothing. What the batch cannot take as the per-bit path
-would (int fields, other field types, timestamps, string keys, missing
-fields) takes the per-bit path. Reads of an index wait while a batch is
+would (int fields, mutex, bool and time fields, timestamps, string
+keys, missing fields) takes the per-bit path. ClearRow, Store and Options
+(:2535-2577, :3824-3836) run per call; the port logs ClearRow's and
+Store's bits to the WAL, so they survive a reopen (the JAX package's do
+not: ROADMAP Queue C 5). Reads of an index wait while a batch is
 applied to it and its leaves patched (ApplyFence, the port's own), so no
 read builds a key whose generations are half before and half after a
 batch.
@@ -89,9 +99,9 @@ off when the executor is built; `plan_cache.enabled` switches the cache at
 run time.
 
 Left out: the cluster (its distributed and remote ingest applies
-included), key translation, time views and row attributes. None of them
-changes an answer. Calls, field types and
-options outside the slice raise NotPortedError (a 400 at the API).
+included), key translation and row attributes. None of them changes an
+answer. Calls and options outside the slice raise NotPortedError (a 400
+at the API).
 """
 
 from __future__ import annotations
@@ -101,6 +111,7 @@ import os
 import threading
 import time
 from collections import OrderedDict
+from datetime import datetime
 from typing import Optional
 
 import numpy as np
@@ -114,7 +125,8 @@ from pilosa_tpu_torch.constants import (
 )
 from pilosa_tpu_torch.device import planes_to_tensor
 from pilosa_tpu_torch.models.cache import merge_pair_arrays, merge_pairs
-from pilosa_tpu_torch.models.field import NotPortedError
+from pilosa_tpu_torch.models import timequantum
+from pilosa_tpu_torch.models.field import INT, SET, NotPortedError
 from pilosa_tpu_torch.models.index import Index
 from pilosa_tpu_torch.models.row import Row
 from pilosa_tpu_torch.models.view import VIEW_BSI_PREFIX, VIEW_STANDARD
@@ -330,7 +342,10 @@ class Executor:
     def _execute_call(self, index: Index, call: Call, shards):
         """Plan the call, install its plan node for the evaluation to fill
         (cache events, hybrid choices, the actual cardinality) and record
-        it on the profile, then dispatch (executor.py:573-594)."""
+        it on the profile, then dispatch (executor.py:573-594). Options()
+        wraps its child before planning."""
+        if call.name == "Options":
+            return self._execute_options(index, call, shards)
         plan_tok = None
         if self.planner is not None and call.name in planner.PLANNED_CALLS:
             call, plan_info = self.planner.plan_call(
@@ -357,6 +372,10 @@ class Executor:
             return self._execute_set(index, call)
         if call.name == "Clear":
             return self._execute_clear(index, call)
+        if call.name == "ClearRow":
+            return self._execute_clear_row(index, call)
+        if call.name == "Store":
+            return self._execute_store(index, call, shards)
         if call.name == "TopN":
             return self._execute_topn(index, call, shards)
         if call.name == "Rows":
@@ -374,13 +393,11 @@ class Executor:
 
     # ----------------------------------------------------- bitmap programs
 
-    def _set_field(self, index: Index, field_name: str):
+    @staticmethod
+    def _field(index: Index, field_name: str):
         f = index.field(field_name)
         if f is None:
             raise ExecutionError(f"field not found: {field_name}")
-        if f.options.type != "set":
-            raise NotPortedError(
-                f"field type {f.options.type!r} not ported yet")
         return f
 
     @staticmethod
@@ -588,7 +605,7 @@ class Executor:
         def walk(c: Call):
             if c.name == "Row":
                 field_name = c.field_arg()
-                self._set_field(index, field_name)
+                self._field(index, field_name)
                 row_id = self._row_id(c.args[field_name])
                 return leaf(*self._chosen_leaf(index, field_name, shards,
                                                row_id, c))
@@ -612,11 +629,48 @@ class Executor:
                                              shards, 0))
                 return ("andnot", ex, walk(c.children[0]))
             if c.name == "Range":
+                if "_start" in c.args or "_end" in c.args:
+                    return leaf(self._time_range_leaf_dev(index, c, shards))
                 return leaf(self._range_leaf_dev(index, c, shards))
             raise ExecutionError(f"expected bitmap call, got {c.name}")
 
         program = walk(call)
         return program, leaves, kinds
+
+    def _time_range(self, index: Index, c: Call) -> tuple:
+        """(field, row id, views) of a time Range(f=row, start, end): the
+        views are views_by_time_range's minimal cover of [start, end)
+        (executor.py:1236-1252); a field without a quantum has none."""
+        field_name = c.field_arg()
+        f = self._field(index, field_name)
+        row_id = self._row_id(c.args[field_name])
+        start, end = c.args.get("_start"), c.args.get("_end")
+        if not isinstance(start, datetime) or not isinstance(end, datetime):
+            raise ExecutionError("Range() requires start and end timestamps")
+        return f, row_id, tuple(timequantum.views_by_time_range(
+            VIEW_STANDARD, start, end, f.options.time_quantum))
+
+    def _time_range_leaf_dev(self, index: Index, c: Call, shards: list):
+        """Resident [S, W] plane of a time Range: the OR of the covered
+        views' rows, built on the host (_materialize_range_call,
+        executor.py:1622-1640) and keyed by every view's generations, so a
+        write into any covered view changes the key."""
+        f, row_id, views = self._time_range(index, c)
+        gens = tuple(self._leaf_gens(index, f.name, v, shards, row_id)
+                     for v in views)
+        key = ("timerange", index.name, f.name, row_id, views, tuple(shards),
+               gens)
+
+        def make():
+            out = np.zeros((len(shards), WORDS_PER_SHARD), dtype=np.uint32)
+            for v in views:
+                for i, fr in enumerate(self._fragments(index, f.name, v,
+                                                       shards)):
+                    if fr is not None:
+                        out[i] |= fr.row_dense(row_id)
+            return out
+
+        return self.residency.leaf(key, make)
 
     def _eval_program(self, program, leaves: list, kinds: list) -> tuple:
         """(kind, device result) of a compiled program: an all-dense one
@@ -692,8 +746,9 @@ class Executor:
         """One read charge of every fragment under a bitmap call tree, on
         a plan-cache hit (executor.py:1414-1453): the hit never reaches
         the leaf reads, and the caller still read exactly these
-        fragments. Row: the standard view; Range: the BSI view; Not: the
-        existence row."""
+        fragments. Row: the standard view; Range: the BSI view, or a time
+        Range's standard view (as the JAX package approximates it); Not:
+        the existence row."""
         tracker = self.heat
         if tracker is None or not tracker.enabled:
             return
@@ -703,10 +758,12 @@ class Executor:
             if c.name == "Row":
                 pairs.append((c.field_arg(), VIEW_STANDARD))
             elif c.name == "Range":
-                for k, v in c.args.items():
-                    if isinstance(v, Condition):
-                        pairs.append((k, VIEW_BSI_PREFIX + k))
-                        break
+                cond = [k for k, v in c.args.items()
+                        if isinstance(v, Condition)]
+                if cond:
+                    pairs.append((cond[-1], VIEW_BSI_PREFIX + cond[-1]))
+                else:
+                    pairs.append((c.field_arg(), VIEW_STANDARD))
             elif c.name == "Not":
                 pairs.append((EXISTENCE_FIELD_NAME, VIEW_STANDARD))
             for ch in c.children:
@@ -852,8 +909,6 @@ class Executor:
     def _range_leaf_dev(self, index: Index, c: Call, shards: list):
         """Resident [S, W] mask of a Range(v op x) condition, keyed by the
         condition and every generation of the field's BSI rows."""
-        if "_start" in c.args or "_end" in c.args:
-            raise NotPortedError("time ranges not ported yet")
         cond_field, cond = None, None
         for k, v in c.args.items():
             if isinstance(v, Condition):
@@ -1423,30 +1478,27 @@ class Executor:
 
     # --------------------------------------------------------------- writes
 
-    def _write_field(self, index: Index, call: Call):
-        field_name = call.field_arg()
-        f = index.field(field_name)
-        if f is not None and f.options.type == "int":
-            return f
-        return self._set_field(index, field_name)
-
     def _execute_set(self, index: Index, call: Call) -> bool:
+        """Set (executor.py:2482-2500): a value on an int field, else a
+        bit, into every view of a timestamped write on a time field; a
+        mutex or bool field clears the column's other rows first."""
         col = self._column(call)
-        f = self._write_field(index, call)
-        if f.options.type == "int":
+        f = self._field(index, call.field_arg())
+        if f.options.type == INT:
             changed = f.set_value(col, int(call.args[f.name]))
         else:
-            if "_timestamp" in call.args:
-                raise NotPortedError("timestamps not ported yet")
-            changed = f.set_bit(self._row_id(call.args[f.name]), col)
+            changed = f.set_bit(self._row_id(call.args[f.name]), col,
+                                timestamp=call.args.get("_timestamp"))
         index.mark_exists([col])
         self._heat_write(index, f, col)  # every Set, as executor.py:2499
         return changed
 
     def _execute_clear(self, index: Index, call: Call) -> bool:
+        """Clear (executor.py:2514-2533): a bit in every view but the BSI
+        one, or an int field's value."""
         col = self._column(call)
-        f = self._write_field(index, call)
-        if f.options.type == "int":
+        f = self._field(index, call.field_arg())
+        if f.options.type == INT:
             changed = f.clear_value(col)
         else:
             changed = f.clear_bit(self._row_id(call.args[f.name]), col)
@@ -1460,8 +1512,71 @@ class Executor:
         tracker = self.heat
         if tracker is None or not tracker.enabled:
             return
-        view = f.bsi_view_name if f.options.type == "int" else VIEW_STANDARD
+        view = f.bsi_view_name if f.options.type == INT else VIEW_STANDARD
         tracker.touch(index.name, f.name, view, col // SHARD_WIDTH, writes=1)
+
+    def _execute_clear_row(self, index: Index, call: Call) -> bool:
+        """ClearRow(f=row) (executor.py:2535-2553): the row cleared in
+        every fragment of every view but the BSI one, each changed
+        fragment charged one write. As in the JAX package the rank caches
+        are left as they are (a TopN recounts its winners). Durable:
+        Fragment.clear_row logs to the WAL."""
+        f = self._field(index, call.field_arg())
+        row_id = self._row_id(call.args[f.name])
+        tracker = self.heat
+        changed = False
+        for v in list(f.views.values()):
+            if v.name.startswith(VIEW_BSI_PREFIX):
+                continue
+            for s, frag in list(v.fragments.items()):
+                if frag.clear_row(row_id) > 0:
+                    changed = True
+                    if tracker is not None and tracker.enabled:
+                        tracker.touch(index.name, f.name, v.name, s,
+                                      writes=1)
+        return changed
+
+    def _execute_store(self, index: Index, call: Call, shards) -> bool:
+        """Store(bitmap, f=row) (executor.py:2555-2577): the row replaced,
+        over the query's shards, by the bitmap's columns; the field is
+        created with the default options where it is missing. Durable:
+        Fragment.set_row logs to the WAL."""
+        if len(call.children) != 1:
+            raise ExecutionError("Store() takes exactly one bitmap argument")
+        field_name = call.field_arg()
+        f = index.field(field_name)
+        if f is None:
+            f = index.create_field(field_name)
+        row_id = self._row_id(call.args[field_name])
+        row = self._execute_bitmap_call(index, call.children[0], shards)
+        view = f.create_view_if_not_exists(VIEW_STANDARD)
+        qshards = self._query_shards(index, shards)
+        tracker = self.heat
+        if tracker is not None and tracker.enabled:
+            tracker.touch_many(_heat.Frags(index.name, f.name, VIEW_STANDARD,
+                                           tuple(qshards)), writes=1)
+        empty = np.empty(0, dtype=np.uint64)
+        for s in qshards:
+            frag = view.create_fragment_if_not_exists(s)
+            frag.set_row(row_id, row.segments.get(s, empty))
+            view.refresh_rank_cache(s)
+        f.add_available_shards(qshards)
+        return True
+
+    def _execute_options(self, index: Index, call: Call, shards):
+        """Options(call, shards=[...], excludeColumns=, excludeRowAttrs=)
+        (executor.py:3824-3836): the child over the given shards; the
+        flags empty a Row result's columns or attributes."""
+        if len(call.children) != 1:
+            raise ExecutionError("Options() takes exactly one query argument")
+        if call.args.get("shards") is not None:
+            shards = [int(s) for s in call.uint_slice_arg("shards")]
+        result = self._execute_call(index, call.children[0], shards)
+        if call.bool_arg("excludeColumns") and isinstance(result, Row):
+            result.segments = {}
+        if call.bool_arg("excludeRowAttrs") and isinstance(result, Row):
+            result.attrs = {}
+        return result
 
     @staticmethod
     def _column(call: Call) -> int:
@@ -1477,9 +1592,13 @@ class Executor:
     def _ingest_mutation(self, index: Index, call: Call, fields: dict):
         """One Set/Clear -> a Mutation, or None where only the per-bit path
         answers as it does (executor.py:3169): a missing field (its error),
-        a field that is not a set field (int fields write per plane),
-        timestamps, string keys. `fields` caches field resolution across
-        the envelope (False: not batchable)."""
+        a field that is not a set field (int fields write per plane, mutex
+        and bool fields clear other rows, time fields write time views),
+        timestamps, string keys, and a set field holding views besides the
+        standard one (an import-roaring can add them; the per-bit Clear
+        clears every view, the batch apply only the standard one).
+        `fields` caches field resolution across the envelope (False: not
+        batchable)."""
         args = call.args
         fname = None
         for k, v in args.items():  # call.field_arg(), without the raise
@@ -1491,7 +1610,8 @@ class Executor:
             if fname is None:
                 return None
             f = index.field(fname)
-            if f is None or f.options.type != "set":
+            if (f is None or f.options.type != SET
+                    or any(v != VIEW_STANDARD for v in f.views)):
                 fields[fname] = False
                 return None
             fields[fname] = f
@@ -1939,7 +2059,24 @@ class Executor:
 
         def range_leaf(c: Call) -> dict:
             if "_start" in c.args or "_end" in c.args:
-                raise NotPortedError("time ranges not ported yet")
+                f, row_id, views = self._time_range(index, c)
+                leaf_reps.append("dense")
+                gens = tuple(self._leaf_gens(index, f.name, v, shards,
+                                             row_id) for v in views)
+                nbytes = self.residency.probe(
+                    ("timerange", index.name, f.name, row_id, views,
+                     shards_t, gens))
+                return {"kind": "timerange",
+                        "expr": qprofile.truncate_pql(c.to_pql(), 96),
+                        "field": f.name, "rowId": row_id,
+                        "views": len(views), "rep": "dense",
+                        "kernelFamily": "bitwise",
+                        "residency": {"resident": nbytes is not None,
+                                      "rep": "dense"
+                                      if nbytes is not None else None,
+                                      "generationMatch": nbytes is not None},
+                        "estimatedH2dBytes":
+                            0 if nbytes is not None else plane_bytes}
             cond_field, cond = None, None
             for k, v in c.args.items():
                 if isinstance(v, Condition):

@@ -1,22 +1,26 @@
 """Field: a typed sub-matrix of an index.
 
-Trimmed copy of pilosa_tpu/models/field.py: `set` fields on the standard
-view, and `int` fields whose values live bit-sliced in the `bsig_<field>`
-view (rows 0..depth-1 the place values of value - min, row depth the
-not-null row; :95-107, :245-277, :340-383). Options and the
-available-shards bitmap persist in the reference's files (`.meta` JSON,
-`.available.shards` roaring), so either package opens a field the other
-wrote. Keys, time quantums and the mutex, bool and time types open (so a
-data dir the JAX package wrote loads whole) but cannot be created or
-queried here: they are not ported yet.
+Trimmed copy of pilosa_tpu/models/field.py: the five field types (set,
+int, time, mutex, bool; :32-65). Set, mutex, bool and time fields keep
+their bits in the standard view; a time field also writes each
+timestamped bit into one `standard_<YYYY[MM[DD[HH]]]>` view per unit of
+its quantum (models/timequantum.py; :195-220); mutex and bool fields
+hold at most one row per column, clearing the column's other rows before
+a set (:206-243) and, in a bulk import, letting the last write of a
+column win (Fragment.bulk_import_mutex). Int fields keep their values
+bit-sliced in the `bsig_<field>` view (rows 0..depth-1 the place values
+of value - min, row depth the not-null row; :95-107, :245-277,
+:340-383). Options and the available-shards bitmap persist in the
+reference's files (`.meta` JSON, `.available.shards` roaring), so either
+package opens a field the other wrote. Keyed fields are not ported yet.
 
-A set field's standard view tracks rank (a rank cache per fragment, the
-TopN candidates) unless its cache type is "none"; `bsig_` views never do
-(:109-111, :152-166). A bulk import rebuilds each touched shard's cache
-after its apply (:309). import_rows_frozen and import_values_frozen
-(:312-338, :385-410) are the BASELINE-scale loads: each shard's fragment
-freezes in one shot from a numpy position array (storage/frozen.py),
-volatile until it is snapshotted.
+Every view of a set, mutex, bool or time field tracks rank (a rank cache
+per fragment, the TopN candidates) unless its cache type is "none";
+`bsig_` views never do (:109-111, :152-166). A bulk import rebuilds each
+touched fragment's cache after its apply (:309). import_rows_frozen and
+import_values_frozen (:312-338, :385-410) are the BASELINE-scale loads:
+each shard's fragment freezes in one shot from a numpy position array
+(storage/frozen.py), volatile until it is snapshotted.
 """
 
 from __future__ import annotations
@@ -26,12 +30,15 @@ import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import asdict, dataclass
+from datetime import datetime
 from typing import Optional
 
 import numpy as np
 
 from pilosa_tpu_torch.constants import DEFAULT_CACHE_SIZE, SHARD_WIDTH
+from pilosa_tpu_torch.models import timequantum
 from pilosa_tpu_torch.models.cache import CACHE_TYPE_NONE, CACHE_TYPES
+from pilosa_tpu_torch.models.row import Row
 from pilosa_tpu_torch.models.view import (
     VIEW_BSI_PREFIX,
     VIEW_STANDARD,
@@ -55,8 +62,30 @@ def _each(apply, groups: list) -> None:
             list(pool.map(apply, groups))
 
 
+def as_datetime64(timestamps) -> np.ndarray:
+    """Import timestamps as datetime64[us], NaT where a bit has none: a
+    datetime64 array as it is, else a sequence of naive datetimes (the
+    wall clock, as the JAX package's strftime reads it) and Nones."""
+    if isinstance(timestamps, np.ndarray) and timestamps.dtype.kind == "M":
+        return timestamps.astype("datetime64[us]").reshape(-1)
+    vals = [None if t is None else t.replace(tzinfo=None)
+            for t in timestamps]
+    return np.array(vals, dtype="datetime64[us]").reshape(-1)
+
+
 class NotPortedError(ValueError):
     """A feature of the JAX package this port does not serve yet."""
+
+
+# the field types (FieldType, :32-39)
+SET, INT, TIME, MUTEX, BOOL = "set", "int", "time", "mutex", "bool"
+FIELD_TYPES = (SET, INT, TIME, MUTEX, BOOL)
+# the types whose rows are bits of the standard view (and time views)
+ROW_TYPES = (SET, MUTEX, BOOL, TIME)
+# at most one row per column
+MUTEX_TYPES = (MUTEX, BOOL)
+# numpy's unit of each quantum unit
+_NP_UNITS = {"Y": "Y", "M": "M", "D": "D", "H": "h"}
 
 
 @dataclass
@@ -72,16 +101,20 @@ class FieldOptions:
     keys: bool = False
 
     def validate(self) -> None:
-        if self.type not in ("set", "int"):
-            raise NotPortedError(f"field type {self.type!r} not ported yet")
-        if self.type == "int" and self.max < self.min:
-            raise ValueError("int field max must be >= min")
-        if self.keys:
-            raise NotPortedError("keyed fields not ported yet")
-        if self.time_quantum:
-            raise NotPortedError("time quantums not ported yet")
+        """The JAX package's checks and texts (:52-65); keys are refused
+        after them."""
+        if self.type not in FIELD_TYPES:
+            raise ValueError(f"invalid field type: {self.type}")
         if self.cache_type not in CACHE_TYPES:
             raise ValueError(f"invalid cache type: {self.cache_type}")
+        if self.type == INT and self.max < self.min:
+            raise ValueError("int field max must be >= min")
+        if self.type == TIME:
+            timequantum.validate_quantum(self.time_quantum)
+            if not self.time_quantum:
+                raise ValueError("time field requires a time quantum")
+        if self.keys:
+            raise NotPortedError("keyed fields not ported yet")
 
 
 class Field:
@@ -114,7 +147,7 @@ class Field:
         return max((self.options.max - self.options.min).bit_length(), 1)
 
     def _track_rank(self) -> bool:
-        return (self.options.type == "set"
+        return (self.options.type in ROW_TYPES
                 and self.options.cache_type != CACHE_TYPE_NONE)
 
     def open(self) -> "Field":
@@ -138,9 +171,9 @@ class Field:
                 self.create_view_if_not_exists(vname)
         return self
 
-    def close(self) -> None:
+    def close(self, save_caches: bool = True) -> None:
         for v in self.views.values():
-            v.close()
+            v.close(save_caches)
         self.views.clear()
 
     def save_meta(self) -> None:
@@ -182,47 +215,125 @@ class Field:
 
     # -- writes -------------------------------------------------------------
 
-    def set_bit(self, row_id: int, column: int) -> bool:
-        view = self.create_view_if_not_exists(VIEW_STANDARD)
-        changed = view.set_bit(row_id, column)
+    def _views_for_write(self, timestamp: Optional[datetime]) -> list[str]:
+        """The views a bit write lands in (:195-204): the standard view,
+        and on a time field one view per quantum unit of the timestamp."""
+        if self.options.type == TIME:
+            views = [] if timestamp is None else timequantum.views_by_time(
+                VIEW_STANDARD, timestamp, self.options.time_quantum)
+            return [VIEW_STANDARD] + views
+        if timestamp is not None:
+            raise ValueError("timestamp given on non-time field")
+        return [VIEW_STANDARD]
+
+    def set_bit(self, row_id: int, column: int,
+                timestamp: Optional[datetime] = None) -> bool:
+        """Set one bit in every view of the write (:206-220); a mutex or
+        bool field first clears the column's other rows."""
+        if self.options.type == INT:
+            raise ValueError(
+                f"field {self.name} is an int field; use set_value")
+        if self.options.type == BOOL and row_id not in (0, 1):
+            raise ValueError("bool field rows must be 0 (false) or 1 (true)")
+        if self.options.type in MUTEX_TYPES:
+            self._clear_other_rows(row_id, column)
+        changed = False
+        for vname in self._views_for_write(timestamp):
+            changed |= self.create_view_if_not_exists(vname).set_bit(
+                row_id, column)
         self.add_available_shards([column // SHARD_WIDTH])
         return changed
 
     def clear_bit(self, row_id: int, column: int) -> bool:
-        v = self.views.get(VIEW_STANDARD)
-        return False if v is None else v.clear_bit(row_id, column)
+        """Clear one bit in every view but the BSI one (:222-227)."""
+        changed = False
+        for v in list(self.views.values()):
+            if not v.name.startswith(VIEW_BSI_PREFIX):
+                changed |= v.clear_bit(row_id, column)
+        return changed
 
-    def import_bits(self, row_ids, columns, clear: bool = False) -> None:
+    def _clear_other_rows(self, row_id: int, column: int) -> None:
+        """Mutex semantics (:229-243): clear every other row holding the
+        column, found by the column probe (Fragment.rows_for_column)."""
+        shard = column // SHARD_WIDTH
+        for v in list(self.views.values()):
+            if v.name.startswith(VIEW_BSI_PREFIX):
+                continue
+            frag = v.fragment(shard)
+            if frag is None:
+                continue
+            for rid in frag.rows_for_column(column):
+                if rid != row_id:
+                    v.clear_bit(rid, column)
+
+    def import_bits(self, row_ids, columns, timestamps=None,
+                    clear: bool = False) -> None:
         """Bulk import (clear=True removes the bits instead), grouped by
-        shard in numpy: one bulk merge and one snapshot per shard. Shards
-        are independent fragments, so they apply on a thread pool (the
-        snapshots' writes and fsyncs, and numpy's sorts, release the GIL)."""
+        (view, shard) in numpy: one bulk merge and one snapshot per
+        fragment, the fragments on a thread pool (the snapshots' writes
+        and fsyncs, and numpy's sorts, release the GIL). On a time field
+        each timestamped bit also goes to its quantum's views (:281-310);
+        timestamps are datetimes or None, or a datetime64 array with NaT
+        for none, and other field types ignore them. A mutex or bool field
+        lets the last write of a column win (Fragment.bulk_import_mutex)."""
         rows = np.asarray(row_ids, dtype=np.uint64).reshape(-1)
         cols = np.asarray(columns, dtype=np.uint64).reshape(-1)
         if rows.shape != cols.shape:
             raise ValueError("row/column length mismatch")
+        ts = None
+        if timestamps is not None:
+            ts = as_datetime64(timestamps)
+            if ts.shape != cols.shape:
+                raise ValueError("row/column/timestamp length mismatch")
         if cols.size == 0:
             return
-        shards = cols // np.uint64(SHARD_WIDTH)
-        order = np.argsort(shards, kind="stable")
-        shards, rows, cols = shards[order], rows[order], cols[order]
-        bounds = np.flatnonzero(np.diff(shards)) + 1
-        view = self.create_view_if_not_exists(VIEW_STANDARD)
-        groups = list(zip(shards[np.concatenate(([0], bounds))].tolist(),
-                          np.split(rows, bounds), np.split(cols, bounds)))
+        shards = (cols // np.uint64(SHARD_WIDTH)).astype(np.int64)
+        # every bit in the standard view (view 0), then each timestamped
+        # bit once per quantum unit, in views numbered from 1
+        names = [VIEW_STANDARD]
+        vidx, sel = [np.zeros(cols.size, dtype=np.int64)], [None]
+        if self.options.type == TIME and ts is not None:
+            has = np.flatnonzero(~np.isnat(ts))
+            for unit in self.options.time_quantum:
+                codes = ts[has].astype(f"datetime64[{_NP_UNITS[unit]}]")
+                uniq, inv = np.unique(codes, return_inverse=True)
+                vidx.append(inv.astype(np.int64) + len(names))
+                # .item(): a datetime, or a date for a day or coarser
+                # unit, whose strftime is the same
+                names += [timequantum.view_by_time_unit(
+                    VIEW_STANDARD, u.item(), unit) for u in uniq]
+                sel.append(has)
+        v_all = np.concatenate(vidx)
+        s_all = np.concatenate([shards if x is None else shards[x]
+                                for x in sel])
+        order = np.lexsort((s_all, v_all))  # stable: input order kept
+        v_all, s_all = v_all[order], s_all[order]
+        take = np.concatenate([np.arange(cols.size) if x is None else x
+                               for x in sel])[order]
+        bounds = np.flatnonzero((np.diff(v_all) != 0)
+                                | (np.diff(s_all) != 0)) + 1
+        starts = np.concatenate(([0], bounds)).tolist()
+        groups = [(names[int(v_all[a])], int(s_all[a]), idx)
+                  for a, idx in zip(starts, np.split(take, bounds))]
+        views = {n: self.create_view_if_not_exists(n)
+                 for n in dict.fromkeys(g[0] for g in groups)}
+        mutex = self.options.type in MUTEX_TYPES
 
         def apply(group) -> None:
-            shard, g_rows, g_cols = group
+            vname, shard, idx = group
+            view = views[vname]
             frag = view.create_fragment_if_not_exists(shard)
-            local = g_cols % np.uint64(SHARD_WIDTH)
+            local = cols[idx] % np.uint64(SHARD_WIDTH)
             if clear:
-                frag.bulk_clear(g_rows, local)
+                frag.bulk_clear(rows[idx], local)
+            elif mutex:
+                frag.bulk_import_mutex(rows[idx], local)
             else:
-                frag.bulk_import(g_rows, local)
+                frag.bulk_import(rows[idx], local)
             view.refresh_rank_cache(shard)
 
         _each(apply, groups)
-        self.add_available_shards([g[0] for g in groups])
+        self.add_available_shards(sorted({g[1] for g in groups}))
 
     # -- BSI values (int fields) ----------------------------------------------
 
@@ -356,3 +467,31 @@ class Field:
 
         _each(apply, groups)
         self.add_available_shards([g[0] for g in groups])
+
+    # -- reads ----------------------------------------------------------------
+
+    def row(self, row_id: int, view: str = VIEW_STANDARD) -> Row:
+        """One row across the view's shards (Field.row, :413)."""
+        v = self.views.get(view)
+        out = Row()
+        if v is None:
+            return out
+        for shard in v.shards():
+            cols = v.fragment(shard).row_columns(row_id)
+            if cols.size:
+                out.segments[shard] = (cols.astype(np.uint64)
+                                       + np.uint64(shard * SHARD_WIDTH))
+        return out
+
+    def row_time(self, row_id: int, start: datetime, end: datetime) -> Row:
+        """The union of the views covering [start, end) (:427)."""
+        if self.options.type != TIME:
+            raise ValueError("row_time on non-time field")
+        out = Row()
+        for vname in timequantum.views_by_time_range(
+                VIEW_STANDARD, start, end, self.options.time_quantum):
+            for shard, seg in self.row(row_id, view=vname).segments.items():
+                have = out.segments.get(shard)
+                out.segments[shard] = (seg if have is None
+                                       else np.union1d(have, seg))
+        return out

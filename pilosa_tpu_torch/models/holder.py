@@ -1,11 +1,18 @@
 """Holder: the root container of all indexes.
 
 Trimmed copy of pilosa_tpu/models/holder.py, same on-disk tree:
-<data_dir>/<index>/<field>/views/<view>/fragments/<shard>.
+<data_dir>/<index>/<field>/views/<view>/fragments/<shard>. The open
+holder flocks <data_dir>/.lock, so a second process cannot open the data
+dir; its fragments hold no lock of their own (the JAX package locks each
+fragment, which a time field of 1024 shards and 95 views would take past
+the card machine's 20,000 open files) and keep their WAL open only within
+a process-wide budget (storage/fragment.py WAL_FDS). Deleting an index does not
+save the rank caches it is about to remove.
 """
 
 from __future__ import annotations
 
+import fcntl
 import os
 import shutil
 import threading
@@ -19,9 +26,19 @@ class Holder:
         self.path = path
         self.indexes: dict[str, Index] = {}
         self._mu = threading.Lock()
+        self._lock_file = None
 
     def open(self) -> "Holder":
         os.makedirs(self.path, exist_ok=True)
+        self._lock_file = open(os.path.join(self.path, ".lock"), "ab")
+        try:
+            fcntl.flock(self._lock_file.fileno(),
+                        fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            self._lock_file.close()
+            self._lock_file = None
+            raise RuntimeError(
+                f"data dir locked by another holder: {self.path}")
         for name in sorted(os.listdir(self.path)):
             ipath = os.path.join(self.path, name)
             if os.path.isdir(ipath) and not name.startswith("."):
@@ -32,6 +49,9 @@ class Holder:
         for idx in self.indexes.values():
             idx.close()
         self.indexes.clear()
+        if self._lock_file is not None:
+            self._lock_file.close()  # releases the flock
+            self._lock_file = None
 
     def index(self, name: str) -> Optional[Index]:
         return self.indexes.get(name)
@@ -53,7 +73,7 @@ class Holder:
             idx = self.indexes.pop(name, None)
         if idx is None:
             raise KeyError(f"index not found: {name}")
-        idx.close()
+        idx.close(save_caches=False)
         shutil.rmtree(idx.path, ignore_errors=True)
 
     def walk_fragments(self):

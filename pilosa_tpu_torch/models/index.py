@@ -59,9 +59,9 @@ class Index:
             self.fields[EXISTENCE_FIELD_NAME] = f.open()
         return self
 
-    def close(self) -> None:
+    def close(self, save_caches: bool = True) -> None:
         for f in self.fields.values():
-            f.close()
+            f.close(save_caches)
         self.fields.clear()
 
     def save_meta(self) -> None:

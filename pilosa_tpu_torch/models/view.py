@@ -73,28 +73,37 @@ class View:
                 n += 1
         return n
 
-    def close(self) -> None:
-        self.flush_caches()
+    def close(self, save_caches: bool = True) -> None:
+        if save_caches:
+            self.flush_caches()
         for frag in self.fragments.values():
             frag.close()
         self.fragments.clear()
         self.rank_caches.clear()
 
-    def _open_fragment(self, shard: int) -> Fragment:
+    def _open_fragment(self, shard: int, new: bool = False) -> Fragment:
+        """Open one shard's fragment; new=True for a shard the view's
+        open() did not find on disk."""
         frag = Fragment(os.path.join(self.path, "fragments", str(shard)),
-                        self.index, self.field, self.name, shard).open()
+                        self.index, self.field, self.name, shard).open(new)
         self.fragments[shard] = frag
         if self.track_rank:
             cache_path = frag.path + CACHE_EXT
-            if os.path.exists(cache_path):
+            if frag.fresh:
+                self.rank_caches[shard] = make_cache(self.cache_type,
+                                                     self.cache_size)
+            elif os.path.exists(cache_path):
                 self.rank_caches[shard] = load_cache(cache_path)
             else:
                 self.rank_caches[shard] = self._build_cache(frag)
         return frag
 
     def _build_cache(self, frag: Fragment) -> RankCache:
+        """A fragment's rank cache from its row ids and counts (one pass
+        over the containers each, Fragment.row_counts)."""
         cache = make_cache(self.cache_type, self.cache_size)
-        cache.bulk_add((rid, frag.row_count(rid)) for rid in frag.row_ids())
+        ids = frag.row_ids()
+        cache.bulk_add(zip(ids, frag.row_counts(ids).tolist()))
         return cache
 
     def fragment(self, shard: int) -> Optional[Fragment]:
@@ -106,7 +115,7 @@ class View:
             with self._frag_mu:
                 frag = self.fragments.get(shard)
                 if frag is None:
-                    frag = self._open_fragment(shard)
+                    frag = self._open_fragment(shard, new=True)
         return frag
 
     def shards(self) -> list[int]:

@@ -8,7 +8,13 @@ JSON shapes for the endpoints of this slice:
     POST        /index/{i}/query               (raw PQL body, ?shards=,
                                                 ?profile=true,
                                                 ?explain=true)
-    POST        /index/{i}/field/{f}/import    (JSON body: rowIDs or values)
+    POST        /index/{i}/field/{f}/import    (JSON body: rowIDs or values,
+                                                timestamps for a time
+                                                field, ?clear=true)
+    POST        /index/{i}/field/{f}/import-roaring/{shard}
+                                               (JSON body: views, each a
+                                                base64 roaring bitmap;
+                                                ?clear=true)
     GET         /schema
     GET         /status
 
@@ -29,6 +35,8 @@ An X-Pilosa-Trace-Id request header becomes the request's trace id.
 
 from __future__ import annotations
 
+import base64
+import binascii
 import collections
 import json
 import re
@@ -57,6 +65,9 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(
         r"^/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import$"),
      "post_import"),
+    ("POST", re.compile(
+        r"^/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import-roaring/"
+        r"(?P<shard>[0-9]+)$"), "post_import_roaring"),
     ("POST", re.compile(r"^/index/(?P<index>[^/]+)/query$"), "post_query"),
     ("GET", re.compile(r"^/schema$"), "get_schema"),
     ("GET", re.compile(r"^/status$"), "get_status"),
@@ -75,6 +86,7 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
 ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "profile",
                                                "explain"}),
                       "post_import": frozenset({"clear"}),
+                      "post_import_roaring": frozenset({"clear", "remote"}),
                       "get_debug_pprof": frozenset({"seconds"}),
                       "get_debug_timeseries": frozenset({"since", "limit"}),
                       "get_debug_heat": frozenset({"since", "limit", "top"}),
@@ -202,7 +214,7 @@ class Handler:
 
     def post_import(self, params, query, body):
         req = self._body_json(body)
-        for key in ("rowKeys", "columnKeys", "timestamps"):
+        for key in ("rowKeys", "columnKeys"):
             if req.get(key):
                 raise ApiError(f"import with {key} not ported yet")
         if "values" in req:
@@ -214,7 +226,24 @@ class Handler:
                  or bool(req.get("clear", False)))
         self.api.import_bits(params["index"], params["field"],
                              row_ids=req.get("rowIDs"),
-                             column_ids=req.get("columnIDs"), clear=clear)
+                             column_ids=req.get("columnIDs"), clear=clear,
+                             timestamps=req.get("timestamps"))
+        return self._json({})
+
+    def post_import_roaring(self, params, query, body):
+        """A JSON body {"views": {name: base64 roaring bytes}} (:571-586);
+        clear from the query or the body. Protobuf bodies are not ported
+        yet."""
+        req = self._body_json(body)
+        try:
+            views = {name: base64.b64decode(data)
+                     for name, data in req.get("views", {}).items()}
+        except (binascii.Error, TypeError, AttributeError) as e:
+            raise ApiError(f"invalid views: {e}")
+        self.api.import_roaring(
+            params["index"], params["field"], int(params["shard"]), views,
+            clear=(self._arg(query, "clear") == "true"
+                   or bool(req.get("clear", False))))
         return self._json({})
 
     def get_schema(self, params, query, body):

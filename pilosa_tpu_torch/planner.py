@@ -28,9 +28,11 @@ mutated (parse_string_cached shares ASTs between threads).
 Kill switches: PILOSA_TPU_TORCH_PLANNER=0 and PILOSA_TPU_TORCH_PLAN_CACHE=0
 (read when an Executor is built), Server(plan="off", plan_cache_bytes=0).
 
-The port has no key translation and no time views (ROADMAP Queue A 6):
-a string row key raises NotPortedError, which estimates as unknown, and a
-time Range is never cached.
+Row leaves of set, mutex, bool and time fields are estimated, keyed and
+given a form alike (the standard view); a time Range is keyed by the row
+over each view that covers its span (:453-470), so a write into any of
+them changes the key. The port has no key translation (ROADMAP Queue A
+6): a string row key raises NotPortedError, which estimates as unknown.
 """
 
 from __future__ import annotations
@@ -353,9 +355,10 @@ def subtree_cache_key(executor, index, call: Call,
                       shards) -> Optional[tuple]:
     """Plan-cache key of a bitmap subtree: (index, canonical PQL, shard
     tuple, per-leaf generations), or None for a shape that cannot be keyed
-    (a missing field, a string key, a time Range, a non-bitmap call). The
-    generations are read from the fragments on every lookup, so a write
-    under the subtree gives another key."""
+    (a missing field, a string key, a non-bitmap call). A time Range
+    contributes its row in every covered view. The generations are read
+    from the fragments on every lookup, so a write under the subtree gives
+    another key."""
     gens: list = []
     shards_l = list(shards)
 
@@ -374,7 +377,10 @@ def subtree_cache_key(executor, index, call: Call,
             return
         if c.name == "Range":
             if "_start" in c.args or "_end" in c.args:
-                raise _Uncacheable  # time views are not ported
+                f, row_id, views = executor._time_range(index, c)
+                for v in views:
+                    leaf(f.name, v, row_id)
+                return
             cond_field = None
             for k, v in c.args.items():
                 if isinstance(v, Condition):

@@ -8,7 +8,7 @@ fragments on disk, and both keep the reference's layout.
 * hybrid_leaf_from_numpy: the reference's sparse and run leaves (int32
   column ids) -> int32 tensors, values unchanged.
 * open_holder: open a data dir that pilosa_tpu.server.Server wrote (close
-  that server first: fragments are flock'ed by their owner).
+  that server first: it holds its fragments and writes their files).
 """
 
 from __future__ import annotations

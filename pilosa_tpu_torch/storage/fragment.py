@@ -17,9 +17,12 @@ rows_intersection_counts (:582-635) counts |row & src| for many rows at
 once (the sparse Src TopN walk). A frozen fragment is volatile (:158-167,
 :1061): it has no WAL, skips the automatic snapshots, and counts the
 writes it takes in volatile_mutations until snapshot() makes it durable
-and re-attaches the WAL. Left out: anti-entropy blocks, mutex paths (and
-the frozen mutex rewrite), import_roaring, corruption quarantine (a
-damaged file raises at open) and hints.
+and re-attaches the WAL. The typed fields' writes: bulk_import_mutex
+(with the frozen rewrite), set_row and clear_row (Store and ClearRow,
+which the port logs to the WAL: durable across a reopen, unlike the JAX
+package's) and import_roaring (with the in-place clear over a frozen
+store). Left out: anti-entropy blocks, corruption quarantine (a damaged
+file raises at open) and hints.
 
 Row r of the shard occupies absolute bit positions [r*2^20, (r+1)*2^20).
 In a BSI view rows 0..depth-1 hold the place values of each column's
@@ -29,8 +32,8 @@ stored value and row `depth` is the not-null row.
 from __future__ import annotations
 
 import bisect
-import fcntl
 import functools
+import io
 import os
 import threading
 from typing import Iterable, Optional
@@ -49,7 +52,96 @@ from pilosa_tpu_torch.storage.roaring import (
 )
 
 SNAPSHOT_EXT = ".snapshotting"
-LOCK_EXT = ".lock"
+
+
+@functools.lru_cache(maxsize=1)
+def _empty_snapshot() -> bytes:
+    """The file of a new fragment: an empty bitmap's snapshot."""
+    buf = io.BytesIO()
+    Bitmap().write_snapshot(buf)
+    return buf.getvalue()
+
+
+def _write_all(fd: int, data) -> None:
+    view = memoryview(data)
+    while view:
+        view = view[os.write(fd, view):]
+
+
+class _FdBudget:
+    """How many WAL descriptors the process keeps open at once. A
+    fragment keeps its WAL open while the budget allows and opens and
+    closes it per append past it: one process's fragments can outnumber
+    its open-file limit (RLIMIT_NOFILE is 20,000 on the card's machine; a
+    Star Trace-shaped time field of 1024 shards has 97,280 fragments),
+    while a write path's hot fragments keep their descriptors."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self.used = 0
+        self._mu = threading.Lock()
+
+    def take(self) -> bool:
+        with self._mu:
+            if self.used >= self.cap:
+                return False
+            self.used += 1
+            return True
+
+    def give(self) -> None:
+        with self._mu:
+            self.used -= 1
+
+
+WAL_FDS = _FdBudget(8192)
+
+
+class WalAppender:
+    """A fragment's WAL as Bitmap.op_writer. It opens the file at its
+    first write and keeps the descriptor while WAL_FDS allows (else it
+    closes it after each write); the fragment's snapshot() and close()
+    release it (a snapshot replaces the file). The first write to a
+    fragment that has no file yet (`ready` False) creates it with an
+    empty snapshot ahead of the ops. Writes run under the fragment's
+    lock. An acknowledged op has reached the kernel (and with wal_fsync
+    the disk) before write() returns."""
+
+    __slots__ = ("path", "sync", "ready", "fd")
+
+    def __init__(self, path: str, sync: bool):
+        self.path = path
+        self.sync = sync
+        self.ready = False  # the file holds a snapshot to append to
+        self.fd = None  # kept open under WAL_FDS
+
+    def write(self, data) -> int:
+        fd = self.fd
+        if fd is None:
+            flags = os.O_WRONLY | os.O_APPEND
+            if not self.ready:
+                os.makedirs(os.path.dirname(self.path), exist_ok=True)
+                flags |= os.O_CREAT | os.O_TRUNC
+            fd = os.open(self.path, flags, 0o644)
+            if WAL_FDS.take():
+                self.fd = fd
+        try:
+            if not self.ready:
+                _write_all(fd, _empty_snapshot())
+            _write_all(fd, data)
+            if self.sync:
+                os.fsync(fd)
+        finally:
+            if self.fd is None:
+                os.close(fd)
+        self.ready = True
+        return len(data)
+
+    def release(self) -> None:
+        """Close the kept descriptor, if any."""
+        if self.fd is not None:
+            os.close(self.fd)
+            self.fd = None
+            WAL_FDS.give()
 
 
 def _locked(method):
@@ -92,9 +184,9 @@ class Fragment:
         self.mu = threading.RLock()  # snapshot() runs under bulk paths
         self.storage = Bitmap()
         self.op_n = 0
-        self._op_file = None
-        self._lock_file = None
+        self._wal = WalAppender(path, wal_fsync)
         self.closed = True
+        self.fresh = False  # open() found no file, or an empty one
         # row generations: bumped on any mutation touching the row; the
         # device leaf cache keys on them
         self.generation = 0
@@ -122,53 +214,37 @@ class Fragment:
 
     # -- lifecycle ----------------------------------------------------------
 
-    def open(self) -> "Fragment":
-        """flock the sidecar lock file, parse snapshot + WAL, truncate a
-        torn WAL tail, attach the WAL appender."""
-        os.makedirs(os.path.dirname(self.path), exist_ok=True)
-        self._lock_file = open(self.path + LOCK_EXT, "ab")
-        try:
-            fcntl.flock(self._lock_file.fileno(),
-                        fcntl.LOCK_EX | fcntl.LOCK_NB)
-        except OSError:
-            self._lock_file.close()
-            self._lock_file = None
-            raise RuntimeError(
-                f"fragment file locked by another process: {self.path}")
-        try:
-            # unbuffered: an acked op reaches the kernel before the write
-            # returns
-            self._op_file = open(self.path, "ab", buffering=0)
-            if os.path.getsize(self.path) == 0:
-                self.storage.write_snapshot(self._op_file)
-            with open(self.path, "rb") as f:
-                data = f.read()
+    def open(self, new: bool = False) -> "Fragment":
+        """Parse snapshot + WAL, truncate a torn WAL tail, attach the WAL
+        appender. A new fragment's file is written at its first op or
+        snapshot (a bulk load writes each new fragment once); new=True
+        says the caller knows there is no file (its view listed them all
+        at open) and skips the lookup. No descriptor stays open but the
+        WAL's, within WAL_FDS; the holder's lock excludes other processes
+        (models/holder.py)."""
+        data = b""
+        if not new:
+            try:
+                with open(self.path, "rb") as f:
+                    data = f.read()
+            except FileNotFoundError:
+                pass
+        self.fresh = not data
+        if not self.fresh:
             self.storage = Bitmap.from_bytes(data, recover_wal=True)
-        except Exception:
-            if self._op_file is not None:
-                self._op_file.close()
-                self._op_file = None
-            self._lock_file.close()
-            self._lock_file = None
-            raise
-        if self.storage.wal_error is not None:
-            valid_end = self.storage.wal_valid_end
-            self.wal_truncated_bytes = len(data) - valid_end
-            os.truncate(self.path, valid_end)
+            if self.storage.wal_error is not None:
+                valid_end = self.storage.wal_valid_end
+                self.wal_truncated_bytes = len(data) - valid_end
+                os.truncate(self.path, valid_end)
         self.op_n = self.storage.op_n
-        self.storage.op_writer = self._op_file
-        self.storage.op_sync = self.wal_fsync
+        self._wal.ready = not self.fresh
+        self.storage.op_writer = self._wal
         self.closed = False
         return self
 
     def close(self) -> None:
-        if self._op_file is not None:
-            self._op_file.close()
-            self._op_file = None
         self.storage.op_writer = None
-        if self._lock_file is not None:
-            self._lock_file.close()  # releases the flock
-            self._lock_file = None
+        self._wal.release()
         self.closed = True
 
     # -- mutation -----------------------------------------------------------
@@ -313,6 +389,109 @@ class Fragment:
         for rid in sorted_unique(rows).tolist():
             self._touch(int(rid))
         self._bulk_gen = self.generation
+        self._maybe_snapshot()
+
+    @_locked
+    def bulk_import_mutex(self, row_ids: Iterable[int],
+                          columns: Iterable[int]) -> None:
+        """Mutex bulk set (:902-951): the last write of a column wins, and
+        every other row's bit in a written column is cleared. The mutex
+        invariant bounds the fragment's bits by the column space, so all
+        of them are read once, the stale bits fall out of set algebra, and
+        the store is rebuilt from the final position set (Bitmap.reset: a
+        frozen store's flat arrays by FrozenContainers.from_positions, as
+        in the JAX package; a dict store's containers optimally encoded)
+        instead of merging container by container."""
+        rows = np.asarray(row_ids, dtype=np.uint64).reshape(-1)
+        cols = (np.asarray(columns, dtype=np.uint64).reshape(-1)
+                % np.uint64(SHARD_WIDTH))
+        if rows.size != cols.size:
+            raise ValueError("row/column length mismatch")
+        if rows.size == 0:
+            return
+        # the first occurrence in the reversed arrays is the last write
+        ucols, ridx = np.unique(cols[::-1], return_index=True)
+        target = rows[::-1][ridx]  # aligned with ucols (sorted)
+        sw = np.uint64(SHARD_WIDTH)
+        all_pos = self.storage.positions()
+        cand = all_pos[np.isin(all_pos % sw, ucols)]
+        want = target[np.searchsorted(ucols, cand % sw)]
+        to_clear = cand[cand // sw != want]
+        add_pos = target * sw + ucols
+        self.storage.reset(np.union1d(
+            np.setdiff1d(all_pos, to_clear, assume_unique=True), add_pos))
+        for rid in np.unique(np.concatenate([to_clear // sw,
+                                             target])).tolist():
+            self._touch(int(rid))
+        self._bulk_gen = self.generation
+        self._maybe_snapshot()
+
+    # -- whole rows ---------------------------------------------------------
+
+    def _log_row_ops(self, adds: np.ndarray, removes: np.ndarray) -> None:
+        """A whole-row write's net bits to the WAL in one append (the JAX
+        package logs none, so its Store and ClearRow are lost at a reopen;
+        ROADMAP Queue C 5), snapshotting past MAX_OP_N. A volatile
+        fragment logs nothing: its snapshot() makes the write durable."""
+        n = int(adds.size + removes.size)
+        if self._volatile or n == 0:
+            return
+        self.storage.append_ops(adds, removes)
+        self.op_n += n
+        if self.op_n > MAX_OP_N:
+            self.snapshot()
+
+    @_locked
+    def set_row(self, row_id: int, columns) -> None:
+        """Replace a row with the given shard-local columns (:503-511, the
+        reference's setRow); the row's generation moves even when its bits
+        do not."""
+        base = row_id * SHARD_WIDTH
+        old = self.storage.slice(base, base + SHARD_WIDTH)
+        new = sorted_unique(np.asarray(columns, dtype=np.uint64).reshape(-1)
+                            % np.uint64(SHARD_WIDTH) + np.uint64(base))
+        removes = np.setdiff1d(old, new, assume_unique=True)
+        adds = np.setdiff1d(new, old, assume_unique=True)
+        if removes.size:
+            self.storage.remove_many(removes)
+        if adds.size:
+            self.storage.add_many(adds)
+        self._touch(row_id)
+        self._log_row_ops(adds, removes)
+
+    @_locked
+    def clear_row(self, row_id: int) -> int:
+        """Clear a row (:513-521); returns how many bits it held."""
+        base = row_id * SHARD_WIDTH
+        vals = self.storage.remove_range(base, base + SHARD_WIDTH)
+        if vals.size:
+            self._touch(row_id)
+            self._log_row_ops(np.empty(0, dtype=np.uint64), vals)
+        return int(vals.size)
+
+    @_locked
+    def import_roaring(self, data: bytes, clear: bool = False) -> None:
+        """Union (or clear) a serialized roaring bitmap of shard-local
+        positions into the fragment, then one snapshot (:1013-1058). Over
+        a frozen store both go through the copy-on-write overlay, touching
+        only the incoming containers, and the fragment stays volatile with
+        the write counted. Every row counts as written."""
+        other = Bitmap.from_bytes(data)
+        if clear:
+            # a difference, container by container: the JAX package's
+            # in-place clear over a frozen store asks Container.op for a
+            # "difference" kind it does not have and gets a xor (ROADMAP
+            # Queue C 6)
+            self.storage.remove_many(other.positions())
+        else:
+            self.storage.add_many(other.positions())
+        self.generation += 1
+        self._row_gen.clear()
+        self._gen_floor = self._bulk_gen = self.generation
+        self._row_run_stats.clear()
+        self._row_intervals.clear()
+        if self._volatile:
+            self.volatile_mutations += 1
         self._maybe_snapshot()
 
     # -- BSI values ---------------------------------------------------------
@@ -747,23 +926,29 @@ class Fragment:
         """Rewrite the file as one snapshot (with integrity trailer) via a
         temp file and an atomic rename; the WAL restarts empty."""
         tmp = self.path + SNAPSHOT_EXT
-        if self._op_file is not None:
-            self._op_file.close()
-            self._op_file = None
+        self._wal.release()  # it would append to the replaced file
+        replaced = False
         try:
             self.storage.optimize()
-            with open(tmp, "wb") as f:
+            try:
+                f = open(tmp, "wb")
+            except FileNotFoundError:  # a new fragment's first write
+                os.makedirs(os.path.dirname(tmp), exist_ok=True)
+                f = open(tmp, "wb")
+            with f:
                 self.storage.write_snapshot(f)
                 f.flush()
                 os.fsync(f.fileno())
             os.replace(tmp, self.path)
+            replaced = True
+            self._wal.ready = True
         finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            if not self.closed:
-                self._op_file = open(self.path, "ab", buffering=0)
-            self.storage.op_writer = self._op_file
-            self.storage.op_sync = self.wal_fsync
+            if not replaced:
+                try:
+                    os.remove(tmp)
+                except FileNotFoundError:
+                    pass
+            self.storage.op_writer = None if self.closed else self._wal
         self.op_n = 0
         self.storage.op_n = 0
         self._volatile = False  # persisted: the WAL is attached again

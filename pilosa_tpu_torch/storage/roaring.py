@@ -26,8 +26,6 @@ The on-disk format is the reference's, byte for byte compatible:
 from __future__ import annotations
 
 import hashlib
-import io
-import os
 import struct
 import zlib
 from typing import Optional
@@ -365,14 +363,13 @@ class Bitmap:
 
     `containers` is a dict, or a FrozenContainers after `frozen()` or the
     frozen parse; both serve the mapping protocol. `op_writer` is the WAL
-    hook: when set, single-value add/remove append one framed op record
-    each."""
+    hook (the fragment's WalAppender, which fsyncs when asked): when set,
+    single-value add/remove append one framed op record each."""
 
     def __init__(self):
         self.containers: dict[int, Container] = {}
         self._dirty: set[int] = set()  # keys changed since optimize()
-        self.op_writer: Optional[io.RawIOBase] = None
-        self.op_sync = False  # fsync after each op
+        self.op_writer = None
         self.op_n = 0
         # WAL recovery report of from_bytes(recover_wal=True)
         self.wal_valid_end: Optional[int] = None
@@ -431,13 +428,81 @@ class Bitmap:
 
     def add_many(self, values: np.ndarray) -> None:
         """Bulk insert (no op-log; callers snapshot)."""
+        if (type(self.containers) is dict and not self.containers
+                and np.size(values)):
+            self._fill(values)
+            return
         for key, lows in self._chunks(values):
             self._store(key, self._with_key(key).add_many(lows))
+
+    def reset(self, positions: np.ndarray) -> None:
+        """Replace every container with the given sorted unique positions:
+        a frozen store is rebuilt from them in numpy, a dict store refilled
+        with optimally encoded containers (_fill). The op-log hook stays."""
+        if is_frozen_store(self.containers):
+            from pilosa_tpu_torch.storage.frozen import FrozenContainers
+
+            self.containers = FrozenContainers.from_positions(positions)
+            return
+        self.containers = {}
+        self._dirty.clear()
+        if np.size(positions):
+            self._fill(positions)
+
+    def _fill(self, values: np.ndarray) -> None:
+        """add_many into an empty dict store: the containers are cut from
+        the sorted positions in numpy and each is built in the encoding
+        Container.optimize would pick (the smallest of array, bitmap and
+        run, ties in that order), so none is left for optimize() to
+        re-pick: the snapshot's bytes are the ones the per-container path
+        writes, and a bulk load of many small fragments pays no
+        per-container sort, merge or run count."""
+        pos = sorted_unique(np.asarray(values, dtype=np.uint64))
+        keys = (pos >> np.uint64(16)).astype(np.int64)
+        lows = (pos & np.uint64(0xFFFF)).astype(np.uint16)
+        first = np.empty(pos.size, dtype=bool)
+        first[0] = True
+        np.not_equal(keys[1:], keys[:-1], out=first[1:])
+        starts = np.flatnonzero(first)
+        ends = np.append(starts[1:], pos.size)
+        run_start = first.copy()
+        run_start[1:] |= (pos[1:] - pos[:-1]) != 1
+        nruns = np.add.reduceat(run_start.astype(np.int64), starts)
+        arr_size = 2 * (ends - starts)
+        run_size = 2 + 4 * nruns
+        bmp_size = 8 * BITMAP_WORDS
+        kinds = np.where((arr_size <= bmp_size) & (arr_size <= run_size), 0,
+                         np.where(bmp_size <= run_size, 1, 2))
+        run_idx = np.flatnonzero(run_start)
+        store = self.containers
+        for key, a, b, kind in zip(keys[starts].tolist(), starts.tolist(),
+                                   ends.tolist(), kinds.tolist()):
+            vals = lows[a:b]
+            if kind == 0:
+                c = Container("array", vals)
+            elif kind == 1:
+                c = Container("bitmap", _array_to_words(vals))
+            else:
+                r = run_idx[np.searchsorted(run_idx, a):
+                            np.searchsorted(run_idx, b)]
+                lasts = np.append(r[1:], b) - 1
+                c = Container("run", np.stack([lows[r], lows[lasts]],
+                                              axis=1))
+            store[key] = c
 
     def remove_many(self, values: np.ndarray) -> None:
         for key, lows in self._chunks(values):
             if key in self.containers:
                 self._store(key, self.containers[key].remove_many(lows))
+
+    def remove_range(self, start: int, stop: int) -> np.ndarray:
+        """Remove every position in the container-aligned [start, stop),
+        dropping whole containers (no per-value membership test); returns
+        the positions removed, sorted."""
+        vals = self.slice(start, stop)
+        for key in self._keys_in(start, stop):
+            self._store(key, Container.empty())
+        return vals
 
     def add(self, value: int) -> bool:
         """Single add, logged to the op-log when attached."""
@@ -462,14 +527,11 @@ class Bitmap:
         if self.op_writer is None:
             return
         self.op_writer.write(frame_op(typ, int(value)))
-        if self.op_sync:
-            os.fsync(self.op_writer.fileno())
         self.op_n += 1
 
     def append_ops(self, adds: np.ndarray, removes: np.ndarray) -> None:
         """WAL-append a batch's net deltas as OP_ADD / OP_REMOVE records in
-        ONE write, with one fsync when op_sync is set (pilosa_tpu/storage/
-        roaring.py:677). The caller has already applied them; these are
+        ONE write (pilosa_tpu/storage/roaring.py:677). The caller has already applied them; these are
         redo records for replay. The port has no failpoints, so the JAX
         package's torn-write rewind (_rewind_torn_write) and WAL poisoning
         are left out: a failed write raises to the caller."""
@@ -481,8 +543,6 @@ class Bitmap:
         if not parts:
             return
         self.op_writer.write(b"".join(parts))
-        if self.op_sync:
-            os.fsync(self.op_writer.fileno())
         self.op_n += len(parts)
 
     # -- queries ------------------------------------------------------------
@@ -531,6 +591,8 @@ class Bitmap:
         lo, hi = start >> 16, (stop - 1) >> 16
         if is_frozen_store(self.containers):
             return list(self.containers.irange(lo, hi))
+        if hi - lo < len(self.containers):  # a row: probe its 16 keys
+            return [k for k in range(lo, hi + 1) if k in self.containers]
         return sorted(k for k in self.containers if lo <= k <= hi)
 
     def slice(self, start: int = 0, stop: Optional[int] = None) -> np.ndarray:

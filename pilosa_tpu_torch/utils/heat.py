@@ -105,6 +105,8 @@ def leaf_frags(key) -> list:
         return [Frags(key[1], key[2], key[3], key[5])]
     if kind in ("sparse", "run") and len(key) >= 8:
         return [Frags(key[1], key[2], key[3], key[5])]
+    if kind == "timerange" and len(key) >= 7:
+        return [Frags(key[1], key[2], v, key[5]) for v in key[4]]
     if kind == "bsicmp" and len(key) >= 8:
         return [Frags(key[1], key[2], _BSI_VIEW_PREFIX + key[2], key[6])]
     if kind == "bsiplanes" and len(key) >= 6:

@@ -4,11 +4,15 @@ JAX server.
 Both servers run in-process on the CPU over 4 shards with the same seeded
 data: a set field f with dense, sparse and runny rows (runny rows stay far
 above 4096 bits per shard), a ranked set field t of Zipf-like rows, and an
-int field v. Seeded rounds mix reads of every served slice (dense, sparse
-and run Count/Row/Intersect/Union/Difference/Not; Range, Sum, Min, Max;
-TopN with a Src and with a Tanimoto threshold; Rows; GroupBy) with
-Set/Clear envelopes between the rounds, which the port applies through
-its coalesced write path. Every answer must be the same JSON.
+int field v; and a second index of typed fields, a time field tm
+(quantum YMD), a mutex field mx and a bool field bo. Seeded rounds mix
+reads of every served slice (dense, sparse and run
+Count/Row/Intersect/Union/Difference/Not; Range, Sum, Min, Max; TopN with
+a Src and with a Tanimoto threshold; Rows; GroupBy; time Range windows,
+mutex and bool rows, Options) with Set/Clear envelopes between the
+rounds, which the port applies through its coalesced write path, and
+timestamped, mutex and bool Sets, ClearRow and Store on the typed index,
+which take the per-bit path. Every answer must be the same JSON.
 """
 
 import http.client
@@ -25,6 +29,8 @@ SW = 1 << 20
 N_SHARDS = 4
 F_FORMS = ["dense", "dense", "sparse", "sparse", "run"]  # f rows 0-4
 T_ROWS = 6
+TM_ROWS, MX_ROWS = 4, 4  # the typed index: users of tm, licenses of mx
+TM_T0 = 1546300800  # 2019-01-01T00:00:00Z
 
 
 def _post(uri: str, path: str, body) -> tuple:
@@ -73,7 +79,70 @@ def _setup(seed: int) -> list:
     out.append(("/index/d/field/v/import",
                 {"columnIDs": vcols.tolist(),
                  "values": rng.integers(-50, 1001, size=vcols.size).tolist()}))
+    # the typed index: stars of 4 users over 60 days, a mutex license of
+    # 4 rows on the starred columns (imported twice: the last write wins),
+    # a bool fork flag
+    out += [("/index/ty", {"options": {"trackExistence": True}}),
+            ("/index/ty/field/tm",
+             {"options": {"type": "time", "timeQuantum": "YMD"}}),
+            ("/index/ty/field/mx", {"options": {"type": "mutex"}}),
+            ("/index/ty/field/bo", {"options": {"type": "bool"}})]
+    n = 3000
+    cols = rng.integers(0, N_SHARDS * SW, n)
+    out.append(("/index/ty/field/tm/import", {
+        "rowIDs": rng.integers(0, TM_ROWS, n).tolist(),
+        "columnIDs": cols.tolist(),
+        "timestamps": (TM_T0 + rng.integers(0, 60 * 86400, n)).tolist()}))
+    for _ in range(2):
+        out.append(("/index/ty/field/mx/import",
+                    {"rowIDs": rng.integers(0, MX_ROWS, n).tolist(),
+                     "columnIDs": cols.tolist()}))
+    out.append(("/index/ty/field/bo/import",
+                {"rowIDs": (rng.random(n) < 0.3).astype(int).tolist(),
+                 "columnIDs": cols.tolist()}))
     return out
+
+
+def _day(rng) -> str:
+    return f"2019-0{int(rng.integers(1, 3))}-{int(rng.integers(1, 29)):02d}"
+
+
+def _typed_reads(rng) -> list:
+    """One round of seeded reads of the typed index."""
+    u, lic = int(rng.integers(TM_ROWS)), int(rng.integers(MX_ROWS))
+    a, b = sorted((_day(rng), _day(rng)))
+    w = f"Range(tm={u}, {a}T00:00, {b}T00:00)"
+    return [f"Count({w})", w, f"Count(Intersect({w}, Row(mx={lic})))",
+            f"Count(Intersect({w}, Row(mx={lic}), Row(bo=true)))",
+            f"Count(Range(tm={u}, 2019-01-01T00:00, 2020-01-01T00:00))",
+            f"Count(Row(bo={'true' if rng.random() < .5 else 'false'}))",
+            "Rows(field=mx)", "TopN(mx, n=2)", f"TopN(mx, {w}, n=3)",
+            "GroupBy(Rows(field=mx), Rows(field=bo))",
+            f"Options(Row(mx={lic}), shards=[1, 3])",
+            f"Options(Count(Row(mx={lic})), shards=[0])"]
+
+
+def _typed_writes(rng) -> str:
+    calls = []
+    for _ in range(int(rng.integers(5, 30))):
+        c = int(rng.integers(N_SHARDS * SW))
+        kind = int(rng.integers(5))
+        if kind == 0:
+            calls.append(f"Set({c}, tm={int(rng.integers(TM_ROWS))}, "
+                         f"{_day(rng)}T{int(rng.integers(24)):02d}:00)")
+        elif kind == 1:
+            calls.append(f"Set({c}, mx={int(rng.integers(MX_ROWS))})")
+        elif kind == 2:
+            calls.append(f"Set({c}, bo={'true' if c % 2 else 'false'})")
+        elif kind == 3:
+            calls.append(f"Clear({c}, mx={int(rng.integers(MX_ROWS))})")
+        else:
+            calls.append(f"Clear({c}, tm={int(rng.integers(TM_ROWS))})")
+    if rng.random() < 0.5:
+        calls.append(f"ClearRow(mx={int(rng.integers(MX_ROWS))})")
+    calls.append(f"Store(Intersect(Row(mx={int(rng.integers(MX_ROWS))}), "
+                 f"Row(bo=true)), saved={int(rng.integers(2))})")
+    return " ".join(calls)
 
 
 def _reads(rng) -> list:
@@ -140,18 +209,20 @@ def test_port_and_jax_servers_agree_across_slices(tmp_path, seed):
                 queries = _reads(rng)
                 if rnd == 2:
                     queries.append("GroupBy(Rows(field=f), Rows(field=t), limit=7)")
-                for q in queries:
-                    want = _post(jax_srv.uri, "/index/d/query", q)
+                queries = ([("d", q) for q in queries]
+                           + [("ty", q) for q in _typed_reads(rng)])
+                for idx, q in queries:
+                    want = _post(jax_srv.uri, f"/index/{idx}/query", q)
                     assert want[0] == 200, (q, want)
-                    assert _post(port.uri, "/index/d/query", q) == want, \
-                        (rnd, q)
+                    assert _post(port.uri, f"/index/{idx}/query", q) == \
+                        want, (rnd, q)
                     n += 1
-                for _ in range(2):
-                    env = _envelope(rng)
-                    want = _post(jax_srv.uri, "/index/d/query", env)
+                for idx, env in (("d", _envelope(rng)), ("d", _envelope(rng)),
+                                 ("ty", _typed_writes(rng))):
+                    want = _post(jax_srv.uri, f"/index/{idx}/query", env)
                     assert want[0] == 200, want
-                    assert _post(port.uri, "/index/d/query", env) == want
-            assert n >= 60
+                    assert _post(port.uri, f"/index/{idx}/query", env) == want
+            assert n >= 90
             snap = port.executor.ingest_snapshot()
             assert snap["mutations"] >= 30 and snap["errors"] == 0
             assert snap["patchedDense"] >= 1
