@@ -16,7 +16,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    (8.5k-40k bits per shard and row) loaded through API.import_bits plus
    one JSON import; PQL over HTTP, including Counts over 40 Rows (40
    leaves), checked against a numpy oracle built from the generated
-   columns; then 32 concurrent clients x 32 Count(Intersect) queries.
+   columns; then 32 concurrent clients x 16 Count(Intersect) queries.
    Launch counts are zeroed before the server starts and read after the
    last query: every kernel of the path must have launched. With
    --profile, a further concurrent pass runs under torch.profiler and the
@@ -31,7 +31,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    Set(col, v=x) over HTTP; the cold slab build is timed apart; Sum, Min,
    Max (with and without a filter on f), Range counts, BETWEEN, != null,
    Not, a clamp and a ?shards= column list checked against a numpy
-   oracle; then 32 clients x 16 Sum(Range(v > x), field=v) with varying
+   oracle; then 32 clients x 8 Sum(Range(v > x), field=v) with varying
    thresholds (bench.py:870), every answer checked. Launch counts are
    zeroed before the phase: bsi_compare and bsi_sum_counts must launch,
    and the sum batcher must coalesce.
@@ -45,7 +45,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    with filter=Range(v > 500); and three axes with limited Rows) checked
    against a numpy oracle; the cold first Src TopN (64 leaves of 128 MiB
    built from the host) and the cold first GroupBy (the 8 GiB rows slab)
-   timed apart from warm repeats; then 32 clients x 4 TopN(t, Row(f=a),
+   timed apart from warm repeats; then 32 clients x 2 TopN(t, Row(f=a),
    n=10) with varying a, every answer checked. Launch counts are zeroed
    before the phase: topn_counts_packed and cross_count_matrix must launch.
 5. Server, hybrid sparse/run path, on the same server and index (Pilosa's
@@ -59,15 +59,15 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    sparse∩run, run∩dense, run∩run, a Range filter, Sum and a TopN Src over
    a sparse row checked against a numpy oracle, the cold first sparse
    leaf timed apart; Count(Row(s=a)) for every a, so that the leaves are
-   resident; then 32 clients x 16 Count(Intersect(Row(s=a),
+   resident; then 32 clients x 8 Count(Intersect(Row(s=a),
    Row(f=b))) with varying a and b, every answer checked. Launch counts
    are zeroed before the phase: sparse_intersect_dense must launch, and
    the port must have uploaded sparse and run leaves.
 5c. Server, planner and plan cache, on the same server and index
    (bench.py bench_planner, :2015-2195, at full width): (a) a 4-row
    Count(Intersect) sequentially, the cache off, the planner off then on
-   in 2 interleaved rounds of 40: p50 a side; (b) a dashboard of 32
-   clients x 16 queries, 80 % ten shared 3-row Count(Intersect) panels
+   in 2 interleaved rounds of 20: p50 a side; (b) a dashboard of 32
+   clients x 8 queries, 80 % ten shared 3-row Count(Intersect) panels
    over f and 20 % twenty 3-row Count(Union), each in a random operand
    order, in 2 rounds of cache off (cleared), on (warm), on (measured):
    q/s, p50/p99 and the hit rate (a device-profile capture in the first
@@ -96,7 +96,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    TopN(t, n=1000) exact with its p50 and topnRecountRows, Rows pages
    with previous=; config 4, an int field 0..1023 on every column of 128
    shards (of 953), Sum(Range), Min and Max with and without a filter,
-   then 32 clients x 16 Min(Range(v > x))/Max(Range(v < x)) through the
+   then 32 clients x 8 Min(Range(v > x))/Max(Range(v < x)) through the
    MinMaxBatcher with a device-profile capture (q/s, p50/p99, batches,
    mean batch, bsi_sum_counts launches per batch, which must stay under
    (D + 1) x queries); similarity, 500,000 molecules of 48 of 2048
@@ -131,7 +131,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    day views) and the year (1 view), each window's cold first query and
    warm p50; Intersects with mutex and bool rows (2 and 3 leaves, and 3
    dense range leaves); TopN(stargazer), TopN(license, Range(...)), Rows,
-   GroupBy(license x fork); then 32 clients x 16 Count(Intersect(Range(
+   GroupBy(license x fork); then 32 clients x 8 Count(Intersect(Range(
    stargazer=u, window), Row(license=l))) over 8 users x 4 windows x 4
    licenses with a device-profile capture; then writes over HTTP with the
    reads they change (a timestamped Set into a covered day view, a mutex
@@ -141,10 +141,43 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    field, positions per view family, host RSS, device bytes resident, the
    phase's seconds. Launch counts are zeroed before the first query:
    pair_stream_counts, program_count, sparse_intersect_dense and
-   topn_counts_packed must launch. The index is deleted at the end.
+   topn_counts_packed must launch. The index stays for phase 5f.
+5f. Server, string keys and attributes, on the same server. (A) On
+   phase 5e's index: the schema's language set field with "keys": true,
+   64 language names as row keys, every starred repository tagged with
+   one (language r takes a share 1 / (r + 1)), imported over /import as
+   rowKeys + columnIDs in phase 5e's chunks of 64 shards (one chunk a
+   protobuf ImportRequest); row attributes {paradigm, year, typed} on all
+   64 rows in one request of SetRowAttrs calls; TopN(language, n=10),
+   TopN(language, Row(license=3), n=10), TopN by attrName/attrValues,
+   GroupBy(Rows(language), Rows(fork)), a language row intersected with
+   a one-week stargazer Range (user 4: phase 5e clears user 7), Rows with
+   a previous key, a Row with its attributes; then 32 clients x 8 of
+   those keyed queries with a device-profile capture; then an unknown
+   key's Count reads 0 and mints nothing (the translate log's size is
+   unchanged), and after a Set of it the same Count reads 1 with the plan
+   cache on. (B) A keyed-column index of 2,097,151 user logins (ids start
+   at 1, so they fill shards 0-1 exactly; cut by the time limit from a
+   deployment of tens of millions of accounts): a keyed country field of
+   200 names (share 1 / (r + 1)) and an int field followers 0..1,000,000,
+   imported with columnKeys (rowKeys, values) in requests of 262,144
+   keys, one of each field protobuf; column attributes on 1,000 logins in
+   one request; Count and Sum(field=followers) of the four top countries
+   (dense rows), Count(Range(followers > 500000)), the rarest country's
+   Row with columnAttrs=true (its login keys and attribute sets), the
+   largest Row of keys; one envelope of 500 keyed Set/Clear calls through
+   the IngestBatcher, 400 of them minting logins; /export of shard 1 of
+   country; DELETE of country, which must give its resident device bytes
+   back (torch.cuda.memory_allocated). Every answer is exact against a
+   numpy oracle built from the seed, keys and the ids minted in import
+   order included. Printed: seconds per import, the mint us a key, the ms
+   to render the largest Row of keys, the launches in the phase (zeroed
+   before it): topn_counts_packed, cross_count_matrix,
+   sparse_intersect_dense, pair_stream_counts, bsi_sum_counts and
+   bsi_compare must launch. Both indexes are deleted at the end.
 6. Server, write path, on the same server and index (bench.py's ingest
    stage, bench.py:1824-1935, cut to a fixed length): 8 keep-alive writers
-   each send 20 envelopes of 500 calls, 80 % Set of a column of their own
+   each send 12 envelopes of 500 calls, 80 % Set of a column of their own
    (column % 8 = writer) anywhere in the 1024 shards on one of f rows 0-7
    (dense), s rows 1-8 (sparse, K = 16..2048) or r row 0 (run), 20 %
    Clear of a (row, column) the writer set earlier: 80,000 mutations,
@@ -188,7 +221,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    units, at every K the hybrid phase served and at K = 16384 (event,
    device and host times). Times by CUDA events (warm, median).
 8. The last lines: nvidia-smi's name and power limit, one JSON object with
-   a record per kernel (its launches summed over the eight paths, with
+   a record per kernel (its launches summed over the nine paths, with
    launches_by_path beside; bsi_sum_counts adds its launches by form and
    the form the served shape takes; served_device_ms_p50 is its device
    ms as served, from the paths' device-profile captures, over
@@ -258,6 +291,12 @@ numbers as one JSON line.
 --typed-only runs phase 5e on a fresh server and prints its numbers as
 one JSON line.
 
+    python3 chip_smoke.py --keyed-only   # phase 1, phase 5e's loads and
+                                         # phase 5f alone
+
+--keyed-only loads phase 5e's index without its passes and runs phase 5f
+on it, printing its numbers as one JSON line.
+
     python3 chip_smoke.py --ingest-only  # phases 1-2, then phase 6 on
                                          # s and r loaded without phase 5
 
@@ -320,15 +359,17 @@ SUM_FORM_KERNELS = {"grid": "bsi_sum_kernel",
                     "staged": "bsi_sum_staged_kernel"}
 HYBRID_S_ROWS = 32  # rows of the stargazer-like set field s
 HYBRID_R_ROWS = 4   # rows of the run field r
-HYBRID_CLIENTS, HYBRID_PER_CLIENT = 32, 16  # the hybrid phase's pass
+# the hybrid phase's pass: 8 a client since phase 5f joined the run (16
+# before), for the time limit
+HYBRID_CLIENTS, HYBRID_PER_CLIENT = 32, 8
 SPARSE_SENTINEL = SHARD_WIDTH
 # the write phase (bench.py:1824-1827 and 1830-1935, cut to a fixed length)
 INGEST_WRITERS = 8      # keep-alive writer threads (bench.py:1824)
 INGEST_CALLS = 500      # Set/Clear calls per envelope (bench.py:1825)
-# envelopes per writer in the measured window: 20 since phase 5e joined
-# the run (30 since 5d, 40 before), to keep the whole run inside its time
-# limit
-INGEST_ENVELOPES = 20
+# envelopes per writer in the measured window: 12 since phase 5f joined
+# the run (20 since 5e, 30 since 5d, 40 before), to keep the whole run
+# inside its time limit
+INGEST_ENVELOPES = 12
 # per writer in each ingest on/off turn: 3 since phase 5e joined the run
 # (5 before), to keep the whole run inside its time limit
 INGEST_TURN_ENVELOPES = 3
@@ -343,7 +384,9 @@ TOPN_ROWS = 64  # rows of the set field t
 TOPN_BITS = 12000  # bits per shard of t's row 0; row r holds ~this/(r+1)
 # the TopN phase's concurrent pass: 4 per client since phase 5e joined the
 # run (8 since 5d, 16 before), to keep the whole run inside its time limit
-TOPN_CLIENTS, TOPN_PER_CLIENT = 32, 4
+# the TopN pass: 2 a client since phase 5f joined the run (4 before), for
+# the time limit
+TOPN_CLIENTS, TOPN_PER_CLIENT = 32, 2
 BSI_DEPTH = 10  # the int field v: min 0, max 1023
 # int32 operations per plane word of the compare sweep (lt/gt: and, not,
 # or, xor, not, and) and of the sum (and, add; plus one __popc)
@@ -2378,18 +2421,19 @@ SHORT_CAPTURE_S = 1.0  # on the BSI and hybrid paths (shorter passes)
 # 700.00 W) and launch in waves: a 1 s window opened after one wave's first
 # launch can close before the next wave. Six seconds hold at least two.
 TOPN_CAPTURE_S = 6.0
-# per client in each telemetry on/off round: 8 since phase 5e joined the
-# run (16 since 5d, 32 before), to keep the whole run inside its time limit
-COUNT_ROUND_QUERIES = 8
+# per client in each telemetry on/off round: 4 since phase 5f joined the
+# run (8 since 5e, 16 since 5d, 32 before), to keep the whole run inside
+# its time limit
+COUNT_ROUND_QUERIES = 4
 # the Count pass's rounds: everything on, the heat map off, the kernel
 # statistics off, the telemetry sampler stopped, all off; three rounds of
 # each, in turn and back
 OBS_MODES = ("on", "heat_off", "kernel_stats_off", "sampler_off", "off")
 OBS_SWITCHES = OBS_MODES + OBS_MODES[::-1] + OBS_MODES
-# per client in each heat on/off round of five: 4 since phase 5e joined
-# the run (8 since 5d, 16 before), to keep the whole run inside its time
-# limit
-SPILL_ROUND_QUERIES = 4
+# per client in each heat on/off round of five: 2 since phase 5f joined
+# the run (4 since 5e, 8 since 5d, 16 before), to keep the whole run
+# inside its time limit
+SPILL_ROUND_QUERIES = 2
 SPILL_SWITCHES = ("on", "off", "off", "on", "on", "off")  # fields
 METRIC_LINE = None  # compiled at first use
 
@@ -2807,11 +2851,13 @@ def spill_rounds(srv, port: int, clients: int, queries: list,
 
 
 PLANNER_CHAIN = "Count(Intersect(Row(f=0), Row(f=5), Row(f=2), Row(f=7)))"
-PLANNER_CHAIN_QUERIES = 40  # sequential queries a side in each round
+# sequential queries a side in each round: 20 since phase 5f joined the
+# run (40 before), for the time limit
+PLANNER_CHAIN_QUERIES = 20
 # 2 since phase 5e joined the run (3 before), for the time limit
 PLANNER_ROUNDS = 2
 PLANNER_PANELS = 10  # shared 3-row Count(Intersect) dashboard panels
-PLANNER_PER_CLIENT = 16
+PLANNER_PER_CLIENT = 8  # 8 since phase 5f joined the run (16 before)
 PLANNER_EMPTY_ROW = 4242  # a row of f that holds no bit
 
 
@@ -3235,7 +3281,8 @@ FP_KEEP = 0.75
 FP_QUERY = 7
 FP_THRESHOLDS = (90, 70, 50)
 FZ_ROWS, FZ_BITS = 3000, 40  # tests/test_topn.py:245-285
-MINMAX_CLIENTS, MINMAX_PER_CLIENT = 32, 16
+# the Min/Max pass: 8 a client since phase 5f joined the run (16 before)
+MINMAX_CLIENTS, MINMAX_PER_CLIENT = 32, 8
 FROZEN_REPEATS = 9  # timed repeats of each query (scale_configs.py: 9)
 
 
@@ -3736,8 +3783,10 @@ TYPED_WINDOWS = (("2019-02-04T00:00", "2019-02-11T00:00", "one week"),
                  ("2019-01-01T00:00", "2020-01-01T00:00", "whole year"))
 TYPED_USERS_MIX = (0, 1, 2, 3, 5, 8, 13, 21)  # the concurrent pass
 TYPED_LICENSES_MIX = (0, 3, 7, 12)
-TYPED_CLIENTS, TYPED_PER_CLIENT = 32, 16
-TYPED_WARM_REPEATS = 10
+# the typed pass (8 a client) and warm repeats (5) since phase 5f joined
+# the run (16 and 10 before), for the time limit
+TYPED_CLIENTS, TYPED_PER_CLIENT = 32, 8
+TYPED_WARM_REPEATS = 5
 
 
 def make_typed_data(n_shards: int, seed: int) -> dict:
@@ -3840,7 +3889,7 @@ def _roaring_b64(positions: np.ndarray) -> str:
 
 
 def typed_phase(srv, port: int, n_shards: int, seed: int, clients: int,
-                per_client: int) -> dict:
+                per_client: int, passes: bool = True) -> dict:
     """Phase 5e, typed fields (Star Trace): index startrace with a time
     field stargazer (quantum YMD), a mutex field license, a bool field
     fork and one shard of a set field extra loaded through
@@ -3848,7 +3897,10 @@ def typed_phase(srv, port: int, n_shards: int, seed: int, clients: int,
     (timestamped, mutex and bool Set, ClearRow, Store) and Options checked
     exactly against a numpy oracle, then clients x per_client
     Count(Intersect(Range(stargazer=u, window), Row(license=l))). Its own
-    launch counts (zeroed before its first query, read after its last)."""
+    launch counts (zeroed before its first query, read after its last).
+    passes=False stops after the loads. The index stays for phase 5f;
+    "data" is the oracle's arrays after the phase's writes (the caller
+    deletes the index, delete_typed)."""
     import torch
 
     from pilosa_tpu_torch.models.timequantum import views_by_time_range
@@ -3896,6 +3948,11 @@ def typed_phase(srv, port: int, n_shards: int, seed: int, clients: int,
         "standard_20190203")
     if xv is None or xv.fragment(0).bit_count() != day.size:
         raise AssertionError("the import-roaring time view lost bits")
+    if not passes:
+        d["cleared_users"] = ()
+        return {"data": d, "stats": {
+            "import_s": import_s, "stargazer_fragments": frags,
+            "phase_s": time.perf_counter() - t_phase}}
 
     t0 = time.perf_counter()
     lic_of = d["license"]
@@ -4073,13 +4130,23 @@ def typed_phase(srv, port: int, n_shards: int, seed: int, clients: int,
                  "sparse_intersect_dense", "topn_counts_packed"):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched on the typed path")
-    t0 = time.perf_counter()
-    srv.holder.delete_index(TYPED_INDEX)  # its host memory and files
-    stats["delete_s"] = time.perf_counter() - t0
+    # the oracle after the writes, for phase 5f on the same index
+    after = dict(d, license=lic_of.copy(), fork=fork_of.copy(),
+                 cleared_users=(7,))
+    after["license"][np.searchsorted(starred, c2)] = 5
+    after["fork"][np.searchsorted(starred, cf)] = 0
     stats["phase_s"] = time.perf_counter() - t_phase
-    log(f"  index deleted in {stats['delete_s']:.1f} s; typed phase: "
-        f"{stats['phase_s']:.1f} s")
-    return {"launches": launches, "stats": stats, "obs": obs}
+    log(f"  typed phase: {stats['phase_s']:.1f} s")
+    return {"launches": launches, "stats": stats, "obs": obs,
+            "data": after}
+
+
+def delete_typed(srv, stats: dict) -> None:
+    """Delete phase 5e's index (its host memory and files)."""
+    t0 = time.perf_counter()
+    srv.holder.delete_index(TYPED_INDEX)
+    stats["delete_s"] = time.perf_counter() - t0
+    log(f"  index {TYPED_INDEX} deleted in {stats['delete_s']:.1f} s")
 
 
 def typed_only(device, seed: int) -> dict:
@@ -4092,6 +4159,514 @@ def typed_only(device, seed: int) -> dict:
         try:
             out = typed_phase(srv, srv.http.port, 1024, seed,
                               TYPED_CLIENTS, TYPED_PER_CLIENT)
+            delete_typed(srv, out["stats"])
+        finally:
+            srv.close()
+    return {"launches": out["launches"], **out["stats"]}
+
+
+# ------------------------------------------------- phase 5f: keys, attributes
+
+# the 64 languages of part A, ranked: language r tags a share of the
+# repositories proportional to 1 / (r + 1)
+KEYED_LANGS = (
+    "JavaScript", "Python", "Java", "TypeScript", "C#", "C++", "PHP", "C",
+    "Shell", "Go", "Ruby", "Rust", "Kotlin", "Swift", "Dart", "Scala",
+    "Objective-C", "R", "Lua", "Perl", "Haskell", "Elixir", "Clojure",
+    "Julia", "PowerShell", "MATLAB", "Groovy", "Vim Script", "Erlang",
+    "OCaml", "F#", "Fortran", "Emacs Lisp", "CoffeeScript", "Elm", "Nim",
+    "Crystal", "Racket", "Scheme", "Common Lisp", "Assembly", "Visual Basic",
+    "Pascal", "Ada", "COBOL", "Prolog", "Smalltalk", "Tcl", "D", "Zsh",
+    "Solidity", "Verilog", "VHDL", "Haxe", "Apex", "ABAP", "Awk", "Idris",
+    "Agda", "Coq", "Lean", "PureScript", "ReasonML", "Standard ML")
+# the row attributes: (paradigm, year) per language, typed from the list
+KEYED_FUNCTIONAL = {"Haskell", "Elixir", "Clojure", "Erlang", "OCaml", "F#",
+                    "Elm", "Racket", "Scheme", "Common Lisp", "Emacs Lisp",
+                    "Idris", "Agda", "Coq", "Lean", "PureScript", "ReasonML",
+                    "Standard ML", "Scala", "Julia"}
+KEYED_TYPED = {"Java", "TypeScript", "C#", "C++", "C", "Go", "Rust",
+               "Kotlin", "Swift", "Dart", "Scala", "Haskell", "OCaml", "F#",
+               "Elm", "Nim", "Crystal", "Idris", "Agda", "Coq", "Lean",
+               "PureScript", "ReasonML", "Standard ML", "Fortran", "Pascal",
+               "Ada", "D", "Solidity", "Haxe", "Apex"}
+KEYED_UNKNOWN = "Zig"  # a language no repository holds: no key minted
+KEYED_PROTO_CHUNK = 1  # the chunk of each import sent as protobuf
+KEYED_USER = 4  # phase 5e's ClearRow empties user 7's stars
+KEYED_CLIENTS, KEYED_PER_CLIENT = 32, 8
+# part B: a keyed-column index of user logins (2^21 - 1 keys: ids start at
+# 1, so they fill shards 0-1 exactly)
+LOGIN_INDEX = "logins"
+LOGINS = (1 << 21) - 1
+LOGIN_COUNTRIES = 200
+LOGIN_MAX_FOLLOWERS = 1_000_000
+LOGIN_CHUNK = 1 << 18  # keys per import request
+LOGIN_ATTRS = 1000  # logins given column attributes, in one request
+LOGIN_ENVELOPE = 500  # keyed Set/Clear calls in one envelope
+
+
+def _first_ids(stream: np.ndarray, n: int) -> np.ndarray:
+    """The id each of the n keys (by index) takes when minted in the order
+    of `stream`: 1 upwards by first appearance (0: never appears)."""
+    uniq, first = np.unique(stream, return_index=True)
+    ids = np.zeros(n, dtype=np.int64)
+    ids[uniq[np.argsort(first, kind="stable")]] = np.arange(1, uniq.size + 1)
+    return ids
+
+
+def _post_proto(port: int, path: str, body: bytes) -> dict:
+    from pilosa_tpu_torch.encoding.protobuf import CONTENT_TYPE
+
+    conn = http.client.HTTPConnection("localhost", port, timeout=600)
+    try:
+        conn.request("POST", path, body=body,
+                     headers={"Content-Type": CONTENT_TYPE})
+        resp = conn.getresponse()
+        payload = json.loads(resp.read() or b"null")
+        if resp.status != 200:
+            raise AssertionError(f"POST {path} -> {resp.status}: {payload}")
+        return payload
+    finally:
+        conn.close()
+
+
+def _timed_mints(translate) -> list:
+    """Wrap the store's batch translation of columns: -> [(keys,
+    seconds)] of every call that minted, appended as they run (undone by
+    `del translate.translate_columns`)."""
+    spans: list = []
+    inner = translate.translate_columns
+
+    def timed(index, keys, create=True):
+        before = translate.log_size()
+        t = time.perf_counter()
+        out = inner(index, keys, create)
+        if translate.log_size() != before:
+            spans.append((len(keys), time.perf_counter() - t))
+        return out
+
+    translate.translate_columns = timed
+    return spans
+
+
+def keyed_language(srv, port: int, n_shards: int, seed: int,
+                   d: dict) -> dict:
+    """Part A of phase 5f on phase 5e's index: the keyed language field
+    of every starred repository, imported as rowKeys + columnIDs, its row
+    attributes in one request, keyed reads against the oracle, the
+    unknown key, and the concurrent keyed pass."""
+    import torch
+
+    from pilosa_tpu_torch.encoding.protobuf import Serializer
+
+    ser = Serializer()
+    rng = np.random.default_rng(seed + 6000)
+    starred = d["starred"]
+    share = 1.0 / (np.arange(len(KEYED_LANGS)) + 1)
+    lang = rng.choice(len(KEYED_LANGS), starred.size, p=share / share.sum())
+    names = np.array(KEYED_LANGS, dtype=object)
+    _http(port, "POST", f"/index/{TYPED_INDEX}/field/language",
+          json.dumps({"options": {"keys": True}}).encode())
+    # the import: phase 5e's chunks of 64 shards, rowKeys + columnIDs
+    bounds = list(range(0, n_shards + 1, TYPED_CHUNK_SHARDS))
+    if bounds[-1] != n_shards:
+        bounds.append(n_shards)
+    cuts = np.searchsorted(starred, [b * SHARD_WIDTH for b in bounds])
+    t0 = time.perf_counter()
+    for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+        keys = names[lang[lo:hi]].tolist()
+        cols = starred[lo:hi]
+        path = f"/index/{TYPED_INDEX}/field/language/import"
+        if i == KEYED_PROTO_CHUNK:
+            _post_proto(port, path, ser.encode_import_request(
+                TYPED_INDEX, "language", row_keys=keys, column_ids=cols))
+        else:
+            _post_import(port, path, {"rowKeys": keys,
+                                      "columnIDs": cols.tolist()})
+    import_s = time.perf_counter() - t0
+    lid = _first_ids(lang, len(KEYED_LANGS))  # language index -> row id
+    by_id = {int(lid[i]): KEYED_LANGS[i] for i in range(len(KEYED_LANGS))}
+    attrs = {k: {"paradigm": ("functional" if k in KEYED_FUNCTIONAL
+                              else "imperative"),
+                 "year": 1950 + (7 * i) % 70, "typed": k in KEYED_TYPED}
+             for i, k in enumerate(KEYED_LANGS)}
+    t0 = time.perf_counter()
+    _http(port, "POST", f"/index/{TYPED_INDEX}/query", " ".join(
+        "SetRowAttrs(language, %s, paradigm=%s, year=%d, typed=%s)" % (
+            json.dumps(k), json.dumps(a["paradigm"]), a["year"],
+            "true" if a["typed"] else "false")
+        for k, a in attrs.items()).encode())
+    attrs_s = time.perf_counter() - t0
+    log(f"  language: {starred.size} repositories over {n_shards} shards "
+        f"tagged with {len(KEYED_LANGS)} keyed rows (share 1 / (r + 1)) "
+        f"over HTTP in {len(bounds) - 1} requests of {TYPED_CHUNK_SHARDS} "
+        f"shards (request {KEYED_PROTO_CHUNK} a protobuf ImportRequest): "
+        f"{import_s:.1f} s; {len(attrs)} SetRowAttrs in one request "
+        f"{attrs_s * 1e3:.1f} ms")
+
+    # the oracle
+    counts = np.bincount(lang, minlength=len(KEYED_LANGS))
+    lic, fork = d["license"], d["fork"]
+
+    def top(cnt: np.ndarray, n: int, keep=None) -> list:
+        order = sorted((i for i in range(len(KEYED_LANGS))
+                        if cnt[i] > 0 and (keep is None or keep(i))),
+                       key=lambda i: (-int(cnt[i]), int(lid[i])))[:n]
+        return [{"id": int(lid[i]), "key": KEYED_LANGS[i],
+                 "count": int(cnt[i])} for i in order]
+
+    def top_src(lic_row: int) -> list:
+        return top(np.bincount(lang[lic == lic_row],
+                               minlength=len(KEYED_LANGS)), 10)
+
+    groups = []
+    for i in np.argsort(lid):
+        for fk in (0, 1):
+            c = int(((lang == i) & (fork == fk)).sum())
+            if c:
+                groups.append({"group": [
+                    {"field": "language", "rowKey": KEYED_LANGS[i]},
+                    {"field": "fork", "rowID": fk}], "count": c})
+    week = TYPED_WINDOWS[0]
+    user_week = _window_repos(d, KEYED_USER, week)
+
+    def in_week(k: str) -> int:
+        mine = starred[lang == KEYED_LANGS.index(k)]
+        return int(np.intersect1d(mine, user_week).size)
+
+    go_id = int(lid[KEYED_LANGS.index("Go")])
+    after_go = [by_id[r] for r in sorted(by_id) if r > go_id][:5]
+    functional = top(counts, 10, lambda i: KEYED_LANGS[i] in KEYED_FUNCTIONAL)
+    checks = [
+        ("TopN(language, n=10)", top(counts, 10)),
+        ("TopN(language, Row(license=3), n=10)", top_src(3)),
+        ('TopN(language, n=10, attrName="paradigm", '
+         'attrValues=["functional"])', functional),
+        ("GroupBy(Rows(field=language), Rows(field=fork))", groups),
+        (f'Count(Intersect(Row(language="Go"), Range(stargazer='
+         f'{KEYED_USER}, {week[0]}, {week[1]})))', in_week("Go")),
+        ('Rows(field=language, previous="Go", limit=5)',
+         {"rows": None, "keys": after_go}),
+        ('Count(Row(language="Haskell"))',
+         int(counts[KEYED_LANGS.index("Haskell")])),
+    ]
+    query = lambda pql: _http(port, "POST", f"/index/{TYPED_INDEX}/query",
+                              pql.encode())["results"][0]
+    single = {}
+    for pql, want in checks:
+        t0 = time.perf_counter()
+        got = query(pql)
+        single[pql] = (time.perf_counter() - t0) * 1e3
+        if got != want:
+            raise AssertionError(f"{pql}: port {str(got)[:300]} != oracle "
+                                 f"{str(want)[:300]}")
+        log(f"  {pql[:100]} = {str(got)[:70]} (oracle agrees; "
+            f"{single[pql]:.1f} ms)")
+    got = _http(port, "POST", f"/index/{TYPED_INDEX}/query",
+                b'Row(language="Haskell")')["results"][0]
+    hk = "Haskell"
+    if got["attrs"] != attrs[hk] or got["columns"] != starred[
+            lang == KEYED_LANGS.index(hk)].tolist():
+        raise AssertionError(f"Row(language={hk!r}): attrs or columns "
+                             "differ from the oracle")
+    # the concurrent keyed pass: the TopNs (plain, with a Src, by
+    # attribute), GroupBy, Row x week over four languages, paging
+    mix = [(pql, want) for pql, want in checks[:4]]
+    mix += [(f'Count(Intersect(Row(language="{k}"), Range(stargazer='
+             f'{KEYED_USER}, {week[0]}, {week[1]})))', in_week(k))
+            for k in ("Go", "Rust", "Python", "Haskell")]
+    mix.append(checks[5])
+    for pql, want in mix:  # every leaf resident before the pass
+        if query(pql) != want:
+            raise AssertionError(f"{pql}: differs from the oracle")
+    probe = (mix[4][0], None, True, TYPED_INDEX)
+    lat, wall, obs = concurrent_mix(
+        port, KEYED_CLIENTS, KEYED_PER_CLIENT, mix, seed + 6100,
+        lambda: during_pass(port, probe, SHORT_CAPTURE_S), index=TYPED_INDEX)
+    # after the pass, an unknown key: 0, nothing minted; a Set mints it
+    # and the same Count reads 1 with the plan cache on
+    pc = srv.executor.plan_cache
+    pc.enabled = True
+    try:
+        size = srv.translate.log_size()
+        unknown = f'Count(Row(language="{KEYED_UNKNOWN}"))'
+        for _ in range(2):
+            if query(unknown) != 0:
+                raise AssertionError(f"{unknown} is not 0")
+        if srv.translate.log_size() != size:
+            raise AssertionError("a read minted a key")
+        repo = int(starred[0])
+        if query(f'Set({repo}, language="{KEYED_UNKNOWN}")') is not True:
+            raise AssertionError("the Set of a new key changed nothing")
+        if query(unknown) != 1:
+            raise AssertionError(f"{unknown} after its Set is not 1 with "
+                                 "the plan cache on")
+        minted = srv.translate.log_size() - size
+    finally:
+        pc.enabled = False
+    log(f"  {unknown} = 0 twice, the translate log unchanged; after "
+        f"Set({repo}, language=\"{KEYED_UNKNOWN}\") (a {minted}-byte "
+        "record) it reads 1 with the plan cache on")
+
+    torch.cuda.synchronize()
+    stats = {"repositories": int(starred.size), "import_s": import_s,
+             "row_attrs_s": attrs_s, "single_ms": single,
+             "queries": len(lat), "qps": len(lat) / wall,
+             "p50_ms": statistics.median(lat) * 1e3,
+             "p99_ms": float(np.percentile(lat, 99)) * 1e3}
+    log(f"  concurrent: {KEYED_CLIENTS} clients x {KEYED_PER_CLIENT} keyed "
+        f"queries (TopN with a Src, TopN by attribute, GroupBy, "
+        f"Row x Range, Rows paging), plan cache off: {stats['qps']:.1f} "
+        f"q/s, p50 {stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms")
+    return {"stats": stats, "obs": obs}
+
+
+def keyed_logins(srv, port: int, seed: int) -> dict:
+    """Part B of phase 5f: a keyed-column index of LOGINS user logins
+    with a keyed country field (Zipf share over LOGIN_COUNTRIES) and an
+    int field followers, imported with columnKeys; column attributes on
+    LOGIN_ATTRS logins in one request; keyed Counts, Sums, a Range, a
+    rare country's Row of keys with its attribute sets, an envelope of
+    keyed writes through the IngestBatcher, /export, and the field's
+    DELETE giving its device bytes back."""
+    import gc
+
+    import torch
+
+    from pilosa_tpu_torch.encoding.protobuf import Serializer
+
+    ser = Serializer()
+    rng = np.random.default_rng(seed + 6500)
+    n = LOGINS
+    logins = np.array([f"u{i:07d}" for i in range(n)], dtype=object)
+    share = 1.0 / (np.arange(LOGIN_COUNTRIES) + 1)
+    country = rng.choice(LOGIN_COUNTRIES, n, p=share / share.sum())
+    cnames = np.array([f"country-{c:03d}" for c in range(LOGIN_COUNTRIES)],
+                      dtype=object)
+    followers = rng.integers(0, LOGIN_MAX_FOLLOWERS + 1, n)
+    _http(port, "POST", f"/index/{LOGIN_INDEX}", json.dumps(
+        {"options": {"keys": True, "trackExistence": True}}).encode())
+    _http(port, "POST", f"/index/{LOGIN_INDEX}/field/country",
+          json.dumps({"options": {"keys": True}}).encode())
+    _http(port, "POST", f"/index/{LOGIN_INDEX}/field/followers", json.dumps(
+        {"options": {"type": "int", "min": 0,
+                     "max": LOGIN_MAX_FOLLOWERS}}).encode())
+    spans = _timed_mints(srv.translate)
+    import_s = {}
+    try:
+        for field in ("country", "followers"):
+            t0 = time.perf_counter()
+            for i, lo in enumerate(range(0, n, LOGIN_CHUNK)):
+                hi = min(n, lo + LOGIN_CHUNK)
+                keys = logins[lo:hi].tolist()
+                path = f"/index/{LOGIN_INDEX}/field/{field}/import"
+                proto = i == KEYED_PROTO_CHUNK
+                if field == "country":
+                    rows = cnames[country[lo:hi]].tolist()
+                    if proto:
+                        _post_proto(port, path, ser.encode_import_request(
+                            LOGIN_INDEX, field, row_keys=rows,
+                            column_keys=keys))
+                    else:
+                        _post_import(port, path, {"rowKeys": rows,
+                                                  "columnKeys": keys})
+                elif proto:
+                    _post_proto(port, path, ser.encode_import_value_request(
+                        LOGIN_INDEX, field, column_keys=keys,
+                        values=followers[lo:hi]))
+                else:
+                    _post_import(port, path, {
+                        "columnKeys": keys,
+                        "values": followers[lo:hi].tolist()})
+            import_s[field] = time.perf_counter() - t0
+    finally:
+        del srv.translate.translate_columns
+    minted = sum(k for k, _ in spans)
+    mint_s = sum(s for _, s in spans)
+    if minted != n:
+        raise AssertionError(f"{minted} keys minted, not {n}")
+    cid = _first_ids(country, LOGIN_COUNTRIES)  # country -> row id
+    col = np.arange(1, n + 1, dtype=np.int64)  # login i -> column i + 1
+    log(f"  logins: {n} column keys (shards 0-{n // SHARD_WIDTH}), country "
+        f"{LOGIN_COUNTRIES}"
+        f" keyed rows (share 1 / (r + 1)), followers 0..{LOGIN_MAX_FOLLOWERS}"
+        f"; imports over HTTP in requests of {LOGIN_CHUNK} keys (request "
+        f"{KEYED_PROTO_CHUNK} protobuf): country {import_s['country']:.1f} s"
+        f", followers {import_s['followers']:.1f} s; mint "
+        f"{mint_s / n * 1e6:.2f} us a key ({n} keys in {mint_s:.1f} s)")
+
+    # column attributes on LOGIN_ATTRS logins, one request: the rare
+    # country's first logins and random others
+    rare = LOGIN_COUNTRIES - 1
+    rare_idx = np.nonzero(country == rare)[0]
+    pick = np.unique(np.concatenate([
+        rare_idx[:LOGIN_ATTRS // 2],
+        rng.choice(n, LOGIN_ATTRS, replace=False)]))[:LOGIN_ATTRS]
+    cattrs = {int(i): {"city": f"city{int(i) % 97}",
+                       "stars": int(followers[i] % 1000)} for i in pick}
+    t0 = time.perf_counter()
+    _http(port, "POST", f"/index/{LOGIN_INDEX}/query", " ".join(
+        f'SetColumnAttrs("{logins[i]}", city="{a["city"]}", '
+        f'stars={a["stars"]})' for i, a in cattrs.items()).encode())
+    attrs_s = time.perf_counter() - t0
+    log(f"  {len(cattrs)} SetColumnAttrs in one request: "
+        f"{attrs_s * 1e3:.1f} ms")
+
+    def query(pql: str, args: str = ""):
+        return _http(port, "POST", f"/index/{LOGIN_INDEX}/query{args}",
+                     pql.encode())
+
+    ccount = np.bincount(country, minlength=LOGIN_COUNTRIES)
+    fsum = np.bincount(country, weights=followers,
+                       minlength=LOGIN_COUNTRIES).astype(np.int64)
+    checks = []
+    for c in range(4):
+        checks += [(f'Count(Row(country="{cnames[c]}"))', int(ccount[c])),
+                   (f'Sum(Row(country="{cnames[c]}"), field=followers)',
+                    {"value": int(fsum[c]), "count": int(ccount[c])})]
+    checks.append(("Count(Range(followers > 500000))",
+                   int((followers > 500000).sum())))
+    for pql, want in checks:
+        got = query(pql)["results"][0]
+        if got != want:
+            raise AssertionError(f"{pql}: port {got} != oracle {want}")
+        log(f"  {pql} = {got} (oracle agrees)")
+    # a rare country's Row: keys, and the attribute sets of its columns
+    got = query(f'Row(country="{cnames[rare]}")', "?columnAttrs=true")
+    want_sets = [{"id": int(col[i]), "attrs": cattrs[int(i)],
+                  "key": logins[i]} for i in rare_idx if int(i) in cattrs]
+    if got["results"][0] != {"attrs": {}, "keys": logins[rare_idx].tolist()} \
+            or got["columnAttrSets"] != want_sets:
+        raise AssertionError(f"Row(country={cnames[rare]!r}) with "
+                             "columnAttrs: keys or sets differ")
+    t0 = time.perf_counter()
+    big = query(f'Row(country="{cnames[0]}")')["results"][0]["keys"]
+    render_ms = (time.perf_counter() - t0) * 1e3
+    if big != logins[country == 0].tolist():
+        raise AssertionError("the largest Row of keys differs")
+    log(f"  Row(country={cnames[rare]!r}) with columnAttrs=true: "
+        f"{rare_idx.size} keys, {len(want_sets)} attribute sets (oracle "
+        f"agrees); the largest Row, {len(big)} keys, rendered in "
+        f"{render_ms:.1f} ms")
+
+    # one envelope of keyed writes through the IngestBatcher: Sets that
+    # mint new logins, Clears of imported bits
+    snap0 = srv.executor.ingest_snapshot()
+    size = srv.translate.log_size()
+    n_set = LOGIN_ENVELOPE * 4 // 5
+    clear_idx = rng.choice(np.nonzero(country < 4)[0],
+                           LOGIN_ENVELOPE - n_set, replace=False)
+    calls = [f'Set("new{j:05d}", country="{cnames[j % 4]}")'
+             for j in range(n_set)]
+    calls += [f'Clear("{logins[i]}", country="{cnames[country[i]]}")'
+              for i in clear_idx]
+    got = query(" ".join(calls))["results"]
+    if got != [True] * LOGIN_ENVELOPE:
+        raise AssertionError("the keyed envelope's changed flags differ")
+    snap1 = srv.executor.ingest_snapshot()
+    if snap1["mutations"] - snap0["mutations"] != LOGIN_ENVELOPE:
+        raise AssertionError("the keyed envelope did not go through the "
+                             "IngestBatcher")
+    if srv.translate.log_size() <= size:
+        raise AssertionError("the envelope minted no login")
+    for j in range(n_set):
+        ccount[j % 4] += 1
+    np.subtract.at(ccount, country[clear_idx], 1)
+    for c in range(4):
+        pql = f'Count(Row(country="{cnames[c]}"))'
+        if query(pql)["results"][0] != int(ccount[c]):
+            raise AssertionError(f"{pql} after the envelope differs")
+    country_after = country.copy()
+    country_after[clear_idx] = -1
+    log(f"  one envelope of {LOGIN_ENVELOPE} keyed Set/Clear calls ({n_set}"
+        f" minting new logins) through the IngestBatcher: every flag and "
+        f"the four Counts after it agree")
+
+    # /export of shard 1 of country
+    t0 = time.perf_counter()
+    text = _text(port, f"/export?index={LOGIN_INDEX}&field=country&shard=1")
+    export_ms = (time.perf_counter() - t0) * 1e3
+    in1 = (col // SHARD_WIDTH == 1) & (country_after >= 0)
+    rid = cid[country_after[in1]]
+    order = np.lexsort((col[in1], rid))
+    want_text = "".join(f"{r},{c}\r\n" for r, c in
+                        zip(rid[order].tolist(), col[in1][order].tolist()))
+    if text != want_text:
+        raise AssertionError("/export of shard 1 differs from the oracle")
+    log(f"  /export of shard 1 of country: {int(in1.sum())} lines "
+        f"({len(text)} bytes) in {export_ms:.1f} ms (oracle agrees)")
+
+    # DELETE of country gives its device bytes back
+    torch.cuda.synchronize()
+    gc.collect()
+    field_bytes = sum(nb for k, nb, _ in
+                      srv.executor.residency.entries_snapshot()
+                      if len(k) > 2 and k[1:3] == (LOGIN_INDEX, "country"))
+    before = torch.cuda.memory_allocated()
+    _http(port, "DELETE", f"/index/{LOGIN_INDEX}/field/country")
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    left = [k for k, _, _ in srv.executor.residency.entries_snapshot()
+            if len(k) > 2 and k[1:3] == (LOGIN_INDEX, "country")]
+    if left or field_bytes <= 0 or before - after < field_bytes:
+        raise AssertionError(f"DELETE country: {len(left)} leaves left, "
+                             f"{field_bytes} resident bytes, allocated "
+                             f"{before} -> {after}")
+    schema = _http(port, "GET", f"/index/{LOGIN_INDEX}")
+    if "country" in [f["name"] for f in schema["fields"]]:
+        raise AssertionError("the deleted field is still in the schema")
+    log(f"  DELETE country: {field_bytes:,} resident bytes dropped; device "
+        f"allocated {before:,} -> {after:,} bytes")
+    return {"logins": n, "import_s": import_s,
+            "mint_us_per_key": mint_s / n * 1e6, "column_attrs_s": attrs_s,
+            "largest_row_keys": len(big), "render_ms": render_ms,
+            "export_ms": export_ms, "delete_field_bytes": field_bytes,
+            "allocated_before": before, "allocated_after": after}
+
+
+def keyed_phase(srv, port: int, n_shards: int, seed: int, d: dict) -> dict:
+    """Phase 5f: part A (keyed language on phase 5e's index) and part B
+    (the keyed-column login index), with the launch counts zeroed before
+    it and read after it; six kernels must launch."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    start_window()  # the keyed path starts here
+    out = keyed_language(srv, port, n_shards, seed, d)
+    out["stats"]["logins"] = keyed_logins(srv, port, seed)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()  # the keyed path ends here
+    out["obs"]["scrape"] = observe_path(port, "keyed", launches)
+    out["launches"] = launches
+    t0 = time.perf_counter()
+    _http(port, "DELETE", f"/index/{LOGIN_INDEX}")
+    log(f"  index {LOGIN_INDEX} deleted in {time.perf_counter() - t0:.1f} s")
+    out["stats"]["phase_s"] = time.perf_counter() - t_phase
+    log(f"  launches on the keyed path: {launches}")
+    for name in ("topn_counts_packed", "cross_count_matrix",
+                 "sparse_intersect_dense", "pair_stream_counts",
+                 "bsi_sum_counts", "bsi_compare"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the keyed path")
+    log(f"  keyed phase: {out['stats']['phase_s']:.1f} s")
+    return out
+
+
+def keyed_only(device, seed: int) -> dict:
+    """Phase 5e's loads (no passes), then phase 5f, on a fresh server."""
+    from pilosa_tpu_torch.server import Server
+
+    with tempfile.TemporaryDirectory(prefix="pilosa_torch_keyed_") as tmp:
+        srv = Server(os.path.join(tmp, "data"), port=0, device=device).open()
+        srv.executor.plan_cache.enabled = False
+        try:
+            typed = typed_phase(srv, srv.http.port, 1024, seed,
+                                TYPED_CLIENTS, TYPED_PER_CLIENT, passes=False)
+            log(f"  phase 5e loads: {typed['stats']}")
+            out = keyed_phase(srv, srv.http.port, 1024, seed, typed["data"])
+            delete_typed(srv, typed["stats"])
         finally:
             srv.close()
     return {"launches": out["launches"], **out["stats"]}
@@ -4326,6 +4901,12 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                 out["frozen"] = frozen_phase(srv, port, *frozen, seed)
                 log("phase 5e: typed fields (Star Trace) on the same server")
                 out["typed"] = typed_phase(srv, port, n_shards, seed, *typed)
+                log("phase 5f: string keys and attributes (a keyed "
+                    "language field on the Star Trace index, a keyed-column "
+                    "index of user logins) on the same server")
+                out["keyed"] = keyed_phase(srv, port, n_shards, seed,
+                                           out["typed"].pop("data"))
+                delete_typed(srv, out["typed"]["stats"])
             log("phase 6: write path (coalesced Set/Clear) on the same "
                 "server, under concurrent reads")
             out["ingest"] = ingest_phase(srv, port, p, exists_all, s_rows,
@@ -4436,16 +5017,18 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=8)
     ap.add_argument("--slab-rows", type=int, default=32)
     ap.add_argument("--k", type=int, default=1024)
-    # timed runs a kernel measurement: 6 since phase 5e joined the run (10
-    # before), to keep the whole run inside its time limit
-    ap.add_argument("--runs", type=int, default=6)
+    # timed runs a kernel measurement: 4 since phase 5f joined the run (6
+    # since 5e, 10 before), to keep the whole run inside its time limit
+    ap.add_argument("--runs", type=int, default=4)
     ap.add_argument("--clients", type=int, default=32)
-    # the Count pass: 32 a client since phase 5e joined the run (64 before)
-    ap.add_argument("--per-client", type=int, default=32)
+    # the Count pass: 16 a client since phase 5f joined the run (32 since
+    # 5e, 64 before)
+    ap.add_argument("--per-client", type=int, default=16)
     ap.add_argument("--bsi-per-shard", type=int, default=32768,
                     help="int values per shard of the BSI phase")
     ap.add_argument("--bsi-clients", type=int, default=32)
-    ap.add_argument("--bsi-per-client", type=int, default=16)
+    # the BSI pass: 8 a client since phase 5f joined the run (16 before)
+    ap.add_argument("--bsi-per-client", type=int, default=8)
     ap.add_argument("--profile", action="store_true",
                     help="after the measured pass, run one more under "
                          "torch.profiler and print the device's idle share")
@@ -4467,6 +5050,9 @@ def main(argv=None) -> int:
     ap.add_argument("--typed-only", action="store_true",
                     help="run phases 1 and 5e alone and print their "
                          "numbers")
+    ap.add_argument("--keyed-only", action="store_true",
+                    help="run phase 1, phase 5e's loads and phase 5f alone "
+                         "and print their numbers")
     ap.add_argument("--kernel-times", action="store_true",
                     help="time program_count, intersect_count and "
                          "sparse_intersect_dense alone (no server) and "
@@ -4509,6 +5095,12 @@ def main(argv=None) -> int:
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         print(smi_name)
         print(json.dumps({"typed": measured}), flush=True)
+        return 0
+    if args.keyed_only:
+        measured = keyed_only(device, args.seed)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        print(smi_name)
+        print(json.dumps({"keyed": measured}), flush=True)
         return 0
     if args.frozen_only or args.frozen_scale is not None:
         measured = frozen_only(device, args.frozen_scale, configs, args.seed)
@@ -4572,7 +5164,7 @@ def main(argv=None) -> int:
     paths = {"count": served, "bsi": served["bsi"], "topn": served["topn"],
              "hybrid": served["hybrid"], "planner": served["planner"],
              "frozen": served["frozen"], "typed": served["typed"],
-             "ingest": served["ingest"]}
+             "keyed": served["keyed"], "ingest": served["ingest"]}
     for name, m in measured.items():
         # launches on every path of the main run (each path zeroes the
         # counts before its first query and reads them after its last)

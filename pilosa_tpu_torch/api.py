@@ -1,13 +1,19 @@
 """API: the validated facade over holder + executor.
 
-Trimmed port of pilosa_tpu/api.py: create/delete index (with
-trackExistence), create field, bulk imports of bits (with timestamps for
-a time field's views, :681-745) and of int values with existence marking
-(api.py:820-842), the per-shard roaring import (:844-880), queries,
-schema and status.
-Result JSON is the reference's (api.py:567-603) for the result types of
-this slice: Row, ValCount ({"value", "count"}), Pairs ([{"id", "count"}]),
-RowIdentifiers ({"rows": [...]}), GroupCounts (a list), int and bool.
+Trimmed port of pilosa_tpu/api.py: create/delete index (with keys and
+trackExistence), create/delete field, bulk imports of bits (with
+timestamps for a time field's views, :681-745; row and column keys
+translated first, :680-700) and of int values with existence marking
+(:808-842), the per-shard roaring import (:844-880), queries, the CSV
+export (:884), schema, status, info, version and the rank caches'
+recount (:1011).
+Result JSON is the reference's (api.py:561-603): Row ({"columns"}, or
+{"keys"} on a keyed index, and "attrs"), ValCount ({"value", "count"}),
+Pairs ([{"id", "count"}], with "key" on a keyed field), RowIdentifiers
+({"rows": [...]}, or {"rows": null, "keys": [...]}), GroupCounts (a
+list), int, bool and null (the attribute writes). columnAttrs=true adds
+"columnAttrSets" (:543-559); excludeRowAttrs and excludeColumns empty
+every Row result's attributes or columns (:305-314).
 
 Per-request profiling (api.py:109-125, :270-360): a query gets a
 QueryProfile when the request asks (?profile=true) or while
@@ -20,6 +26,9 @@ explain() answers ?explain=true (:399-440).
 
 from __future__ import annotations
 
+import csv
+import io
+import os
 import time
 import uuid
 from datetime import datetime, timezone
@@ -28,6 +37,7 @@ from typing import Optional
 import numpy as np
 
 from pilosa_tpu_torch import __version__, planner
+from pilosa_tpu_torch.constants import SHARD_WIDTH
 from pilosa_tpu_torch.executor import (
     ExecutionError,
     Executor,
@@ -45,6 +55,7 @@ from pilosa_tpu_torch.pql.ast import WRITE_CALLS
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import tracing
+from pilosa_tpu_torch.utils.translate import TranslateStore
 
 
 _EPOCH = datetime(1970, 1, 1)
@@ -102,9 +113,15 @@ class ConflictError(ApiError):
 
 
 class API:
-    def __init__(self, holder: Holder, executor: Executor):
+    def __init__(self, holder: Holder, executor: Executor,
+                 translate_store: Optional[TranslateStore] = None):
         self.holder = holder
         self.executor = executor
+        # string keys (utils/translate.py); an in-memory store unless the
+        # server gives its own
+        self.translate = translate_store or TranslateStore().open()
+        if executor.translator is None:
+            executor.translator = self.translate
         self.node_id = str(uuid.uuid4())
         self.uri = ""  # set by Server once the listener is bound
         self.start_time = time.monotonic()
@@ -117,9 +134,13 @@ class API:
 
     def query_results(self, index_name: str, pql: str,
                       shards: Optional[list[int]] = None,
-                      profile: bool = False) -> list:
-        """Execute PQL and return the raw results; the query's profile,
-        when it had one, is published in qprofile.last_profile."""
+                      profile: bool = False,
+                      exclude_row_attrs: bool = False,
+                      exclude_columns: bool = False) -> list:
+        """Execute PQL and return the raw results (the JSON and protobuf
+        writers both read them); the query's profile, when it had one, is
+        published in qprofile.last_profile. The exclude flags empty every
+        Row result's attributes or columns."""
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
         slow_armed = self.long_query_time > 0
@@ -143,6 +164,13 @@ class API:
             # columns would only churn the parse cache
             query = parse_mutations_fast(pql) or parse_string_cached(pql)
             results = self.executor.execute(index_name, query, shards=shards)
+            if exclude_row_attrs or exclude_columns:
+                for r in results:
+                    if isinstance(r, Row):
+                        if exclude_columns:
+                            r.segments = {}
+                        if exclude_row_attrs:
+                            r.attrs = {}
             return results
         except (ExecutionError, ValueError) as e:
             raise ApiError(str(e))
@@ -170,12 +198,21 @@ class API:
 
     def query(self, index_name: str, pql: str,
               shards: Optional[list[int]] = None,
-              profile: bool = False) -> dict:
+              profile: bool = False, column_attrs: bool = False,
+              exclude_row_attrs: bool = False,
+              exclude_columns: bool = False) -> dict:
         """POST /index/{index}/query; `profile` adds the query's profile
-        tree under "profile"."""
+        tree under "profile", `column_attrs` the attribute sets of the Row
+        results' columns under "columnAttrSets"."""
         results = self.query_results(index_name, pql, shards=shards,
-                                     profile=profile)
-        out = {"results": [self._result_to_json(r) for r in results]}
+                                     profile=profile,
+                                     exclude_row_attrs=exclude_row_attrs,
+                                     exclude_columns=exclude_columns)
+        index = self.holder.index(index_name)
+        out = {"results": [self._result_to_json(index, r) for r in results]}
+        if column_attrs:
+            out["columnAttrSets"] = self.column_attr_sets(index_name,
+                                                          results)
         if profile:
             prof = qprofile.last_profile.get()
             if prof is not None:
@@ -213,32 +250,68 @@ class API:
         return {"index": index_name, "explain": out,
                 "calibration": planner.calibration.snapshot(limit=0)}
 
-    @staticmethod
-    def _result_to_json(result):
+    def column_attr_sets(self, index_name: str, results: list) -> list:
+        """The attributes of every column of the Row results that has any,
+        ascending, with its key on a keyed index (api.py:543-559)."""
+        index = self.holder.index(index_name)
+        if index is None:
+            return []
+        cols = [r.columns() for r in results if isinstance(r, Row)]
+        if not cols:
+            return []
+        ids = np.unique(np.concatenate(cols)).tolist()
+        attrs = index.column_attrs.attrs_many(ids)
+        out = []
+        keys = {}
+        if index.keys and attrs:
+            with_attrs = sorted(attrs)
+            keys = dict(zip(with_attrs,
+                            self.translate.translate_columns_to_strings(
+                                index.name, with_attrs)))
+        for c in sorted(attrs):
+            if attrs[c]:
+                entry = {"id": c, "attrs": attrs[c]}
+                if keys.get(c) is not None:
+                    entry["key"] = keys[c]
+                out.append(entry)
+        return out
+
+    def _result_to_json(self, index, result):
         if isinstance(result, Row):
             d = result.to_json_dict()
+            if index is not None and index.keys:
+                # a keyed index names its columns by key; a column without
+                # one renders as its decimal id
+                cols = d.pop("columns")
+                keys = self.translate.translate_columns_to_strings(
+                    index.name, cols)
+                d["keys"] = [k if k is not None else str(c)
+                             for c, k in zip(cols, keys)]
             d.setdefault("attrs", {})
             return d
         if isinstance(result, ValCount):
             return result.to_json_dict()
         if isinstance(result, Pairs):
+            if result.row_keys is not None:
+                return [{"id": int(i), "key": k, "count": c}
+                        for (i, c), k in zip(result, result.row_keys)]
             return [{"id": i, "count": c} for i, c in result]
         if isinstance(result, RowIdentifiers):
+            if result.row_keys is not None:
+                return {"rows": None, "keys": list(result.row_keys)}
             return {"rows": list(result)}
         if isinstance(result, GroupCounts):
             return list(result)
-        return result  # int / bool
+        return result  # int / bool / None
 
     # -- schema -------------------------------------------------------------
 
     def create_index(self, name: str, keys: bool = False,
                      track_existence: bool = True):
-        if keys:
-            raise ApiError("keyed indexes not ported yet")
         if self.holder.index(name) is not None:
             raise ConflictError(f"index already exists: {name}")
         try:
-            return self.holder.create_index(name,
+            return self.holder.create_index(name, keys=keys,
                                             track_existence=track_existence)
         except ValueError as e:
             raise ApiError(str(e))
@@ -259,27 +332,53 @@ class API:
             raise ConflictError(f"field already exists: {field_name}")
         try:
             return index.create_field(field_name, options)
-        except ValueError as e:  # NotPortedError included
+        except ValueError as e:
             raise ApiError(str(e))
+
+    def delete_field(self, index_name: str, field_name: str) -> None:
+        """DELETE /index/{i}/field/{f} (api.py:648): the field's files go,
+        and the executor drops its resident leaves, cached results, heat
+        entries, row forms and TopN merges."""
+        index = self.holder.index(index_name)
+        if index is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        try:
+            index.delete_field(field_name)
+        except KeyError as e:
+            raise NotFoundError(str(e))
+        self.executor.drop_field(index_name, field_name)
 
     def schema(self) -> dict:
         return {"indexes": self.holder.schema()}
 
-    # -- imports ------------------------------------------------------------
-
-    def import_bits(self, index_name: str, field_name: str,
-                    row_ids, column_ids, clear: bool = False,
-                    timestamps=None) -> None:
-        """Bulk import of (row, column) bits; marks the columns in the
-        existence field unless clearing. `timestamps` (one per bit, as
-        import_timestamps reads them) place a time field's bits in their
-        quantum's views; other field types ignore them."""
+    def _field(self, index_name: str, field_name: str):
         index = self.holder.index(index_name)
         if index is None:
             raise NotFoundError(f"index not found: {index_name}")
         f = index.field(field_name)
         if f is None:
             raise NotFoundError(f"field not found: {field_name}")
+        return index, f
+
+    # -- imports ------------------------------------------------------------
+
+    def import_bits(self, index_name: str, field_name: str,
+                    row_ids=None, column_ids=None, clear: bool = False,
+                    timestamps=None, row_keys=None,
+                    column_keys=None) -> None:
+        """Bulk import of (row, column) bits; marks the columns in the
+        existence field unless clearing. `timestamps` (one per bit, as
+        import_timestamps reads them) place a time field's bits in their
+        quantum's views; other field types ignore them. Row and column
+        keys, where given, are minted or looked up first (rows first, as
+        api.py:688-691) and take the ids' place."""
+        index, f = self._field(index_name, field_name)
+        if row_keys:
+            row_ids = self.translate.translate_rows(index_name, field_name,
+                                                    list(row_keys))
+        if column_keys:
+            column_ids = self.translate.translate_columns(index_name,
+                                                          list(column_keys))
         if row_ids is None or column_ids is None:
             raise ApiError("import requires rows and columns")
         rows = np.asarray(row_ids, dtype=np.int64).reshape(-1)
@@ -299,15 +398,15 @@ class API:
             index.mark_exists(cols)
 
     def import_values(self, index_name: str, field_name: str,
-                      column_ids, values) -> None:
+                      column_ids=None, values=None,
+                      column_keys=None) -> None:
         """Bulk import of int values (the last value of a column wins);
-        marks the columns in the existence field."""
-        index = self.holder.index(index_name)
-        if index is None:
-            raise NotFoundError(f"index not found: {index_name}")
-        f = index.field(field_name)
-        if f is None:
-            raise NotFoundError(f"field not found: {field_name}")
+        marks the columns in the existence field. Column keys, where
+        given, take the ids' place."""
+        index, f = self._field(index_name, field_name)
+        if column_keys:
+            column_ids = self.translate.translate_columns(index_name,
+                                                          list(column_keys))
         if column_ids is None or values is None:
             raise ApiError("import requires columns and values")
         cols = np.asarray(column_ids, dtype=np.int64).reshape(-1)
@@ -326,12 +425,7 @@ class API:
         ("" is the standard view), unioned into (or cleared from) that
         view's fragment of the shard. Existence is not marked, as in the
         JAX package."""
-        index = self.holder.index(index_name)
-        if index is None:
-            raise NotFoundError(f"index not found: {index_name}")
-        f = index.field(field_name)
-        if f is None:
-            raise NotFoundError(f"field not found: {field_name}")
+        _, f = self._field(index_name, field_name)
         for vname, data in views.items():
             view = f.create_view_if_not_exists(vname or VIEW_STANDARD)
             frag = view.create_fragment_if_not_exists(shard)
@@ -342,7 +436,42 @@ class API:
             view.refresh_rank_cache(shard)
         f.add_available_shards([shard])
 
+    # -- export -------------------------------------------------------------
+
+    def export_csv(self, index_name: str, field_name: str,
+                   shard: int) -> str:
+        """GET /export (api.py:884): "row,column" lines of the shard's
+        standard view, rows ascending, columns as global ids."""
+        _, f = self._field(index_name, field_name)
+        view = f.view(VIEW_STANDARD)
+        frag = view.fragment(shard) if view is not None else None
+        buf = io.StringIO()
+        w = csv.writer(buf)
+        if frag is not None:
+            base = shard * SHARD_WIDTH
+            for rid in frag.row_ids():
+                w.writerows([rid, int(c) + base]
+                            for c in frag.row_columns(rid))
+        return buf.getvalue()
+
+    def recalculate_caches(self) -> None:
+        """POST /recalculate-caches (api.py:1011): every view's rank caches
+        rebuilt from its bits."""
+        for idx in list(self.holder.indexes.values()):
+            for f in list(idx.fields.values()):
+                for v in list(f.views.values()):
+                    for shard in v.shards():
+                        v.refresh_rank_cache(shard)
+
     # -- status -------------------------------------------------------------
+
+    def info(self) -> dict:
+        """GET /info (api.py:943): one node of one device."""
+        return {"shardWidth": SHARD_WIDTH, "cpuPhysicalCores": os.cpu_count(),
+                "meshDevices": 1, "version": __version__}
+
+    def version(self) -> str:
+        return __version__
 
     def status(self) -> dict:
         dev = self.executor.runner.device

@@ -63,8 +63,8 @@ existence is marked through the same batch apply, and the resident dense
 and sparse leaves of the changed rows are patched in place on the device
 (DeviceResidency.patch_entries; run leaves are dropped), so a read after
 a write uploads nothing. What the batch cannot take as the per-bit path
-would (int fields, mutex, bool and time fields, timestamps, string
-keys, missing fields) takes the per-bit path. ClearRow, Store and Options
+would (int fields, mutex, bool and time fields, timestamps, missing
+fields) takes the per-bit path; string keys are translated first. ClearRow, Store and Options
 (:2535-2577, :3824-3836) run per call; the port logs ClearRow's and
 Store's bits to the WAL, so they survive a reopen (the JAX package's do
 not: ROADMAP Queue C 5). Reads of an index wait while a batch is
@@ -98,10 +98,24 @@ PILOSA_TPU_TORCH_PLANNER=0 and PILOSA_TPU_TORCH_PLAN_CACHE=0 switch them
 off when the executor is built; `plan_cache.enabled` switches the cache at
 run time.
 
+String keys (executor.py:2427-2590): with a translator (the server's
+utils/translate.py store), a string row or column argument is a key.
+Writes mint keys (Set, Store, SetRowAttrs, SetColumnAttrs); every read
+translates with create=False, so an unknown key is an empty row and mints
+nothing (a Clear or ClearRow of one changes nothing). Results name their
+rows by key on keyed fields (_translate_result): TopN pairs, Rows, GroupBy
+groups, Options-wrapped calls too; a Row's column keys are rendered by the
+API. Keyed Set/Clear envelopes are translated on the submitting thread and
+go through the IngestBatcher like unkeyed ones (executor.py:3171-3260).
+
+Attributes: SetRowAttrs and SetColumnAttrs merge into the field's and the
+index's AttrStore; a top-level Row() result carries its row's attributes
+(:1476-1480), and TopN's attrName/attrValues keep only the candidates
+whose attribute is one of the values (:1860-1892).
+
 Left out: the cluster (its distributed and remote ingest applies
-included), key translation and row attributes. None of them changes an
-answer. Calls and options outside the slice raise NotPortedError (a 400
-at the API).
+included). Calls and options outside the slice raise NotPortedError (a
+400 at the API).
 """
 
 from __future__ import annotations
@@ -218,11 +232,18 @@ class ValCount:
 
 
 class Pairs(list):
-    """TopN result: [(row_id, count)] (pilosa_tpu/executor.py:63-71)."""
+    """TopN result: [(row_id, count)] (pilosa_tpu/executor.py:63-71);
+    `row_keys` the rows' keys on a keyed field (not `keys`: dict() would
+    take a list with a keys attribute for a mapping)."""
+
+    row_keys: Optional[list] = None
 
 
 class RowIdentifiers(list):
-    """Rows result: ascending row ids (executor.py:73-79)."""
+    """Rows result: ascending row ids (executor.py:73-79); `row_keys` the
+    rows' keys on a keyed field."""
+
+    row_keys: Optional[list] = None
 
 
 class GroupCounts(list):
@@ -230,8 +251,10 @@ class GroupCounts(list):
 
 
 class Executor:
-    def __init__(self, holder, device="cuda"):
+    def __init__(self, holder, device="cuda", translator=None):
         self.holder = holder
+        # utils/translate.py TranslateStore (None: string keys raise)
+        self.translator = translator
         self.runner = DeviceRunner(device)
         # observability: nop until a Server installs its stats client and
         # tracer; the heat map unless PILOSA_TPU_TORCH_HEAT=0
@@ -295,6 +318,29 @@ class Executor:
         with self._topn_memo_lock:
             self._topn_merge_memo.clear()
 
+    def drop_field(self, index_name: str, field_name: str) -> None:
+        """Drop what the executor keeps of a deleted field: its resident
+        leaves and slabs, the plan-cache entries keyed by any of its rows,
+        its heat entries, row forms and TopN merges."""
+        self.residency.drop_where(
+            lambda k: len(k) > 2 and k[1] == index_name
+            and k[2] == field_name)
+        if self.plan_cache is not None:
+
+            def cached_on_field(k: tuple) -> bool:
+                k = k[1:] if k[0] == "count" else k
+                return k[0] == index_name and any(
+                    g[1] == field_name for g in k[3])
+
+            self.plan_cache.drop_where(cached_on_field)
+        if self.heat is not None:
+            self.heat.drop_field(index_name, field_name)
+        self.hybrid.drop_field(index_name, field_name)
+        with self._topn_memo_lock:
+            for k in [k for k in self._topn_merge_memo
+                      if k[:2] == (index_name, field_name)]:
+                del self._topn_merge_memo[k]
+
     # ------------------------------------------------------------------ API
 
     def execute(self, index_name: str, query,
@@ -316,6 +362,10 @@ class Executor:
             handled = self._execute_ingest(index, query)
             if handled is not None:
                 return handled
+        if len(query.calls) > 1 and all(
+                c.name in ("SetRowAttrs", "SetColumnAttrs")
+                for c in query.calls):
+            return self._execute_attrs_bulk(index, query.calls)
         prof = qprofile.current_profile.get()
         results = []
         with self._fence(index.name).read():
@@ -323,7 +373,8 @@ class Executor:
                 self.stats.count(f"query/{call.name}")
                 t_call = time.perf_counter() if prof is not None else 0.0
                 with self.tracer.start_span(f"executor.{call.name}") as span:
-                    results.append(self._execute_call(index, call, shards))
+                    results.append(self._translate_result(
+                        index, call, self._execute_call(index, call, shards)))
                     span.set_tag("index", index_name)
                 if prof is not None:
                     prof.record_call(call.name,
@@ -374,6 +425,10 @@ class Executor:
             return self._execute_clear(index, call)
         if call.name == "ClearRow":
             return self._execute_clear_row(index, call)
+        if call.name == "SetRowAttrs":
+            return self._execute_set_row_attrs(index, call)
+        if call.name == "SetColumnAttrs":
+            return self._execute_set_column_attrs(index, call)
         if call.name == "Store":
             return self._execute_store(index, call, shards)
         if call.name == "TopN":
@@ -400,13 +455,38 @@ class Executor:
             raise ExecutionError(f"field not found: {field_name}")
         return f
 
-    @staticmethod
-    def _row_id(value) -> int:
+    def _translate_row(self, index: Index, f, value,
+                       create: bool = True) -> Optional[int]:
+        """A row argument -> its id: a bool row is 1 or 0, a string a key
+        of the field (None: unknown and create is False)
+        (executor.py:2472-2480)."""
         if isinstance(value, bool):
             return 1 if value else 0
         if isinstance(value, str):
-            raise NotPortedError("string keys not ported yet")
+            if self.translator is None:
+                raise ExecutionError("string keys require a translator")
+            return self.translator.translate_row(index.name, f.name, value,
+                                                 create=create)
         return int(value)
+
+    def _translate_col(self, index: Index, value,
+                       create: bool = True) -> Optional[int]:
+        """A column argument -> its id; a string is a key of the index
+        (executor.py:2463-2470)."""
+        if isinstance(value, str):
+            if self.translator is None:
+                raise ExecutionError("string keys require a translator")
+            return self.translator.translate_column(index.name, value,
+                                                    create=create)
+        if value is None:
+            raise ExecutionError("a column is required")
+        return int(value)
+
+    def _read_row_id(self, index: Index, c: Call) -> tuple:
+        """(field, row id) of a read's Row or time Range argument, the id
+        None for an unknown key (a read mints nothing)."""
+        f = self._field(index, c.field_arg())
+        return f, self._translate_row(index, f, c.args[f.name], create=False)
 
     @staticmethod
     def _leaf_gens(index: Index, field_name: str, view_name: str, shards,
@@ -465,7 +545,7 @@ class Executor:
             out = np.zeros((len(shards), WORDS_PER_SHARD), dtype=np.uint32)
             for i, fr in enumerate(frags):
                 if fr is not None:
-                    out[i] = fr.row_dense(row_id)
+                    fr.row_dense(row_id, out[i])
             self.hybrid.record_upload("dense", out.nbytes)
             return out
 
@@ -583,6 +663,12 @@ class Executor:
             out[f"resident{name}Bytes"] = k.get("bytes", 0)
         return out
 
+    def _zeros_leaf(self, n_shards: int):
+        """The resident empty [S, W] plane."""
+        return self.residency.leaf(
+            ("zeros", n_shards),
+            lambda: np.zeros((n_shards, WORDS_PER_SHARD), dtype=np.uint32))
+
     def _compile(self, index: Index, call: Call, shards: list):
         """Walk the call tree -> (program, leaves, kinds): kinds[i] is
         "dense" ([S, W] int32 planes), "sparse" ([S, K] column ids) or
@@ -597,17 +683,14 @@ class Executor:
             return ("leaf", len(leaves) - 1)
 
         def zeros():
-            return leaf(self.residency.leaf(
-                ("zeros", len(shards)),
-                lambda: np.zeros((len(shards), WORDS_PER_SHARD),
-                                 dtype=np.uint32)))
+            return leaf(self._zeros_leaf(len(shards)))
 
         def walk(c: Call):
             if c.name == "Row":
-                field_name = c.field_arg()
-                self._field(index, field_name)
-                row_id = self._row_id(c.args[field_name])
-                return leaf(*self._chosen_leaf(index, field_name, shards,
+                f, row_id = self._read_row_id(index, c)
+                if row_id is None:  # an unknown key: the empty row
+                    return zeros()
+                return leaf(*self._chosen_leaf(index, f.name, shards,
                                                row_id, c))
             if c.name in ("Union", "Xor"):
                 if not c.children:  # zero-arg Union()/Xor(): empty row
@@ -640,10 +723,10 @@ class Executor:
     def _time_range(self, index: Index, c: Call) -> tuple:
         """(field, row id, views) of a time Range(f=row, start, end): the
         views are views_by_time_range's minimal cover of [start, end)
-        (executor.py:1236-1252); a field without a quantum has none."""
-        field_name = c.field_arg()
-        f = self._field(index, field_name)
-        row_id = self._row_id(c.args[field_name])
+        (executor.py:1236-1252); a field without a quantum has none. The
+        row id is None for an unknown key (the JAX package mints one
+        here: ROADMAP Queue C)."""
+        f, row_id = self._read_row_id(index, c)
         start, end = c.args.get("_start"), c.args.get("_end")
         if not isinstance(start, datetime) or not isinstance(end, datetime):
             raise ExecutionError("Range() requires start and end timestamps")
@@ -656,6 +739,8 @@ class Executor:
         executor.py:1622-1640) and keyed by every view's generations, so a
         write into any covered view changes the key."""
         f, row_id, views = self._time_range(index, c)
+        if row_id is None:
+            return self._zeros_leaf(len(shards))
         gens = tuple(self._leaf_gens(index, f.name, v, shards, row_id)
                      for v in views)
         key = ("timerange", index.name, f.name, row_id, views, tuple(shards),
@@ -808,6 +893,12 @@ class Executor:
                 out.segments[shard] = (cols.astype(np.uint64)
                                        + np.uint64(shard * SHARD_WIDTH))
         self._record_actual(n_cols)
+        if call.name == "Row":
+            # a top-level Row() carries its row's attributes
+            # (executor.py:1473-1481)
+            f, row_id = self._read_row_id(index, call)
+            if row_id is not None:
+                out.attrs = f.row_attrs.attrs(row_id)
         return out
 
     def _execute_count(self, index: Index, call: Call, shards) -> int:
@@ -1048,12 +1139,24 @@ class Executor:
         ids_arg = call.uint_slice_arg("ids")
         threshold = call.uint_arg("threshold") or 0
         tanimoto = call.uint_arg("tanimotoThreshold") or 0
-        # the attribute filter exists only when both are given
-        if call.string_arg("attrName") and call.args.get("attrValues") is not None:
-            raise NotPortedError("TopN attrName/attrValues (row attributes) "
-                                 "not ported yet")
+        # the row-attribute filter, only when both are given
+        # (executor.py:1860-1892)
+        attr_name = call.string_arg("attrName")
+        attr_values = call.args.get("attrValues")
+        allowed = None
+        if attr_name and attr_values is not None:
+            allowed = set(attr_values if isinstance(attr_values, list)
+                          else [attr_values])
+
+        def attr_ok(row_ids) -> list:
+            attrs = f.row_attrs.attrs_many(row_ids)
+            return [attrs.get(int(r), {}).get(attr_name) in allowed
+                    for r in row_ids]
+
         if ids_arg is not None:
             ids = list(ids_arg)
+            if allowed is not None:
+                ids = [r for r, ok in zip(ids, attr_ok(ids)) if ok]
             if src is None:
                 pairs = self._host_row_counts(f, shards, ids)
             else:
@@ -1062,6 +1165,9 @@ class Executor:
         else:
             cand_ids, cand_counts = self._topn_candidate_arrays(index, f,
                                                                 shards)
+            if allowed is not None:
+                keep = np.asarray(attr_ok(cand_ids.tolist()), dtype=bool)
+                cand_ids, cand_counts = cand_ids[keep], cand_counts[keep]
             if threshold:
                 # a cached count bounds the row's final count from above
                 keep = cand_counts >= threshold
@@ -1286,10 +1392,16 @@ class Executor:
             raise ExecutionError(f"field not found: {field_name}")
         shards = self._query_shards(index, shards)
         limit = call.uint_arg("limit")
-        if isinstance(call.args.get("previous"), str):
-            raise NotPortedError("Rows(previous=<key>): keyed fields not "
-                                 "ported yet")
-        previous = call.uint_arg("previous")
+        previous = call.args.get("previous")
+        if isinstance(previous, str):
+            # keyed paging (executor.py:2175-2184): an unknown key is an
+            # error, not a restart from the first row
+            previous = self._translate_row(index, f, previous, create=False)
+            if previous is None:
+                raise ExecutionError(
+                    f"row key not found: {call.args['previous']!r}")
+        else:
+            previous = call.uint_arg("previous")
         column = call.uint_arg("column")
         view = f.view(VIEW_STANDARD)
         out: set = set()
@@ -1315,20 +1427,31 @@ class Executor:
     def _rows_slab(self, index: Index, field_name: str, shards: list,
                    row_ids: list):
         """One resident [R, S, W] slab of a GroupBy axis, keyed by every
-        row's per-shard generations, built row by row from the host."""
+        row's per-shard generations, built row by row: a row whose dense
+        leaf is resident under the same generations (a TopN recount made
+        it) is copied on the device, any other from the host."""
         frags = self._fragments(index, field_name, VIEW_STANDARD, shards)
         gens = tuple(tuple(0 if fr is None else fr.row_generation(rid)
                            for fr in frags) for rid in row_ids)
+        shards_t = tuple(shards)
         key = ("rows_slab", index.name, field_name, VIEW_STANDARD,
-               tuple(shards), tuple(row_ids), gens)
+               shards_t, tuple(row_ids), gens)
 
         def make():
             slab = torch.empty((len(row_ids), len(shards), WORDS_PER_SHARD),
                                dtype=torch.int32, device=self.runner.device)
-            host = np.zeros((len(shards), WORDS_PER_SHARD), dtype=np.uint32)
             for i, rid in enumerate(row_ids):
+                leaf = self.residency.peek(("row", index.name, field_name,
+                                            VIEW_STANDARD, rid, shards_t,
+                                            gens[i]))
+                if leaf is not None:
+                    slab[i].copy_(leaf)
+                    continue
+                host = np.zeros((len(shards), WORDS_PER_SHARD),
+                                dtype=np.uint32)
                 for j, fr in enumerate(frags):
-                    host[j] = 0 if fr is None else fr.row_dense(rid)
+                    if fr is not None:
+                        fr.row_dense(rid, host[j])
                 slab[i].copy_(planes_to_tensor(host, "cpu"))
             return slab
 
@@ -1482,26 +1605,33 @@ class Executor:
         """Set (executor.py:2482-2500): a value on an int field, else a
         bit, into every view of a timestamped write on a time field; a
         mutex or bool field clears the column's other rows first."""
-        col = self._column(call)
+        col = self._translate_col(index, call.args.get("_col"))
         f = self._field(index, call.field_arg())
         if f.options.type == INT:
             changed = f.set_value(col, int(call.args[f.name]))
         else:
-            changed = f.set_bit(self._row_id(call.args[f.name]), col,
-                                timestamp=call.args.get("_timestamp"))
+            changed = f.set_bit(self._translate_row(index, f,
+                                                    call.args[f.name]),
+                                col, timestamp=call.args.get("_timestamp"))
         index.mark_exists([col])
         self._heat_write(index, f, col)  # every Set, as executor.py:2499
         return changed
 
     def _execute_clear(self, index: Index, call: Call) -> bool:
         """Clear (executor.py:2514-2533): a bit in every view but the BSI
-        one, or an int field's value."""
-        col = self._column(call)
+        one, or an int field's value; an unknown key clears nothing."""
+        col = self._translate_col(index, call.args.get("_col"), create=False)
         f = self._field(index, call.field_arg())
+        if col is None:
+            return False
         if f.options.type == INT:
             changed = f.clear_value(col)
         else:
-            changed = f.clear_bit(self._row_id(call.args[f.name]), col)
+            row_id = self._translate_row(index, f, call.args[f.name],
+                                         create=False)
+            if row_id is None:
+                return False
+            changed = f.clear_bit(row_id, col)
         if changed:
             self._heat_write(index, f, col)
         return changed
@@ -1522,7 +1652,10 @@ class Executor:
         are left as they are (a TopN recounts its winners). Durable:
         Fragment.clear_row logs to the WAL."""
         f = self._field(index, call.field_arg())
-        row_id = self._row_id(call.args[f.name])
+        row_id = self._translate_row(index, f, call.args[f.name],
+                                     create=False)
+        if row_id is None:
+            return False
         tracker = self.heat
         changed = False
         for v in list(f.views.values()):
@@ -1547,7 +1680,7 @@ class Executor:
         f = index.field(field_name)
         if f is None:
             f = index.create_field(field_name)
-        row_id = self._row_id(call.args[field_name])
+        row_id = self._translate_row(index, f, call.args[field_name])
         row = self._execute_bitmap_call(index, call.children[0], shards)
         view = f.create_view_if_not_exists(VIEW_STANDARD)
         qshards = self._query_shards(index, shards)
@@ -1578,27 +1711,90 @@ class Executor:
             result.attrs = {}
         return result
 
-    @staticmethod
-    def _column(call: Call) -> int:
-        col = call.args.get("_col")
-        if isinstance(col, str):
-            raise NotPortedError("string keys not ported yet")
-        if col is None:
-            raise ExecutionError(f"{call.name}() requires a column")
-        return int(col)
+    def _execute_set_row_attrs(self, index: Index, call: Call) -> None:
+        """SetRowAttrs(f, row, k=v, ...) (executor.py:2579-2585): merged
+        into the field's row attributes; a null value deletes its key."""
+        f = self._field(index, call.args["_field"])
+        row_id = self._translate_row(index, f, call.args["_row"])
+        f.row_attrs.set_attrs(row_id, {k: v for k, v in call.args.items()
+                                       if not k.startswith("_")})
+
+    def _execute_set_column_attrs(self, index: Index, call: Call) -> None:
+        """SetColumnAttrs(col, k=v, ...) (executor.py:2587-2590)."""
+        col = self._translate_col(index, call.args.get("_col"))
+        index.column_attrs.set_attrs(col, {k: v for k, v in call.args.items()
+                                           if not k.startswith("_")})
+
+    def _execute_attrs_bulk(self, index: Index, calls: list) -> list:
+        """A query of SetRowAttrs and SetColumnAttrs calls only: keys
+        translated in call order, then each store's merges applied in
+        order in one commit (the JAX package commits per call; the stored
+        attributes are the same)."""
+        per_store: dict = {}
+        for c in calls:
+            self.stats.count(f"query/{c.name}")
+            if c.name == "SetRowAttrs":
+                f = self._field(index, c.args["_field"])
+                store = f.row_attrs
+                id_ = self._translate_row(index, f, c.args["_row"])
+            else:
+                store = index.column_attrs
+                id_ = self._translate_col(index, c.args.get("_col"))
+            per_store.setdefault(id(store), (store, []))[1].append(
+                (id_, {k: v for k, v in c.args.items()
+                       if not k.startswith("_")}))
+        for store, items in per_store.values():
+            store.set_bulk_attrs(items)
+        return [None] * len(calls)
+
+    def _translate_result(self, index: Index, call: Call, result):
+        """Row ids -> keys on keyed fields (executor.py:2427-2461): TopN
+        pairs, Rows and GroupBy groups, an Options-wrapped call's too. A
+        row without a key renders as its decimal id, never "" (proto3
+        would read an empty key as no key)."""
+        if self.translator is None:
+            return result
+        while call.name == "Options" and call.children:
+            call = call.children[0]
+
+        def keyed(fname):
+            f = index.field(fname) if fname else None
+            return f is not None and f.options.keys
+
+        def row_key(fname: str, rid: int) -> str:
+            return (self.translator.translate_row_to_string(
+                index.name, fname, int(rid)) or str(rid))
+
+        if isinstance(result, Pairs):
+            fname = call.args.get("_field")
+            if keyed(fname):
+                result.row_keys = [row_key(fname, rid) for rid, _ in result]
+        elif isinstance(result, RowIdentifiers):
+            fname = call.args.get("_field") or call.args.get("field")
+            if keyed(fname):
+                result.row_keys = [row_key(fname, rid) for rid in result]
+        elif isinstance(result, GroupCounts):
+            for gc in result:
+                for fr in gc["group"]:
+                    if keyed(fr.get("field")) and "rowID" in fr:
+                        fr["rowKey"] = row_key(fr["field"], fr.pop("rowID"))
+        return result
 
     # ------------------------------------------------ coalesced ingest
 
     def _ingest_mutation(self, index: Index, call: Call, fields: dict):
-        """One Set/Clear -> a Mutation, or None where only the per-bit path
-        answers as it does (executor.py:3169): a missing field (its error),
-        a field that is not a set field (int fields write per plane, mutex
-        and bool fields clear other rows, time fields write time views),
-        timestamps, string keys, and a set field holding views besides the
-        standard one (an import-roaring can add them; the per-bit Clear
-        clears every view, the batch apply only the standard one).
-        `fields` caches field resolution across the envelope (False: not
-        batchable)."""
+        """One Set/Clear -> a Mutation with its keys translated here, on
+        the submitting thread (executor.py:3169-3210); False for a Clear
+        of an unknown key (it changes nothing, as the per-bit path
+        answers); None where only the per-bit path answers as it does: a
+        missing field (its error), a field that is not a set field (int
+        fields write per plane, mutex and bool fields clear other rows,
+        time fields write time views), timestamps, and a set field holding
+        views besides the standard one (an import-roaring can add them;
+        the per-bit Clear clears every view, the batch apply only the
+        standard one). `fields` caches field resolution across the
+        envelope (False: not batchable). Minting is idempotent, so a later
+        call's None sends the envelope per bit to the same ids."""
         args = call.args
         fname = None
         for k, v in args.items():  # call.field_arg(), without the raise
@@ -1620,14 +1816,20 @@ class Executor:
         if args.get("_timestamp") is not None:
             return None
         col, row = args["_col"], args[fname]
-        if isinstance(col, str) or isinstance(row, str):
-            return None
-        return Mutation(call.name == "Set", fname, self._row_id(row),
-                        int(col))
+        if type(col) is int and type(row) is int:  # the bulk case
+            return Mutation(call.name == "Set", fname, row, col)
+        create = call.name == "Set"
+        col = self._translate_col(index, col, create=create)
+        row = self._translate_row(index, f, row, create=create)
+        if col is None or row is None:
+            return False
+        return Mutation(create, fname, row, col)
 
     def _ingest_prepare(self, index: Index, query: Query):
-        """The Mutations of an all-Set/Clear query, or None for the per-bit
-        path (executor.py:3212)."""
+        """(slots, mutations) of an all-Set/Clear query, a slot being a
+        resolved bool or an index into the mutations, or None for the
+        per-bit path (executor.py:3212-3237)."""
+        slots: list = []
         muts: list = []
         fields: dict = {}
         try:
@@ -1635,19 +1837,27 @@ class Executor:
                 m = self._ingest_mutation(index, call, fields)
                 if m is None:
                     return None
-                muts.append(m)
+                if m is False:
+                    slots.append(False)
+                else:
+                    slots.append(len(muts))
+                    muts.append(m)
         except ExecutionError:
             raise
         except Exception:  # noqa: BLE001 — any oddity: the per-bit path decides
             return None
-        return muts
+        return slots, muts
 
     @staticmethod
-    def _ingest_unpack(outcomes: list) -> list:
-        """Per-call results of one request's outcomes; the first error
-        raises (executor.py:3240)."""
+    def _ingest_unpack(slots: list, outcomes: list) -> list:
+        """Per-call results of one request; the first error raises
+        (executor.py:3239-3250)."""
         results = []
-        for status, val in outcomes:
+        for s in slots:
+            if s is False:
+                results.append(False)
+                continue
+            status, val = outcomes[s]
             if status == "err":
                 raise val
             results.append(val)
@@ -1657,10 +1867,14 @@ class Executor:
         """Queue the query's mutations under the index's key and wait for a
         batch leader to apply them (executor.py:3252); None: the per-bit
         path serves the query."""
-        muts = self._ingest_prepare(index, query)
-        if muts is None:
+        prepared = self._ingest_prepare(index, query)
+        if prepared is None:
             return None
-        return self._ingest_unpack(self.ingest.submit((index.name,), muts))
+        slots, muts = prepared
+        if not muts:
+            return list(slots)
+        return self._ingest_unpack(slots,
+                                   self.ingest.submit((index.name,), muts))
 
     def _apply_ingest_batch(self, index_name: str, muts: list) -> list:
         """The IngestBatcher's apply, on the batch leader's thread."""
@@ -2050,16 +2264,30 @@ class Executor:
                     else est_bytes(rep, slots),
             }
 
+        def empty_leaf(kind: str, c: Call, field_name: str) -> dict:
+            """An unknown key's leaf (executor.py:1026-1040): the empty
+            row, nothing resident, nothing to upload."""
+            leaf_reps.append("dense")
+            return {"kind": kind,
+                    "expr": qprofile.truncate_pql(c.to_pql(), 96),
+                    "field": field_name, "rowId": None, "empty": True,
+                    "rep": "dense",
+                    "residency": {"resident": False, "rep": None,
+                                  "generationMatch": False},
+                    "estimatedH2dBytes": 0}
+
         def row_leaf(c: Call) -> dict:
-            field_name = c.field_arg()
-            if index.field(field_name) is None:
-                raise ExecutionError(f"field not found: {field_name}")
-            return explain_row(field_name, self._row_id(c.args[field_name]),
-                               c, qprofile.truncate_pql(c.to_pql(), 96))
+            f, row_id = self._read_row_id(index, c)
+            if row_id is None:
+                return empty_leaf("row", c, f.name)
+            return explain_row(f.name, row_id, c,
+                               qprofile.truncate_pql(c.to_pql(), 96))
 
         def range_leaf(c: Call) -> dict:
             if "_start" in c.args or "_end" in c.args:
                 f, row_id, views = self._time_range(index, c)
+                if row_id is None:
+                    return empty_leaf("timerange", c, f.name)
                 leaf_reps.append("dense")
                 gens = tuple(self._leaf_gens(index, f.name, v, shards,
                                              row_id) for v in views)

@@ -12,7 +12,11 @@ bit-sliced in the `bsig_<field>` view (rows 0..depth-1 the place values
 of value - min, row depth the not-null row; :95-107, :245-277,
 :340-383). Options and the available-shards bitmap persist in the
 reference's files (`.meta` JSON, `.available.shards` roaring), so either
-package opens a field the other wrote. Keyed fields are not ported yet.
+package opens a field the other wrote. A keyed field (`keys`) is a
+field whose rows the executor names by string keys (utils/translate.py);
+its storage is the same. The field's row attributes live in
+`<field>/.row_attrs.db` (utils/attrstore.py; :86-88), opened and closed
+with the field.
 
 Every view of a set, mutex, bool or time field tracks rank (a rank cache
 per fragment, the TopN candidates) unless its cache type is "none";
@@ -46,6 +50,7 @@ from pilosa_tpu_torch.models.view import (
     view_path,
 )
 from pilosa_tpu_torch.storage.roaring import Bitmap
+from pilosa_tpu_torch.utils.attrstore import AttrStore
 
 # threads applying one bulk import's per-shard groups
 IMPORT_WORKERS = min(8, os.cpu_count() or 1)
@@ -101,8 +106,7 @@ class FieldOptions:
     keys: bool = False
 
     def validate(self) -> None:
-        """The JAX package's checks and texts (:52-65); keys are refused
-        after them."""
+        """The JAX package's checks and texts (:52-65)."""
         if self.type not in FIELD_TYPES:
             raise ValueError(f"invalid field type: {self.type}")
         if self.cache_type not in CACHE_TYPES:
@@ -113,8 +117,6 @@ class FieldOptions:
             timequantum.validate_quantum(self.time_quantum)
             if not self.time_quantum:
                 raise ValueError("time field requires a time quantum")
-        if self.keys:
-            raise NotPortedError("keyed fields not ported yet")
 
 
 class Field:
@@ -130,6 +132,7 @@ class Field:
         # bumped on every available-shards change (Index memoizes on it)
         self.shards_version = 0
         self._shards_mu = threading.Lock()
+        self.row_attrs = AttrStore(os.path.join(self.path, ".row_attrs.db"))
 
     # -- BSI layout (int fields) ---------------------------------------------
 
@@ -152,6 +155,7 @@ class Field:
 
     def open(self) -> "Field":
         os.makedirs(self.path, exist_ok=True)
+        self.row_attrs.open()
         meta = os.path.join(self.path, ".meta")
         if os.path.exists(meta):
             with open(meta) as f:
@@ -175,6 +179,7 @@ class Field:
         for v in self.views.values():
             v.close(save_caches)
         self.views.clear()
+        self.row_attrs.close()
 
     def save_meta(self) -> None:
         os.makedirs(self.path, exist_ok=True)

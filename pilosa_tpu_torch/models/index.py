@@ -1,8 +1,10 @@
 """Index: a namespace of fields sharing one column space.
 
 Trimmed copy of pilosa_tpu/models/index.py: fields, the `_exists`
-existence field (read by Not()), `.meta` persistence, and the available
-shards as the union of the fields' shard bitmaps.
+existence field (read by Not()), `.meta` persistence (`keys`: the
+index's columns are named by string keys), the column attributes in
+`<index>/.col_attrs.db` (:52-60), and the available shards as the union
+of the fields' shard bitmaps.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import threading
 from typing import Optional
 
@@ -17,6 +20,7 @@ import numpy as np
 
 from pilosa_tpu_torch.constants import EXISTENCE_FIELD_NAME
 from pilosa_tpu_torch.models.field import Field, FieldOptions
+from pilosa_tpu_torch.utils.attrstore import AttrStore
 
 _NAME_RE = re.compile(r"^[a-z][a-z0-9_-]{0,63}$")
 
@@ -37,9 +41,12 @@ class Index:
         self.fields: dict[str, Field] = {}
         self._field_mu = threading.Lock()
         self._avail_cache = None  # (field shard versions, sorted shards)
+        self.column_attrs = AttrStore(os.path.join(self.path,
+                                                   ".col_attrs.db"))
 
     def open(self) -> "Index":
         os.makedirs(self.path, exist_ok=True)
+        self.column_attrs.open()
         meta = os.path.join(self.path, ".meta")
         if os.path.exists(meta):
             with open(meta) as f:
@@ -63,6 +70,7 @@ class Index:
         for f in self.fields.values():
             f.close(save_caches)
         self.fields.clear()
+        self.column_attrs.close()
 
     def save_meta(self) -> None:
         os.makedirs(self.path, exist_ok=True)
@@ -88,6 +96,17 @@ class Index:
             f.save_meta()
             self.fields[name] = f.open()
             return f
+
+    def delete_field(self, name: str) -> Field:
+        """Close the field without saving its rank caches and remove its
+        files; returns it (the executor drops what it kept of it)."""
+        with self._field_mu:
+            f = self.fields.pop(name, None)
+        if f is None:
+            raise KeyError(f"field not found: {name}")
+        f.close(save_caches=False)
+        shutil.rmtree(f.path, ignore_errors=True)
+        return f
 
     def available_shards_list(self) -> list[int]:
         """Sorted union of the fields' shards ([0] when empty), memoized on

@@ -1,22 +1,37 @@
 """HTTP surface: a stdlib ThreadingHTTPServer over the API.
 
 Trimmed port of pilosa_tpu/net/http_server.py with the same routes and
-JSON shapes for the endpoints of this slice:
+JSON shapes for the public endpoints:
 
-    POST/DELETE /index/{i}
-    POST        /index/{i}/field/{f}
+    GET         /index                         (the schema)
+    GET/POST/DELETE /index/{i}
+    POST/DELETE /index/{i}/field/{f}
     POST        /index/{i}/query               (raw PQL body, ?shards=,
+                                                ?columnAttrs=true,
+                                                ?excludeRowAttrs=true,
+                                                ?excludeColumns=true,
                                                 ?profile=true,
                                                 ?explain=true)
-    POST        /index/{i}/field/{f}/import    (JSON body: rowIDs or values,
+    POST        /index/{i}/field/{f}/import    (JSON body: rowIDs or
+                                                rowKeys, columnIDs or
+                                                columnKeys, or values;
                                                 timestamps for a time
                                                 field, ?clear=true)
     POST        /index/{i}/field/{f}/import-roaring/{shard}
                                                (JSON body: views, each a
-                                                base64 roaring bitmap;
-                                                ?clear=true)
-    GET         /schema
-    GET         /status
+                                                base64 roaring bitmap, in
+                                                Pilosa's format or the
+                                                official one; ?clear=true)
+    GET         /export                        (?index=&field=&shard=:
+                                                text/csv)
+    GET         /info, /version, /schema, /status
+    POST        /recalculate-caches
+
+Protobuf bodies (:440-475): a Content-Type of application/x-protobuf
+sends a QueryRequest to /query, an ImportRequest or, on an int field, an
+ImportValueRequest to /import (:541-560) and an ImportRoaringRequest to
+/import-roaring; an Accept of it gets a QueryResponse from /query
+(encoding/protobuf.py, no protobuf package needed).
 
 and the observability surface (:610-1330), with the JAX paths, query
 arguments and JSON keys, and only the blocks the port has:
@@ -50,18 +65,27 @@ from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch import planner as _planner
 from pilosa_tpu_torch.api import API, ApiError
+from pilosa_tpu_torch.encoding.protobuf import CONTENT_TYPE as PROTO_CONTENT_TYPE
+from pilosa_tpu_torch.encoding.protobuf import Serializer
 from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.constants import KERNEL_FAMILY_REPS
 from pilosa_tpu_torch.utils import heat as _heat
+from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import telemetry as _telemetry
 from pilosa_tpu_torch.utils import tracing
 from pilosa_tpu_torch.utils.stats import prometheus_exposition
 
 ROUTES: list[tuple[str, re.Pattern, str]] = [
+    ("GET", re.compile(r"^/export$"), "get_export"),
+    ("GET", re.compile(r"^/index$"), "get_indexes"),
+    ("GET", re.compile(r"^/index/(?P<index>[^/]+)$"), "get_index"),
     ("POST", re.compile(r"^/index/(?P<index>[^/]+)$"), "post_index"),
     ("DELETE", re.compile(r"^/index/(?P<index>[^/]+)$"), "delete_index"),
     ("POST", re.compile(r"^/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)$"),
      "post_field"),
+    ("DELETE", re.compile(
+        r"^/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)$"),
+     "delete_field"),
     ("POST", re.compile(
         r"^/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import$"),
      "post_import"),
@@ -69,8 +93,11 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
         r"^/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import-roaring/"
         r"(?P<shard>[0-9]+)$"), "post_import_roaring"),
     ("POST", re.compile(r"^/index/(?P<index>[^/]+)/query$"), "post_query"),
+    ("GET", re.compile(r"^/info$"), "get_info"),
+    ("POST", re.compile(r"^/recalculate-caches$"), "post_recalculate_caches"),
     ("GET", re.compile(r"^/schema$"), "get_schema"),
     ("GET", re.compile(r"^/status$"), "get_status"),
+    ("GET", re.compile(r"^/version$"), "get_version"),
     ("GET", re.compile(r"^/debug/vars$"), "get_debug_vars"),
     ("GET", re.compile(r"^/debug/heat$"), "get_debug_heat"),
     ("GET", re.compile(r"^/debug/hbm$"), "get_debug_hbm"),
@@ -83,8 +110,11 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
 ]
 
 # unknown query arguments on these routes are a 400 (a typo like ?shard=)
-ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "profile",
+ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "columnAttrs",
+                                               "excludeRowAttrs",
+                                               "excludeColumns", "profile",
                                                "explain"}),
+                      "get_export": frozenset({"index", "field", "shard"}),
                       "post_import": frozenset({"clear"}),
                       "post_import_roaring": frozenset({"clear", "remote"}),
                       "get_debug_pprof": frozenset({"seconds"}),
@@ -105,10 +135,13 @@ class Handler:
         self.stats = stats
         self.telemetry = telemetry
         self.device_profiler = device_profiler
+        self.serializer = Serializer()
+        self._local = threading.local()  # the request's headers
 
     def dispatch(self, method: str, path: str, query: dict,
                  body: bytes, headers=None) -> tuple[int, str, bytes]:
         """-> (status, content type, payload)."""
+        self._local.headers = headers
         trace = headers.get(tracing.TRACE_HEADER) if headers else None
         token = tracing.current_trace_id.set(trace) if trace else None
         try:
@@ -116,6 +149,19 @@ class Handler:
         finally:
             if token is not None:
                 tracing.current_trace_id.reset(token)
+            self._local.headers = None
+
+    def _header(self, name: str) -> str:
+        h = getattr(self._local, "headers", None)
+        return (h.get(name) or "") if h is not None else ""
+
+    def _wants_proto(self) -> bool:
+        """The client reads protobuf (an Accept header naming it)."""
+        return PROTO_CONTENT_TYPE in self._header("Accept")
+
+    def _sends_proto(self) -> bool:
+        """The body is protobuf (its Content-Type)."""
+        return PROTO_CONTENT_TYPE in self._header("Content-Type")
 
     def _route(self, method: str, path: str, query: dict,
                body: bytes) -> tuple[int, str, bytes]:
@@ -172,21 +218,66 @@ class Handler:
 
     # -- handlers -----------------------------------------------------------
 
+    def _flag(self, query: dict, name: str) -> bool:
+        return self._arg(query, name) in ("1", "true")
+
     def post_query(self, params, query, body):
-        shards = self._arg(query, "shards")
-        try:
-            shard_list = ([int(s) for s in shards.split(",")]
-                          if shards else None)
-        except ValueError:
-            raise ApiError(f"invalid shards argument: {shards!r}")
-        if self._arg(query, "explain") in ("1", "true"):
-            # the planned tree instead of the answer: nothing launches
-            return self._json(self.api.explain(params["index"],
-                                               body.decode(),
-                                               shards=shard_list))
-        profile = self._arg(query, "profile") in ("1", "true")
-        return self._json(self.api.query(params["index"], body.decode(),
-                                         shards=shard_list, profile=profile))
+        """A PQL body, or a QueryRequest; JSON back, or a QueryResponse
+        to a client that accepts protobuf (:451-500)."""
+        if self._sends_proto():
+            try:
+                req = self.serializer.decode_query_request(body)
+            except ValueError as e:
+                raise ApiError(f"invalid QueryRequest: {e}")
+            pql, shard_list = req["query"], req["shards"]
+            column_attrs = req["columnAttrs"]
+            ex_attrs, ex_cols = req["excludeRowAttrs"], req["excludeColumns"]
+            profile = req["profile"]
+        else:
+            shards = self._arg(query, "shards")
+            try:
+                shard_list = ([int(s) for s in shards.split(",")]
+                              if shards else None)
+            except ValueError:
+                raise ApiError(f"invalid shards argument: {shards!r}")
+            pql = body.decode()
+            column_attrs = self._flag(query, "columnAttrs")
+            ex_attrs = self._flag(query, "excludeRowAttrs")
+            ex_cols = self._flag(query, "excludeColumns")
+            profile = self._flag(query, "profile")
+            if self._flag(query, "explain"):
+                # the planned tree instead of the answer: nothing launches
+                if self._wants_proto():
+                    raise ApiError("explain=true requires a JSON response"
+                                   " (drop the protobuf Accept header)")
+                return self._json(self.api.explain(params["index"], pql,
+                                                   shards=shard_list))
+        if self._wants_proto():
+            results = self.api.query_results(
+                params["index"], pql, shards=shard_list, profile=profile,
+                exclude_row_attrs=ex_attrs, exclude_columns=ex_cols)
+            cas = (self.api.column_attr_sets(params["index"], results)
+                   if column_attrs else None)
+            prof = None
+            if profile:
+                got = qprofile.last_profile.get()
+                prof = got.to_dict() if got is not None else None
+            return 200, PROTO_CONTENT_TYPE, \
+                self.serializer.encode_query_response(
+                    results, column_attr_sets=cas, profile=prof)
+        return self._json(self.api.query(
+            params["index"], pql, shards=shard_list, profile=profile,
+            column_attrs=column_attrs, exclude_row_attrs=ex_attrs,
+            exclude_columns=ex_cols))
+
+    def get_indexes(self, params, query, body):
+        return self._json(self.api.schema())
+
+    def get_index(self, params, query, body):
+        for idx in self.api.schema()["indexes"]:
+            if idx["name"] == params["index"]:
+                return self._json(idx)
+        raise ApiError(f"index not found: {params['index']}", status=404)
 
     def post_index(self, params, query, body):
         opts = self._body_json(body).get("options", {})
@@ -212,45 +303,91 @@ class Handler:
         self.api.create_field(params["index"], params["field"], options)
         return self._json({"success": True})
 
+    def delete_field(self, params, query, body):
+        self.api.delete_field(params["index"], params["field"])
+        return self._json({"success": True})
+
     def post_import(self, params, query, body):
-        req = self._body_json(body)
-        for key in ("rowKeys", "columnKeys"):
-            if req.get(key):
-                raise ApiError(f"import with {key} not ported yet")
+        """A JSON body, or a protobuf ImportRequest (ImportValueRequest on
+        an int field: the field's type picks the message, :541-560)."""
+        if self._sends_proto():
+            idx = self.api.holder.index(params["index"])
+            fld = idx.field(params["field"]) if idx is not None else None
+            try:
+                if fld is not None and fld.options.type == "int":
+                    req = self.serializer.decode_import_value_request(body)
+                else:
+                    req = self.serializer.decode_import_request(body)
+            except ValueError as e:
+                raise ApiError(f"invalid import request: {e}")
+        else:
+            req = self._body_json(body)
         if "values" in req:
             self.api.import_values(params["index"], params["field"],
                                    column_ids=req.get("columnIDs"),
-                                   values=req.get("values"))
+                                   values=req.get("values"),
+                                   column_keys=req.get("columnKeys"))
             return self._json({})
         clear = (self._arg(query, "clear") == "true"
                  or bool(req.get("clear", False)))
         self.api.import_bits(params["index"], params["field"],
                              row_ids=req.get("rowIDs"),
                              column_ids=req.get("columnIDs"), clear=clear,
-                             timestamps=req.get("timestamps"))
+                             timestamps=req.get("timestamps"),
+                             row_keys=req.get("rowKeys"),
+                             column_keys=req.get("columnKeys"))
         return self._json({})
 
     def post_import_roaring(self, params, query, body):
-        """A JSON body {"views": {name: base64 roaring bytes}} (:571-586);
-        clear from the query or the body. Protobuf bodies are not ported
-        yet."""
-        req = self._body_json(body)
-        try:
-            views = {name: base64.b64decode(data)
-                     for name, data in req.get("views", {}).items()}
-        except (binascii.Error, TypeError, AttributeError) as e:
-            raise ApiError(f"invalid views: {e}")
+        """A JSON body {"views": {name: base64 roaring bytes}} or a
+        protobuf ImportRoaringRequest (:571-586); clear from the query or
+        the body."""
+        if self._sends_proto():
+            try:
+                req = self.serializer.decode_import_roaring_request(body)
+            except ValueError as e:
+                raise ApiError(f"invalid ImportRoaringRequest: {e}")
+            views = req["views"]
+        else:
+            req = self._body_json(body)
+            try:
+                views = {name: base64.b64decode(data)
+                         for name, data in req.get("views", {}).items()}
+            except (binascii.Error, TypeError, AttributeError) as e:
+                raise ApiError(f"invalid views: {e}")
         self.api.import_roaring(
             params["index"], params["field"], int(params["shard"]), views,
             clear=(self._arg(query, "clear") == "true"
                    or bool(req.get("clear", False))))
         return self._json({})
 
+    def get_export(self, params, query, body):
+        index, field, shard = (self._arg(query, k)
+                               for k in ("index", "field", "shard"))
+        if index is None or field is None or shard is None:
+            raise ApiError("index, field and shard are required")
+        try:
+            shard = int(shard)
+        except ValueError:
+            raise ApiError(f"invalid shard argument: {shard!r}")
+        return 200, "text/csv", self.api.export_csv(index, field,
+                                                    shard).encode()
+
     def get_schema(self, params, query, body):
         return self._json(self.api.schema())
 
     def get_status(self, params, query, body):
         return self._json(self.api.status())
+
+    def get_info(self, params, query, body):
+        return self._json(self.api.info())
+
+    def get_version(self, params, query, body):
+        return self._json({"version": self.api.version()})
+
+    def post_recalculate_caches(self, params, query, body):
+        self.api.recalculate_caches()
+        return self._json({})
 
     # -- observability ------------------------------------------------------
 

@@ -236,6 +236,14 @@ class DeviceResidency:
             self.bytes = 0
             self.epoch += 1
 
+    def drop_where(self, pred: Callable[[tuple], bool]) -> None:
+        """Drop every entry whose key satisfies `pred` (a deleted field's
+        leaves) and fence in-flight misses as clear() does."""
+        with self._lock:
+            for k in [k for k in self._lru if pred(k)]:
+                self.bytes -= self._lru.pop(k).nbytes
+            self.epoch += 1
+
     def snapshot(self) -> dict:
         """Counters, and entries and bytes per leaf kind (key[0]: "row",
         "sparse", "run", "bsiplanes", ...)."""
@@ -421,6 +429,13 @@ class HybridManager:
         with self._lock:
             self._stats.clear()
 
+    def drop_field(self, index: str, field: str) -> None:
+        """Forget the forms and statistics of a deleted field's rows."""
+        with self._lock:
+            for d in (self._rep, self._stats):
+                for k in [k for k in d if k[:2] == (index, field)]:
+                    del d[k]
+
     def last(self, row_key: tuple) -> Optional[str]:
         """The form last chosen for the row (None if none is remembered)."""
         with self._lock:
@@ -567,6 +582,14 @@ class PlanCache:
         with self._lock:
             self._lru.clear()
             self.bytes = 0
+            self.epoch += 1
+
+    def drop_where(self, pred: Callable[[tuple], bool]) -> None:
+        """Drop every entry whose key satisfies `pred`, fencing in-flight
+        computes as clear() does."""
+        with self._lock:
+            for k in [k for k in self._lru if pred(k)]:
+                self.bytes -= self._lru.pop(k)[1]
             self.epoch += 1
 
     def snapshot(self) -> dict:

@@ -31,8 +31,11 @@ Kill switches: PILOSA_TPU_TORCH_PLANNER=0 and PILOSA_TPU_TORCH_PLAN_CACHE=0
 Row leaves of set, mutex, bool and time fields are estimated, keyed and
 given a form alike (the standard view); a time Range is keyed by the row
 over each view that covers its span (:453-470), so a write into any of
-them changes the key. The port has no key translation (ROADMAP Queue A
-6): a string row key raises NotPortedError, which estimates as unknown.
+them changes the key. A string row key is translated without minting
+(:353-370, :435-462): an unknown key estimates as exactly empty, and keys
+a subtree with a ("nokey", field) entry, so once a write mints the key
+the subtree gets another key and the cached empty result is never read
+again.
 """
 
 from __future__ import annotations
@@ -300,9 +303,14 @@ class QueryPlanner:
     def _row_estimate(self, index, c: Call, shards: list) -> Estimate:
         try:
             field_name = c.field_arg()
-            if index.field(field_name) is None:
+            f = index.field(field_name)
+            if f is None:
                 return UNKNOWN  # the executor raises "field not found"
-            row_id = self.executor._row_id(c.args[field_name])
+            row_id = self.executor._translate_row(index, f,
+                                                  c.args[field_name],
+                                                  create=False)
+            if row_id is None:
+                return ZERO  # an unknown key: empty, and nothing minted
             return Estimate(self._row_cardinality(
                 index, field_name, VIEW_STANDARD, shards, row_id),
                 True, True)
@@ -355,7 +363,7 @@ def subtree_cache_key(executor, index, call: Call,
                       shards) -> Optional[tuple]:
     """Plan-cache key of a bitmap subtree: (index, canonical PQL, shard
     tuple, per-leaf generations), or None for a shape that cannot be keyed
-    (a missing field, a string key, a non-bitmap call). A time Range
+    (a missing field, a non-bitmap call). A time Range
     contributes its row in every covered view. The generations are read
     from the fragments on every lookup, so a write under the subtree gives
     another key."""
@@ -369,15 +377,18 @@ def subtree_cache_key(executor, index, call: Call,
 
     def walk(c: Call) -> None:
         if c.name == "Row":
-            field_name = c.field_arg()
-            if index.field(field_name) is None:
-                raise _Uncacheable
-            leaf(field_name, VIEW_STANDARD,
-                 executor._row_id(c.args[field_name]))
+            f, row_id = executor._read_row_id(index, c)
+            if row_id is None:
+                gens.append(("nokey", f.name))
+                return
+            leaf(f.name, VIEW_STANDARD, row_id)
             return
         if c.name == "Range":
             if "_start" in c.args or "_end" in c.args:
                 f, row_id, views = executor._time_range(index, c)
+                if row_id is None:
+                    gens.append(("nokey", f.name))
+                    return
                 for v in views:
                     leaf(f.name, v, row_id)
                 return

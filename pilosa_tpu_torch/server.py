@@ -4,7 +4,11 @@
     ... POST srv.uri + "/index/i/query" ...
     srv.close()
 
-A single node on one device: no cluster, gossip or QoS.
+A single node on one device: no cluster, gossip or QoS. String keys are
+minted into a TranslateStore at <data_dir>/.keys (its sqlite index at
+.keys.idx; pilosa_tpu/server.py:151), which the API and the executor
+share and close() closes; with a single node there is no cluster
+translator.
 
 sparse_threshold and run_threshold are the JAX server's [query]
 sparse-threshold and run-threshold (pilosa_tpu/server.py:245-260): rows
@@ -27,6 +31,7 @@ residency's [storage] eviction, "lru" or "heat".
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 
@@ -43,6 +48,7 @@ from pilosa_tpu_torch.state import open_holder
 from pilosa_tpu_torch.utils import telemetry as _telemetry
 from pilosa_tpu_torch.utils.stats import StatsClient
 from pilosa_tpu_torch.utils.tracing import Tracer
+from pilosa_tpu_torch.utils.translate import TranslateStore
 
 
 def process_rss() -> int:
@@ -96,6 +102,7 @@ class Server:
         self._last_hit_rate = 1.0  # carried through windows without lookups
         self._last_plan_hit_rate = 0.0  # the plan cache starts cold
         self.holder = None
+        self.translate = None
         self.executor = None
         self.api = None
         self.http = None
@@ -103,7 +110,10 @@ class Server:
 
     def open(self) -> "Server":
         self.holder = open_holder(self.data_dir)
-        self.executor = Executor(self.holder, device=self.device)
+        self.translate = TranslateStore(
+            os.path.join(self.data_dir, ".keys")).open()
+        self.executor = Executor(self.holder, device=self.device,
+                                 translator=self.translate)
         self.executor.hybrid.threshold = self.sparse_threshold
         self.executor.hybrid.run_threshold = self.run_threshold
         self.executor.residency.eviction = self.eviction
@@ -117,7 +127,7 @@ class Server:
         self.executor.tracer = self.tracer
         self.device_profiler = _telemetry.DeviceProfiler(
             self.executor.runner.device, kernel_names=kernels.DEVICE_KERNELS)
-        self.api = API(self.holder, self.executor)
+        self.api = API(self.holder, self.executor, self.translate)
         self.api.long_query_time = self.long_query_time
         self.http = HTTPServer(
             Handler(self.api, stats=self.stats, telemetry=self.telemetry,
@@ -139,6 +149,9 @@ class Server:
             self.http = None
         if self.holder is not None:
             self.holder.close()
+        if self.translate is not None:
+            self.translate.close()
+            self.translate = None
 
     def sample_gauges(self) -> dict:
         """One telemetry tick (pilosa_tpu/server.py:2095, the parts the

@@ -577,10 +577,12 @@ class Fragment:
 
     # -- reads --------------------------------------------------------------
 
-    def row_dense(self, row_id: int) -> np.ndarray:
-        """A row as a dense uint32[32768] bitvector."""
+    def row_dense(self, row_id: int,
+                  out: Optional[np.ndarray] = None) -> np.ndarray:
+        """A row as a dense uint32[32768] bitvector (written into `out`, a
+        zeroed one, where given)."""
         base = row_id * SHARD_WIDTH
-        return self.storage.to_dense_words(base, base + SHARD_WIDTH)
+        return self.storage.to_dense_words(base, base + SHARD_WIDTH, out)
 
     def row_columns(self, row_id: int) -> np.ndarray:
         """Set columns of a row as shard-local int64 offsets."""

@@ -21,6 +21,12 @@ The on-disk format is the reference's, byte for byte compatible:
   snapshot trailer (files only): "PTS1" | section length u64 | blake2b-16
   op-log: CRC32-framed records [0xFA | version | type | value u64 | crc32]
           (legacy 13-byte fnv1a32 records still parse), replayed on open.
+
+from_bytes also reads the official 32-bit RoaringFormatSpec (cookies
+12346 and 12347; pilosa_tpu/storage/roaring.py:1211-1290), the payload
+an import-roaring client sends: the run-flag bitmap, the offset header
+(always without runs; with runs when there are at least 4 containers),
+and runs as (start, length) where Pilosa's are (start, last).
 """
 
 from __future__ import annotations
@@ -610,18 +616,33 @@ class Bitmap:
             return np.empty(0, dtype=np.uint64)
         return np.concatenate(out)
 
-    def to_dense_words(self, start: int, stop: int) -> np.ndarray:
+    def to_dense_words(self, start: int, stop: int,
+                       out: Optional[np.ndarray] = None) -> np.ndarray:
         """Dense little-endian uint32 bitvector of positions [start, stop);
-        start and stop must be container-aligned."""
+        start and stop must be container-aligned. `out`, where given, is
+        a zeroed uint32 array of that length, filled in place."""
         if start % CONTAINER_BITS or stop % CONTAINER_BITS:
             raise ValueError("range must be container-aligned")
-        out = np.zeros((stop - start) // 32, dtype=np.uint32)
+        if out is None:
+            out = np.zeros((stop - start) // 32, dtype=np.uint32)
+        arrays = []  # array containers' members, set in one scatter
+        get = self.containers.get
         for key in range(start >> 16, stop >> 16):
-            c = self.containers.get(key)
+            c = get(key)
             if c is None:
                 continue
-            woff = ((key << 16) - start) // 32
+            base = (key << 16) - start
+            if c.kind == "array":
+                if c.data.size:
+                    arrays.append(c.data.astype(np.int64) + base)
+                continue
+            woff = base // 32
             out[woff:woff + CONTAINER_BITS // 32] = c.words().view("<u4")
+        if arrays:
+            pos = arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
+            # members are unique, so adding each bit into its word is an OR
+            np.add.at(out, pos >> 5,
+                      np.left_shift(np.uint32(1), (pos & 31).astype(np.uint32)))
         return out
 
     # -- serialization ------------------------------------------------------
@@ -657,17 +678,91 @@ class Bitmap:
         w.write(SNAP_TRAILER_MAGIC + struct.pack("<Q", hw.n) + hw.h.digest())
         return hw.n + SNAP_TRAILER_SIZE
 
+    # the official format's cookies: 12347 with runs, 12346 without
+    _SERIAL_COOKIE = 12347
+    _SERIAL_COOKIE_NO_RUN = 12346
+
+    @classmethod
+    def _from_official_bytes(cls, data: bytes) -> "Bitmap":
+        """The official 32-bit RoaringFormatSpec: a cookie, the container
+        descriptors (key u16, cardinality-1 u16), offsets, payloads."""
+        if len(data) < 8:
+            raise ValueError("buffer too small")
+        (cookie,) = struct.unpack_from("<I", data, 0)
+        pos = 4
+        run_flags = None
+        if cookie == cls._SERIAL_COOKIE_NO_RUN:
+            (size,) = struct.unpack_from("<I", data, pos)
+            pos += 4
+        elif cookie & 0xFFFF == cls._SERIAL_COOKIE:
+            size = (cookie >> 16) + 1
+            nbytes = (size + 7) // 8
+            run_flags = data[pos:pos + nbytes]
+            pos += nbytes
+        else:
+            raise ValueError("did not find expected serialCookie in header")
+        if size > (1 << 16):
+            raise ValueError("more than 2^16 containers is impossible")
+        if pos + 4 * size > len(data):
+            raise ValueError("container descriptors overrun the buffer")
+        desc = np.frombuffer(data, dtype="<u2", count=2 * size,
+                             offset=pos).reshape(size, 2).astype(np.int64)
+        pos += 4 * size
+        keys, cards = desc[:, 0], desc[:, 1] + 1
+        runs = np.zeros(size, dtype=bool)
+        if run_flags is not None:
+            bits = np.unpackbits(np.frombuffer(run_flags, dtype=np.uint8),
+                                 bitorder="little")
+            runs = bits[:size].astype(bool)
+        b = cls()
+        mv = memoryview(data)
+        if run_flags is None or size >= 4:
+            # the offset header: always without runs, and with runs from
+            # 4 containers on (the spec's NO_OFFSET_THRESHOLD)
+            if pos + 4 * size > len(data):
+                raise ValueError("offset header overruns the buffer")
+            offsets = np.frombuffer(data, dtype="<u4", count=size,
+                                    offset=pos).astype(np.int64)
+            pos += 4 * size
+        else:
+            offsets = None
+        for i in range(size):
+            if offsets is not None:
+                pos = int(offsets[i])
+                if pos >= len(data):
+                    raise ValueError(f"offset out of bounds: off={pos}")
+            card = int(cards[i])
+            if runs[i]:
+                if pos + 2 > len(data):
+                    raise ValueError("run container truncated")
+                (nruns,) = struct.unpack_from("<H", data, pos)
+                if pos + 2 + 4 * nruns > len(data):
+                    raise ValueError("run container truncated")
+                iv = np.frombuffer(data, dtype="<u2", count=2 * nruns,
+                                   offset=pos + 2).reshape(nruns, 2)
+                iv = iv.astype(np.int64)
+                c = Container("run", np.stack(
+                    [iv[:, 0], iv[:, 0] + iv[:, 1]], axis=1)
+                    .astype(np.uint16))
+                pos += 2 + 4 * nruns
+            else:
+                kind = TYPE_ARRAY if card <= ARRAY_MAX_SIZE else TYPE_BITMAP
+                c, consumed = Container.from_payload(kind, card, mv[pos:])
+                pos += consumed
+            b._store(int(keys[i]), c)
+        return b
+
     @classmethod
     def from_bytes(cls, data, recover_wal: bool = False) -> "Bitmap":
-        """Parse the Pilosa format: containers, snapshot trailer check,
-        then op-log replay. recover_wal=True stops replay at a torn tail
+        """Parse the Pilosa format (containers, snapshot trailer check,
+        then op-log replay) or the official format. recover_wal=True stops replay at a torn tail
         (wal_error / wal_valid_end say where) instead of raising; mid-log
         damage with valid records after it raises CorruptionError."""
         if len(data) < HEADER_BASE_SIZE:
             raise ValueError("data too small")
         magic, version, key_n = struct.unpack_from("<HHI", data, 0)
         if magic != MAGIC_NUMBER:
-            raise ValueError(f"bad roaring magic {magic}")
+            return cls._from_official_bytes(bytes(data))
         if version != STORAGE_VERSION:
             raise ValueError(f"wrong roaring version, file is v{version}")
         b = cls()

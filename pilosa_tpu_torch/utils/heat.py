@@ -728,6 +728,15 @@ class HeatTracker:
     def since(self, cursor: int = 0, limit: int = 0) -> dict:
         return self.ring.since(cursor, limit)
 
+    def drop_field(self, index: str, field: str) -> None:
+        """Forget a deleted field's fragments (what spilled of them stays
+        in the spill aggregate)."""
+        with self._lock:
+            self._drain_locked()
+            for gkey in [k for k in self._groups
+                         if k[0] == index and k[1] == field]:
+                self._count -= self._groups.pop(gkey).shards.size
+
     def clear(self) -> None:
         with self._lock:
             self._pending.clear()

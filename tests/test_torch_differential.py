@@ -12,7 +12,11 @@ a Src and with a Tanimoto threshold; Rows; GroupBy; time Range windows,
 mutex and bool rows, Options) with Set/Clear envelopes between the
 rounds, which the port applies through its coalesced write path, and
 timestamped, mutex and bool Sets, ClearRow and Store on the typed index,
-which take the per-bit path. Every answer must be the same JSON.
+which take the per-bit path; and a keyed index (string column keys, a
+keyed set field with row attributes and an unkeyed one) read through
+keyed Count/Row/TopN/Rows/GroupBy and written by keyed Set/Clear
+envelopes, which go through the coalesced write path too. Every answer
+must be the same JSON, and both servers write the same translate log.
 """
 
 import http.client
@@ -101,6 +105,51 @@ def _setup(seed: int) -> list:
                 {"rowIDs": (rng.random(n) < 0.3).astype(int).tolist(),
                  "columnIDs": cols.tolist()}))
     return out
+
+
+KX_ROWS = ["alpha", "beta", "gamma", "delta", "eps"]
+
+
+def _keyed_setup(seed: int) -> list:
+    """A keyed index kx: column keys, a keyed field lk (row attributes on
+    two rows) and an unkeyed field lu."""
+    rng = np.random.default_rng(seed + 300)
+    n = 2500
+    cols = [f"c{int(c)}" for c in rng.integers(0, 4000, n)]
+    return [("/index/kx", {"options": {"keys": True,
+                                       "trackExistence": True}}),
+            ("/index/kx/field/lk", {"options": {"keys": True}}),
+            ("/index/kx/field/lu", {}),
+            ("/index/kx/field/lk/import",
+             {"rowKeys": [KX_ROWS[i] for i in
+                          rng.integers(0, len(KX_ROWS) - 1, n)],
+              "columnKeys": cols}),
+            ("/index/kx/field/lu/import",
+             {"rowIDs": rng.integers(0, 3, n).tolist(), "columnKeys": cols}),
+            ("/index/kx/query",
+             'SetRowAttrs(lk, "alpha", kind="a") '
+             'SetRowAttrs(lk, "gamma", kind="a") '
+             'SetRowAttrs(lk, "beta", kind="b")')]
+
+
+def _keyed_reads(rng) -> list:
+    k1, k2 = (KX_ROWS[int(i)] for i in rng.integers(0, len(KX_ROWS), 2))
+    return [f'Count(Row(lk="{k1}"))', f'Row(lk="{k2}")',
+            f'Count(Intersect(Row(lk="{k1}"), Row(lu=1)))',
+            f'Count(Union(Row(lk="{k1}"), Row(lk="{k2}")))',
+            "TopN(lk, n=3)", "TopN(lk, Row(lu=2), n=4)",
+            'TopN(lk, attrName="kind", attrValues=["a"])',
+            "Rows(field=lk)", f'Rows(field=lk, previous="{KX_ROWS[0]}")',
+            "GroupBy(Rows(field=lk), Rows(field=lu))"]
+
+
+def _keyed_envelope(rng) -> str:
+    calls = []
+    for _ in range(int(rng.integers(5, 40))):
+        op = "Set" if rng.random() < 0.7 else "Clear"
+        calls.append(f'{op}("c{int(rng.integers(0, 4100))}", '
+                     f'lk="{KX_ROWS[int(rng.integers(len(KX_ROWS)))]}")')
+    return " ".join(calls)
 
 
 def _day(rng) -> str:
@@ -196,11 +245,12 @@ def _envelope(rng) -> str:
 @pytest.mark.parametrize("seed", [3, 4])
 def test_port_and_jax_servers_agree_across_slices(tmp_path, seed):
     rng = np.random.default_rng(seed + 100)
+    krng = np.random.default_rng(seed + 200)
     jax_srv = JaxServer(str(tmp_path / "jax"), port=0).open()
     try:
         port = Server(str(tmp_path / "torch"), port=0, device="cpu").open()
         try:
-            for path, body in _setup(seed):
+            for path, body in _setup(seed) + _keyed_setup(seed):
                 want = _post(jax_srv.uri, path, body)
                 assert want[0] == 200, want
                 assert _post(port.uri, path, body) == want, path
@@ -210,7 +260,8 @@ def test_port_and_jax_servers_agree_across_slices(tmp_path, seed):
                 if rnd == 2:
                     queries.append("GroupBy(Rows(field=f), Rows(field=t), limit=7)")
                 queries = ([("d", q) for q in queries]
-                           + [("ty", q) for q in _typed_reads(rng)])
+                           + [("ty", q) for q in _typed_reads(rng)]
+                           + [("kx", q) for q in _keyed_reads(krng)])
                 for idx, q in queries:
                     want = _post(jax_srv.uri, f"/index/{idx}/query", q)
                     assert want[0] == 200, (q, want)
@@ -218,7 +269,8 @@ def test_port_and_jax_servers_agree_across_slices(tmp_path, seed):
                         want, (rnd, q)
                     n += 1
                 for idx, env in (("d", _envelope(rng)), ("d", _envelope(rng)),
-                                 ("ty", _typed_writes(rng))):
+                                 ("ty", _typed_writes(rng)),
+                                 ("kx", _keyed_envelope(krng))):
                     want = _post(jax_srv.uri, f"/index/{idx}/query", env)
                     assert want[0] == 200, want
                     assert _post(port.uri, f"/index/{idx}/query", env) == want
@@ -226,6 +278,10 @@ def test_port_and_jax_servers_agree_across_slices(tmp_path, seed):
             snap = port.executor.ingest_snapshot()
             assert snap["mutations"] >= 30 and snap["errors"] == 0
             assert snap["patchedDense"] >= 1
+            with open(tmp_path / "jax" / ".keys", "rb") as f:
+                want = f.read()
+            with open(tmp_path / "torch" / ".keys", "rb") as f:
+                assert f.read() == want and want
         finally:
             port.close()
     finally:

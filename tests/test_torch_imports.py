@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, nothing of pilosa_tpu, no silent CPU.
+"""The port stands alone: no JAX, nothing of pilosa_tpu, no protobuf
+package (the card's machine has none), no silent CPU.
 
 Walks every module of pilosa_tpu_torch/ and chip_smoke.py with `ast`.
 """
@@ -43,6 +44,15 @@ def test_no_jax_and_no_reference_imports(path):
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_protobuf_package_imports(path):
+    """The protobuf bodies go through the hand-written codec."""
+    tree = ast.parse(path.read_text(), str(path))
+    for mod in _imported_modules(tree):
+        assert not mod.startswith("google"), f"{path}: imports {mod}"
+        assert "pb2" not in mod, f"{path}: imports {mod}"
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_cuda_never_quietly_becomes_cpu(path):
     """No `device` parameter defaults to the CPU, and no branch on
     torch.cuda.is_available() picks "cpu"."""
@@ -64,5 +74,6 @@ def test_cuda_never_quietly_becomes_cpu(path):
 def test_the_walk_covers_the_port():
     names = {p.name for p in FILES}
     assert {"kernels.py", "executor.py", "server.py", "chip_smoke.py",
-            "frozen.py", "batcher.py", "bsi.py", "timequantum.py"} <= names
+            "frozen.py", "batcher.py", "bsi.py", "timequantum.py",
+            "translate.py", "attrstore.py", "protobuf.py"} <= names
     assert (ROOT / "pilosa_tpu_torch" / "csrc" / "bitmap_kernels.cu").exists()
