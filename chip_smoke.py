@@ -16,7 +16,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    (8.5k-40k bits per shard and row) loaded through API.import_bits plus
    one JSON import; PQL over HTTP, including Counts over 40 Rows (40
    leaves), checked against a numpy oracle built from the generated
-   columns; then 32 concurrent clients x 16 Count(Intersect) queries.
+   columns; then 32 concurrent clients x 8 Count(Intersect) queries.
    Launch counts are zeroed before the server starts and read after the
    last query: every kernel of the path must have launched. With
    --profile, a further concurrent pass runs under torch.profiler and the
@@ -31,7 +31,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    Set(col, v=x) over HTTP; the cold slab build is timed apart; Sum, Min,
    Max (with and without a filter on f), Range counts, BETWEEN, != null,
    Not, a clamp and a ?shards= column list checked against a numpy
-   oracle; then 32 clients x 8 Sum(Range(v > x), field=v) with varying
+   oracle; then 32 clients x 4 Sum(Range(v > x), field=v) with varying
    thresholds (bench.py:870), every answer checked. Launch counts are
    zeroed before the phase: bsi_compare and bsi_sum_counts must launch,
    and the sum batcher must coalesce.
@@ -45,7 +45,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    with filter=Range(v > 500); and three axes with limited Rows) checked
    against a numpy oracle; the cold first Src TopN (64 leaves of 128 MiB
    built from the host) and the cold first GroupBy (the 8 GiB rows slab)
-   timed apart from warm repeats; then 32 clients x 2 TopN(t, Row(f=a),
+   timed apart from warm repeats; then 32 clients x 1 TopN(t, Row(f=a),
    n=10) with varying a, every answer checked. Launch counts are zeroed
    before the phase: topn_counts_packed and cross_count_matrix must launch.
 5. Server, hybrid sparse/run path, on the same server and index (Pilosa's
@@ -59,17 +59,17 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    sparse∩run, run∩dense, run∩run, a Range filter, Sum and a TopN Src over
    a sparse row checked against a numpy oracle, the cold first sparse
    leaf timed apart; Count(Row(s=a)) for every a, so that the leaves are
-   resident; then 32 clients x 8 Count(Intersect(Row(s=a),
+   resident; then 32 clients x 4 Count(Intersect(Row(s=a),
    Row(f=b))) with varying a and b, every answer checked. Launch counts
    are zeroed before the phase: sparse_intersect_dense must launch, and
    the port must have uploaded sparse and run leaves.
 5c. Server, planner and plan cache, on the same server and index
    (bench.py bench_planner, :2015-2195, at full width): (a) a 4-row
    Count(Intersect) sequentially, the cache off, the planner off then on
-   in 2 interleaved rounds of 20: p50 a side; (b) a dashboard of 32
-   clients x 8 queries, 80 % ten shared 3-row Count(Intersect) panels
+   in one round of 20: p50 a side; (b) a dashboard of 32
+   clients x 4 queries, 80 % ten shared 3-row Count(Intersect) panels
    over f and 20 % twenty 3-row Count(Union), each in a random operand
-   order, in 2 rounds of cache off (cleared), on (warm), on (measured):
+   order, in one round of cache off (cleared), on (warm), on (measured):
    q/s, p50/p99 and the hit rate (a device-profile capture in the first
    cache-off round); (c) a Count(Intersect) with a row of no bits: the
    planner answers 0 with no leaf read, upload or launch, and without the
@@ -131,7 +131,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    day views) and the year (1 view), each window's cold first query and
    warm p50; Intersects with mutex and bool rows (2 and 3 leaves, and 3
    dense range leaves); TopN(stargazer), TopN(license, Range(...)), Rows,
-   GroupBy(license x fork); then 32 clients x 8 Count(Intersect(Range(
+   GroupBy(license x fork); then 32 clients x 4 Count(Intersect(Range(
    stargazer=u, window), Row(license=l))) over 8 users x 4 windows x 4
    licenses with a device-profile capture; then writes over HTTP with the
    reads they change (a timestamped Set into a covered day view, a mutex
@@ -152,7 +152,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    TopN(language, Row(license=3), n=10), TopN by attrName/attrValues,
    GroupBy(Rows(language), Rows(fork)), a language row intersected with
    a one-week stargazer Range (user 4: phase 5e clears user 7), Rows with
-   a previous key, a Row with its attributes; then 32 clients x 8 of
+   a previous key, a Row with its attributes; then 32 clients x 4 of
    those keyed queries with a device-profile capture; then an unknown
    key's Count reads 0 and mints nothing (the translate log's size is
    unchanged), and after a Set of it the same Count reads 1 with the plan
@@ -175,12 +175,51 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    before it): topn_counts_packed, cross_count_matrix,
    sparse_intersect_dense, pair_stream_counts, bsi_sum_counts and
    bsi_compare must launch. Both indexes are deleted at the end.
+5g. The cluster (BASELINE.json configs[4], "16-shard distributed
+   Intersect+Count: cluster mapReduce"; bench.py bench_distributed,
+   three nodes): three node processes of `python -m pilosa_tpu_torch.cli
+   server --config n<i>.toml` on the one card ([cluster] disabled =
+   false, replicas 2, hosts naming all three, membership-interval 0.5,
+   the plan cache off; .id files node0 < node1 < node2, so node 0
+   coordinates and mints keys), each node's kernel build 0 s (phase 1
+   built the library). Index d over 256 shards (cut by the time limit
+   from 1024; widths and shapes the single-node phases'): f's 8 dense rows
+   and t's 64 ranked rows through node 0's /import-roaring one shard a
+   request, s (8 sparse rows, K = 16..2048), v (0..1023 on 32768 columns
+   a shard) and lang (16 keys on 4096 columns a shard) through its
+   /import in chunks of 32 shards; node 0 forwards every part to its
+   owners. Reads through node 0 and again through node 2, exact against
+   a numpy oracle: every Count(Intersect) of f, a 3-way one, a Row of
+   millions of columns, Sum/Min/Max with a filter, Count(Range(v > 500)),
+   TopN(t, n=10) and with a Src (the phase-2 recount), Rows with a limit,
+   GroupBy(Rows(f), Rows(t), limit=100), sparse∩dense Counts and keyed
+   Counts; a ?profile=true Count whose tree holds one fan-out record per
+   node the shards route to and the coalesced transport; 32 clients x 8
+   Count(Intersect) through node 0 with a device-profile capture on every
+   node (q/s, p50/p99, coalesce factor and dedups); the coalescing A/B
+   (off, on, off, on; nothing claimed); 4 writers x 6 envelopes of 500
+   Set/Clear on a field w through nodes 0 and 1 under 16 exact readers
+   and one keyed envelope through node 2 minting 100 keys through the
+   primary; every acknowledged mutation read back from both of its owners
+   (?remote=true over each node's shards); a Set into a new shard read
+   through every node right after its ack; every node's .keys log equal
+   to the primary's. The drill: SIGKILL node 2 under 8 readers (no read
+   may fail), a Set into a shard of node 0 and node 2 refused with
+   "replica write failed" and absent on node 0, node 2 restarted on its
+   data dir answering every read exactly. Printed: node start seconds,
+   load seconds and forwarded bytes, each kernel's launches per node
+   (program_count, pair_stream_counts, topn_counts_packed,
+   bsi_sum_counts, bsi_compare, cross_count_matrix and
+   sparse_intersect_dense must launch, summed over the nodes), the route
+   and hedge counters, the resident bytes per node before and after.
+   A node that exits early fails the run; every node is stopped at the
+   end.
 6. Server, write path, on the same server and index (bench.py's ingest
    stage, bench.py:1824-1935, cut to a fixed length): 8 keep-alive writers
-   each send 12 envelopes of 500 calls, 80 % Set of a column of their own
+   each send 4 envelopes of 500 calls, 80 % Set of a column of their own
    (column % 8 = writer) anywhere in the 1024 shards on one of f rows 0-7
    (dense), s rows 1-8 (sparse, K = 16..2048) or r row 0 (run), 20 %
-   Clear of a (row, column) the writer set earlier: 80,000 mutations,
+   Clear of a (row, column) the writer set earlier: 16,000 mutations,
    served through the IngestBatcher, Fragment.apply_batch and the
    in-place patches of the resident leaves, while 32 clients run
    Count(Intersect(Row(f=a), Row(f=b))). Every changed flag is checked
@@ -194,7 +233,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    Printed: acked mutations/s, the readers' p50/p99 against a writer-free
    round, the group-commit ratio, batches, patches and drops, the bytes
    uploaded by form after the writes, and the first Count(Intersect)
-   after a burst of 3 envelopes a writer with ingest on, then off
+   after a burst of 1 envelope a writer with ingest on, then off
    (PILOSA_TPU_TORCH_INGEST=0), with the sparse rows read back after the
    batched burst. Launch counts are zeroed before the phase.
 7. Kernels at full width: W = 32768 words, S = 1024 shards (1.07B
@@ -221,7 +260,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    units, at every K the hybrid phase served and at K = 16384 (event,
    device and host times). Times by CUDA events (warm, median).
 8. The last lines: nvidia-smi's name and power limit, one JSON object with
-   a record per kernel (its launches summed over the nine paths, with
+   a record per kernel (its launches summed over the ten paths, with
    launches_by_path beside; bsi_sum_counts adds its launches by form and
    the form the served shape takes; served_device_ms_p50 is its device
    ms as served, from the paths' device-profile captures, over
@@ -250,12 +289,12 @@ sum of resident and plan-cache entry bytes beside); stream ms by events
 the write path the ingest counters of /metrics equal
 Executor.ingest_snapshot(), and the heat map's writes equal the oracle's
 count (every Set, and a Clear that changed a bit). The Count path also
-runs fifteen rounds of its pass, three of each: everything on, the heat
+runs five rounds of its pass, one of each: everything on, the heat
 map off, the kernel statistics off, the telemetry sampler stopped, all
 off. After the hybrid path,
 phase 5b reads five fields in turn (5 x 1024 fragments, past the heat
-map's 4096) in six rounds with the heat map on and off: the heat-on
-rounds must spill. Phase 1 times HeatTracker.touch_many over 1024 shards
+map's 4096) in two rounds, the heat map on and then off: the heat-on
+round must spill. Phase 1 times HeatTracker.touch_many over 1024 shards
 (at most 100 µs), and charges that spill.
 
     python3 chip_smoke.py --count-only   # phases 1-2 only, then the Count
@@ -296,6 +335,11 @@ one JSON line.
 
 --keyed-only loads phase 5e's index without its passes and runs phase 5f
 on it, printing its numbers as one JSON line.
+
+    python3 chip_smoke.py --cluster-only # phases 1 and 5g alone
+
+--cluster-only runs phase 5g (three node processes) and prints its
+numbers as one JSON line.
 
     python3 chip_smoke.py --ingest-only  # phases 1-2, then phase 6 on
                                          # s and r loaded without phase 5
@@ -359,20 +403,20 @@ SUM_FORM_KERNELS = {"grid": "bsi_sum_kernel",
                     "staged": "bsi_sum_staged_kernel"}
 HYBRID_S_ROWS = 32  # rows of the stargazer-like set field s
 HYBRID_R_ROWS = 4   # rows of the run field r
-# the hybrid phase's pass: 8 a client since phase 5f joined the run (16
-# before), for the time limit
-HYBRID_CLIENTS, HYBRID_PER_CLIENT = 32, 8
+# the hybrid phase's pass: 4 a client since phase 5g joined the run (8
+# since 5f, 16 before), for the time limit
+HYBRID_CLIENTS, HYBRID_PER_CLIENT = 32, 4
 SPARSE_SENTINEL = SHARD_WIDTH
 # the write phase (bench.py:1824-1827 and 1830-1935, cut to a fixed length)
 INGEST_WRITERS = 8      # keep-alive writer threads (bench.py:1824)
 INGEST_CALLS = 500      # Set/Clear calls per envelope (bench.py:1825)
-# envelopes per writer in the measured window: 12 since phase 5f joined
-# the run (20 since 5e, 30 since 5d, 40 before), to keep the whole run
-# inside its time limit
-INGEST_ENVELOPES = 12
-# per writer in each ingest on/off turn: 3 since phase 5e joined the run
-# (5 before), to keep the whole run inside its time limit
-INGEST_TURN_ENVELOPES = 3
+# envelopes per writer in the measured window: 4 since phase 5g joined
+# the run (12 since 5f, 20 since 5e, 30 since 5d, 40 before), to keep the
+# whole run inside its time limit
+INGEST_ENVELOPES = 4
+# per writer in each ingest on/off turn: 1 since phase 5g joined the run
+# (3 since 5e, 5 before), to keep the whole run inside its time limit
+INGEST_TURN_ENVELOPES = 1
 INGEST_READERS = 32     # Count(Intersect) clients during the window
 INGEST_S_ROWS = tuple(range(1, 9))  # rows of s written: K = 16..2048
 INGEST_TURNS = ("on", "off")
@@ -386,7 +430,7 @@ TOPN_BITS = 12000  # bits per shard of t's row 0; row r holds ~this/(r+1)
 # run (8 since 5d, 16 before), to keep the whole run inside its time limit
 # the TopN pass: 2 a client since phase 5f joined the run (4 before), for
 # the time limit
-TOPN_CLIENTS, TOPN_PER_CLIENT = 32, 2
+TOPN_CLIENTS, TOPN_PER_CLIENT = 32, 1  # 1 since phase 5g (2 before)
 BSI_DEPTH = 10  # the int field v: min 0, max 1023
 # int32 operations per plane word of the compare sweep (lt/gt: and, not,
 # or, xor, not, and) and of the sum (and, add; plus one __popc)
@@ -403,7 +447,14 @@ WIDE_PROGRAM = ("or", ("xor", *[("leaf", i) for i in range(0, 40, 2)]),
 DESCENT_PROGRAM = ("andnot", ("leaf", 0), ("leaf", 1))
 
 
+_T_RUN = time.perf_counter()  # the run's start, for the phase headers
+
+
 def log(msg: str) -> None:
+    """A line of the run's log; a phase header carries the seconds since
+    the run started."""
+    if msg.startswith("phase "):
+        msg = f"{msg} [{time.perf_counter() - _T_RUN:.1f} s into the run]"
     print(msg, flush=True)
 
 
@@ -2426,15 +2477,17 @@ TOPN_CAPTURE_S = 6.0
 # its time limit
 COUNT_ROUND_QUERIES = 4
 # the Count pass's rounds: everything on, the heat map off, the kernel
-# statistics off, the telemetry sampler stopped, all off; three rounds of
-# each, in turn and back
+# statistics off, the telemetry sampler stopped, all off; one round of
+# each since phase 5g joined the run (three, in turn and back, before)
 OBS_MODES = ("on", "heat_off", "kernel_stats_off", "sampler_off", "off")
-OBS_SWITCHES = OBS_MODES + OBS_MODES[::-1] + OBS_MODES
+OBS_SWITCHES = OBS_MODES
 # per client in each heat on/off round of five: 2 since phase 5f joined
 # the run (4 since 5e, 8 since 5d, 16 before), to keep the whole run
 # inside its time limit
 SPILL_ROUND_QUERIES = 2
-SPILL_SWITCHES = ("on", "off", "off", "on", "on", "off")  # fields
+# one heat-on and one heat-off round since phase 5g joined the run (six,
+# on and off in turn, before)
+SPILL_SWITCHES = ("on", "off")
 METRIC_LINE = None  # compiled at first use
 
 
@@ -2855,9 +2908,10 @@ PLANNER_CHAIN = "Count(Intersect(Row(f=0), Row(f=5), Row(f=2), Row(f=7)))"
 # run (40 before), for the time limit
 PLANNER_CHAIN_QUERIES = 20
 # 2 since phase 5e joined the run (3 before), for the time limit
-PLANNER_ROUNDS = 2
+PLANNER_ROUNDS = 1  # 1 since phase 5g joined the run (2 before)
 PLANNER_PANELS = 10  # shared 3-row Count(Intersect) dashboard panels
-PLANNER_PER_CLIENT = 8  # 8 since phase 5f joined the run (16 before)
+# 4 since phase 5g joined the run (8 since 5f, 16 before)
+PLANNER_PER_CLIENT = 4
 PLANNER_EMPTY_ROW = 4242  # a row of f that holds no bit
 
 
@@ -3283,7 +3337,9 @@ FP_THRESHOLDS = (90, 70, 50)
 FZ_ROWS, FZ_BITS = 3000, 40  # tests/test_topn.py:245-285
 # the Min/Max pass: 8 a client since phase 5f joined the run (16 before)
 MINMAX_CLIENTS, MINMAX_PER_CLIENT = 32, 8
-FROZEN_REPEATS = 9  # timed repeats of each query (scale_configs.py: 9)
+# timed repeats of each query (scale_configs.py: 9): 5 since phase 5g
+# joined the run
+FROZEN_REPEATS = 5
 
 
 def _rss_bytes() -> int:
@@ -3785,8 +3841,10 @@ TYPED_USERS_MIX = (0, 1, 2, 3, 5, 8, 13, 21)  # the concurrent pass
 TYPED_LICENSES_MIX = (0, 3, 7, 12)
 # the typed pass (8 a client) and warm repeats (5) since phase 5f joined
 # the run (16 and 10 before), for the time limit
-TYPED_CLIENTS, TYPED_PER_CLIENT = 32, 8
-TYPED_WARM_REPEATS = 5
+# the typed pass: 4 a client since phase 5g joined the run (8 before); its
+# warm repeats 3 (5 before)
+TYPED_CLIENTS, TYPED_PER_CLIENT = 32, 4
+TYPED_WARM_REPEATS = 3
 
 
 def make_typed_data(n_shards: int, seed: int) -> dict:
@@ -4192,7 +4250,7 @@ KEYED_TYPED = {"Java", "TypeScript", "C#", "C++", "C", "Go", "Rust",
 KEYED_UNKNOWN = "Zig"  # a language no repository holds: no key minted
 KEYED_PROTO_CHUNK = 1  # the chunk of each import sent as protobuf
 KEYED_USER = 4  # phase 5e's ClearRow empties user 7's stars
-KEYED_CLIENTS, KEYED_PER_CLIENT = 32, 8
+KEYED_CLIENTS, KEYED_PER_CLIENT = 32, 4  # 4 since phase 5g (8 before)
 # part B: a keyed-column index of user logins (2^21 - 1 keys: ids start at
 # 1, so they fill shards 0-1 exactly)
 LOGIN_INDEX = "logins"
@@ -4672,6 +4730,791 @@ def keyed_only(device, seed: int) -> dict:
     return {"launches": out["launches"], **out["stats"]}
 
 
+# ---------------------------------------------------------- phase 5g: cluster
+
+CLUSTER_NODES = 3
+CLUSTER_SHARDS = 256  # cut by the time limit from the other phases' 1024
+CLUSTER_CHUNK = 32  # shards per /import request
+CLUSTER_LANGS = KEYED_LANGS[:16]
+CLUSTER_LANG_BITS = 4096  # tagged columns per shard
+CLUSTER_S_ROWS = 8  # sparse rows of s: K = 16 << a per shard, 16..2048
+CLUSTER_CLIENTS, CLUSTER_PER_CLIENT = 32, 8
+CLUSTER_AB = ("off", "on", "off", "on")  # the coalescing A/B rounds
+CLUSTER_WRITERS, CLUSTER_ENVELOPES, CLUSTER_CALLS = 4, 6, 500
+CLUSTER_READERS = 16
+CLUSTER_W_ROWS = 8  # rows of the written field w
+CLUSTER_NEW_KEYS = 100  # lang keys minted by the keyed envelope
+CLUSTER_DRILL_READERS = 8
+CLUSTER_CAPTURE_S = 1.0
+CLUSTER_PLATFORM = ""  # the nodes' [mesh] platform: "" is the card
+CLUSTER_KERNELS = ("program_count", "pair_stream_counts",
+                   "topn_counts_packed", "bsi_sum_counts", "bsi_compare",
+                   "cross_count_matrix", "sparse_intersect_dense")
+
+
+def _get_raw(port: int, path: str) -> bytes:
+    conn = http.client.HTTPConnection("localhost", port, timeout=600)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        data = resp.read()
+        if resp.status != 200:
+            raise AssertionError(f"GET {path} -> {resp.status}: {data!r}")
+        return data
+    finally:
+        conn.close()
+
+
+def _free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class ClusterNodes:
+    """The node processes of phase 5g: `python -m pilosa_tpu_torch.cli
+    server --config n<i>.toml`, each with its own data dir and a pinned
+    .id (node0 < node1 < node2, so node 0 coordinates and mints keys)."""
+
+    def __init__(self, tmp: str, n: int):
+        self.tmp = tmp
+        self.ports = _free_ports(n)
+        self.ids = [f"node{i}" for i in range(n)]
+        self.procs: list = [None] * n
+        self.killed: set = set()
+        hosts = ", ".join(f'"http://127.0.0.1:{p}"' for p in self.ports)
+        self.configs = []
+        for i, port in enumerate(self.ports):
+            data = os.path.join(tmp, f"n{i}")
+            os.makedirs(data)
+            with open(os.path.join(data, ".id"), "w") as f:
+                f.write(self.ids[i])
+            cfg = os.path.join(tmp, f"n{i}.toml")
+            with open(cfg, "w") as f:
+                f.write(f'data-dir = "{data}"\nbind = "127.0.0.1:{port}"\n'
+                        "[cluster]\ndisabled = false\nreplicas = 2\n"
+                        f"hosts = [{hosts}]\nmembership-interval = 0.5\n"
+                        # the passes measure the kernels: repeats would
+                        # hit the plan cache and launch nothing
+                        "[query]\nplan-cache-bytes = 0\n"
+                        f'[mesh]\nplatform = "{CLUSTER_PLATFORM}"\n')
+            self.configs.append(cfg)
+
+    def start(self, i: int) -> None:
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        out = open(os.path.join(self.tmp, f"n{i}.log"), "ab")
+        self.procs[i] = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "server",
+             "--config", self.configs[i]], cwd=root, env=env, stdout=out,
+            stderr=subprocess.STDOUT)
+        out.close()
+        self.killed.discard(i)
+
+    def wait_ready(self, i: int, t0: float, timeout: float = 120.0) -> float:
+        """Seconds from t0 until node i's /status lists every node."""
+        while True:
+            self.check_alive()
+            try:
+                st = _http(self.ports[i], "GET", "/status")
+                if len(st["nodes"]) == len(self.ports):
+                    return time.perf_counter() - t0
+            except (OSError, AssertionError, ValueError):
+                pass
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"node {i} not ready after {timeout} s:"
+                                     f" {self.log_tail(i)}")
+            time.sleep(0.1)
+
+    def log_tail(self, i: int) -> str:
+        with open(os.path.join(self.tmp, f"n{i}.log"), "rb") as f:
+            return f.read()[-2000:].decode(errors="replace")
+
+    def check_alive(self) -> None:
+        for i, p in enumerate(self.procs):
+            if p is not None and i not in self.killed \
+                    and p.poll() is not None:
+                raise AssertionError(f"node {i} exited early ({p.returncode}"
+                                     f"): {self.log_tail(i)}")
+
+    def kill(self, i: int) -> None:
+        import signal
+
+        self.killed.add(i)
+        self.procs[i].send_signal(signal.SIGKILL)
+        self.procs[i].wait(timeout=30)
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p is not None and p.poll() is None:
+                p.terminate()
+        for p in self.procs:
+            if p is None:
+                continue
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=20)
+
+
+def _node_vars(port: int) -> dict:
+    return _http(port, "GET", "/debug/vars")
+
+
+def _node_launches(dv: dict) -> dict:
+    g = dv["gauges"]
+    return {k.split("/", 1)[1]: int(v) for k, v in g.items()
+            if k.startswith("kernelLaunches/")}
+
+
+def make_cluster_data(n_shards: int, seed: int) -> dict:
+    """Phase 5g's data at the single-node phases' widths over n_shards."""
+    rng = np.random.default_rng(seed + 61)
+    base = np.arange(n_shards, dtype=np.int64) * SHARD_WIDTH
+    s_rows = []
+    for a in range(CLUSTER_S_ROWS):
+        card = 16 << a
+        cols = np.repeat(base, card) + rng.integers(0, SHARD_WIDTH,
+                                                    card * n_shards)
+        s_rows.append(np.unique(cols))
+    lcols = np.unique(np.repeat(base, CLUSTER_LANG_BITS) + rng.integers(
+        0, SHARD_WIDTH, CLUSTER_LANG_BITS * n_shards))
+    share = 1.0 / (np.arange(len(CLUSTER_LANGS)) + 1)
+    lang = rng.choice(len(CLUSTER_LANGS), lcols.size, p=share / share.sum())
+    return {"f": make_rows(8, n_shards, seed), "s": s_rows,
+            "t": make_topn_rows(n_shards, TOPN_BITS, seed),
+            "v": make_values(n_shards, 32768, seed),
+            "lang": (lcols, lang)}
+
+
+def _roaring_shards(rows: list, n_shards: int) -> list:
+    """Per shard, the /import-roaring body of the rows' bits there."""
+    edges = np.arange(n_shards + 1, dtype=np.int64) * SHARD_WIDTH
+    bounds = [np.searchsorted(r, edges) for r in rows]
+    out = []
+    for s in range(n_shards):
+        pos = np.concatenate([
+            r[bounds[i][s]:bounds[i][s + 1]] - s * SHARD_WIDTH
+            + i * SHARD_WIDTH for i, r in enumerate(rows)])
+        out.append(json.dumps({"views": {"": _roaring_b64(pos)}}).encode())
+    return out
+
+
+CLUSTER_SCHEMA = [
+    ("/index/d", {"options": {"trackExistence": True}}),
+    ("/index/d/field/f", {}), ("/index/d/field/t", {}),
+    ("/index/d/field/s", {"options": {"cacheType": "none"}}),
+    ("/index/d/field/v", {"options": {"type": "int", "min": 0,
+                                      "max": (1 << BSI_DEPTH) - 1}}),
+    ("/index/d/field/lang", {"options": {"keys": True}}),
+    ("/index/d/field/w", {"options": {"cacheType": "none"}})]
+
+
+def cluster_requests(data: dict, n_shards: int) -> list:
+    """(field, route, [(path, body)], parallel requests) of the load: f
+    and t a shard a request over /import-roaring, s, v and lang over
+    /import in chunks of CLUSTER_CHUNK shards (lang one at a time: its
+    keys are minted in the order they first appear)."""
+    out = []
+    for name in ("f", "t"):
+        reqs = [(f"/index/d/field/{name}/import-roaring/{s}", b)
+                for s, b in enumerate(_roaring_shards(data[name],
+                                                      n_shards))]
+        out.append((name, f"/import-roaring, {n_shards} requests of one "
+                          "shard", reqs, 8))
+    edges = np.array(list(range(0, n_shards, CLUSTER_CHUNK)) + [n_shards],
+                     dtype=np.int64) * SHARD_WIDTH
+
+    def chunked(name: str, cols: np.ndarray, body, workers: int) -> None:
+        cuts = np.searchsorted(cols, edges)
+        reqs = [(f"/index/d/field/{name}/import",
+                 json.dumps(body(lo, hi)).encode())
+                for lo, hi in zip(cuts[:-1], cuts[1:])]
+        out.append((name, f"/import (JSON), {len(reqs)} requests of up to "
+                          f"{CLUSTER_CHUNK} shards", reqs, workers))
+
+    ids, cols = shard_major(data["s"], n_shards)
+    order = np.argsort(cols, kind="stable")
+    ids, cols = ids[order], cols[order]
+    chunked("s", cols, lambda lo, hi: {
+        "rowIDs": ids[lo:hi].tolist(), "columnIDs": cols[lo:hi].tolist()}, 8)
+    vcols, vvals = data["v"]
+    chunked("v", vcols, lambda lo, hi: {
+        "columnIDs": vcols[lo:hi].tolist(),
+        "values": vvals[lo:hi].tolist()}, 8)
+    lcols, lang = data["lang"]
+    chunked("lang", lcols, lambda lo, hi: {
+        "rowKeys": [CLUSTER_LANGS[k] for k in lang[lo:hi].tolist()],
+        "columnIDs": lcols[lo:hi].tolist()}, 1)
+    return out
+
+
+def cluster_load(port: int, requests: list) -> dict:
+    """The schema, then every request through node 0's public routes;
+    node 0 forwards each part to its owners."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    for path, body in CLUSTER_SCHEMA:
+        _http(port, "POST", path, json.dumps(body).encode())
+
+    def post(path_body):
+        _http(port, "POST", *path_body)
+
+    routes, seconds = {}, {}
+    for name, route, reqs, workers in requests:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(workers) as pool:
+            list(pool.map(post, reqs))
+        seconds[name] = time.perf_counter() - t0
+        routes[name] = route
+    return {"routes": routes, "seconds": seconds}
+
+
+def cluster_oracle(data: dict, n_shards: int) -> list:
+    """[(pql, answer JSON)] of the phase's reads."""
+    f_rows, t_rows, s_rows = data["f"], data["t"], data["s"]
+    packed = [packed_row(c, n_shards) for c in f_rows]
+    vcols, vvals = data["v"]
+    lcols, lang = data["lang"]
+    reads = []
+    for a in range(8):
+        for b in range(a + 1, 8):
+            reads.append((f"Count(Intersect(Row(f={a}), Row(f={b})))",
+                          _and_count(packed[a], packed[b])))
+    reads.append(("Count(Intersect(Row(f=1), Row(f=2), Row(f=3)))",
+                  _and_count(packed[1], packed[2], packed[3])))
+    reads.append(("Row(f=5)", {"attrs": {},
+                               "columns": f_rows[5].tolist()}))
+    for a in (0, 3):
+        m = _bit_test(packed[a], vcols)
+        sel = vvals[m]
+        reads += [(f"Sum(Row(f={a}), field=v)",
+                   {"value": int(sel.sum()), "count": int(sel.size)}),
+                  (f"Min(Row(f={a}), field=v)",
+                   {"value": int(sel.min()),
+                    "count": int((sel == sel.min()).sum())}),
+                  (f"Max(Row(f={a}), field=v)",
+                   {"value": int(sel.max()),
+                    "count": int((sel == sel.max()).sum())})]
+    reads.append(("Count(Range(v > 500))", int((vvals > 500).sum())))
+    t_counts = np.array([r.size for r in t_rows])
+    reads.append(("TopN(t, n=10)", _pairs(t_counts)[:10]))
+    for a in (0, 4):
+        src = np.array([_bit_test(packed[a], r).sum() for r in t_rows])
+        reads.append((f"TopN(t, Row(f={a}), n=10)", _pairs(src)[:10]))
+    reads.append(("Rows(field=t, limit=5)", {"rows": list(range(5))}))
+    cross = {(a, r): int(_bit_test(packed[a], t_rows[r]).sum())
+             for a in range(8) for r in range(len(t_rows))}
+    reads.append(("GroupBy(Rows(field=f), Rows(field=t), limit=100)",
+                  _groups(["f", "t"], cross)[:100]))
+    for a, b in ((0, 1), (5, 2), (7, 6)):
+        reads.append((f"Count(Intersect(Row(s={a}), Row(f={b})))",
+                      int(_bit_test(packed[b], s_rows[a]).sum())))
+    for k in (0, 9, 15):
+        reads.append((f'Count(Row(lang="{CLUSTER_LANGS[k]}"))',
+                      int((lang == k).sum())))
+    return reads
+
+
+def _check_reads(port: int, reads: list, where: str) -> float:
+    t0 = time.perf_counter()
+    for pql, want in reads:
+        got = _http(port, "POST", "/index/d/query", pql.encode())[
+            "results"][0]
+        if got != want:
+            raise AssertionError(f"{where}: {pql[:80]}: port "
+                                 f"{str(got)[:200]} != oracle "
+                                 f"{str(want)[:200]}")
+    return time.perf_counter() - t0
+
+
+def _cluster_captures(ports: list) -> list:
+    """One device-profile capture per node, all at once."""
+    out: list = [None] * len(ports)
+
+    def cap(i):
+        out[i] = _http(ports[i], "POST", "/debug/device-profile?seconds="
+                       f"{CLUSTER_CAPTURE_S}")
+
+    ts = [threading.Thread(target=cap, args=(i,)) for i in range(len(ports))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return out
+
+
+def cluster_writes(nodes: ClusterNodes, n_shards: int, seed: int,
+                   count_mix: list) -> dict:
+    """CLUSTER_WRITERS writers x CLUSTER_ENVELOPES envelopes of
+    CLUSTER_CALLS Set/Clear on field w through nodes 0 and 1 (80 % Set of
+    a fresh (row, column), 20 % Clear of one the writer set), under
+    CLUSTER_READERS exact Count(Intersect) readers; one keyed envelope
+    through node 2 minting CLUSTER_NEW_KEYS lang keys through the
+    primary. -> the oracle's w rows (sorted columns) and the numbers."""
+    rng = np.random.default_rng(seed + 71)
+    ports = nodes.ports
+    per_writer: list = []
+    state = [set() for _ in range(CLUSTER_WRITERS)]
+    for w in range(CLUSTER_WRITERS):
+        envs = []
+        for _ in range(CLUSTER_ENVELOPES):
+            calls, flags = [], []
+            for _ in range(CLUSTER_CALLS):
+                mine = sorted(state[w])
+                if mine and rng.random() < 0.2:
+                    row, col = mine[int(rng.integers(len(mine)))]
+                    state[w].discard((row, col))
+                    calls.append(f"Clear({col}, w={row})")
+                else:
+                    while True:
+                        col = int(rng.integers(0, n_shards * SHARD_WIDTH
+                                               // CLUSTER_WRITERS)) \
+                            * CLUSTER_WRITERS + w
+                        row = int(rng.integers(CLUSTER_W_ROWS))
+                        if (row, col) not in state[w]:
+                            break
+                    state[w].add((row, col))
+                    calls.append(f"Set({col}, w={row})")
+                flags.append(True)
+            envs.append(("\n".join(calls).encode(), flags))
+        per_writer.append(envs)
+    errors: list = []
+    acked = [0] * CLUSTER_WRITERS
+    lat: list = []
+    stop = threading.Event()
+    lock = threading.Lock()
+
+    def writer(w: int) -> None:
+        port = ports[w % 2]
+        conn = http.client.HTTPConnection("localhost", port, timeout=600)
+        try:
+            for body, flags in per_writer[w]:
+                got = _http(port, "POST", "/index/d/query", body, conn)[
+                    "results"]
+                if got != flags:
+                    errors.append(f"writer {w}: changed flags differ")
+                acked[w] += len(got)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"writer {w}: {e!r}")
+        finally:
+            conn.close()
+
+    def reader(r: int) -> None:
+        port = ports[0 if r % 2 == 0 else 2]
+        rr = np.random.default_rng(seed + 500 + r)
+        conn = http.client.HTTPConnection("localhost", port, timeout=600)
+        try:
+            while not stop.is_set():
+                pql, want = count_mix[int(rr.integers(len(count_mix)))]
+                t = time.perf_counter()
+                got = _http(port, "POST", "/index/d/query", pql.encode(),
+                            conn)["results"][0]
+                with lock:
+                    lat.append(time.perf_counter() - t)
+                if got != want:
+                    errors.append(f"reader {r}: {pql} {got} != {want}")
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"reader {r}: {e!r}")
+        finally:
+            conn.close()
+
+    readers = [threading.Thread(target=reader, args=(r,))
+               for r in range(CLUSTER_READERS)]
+    writers = [threading.Thread(target=writer, args=(w,))
+               for w in range(CLUSTER_WRITERS)]
+    for t in readers:
+        t.start()
+    t0 = time.perf_counter()
+    for t in writers:
+        t.start()
+    for t in writers:
+        t.join()
+    write_s = time.perf_counter() - t0
+    stop.set()
+    for t in readers:
+        t.join()
+    if errors:
+        raise AssertionError(f"{len(errors)} write-pass errors: "
+                             f"{errors[:3]}")
+    # one keyed envelope through node 2, which is not the primary
+    base = n_shards * SHARD_WIDTH - 4096
+    keyed = "\n".join(f'Set({base + i}, lang="Zz{i}")'
+                      for i in range(CLUSTER_NEW_KEYS))
+    t1 = time.perf_counter()
+    got = _http(ports[2], "POST", "/index/d/query", keyed.encode())["results"]
+    keyed_ms = (time.perf_counter() - t1) * 1e3
+    if got != [True] * CLUSTER_NEW_KEYS:
+        raise AssertionError(f"keyed envelope through node 2: {got[:5]}")
+    rows = [[] for _ in range(CLUSTER_W_ROWS)]
+    for st in state:
+        for row, col in st:
+            rows[row].append(col)
+    w_rows = [np.array(sorted(r), dtype=np.int64) for r in rows]
+    n_mut = sum(acked)
+    p50, p99 = _percentiles(lat) if lat else (None, None)
+    return {"w_rows": w_rows, "stats": {
+        "mutations": n_mut, "write_s": write_s,
+        "mutations_per_s": n_mut / write_s, "reads": len(lat),
+        "read_p50_ms": p50, "read_p99_ms": p99,
+        "keyed_envelope_ms": keyed_ms, "keys_minted": CLUSTER_NEW_KEYS}}
+
+
+def _owned(ids: list, n_shards: int) -> dict:
+    """node id -> the shards below n_shards it holds a replica of (the
+    placement every node computes)."""
+    from pilosa_tpu_torch.parallel.cluster import Cluster, Node
+
+    c = Cluster(ids[0], replica_n=2)
+    c.set_static([Node(i) for i in ids])
+    out = {i: [] for i in ids}
+    for s in range(n_shards):
+        for n in c.shard_nodes("d", s):
+            out[n.id].append(s)
+    return out
+
+
+def _primaries(ids: list, n_shards: int) -> list:
+    """The nodes a read over every shard fans out to: each shard's first
+    owner, sorted."""
+    from pilosa_tpu_torch.parallel.cluster import Cluster, Node
+
+    c = Cluster(ids[0], replica_n=2)
+    c.set_static([Node(i) for i in ids])
+    return sorted(c.shards_by_node("d", list(range(n_shards))))
+
+
+def _read_back(nodes: ClusterNodes, w_rows: list, owned: dict,
+               live: list) -> int:
+    """Every acknowledged mutation on every owner: each node's own
+    fragments (?remote=true over the shards it owns) hold exactly the
+    oracle's columns there. Returns the columns compared."""
+    n = 0
+    for i in live:
+        shards = owned[nodes.ids[i]]
+        qs = "?remote=true&shards=" + ",".join(map(str, shards))
+        for r, cols in enumerate(w_rows):
+            want = cols[np.isin(cols // SHARD_WIDTH, shards)]
+            got = _http(nodes.ports[i], "POST", f"/index/d/query{qs}",
+                        f"Row(w={r})".encode())["results"][0]["columns"]
+            if got != want.tolist():
+                raise AssertionError(f"node {i} row w={r}: {len(got)} "
+                                     f"columns held, {want.size} acked")
+            n += want.size
+    return n
+
+
+def cluster_phase(seed: int) -> dict:
+    """Phase 5g: three port node processes serve one index (BASELINE.json
+    configs[4], bench.py bench_distributed: a 3-node mapReduce), every
+    answer checked against a numpy oracle through node 0 and node 2."""
+    t_phase = time.perf_counter()
+    n_shards = CLUSTER_SHARDS
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="pilosa_torch_cluster_") as tmp:
+        nodes = ClusterNodes(tmp, CLUSTER_NODES)
+        try:
+            t_start = time.perf_counter()
+            for i in range(CLUSTER_NODES):
+                nodes.start(i)
+            # the data, the request bodies and the oracle are made while
+            # the nodes start
+            t0 = time.perf_counter()
+            data = make_cluster_data(n_shards, seed)
+            requests = cluster_requests(data, n_shards)
+            reads = cluster_oracle(data, n_shards)
+            log(f"  data: {n_shards} shards (cut from 1024 by the time "
+                f"limit): f 8 rows, {sum(r.size for r in data['f'])} bits; "
+                f"t {len(data['t'])} rows, {sum(r.size for r in data['t'])}"
+                f" bits; s {CLUSTER_S_ROWS} sparse rows (K = 16..2048), "
+                f"{sum(r.size for r in data['s'])} bits; v "
+                f"{data['v'][0].size} values; lang {len(CLUSTER_LANGS)} "
+                f"keys on {data['lang'][0].size} columns; request bodies "
+                f"and an oracle of {len(reads)} reads "
+                f"({time.perf_counter() - t0:.1f} s)")
+            starts = [nodes.wait_ready(i, t_start)
+                      for i in range(CLUSTER_NODES)]
+            ports = nodes.ports
+            log(f"  {CLUSTER_NODES} nodes (python -m pilosa_tpu_torch.cli "
+                f"server, replicas 2, plan cache off) ready after "
+                + ", ".join(f"{s:.1f}" for s in starts) + " s")
+            builds = [_node_vars(p)["gauges"]["kernelBuild/seconds"]
+                      for p in ports]
+            if any(builds):
+                raise AssertionError(f"a node rebuilt the kernels: {builds}")
+            sent0 = _node_vars(ports[0])["gauges"][
+                "internalClient/bytesSent"]
+            t0 = time.perf_counter()
+            load = cluster_load(ports[0], requests)
+            del requests
+            load_s = time.perf_counter() - t0
+            fwd = _node_vars(ports[0])["gauges"][
+                "internalClient/bytesSent"] - sent0
+            log(f"  load through node 0: {load_s:.1f} s "
+                + ", ".join(f"{k} {v:.1f} s" for k, v in
+                            load["seconds"].items())
+                + f"; forwarded {int(fwd)} bytes to the other owners; "
+                "routes " + json.dumps(load["routes"]))
+            nodes.check_alive()
+            # the create-shard announcements are asynchronous: wait until
+            # nodes 1 and 2 plan over every shard
+            deadline = time.perf_counter() + 60
+            want0 = int(data["f"][0].size)
+            for i in (1, 2):
+                while _http(ports[i], "POST", "/index/d/query",
+                            b"Count(Row(f=0))")["results"][0] != want0:
+                    if time.perf_counter() > deadline:
+                        raise AssertionError(f"node {i} never learned every"
+                                             " shard")
+                    time.sleep(0.1)
+            res_before = [_node_vars(p)["deviceResidency"]["bytes"]
+                          for p in ports]
+            for i in (0, 2):
+                s = _check_reads(ports[i], reads, f"node {i}")
+                log(f"  {len(reads)} reads through node {i}: {s:.1f} s "
+                    "(oracle agrees)")
+            prof = _http(ports[0], "POST", "/index/d/query?profile=true",
+                         b"Count(Intersect(Row(f=0), Row(f=1)))")["profile"]
+            fan = [f for f in prof["fanout"] if "transport" in f]
+            if sorted(f["node"] for f in fan) != _primaries(nodes.ids,
+                                                            n_shards) \
+                    or "coalesced" not in {f["transport"] for f in fan}:
+                raise AssertionError(f"?profile=true fan-out: {fan}")
+            log(f"  ?profile=true Count: fan-out {fan}; route "
+                f"{prof['route']}; {len(prof['remoteProfiles'])} remote "
+                "profiles")
+            count_mix = [r for r in reads if r[0].startswith(
+                "Count(Intersect(Row(f=")]
+            caps: list = []
+            lat, wall, _ = concurrent_mix(
+                ports[0], CLUSTER_CLIENTS, CLUSTER_PER_CLIENT, count_mix,
+                seed + 600, lambda: caps.extend(_cluster_captures(ports)),
+                index="d")
+            coal = _node_vars(ports[0])["netCoalesce"]
+            p50, p99 = _percentiles(lat)
+            out["pass"] = {"qps": len(lat) / wall, "p50_ms": p50,
+                           "p99_ms": p99,
+                           "mean_coalesce_factor":
+                               coal["mean_coalesce_factor"],
+                           "deduped": coal["deduped_queries"],
+                           "captures": [{k: c.get(k) for k in (
+                               "status", "seconds", "deviceBusyMs",
+                               "idleShare", "kernels")} for c in caps]}
+            log(f"  concurrent: {CLUSTER_CLIENTS} clients x "
+                f"{CLUSTER_PER_CLIENT} Count(Intersect) through node 0: "
+                f"{len(lat) / wall:.1f} q/s, p50 {p50:.2f} ms, p99 "
+                f"{p99:.2f} ms; coalesce factor "
+                f"{coal['mean_coalesce_factor']}, deduped "
+                f"{coal['deduped_queries']}")
+            for i, c in enumerate(caps):
+                if c.get("status") != "ok":
+                    raise AssertionError(f"node {i} capture: {c}")
+                log(f"  node {i} device-profile capture: {c.get('status')}, "
+                    f"busy {c.get('deviceBusyMs')} ms, idle share "
+                    f"{c.get('idleShare')} (this node's kernels only), "
+                    f"kernels {c.get('kernels')}")
+            ab = []
+            for r, mode in enumerate(CLUSTER_AB):
+                _http(ports[0], "POST", "/debug/net-coalesce",
+                      json.dumps({"enabled": mode == "on"}).encode())
+                before = _node_vars(ports[0])["netCoalesce"]
+                lat, wall, _ = concurrent_mix(
+                    ports[0], CLUSTER_CLIENTS, CLUSTER_PER_CLIENT,
+                    count_mix, seed + 700 + r, index="d")
+                after = _node_vars(ports[0])["netCoalesce"]
+                nb = after["batches"] - before["batches"]
+                nq = after["batched_queries"] - before["batched_queries"]
+                p50, p99 = _percentiles(lat)
+                ab.append({"mode": mode, "qps": len(lat) / wall,
+                           "p50_ms": p50, "p99_ms": p99,
+                           "coalesce_factor": nq / nb if nb else 0.0})
+                log(f"  coalescing {mode}: {len(lat) / wall:.1f} q/s, p50 "
+                    f"{p50:.2f} ms, p99 {p99:.2f} ms, factor "
+                    f"{ab[-1]['coalesce_factor']:.2f} (nothing claimed)")
+            _http(ports[0], "POST", "/debug/net-coalesce",
+                  json.dumps({"enabled": True}).encode())
+            out["coalescing_ab"] = ab
+            wr = cluster_writes(nodes, n_shards, seed, count_mix)
+            out["writes"] = wr["stats"]
+            w_rows = wr["w_rows"]
+            log(f"  writes: {CLUSTER_WRITERS} writers x {CLUSTER_ENVELOPES} "
+                f"x {CLUSTER_CALLS} Set/Clear through nodes 0 and 1 under "
+                f"{CLUSTER_READERS} readers: "
+                f"{wr['stats']['mutations_per_s']:.1f} mutations/s, readers "
+                f"p50 {wr['stats']['read_p50_ms']:.2f} ms, p99 "
+                f"{wr['stats']['read_p99_ms']:.2f} ms; {CLUSTER_NEW_KEYS} "
+                f"keys minted through node 2 in "
+                f"{wr['stats']['keyed_envelope_ms']:.1f} ms")
+            owned = _owned(nodes.ids, n_shards + 64)
+            n_back = _read_back(nodes, w_rows, owned, [0, 1, 2])
+            log(f"  read back {n_back} acknowledged columns on both of "
+                "their owners")
+            new_col = (n_shards + 44) * SHARD_WIDTH + 5
+            _http(ports[1], "POST", "/index/d/query",
+                  f"Set({new_col}, w=0)".encode())
+            w_rows[0] = np.append(w_rows[0], new_col)
+            for i in range(CLUSTER_NODES):
+                got = _http(ports[i], "POST", "/index/d/query",
+                            b"Count(Row(w=0))")["results"][0]
+                if got != w_rows[0].size:
+                    raise AssertionError(f"new shard: node {i} counts {got}"
+                                         f" != {w_rows[0].size}")
+            log(f"  Set into the new shard {n_shards + 44} through node 1: "
+                "read through every node right after its ack")
+            for i in (1, 2):  # reverse lookups tail the primary's log
+                _http(ports[i], "POST", "/index/d/query",
+                      b"Rows(field=lang)")
+            logs = [_get_raw(p, "/internal/translate/data?offset=0")
+                    for p in ports]
+            if any(x != logs[0] for x in logs[1:]):
+                raise AssertionError(f".keys logs differ: "
+                                     f"{[len(x) for x in logs]} bytes")
+            log(f"  .keys logs byte-identical on every node "
+                f"({len(logs[0])} bytes)")
+            reads += [(f'Count(Row(lang="Zz{i}"))', 1) for i in (0, 99)]
+            reads += [(f"Count(Row(w={r}))", int(w_rows[r].size))
+                      for r in range(CLUSTER_W_ROWS)]
+            launches = [_node_launches(_node_vars(p)) for p in ports]
+            out["resident_bytes_before_drill"] = [
+                _node_vars(p)["deviceResidency"]["bytes"] for p in ports]
+            out["drill"] = cluster_drill(nodes, reads, count_mix, owned,
+                                         w_rows, n_shards, launches)
+            res_after = [_node_vars(p)["deviceResidency"]["bytes"]
+                         for p in ports]
+            log(f"  resident bytes per node: before the reads {res_before},"
+                f" before the drill {out['resident_bytes_before_drill']}, "
+                f"after {res_after}")
+            out["resident_bytes_after_drill"] = res_after
+            final = [_node_launches(_node_vars(p)) for p in ports]
+            # node 2 restarted: its count before the kill, then after
+            by_node = [final[0], final[1],
+                       {k: launches[2][k] + final[2][k] for k in final[2]}]
+            total = {k: sum(n[k] for n in by_node) for k in final[0]}
+            log(f"  launches by node: {by_node}")
+            for k in CLUSTER_KERNELS:
+                if total[k] < 1:
+                    raise AssertionError(f"{k} never launched on the nodes")
+            dvs = [_node_vars(p) for p in ports]
+            out["routes"] = [d["iciServing"] for d in dvs]
+            out["hedges"] = [d["hedges"] for d in dvs]
+            log(f"  routes: {out['routes']}; hedges: {out['hedges']}")
+            nodes.check_alive()
+            out.update(launches=total, launches_by_node=by_node,
+                       start_s=starts, load_s=load_s,
+                       load=load["seconds"], routes_by_field=load["routes"],
+                       forwarded_bytes=int(fwd),
+                       obs={"scrape": {"kernels": {}}})
+        finally:
+            nodes.stop()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  cluster phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def cluster_drill(nodes: ClusterNodes, reads: list, count_mix: list,
+                  owned: dict, w_rows: list, n_shards: int,
+                  launches: list) -> dict:
+    """SIGKILL node 2 under CLUSTER_DRILL_READERS readers through node 0
+    (every read answered after the kill must be exact); a Set into a
+    shard node 2 owns is refused and leaves nothing on the live owner;
+    node 2 restarted on its data dir answers every read."""
+    ports = nodes.ports
+    failed: list = []
+    done = [0, 0]  # reads answered before, after the kill
+    after_ms: list = []  # latencies of the reads answered after it
+    killed = threading.Event()
+    stop = threading.Event()
+    lock = threading.Lock()
+
+    def reader(r: int) -> None:
+        rr = np.random.default_rng(900 + r)
+        conn = http.client.HTTPConnection("localhost", ports[0], timeout=600)
+        try:
+            while not stop.is_set():
+                pql, want = count_mix[int(rr.integers(len(count_mix)))]
+                t = time.perf_counter()
+                try:
+                    got = _http(ports[0], "POST", "/index/d/query",
+                                pql.encode(), conn)["results"][0]
+                    ok = got == want
+                except Exception as e:  # noqa: BLE001 — counted
+                    ok, got = False, repr(e)
+                    conn.close()
+                    conn = http.client.HTTPConnection("localhost", ports[0],
+                                                      timeout=600)
+                after = killed.is_set()
+                with lock:
+                    done[after] += 1
+                    if after:
+                        after_ms.append((time.perf_counter() - t) * 1e3)
+                    if not ok:
+                        failed.append((after, pql, str(got)[:200]))
+        finally:
+            conn.close()
+
+    ts = [threading.Thread(target=reader, args=(r,))
+          for r in range(CLUSTER_DRILL_READERS)]
+    for t in ts:
+        t.start()
+    time.sleep(0.5)
+    launches[2] = _node_launches(_node_vars(ports[2]))
+    t_kill = time.perf_counter()
+    nodes.kill(2)
+    kill_s = time.perf_counter() - t_kill
+    killed.set()
+    deadline = time.perf_counter() + 60
+    time.sleep(2.0)
+    while done[1] < 2 * CLUSTER_DRILL_READERS \
+            and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    stop.set()
+    for t in ts:
+        t.join()
+    log(f"  SIGKILL node 2 under {CLUSTER_DRILL_READERS} readers (the "
+        f"process gone {kill_s:.2f} s after the signal): {done[0]} reads "
+        f"answered before, {done[1]} after (max "
+        f"{max(after_ms, default=0):.1f} ms), {len(failed)} failed")
+    if failed or done[1] < 2 * CLUSTER_DRILL_READERS:
+        raise AssertionError(f"reads around the kill: {done[1]} answered "
+                             f"after it, failed {failed[:3]}")
+    shard = next(s for s in range(n_shards)
+                 if {i for i in owned if s in owned[i]} ==
+                 {nodes.ids[0], nodes.ids[2]})
+    col = shard * SHARD_WIDTH + 9
+    try:
+        _http(ports[0], "POST", "/index/d/query", f"Set({col}, w=1)".encode())
+        raise AssertionError("a Set with a dead replica was acknowledged")
+    except AssertionError as e:
+        if "replica write failed" not in str(e):
+            raise
+    held = _http(ports[0], "POST",
+                 f"/index/d/query?remote=true&shards={shard}",
+                 b"Row(w=1)")["results"][0]["columns"]
+    if col in held:
+        raise AssertionError("the refused Set is on the live owner")
+    log(f"  Set({col}, w=1) into shard {shard} (owners node0, node2) "
+        "refused: replica write failed; the live owner does not hold it")
+    t0 = time.perf_counter()
+    nodes.start(2)
+    restart_s = nodes.wait_ready(2, t0)
+    s = _check_reads(ports[2], reads, "node 2 after its restart")
+    _read_back(nodes, w_rows, owned, [2])
+    log(f"  node 2 restarted on its data dir in {restart_s:.1f} s; "
+        f"{len(reads)} reads through it in {s:.1f} s and its share of "
+        "every acknowledged write exact")
+    return {"reads_before_kill": done[0], "reads_after_kill": done[1],
+            "failed_reads": len(failed), "kill_s": kill_s,
+            "after_kill_max_ms": max(after_ms), "restart_s": restart_s,
+            "refused_shard": shard}
+
+
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
                  clients: int, per_client: int, profile: bool,
                  bsi: tuple, topn: tuple, hybrid: tuple, ingest: tuple,
@@ -4907,6 +5750,11 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                 out["keyed"] = keyed_phase(srv, port, n_shards, seed,
                                            out["typed"].pop("data"))
                 delete_typed(srv, out["typed"]["stats"])
+                log(f"phase 5g: the cluster, {CLUSTER_NODES} port node "
+                    f"processes over {CLUSTER_SHARDS} shards, replicas 2 "
+                    f"(device memory free {torch.cuda.mem_get_info()[0]} "
+                    "bytes)")
+                out["cluster"] = cluster_phase(seed)
             log("phase 6: write path (coalesced Set/Clear) on the same "
                 "server, under concurrent reads")
             out["ingest"] = ingest_phase(srv, port, p, exists_all, s_rows,
@@ -5017,18 +5865,20 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=8)
     ap.add_argument("--slab-rows", type=int, default=32)
     ap.add_argument("--k", type=int, default=1024)
-    # timed runs a kernel measurement: 4 since phase 5f joined the run (6
-    # since 5e, 10 before), to keep the whole run inside its time limit
-    ap.add_argument("--runs", type=int, default=4)
+    # timed runs a kernel measurement: 3 since phase 5g joined the run (4
+    # since 5f, 6 since 5e, 10 before), to keep the whole run inside its
+    # time limit
+    ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--clients", type=int, default=32)
-    # the Count pass: 16 a client since phase 5f joined the run (32 since
-    # 5e, 64 before)
-    ap.add_argument("--per-client", type=int, default=16)
+    # the Count pass: 8 a client since phase 5g joined the run (16 since
+    # 5f, 32 since 5e, 64 before)
+    ap.add_argument("--per-client", type=int, default=8)
     ap.add_argument("--bsi-per-shard", type=int, default=32768,
                     help="int values per shard of the BSI phase")
     ap.add_argument("--bsi-clients", type=int, default=32)
-    # the BSI pass: 8 a client since phase 5f joined the run (16 before)
-    ap.add_argument("--bsi-per-client", type=int, default=8)
+    # the BSI pass: 4 a client since phase 5g joined the run (8 since 5f,
+    # 16 before)
+    ap.add_argument("--bsi-per-client", type=int, default=4)
     ap.add_argument("--profile", action="store_true",
                     help="after the measured pass, run one more under "
                          "torch.profiler and print the device's idle share")
@@ -5053,6 +5903,9 @@ def main(argv=None) -> int:
     ap.add_argument("--keyed-only", action="store_true",
                     help="run phase 1, phase 5e's loads and phase 5f alone "
                          "and print their numbers")
+    ap.add_argument("--cluster-only", action="store_true",
+                    help="run phases 1 and 5g alone and print their "
+                         "numbers")
     ap.add_argument("--kernel-times", action="store_true",
                     help="time program_count, intersect_count and "
                          "sparse_intersect_dense alone (no server) and "
@@ -5095,6 +5948,14 @@ def main(argv=None) -> int:
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         print(smi_name)
         print(json.dumps({"typed": measured}), flush=True)
+        return 0
+    if args.cluster_only:
+        log(f"phase 5g: the cluster, {CLUSTER_NODES} port node processes "
+            f"over {CLUSTER_SHARDS} shards, replicas 2")
+        measured = cluster_phase(args.seed)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        print(smi_name)
+        print(json.dumps({"cluster": measured}), flush=True)
         return 0
     if args.keyed_only:
         measured = keyed_only(device, args.seed)
@@ -5164,7 +6025,8 @@ def main(argv=None) -> int:
     paths = {"count": served, "bsi": served["bsi"], "topn": served["topn"],
              "hybrid": served["hybrid"], "planner": served["planner"],
              "frozen": served["frozen"], "typed": served["typed"],
-             "keyed": served["keyed"], "ingest": served["ingest"]}
+             "keyed": served["keyed"], "cluster": served["cluster"],
+             "ingest": served["ingest"]}
     for name, m in measured.items():
         # launches on every path of the main run (each path zeroes the
         # counts before its first query and reads them after its last)

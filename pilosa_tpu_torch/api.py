@@ -15,6 +15,18 @@ list), int, bool and null (the attribute writes). columnAttrs=true adds
 "columnAttrSets" (:543-559); excludeRowAttrs and excludeColumns empty
 every Row result's attributes or columns (:305-314).
 
+In a cluster (api.py:181, :439-541, :746-880, :953-1087): index and field
+creation and deletion are broadcast to every node; a query that is not a
+fan-out sub-request (remote=False) is distributed by the executor;
+query_batch answers a coordinator's /internal/query-batch envelope,
+running its entries concurrently on the executor's inbound pool (so this
+node's CountBatcher and PlaneSumBatcher coalesce them) and refusing a
+write entry by entry; an import is split by shard and forwarded to every
+owner with remote=true (forward_import_fn, forward_roaring_fn), this node
+importing only what it owns; the internal reads (hosts, max_shards,
+shard_nodes, translate_keys, translate_data) back the /internal/* routes.
+Without a cluster, or with one node, the API is the single node's.
+
 Per-request profiling (api.py:109-125, :270-360): a query gets a
 QueryProfile when the request asks (?profile=true) or while
 long_query_time > 0; such a query also gets a trace id for the whole
@@ -26,9 +38,12 @@ explain() answers ?explain=true (:399-440).
 
 from __future__ import annotations
 
+import contextvars
 import csv
+import dataclasses
 import io
 import os
+import threading
 import time
 import uuid
 from datetime import datetime, timezone
@@ -54,7 +69,7 @@ from pilosa_tpu_torch.pql import parse_string_cached
 from pilosa_tpu_torch.pql.ast import WRITE_CALLS
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
 from pilosa_tpu_torch.utils import profile as qprofile
-from pilosa_tpu_torch.utils import tracing
+from pilosa_tpu_torch.utils import qctx, tracing
 from pilosa_tpu_torch.utils.translate import TranslateStore
 
 
@@ -114,15 +129,25 @@ class ConflictError(ApiError):
 
 class API:
     def __init__(self, holder: Holder, executor: Executor,
-                 translate_store: Optional[TranslateStore] = None):
+                 translate_store: Optional[TranslateStore] = None,
+                 cluster=None):
         self.holder = holder
         self.executor = executor
-        # string keys (utils/translate.py); an in-memory store unless the
-        # server gives its own
+        # string keys (utils/translate.py, or a server's ClusterTranslator);
+        # an in-memory store unless the server gives its own
         self.translate = translate_store or TranslateStore().open()
         if executor.translator is None:
             executor.translator = self.translate
-        self.node_id = str(uuid.uuid4())
+        # the cluster (parallel/cluster.py), or None for a single node;
+        # the server sets the hooks below
+        self.cluster = cluster
+        self.broadcast_fn = None  # fn(message): every other node
+        self.forward_import_fn = None  # fn(uri, index, field, payload)
+        # fn(uri, index, field, shard, views, clear)
+        self.forward_roaring_fn = None
+        self.probe_peer_fn = None  # fn(uri) -> bool: its /status answers
+        self.node_id = cluster.local_id if cluster is not None \
+            else str(uuid.uuid4())
         self.uri = ""  # set by Server once the listener is bound
         self.start_time = time.monotonic()
         # slow-query threshold in seconds (0: off), and the ring of the
@@ -132,17 +157,30 @@ class API:
 
     # -- queries ------------------------------------------------------------
 
+    def _broadcast(self, msg: dict) -> None:
+        if self.broadcast_fn is not None:
+            self.broadcast_fn(msg)
+
+    def _clustered(self) -> bool:
+        return self.cluster is not None and len(self.cluster.nodes) > 1
+
     def query_results(self, index_name: str, pql: str,
                       shards: Optional[list[int]] = None,
                       profile: bool = False,
                       exclude_row_attrs: bool = False,
-                      exclude_columns: bool = False) -> list:
+                      exclude_columns: bool = False,
+                      remote: bool = False) -> list:
         """Execute PQL and return the raw results (the JSON and protobuf
         writers both read them); the query's profile, when it had one, is
         published in qprofile.last_profile. The exclude flags empty every
-        Row result's attributes or columns."""
+        Row result's attributes or columns; remote=True marks a fan-out
+        sub-request (run here on the given shards, results as ids). A
+        query whose deadline has already passed is refused here."""
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
+        rem = qctx.remaining()
+        if rem is not None and rem <= 0:
+            raise qctx.QueryTimeoutError("query deadline exceeded")
         slow_armed = self.long_query_time > 0
         profiling = profile or slow_armed
         trace_tok = None
@@ -163,7 +201,8 @@ class API:
             # Set/Clear envelopes take the linear scanner: their unique
             # columns would only churn the parse cache
             query = parse_mutations_fast(pql) or parse_string_cached(pql)
-            results = self.executor.execute(index_name, query, shards=shards)
+            results = self.executor.execute(index_name, query, shards=shards,
+                                            remote=remote)
             if exclude_row_attrs or exclude_columns:
                 for r in results:
                     if isinstance(r, Row):
@@ -180,7 +219,7 @@ class API:
                 qprofile.current_profile.reset(prof_tok)
             if prof is not None:
                 prof.finish()
-                if results is not None:
+                if results is not None and not remote:
                     # each plan node's estimate beside its call's result
                     planner.record_calibration(prof, query.calls, results)
             qprofile.last_profile.set(prof)
@@ -200,14 +239,15 @@ class API:
               shards: Optional[list[int]] = None,
               profile: bool = False, column_attrs: bool = False,
               exclude_row_attrs: bool = False,
-              exclude_columns: bool = False) -> dict:
+              exclude_columns: bool = False, remote: bool = False) -> dict:
         """POST /index/{index}/query; `profile` adds the query's profile
         tree under "profile", `column_attrs` the attribute sets of the Row
         results' columns under "columnAttrSets"."""
         results = self.query_results(index_name, pql, shards=shards,
                                      profile=profile,
                                      exclude_row_attrs=exclude_row_attrs,
-                                     exclude_columns=exclude_columns)
+                                     exclude_columns=exclude_columns,
+                                     remote=remote)
         index = self.holder.index(index_name)
         out = {"results": [self._result_to_json(index, r) for r in results]}
         if column_attrs:
@@ -218,6 +258,61 @@ class API:
             if prof is not None:
                 out["profile"] = prof.to_dict()
         return out
+
+    def query_batch(self, entries: list) -> list:
+        """A coordinator's coalesced envelope (POST /internal/query-batch,
+        api.py:439-541): one (results, err[, profile]) per entry, in
+        order. Entries run through query_results, concurrently on the
+        executor's inbound pool, each under its own deadline and trace
+        id. A write entry is refused on its own: an envelope is re-sent on
+        a stale keep-alive, so it may carry reads only."""
+
+        def one(e: dict) -> tuple:
+            dl_token = tr_token = None
+            try:
+                timeout = e.get("timeout")
+                if timeout is not None:
+                    entry_dl = time.monotonic() + float(timeout)
+                    cur = qctx.deadline.get()
+                    dl_token = qctx.deadline.set(
+                        entry_dl if cur is None else min(entry_dl, cur))
+                if e.get("traceId"):
+                    tr_token = tracing.current_trace_id.set(
+                        str(e["traceId"]))
+                pql = e.get("query", "")
+                for c in parse_string_cached(pql).calls:
+                    inner = (c.children[0]
+                             if c.name == "Options" and c.children else c)
+                    if inner.name in WRITE_CALLS:
+                        return (None, f"{inner.name}() cannot ride a "
+                                      "coalesced query batch (not "
+                                      "idempotent)")
+                want_prof = bool(e.get("profile"))
+                results = self.query_results(
+                    e.get("index", ""), pql, shards=e.get("shards"),
+                    remote=bool(e.get("remote", True)), profile=want_prof)
+                prof = qprofile.last_profile.get() if want_prof else None
+                return (results, "",
+                        prof.to_dict() if prof is not None else None)
+            except qctx.QueryTimeoutError as exc:
+                return (None, str(exc) or "query deadline exceeded")
+            except (ApiError, ValueError) as exc:
+                return (None, str(exc))
+            except Exception as exc:  # noqa: BLE001 — per-entry isolation
+                return (None, f"{type(exc).__name__}: {exc}")
+            finally:
+                if dl_token is not None:
+                    qctx.deadline.reset(dl_token)
+                if tr_token is not None:
+                    tracing.current_trace_id.reset(tr_token)
+
+        if len(entries) <= 1:
+            return [one(e) for e in entries]
+        # copied contexts: the request's trace id and deadline follow
+        pool = self.executor.batch_exec_pool
+        futs = [pool.submit(contextvars.copy_context().run, one, e)
+                for e in entries]
+        return [f.result() for f in futs]
 
     def explain(self, index_name: str, pql: str,
                 shards: Optional[list[int]] = None) -> dict:
@@ -311,10 +406,13 @@ class API:
         if self.holder.index(name) is not None:
             raise ConflictError(f"index already exists: {name}")
         try:
-            return self.holder.create_index(name, keys=keys,
-                                            track_existence=track_existence)
+            idx = self.holder.create_index(name, keys=keys,
+                                           track_existence=track_existence)
         except ValueError as e:
             raise ApiError(str(e))
+        self._broadcast({"type": "create-index", "index": name, "keys": keys,
+                         "trackExistence": track_existence})
+        return idx
 
     def delete_index(self, name: str) -> None:
         try:
@@ -322,6 +420,7 @@ class API:
         except KeyError as e:
             raise NotFoundError(str(e.args[0]))
         self.executor.clear_caches()
+        self._broadcast({"type": "delete-index", "index": name})
 
     def create_field(self, index_name: str, field_name: str,
                      options: Optional[FieldOptions] = None):
@@ -331,9 +430,13 @@ class API:
         if index.field(field_name) is not None:
             raise ConflictError(f"field already exists: {field_name}")
         try:
-            return index.create_field(field_name, options)
+            f = index.create_field(field_name, options)
         except ValueError as e:
             raise ApiError(str(e))
+        self._broadcast({"type": "create-field", "index": index_name,
+                         "field": field_name,
+                         "options": dataclasses.asdict(f.options)})
+        return f
 
     def delete_field(self, index_name: str, field_name: str) -> None:
         """DELETE /index/{i}/field/{f} (api.py:648): the field's files go,
@@ -347,6 +450,8 @@ class API:
         except KeyError as e:
             raise NotFoundError(str(e))
         self.executor.drop_field(index_name, field_name)
+        self._broadcast({"type": "delete-field", "index": index_name,
+                         "field": field_name})
 
     def schema(self) -> dict:
         return {"indexes": self.holder.schema()}
@@ -362,16 +467,101 @@ class API:
 
     # -- imports ------------------------------------------------------------
 
+    @staticmethod
+    def _forward(sends: list):
+        """Start each (uri, send) on a thread of its own, in a copy of this
+        context (the trace id and deadline go along); the returned wait()
+        joins them and raises the first failure as a 502. The owners take
+        their parts at once, while this node imports its own (api.py
+        forwards one owner after another)."""
+        errors: list = []
+
+        def run(uri, send):
+            try:
+                send()
+            except Exception as e:  # noqa: BLE001 — a 502, not a 500
+                errors.append((uri, e))
+
+        threads = [threading.Thread(target=contextvars.copy_context().run,
+                                    args=(run, uri, send), daemon=True)
+                   for uri, send in sends]
+        for t in threads:
+            t.start()
+
+        def wait() -> None:
+            for t in threads:
+                t.join()
+            if errors:
+                uri, e = errors[0]
+                raise ApiError(f"forwarding import to {uri}: {e}",
+                               status=502)
+
+        return wait
+
+    def _route_import(self, index_name: str, field_name: str,
+                      cols: np.ndarray, payload) -> tuple:
+        """Split an import by shard and send each owner its part with
+        remote=true (api.py:757-818): payload(sel) builds the body of the
+        positions `sel`. -> (the positions this node owns, or None when
+        it owns them all; wait(), to call after this node's import, which
+        raises a failed send and marks the shards only other nodes own
+        available here, quietly: their owners announce them)."""
+        if self.forward_import_fn is None or not self._clustered():
+            return None, lambda: None
+        shards = cols // SHARD_WIDTH
+        uniq, inverse = np.unique(shards, return_inverse=True)
+        local_id = self.cluster.local_id
+        by_node: dict[str, list] = {}
+        local_sh = np.zeros(uniq.size, dtype=bool)
+        remote_only = []
+        for j, shard in enumerate(uniq.tolist()):
+            owners = self._live_shard_owners(index_name, shard)
+            for n in owners:
+                if n.id == local_id:
+                    local_sh[j] = True
+                else:
+                    by_node.setdefault(n.id, [n.uri, []])[1].append(j)
+            if not any(n.id == local_id for n in owners):
+                remote_only.append(shard)
+        sends = []
+        for uri, js in by_node.values():
+            mask = np.zeros(uniq.size, dtype=bool)
+            mask[js] = True
+            body = payload(np.nonzero(mask[inverse])[0])
+            sends.append((uri, lambda uri=uri, body=body:
+                          self.forward_import_fn(uri, index_name,
+                                                 field_name, body)))
+        sent = self._forward(sends)
+
+        def wait() -> None:
+            sent()
+            if remote_only:
+                f = self.holder.index(index_name).field(field_name)
+                f.add_available_shards(remote_only, quiet=True)
+
+        return np.nonzero(local_sh[inverse])[0], wait
+
+    def _live_shard_owners(self, index_name: str, shard: int) -> list:
+        """A shard's owners that are not marked down; none is a 503 (an
+        acknowledged import must land somewhere, api.py:746)."""
+        owners = self.cluster.shard_nodes(index_name, shard)
+        live = [n for n in owners if not self.cluster.is_down(n.id)]
+        if owners and not live:
+            raise ApiError(f"all replicas down for shard {shard}",
+                           status=503)
+        return live
+
     def import_bits(self, index_name: str, field_name: str,
                     row_ids=None, column_ids=None, clear: bool = False,
                     timestamps=None, row_keys=None,
-                    column_keys=None) -> None:
+                    column_keys=None, remote: bool = False) -> None:
         """Bulk import of (row, column) bits; marks the columns in the
         existence field unless clearing. `timestamps` (one per bit, as
         import_timestamps reads them) place a time field's bits in their
         quantum's views; other field types ignore them. Row and column
         keys, where given, are minted or looked up first (rows first, as
-        api.py:688-691) and take the ids' place."""
+        api.py:688-691) and take the ids' place. In a cluster each
+        shard's bits go to its owners (remote=True: this node's part)."""
         index, f = self._field(index_name, field_name)
         if row_keys:
             row_ids = self.translate.translate_rows(index_name, field_name,
@@ -381,51 +571,120 @@ class API:
                                                           list(column_keys))
         if row_ids is None or column_ids is None:
             raise ApiError("import requires rows and columns")
+        if (row_keys or column_keys) and None in (
+                *(row_ids if row_keys else ()),
+                *(column_ids if column_keys else ())):
+            raise ApiError("translating import keys: no id from the "
+                           "translation primary", status=503)
         rows = np.asarray(row_ids, dtype=np.int64).reshape(-1)
         cols = np.asarray(column_ids, dtype=np.int64).reshape(-1)
         if rows.shape != cols.shape:
             raise ApiError("row/column length mismatch")
         if rows.size and (rows.min() < 0 or cols.min() < 0):
             raise ApiError("row and column ids must be non-negative")
-        ts = import_timestamps(timestamps) if timestamps else None
+        keep = wait = None
+        if not remote:
+            def payload(sel):
+                body = {"rowIDs": rows[sel].tolist(),
+                        "columnIDs": cols[sel].tolist(), "remote": True}
+                if timestamps:
+                    body["timestamps"] = [timestamps[i] for i in sel]
+                if clear:
+                    body["clear"] = True
+                return body
+
+            keep, wait = self._route_import(index_name, field_name, cols,
+                                            payload)
+            if keep is not None:
+                rows, cols = rows[keep], cols[keep]
+                if timestamps:
+                    timestamps = [timestamps[i] for i in keep]
         try:
-            f.import_bits(rows, cols, ts, clear=clear)
-        except ValueError as e:
-            raise ApiError(str(e))
-        if not clear:
-            # clears do not retract existence: other fields may still
-            # hold the column
-            index.mark_exists(cols)
+            if keep is None or cols.size:  # routed: only this node's part
+                ts = import_timestamps(timestamps) if timestamps else None
+                try:
+                    f.import_bits(rows, cols, ts, clear=clear)
+                except ValueError as e:
+                    raise ApiError(str(e))
+                if not clear:
+                    # clears do not retract existence: other fields may
+                    # still hold the column
+                    index.mark_exists(cols)
+        finally:
+            if wait is not None:
+                wait()
 
     def import_values(self, index_name: str, field_name: str,
                       column_ids=None, values=None,
-                      column_keys=None) -> None:
+                      column_keys=None, remote: bool = False) -> None:
         """Bulk import of int values (the last value of a column wins);
         marks the columns in the existence field. Column keys, where
-        given, take the ids' place."""
+        given, take the ids' place; in a cluster each shard's values go
+        to its owners."""
         index, f = self._field(index_name, field_name)
         if column_keys:
             column_ids = self.translate.translate_columns(index_name,
                                                           list(column_keys))
         if column_ids is None or values is None:
             raise ApiError("import requires columns and values")
+        if column_keys and None in column_ids:
+            raise ApiError("translating import keys: no id from the "
+                           "translation primary", status=503)
         cols = np.asarray(column_ids, dtype=np.int64).reshape(-1)
         if cols.size and cols.min() < 0:
             raise ApiError("column ids must be non-negative")
+        keep = wait = None
+        if not remote:
+            vals = np.asarray(values, dtype=np.int64).reshape(-1)
+            keep, wait = self._route_import(
+                index_name, field_name, cols,
+                lambda sel: {"columnIDs": cols[sel].tolist(),
+                             "values": vals[sel].tolist(), "remote": True})
+            if keep is not None:
+                cols, values = cols[keep], vals[keep]
         try:
-            f.import_values(cols, values)
-        except ValueError as e:
-            raise ApiError(str(e))
-        index.mark_exists(cols)
+            if keep is None or cols.size:  # routed: only this node's part
+                try:
+                    f.import_values(cols, values)
+                except ValueError as e:
+                    raise ApiError(str(e))
+                index.mark_exists(cols)
+        finally:
+            if wait is not None:
+                wait()
 
     def import_roaring(self, index_name: str, field_name: str, shard: int,
-                       views: dict, clear: bool = False) -> None:
+                       views: dict, clear: bool = False,
+                       remote: bool = False) -> None:
         """POST /index/{i}/field/{f}/import-roaring/{shard} (:844-880):
         one serialized roaring bitmap of shard-local positions per view
         ("" is the standard view), unioned into (or cleared from) that
         view's fragment of the shard. Existence is not marked, as in the
-        JAX package."""
+        JAX package. In a cluster the bitmaps go to every owner of the
+        shard, and this node imports them only if it owns it."""
         _, f = self._field(index_name, field_name)
+        if (not remote and self.forward_roaring_fn is not None
+                and self._clustered()):
+            owners = self._live_shard_owners(index_name, shard)
+            wait = self._forward([
+                (n.uri, lambda uri=n.uri: self.forward_roaring_fn(
+                    uri, index_name, field_name, shard, views, clear))
+                for n in owners if n.id != self.cluster.local_id])
+            try:
+                if any(n.id == self.cluster.local_id for n in owners):
+                    self._import_roaring_local(f, shard, views, clear)
+            finally:
+                wait()
+            if not any(n.id == self.cluster.local_id for n in owners):
+                f.add_available_shards([shard], quiet=True)
+            return
+        self._import_roaring_local(f, shard, views, clear)
+
+    @staticmethod
+    def _import_roaring_local(f, shard: int, views: dict,
+                              clear: bool) -> None:
+        """The views' bitmaps unioned into (or cleared from) this node's
+        fragments of the shard."""
         for vname, data in views.items():
             view = f.create_view_if_not_exists(vname or VIEW_STANDARD)
             frag = view.create_fragment_if_not_exists(shard)
@@ -465,6 +724,54 @@ class API:
 
     # -- status -------------------------------------------------------------
 
+    # -- the cluster's internal reads ---------------------------------------
+
+    def hosts(self) -> list:
+        """GET /internal/nodes."""
+        if self.cluster is None:
+            return [{"id": self.node_id, "uri": self.uri,
+                     "isCoordinator": True}]
+        return [n.to_dict() for n in self.cluster.nodes]
+
+    def probe_peer(self, target_uri: str) -> bool:
+        """GET /internal/probe: whether target_uri answers /status."""
+        if self.probe_peer_fn is None:
+            return False
+        try:
+            return bool(self.probe_peer_fn(target_uri))
+        except Exception:  # noqa: BLE001 — any failure: not alive
+            return False
+
+    def max_shards(self) -> dict:
+        """GET /internal/shards/max: each index's highest shard."""
+        return {name: max(idx.available_shards_list())
+                for name, idx in self.holder.indexes.items()}
+
+    def shard_nodes(self, index_name: str, shard: int) -> list:
+        """GET /internal/fragment/nodes: the shard's owners."""
+        if self.cluster is None:
+            return self.hosts()
+        return [n.to_dict()
+                for n in self.cluster.shard_nodes(index_name, shard)]
+
+    def delete_remote_available_shard(self, index_name: str,
+                                      field_name: str, shard: int) -> None:
+        _, f = self._field(index_name, field_name)
+        f.remove_available_shard(shard)
+
+    def translate_keys(self, index_name: str, field_name: Optional[str],
+                       keys: list, create: bool = True) -> list:
+        """POST /internal/translate/keys (the primary answers)."""
+        if field_name:
+            return self.translate.translate_rows(index_name, field_name,
+                                                 keys, create=create)
+        return self.translate.translate_columns(index_name, keys,
+                                                create=create)
+
+    def translate_data(self, offset: int = 0) -> bytes:
+        """GET /internal/translate/data: the key log from `offset`."""
+        return self.translate.log_bytes(offset)
+
     def info(self) -> dict:
         """GET /info (api.py:943): one node of one device."""
         return {"shardWidth": SHARD_WIDTH, "cpuPhysicalCores": os.cpu_count(),
@@ -475,11 +782,12 @@ class API:
 
     def status(self) -> dict:
         dev = self.executor.runner.device
-        return {"state": "NORMAL",
-                "nodes": [{"id": self.node_id, "uri": self.uri,
-                           "isCoordinator": True}],
+        c = self.cluster
+        return {"state": c.state if c is not None else "NORMAL",
+                "nodes": self.hosts(),
                 "localID": self.node_id,
-                "coordinatorID": self.node_id,
+                "coordinatorID": (c.coordinator_id if c is not None
+                                  else self.node_id),
                 "uptimeSeconds": int(time.monotonic() - self.start_time),
                 "version": __version__,
                 "device": str(dev)}

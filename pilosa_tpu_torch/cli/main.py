@@ -1,0 +1,95 @@
+"""`python -m pilosa_tpu_torch.cli server --config <toml> [--data-dir DIR]
+[--bind HOST:PORT]`: run one node of the port.
+
+Trimmed port of pilosa_tpu/cli/main.py (cmd_server, :127-276): the
+configuration is the JAX package's TOML and PILOSA_TPU_* environment
+(cli/config.py), --data-dir and --bind win over both. The node runs on
+the card unless [mesh] platform = "cpu"; on the card the kernel library
+is built (or loaded) before the node listens, so a build failure stops
+the start and no query pays for it. SIGTERM or SIGINT closes the node
+(the JAX server drains first; drain is not ported yet).
+
+The JAX CLI's other subcommands (import, export, inspect, check, config,
+generate-config, advise, timeline, profile-capture) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+import threading
+
+from pilosa_tpu_torch import __version__
+from pilosa_tpu_torch.cli.config import load_config
+from pilosa_tpu_torch.net.uri import URI
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="pilosa-tpu-torch",
+                                description="the PyTorch/CUDA bitmap index")
+    p.add_argument("--version", action="version", version=__version__)
+    sub = p.add_subparsers(dest="command", required=True)
+    sp = sub.add_parser("server", help="run a node")
+    sp.add_argument("--config", help="TOML config file")
+    sp.add_argument("--data-dir", help="data directory")
+    sp.add_argument("--bind", help="host:port to listen on")
+    return p
+
+
+def cmd_server(args) -> int:
+    try:
+        cfg = load_config(args.config)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"error: loading config: {e}")
+    if args.data_dir:
+        cfg.values[""]["data_dir"] = args.data_dir
+    if args.bind:
+        cfg.values[""]["bind"] = args.bind
+    from pilosa_tpu_torch.server import Server
+
+    device = cfg.device
+    if device == "cuda":
+        from pilosa_tpu_torch.ops import _build
+        _build.load()
+    c, q = cfg.values["cluster"], cfg.values["query"]
+    data_dir = os.path.expanduser(cfg.get("", "data_dir"))
+    server = Server(
+        data_dir, host=cfg.host, port=cfg.port, device=device,
+        cluster_hosts=(None if c["disabled"] else
+                       [URI.parse(h).normalize() for h in c["hosts"]]),
+        replica_n=c["replicas"],
+        membership_interval=c["membership_interval"],
+        query_timeout=c["query_timeout"],
+        long_query_time=c["long_query_time"],
+        fanout_pool_size=c["fanout_pool_size"],
+        fanout_coalesce_window=c["fanout_coalesce_window"],
+        fanout_coalesce_max_batch=c["fanout_coalesce_max_batch"],
+        hedge_delay=c["hedge_delay"],
+        ici_serving=c["ici_serving"],
+        plan=q["plan"], plan_cache_bytes=q["plan_cache_bytes"],
+        sparse_threshold=q["sparse_threshold"],
+        run_threshold=q["run_threshold"],
+        eviction=cfg.get("storage", "eviction"),
+        telemetry_interval=cfg.get("metric", "telemetry_interval")).open()
+    print(f"pilosa-tpu-torch {__version__} serving at {server.uri} "
+          f"(data: {data_dir}, node: {server.node_id}, device: "
+          f"{server.executor.runner.device})", flush=True)
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        stop.wait()
+    finally:
+        server.close()
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return {"server": cmd_server}[args.command](args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

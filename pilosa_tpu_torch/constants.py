@@ -27,6 +27,10 @@ MAX_OP_N = 2000
 # Field option default.
 DEFAULT_CACHE_SIZE = 50000
 
+# Shard placement: partitions a cluster hashes (index, shard) into
+# (pilosa_tpu/constants.py:34; parallel/placement.py).
+DEFAULT_PARTITION_N = 256
+
 # Name of the per-index existence field.
 EXISTENCE_FIELD_NAME = "_exists"
 

@@ -19,12 +19,20 @@ written and reads back as the default: an empty key string decodes as
 
 Covered: QueryRequest, QueryResponse, QueryResult (Row, Pair, ValCount,
 RowIdentifiers, GroupCount, FieldRow), ColumnAttrSet, Attr,
-ImportRequest, ImportValueRequest and ImportRoaringRequest. The cluster's
-messages (QueryBatch*, TranslateKeys*) wait for the port's cluster.
+ImportRequest, ImportValueRequest and ImportRoaringRequest, and the
+cluster's internal messages: TranslateKeysRequest and
+TranslateKeysResponse, and the coalesced fan-out envelope of
+POST /internal/query-batch (:218-295), which is the JAX package's JSON
+({"queries": [...]} out, {"responses": [base64 QueryResponse, ...]}
+back) so that a port node and a JAX node serve each other's fan-out.
+QueryBatchEntry, QueryBatchRequest and QueryBatchResponse are described
+below as pilosa.proto declares them; the envelope on the wire is the
+JSON.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import math
 import struct
@@ -112,6 +120,17 @@ IMPORT_VALUE_REQUEST = {1: ("Index", "string", False),
 IMPORT_ROARING_VIEW = {1: ("Name", "string", False), 2: ("Data", "bytes", False)}
 IMPORT_ROARING_REQUEST = {1: ("Clear", "bool", False),
                           2: ("views", IMPORT_ROARING_VIEW, True)}
+TRANSLATE_KEYS_REQUEST = {1: ("Index", "string", False),
+                          2: ("Field", "string", False),
+                          3: ("Keys", "string", True)}
+TRANSLATE_KEYS_RESPONSE = {3: ("IDs", "uint64", True)}
+QUERY_BATCH_ENTRY = {1: ("Index", "string", False),
+                     2: ("Query", "string", False),
+                     3: ("Shards", "uint64", True),
+                     4: ("Remote", "bool", False),
+                     5: ("Timeout", "double", False)}
+QUERY_BATCH_REQUEST = {1: ("Queries", QUERY_BATCH_ENTRY, True)}
+QUERY_BATCH_RESPONSE = {1: ("Responses", QUERY_RESPONSE, True)}
 
 
 # -- varints -----------------------------------------------------------------
@@ -567,3 +586,74 @@ class Serializer:
         m = decode(IMPORT_ROARING_REQUEST, data)
         return {"clear": m["Clear"],
                 "views": {v["Name"]: v["Data"] for v in m["views"]}}
+
+    # -- the coalesced fan-out envelope (net/coalesce.py) --------------------
+    # JSON with one base64 QueryResponse per entry: each entry's results
+    # go through the same codec as the per-query path, and an entry's
+    # error rides its QueryResponse.Err; only a malformed envelope fails
+    # whole.
+
+    def encode_query_batch_request(self, entries: list) -> bytes:
+        out = []
+        for e in entries:
+            entry = {"index": e["index"], "query": e["query"],
+                     "remote": bool(e.get("remote", True))}
+            if e.get("shards") is not None:
+                entry["shards"] = [int(s) for s in e["shards"]]
+            if e.get("timeout") is not None:
+                entry["timeout"] = float(e["timeout"])
+            if e.get("traceId"):
+                entry["traceId"] = str(e["traceId"])
+            if e.get("profile"):
+                entry["profile"] = True
+            out.append(entry)
+        return json.dumps({"queries": out}).encode()
+
+    def decode_query_batch_request(self, data: bytes) -> list:
+        try:
+            body = json.loads(data)
+        except (ValueError, UnicodeDecodeError) as e:
+            raise ValueError(f"invalid query-batch body: {e}")
+        queries = body.get("queries") if isinstance(body, dict) else None
+        if not isinstance(queries, list):
+            raise ValueError("query-batch body must carry a 'queries' list")
+        return queries
+
+    def encode_query_batch_response(self, results_or_errs: list) -> bytes:
+        """One (results, err) or (results, err, profile) tuple per entry;
+        results may be None when err is set."""
+        resps = []
+        for item in results_or_errs:
+            results, err, *rest = item
+            profile = rest[0] if rest else None
+            resps.append(base64.b64encode(self.encode_query_response(
+                results or [], err=err, profile=profile)).decode())
+        return json.dumps({"responses": resps}).encode()
+
+    def decode_query_batch_response_raw(self, data: bytes) -> list:
+        """Each entry's serialized QueryResponse, undecoded: the coalescer
+        decodes per waiter."""
+        body = json.loads(data)
+        return [base64.b64decode(b) for b in body.get("responses", [])]
+
+    def decode_query_batch_response(self, data: bytes) -> list:
+        return [self.decode_query_response(raw)
+                for raw in self.decode_query_batch_response_raw(data)]
+
+    # -- key translation -----------------------------------------------------
+
+    def encode_translate_keys_request(self, index: str, field: Optional[str],
+                                      keys: list) -> bytes:
+        return encode(TRANSLATE_KEYS_REQUEST, {
+            "Index": index, "Field": field or "", "Keys": list(keys)})
+
+    def decode_translate_keys_request(self, data: bytes) -> dict:
+        m = decode(TRANSLATE_KEYS_REQUEST, data)
+        return {"index": m["Index"], "field": m["Field"] or None,
+                "keys": list(m["Keys"])}
+
+    def encode_translate_keys_response(self, ids: list) -> bytes:
+        return encode(TRANSLATE_KEYS_RESPONSE, {"IDs": list(ids)})
+
+    def decode_translate_keys_response(self, data: bytes) -> list:
+        return decode(TRANSLATE_KEYS_RESPONSE, data)["IDs"].tolist()

@@ -113,18 +113,49 @@ index's AttrStore; a top-level Row() result carries its row's attributes
 (:1476-1480), and TopN's attrName/attrValues keep only the candidates
 whose attribute is one of the values (:1860-1892).
 
-Left out: the cluster (its distributed and remote ingest applies
-included). Calls and options outside the slice raise NotPortedError (a
-400 at the API).
+The cluster (executor.py:491-560, :2664-3156, :3266-3427, :3751-3822):
+with a Cluster and an InternalClient and more than one node, a query that
+is not itself a fan-out sub-request (remote=True) is distributed. Options
+is unwrapped first; a read is routed (_ici_route: on the port's one-device
+runner "auto" is always cross_slice, "on" runs a shard set this node holds
+every shard of here), grouped by each shard's first live owner, run on
+this node inline and on every other node through the fan-out pool, each
+node's batch coalesced into /internal/query-batch envelopes by the
+NodeCoalescer (net/coalesce.py), optionally hedged onto another replica
+after hedge_delay, and re-mapped shard by shard onto the next replica
+when a node fails. The partials reduce associatively (_reduce); TopN
+recounts its winners exactly on every owner (_recount_topn, ids= without
+n), and GroupBy's limit applies after the reduce. Writes go to every
+replica of the column's shard (Set, Clear, SetColumnAttrs), to every node
+(SetRowAttrs) or to every owner of the query's shards (Store, ClearRow),
+never coalesced or hedged, the remote replicas before this node; a
+replica that cannot be reached fails the write ("replica write failed"),
+and a Set that creates a shard announces it to every node before it is
+acknowledged. A coalesced Set/Clear batch sends each other replica one
+multi-call remote=true envelope, which the replica applies directly
+(_execute_ingest_remote), then applies here what no replica refused
+(_apply_ingest_distributed). Deadlines (utils/qctx.py) are checked between
+calls and node batches. The index's read fence is held only around this
+node's own share, never across an RPC, and a batch's apply fence only
+around its local apply. Without liveness probing no node is ever marked
+down, so nothing is written as a hint (_hint_write does nothing, as in a
+JAX executor without a HintStore).
+
+Calls and options outside the slice raise NotPortedError (a 400 at the
+API).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import heapq
 import os
 import threading
 import time
 from collections import OrderedDict
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 from datetime import datetime
 from typing import Optional
 
@@ -144,6 +175,8 @@ from pilosa_tpu_torch.models.field import INT, SET, NotPortedError
 from pilosa_tpu_torch.models.index import Index
 from pilosa_tpu_torch.models.row import Row
 from pilosa_tpu_torch.models.view import VIEW_BSI_PREFIX, VIEW_STANDARD
+from pilosa_tpu_torch.net.client import ClientError
+from pilosa_tpu_torch.net.coalesce import NodeCoalescer
 from pilosa_tpu_torch.ops import bsi
 from pilosa_tpu_torch.ops import hybrid as hy
 from pilosa_tpu_torch.ops import kernels
@@ -181,11 +214,12 @@ from pilosa_tpu_torch.pql.ast import (
     LT,
     LTE,
     NEQ,
+    WRITE_CALLS,
     Condition,
 )
 from pilosa_tpu_torch.utils import heat as _heat
 from pilosa_tpu_torch.utils import profile as qprofile
-from pilosa_tpu_torch.utils import telemetry
+from pilosa_tpu_torch.utils import qctx, telemetry
 from pilosa_tpu_torch.utils.stats import NopStatsClient
 from pilosa_tpu_torch.utils.tracing import NopTracer
 
@@ -209,6 +243,15 @@ GROUPBY_LIVE_CAP = 1 << 16
 
 class ExecutionError(ValueError):
     pass
+
+
+def _minted(id_: Optional[int], key: str, create: bool) -> Optional[int]:
+    """A translated key; a write's key left without an id (a cluster's
+    translation primary did not answer) fails the write."""
+    if id_ is None and create:
+        raise ExecutionError(f"translating key {key!r}: no id from the "
+                             "translation primary")
+    return id_
 
 
 class ValCount:
@@ -251,10 +294,48 @@ class GroupCounts(list):
 
 
 class Executor:
-    def __init__(self, holder, device="cuda", translator=None):
+    WRITE_CALLS = WRITE_CALLS
+    # route labels of distributed reads (the /metrics
+    # pilosa_iciServing_total{route=} keys)
+    ROUTE_SLICE_LOCAL = "slice_local"
+    ROUTE_CROSS_SLICE = "cross_slice"
+    ROUTE_FALLBACK = "fallback"
+
+    def __init__(self, holder, device="cuda", translator=None,
+                 cluster=None, client=None):
         self.holder = holder
-        # utils/translate.py TranslateStore (None: string keys raise)
+        # utils/translate.py TranslateStore, or a server's
+        # ClusterTranslator (None: string keys raise)
         self.translator = translator
+        # the cluster (parallel/cluster.py) and the internal client
+        # (net/client.py): with both and more than one node, queries fan
+        # out (executor.py:111-112, :193-285)
+        self.cluster = cluster
+        self.client = client
+        self.coalescer = None
+        if (client is not None and os.environ.get(
+                "PILOSA_TPU_TORCH_NET_COALESCE", "1") != "0"):
+            self.coalescer = NodeCoalescer(client)
+        self.fanout_pool_size = 32
+        self.batch_exec_pool_size = 16
+        self._fanout_pool = None
+        self._batch_exec_pool = None
+        self._hedge_pool = None
+        self._pool_lock = threading.Lock()
+        self.hedge_delay = 0.0  # seconds; 0: reads are never hedged
+        self.hedges_fired = 0
+        self.hedges_won = 0
+        self.hedges_cancelled = 0
+        self._hedge_lock = threading.Lock()
+        self.ici_mode = "auto"
+        self.ici_slice_local = 0
+        self.ici_cross_slice = 0
+        self.ici_fallback = 0
+        self._ici_lock = threading.Lock()
+        # announce_shard_fn(index, field, shard): the server's bounded
+        # synchronous create-shard broadcast, run before a Set that
+        # created a shard is acknowledged
+        self.announce_shard_fn = None
         self.runner = DeviceRunner(device)
         # observability: nop until a Server installs its stats client and
         # tracer; the heat map unless PILOSA_TPU_TORCH_HEAT=0
@@ -305,6 +386,9 @@ class Executor:
             "patchDroppedSparse": 0,  # and sparse rows that changed bucket
             "hybridEvals": 0,      # write-side hysteresis ticks
             "applySeconds": 0.0,   # host wall time of the batch applies
+            "remoteBatches": 0,    # replica envelopes sent
+            "remoteMutations": 0,  # mutations those envelopes carried
+            "newShards": 0,        # shards created by batched Sets
         }
 
     def clear_caches(self) -> None:
@@ -344,10 +428,16 @@ class Executor:
     # ------------------------------------------------------------------ API
 
     def execute(self, index_name: str, query,
-                shards: Optional[list[int]] = None) -> list:
+                shards: Optional[list[int]] = None, remote: bool = False,
+                timeout: Optional[float] = None) -> list:
         """Execute PQL; returns one result per call. An envelope of
         Set/Clear calls only goes through the IngestBatcher while
-        PILOSA_TPU_TORCH_INGEST is not 0; what it declines runs per bit."""
+        PILOSA_TPU_TORCH_INGEST is not 0 (a remote=True one, a
+        coordinator's replica envelope, is applied directly); what it
+        declines runs per bit. remote=True marks a fan-out sub-request:
+        it runs here on exactly the given shards, and its results stay
+        ids. `timeout` seconds set the query's deadline (an inherited one
+        applies otherwise)."""
         if isinstance(query, str):
             # the linear mutation scanner first: bulk envelopes of unique
             # columns would only churn the parse cache
@@ -357,29 +447,61 @@ class Executor:
         index = self.holder.index(index_name)
         if index is None:
             raise ExecutionError(f"index not found: {index_name}")
+        distributed = not remote and self._clustered()
         if (query.calls and ingest_env_enabled()
                 and all(c.name in ("Set", "Clear") for c in query.calls)):
-            handled = self._execute_ingest(index, query)
+            handled = (self._execute_ingest_remote(index, query) if remote
+                       else self._execute_ingest(index, query))
             if handled is not None:
                 return handled
-        if len(query.calls) > 1 and all(
+        if not distributed and len(query.calls) > 1 and all(
                 c.name in ("SetRowAttrs", "SetColumnAttrs")
                 for c in query.calls):
             return self._execute_attrs_bulk(index, query.calls)
+        dl_token = (qctx.deadline.set(time.monotonic() + timeout)
+                    if timeout else None)
         prof = qprofile.current_profile.get()
         results = []
-        with self._fence(index.name).read():
-            for call in query.calls:
-                self.stats.count(f"query/{call.name}")
-                t_call = time.perf_counter() if prof is not None else 0.0
-                with self.tracer.start_span(f"executor.{call.name}") as span:
-                    results.append(self._translate_result(
-                        index, call, self._execute_call(index, call, shards)))
-                    span.set_tag("index", index_name)
-                if prof is not None:
-                    prof.record_call(call.name,
-                                     (time.perf_counter() - t_call) * 1e3)
+        # one read fence over a local query's calls; a distributed one
+        # takes it around this node's share only, never across an RPC
+        fence = (contextlib.nullcontext() if distributed
+                 else self._fence(index.name).read())
+        try:
+            with fence:
+                for call in query.calls:
+                    qctx.check()
+                    results.append(self._run_call(index, call, shards,
+                                                  remote, distributed, prof))
+        finally:
+            if dl_token is not None:
+                qctx.deadline.reset(dl_token)
         return results
+
+    def _run_call(self, index: Index, call: Call, shards, remote: bool,
+                  distributed: bool, prof):
+        self.stats.count(f"query/{call.name}")
+        t_call = time.perf_counter() if prof is not None else 0.0
+        with self.tracer.start_span(f"executor.{call.name}") as span:
+            if distributed:
+                result = self._execute_distributed(index, call, shards)
+            else:
+                result = self._local_call(index, call, shards)
+            if not remote:
+                # ids -> keys on the coordinator only
+                result = self._translate_result(index, call, result)
+            span.set_tag("index", index.name)
+        if prof is not None:
+            prof.record_call(call.name, (time.perf_counter() - t_call) * 1e3)
+        return result
+
+    def _clustered(self) -> bool:
+        return (self.cluster is not None and self.client is not None
+                and len(self.cluster.nodes) > 1)
+
+    def _local_call(self, index: Index, call: Call, shards):
+        """A call on this node's shards, under the index's read fence."""
+        with self._fence(index.name).read():
+            return self._execute_call(index, call, shards)
 
     def _fence(self, index_name: str) -> ApplyFence:
         """The index's ApplyFence: reads share it, a batch apply (with its
@@ -465,8 +587,8 @@ class Executor:
         if isinstance(value, str):
             if self.translator is None:
                 raise ExecutionError("string keys require a translator")
-            return self.translator.translate_row(index.name, f.name, value,
-                                                 create=create)
+            return _minted(self.translator.translate_row(
+                index.name, f.name, value, create=create), value, create)
         return int(value)
 
     def _translate_col(self, index: Index, value,
@@ -476,8 +598,8 @@ class Executor:
         if isinstance(value, str):
             if self.translator is None:
                 raise ExecutionError("string keys require a translator")
-            return self.translator.translate_column(index.name, value,
-                                                    create=create)
+            return _minted(self.translator.translate_column(
+                index.name, value, create=create), value, create)
         if value is None:
             raise ExecutionError("a column is required")
         return int(value)
@@ -1817,13 +1939,13 @@ class Executor:
             return None
         col, row = args["_col"], args[fname]
         if type(col) is int and type(row) is int:  # the bulk case
-            return Mutation(call.name == "Set", fname, row, col)
+            return Mutation(call.name == "Set", fname, row, col, call)
         create = call.name == "Set"
         col = self._translate_col(index, col, create=create)
         row = self._translate_row(index, f, row, create=create)
         if col is None or row is None:
             return False
-        return Mutation(create, fname, row, col)
+        return Mutation(create, fname, row, col, call)
 
     def _ingest_prepare(self, index: Index, query: Query):
         """(slots, mutations) of an all-Set/Clear query, a slot being a
@@ -1882,7 +2004,13 @@ class Executor:
         if index is None:
             e = ExecutionError(f"index not found: {index_name}")
             return [("err", e)] * len(muts)
-        with self._fence(index_name).apply():
+        if self._clustered():
+            return self._apply_ingest_distributed(index, muts)
+        return self._apply_fenced(index, muts)
+
+    def _apply_fenced(self, index: Index, muts: list) -> list:
+        """_apply_ingest_local under the index's apply fence, timed."""
+        with self._fence(index.name).apply():
             t0 = time.perf_counter()
             try:
                 return self._apply_ingest_local(index, muts)
@@ -2195,6 +2323,596 @@ class Executor:
         out["enabled"] = ingest_env_enabled()
         out["maxBatch"] = self.ingest.max_batch
         return out
+
+    # ------------------------------------------------------- the cluster
+
+    def _get_pool(self, attr: str, size: int, name: str):
+        pool = getattr(self, attr)
+        if pool is not None:
+            return pool
+        with self._pool_lock:
+            if getattr(self, attr) is None:
+                setattr(self, attr, ThreadPoolExecutor(
+                    max_workers=size, thread_name_prefix=name))
+            return getattr(self, attr)
+
+    @property
+    def fanout_pool(self):
+        """The long-lived pool of outbound node batches (:337-345)."""
+        return self._get_pool("_fanout_pool", max(4, self.fanout_pool_size),
+                              "pilosa-torch-fanout")
+
+    @property
+    def batch_exec_pool(self):
+        """The entries of inbound /internal/query-batch envelopes: apart
+        from the fan-out pool, so two coordinators fanning out to each
+        other cannot wait on each other's pool slots (:347-355)."""
+        return self._get_pool("_batch_exec_pool",
+                              max(2, self.batch_exec_pool_size),
+                              "pilosa-torch-qbatch")
+
+    @property
+    def hedge_pool(self):
+        """Hedged reads race here, apart from the fan-out pool."""
+        return self._get_pool("_hedge_pool", max(4, self.fanout_pool_size),
+                              "pilosa-torch-hedge")
+
+    def fanout_pool_stats(self) -> dict:
+        """Fan-out pool occupancy, without creating the pool."""
+        pool = self._fanout_pool
+        if pool is None:
+            return {"size": max(4, self.fanout_pool_size), "threads": 0,
+                    "queued": 0}
+        return {"size": pool._max_workers, "threads": len(pool._threads),
+                "queued": pool._work_queue.qsize()}
+
+    def hedge_snapshot(self) -> dict:
+        with self._hedge_lock:
+            return {"hedgesFired": self.hedges_fired,
+                    "hedgesWon": self.hedges_won,
+                    "hedgesCancelled": self.hedges_cancelled}
+
+    def shutdown(self) -> None:
+        """Stop the executor's pools (Server.close)."""
+        with self._pool_lock:
+            for attr in ("_fanout_pool", "_batch_exec_pool", "_hedge_pool"):
+                pool = getattr(self, attr)
+                if pool is not None:
+                    pool.shutdown(wait=False, cancel_futures=True)
+                    setattr(self, attr, None)
+
+    def ici_enabled(self) -> bool:
+        return self.ici_mode != "off"
+
+    def _ici_route(self, call: Call, index: Index,
+                   qshards: list) -> tuple[str, str]:
+        """(route, reason) of one distributed read (:2664-2694).
+        slice_local runs the whole shard set here, with no envelope; the
+        port's runner is one device, so "auto" always crosses nodes and
+        only "on" serves a shard set this node holds a replica of every
+        shard of locally."""
+        if not self.ici_enabled():
+            return self.ROUTE_FALLBACK, "disabled"
+        if self._call_has_write(call):
+            return self.ROUTE_FALLBACK, "write"
+        if not qshards:
+            return self.ROUTE_FALLBACK, "no shards"
+        if self.ici_mode == "auto":
+            return self.ROUTE_CROSS_SLICE, "no mesh"
+        local = self.cluster.local_id
+        if not all(self.cluster.owns_shard(local, index.name, s)
+                   for s in qshards):
+            return self.ROUTE_CROSS_SLICE, "shards not co-resident"
+        return self.ROUTE_SLICE_LOCAL, "co-resident"
+
+    def _record_route(self, route: str, reason: str, call: Call,
+                      n_shards: int) -> None:
+        with self._ici_lock:
+            if route == self.ROUTE_SLICE_LOCAL:
+                self.ici_slice_local += 1
+            elif route == self.ROUTE_CROSS_SLICE:
+                self.ici_cross_slice += 1
+            else:
+                self.ici_fallback += 1
+        prof = qprofile.current_profile.get()
+        if prof is not None:
+            prof.record_route({"route": route, "reason": reason,
+                               "call": call.name, "shards": n_shards})
+
+    def ici_snapshot(self) -> dict:
+        """The route counters (/debug/vars iciServing, /metrics)."""
+        with self._ici_lock:
+            return {"mode": self.ici_mode,
+                    "sliceLocal": self.ici_slice_local,
+                    "crossSlice": self.ici_cross_slice,
+                    "fallback": self.ici_fallback}
+
+    def _execute_distributed(self, index: Index, call: Call, shards):
+        """One call over the cluster (:2727-2758): Options unwrapped
+        before the fan-out (its shards= and exclude flags apply around
+        the inner call), writes to their replicas, reads routed."""
+        if call.name == "Options":
+            if len(call.children) != 1:
+                raise ExecutionError(
+                    "Options() takes exactly one query argument")
+            if call.args.get("shards") is not None:
+                shards = [int(s) for s in call.uint_slice_arg("shards")]
+            result = self._execute_distributed(index, call.children[0],
+                                               shards)
+            if call.bool_arg("excludeColumns") and isinstance(result, Row):
+                result.segments = {}
+            if call.bool_arg("excludeRowAttrs") and isinstance(result, Row):
+                result.attrs = {}
+            return result
+        if call.name in self.WRITE_CALLS:
+            return self._execute_write_distributed(index, call, shards)
+        qshards = self._query_shards(index, shards)
+        route, reason = self._ici_route(call, index, qshards)
+        self._record_route(route, reason, call, len(qshards))
+        if route == self.ROUTE_SLICE_LOCAL:
+            return self._local_call(index, call, qshards)
+        return self._execute_cross_slice(index, call, shards, qshards)
+
+    def _execute_cross_slice(self, index: Index, call: Call, shards,
+                             qshards: list):
+        """Scatter and gather (:2760-2804): every other node's batch on
+        the fan-out pool (in a copy of this context, so the trace id,
+        deadline and profile follow), this node's inline, reduced as they
+        land. GroupBy's limit is applied after the reduce."""
+        fan_call = call
+        if call.name == "GroupBy" and call.uint_arg("limit") is not None:
+            fan_call = Call(call.name, {k: v for k, v in call.args.items()
+                                        if k != "limit"}, call.children)
+        groups = self.cluster.shards_by_node(index.name, qshards)
+        if len(groups) <= 1:
+            partials = []
+            for node_id, node_shards in groups.items():
+                partials.extend(self._map_node(index, fan_call, node_id,
+                                               node_shards, set()))
+            return self._reduce(call, partials, index, shards)
+        local_shards = groups.pop(self.cluster.local_id, None)
+        pool = self.fanout_pool
+        futures = [pool.submit(contextvars.copy_context().run,
+                               self._map_node, index, fan_call, node_id,
+                               node_shards, set())
+                   for node_id, node_shards in groups.items()]
+        partials = []
+        if local_shards is not None:
+            partials.extend(self._map_node(index, fan_call,
+                                           self.cluster.local_id,
+                                           local_shards, set()))
+        for fut in futures:
+            partials.extend(fut.result())
+        return self._reduce(call, partials, index, shards)
+
+    def _map_node(self, index: Index, call: Call, node_id: str,
+                  node_shards: list, excluded: set) -> list:
+        """`call` over node_shards on node_id; if the node fails, each of
+        its shards is re-mapped onto its next replica (:2806-2860).
+        Returns the partials."""
+        qctx.check()
+        prof = qprofile.current_profile.get()
+        if node_id == self.cluster.local_id:
+            t0 = time.perf_counter()
+            out = [self._local_call(index, call, node_shards)]
+            if prof is not None:
+                prof.record_fanout(node_id, len(node_shards),
+                                   (time.perf_counter() - t0) * 1e3,
+                                   "local")
+            return out
+        node = self.cluster.node_by_id(node_id)
+        err: Optional[Exception] = None
+        if node is not None and node.uri:
+            try:
+                return [self._fanout_remote(index, call, node, node_shards,
+                                            excluded)]
+            except ClientError as e:
+                err = e
+        if prof is not None:
+            prof.record_retry(node_id, len(node_shards),
+                              str(err or "node unknown / no uri"))
+        excluded = excluded | {node_id}
+        regroup: dict[str, list] = {}
+        for s in node_shards:
+            replicas = [n.id for n in self.cluster.shard_nodes(index.name, s)
+                        if n.id not in excluded]
+            cand = next((r for r in replicas
+                         if not self.cluster.is_unavailable(r)),
+                        replicas[0] if replicas else None)
+            if cand is None:
+                raise ExecutionError(
+                    f"shard {s} unavailable on all replicas: {err}")
+            regroup.setdefault(cand, []).append(s)
+        partials = []
+        for cand, cand_shards in regroup.items():
+            partials.extend(self._map_node(index, call, cand, cand_shards,
+                                           excluded))
+        return partials
+
+    @classmethod
+    def _call_has_write(cls, call: Call) -> bool:
+        """A write anywhere in the tree: never coalesced, never hedged (a
+        hedge re-sends)."""
+        if call.name in cls.WRITE_CALLS:
+            return True
+        return any(cls._call_has_write(c) for c in call.children)
+
+    def _fanout_remote(self, index: Index, call: Call, node,
+                       node_shards: list, excluded: set):
+        """One remote node batch, hedged when hedge_delay > 0 and a
+        replica holds every shard of it."""
+        if self.hedge_delay > 0 and not self._call_has_write(call):
+            hedge_node = self._hedge_candidate(index, node, node_shards,
+                                               excluded)
+            if hedge_node is not None:
+                return self._hedged_query(index, call, node, hedge_node,
+                                          node_shards)
+        return self._timed_node_query(index, call, node, node_shards)
+
+    def _timed_node_query(self, index: Index, call: Call, node,
+                          node_shards: list, hedge: bool = False):
+        """The node RPC: a coalesced envelope entry when the coalescer is
+        on and the call reads, per query otherwise. Its wall time goes to
+        the fanoutLatency/<node> timing and the query's profile."""
+        t0 = time.perf_counter()
+        err = ""
+        coalesced = (self.coalescer is not None
+                     and not self._call_has_write(call))
+        try:
+            if coalesced:
+                results = self.coalescer.query(
+                    node.uri, index.name, call.to_pql(), shards=node_shards)
+            else:
+                results = self.client.query_proto(
+                    node.uri, index.name, call.to_pql(),
+                    shards=node_shards, remote=True)
+        except BaseException as e:
+            err = f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            ms = (time.perf_counter() - t0) * 1e3
+            self.stats.timing(f"fanoutLatency/{node.id}", ms)
+            prof = qprofile.current_profile.get()
+            if prof is not None:
+                prof.record_fanout(node.id, len(node_shards), ms,
+                                   "coalesced" if coalesced else "proto",
+                                   error=err, hedge=hedge)
+        return results[0]
+
+    def _hedge_candidate(self, index: Index, node, node_shards: list,
+                         excluded: set):
+        """The first live node (this one preferred) holding a replica of
+        every shard of the batch, or None: hedging is batch-granular."""
+        common: Optional[set] = None
+        for s in node_shards:
+            owners = {n.id for n in self.cluster.shard_nodes(index.name, s)}
+            common = owners if common is None else common & owners
+            if not common:
+                return None
+        common.discard(node.id)
+        common -= set(excluded)
+        common = {c for c in common if not self.cluster.is_unavailable(c)}
+        if not common:
+            return None
+        if self.cluster.local_id in common:
+            return self.cluster.node_by_id(self.cluster.local_id)
+        return next((n for n in self.cluster.nodes if n.id in common), None)
+
+    def _hedged_query(self, index: Index, call: Call, node, hedge_node,
+                      node_shards: list):
+        """A read's node batch, re-issued to hedge_node when the primary
+        has not answered within hedge_delay of starting; the first answer
+        wins and the other is cancelled or dropped, so a winner counts
+        once. Both failing raises the primary's error into the per-shard
+        failover (:2954-3032)."""
+        pool = self.hedge_pool
+        started = threading.Event()
+
+        def primary_rpc():
+            started.set()
+            return self._timed_node_query(index, call, node, node_shards)
+
+        primary = pool.submit(contextvars.copy_context().run, primary_rpc)
+        # the clock starts when the RPC starts, not when it was queued
+        started.wait()
+        done, _ = futures_wait([primary], timeout=self.hedge_delay)
+        if done:
+            return primary.result()
+        with self._hedge_lock:
+            self.hedges_fired += 1
+        if hedge_node.id == self.cluster.local_id:
+            def local_backup():
+                t0 = time.perf_counter()
+                out = self._local_call(index, call, node_shards)
+                prof = qprofile.current_profile.get()
+                if prof is not None:
+                    prof.record_fanout(hedge_node.id, len(node_shards),
+                                       (time.perf_counter() - t0) * 1e3,
+                                       "local", hedge=True)
+                return out
+
+            backup = pool.submit(contextvars.copy_context().run,
+                                 local_backup)
+        else:
+            backup = pool.submit(contextvars.copy_context().run,
+                                 self._timed_node_query, index, call,
+                                 hedge_node, node_shards, True)
+        done, pending = futures_wait([primary, backup],
+                                     return_when=FIRST_COMPLETED)
+        winner = next((f for f in done if f.exception() is None), None)
+        if winner is None and pending:
+            done2, _ = futures_wait(pending)
+            winner = next((f for f in done2 if f.exception() is None), None)
+        if winner is None:
+            raise primary.exception()
+        loser = backup if winner is primary else primary
+        with self._hedge_lock:
+            if winner is backup:
+                self.hedges_won += 1
+            if not loser.done():
+                loser.cancel()
+                self.hedges_cancelled += 1
+        prof = qprofile.current_profile.get()
+        if prof is not None:
+            prof.record_hedge(node.id, hedge_node.id, won=winner is backup)
+        return winner.result()
+
+    def _remote_write(self, node, index: Index, pql: str, shards) -> list:
+        """One replica's share of a write, per query (never coalesced)."""
+        try:
+            return self.client.query_proto(node.uri, index.name, pql,
+                                           shards=shards, remote=True)
+        except ClientError as e:
+            raise ExecutionError(f"replica write failed: {e}")
+
+    def _execute_write_distributed(self, index: Index, call: Call, shards):
+        """Set, Clear and SetColumnAttrs on every replica of the column's
+        shard, SetRowAttrs on every node, Store and ClearRow on every
+        owner of the query's shards (:3034-3156). A replica that cannot
+        be reached fails the write; nothing is acknowledged that did not
+        land on every live replica."""
+        pql = call.to_pql()
+        if call.name in ("Store", "ClearRow"):
+            qshards = self._query_shards(index, shards)
+            targets: dict[str, list] = {}
+            for s in qshards:
+                owners = self.cluster.shard_nodes(index.name, s)
+                live = [n for n in owners
+                        if not self.cluster.is_unavailable(n.id)]
+                if not live:
+                    raise ExecutionError(
+                        f"all replicas down for write to shard {s}")
+                for n in live:
+                    targets.setdefault(n.id, []).append(s)
+            partials = []
+            local_id = self.cluster.local_id
+            for node_id in sorted(targets, key=lambda i: i == local_id):
+                if node_id == local_id:
+                    partials.append(self._local_call(index, call,
+                                                     targets[node_id]))
+                else:
+                    node = self.cluster.node_by_id(node_id)
+                    partials.append(self._remote_write(
+                        node, index, pql, targets[node_id])[0])
+            return any(bool(p) for p in partials)
+        new_shard = False
+        col = None
+        if call.name in ("Set", "Clear", "SetColumnAttrs"):
+            col = self._translate_col(index, call.args.get("_col"),
+                                      create=call.name != "Clear")
+            if col is None:
+                return False  # a Clear of an unknown key clears nothing
+            targets = self.cluster.shard_nodes(index.name, col // SHARD_WIDTH)
+            if call.name == "Set":
+                fld = index.field(call.field_arg())
+                new_shard = (fld is not None and not
+                             fld.available_shards.contains(col // SHARD_WIDTH))
+        else:  # SetRowAttrs
+            targets = self.cluster.nodes
+        live = [n for n in targets if not self.cluster.is_unavailable(n.id)]
+        if targets and not live:
+            raise ExecutionError("all replicas down for write")
+        result = None
+        # the remote replicas first: one that refuses fails the write
+        # before this node applies it
+        local_id = self.cluster.local_id
+        for node in sorted(live, key=lambda n: n.id == local_id):
+            if node.id == local_id:
+                r = self._local_call(index, call, None)
+            else:
+                r = self._remote_write(node, index, pql, None)[0]
+            result = r if result is None else (result or r)
+        for node in targets:
+            if node not in live:
+                self._hint_write(node.id, index.name, pql, None)
+        if new_shard and self.announce_shard_fn is not None:
+            # announced before the ack: a read through any node right
+            # after it plans over the new shard
+            self.announce_shard_fn(index.name, call.field_arg(),
+                                   col // SHARD_WIDTH)
+        if (call.name == "Set"
+                and all(n.id != self.cluster.local_id for n in live)):
+            # the shard exists on its (remote) replicas now; a local
+            # replica's own write does the announcing add instead
+            f = index.field(call.field_arg())
+            if f is not None:
+                f.add_available_shards([col // SHARD_WIDTH], quiet=True)
+        return result
+
+    def _hint_write(self, node_id: str, index_name: str, pql: str,
+                    hshards) -> None:
+        """A write skipped on an unavailable replica would be kept as a
+        durable hint and replayed on its return (:3158-3166); the port
+        has no hint store and marks no replica unavailable, so this is
+        never reached with a write to keep."""
+
+    def _execute_ingest_remote(self, index: Index,
+                               query: Query) -> Optional[list]:
+        """A coordinator's replica envelope (remote=True, many Set/Clear
+        calls): applied here directly, not queued again behind this
+        node's own batcher (:3266-3281)."""
+        prepared = self._ingest_prepare(index, query)
+        if prepared is None:
+            return None
+        slots, muts = prepared
+        if not muts:
+            return list(slots)
+        return self._ingest_unpack(slots, self._apply_fenced(index, muts))
+
+    def _apply_ingest_distributed(self, index: Index, muts: list) -> list:
+        """One coalesced batch over the cluster (:3303-3427): every other
+        replica of a mutation's shard is sent one multi-call remote=true
+        envelope, then this node applies its share of the mutations no
+        replica refused; a mutation is acknowledged only when every
+        replica of its shard took it (the JAX package applies locally
+        first, so a refused mutation can stay on this node there). Shards
+        a batch created are announced to every node before the waiters
+        wake."""
+        outcomes: list = [None] * len(muts)
+        ored = [False] * len(muts)
+        local: list = []
+        by_node: dict[str, list] = {}
+        new_shard_muts: list = []
+        for mi, m in enumerate(muts):
+            shard = m.shard
+            targets = self.cluster.shard_nodes(index.name, shard)
+            live = [n for n in targets
+                    if not self.cluster.is_unavailable(n.id)]
+            if targets and not live:
+                outcomes[mi] = ("err", ExecutionError(
+                    "all replicas down for write"))
+                continue
+            if m.is_set:
+                fld = index.field(m.field_name)
+                if (fld is not None
+                        and not fld.available_shards.contains(shard)):
+                    new_shard_muts.append((m.field_name, shard, mi))
+            for n in live:
+                if n.id == self.cluster.local_id:
+                    local.append((mi, m))
+                else:
+                    by_node.setdefault(n.id, []).append((mi, m))
+        # the remote replicas first, so a mutation a replica refused is
+        # not applied here
+        for node_id, items in by_node.items():
+            node = self.cluster.node_by_id(node_id)
+            pql = "\n".join(m.call.to_pql() for _, m in items)
+            try:
+                results = self._remote_write(node, index, pql, None)
+            except ExecutionError as e:
+                for mi, _m in items:
+                    if outcomes[mi] is None:
+                        outcomes[mi] = ("err", e)
+                continue
+            with self._ingest_lock:
+                self.ingest_stats["remoteBatches"] += 1
+                self.ingest_stats["remoteMutations"] += len(items)
+            for (mi, _m), r in zip(items, results):
+                ored[mi] = ored[mi] or bool(r)
+        local = [(mi, m) for mi, m in local if outcomes[mi] is None]
+        if local:
+            res = self._apply_fenced(index, [m for _, m in local])
+            for (mi, _m), out in zip(local, res):
+                if out[0] == "err":
+                    outcomes[mi] = out
+                else:
+                    ored[mi] = ored[mi] or bool(out[1])
+        for mi in range(len(muts)):
+            if outcomes[mi] is None:
+                outcomes[mi] = ("ok", ored[mi])
+        seen: set = set()
+        for fname, shard, mi in new_shard_muts:
+            if outcomes[mi][0] != "ok" or (fname, shard) in seen:
+                continue
+            seen.add((fname, shard))
+            with self._ingest_lock:
+                self.ingest_stats["newShards"] += 1
+            if self.announce_shard_fn is not None:
+                self.announce_shard_fn(index.name, fname, shard)
+            if not self.cluster.owns_shard(self.cluster.local_id,
+                                           index.name, shard):
+                fld = index.field(fname)
+                if fld is not None:
+                    fld.add_available_shards([shard], quiet=True)
+        n_err = sum(1 for o in outcomes if o[0] == "err")
+        if n_err:
+            with self._ingest_lock:
+                self.ingest_stats["errors"] += n_err
+        return outcomes
+
+    def _reduce(self, call: Call, partials: list,
+                index: Optional[Index] = None, shards=None):
+        """The associative reduce (:3751-3806): counts summed as Python
+        ints (a remote count arrives as a uint64), Sum summed, Min/Max by
+        value with the counts of ties added, TopN merged then recounted
+        exactly, Rows and GroupBy merged then limited, Row results merged
+        shard by shard."""
+        if not partials:
+            raise ExecutionError("no shards to execute")
+        if call.name == "Count":
+            return sum(int(p) for p in partials)
+        if call.name == "Sum":
+            return ValCount(sum(int(p.val) for p in partials),
+                            sum(int(p.count) for p in partials))
+        if call.name in ("Min", "Max"):
+            best = None
+            for p in partials:
+                if p.count == 0:
+                    continue
+                if best is None:
+                    best = ValCount(p.val, p.count)
+                elif p.val == best.val:
+                    best.count += p.count
+                elif (call.name == "Min") == (p.val < best.val):
+                    best = ValCount(p.val, p.count)
+            return best or ValCount(0, 0)
+        if call.name == "TopN":
+            merged = merge_pairs(partials)
+            n = call.uint_arg("n") or None
+            if (n is not None and call.uint_slice_arg("ids") is None
+                    and index is not None):
+                # phase 2: the winners recounted exactly on every owner
+                return self._recount_topn(index, call,
+                                          [i for i, _ in merged[:n]], shards)
+            return Pairs(merged)
+        if call.name == "Rows":
+            out = sorted(set().union(*[set(p) for p in partials]))
+            limit = call.uint_arg("limit")
+            return RowIdentifiers(out[:limit] if limit is not None else out)
+        if call.name == "GroupBy":
+            acc: dict[str, dict] = {}
+            for p in partials:
+                for g in p:
+                    key = str(g["group"])
+                    if key in acc:
+                        acc[key]["count"] += g["count"]
+                    else:
+                        acc[key] = dict(g)
+            out = sorted(acc.values(), key=lambda g: [
+                (x["field"], x["rowID"]) for x in g["group"]])
+            limit = call.uint_arg("limit")
+            return GroupCounts(out[:limit] if limit is not None else out)
+        if call.name in BITMAP_CALLS:
+            out = partials[0]
+            for p in partials[1:]:
+                out = out.merge(p)
+            return out
+        return partials[0]
+
+    def _recount_topn(self, index: Index, call: Call, ids: list, shards):
+        """TopN's phase 2 (:3808-3822): the merged winners recounted with
+        ids= (n removed) on every owner of the query's shards."""
+        recount = Call("TopN", {**call.args, "ids": ids}, call.children)
+        recount.args.pop("n", None)
+        partials = []
+        groups = self.cluster.shards_by_node(
+            index.name, self._query_shards(index, shards))
+        for node_id, node_shards in groups.items():
+            partials.extend(self._map_node(index, recount, node_id,
+                                           node_shards, set()))
+        merged = merge_pairs(partials)
+        n = call.uint_arg("n")
+        return Pairs(merged[:n] if n is not None else merged)
 
     # --------------------------------------------------------------- EXPLAIN
 

@@ -132,6 +132,9 @@ class Field:
         # bumped on every available-shards change (Index memoizes on it)
         self.shards_version = 0
         self._shards_mu = threading.Lock()
+        # on_shard_added(index, field, shard): the server's create-shard
+        # announcement (Holder.set_shard_hook)
+        self.on_shard_added = None
         self.row_attrs = AttrStore(os.path.join(self.path, ".row_attrs.db"))
 
     # -- BSI layout (int fields) ---------------------------------------------
@@ -204,7 +207,9 @@ class Field:
     def view(self, name: str = VIEW_STANDARD) -> Optional[View]:
         return self.views.get(name)
 
-    def add_available_shards(self, shards) -> None:
+    def add_available_shards(self, shards, quiet: bool = False) -> None:
+        """Mark shards available; each new one is announced through
+        on_shard_added unless quiet (a shard learned from another node)."""
         with self._shards_mu:
             new = [int(s) for s in shards
                    if not self.available_shards.contains(int(s))]
@@ -212,8 +217,24 @@ class Field:
                 return
             self.available_shards.add_many(np.asarray(new, dtype=np.uint64))
             self.shards_version += 1
-            with open(os.path.join(self.path, ".available.shards"), "wb") as f:
-                self.available_shards.write_to(f)
+            self._save_available_shards()
+        hook = self.on_shard_added
+        if hook is not None and not quiet:
+            for s in new:
+                hook(self.index, self.name, s)
+
+    def remove_available_shard(self, shard: int) -> None:
+        """DELETE .../remote-available-shards/{shard} (field.go:303)."""
+        with self._shards_mu:
+            if not self.available_shards.contains(int(shard)):
+                return
+            self.available_shards.remove(int(shard))
+            self.shards_version += 1
+            self._save_available_shards()
+
+    def _save_available_shards(self) -> None:
+        with open(os.path.join(self.path, ".available.shards"), "wb") as f:
+            self.available_shards.write_to(f)
 
     def shards(self) -> list[int]:
         return [int(s) for s in self.available_shards.slice()]

@@ -27,6 +27,9 @@ class Holder:
         self.indexes: dict[str, Index] = {}
         self._mu = threading.Lock()
         self._lock_file = None
+        # fn(index, field, shard) on every shard a field newly holds (the
+        # server's create-shard announcement)
+        self.shard_hook = None
 
     def open(self) -> "Holder":
         os.makedirs(self.path, exist_ok=True)
@@ -66,7 +69,13 @@ class Holder:
                         track_existence=track_existence)
             idx.save_meta()
             self.indexes[name] = idx.open()
+            idx.set_shard_hook(self.shard_hook)
             return idx
+
+    def set_shard_hook(self, fn) -> None:
+        self.shard_hook = fn
+        for idx in self.indexes.values():
+            idx.set_shard_hook(fn)
 
     def delete_index(self, name: str) -> None:
         with self._mu:

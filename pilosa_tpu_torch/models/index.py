@@ -41,6 +41,7 @@ class Index:
         self.fields: dict[str, Field] = {}
         self._field_mu = threading.Lock()
         self._avail_cache = None  # (field shard versions, sorted shards)
+        self.shard_hook = None  # every field's on_shard_added
         self.column_attrs = AttrStore(os.path.join(self.path,
                                                    ".col_attrs.db"))
 
@@ -95,7 +96,13 @@ class Index:
             f = Field(os.path.join(self.path, name), self.name, name, options)
             f.save_meta()
             self.fields[name] = f.open()
+            f.on_shard_added = self.shard_hook
             return f
+
+    def set_shard_hook(self, fn) -> None:
+        self.shard_hook = fn
+        for f in self.fields.values():
+            f.on_shard_added = fn
 
     def delete_field(self, name: str) -> Field:
         """Close the field without saving its rank caches and remove its

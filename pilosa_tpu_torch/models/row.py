@@ -3,7 +3,8 @@
 Trimmed copy of pilosa_tpu/models/row.py: per-shard segments of sorted
 uint64 global columns, carrying results to the JSON and protobuf
 boundary, with the row's attributes and, on a keyed index, its column
-keys once the API has rendered them.
+keys once the API has rendered them; merge() joins the partials of a
+distributed result.
 """
 
 from __future__ import annotations
@@ -34,6 +35,19 @@ class Row:
             for seg in np.split(cols, cuts):
                 row.segments[int(seg[0]) // SHARD_WIDTH] = seg
         return row
+
+    def merge(self, other: "Row") -> "Row":
+        """Shard-wise union of two partials of a distributed result
+        (pilosa_tpu/models/row.py:69); each node's partial covers its own
+        shards, so segments are usually just taken over."""
+        out = Row()
+        out.segments = dict(self.segments)
+        for shard, seg in other.segments.items():
+            have = out.segments.get(shard)
+            out.segments[shard] = (seg if have is None
+                                   else np.union1d(have, seg))
+        out.attrs = {**self.attrs, **other.attrs}
+        return out
 
     def columns(self) -> np.ndarray:
         if not self.segments:

@@ -44,8 +44,29 @@ arguments and JSON keys, and only the blocks the port has:
     GET         /debug/query-history
     POST        /debug/device-profile          (?seconds=)
     GET         /debug/pprof[/goroutine|/profile]  (?seconds=)
+    POST        /debug/net-coalesce            (the port's own: switch the
+                                                fan-out coalescer)
 
-An X-Pilosa-Trace-Id request header becomes the request's trace id.
+and the cluster's internal routes (:63-79, handlers :1361-1460):
+
+    POST        /internal/query-batch          (the coalesced fan-out
+                                                envelope)
+    POST        /internal/cluster/message      (schema, shard and node
+                                                messages)
+    GET         /internal/nodes, /internal/shards/max
+    GET         /internal/probe                (?uri=)
+    GET         /internal/fragment/nodes       (?index=&shard=)
+    GET         /internal/translate/data       (?offset=)
+    POST        /internal/translate/keys       (JSON, or a protobuf
+                                                TranslateKeysRequest)
+    DELETE      /internal/index/{i}/field/{f}/remote-available-shards/{s}
+
+/query takes ?remote=true (or QueryRequest.Remote): a fan-out
+sub-request, run on this node's shards. An X-Pilosa-Trace-Id request
+header becomes the request's trace id; the deadline of a request is the
+strictest of an X-Pilosa-Deadline header (the remaining seconds of the
+coordinator's query), a ?timeout= duration on /query and the server's
+query timeout, and a query past it answers 504.
 """
 
 from __future__ import annotations
@@ -69,10 +90,13 @@ from pilosa_tpu_torch.encoding.protobuf import CONTENT_TYPE as PROTO_CONTENT_TYP
 from pilosa_tpu_torch.encoding.protobuf import Serializer
 from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.constants import KERNEL_FAMILY_REPS
+from pilosa_tpu_torch.ops import _build, kernels
 from pilosa_tpu_torch.utils import heat as _heat
 from pilosa_tpu_torch.utils import profile as qprofile
+from pilosa_tpu_torch.utils import qctx
 from pilosa_tpu_torch.utils import telemetry as _telemetry
 from pilosa_tpu_torch.utils import tracing
+from pilosa_tpu_torch.utils.duration import parse_duration
 from pilosa_tpu_torch.utils.stats import prometheus_exposition
 
 ROUTES: list[tuple[str, re.Pattern, str]] = [
@@ -107,13 +131,31 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/metrics$"), "get_metrics"),
     ("GET", re.compile(r"^/debug/pprof(?:/(?P<profile>[^/]*))?$"),
      "get_debug_pprof"),
+    ("POST", re.compile(r"^/debug/net-coalesce$"), "post_net_coalesce"),
+    ("POST", re.compile(r"^/internal/cluster/message$"),
+     "post_cluster_message"),
+    ("GET", re.compile(r"^/internal/fragment/nodes$"), "get_fragment_nodes"),
+    ("DELETE", re.compile(
+        r"^/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/"
+        r"remote-available-shards/(?P<shard>\d+)$"),
+     "delete_remote_available_shard"),
+    ("GET", re.compile(r"^/internal/nodes$"), "get_nodes"),
+    ("GET", re.compile(r"^/internal/probe$"), "get_internal_probe"),
+    ("POST", re.compile(r"^/internal/query-batch$"), "post_query_batch"),
+    ("GET", re.compile(r"^/internal/shards/max$"), "get_shards_max"),
+    ("GET", re.compile(r"^/internal/translate/data$"), "get_translate_data"),
+    ("POST", re.compile(r"^/internal/translate/keys$"),
+     "post_translate_keys"),
 ]
 
 # unknown query arguments on these routes are a 400 (a typo like ?shard=)
-ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "columnAttrs",
+ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "remote",
+                                               "columnAttrs",
                                                "excludeRowAttrs",
-                                               "excludeColumns", "profile",
-                                               "explain"}),
+                                               "excludeColumns", "timeout",
+                                               "profile", "explain"}),
+                      "get_fragment_nodes": frozenset({"index", "shard"}),
+                      "get_translate_data": frozenset({"offset"}),
                       "get_export": frozenset({"index", "field", "shard"}),
                       "post_import": frozenset({"clear"}),
                       "post_import_roaring": frozenset({"clear", "remote"}),
@@ -127,14 +169,18 @@ ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "columnAttrs",
 class Handler:
     """Route dispatch against an API instance; `stats`, `telemetry` (the
     TelemetrySampler) and `device_profiler` back the observability
-    routes."""
+    routes, `cluster_message_fn` the cluster's messages, and
+    `query_timeout` (seconds, 0: none) caps every query's deadline."""
 
     def __init__(self, api: API, stats=None, telemetry=None,
-                 device_profiler=None):
+                 device_profiler=None, cluster_message_fn=None,
+                 query_timeout: float = 0.0):
         self.api = api
         self.stats = stats
         self.telemetry = telemetry
         self.device_profiler = device_profiler
+        self.cluster_message_fn = cluster_message_fn
+        self.query_timeout = query_timeout
         self.serializer = Serializer()
         self._local = threading.local()  # the request's headers
 
@@ -150,6 +196,32 @@ class Handler:
             if token is not None:
                 tracing.current_trace_id.reset(token)
             self._local.headers = None
+
+    def _set_deadline(self, route: str, query: dict):
+        """The request's deadline (:148-182): the strictest of the
+        coordinator's X-Pilosa-Deadline, a ?timeout= duration on /query
+        and the query timeout; a contextvar token, or None."""
+        candidates = []
+        incoming = self._header(qctx.DEADLINE_HEADER)
+        if incoming:
+            try:
+                candidates.append(float(incoming))
+            except ValueError:
+                pass  # a malformed header leaves the local sources
+        if route == "post_query":
+            arg = self._arg(query, "timeout")
+            if arg:
+                try:
+                    secs = parse_duration(arg)
+                except ValueError:
+                    raise ApiError(f"invalid timeout: {arg!r}")
+                if secs > 0:
+                    candidates.append(secs)
+            if self.query_timeout > 0:
+                candidates.append(self.query_timeout)
+        if not candidates:
+            return None
+        return qctx.deadline.set(time.monotonic() + min(candidates))
 
     def _header(self, name: str) -> str:
         h = getattr(self._local, "headers", None)
@@ -176,14 +248,21 @@ class Handler:
             if unknown:
                 return self._error(400, "invalid query argument(s): "
                                    + ", ".join(sorted(unknown)))
+            dl_token = None
             try:
+                dl_token = self._set_deadline(name, query)
                 return getattr(self, name)(match.groupdict(), query, body)
+            except qctx.QueryTimeoutError as e:
+                return self._error(504, str(e))
             except ApiError as e:
                 return self._error(e.status, str(e), e.code)
             except Exception as e:  # noqa: BLE001 — surface as a 500
                 if self.stats is not None:
                     self.stats.count("http/serverErrors")
                 return self._error(500, str(e))
+            finally:
+                if dl_token is not None:
+                    qctx.deadline.reset(dl_token)
         if any(rx.match(path) for _, rx, _ in ROUTES):
             return 405, "application/json", b'{"error": "method not allowed"}'
         return 404, "application/json", b'{"error": "not found"}'
@@ -230,6 +309,7 @@ class Handler:
             except ValueError as e:
                 raise ApiError(f"invalid QueryRequest: {e}")
             pql, shard_list = req["query"], req["shards"]
+            remote = req["remote"]
             column_attrs = req["columnAttrs"]
             ex_attrs, ex_cols = req["excludeRowAttrs"], req["excludeColumns"]
             profile = req["profile"]
@@ -241,6 +321,7 @@ class Handler:
             except ValueError:
                 raise ApiError(f"invalid shards argument: {shards!r}")
             pql = body.decode()
+            remote = self._flag(query, "remote")
             column_attrs = self._flag(query, "columnAttrs")
             ex_attrs = self._flag(query, "excludeRowAttrs")
             ex_cols = self._flag(query, "excludeColumns")
@@ -255,7 +336,8 @@ class Handler:
         if self._wants_proto():
             results = self.api.query_results(
                 params["index"], pql, shards=shard_list, profile=profile,
-                exclude_row_attrs=ex_attrs, exclude_columns=ex_cols)
+                exclude_row_attrs=ex_attrs, exclude_columns=ex_cols,
+                remote=remote)
             cas = (self.api.column_attr_sets(params["index"], results)
                    if column_attrs else None)
             prof = None
@@ -268,7 +350,7 @@ class Handler:
         return self._json(self.api.query(
             params["index"], pql, shards=shard_list, profile=profile,
             column_attrs=column_attrs, exclude_row_attrs=ex_attrs,
-            exclude_columns=ex_cols))
+            exclude_columns=ex_cols, remote=remote))
 
     def get_indexes(self, params, query, body):
         return self._json(self.api.schema())
@@ -322,11 +404,13 @@ class Handler:
                 raise ApiError(f"invalid import request: {e}")
         else:
             req = self._body_json(body)
+        remote = bool(req.get("remote", False))
         if "values" in req:
             self.api.import_values(params["index"], params["field"],
                                    column_ids=req.get("columnIDs"),
                                    values=req.get("values"),
-                                   column_keys=req.get("columnKeys"))
+                                   column_keys=req.get("columnKeys"),
+                                   remote=remote)
             return self._json({})
         clear = (self._arg(query, "clear") == "true"
                  or bool(req.get("clear", False)))
@@ -335,7 +419,8 @@ class Handler:
                              column_ids=req.get("columnIDs"), clear=clear,
                              timestamps=req.get("timestamps"),
                              row_keys=req.get("rowKeys"),
-                             column_keys=req.get("columnKeys"))
+                             column_keys=req.get("columnKeys"),
+                             remote=remote)
         return self._json({})
 
     def post_import_roaring(self, params, query, body):
@@ -358,7 +443,9 @@ class Handler:
         self.api.import_roaring(
             params["index"], params["field"], int(params["shard"]), views,
             clear=(self._arg(query, "clear") == "true"
-                   or bool(req.get("clear", False))))
+                   or bool(req.get("clear", False))),
+            remote=(self._arg(query, "remote") == "true"
+                    or bool(req.get("remote", False))))
         return self._json({})
 
     def get_export(self, params, query, body):
@@ -388,6 +475,71 @@ class Handler:
     def post_recalculate_caches(self, params, query, body):
         self.api.recalculate_caches()
         return self._json({})
+
+    # -- the cluster's internal routes ---------------------------------------
+
+    def post_cluster_message(self, params, query, body):
+        if self.cluster_message_fn is None:
+            raise ApiError("cluster messages not supported", status=501)
+        self.cluster_message_fn(self._body_json(body))
+        return self._json({})
+
+    def get_fragment_nodes(self, params, query, body):
+        index = self._arg(query, "index")
+        shard, = self._int_args(query, shard=0)
+        return self._json(self.api.shard_nodes(index, shard))
+
+    def delete_remote_available_shard(self, params, query, body):
+        self.api.delete_remote_available_shard(
+            params["index"], params["field"], int(params["shard"]))
+        return self._json({})
+
+    def get_nodes(self, params, query, body):
+        return self._json(self.api.hosts())
+
+    def get_internal_probe(self, params, query, body):
+        """Probe another node's /status for the asking node (an indirect
+        ping)."""
+        target = self._arg(query, "uri")
+        if not target:
+            raise ApiError("uri is required")
+        return self._json({"alive": self.api.probe_peer(target)})
+
+    def post_query_batch(self, params, query, body):
+        """A coordinator's coalesced envelope (net/coalesce.py): its
+        entries run concurrently through the usual query path; an entry's
+        error rides its own QueryResponse.Err."""
+        try:
+            entries = self.serializer.decode_query_batch_request(body)
+        except ValueError as e:
+            raise ApiError(str(e))
+        return (200, "application/json",
+                self.serializer.encode_query_batch_response(
+                    self.api.query_batch(entries)))
+
+    def get_shards_max(self, params, query, body):
+        return self._json({"standard": self.api.max_shards()})
+
+    def get_translate_data(self, params, query, body):
+        offset, = self._int_args(query, offset=0)
+        return (200, "application/octet-stream",
+                self.api.translate_data(offset))
+
+    def post_translate_keys(self, params, query, body):
+        if self._sends_proto():
+            try:
+                req = self.serializer.decode_translate_keys_request(body)
+            except ValueError as e:
+                raise ApiError(f"invalid TranslateKeysRequest: {e}")
+        else:
+            req = self._body_json(body)
+        ids = self.api.translate_keys(req.get("index"), req.get("field"),
+                                      req.get("keys", []),
+                                      create=req.get("create", True))
+        if self._wants_proto():
+            return (200, PROTO_CONTENT_TYPE,
+                    self.serializer.encode_translate_keys_response(ids))
+        return self._json({"ids": ids})
 
     # -- observability ------------------------------------------------------
 
@@ -427,6 +579,13 @@ class Handler:
         if ex.heat is not None:
             snap["heat"] = ex.heat.snapshot(top=10)
         snap["kernels"] = _telemetry.kernels.snapshot()
+        # the cluster's data plane (:628-690): fan-out coalescing, hedged
+        # reads and the route counters
+        if ex.coalescer is not None:
+            snap["netCoalesce"] = ex.coalescer.snapshot()
+        snap["hedges"] = ex.hedge_snapshot()
+        snap["iciServing"] = ex.ici_snapshot()
+        snap.setdefault("gauges", {}).update(self._process_gauges())
         if self.device_profiler is not None:
             snap["deviceProfiler"] = self.device_profiler.snapshot()
         # frozen bulk loads are not durable until snapshotted (:711-724):
@@ -439,6 +598,35 @@ class Handler:
         if vol:
             snap["volatileFragments"] = vol
         return self._json(snap)
+
+    def _process_gauges(self) -> dict:
+        """Gauges of this process: the fan-out pool's occupancy, each
+        kernel wrapper's launches and the seconds nvcc took for the kernel
+        library this process loaded (0: it was built already)."""
+        pool = self.api.executor.fanout_pool_stats()
+        g = {f"fanoutPool/{k}": float(v) for k, v in pool.items()}
+        g.update({f"kernelLaunches/{k}": float(v)
+                  for k, v in kernels.launch_counts().items()})
+        g["kernelBuild/seconds"] = float(_build.build_info["seconds"])
+        client = self.api.executor.client
+        if client is not None:
+            g["internalClient/bytesSent"] = float(client.bytes_sent)
+            g["internalClient/bytesReceived"] = float(client.bytes_received)
+        return g
+
+    def post_net_coalesce(self, params, query, body):
+        """Switch the fan-out coalescer on or off ({"enabled": bool}; the
+        port's run-time form of the JAX bench's in-process switch) and
+        answer its snapshot."""
+        coal = self.api.executor.coalescer
+        if coal is None:
+            raise ApiError("no coalescer (PILOSA_TPU_TORCH_NET_COALESCE=0 "
+                           "or no cluster)", status=501)
+        enabled = self._body_json(body).get("enabled")
+        if not isinstance(enabled, bool):
+            raise ApiError("enabled must be true or false")
+        coal.enabled = enabled
+        return self._json(coal.snapshot())
 
     def get_debug_hbm(self, params, query, body):
         """Device memory by what the residency accounts (:759), joined
@@ -541,10 +729,22 @@ class Handler:
             gauges["planCache/bytes"] = cs["bytes"]
             gauges["planCache/entries"] = cs["entries"]
             pc_bytes = cs["bytes"]
+        hs = ex.hedge_snapshot()
+        counts["hedges/fired"] = hs["hedgesFired"]
+        counts["hedges/won"] = hs["hedgesWon"]
+        counts["hedges/cancelled"] = hs["hedgesCancelled"]
+        isnap = ex.ici_snapshot()
+        counts["iciServing,route:slice_local"] = isnap["sliceLocal"]
+        counts["iciServing,route:cross_slice"] = isnap["crossSlice"]
+        counts["iciServing,route:fallback"] = isnap["fallback"]
+        gauges["iciServing/mode"] = {"off": 0.0, "auto": 1.0,
+                                     "on": 2.0}.get(isnap["mode"], 1.0)
+        gauges.update(self._process_gauges())
         ing = ex.ingest_snapshot()
         counts["ingest,op:set"] = ing["setMutations"]
         counts["ingest,op:clear"] = ing["clearMutations"]
         counts["ingestBatches,kind:applied"] = ing["appliedBatches"]
+        counts["ingestBatches,kind:remote"] = ing["remoteBatches"]
         counts["ingestWal/appends"] = ing["walAppends"]
         counts["ingestWal/ops"] = ing["walOps"]
         counts["ingestPatch,kind:dense"] = ing["patchedDense"]
@@ -644,6 +844,11 @@ class _RequestHandler(BaseHTTPRequestHandler):
     handler: Handler = None  # injected by HTTPServer
 
     def _handle(self, method: str):
+        if getattr(self.server, "shutting_down", False):
+            # a kept-alive connection of a closed server: drop it without
+            # an answer, as the process's exit would (:1480-1491)
+            self.close_connection = True
+            return
         parsed = urlparse(self.path)
         length = int(self.headers.get("Content-Length", 0) or 0)
         body = self.rfile.read(length) if length else b""
@@ -697,6 +902,7 @@ class HTTPServer:
         self._thread.start()
 
     def close(self) -> None:
+        self._srv.shutting_down = True
         self._srv.shutdown()
         self._srv.server_close()
         if self._thread is not None:

@@ -77,7 +77,8 @@ class ContinuousBatcher:
     HANDOFF_AT_CUT = True
 
     # the kernel family a batch's queue wait is attributed to
-    # (utils/telemetry.py KernelStats.record_wait)
+    # (utils/telemetry.py KernelStats.record_wait); None: not a device
+    # dispatch (the network coalescer)
     KERNEL_FAMILY = "batcher"
 
     def __init__(self, max_batch: int = MAX_BATCH,
@@ -222,7 +223,7 @@ class ContinuousBatcher:
                 self.wait_ms_total += batch_wait_ms
                 self.waited += len(batch)
                 seq = self.batches
-            if telemetry.kernel_stats_enabled():
+            if self.KERNEL_FAMILY and telemetry.kernel_stats_enabled():
                 telemetry.kernels.record_wait(self.KERNEL_FAMILY,
                                               batch_wait_ms, len(batch))
             wall_ms = (t_done - t_cut) * 1e3

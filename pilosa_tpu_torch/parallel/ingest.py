@@ -54,13 +54,17 @@ class Mutation:
     """One Set/Clear riding an ingest batch, with its ids resolved on the
     submitting thread."""
 
-    __slots__ = ("is_set", "field_name", "row_id", "col")
+    __slots__ = ("is_set", "field_name", "row_id", "col", "call")
 
-    def __init__(self, is_set: bool, field_name: str, row_id: int, col: int):
+    def __init__(self, is_set: bool, field_name: str, row_id: int, col: int,
+                 call=None):
         self.is_set = is_set
         self.field_name = field_name
         self.row_id = row_id
         self.col = col
+        # the PQL call it came from: a cluster coordinator re-sends it to
+        # the shard's other replicas
+        self.call = call
 
     @property
     def shard(self) -> int:

@@ -38,8 +38,11 @@ class AttrStore:
     def __init__(self, path: Optional[str] = None):
         self.path = path
         self._db: Optional[sqlite3.Connection] = None
-        # one read-merge-write at a time (request threads share the store)
-        self._mu = threading.Lock()
+        # every statement under it: request threads share the connection,
+        # whose cached statements two threads must not step at once
+        # (sqlite raises "bad parameter or other API misuse"); reentrant,
+        # since a merge reads inside it
+        self._mu = threading.RLock()
 
     def open(self) -> "AttrStore":
         target = self.path or ":memory:"
@@ -57,10 +60,13 @@ class AttrStore:
             self._db.close()
             self._db = None
 
+    def _rows(self, sql: str, params=()) -> list:
+        with self._mu:
+            return self._db.execute(sql, params).fetchall()
+
     def attrs(self, id_: int) -> dict:
-        row = self._db.execute("SELECT data FROM attrs WHERE id = ?",
-                               (id_,)).fetchone()
-        return json.loads(row[0]) if row else {}
+        rows = self._rows("SELECT data FROM attrs WHERE id = ?", (id_,))
+        return json.loads(rows[0][0]) if rows else {}
 
     def attrs_many(self, ids) -> dict:
         """{id: attrs} of the ids that have any, in one query per 500."""
@@ -70,7 +76,7 @@ class AttrStore:
             part = ids[lo:lo + 500]
             q = ("SELECT id, data FROM attrs WHERE id IN ("
                  + ",".join("?" * len(part)) + ")")
-            for id_, data in self._db.execute(q, part):
+            for id_, data in self._rows(q, part):
                 out[int(id_)] = json.loads(data)
         return out
 
@@ -98,13 +104,11 @@ class AttrStore:
             self._db.commit()
 
     def ids(self) -> list[int]:
-        return [r[0] for r in
-                self._db.execute("SELECT id FROM attrs ORDER BY id")]
+        return [r[0] for r in self._rows("SELECT id FROM attrs ORDER BY id")]
 
     def blocks(self) -> list[tuple[int, bytes]]:
         out: dict = {}
-        for id_, data in self._db.execute(
-                "SELECT id, data FROM attrs ORDER BY id"):
+        for id_, data in self._rows("SELECT id, data FROM attrs ORDER BY id"):
             blk = id_ // ATTR_BLOCK_SIZE
             h = out.get(blk)
             if h is None:
@@ -114,7 +118,7 @@ class AttrStore:
 
     def block_data(self, blk: int) -> list[tuple[int, dict]]:
         lo, hi = blk * ATTR_BLOCK_SIZE, (blk + 1) * ATTR_BLOCK_SIZE
-        return [(id_, json.loads(data)) for id_, data in self._db.execute(
+        return [(id_, json.loads(data)) for id_, data in self._rows(
             "SELECT id, data FROM attrs WHERE id >= ? AND id < ? ORDER BY id",
             (lo, hi))]
 

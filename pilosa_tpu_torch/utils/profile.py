@@ -7,9 +7,10 @@ it shared and its wall-time share (parallel/batcher.py), residency hits,
 misses and host-to-device bytes (parallel/residency.py), and the
 planner's node of each planned call (planner.py), into which the executor
 writes cache events, hybrid choices and the actual cardinality while the
-call runs. to_dict() has the JAX package's keys; on one node `fanout`,
-`route` and `remoteProfiles` stay empty, as they do in the JAX package
-without a cluster or router. QueryHistory (:243) is the slow-query ring of
+call runs; in a cluster, each node batch with its transport and wall time
+(`fanout`, failovers and hedges too), each routing decision (`route`)
+and the remote nodes' own profiles (`remoteProfiles`). to_dict() has the
+JAX package's keys. QueryHistory (:243) is the slow-query ring of
 GET /debug/query-history.
 
 Disabled cost: one ContextVar.get() returning None per site.
@@ -41,7 +42,7 @@ class QueryProfile:
     __slots__ = ("trace_id", "node_id", "index", "pql", "start",
                  "start_wall", "elapsed_ms", "calls", "dispatches",
                  "residency_hits", "residency_misses", "h2d_bytes", "plans",
-                 "_lock",
+                 "fanout", "routes", "remotes", "_lock",
                  "_sealed", "_cached_dict")
 
     def __init__(self, trace_id: str = "", node_id: str = "",
@@ -61,6 +62,9 @@ class QueryProfile:
         self.residency_misses = 0
         self.h2d_bytes = 0
         self.plans: list[dict] = []
+        self.fanout: list[dict] = []  # node batches, failovers, hedges
+        self.routes: list[dict] = []  # routing decisions
+        self.remotes: list[dict] = []  # remote nodes' profiles
         self._lock = threading.Lock()
 
     def record_call(self, name: str, ms: float) -> None:
@@ -91,6 +95,43 @@ class QueryProfile:
                 return
             self.plans.append(plan)
 
+    def _append(self, to: list, rec: dict) -> None:
+        with self._lock:
+            if not self._sealed:
+                to.append(rec)
+
+    def record_fanout(self, node_id: str, shards: int, ms: float,
+                      transport: str, error: str = "",
+                      hedge: bool = False) -> None:
+        """One node batch (transport "local", "coalesced" or "proto")
+        with its wall time (:109)."""
+        rec = {"node": node_id, "shards": shards, "ms": round(ms, 3),
+               "transport": transport}
+        if error:
+            rec["error"] = error
+        if hedge:
+            rec["hedge"] = True
+        self._append(self.fanout, rec)
+
+    def record_hedge(self, node_id: str, hedge_node_id: str,
+                     won: bool) -> None:
+        self._append(self.fanout, {"node": node_id,
+                                   "hedgeNode": hedge_node_id,
+                                   "kind": "hedge", "hedgeWon": won})
+
+    def record_retry(self, node_id: str, shards: int, error: str) -> None:
+        """A failed node batch, re-mapped shard by shard (:133)."""
+        self._append(self.fanout, {"node": node_id, "shards": shards,
+                                   "kind": "failover", "error": error})
+
+    def record_route(self, info: dict) -> None:
+        """One routing decision of a distributed read (:168)."""
+        self._append(self.routes, dict(info))
+
+    def add_remote_fragment(self, node: str, fragment: dict) -> None:
+        """A remote node's profile, grafted under this one (:188)."""
+        self._append(self.remotes, {"node": node, "profile": fragment})
+
     def record_residency(self, hit: bool, nbytes: int = 0) -> None:
         with self._lock:
             if self._sealed:
@@ -120,14 +161,14 @@ class QueryProfile:
                 "startWall": self.start_wall,
                 "elapsedMs": self.elapsed_ms,
                 "calls": list(self.calls),
-                "fanout": [],
+                "fanout": list(self.fanout),
                 "dispatches": list(self.dispatches),
                 "residency": {"hits": self.residency_hits,
                               "misses": self.residency_misses,
                               "hostToDeviceBytes": self.h2d_bytes},
                 "plan": [dict(p) for p in self.plans],
-                "route": [],
-                "remoteProfiles": [],
+                "route": [dict(r) for r in self.routes],
+                "remoteProfiles": list(self.remotes),
             }
             if self._sealed:
                 self._cached_dict = d

@@ -28,8 +28,11 @@ machine's 9p root (`scripts/fs_probe.py`; PERF.md) a lookup among
 the JAX pragmas, 3.06 and 5.63 us with these. Whatever sqlite refuses
 raises: the index never drops to an in-memory copy.
 
-Left out: the cluster's replication (read-only replicas, log tailing,
-ensure_mapping, apply_log), which waits for the port's cluster.
+In a cluster only the translation primary mints (utils/cluster_translate.py);
+another node installs the primary's mapping with ensure_mapping (:372:
+into the index only, so its log stays a byte prefix of the primary's)
+and tails the primary's log with log_bytes/apply_log (:390-411), after
+which its `.keys` log equals the primary's byte for byte.
 """
 
 from __future__ import annotations
@@ -462,6 +465,35 @@ class TranslateStore:
         if not self.path or not os.path.exists(self.path):
             return 0
         return os.path.getsize(self.path)
+
+    # -- replication (a non-primary tails the primary's log) ---------------
+
+    def ensure_mapping(self, kind: int, index: str, field: str, key: str,
+                       id_: int) -> None:
+        """Install a mapping the primary minted: into the index, never
+        the log (the record arrives with apply_log and dedups there)."""
+        with self._lock:
+            if self._idx.get(kind, index, field, key) is None:
+                self._idx.put(kind, index, field, key, id_)
+                self._idx.commit()
+
+    def log_bytes(self, offset: int = 0) -> bytes:
+        """The log from `offset` on (GET /internal/translate/data)."""
+        if not self.path or not os.path.exists(self.path):
+            return b""
+        with self._lock, open(self.path, "rb") as f:
+            f.seek(offset)
+            return f.read()
+
+    def apply_log(self, data: bytes) -> None:
+        """Append a chunk of the primary's log and index its records."""
+        with self._lock:
+            self._replay(data)
+            if self._file is not None:
+                self._file.write(data)
+                self._file.flush()
+                self._idx.set_log_pos(self._file.tell())
+            self._idx.commit()
 
 
 def _pack_record(kind: int, index: str, field: str, key: str,

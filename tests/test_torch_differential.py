@@ -17,6 +17,10 @@ keyed set field with row attributes and an unkeyed one) read through
 keyed Count/Row/TopN/Rows/GroupBy and written by keyed Set/Clear
 envelopes, which go through the coalesced write path too. Every answer
 must be the same JSON, and both servers write the same translate log.
+The same rounds run on a two-node cluster of each package (ids "a" and
+"b", one replica: every query fans out, every write is routed to its
+shard's owner, keys are minted by node "a"), the queries and writes
+alternating between the nodes.
 """
 
 import http.client
@@ -242,47 +246,78 @@ def _envelope(rng) -> str:
     return " ".join(calls)
 
 
+def _open(tmp_path, nodes: int) -> tuple:
+    """(JAX servers, port servers): one each, or a cluster of `nodes` of
+    each package with pinned ids."""
+    if nodes == 1:
+        return ([JaxServer(str(tmp_path / "jax"), port=0).open()],
+                [Server(str(tmp_path / "torch"), port=0, device="cpu").open()])
+    out = []
+    for kind, make in (("jax", lambda d, i: JaxServer(
+                            d, port=0, node_id=chr(97 + i)).open()),
+                       ("torch", lambda d, i: Server(
+                            d, port=0, device="cpu",
+                            node_id=chr(97 + i)).open())):
+        servers = [make(str(tmp_path / f"{kind}{i}"), i)
+                   for i in range(nodes)]
+        uris = [x.uri for x in servers]
+        for x in servers:
+            x.cluster_hosts = uris
+            x.refresh_membership()
+        out.append(servers)
+    return tuple(out)
+
+
 @pytest.mark.parametrize("seed", [3, 4])
 def test_port_and_jax_servers_agree_across_slices(tmp_path, seed):
+    _agree(tmp_path, seed, 1)
+
+
+def test_two_node_clusters_agree_across_slices(tmp_path):
+    _agree(tmp_path, 5, 2)
+
+
+def _agree(tmp_path, seed: int, nodes: int) -> None:
     rng = np.random.default_rng(seed + 100)
     krng = np.random.default_rng(seed + 200)
-    jax_srv = JaxServer(str(tmp_path / "jax"), port=0).open()
+    jax_servers, ports = _open(tmp_path, nodes)
     try:
-        port = Server(str(tmp_path / "torch"), port=0, device="cpu").open()
-        try:
-            for path, body in _setup(seed) + _keyed_setup(seed):
-                want = _post(jax_srv.uri, path, body)
+        for path, body in _setup(seed) + _keyed_setup(seed):
+            want = _post(jax_servers[0].uri, path, body)
+            assert want[0] == 200, want
+            assert _post(ports[0].uri, path, body) == want, path
+        n = 0
+        for rnd in range(3):
+            queries = _reads(rng)
+            if rnd == 2:
+                queries.append("GroupBy(Rows(field=f), Rows(field=t), limit=7)")
+            queries = ([("d", q) for q in queries]
+                       + [("ty", q) for q in _typed_reads(rng)]
+                       + [("kx", q) for q in _keyed_reads(krng)])
+            for idx, q in queries:
+                k = n % nodes
+                want = _post(jax_servers[k].uri, f"/index/{idx}/query", q)
+                assert want[0] == 200, (q, want)
+                assert _post(ports[k].uri, f"/index/{idx}/query", q) == \
+                    want, (rnd, q)
+                n += 1
+            for w, (idx, env) in enumerate((
+                    ("d", _envelope(rng)), ("d", _envelope(rng)),
+                    ("ty", _typed_writes(rng)),
+                    ("kx", _keyed_envelope(krng)))):
+                k = (rnd + w) % nodes
+                want = _post(jax_servers[k].uri, f"/index/{idx}/query", env)
                 assert want[0] == 200, want
-                assert _post(port.uri, path, body) == want, path
-            n = 0
-            for rnd in range(3):
-                queries = _reads(rng)
-                if rnd == 2:
-                    queries.append("GroupBy(Rows(field=f), Rows(field=t), limit=7)")
-                queries = ([("d", q) for q in queries]
-                           + [("ty", q) for q in _typed_reads(rng)]
-                           + [("kx", q) for q in _keyed_reads(krng)])
-                for idx, q in queries:
-                    want = _post(jax_srv.uri, f"/index/{idx}/query", q)
-                    assert want[0] == 200, (q, want)
-                    assert _post(port.uri, f"/index/{idx}/query", q) == \
-                        want, (rnd, q)
-                    n += 1
-                for idx, env in (("d", _envelope(rng)), ("d", _envelope(rng)),
-                                 ("ty", _typed_writes(rng)),
-                                 ("kx", _keyed_envelope(krng))):
-                    want = _post(jax_srv.uri, f"/index/{idx}/query", env)
-                    assert want[0] == 200, want
-                    assert _post(port.uri, f"/index/{idx}/query", env) == want
-            assert n >= 90
-            snap = port.executor.ingest_snapshot()
-            assert snap["mutations"] >= 30 and snap["errors"] == 0
-            assert snap["patchedDense"] >= 1
-            with open(tmp_path / "jax" / ".keys", "rb") as f:
-                want = f.read()
-            with open(tmp_path / "torch" / ".keys", "rb") as f:
-                assert f.read() == want and want
-        finally:
-            port.close()
+                assert _post(ports[k].uri, f"/index/{idx}/query", env) == want
+        assert n >= 90
+        snaps = [p.executor.ingest_snapshot() for p in ports]
+        assert sum(s["mutations"] for s in snaps) >= 30
+        assert not any(s["errors"] for s in snaps)
+        assert sum(s["patchedDense"] for s in snaps) >= 1
+        with open(jax_servers[0].translate.path, "rb") as f:
+            want = f.read()
+        with open(ports[0].translate.path, "rb") as f:
+            assert f.read() == want and want
     finally:
-        jax_srv.close()
+        for x in ports + jax_servers:
+            x.close()

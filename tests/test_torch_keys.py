@@ -202,6 +202,45 @@ def test_attr_stores_agree_on_merges_and_blocks(tmp_path):
     jp.close()
 
 
+def test_attr_store_serves_concurrent_readers_and_writers(tmp_path):
+    """Request threads share one store: reads under writes never trip
+    sqlite's "bad parameter or other API misuse" (the attribute-filtered
+    TopN pass of chip_smoke.py phase 5f once answered a 500 and an empty
+    list) and every read sees whole attribute sets."""
+    import sys
+    import threading
+
+    st = pattr.AttrStore(str(tmp_path / "a.db")).open()
+    for i in range(64):
+        st.set_attrs(i, {"paradigm": "functional", "year": 1990 + i})
+    errors = []
+
+    def go(k):
+        try:
+            for n in range(200):
+                got = st.attrs_many(range(64))
+                assert len(got) == 64 and got[k]["paradigm"] == "functional"
+                assert st.attrs(k)["year"] == 1990 + k
+                if n % 20 == 0:
+                    st.set_attrs(k, {"seen": n})
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=go, args=(k,)) for k in range(16)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        sys.setswitchinterval(old)
+        st.close()
+    assert errors == []
+
+
 def test_nop_attr_stores_agree():
     j, p = jattr.NopAttrStore().open(), pattr.NopAttrStore().open()
     for name in ("ids", "blocks"):
