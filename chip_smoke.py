@@ -92,7 +92,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    molecule counts (printed): config 2, 64 rows of 2000 bits and 1-bit
    tail rows over 10K columns (10M rows of 100M), Count of Union,
    Intersect, Xor and Difference, p50 of 9; config 3, a Zipf head of 50k
-   rows and a 1-bit tail striped over 8 shards (50M rows of 1B),
+   rows and a 1-bit tail striped over 8 shards (25M rows of 1B),
    TopN(t, n=1000) exact with its p50 and topnRecountRows, Rows pages
    with previous=; config 4, an int field 0..1023 on every column of 128
    shards (of 953), Sum(Range), Min and Max with and without a filter,
@@ -120,7 +120,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    (quantum YMD) where user u of 256 stars about 200,000 / (u + 1)
    uniformly random repositories (about 1.2M stars; the shape's 2,000,000
    cut ten times, see TYPED_STARS_HEAD) at uniform timestamps over
-   2019-01-01..2019-03-31 (90 day views, 3 month views, the year view and
+   2019-01-25..2019-03-10 (45 day views, 3 month views, the year view and
    the standard view; epoch numbers, the last chunk ISO-8601 strings); a
    mutex field license of 16 rows over the starred repositories, imported
    once and then a seeded 10 % reassigned (the last write wins); a bool
@@ -180,9 +180,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    three nodes): three node processes of `python -m pilosa_tpu_torch.cli
    server --config n<i>.toml` on the one card ([cluster] disabled =
    false, replicas 2, hosts naming all three, membership-interval 0.5,
-   the plan cache off; .id files node0 < node1 < node2, so node 0
+   the default liveness-threshold 3 and probe-timeout 2 s, [anti-entropy]
+   interval 5 s, the plan cache off; .id files node0 < node1 < node2, so
+   node 0
    coordinates and mints keys), each node's kernel build 0 s (phase 1
-   built the library). Index d over 256 shards (cut by the time limit
+   built the library). Index d over 128 shards (cut by the time limit
    from 1024; widths and shapes the single-node phases'): f's 8 dense rows
    and t's 64 ranked rows through node 0's /import-roaring one shard a
    request, s (8 sparse rows, K = 16..2048), v (0..1023 on 32768 columns
@@ -197,16 +199,32 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    node the shards route to and the coalesced transport; 32 clients x 8
    Count(Intersect) through node 0 with a device-profile capture on every
    node (q/s, p50/p99, coalesce factor and dedups); the coalescing A/B
-   (off, on, off, on; nothing claimed); 4 writers x 6 envelopes of 500
+   (off, on; nothing claimed); 4 writers x 6 envelopes of 500
    Set/Clear on a field w through nodes 0 and 1 under 16 exact readers
    and one keyed envelope through node 2 minting 100 keys through the
    primary; every acknowledged mutation read back from both of its owners
    (?remote=true over each node's shards); a Set into a new shard read
    through every node right after its ack; every node's .keys log equal
-   to the primary's. The drill: SIGKILL node 2 under 8 readers (no read
-   may fail), a Set into a shard of node 0 and node 2 refused with
-   "replica write failed" and absent on node 0, node 2 restarted on its
-   data dir answering every read exactly. Printed: node start seconds,
+   to the primary's. The drill: (1) SIGKILL node 2 under 8 readers
+   through node 0 (no read may fail): nodes 0 and 1 mark it down by
+   probing (the seconds to each mark; the readers' p50 and slowest read
+   before the kill, between the kill and the mark and after the mark),
+   and ?profile=true Counts after the mark hold no failover record; (2) 4
+   writers x (3 envelopes of 200 Sets + 25 single Sets) through nodes 0
+   and 1 into node 2's shards, a shard no data holds included: every one
+   acknowledged, hints queued on both (writes/s, hints pending), and a
+   Clear of a loaded bit of w in a shard of nodes 1 and 2 through node 0
+   acknowledged; (3) a
+   Set planted on node 1 alone (remote=true) in a shard of nodes 0 and 1,
+   and one of node 2's f fragments truncated inside its snapshot; (4)
+   node 2 restarted: the file quarantined and the fence armed, 2 readers
+   through node 2 exact while fenced (the fenced shards re-routed), the
+   peers' hints replayed, the fence lifted, the file rebuilt (seconds to
+   ready, hints, lift and rebuild); (5) node 2's first scrub pass (every
+   node's passes since the restart, their last seconds, blocks merged),
+   the planted bit carried to node 0, every outage write and the planted
+   bit read back from each owner alone and the cleared bit on neither,
+   and every read through node 2 exact. Printed: node start seconds,
    load seconds and forwarded bytes, each kernel's launches per node
    (program_count, pair_stream_counts, topn_counts_packed,
    bsi_sum_counts, bsi_compare, cross_count_matrix and
@@ -216,10 +234,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    end.
 6. Server, write path, on the same server and index (bench.py's ingest
    stage, bench.py:1824-1935, cut to a fixed length): 8 keep-alive writers
-   each send 4 envelopes of 500 calls, 80 % Set of a column of their own
+   each send 3 envelopes of 500 calls, 80 % Set of a column of their own
    (column % 8 = writer) anywhere in the 1024 shards on one of f rows 0-7
    (dense), s rows 1-8 (sparse, K = 16..2048) or r row 0 (run), 20 %
-   Clear of a (row, column) the writer set earlier: 16,000 mutations,
+   Clear of a (row, column) the writer set earlier: 12,000 mutations,
    served through the IngestBatcher, Fragment.apply_batch and the
    in-place patches of the resident leaves, while 32 clients run
    Count(Intersect(Row(f=a), Row(f=b))). Every changed flag is checked
@@ -410,10 +428,10 @@ SPARSE_SENTINEL = SHARD_WIDTH
 # the write phase (bench.py:1824-1827 and 1830-1935, cut to a fixed length)
 INGEST_WRITERS = 8      # keep-alive writer threads (bench.py:1824)
 INGEST_CALLS = 500      # Set/Clear calls per envelope (bench.py:1825)
-# envelopes per writer in the measured window: 4 since phase 5g joined
-# the run (12 since 5f, 20 since 5e, 30 since 5d, 40 before), to keep the
-# whole run inside its time limit
-INGEST_ENVELOPES = 4
+# envelopes per writer in the measured window: 3 since the drill's
+# healing steps joined phase 5g (4 since 5g, 12 since 5f, 20 since 5e, 30
+# since 5d, 40 before), to keep the whole run inside its time limit
+INGEST_ENVELOPES = 3
 # per writer in each ingest on/off turn: 1 since phase 5g joined the run
 # (3 since 5e, 5 before), to keep the whole run inside its time limit
 INGEST_TURN_ENVELOPES = 1
@@ -3323,7 +3341,9 @@ def planner_phase(srv, port: int, packed: list, rows: list, s_rows: list,
 # never a shape (shard width 2^20, depth 10, the distributions)
 FROZEN_FULL = {"c2_rows": 100_000_000, "c3_rows": 1_000_000_000,
                "c4_shards": 953, "sim_molecules": 500_000}
-FROZEN_CUTS = {"c2_rows": 10_000_000, "c3_rows": 50_000_000,
+# config 3 at 25M rows since the drill's healing steps joined phase 5g
+# (50M before); the similarity search at its full 500k molecules
+FROZEN_CUTS = {"c2_rows": 10_000_000, "c3_rows": 25_000_000,
                "c4_shards": 128, "sim_molecules": 500_000}
 FROZEN_CONFIGS = ("2", "3", "4", "sim")
 C2_COLS, C2_HEAD, C2_HEAD_BITS = 10_000, 64, 2000  # scale_configs.py:65-113
@@ -3507,7 +3527,7 @@ def frozen_phase(srv, port: int, cuts: dict, configs, seed: int,
         from concurrent.futures import ThreadPoolExecutor
 
         # a shard's build holds several transient arrays of 8 bytes a row:
-        # all 8 shards at once at the cut's 50M rows, 2 at 1B rows
+        # all 8 shards at once at the cut's 25M rows, 2 at 1B rows
         workers = max(2, min(C3_SHARDS, 400_000_000 // n_rows))
         with ThreadPoolExecutor(max_workers=workers) as pool:
             built = list(pool.map(shard, range(C3_SHARDS)))
@@ -3831,11 +3851,16 @@ TYPED_LICENSES = 16
 TYPED_FORK_SHARE = 0.2
 TYPED_MOVED_SHARE = 0.1
 TYPED_CHUNK_SHARDS = 64  # shards per HTTP import request
-TYPED_T0 = "2019-01-01T00:00:00"
-TYPED_DAYS = 90  # 2019-01-01 .. 2019-03-31
+# 45 days since the drill's healing steps joined phase 5g (90 from
+# 2019-01-01 before): 51,200 fragments of the stargazer field (50 views),
+# not 97,280. They hold the whole of February, so that every window below
+# spans views that hold data: the ragged span 7 days of January, the
+# month of February and 9 days of March (17 views)
+TYPED_T0 = "2019-01-25T00:00:00"
+TYPED_DAYS = 45  # 2019-01-25 .. 2019-03-10
 TYPED_WINDOWS = (("2019-02-04T00:00", "2019-02-11T00:00", "one week"),
                  ("2019-02-01T00:00", "2019-03-01T00:00", "one month"),
-                 ("2019-01-15T00:00", "2019-03-10T00:00", "ragged span"),
+                 ("2019-01-25T00:00", "2019-03-10T00:00", "ragged span"),
                  ("2019-01-01T00:00", "2020-01-01T00:00", "whole year"))
 TYPED_USERS_MIX = (0, 1, 2, 3, 5, 8, 13, 21)  # the concurrent pass
 TYPED_LICENSES_MIX = (0, 3, 7, 12)
@@ -4733,18 +4758,29 @@ def keyed_only(device, seed: int) -> dict:
 # ---------------------------------------------------------- phase 5g: cluster
 
 CLUSTER_NODES = 3
-CLUSTER_SHARDS = 256  # cut by the time limit from the other phases' 1024
+# cut by the time limit from the other phases' 1024: 128 since the drill's
+# healing steps (256 before)
+CLUSTER_SHARDS = 128
 CLUSTER_CHUNK = 32  # shards per /import request
 CLUSTER_LANGS = KEYED_LANGS[:16]
 CLUSTER_LANG_BITS = 4096  # tagged columns per shard
 CLUSTER_S_ROWS = 8  # sparse rows of s: K = 16 << a per shard, 16..2048
 CLUSTER_CLIENTS, CLUSTER_PER_CLIENT = 32, 8
-CLUSTER_AB = ("off", "on", "off", "on")  # the coalescing A/B rounds
+# the coalescing A/B rounds: one of each since the drill's healing steps
+# (two of each before)
+CLUSTER_AB = ("off", "on")
 CLUSTER_WRITERS, CLUSTER_ENVELOPES, CLUSTER_CALLS = 4, 6, 500
 CLUSTER_READERS = 16
 CLUSTER_W_ROWS = 8  # rows of the written field w
 CLUSTER_NEW_KEYS = 100  # lang keys minted by the keyed envelope
 CLUSTER_DRILL_READERS = 8
+# the drill's outage writes: per writer, envelopes of Sets and single Sets
+# into node 2's shards, on w's row CLUSTER_W_ROWS; the planted bit on the
+# next row
+CLUSTER_OUTAGE_WRITERS = 4
+CLUSTER_OUTAGE_ENVELOPES, CLUSTER_OUTAGE_CALLS = 3, 200
+CLUSTER_OUTAGE_BITS = 25
+CLUSTER_AE_INTERVAL = 5.0  # the nodes' [anti-entropy] interval, seconds
 CLUSTER_CAPTURE_S = 1.0
 CLUSTER_PLATFORM = ""  # the nodes' [mesh] platform: "" is the card
 CLUSTER_KERNELS = ("program_count", "pair_stream_counts",
@@ -4766,14 +4802,29 @@ def _get_raw(port: int, path: str) -> bytes:
 
 
 def _free_ports(n: int) -> list:
+    """n free ports below the kernel's ephemeral range, so that a node
+    that dies and restarts on its port cannot find it taken meanwhile as
+    the source port of an outgoing connection."""
+    import random
     import socket
 
-    socks = [socket.socket() for _ in range(n)]
-    for s in socks:
-        s.bind(("127.0.0.1", 0))
-    ports = [s.getsockname()[1] for s in socks]
-    for s in socks:
-        s.close()
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random()
+    ports: list = []
+    while len(ports) < n:
+        p = rng.randrange(10000, max(low, 10001))
+        if p in ports:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", p))
+            except OSError:
+                continue
+        ports.append(p)
     return ports
 
 
@@ -4803,6 +4854,8 @@ class ClusterNodes:
                         # the passes measure the kernels: repeats would
                         # hit the plan cache and launch nothing
                         "[query]\nplan-cache-bytes = 0\n"
+                        "[anti-entropy]\n"
+                        f"interval = {CLUSTER_AE_INTERVAL}\n"
                         f'[mesh]\nplatform = "{CLUSTER_PLATFORM}"\n')
             self.configs.append(cfg)
 
@@ -5211,19 +5264,22 @@ def _read_back(nodes: ClusterNodes, w_rows: list, owned: dict,
     return n
 
 
-def cluster_phase(seed: int) -> dict:
+def cluster_phase(seed: int,
+                  started: ClusterNodes | None = None) -> dict:
     """Phase 5g: three port node processes serve one index (BASELINE.json
     configs[4], bench.py bench_distributed: a 3-node mapReduce), every
-    answer checked against a numpy oracle through node 0 and node 2."""
+    answer checked against a numpy oracle through node 0 and node 2.
+    `started`: nodes the caller started earlier (stopped here too)."""
     t_phase = time.perf_counter()
     n_shards = CLUSTER_SHARDS
     out: dict = {}
     with tempfile.TemporaryDirectory(prefix="pilosa_torch_cluster_") as tmp:
-        nodes = ClusterNodes(tmp, CLUSTER_NODES)
+        nodes = started or ClusterNodes(tmp, CLUSTER_NODES)
         try:
             t_start = time.perf_counter()
-            for i in range(CLUSTER_NODES):
-                nodes.start(i)
+            if started is None:
+                for i in range(CLUSTER_NODES):
+                    nodes.start(i)
             # the data, the request bodies and the oracle are made while
             # the nodes start
             t0 = time.perf_counter()
@@ -5243,8 +5299,10 @@ def cluster_phase(seed: int) -> dict:
                       for i in range(CLUSTER_NODES)]
             ports = nodes.ports
             log(f"  {CLUSTER_NODES} nodes (python -m pilosa_tpu_torch.cli "
-                f"server, replicas 2, plan cache off) ready after "
-                + ", ".join(f"{s:.1f}" for s in starts) + " s")
+                f"server, replicas 2, plan cache off"
+                + (", started before phase 5f" if started else "")
+                + ") ready " + ", ".join(f"{s:.1f}" for s in starts)
+                + " s into the phase")
             builds = [_node_vars(p)["gauges"]["kernelBuild/seconds"]
                       for p in ports]
             if any(builds):
@@ -5418,101 +5476,345 @@ def cluster_phase(seed: int) -> dict:
     return out
 
 
-def cluster_drill(nodes: ClusterNodes, reads: list, count_mix: list,
-                  owned: dict, w_rows: list, n_shards: int,
-                  launches: list) -> dict:
-    """SIGKILL node 2 under CLUSTER_DRILL_READERS readers through node 0
-    (every read answered after the kill must be exact); a Set into a
-    shard node 2 owns is refused and leaves nothing on the live owner;
-    node 2 restarted on its data dir answers every read."""
-    ports = nodes.ports
+def _drill_readers(port: int, count_mix: list, seed: int, n: int,
+                   phase: dict, stop: threading.Event) -> tuple:
+    """n reader threads of count_mix through one node; each read's
+    latency lands under the phase current when it started. -> (threads,
+    {phase: [ms]}, failed)."""
+    lat: dict = {}
     failed: list = []
-    done = [0, 0]  # reads answered before, after the kill
-    after_ms: list = []  # latencies of the reads answered after it
-    killed = threading.Event()
-    stop = threading.Event()
     lock = threading.Lock()
 
     def reader(r: int) -> None:
-        rr = np.random.default_rng(900 + r)
-        conn = http.client.HTTPConnection("localhost", ports[0], timeout=600)
+        rr = np.random.default_rng(seed + r)
+        conn = http.client.HTTPConnection("localhost", port, timeout=600)
         try:
             while not stop.is_set():
                 pql, want = count_mix[int(rr.integers(len(count_mix)))]
+                at = phase["now"]
                 t = time.perf_counter()
                 try:
-                    got = _http(ports[0], "POST", "/index/d/query",
+                    got = _http(port, "POST", "/index/d/query",
                                 pql.encode(), conn)["results"][0]
                     ok = got == want
                 except Exception as e:  # noqa: BLE001 — counted
                     ok, got = False, repr(e)
                     conn.close()
-                    conn = http.client.HTTPConnection("localhost", ports[0],
+                    conn = http.client.HTTPConnection("localhost", port,
                                                       timeout=600)
-                after = killed.is_set()
                 with lock:
-                    done[after] += 1
-                    if after:
-                        after_ms.append((time.perf_counter() - t) * 1e3)
+                    lat.setdefault(at, []).append(
+                        (time.perf_counter() - t) * 1e3)
                     if not ok:
-                        failed.append((after, pql, str(got)[:200]))
+                        failed.append((at, pql, str(got)[:200]))
         finally:
             conn.close()
 
-    ts = [threading.Thread(target=reader, args=(r,))
-          for r in range(CLUSTER_DRILL_READERS)]
+    ts = [threading.Thread(target=reader, args=(r,)) for r in range(n)]
     for t in ts:
         t.start()
+    return ts, lat, failed
+
+
+def _lat_line(ms: list) -> str:
+    if not ms:
+        return "none"
+    return (f"{len(ms)} reads, p50 {statistics.median(ms):.2f} ms, slowest "
+            f"{max(ms):.1f} ms")
+
+
+def _outage_writes(nodes: ClusterNodes, shards: list, seed: int) -> tuple:
+    """CLUSTER_OUTAGE_WRITERS writers through nodes 0 and 1, each
+    CLUSTER_OUTAGE_ENVELOPES envelopes of CLUSTER_OUTAGE_CALLS Sets and
+    CLUSTER_OUTAGE_BITS single Sets on w's outage row, into `shards`.
+    -> (sorted columns written, mutations acknowledged, seconds)."""
+    rng = np.random.default_rng(seed + 81)
+    n_w = CLUSTER_OUTAGE_WRITERS
+    per_writer = []
+    cols_all = []
+    row = CLUSTER_W_ROWS
+    for w in range(n_w):
+        n = CLUSTER_OUTAGE_ENVELOPES * CLUSTER_OUTAGE_CALLS + \
+            CLUSTER_OUTAGE_BITS
+        sh = np.asarray(shards, dtype=np.int64)[rng.integers(0, len(shards),
+                                                             n)]
+        offs = rng.choice(SHARD_WIDTH // n_w, n, replace=False) * n_w + w
+        cols = sh * SHARD_WIDTH + offs
+        cols_all.append(cols)
+        k = CLUSTER_OUTAGE_ENVELOPES * CLUSTER_OUTAGE_CALLS
+        bodies = ["\n".join(f"Set({c}, w={row})" for c in
+                            cols[e * CLUSTER_OUTAGE_CALLS:
+                                 (e + 1) * CLUSTER_OUTAGE_CALLS].tolist())
+                  for e in range(CLUSTER_OUTAGE_ENVELOPES)]
+        bodies += [f"Set({c}, w={row})" for c in cols[k:].tolist()]
+        per_writer.append(bodies)
+    errors: list = []
+    acked = [0] * n_w
+
+    def writer(w: int) -> None:
+        port = nodes.ports[w % 2]
+        conn = http.client.HTTPConnection("localhost", port, timeout=600)
+        try:
+            for body in per_writer[w]:
+                got = _http(port, "POST", "/index/d/query", body.encode(),
+                            conn)["results"]
+                if got != [True] * (body.count("\n") + 1):
+                    errors.append(f"writer {w}: {got[:4]}")
+                acked[w] += len(got)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"writer {w}: {e!r}")
+        finally:
+            conn.close()
+
+    ts = [threading.Thread(target=writer, args=(w,)) for w in range(n_w)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    secs = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"outage writes not acknowledged: {errors[:3]}")
+    return np.sort(np.concatenate(cols_all)), sum(acked), secs
+
+
+def _poll(cond, timeout: float, what: str, step: float = 0.1) -> float:
+    """Seconds until cond() holds (checked every `step`)."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not after {timeout} s")
+        time.sleep(step)
+    return time.perf_counter() - t0
+
+
+def cluster_drill(nodes: ClusterNodes, reads: list, count_mix: list,
+                  owned: dict, w_rows: list, n_shards: int,
+                  launches: list) -> dict:
+    """Phase 5g's node-death drill. (1) SIGKILL node 2 under readers
+    through node 0: nodes 0 and 1 mark it down by probing, and reads
+    started after the mark take no failover. (2) Writes through nodes 0
+    and 1 into node 2's shards, one none of the data holds yet included,
+    and a Clear of a loaded bit are acknowledged with hints. (3) A bit
+    planted on node 1 alone in a shard it shares with node 0; one of node
+    2's fragment files truncated inside its snapshot. (4) Node 2
+    restarted on its data dir: the file quarantined, the read fence
+    armed, reads through it exact and re-routed, the peers' hints
+    replayed, the fence lifted, the file rebuilt from its replica. (5)
+    Node 2's first anti-entropy pass; the planted bit carried to node 0;
+    every outage write and the planted bit read back from each owner
+    alone, the cleared bit from neither; every read through node 2."""
+    ports = nodes.ports
+    ids = nodes.ids
+    out: dict = {}
+    # (1) the death and the mark-down
+    phase = {"now": "before"}
+    stop = threading.Event()
+    ts, lat, failed = _drill_readers(ports[0], count_mix, 900,
+                                     CLUSTER_DRILL_READERS, phase, stop)
     time.sleep(0.5)
     launches[2] = _node_launches(_node_vars(ports[2]))
     t_kill = time.perf_counter()
     nodes.kill(2)
-    kill_s = time.perf_counter() - t_kill
-    killed.set()
-    deadline = time.perf_counter() + 60
-    time.sleep(2.0)
-    while done[1] < 2 * CLUSTER_DRILL_READERS \
-            and time.perf_counter() < deadline:
-        time.sleep(0.1)
+    phase["now"] = "after_kill"
+    marks: list = [None, None]
+
+    def degraded(i: int) -> bool:
+        if marks[i] is None and \
+                _http(ports[i], "GET", "/status")["state"] == "DEGRADED":
+            marks[i] = time.perf_counter() - t_kill
+            if i == 0:
+                phase["now"] = "after_mark"
+        return marks[i] is not None
+
+    _poll(lambda: degraded(0) & degraded(1), 60, "mark-down", 0.02)
+    _poll(lambda: len(lat.get("after_mark", [])) >= 2 * CLUSTER_DRILL_READERS,
+          60, "reads after the mark")
     stop.set()
     for t in ts:
         t.join()
-    log(f"  SIGKILL node 2 under {CLUSTER_DRILL_READERS} readers (the "
-        f"process gone {kill_s:.2f} s after the signal): {done[0]} reads "
-        f"answered before, {done[1]} after (max "
-        f"{max(after_ms, default=0):.1f} ms), {len(failed)} failed")
-    if failed or done[1] < 2 * CLUSTER_DRILL_READERS:
-        raise AssertionError(f"reads around the kill: {done[1]} answered "
-                             f"after it, failed {failed[:3]}")
-    shard = next(s for s in range(n_shards)
-                 if {i for i in owned if s in owned[i]} ==
-                 {nodes.ids[0], nodes.ids[2]})
-    col = shard * SHARD_WIDTH + 9
-    try:
-        _http(ports[0], "POST", "/index/d/query", f"Set({col}, w=1)".encode())
-        raise AssertionError("a Set with a dead replica was acknowledged")
-    except AssertionError as e:
-        if "replica write failed" not in str(e):
-            raise
-    held = _http(ports[0], "POST",
-                 f"/index/d/query?remote=true&shards={shard}",
-                 b"Row(w=1)")["results"][0]["columns"]
-    if col in held:
-        raise AssertionError("the refused Set is on the live owner")
-    log(f"  Set({col}, w=1) into shard {shard} (owners node0, node2) "
-        "refused: replica write failed; the live owner does not hold it")
+    if failed:
+        raise AssertionError(f"{len(failed)} reads failed around the kill: "
+                             f"{failed[:3]}")
+    profs = [_http(ports[0], "POST", "/index/d/query?profile=true",
+                   count_mix[k][0].encode())["profile"] for k in range(4)]
+    failover = [f for p in profs for f in p["fanout"]
+                if f.get("kind") == "failover" or f["node"] == ids[2]]
+    if failover:
+        raise AssertionError(f"reads after the mark still fail over: "
+                             f"{failover[:2]}")
+    out["mark_s"] = marks
+    out["reads"] = {k: {"n": len(v), "p50_ms": statistics.median(v),
+                        "max_ms": max(v)} for k, v in lat.items()}
+    log(f"  SIGKILL node 2 under {CLUSTER_DRILL_READERS} readers through "
+        f"node 0: marked down by node 0 after {marks[0]:.2f} s, by node 1 "
+        f"after {marks[1]:.2f} s; 0 failed reads; before the kill "
+        f"{_lat_line(lat.get('before', []))}; after the kill, before the "
+        f"mark {_lat_line(lat.get('after_kill', []))}; after the mark "
+        f"{_lat_line(lat['after_mark'])}; 4 ?profile=true Counts after the "
+        "mark: no failover record, node 2 in no fan-out")
+    # (2) writes during the outage
+    node2 = ids[2]
+    shards2 = [s for s in owned[node2] if s < n_shards]
+    fresh = next(s for s in owned[node2] if s > n_shards + 44)
+    cols, n_mut, write_s = _outage_writes(nodes, shards2 + [fresh], 0)
+    hints = [_node_vars(p)["writeHandoffs"] for p in ports[:2]]
+    if any(h["queued"] < 1 for h in hints):
+        raise AssertionError(f"no hints queued: {hints}")
+    w_rows.append(cols)
+    for i in (0, 1):
+        got = _http(ports[i], "POST", "/index/d/query",
+                    f"Count(Row(w={CLUSTER_W_ROWS}))".encode())["results"][0]
+        if got != cols.size:
+            raise AssertionError(f"outage row through node {i}: {got} != "
+                                 f"{cols.size}")
+    # a Clear of a loaded bit in a shard of nodes 1 and 2, through node 0,
+    # which owns none of it: node 2's hint for it is held by a non-owner
+    w0 = w_rows[0]
+    clr_shard = next(s for s in shards2 if s in owned[ids[1]]
+                     and np.any(w0 // SHARD_WIDTH == s))
+    clr = int(w0[w0 // SHARD_WIDTH == clr_shard][0])
+    got = _http(ports[0], "POST", "/index/d/query",
+                f"Clear({clr}, w=0)".encode())["results"]
+    if got != [True]:
+        raise AssertionError(f"outage Clear({clr}, w=0): {got}")
+    w_rows[0] = w0[w0 != clr]
+    reads = [(q, int(w_rows[0].size) if q == "Count(Row(w=0))" else want)
+             for q, want in reads]
+    out["outage_writes"] = {
+        "mutations": n_mut, "seconds": write_s,
+        "mutations_per_s": n_mut / write_s,
+        "hints_pending_bytes": [h["pendingBytes"] for h in hints],
+        "hints_queued": [h["queued"] for h in hints]}
+    log(f"  outage writes: {CLUSTER_OUTAGE_WRITERS} writers x "
+        f"({CLUSTER_OUTAGE_ENVELOPES} envelopes of {CLUSTER_OUTAGE_CALLS} "
+        f"Sets + {CLUSTER_OUTAGE_BITS} single Sets) through nodes 0 and 1 "
+        f"into node 2's shards (new shard {fresh} included): {n_mut} "
+        f"acknowledged, 0 refused, {n_mut / write_s:.1f} /s; hints queued "
+        f"{[h['queued'] for h in hints]}, pending "
+        f"{[h['pendingBytes'] for h in hints]} bytes on nodes 0 and 1; "
+        f"Clear({clr}, w=0) of a loaded bit (shard {clr_shard}, owners node1"
+        " and node2) through node 0 acknowledged")
+    # (3) a planted divergence and a damaged file
+    plant_shard = next(s for s in range(n_shards + 64)
+                       if {i for i in owned if s in owned[i]}
+                       == {ids[0], ids[1]})
+    plant = plant_shard * SHARD_WIDTH + 123457
+    plant_row = CLUSTER_W_ROWS + 1
+    _http(ports[1], "POST",
+          f"/index/d/query?remote=true&shards={plant_shard}",
+          f"Set({plant}, w={plant_row})".encode())
+    held0 = _http(ports[0], "POST",
+                  f"/index/d/query?remote=true&shards={plant_shard}",
+                  f"Row(w={plant_row})".encode())["results"][0]["columns"]
+    if held0:
+        raise AssertionError(f"the planted bit is on node 0: {held0}")
+    w_rows.append(np.array([plant], dtype=np.int64))
+    bad_shard = shards2[len(shards2) // 2]
+    bad = os.path.join(nodes.tmp, "n2", "d", "f", "views", "standard",
+                       "fragments", str(bad_shard))
+    size = os.path.getsize(bad)
+    with open(bad, "r+b") as fh:
+        fh.truncate(size // 2)
+    log(f"  planted Set({plant}, w={plant_row}) on node 1 alone (shard "
+        f"{plant_shard}, owners node0 and node1); truncated node 2's "
+        f"fragment d/f/standard/{bad_shard} from {size} to {size // 2} bytes")
+    # (4) the return
+    base_passes = [_node_vars(p)["counts"].get("antiEntropy/passes", 0)
+                   for p in ports[:2]] + [0]
     t0 = time.perf_counter()
     nodes.start(2)
     restart_s = nodes.wait_ready(2, t0)
-    s = _check_reads(ports[2], reads, "node 2 after its restart")
-    _read_back(nodes, w_rows, owned, [2])
-    log(f"  node 2 restarted on its data dir in {restart_s:.1f} s; "
-        f"{len(reads)} reads through it in {s:.1f} s and its share of "
-        "every acknowledged write exact")
-    return {"reads_before_kill": done[0], "reads_after_kill": done[1],
-            "failed_reads": len(failed), "kill_s": kill_s,
-            "after_kill_max_ms": max(after_ms), "restart_s": restart_s,
-            "refused_shard": shard}
+    phase2 = {"now": "fenced"}
+    stop2 = threading.Event()
+    ts2, lat2, failed2 = _drill_readers(ports[2], count_mix, 950, 2, phase2,
+                                        stop2)
+    dv2 = _node_vars(ports[2])
+    dmg = [d for d in dv2.get("damagedFragments", [])
+           if d["shard"] == bad_shard and d["field"] == "f"]
+    fenced = dv2["counts"].get("readFence/fenced", 0)
+    if not dmg or not dmg[0]["quarantinePath"] or not fenced:
+        raise AssertionError(f"node 2 back: quarantined {dmg}, fenced "
+                             f"{fenced}")
+    stamps: dict = {}
+
+    def returned() -> bool:
+        now = time.perf_counter() - t0
+        if "hints" not in stamps and all(
+                _node_vars(p)["writeHandoffs"]["pendingBytes"] == 0
+                for p in ports[:2]):
+            stamps["hints"] = now
+        dv = _node_vars(ports[2])
+        if "fence" not in stamps and dv.get(
+                "readFence", {"fencedShards": 0})["fencedShards"] == 0:
+            stamps["fence"] = now
+            phase2["now"] = "lifted"
+        if "rebuild" not in stamps and any(
+                d["shard"] == bad_shard and d["rebuiltFrom"]
+                for d in dv.get("damagedFragments", [])):
+            stamps["rebuild"] = now
+        return len(stamps) == 3
+
+    _poll(returned, 180, "node 2's return", 0.5)
+    _poll(lambda: len(lat2.get("lifted", [])) >= 2, 60, "reads after lift")
+    stop2.set()
+    for t in ts2:
+        t.join()
+    fence = _node_vars(ports[2]).get("readFence", {"rerouted": 0,
+                                                   "refusedRemote": 0})
+    if failed2 or not fence["rerouted"]:
+        raise AssertionError(f"reads through node 2 while fenced: failed "
+                             f"{failed2[:3]}, fence {fence}")
+    replayed = [_node_vars(p)["writeHandoffs"]["replayed"] for p in ports[:2]]
+    out["return"] = {"ready_s": restart_s, "hints_replayed_s": stamps["hints"],
+                     "fence_lifted_s": stamps["fence"],
+                     "rebuilt_s": stamps["rebuild"], "fenced": fenced,
+                     "fence": fence, "replayed": replayed,
+                     "reads": {k: {"n": len(v),
+                                   "p50_ms": statistics.median(v),
+                                   "max_ms": max(v)}
+                               for k, v in lat2.items()}}
+    log(f"  node 2 restarted: ready after {restart_s:.1f} s (d/f/standard/"
+        f"{bad_shard} quarantined, {fenced} shards fenced); hints replayed "
+        f"{replayed} by {stamps['hints']:.1f} s; fence lifted at "
+        f"{stamps['fence']:.1f} s ({fence['rerouted']} fenced shard reads "
+        f"re-routed, {fence['refusedRemote']} remote reads refused); file "
+        f"rebuilt at {stamps['rebuild']:.1f} s; reads through node 2 while "
+        f"fenced {_lat_line(lat2.get('fenced', []))}, after "
+        f"{_lat_line(lat2['lifted'])}, 0 failed")
+    # (5) anti-entropy and the read-back from each owner alone: node 2's
+    # first pass (its rebuild ran in it) and the planted bit on node 0
+    t1 = time.perf_counter()
+    _poll(lambda: _node_vars(ports[2])["counts"].get("antiEntropy/passes", 0)
+          > 0, 60, "node 2's first scrub pass", 0.2)
+    pass_s = time.perf_counter() - t1
+    dvs = [_node_vars(p) for p in ports]
+    scrub = [{"pass_s": d["gauges"].get("antiEntropy/lastPassSeconds"),
+              "passes": d["counts"].get("antiEntropy/passes", 0) - b,
+              "blocks_merged": d["counts"].get("antiEntropy/blocksMerged", 0),
+              "rebuilt": d["counts"].get("antiEntropy/fragmentsRebuilt", 0)}
+             for d, b in zip(dvs, base_passes)]
+    carried_s = _poll(lambda: plant in _http(
+        ports[0], "POST", f"/index/d/query?remote=true&shards={plant_shard}",
+        f"Row(w={plant_row})".encode())["results"][0]["columns"],
+        60, "the planted bit on node 0", 0.2)
+    n_back = _read_back(nodes, w_rows, owned, [0, 1, 2])
+    reads = reads + [(f"Count(Row(w={CLUSTER_W_ROWS}))", int(cols.size)),
+                     (f"Count(Row(w={plant_row}))", 1)]
+    s = _check_reads(ports[2], reads, "node 2 after its return")
+    out["scrub"] = scrub
+    out["planted_carried_s"] = carried_s
+    log(f"  anti-entropy (interval {CLUSTER_AE_INTERVAL} s): node 2's "
+        f"first pass within {pass_s:.1f} s of the heal; passes since the "
+        f"restart {[x['passes'] for x in scrub]}, last pass seconds "
+        + ", ".join("none" if x["pass_s"] is None else f"{x['pass_s']:.2f}"
+                    for x in scrub)
+        + f"; blocks merged {[x['blocks_merged'] for x in scrub]}; the "
+        f"planted bit on node 0 after {carried_s:.1f} s more; read back "
+        f"{n_back} acknowledged columns (every outage write and the planted "
+        f"bit included, the cleared bit absent) from each owner alone; "
+        f"{len(reads)} reads through node 2 in {s:.1f} s, exact")
+    return out
 
 
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
@@ -5744,17 +6046,37 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                 out["frozen"] = frozen_phase(srv, port, *frozen, seed)
                 log("phase 5e: typed fields (Star Trace) on the same server")
                 out["typed"] = typed_phase(srv, port, n_shards, seed, *typed)
-                log("phase 5f: string keys and attributes (a keyed "
-                    "language field on the Star Trace index, a keyed-column "
-                    "index of user logins) on the same server")
-                out["keyed"] = keyed_phase(srv, port, n_shards, seed,
-                                           out["typed"].pop("data"))
-                delete_typed(srv, out["typed"]["stats"])
-                log(f"phase 5g: the cluster, {CLUSTER_NODES} port node "
-                    f"processes over {CLUSTER_SHARDS} shards, replicas 2 "
-                    f"(device memory free {torch.cuda.mem_get_info()[0]} "
-                    "bytes)")
-                out["cluster"] = cluster_phase(seed)
+                # phase 5g's node processes start now, so that their
+                # start (host work in processes of their own) runs beside
+                # phase 5f; cluster_phase stops them
+                cl_tmp = tempfile.TemporaryDirectory(
+                    prefix="pilosa_torch_cluster_")
+                cl_nodes = ClusterNodes(cl_tmp.name, CLUSTER_NODES)
+                try:
+                    for i in range(CLUSTER_NODES):
+                        cl_nodes.start(i)
+                    log("phase 5f: string keys and attributes (a keyed "
+                        "language field on the Star Trace index, a "
+                        "keyed-column index of user logins) on the same "
+                        "server")
+                    out["keyed"] = keyed_phase(srv, port, n_shards, seed,
+                                               out["typed"].pop("data"))
+                    delete_typed(srv, out["typed"]["stats"])
+                    # the node processes share the card: this server's
+                    # resident leaves and cached results go (phase 6
+                    # rebuilds what it reads), and so do the allocator's
+                    # free blocks; with them kept, 5.9 GB was left and a
+                    # node ran out
+                    srv.executor.clear_caches()
+                    torch.cuda.empty_cache()
+                    log(f"phase 5g: the cluster, {CLUSTER_NODES} port node "
+                        f"processes over {CLUSTER_SHARDS} shards, replicas "
+                        f"2 (device memory free "
+                        f"{torch.cuda.mem_get_info()[0]} bytes)")
+                    out["cluster"] = cluster_phase(seed, cl_nodes)
+                finally:
+                    cl_nodes.stop()
+                    cl_tmp.cleanup()
             log("phase 6: write path (coalesced Set/Clear) on the same "
                 "server, under concurrent reads")
             out["ingest"] = ingest_phase(srv, port, p, exists_all, s_rows,
@@ -5865,10 +6187,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=8)
     ap.add_argument("--slab-rows", type=int, default=32)
     ap.add_argument("--k", type=int, default=1024)
-    # timed runs a kernel measurement: 3 since phase 5g joined the run (4
-    # since 5f, 6 since 5e, 10 before), to keep the whole run inside its
-    # time limit
-    ap.add_argument("--runs", type=int, default=3)
+    # timed runs a kernel measurement: 2 since the drill's healing steps
+    # (3 since phase 5g joined the run, 4 since 5f, 6 since 5e, 10
+    # before), to keep the whole run inside its time limit
+    ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--clients", type=int, default=32)
     # the Count pass: 8 a client since phase 5g joined the run (16 since
     # 5f, 32 since 5e, 64 before)

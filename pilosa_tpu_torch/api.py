@@ -24,8 +24,12 @@ node's CountBatcher and PlaneSumBatcher coalesce them) and refusing a
 write entry by entry; an import is split by shard and forwarded to every
 owner with remote=true (forward_import_fn, forward_roaring_fn), this node
 importing only what it owns; the internal reads (hosts, max_shards,
-shard_nodes, translate_keys, translate_data) back the /internal/* routes.
-Without a cluster, or with one node, the API is the single node's.
+shard_nodes, translate_keys, translate_data) back the /internal/* routes,
+and anti-entropy reads peers through fragment_blocks,
+fragment_block_data, fragment_data and the attribute diffs
+(:1020-1070); a missing fragment is a 404 with the code
+`fragment-not-found`. Without a cluster, or with one node, the API is
+the single node's.
 
 Per-request profiling (api.py:109-125, :270-360): a query gets a
 QueryProfile when the request asks (?profile=true) or while
@@ -70,6 +74,7 @@ from pilosa_tpu_torch.pql.ast import WRITE_CALLS
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import qctx, tracing
+from pilosa_tpu_torch.utils.attrstore import attr_diff
 from pilosa_tpu_torch.utils.translate import TranslateStore
 
 
@@ -118,8 +123,8 @@ class ApiError(Exception):
 
 
 class NotFoundError(ApiError):
-    def __init__(self, msg: str):
-        super().__init__(msg, status=404)
+    def __init__(self, msg: str, code: str = ""):
+        super().__init__(msg, status=404, code=code)
 
 
 class ConflictError(ApiError):
@@ -759,6 +764,54 @@ class API:
         _, f = self._field(index_name, field_name)
         f.remove_available_shard(shard)
 
+    # -- anti-entropy's reads (:1020-1070) ----------------------------------
+
+    def _fragment(self, index_name: str, field_name: str, view_name: str,
+                  shard: int):
+        _, f = self._field(index_name, field_name)
+        view = f.view(view_name)
+        frag = view.fragment(shard) if view is not None else None
+        if frag is None:
+            raise NotFoundError("fragment not found",
+                                code="fragment-not-found")
+        return frag
+
+    def fragment_blocks(self, index_name: str, field_name: str,
+                        view_name: str, shard: int) -> list:
+        """GET /internal/fragment/blocks: [{"id", "checksum"}]."""
+        frag = self._fragment(index_name, field_name, view_name, shard)
+        return [{"id": b, "checksum": chk.hex()} for b, chk in frag.blocks()]
+
+    def fragment_block_data(self, index_name: str, field_name: str,
+                            view_name: str, shard: int, block: int) -> dict:
+        """GET /internal/fragment/block/data: one block's pairs."""
+        frag = self._fragment(index_name, field_name, view_name, shard)
+        rows, cols = frag.block_data(block)
+        return {"rowIDs": rows.tolist(), "columnIDs": cols.tolist()}
+
+    def fragment_data(self, index_name: str, field_name: str,
+                      view_name: str, shard: int) -> bytes:
+        """GET /internal/fragment/data: the fragment as roaring bytes
+        (what retrieve_shard streams to a rebuild)."""
+        frag = self._fragment(index_name, field_name, view_name, shard)
+        buf = io.BytesIO()
+        frag.storage.write_to(buf)
+        return buf.getvalue()
+
+    def column_attr_diff(self, index_name: str, blocks: list,
+                         block_range=None) -> dict:
+        """POST /internal/index/{i}/attr/diff."""
+        index = self.holder.index(index_name)
+        if index is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        return attr_diff(index.column_attrs, blocks, block_range)
+
+    def row_attr_diff(self, index_name: str, field_name: str, blocks: list,
+                      block_range=None) -> dict:
+        """POST /internal/index/{i}/field/{f}/attr/diff."""
+        _, f = self._field(index_name, field_name)
+        return attr_diff(f.row_attrs, blocks, block_range)
+
     def translate_keys(self, index_name: str, field_name: Optional[str],
                        keys: list, create: bool = True) -> list:
         """POST /internal/translate/keys (the primary answers)."""
@@ -788,6 +841,10 @@ class API:
                 "localID": self.node_id,
                 "coordinatorID": (c.coordinator_id if c is not None
                                   else self.node_id),
+                # this node's own lifecycle state: a probing peer tells a
+                # restarted node from a draining one by it (the port does
+                # not drain itself yet)
+                "nodeState": "READY",
                 "uptimeSeconds": int(time.monotonic() - self.start_time),
                 "version": __version__,
                 "device": str(dev)}

@@ -9,16 +9,17 @@ PILOSA_TPU_CLUSTER_REPLICAS). The keys it serves:
     [cluster]  disabled, coordinator, replicas, hosts, membership-interval,
                query-timeout, long-query-time, fanout-pool-size,
                fanout-coalesce-window, fanout-coalesce-max-batch,
-               hedge-delay, ici-serving
+               hedge-delay, ici-serving, liveness-threshold,
+               probe-timeout, hint-max-bytes, hint-max-age
+    [anti-entropy] interval, jitter, pace, max-blocks
     [query]    plan, plan-cache-bytes, sparse-threshold, run-threshold
     [storage]  eviction
     [metric]   telemetry-interval
     [mesh]     platform ("cpu" runs the node on the CPU; "", the default,
                on the card), devices ("auto", "none" or 1: one device)
 
-Every other key the JAX package knows (liveness probing, gossip, hints,
-drain, anti-entropy, QoS, SLOs, TLS, tracing export, the [ingest]
-settings, ...) must keep its default: set away from it, in the file or
+Every other key the JAX package knows (gossip, drain, QoS, SLOs, TLS,
+tracing export, the [ingest] settings, ...) must keep its default: set away from it, in the file or
 the environment, it fails the start with NotPortedError naming the key.
 A key neither package knows fails too. Durations may be written as Go
 durations ("250ms", "1h30m") where the default is a number of seconds.
@@ -90,7 +91,10 @@ PORTED = {
     "cluster": {"disabled", "coordinator", "replicas", "hosts",
                 "long_query_time", "query_timeout", "membership_interval",
                 "fanout_pool_size", "fanout_coalesce_window",
-                "fanout_coalesce_max_batch", "hedge_delay", "ici_serving"},
+                "fanout_coalesce_max_batch", "hedge_delay", "ici_serving",
+                "liveness_threshold", "probe_timeout", "hint_max_bytes",
+                "hint_max_age"},
+    "anti_entropy": {"interval", "jitter", "pace", "max_blocks"},
     "query": {"plan", "plan_cache_bytes", "sparse_threshold",
               "run_threshold"},
     "storage": {"eviction"},

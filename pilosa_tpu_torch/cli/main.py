@@ -54,6 +54,7 @@ def cmd_server(args) -> int:
         from pilosa_tpu_torch.ops import _build
         _build.load()
     c, q = cfg.values["cluster"], cfg.values["query"]
+    ae = cfg.values["anti_entropy"]
     data_dir = os.path.expanduser(cfg.get("", "data_dir"))
     server = Server(
         data_dir, host=cfg.host, port=cfg.port, device=device,
@@ -68,6 +69,14 @@ def cmd_server(args) -> int:
         fanout_coalesce_max_batch=c["fanout_coalesce_max_batch"],
         hedge_delay=c["hedge_delay"],
         ici_serving=c["ici_serving"],
+        liveness_threshold=c["liveness_threshold"],
+        probe_timeout=c["probe_timeout"],
+        hint_max_bytes=c["hint_max_bytes"],
+        hint_max_age=c["hint_max_age"],
+        anti_entropy_interval=ae["interval"],
+        anti_entropy_jitter=ae["jitter"],
+        anti_entropy_pace=ae["pace"],
+        anti_entropy_max_blocks=ae["max_blocks"],
         plan=q["plan"], plan_cache_bytes=q["plan_cache_bytes"],
         sparse_threshold=q["sparse_threshold"],
         run_threshold=q["run_threshold"],

@@ -24,6 +24,9 @@ ARRAY_MAX_SIZE = 4096   # array container -> bitmap container threshold
 # Fragment write-ahead behaviour: ops before snapshot compaction.
 MAX_OP_N = 2000
 
+# Rows per anti-entropy checksum block (pilosa_tpu/constants.py:31).
+HASH_BLOCK_SIZE = 100
+
 # Field option default.
 DEFAULT_CACHE_SIZE = 50000
 

@@ -135,11 +135,25 @@ acknowledged. A coalesced Set/Clear batch sends each other replica one
 multi-call remote=true envelope, which the replica applies directly
 (_execute_ingest_remote), then applies here what no replica refused
 (_apply_ingest_distributed). Deadlines (utils/qctx.py) are checked between
-calls and node batches. The index's read fence is held only around this
-node's own share, never across an RPC, and a batch's apply fence only
-around its local apply. Without liveness probing no node is ever marked
-down, so nothing is written as a hint (_hint_write does nothing, as in a
-JAX executor without a HintStore).
+calls and node batches. The index's apply fence (ApplyFence) is held only
+around this node's own share, never across an RPC, and a batch's only
+around its local apply.
+
+Liveness and healing (executor.py:265-282, :384-480, :3034-3166,
+:3303-3427): a replica the server's probing marked down (or that
+announced a drain) is skipped by every write, which is then acknowledged
+by its live replicas with a durable hint appended for the skipped one
+(`hints`, a storage/hints.py HintStore, set by the server; None writes no
+hint); a replica that answers "draining", or was marked down between
+planning and send, is demoted to a hint the same way. With every owner
+unavailable the write is refused ("all replicas down for write"); an
+owner that is dead but not yet marked down still refuses it ("replica
+write failed"). The read fence (read_fence: (index, shard) pairs a
+rejoining node may hold stale) re-routes this node's fenced shards onto
+the next live replica in the fan-out plan (_fanout_groups), refuses them
+to a coordinator's remote=true read with the code `read-fenced`, so its
+per-shard failover serves them elsewhere, and serves them stale only when
+no replica is live (_check_remote_fence).
 
 Calls and options outside the slice raise NotPortedError (a 400 at the
 API).
@@ -336,6 +350,15 @@ class Executor:
         # synchronous create-shard broadcast, run before a Set that
         # created a shard is acknowledged
         self.announce_shard_fn = None
+        # the server's HintStore: writes skipped on unavailable replicas
+        self.hints = None
+        # the rejoin read fence: (index, shard) pairs this node may hold
+        # stale until a block-checksum check lifts them
+        self.read_fence: set[tuple[str, int]] = set()
+        self._fence_lock = threading.Lock()
+        self.fence_rerouted = 0  # local fenced shards planned elsewhere
+        self.fence_refused = 0  # remote reads refused into failover
+        self.fence_served_stale = 0  # no live replica: served from here
         self.runner = DeviceRunner(device)
         # observability: nop until a Server installs its stats client and
         # tracer; the heat map unless PILOSA_TPU_TORCH_HEAT=0
@@ -389,6 +412,7 @@ class Executor:
             "remoteBatches": 0,    # replica envelopes sent
             "remoteMutations": 0,  # mutations those envelopes carried
             "newShards": 0,        # shards created by batched Sets
+            "hintedMutations": 0,  # batched mutations hinted for a replica
         }
 
     def clear_caches(self) -> None:
@@ -447,6 +471,8 @@ class Executor:
         index = self.holder.index(index_name)
         if index is None:
             raise ExecutionError(f"index not found: {index_name}")
+        if remote and self.read_fence and self.cluster is not None:
+            self._check_remote_fence(index_name, query, shards)
         distributed = not remote and self._clustered()
         if (query.calls and ingest_env_enabled()
                 and all(c.name in ("Set", "Clear") for c in query.calls)):
@@ -476,6 +502,92 @@ class Executor:
             if dl_token is not None:
                 qctx.deadline.reset(dl_token)
         return results
+
+    # -- the rejoin read fence (:384-480) ------------------------------------
+
+    def fence_reads(self, keys) -> int:
+        """Fence (index, shard) pairs; returns how many were new."""
+        with self._fence_lock:
+            before = len(self.read_fence)
+            self.read_fence.update(keys)
+            return len(self.read_fence) - before
+
+    def unfence_reads(self, key) -> bool:
+        with self._fence_lock:
+            if key in self.read_fence:
+                self.read_fence.discard(key)
+                return True
+            return False
+
+    def fence_snapshot(self) -> dict:
+        with self._fence_lock:
+            return {"fencedShards": len(self.read_fence),
+                    "rerouted": self.fence_rerouted,
+                    "refusedRemote": self.fence_refused,
+                    "servedStale": self.fence_served_stale}
+
+    def _fence_peer(self, index_name: str, shard: int):
+        """A live replica of the shard on another node, or None."""
+        for n in self.cluster.shard_nodes(index_name, shard):
+            if n.id != self.cluster.local_id and n.uri \
+                    and not self.cluster.is_unavailable(n.id):
+                return n
+        return None
+
+    def _check_remote_fence(self, index_name: str, query: Query,
+                            shards) -> None:
+        """A coordinator's read of fenced shards is refused (code
+        read-fenced) while another replica is live, so its per-shard
+        failover serves them there; with none live the stale copy here
+        answers. Writes (hint replays, heals) pass."""
+        if not shards:
+            return
+        if any(self._call_has_write(c) for c in query.calls):
+            return
+        with self._fence_lock:
+            fenced = [s for s in shards
+                      if (index_name, s) in self.read_fence]
+        for s in fenced:
+            if self._fence_peer(index_name, s) is not None:
+                with self._fence_lock:
+                    self.fence_refused += 1
+                raise ExecutionError(
+                    f"shard {s} read-fenced pending rejoin sync "
+                    "(code=read-fenced)")
+        if fenced:
+            with self._fence_lock:
+                self.fence_served_stale += len(fenced)
+
+    def _fanout_groups(self, index: Index, qshards: list) -> dict:
+        """shards_by_node with this node's fenced shards planned onto their
+        next live replica (or kept here when none is live)."""
+        groups = self.cluster.shards_by_node(index.name, qshards)
+        if not self.read_fence:
+            return groups
+        local = groups.get(self.cluster.local_id)
+        if not local:
+            return groups
+        with self._fence_lock:
+            fenced = {s for s in local if (index.name, s) in self.read_fence}
+        if not fenced:
+            return groups
+        keep = [s for s in local if s not in fenced]
+        for s in sorted(fenced):
+            peer = self._fence_peer(index.name, s)
+            with self._fence_lock:
+                if peer is None:
+                    self.fence_served_stale += 1
+                else:
+                    self.fence_rerouted += 1
+            if peer is None:
+                keep.append(s)
+            else:
+                groups.setdefault(peer.id, []).append(s)
+        if keep:
+            groups[self.cluster.local_id] = sorted(keep)
+        else:
+            groups.pop(self.cluster.local_id, None)
+        return groups
 
     def _run_call(self, index: Index, call: Call, shards, remote: bool,
                   distributed: bool, prof):
@@ -2403,6 +2515,13 @@ class Executor:
         if not all(self.cluster.owns_shard(local, index.name, s)
                    for s in qshards):
             return self.ROUTE_CROSS_SLICE, "shards not co-resident"
+        if self.read_fence:
+            with self._fence_lock:
+                fenced = any((index.name, s) in self.read_fence
+                             for s in qshards)
+            if fenced:
+                # a fenced shard may be stale: the fan-out re-routes it
+                return self.ROUTE_CROSS_SLICE, "read-fenced"
         return self.ROUTE_SLICE_LOCAL, "co-resident"
 
     def _record_route(self, route: str, reason: str, call: Call,
@@ -2463,7 +2582,7 @@ class Executor:
         if call.name == "GroupBy" and call.uint_arg("limit") is not None:
             fan_call = Call(call.name, {k: v for k, v in call.args.items()
                                         if k != "limit"}, call.children)
-        groups = self.cluster.shards_by_node(index.name, qshards)
+        groups = self._fanout_groups(index, qshards)
         if len(groups) <= 1:
             partials = []
             for node_id, node_shards in groups.items():
@@ -2657,24 +2776,36 @@ class Executor:
             prof.record_hedge(node.id, hedge_node.id, won=winner is backup)
         return winner.result()
 
-    def _remote_write(self, node, index: Index, pql: str, shards) -> list:
-        """One replica's share of a write, per query (never coalesced)."""
+    def _remote_write(self, node, index: Index, pql: str, shards):
+        """One replica's share of a write, per query (never coalesced):
+        its results, or None when the replica answered "draining" or was
+        marked down since the write was planned (the caller hints it
+        instead, :3120-3130). Any other failure refuses the write."""
         try:
             return self.client.query_proto(node.uri, index.name, pql,
                                            shards=shards, remote=True)
         except ClientError as e:
+            draining = e.shed_reason == "draining"
+            if draining or self.cluster.is_unavailable(node.id):
+                if draining:
+                    self.cluster.mark_draining(node.id)
+                return None
             raise ExecutionError(f"replica write failed: {e}")
 
     def _execute_write_distributed(self, index: Index, call: Call, shards):
         """Set, Clear and SetColumnAttrs on every replica of the column's
         shard, SetRowAttrs on every node, Store and ClearRow on every
-        owner of the query's shards (:3034-3156). A replica that cannot
-        be reached fails the write; nothing is acknowledged that did not
-        land on every live replica."""
+        owner of the query's shards (:3034-3156), the remote replicas
+        before this node. An unavailable replica is skipped and gets a
+        hint; a replica that cannot be reached fails the write; nothing
+        is acknowledged that did not land on every replica that is not
+        marked down or draining."""
         pql = call.to_pql()
+        local_id = self.cluster.local_id
         if call.name in ("Store", "ClearRow"):
             qshards = self._query_shards(index, shards)
             targets: dict[str, list] = {}
+            hinted: dict[str, list] = {}  # skipped replica -> shards
             for s in qshards:
                 owners = self.cluster.shard_nodes(index.name, s)
                 live = [n for n in owners
@@ -2682,18 +2813,28 @@ class Executor:
                 if not live:
                     raise ExecutionError(
                         f"all replicas down for write to shard {s}")
-                for n in live:
-                    targets.setdefault(n.id, []).append(s)
+                for n in owners:
+                    (targets if n in live else hinted).setdefault(
+                        n.id, []).append(s)
             partials = []
-            local_id = self.cluster.local_id
+            acked: set = set()
             for node_id in sorted(targets, key=lambda i: i == local_id):
                 if node_id == local_id:
                     partials.append(self._local_call(index, call,
                                                      targets[node_id]))
                 else:
-                    node = self.cluster.node_by_id(node_id)
-                    partials.append(self._remote_write(
-                        node, index, pql, targets[node_id])[0])
+                    res = self._remote_write(self.cluster.node_by_id(
+                        node_id), index, pql, targets[node_id])
+                    if res is None:
+                        hinted.setdefault(node_id, []).extend(
+                            targets[node_id])
+                        continue
+                    partials.append(res[0])
+                acked.update(targets[node_id])
+            if set(qshards) - acked:
+                raise ExecutionError("all replicas draining for write")
+            for nid, hshards in hinted.items():
+                self._hint_write(nid, index.name, pql, sorted(hshards))
             return any(bool(p) for p in partials)
         new_shard = False
         col = None
@@ -2712,26 +2853,33 @@ class Executor:
         live = [n for n in targets if not self.cluster.is_unavailable(n.id)]
         if targets and not live:
             raise ExecutionError("all replicas down for write")
+        skipped = [n for n in targets if n not in live]
         result = None
+        acked = 0
         # the remote replicas first: one that refuses fails the write
         # before this node applies it
-        local_id = self.cluster.local_id
         for node in sorted(live, key=lambda n: n.id == local_id):
             if node.id == local_id:
                 r = self._local_call(index, call, None)
             else:
-                r = self._remote_write(node, index, pql, None)[0]
+                res = self._remote_write(node, index, pql, None)
+                if res is None:
+                    skipped.append(node)
+                    continue
+                r = res[0]
+            acked += 1
             result = r if result is None else (result or r)
-        for node in targets:
-            if node not in live:
-                self._hint_write(node.id, index.name, pql, None)
+        if targets and not acked:
+            raise ExecutionError("all replicas draining for write")
+        for node in skipped:
+            self._hint_write(node.id, index.name, pql, None)
         if new_shard and self.announce_shard_fn is not None:
             # announced before the ack: a read through any node right
             # after it plans over the new shard
             self.announce_shard_fn(index.name, call.field_arg(),
                                    col // SHARD_WIDTH)
         if (call.name == "Set"
-                and all(n.id != self.cluster.local_id for n in live)):
+                and all(n.id != local_id for n in live)):
             # the shard exists on its (remote) replicas now; a local
             # replica's own write does the announcing add instead
             f = index.field(call.field_arg())
@@ -2741,10 +2889,11 @@ class Executor:
 
     def _hint_write(self, node_id: str, index_name: str, pql: str,
                     hshards) -> None:
-        """A write skipped on an unavailable replica would be kept as a
-        durable hint and replayed on its return (:3158-3166); the port
-        has no hint store and marks no replica unavailable, so this is
-        never reached with a write to keep."""
+        """A write skipped on an unavailable replica, kept as a durable
+        hint for its return (:3158-3166); without a HintStore nothing is
+        kept and anti-entropy heals the replica."""
+        if self.hints is not None:
+            self.hints.append(node_id, index_name, pql, shards=hshards)
 
     def _execute_ingest_remote(self, index: Index,
                                query: Query) -> Optional[list]:
@@ -2761,23 +2910,29 @@ class Executor:
 
     def _apply_ingest_distributed(self, index: Index, muts: list) -> list:
         """One coalesced batch over the cluster (:3303-3427): every other
-        replica of a mutation's shard is sent one multi-call remote=true
-        envelope, then this node applies its share of the mutations no
-        replica refused; a mutation is acknowledged only when every
-        replica of its shard took it (the JAX package applies locally
-        first, so a refused mutation can stay on this node there). Shards
-        a batch created are announced to every node before the waiters
-        wake."""
-        outcomes: list = [None] * len(muts)
-        ored = [False] * len(muts)
+        live replica of a mutation's shard is sent one multi-call
+        remote=true envelope, then this node applies its share of the
+        mutations no replica refused; a mutation is acknowledged only when
+        every replica of its shard that is not marked down took it (the
+        JAX package applies locally first, so a refused mutation can stay
+        on this node there). An unavailable replica, or one that answers
+        "draining", gets one hint per batch with the mutations that were
+        acknowledged. Shards a batch created are announced to every node
+        before the waiters wake."""
+        n = len(muts)
+        outcomes: list = [None] * n
+        acked = [0] * n
+        ored = [False] * n
+        skipped = [False] * n
         local: list = []
         by_node: dict[str, list] = {}
+        hint_by_node: dict[str, list] = {}
         new_shard_muts: list = []
         for mi, m in enumerate(muts):
             shard = m.shard
             targets = self.cluster.shard_nodes(index.name, shard)
-            live = [n for n in targets
-                    if not self.cluster.is_unavailable(n.id)]
+            live = [t for t in targets
+                    if not self.cluster.is_unavailable(t.id)]
             if targets and not live:
                 outcomes[mi] = ("err", ExecutionError(
                     "all replicas down for write"))
@@ -2787,11 +2942,14 @@ class Executor:
                 if (fld is not None
                         and not fld.available_shards.contains(shard)):
                     new_shard_muts.append((m.field_name, shard, mi))
-            for n in live:
-                if n.id == self.cluster.local_id:
+            for t in targets:
+                if t not in live:
+                    skipped[mi] = True
+                    hint_by_node.setdefault(t.id, []).append((mi, m))
+                elif t.id == self.cluster.local_id:
                     local.append((mi, m))
                 else:
-                    by_node.setdefault(n.id, []).append((mi, m))
+                    by_node.setdefault(t.id, []).append((mi, m))
         # the remote replicas first, so a mutation a replica refused is
         # not applied here
         for node_id, items in by_node.items():
@@ -2804,10 +2962,16 @@ class Executor:
                     if outcomes[mi] is None:
                         outcomes[mi] = ("err", e)
                 continue
+            if results is None:  # demoted to a hint
+                for mi, _m in items:
+                    skipped[mi] = True
+                hint_by_node.setdefault(node_id, []).extend(items)
+                continue
             with self._ingest_lock:
                 self.ingest_stats["remoteBatches"] += 1
                 self.ingest_stats["remoteMutations"] += len(items)
             for (mi, _m), r in zip(items, results):
+                acked[mi] += 1
                 ored[mi] = ored[mi] or bool(r)
         local = [(mi, m) for mi, m in local if outcomes[mi] is None]
         if local:
@@ -2816,10 +2980,26 @@ class Executor:
                 if out[0] == "err":
                     outcomes[mi] = out
                 else:
+                    acked[mi] += 1
                     ored[mi] = ored[mi] or bool(out[1])
-        for mi in range(len(muts)):
-            if outcomes[mi] is None:
+        for mi in range(n):
+            if outcomes[mi] is not None:
+                continue
+            if skipped[mi] and not acked[mi]:
+                outcomes[mi] = ("err", ExecutionError(
+                    "all replicas draining for write"))
+            else:
                 outcomes[mi] = ("ok", ored[mi])
+        # one hint per skipped replica per batch, of the acknowledged
+        # mutations only (a refused one must not come back on replay)
+        for node_id, items in hint_by_node.items():
+            good = [m for mi, m in items if outcomes[mi][0] == "ok"]
+            if not good:
+                continue
+            self._hint_write(node_id, index.name,
+                             "\n".join(m.call.to_pql() for m in good), None)
+            with self._ingest_lock:
+                self.ingest_stats["hintedMutations"] += len(good)
         seen: set = set()
         for fname, shard, mi in new_shard_muts:
             if outcomes[mi][0] != "ok" or (fname, shard) in seen:
@@ -2905,8 +3085,7 @@ class Executor:
         recount = Call("TopN", {**call.args, "ids": ids}, call.children)
         recount.args.pop("n", None)
         partials = []
-        groups = self.cluster.shards_by_node(
-            index.name, self._query_shards(index, shards))
+        groups = self._fanout_groups(index, self._query_shards(index, shards))
         for node_id, node_shards in groups.items():
             partials.extend(self._map_node(index, recount, node_id,
                                            node_shards, set()))

@@ -95,5 +95,25 @@ class Holder:
                     for shard, frag in list(view.fragments.items()):
                         yield iname, fname, vname, shard, frag
 
+    def damaged_fragments(self) -> list[dict]:
+        """Fragments quarantined at open (rebuilt or not) or whose torn
+        WAL tail was truncated (pilosa_tpu/models/holder.py:106)."""
+        out = []
+        for iname, fname, vname, shard, frag in self.walk_fragments():
+            if frag.quarantine_path is None \
+                    and not frag.wal_truncated_bytes:
+                continue
+            out.append({
+                "index": iname, "field": fname, "view": vname,
+                "shard": shard,
+                "quarantinePath": frag.quarantine_path,
+                "corruptionError": frag.corruption_error,
+                "rebuiltFrom": frag.rebuilt_from,
+                "needsRebuild": frag.needs_rebuild,
+                "walTruncatedBytes": frag.wal_truncated_bytes,
+                "walTruncateError": frag.wal_truncate_error,
+            })
+        return out
+
     def schema(self) -> list[dict]:
         return [idx.schema_dict() for _, idx in sorted(self.indexes.items())]

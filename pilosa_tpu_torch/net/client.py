@@ -12,13 +12,16 @@ the remaining deadline sent along as X-Pilosa-Trace-Id and
 X-Pilosa-Deadline (the socket timeout is bounded by the deadline too),
 and the calls the data plane makes: query_proto (:317), query_batch_raw
 (the coalesced envelope), import_bits (:383), import_roaring,
-send_message, nodes, status, translate_keys and translate_data.
+send_message, nodes, status, translate_keys and translate_data; and those
+of liveness and healing (:397-463): fragment_blocks, block_data,
+column_attr_diff, row_attr_diff, retrieve_shard and probe_indirect. A
+peer's error code (`fragment-not-found`, `read-fenced`) rides
+ClientError.code.
 
-Left out: the calls of anti-entropy, resize, hints, drain and the
-federation (fragment blocks and data, attribute diffs, probes, stats),
-which wait for the port's liveness and healing; the failpoint hooks and
-the per-principal accounting (the port has neither); the HLC piggyback of
-the flight recorder.
+Left out: the calls of resize and the federation (fragment views, stats,
+usage, events, heat, hbm); the failpoint hooks and the per-principal
+accounting (the port has neither); the HLC piggyback of the flight
+recorder.
 """
 
 from __future__ import annotations
@@ -293,6 +296,64 @@ class InternalClient:
     def send_message(self, uri: str, message: dict) -> None:
         self._json("POST", uri, "/internal/cluster/message", message)
 
+    # -- liveness and healing -------------------------------------------------
+
+    def fragment_blocks(self, uri: str, index: str, field: str, view: str,
+                        shard: int) -> list:
+        """[{"id", "checksum"}] of a peer's fragment (hex checksums)."""
+        out = self._json("GET", uri,
+                         f"/internal/fragment/blocks?index={index}"
+                         f"&field={field}&view={view}&shard={shard}")
+        return out.get("blocks", [])
+
+    def block_data(self, uri: str, index: str, field: str, view: str,
+                   shard: int, block: int) -> dict:
+        """{"rowIDs", "columnIDs"} of one block of a peer's fragment."""
+        return self._json("GET", uri,
+                          f"/internal/fragment/block/data?index={index}"
+                          f"&field={field}&view={view}&shard={shard}"
+                          f"&block={block}")
+
+    def column_attr_diff(self, uri: str, index: str, blocks: list,
+                         block_range=None) -> dict:
+        """The peer's column attributes in the blocks whose checksums
+        differ from `blocks`; block_range [lo, hi) pages the pull (hi
+        None: unbounded)."""
+        req: dict = {"blocks": blocks}
+        if block_range is not None:
+            req["blockRange"] = list(block_range)
+        out = self._json("POST", uri, f"/internal/index/{index}/attr/diff",
+                         req)
+        return {int(k): v for k, v in out.get("attrs", {}).items()}
+
+    def row_attr_diff(self, uri: str, index: str, field: str,
+                      blocks: list, block_range=None) -> dict:
+        req: dict = {"blocks": blocks}
+        if block_range is not None:
+            req["blockRange"] = list(block_range)
+        out = self._json(
+            "POST", uri, f"/internal/index/{index}/field/{field}/attr/diff",
+            req)
+        return {int(k): v for k, v in out.get("attrs", {}).items()}
+
+    def retrieve_shard(self, uri: str, index: str, field: str, view: str,
+                       shard: int) -> bytes:
+        """A peer's fragment as roaring bytes (RetrieveShardFromURI)."""
+        return self._request(
+            "GET", uri,
+            f"/internal/fragment/data?index={index}&field={field}"
+            f"&view={view}&shard={shard}")
+
+    def probe_indirect(self, uri: str, target_uri: str,
+                       timeout: Optional[float] = None) -> bool:
+        """Whether peer `uri` reaches target_uri's /status (an indirect
+        ping: a dead node, or only a broken link to it)."""
+        out = self._request(
+            "GET", uri,
+            "/internal/probe?uri=" + urllib.parse.quote(target_uri, safe=""),
+            timeout=timeout)
+        return bool(json.loads(out).get("alive")) if out else False
+
     def nodes(self, uri: str, timeout: Optional[float] = None) -> list:
         return json.loads(self._request("GET", uri, "/internal/nodes",
                                         timeout=timeout))
@@ -300,6 +361,14 @@ class InternalClient:
     def status(self, uri: str, timeout: Optional[float] = None) -> dict:
         out = self._request("GET", uri, "/status", timeout=timeout)
         return json.loads(out) if out else {}
+
+    def fenced_shards(self, uri: str,
+                      timeout: Optional[float] = None) -> int:
+        """The shards a peer's rejoin read fence holds (/debug/vars
+        readFence, which both packages show while it is not all zero)."""
+        out = self._request("GET", uri, "/debug/vars", timeout=timeout)
+        snap = json.loads(out) if out else {}
+        return int(snap.get("readFence", {}).get("fencedShards", 0))
 
     def translate_keys(self, uri: str, index: str, field: Optional[str],
                        keys: list, create: bool = True) -> list:

@@ -56,6 +56,15 @@ and the cluster's internal routes (:63-79, handlers :1361-1460):
     GET         /internal/nodes, /internal/shards/max
     GET         /internal/probe                (?uri=)
     GET         /internal/fragment/nodes       (?index=&shard=)
+    GET         /internal/fragment/blocks      (?index=&field=&view=&shard=:
+                                                anti-entropy's checksums)
+    GET         /internal/fragment/block/data  (the same and &block=)
+    GET         /internal/fragment/data        (the fragment's roaring
+                                                bytes, for a rebuild)
+    POST        /internal/index/{i}/attr/diff, /internal/index/{i}/field/
+                {f}/attr/diff                  (JSON {"blocks",
+                                                "blockRange"?}: the
+                                                attributes that differ)
     GET         /internal/translate/data       (?offset=)
     POST        /internal/translate/keys       (JSON, or a protobuf
                                                 TranslateKeysRequest)
@@ -135,6 +144,15 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/internal/cluster/message$"),
      "post_cluster_message"),
     ("GET", re.compile(r"^/internal/fragment/nodes$"), "get_fragment_nodes"),
+    ("GET", re.compile(r"^/internal/fragment/block/data$"),
+     "get_fragment_block_data"),
+    ("GET", re.compile(r"^/internal/fragment/blocks$"), "get_fragment_blocks"),
+    ("GET", re.compile(r"^/internal/fragment/data$"), "get_fragment_data"),
+    ("POST", re.compile(r"^/internal/index/(?P<index>[^/]+)/attr/diff$"),
+     "post_column_attr_diff"),
+    ("POST", re.compile(
+        r"^/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/"
+        r"attr/diff$"), "post_row_attr_diff"),
     ("DELETE", re.compile(
         r"^/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/"
         r"remote-available-shards/(?P<shard>\d+)$"),
@@ -149,12 +167,16 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
 ]
 
 # unknown query arguments on these routes are a 400 (a typo like ?shard=)
+_FRAG_ARGS = frozenset({"index", "field", "view", "shard"})
 ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "remote",
                                                "columnAttrs",
                                                "excludeRowAttrs",
                                                "excludeColumns", "timeout",
                                                "profile", "explain"}),
                       "get_fragment_nodes": frozenset({"index", "shard"}),
+                      "get_fragment_blocks": _FRAG_ARGS,
+                      "get_fragment_block_data": _FRAG_ARGS | {"block"},
+                      "get_fragment_data": _FRAG_ARGS,
                       "get_translate_data": frozenset({"offset"}),
                       "get_export": frozenset({"index", "field", "shard"}),
                       "post_import": frozenset({"clear"}),
@@ -489,6 +511,38 @@ class Handler:
         shard, = self._int_args(query, shard=0)
         return self._json(self.api.shard_nodes(index, shard))
 
+    def _frag_args(self, query: dict) -> tuple:
+        shard, = self._int_args(query, shard=0)
+        return (self._arg(query, "index"), self._arg(query, "field"),
+                self._arg(query, "view"), shard)
+
+    def get_fragment_blocks(self, params, query, body):
+        return self._json({"blocks": self.api.fragment_blocks(
+            *self._frag_args(query))})
+
+    def get_fragment_block_data(self, params, query, body):
+        block, = self._int_args(query, block=0)
+        return self._json(self.api.fragment_block_data(
+            *self._frag_args(query), block))
+
+    def get_fragment_data(self, params, query, body):
+        return (200, "application/octet-stream",
+                self.api.fragment_data(*self._frag_args(query)))
+
+    def post_column_attr_diff(self, params, query, body):
+        req = self._body_json(body)
+        attrs = self.api.column_attr_diff(params["index"],
+                                          req.get("blocks", []),
+                                          req.get("blockRange"))
+        return self._json({"attrs": {str(k): v for k, v in attrs.items()}})
+
+    def post_row_attr_diff(self, params, query, body):
+        req = self._body_json(body)
+        attrs = self.api.row_attr_diff(params["index"], params["field"],
+                                       req.get("blocks", []),
+                                       req.get("blockRange"))
+        return self._json({"attrs": {str(k): v for k, v in attrs.items()}})
+
     def delete_remote_available_shard(self, params, query, body):
         self.api.delete_remote_available_shard(
             params["index"], params["field"], int(params["shard"]))
@@ -585,6 +639,12 @@ class Handler:
             snap["netCoalesce"] = ex.coalescer.snapshot()
         snap["hedges"] = ex.hedge_snapshot()
         snap["iciServing"] = ex.ici_snapshot()
+        # hinted handoff and the rejoin read fence (:691-700)
+        if ex.hints is not None:
+            snap["writeHandoffs"] = ex.hints.snapshot()
+        fence = ex.fence_snapshot()
+        if any(fence.values()):
+            snap["readFence"] = fence
         snap.setdefault("gauges", {}).update(self._process_gauges())
         if self.device_profiler is not None:
             snap["deviceProfiler"] = self.device_profiler.snapshot()
@@ -597,6 +657,10 @@ class Handler:
                if frag._volatile]
         if vol:
             snap["volatileFragments"] = vol
+        # quarantined fragments and truncated WAL tails (:726-729)
+        damaged = self.api.holder.damaged_fragments()
+        if damaged:
+            snap["damagedFragments"] = damaged
         return self._json(snap)
 
     def _process_gauges(self) -> dict:
@@ -739,6 +803,25 @@ class Handler:
         counts["iciServing,route:fallback"] = isnap["fallback"]
         gauges["iciServing/mode"] = {"off": 0.0, "auto": 1.0,
                                      "on": 2.0}.get(isnap["mode"], 1.0)
+        # hinted handoff and the rejoin fence, zeros included (:1106-1129)
+        if ex.hints is not None:
+            hsnap = ex.hints.snapshot()
+            counts["writeHandoffs/queued"] = hsnap["queued"]
+            counts["writeHandoffs/replayed"] = hsnap["replayed"]
+            counts["writeHandoffs/dropped"] = hsnap["dropped"]
+            counts["writeHandoffs/replayFailures"] = hsnap["replayFailures"]
+            gauges["writeHandoffs/pendingBytes"] = hsnap["pendingBytes"]
+            gauges["writeHandoffs/pendingTargets"] = len(
+                hsnap["pendingTargets"])
+        fence = ex.fence_snapshot()
+        counts["readFence/rerouted"] = fence["rerouted"]
+        counts["readFence/refusedRemote"] = fence["refusedRemote"]
+        counts["readFence/servedStale"] = fence["servedStale"]
+        gauges["readFence/fencedShards"] = fence["fencedShards"]
+        damaged = self.api.holder.damaged_fragments()
+        gauges["damagedFragments"] = len(damaged)
+        gauges["damagedFragmentsNeedingRebuild"] = sum(
+            1 for d in damaged if d["needsRebuild"])
         gauges.update(self._process_gauges())
         ing = ex.ingest_snapshot()
         counts["ingest,op:set"] = ing["setMutations"]

@@ -64,8 +64,7 @@ class Cluster:
         self.state = STATE_STARTING
         self.coordinator_id: Optional[str] = None
         self._explicit_claim: Optional[str] = None
-        # liveness marks (the JAX cluster's probe and drain marks): empty
-        # until the port probes its peers
+        # liveness marks: probe-dead peers and peers that announced a drain
         self.down_ids: set[str] = set()
         self.draining_ids: set[str] = set()
 
@@ -115,6 +114,47 @@ class Cluster:
     def is_unavailable(self, node_id: str) -> bool:
         """Down or draining: what every routing decision reads."""
         return node_id in self.down_ids or node_id in self.draining_ids
+
+    def mark_draining(self, node_id: str) -> None:
+        """A peer announced a graceful drain: route around it now."""
+        if node_id == self.local_id or node_id in self.draining_ids:
+            return
+        self.draining_ids.add(node_id)
+        n = self.node_by_id(node_id)
+        if n is not None and n.state != "DOWN":
+            n.state = "DRAINING"
+        self._recompute_liveness_state()
+
+    def clear_draining(self, node_id: str) -> None:
+        """The drained peer came back (or aborted its drain)."""
+        if node_id not in self.draining_ids:
+            return
+        self.draining_ids.discard(node_id)
+        n = self.node_by_id(node_id)
+        if n is not None and n.state == "DRAINING":
+            n.state = "READY"
+        self._recompute_liveness_state()
+
+    def mark_down(self, node_id: str) -> None:
+        """A peer failed its liveness probes: route around it."""
+        if node_id == self.local_id or node_id in self.down_ids:
+            return
+        self.down_ids.add(node_id)
+        n = self.node_by_id(node_id)
+        if n is not None:
+            n.state = "DOWN"
+        self._recompute_liveness_state()
+
+    def mark_up(self, node_id: str) -> None:
+        """A down (or draining) peer answers again; it is neither."""
+        if node_id not in self.down_ids and node_id not in self.draining_ids:
+            return
+        self.down_ids.discard(node_id)
+        self.draining_ids.discard(node_id)
+        n = self.node_by_id(node_id)
+        if n is not None:
+            n.state = "READY"
+        self._recompute_liveness_state()
 
     def _recompute_liveness_state(self) -> None:
         """determineClusterState (cluster.go:522-533)."""

@@ -27,10 +27,42 @@ query-timeout, the deadline of every query; fanout_pool_size,
 fanout_coalesce_window, fanout_coalesce_max_batch, hedge_delay and
 ici_serving are the fan-out knobs of the same section (:196-222).
 
-Not served yet: liveness probing and gossip, hinted handoff, the read
-fence, drain, resize, anti-entropy, QoS and the /cluster/* federation;
-no peer is ever marked down, so a write whose replica cannot be reached
-fails (the JAX cluster with probing off).
+Liveness and healing (:640-660, :800-1100, :1263-1420, :2831-3100):
+every membership tick probes each peer's /status (_probe_peers);
+liveness_threshold failures in a row, unless a peer that can still reach
+it vouches for it through /internal/probe, mark it down, and
+REVIVE_THRESHOLD successes mark it up. A write then skips a down replica
+and appends a durable hint for it (storage/hints.py, <data_dir>/.hints;
+hint_max_bytes, hint_max_age). When a peer announces READY, a background
+heal, one at a time per peer, pushes it the schema (schema-sync), replays
+its hints and tells it so (hints-replayed); only when hints were dropped
+does a block sync with it follow, once its read fence has lifted
+(_on_node_return). A node that opens with data in a cluster read-fences
+its shards (_arm_read_fence) until a block-checksum check against a live
+replica lifts each (_verify_fence_pass), or rejoin_fence_timeout expires.
+A shard whose blocks differ stays fenced, unmerged, until every live peer
+has sent hints-replayed, and is then healed by a block sync first. With
+anti_entropy_interval > 0, every interval (times 1 +- jitter) a scrub
+pass (none while this node's read fence is armed: the fence check
+compares every fenced fragment already; the JAX package scrubs beside
+it) rebuilds quarantined fragments from a replica (repair_quarantined)
+and merges divergent blocks by majority of the configured replicas, union
+when one of them does not vote (sync_holder; pace seconds between
+fragments, max_blocks blocks per fragment); a peer whose own read fence
+is armed is left out of it. A block is merged by the periodic pass only
+when the pass before saw the same divergence (the same local and peer
+checksums).
+
+These orders depart from the JAX package, which merges at first sight,
+syncs a returning peer before telling it its hints are in, and heals on
+READY only a peer it had marked down: with two replicas a merge is a
+union, so a bit that a stale copy still holds would come back after an
+acknowledged Clear, whether the Clear is a write in flight between the
+replicas or a hint not yet replayed to a returning node. The event
+journal's calls of the JAX code are left out (the port has no journal).
+
+Not served yet: gossip, this node's own drain, resize, QoS and the
+/cluster/* federation.
 
 String keys are minted into a TranslateStore at <data_dir>/.keys (its
 sqlite index at .keys.idx; pilosa_tpu/server.py:151) through the
@@ -58,14 +90,21 @@ residency's [storage] eviction, "lru" or "heat".
 
 from __future__ import annotations
 
+import io
 import os
 import queue
+import random
+import sys
 import threading
 import time
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
+import numpy as np
+
 from pilosa_tpu_torch.api import API
+from pilosa_tpu_torch.constants import SHARD_WIDTH
 from pilosa_tpu_torch.executor import Executor
 from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.net.client import ClientError, InternalClient
@@ -78,15 +117,13 @@ from pilosa_tpu_torch.parallel.residency import (
     PlanCache,
 )
 from pilosa_tpu_torch.state import open_holder
+from pilosa_tpu_torch.storage.hints import HintStore
+from pilosa_tpu_torch.storage.roaring import Bitmap
 from pilosa_tpu_torch.utils import telemetry as _telemetry
 from pilosa_tpu_torch.utils.cluster_translate import ClusterTranslator
 from pilosa_tpu_torch.utils.stats import StatsClient
 from pilosa_tpu_torch.utils.tracing import Tracer
 from pilosa_tpu_torch.utils.translate import TranslateStore
-
-# seconds a GET /internal/nodes of the membership refresh may take (the
-# JAX server's probe-timeout default)
-PEER_TIMEOUT_S = 2.0
 
 
 def process_rss() -> int:
@@ -101,11 +138,24 @@ def process_rss() -> int:
     return 0
 
 
+def _log(msg: str) -> None:
+    print(f"pilosa-tpu-torch: {msg}", file=sys.stderr, flush=True)
+
+
 class Server:
     # the longest a shard-creating Set waits for its announcement
     ANNOUNCE_SHARD_BUDGET_S = 0.5
     # a peer's async queue bound: past it messages are dropped
     BCAST_PEER_QUEUE_MAX = 1024
+    # good probes in a row that mark a down peer up (one lucky probe of a
+    # struggling peer must not flap it back into placement)
+    REVIVE_THRESHOLD = 2
+    # live peers asked to vouch for a suspect before it is marked down
+    INDIRECT_PROBES = 2
+    # attribute blocks per diff request of anti-entropy's attribute pull
+    ATTR_SYNC_PAGE = 512
+    # fenced shards checked at once (each check is an RPC a fragment)
+    FENCE_WORKERS = 8
 
     def __init__(self, data_dir: str, host: str = "localhost", port: int = 0,
                  device="cuda",
@@ -125,7 +175,15 @@ class Server:
                  fanout_coalesce_window: float = 0.002,
                  fanout_coalesce_max_batch: int = 64,
                  hedge_delay: float = 0.0,
-                 ici_serving: str = "auto"):
+                 ici_serving: str = "auto",
+                 liveness_threshold: int = 3,
+                 probe_timeout: float = 2.0,
+                 hint_max_bytes: int = 64 << 20,
+                 hint_max_age: float = 3600.0,
+                 anti_entropy_interval: float = 0.0,
+                 anti_entropy_jitter: float = 0.25,
+                 anti_entropy_pace: float = 0.0,
+                 anti_entropy_max_blocks: int = 0):
         for name, value in (("sparse-threshold", sparse_threshold),
                             ("run-threshold", run_threshold)):
             if value < 0:
@@ -140,6 +198,16 @@ class Server:
         if ici_serving not in ("off", "auto", "on"):
             raise ValueError(f"invalid [cluster] ici-serving {ici_serving!r}"
                              " (expected off | auto | on)")
+        if not 0.0 <= anti_entropy_jitter < 1.0:
+            raise ValueError(
+                f"invalid [anti-entropy] jitter {anti_entropy_jitter!r} "
+                "(a fraction: expected 0 <= jitter < 1)")
+        if anti_entropy_pace < 0 or anti_entropy_max_blocks < 0:
+            raise ValueError("[anti-entropy] pace and max-blocks must be >= 0")
+        if hint_max_age < 0:
+            raise ValueError("[cluster] hint-max-age must be >= 0")
+        if liveness_threshold < 1:
+            raise ValueError("[cluster] liveness-threshold must be >= 1")
         self.data_dir = data_dir
         self.node_id = node_id
         self.cluster_hosts = list(cluster_hosts or [])
@@ -151,6 +219,35 @@ class Server:
         self.fanout_coalesce_max_batch = fanout_coalesce_max_batch
         self.hedge_delay = hedge_delay
         self.ici_serving = ici_serving
+        self.liveness_threshold = liveness_threshold
+        self.probe_timeout = probe_timeout
+        self.hint_max_bytes = hint_max_bytes
+        self.hint_max_age = hint_max_age
+        self.anti_entropy_interval = anti_entropy_interval
+        self.anti_entropy_jitter = anti_entropy_jitter
+        self.anti_entropy_pace = anti_entropy_pace
+        self.anti_entropy_max_blocks = anti_entropy_max_blocks
+        # seconds an unverified read fence may last before it lifts loudly
+        self.rejoin_fence_timeout = 120.0
+        self.hints: Optional[HintStore] = None
+        # consecutive failed / (for a down peer) good probes per peer
+        self._probe_failures: dict[str, int] = {}
+        self._probe_successes: dict[str, int] = {}
+        # peers with a return-heal in flight (one at a time per peer)
+        self._return_heals: set[str] = set()
+        # peers whose hints-replayed reached this node since it opened, and
+        # the fenced shards whose blocks differed before every live peer's
+        # had
+        self._hints_in: set[str] = set()
+        self._fence_diverged: set = set()
+        self._return_lock = threading.Lock()
+        self._fence_thread: Optional[threading.Thread] = None
+        self._fence_wake = threading.Event()
+        self._ae_timer: Optional[threading.Timer] = None
+        self._scrub_lock = threading.Lock()
+        # (index, field, view, shard, block) -> the divergence the last
+        # periodic pass saw there: (local checksum, peer checksums)
+        self._ae_seen: dict = {}
         self.cluster = None
         self.client = None
         self.cluster_translate = None
@@ -196,6 +293,17 @@ class Server:
 
     def open(self) -> "Server":
         self.holder = open_holder(self.data_dir)
+        for d in self.holder.damaged_fragments():
+            frag = f"{d['index']}/{d['field']}/{d['view']}/{d['shard']}"
+            if d["quarantinePath"]:
+                _log(f"fragment {frag} failed its integrity check "
+                     f"({d['corruptionError']}): quarantined to "
+                     f"{d['quarantinePath']}, reopened empty; the scrubber "
+                     "rebuilds it from a replica")
+            if d["walTruncatedBytes"]:
+                _log(f"fragment {frag} had a torn WAL tail "
+                     f"({d['walTruncateError']}): truncated "
+                     f"{d['walTruncatedBytes']} unacknowledged bytes")
         self.node_id = self.node_id or self._load_or_create_id()
         self.cluster = Cluster(self.node_id, replica_n=self.replica_n)
         self.client = InternalClient()
@@ -218,6 +326,11 @@ class Server:
             ex.plan_cache.budget = self.plan_cache_bytes
         ex.stats = self.stats
         ex.tracer = self.tracer
+        # hints reach the kernel at append, as the WAL's records do
+        self.hints = HintStore(os.path.join(self.data_dir, ".hints"),
+                               max_bytes=self.hint_max_bytes,
+                               max_age=self.hint_max_age, stats=self.stats)
+        ex.hints = self.hints
         ex.fanout_pool_size = self.fanout_pool_size
         ex.hedge_delay = self.hedge_delay
         ex.ici_mode = self.ici_serving
@@ -237,7 +350,6 @@ class Server:
         self.http = HTTPServer(self.handler, self.host, self.port)
         self.api.uri = self.http.uri
         self.holder.set_shard_hook(self._on_shard_added)
-        self.http.serve_background()
         me = Node(id=self.node_id, uri=self.http.uri,
                   is_coordinator=not self.cluster_hosts)
         self.cluster.set_static([me])
@@ -256,14 +368,22 @@ class Server:
             self.client.import_roaring(uri, index, field, shard, views,
                                        clear=clear, remote=True))
         self.api.probe_peer_fn = (
-            lambda uri: bool(self.client.status(uri,
-                                                timeout=PEER_TIMEOUT_S)))
+            lambda uri: bool(self.client.status(
+                uri, timeout=self.probe_timeout)))
         ex.announce_shard_fn = self._announce_shard_bounded
         self._bcast_thread = threading.Thread(
             target=self._bcast_worker, name="pilosa-torch-bcast",
             daemon=True)
         self._bcast_thread.start()
+        if self.anti_entropy_interval > 0:
+            self._schedule_anti_entropy()
         self.telemetry.start()
+        # the rejoin: fence what may have missed writes while this node was
+        # away (before the first request is served: the listener is bound
+        # and the peers known), then announce the return so peers replay
+        # their hints now
+        self._arm_read_fence()
+        self.http.serve_background()
         if self.cluster_hosts:
             self.broadcast({"type": "node-state", "id": self.node_id,
                             "state": "READY"})
@@ -277,6 +397,9 @@ class Server:
         self.closed = True
         if self._member_timer is not None:
             self._member_timer.cancel()
+        if self._ae_timer is not None:
+            self._ae_timer.cancel()
+        self._fence_wake.set()
         self._bcast_queue.put(None)
         self.telemetry.close()
         if self.http is not None:
@@ -303,6 +426,12 @@ class Server:
     def _membership_tick(self) -> None:
         try:
             self.refresh_membership()
+            self._probe_peers()
+            # a replay that failed midway keeps its log: re-run the heal
+            # of every live peer that still has hints
+            self._retry_pending_hints()
+        except Exception as e:  # noqa: BLE001 — the tick must go on
+            _log(f"membership tick failed: {type(e).__name__}: {e}")
         finally:
             self._schedule_membership_refresh()
 
@@ -321,7 +450,7 @@ class Server:
                 continue
             try:
                 reports.extend(self.client.nodes(
-                    huri, timeout=PEER_TIMEOUT_S) or [])
+                    huri, timeout=self.probe_timeout) or [])
             except (ClientError, ValueError):
                 pass  # not up yet: the next tick asks again
         return reports
@@ -337,6 +466,694 @@ class Server:
                 nodes[nd["id"]].uri = nd["uri"]
         self.cluster.set_static(list(nodes.values()))
         self.cluster.elect_coordinator()
+
+    # -- liveness probing (:800-977) ----------------------------------------
+
+    def _probe_peers(self) -> None:
+        """One probe of every peer's /status, all at once: after
+        liveness_threshold failures in a row a peer is marked down, unless
+        a live peer vouches for it (_indirect_confirms_alive); a down peer
+        that answers REVIVE_THRESHOLD times in a row is marked up and
+        healed (_on_node_return), as is a draining one that reports
+        READY."""
+        if self.closed:
+            return
+        peers = [n for n in list(self.cluster.nodes)
+                 if n.id != self.node_id and n.uri]
+        ids = {n.id for n in peers}
+        for table in (self._probe_failures, self._probe_successes):
+            for stale in set(table) - ids:
+                del table[stale]
+        if not peers:
+            return
+        results: dict[str, bool] = {}
+        states: dict[str, str] = {}
+
+        def probe(node) -> None:
+            try:
+                st = self.client.status(node.uri, timeout=self.probe_timeout)
+                states[node.id] = st.get("nodeState", "")
+                results[node.id] = True
+            except Exception:  # noqa: BLE001 — any failure: not alive
+                results[node.id] = False
+
+        threads = [threading.Thread(target=probe, args=(n,), daemon=True)
+                   for n in peers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(self.probe_timeout + 1.0)
+        suspects = []
+        for node in peers:
+            if results.get(node.id, False):
+                self._probe_failures.pop(node.id, None)
+                if self.cluster.is_down(node.id):
+                    ok = self._probe_successes.get(node.id, 0) + 1
+                    if ok < self.REVIVE_THRESHOLD:
+                        self._probe_successes[node.id] = ok
+                        continue
+                    self._probe_successes.pop(node.id, None)
+                    _log(f"liveness: node {node.id} ({node.uri}) back up")
+                    self.cluster.mark_up(node.id)
+                    self._on_node_return(node)
+                elif (self.cluster.is_draining(node.id)
+                      and states.get(node.id) == "READY"):
+                    self.cluster.clear_draining(node.id)
+                    self._on_node_return(node)
+            else:
+                self._probe_successes.pop(node.id, None)
+                n = self._probe_failures.get(node.id, 0) + 1
+                self._probe_failures[node.id] = n
+                if (n >= self.liveness_threshold
+                        and not self.cluster.is_down(node.id)):
+                    suspects.append(node)
+        if not suspects:
+            return
+        # the suspects are checked through other peers, all at once: a
+        # broken link from here must not evict a node the others reach
+        refuted: dict[str, bool] = {}
+        checkers = [threading.Thread(
+            target=lambda nd=node: refuted.__setitem__(
+                nd.id, self._indirect_confirms_alive(nd, peers, results)),
+            daemon=True) for node in suspects]
+        for t in checkers:
+            t.start()
+        for t in checkers:
+            t.join(3 * self.probe_timeout + 3.0)
+        for node in suspects:
+            if refuted.get(node.id):
+                _log(f"liveness: node {node.id} suspected but refuted by an "
+                     "indirect probe (a link problem, not a death)")
+                self._probe_failures.pop(node.id, None)
+                self.stats.count("liveness/suspect_refuted")
+                continue
+            _log(f"liveness: node {node.id} ({node.uri}) failed "
+                 f"{self._probe_failures.get(node.id, 0)} probes, marking "
+                 "it down")
+            self.cluster.mark_down(node.id)
+            self.stats.count("liveness/node_down")
+
+    def _indirect_confirms_alive(self, target, peers, results) -> bool:
+        """Whether any of INDIRECT_PROBES live peers reaches target (asked
+        all at once; the first vouch settles it)."""
+        helpers = [p for p in peers
+                   if p.id != target.id and results.get(p.id)
+                   and not self.cluster.is_down(p.id)][:self.INDIRECT_PROBES]
+        if not helpers:
+            return False
+        outer = 2 * self.probe_timeout + 1.0
+        vouched = threading.Event()
+        votes: dict[str, bool] = {}
+        done = threading.Event()
+
+        def ask(helper) -> None:
+            try:
+                votes[helper.id] = self.client.probe_indirect(
+                    helper.uri, target.uri, timeout=outer)
+            except Exception:  # noqa: BLE001 — an unreachable helper
+                votes[helper.id] = False
+            if votes[helper.id]:
+                vouched.set()
+            if len(votes) == len(helpers):
+                done.set()
+
+        for h in helpers:
+            threading.Thread(target=ask, args=(h,), daemon=True).start()
+        deadline = time.monotonic() + outer + 1.0
+        while time.monotonic() < deadline:
+            if vouched.wait(0.05) or done.is_set():
+                break
+        return vouched.is_set() or any(votes.values())
+
+    # -- the return heal (:979-1110, :1389-1420) -----------------------------
+
+    def _handle_node_state(self, msg: dict) -> None:
+        """DRAINING routes around the peer at once; READY is its return:
+        its marks clear and its heal runs if it was away."""
+        nid, state = msg.get("id"), msg.get("state")
+        if not nid or nid == self.node_id:
+            return
+        node = self.cluster.node_by_id(nid)
+        if state == "DRAINING":
+            if node is not None and not self.cluster.is_draining(nid):
+                _log(f"peer {nid} is draining: routing around it")
+                self.cluster.mark_draining(nid)
+                self.stats.count("drain/peerDraining")
+        elif state == "READY":
+            was_away = (self.cluster.is_down(nid)
+                        or self.cluster.is_draining(nid))
+            self.cluster.mark_up(nid)
+            self._probe_failures.pop(nid, None)
+            self._probe_successes.pop(nid, None)
+            if node is not None:
+                # a peer that restarted before it was marked down waits
+                # for this node's hints-replayed too
+                if was_away:
+                    _log(f"peer {nid} rejoined: replaying its hints")
+                self._on_node_return(node)
+
+    def _on_node_return(self, node) -> None:
+        """Heal a peer that (re)opened or was away, on a thread of its
+        own, one heal at a time per peer: push it the schema and available
+        shards it may have missed (schema-sync) and the explicit
+        coordinator claim, replay its hints, and send hints-replayed, which
+        lets the peer's fence check merge what still differs. When hints
+        were dropped, a block sync of the shards both hold follows once
+        the peer's read fence has lifted: before that the peer may still
+        miss another node's hints, and the sync's union would carry its
+        stale bits back."""
+        with self._return_lock:
+            if node.id in self._return_heals:
+                return
+            self._return_heals.add(node.id)
+
+        def heal() -> None:
+            try:
+                try:
+                    self.client.send_message(node.uri, {
+                        "type": "schema-sync",
+                        "schema": self.holder.schema(),
+                        "availableShards": {
+                            iname: {fname: [int(x) for x in
+                                            f.available_shards.positions()]
+                                    for fname, f in list(idx.fields.items())}
+                            for iname, idx in
+                            list(self.holder.indexes.items())}})
+                except ClientError as e:
+                    _log(f"schema re-sync to {node.id} failed: {e}")
+                claim = self.cluster._explicit_claim
+                if claim:
+                    self._send_quiet(node.uri, {"type": "set-coordinator",
+                                                "id": claim})
+                try:
+                    _r, _d, complete = self.replay_hints(node)
+                except Exception as e:  # noqa: BLE001 — fall back to sync
+                    complete = False
+                    _log(f"hint replay to {node.id} failed: {e}")
+                self._send_quiet(node.uri, {
+                    "type": "hints-replayed", "target": node.id,
+                    "from": self.node_id, "complete": complete})
+                if not complete and self._await_unfenced(node):
+                    try:
+                        self._sync_with_node(node.id)
+                    except Exception as e:  # noqa: BLE001 — best effort
+                        _log(f"post-return sync with {node.id} failed: {e}")
+            finally:
+                with self._return_lock:
+                    self._return_heals.discard(node.id)
+
+        threading.Thread(target=heal, name="pilosa-torch-heal",
+                         daemon=True).start()
+
+    def _await_unfenced(self, node) -> bool:
+        """Whether node's read fence lifted within rejoin_fence_timeout
+        (and a little more: its own fence expires then)."""
+        deadline = time.monotonic() + self.rejoin_fence_timeout + 5.0
+        while not self.closed and time.monotonic() < deadline:
+            if not self._peer_fenced(node):
+                return True
+            time.sleep(0.5)
+        return False
+
+    def _peer_fenced(self, node) -> bool:
+        """Whether node's rejoin read fence holds a shard (its
+        /debug/vars readFence); an unreachable node counts as fenced. The
+        client's own timeout, as for the walk's other RPCs: a busy node
+        that answers late is not fenced, and leaving it out of a pass
+        would only put its merges one pass later."""
+        try:
+            return self.client.fenced_shards(node.uri) > 0
+        except ClientError:
+            return True
+
+    def _sync_with_node(self, node_id: str) -> int:
+        """A block sync of the fragments this node shares with one peer."""
+        merged = 0
+        for iname, fname, vname, shard, _frag in \
+                list(self.holder.walk_fragments()):
+            owners = {n.id for n in self.cluster.shard_nodes(iname, shard)}
+            if self.node_id in owners and node_id in owners:
+                merged += self._sync_fragment(iname, fname, vname, shard)
+        return merged
+
+    def _retry_pending_hints(self) -> None:
+        """The heal of every live peer that still has a hint log."""
+        if not self.hints.pending_targets():
+            return
+        for n in list(self.cluster.nodes):
+            if (n.id != self.node_id and n.uri
+                    and not self.cluster.is_unavailable(n.id)
+                    and self.hints.pending(n.id)):
+                self._on_node_return(n)
+
+    def replay_hints(self, node) -> tuple[int, int, bool]:
+        """node's hints, in order, as the remote writes they were ->
+        (replayed, dropped, complete) (HintStore.replay)."""
+        def apply(doc: dict) -> None:
+            self.client.query_proto(node.uri, doc["index"], doc["pql"],
+                                    shards=doc.get("shards"), remote=True)
+
+        replayed, dropped, complete = self.hints.replay(node.id, apply)
+        if replayed or dropped:
+            _log(f"hints: replayed {replayed} to {node.id}, {dropped} "
+                 "dropped" + ("" if complete else
+                              "; anti-entropy finishes the heal"))
+        return replayed, dropped, complete
+
+    def _apply_schema(self, schema: list) -> None:
+        """Create the indexes and fields of schema dicts this node lacks."""
+        for idx_d in schema:
+            opts = idx_d.get("options", {})
+            idx = self.holder.index(idx_d["name"])
+            if idx is None:
+                try:
+                    idx = self.holder.create_index(
+                        idx_d["name"], keys=opts.get("keys", False),
+                        track_existence=opts.get("trackExistence", True))
+                except ValueError:  # created meanwhile
+                    idx = self.holder.index(idx_d["name"])
+            for fd in idx_d.get("fields", []):
+                if idx.field(fd["name"]) is not None:
+                    continue
+                o = fd.get("options", {})
+                try:
+                    idx.create_field(fd["name"], FieldOptions(
+                        type=o.get("type", "set"),
+                        cache_type=o.get("cacheType", "ranked"),
+                        cache_size=o.get("cacheSize", 50000),
+                        min=o.get("min", 0), max=o.get("max", 0),
+                        time_quantum=o.get("timeQuantum", ""),
+                        keys=o.get("keys", False)))
+                except ValueError:
+                    pass  # created meanwhile
+
+    # -- the rejoin read fence (:1263-1387) ----------------------------------
+
+    def _arm_read_fence(self) -> None:
+        """Fence every local (index, shard) when this node opens with data
+        in a cluster: it may have missed writes while it was away."""
+        if not self.cluster_hosts:
+            return
+        keys = {(iname, shard) for iname, _f, _v, shard, _frag
+                in self.holder.walk_fragments()}
+        if not keys:
+            return
+        n = self.executor.fence_reads(keys)
+        if not n:
+            return
+        self.stats.count("readFence/fenced", n)
+        _log(f"rejoin: read-fenced {n} shard(s) until their block "
+             "checksums match a replica")
+        self._start_fence_worker()
+
+    def _start_fence_worker(self) -> None:
+        self._fence_wake.set()
+        t = self._fence_thread
+        if t is not None and t.is_alive():
+            return
+        self._fence_thread = threading.Thread(
+            target=self._fence_worker, name="pilosa-torch-fence", daemon=True)
+        self._fence_thread.start()
+
+    def _fence_worker(self) -> None:
+        deadline = time.monotonic() + self.rejoin_fence_timeout
+        ex = self.executor
+        while not self.closed and ex.read_fence:
+            try:
+                self._verify_fence_pass()
+            except Exception as e:  # noqa: BLE001 — retried next tick
+                _log(f"rejoin: fence check failed: {e}")
+            if not ex.read_fence:
+                break
+            if time.monotonic() >= deadline:
+                # availability wins over a fence nothing can verify; the
+                # scrubber stays the backstop
+                with ex._fence_lock:
+                    n = len(ex.read_fence)
+                    ex.read_fence.clear()
+                self.stats.count("readFence/expired", n)
+                _log(f"rejoin: fence expired after "
+                     f"{self.rejoin_fence_timeout:.0f} s with {n} shard(s) "
+                     "unverified: serving local data")
+                break
+            self._fence_wake.wait(0.25)
+            self._fence_wake.clear()
+
+    def _verify_fence_pass(self) -> int:
+        """One check of every fenced shard, FENCE_WORKERS shards at once:
+        each local fragment's block checksums against a live replica's; a
+        difference is healed by a block sync first. A shard lifts when all
+        its fragments were checked; one with no reachable replica stays
+        for the next pass. Returns the shards lifted."""
+        ex = self.executor
+        with ex._fence_lock:
+            fence = sorted(ex.read_fence)
+        if not fence:
+            return 0
+        with ThreadPoolExecutor(min(self.FENCE_WORKERS, len(fence))) as pool:
+            return sum(pool.map(self._verify_fenced_shard, fence))
+
+    def _verify_fenced_shard(self, key: tuple) -> int:
+        """1 when the shard's fence lifted, else 0."""
+        iname, shard = key
+        ex = self.executor
+        idx = self.holder.index(iname)
+        if idx is None:
+            ex.unfence_reads(key)
+            return 1
+        owners = self.cluster.shard_nodes(iname, shard)
+        peers = [n for n in owners
+                 if n.id != self.node_id and n.uri
+                 and not self.cluster.is_down(n.id)]
+        if not peers:
+            if all(n.id == self.node_id for n in owners):
+                ex.unfence_reads(key)  # no replica configured
+                return 1
+            return 0
+        peer = peers[0]
+        # live peers that may still hold hints for this node: a difference
+        # then waits, since a union merge would carry a bit that a hinted
+        # Clear has not reached yet back onto the replica
+        awaited = any(n.id != self.node_id and n.uri
+                      and not self.cluster.is_down(n.id)
+                      and n.id not in self._hints_in
+                      for n in self.cluster.nodes)
+        if awaited and key in self._fence_diverged:
+            return 0
+        healed = False
+        for fname, field in list(idx.fields.items()):
+            for vname, view in list(field.views.items()):
+                frag = view.fragment(shard)
+                if frag is None:
+                    continue
+                try:
+                    remote = {b["id"]: b["checksum"]
+                              for b in self.client.fragment_blocks(
+                                  peer.uri, iname, fname, vname, shard)}
+                except ClientError as e:
+                    if e.code != "fragment-not-found":
+                        return 0  # unreachable: the next pass
+                    remote = {}
+                local = {b: c.hex() for b, c in frag.blocks()}
+                if local != remote:
+                    if awaited:
+                        self._fence_diverged.add(key)
+                        return 0
+                    self._sync_fragment(iname, fname, vname, shard)
+                    healed = True
+        ex.unfence_reads(key)
+        self.stats.count("readFence/verified")
+        if healed:
+            self.stats.count("readFence/healed")
+        return 1
+
+    # -- anti-entropy: scrub and repair (:2831-3100) -------------------------
+
+    def _schedule_anti_entropy(self) -> None:
+        if self.closed:
+            return
+        interval = self.anti_entropy_interval
+        if self.anti_entropy_jitter > 0:
+            # replicas that scrub at the same instant double the load
+            interval *= 1.0 + random.uniform(-self.anti_entropy_jitter,
+                                             self.anti_entropy_jitter)
+        self._ae_timer = threading.Timer(max(interval, 0.01),
+                                         self._anti_entropy_tick)
+        self._ae_timer.daemon = True
+        self._ae_timer.start()
+
+    def _anti_entropy_tick(self) -> None:
+        try:
+            self.scrub_pass()
+        except Exception as e:  # noqa: BLE001 — the next pass retries
+            _log(f"anti-entropy: pass failed: {type(e).__name__}: {e}")
+        finally:
+            self._schedule_anti_entropy()
+
+    def scrub_pass(self) -> int:
+        """One pass: rebuild quarantined fragments from live replicas,
+        then merge the blocks that differ from the replicas'. Returns the
+        blocks merged. Skipped (no pass counted) while this node's read
+        fence is armed: its check compares every fenced fragment with a
+        replica already, and a pass beside it would compute the same
+        checksums again on the same cores."""
+        if self.executor.read_fence:
+            return 0
+        with self._scrub_lock:
+            t0 = time.monotonic()
+            rebuilt = self.repair_quarantined()
+            merged = self.sync_holder()
+            self.stats.count("antiEntropy/passes")
+            if merged:
+                self.stats.count("antiEntropy/blocksMerged", merged)
+            if rebuilt:
+                self.stats.count("antiEntropy/fragmentsRebuilt", rebuilt)
+            self.stats.gauge("antiEntropy/lastPassSeconds",
+                             time.monotonic() - t0)
+            return merged
+
+    def repair_quarantined(self) -> int:
+        """Every quarantined fragment rebuilt from the first live replica
+        that has it: its roaring bytes (retrieve_shard) unioned in
+        (import_roaring snapshots, so the rebuild is durable before
+        rebuilt_from is set). Returns the fragments rebuilt."""
+        rebuilt = 0
+        for iname, fname, vname, shard, frag in \
+                list(self.holder.walk_fragments()):
+            if not frag.needs_rebuild:
+                continue
+            for node in self.cluster.shard_nodes(iname, shard):
+                if node.id == self.node_id or not node.uri \
+                        or self.cluster.is_down(node.id):
+                    continue
+                try:
+                    data = self.client.retrieve_shard(
+                        node.uri, iname, fname, vname, shard)
+                except ClientError:
+                    continue  # no copy there, or unreachable: the next
+                try:
+                    frag.import_roaring(data)
+                except (ValueError, OSError) as e:
+                    _log(f"scrubber: rebuild of {iname}/{fname}/{vname}/"
+                         f"{shard} from {node.id} failed: {e}")
+                    continue
+                self._refresh_rank(iname, fname, vname, shard)
+                frag.rebuilt_from = node.id
+                rebuilt += 1
+                _log(f"scrubber: rebuilt quarantined fragment {iname}/"
+                     f"{fname}/{vname}/{shard} from {node.id} "
+                     f"({frag.bit_count()} bits; the damaged file stays at "
+                     f"{frag.quarantine_path})")
+                break
+        return rebuilt
+
+    def _refresh_rank(self, iname: str, fname: str, vname: str,
+                      shard: int) -> None:
+        idx = self.holder.index(iname)
+        f = idx.field(fname) if idx is not None else None
+        view = f.view(vname) if f is not None else None
+        if view is not None:
+            view.refresh_rank_cache(shard)
+
+    def sync_holder(self) -> int:
+        """One anti-entropy walk: the index's column attributes, each
+        field's row attributes, then every fragment of a shard this node
+        owns (pace seconds apart). A block is merged only when the
+        previous walk saw the same divergence. Returns blocks merged."""
+        merged = 0
+        seen: dict = {}
+        # a peer still in its rejoin read fence may miss hints: its fence
+        # check merges its fragments once they are in
+        fenced = {n.id for n in list(self.cluster.nodes)
+                  if n.id != self.node_id and n.uri
+                  and not self.cluster.is_down(n.id) and self._peer_fenced(n)}
+        for iname, idx in list(self.holder.indexes.items()):
+            merged += self._sync_attrs(
+                idx.column_attrs,
+                lambda uri, blocks, rng, i=iname: self.client.column_attr_diff(
+                    uri, i, blocks, rng), fenced)
+            for fname, field in list(idx.fields.items()):
+                merged += self._sync_attrs(
+                    field.row_attrs,
+                    lambda uri, blocks, rng, i=iname, fn=fname:
+                    self.client.row_attr_diff(uri, i, fn, blocks, rng),
+                    fenced)
+                for vname, view in list(field.views.items()):
+                    for shard in view.shards():
+                        if self.closed:
+                            return merged
+                        if not self.cluster.owns_shard(self.node_id, iname,
+                                                       shard):
+                            continue
+                        merged += self._sync_fragment(iname, fname, vname,
+                                                      shard, seen=seen,
+                                                      skip=fenced)
+                        if self.anti_entropy_pace > 0:
+                            time.sleep(self.anti_entropy_pace)
+        self._ae_seen = seen
+        return merged
+
+    def _sync_attrs(self, store, diff_fn, skip: set) -> int:
+        """Pull the attribute blocks that differ from each live peer and
+        merge them in, ATTR_SYNC_PAGE local blocks a request with a block
+        range tiling the id space, so blocks only the peer holds are
+        pulled once; the peers in `skip` are left out. Returns the peers
+        something was merged from."""
+        merged = 0
+
+        def pages() -> list:
+            blocks = [{"id": b, "checksum": chk.hex()}
+                      for b, chk in store.blocks()]
+            out, lo = [], 0
+            for i in range(0, len(blocks), self.ATTR_SYNC_PAGE):
+                chunk = blocks[i:i + self.ATTR_SYNC_PAGE]
+                last = i + self.ATTR_SYNC_PAGE >= len(blocks)
+                hi = None if last else int(chunk[-1]["id"]) + 1
+                out.append((chunk, [lo, hi]))
+                lo = hi
+            return out or [([], [0, None])]
+
+        for node in list(self.cluster.nodes):
+            if node.id == self.node_id or not node.uri \
+                    or self.cluster.is_down(node.id) or node.id in skip:
+                continue
+            got = False
+            try:
+                for chunk, rng in pages():
+                    attrs = diff_fn(node.uri, chunk, rng)
+                    if attrs:
+                        store.set_bulk_attrs(attrs.items())
+                        got = True
+            except ClientError:
+                pass  # the pages merged so far still count
+            merged += int(got)
+        return merged
+
+    def _sync_fragment(self, iname: str, fname: str, vname: str, shard: int,
+                       seen: Optional[dict] = None,
+                       skip: set | frozenset = frozenset()) -> int:
+        """A fragment's blocks merged with every reachable replica's at
+        once (:3029-3100): each block whose checksums differ is voted by
+        every replica (a missing block or fragment votes empty), with
+        majority (configured replicas + 1) // 2 when every configured
+        replica votes and union otherwise, so clears need the whole
+        replica set's evidence. The sets and clears land here and go to
+        each peer as roaring imports. With `seen` (the periodic walk) a
+        block is merged only when self._ae_seen holds the same divergence
+        from the walk before; every divergence met is put in `seen`. The
+        peers in `skip` neither vote nor receive. Returns the blocks
+        merged."""
+        idx = self.holder.index(iname)
+        f = idx.field(fname) if idx is not None else None
+        view = f.view(vname) if f is not None else None
+        frag = view.fragment(shard) if view is not None else None
+        if frag is None:
+            return 0
+        peers = []  # (node, {block: checksum hex}, has the fragment)
+        for node in self.cluster.shard_nodes(iname, shard):
+            if node.id == self.node_id or not node.uri \
+                    or self.cluster.is_down(node.id) or node.id in skip:
+                continue
+            try:
+                remote = {b["id"]: b["checksum"]
+                          for b in self.client.fragment_blocks(
+                              node.uri, iname, fname, vname, shard)}
+                has = True
+            except ClientError as e:
+                if e.code != "fragment-not-found":
+                    continue  # unreachable, or the schema is gone there
+                remote, has = {}, False
+            peers.append((node, remote, has))
+        if not peers:
+            return 0
+        configured = min(self.cluster.replica_n, len(self.cluster.nodes))
+        majority_n = ((configured + 1) // 2
+                      if len(peers) + 1 == configured else 1)
+        local_blocks = dict(frag.blocks())
+        all_blocks = set(local_blocks)
+        for _, remote, _ in peers:
+            all_blocks |= set(remote)
+        merged = 0
+        adopted = False
+        changed_here = False
+        sw = np.uint64(SHARD_WIDTH)
+        for blk in sorted(all_blocks):
+            if self.anti_entropy_max_blocks > 0 \
+                    and merged >= self.anti_entropy_max_blocks:
+                break  # the next pass goes on
+            lc = local_blocks.get(blk)
+            lhex = lc.hex() if lc is not None else ""
+            if lc is not None and all(remote.get(blk) == lhex
+                                      for _, remote, _ in peers):
+                continue
+            if seen is not None:
+                key = (iname, fname, vname, shard, blk)
+                sig = (lhex, tuple(remote.get(blk, "")
+                                   for _, remote, _ in peers))
+                seen[key] = sig
+                if self._ae_seen.get(key) != sig:
+                    continue  # not settled: maybe a write in flight
+            # each distinct checksum is fetched once
+            by_checksum: dict = {}
+            if lc is not None:
+                lr, lcols = frag.block_data(blk)
+                by_checksum[lhex] = (lr.astype(np.uint64) * sw
+                                     + lcols.astype(np.uint64))
+            voters, positions = [], []
+            fetch_failed = False
+            for node, remote, has in peers:
+                if not has or blk not in remote:
+                    pos = np.empty(0, dtype=np.uint64)
+                elif remote[blk] in by_checksum:
+                    pos = by_checksum[remote[blk]]
+                else:
+                    try:
+                        data = self.client.block_data(node.uri, iname, fname,
+                                                      vname, shard, blk)
+                    except ClientError as e:
+                        if e.status != 404:
+                            if majority_n > 1:
+                                # a majority needs this vote: skip the block
+                                fetch_failed = True
+                                break
+                            continue  # union: it drops out of this block
+                        data = None  # the block went meanwhile
+                    if data is None:
+                        pos = np.empty(0, dtype=np.uint64)
+                    else:
+                        pos = (np.asarray(data.get("rowIDs", []),
+                                          dtype=np.uint64) * sw
+                               + np.asarray(data.get("columnIDs", []),
+                                            dtype=np.uint64))
+                        by_checksum[remote[blk]] = pos
+                voters.append(node)
+                positions.append(pos)
+            if fetch_failed:
+                continue
+            n_sets, n_clears, deltas, durable = frag.merge_block_majority(
+                blk, positions, majority_n=majority_n)
+            changed_here |= bool(n_sets or n_clears)
+            adopted |= not durable
+            merged += 1
+            for node, (peer_sets, peer_clears) in zip(voters, deltas):
+                for delta, clear in ((peer_sets, False), (peer_clears, True)):
+                    if not delta.size:
+                        continue
+                    bm = Bitmap()
+                    bm.add_many(delta)
+                    buf = io.BytesIO()
+                    bm.write_to(buf)
+                    try:
+                        self.client.import_roaring(
+                            node.uri, iname, fname, shard,
+                            {vname: buf.getvalue()}, remote=True, clear=clear)
+                    except ClientError:
+                        pass
+        if adopted:
+            frag.snapshot()  # one snapshot for a large adoption
+        if changed_here:
+            self._refresh_rank(iname, fname, vname, shard)
+        return merged
 
     # -- the cluster's messages (:1472) ------------------------------------
 
@@ -374,6 +1191,27 @@ class Server:
             # membership tick
             if msg.get("id") and self.cluster.node_by_id(msg["id"]) is None:
                 self.refresh_membership()
+            self._handle_node_state(msg)
+        elif mtype == "hints-replayed":
+            # a peer's hints for this node are in: check the fence now
+            if msg.get("target") == self.node_id:
+                if msg.get("from"):
+                    self._hints_in.add(msg["from"])
+                self._fence_wake.set()
+                if self.executor.read_fence:
+                    self._start_fence_worker()
+        elif mtype == "schema-sync":
+            # a peer's push to this node after its return (:1537)
+            self._apply_schema(msg.get("schema", []))
+            for iname, fields in msg.get("availableShards", {}).items():
+                idx = self.holder.index(iname)
+                if idx is None:
+                    continue
+                for fname, shards in fields.items():
+                    f = idx.field(fname)
+                    if f is not None and shards:
+                        f.add_available_shards([int(x) for x in shards],
+                                               quiet=True)
         else:
             raise ValueError(f"unknown cluster message type: {mtype}")
 

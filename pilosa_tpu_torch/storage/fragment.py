@@ -33,15 +33,18 @@ from __future__ import annotations
 
 import bisect
 import functools
+import hashlib
 import io
 import os
 import threading
+import time
 from typing import Iterable, Optional
 
 import numpy as np
 
 from pilosa_tpu_torch.constants import (
     CONTAINERS_PER_SHARD,
+    HASH_BLOCK_SIZE,
     MAX_OP_N,
     SHARD_WIDTH,
 )
@@ -211,6 +214,13 @@ class Fragment:
         self._row_intervals: dict[int, tuple] = {}
         # torn WAL tail dropped at the last open
         self.wal_truncated_bytes = 0
+        self.wal_truncate_error: Optional[str] = None
+        # a damaged snapshot moved aside at open, until a replica rebuild
+        self.quarantine_path: Optional[str] = None
+        self.corruption_error: Optional[str] = None
+        self.rebuilt_from: Optional[str] = None
+        # block -> checksum, dropped per block by the writes
+        self._block_checksums: dict[int, bytes] = {}
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -219,9 +229,15 @@ class Fragment:
         appender. A new fragment's file is written at its first op or
         snapshot (a bulk load writes each new fragment once); new=True
         says the caller knows there is no file (its view listed them all
-        at open) and skips the lookup. No descriptor stays open but the
-        WAL's, within WAL_FDS; the holder's lock excludes other processes
-        (models/holder.py)."""
+        at open) and skips the lookup. A damaged snapshot section is
+        quarantined (_quarantine) and the fragment reopens empty. No
+        descriptor stays open but the WAL's, within WAL_FDS; the holder's
+        lock excludes other processes (models/holder.py)."""
+        self.quarantine_path = None
+        self.corruption_error = None
+        self.rebuilt_from = None
+        self.wal_truncated_bytes = 0
+        self.wal_truncate_error = None
         data = b""
         if not new:
             try:
@@ -231,16 +247,44 @@ class Fragment:
                 pass
         self.fresh = not data
         if not self.fresh:
-            self.storage = Bitmap.from_bytes(data, recover_wal=True)
+            try:
+                self.storage = Bitmap.from_bytes(data, recover_wal=True)
+            except ValueError as e:
+                self.corruption_error = str(e)
+                self.quarantine_path = self._quarantine()
+                self.storage = Bitmap()
+                self.fresh = True
             if self.storage.wal_error is not None:
                 valid_end = self.storage.wal_valid_end
                 self.wal_truncated_bytes = len(data) - valid_end
+                self.wal_truncate_error = self.storage.wal_error
                 os.truncate(self.path, valid_end)
         self.op_n = self.storage.op_n
-        self._wal.ready = not self.fresh
+        self._wal.ready = not self.fresh or self.quarantine_path is not None
         self.storage.op_writer = self._wal
         self.closed = False
         return self
+
+    def _quarantine(self) -> str:
+        """Move the damaged file to `<path>.corrupt-<ts>` (kept for the
+        operator) and put an empty fragment's file in its place, as the
+        JAX package's open does (:325-338)."""
+        ts = time.strftime("%Y%m%d-%H%M%S")
+        dest = f"{self.path}.corrupt-{ts}"
+        i = 1
+        while os.path.exists(dest):
+            dest = f"{self.path}.corrupt-{ts}-{i}"
+            i += 1
+        os.replace(self.path, dest)
+        with open(self.path, "wb") as f:
+            f.write(_empty_snapshot())
+        return dest
+
+    @property
+    def needs_rebuild(self) -> bool:
+        """Quarantined at open and not rebuilt from a replica yet (the
+        scrubber's work list)."""
+        return self.quarantine_path is not None and self.rebuilt_from is None
 
     def close(self) -> None:
         self.storage.op_writer = None
@@ -252,6 +296,7 @@ class Fragment:
     def _touch(self, row_id: int) -> None:
         self.generation += 1
         self._row_gen[row_id] = self.generation
+        self._block_checksums.pop(row_id // HASH_BLOCK_SIZE, None)
         if self._volatile:
             self.volatile_mutations += 1
 
@@ -336,6 +381,7 @@ class Fragment:
             for rid in changed_rows:
                 self._row_gen[rid] = self.generation
                 self._row_run_stats.pop(rid, None)
+                self._block_checksums.pop(rid // HASH_BLOCK_SIZE, None)
             self._intervals_after_batch(
                 net_adds.tolist() + net_removes.tolist(), pre_gen)
             if self._volatile:
@@ -490,6 +536,7 @@ class Fragment:
         self._gen_floor = self._bulk_gen = self.generation
         self._row_run_stats.clear()
         self._row_intervals.clear()
+        self._block_checksums.clear()
         if self._volatile:
             self.volatile_mutations += 1
         self._maybe_snapshot()
@@ -574,6 +621,7 @@ class Fragment:
         self._row_ids_cache = None
         self._row_run_stats.clear()
         self._row_intervals.clear()
+        self._block_checksums.clear()
 
     # -- reads --------------------------------------------------------------
 
@@ -920,6 +968,112 @@ class Fragment:
 
     def bit_count(self) -> int:
         return self.storage.count()
+
+    # -- anti-entropy blocks (:1176-1300) -----------------------------------
+
+    def blocks(self) -> list[tuple[int, bytes]]:
+        """(block, checksum) of every non-empty HASH_BLOCK_SIZE-row block,
+        ascending: blake2b-16 over the block's positions relative to its
+        start, as uint64 (the JAX package's bytes)."""
+        blks = sorted({r // HASH_BLOCK_SIZE for r in self.row_ids()})
+        out = []
+        for blk in blks:
+            chk = self._block_checksum(blk)
+            if chk is not None:
+                out.append((blk, chk))
+        return out
+
+    def _block_positions(self, blk: int) -> np.ndarray:
+        """The block's positions relative to its start, ascending uint64.
+        A block is whole containers, so its containers' values are
+        gathered as they are and offset by their keys in a few array
+        operations, not filtered container by container (Bitmap.slice):
+        a returning node checks every block of every fenced fragment."""
+        span = HASH_BLOCK_SIZE * CONTAINERS_PER_SHARD
+        first = blk * span
+        keys = self.storage._keys_in(first << 16, (first + span) << 16)
+        if not keys:
+            return np.empty(0, dtype=np.uint64)
+        get = self.storage.containers.__getitem__
+        vals = [get(k).values() for k in keys]
+        lens = np.fromiter((v.size for v in vals), dtype=np.int64,
+                           count=len(vals))
+        offs = (np.asarray(keys, dtype=np.uint64)
+                - np.uint64(first)) << np.uint64(16)
+        return np.repeat(offs, lens) + np.concatenate(vals).astype(np.uint64)
+
+    def _block_checksum(self, blk: int) -> Optional[bytes]:
+        cached = self._block_checksums.get(blk)
+        if cached is not None:
+            return cached
+        # under the write lock: a write between the read and the store
+        # would leave a stale checksum cached
+        with self.mu:
+            rel = self._block_positions(blk)
+            if rel.size == 0:
+                return None
+            h = hashlib.blake2b(rel.tobytes(), digest_size=16).digest()
+            self._block_checksums[blk] = h
+            return h
+
+    def block_data(self, blk: int) -> tuple[np.ndarray, np.ndarray]:
+        """(rows, columns) int64 pairs of one block, ascending."""
+        rel = self._block_positions(blk)
+        sw = np.uint64(SHARD_WIDTH)
+        return ((rel // sw).astype(np.int64) + blk * HASH_BLOCK_SIZE,
+                (rel % sw).astype(np.int64))
+
+    @_locked
+    def merge_block_majority(self, blk: int, peer_positions: list,
+                             majority_n: Optional[int] = None):
+        """One block merged across every replica at once (:1211-1300).
+        peer_positions: one uint64 position array per peer (an empty one
+        still votes). The target is every pair held by at least
+        majority_n replicas, this one included ((replicas + 1) // 2 when
+        None: union with one peer; with three, a bit cleared on two stays
+        cleared). Applies this fragment's sets and clears, bumping the
+        generation of every changed row, and returns (n_sets, n_clears,
+        deltas, durable): deltas[i] is the (sets, clears) pair for peer i.
+        Up to MAX_OP_N changes go to the WAL as redo records; a volatile
+        (frozen) fragment logs nothing (its durability is an explicit
+        snapshot); durable is False only for a larger change on a WAL
+        fragment, which asks the caller for one snapshot."""
+        local_rows, local_cols = self.block_data(blk)
+        sw = np.uint64(SHARD_WIDTH)
+        local_pos = local_rows.astype(np.uint64) * sw \
+            + local_cols.astype(np.uint64)
+        votes = [np.unique(np.asarray(p, dtype=np.uint64))
+                 for p in peer_positions]
+        votes.insert(0, local_pos)
+        if majority_n is None:
+            majority_n = (len(votes) + 1) // 2
+        uniq, counts = np.unique(np.concatenate(votes), return_counts=True)
+        target = uniq[counts >= majority_n]
+        deltas = [(np.setdiff1d(target, v), np.setdiff1d(v, target))
+                  for v in votes]
+        local_sets, local_clears = deltas[0]
+        if local_sets.size:
+            self.storage.add_many(local_sets)
+        if local_clears.size:
+            self.storage.remove_many(local_clears)
+        durable = True
+        n_changed = int(local_sets.size) + int(local_clears.size)
+        if n_changed:
+            changed = np.concatenate([local_sets, local_clears])
+            for rid in np.unique(changed // sw).tolist():
+                self._touch(int(rid))
+            if self._volatile:
+                pass  # durability is the explicit snapshot()
+            elif (self.storage.op_writer is not None
+                  and n_changed <= MAX_OP_N):
+                self.storage.append_ops(local_sets, local_clears)
+                self.op_n += n_changed
+                if self.op_n > MAX_OP_N:
+                    self.snapshot()
+            else:
+                durable = False
+        return (int(local_sets.size), int(local_clears.size), deltas[1:],
+                durable)
 
     # -- snapshot / WAL compaction ------------------------------------------
 

@@ -8,7 +8,8 @@ are the content-hashed blocks of ATTR_BLOCK_SIZE ids a cluster diffs.
 
 set_bulk_attrs merges a whole batch in one transaction (the JAX package
 commits once per id: 2.5-3.3 ms a commit on the card machine's 9p file
-system, `scripts/fs_probe.py`); what it stores is the same.
+system, `scripts/fs_probe.py`); what it stores is the same. attr_diff is
+anti-entropy's attribute pull (pilosa_tpu/api.py:1089 _attr_diff).
 """
 
 from __future__ import annotations
@@ -152,3 +153,23 @@ class NopAttrStore:
 
     def block_data(self, blk):
         return []
+
+
+def attr_diff(store, blocks: list, block_range=None) -> dict:
+    """{id: attrs} of every block of `store` whose checksum differs from
+    the caller's `blocks` ([{"id", "checksum"}], hex). block_range [lo,
+    hi) keeps the blocks in that range (hi None: unbounded): a caller
+    pages through tiling ranges, each carrying only its range's blocks,
+    and every block of this store is answered once."""
+    lo, hi = block_range if block_range else (None, None)
+    remote = {int(b["id"]): b.get("checksum", "") for b in blocks}
+    out: dict = {}
+    for blk, chk in store.blocks():
+        if lo is not None and blk < lo:
+            continue
+        if hi is not None and blk >= hi:
+            continue
+        if remote.get(blk) == chk.hex():
+            continue
+        out.update(store.block_data(blk))
+    return out

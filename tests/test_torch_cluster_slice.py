@@ -342,8 +342,8 @@ def test_cli_nodes_converge_and_serve(tmp_path):
 
 @pytest.mark.parametrize("toml", [
     "[gossip]\nport = 14000\n",
-    "[anti-entropy]\ninterval = 1.0\n",
-    "[cluster]\nliveness-threshold = 5\n",
+    "[cluster]\ndrain-timeout = 10.0\n",
+    "[metric]\nevents-ring = 512\n",
     "[qos]\nmode = \"enforce\"\n",
     "[ingest]\nbatch-window = \"5ms\"\n"])
 def test_unported_config_key_fails_the_start(tmp_path, toml):
