@@ -92,14 +92,14 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    molecule counts (printed): config 2, 64 rows of 2000 bits and 1-bit
    tail rows over 10K columns (10M rows of 100M), Count of Union,
    Intersect, Xor and Difference, p50 of 9; config 3, a Zipf head of 50k
-   rows and a 1-bit tail striped over 8 shards (25M rows of 1B),
+   rows and a 1-bit tail striped over 8 shards (12.5M rows of 1B),
    TopN(t, n=1000) exact with its p50 and topnRecountRows, Rows pages
-   with previous=; config 4, an int field 0..1023 on every column of 128
+   with previous=; config 4, an int field 0..1023 on every column of 96
    shards (of 953), Sum(Range), Min and Max with and without a filter,
    then 32 clients x 8 Min(Range(v > x))/Max(Range(v < x)) through the
    MinMaxBatcher with a device-profile capture (q/s, p50/p99, batches,
    mean batch, bsi_sum_counts launches per batch, which must stay under
-   (D + 1) x queries); similarity, 500,000 molecules of 48 of 2048
+   (D + 1) x queries); similarity, 200,000 molecules of 48 of 2048
    fingerprint bits in families of 100 (75 % motif retention) with a rank
    cache the size of the corpus, TopN(fingerprint, Row(fingerprint=7),
    n=20) and tanimotoThreshold 90, 70, 50 exact against a numpy brute
@@ -120,7 +120,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    (quantum YMD) where user u of 256 stars about 200,000 / (u + 1)
    uniformly random repositories (about 1.2M stars; the shape's 2,000,000
    cut ten times, see TYPED_STARS_HEAD) at uniform timestamps over
-   2019-01-25..2019-03-10 (45 day views, 3 month views, the year view and
+   2019-01-25..2019-02-28 (35 day views, 2 month views, the year view and
    the standard view; epoch numbers, the last chunk ISO-8601 strings); a
    mutex field license of 16 rows over the starred repositories, imported
    once and then a seeded 10 % reassigned (the last write wins); a bool
@@ -135,7 +135,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    stargazer=u, window), Row(license=l))) over 8 users x 4 windows x 4
    licenses with a device-profile capture; then writes over HTTP with the
    reads they change (a timestamped Set into a covered day view, a mutex
-   Set moving a column between rows, a bool Set, ClearRow, Store) and
+   Set moving a column between rows, a bool Set, ClearRow of user 100's
+   stars, Store) and
    Options (shards=, excludeColumns). Every answer is exact against a
    numpy oracle of the generated arrays. Printed: the import seconds per
    field, positions per view family, host RSS, device bytes resident, the
@@ -156,8 +157,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    those keyed queries with a device-profile capture; then an unknown
    key's Count reads 0 and mints nothing (the translate log's size is
    unchanged), and after a Set of it the same Count reads 1 with the plan
-   cache on. (B) A keyed-column index of 2,097,151 user logins (ids start
-   at 1, so they fill shards 0-1 exactly; cut by the time limit from a
+   cache on. (B) A keyed-column index of 1,048,575 user logins (ids start
+   at 1, so they fill shard 0 exactly; cut by the time limit from a
    deployment of tens of millions of accounts): a keyed country field of
    200 names (share 1 / (r + 1)) and an int field followers 0..1,000,000,
    imported with columnKeys (rowKeys, values) in requests of 262,144
@@ -166,7 +167,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    (dense rows), Count(Range(followers > 500000)), the rarest country's
    Row with columnAttrs=true (its login keys and attribute sets), the
    largest Row of keys; one envelope of 500 keyed Set/Clear calls through
-   the IngestBatcher, 400 of them minting logins; /export of shard 1 of
+   the IngestBatcher, 400 of them minting logins; /export of shard 0 of
    country; DELETE of country, which must give its resident device bytes
    back (torch.cuda.memory_allocated). Every answer is exact against a
    numpy oracle built from the seed, keys and the ids minted in import
@@ -199,7 +200,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    node the shards route to and the coalesced transport; 32 clients x 8
    Count(Intersect) through node 0 with a device-profile capture on every
    node (q/s, p50/p99, coalesce factor and dedups); the coalescing A/B
-   (off, on; nothing claimed); 4 writers x 6 envelopes of 500
+   (off, on; nothing claimed); 4 writers x 4 envelopes of 500
    Set/Clear on a field w through nodes 0 and 1 under 16 exact readers
    and one keyed envelope through node 2 minting 100 keys through the
    primary; every acknowledged mutation read back from both of its owners
@@ -232,12 +233,39 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    and hedge counters, the resident bytes per node before and after.
    A node that exits early fails the run; every node is stopped at the
    end.
+5h. Membership changes, on phase 5g's nodes after its drill, and SWIM
+   gossip: (1) scale-out: node 3 starts as a CLI process with --join, an
+   empty data dir and the three nodes as its hosts, under 4 readers and 1
+   writer of single Sets through node 0; the seconds until all four
+   report NORMAL with four members, the fragments and bytes node 3
+   received and the reads and writes the RESIZING gate refused meanwhile
+   (a refused Set is sent again until acknowledged); every acknowledged
+   write read back from each owner alone, phase 5g's oracle reads
+   through node 3 and node 0 exact, every node's fragment files of
+   shards it owns only (node 3 holding f's of all of its shards), every
+   .topology listing four ids, node 3 launching kernels; (2) rolling
+   restart: POST /cluster/drain on node 2, a query to it answered 503
+   with X-Pilosa-Shed-Reason: draining and Retry-After: 1, 8 readers
+   through node 0 without a failure, the drain's snapshots, SIGTERM and
+   exit 0 (seconds); (3) decommission: remove-node node 2 through node 1
+   (forwarded to the coordinator; the leave job copies node 2's shards
+   from their other replicas), nodes 0, 1 and 3 NORMAL with three members
+   (seconds, fragments moved), the oracle reads through each exact, the
+   read-back from each owner alone, no hints for node 2 anywhere; (4) the
+   gossip pair g0 and g1, CLI processes started beside phase 5f with no
+   hosts, replicas 2 and [gossip] (period 0.25 s, a shared secret, each
+   other as seeds): the seconds until they are members of each other by
+   gossip alone; a Count(Intersect) over 16 shards imported through g0
+   exact through g0 and g1, both launching kernels; SIGKILL g1, and the
+   seconds until g0 marks it down by suspicion; a Count through g0 exact
+   while DEGRADED; the cipher's seal and open ms a datagram in g0's
+   process. Phase 5h's launches count with phase 5g's.
 6. Server, write path, on the same server and index (bench.py's ingest
    stage, bench.py:1824-1935, cut to a fixed length): 8 keep-alive writers
-   each send 3 envelopes of 500 calls, 80 % Set of a column of their own
+   each send 2 envelopes of 500 calls, 80 % Set of a column of their own
    (column % 8 = writer) anywhere in the 1024 shards on one of f rows 0-7
    (dense), s rows 1-8 (sparse, K = 16..2048) or r row 0 (run), 20 %
-   Clear of a (row, column) the writer set earlier: 12,000 mutations,
+   Clear of a (row, column) the writer set earlier: 8,000 mutations,
    served through the IngestBatcher, Fragment.apply_batch and the
    in-place patches of the resident leaves, while 32 clients run
    Count(Intersect(Row(f=a), Row(f=b))). Every changed flag is checked
@@ -354,10 +382,10 @@ one JSON line.
 --keyed-only loads phase 5e's index without its passes and runs phase 5f
 on it, printing its numbers as one JSON line.
 
-    python3 chip_smoke.py --cluster-only # phases 1 and 5g alone
+    python3 chip_smoke.py --cluster-only # phases 1, 5g and 5h alone
 
---cluster-only runs phase 5g (three node processes) and prints its
-numbers as one JSON line.
+--cluster-only runs phases 5g and 5h (three node processes, a fourth
+that joins, the gossip pair) and prints their numbers as one JSON line.
 
     python3 chip_smoke.py --ingest-only  # phases 1-2, then phase 6 on
                                          # s and r loaded without phase 5
@@ -428,10 +456,11 @@ SPARSE_SENTINEL = SHARD_WIDTH
 # the write phase (bench.py:1824-1827 and 1830-1935, cut to a fixed length)
 INGEST_WRITERS = 8      # keep-alive writer threads (bench.py:1824)
 INGEST_CALLS = 500      # Set/Clear calls per envelope (bench.py:1825)
-# envelopes per writer in the measured window: 3 since the drill's
-# healing steps joined phase 5g (4 since 5g, 12 since 5f, 20 since 5e, 30
-# since 5d, 40 before), to keep the whole run inside its time limit
-INGEST_ENVELOPES = 3
+# envelopes per writer in the measured window: 2 since phase 5h joined
+# the run (3 since the drill's healing steps joined phase 5g, 4 since 5g,
+# 12 since 5f, 20 since 5e, 30 since 5d, 40 before), to keep the whole run
+# inside its time limit
+INGEST_ENVELOPES = 2
 # per writer in each ingest on/off turn: 1 since phase 5g joined the run
 # (3 since 5e, 5 before), to keep the whole run inside its time limit
 INGEST_TURN_ENVELOPES = 1
@@ -3341,10 +3370,12 @@ def planner_phase(srv, port: int, packed: list, rows: list, s_rows: list,
 # never a shape (shard width 2^20, depth 10, the distributions)
 FROZEN_FULL = {"c2_rows": 100_000_000, "c3_rows": 1_000_000_000,
                "c4_shards": 953, "sim_molecules": 500_000}
-# config 3 at 25M rows since the drill's healing steps joined phase 5g
-# (50M before); the similarity search at its full 500k molecules
-FROZEN_CUTS = {"c2_rows": 10_000_000, "c3_rows": 25_000_000,
-               "c4_shards": 128, "sim_molecules": 500_000}
+# since phase 5h joined the run: config 3 at 12.5M rows (25M since the
+# drill's healing steps joined phase 5g, 50M before), config 4 over 96
+# shards (128 before) and the similarity search at 200k molecules (its
+# full 500k before)
+FROZEN_CUTS = {"c2_rows": 10_000_000, "c3_rows": 12_500_000,
+               "c4_shards": 96, "sim_molecules": 200_000}
 FROZEN_CONFIGS = ("2", "3", "4", "sim")
 C2_COLS, C2_HEAD, C2_HEAD_BITS = 10_000, 64, 2000  # scale_configs.py:65-113
 C3_SHARDS, C3_HEAD, C3_HEAD_CAP = 8, 50_000, 2000  # :115-194
@@ -3851,13 +3882,14 @@ TYPED_LICENSES = 16
 TYPED_FORK_SHARE = 0.2
 TYPED_MOVED_SHARE = 0.1
 TYPED_CHUNK_SHARDS = 64  # shards per HTTP import request
-# 45 days since the drill's healing steps joined phase 5g (90 from
-# 2019-01-01 before): 51,200 fragments of the stargazer field (50 views),
-# not 97,280. They hold the whole of February, so that every window below
-# spans views that hold data: the ragged span 7 days of January, the
-# month of February and 9 days of March (17 views)
+# 35 days since phase 5h joined the run (45 since the drill's healing
+# steps joined phase 5g, 90 from 2019-01-01 before): 39,936 fragments of
+# the stargazer field (39 views), not 51,200 or 97,280. They hold the
+# whole of February, so that every window below spans views that hold
+# data: the ragged span 7 days of January, the month of February and 9
+# days of March (17 views, 8 of them with data)
 TYPED_T0 = "2019-01-25T00:00:00"
-TYPED_DAYS = 45  # 2019-01-25 .. 2019-03-10
+TYPED_DAYS = 35  # 2019-01-25 .. 2019-02-28
 TYPED_WINDOWS = (("2019-02-04T00:00", "2019-02-11T00:00", "one week"),
                  ("2019-02-01T00:00", "2019-03-01T00:00", "one month"),
                  ("2019-01-25T00:00", "2019-03-10T00:00", "ragged span"),
@@ -3870,6 +3902,10 @@ TYPED_LICENSES_MIX = (0, 3, 7, 12)
 # warm repeats 3 (5 before)
 TYPED_CLIENTS, TYPED_PER_CLIENT = 32, 4
 TYPED_WARM_REPEATS = 3
+# the user whose stars ClearRow empties: 100 (about 2,000 stars, so the
+# fragments it touches stay near 8,000) since phase 5h joined the run; 7
+# (about 25,000 stars) before
+TYPED_CLEARED_USER = 100
 
 
 def make_typed_data(n_shards: int, seed: int) -> dict:
@@ -4181,9 +4217,9 @@ def typed_phase(srv, port: int, n_shards: int, seed: int, clients: int,
     cf = int(starred[fork_of == 1][0])
     check(f"Set({cf}, fork=false)", True)
     check("Count(Row(fork=true))", int(fork_of.sum()) - 1)
-    check("ClearRow(stargazer=7)", True)
+    check(f"ClearRow(stargazer={TYPED_CLEARED_USER})", True)
     for k in range(len(TYPED_WINDOWS)):
-        check(f"Count({rng_pql(7, k)})", 0)
+        check(f"Count({rng_pql(TYPED_CLEARED_USER, k)})", 0)
     u0_w02_l3 = u0_w02_l3[u0_w02_l3 != c2]  # c2 had license 2, not 3
     check(f"Store(Intersect(Range(stargazer=0, {w02[0]}, {w02[1]}), "
           "Row(license=3)), saved=1)", True)
@@ -4215,7 +4251,7 @@ def typed_phase(srv, port: int, n_shards: int, seed: int, clients: int,
             raise AssertionError(f"{name} never launched on the typed path")
     # the oracle after the writes, for phase 5f on the same index
     after = dict(d, license=lic_of.copy(), fork=fork_of.copy(),
-                 cleared_users=(7,))
+                 cleared_users=(TYPED_CLEARED_USER,))
     after["license"][np.searchsorted(starred, c2)] = 5
     after["fork"][np.searchsorted(starred, cf)] = 0
     stats["phase_s"] = time.perf_counter() - t_phase
@@ -4274,12 +4310,14 @@ KEYED_TYPED = {"Java", "TypeScript", "C#", "C++", "C", "Go", "Rust",
                "Ada", "D", "Solidity", "Haxe", "Apex"}
 KEYED_UNKNOWN = "Zig"  # a language no repository holds: no key minted
 KEYED_PROTO_CHUNK = 1  # the chunk of each import sent as protobuf
-KEYED_USER = 4  # phase 5e's ClearRow empties user 7's stars
+KEYED_USER = 4  # phase 5e's ClearRow empties another user's stars
 KEYED_CLIENTS, KEYED_PER_CLIENT = 32, 4  # 4 since phase 5g (8 before)
-# part B: a keyed-column index of user logins (2^21 - 1 keys: ids start at
-# 1, so they fill shards 0-1 exactly)
+# part B: a keyed-column index of user logins (2^20 - 1 keys since phase
+# 5h joined the run, 2^21 - 1 before: ids start at 1, so they fill shard
+# 0 exactly)
 LOGIN_INDEX = "logins"
-LOGINS = (1 << 21) - 1
+LOGINS = (1 << 20) - 1
+LOGIN_EXPORT_SHARD = 0
 LOGIN_COUNTRIES = 200
 LOGIN_MAX_FOLLOWERS = 1_000_000
 LOGIN_CHUNK = 1 << 18  # keys per import request
@@ -4664,18 +4702,21 @@ def keyed_logins(srv, port: int, seed: int) -> dict:
         f" minting new logins) through the IngestBatcher: every flag and "
         f"the four Counts after it agree")
 
-    # /export of shard 1 of country
+    # /export of a full shard of country
     t0 = time.perf_counter()
-    text = _text(port, f"/export?index={LOGIN_INDEX}&field=country&shard=1")
+    text = _text(port, f"/export?index={LOGIN_INDEX}&field=country"
+                       f"&shard={LOGIN_EXPORT_SHARD}")
     export_ms = (time.perf_counter() - t0) * 1e3
-    in1 = (col // SHARD_WIDTH == 1) & (country_after >= 0)
+    in1 = (col // SHARD_WIDTH == LOGIN_EXPORT_SHARD) & (country_after >= 0)
     rid = cid[country_after[in1]]
     order = np.lexsort((col[in1], rid))
     want_text = "".join(f"{r},{c}\r\n" for r, c in
                         zip(rid[order].tolist(), col[in1][order].tolist()))
     if text != want_text:
-        raise AssertionError("/export of shard 1 differs from the oracle")
-    log(f"  /export of shard 1 of country: {int(in1.sum())} lines "
+        raise AssertionError(f"/export of shard {LOGIN_EXPORT_SHARD} "
+                             "differs from the oracle")
+    log(f"  /export of shard {LOGIN_EXPORT_SHARD} of country: "
+        f"{int(in1.sum())} lines "
         f"({len(text)} bytes) in {export_ms:.1f} ms (oracle agrees)")
 
     # DELETE of country gives its device bytes back
@@ -4769,7 +4810,8 @@ CLUSTER_CLIENTS, CLUSTER_PER_CLIENT = 32, 8
 # the coalescing A/B rounds: one of each since the drill's healing steps
 # (two of each before)
 CLUSTER_AB = ("off", "on")
-CLUSTER_WRITERS, CLUSTER_ENVELOPES, CLUSTER_CALLS = 4, 6, 500
+# 4 envelopes a writer since phase 5h joined the run (6 before)
+CLUSTER_WRITERS, CLUSTER_ENVELOPES, CLUSTER_CALLS = 4, 4, 500
 CLUSTER_READERS = 16
 CLUSTER_W_ROWS = 8  # rows of the written field w
 CLUSTER_NEW_KEYS = 100  # lang keys minted by the keyed envelope
@@ -4786,6 +4828,18 @@ CLUSTER_PLATFORM = ""  # the nodes' [mesh] platform: "" is the card
 CLUSTER_KERNELS = ("program_count", "pair_stream_counts",
                    "topn_counts_packed", "bsi_sum_counts", "bsi_compare",
                    "cross_count_matrix", "sparse_intersect_dense")
+# phase 5h: readers and writers through node 0 while node 3 joins, readers
+# through node 0 while node 2 drains; the gossip pair's protocol period
+# and secret, and its index's shards
+MEMBER_READERS, MEMBER_WRITERS, DRAIN_READERS = 4, 1, 8
+# seconds the join's readers and writer go on after NORMAL (reads and
+# acknowledged writes under the new topology)
+MEMBER_AFTER_S = 2.0
+GOSSIP_PERIOD = 0.25
+GOSSIP_SECRET = "phase-5h-secret"
+GOSSIP_SHARDS = 16
+# the kernels node 3 and each gossip node must launch (one of them)
+MEMBER_KERNELS = ("pair_stream_counts", "program_count")
 
 
 def _get_raw(port: int, path: str) -> bytes:
@@ -4831,42 +4885,75 @@ def _free_ports(n: int) -> list:
 class ClusterNodes:
     """The node processes of phase 5g: `python -m pilosa_tpu_torch.cli
     server --config n<i>.toml`, each with its own data dir and a pinned
-    .id (node0 < node1 < node2, so node 0 coordinates and mints keys)."""
+    .id (node0 < node1 < node2, so node 0 coordinates and mints keys);
+    add_joiner() adds one more that starts with --join (phase 5h). With
+    gossip=True they are phase 5h's gossip pair instead: g0 and g1, no
+    [cluster] hosts, [gossip] with a shared secret and each other as
+    seeds."""
 
-    def __init__(self, tmp: str, n: int):
+    def __init__(self, tmp: str, n: int, gossip: bool = False):
         self.tmp = tmp
-        self.ports = _free_ports(n)
-        self.ids = [f"node{i}" for i in range(n)]
+        self.prefix = "g" if gossip else "n"
+        self.ports = _free_ports(2 * n if gossip else n)
+        self.gossip_ports = self.ports[n:]
+        self.ports = self.ports[:n]
+        self.ids = [f"g{i}" if gossip else f"node{i}" for i in range(n)]
         self.procs: list = [None] * n
         self.killed: set = set()
-        hosts = ", ".join(f'"http://127.0.0.1:{p}"' for p in self.ports)
+        self.joiners: set = set()
         self.configs = []
-        for i, port in enumerate(self.ports):
-            data = os.path.join(tmp, f"n{i}")
-            os.makedirs(data)
-            with open(os.path.join(data, ".id"), "w") as f:
-                f.write(self.ids[i])
-            cfg = os.path.join(tmp, f"n{i}.toml")
-            with open(cfg, "w") as f:
-                f.write(f'data-dir = "{data}"\nbind = "127.0.0.1:{port}"\n'
-                        "[cluster]\ndisabled = false\nreplicas = 2\n"
-                        f"hosts = [{hosts}]\nmembership-interval = 0.5\n"
-                        # the passes measure the kernels: repeats would
-                        # hit the plan cache and launch nothing
-                        "[query]\nplan-cache-bytes = 0\n"
-                        "[anti-entropy]\n"
-                        f"interval = {CLUSTER_AE_INTERVAL}\n"
-                        f'[mesh]\nplatform = "{CLUSTER_PLATFORM}"\n')
-            self.configs.append(cfg)
+        for i in range(n):
+            self._config(i, gossip)
+
+    def _config(self, i: int, gossip: bool = False) -> None:
+        data = os.path.join(self.tmp, f"{self.prefix}{i}")
+        os.makedirs(data)
+        with open(os.path.join(data, ".id"), "w") as f:
+            f.write(self.ids[i])
+        if gossip:
+            seeds = ", ".join(f'"127.0.0.1:{p}"' for j, p in
+                              enumerate(self.gossip_ports) if j != i)
+            cluster = ("[cluster]\nreplicas = 2\n"
+                       f"[gossip]\nport = {self.gossip_ports[i]}\n"
+                       f"seeds = [{seeds}]\nperiod = {GOSSIP_PERIOD}\n"
+                       f'secret = "{GOSSIP_SECRET}"\n')
+        else:
+            hosts = ", ".join(f'"http://127.0.0.1:{p}"'
+                              for p in self.ports[:CLUSTER_NODES])
+            cluster = ("[cluster]\ndisabled = false\nreplicas = 2\n"
+                       f"hosts = [{hosts}]\nmembership-interval = 0.5\n"
+                       "[anti-entropy]\n"
+                       f"interval = {CLUSTER_AE_INTERVAL}\n")
+        cfg = os.path.join(self.tmp, f"{self.prefix}{i}.toml")
+        with open(cfg, "w") as f:
+            f.write(f'data-dir = "{data}"\n'
+                    f'bind = "127.0.0.1:{self.ports[i]}"\n' + cluster
+                    # the passes measure the kernels: repeats would hit
+                    # the plan cache and launch nothing
+                    + "[query]\nplan-cache-bytes = 0\n"
+                    f'[mesh]\nplatform = "{CLUSTER_PLATFORM}"\n')
+        self.configs.append(cfg)
+
+    def add_joiner(self) -> int:
+        """One more node, on a fresh data dir, that joins with --join
+        through the first three (its hosts). -> its index."""
+        i = len(self.ports)
+        self.ports.append(_free_ports(1)[0])
+        self.ids.append(f"node{i}")
+        self.procs.append(None)
+        self.joiners.add(i)
+        self._config(i)
+        return i
 
     def start(self, i: int) -> None:
         root = os.path.dirname(os.path.abspath(__file__))
         env = dict(os.environ, PYTHONPATH=root)
-        out = open(os.path.join(self.tmp, f"n{i}.log"), "ab")
+        out = open(os.path.join(self.tmp, f"{self.prefix}{i}.log"), "ab")
         self.procs[i] = subprocess.Popen(
             [sys.executable, "-m", "pilosa_tpu_torch.cli", "server",
-             "--config", self.configs[i]], cwd=root, env=env, stdout=out,
-            stderr=subprocess.STDOUT)
+             "--config", self.configs[i]]
+            + (["--join"] if i in self.joiners else []), cwd=root, env=env,
+            stdout=out, stderr=subprocess.STDOUT)
         out.close()
         self.killed.discard(i)
 
@@ -4886,7 +4973,8 @@ class ClusterNodes:
             time.sleep(0.1)
 
     def log_tail(self, i: int) -> str:
-        with open(os.path.join(self.tmp, f"n{i}.log"), "rb") as f:
+        with open(os.path.join(self.tmp, f"{self.prefix}{i}.log"),
+                  "rb") as f:
             return f.read()[-2000:].decode(errors="replace")
 
     def check_alive(self) -> None:
@@ -4902,6 +4990,14 @@ class ClusterNodes:
         self.killed.add(i)
         self.procs[i].send_signal(signal.SIGKILL)
         self.procs[i].wait(timeout=30)
+
+    def terminate(self, i: int) -> tuple:
+        """SIGTERM (the node drains, then exits) -> (exit code, seconds)."""
+        self.killed.add(i)
+        t0 = time.perf_counter()
+        self.procs[i].terminate()
+        rc = self.procs[i].wait(timeout=60)
+        return rc, time.perf_counter() - t0
 
     def stop(self) -> None:
         for p in self.procs:
@@ -5264,22 +5360,27 @@ def _read_back(nodes: ClusterNodes, w_rows: list, owned: dict,
     return n
 
 
-def cluster_phase(seed: int,
-                  started: ClusterNodes | None = None) -> dict:
+def cluster_phase(seed: int, started: ClusterNodes | None = None,
+                  gossip: "GossipPair | None" = None) -> dict:
     """Phase 5g: three port node processes serve one index (BASELINE.json
     configs[4], bench.py bench_distributed: a 3-node mapReduce), every
-    answer checked against a numpy oracle through node 0 and node 2.
-    `started`: nodes the caller started earlier (stopped here too)."""
+    answer checked against a numpy oracle through node 0 and node 2; then
+    phase 5h (membership_phase) on the same nodes and the gossip pair.
+    `started`, `gossip`: nodes the caller started earlier (stopped here
+    too)."""
     t_phase = time.perf_counter()
     n_shards = CLUSTER_SHARDS
     out: dict = {}
     with tempfile.TemporaryDirectory(prefix="pilosa_torch_cluster_") as tmp:
         nodes = started or ClusterNodes(tmp, CLUSTER_NODES)
+        pair = gossip
         try:
             t_start = time.perf_counter()
             if started is None:
                 for i in range(CLUSTER_NODES):
                     nodes.start(i)
+            if pair is None:
+                pair = GossipPair(tmp)
             # the data, the request bodies and the oracle are made while
             # the nodes start
             t0 = time.perf_counter()
@@ -5469,11 +5570,444 @@ def cluster_phase(seed: int,
                        load=load["seconds"], routes_by_field=load["routes"],
                        forwarded_bytes=int(fwd),
                        obs={"scrape": {"kernels": {}}})
+            out["phase_5g_s"] = time.perf_counter() - t_phase
+            log(f"phase 5h: membership changes on phase 5g's nodes "
+                f"(scale-out, rolling restart, decommission) and SWIM "
+                f"gossip")
+            out["membership"] = membership_phase(
+                nodes, pair, out["drill"].pop("_reads"), count_mix, w_rows,
+                n_shards, seed)
+            # the launches of phase 5h's reads and writes count too
+            for k, v in out["membership"]["launches"].items():
+                total[k] += v
         finally:
             nodes.stop()
+            if pair is not None:
+                pair.stop()
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"  cluster phase: {out['phase_s']:.1f} s")
+    log(f"  cluster phases 5g and 5h: {out['phase_s']:.1f} s")
     return out
+
+
+# ------------------------------------------------- phase 5h: membership
+
+
+class GossipPair(ClusterNodes):
+    """Phase 5h's gossip pair, started at once; `watch` records, in a
+    thread of its own, the seconds from the start until both serve and
+    until both list each other (found by gossip alone)."""
+
+    def __init__(self, tmp: str):
+        super().__init__(tmp, 2, gossip=True)
+        self.t0 = time.perf_counter()
+        for i in range(2):
+            self.start(i)
+        self.seen: dict = {}
+        self._watch = threading.Thread(target=self._watcher, daemon=True)
+        self._watch.start()
+
+    def _watcher(self) -> None:
+        while "members" not in self.seen \
+                and time.perf_counter() - self.t0 < 600:
+            try:
+                sts = [_http(p, "GET", "/status") for p in self.ports]
+                now = time.perf_counter() - self.t0
+                self.seen.setdefault("serving", now)
+                if all(len(st["nodes"]) == 2 for st in sts):
+                    self.seen["members"] = now
+            except (OSError, AssertionError, ValueError):
+                pass
+            time.sleep(0.25)
+
+    def discovered(self, timeout: float = 120.0) -> dict:
+        self._watch.join(timeout)
+        if "members" not in self.seen:
+            self.check_alive()
+            raise AssertionError(f"gossip pair never met: {self.seen}; "
+                                 f"{self.log_tail(0)}")
+        return self.seen
+
+
+def _raw_http(port: int, method: str, path: str, body: bytes = b"") -> tuple:
+    """(status, headers, JSON body) without raising on an error status."""
+    conn = http.client.HTTPConnection("localhost", port, timeout=600)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return (resp.status, dict(resp.getheaders()),
+                json.loads(resp.read() or b"null"))
+    finally:
+        conn.close()
+
+
+def _members_normal(nodes: ClusterNodes, live: list) -> bool:
+    for i in live:
+        try:
+            st = _http(nodes.ports[i], "GET", "/status")
+        except (OSError, AssertionError, ValueError):
+            return False
+        if st["state"] != "NORMAL" or sorted(
+                n["id"] for n in st["nodes"]) != sorted(
+                    nodes.ids[j] for j in live):
+            return False
+    return True
+
+
+def _disk_shards(nodes: ClusterNodes, i: int, field: str = "") -> set:
+    """The shards node i holds a fragment file of (of `field`, or of any
+    field of index d), from its data dir."""
+    out: set = set()
+    base = os.path.join(nodes.tmp, f"n{i}", "d")
+    for fname in os.listdir(base):
+        if field and fname != field:
+            continue
+        views = os.path.join(base, fname, "views")
+        if not os.path.isdir(views):
+            continue
+        for v in os.listdir(views):
+            fdir = os.path.join(views, v, "fragments")
+            if os.path.isdir(fdir):
+                out.update(int(x) for x in os.listdir(fdir) if x.isdigit())
+    return out
+
+
+def _resize_counts(port: int) -> tuple:
+    c = _node_vars(port)["counts"]
+    return (c.get("resize/fragmentsCopied", 0),
+            c.get("resize/bytesCopied", 0),
+            c.get("resize/fragmentsDropped", 0))
+
+
+def _member_traffic(nodes: ClusterNodes, count_mix: list, seed: int,
+                    row: int, n_shards: int, stop: threading.Event) -> tuple:
+    """MEMBER_READERS exact readers and MEMBER_WRITERS writers of single
+    Sets on w's row `row` through node 0 until `stop`. A refusal by the
+    RESIZING gate, node 0's 503 or a peer's relayed by node 0, is counted
+    apart, not as a failure; a writer sends a refused Set again until it
+    is acknowledged, as a client would (a refused write may have reached
+    some replicas: only its acknowledgement makes the bit the oracle's).
+    -> (threads, tallies, acknowledged columns)."""
+    port = nodes.ports[0]
+    tally = {"reads": 0, "reads_503": 0, "writes": 0, "writes_503": 0,
+             "failed": []}
+    acked: list = []
+    lock = threading.Lock()
+
+    def one(pql: str, kind: str, want=None):
+        """True: answered right; None: refused by RESIZING; False:
+        failed."""
+        st, _, body = _raw_http(port, "POST", "/index/d/query", pql.encode())
+        with lock:
+            if st != 200 and "cluster state RESIZING" in str(body):
+                tally[kind + "_503"] += 1
+                return None
+            tally[kind] += 1
+            if st != 200 or (want is not None
+                             and body["results"][0] != want):
+                tally["failed"].append((kind, pql, st, str(body)[:200]))
+                return False
+        return True
+
+    def reader(r: int) -> None:
+        rr = np.random.default_rng(seed + 1100 + r)
+        while not stop.is_set():
+            pql, want = count_mix[int(rr.integers(len(count_mix)))]
+            one(pql, "reads", want)
+
+    def writer(w: int) -> None:
+        rr = np.random.default_rng(seed + 1200 + w)
+        while not stop.is_set():
+            col = int(rr.integers(n_shards)) * SHARD_WIDTH + \
+                int(rr.integers(SHARD_WIDTH // MEMBER_WRITERS)) * \
+                MEMBER_WRITERS + w
+            deadline = time.perf_counter() + 300
+            while True:
+                ok = one(f"Set({col}, w={row})", "writes")
+                if ok is not None or time.perf_counter() > deadline:
+                    break
+                time.sleep(0.05)
+            if ok:
+                with lock:
+                    acked.append(col)
+            time.sleep(0.01)
+
+    ts = [threading.Thread(target=reader, args=(r,))
+          for r in range(MEMBER_READERS)]
+    ts += [threading.Thread(target=writer, args=(w,))
+           for w in range(MEMBER_WRITERS)]
+    for t in ts:
+        t.start()
+    return ts, tally, acked
+
+
+def membership_phase(nodes: ClusterNodes, pair: GossipPair, reads: list,
+                     count_mix: list, w_rows: list, n_shards: int,
+                     seed: int) -> dict:
+    """Phase 5h on phase 5g's nodes (nodes 0-2, after the drill): (1) node
+    3 joins with --join under readers and a writer through node 0; (2)
+    node 2 drains and exits on SIGTERM under readers; (3) node 2 is
+    removed through node 1; (4) the gossip pair. -> its numbers and each
+    kernel's launches on the nodes during it."""
+    out: dict = {}
+    ports = nodes.ports
+    # each node's launches before the phase (node 3's start at 0)
+    base = [_node_launches(_node_vars(ports[i])) for i in range(3)]
+    # (1) scale-out
+    j = nodes.add_joiner()
+    row = len(w_rows)
+    stop = threading.Event()
+    t0 = time.perf_counter()
+    nodes.start(j)
+    live = [0, 1, 2, j]
+
+    def serving() -> bool:
+        nodes.check_alive()
+        try:
+            _http(ports[j], "GET", "/status")
+            return True
+        except (OSError, AssertionError, ValueError):
+            return False
+
+    # the traffic starts once node 3 serves (it knocks right after), not
+    # beside its process start, which it would only slow
+    seen = {"serving": _poll(serving, 240, "node 3's start", 0.05)}
+    ts, tally, acked = _member_traffic(nodes, count_mix, seed, row,
+                                       n_shards, stop)
+    try:
+        normal_s = _poll(lambda: nodes.check_alive() or
+                         _members_normal(nodes, live), 240,
+                         "node 3's join", 0.2) + seen["serving"]
+        time.sleep(MEMBER_AFTER_S)
+    finally:
+        stop.set()
+        for t in ts:
+            t.join()
+    if tally["failed"]:
+        raise AssertionError(f"reads or writes failed during the join: "
+                             f"{tally['failed'][:3]}")
+    copied = _resize_counts(ports[j])
+    w_rows.append(np.array(sorted(set(acked)), dtype=np.int64))
+    reads = reads + [(f"Count(Row(w={row}))", int(w_rows[row].size))]
+    owned = _owned(nodes.ids, n_shards + 64)
+    n_back = _read_back(nodes, w_rows, owned, live)
+    secs = {i: _check_reads(ports[i], reads, f"node {i} after the join")
+            for i in (j, 0)}
+    for i in live:
+        extra = _disk_shards(nodes, i) - set(owned[nodes.ids[i]])
+        if extra:
+            raise AssertionError(f"node {i} keeps fragments of shards it "
+                                 f"does not own: {sorted(extra)[:8]}")
+    missing = set(s for s in owned[nodes.ids[j]] if s < n_shards) - \
+        _disk_shards(nodes, j, "f")
+    if missing:
+        raise AssertionError(f"node 3 lacks f fragments of its shards "
+                             f"{sorted(missing)[:8]}")
+    for i in live:
+        with open(os.path.join(nodes.tmp, f"n{i}", ".topology")) as f:
+            topo = json.load(f)["nodeIDs"]
+        if sorted(topo) != sorted(nodes.ids):
+            raise AssertionError(f"node {i}'s .topology: {topo}")
+    l3 = _node_launches(_node_vars(ports[j]))
+    if MEMBER_KERNELS and sum(l3[k] for k in MEMBER_KERNELS) < 1:
+        raise AssertionError(f"node 3 launched no kernel: {l3}")
+    dropped = sum(_resize_counts(ports[i])[2] for i in range(3))
+    out["join"] = {"serving_s": seen["serving"], "normal_s": normal_s,
+                   "fragments": copied[0],
+                   "bytes": copied[1], "dropped": dropped,
+                   "reads": tally["reads"], "reads_503": tally["reads_503"],
+                   "writes": tally["writes"],
+                   "writes_503": tally["writes_503"],
+                   "acked_writes": int(w_rows[row].size),
+                   "read_s": secs, "launches_node3": l3}
+    out["steps_s"] = {"join": time.perf_counter() - t0}
+    log(f"  scale-out: node 3 (--join, empty data dir) serving "
+        f"{seen['serving']:.1f} s and NORMAL with 4 members {normal_s:.1f} s"
+        f" after its start (traffic on for {MEMBER_AFTER_S:.0f} s more); it"
+        f" received "
+        f"{copied[0]} fragments, {copied[1]} bytes; the old owners dropped "
+        f"{dropped}; through node 0 meanwhile {tally['reads']} reads and "
+        f"{tally['writes']} writes answered, {tally['reads_503']} reads and "
+        f"{tally['writes_503']} writes refused with the RESIZING 503, 0 "
+        f"failed; {w_rows[row].size} acknowledged writes read back; "
+        f"{n_back} acknowledged columns on each of their owners alone; "
+        f"{len(reads)} reads through node 3 in {secs[j]:.1f} s and node 0 "
+        f"in {secs[0]:.1f} s, exact; every fragment on its owners only; "
+        f"every .topology lists 4 ids; node 3's launches {l3}")
+    # (2) rolling restart of node 2
+    t_step = time.perf_counter()
+    phase = {"now": "draining"}
+    stop = threading.Event()
+    ts, lat, failed = _drill_readers(ports[0], count_mix, 1300,
+                                     DRAIN_READERS, phase, stop)
+    time.sleep(0.3)
+    t0 = time.perf_counter()
+    st = _http(ports[2], "POST", "/cluster/drain")
+    if not st["draining"]:
+        raise AssertionError(f"drain: {st}")
+    code, hdr, body = _raw_http(ports[2], "POST", "/index/d/query",
+                                b"Count(Row(f=0))")
+    if (code, hdr.get("X-Pilosa-Shed-Reason"), hdr.get("Retry-After"),
+            body.get("code")) != (503, "draining", "1", "shed"):
+        raise AssertionError(f"a query to the draining node: {code} {hdr} "
+                             f"{body}")
+    drain_s = _poll(lambda: _node_vars(ports[2])["drain"]["drained"], 60,
+                    "node 2's drain", 0.05)
+    dinfo = _node_vars(ports[2])["drain"]
+    phase["now"] = "drained"
+    _poll(lambda: len(lat.get("drained", [])) >= 2 * DRAIN_READERS, 60,
+          "reads after the drain")
+    stop.set()
+    for t in ts:
+        t.join()
+    if failed:
+        raise AssertionError(f"{len(failed)} reads failed around the drain:"
+                             f" {failed[:3]}")
+    node2 = {k: v - base[2][k] for k, v in
+             _node_launches(_node_vars(ports[2])).items()}
+    rc, term_s = nodes.terminate(2)
+    if rc != 0:
+        raise AssertionError(f"node 2 exited {rc} on SIGTERM: "
+                             f"{nodes.log_tail(2)}")
+    out["drain"] = {"drained_s": drain_s, "info": dinfo, "exit": rc,
+                    "sigterm_s": term_s,
+                    "reads": {k: {"n": len(v), "p50_ms":
+                                  statistics.median(v)}
+                              for k, v in lat.items()}}
+    log(f"  rolling restart: POST /cluster/drain on node 2, drained in "
+        f"{drain_s:.2f} s ({dinfo['snapshotted']} fragments snapshotted, "
+        f"{dinfo['shedQueries']} queries shed: 503, X-Pilosa-Shed-Reason "
+        f"draining, Retry-After 1); {DRAIN_READERS} readers through node 0 "
+        f"{_lat_line(sum(lat.values(), []))}, 0 failed; SIGTERM: exit "
+        f"{rc} after {term_s:.2f} s")
+    out["steps_s"]["drain"] = time.perf_counter() - t_step
+    # (3) decommission node 2 through node 1
+    live = [0, 1, j]
+    before = {i: _resize_counts(ports[i])[0] for i in live}
+    t0 = time.perf_counter()
+    _http(ports[1], "POST", "/cluster/resize/remove-node",
+          json.dumps({"id": nodes.ids[2]}).encode())
+    leave_s = _poll(lambda: _members_normal(nodes, live), 240,
+                    "node 2's removal", 0.2)
+    moved = sum(_resize_counts(ports[i])[0] - before[i] for i in live)
+    owned3 = _owned([nodes.ids[i] for i in live], n_shards + 64)
+    secs = {i: _check_reads(ports[i], reads, f"node {i} after the leave")
+            for i in live}
+    n_back = _read_back(nodes, w_rows, owned3, live)
+    for i in live:
+        pend = _node_vars(ports[i])["writeHandoffs"]["pendingTargets"]
+        if nodes.ids[2] in pend:
+            raise AssertionError(f"node {i} holds hints for node 2: {pend}")
+        extra = _disk_shards(nodes, i) - set(owned3[nodes.ids[i]])
+        if extra:
+            raise AssertionError(f"node {i} keeps fragments of shards it "
+                                 f"does not own: {sorted(extra)[:8]}")
+    out["leave"] = {"normal_s": leave_s, "fragments": moved,
+                    "read_s": secs}
+    log(f"  decommission: remove-node node 2 through node 1, nodes 0, 1 "
+        f"and 3 NORMAL with 3 members after {leave_s:.1f} s; {moved} "
+        f"fragments moved; {n_back} acknowledged columns on each owner "
+        f"alone; no peer holds hints for node 2; {len(reads)} reads "
+        "through each survivor exact in " + ", ".join(
+            f"{v:.1f}" for v in secs.values()) + " s")
+    by_node = [node2]
+    for i in (0, 1, j):
+        now = _node_launches(_node_vars(ports[i]))
+        by_node.append({k: now[k] - (base[i][k] if i < 3 else 0)
+                        for k in now})
+    out["steps_s"]["leave"] = time.perf_counter() - t0
+    t_step = time.perf_counter()
+    out["gossip"] = gossip_checks(pair, seed)
+    out["steps_s"]["gossip"] = time.perf_counter() - t_step
+    by_node += out["gossip"].pop("launches_by_node")
+    out["launches"] = {k: sum(n[k] for n in by_node) for k in node2}
+    log(f"  launches in phase 5h (nodes 0-3 and the gossip pair): "
+        f"{out['launches']}; seconds by step: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in out["steps_s"].items()))
+    return out
+
+
+def gossip_checks(pair: GossipPair, seed: int) -> dict:
+    """The gossip pair: found by gossip alone (seconds); a row over
+    GOSSIP_SHARDS shards imported through g0 counted exactly through g0
+    and g1, both launching; g1 killed and marked down by g0's suspicion
+    (seconds); a Count through g0 exact while DEGRADED; the cipher's
+    seconds a datagram in g0's process."""
+    seen = pair.discovered()
+    p0, p1 = pair.ports
+    rng = np.random.default_rng(seed + 1400)
+    rows = {r: np.unique(rng.integers(0, GOSSIP_SHARDS * SHARD_WIDTH,
+                                      200_000 // r)) for r in (1, 2)}
+    _http(p0, "POST", "/index/d", b"{}")
+    _http(p0, "POST", "/index/d/field/f", b"{}")
+    for r, cols in rows.items():
+        _http(p0, "POST", "/index/d/field/f/import", json.dumps(
+            {"rowIDs": [r] * cols.size, "columnIDs": cols.tolist()}).encode())
+    want = int(np.intersect1d(rows[1], rows[2]).size)
+    q = b"Count(Intersect(Row(f=1), Row(f=2)))"
+    for p in pair.ports:
+        got = _http(p, "POST", "/index/d/query", q)["results"][0]
+        if got != want:
+            raise AssertionError(f"gossip pair: {got} != {want}")
+    by_node = [_node_launches(_node_vars(p)) for p in pair.ports]
+    launched = [sum(n[k] for k in MEMBER_KERNELS) for n in by_node]
+    if MEMBER_KERNELS and min(launched) < 1:
+        raise AssertionError(f"gossip pair launches: {launched}")
+    g = _node_vars(p0)["gossip"]
+    t0 = time.perf_counter()
+    pair.kill(1)
+    down_s = _poll(lambda: _http(p0, "GET", "/status")["state"]
+                   == "DEGRADED", 60, "g1 marked down by gossip", 0.05)
+    got = _http(p0, "POST", "/index/d/query", q)["results"][0]
+    if got != want:
+        raise AssertionError(f"g0 while DEGRADED: {got} != {want}")
+    g2 = _node_vars(p0)["gossip"]
+    seal_ms = 1e3 * g2["sealSeconds"] / max(g2["sealed"], 1)
+    open_ms = 1e3 * g2["openSeconds"] / max(g2["opened"], 1)
+    stdlib = stdlib_cipher_ms()
+    out = {"serving_s": seen["serving"], "members_s": seen["members"],
+           "down_s": down_s, "launches": launched,
+           "launches_by_node": by_node,
+           "seal_ms": seal_ms, "open_ms": open_ms,
+           "cipher_backend": g2["cipherBackend"], "stdlib": stdlib,
+           "sealed": g2["sealed"], "opened": g2["opened"],
+           "crypto_drops": g2["cryptoDrops"], "encrypted": g["encrypted"]}
+    log(f"  gossip (period {GOSSIP_PERIOD} s, AES-GCM with a shared "
+        f"secret): g0 and g1 serving {seen['serving']:.1f} s after their "
+        f"start, members of each other {seen['members']:.1f} s after it, "
+        f"by gossip alone; Count(Intersect) over {GOSSIP_SHARDS} shards "
+        f"exact through both ({want}), launches {launched}; SIGKILL g1: "
+        f"g0 DEGRADED after {down_s:.2f} s, its Count still exact; the "
+        f"cipher in g0's process ({g2['cipherBackend']}): seal "
+        f"{seal_ms:.3f} ms, open {open_ms:.3f} ms a datagram "
+        f"({g2['sealed']} sealed, {g2['opened']} opened, "
+        f"{g2['cryptoDrops']} dropped); the standard-library cipher here: "
+        f"seal {stdlib['seal_ms']:.3f} ms, open {stdlib['open_ms']:.3f} ms "
+        f"a {stdlib['bytes']}-byte datagram")
+    return out
+
+
+def stdlib_cipher_ms(n_bytes: int = 400, runs: int = 50) -> dict:
+    """The pure-Python AES-GCM's seal and open ms on a datagram of
+    n_bytes, on this host (the path a node takes where the
+    `cryptography` package cannot be imported)."""
+    from pilosa_tpu_torch.utils import aesgcm
+
+    lib = aesgcm._LibAESGCM
+    aesgcm._LibAESGCM = None
+    try:
+        key = aesgcm.AESGCM(aesgcm.derive_key(GOSSIP_SECRET))
+    finally:
+        aesgcm._LibAESGCM = lib
+    data = bytes(range(256)) * (n_bytes // 256) + bytes(n_bytes % 256)
+    t0 = time.perf_counter()
+    sealed = [aesgcm.seal(key, data) for _ in range(runs)]
+    t1 = time.perf_counter()
+    for d in sealed:
+        if aesgcm.open_sealed(key, d) != data:
+            raise AssertionError("the standard-library cipher")
+    t2 = time.perf_counter()
+    return {"bytes": n_bytes, "seal_ms": 1e3 * (t1 - t0) / runs,
+            "open_ms": 1e3 * (t2 - t1) / runs}
 
 
 def _drill_readers(port: int, count_mix: list, seed: int, n: int,
@@ -5802,6 +6336,7 @@ def cluster_drill(nodes: ClusterNodes, reads: list, count_mix: list,
     reads = reads + [(f"Count(Row(w={CLUSTER_W_ROWS}))", int(cols.size)),
                      (f"Count(Row(w={plant_row}))", 1)]
     s = _check_reads(ports[2], reads, "node 2 after its return")
+    out["_reads"] = reads
     out["scrub"] = scrub
     out["planted_carried_s"] = carried_s
     log(f"  anti-entropy (interval {CLUSTER_AE_INTERVAL} s): node 2's "
@@ -6052,9 +6587,11 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                 cl_tmp = tempfile.TemporaryDirectory(
                     prefix="pilosa_torch_cluster_")
                 cl_nodes = ClusterNodes(cl_tmp.name, CLUSTER_NODES)
+                pair = None
                 try:
                     for i in range(CLUSTER_NODES):
                         cl_nodes.start(i)
+                    pair = GossipPair(cl_tmp.name)
                     log("phase 5f: string keys and attributes (a keyed "
                         "language field on the Star Trace index, a "
                         "keyed-column index of user logins) on the same "
@@ -6073,9 +6610,11 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                         f"processes over {CLUSTER_SHARDS} shards, replicas "
                         f"2 (device memory free "
                         f"{torch.cuda.mem_get_info()[0]} bytes)")
-                    out["cluster"] = cluster_phase(seed, cl_nodes)
+                    out["cluster"] = cluster_phase(seed, cl_nodes, pair)
                 finally:
                     cl_nodes.stop()
+                    if pair is not None:
+                        pair.stop()
                     cl_tmp.cleanup()
             log("phase 6: write path (coalesced Set/Clear) on the same "
                 "server, under concurrent reads")
@@ -6226,7 +6765,7 @@ def main(argv=None) -> int:
                     help="run phase 1, phase 5e's loads and phase 5f alone "
                          "and print their numbers")
     ap.add_argument("--cluster-only", action="store_true",
-                    help="run phases 1 and 5g alone and print their "
+                    help="run phases 1, 5g and 5h alone and print their "
                          "numbers")
     ap.add_argument("--kernel-times", action="store_true",
                     help="time program_count, intersect_count and "
@@ -6273,7 +6812,7 @@ def main(argv=None) -> int:
         return 0
     if args.cluster_only:
         log(f"phase 5g: the cluster, {CLUSTER_NODES} port node processes "
-            f"over {CLUSTER_SHARDS} shards, replicas 2")
+            f"over {CLUSTER_SHARDS} shards, replicas 2, then phase 5h")
         measured = cluster_phase(args.seed)
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         print(smi_name)

@@ -31,6 +31,16 @@ fragment_block_data, fragment_data and the attribute diffs
 `fragment-not-found`. Without a cluster, or with one node, the API is
 the single node's.
 
+Cluster-state gates (api.py:64-74, :187-192): queries and the CSV
+export run in NORMAL and DEGRADED only, and so do writes and schema
+changes; set-coordinator and remove-node run in RESIZING too; anything
+else is a 503 "api method unavailable in cluster state <state>", the JAX
+text. Membership changes (api.py:964-1011, :1054): set_coordinator
+(adopted here and broadcast), remove_node (through the server's
+resize_fn, which routes it to the coordinator's leave job), resize_abort
+(abort_fn), drain (drain_fn; not state-gated: a lifecycle call works in
+any state) and fragment_views, the donor's side of a resize copy.
+
 Per-request profiling (api.py:109-125, :270-360): a query gets a
 QueryProfile when the request asks (?profile=true) or while
 long_query_time > 0; such a query also gets a trace id for the whole
@@ -69,6 +79,12 @@ from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.models.row import Row
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
+from pilosa_tpu_torch.parallel.cluster import (
+    STATE_DEGRADED,
+    STATE_NORMAL,
+    STATE_RESIZING,
+    STATE_STARTING,
+)
 from pilosa_tpu_torch.pql import parse_string_cached
 from pilosa_tpu_torch.pql.ast import WRITE_CALLS
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
@@ -132,6 +148,17 @@ class ConflictError(ApiError):
         super().__init__(msg, status=409)
 
 
+# method -> the states it runs in (api.go:1247-1278); a method not listed
+# runs in NORMAL and DEGRADED
+_STATE_GATES = {
+    "query": (STATE_NORMAL, STATE_DEGRADED),
+    "write": (STATE_NORMAL, STATE_DEGRADED),
+    "schema_read": (STATE_NORMAL, STATE_DEGRADED, STATE_RESIZING,
+                    STATE_STARTING),
+    "resize": (STATE_NORMAL, STATE_DEGRADED, STATE_RESIZING),
+}
+
+
 class API:
     def __init__(self, holder: Holder, executor: Executor,
                  translate_store: Optional[TranslateStore] = None,
@@ -151,6 +178,16 @@ class API:
         # fn(uri, index, field, shard, views, clear)
         self.forward_roaring_fn = None
         self.probe_peer_fn = None  # fn(uri) -> bool: its /status answers
+        # membership and lifecycle: resize_fn(event, node) routes a
+        # removal to the coordinator's leave job, abort_fn() cancels the
+        # coordinator's job, drain_fn(abort=) starts or cancels this
+        # node's drain, drain_status_fn() and node_state_fn() ("READY" |
+        # "DRAINING") report it
+        self.resize_fn = None
+        self.abort_fn = None
+        self.drain_fn = None
+        self.drain_status_fn = None
+        self.node_state_fn = None
         self.node_id = cluster.local_id if cluster is not None \
             else str(uuid.uuid4())
         self.uri = ""  # set by Server once the listener is bound
@@ -169,6 +206,15 @@ class API:
     def _clustered(self) -> bool:
         return self.cluster is not None and len(self.cluster.nodes) > 1
 
+    def _validate(self, gate: str) -> None:
+        """503 unless the cluster's state lets `gate` run."""
+        if self.cluster is None:
+            return
+        allowed = _STATE_GATES.get(gate, (STATE_NORMAL, STATE_DEGRADED))
+        if self.cluster.state not in allowed:
+            raise ApiError("api method unavailable in cluster state "
+                           f"{self.cluster.state}", status=503)
+
     def query_results(self, index_name: str, pql: str,
                       shards: Optional[list[int]] = None,
                       profile: bool = False,
@@ -181,6 +227,7 @@ class API:
         Row result's attributes or columns; remote=True marks a fan-out
         sub-request (run here on the given shards, results as ids). A
         query whose deadline has already passed is refused here."""
+        self._validate("query")
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
         rem = qctx.remaining()
@@ -311,6 +358,7 @@ class API:
                 if tr_token is not None:
                     tracing.current_trace_id.reset(tr_token)
 
+        self._validate("query")
         if len(entries) <= 1:
             return [one(e) for e in entries]
         # copied contexts: the request's trace id and deadline follow
@@ -325,6 +373,7 @@ class API:
         call, executing nothing (Executor.explain_call); write calls and
         calls without a device plan say so. The calibration ring's
         aggregates ride along."""
+        self._validate("query")
         index = self.holder.index(index_name)
         if index is None:
             raise NotFoundError(f"index not found: {index_name}")
@@ -408,6 +457,7 @@ class API:
 
     def create_index(self, name: str, keys: bool = False,
                      track_existence: bool = True):
+        self._validate("write")
         if self.holder.index(name) is not None:
             raise ConflictError(f"index already exists: {name}")
         try:
@@ -420,6 +470,7 @@ class API:
         return idx
 
     def delete_index(self, name: str) -> None:
+        self._validate("write")
         try:
             self.holder.delete_index(name)
         except KeyError as e:
@@ -429,6 +480,7 @@ class API:
 
     def create_field(self, index_name: str, field_name: str,
                      options: Optional[FieldOptions] = None):
+        self._validate("write")
         index = self.holder.index(index_name)
         if index is None:
             raise NotFoundError(f"index not found: {index_name}")
@@ -447,6 +499,7 @@ class API:
         """DELETE /index/{i}/field/{f} (api.py:648): the field's files go,
         and the executor drops its resident leaves, cached results, heat
         entries, row forms and TopN merges."""
+        self._validate("write")
         index = self.holder.index(index_name)
         if index is None:
             raise NotFoundError(f"index not found: {index_name}")
@@ -459,6 +512,7 @@ class API:
                          "field": field_name})
 
     def schema(self) -> dict:
+        self._validate("schema_read")
         return {"indexes": self.holder.schema()}
 
     def _field(self, index_name: str, field_name: str):
@@ -567,6 +621,7 @@ class API:
         keys, where given, are minted or looked up first (rows first, as
         api.py:688-691) and take the ids' place. In a cluster each
         shard's bits go to its owners (remote=True: this node's part)."""
+        self._validate("write")
         index, f = self._field(index_name, field_name)
         if row_keys:
             row_ids = self.translate.translate_rows(index_name, field_name,
@@ -626,6 +681,7 @@ class API:
         marks the columns in the existence field. Column keys, where
         given, take the ids' place; in a cluster each shard's values go
         to its owners."""
+        self._validate("write")
         index, f = self._field(index_name, field_name)
         if column_keys:
             column_ids = self.translate.translate_columns(index_name,
@@ -667,6 +723,7 @@ class API:
         view's fragment of the shard. Existence is not marked, as in the
         JAX package. In a cluster the bitmaps go to every owner of the
         shard, and this node imports them only if it owns it."""
+        self._validate("write")
         _, f = self._field(index_name, field_name)
         if (not remote and self.forward_roaring_fn is not None
                 and self._clustered()):
@@ -706,6 +763,7 @@ class API:
                    shard: int) -> str:
         """GET /export (api.py:884): "row,column" lines of the shard's
         standard view, rows ascending, columns as global ids."""
+        self._validate("query")
         _, f = self._field(index_name, field_name)
         view = f.view(VIEW_STANDARD)
         frag = view.fragment(shard) if view is not None else None
@@ -759,6 +817,51 @@ class API:
         return [n.to_dict()
                 for n in self.cluster.shard_nodes(index_name, shard)]
 
+    # -- membership and lifecycle (:964-1011) -------------------------------
+
+    def set_coordinator(self, node_id: str) -> None:
+        """POST /cluster/resize/set-coordinator: adopted here and by every
+        peer (a later failover must not split resize coordination)."""
+        self._validate("resize")
+        if self.cluster is None or self.cluster.node_by_id(node_id) is None:
+            raise NotFoundError(f"node not found: {node_id}")
+        self.cluster.adopt_coordinator(node_id)
+        self._broadcast({"type": "set-coordinator", "id": node_id})
+
+    def remove_node(self, node_id: str):
+        """POST /cluster/resize/remove-node: the coordinator's leave job
+        (or, with no more nodes than replicas, a removal that degrades)."""
+        self._validate("resize")
+        node = (self.cluster.node_by_id(node_id)
+                if self.cluster is not None else None)
+        if node is None:
+            raise NotFoundError(f"node not found: {node_id}")
+        try:
+            if self.resize_fn is not None:
+                return self.resize_fn("leave", node)
+            return self.cluster.node_leave(node_id)
+        except ValueError as e:
+            raise ApiError(str(e))
+
+    def resize_abort(self) -> None:
+        """POST /cluster/resize/abort: the coordinator cancels its job."""
+        if self.cluster is None or self.cluster.state != STATE_RESIZING:
+            raise ApiError("no resize job currently running")
+        if self.abort_fn is not None:
+            try:
+                self.abort_fn()
+            except ValueError as e:
+                raise ApiError(str(e))
+            return
+        self.cluster.abort_resize()
+
+    def drain(self, abort: bool = False) -> dict:
+        """POST /cluster/drain: start this node's drain in the background
+        (abort=True cancels it) and answer its status."""
+        if self.drain_fn is None:
+            raise ApiError("drain not supported", status=501)
+        return self.drain_fn(abort=abort)
+
     def delete_remote_available_shard(self, index_name: str,
                                       field_name: str, shard: int) -> None:
         _, f = self._field(index_name, field_name)
@@ -797,6 +900,14 @@ class API:
         buf = io.BytesIO()
         frag.storage.write_to(buf)
         return buf.getvalue()
+
+    def fragment_views(self, index_name: str, field_name: str,
+                       shard: int) -> list:
+        """GET /internal/fragment/views: the views holding a fragment of
+        the shard (a resize follower copies each)."""
+        _, f = self._field(index_name, field_name)
+        return sorted(v.name for v in list(f.views.values())
+                      if v.fragment(shard) is not None)
 
     def column_attr_diff(self, index_name: str, blocks: list,
                          block_range=None) -> dict:
@@ -842,9 +953,9 @@ class API:
                 "coordinatorID": (c.coordinator_id if c is not None
                                   else self.node_id),
                 # this node's own lifecycle state: a probing peer tells a
-                # restarted node from a draining one by it (the port does
-                # not drain itself yet)
-                "nodeState": "READY",
+                # restarted node from a draining one by it
+                "nodeState": (self.node_state_fn() if self.node_state_fn
+                              is not None else "READY"),
                 "uptimeSeconds": int(time.monotonic() - self.start_time),
                 "version": __version__,
                 "device": str(dev)}

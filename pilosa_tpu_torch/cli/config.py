@@ -10,7 +10,11 @@ PILOSA_TPU_CLUSTER_REPLICAS). The keys it serves:
                query-timeout, long-query-time, fanout-pool-size,
                fanout-coalesce-window, fanout-coalesce-max-batch,
                hedge-delay, ici-serving, liveness-threshold,
-               probe-timeout, hint-max-bytes, hint-max-age
+               probe-timeout, hint-max-bytes, hint-max-age,
+               drain-timeout
+    [gossip]   port (-1, the default: HTTP probing; 0: an ephemeral
+               port), seeds, period, probe-timeout, push-pull-interval,
+               secret (AES-GCM on every datagram)
     [anti-entropy] interval, jitter, pace, max-blocks
     [query]    plan, plan-cache-bytes, sparse-threshold, run-threshold
     [storage]  eviction
@@ -18,7 +22,7 @@ PILOSA_TPU_CLUSTER_REPLICAS). The keys it serves:
     [mesh]     platform ("cpu" runs the node on the CPU; "", the default,
                on the card), devices ("auto", "none" or 1: one device)
 
-Every other key the JAX package knows (gossip, drain, QoS, SLOs, TLS,
+Every other key the JAX package knows (QoS, SLOs, TLS,
 tracing export, the [ingest] settings, ...) must keep its default: set away from it, in the file or
 the environment, it fails the start with NotPortedError naming the key.
 A key neither package knows fails too. Durations may be written as Go
@@ -93,13 +97,15 @@ PORTED = {
                 "fanout_pool_size", "fanout_coalesce_window",
                 "fanout_coalesce_max_batch", "hedge_delay", "ici_serving",
                 "liveness_threshold", "probe_timeout", "hint_max_bytes",
-                "hint_max_age"},
+                "hint_max_age", "drain_timeout"},
     "anti_entropy": {"interval", "jitter", "pace", "max_blocks"},
     "query": {"plan", "plan_cache_bytes", "sparse_threshold",
               "run_threshold"},
     "storage": {"eviction"},
     "metric": {"telemetry_interval"},
     "mesh": {"devices", "platform"},
+    "gossip": {"port", "seeds", "period", "probe_timeout",
+               "push_pull_interval", "secret"},
 }
 
 

@@ -1,13 +1,17 @@
 """`python -m pilosa_tpu_torch.cli server --config <toml> [--data-dir DIR]
-[--bind HOST:PORT]`: run one node of the port.
+[--bind HOST:PORT] [--join]`: run one node of the port.
 
 Trimmed port of pilosa_tpu/cli/main.py (cmd_server, :127-276): the
 configuration is the JAX package's TOML and PILOSA_TPU_* environment
 (cli/config.py), --data-dir and --bind win over both. The node runs on
 the card unless [mesh] platform = "cpu"; on the card the kernel library
 is built (or loaded) before the node listens, so a build failure stops
-the start and no query pays for it. SIGTERM or SIGINT closes the node
-(the JAX server drains first; drain is not ported yet).
+the start and no query pays for it. --join adds the node to a running
+cluster whose nodes [cluster] hosts names (a resize job moves its shards
+to it); [gossip] makes SWIM gossip the failure detector. SIGTERM or
+SIGINT drains the node (Server.drain: shed, tell the peers, wait out
+in-flight work, persist), then closes it and exits 0; a second signal
+cuts the drain short (:249-265).
 
 The JAX CLI's other subcommands (import, export, inspect, check, config,
 generate-config, advise, timeline, profile-capture) are not ported yet.
@@ -35,7 +39,17 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--config", help="TOML config file")
     sp.add_argument("--data-dir", help="data directory")
     sp.add_argument("--bind", help="host:port to listen on")
+    sp.add_argument("--join", action="store_true",
+                    help="join a running cluster through the [cluster] "
+                         "hosts (the coordinator runs a resize job)")
     return p
+
+
+def _gossip_config(g: dict):
+    """The SWIM clock of the [gossip] section."""
+    from pilosa_tpu_torch.parallel.gossip import GossipConfig
+    return GossipConfig(period=g["period"], probe_timeout=g["probe_timeout"],
+                        push_pull_interval=g["push_pull_interval"])
 
 
 def cmd_server(args) -> int:
@@ -54,7 +68,7 @@ def cmd_server(args) -> int:
         from pilosa_tpu_torch.ops import _build
         _build.load()
     c, q = cfg.values["cluster"], cfg.values["query"]
-    ae = cfg.values["anti_entropy"]
+    ae, g = cfg.values["anti_entropy"], cfg.values["gossip"]
     data_dir = os.path.expanduser(cfg.get("", "data_dir"))
     server = Server(
         data_dir, host=cfg.host, port=cfg.port, device=device,
@@ -73,6 +87,11 @@ def cmd_server(args) -> int:
         probe_timeout=c["probe_timeout"],
         hint_max_bytes=c["hint_max_bytes"],
         hint_max_age=c["hint_max_age"],
+        drain_timeout=c["drain_timeout"],
+        join=args.join,
+        gossip_port=g["port"] if g["port"] >= 0 else None,
+        gossip_seeds=g["seeds"], gossip_config=_gossip_config(g),
+        gossip_secret=g["secret"],
         anti_entropy_interval=ae["interval"],
         anti_entropy_jitter=ae["jitter"],
         anti_entropy_pace=ae["pace"],
@@ -86,10 +105,21 @@ def cmd_server(args) -> int:
           f"(data: {data_dir}, node: {server.node_id}, device: "
           f"{server.executor.runner.device})", flush=True)
     stop = threading.Event()
-    signal.signal(signal.SIGINT, lambda *_: stop.set())
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    signals_seen = []
+
+    def on_signal(signum, _frame):
+        signals_seen.append(signum)
+        if len(signals_seen) > 1:
+            server._drain_abort.set()  # the second signal: stop now
+        stop.set()
+
+    signal.signal(signal.SIGINT, on_signal)
+    signal.signal(signal.SIGTERM, on_signal)
     try:
         stop.wait()
+        if not server._drain_abort.is_set():
+            print("draining (send another signal to skip)...", flush=True)
+            server.drain()
     finally:
         server.close()
     return 0

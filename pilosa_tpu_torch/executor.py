@@ -449,6 +449,29 @@ class Executor:
                       if k[:2] == (index_name, field_name)]:
                 del self._topn_merge_memo[k]
 
+    def drop_shards(self, index_name: str, shards) -> None:
+        """Drop what the executor keeps over fragments that were deleted (a
+        resize moved their shards away): every resident leaf, cached
+        result and TopN merge of the index whose shard set holds one of
+        them. A fragment made again later starts its generations over, so
+        a kept entry could match the new one's key with other bits."""
+        shards = frozenset(shards)
+
+        def over_shard(k: tuple) -> bool:
+            k = k[1:] if k and k[0] == "count" else k
+            return index_name in k[:2] and any(
+                isinstance(e, tuple) and any(
+                    type(x) is int and x in shards for x in e) for e in k)
+
+        self.residency.drop_where(over_shard)
+        if self.plan_cache is not None:
+            self.plan_cache.drop_where(over_shard)
+        with self._topn_memo_lock:
+            for k in [k for k in self._topn_merge_memo
+                      if k[0] == index_name
+                      and not shards.isdisjoint(k[2])]:
+                del self._topn_merge_memo[k]
+
     # ------------------------------------------------------------------ API
 
     def execute(self, index_name: str, query,

@@ -7,7 +7,8 @@ dir; its fragments hold no lock of their own (the JAX package locks each
 fragment, which a time field of 1024 shards and 95 views would take past
 the card machine's 20,000 open files) and keep their WAL open only within
 a process-wide budget (storage/fragment.py WAL_FDS). Deleting an index does not
-save the rank caches it is about to remove.
+save the rank caches it is about to remove. flush_caches (:80) saves
+every rank cache in place (a drain's step).
 """
 
 from __future__ import annotations
@@ -84,6 +85,16 @@ class Holder:
             raise KeyError(f"index not found: {name}")
         idx.close(save_caches=False)
         shutil.rmtree(idx.path, ignore_errors=True)
+
+    def flush_caches(self) -> int:
+        """Save every view's rank caches beside their fragments; returns
+        how many were written."""
+        n = 0
+        for idx in list(self.indexes.values()):
+            for f in list(idx.fields.values()):
+                for view in list(f.views.values()):
+                    n += view.flush_caches()
+        return n
 
     def walk_fragments(self):
         """Every (index, field, view, shard, fragment), over copies of the

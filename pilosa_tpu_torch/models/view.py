@@ -8,7 +8,11 @@ under the fragment's lock by every single-bit write, rebuilt after a bulk
 import, and saved on close in the JAX package's format, so either package
 reopens a data dir the other wrote with caches that match the bits.
 load_frozen_fragment (:180-203) bulk-loads a fragment into the frozen
-store and builds its rank cache from the store's arrays.
+store and builds its rank cache from the store's arrays. delete_fragment
+(:125) drops a shard this node no longer owns after a resize: the
+fragment closes and its files and rank cache go (the server's
+clean_holder then drops the executor's resident leaves and cached
+results over the shard, Executor.drop_shards).
 """
 
 from __future__ import annotations
@@ -120,6 +124,20 @@ class View:
 
     def shards(self) -> list[int]:
         return sorted(self.fragments)
+
+    def delete_fragment(self, shard: int) -> None:
+        """Close and remove one shard's fragment, its files and its rank
+        cache (holderCleaner, holder.go:855-906)."""
+        with self._frag_mu:
+            frag = self.fragments.pop(shard, None)
+            self.rank_caches.pop(shard, None)
+        if frag is None:
+            return
+        frag.close()
+        for p in (frag.path, frag.path + CACHE_EXT,
+                  frag.path + ".snapshotting", frag.path + ".lock"):
+            if os.path.exists(p):
+                os.remove(p)
 
     def set_bit(self, row_id: int, column: int) -> bool:
         shard = column // SHARD_WIDTH

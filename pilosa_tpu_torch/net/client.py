@@ -14,12 +14,11 @@ and the calls the data plane makes: query_proto (:317), query_batch_raw
 (the coalesced envelope), import_bits (:383), import_roaring,
 send_message, nodes, status, translate_keys and translate_data; and those
 of liveness and healing (:397-463): fragment_blocks, block_data,
-column_attr_diff, row_attr_diff, retrieve_shard and probe_indirect. A
-peer's error code (`fragment-not-found`, `read-fenced`) rides
-ClientError.code.
+column_attr_diff, row_attr_diff, retrieve_shard and probe_indirect; and
+resize's fragment_views (:431). A peer's error code
+(`fragment-not-found`, `read-fenced`) rides ClientError.code.
 
-Left out: the calls of resize and the federation (fragment views, stats,
-usage, events, heat, hbm); the failpoint hooks and the per-principal
+Left out: the calls of the federation (stats, usage, events, heat, hbm); the failpoint hooks and the per-principal
 accounting (the port has neither); the HLC piggyback of the flight
 recorder.
 """
@@ -255,7 +254,10 @@ class InternalClient:
         prof = qprofile.current_profile.get()
         body = s.encode_query_request(pql, shards=shards, remote=remote,
                                       profile=prof is not None)
-        out = self._request("POST", uri, f"/index/{index}/query", body,
+        # ?remote=true beside the body's flag: a draining node's gate
+        # (either package's) reads the URL, and lets a fan-out entry in
+        out = self._request("POST", uri, f"/index/{index}/query"
+                            + ("?remote=true" if remote else ""), body,
                             CONTENT_TYPE, accept=CONTENT_TYPE)
         resp = s.decode_query_response(out)
         if resp["err"]:
@@ -335,6 +337,15 @@ class InternalClient:
             "POST", uri, f"/internal/index/{index}/field/{field}/attr/diff",
             req)
         return {int(k): v for k, v in out.get("attrs", {}).items()}
+
+    def fragment_views(self, uri: str, index: str, field: str,
+                       shard: int) -> list:
+        """The views of a peer's field that hold a fragment of the shard
+        (a resize follower's first question to its donor)."""
+        out = self._json("GET", uri,
+                         f"/internal/fragment/views?index={index}"
+                         f"&field={field}&shard={shard}")
+        return out.get("views", [])
 
     def retrieve_shard(self, uri: str, index: str, field: str, view: str,
                        shard: int) -> bytes:

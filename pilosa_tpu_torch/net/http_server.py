@@ -26,6 +26,11 @@ JSON shapes for the public endpoints:
                                                 text/csv)
     GET         /info, /version, /schema, /status
     POST        /recalculate-caches
+    POST        /cluster/drain                 (JSON {"abort"?}: this
+                                                node's graceful drain)
+    POST        /cluster/resize/abort
+    POST        /cluster/resize/remove-node    (JSON {"id"})
+    POST        /cluster/resize/set-coordinator (JSON {"id"})
 
 Protobuf bodies (:440-475): a Content-Type of application/x-protobuf
 sends a QueryRequest to /query, an ImportRequest or, on an int field, an
@@ -60,7 +65,10 @@ and the cluster's internal routes (:63-79, handlers :1361-1460):
                                                 anti-entropy's checksums)
     GET         /internal/fragment/block/data  (the same and &block=)
     GET         /internal/fragment/data        (the fragment's roaring
-                                                bytes, for a rebuild)
+                                                bytes, for a rebuild or a
+                                                resize copy)
+    GET         /internal/fragment/views       (?index=&field=&shard=: the
+                                                views holding the shard)
     POST        /internal/index/{i}/attr/diff, /internal/index/{i}/field/
                 {f}/attr/diff                  (JSON {"blocks",
                                                 "blockRange"?}: the
@@ -76,6 +84,16 @@ header becomes the request's trace id; the deadline of a request is the
 strictest of an X-Pilosa-Deadline header (the remaining seconds of the
 coordinator's query), a ?timeout= duration on /query and the server's
 query timeout, and a query past it answers 504.
+
+The drain gate (:131-145, :263-290): while this node drains, a new
+external query (not ?remote=true, no X-Pilosa-Principal header) gets 503
+{"error": "node is draining ...", "code": "shed"} with Retry-After: 1 and
+X-Pilosa-Shed-Reason: draining, counted in drain_sheds; internal RPCs
+go on. active_queries counts the work routes in flight (query, import,
+query-batch), which the drain waits out. /debug/vars has the drain
+block and /metrics the drain/draining and drain/activeQueries gauges
+and the drain/shedQueries counter, under the JAX names, and /debug/vars
+a gossip block (the port's own) while SWIM gossip runs.
 """
 
 from __future__ import annotations
@@ -109,6 +127,12 @@ from pilosa_tpu_torch.utils.duration import parse_duration
 from pilosa_tpu_torch.utils.stats import prometheus_exposition
 
 ROUTES: list[tuple[str, re.Pattern, str]] = [
+    ("POST", re.compile(r"^/cluster/drain$"), "post_cluster_drain"),
+    ("POST", re.compile(r"^/cluster/resize/abort$"), "post_resize_abort"),
+    ("POST", re.compile(r"^/cluster/resize/remove-node$"),
+     "post_remove_node"),
+    ("POST", re.compile(r"^/cluster/resize/set-coordinator$"),
+     "post_set_coordinator"),
     ("GET", re.compile(r"^/export$"), "get_export"),
     ("GET", re.compile(r"^/index$"), "get_indexes"),
     ("GET", re.compile(r"^/index/(?P<index>[^/]+)$"), "get_index"),
@@ -148,6 +172,7 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
      "get_fragment_block_data"),
     ("GET", re.compile(r"^/internal/fragment/blocks$"), "get_fragment_blocks"),
     ("GET", re.compile(r"^/internal/fragment/data$"), "get_fragment_data"),
+    ("GET", re.compile(r"^/internal/fragment/views$"), "get_fragment_views"),
     ("POST", re.compile(r"^/internal/index/(?P<index>[^/]+)/attr/diff$"),
      "post_column_attr_diff"),
     ("POST", re.compile(
@@ -177,6 +202,8 @@ ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "remote",
                       "get_fragment_blocks": _FRAG_ARGS,
                       "get_fragment_block_data": _FRAG_ARGS | {"block"},
                       "get_fragment_data": _FRAG_ARGS,
+                      "get_fragment_views": frozenset({"index", "field",
+                                                       "shard"}),
                       "get_translate_data": frozenset({"offset"}),
                       "get_export": frozenset({"index", "field", "shard"}),
                       "post_import": frozenset({"clear"}),
@@ -205,10 +232,22 @@ class Handler:
         self.query_timeout = query_timeout
         self.serializer = Serializer()
         self._local = threading.local()  # the request's headers
+        # the drain gate (the server's drain sets it) and its counters
+        self.draining = False
+        self.drain_sheds = 0
+        self.active_queries = 0
+        self._counter_lock = threading.Lock()
+        # fn() -> the gossip block of /debug/vars, while gossip runs
+        self.gossip_status_fn = None
+
+    # the routes a drain waits out (and counts as in-flight work)
+    WORK_ROUTES = frozenset({"post_query", "post_query_batch",
+                             "post_import", "post_import_roaring"})
 
     def dispatch(self, method: str, path: str, query: dict,
-                 body: bytes, headers=None) -> tuple[int, str, bytes]:
-        """-> (status, content type, payload)."""
+                 body: bytes, headers=None) -> tuple:
+        """-> (status, content type, payload), and a dict of response
+        headers as a fourth item where there are any."""
         self._local.headers = headers
         trace = headers.get(tracing.TRACE_HEADER) if headers else None
         token = tracing.current_trace_id.set(trace) if trace else None
@@ -271,8 +310,23 @@ class Handler:
                 return self._error(400, "invalid query argument(s): "
                                    + ", ".join(sorted(unknown)))
             dl_token = None
+            is_work = name in self.WORK_ROUTES
+            if is_work:
+                with self._counter_lock:
+                    self.active_queries += 1
             try:
                 dl_token = self._set_deadline(name, query)
+                if (self.draining and name == "post_query"
+                        and not self._inherited(query)):
+                    # a new external query: the client goes to another
+                    # replica; a coordinator's fan-out entry finishes
+                    with self._counter_lock:
+                        self.drain_sheds += 1
+                    return self._error(
+                        503, "node is draining (graceful restart): retry "
+                             "against another replica", code="shed") + ({
+                                 "Retry-After": "1",
+                                 "X-Pilosa-Shed-Reason": "draining"},)
                 return getattr(self, name)(match.groupdict(), query, body)
             except qctx.QueryTimeoutError as e:
                 return self._error(504, str(e))
@@ -283,11 +337,22 @@ class Handler:
                     self.stats.count("http/serverErrors")
                 return self._error(500, str(e))
             finally:
+                if is_work:
+                    with self._counter_lock:
+                        self.active_queries -= 1
                 if dl_token is not None:
                     qctx.deadline.reset(dl_token)
         if any(rx.match(path) for _, rx, _ in ROUTES):
             return 405, "application/json", b'{"error": "method not allowed"}'
         return 404, "application/json", b'{"error": "not found"}'
+
+    def _inherited(self, query: dict) -> bool:
+        """A query a coordinator fanned out: ?remote=true, or the
+        principal header every internal RPC of a JAX node carries."""
+        vals = query.get("remote")
+        if vals and vals[0] in ("1", "true"):
+            return True
+        return bool(self._header("X-Pilosa-Principal"))
 
     @staticmethod
     def _error(status: int, msg: str, code: str = ""):
@@ -525,6 +590,38 @@ class Handler:
         return self._json(self.api.fragment_block_data(
             *self._frag_args(query), block))
 
+    def get_fragment_views(self, params, query, body):
+        index, field = self._arg(query, "index"), self._arg(query, "field")
+        shard = int(self._arg(query, "shard", "0"))
+        return self._json({"views": self.api.fragment_views(index, field,
+                                                            shard)})
+
+    # -- membership and lifecycle (:1333-1361) -------------------------------
+
+    def post_cluster_drain(self, params, query, body):
+        """Start this node's drain in the background and answer its status
+        at once; {"abort": true} cancels a drain in progress."""
+        req = self._body_json(body)
+        return self._json(self.api.drain(abort=bool(req.get("abort"))))
+
+    def post_resize_abort(self, params, query, body):
+        self.api.resize_abort()
+        return self._json({})
+
+    def post_remove_node(self, params, query, body):
+        node_id = self._body_json(body).get("id")
+        if not node_id:
+            raise ApiError("id is required")
+        self.api.remove_node(node_id)
+        return self._json({})
+
+    def post_set_coordinator(self, params, query, body):
+        node_id = self._body_json(body).get("id")
+        if not node_id:
+            raise ApiError("id is required")
+        self.api.set_coordinator(node_id)
+        return self._json({})
+
     def get_fragment_data(self, params, query, body):
         return (200, "application/octet-stream",
                 self.api.fragment_data(*self._frag_args(query)))
@@ -661,6 +758,13 @@ class Handler:
         damaged = self.api.holder.damaged_fragments()
         if damaged:
             snap["damagedFragments"] = damaged
+        # this node's drain (:701-703), and gossip while it runs
+        if self.api.drain_status_fn is not None:
+            snap["drain"] = self.api.drain_status_fn()
+        if self.gossip_status_fn is not None:
+            g = self.gossip_status_fn()
+            if g is not None:
+                snap["gossip"] = g
         return self._json(snap)
 
     def _process_gauges(self) -> dict:
@@ -882,6 +986,12 @@ class Handler:
         gauges["hbmHeadroomBytes"] = float(max(0, res.budget - rs["bytes"]))
         drift = ex.hbm_snapshot(top=1)["hbmDriftBytes"]
         gauges["hbmDriftBytes"] = float(drift) if drift is not None else 0.0
+        # the drain, zeros included (:1255-1261)
+        if self.api.drain_status_fn is not None:
+            ds = self.api.drain_status_fn()
+            gauges["drain/draining"] = 1.0 if ds["draining"] else 0.0
+            gauges["drain/activeQueries"] = ds["activeQueries"]
+            counts["drain/shedQueries"] = ds["shedQueries"]
         snap = dict(snap, counts=counts, gauges=gauges, timings=timings)
         return (200, "text/plain; version=0.0.4; charset=utf-8",
                 prometheus_exposition(snap).encode())
@@ -935,10 +1045,13 @@ class _RequestHandler(BaseHTTPRequestHandler):
         parsed = urlparse(self.path)
         length = int(self.headers.get("Content-Length", 0) or 0)
         body = self.rfile.read(length) if length else b""
-        status, ctype, payload = self.handler.dispatch(
+        resp = self.handler.dispatch(
             method, parsed.path, parse_qs(parsed.query), body, self.headers)
+        status, ctype, payload = resp[:3]
         self.send_response(status)
         self.send_header("Content-Type", ctype)
+        for k, v in (resp[3] if len(resp) > 3 else {}).items():
+            self.send_header(k, v)
         self.send_header("Content-Length", str(len(payload)))
         self.end_headers()
         self.wfile.write(payload)

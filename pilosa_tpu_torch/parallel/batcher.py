@@ -253,6 +253,12 @@ class ContinuousBatcher:
     def _finalize(self, key: tuple, handle, payloads: list) -> list:
         raise NotImplementedError
 
+    def queue_depth(self) -> int:
+        """Requests queued and not yet cut into a batch (:412), over every
+        compatibility key: what a drain waits to see at 0."""
+        with self._lock:
+            return sum(len(q) for q in self._pending.values())
+
     def snapshot(self) -> dict:
         """The JAX batcher's snapshot keys (:418), which /debug/vars and
         /metrics read."""

@@ -61,8 +61,60 @@ acknowledged Clear, whether the Clear is a write in flight between the
 replicas or a hint not yet replayed to a returning node. The event
 journal's calls of the JAX code are left out (the port has no journal).
 
-Not served yet: gossip, this node's own drain, resize, QoS and the
-/cluster/* federation.
+Membership changes (:1681-2093, message types :1472-1550): a node
+opened with join=True treats cluster_hosts as seeds, knocks on them
+(request_join: node-join-request, forwarded to the coordinator) and
+waits in STARTING, knocking again every membership tick, until the
+coordinator's job admits it; POST /cluster/resize/remove-node asks for a
+leave job (forwarded to the coordinator). The coordinator plans the job
+(Cluster.plan_resize over the cluster-wide available shards), goes
+RESIZING and tells every member (cluster-state), which refuses queries
+and writes with 503 meanwhile, and sends each node its resize-instruction
+with the schema and the available shards. A follower asks each donor for
+the views holding a shard (/internal/fragment/views), unions each
+view's roaring bytes (/internal/fragment/data) into its fragment and
+rebuilds the rank cache, RESIZE_COPY_WORKERS shards at once, then
+acknowledges (resize-complete). The last acknowledgement ends the job:
+the membership changes, the .topology file is written, the new topology
+goes to every node and to a departed one (topology, with the removed
+ids, which tombstone a node so no membership merge brings it back; a
+node that finds itself removed becomes a node of its own), each node
+drops the fragments it no longer owns (clean_holder) with the
+executor's leaves over them, and the next queued join or leave starts
+(_drain_pending_resizes). A failed instruction, an undeliverable one, a
+resize_timeout watchdog or POST /cluster/resize/abort aborts the job and
+un-gates every node. A leave with no more nodes than replicas removes
+the node at once and serves DEGRADED.
+
+This node's drain (:1117-1260; SIGTERM and POST /cluster/drain): new
+external queries get 503 with X-Pilosa-Shed-Reason: draining, peers are
+told (node-state DRAINING) and route around it, in-flight work and the
+batchers' and the coalescer's queues empty (at most drain_timeout
+seconds), the rank caches are saved and every fragment with WAL ops or
+a volatile bulk load is snapshotted; /status then says nodeState
+DRAINING until the process goes. abort_drain re-announces READY.
+
+SWIM gossip (:697-757; parallel/gossip.py, with AES-GCM under
+gossip_secret): with gossip_port set, gossip is the failure detector and
+the HTTP probe loop is off. A member gossip declares dead is marked
+down; one that comes alive is marked up and healed, or, unknown, admitted
+to the membership from the HTTP URI its alive record carries (not while
+a job runs, nor a removed node). A --join node knocks before gossip
+opens, so the coordinator is RESIZING when gossip's alive record
+arrives.
+
+These differ from the JAX package: on entering RESIZING a node waits
+(at most RESIZE_SETTLE_S) for its in-flight work routes to finish before
+it answers the cluster-state message (the coordinator before it sends
+the instructions), so a write acknowledged under the old state is in
+the fragments a follower copies; at a join's last acknowledgement the
+coordinator sends the joiner its topology before it changes its own
+membership, so no member routes to the joiner while it is still
+STARTING; every node, not only the coordinator, writes the .topology
+file when it applies a topology and drops its hints for a removed node;
+and a joining node arms no read fence.
+
+Not served yet: QoS and the /cluster/* federation.
 
 String keys are minted into a TranslateStore at <data_dir>/.keys (its
 sqlite index at .keys.idx; pilosa_tpu/server.py:151) through the
@@ -110,7 +162,14 @@ from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.net.client import ClientError, InternalClient
 from pilosa_tpu_torch.net.http_server import Handler, HTTPServer
 from pilosa_tpu_torch.ops import kernels
-from pilosa_tpu_torch.parallel.cluster import Cluster, Node
+from pilosa_tpu_torch.parallel.cluster import (
+    EVENT_LEAVE,
+    STATE_RESIZING,
+    STATE_STARTING,
+    Cluster,
+    Node,
+    ResizeJob,
+)
 from pilosa_tpu_torch.parallel.residency import (
     DEFAULT_RUN_THRESHOLD,
     DEFAULT_SPARSE_THRESHOLD,
@@ -156,6 +215,10 @@ class Server:
     ATTR_SYNC_PAGE = 512
     # fenced shards checked at once (each check is an RPC a fragment)
     FENCE_WORKERS = 8
+    # shards a resize follower copies at once (two RPCs each)
+    RESIZE_COPY_WORKERS = 8
+    # the longest a node entering RESIZING waits for its in-flight work
+    RESIZE_SETTLE_S = 10.0
 
     def __init__(self, data_dir: str, host: str = "localhost", port: int = 0,
                  device="cuda",
@@ -183,7 +246,14 @@ class Server:
                  anti_entropy_interval: float = 0.0,
                  anti_entropy_jitter: float = 0.25,
                  anti_entropy_pace: float = 0.0,
-                 anti_entropy_max_blocks: int = 0):
+                 anti_entropy_max_blocks: int = 0,
+                 join: bool = False,
+                 resize_timeout: float = 120.0,
+                 drain_timeout: float = 30.0,
+                 gossip_port: Optional[int] = None,
+                 gossip_seeds: Optional[list] = None,
+                 gossip_config=None,
+                 gossip_secret: str = ""):
         for name, value in (("sparse-threshold", sparse_threshold),
                             ("run-threshold", run_threshold)):
             if value < 0:
@@ -204,8 +274,9 @@ class Server:
                 "(a fraction: expected 0 <= jitter < 1)")
         if anti_entropy_pace < 0 or anti_entropy_max_blocks < 0:
             raise ValueError("[anti-entropy] pace and max-blocks must be >= 0")
-        if hint_max_age < 0:
-            raise ValueError("[cluster] hint-max-age must be >= 0")
+        if hint_max_age < 0 or drain_timeout < 0:
+            raise ValueError(
+                "[cluster] hint-max-age and drain-timeout must be >= 0")
         if liveness_threshold < 1:
             raise ValueError("[cluster] liveness-threshold must be >= 1")
         self.data_dir = data_dir
@@ -256,6 +327,30 @@ class Server:
         self._bcast_queue: queue.Queue = queue.Queue()
         self._bcast_thread: Optional[threading.Thread] = None
         self._bcast_dropped = 0
+        # membership changes: join=True knocks on cluster_hosts (seeds);
+        # the coordinator queues joins and leaves that arrive while a job
+        # runs; removed ids are tombstones no membership merge undoes
+        self.join = join
+        self.resize_timeout = resize_timeout
+        self._resize_watchdog: Optional[threading.Timer] = None
+        self._pending_resizes: list = []
+        self._resize_lock = threading.Lock()
+        self._removed_ids: set[str] = set()
+        self._left = False  # this node was removed from the cluster
+        # this node's drain
+        self.drain_timeout = drain_timeout
+        self.draining = False
+        self.drained = False
+        self._drain_lock = threading.Lock()
+        self._drain_thread: Optional[threading.Thread] = None
+        self._drain_abort = threading.Event()
+        self._drain_info: dict = {}
+        # SWIM gossip: on when gossip_port is set (0: an ephemeral port)
+        self.gossip = None
+        self._gossip_port = gossip_port
+        self._gossip_seeds = list(gossip_seeds or [])
+        self._gossip_config = gossip_config
+        self._gossip_secret = gossip_secret
         self.host = host
         self.port = port
         self.device = device
@@ -291,6 +386,15 @@ class Server:
             f.write(node_id)
         return node_id
 
+    def _schema_shards(self) -> dict:
+        """{index: {field: [shards]}} over the cluster-wide available
+        shards (not this node's fragments: a shard may live only on
+        peers), which resize plans over."""
+        return {iname: {fname: [int(s) for s in
+                                f.available_shards.positions()]
+                        for fname, f in list(idx.fields.items())}
+                for iname, idx in list(self.holder.indexes.items())}
+
     def open(self) -> "Server":
         self.holder = open_holder(self.data_dir)
         for d in self.holder.damaged_fragments():
@@ -305,7 +409,10 @@ class Server:
                      f"({d['walTruncateError']}): truncated "
                      f"{d['walTruncatedBytes']} unacknowledged bytes")
         self.node_id = self.node_id or self._load_or_create_id()
-        self.cluster = Cluster(self.node_id, replica_n=self.replica_n)
+        self.cluster = Cluster(
+            self.node_id, replica_n=self.replica_n,
+            schema_fn=self._schema_shards,
+            topology_path=os.path.join(self.data_dir, ".topology"))
         self.client = InternalClient()
         self.translate = TranslateStore(
             os.path.join(self.data_dir, ".keys")).open()
@@ -347,21 +454,36 @@ class Server:
                                device_profiler=self.device_profiler,
                                cluster_message_fn=self.receive_message,
                                query_timeout=self.query_timeout)
+        self.handler.gossip_status_fn = self.gossip_status
         self.http = HTTPServer(self.handler, self.host, self.port)
         self.api.uri = self.http.uri
         self.holder.set_shard_hook(self._on_shard_added)
         me = Node(id=self.node_id, uri=self.http.uri,
                   is_coordinator=not self.cluster_hosts)
-        self.cluster.set_static([me])
-        if not self.cluster_hosts:
+        joining = self.join and bool(self.cluster_hosts)
+        if joining:
+            # a node being added: a cluster of itself, STARTING (its
+            # queries refused) until a job admits it
+            self.cluster.nodes = [me]
+            if self.membership_interval > 0:
+                self._schedule_membership_refresh()
+        elif not self.cluster_hosts:
+            self.cluster.set_static([me])
             self.cluster.coordinator_id = self.node_id
         else:
+            self.cluster.set_static([me])
             # peers may not be up yet: start as a cluster of this node
             # and merge what they report, now and every tick
             self.refresh_membership()
             if self.membership_interval > 0:
                 self._schedule_membership_refresh()
         self.api.broadcast_fn = self.broadcast
+        self.api.resize_fn = self._resize_request
+        self.api.abort_fn = self._abort_request
+        self.api.drain_fn = self.request_drain
+        self.api.drain_status_fn = self.drain_status
+        self.api.node_state_fn = (
+            lambda: "DRAINING" if self.draining else "READY")
         self.api.forward_import_fn = self.client.import_bits
         self.api.forward_roaring_fn = (
             lambda uri, index, field, shard, views, clear:
@@ -382,9 +504,16 @@ class Server:
         # away (before the first request is served: the listener is bound
         # and the peers known), then announce the return so peers replay
         # their hints now
-        self._arm_read_fence()
+        if not joining:
+            self._arm_read_fence()
         self.http.serve_background()
-        if self.cluster_hosts:
+        if joining:
+            # knock before gossip opens: the coordinator is RESIZING when
+            # gossip's alive record reaches it, so gossip admits nothing
+            self.request_join()
+        if self._gossip_port is not None:
+            self._open_gossip()
+        if self.cluster_hosts and not joining:
             self.broadcast({"type": "node-state", "id": self.node_id,
                             "state": "READY"})
         return self
@@ -395,6 +524,10 @@ class Server:
 
     def close(self) -> None:
         self.closed = True
+        if self.gossip is not None:
+            self.gossip.close()
+        if self._resize_watchdog is not None:
+            self._resize_watchdog.cancel()
         if self._member_timer is not None:
             self._member_timer.cancel()
         if self._ae_timer is not None:
@@ -425,8 +558,25 @@ class Server:
 
     def _membership_tick(self) -> None:
         try:
-            self.refresh_membership()
-            self._probe_peers()
+            if self.join and self.cluster.state == STATE_STARTING \
+                    and not self.cluster.down_ids:
+                # not admitted yet: knock again (a STARTING of peers down
+                # falls through, so probing can see them come back)
+                self.request_join()
+            else:
+                # fetched without the lock, merged under it: a merge must
+                # not end a job's RESIZING
+                http = self.http
+                if http is not None and not self.closed:
+                    reports = self._fetch_peer_nodes(http.uri)
+                    if reports is not None:
+                        with self._resize_lock:
+                            if self.cluster.state != STATE_RESIZING \
+                                    and self.cluster.active_job is None:
+                                self._apply_membership(reports, http.uri)
+                if self.gossip is None:
+                    # with gossip on, gossip is the failure detector
+                    self._probe_peers()
             # a replay that failed midway keeps its log: re-run the heal
             # of every live peer that still has hints
             self._retry_pending_hints()
@@ -441,9 +591,14 @@ class Server:
         if not self.cluster_hosts or self.closed or http is None:
             return
         reports = self._fetch_peer_nodes(http.uri)
-        self._apply_membership(reports, http.uri)
+        if reports is not None:
+            self._apply_membership(reports, http.uri)
 
-    def _fetch_peer_nodes(self, my_uri: str) -> list:
+    def _fetch_peer_nodes(self, my_uri: str) -> Optional[list]:
+        """The node lists the configured hosts report (None once this node
+        was removed)."""
+        if self._left:
+            return None
         reports: list = []
         for huri in self.cluster_hosts:
             if huri == my_uri:
@@ -456,9 +611,12 @@ class Server:
         return reports
 
     def _apply_membership(self, reports: list, my_uri: str) -> None:
-        nodes = {n.id: n for n in self.cluster.nodes}
+        nodes = {n.id: n for n in self.cluster.nodes
+                 if n.id not in self._removed_ids}
         nodes[self.node_id] = Node(id=self.node_id, uri=my_uri)
         for nd in reports:
+            if nd["id"] in self._removed_ids:
+                continue
             if nd["id"] not in nodes:
                 nodes[nd["id"]] = Node.from_dict(nd)
             elif nd.get("uri") and nd["id"] != self.node_id:
@@ -633,12 +791,7 @@ class Server:
                     self.client.send_message(node.uri, {
                         "type": "schema-sync",
                         "schema": self.holder.schema(),
-                        "availableShards": {
-                            iname: {fname: [int(x) for x in
-                                            f.available_shards.positions()]
-                                    for fname, f in list(idx.fields.items())}
-                            for iname, idx in
-                            list(self.holder.indexes.items())}})
+                        "availableShards": self._schema_shards()})
                 except ClientError as e:
                     _log(f"schema re-sync to {node.id} failed: {e}")
                 claim = self.cluster._explicit_claim
@@ -748,6 +901,188 @@ class Server:
                     pass  # created meanwhile
 
     # -- the rejoin read fence (:1263-1387) ----------------------------------
+
+    # -- SWIM gossip (:697-757) ----------------------------------------------
+
+    def _open_gossip(self) -> None:
+        """Start the UDP endpoint and join the seeds; this node's HTTP URI
+        rides its alive record, so a node found by gossip alone can be
+        admitted."""
+        from pilosa_tpu_torch.parallel.gossip import Gossip, parse_seed
+        from pilosa_tpu_torch.utils.aesgcm import derive_key
+
+        self.gossip = Gossip(
+            self.node_id, bind_host=self.host, bind_port=self._gossip_port,
+            meta={"uri": self.http.uri}, config=self._gossip_config,
+            on_alive=self._on_gossip_alive, on_dead=self._on_gossip_dead,
+            secret_key=(derive_key(self._gossip_secret)
+                        if self._gossip_secret else None),
+            logger=_log)
+        self.gossip.open(seeds=[parse_seed(s) for s in self._gossip_seeds])
+        _log(f"gossip: listening on {self.gossip.host}:{self.gossip.port} "
+             f"(seeds: {','.join(self._gossip_seeds) or 'none'})")
+
+    def _on_gossip_dead(self, member) -> None:
+        """Gossip's suspicion of a member expired: route around it."""
+        if self.closed or member.id == self.node_id:
+            return
+        if self.cluster.node_by_id(member.id) is not None \
+                and not self.cluster.is_down(member.id):
+            _log(f"gossip: node {member.id} dead (suspicion expired), "
+                 "marking it down")
+            self.cluster.mark_down(member.id)
+            self.stats.count("liveness/node_down")
+
+    def _on_gossip_alive(self, member) -> None:
+        """A member is alive: a down one is marked up and healed; an
+        unknown one is admitted from its URI (NotifyJoin,
+        gossip/gossip.go:335-342), unless a job runs or it was removed."""
+        if self.closed or member.id == self.node_id:
+            return
+        node = self.cluster.node_by_id(member.id)
+        http = self.http
+        if node is None:
+            uri = member.meta.get("uri")
+            if uri and member.id not in self._removed_ids \
+                    and http is not None:
+                with self._resize_lock:
+                    if self.cluster.state != STATE_RESIZING \
+                            and self.cluster.active_job is None:
+                        self._apply_membership([{"id": member.id,
+                                                 "uri": uri}], http.uri)
+        elif self.cluster.is_down(member.id):
+            _log(f"gossip: node {member.id} back up")
+            self.cluster.mark_up(member.id)
+            self._on_node_return(node)
+
+    def gossip_status(self) -> Optional[dict]:
+        """The gossip block of /debug/vars (the port's own): the endpoint,
+        the members by state, the datagrams dropped by the cipher and the
+        cipher's seconds."""
+        g = self.gossip
+        if g is None:
+            return None
+        members = g.members()
+        return {"host": g.host, "port": g.port,
+                "members": {m.id: m.state for m in members},
+                "incarnation": g.incarnation,
+                "cryptoDrops": g.crypto_drops,
+                "encrypted": g._cipher is not None,
+                "cipherBackend": (None if g._cipher is None else "stdlib"
+                                  if g._cipher._lib is None
+                                  else "cryptography"),
+                "sealed": g.sealed, "sealSeconds": g.seal_s,
+                "opened": g.opened, "openSeconds": g.open_s}
+
+    # -- this node's drain (:1117-1260) ------------------------------------
+
+    def request_drain(self, abort: bool = False,
+                      timeout: Optional[float] = None) -> dict:
+        """POST /cluster/drain: the drain on a thread of its own, the
+        status answered at once; abort=True cancels one in progress."""
+        if abort:
+            self.abort_drain()
+            return self.drain_status()
+        with self._drain_lock:
+            if self._drain_thread is None \
+                    or not self._drain_thread.is_alive():
+                self._drain_abort.clear()
+                self._drain_thread = threading.Thread(
+                    target=self.drain, args=(timeout,),
+                    name="pilosa-torch-drain", daemon=True)
+                self._drain_thread.start()
+        return self.drain_status()
+
+    def abort_drain(self) -> None:
+        """Stop shedding and re-announce READY, so peers route here
+        again."""
+        if not self.draining:
+            return
+        self._drain_abort.set()
+        self.draining = False
+        self.handler.draining = False
+        me = self.cluster.local_node
+        if me is not None and me.state == "DRAINING":
+            me.state = "READY"
+        _log("drain: aborted, serving again")
+        self.broadcast({"type": "node-state", "id": self.node_id,
+                        "state": "READY"})
+
+    def _drain_wait(self, cond, deadline: Optional[float]) -> bool:
+        while not cond():
+            if self._drain_abort.is_set() or self.closed:
+                return False
+            if deadline is not None and time.monotonic() >= deadline:
+                return False
+            time.sleep(0.01)
+        return True
+
+    def drain(self, timeout: Optional[float] = None) -> dict:
+        """The drain, run to its end: (1) shed new external queries, (2)
+        tell the peers (node-state DRAINING), (3) wait for in-flight work
+        and for the batchers' and the coalescer's queues to empty, (4) save
+        the rank caches and snapshot every fragment with WAL ops or a
+        volatile bulk load, so a restart replays nothing. Steps (1) and
+        (2) run once; a second call (the CLI's SIGTERM after POST
+        /cluster/drain) waits and persists again."""
+        timeout = self.drain_timeout if timeout is None else timeout
+        t0 = time.monotonic()
+        deadline = t0 + timeout if timeout and timeout > 0 else None
+        if not self.draining:
+            self.draining = True
+            self.handler.draining = True
+            me = self.cluster.local_node
+            if me is not None:
+                me.state = "DRAINING"
+            self.stats.count("drain/started")
+            _log(f"drain: shedding new external queries (timeout "
+                 f"{timeout:.1f} s)")
+            self.broadcast({"type": "node-state", "id": self.node_id,
+                            "state": "DRAINING"})
+        inflight_ok = self._drain_wait(
+            lambda: self.handler.active_queries == 0, deadline)
+        ex = self.executor
+        queues = [b for b in (ex.batcher, ex.sum_batcher, ex.minmax_batcher,
+                              ex.coalescer) if b is not None]
+        flushed_ok = self._drain_wait(
+            lambda: sum(b.queue_depth() for b in queues) == 0, deadline)
+        if self._drain_abort.is_set():
+            return self.drain_status()
+        snapshotted = errors = 0
+        try:
+            self.holder.flush_caches()
+        except Exception as e:  # noqa: BLE001 — caches are rebuilt
+            _log(f"drain: rank cache flush failed: {e}")
+        for iname, fname, vname, shard, frag in \
+                list(self.holder.walk_fragments()):
+            if frag.op_n <= 0 and not frag._volatile:
+                continue
+            try:
+                frag.snapshot()
+                snapshotted += 1
+            except (OSError, ValueError) as e:
+                errors += 1
+                _log(f"drain: final snapshot of {iname}/{fname}/{vname}/"
+                     f"{shard} failed: {e}")
+        self.drained = True
+        self._drain_info = {
+            "inflightDrained": inflight_ok, "queuesFlushed": flushed_ok,
+            "snapshotted": snapshotted, "snapshotErrors": errors,
+            "durationSeconds": round(time.monotonic() - t0, 3)}
+        self.stats.count("drain/completed")
+        _log(f"drain: done in {self._drain_info['durationSeconds']:.2f} s "
+             f"(in-flight {inflight_ok}, queues {flushed_ok}, snapshots "
+             f"{snapshotted}): the process may stop")
+        return self.drain_status()
+
+    def drain_status(self) -> dict:
+        """The drain block of /debug/vars and /cluster/drain's answer."""
+        out = {"draining": self.draining, "drained": self.drained,
+               "shedQueries": self.handler.drain_sheds,
+               "activeQueries": self.handler.active_queries,
+               "timeoutSeconds": self.drain_timeout}
+        out.update(self._drain_info)
+        return out
 
     def _arm_read_fence(self) -> None:
         """Fence every local (index, shard) when this node opens with data
@@ -1186,6 +1521,27 @@ class Server:
         elif mtype == "set-coordinator":
             if msg.get("id"):
                 self.cluster.adopt_coordinator(msg["id"])
+        elif mtype == "node-join":
+            self.cluster.add_node(Node.from_dict(msg["node"]))
+        elif mtype == "node-join-request":
+            self._handle_join_request(Node.from_dict(msg["node"]))
+        elif mtype == "node-leave-request":
+            self._handle_leave_request(msg["id"])
+        elif mtype == "resize-instruction":
+            # the copies run off the coordinator's request
+            threading.Thread(target=self.follow_resize_instruction,
+                             args=(msg,), name="pilosa-torch-resize",
+                             daemon=True).start()
+        elif mtype == "resize-complete":
+            self._handle_resize_complete(msg)
+        elif mtype == "resize-abort":
+            self._abort_request()
+        elif mtype == "topology":
+            self._apply_topology(msg["nodes"], msg.get("removed"))
+        elif mtype == "cluster-state":
+            self.cluster._set_state(msg["state"])
+            if msg["state"] == STATE_RESIZING:
+                self._settle_work()
         elif mtype == "node-state":
             # a peer (re)started: learn it now rather than at the next
             # membership tick
@@ -1203,17 +1559,405 @@ class Server:
         elif mtype == "schema-sync":
             # a peer's push to this node after its return (:1537)
             self._apply_schema(msg.get("schema", []))
-            for iname, fields in msg.get("availableShards", {}).items():
-                idx = self.holder.index(iname)
-                if idx is None:
-                    continue
-                for fname, shards in fields.items():
-                    f = idx.field(fname)
-                    if f is not None and shards:
-                        f.add_available_shards([int(x) for x in shards],
-                                               quiet=True)
+            self._apply_available(msg.get("availableShards", {}))
         else:
             raise ValueError(f"unknown cluster message type: {mtype}")
+
+    # -- resize (:1681-2093) ------------------------------------------------
+
+    def _settle_work(self) -> None:
+        """Wait (at most RESIZE_SETTLE_S) for the work routes in flight
+        here to finish: a write acknowledged before RESIZING must be in the
+        fragments a follower copies."""
+        deadline = time.monotonic() + self.RESIZE_SETTLE_S
+        while self.handler.active_queries > 0 and not self.closed \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+
+    def _topology_msg(self) -> dict:
+        return {"type": "topology",
+                "nodes": [n.to_dict() for n in self.cluster.nodes],
+                "removed": sorted(self._removed_ids)}
+
+    def request_join(self) -> None:
+        """Ask the first seed that answers to admit this node; it forwards
+        the request to the coordinator, which runs a join job."""
+        http = self.http
+        if http is None:
+            return
+        me = {"id": self.node_id, "uri": http.uri}
+        for huri in self.cluster_hosts:
+            if huri == http.uri:
+                continue
+            try:
+                self.client.send_message(huri, {"type": "node-join-request",
+                                                "node": me})
+                return
+            except ClientError:
+                continue
+
+    def _resize_request(self, event: str, node: Node):
+        """The API's remove-node: a leave job on the coordinator, asked
+        for through it; a refusal (too few replicas) is a ValueError the
+        operator's request answers with."""
+        if event != EVENT_LEAVE:
+            raise ValueError(f"unsupported resize event: {event}")
+        if not self.cluster.is_coordinator():
+            coord = self.cluster.node_by_id(self.cluster.coordinator_id)
+            if coord is None or not coord.uri:
+                raise ValueError("no coordinator available")
+            try:
+                self.client.send_message(coord.uri, {
+                    "type": "node-leave-request", "id": node.id})
+            except ClientError as e:
+                raise ValueError(f"remove-node refused by coordinator: {e}")
+            return None
+        self._handle_leave_request(node.id)
+        return self.cluster.active_job
+
+    def _abort_request(self) -> None:
+        """POST /cluster/resize/abort: the coordinator cancels its job and
+        un-gates every node."""
+        if not self.cluster.is_coordinator():
+            coord = self.cluster.node_by_id(self.cluster.coordinator_id)
+            if coord is None or not coord.uri:
+                raise ValueError("no coordinator available")
+            try:
+                self.client.send_message(coord.uri, {"type": "resize-abort"})
+            except ClientError as e:
+                raise ValueError(f"abort refused by coordinator: {e}")
+            return
+        with self._resize_lock:
+            self.cluster.abort_resize()
+        if self._resize_watchdog is not None:
+            self._resize_watchdog.cancel()
+        self._resize_aborted()
+
+    def _forward_to_coordinator(self, msg: dict) -> bool:
+        coord = self.cluster.node_by_id(self.cluster.coordinator_id)
+        if coord is None or coord.id == self.node_id or not coord.uri:
+            return False
+        try:
+            self.client.send_message(coord.uri, msg)
+            return True
+        except ClientError:
+            return False
+
+    def _handle_join_request(self, node: Node) -> None:
+        if node.id == self.node_id:
+            return
+        # a removed node may come back
+        self._removed_ids.discard(node.id)
+        if self.cluster.node_by_id(node.id) is not None:
+            # a member already (its topology message was lost): send it
+            # the topology again
+            self._send_quiet(node.uri, self._topology_msg())
+            return
+        if not self.cluster.is_coordinator():
+            self._forward_to_coordinator({"type": "node-join-request",
+                                          "node": node.to_dict()})
+            return
+        with self._resize_lock:
+            if self.cluster.state == STATE_RESIZING \
+                    or self.cluster.active_job is not None:
+                if all(n.id != node.id for _, n in self._pending_resizes):
+                    self._pending_resizes.append(("join", node))
+                return
+            job = self.cluster.node_join(node)
+        if job is not None:
+            self._start_job(job)
+
+    def _handle_leave_request(self, node_id: str) -> None:
+        if not self.cluster.is_coordinator():
+            self._forward_to_coordinator({"type": "node-leave-request",
+                                          "id": node_id})
+            return
+        with self._resize_lock:
+            victim = self.cluster.node_by_id(node_id)
+            if self.cluster.state == STATE_RESIZING \
+                    or self.cluster.active_job is not None:
+                if victim is not None:
+                    self._pending_resizes.append(("leave", victim))
+                return
+            job = self.cluster.node_leave(node_id)
+        if job is not None:
+            self._start_job(job)
+            return
+        # too few nodes to rebuild the replicas: the node is gone already
+        self._removed_ids.add(node_id)
+        self.hints.drop_target(node_id)
+        self._broadcast_topology()
+        if victim is not None and victim.uri:
+            self._send_quiet(victim.uri, self._topology_msg())
+        self.clean_holder()
+
+    def _start_job(self, job: ResizeJob) -> None:
+        """Every member RESIZING (each settles its in-flight work before
+        it answers), this node's work settled too, then the
+        instructions."""
+        self._broadcast_state(STATE_RESIZING)
+        self._settle_work()
+        self._distribute_resize(job)
+
+    def _distribute_resize(self, job: ResizeJob) -> None:
+        """Each node's instruction, with the schema and the cluster-wide
+        available shards, so a joining node creates the fields first and
+        plans over every shard (cluster.go:1499)."""
+        uri_by_id = {n.id: n.uri for n in self.cluster.nodes}
+        if job.node is not None:
+            uri_by_id.setdefault(job.node.id, job.node.uri)
+        self._arm_watchdog(job.id)
+        schema = self.holder.schema()
+        avail = self._schema_shards()
+        for target, sources in job.instructions.items():
+            msg = {"type": "resize-instruction", "job": job.id,
+                   "coordinator": self.node_id,
+                   "coordinatorURI": self.http.uri,
+                   "schema": schema, "availableShards": avail,
+                   "sources": [dict(s.to_dict(),
+                                    fromURI=uri_by_id.get(s.from_node, ""))
+                               for s in sources]}
+            if target == self.node_id:
+                threading.Thread(target=self.follow_resize_instruction,
+                                 args=(msg,), name="pilosa-torch-resize",
+                                 daemon=True).start()
+                continue
+            try:
+                self.client.send_message(uri_by_id[target], msg)
+            except ClientError as e:
+                _log(f"resize: instruction undeliverable to {target}: {e}; "
+                     "aborting the job")
+                with self._resize_lock:
+                    self.cluster.abort_resize()
+                self._resize_aborted()
+                return
+
+    def _copy_source(self, src: dict) -> tuple:
+        """One source shard from its donor: each view's roaring bytes
+        unioned into this node's fragment, and its rank cache rebuilt.
+        -> (fragments, bytes)."""
+        idx = self.holder.index(src["index"])
+        f = idx.field(src["field"]) if idx is not None else None
+        if f is None:
+            raise ClientError(
+                f"schema missing for {src['index']}/{src['field']}")
+        shard = int(src["shard"])
+        n_frags = n_bytes = 0
+        for vname in self.client.fragment_views(
+                src["fromURI"], src["index"], src["field"], shard):
+            try:
+                data = self.client.retrieve_shard(
+                    src["fromURI"], src["index"], src["field"], vname, shard)
+            except ClientError as e:
+                if e.status == 404:
+                    continue  # gone meanwhile: anti-entropy heals it
+                raise
+            view = f.create_view_if_not_exists(vname)
+            view.create_fragment_if_not_exists(shard).import_roaring(data)
+            view.refresh_rank_cache(shard)
+            n_frags += 1
+            n_bytes += len(data)
+        f.add_available_shards([shard], quiet=True)
+        return n_frags, n_bytes
+
+    def follow_resize_instruction(self, msg: dict) -> None:
+        """Apply the schema and the available shards, copy every source
+        (RESIZE_COPY_WORKERS at once), then acknowledge to the coordinator
+        (followResizeInstruction, cluster.go:1251-1393)."""
+        done = {"type": "resize-complete", "job": msg["job"],
+                "node": self.node_id}
+        try:
+            self._apply_schema(msg.get("schema", []))
+            self._apply_available(msg.get("availableShards", {}))
+            sources = msg.get("sources", [])
+            if sources:
+                with ThreadPoolExecutor(min(self.RESIZE_COPY_WORKERS,
+                                            len(sources))) as pool:
+                    copied = list(pool.map(self._copy_source, sources))
+                self.stats.count("resize/fragmentsCopied",
+                                 sum(c[0] for c in copied))
+                self.stats.count("resize/bytesCopied",
+                                 sum(c[1] for c in copied))
+        except (ClientError, ValueError, OSError) as e:
+            done["error"] = str(e)
+        if msg.get("coordinator") == self.node_id:
+            self._handle_resize_complete(done)
+            return
+        # the acknowledgement must arrive, or the job waits out its
+        # watchdog: transient failures are retried
+        for attempt in range(5):
+            try:
+                self.client.send_message(msg["coordinatorURI"], done)
+                break
+            except ClientError:
+                time.sleep(0.5 * (attempt + 1))
+
+    def _apply_available(self, avail: dict) -> None:
+        for iname, fields in avail.items():
+            idx = self.holder.index(iname)
+            if idx is None:
+                continue
+            for fname, shards in fields.items():
+                f = idx.field(fname)
+                if f is not None and shards:
+                    f.add_available_shards([int(x) for x in shards],
+                                           quiet=True)
+
+    def _handle_resize_complete(self, msg: dict) -> None:
+        job = self.cluster.active_job
+        if (job is not None and job.id == msg.get("job")
+                and not msg.get("error") and job.event != EVENT_LEAVE
+                and job.node is not None and job.node.uri
+                and set(job.instructions) <= job.completed | {msg["node"]}):
+            # the last acknowledgement of a join: the joiner takes its
+            # topology first, so no member routes to it while it is still
+            # STARTING (a refused read)
+            nodes = sorted(self.cluster.nodes + [job.node],
+                           key=lambda n: n.id)
+            self._send_quiet(job.node.uri, {
+                "type": "topology", "nodes": [n.to_dict() for n in nodes],
+                "removed": sorted(self._removed_ids)})
+        with self._resize_lock:
+            job = self.cluster.active_job
+            if job is None or job.id != msg.get("job"):
+                return
+            if msg.get("error"):
+                _log(f"resize: job {job.id} failed on {msg.get('node')}: "
+                     f"{msg['error']}")
+                self.cluster.abort_resize()
+                aborted, finished = True, False
+            else:
+                aborted = False
+                self.cluster.complete_resize(job, msg["node"])
+                # a state other than NORMAL (an unrelated peer down) still
+                # ends the job
+                finished = self.cluster.active_job is None
+                if finished and job.event == EVENT_LEAVE:
+                    self._removed_ids.add(job.node_id)
+        if aborted:
+            if self._resize_watchdog is not None:
+                self._resize_watchdog.cancel()
+            self._resize_aborted()
+            return
+        if not finished:
+            return
+        if self._resize_watchdog is not None:
+            self._resize_watchdog.cancel()
+        if job.event == EVENT_LEAVE:
+            # a departed node's hints can never be delivered
+            self.hints.drop_target(job.node_id)
+        self._broadcast_topology()
+        if job.event == EVENT_LEAVE and job.node is not None \
+                and job.node.uri:
+            self._send_quiet(job.node.uri, self._topology_msg())
+        self.clean_holder()
+        self._drain_pending_resizes()
+
+    def _arm_watchdog(self, job_id: str) -> None:
+        if self._resize_watchdog is not None:
+            self._resize_watchdog.cancel()
+        if self.resize_timeout <= 0:
+            return
+        t = threading.Timer(self.resize_timeout, self._watchdog_fire,
+                            args=(job_id,))
+        t.daemon = True
+        t.start()
+        self._resize_watchdog = t
+
+    def _watchdog_fire(self, job_id: str) -> None:
+        with self._resize_lock:
+            job = self.cluster.active_job
+            if job is None or job.id != job_id:
+                return
+            _log(f"resize: job {job_id} timed out after "
+                 f"{self.resize_timeout:.0f} s; aborting it")
+            self.cluster.abort_resize()
+        self._resize_aborted()
+
+    def _broadcast_state(self, state: str) -> None:
+        """Every member takes the cluster state (RESIZING refuses queries
+        and writes everywhere, not only on the coordinator)."""
+        self.broadcast({"type": "cluster-state", "state": state})
+
+    def _resize_aborted(self) -> None:
+        """Un-gate the members, then start the next queued join or leave
+        (an aborted join knocks again by itself)."""
+        self._broadcast_state(self.cluster.state)
+        self._drain_pending_resizes()
+
+    def _drain_pending_resizes(self) -> None:
+        """The queued joins and leaves, one job at a time; one that became
+        invalid (a leave refused for lack of replicas) is dropped."""
+        while True:
+            with self._resize_lock:
+                if not self._pending_resizes:
+                    return
+                event, node = self._pending_resizes.pop(0)
+            try:
+                if event == "join":
+                    self._handle_join_request(node)
+                else:
+                    self._handle_leave_request(node.id)
+                with self._resize_lock:
+                    if self.cluster.active_job is not None:
+                        return  # its end drains the next
+            except ValueError as e:
+                _log(f"resize: dropping queued {event}({node.id}): {e}")
+
+    def _broadcast_topology(self) -> None:
+        """The membership after a job, to every node."""
+        self.cluster.elect_coordinator()
+        msg = self._topology_msg()
+        for n in list(self.cluster.nodes):
+            if n.id != self.node_id and n.uri:
+                self._send_quiet(n.uri, msg)
+
+    def _apply_topology(self, nodes_d: list,
+                        removed: Optional[list] = None) -> None:
+        """The coordinator's membership after a job. Its removed set
+        replaces this node's (a union would tombstone a node that came
+        back); the hints for a removed node go; a node that finds itself
+        removed becomes a node of its own and stops merging peers."""
+        if removed is not None:
+            self._removed_ids = set(removed)
+        for rid in self._removed_ids:
+            if rid != self.node_id and self.hints.pending(rid):
+                self.hints.drop_target(rid)
+        http = self.http
+        if self.node_id in self._removed_ids:
+            self._left = True
+            if http is not None:
+                self.cluster.set_static([Node(id=self.node_id,
+                                              uri=http.uri)])
+            self.cluster.coordinator_id = self.node_id
+            self.cluster.save_topology()
+            return
+        self.cluster.set_static([Node.from_dict(d) for d in nodes_d
+                                 if d["id"] not in self._removed_ids])
+        self.cluster.elect_coordinator()
+        self.cluster.save_topology()
+        self.clean_holder()
+
+    def clean_holder(self) -> int:
+        """Drop the fragments of shards this node no longer owns, and the
+        executor's leaves and cached results over them (holderCleaner,
+        holder.go:855-906). Returns the fragments dropped."""
+        dropped = 0
+        for iname, idx in list(self.holder.indexes.items()):
+            gone = set()
+            for f in list(idx.fields.values()):
+                for view in list(f.views.values()):
+                    for shard in view.shards():
+                        if not self.cluster.owns_shard(self.node_id, iname,
+                                                       shard):
+                            view.delete_fragment(shard)
+                            gone.add(shard)
+                            dropped += 1
+            if gone:
+                self.executor.drop_shards(iname, gone)
+        if dropped:
+            self.stats.count("resize/fragmentsDropped", dropped)
+        return dropped
 
     def _on_shard_added(self, index_name: str, field_name: str,
                         shard: int) -> None:

@@ -341,8 +341,8 @@ def test_cli_nodes_converge_and_serve(tmp_path):
 
 
 @pytest.mark.parametrize("toml", [
-    "[gossip]\nport = 14000\n",
-    "[cluster]\ndrain-timeout = 10.0\n",
+    "[slo]\nread-latency-ms = 10.0\n",
+    "[tls]\ncertificate = \"node.crt\"\n",
     "[metric]\nevents-ring = 512\n",
     "[qos]\nmode = \"enforce\"\n",
     "[ingest]\nbatch-window = \"5ms\"\n"])
@@ -356,3 +356,36 @@ def test_unported_config_key_fails_the_start(tmp_path, toml):
     with pytest.raises(NotPortedError):
         from pilosa_tpu_torch.cli.config import load_config
         load_config(str(cfg), environ={})
+
+
+def test_ported_lifecycle_keys_start_a_node(tmp_path):
+    """[cluster] drain-timeout and the [gossip] section are served: a node
+    starts with them, gossiping with its secret on an ephemeral port."""
+    from pilosa_tpu_torch.cli.config import load_config
+
+    cfg = tmp_path / "n.toml"
+    cfg.write_text(
+        f'data-dir = "{tmp_path / "d"}"\nbind = "127.0.0.1:0"\n'
+        '[cluster]\ndrain-timeout = "5s"\n'
+        '[gossip]\nport = 0\nseeds = ["127.0.0.1:1"]\nperiod = 0.25\n'
+        'probe-timeout = 0.1\npush-pull-interval = "2s"\n'
+        'secret = "hush"\n[mesh]\nplatform = "cpu"\n')
+    c = load_config(str(cfg), environ={})
+    assert c.get("cluster", "drain_timeout") == 5.0
+    assert c.get("gossip", "push_pull_interval") == 2.0
+    from pilosa_tpu_torch.cli.main import _gossip_config
+    from pilosa_tpu_torch.server import Server
+
+    g = c.values["gossip"]
+    srv = Server(str(tmp_path / "d"), port=0, device="cpu",
+                 drain_timeout=c.get("cluster", "drain_timeout"),
+                 gossip_port=g["port"], gossip_seeds=g["seeds"],
+                 gossip_config=_gossip_config(g),
+                 gossip_secret=g["secret"]).open()
+    try:
+        assert srv.gossip is not None and srv.gossip.port > 0
+        assert srv.gossip.config.period == 0.25
+        assert srv.gossip._cipher is not None
+        assert srv.drain_status()["timeoutSeconds"] == 5.0
+    finally:
+        srv.close()
