@@ -21,6 +21,31 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    last query: every kernel of the path must have launched. With
    --profile, a further concurrent pass runs under torch.profiler and the
    device's idle share over it is printed.
+2q. Multi-tenant QoS, on the Count path's server after its passes (the
+   plane put into enforce mode for this phase alone and back to off, so
+   no other pass runs with it): (1) 8 interactive clients of tenant-a
+   (X-API-Key: tenant-a, X-Pilosa-Priority: interactive, no quota) alone
+   for 3 s, then with 24 batch clients of tenant-b (X-API-Key: tenant-b,
+   X-Pilosa-Priority: batch, a queries-per-s quota of a fifth of the
+   Count pass's q/s, printed) for 8 s under a device-profile capture,
+   both sending phase 2's Count(Intersect) mix: every 200 equals the
+   oracle, every 429 carries the JAX body and a Retry-After of 1-30 s
+   (which the client honours), nothing else; each tenant's admitted and
+   throttled counts, q/s, p50 and p99, tenant-a's p50 in the mix over its
+   p50 alone, and the CountBatcher's cuts reordered by priority (a cut
+   sorts only past one batch); (2) /debug/usage lists both tenants with
+   queries, deviceMs and hbmBytes, and the deviceMs the mix charged,
+   summed over principals (the batchers' wall-time share: host time),
+   beside the capture's device busy ms; (3) three TopN(f, Row(f=a), n=3),
+   exact, feed the class-cost EWMA, then a TopN with ?timeout= between
+   the estimated wait and that cost is answered 503 with code "shed"
+   and a query with an expired deadline 503 "deadline", neither
+   launching a kernel; (4) a count latency objective of a hundredth of
+   the Count pass's p50: after a few Counts /status reports health red
+   with the SLO's reason and the next query is shed (healthRed); the
+   objective is restored; (5) the admission's cost: the Count pass in
+   four rounds, the plane off, enforce (no quota binds), enforce, off:
+   the q/s ratio (no limit). Also under --count-only.
 3. Server, BSI path, on the same server and index (BASELINE.json
    configs[3], "BSI int field Range + Sum/Min/Max over 1B rows", the field
    of bench.py:837-842): an int field v with min 0 and max 1023 (depth 10)
@@ -200,7 +225,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    node the shards route to and the coalesced transport; 32 clients x 8
    Count(Intersect) through node 0 with a device-profile capture on every
    node (q/s, p50/p99, coalesce factor and dedups); the coalescing A/B
-   (off, on; nothing claimed); 4 writers x 4 envelopes of 500
+   (off, on; nothing claimed); 4 Counts through node 0 as X-API-Key:
+   tenant-c at X-Pilosa-Priority: batch, node 1's /debug/usage listing
+   key:tenant-c (the principal inherited through the envelope), and an
+   envelope entry whose deadline has expired sent to node 1: refused,
+   counted there as deadlineRemote, no kernel launched on node 1; 4
+   writers x 4 envelopes of 500
    Set/Clear on a field w through nodes 0 and 1 under 16 exact readers
    and one keyed envelope through node 2 minting 100 keys through the
    primary; every acknowledged mutation read back from both of its owners
@@ -1602,18 +1632,18 @@ def topn_phase(srv, port: int, packed: list, values: tuple, rows: list,
     srv.api.import_bits("i", "t", *shard_major(rows, n_shards))
     rng = np.random.default_rng(seed + 12)
     n_total = n_shards * SHARD_WIDTH
-    extra = np.unique(rng.integers(0, n_total, size=5000))
+    extra = _unique(rng.integers(0, n_total, size=5000))
     _http(port, "POST", "/index/i/field/t/import", json.dumps(
         {"rowIDs": [TOPN_ROWS - 1] * extra.size,
          "columnIDs": extra.tolist()}).encode())
-    rows[-1] = np.union1d(rows[-1], extra)
+    rows[-1] = _union(rows[-1], extra)
     # single bits: row 40 gains four columns of shard 0, row 0 loses one
-    gain = np.setdiff1d(np.arange(100, 1100, 250), rows[40])[:4]
+    gain = _setdiff(np.arange(100, 1100, 250), rows[40])[:4]
     for c in gain.tolist():
         _http(port, "POST", "/index/i/query", f"Set({c}, t=40)".encode())
     lose = int(rows[0][0])
     _http(port, "POST", "/index/i/query", f"Clear({lose}, t=0)".encode())
-    rows[40] = np.union1d(rows[40], gain)
+    rows[40] = _union(rows[40], gain)
     rows[0] = rows[0][1:]
     import_s = time.perf_counter() - t0
     log(f"  topn import: {import_s:.1f} s")
@@ -1816,6 +1846,27 @@ def make_hybrid_rows(n_shards: int, seed: int) -> tuple:
     return s_rows, r_rows
 
 
+def _unique(a) -> np.ndarray:
+    """np.unique(a) by a sort and a mask. NumPy 2.3's np.unique hashes
+    integer arrays: on the card's host it took about 40 s for the 25M
+    columns of one row, where a sort takes under a second."""
+    a = np.sort(np.asarray(a), axis=None)
+    if a.size:
+        a = a[np.concatenate(([True], a[1:] != a[:-1]))]
+    return a
+
+
+def _union(a, b) -> np.ndarray:
+    """np.union1d(a, b), as _unique does it."""
+    return _unique(np.concatenate((np.ravel(a), np.ravel(b))))
+
+
+def _setdiff(a, b) -> np.ndarray:
+    """np.setdiff1d(a, b), as _unique does it."""
+    a, b = _unique(a), _unique(b)
+    return a[~_contains(b, a)] if b.size else a
+
+
 def _contains(sorted_cols: np.ndarray, cols: np.ndarray) -> np.ndarray:
     """Whether each of cols lies in the sorted array sorted_cols."""
     i = np.searchsorted(sorted_cols, cols)
@@ -1899,7 +1950,7 @@ def hybrid_phase(srv, port: int, packed: list, exists: np.ndarray,
         (f"Count(Intersect(Row(s={a}), Row(s={c})))",
          inter(s_rows[a], s_rows[c])),
         (f"Count(Union(Row(s={a}), Row(s={c})))",
-         int(np.union1d(s_rows[a], s_rows[c]).size)),
+         int(_union(s_rows[a], s_rows[c]).size)),
         (f"Count(Xor(Row(s={a}), Row(s={c})))",
          int(np.setxor1d(s_rows[a], s_rows[c], assume_unique=True).size)),
         (f"Count(Difference(Row(s=9), Row(f={b})))",
@@ -2115,8 +2166,8 @@ class WriteOracle:
                 np.bitwise_and.at(p, b >> 3, ~np.left_shift(
                     1, b & 7).astype(np.uint8))
             else:
-                self.rows[key] = np.union1d(
-                    np.setdiff1d(self.base[key], b), a)
+                self.rows[key] = _union(
+                    _setdiff(self.base[key], b), a)
         if set_cols:
             c = np.asarray(set_cols, dtype=np.int64)
             np.bitwise_or.at(self.exists, c >> 3,
@@ -2136,7 +2187,7 @@ def _percentiles(lat: list) -> tuple:
 def ingest_phase(srv, port: int, packed: list, exists: np.ndarray,
                  s_rows: list, r_rows: list, n_shards: int, seed: int,
                  writers: int, envelopes: int, calls: int, readers: int,
-                 turn_envelopes: int) -> dict:
+                 turn_envelopes: int, pair: np.ndarray = None) -> dict:
     """The coalesced write path on the earlier phases' server and index:
     `writers` keep-alive writers send `envelopes` envelopes of `calls`
     Set/Clear each (80/20) on f rows 0-7 (dense), the s rows
@@ -2146,7 +2197,8 @@ def ingest_phase(srv, port: int, packed: list, exists: np.ndarray,
     after a burst with ingest on, then off (PILOSA_TPU_TORCH_INGEST=0).
     Its own launch counts (zeroed before its first query). packed =
     the packed rows of f; exists = the packed existence row; s_rows /
-    r_rows = the columns of s's and r's rows."""
+    r_rows = the columns of s's and r's rows; pair = the Count path's
+    pair oracle of f (f is as it was then), computed when not given."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels
@@ -2225,13 +2277,19 @@ def ingest_phase(srv, port: int, packed: list, exists: np.ndarray,
     start_window()  # the write path starts here
     heat_writes0 = _http(port, "GET", "/debug/heat")["totals"]["writes"]
     # every written row resident before the writes
+    t0 = time.perf_counter()
     for f, r in targets:
         if query(f"Count(Row({f}={r}))")[0] != oracle.count(f, r):
             raise AssertionError(f"Count(Row({f}={r})) differs before writes")
-    pair = np.zeros((n_f, n_f), dtype=np.int64)
-    for a in range(n_f):
-        for b in range(a, n_f):
-            pair[a, b] = pair[b, a] = _and_count(packed[a], packed[b])
+    resident_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if pair is None:
+        pair = np.zeros((n_f, n_f), dtype=np.int64)
+        for a in range(n_f):
+            for b in range(a, n_f):
+                pair[a, b] = pair[b, a] = _and_count(packed[a], packed[b])
+    log(f"  {len(targets)} written rows made resident {resident_s:.1f} s;"
+        f" pair oracle {time.perf_counter() - t0:.1f} s")
 
     def reader(rid: int, stop, n: int, lat: list, errors: list,
                check: bool) -> None:
@@ -3202,7 +3260,7 @@ def planner_phase(srv, port: int, packed: list, rows: list, s_rows: list,
     ev0 = pc.snapshot()["evictions"]
 
     def row_want(sa: int, fb: int, extra=()) -> list:
-        cols = np.union1d(s_rows[sa], np.asarray(extra, dtype=np.int64))
+        cols = _union(s_rows[sa], np.asarray(extra, dtype=np.int64))
         return cols[_bit_test(packed[fb], cols)].tolist()
 
     def read(sa: int, fb: int, hit: bool, want: list) -> None:
@@ -3503,11 +3561,11 @@ def frozen_phase(srv, port: int, cuts: dict, configs, seed: int,
         del tail_rows, tail_cols
         rec = loaded("config 2", build_s, int(head_rows.size) + n_rows
                      - C2_HEAD)
-        sets = [np.unique(head_cols[head_rows == r]) for r in (0, 1)]
-        want = {"Union": np.union1d(*sets).size,
+        sets = [_unique(head_cols[head_rows == r]) for r in (0, 1)]
+        want = {"Union": _union(*sets).size,
                 "Intersect": np.intersect1d(*sets).size,
                 "Xor": np.setxor1d(*sets).size,
-                "Difference": np.setdiff1d(*sets).size}
+                "Difference": _setdiff(*sets).size}
         rec["p50_ms"] = {}
         for op, n in want.items():
             pql = f"Count({op}(Row(f=0), Row(f=1)))"
@@ -3541,7 +3599,7 @@ def frozen_phase(srv, port: int, cuts: dict, configs, seed: int,
                                               head_rows_all.size) == s]
             h_cols = r.integers(0, SHARD_WIDTH, h_rows.size).astype(
                 np.uint64)
-            head_pos = np.unique(h_rows * w + h_cols)
+            head_pos = _unique(h_rows * w + h_cols)
             del h_rows, h_cols
             t_rows = np.arange(C3_HEAD + s, n_rows, C3_SHARDS,
                                dtype=np.uint64)
@@ -3724,7 +3782,7 @@ def frozen_phase(srv, port: int, cuts: dict, configs, seed: int,
         fp = holder.index("sim").field("fingerprint")
         fp.import_rows_frozen(rows, bits.reshape(-1).astype(np.uint64))
         build_s = time.perf_counter() - t0
-        pos = np.unique(rows * np.uint64(SHARD_WIDTH)
+        pos = _unique(rows * np.uint64(SHARD_WIDTH)
                         + bits.reshape(-1).astype(np.uint64))
         del rows, bits
         mol = (pos // np.uint64(SHARD_WIDTH)).astype(np.int64)
@@ -3784,7 +3842,7 @@ def frozen_phase(srv, port: int, cuts: dict, configs, seed: int,
     index("fz", [("fz", {"type": "set", "cacheSize": 5000})])
     sets, rows_l, cols_l = {}, [], []
     for r in range(FZ_ROWS):
-        c = np.unique(rng.integers(0, 2 * SHARD_WIDTH, FZ_BITS))
+        c = _unique(rng.integers(0, 2 * SHARD_WIDTH, FZ_BITS))
         sets[r] = c
         rows_l.append(np.full(c.size, r, dtype=np.uint64))
         cols_l.append(c.astype(np.uint64))
@@ -3792,7 +3850,7 @@ def frozen_phase(srv, port: int, cuts: dict, configs, seed: int,
         np.concatenate(rows_l), np.concatenate(cols_l))
     extra = 2 * SHARD_WIDTH - 1
     _http(port, "POST", "/index/fz/query", f"Set({extra}, fz=7)".encode())
-    sets[7] = np.union1d(sets[7], [extra])
+    sets[7] = _union(sets[7], [extra])
     inter = np.array([np.intersect1d(sets[r], sets[7]).size
                       for r in range(FZ_ROWS)])
     l0 = kernels.launch_counts()
@@ -3919,7 +3977,7 @@ def make_typed_data(n_shards: int, seed: int) -> dict:
     repos = rng.integers(0, n_shards * SHARD_WIDTH, users.size)
     t0 = int(np.datetime64(TYPED_T0, "s").astype(np.int64))
     secs = t0 + rng.integers(0, TYPED_DAYS * 86400, users.size)
-    starred = np.unique(repos)
+    starred = _unique(repos)
     lic0 = rng.integers(0, TYPED_LICENSES, starred.size)
     moved = np.sort(rng.choice(starred.size,
                                int(starred.size * TYPED_MOVED_SHARE),
@@ -3941,7 +3999,7 @@ def _window_repos(d: dict, user: int, window) -> np.ndarray:
     """Sorted repositories `user` starred within [start, end)."""
     m = ((d["users"] == user) & (d["secs"] >= _epoch(window[0]))
          & (d["secs"] < _epoch(window[1])))
-    return np.unique(d["repos"][m])
+    return _unique(d["repos"][m])
 
 
 def _post_import(port: int, path: str, body: dict) -> None:
@@ -4041,7 +4099,7 @@ def typed_phase(srv, port: int, n_shards: int, seed: int, clients: int,
               json.dumps({"options": opts}).encode())
     import_s = typed_import(port, d, n_shards)
     rng = np.random.default_rng(seed + 5100)
-    extra = [np.unique(rng.integers(0, SHARD_WIDTH, 3000 // (r + 1)))
+    extra = [_unique(rng.integers(0, SHARD_WIDTH, 3000 // (r + 1)))
              for r in range(4)]
     std = np.concatenate([c + r * SHARD_WIDTH for r, c in enumerate(extra)])
     day = extra[0][::3]
@@ -4085,7 +4143,7 @@ def typed_phase(srv, port: int, n_shards: int, seed: int, clients: int,
                            minlength=TYPED_LICENSES)
 
     per_user = np.bincount(
-        np.unique(d["users"] * (n_shards * SHARD_WIDTH) + d["repos"])
+        _unique(d["users"] * (n_shards * SHARD_WIDTH) + d["repos"])
         // (n_shards * SHARD_WIDTH), minlength=TYPED_USERS)
     fork_of = d["fork"]
     w02 = ("2019-01-01T00:00", "2019-03-01T00:00")
@@ -4152,7 +4210,7 @@ def typed_phase(srv, port: int, n_shards: int, seed: int, clients: int,
          int(np.intersect1d(np.intersect1d(wrepos[(0, 3)], wrepos[(1, 3)]),
                             wrepos[(2, 3)]).size)),
         (f"Count(Union({rng_pql(3, 0)}, {rng_pql(4, 1)}, {rng_pql(5, 2)}))",
-         int(np.union1d(np.union1d(wrepos[(3, 0)], wrepos[(4, 1)]),
+         int(_union(_union(wrepos[(3, 0)], wrepos[(4, 1)]),
                         wrepos[(5, 2)]).size)),
         ("TopN(stargazer, n=10)", _pairs(per_user)[:10]),
         (f"TopN(license, {rng_pql(0, 2)}, n=5)", _pairs(lic_in_w)[:5]),
@@ -4203,7 +4261,7 @@ def typed_phase(srv, port: int, n_shards: int, seed: int, clients: int,
 
     # writes over HTTP, each followed by the reads it changes
     t0 = time.perf_counter()
-    free_col = int(np.setdiff1d(np.arange(10_000, 20_000), d["repos"])[0])
+    free_col = int(_setdiff(np.arange(10_000, 20_000), d["repos"])[0])
     want = int(wrepos[(3, 0)].size) + 1
     check(f"Set({free_col}, stargazer=3, 2019-02-05T10:00)", True)
     check(f"Count({rng_pql(3, 0)})", want)
@@ -4619,7 +4677,7 @@ def keyed_logins(srv, port: int, seed: int) -> dict:
     # country's first logins and random others
     rare = LOGIN_COUNTRIES - 1
     rare_idx = np.nonzero(country == rare)[0]
-    pick = np.unique(np.concatenate([
+    pick = _unique(np.concatenate([
         rare_idx[:LOGIN_ATTRS // 2],
         rng.choice(n, LOGIN_ATTRS, replace=False)]))[:LOGIN_ATTRS]
     cattrs = {int(i): {"city": f"city{int(i) % 97}",
@@ -5032,8 +5090,8 @@ def make_cluster_data(n_shards: int, seed: int) -> dict:
         card = 16 << a
         cols = np.repeat(base, card) + rng.integers(0, SHARD_WIDTH,
                                                     card * n_shards)
-        s_rows.append(np.unique(cols))
-    lcols = np.unique(np.repeat(base, CLUSTER_LANG_BITS) + rng.integers(
+        s_rows.append(_unique(cols))
+    lcols = _unique(np.repeat(base, CLUSTER_LANG_BITS) + rng.integers(
         0, SHARD_WIDTH, CLUSTER_LANG_BITS * n_shards))
     share = 1.0 / (np.arange(len(CLUSTER_LANGS)) + 1)
     lang = rng.choice(len(CLUSTER_LANGS), lcols.size, p=share / share.sum())
@@ -5500,6 +5558,7 @@ def cluster_phase(seed: int, started: ClusterNodes | None = None,
             _http(ports[0], "POST", "/debug/net-coalesce",
                   json.dumps({"enabled": True}).encode())
             out["coalescing_ab"] = ab
+            out["qos"] = cluster_qos(ports, count_mix)
             wr = cluster_writes(nodes, n_shards, seed, count_mix)
             out["writes"] = wr["stats"]
             w_rows = wr["w_rows"]
@@ -5628,16 +5687,21 @@ class GossipPair(ClusterNodes):
         return self.seen
 
 
-def _raw_http(port: int, method: str, path: str, body: bytes = b"") -> tuple:
-    """(status, headers, JSON body) without raising on an error status."""
-    conn = http.client.HTTPConnection("localhost", port, timeout=600)
+def _raw_http(port: int, method: str, path: str, body: bytes = b"",
+              headers=None, conn=None) -> tuple:
+    """(status, headers, JSON body) without raising on an error status;
+    on `conn` (kept open) where given."""
+    own = conn is None
+    if own:
+        conn = http.client.HTTPConnection("localhost", port, timeout=600)
     try:
-        conn.request(method, path, body=body)
+        conn.request(method, path, body=body, headers=headers or {})
         resp = conn.getresponse()
         return (resp.status, dict(resp.getheaders()),
                 json.loads(resp.read() or b"null"))
     finally:
-        conn.close()
+        if own:
+            conn.close()
 
 
 def _members_normal(nodes: ClusterNodes, live: list) -> bool:
@@ -5935,7 +5999,7 @@ def gossip_checks(pair: GossipPair, seed: int) -> dict:
     seen = pair.discovered()
     p0, p1 = pair.ports
     rng = np.random.default_rng(seed + 1400)
-    rows = {r: np.unique(rng.integers(0, GOSSIP_SHARDS * SHARD_WIDTH,
+    rows = {r: _unique(rng.integers(0, GOSSIP_SHARDS * SHARD_WIDTH,
                                       200_000 // r)) for r in (1, 2)}
     _http(p0, "POST", "/index/d", b"{}")
     _http(p0, "POST", "/index/d/field/f", b"{}")
@@ -6352,6 +6416,329 @@ def cluster_drill(nodes: ClusterNodes, reads: list, count_mix: list,
     return out
 
 
+# ------------------------------------------------------- phase 2q: QoS
+
+QOS_TENANTS = (("tenant-a", 8, "interactive"), ("tenant-b", 24, "batch"))
+QOS_ALONE_S = 3.0  # tenant-a's clients alone, before the mix
+QOS_MIX_S = 8.0    # both tenants at once, under a device-profile capture
+# tenant-b's queries-per-s quota: this share of the Count pass's q/s
+QOS_QUOTA_SHARE = 0.2
+QOS_TOPNS = 3      # admitted TopNs that feed the class-cost EWMA
+# the admission-cost rounds of the Count pass, interleaved
+QOS_ROUNDS = ("off", "enforce", "enforce", "off")
+
+
+def _quota_body(principal: str) -> dict:
+    """The JAX server's 429 body (pilosa_tpu/net/http_server.py:309-319)."""
+    return {"error": f"query rate quota exhausted for {principal}",
+            "code": "quota-exhausted"}
+
+
+def _qos_set(srv, mode: str, overrides: dict | None = None) -> None:
+    """The plane's mode and per-principal overrides on the running server
+    (quota state starts over)."""
+    srv.qos.mode = mode
+    srv.qos.overrides = dict(overrides or {})
+    srv.qos._principals.clear()
+
+
+def tenant_mix(port: int, tenants: list, seconds: float, queries: list,
+               seed: int, during=None) -> tuple:
+    """For `seconds`, each tenant's clients send Count(Intersect) queries
+    with X-API-Key and X-Pilosa-Priority: every 200 equals the oracle,
+    every 429 carries the JAX body and a Retry-After of 1-30 s, which the
+    client honours; anything else fails. -> ({tenant: {lat, throttled}},
+    wall seconds, what during() gave)."""
+    stop_at = time.perf_counter() + seconds
+    res = {name: {"lat": [], "throttled": 0, "retry_after": set()}
+           for name, _, _ in tenants}
+    errors: list = []
+    lock = threading.Lock()
+
+    def client(name: str, prio: str, cid: int) -> None:
+        rng = np.random.default_rng(seed + cid)
+        headers = {"X-API-Key": name, "X-Pilosa-Priority": prio}
+        conn = http.client.HTTPConnection("localhost", port, timeout=600)
+        try:
+            while time.perf_counter() < stop_at:
+                pql, want = queries[int(rng.integers(len(queries)))]
+                t = time.perf_counter()
+                st, h, got = _raw_http(port, "POST", "/index/i/query",
+                                 pql.encode(), headers, conn)
+                dt = time.perf_counter() - t
+                if st == 200 and got["results"][0] == want:
+                    with lock:
+                        res[name]["lat"].append(dt)
+                elif st == 429:
+                    ra = h.get("Retry-After", "")
+                    if got != _quota_body(f"key:{name}") \
+                            or not ra.isdigit() or not 1 <= int(ra) <= 30:
+                        raise AssertionError(f"429: {got}, Retry-After "
+                                             f"{ra!r}")
+                    with lock:
+                        res[name]["throttled"] += 1
+                        res[name]["retry_after"].add(int(ra))
+                    time.sleep(min(float(ra), max(
+                        0.0, stop_at - time.perf_counter())))
+                else:
+                    raise AssertionError(f"{pql}: {st} {got} (oracle "
+                                         f"{want})")
+        except Exception as e:  # noqa: BLE001 — reported below
+            with lock:
+                errors.append(f"{name} client {cid}: {e!r}")
+        finally:
+            conn.close()
+
+    threads = []
+    cid = 0
+    for name, n, prio in tenants:
+        for _ in range(n):
+            threads.append(threading.Thread(target=client,
+                                            args=(name, prio, cid)))
+            cid += 1
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    seen = during() if during is not None else None
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"{len(errors)} tenant clients failed: "
+                             f"{errors[:3]}")
+    return res, wall, seen
+
+
+def _tenant_line(name: str, r: dict, wall: float) -> dict:
+    p50, p99 = _percentiles(r["lat"]) if r["lat"] else (None, None)
+    out = {"admitted": len(r["lat"]), "throttled": r["throttled"],
+           "qps": len(r["lat"]) / wall, "p50_ms": p50, "p99_ms": p99,
+           "retry_after_s": sorted(r["retry_after"])}
+    log(f"  {name}: {out['admitted']} admitted, {out['throttled']} "
+        f"throttled (Retry-After {out['retry_after_s']} s), "
+        f"{out['qps']:.1f} q/s, p50 {p50 if p50 is None else round(p50, 2)}"
+        f" ms, p99 {p99 if p99 is None else round(p99, 2)} ms")
+    return out
+
+
+def qos_phase(srv, port: int, count_mix: list, pair: np.ndarray,
+              count_stats: dict, run_clients, seed: int) -> dict:
+    """Phase 2q, on the Count path's server after its passes: the plane
+    in enforce mode for the phase alone (off before and after, so no other
+    pass runs with it), two tenants, doomed and expired queries shed
+    before any launch, health turned red by an SLO, the usage ledger, and
+    the admission's cost on the Count pass."""
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.utils import accounting
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    quota = max(1.0, QOS_QUOTA_SHARE * count_stats["qps"])
+    overrides = {"key:tenant-b": {"queries_per_s": quota,
+                                  "priority": "batch"}}
+    log(f"  [qos] mode enforce for this phase; key:tenant-b queries-per-s "
+        f"{quota:.2f} ({QOS_QUOTA_SHARE:g} of the Count pass's "
+        f"{count_stats['qps']:.1f} q/s), key:tenant-a no quota")
+    _qos_set(srv, "enforce", overrides)
+    old_slo = srv.slo
+    try:
+        # tenant-a alone, then both tenants under a capture
+        alone, wall, _ = tenant_mix(port, QOS_TENANTS[:1], QOS_ALONE_S,
+                                    count_mix, seed + 4000)
+        out["alone"] = _tenant_line("tenant-a alone", alone["tenant-a"],
+                                    wall)
+        usage0 = srv.usage.snapshot()["principals"]
+        cuts0 = srv.executor.batcher.priority_cuts
+        mix, wall, cap = tenant_mix(
+            port, QOS_TENANTS, QOS_MIX_S, count_mix, seed + 4100,
+            lambda: device_capture(port, QOS_MIX_S - 1.0))
+        out["mix"] = {name: _tenant_line(name, mix[name], wall)
+                      for name, _, _ in QOS_TENANTS}
+        a, b = out["mix"]["tenant-a"], out["mix"]["tenant-b"]
+        if not b["throttled"] or not a["admitted"] or a["throttled"]:
+            raise AssertionError(f"tenant mix: {out['mix']}")
+        out["p50_ratio"] = a["p50_ms"] / out["alone"]["p50_ms"]
+        bs = srv.executor.batcher.snapshot()
+        out["priority_cuts"] = srv.executor.batcher.priority_cuts - cuts0
+        log(f"  tenant-a p50 in the mix / alone: {out['p50_ratio']:.3f} "
+            f"({a['p50_ms']:.2f} / {out['alone']['p50_ms']:.2f} ms); "
+            f"CountBatcher cuts reordered by priority: "
+            f"{out['priority_cuts']} (a cut sorts only past one batch of "
+            f"{srv.executor.batcher.max_batch}; largest batch "
+            f"{bs['max_batch_seen']})")
+        # the usage ledger over the mix, beside the capture's busy time
+        doc = _http(port, "GET", "/debug/usage?top=0")
+        for name in ("key:tenant-a", "key:tenant-b"):
+            e = doc["principals"].get(name)
+            if e is None or not e["queries"] or e["deviceMs"] <= 0 \
+                    or "hbmBytes" not in e:
+                raise AssertionError(f"/debug/usage {name}: {e}")
+        dev_ms = sum(e["deviceMs"] - usage0.get(p, {}).get("deviceMs", 0.0)
+                     for p, e in doc["principals"].items())
+        out["usage"] = {p: {k: doc["principals"][p][k] for k in
+                            ("queries", "deviceMs", "hbmBytes", "queueMs")}
+                        for p in ("key:tenant-a", "key:tenant-b")}
+        out["usage_device_ms"] = dev_ms
+        out["capture"] = cap
+        log(f"  /debug/usage: {json.dumps(out['usage'])}; deviceMs over "
+            f"the mix, summed over principals {dev_ms:.1f} ms (the "
+            f"batchers' wall-time share: host time), device busy in the "
+            f"capture {cap['deviceBusyMs']} ms over {cap['seconds']} s")
+
+        # doomed work: admitted TopNs feed the class cost, then a TopN
+        # whose deadline is under it is shed before it is planned
+        topn = []
+        for k in range(QOS_TOPNS):
+            a_row = k % len(pair)
+            want = _pairs(pair[a_row])[:3]
+            got = _http(port, "POST", "/index/i/query",
+                        f"TopN(f, Row(f={a_row}), n=3)".encode())
+            if got["results"][0] != want:
+                raise AssertionError(f"TopN(f, Row(f={a_row}), n=3): "
+                                     f"{got} != {want}")
+            topn.append(a_row)
+        cost = srv.qos.class_cost_ms("topn")
+        srv.qos._sig_t = 0.0  # the load signals as admission will read them
+        srv.qos._refresh_signals(time.monotonic())
+        wait = srv.qos.estimated_wait_ms()
+        timeout_ms = (cost + wait) / 2
+        if not wait < timeout_ms < cost:
+            raise AssertionError(f"TopN cost {cost} ms, estimated wait "
+                                 f"{wait} ms: no deadline lies between")
+        before = kernels.launch_counts()
+        shed0 = srv.qos.shed["estimatedCost"]
+        st, h, got = _raw_http(port, "POST", f"/index/i/query?timeout="
+                         f"{timeout_ms:.3f}ms", b"TopN(f, Row(f=1), n=3)")
+        if st != 503 or got.get("code") != "shed" \
+                or srv.qos.shed["estimatedCost"] != shed0 + 1:
+            raise AssertionError(f"doomed TopN: {st} {got}")
+        if kernels.launch_counts() != before:
+            raise AssertionError("the doomed TopN launched a kernel")
+        out["doomed"] = {"topn_cost_ms": cost, "estimated_wait_ms": wait,
+                         "timeout_ms": timeout_ms, "status": st,
+                         "body": got}
+        log(f"  doomed TopN: class cost {cost:.1f} ms (EWMA of "
+            f"{QOS_TOPNS} admitted, exact), estimated wait {wait:.2f} ms, "
+            f"?timeout={timeout_ms:.1f}ms -> {st} {got}; "
+            f"topn_counts_packed launches unchanged "
+            f"({before['topn_counts_packed']})")
+        # an already expired deadline: shed at admission
+        before = kernels.launch_counts()
+        st, h, got = _raw_http(port, "POST", "/index/i/query",
+                         b"Count(Intersect(Row(f=0), Row(f=1)))",
+                         {"X-Pilosa-Deadline": "-1"})
+        if (st, h.get("X-Pilosa-Shed-Reason"), got) != (
+                503, "deadline", {"error": "deadline already expired",
+                                  "code": "shed"}) \
+                or kernels.launch_counts() != before:
+            raise AssertionError(f"expired deadline: {st} {h} {got}")
+        out["expired"] = {"status": st, "body": got}
+        log(f"  expired deadline: {st} {got}, Retry-After "
+            f"{h.get('Retry-After')}, no launch")
+
+        # health: a count objective far under the pass's p50 burns both
+        # windows; /status turns red and the next query is shed
+        target = count_stats["p50_ms"] / 100
+        srv.slo = srv.api.slo = accounting.SLOTracker([
+            accounting.Objective("availability", None, None, 0.999),
+            accounting.Objective("count-latency", "count", target, 0.99)])
+        for pql, want in count_mix[:4]:
+            if _http(port, "POST", "/index/i/query",
+                     pql.encode())["results"][0] != want:
+                raise AssertionError(f"{pql} differs from the oracle")
+        time.sleep(srv.qos.HEALTH_TTL_S + 0.1)  # the plane's cached verdict
+        health = _http(port, "GET", "/status")["health"]
+        st, h, got = _raw_http(port, "POST", "/index/i/query",
+                         count_mix[0][0].encode())
+        if health["score"] != "red" \
+                or not any(r.startswith("SLO count-latency")
+                           for r in health["reasons"]) \
+                or (st, h.get("X-Pilosa-Shed-Reason"), got) != (
+                    503, "healthRed", {"error": "node health is red; "
+                                                "shedding load",
+                                       "code": "shed"}):
+            raise AssertionError(f"health: {health}; {st} {h} {got}")
+        out["health"] = {"objective_ms": target, "health": health,
+                         "shed": got, "retry_after": h.get("Retry-After")}
+        log(f"  SLO count-latency {target:.3f} ms: /status health "
+            f"{health}; the next query {st} {got} (Retry-After "
+            f"{h.get('Retry-After')})")
+    finally:
+        srv.slo = srv.api.slo = old_slo
+        srv.qos._health = (0.0, "green")
+        _qos_set(srv, "off")
+
+    # the admission's cost: the Count pass with the plane off and in
+    # enforce mode with no quota that binds, interleaved
+    rounds = []
+    for i, mode in enumerate(QOS_ROUNDS):
+        _qos_set(srv, mode)
+        try:
+            lat, wall, _ = run_clients(COUNT_ROUND_QUERIES, 4200 + 100 * i)
+        finally:
+            _qos_set(srv, "off")
+        rounds.append({"mode": mode, "qps": len(lat) / wall,
+                       "p50_ms": statistics.median(lat) * 1e3})
+        log(f"  admission round {i + 1} ({mode}): {rounds[-1]['qps']:.1f} "
+            f"q/s, p50 {rounds[-1]['p50_ms']:.2f} ms")
+    qps = {m: statistics.mean(r["qps"] for r in rounds if r["mode"] == m)
+           for m in ("off", "enforce")}
+    out["admission_rounds"] = rounds
+    out["admission_qps_ratio"] = qps["enforce"] / qps["off"]
+    out["qos_vars"] = _http(port, "GET", "/debug/vars")["qos"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  admission's cost: enforce / off q/s {out['admission_qps_ratio']:.4f}"
+        f" (mean of two rounds each; the JAX bench's budget was <= 1 %, "
+        f"no limit here); qos counters {json.dumps(out['qos_vars']['shed'])}"
+        f" shed, {json.dumps(out['qos_vars']['throttled'])} throttled; "
+        f"phase 2q {out['phase_s']:.1f} s")
+    return out
+
+
+def cluster_qos(ports: list, count_mix: list) -> dict:
+    """Phase 5g's QoS checks on its node processes: Counts through node 0
+    as tenant-c at batch priority, node 1's ledger listing the inherited
+    principal, and an envelope entry whose deadline has expired shed on
+    node 1 (deadlineRemote) with no launch there."""
+    from pilosa_tpu_torch.encoding.protobuf import Serializer
+    from pilosa_tpu_torch.net.client import InternalClient
+
+    hdrs = {"X-API-Key": "tenant-c", "X-Pilosa-Priority": "batch"}
+    for pql, want in count_mix[:4]:
+        st, _, got = _raw_http(ports[0], "POST", "/index/d/query", pql.encode(),
+                         hdrs)
+        if st != 200 or got["results"][0] != want:
+            raise AssertionError(f"tenant-c {pql}: {st} {got} != {want}")
+    seen = [_http(p, "GET", "/debug/usage?top=0")["principals"].get(
+        "key:tenant-c") for p in ports]
+    if not seen[1] or not seen[1]["queries"]:
+        raise AssertionError(f"node 1 /debug/usage has no key:tenant-c: "
+                             f"{seen}")
+    dv = _node_vars(ports[1])
+    shed0, launches0 = dv["qos"]["shed"], _node_launches(dv)
+    raw = InternalClient().query_batch_raw(f"http://localhost:{ports[1]}", [
+        {"index": "d", "query": count_mix[0][0], "remote": True,
+         "timeout": 0.0, "principal": "key:tenant-c",
+         "priority": "batch"}])
+    err = Serializer().decode_query_response(raw[0])["err"]
+    dv = _node_vars(ports[1])
+    if "deadline" not in err \
+            or dv["qos"]["shed"]["deadlineRemote"] \
+            != shed0["deadlineRemote"] + 1 \
+            or _node_launches(dv) != launches0:
+        raise AssertionError(f"expired entry on node 1: {err!r}, shed "
+                             f"{dv['qos']['shed']}, launches "
+                             f"{_node_launches(dv)} (before {launches0})")
+    out = {"tenant_c_by_node": seen, "expired_entry_error": err,
+           "node1_shed": dv["qos"]["shed"]}
+    log(f"  QoS: 4 Counts through node 0 as key:tenant-c (batch): node 1's "
+        f"/debug/usage {json.dumps(seen[1])}, node 2's "
+        f"{json.dumps(seen[2])}; an expired envelope entry on node 1: "
+        f"{err!r}, deadlineRemote {dv['qos']['shed']['deadlineRemote']}, "
+        "no launch")
+    return out
+
+
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
                  clients: int, per_client: int, profile: bool,
                  bsi: tuple, topn: tuple, hybrid: tuple, ingest: tuple,
@@ -6384,10 +6771,22 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
         f"{sum(r.size for r in t_rows)} bits "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    # the device profiler's first capture initialises the profiler's
+    # client (the server does one at open); timed apart from the open
+    t0 = time.perf_counter()
+    if device == "cuda":
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+        with torch_profile(activities=[ProfilerActivity.CUDA]):
+            pass
+    log(f"  the profiler's first (empty) capture: "
+        f"{time.perf_counter() - t0:.1f} s")
     start_window()  # the main path starts here
     with tempfile.TemporaryDirectory(prefix="pilosa_torch_smoke_") as tmp:
+        t0 = time.perf_counter()
         srv = Server(os.path.join(tmp, "data"), port=0, device=device).open()
         port = srv.http.port
+        log(f"  server open: {time.perf_counter() - t0:.1f} s")
         # every pass but the planner phase's runs with the plan cache off
         # (the planner on): repeated queries would hit it and launch
         # nothing, and the passes measure the kernels
@@ -6403,15 +6802,15 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                  "columnIDs": extra.tolist()}).encode())
             load_s = time.perf_counter() - t0
             log(f"  import: {load_s:.1f} s")
-            rows[0] = np.union1d(rows[0], extra)
-
             t0 = time.perf_counter()
+            rows[0] = _union(rows[0], extra)
             packed = [packed_row(c, n_shards) for c in rows]
             exists = packed[0].copy()
             for x in packed[1:]:
                 exists |= x
             log(f"  oracle: {time.perf_counter() - t0:.1f} s")
             p = packed
+            t0 = time.perf_counter()
 
             checks = [
                 ("Count(Row(f=0))", _popcount(p[0])),
@@ -6441,6 +6840,7 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                 xor_all ^= p[r]
             checks += [(f"Count(Union({rows_pql}))", _popcount(exists)),
                        (f"Count(Xor({rows_pql}))", _popcount(xor_all))]
+            log(f"  the checks' oracle: {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
             for pql, want in checks:
                 got = _http(port, "POST", "/index/i/query",
@@ -6459,8 +6859,14 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                 "(oracle agrees)")
             single_s = time.perf_counter() - t0
 
-            pair = np.array([[_popcount(p[a] & p[b]) for b in range(n_rows)]
-                             for a in range(n_rows)])
+            # the pair oracle: each unordered pair once (phase 6 reuses it)
+            t0 = time.perf_counter()
+            pair = np.zeros((n_rows, n_rows), dtype=np.int64)
+            for a in range(n_rows):
+                for b in range(a, n_rows):
+                    pair[a, b] = pair[b, a] = _and_count(p[a], p[b])
+            log(f"  single queries {single_s:.1f} s; pair oracle "
+                f"{time.perf_counter() - t0:.1f} s")
 
             count_mix = [(f"Count(Intersect(Row(f={a}), Row(f={b})))",
                           int(pair[a, b]))
@@ -6486,6 +6892,7 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                     dispatch_s.append(time.perf_counter() - t)
 
             count_batcher._dispatch = timed_dispatch
+            t_pass = time.perf_counter()
             lat, wall, obs = run_clients(per_client, 1000, lambda: during_pass(
                 port, ("Count(Intersect(Row(f=0), Row(f=1)))",
                        "CountBatcher"), CAPTURE_S))
@@ -6493,6 +6900,8 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
             launches = kernels.launch_counts()  # the main path ends here
             del count_batcher._dispatch
             obs["scrape"] = observe_path(port, "count", launches)
+            log(f"  (the pass and its scrape: "
+                f"{time.perf_counter() - t_pass:.1f} s)")
             batcher = count_batcher.snapshot()
             res = srv.executor.residency.snapshot()
             stats = {
@@ -6545,10 +6954,16 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                         f"{name} never launched on the Count path")
             if stats["max_batch_seen"] < 2:
                 raise AssertionError("the CountBatcher never coalesced")
+            t0 = time.perf_counter()
             obs["rounds"] = obs_rounds(srv, run_clients)
+            log(f"  (rounds: {time.perf_counter() - t0:.1f} s)")
+            log("phase 2q: multi-tenant QoS on the Count path's server")
+            qos = qos_phase(srv, port, count_mix, pair, stats, run_clients,
+                            seed)
+            out = {"launches": launches, "stats": stats, "obs": obs,
+                   "qos": qos}
             if count_only:
-                return {"launches": launches, "stats": stats, "obs": obs}
-            out = {"launches": launches, "stats": stats, "obs": obs}
+                return out
             if ingest_only:
                 s_rows, r_rows, _ = load_hybrid_fields(srv, port, n_shards,
                                                        hybrid[0])
@@ -6587,11 +7002,11 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                 cl_tmp = tempfile.TemporaryDirectory(
                     prefix="pilosa_torch_cluster_")
                 cl_nodes = ClusterNodes(cl_tmp.name, CLUSTER_NODES)
-                pair = None
+                gossip = None
                 try:
                     for i in range(CLUSTER_NODES):
                         cl_nodes.start(i)
-                    pair = GossipPair(cl_tmp.name)
+                    gossip = GossipPair(cl_tmp.name)
                     log("phase 5f: string keys and attributes (a keyed "
                         "language field on the Star Trace index, a "
                         "keyed-column index of user logins) on the same "
@@ -6610,16 +7025,17 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                         f"processes over {CLUSTER_SHARDS} shards, replicas "
                         f"2 (device memory free "
                         f"{torch.cuda.mem_get_info()[0]} bytes)")
-                    out["cluster"] = cluster_phase(seed, cl_nodes, pair)
+                    out["cluster"] = cluster_phase(seed, cl_nodes, gossip)
                 finally:
                     cl_nodes.stop()
-                    if pair is not None:
-                        pair.stop()
+                    if gossip is not None:
+                        gossip.stop()
                     cl_tmp.cleanup()
             log("phase 6: write path (coalesced Set/Clear) on the same "
                 "server, under concurrent reads")
             out["ingest"] = ingest_phase(srv, port, p, exists_all, s_rows,
-                                         r_rows, n_shards, seed, *ingest)
+                                         r_rows, n_shards, seed, *ingest,
+                                         pair=pair)
             return out
         finally:
             srv.close()
@@ -6847,8 +7263,8 @@ def main(argv=None) -> int:
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         print(smi_name)
         print(json.dumps({"count_path": st, "launches": served["launches"],
-                          "obs": served["obs"], "heat_touch": touch}),
-              flush=True)
+                          "obs": served["obs"], "qos": served["qos"],
+                          "heat_touch": touch}), flush=True)
         return 0
     if args.ingest_only:
         log(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -48,6 +48,19 @@ request. Queries slower than long_query_time land in query_history
 (GET /debug/query-history) with their profile. A profiled query that
 succeeds feeds the planner's calibration ring (api.py:320-331), and
 explain() answers ?explain=true (:399-440).
+
+Limits, QoS and accounting (api.py:110, :233-350, :482-495, :926-940): a
+query of more than max_writes_per_request write calls (an Options()
+wrapper unwrapped; 0: no limit) is a 400 `too many writes in a single
+request: <n> > <limit>`; a query whose deadline has expired is refused
+before it is planned (counted by the QoS plane as deadline, or
+deadlineRemote for a coordinator's entry); in enforce mode a query whose
+class's observed cost exceeds its remaining deadline is a 503 with code
+`shed`. Every query charges its principal one query (and one error when
+it fails); on the coordinator the SLO tracker and the plane's per-class
+cost observe it. A profiled query carries a `qos` node. query_batch
+installs each entry's principal and priority beside its trace id.
+/status carries `health` (health_fn, the server's node_health).
 """
 
 from __future__ import annotations
@@ -65,7 +78,7 @@ from typing import Optional
 
 import numpy as np
 
-from pilosa_tpu_torch import __version__, planner
+from pilosa_tpu_torch import __version__, planner, qos
 from pilosa_tpu_torch.constants import SHARD_WIDTH
 from pilosa_tpu_torch.executor import (
     ExecutionError,
@@ -88,6 +101,7 @@ from pilosa_tpu_torch.parallel.cluster import (
 from pilosa_tpu_torch.pql import parse_string_cached
 from pilosa_tpu_torch.pql.ast import WRITE_CALLS
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
+from pilosa_tpu_torch.utils import accounting
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import qctx, tracing
 from pilosa_tpu_torch.utils.attrstore import attr_diff
@@ -196,6 +210,16 @@ class API:
         # queries over it
         self.long_query_time = 0.0
         self.query_history = qprofile.QueryHistory(100)
+        self.max_writes_per_request = 5000  # 0: no limit
+        # the server replaces these from its config: the usage ledger the
+        # HTTP layer's accounts charge, the [slo] objectives (an
+        # availability one by default), the QoS plane (None: no plane)
+        # and health_fn() -> the node's health, reported on /status
+        self.usage_ledger = accounting.UsageLedger()
+        self.slo = accounting.SLOTracker(
+            [accounting.Objective("availability", None, None, 0.999)])
+        self.qos_plane = None
+        self.health_fn = None
 
     # -- queries ------------------------------------------------------------
 
@@ -226,13 +250,42 @@ class API:
         published in qprofile.last_profile. The exclude flags empty every
         Row result's attributes or columns; remote=True marks a fan-out
         sub-request (run here on the given shards, results as ids). A
-        query whose deadline has already passed is refused here."""
+        query of too many writes, one whose deadline has already passed
+        and, in enforce mode, one whose class costs more than its
+        remaining deadline are refused here, before planning."""
         self._validate("query")
         if self.holder.index(index_name) is None:
             raise NotFoundError(f"index not found: {index_name}")
+        try:
+            # Set/Clear envelopes take the linear scanner: their unique
+            # columns would only churn the parse cache
+            query = parse_mutations_fast(pql) or parse_string_cached(pql)
+        except ValueError as e:
+            raise ApiError(str(e))
+        if self.max_writes_per_request > 0:
+            writes = sum(
+                1 for c in query.calls
+                if (c.children[0] if c.name == "Options" and c.children
+                    else c).name in WRITE_CALLS)
+            if writes > self.max_writes_per_request:
+                raise ApiError(
+                    f"too many writes in a single request: {writes} > "
+                    f"{self.max_writes_per_request}")
+        plane = self.qos_plane
         rem = qctx.remaining()
         if rem is not None and rem <= 0:
+            if plane is not None:
+                plane.record_expired(remote)
             raise qctx.QueryTimeoutError("query deadline exceeded")
+        if (plane is not None and plane.mode == "enforce" and not remote
+                and rem is not None):
+            est_ms = plane.class_cost_ms(accounting.classify_query(query))
+            if est_ms > 0 and rem * 1e3 < est_ms:
+                plane.record_cost_shed()
+                raise ApiError(
+                    f"query shed: estimated cost {est_ms:.0f} ms exceeds "
+                    f"remaining deadline {rem * 1e3:.0f} ms",
+                    status=503, code="shed")
         slow_armed = self.long_query_time > 0
         profiling = profile or slow_armed
         trace_tok = None
@@ -246,13 +299,23 @@ class API:
                 trace_id=tracing.current_trace_id.get() or "",
                 node_id=self.node_id, index=index_name,
                 pql=qprofile.truncate_pql(pql))
+            pr = qos.current_priority.get() if qos.enabled() else None
+            if pr is not None or plane is not None:
+                # the class the query ran under, its deadline budget and
+                # the wait estimate admission let it past
+                prof.qos = {
+                    "priority": pr or (plane.default_priority
+                                       if plane is not None else None),
+                    "deadlineMs": (round(rem * 1e3, 1)
+                                   if rem is not None else None),
+                    "estimatedWaitMs": (round(plane.estimated_wait_ms(), 3)
+                                        if plane is not None else None),
+                }
             prof_tok = qprofile.current_profile.set(prof)
         start = time.perf_counter()
-        query = results = None
+        results = None
+        ok = False
         try:
-            # Set/Clear envelopes take the linear scanner: their unique
-            # columns would only churn the parse cache
-            query = parse_mutations_fast(pql) or parse_string_cached(pql)
             results = self.executor.execute(index_name, query, shards=shards,
                                             remote=remote)
             if exclude_row_attrs or exclude_columns:
@@ -262,6 +325,7 @@ class API:
                             r.segments = {}
                         if exclude_row_attrs:
                             r.attrs = {}
+            ok = True
             return results
         except (ExecutionError, ValueError) as e:
             raise ApiError(str(e))
@@ -271,10 +335,21 @@ class API:
                 qprofile.current_profile.reset(prof_tok)
             if prof is not None:
                 prof.finish()
-                if results is not None and not remote:
+                if ok and not remote:
                     # each plan node's estimate beside its call's result
                     planner.record_calibration(prof, query.calls, results)
             qprofile.last_profile.set(prof)
+            acct = accounting.current_account.get()
+            if acct is not None:
+                acct.charge(queries=1, errors=0 if ok else 1)
+            if not remote:
+                # the user's query, once: a coordinator's entries on the
+                # remotes are not the objective's events
+                qclass = accounting.classify_query(query)
+                if self.slo is not None:
+                    self.slo.observe(qclass, elapsed, ok)
+                if plane is not None and ok:
+                    plane.observe_service(qclass, elapsed * 1e3)
             if slow_armed and elapsed > self.long_query_time:
                 self.query_history.append({
                     "time": datetime.now(timezone.utc).isoformat(),
@@ -315,12 +390,12 @@ class API:
         """A coordinator's coalesced envelope (POST /internal/query-batch,
         api.py:439-541): one (results, err[, profile]) per entry, in
         order. Entries run through query_results, concurrently on the
-        executor's inbound pool, each under its own deadline and trace
-        id. A write entry is refused on its own: an envelope is re-sent on
+        executor's inbound pool, each under its own deadline, trace id,
+        principal and priority. A write entry is refused on its own: an envelope is re-sent on
         a stale keep-alive, so it may carry reads only."""
 
         def one(e: dict) -> tuple:
-            dl_token = tr_token = None
+            dl_token = tr_token = acct_token = prio_token = None
             try:
                 timeout = e.get("timeout")
                 if timeout is not None:
@@ -331,6 +406,18 @@ class API:
                 if e.get("traceId"):
                     tr_token = tracing.current_trace_id.set(
                         str(e["traceId"]))
+                principal = e.get("principal")
+                if principal and self.usage_ledger is not None \
+                        and self.usage_ledger.enabled \
+                        and accounting.enabled():
+                    # the entry's work is its caller's, not the leader's
+                    acct_token = accounting.current_account.set(
+                        accounting.Account(self.usage_ledger,
+                                           accounting._sanitize(
+                                               str(principal))))
+                priority = e.get("priority")
+                if priority and qos.enabled():
+                    prio_token = qos.current_priority.set(str(priority))
                 pql = e.get("query", "")
                 for c in parse_string_cached(pql).calls:
                     inner = (c.children[0]
@@ -357,6 +444,10 @@ class API:
                     qctx.deadline.reset(dl_token)
                 if tr_token is not None:
                     tracing.current_trace_id.reset(tr_token)
+                if acct_token is not None:
+                    accounting.current_account.reset(acct_token)
+                if prio_token is not None:
+                    qos.current_priority.reset(prio_token)
 
         self._validate("query")
         if len(entries) <= 1:
@@ -958,5 +1049,13 @@ class API:
                               is not None else "READY"),
                 "uptimeSeconds": int(time.monotonic() - self.start_time),
                 "version": __version__,
-                "device": str(dev)}
+                "device": str(dev),
+                **({"health": self._health()} if self.health_fn is not None
+                   else {})}
+
+    def _health(self) -> dict:
+        try:
+            return self.health_fn()
+        except Exception:  # noqa: BLE001 — /status must answer regardless
+            return {"score": "unknown", "reasons": []}
 

@@ -5,31 +5,43 @@ JAX package's TOML format and its environment overrides (PILOSA_TPU_ and
 the key path with dots and dashes as underscores, as
 PILOSA_TPU_CLUSTER_REPLICAS). The keys it serves:
 
-    data-dir, bind
+    data-dir, bind, max-writes-per-request
     [cluster]  disabled, coordinator, replicas, hosts, membership-interval,
                query-timeout, long-query-time, fanout-pool-size,
                fanout-coalesce-window, fanout-coalesce-max-batch,
                hedge-delay, ici-serving, liveness-threshold,
                probe-timeout, hint-max-bytes, hint-max-age,
-               drain-timeout
+               drain-timeout, query-history-size
+    [qos]      mode, default-priority, default-deadline, queries-per-s,
+               device-ms-per-s, bytes-per-s, burst, max-principals, and
+               [qos.principals."<principal>"] tables of the quota keys
+               and priority (validated by qos.QosPlane, with the JAX
+               messages)
+    [slo]      read-, count-, topn- and groupby-latency-ms,
+               latency-target, availability-target, burn-yellow,
+               burn-red, window-short, window-long
+    [ingest]   batch-window, max-batch
     [gossip]   port (-1, the default: HTTP probing; 0: an ephemeral
                port), seeds, period, probe-timeout, push-pull-interval,
                secret (AES-GCM on every datagram)
     [anti-entropy] interval, jitter, pace, max-blocks
     [query]    plan, plan-cache-bytes, sparse-threshold, run-threshold
-    [storage]  eviction
-    [metric]   telemetry-interval
+    [storage]  eviction, wal-fsync
+    [metric]   telemetry-interval, telemetry-ring, usage-max-principals,
+               usage-ring
     [mesh]     platform ("cpu" runs the node on the CPU; "", the default,
                on the card), devices ("auto", "none" or 1: one device)
 
-Every other key the JAX package knows (QoS, SLOs, TLS,
-tracing export, the [ingest] settings, ...) must keep its default: set away from it, in the file or
-the environment, it fails the start with NotPortedError naming the key.
+Every other key the JAX package knows (TLS, the logger, StatsD, the
+event journal, tracing export, diagnostics, ...) must keep its default:
+set away from it, in the file or the environment, it fails the start
+with NotPortedError naming the key.
 A key neither package knows fails too. Durations may be written as Go
 durations ("250ms", "1h30m") where the default is a number of seconds.
 An environment name the table does not hold (the port's
 PILOSA_TPU_TORCH_* switches, the JAX package's PILOSA_TPU_QOS=0) is left
-to whoever reads it.
+to whoever reads it. Nothing here needs a TOML package beyond the
+standard library's tomllib.
 """
 
 from __future__ import annotations
@@ -91,18 +103,22 @@ DEFAULTS: dict[str, dict] = {
 
 # the keys the port serves
 PORTED = {
-    "": {"data_dir", "bind"},
+    "": {"data_dir", "bind", "max_writes_per_request"},
     "cluster": {"disabled", "coordinator", "replicas", "hosts",
                 "long_query_time", "query_timeout", "membership_interval",
                 "fanout_pool_size", "fanout_coalesce_window",
                 "fanout_coalesce_max_batch", "hedge_delay", "ici_serving",
                 "liveness_threshold", "probe_timeout", "hint_max_bytes",
-                "hint_max_age", "drain_timeout"},
+                "hint_max_age", "drain_timeout", "query_history_size"},
+    "qos": set(DEFAULTS["qos"]),
+    "slo": set(DEFAULTS["slo"]),
+    "ingest": {"batch_window", "max_batch"},
     "anti_entropy": {"interval", "jitter", "pace", "max_blocks"},
     "query": {"plan", "plan_cache_bytes", "sparse_threshold",
               "run_threshold"},
-    "storage": {"eviction"},
-    "metric": {"telemetry_interval"},
+    "storage": {"eviction", "wal_fsync"},
+    "metric": {"telemetry_interval", "telemetry_ring",
+               "usage_max_principals", "usage_ring"},
     "mesh": {"devices", "platform"},
     "gossip": {"port", "seeds", "period", "probe_timeout",
                "push_pull_interval", "secret"},

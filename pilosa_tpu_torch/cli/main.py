@@ -52,26 +52,14 @@ def _gossip_config(g: dict):
                         push_pull_interval=g["push_pull_interval"])
 
 
-def cmd_server(args) -> int:
-    try:
-        cfg = load_config(args.config)
-    except (OSError, ValueError) as e:
-        raise SystemExit(f"error: loading config: {e}")
-    if args.data_dir:
-        cfg.values[""]["data_dir"] = args.data_dir
-    if args.bind:
-        cfg.values[""]["bind"] = args.bind
-    from pilosa_tpu_torch.server import Server
-
-    device = cfg.device
-    if device == "cuda":
-        from pilosa_tpu_torch.ops import _build
-        _build.load()
+def server_kwargs(cfg) -> dict:
+    """Server's keyword arguments from a loaded config (all but the data
+    dir and --join)."""
     c, q = cfg.values["cluster"], cfg.values["query"]
     ae, g = cfg.values["anti_entropy"], cfg.values["gossip"]
-    data_dir = os.path.expanduser(cfg.get("", "data_dir"))
-    server = Server(
-        data_dir, host=cfg.host, port=cfg.port, device=device,
+    m, ing = cfg.values["metric"], cfg.values["ingest"]
+    return dict(
+        host=cfg.host, port=cfg.port, device=cfg.device,
         cluster_hosts=(None if c["disabled"] else
                        [URI.parse(h).normalize() for h in c["hosts"]]),
         replica_n=c["replicas"],
@@ -88,7 +76,7 @@ def cmd_server(args) -> int:
         hint_max_bytes=c["hint_max_bytes"],
         hint_max_age=c["hint_max_age"],
         drain_timeout=c["drain_timeout"],
-        join=args.join,
+        query_history_size=c["query_history_size"],
         gossip_port=g["port"] if g["port"] >= 0 else None,
         gossip_seeds=g["seeds"], gossip_config=_gossip_config(g),
         gossip_secret=g["secret"],
@@ -100,7 +88,35 @@ def cmd_server(args) -> int:
         sparse_threshold=q["sparse_threshold"],
         run_threshold=q["run_threshold"],
         eviction=cfg.get("storage", "eviction"),
-        telemetry_interval=cfg.get("metric", "telemetry_interval")).open()
+        wal_fsync=cfg.get("storage", "wal_fsync"),
+        max_writes_per_request=cfg.get("", "max_writes_per_request"),
+        ingest_batch_window=ing["batch_window"],
+        ingest_max_batch=ing["max_batch"],
+        telemetry_interval=m["telemetry_interval"],
+        telemetry_ring=m["telemetry_ring"],
+        usage_max_principals=m["usage_max_principals"],
+        usage_ring=m["usage_ring"],
+        # Server's qos_<key> and slo_<key> are the sections' keys
+        **{f"qos_{k}": v for k, v in cfg.values["qos"].items()},
+        **{f"slo_{k}": v for k, v in cfg.values["slo"].items()})
+
+
+def cmd_server(args) -> int:
+    try:
+        cfg = load_config(args.config)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"error: loading config: {e}")
+    if args.data_dir:
+        cfg.values[""]["data_dir"] = args.data_dir
+    if args.bind:
+        cfg.values[""]["bind"] = args.bind
+    from pilosa_tpu_torch.server import Server
+
+    if cfg.device == "cuda":
+        from pilosa_tpu_torch.ops import _build
+        _build.load()
+    data_dir = os.path.expanduser(cfg.get("", "data_dir"))
+    server = Server(data_dir, join=args.join, **server_kwargs(cfg)).open()
     print(f"pilosa-tpu-torch {__version__} serving at {server.uri} "
           f"(data: {data_dir}, node: {server.node_id}, device: "
           f"{server.executor.runner.device})", flush=True)

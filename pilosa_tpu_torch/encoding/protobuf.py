@@ -604,6 +604,10 @@ class Serializer:
                 entry["timeout"] = float(e["timeout"])
             if e.get("traceId"):
                 entry["traceId"] = str(e["traceId"])
+            if e.get("principal"):
+                entry["principal"] = str(e["principal"])
+            if e.get("priority"):
+                entry["priority"] = str(e["priority"])
             if e.get("profile"):
                 entry["profile"] = True
             out.append(entry)

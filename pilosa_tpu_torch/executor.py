@@ -155,6 +155,15 @@ to a coordinator's remote=true read with the code `read-fenced`, so its
 per-shard failover serves them elsewhere, and serves them stale only when
 no replica is live (_check_remote_fence).
 
+QoS and accounting (executor.py:316-332, :1343-1374, :1535-1593,
+:3284-3301): the fan-out and inbound envelope pools are PriorityPools
+(qos.py) unless PILOSA_TPU_TORCH_QOS=0, so a batch tenant's node batches
+and envelope entries queue behind interactive ones; a composed subtree
+evaluated on a plan-cache miss and an un-batched Count (program_count,
+or the hybrid kernels) charge their wall time to the request's account
+as device_ms (a batched Count is charged by the batcher); the ingest
+apply runs under the `batch` class.
+
 Calls and options outside the slice raise NotPortedError (a 400 at the
 API).
 """
@@ -176,7 +185,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pilosa_tpu_torch import planner
+from pilosa_tpu_torch import planner, qos
 from pilosa_tpu_torch.constants import (
     EXISTENCE_FIELD_NAME,
     SHARD_WIDTH,
@@ -220,6 +229,7 @@ from pilosa_tpu_torch.parallel.residency import (
 )
 from pilosa_tpu_torch.pql import Call, Query, parse_string_cached
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
+from pilosa_tpu_torch.utils import accounting
 from pilosa_tpu_torch.pql.ast import (
     BETWEEN,
     EQ,
@@ -305,6 +315,21 @@ class RowIdentifiers(list):
 
 class GroupCounts(list):
     """GroupBy result: [{"group": [...], "count": n}] (executor.py:81-82)."""
+
+
+@contextlib.contextmanager
+def _charged():
+    """Charge the wall time of the block to the request's usage account
+    as device_ms (this query's own launches; no device sync)."""
+    acct = accounting.current_account.get()
+    if acct is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        acct.charge(device_ms=(time.perf_counter() - t0) * 1e3)
 
 
 class Executor:
@@ -1071,10 +1096,11 @@ class Executor:
             if hit is not None:
                 self._heat_call_touch(index, call, shards)
                 return "dense", hit
-        program, leaves, kinds = self._compile(index, call, shards)
-        if key is None and sparse_root:
-            return self._eval_program(program, leaves, kinds)
-        dev = self._eval_program_dense(program, leaves, kinds)
+        with _charged():
+            program, leaves, kinds = self._compile(index, call, shards)
+            if key is None and sparse_root:
+                return self._eval_program(program, leaves, kinds)
+            dev = self._eval_program_dense(program, leaves, kinds)
         if key is not None:
             pc.put(key, dev, dev.nbytes, epoch=epoch)
         return "dense", dev
@@ -1193,13 +1219,14 @@ class Executor:
         program, leaves, kinds = self._compile(index, child, shards)
         if "sparse" in kinds or "run" in kinds:
             # before the batcher: its kernels read only [S, W] planes
-            with self._hybrid_timed(kinds, "hybrid_count"):
+            with _charged(), self._hybrid_timed(kinds, "hybrid_count"):
                 return hy.hybrid_count(program, leaves, kinds,
                                        WORDS_PER_SHARD,
                                        kernels.sparse_intersect_dense,
                                        kernels.sparse_difference_dense)
         if self.batcher is not None:
-            # concurrent Counts coalesce into one pair-stream launch
+            # concurrent Counts coalesce into one pair-stream launch (the
+            # batcher charges each query its share)
             if program == ("leaf", 0) and len(leaves) == 1:
                 return self.batcher.count("id", leaves[0], None)
             if (len(leaves) == 2 and len(program) == 3
@@ -1207,7 +1234,8 @@ class Executor:
                     and program[1] == ("leaf", 0)
                     and program[2] == ("leaf", 1)):
                 return self.batcher.count(program[0], leaves[0], leaves[1])
-        return self.runner.count_total_leaves(leaves, program)
+        with _charged():
+            return self.runner.count_total_leaves(leaves, program)
 
     # ------------------------------------------------------------------ BSI
 
@@ -2134,14 +2162,20 @@ class Executor:
                                    self.ingest.submit((index.name,), muts))
 
     def _apply_ingest_batch(self, index_name: str, muts: list) -> list:
-        """The IngestBatcher's apply, on the batch leader's thread."""
+        """The IngestBatcher's apply, on the batch leader's thread, under
+        the QoS `batch` class: its pool submits and replica envelopes
+        queue behind interactive traffic."""
         index = self.holder.index(index_name)
         if index is None:
             e = ExecutionError(f"index not found: {index_name}")
             return [("err", e)] * len(muts)
-        if self._clustered():
-            return self._apply_ingest_distributed(index, muts)
-        return self._apply_fenced(index, muts)
+        tok = qos.current_priority.set("batch")
+        try:
+            if self._clustered():
+                return self._apply_ingest_distributed(index, muts)
+            return self._apply_fenced(index, muts)
+        finally:
+            qos.current_priority.reset(tok)
 
     def _apply_fenced(self, index: Index, muts: list) -> list:
         """_apply_ingest_local under the index's apply fence, timed."""
@@ -2467,8 +2501,14 @@ class Executor:
             return pool
         with self._pool_lock:
             if getattr(self, attr) is None:
-                setattr(self, attr, ThreadPoolExecutor(
-                    max_workers=size, thread_name_prefix=name))
+                if attr in ("_fanout_pool", "_batch_exec_pool") \
+                        and qos.enabled():
+                    # ordered by the submitter's priority class
+                    setattr(self, attr, qos.PriorityPool(
+                        size, thread_name_prefix=name))
+                else:
+                    setattr(self, attr, ThreadPoolExecutor(
+                        max_workers=size, thread_name_prefix=name))
             return getattr(self, attr)
 
     @property

@@ -121,8 +121,10 @@ class FieldOptions:
 
 class Field:
     def __init__(self, path: str, index: str, name: str,
-                 options: Optional[FieldOptions] = None):
+                 options: Optional[FieldOptions] = None,
+                 wal_fsync: bool = False):
         self.path = path
+        self.wal_fsync = wal_fsync
         self.index = index
         self.name = name
         self.options = options or FieldOptions()
@@ -200,7 +202,8 @@ class Field:
                              track_rank=self._track_rank()
                              and not name.startswith(VIEW_BSI_PREFIX),
                              cache_size=self.options.cache_size,
-                             cache_type=self.options.cache_type).open()
+                             cache_type=self.options.cache_type,
+                             wal_fsync=self.wal_fsync).open()
                     self.views[name] = v
         return v
 

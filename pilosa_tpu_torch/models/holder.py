@@ -23,8 +23,11 @@ from pilosa_tpu_torch.models.index import Index, validate_name
 
 
 class Holder:
-    def __init__(self, path: str):
+    def __init__(self, path: str, wal_fsync: bool = False):
         self.path = path
+        # [storage] wal-fsync = "always": every fragment fsyncs its WAL
+        # appends (handed down through Index, Field and View)
+        self.wal_fsync = wal_fsync
         self.indexes: dict[str, Index] = {}
         self._mu = threading.Lock()
         self._lock_file = None
@@ -46,7 +49,8 @@ class Holder:
         for name in sorted(os.listdir(self.path)):
             ipath = os.path.join(self.path, name)
             if os.path.isdir(ipath) and not name.startswith("."):
-                self.indexes[name] = Index(ipath, name).open()
+                self.indexes[name] = Index(
+                    ipath, name, wal_fsync=self.wal_fsync).open()
         return self
 
     def close(self) -> None:
@@ -67,7 +71,8 @@ class Holder:
             if name in self.indexes:
                 raise ValueError(f"index already exists: {name}")
             idx = Index(os.path.join(self.path, name), name, keys=keys,
-                        track_existence=track_existence)
+                        track_existence=track_existence,
+                        wal_fsync=self.wal_fsync)
             idx.save_meta()
             self.indexes[name] = idx.open()
             idx.set_shard_hook(self.shard_hook)

@@ -32,9 +32,10 @@ def validate_name(name: str) -> None:
 
 class Index:
     def __init__(self, path: str, name: str, keys: bool = False,
-                 track_existence: bool = True):
+                 track_existence: bool = True, wal_fsync: bool = False):
         validate_name(name)
         self.path = path
+        self.wal_fsync = wal_fsync
         self.name = name
         self.keys = keys
         self.track_existence = track_existence
@@ -59,11 +60,14 @@ class Index:
         for fname in sorted(os.listdir(self.path)):
             fpath = os.path.join(self.path, fname)
             if os.path.isdir(fpath):
-                self.fields[fname] = Field(fpath, self.name, fname).open()
+                self.fields[fname] = Field(
+                    fpath, self.name, fname,
+                    wal_fsync=self.wal_fsync).open()
         if self.track_existence and EXISTENCE_FIELD_NAME not in self.fields:
             f = Field(os.path.join(self.path, EXISTENCE_FIELD_NAME), self.name,
                       EXISTENCE_FIELD_NAME,
-                      FieldOptions(type="set", cache_type="none"))
+                      FieldOptions(type="set", cache_type="none"),
+                      wal_fsync=self.wal_fsync)
             self.fields[EXISTENCE_FIELD_NAME] = f.open()
         return self
 
@@ -93,7 +97,8 @@ class Index:
         with self._field_mu:
             if name in self.fields:
                 raise ValueError(f"field already exists: {name}")
-            f = Field(os.path.join(self.path, name), self.name, name, options)
+            f = Field(os.path.join(self.path, name), self.name, name, options,
+                      wal_fsync=self.wal_fsync)
             f.save_meta()
             self.fields[name] = f.open()
             f.on_shard_added = self.shard_hook

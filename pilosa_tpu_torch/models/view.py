@@ -45,8 +45,10 @@ def view_path(field_path: str, name: str) -> str:
 class View:
     def __init__(self, path: str, index: str, field: str, name: str,
                  track_rank: bool = False, cache_size: int = 50000,
-                 cache_type: str = CACHE_TYPE_RANKED):
+                 cache_type: str = CACHE_TYPE_RANKED,
+                 wal_fsync: bool = False):
         self.path = path
+        self.wal_fsync = wal_fsync
         self.index = index
         self.field = field
         self.name = name
@@ -89,7 +91,8 @@ class View:
         """Open one shard's fragment; new=True for a shard the view's
         open() did not find on disk."""
         frag = Fragment(os.path.join(self.path, "fragments", str(shard)),
-                        self.index, self.field, self.name, shard).open(new)
+                        self.index, self.field, self.name, shard,
+                        wal_fsync=self.wal_fsync).open(new)
         self.fragments[shard] = frag
         if self.track_rank:
             cache_path = frag.path + CACHE_EXT

@@ -18,9 +18,15 @@ column_attr_diff, row_attr_diff, retrieve_shard and probe_indirect; and
 resize's fragment_views (:431). A peer's error code
 (`fragment-not-found`, `read-fenced`) rides ClientError.code.
 
-Left out: the calls of the federation (stats, usage, events, heat, hbm); the failpoint hooks and the per-principal
-accounting (the port has neither); the HLC piggyback of the flight
-recorder.
+Every request carries the request's usage principal as
+X-Pilosa-Principal and its QoS priority as X-Pilosa-Priority (:164-175),
+so a remote node charges and orders the work as the original caller's;
+query_proto charges its request and response bytes to the caller's
+account (rpc_bytes, :337-341).
+
+Left out: the calls of the federation (stats, usage, events, heat, hbm;
+ROADMAP Queue A 7g); the failpoint hooks (7j); the HLC piggyback of the
+flight recorder (7e).
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ import time
 import urllib.parse
 from typing import Optional
 
+from pilosa_tpu_torch import qos
+from pilosa_tpu_torch.utils import accounting
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import qctx, tracing
 
@@ -138,6 +146,12 @@ class InternalClient:
         trace_id = tracing.current_trace_id.get()
         if trace_id:
             headers[tracing.TRACE_HEADER] = trace_id
+        acct = accounting.current_account.get()
+        if acct is not None:
+            headers[accounting.PRINCIPAL_HEADER] = acct.principal
+        priority = qos.current_priority.get() if qos.enabled() else None
+        if priority:
+            headers[qos.PRIORITY_HEADER] = priority
         sock_timeout = timeout if timeout is not None else self.timeout
         rem = qctx.remaining()
         if rem is not None:
@@ -259,6 +273,9 @@ class InternalClient:
         out = self._request("POST", uri, f"/index/{index}/query"
                             + ("?remote=true" if remote else ""), body,
                             CONTENT_TYPE, accept=CONTENT_TYPE)
+        acct = accounting.current_account.get()
+        if acct is not None:
+            acct.charge(rpc_bytes=len(body) + len(out))
         resp = s.decode_query_response(out)
         if resp["err"]:
             raise ClientError(f"remote query: {resp['err']}")

@@ -23,8 +23,11 @@ envelope is re-sent once on a stale keep-alive. PILOSA_TPU_TORCH_NET_COALESCE=0
 (the JAX package's PILOSA_TPU_NET_COALESCE) turns the coalescer off when the
 executor is built; `enabled` switches it at run time.
 
-Left out: the per-entry principal and QoS priority (the port has no
-accounting and no QoS).
+Each entry carries its caller's principal and QoS priority (:112-136,
+:181-221), so the remote node charges and orders the entry as its
+caller's; a duplicate runs at the most urgent priority among its callers.
+Each waiter's account pays its entry's response bytes (rpc_bytes), and no
+device ms (ACCOUNT_DEVICE_MS: an envelope is wire time).
 """
 
 from __future__ import annotations
@@ -33,8 +36,10 @@ import threading
 import time
 from typing import Optional
 
+from pilosa_tpu_torch import qos
 from pilosa_tpu_torch.net.client import ClientError
 from pilosa_tpu_torch.parallel.batcher import ContinuousBatcher
+from pilosa_tpu_torch.utils import accounting
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import qctx, tracing
 
@@ -48,6 +53,7 @@ class NodeCoalescer(ContinuousBatcher):
 
     # an envelope is not a device dispatch
     KERNEL_FAMILY = None
+    ACCOUNT_DEVICE_MS = False
 
     def __init__(self, client, window_s: float = 0.002, max_batch: int = 64,
                  legacy_ttl: float = 300.0, max_inflight: int = 2):
@@ -72,7 +78,8 @@ class NodeCoalescer(ContinuousBatcher):
     def query(self, uri: str, index: str, pql: str,
               shards: Optional[list] = None) -> list:
         """One read-only remote query; its decoded results. Each entry
-        carries its caller's remaining deadline and trace id."""
+        carries its caller's remaining deadline, trace id, principal and
+        priority."""
         rem = qctx.remaining()
         if rem is not None and rem <= 0:
             raise qctx.QueryTimeoutError("query deadline exceeded")
@@ -80,9 +87,13 @@ class NodeCoalescer(ContinuousBatcher):
             return self.client.query_proto(uri, index, pql, shards=shards,
                                            remote=True)
         prof = qprofile.current_profile.get()
+        acct = accounting.current_account.get()
         out = self.submit((uri,), (index, pql, shards, rem,
                                    tracing.current_trace_id.get(),
-                                   prof is not None))
+                                   prof is not None,
+                                   acct.principal if acct is not None
+                                   else None,
+                                   qos.current_priority.get()))
         if out is _FALLBACK:
             with self._meta_lock:
                 self.fallback_queries += 1
@@ -90,10 +101,12 @@ class NodeCoalescer(ContinuousBatcher):
                                            remote=True)
         if isinstance(out, ClientError):
             raise out  # this entry's remote error
-        results, fragment = out
+        results, fragment, nbytes = out
+        # on the waiter's thread: the leader serves other queries
         if prof is not None and fragment:
-            # on the waiter's thread: the leader serves other queries
             prof.add_remote_fragment(uri, fragment)
+        if acct is not None and nbytes:
+            acct.charge(rpc_bytes=nbytes)
         return results
 
     # -- the in-flight window ----------------------------------------------
@@ -124,7 +137,8 @@ class NodeCoalescer(ContinuousBatcher):
         slots: list[int] = []
         uniq: dict[tuple, int] = {}
         entries: list[dict] = []
-        for i, q, s, rem, trace_id, want_prof in payloads:
+        for (i, q, s, rem, trace_id, want_prof, principal,
+             priority) in payloads:
             k = (i, q, tuple(s) if s is not None else None)
             at = uniq.get(k)
             if at is None:
@@ -135,6 +149,10 @@ class NodeCoalescer(ContinuousBatcher):
                     entry["timeout"] = round(rem, 3)
                 if trace_id:
                     entry["traceId"] = trace_id
+                if principal:
+                    entry["principal"] = principal
+                if priority:
+                    entry["priority"] = priority
                 if want_prof:
                     entry["profile"] = True
                 entries.append(entry)
@@ -146,6 +164,9 @@ class NodeCoalescer(ContinuousBatcher):
                     del entries[at]["timeout"]  # a caller without one
                 if want_prof:
                     entries[at]["profile"] = True
+                if priority and qos.priority_level(priority) < \
+                        qos.priority_level(entries[at].get("priority")):
+                    entries[at]["priority"] = priority
             slots.append(at)
         # the envelope is sent under its loosest deadline, not the
         # leader's: each entry still carries its own
@@ -185,7 +206,8 @@ class NodeCoalescer(ContinuousBatcher):
             if resp["err"]:
                 out.append(ClientError(f"remote query: {resp['err']}"))
             else:
-                out.append((resp["results"], resp.get("profile")))
+                out.append((resp["results"], resp.get("profile"),
+                            len(raw[at])))
         return out
 
     def _finalize(self, key: tuple, handle, payloads: list) -> list:

@@ -24,6 +24,7 @@ JSON shapes for the public endpoints:
                                                 official one; ?clear=true)
     GET         /export                        (?index=&field=&shard=:
                                                 text/csv)
+    GET         /                              (name and version)
     GET         /info, /version, /schema, /status
     POST        /recalculate-caches
     POST        /cluster/drain                 (JSON {"abort"?}: this
@@ -46,6 +47,7 @@ arguments and JSON keys, and only the blocks the port has:
     GET         /debug/hbm                     (?top=)
     GET         /debug/heat                    (?since=, ?limit=, ?top=)
     GET         /debug/timeseries              (?since=, ?limit=)
+    GET         /debug/usage                   (?since=, ?limit=, ?top=)
     GET         /debug/query-history
     POST        /debug/device-profile          (?seconds=)
     GET         /debug/pprof[/goroutine|/profile]  (?seconds=)
@@ -94,6 +96,22 @@ query-batch), which the drain waits out. /debug/vars has the drain
 block and /metrics the drain/draining and drain/activeQueries gauges
 and the drain/shedQueries counter, under the JAX names, and /debug/vars
 a gossip block (the port's own) while SWIM gossip runs.
+
+Accounting and QoS (:201-394): every request installs its caller's usage
+account (utils/accounting.py principal_from_headers: X-Pilosa-Principal,
+X-API-Key, a digested Authorization, the remote address) and its QoS
+priority (X-Pilosa-Priority, the principal's [qos.principals] override,
+or the [qos] default class). An external query (not ?remote=true, no
+X-Pilosa-Principal) gets the [qos] default-deadline when it has none and
+passes the plane's admission before its body is parsed: a quota refusal
+is 429 {"error", "code": "quota-exhausted"}, a shed 503 {"error", "code":
+"shed"}, both with Retry-After (whole seconds, at most 30) and
+X-Pilosa-Shed-Reason; a refused query, and one the drain shed, lands in
+/debug/query-history with its `shed` reason, principal and priority.
+Deliberate sheds, the API's cost shed among them, are left out of the
+5xx count the health score reads.
+/debug/vars has the usage, slo and qos blocks; /metrics the usage/*,
+slo/* and qos/* families, every time, zeros included.
 """
 
 from __future__ import annotations
@@ -107,17 +125,20 @@ import sys
 import threading
 import time
 import traceback
+from datetime import datetime, timezone
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch import planner as _planner
+from pilosa_tpu_torch import qos
 from pilosa_tpu_torch.api import API, ApiError
 from pilosa_tpu_torch.encoding.protobuf import CONTENT_TYPE as PROTO_CONTENT_TYPE
 from pilosa_tpu_torch.encoding.protobuf import Serializer
 from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.constants import KERNEL_FAMILY_REPS
 from pilosa_tpu_torch.ops import _build, kernels
+from pilosa_tpu_torch.utils import accounting
 from pilosa_tpu_torch.utils import heat as _heat
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import qctx
@@ -127,6 +148,7 @@ from pilosa_tpu_torch.utils.duration import parse_duration
 from pilosa_tpu_torch.utils.stats import prometheus_exposition
 
 ROUTES: list[tuple[str, re.Pattern, str]] = [
+    ("GET", re.compile(r"^/$"), "home"),
     ("POST", re.compile(r"^/cluster/drain$"), "post_cluster_drain"),
     ("POST", re.compile(r"^/cluster/resize/abort$"), "post_resize_abort"),
     ("POST", re.compile(r"^/cluster/resize/remove-node$"),
@@ -156,6 +178,7 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/status$"), "get_status"),
     ("GET", re.compile(r"^/version$"), "get_version"),
     ("GET", re.compile(r"^/debug/vars$"), "get_debug_vars"),
+    ("GET", re.compile(r"^/debug/usage$"), "get_debug_usage"),
     ("GET", re.compile(r"^/debug/heat$"), "get_debug_heat"),
     ("GET", re.compile(r"^/debug/hbm$"), "get_debug_hbm"),
     ("POST", re.compile(r"^/debug/device-profile$"), "post_device_profile"),
@@ -211,6 +234,8 @@ ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "remote",
                       "get_debug_pprof": frozenset({"seconds"}),
                       "get_debug_timeseries": frozenset({"since", "limit"}),
                       "get_debug_heat": frozenset({"since", "limit", "top"}),
+                      "get_debug_usage": frozenset({"since", "limit",
+                                                    "top"}),
                       "get_debug_hbm": frozenset({"top"}),
                       "post_device_profile": frozenset({"seconds"})}
 
@@ -218,18 +243,21 @@ ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "remote",
 class Handler:
     """Route dispatch against an API instance; `stats`, `telemetry` (the
     TelemetrySampler) and `device_profiler` back the observability
-    routes, `cluster_message_fn` the cluster's messages, and
-    `query_timeout` (seconds, 0: none) caps every query's deadline."""
+    routes, `cluster_message_fn` the cluster's messages, `query_timeout`
+    (seconds, 0: none) caps every query's deadline, and `qos_plane` (a
+    qos.QosPlane, or None) admits external queries."""
 
     def __init__(self, api: API, stats=None, telemetry=None,
                  device_profiler=None, cluster_message_fn=None,
-                 query_timeout: float = 0.0):
+                 query_timeout: float = 0.0, qos_plane=None):
         self.api = api
         self.stats = stats
         self.telemetry = telemetry
         self.device_profiler = device_profiler
         self.cluster_message_fn = cluster_message_fn
         self.query_timeout = query_timeout
+        self.qos = qos_plane
+        self.errors_5xx = 0  # 5xx answers, but deliberate sheds: health
         self.serializer = Serializer()
         self._local = threading.local()  # the request's headers
         # the drain gate (the server's drain sets it) and its counters
@@ -247,15 +275,44 @@ class Handler:
     def dispatch(self, method: str, path: str, query: dict,
                  body: bytes, headers=None) -> tuple:
         """-> (status, content type, payload), and a dict of response
-        headers as a fourth item where there are any."""
+        headers as a fourth item where there are any. The request's trace
+        id, usage account and priority are installed for its handler;
+        the caller's address, the principal of last resort, is the one
+        the listener set on this thread."""
         self._local.headers = headers
+        client_addr = getattr(self._local, "client_addr", None)
         trace = headers.get(tracing.TRACE_HEADER) if headers else None
         token = tracing.current_trace_id.set(trace) if trace else None
+        acct_token = prio_token = None
+        principal = None
+        ledger = self.api.usage_ledger
+        if ledger is not None and ledger.enabled and accounting.enabled():
+            principal = accounting.principal_from_headers(headers,
+                                                          client_addr)
+            acct_token = accounting.current_account.set(
+                accounting.Account(ledger, principal))
+        plane = self.qos
+        hdr_priority = self._header(qos.PRIORITY_HEADER) or None
+        if qos.enabled() and (plane is not None or hdr_priority):
+            if plane is not None:
+                if principal is None:
+                    principal = accounting.principal_from_headers(
+                        headers, client_addr)
+                pname = plane.priority_for(hdr_priority, principal)
+            else:
+                pname = (hdr_priority or "").strip().lower()
+                pname = pname if pname in qos.PRIORITIES else None
+            if pname:
+                prio_token = qos.current_priority.set(pname)
         try:
-            return self._route(method, path, query, body)
+            return self._route(method, path, query, body, principal)
         finally:
             if token is not None:
                 tracing.current_trace_id.reset(token)
+            if acct_token is not None:
+                accounting.current_account.reset(acct_token)
+            if prio_token is not None:
+                qos.current_priority.reset(prio_token)
             self._local.headers = None
 
     def _set_deadline(self, route: str, query: dict):
@@ -296,8 +353,8 @@ class Handler:
         """The body is protobuf (its Content-Type)."""
         return PROTO_CONTENT_TYPE in self._header("Content-Type")
 
-    def _route(self, method: str, path: str, query: dict,
-               body: bytes) -> tuple[int, str, bytes]:
+    def _route(self, method: str, path: str, query: dict, body: bytes,
+               principal: Optional[str] = None) -> tuple:
         for m, rx, name in ROUTES:
             if m != method:
                 continue
@@ -309,50 +366,114 @@ class Handler:
             if unknown:
                 return self._error(400, "invalid query argument(s): "
                                    + ", ".join(sorted(unknown)))
-            dl_token = None
+            dl_token = qos_dl_token = None
+            shed = False
             is_work = name in self.WORK_ROUTES
             if is_work:
                 with self._counter_lock:
                     self.active_queries += 1
             try:
                 dl_token = self._set_deadline(name, query)
-                if (self.draining and name == "post_query"
-                        and not self._inherited(query)):
+                external = name == "post_query" and not self._inherited(query)
+                if self.draining and external:
                     # a new external query: the client goes to another
                     # replica; a coordinator's fan-out entry finishes
+                    shed = True
                     with self._counter_lock:
                         self.drain_sheds += 1
-                    return self._error(
+                    if self.qos is not None:
+                        self.qos.record_drain_shed()
+                    self._record_shed(match, body, principal, "draining",
+                                      503)
+                    resp = self._error(
                         503, "node is draining (graceful restart): retry "
                              "against another replica", code="shed") + ({
                                  "Retry-After": "1",
                                  "X-Pilosa-Shed-Reason": "draining"},)
-                return getattr(self, name)(match.groupdict(), query, body)
+                else:
+                    rej = None
+                    plane = self.qos
+                    if plane is not None and qos.enabled() and external:
+                        # the [qos] default deadline, for a query that
+                        # came with none; then admission, before parsing
+                        if (plane.default_deadline > 0
+                                and qctx.deadline.get() is None):
+                            qos_dl_token = qctx.deadline.set(
+                                time.monotonic() + plane.default_deadline)
+                        rej = plane.admit(
+                            principal or "anonymous",
+                            qos.current_priority.get()
+                            or plane.default_priority,
+                            qctx.remaining())
+                    if rej is not None:
+                        shed = True
+                        self._record_shed(match, body, principal,
+                                          rej.reason, rej.status)
+                        resp = self._error(
+                            rej.status, rej.message,
+                            code=("quota-exhausted" if rej.status == 429
+                                  else "shed")) + ({
+                                "Retry-After":
+                                    qos.retry_after_header(rej.retry_after),
+                                "X-Pilosa-Shed-Reason": rej.reason},)
+                    else:
+                        resp = getattr(self, name)(match.groupdict(), query,
+                                                   body)
             except qctx.QueryTimeoutError as e:
-                return self._error(504, str(e))
+                resp = self._error(504, str(e))
             except ApiError as e:
-                return self._error(e.status, str(e), e.code)
+                # the API's cost shed is a deliberate shed too (the JAX
+                # handler counts it as a server error: ROADMAP Queue C)
+                shed = shed or e.code == "shed"
+                resp = self._error(e.status, str(e), e.code)
             except Exception as e:  # noqa: BLE001 — surface as a 500
                 if self.stats is not None:
                     self.stats.count("http/serverErrors")
-                return self._error(500, str(e))
+                resp = self._error(500, str(e))
             finally:
                 if is_work:
                     with self._counter_lock:
                         self.active_queries -= 1
+                if qos_dl_token is not None:
+                    qctx.deadline.reset(qos_dl_token)
                 if dl_token is not None:
                     qctx.deadline.reset(dl_token)
+            if resp[0] >= 500 and not shed:
+                # the health score's error rate; a shed would feed back
+                # into more shedding
+                with self._counter_lock:
+                    self.errors_5xx += 1
+            return resp
         if any(rx.match(path) for _, rx, _ in ROUTES):
             return 405, "application/json", b'{"error": "method not allowed"}'
         return 404, "application/json", b'{"error": "not found"}'
 
     def _inherited(self, query: dict) -> bool:
-        """A query a coordinator fanned out: ?remote=true, or the
-        principal header every internal RPC of a JAX node carries."""
+        """A query a coordinator fanned out (:359-371): ?remote=true, or
+        the principal header every internal RPC carries. The coordinator
+        admitted it; admitting it again would charge the user's quota
+        once per node."""
         vals = query.get("remote")
         if vals and vals[0] in ("1", "true"):
             return True
-        return bool(self._header("X-Pilosa-Principal"))
+        return bool(self._header(accounting.PRINCIPAL_HEADER))
+
+    def _record_shed(self, match, body: bytes, principal, reason: str,
+                     status: int) -> None:
+        """A refused query into /debug/query-history (:373-394): its
+        shed reason, principal, priority and the PQL that never ran."""
+        self.api.query_history.append({
+            "time": datetime.now(timezone.utc).isoformat(),
+            "index": (match.groupdict() or {}).get("index", ""),
+            "pql": qprofile.truncate_pql(
+                body.decode("utf-8", "replace") if body else ""),
+            "shed": reason,
+            "status": status,
+            "principal": principal or "anonymous",
+            "priority": qos.current_priority.get() if qos.enabled()
+            else None,
+            "traceId": tracing.current_trace_id.get() or "-",
+        })
 
     @staticmethod
     def _error(status: int, msg: str, code: str = ""):
@@ -438,6 +559,10 @@ class Handler:
             params["index"], pql, shards=shard_list, profile=profile,
             column_attrs=column_attrs, exclude_row_attrs=ex_attrs,
             exclude_columns=ex_cols, remote=remote))
+
+    def home(self, params, query, body):
+        return self._json({"name": "pilosa-tpu",
+                           "version": self.api.version()})
 
     def get_indexes(self, params, query, body):
         return self._json(self.api.schema())
@@ -765,7 +890,24 @@ class Handler:
             g = self.gossip_status_fn()
             if g is not None:
                 snap["gossip"] = g
+        # usage, SLO burn rates and the QoS plane (:737-749)
+        snap["usage"] = self.api.usage_ledger.snapshot(top=20)
+        snap["slo"] = self.api.slo.evaluate()
+        if self.qos is not None:
+            snap["qos"] = self.qos.snapshot()
         return self._json(snap)
+
+    def get_debug_usage(self, params, query, body):
+        """The usage ledger (:838-862): principals by device ms (?top=
+        of them, 0: all), exact totals, the delta ring since ?since= and
+        the SLO evaluation."""
+        since, limit, top = self._int_args(query, since=0, limit=0, top=0)
+        ledger = self.api.usage_ledger
+        out = ledger.snapshot(top=top)
+        out.update(ledger.since(since, limit))
+        out["enabled"] = ledger.enabled and accounting.enabled()
+        out["slo"] = self.api.slo.evaluate()
+        return self._json(out)
 
     def _process_gauges(self) -> dict:
         """Gauges of this process: the fan-out pool's occupancy, each
@@ -986,6 +1128,28 @@ class Handler:
         gauges["hbmHeadroomBytes"] = float(max(0, res.budget - rs["bytes"]))
         drift = ex.hbm_snapshot(top=1)["hbmDriftBytes"]
         gauges["hbmDriftBytes"] = float(drift) if drift is not None else 0.0
+        # usage, SLO and QoS, zeros included (:1217-1254)
+        us = self.api.usage_ledger.snapshot()
+        for f, v in us["totals"].items():
+            counts[f"usage/{f}"] = round(v, 3)
+        gauges["usage/trackedPrincipals"] = us["trackedPrincipals"]
+        gauges["usage/spilledPrincipals"] = us["spilledPrincipals"]
+        for p, e in list(us["principals"].items())[:20]:
+            for f in ("deviceMs", "hbmBytes", "rpcBytes", "queueMs",
+                      "queries", "errors"):
+                counts[f"usage/{f},principal:{p}"] = round(e[f], 3)
+        worst = 0.0
+        for name, ob in self.api.slo.evaluate().items():
+            gauges[f"slo/burnShort,objective:{name}"] = ob["burnShort"]
+            gauges[f"slo/burnLong,objective:{name}"] = ob["burnLong"]
+            level = {"green": 0.0, "yellow": 1.0, "red": 2.0}[ob["status"]]
+            gauges[f"slo/status,objective:{name}"] = level
+            worst = max(worst, level)
+        gauges["slo/worst"] = worst
+        if self.qos is not None:
+            qc, qg = self.qos.metrics_series()
+            counts.update(qc)
+            gauges.update(qg)
         # the drain, zeros included (:1255-1261)
         if self.api.drain_status_fn is not None:
             ds = self.api.drain_status_fn()
@@ -1045,6 +1209,7 @@ class _RequestHandler(BaseHTTPRequestHandler):
         parsed = urlparse(self.path)
         length = int(self.headers.get("Content-Length", 0) or 0)
         body = self.rfile.read(length) if length else b""
+        self.handler._local.client_addr = self.client_address[0]
         resp = self.handler.dispatch(
             method, parsed.path, parse_qs(parsed.query), body, self.headers)
         status, ctype, payload = resp[:3]

@@ -2,8 +2,8 @@
 single launches.
 
 Trimmed port of pilosa_tpu/parallel/batcher.py: the ContinuousBatcher
-leadership protocol (:128-430) with its profile and queue-wait hooks
-(:116, :339-370), without QoS and accounting; the CountBatcher
+leadership protocol (:128-430) with its profile, queue-wait, QoS and
+accounting hooks (:98-120, :271-275, :339-374); the CountBatcher
 (:511-565), whose dispatch launches the pair-stream kernel (ops/kernels.py
 pair_stream_counts) over a batch's distinct pairs; the PlaneSumBatcher
 (:571-587, :639-660), whose dispatch launches the bsi_sum_counts kernel
@@ -19,6 +19,15 @@ launch and result fetch; the write-side IngestBatcher (parallel/ingest.py)
 holds it through its apply instead (HANDOFF_AT_CUT, :153-157, :253-312).
 A short admission window gathers the resubmit burst that follows each
 delivered batch. Errors wake every waiter of the failed batch.
+
+QoS and accounting: each request carries its submitter's priority level
+(qos.current_level) and usage account. When a queue holds more than one
+batch the cut sorts it by level, stably (FIFO inside a class), so a
+batch tenant's queries wait behind interactive ones; a single batch is
+served together, unsorted. A delivered batch charges each of its
+requests the dispatch's wall time split evenly (device_ms, where
+ACCOUNT_DEVICE_MS) and its queue wait outside the dispatch (queue_ms):
+host time, not a device measurement.
 """
 
 from __future__ import annotations
@@ -31,7 +40,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import qos
 from pilosa_tpu_torch.ops import bsi, kernels
+from pilosa_tpu_torch.utils import accounting
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import telemetry
 
@@ -46,14 +57,17 @@ _ADMISSION_S = 0.004
 
 class _Req:
     __slots__ = ("payload", "event", "result", "exc", "promoted", "done",
-                 "server", "t_submit", "profile")
+                 "server", "t_submit", "profile", "account", "priority")
 
     def __init__(self, payload):
         self.payload = payload
         self.t_submit = time.perf_counter()
-        # the submitter's query profile: the leader records the dispatch
-        # that served this request into it
+        # the submitter's query profile, usage account and priority level:
+        # the leader serves strangers, and records and charges each
+        # request to its own submitter
         self.profile = qprofile.current_profile.get()
+        self.account = accounting.current_account.get()
+        self.priority = qos.current_level()
         self.event = threading.Event()
         self.result = None
         self.exc: Optional[BaseException] = None
@@ -81,6 +95,10 @@ class ContinuousBatcher:
     # dispatch (the network coalescer)
     KERNEL_FAMILY = "batcher"
 
+    # whether a dispatch's wall-time share is charged as device_ms (not
+    # for an envelope on the wire or an ingest apply)
+    ACCOUNT_DEVICE_MS = True
+
     def __init__(self, max_batch: int = MAX_BATCH,
                  admission_s: float = _ADMISSION_S):
         self.max_batch = max_batch
@@ -94,6 +112,7 @@ class ContinuousBatcher:
         self.max_batch_seen = 0
         self.wait_ms_total = 0.0
         self.waited = 0
+        self.priority_cuts = 0  # cuts that sorted an overflowing queue
 
     def submit(self, key: tuple, payload):
         """Enqueue one query under compatibility `key`; blocks until a
@@ -169,6 +188,11 @@ class ContinuousBatcher:
                 time.sleep(0.0005)
         with self._lock:
             q = self._pending[key]
+            if len(q) > self.max_batch:
+                # only past one batch (inside one, all are served at
+                # once); stable: FIFO inside a class
+                q.sort(key=lambda r: r.priority)
+                self.priority_cuts += 1
             batch, q[:] = q[:self.max_batch], q[self.max_batch:]
             for r in batch:
                 r.server = threading.current_thread()
@@ -227,12 +251,21 @@ class ContinuousBatcher:
                 telemetry.kernels.record_wait(self.KERNEL_FAMILY,
                                               batch_wait_ms, len(batch))
             wall_ms = (t_done - t_cut) * 1e3
+            share_ms = wall_ms / len(batch)
             kind = type(self).__name__
             for r in batch:
                 # every profiled co-batched query learns the dispatch that
                 # served it, the batch size and its wall-time share
                 if r.profile is not None:
                     r.profile.record_dispatch(kind, seq, len(batch), wall_ms)
+                # and its account pays the same share, and the time it
+                # waited outside the dispatch
+                if r.account is not None:
+                    r.account.charge(
+                        device_ms=share_ms if self.ACCOUNT_DEVICE_MS
+                        else 0.0,
+                        queue_ms=max(0.0, (t_done - r.t_submit) * 1e3
+                                     - wall_ms))
             for r, res in zip(batch, results):
                 r.result = res
                 r.done = True

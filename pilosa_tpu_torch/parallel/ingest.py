@@ -1,7 +1,6 @@
 """Write-side continuous batching: coalesced Set/Clear ingest.
 
-Port of pilosa_tpu/parallel/ingest.py (:39-126) without its QoS class and
-usage accounting (the port has neither). Concurrent Set/Clear requests
+Port of pilosa_tpu/parallel/ingest.py (:39-126). Concurrent Set/Clear requests
 queue under one compatibility key per index; the first arrival leads, and
 the whole batch is applied as per-fragment bulk operations
 (Fragment.apply_batch): one WAL group commit, one sorted-dedup container
@@ -14,7 +13,10 @@ size follows arrival rate x apply time.
 
 PILOSA_TPU_TORCH_INGEST=0 is the kill switch, read on every call at the
 executor's interception: mutations then take the per-bit path, with the
-same answers.
+same answers. The executor runs the apply under the QoS `batch` class
+(Executor._apply_ingest_batch), and a batch charges its writers their
+queue wait but no device ms (ACCOUNT_DEVICE_MS: the apply is host work).
+[ingest] batch-window and max-batch set admission_s and max_batch.
 
 ApplyFence is the port's own: it keeps reads of an index out while a
 batch is applied to it and its resident leaves are patched. A batch bumps
@@ -80,6 +82,7 @@ class IngestBatcher(ContinuousBatcher):
 
     HANDOFF_AT_CUT = False
     KERNEL_FAMILY = "ingest"
+    ACCOUNT_DEVICE_MS = False
 
     def __init__(self, apply_fn: Callable, max_batch: int = DEFAULT_MAX_BATCH):
         # no admission window: arrivals pile up behind the apply in flight

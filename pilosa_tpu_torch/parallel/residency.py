@@ -12,7 +12,9 @@ Eviction is LRU by byte budget; a leaf costs its tensor.nbytes. With
 are coldest by the heat map (utils/heat.py), LRU order breaking ties;
 any kill switch forces LRU. A leaf read records a hit or a miss with its
 upload bytes on the query's profile (:72), and uploads and evictions
-charge the heat map. Lock order: the residency lock, then the heat
+charge the heat map; a real upload charges its bytes to the request's
+usage account as hbm_bytes (:95-99), and a plan-cache hit charges
+plan_cache_hits (:568-574), outside the LRU lock. Lock order: the residency lock, then the heat
 tracker's, never the reverse.
 
 The default budget is half of the card's memory
@@ -36,6 +38,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.utils import accounting
 from pilosa_tpu_torch.utils import heat as _heat
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import telemetry
@@ -95,6 +98,10 @@ class DeviceResidency:
         if prof is not None:
             prof.record_residency(hit=False,
                                   nbytes=arr.nbytes if uploaded else 0)
+        if uploaded:
+            acct = accounting.current_account.get()
+            if acct is not None:
+                acct.charge(hbm_bytes=arr.nbytes)
         tracker = self.heat
         if uploaded and tracker is not None and tracker.enabled:
             for fr in _heat.leaf_frags(key):
@@ -548,7 +555,11 @@ class PlanCache:
                 return None
             self._lru.move_to_end(key)
             self.hits += 1
-            return entry[0]
+            value = entry[0]
+        acct = accounting.current_account.get()
+        if acct is not None:
+            acct.charge(plan_cache_hits=1)
+        return value
 
     def put(self, key: tuple, value, nbytes: int,
             epoch: Optional[int] = None) -> None:

@@ -114,7 +114,29 @@ STARTING; every node, not only the coordinator, writes the .topology
 file when it applies a topology and drops its hints for a removed node;
 and a joining node arms no read fence.
 
-Not served yet: QoS and the /cluster/* federation.
+QoS, usage accounting and SLOs (pilosa_tpu/server.py:332-355, :412-431,
+:2140-2169, :2398-2446): the server builds the usage ledger
+(usage_max_principals, usage_ring), the SLO tracker (an availability
+objective at slo_availability_target unless 0, a latency objective per
+class whose slo_<class>_latency_ms is set) and the QoS plane (the qos_*
+arguments, the [qos] keys; mode "off" by default), wired to the executor,
+the ledger and node_health(). node_health() is telemetry.health_score
+over _health_inputs(): damaged and quarantined fragments (from the
+sampler's last tick), the 5xx rate, the fan-out queue's saturation, the
+drain, the read fence and the worst SLO; /status reports it and the
+plane's healthRed shed reads it. The drain's sheds count in the plane.
+The sampler ticks the ledger's ring and samples usage.*, slo.* and qos.*
+gauges. The JAX input walPoisoned has no counterpart (the port has no
+WAL poisoning, storage/roaring.py append_ops).
+
+Limits and plain keys: max_writes_per_request (the top-level
+max-writes-per-request; 0: none), wal_fsync ([storage] wal-fsync, "off"
+or "always": every fragment fsyncs its WAL appends), ingest_batch_window
+and ingest_max_batch ([ingest]: the IngestBatcher's admission window and
+batch bound), query_history_size ([cluster]) and telemetry_ring
+([metric]).
+
+Not served yet: the /cluster/* federation.
 
 String keys are minted into a TranslateStore at <data_dir>/.keys (its
 sqlite index at .keys.idx; pilosa_tpu/server.py:151) through the
@@ -155,6 +177,7 @@ from typing import Optional
 
 import numpy as np
 
+from pilosa_tpu_torch import qos as _qos
 from pilosa_tpu_torch.api import API
 from pilosa_tpu_torch.constants import SHARD_WIDTH
 from pilosa_tpu_torch.executor import Executor
@@ -178,7 +201,9 @@ from pilosa_tpu_torch.parallel.residency import (
 from pilosa_tpu_torch.state import open_holder
 from pilosa_tpu_torch.storage.hints import HintStore
 from pilosa_tpu_torch.storage.roaring import Bitmap
+from pilosa_tpu_torch.utils import accounting as _accounting
 from pilosa_tpu_torch.utils import telemetry as _telemetry
+from pilosa_tpu_torch.utils.profile import QueryHistory
 from pilosa_tpu_torch.utils.cluster_translate import ClusterTranslator
 from pilosa_tpu_torch.utils.stats import StatsClient
 from pilosa_tpu_torch.utils.tracing import Tracer
@@ -253,7 +278,45 @@ class Server:
                  gossip_port: Optional[int] = None,
                  gossip_seeds: Optional[list] = None,
                  gossip_config=None,
-                 gossip_secret: str = ""):
+                 gossip_secret: str = "",
+                 max_writes_per_request: int = 5000,
+                 wal_fsync: str = "off",
+                 ingest_batch_window: float = 0.0,
+                 ingest_max_batch: int = 4096,
+                 query_history_size: int = 100,
+                 telemetry_ring: int = 720,
+                 usage_max_principals: int = 256,
+                 usage_ring: int = 360,
+                 slo_read_latency_ms: float = 0.0,
+                 slo_count_latency_ms: float = 0.0,
+                 slo_topn_latency_ms: float = 0.0,
+                 slo_groupby_latency_ms: float = 0.0,
+                 slo_latency_target: float = 0.99,
+                 slo_availability_target: float = 0.999,
+                 slo_burn_yellow: float = 6.0,
+                 slo_burn_red: float = 14.4,
+                 slo_window_short: float = 300.0,
+                 slo_window_long: float = 3600.0,
+                 qos_mode: str = "off",
+                 qos_default_priority: str = "interactive",
+                 qos_default_deadline: float = 0.0,
+                 qos_queries_per_s: float = 0.0,
+                 qos_device_ms_per_s: float = 0.0,
+                 qos_bytes_per_s: float = 0.0,
+                 qos_burst: float = 2.0,
+                 qos_max_principals: int = 256,
+                 qos_principals: Optional[dict] = None):
+        if wal_fsync not in ("off", "always"):
+            raise ValueError(f"invalid [storage] wal-fsync {wal_fsync!r} "
+                             "(expected off | always)")
+        if ingest_batch_window < 0:
+            raise ValueError(
+                f"invalid [ingest] batch-window {ingest_batch_window!r} "
+                "(expected >= 0)")
+        if telemetry_ring < 1:
+            raise ValueError(
+                f"invalid [metric] telemetry-ring {telemetry_ring!r} "
+                "(expected >= 1)")
         for name, value in (("sparse-threshold", sparse_threshold),
                             ("run-threshold", run_threshold)):
             if value < 0:
@@ -360,10 +423,43 @@ class Server:
         self.eviction = eviction
         self.plan = plan
         self.plan_cache_bytes = plan_cache_bytes
+        self.max_writes_per_request = max_writes_per_request
+        self.wal_fsync = wal_fsync
+        self.ingest_batch_window = ingest_batch_window
+        self.ingest_max_batch = ingest_max_batch
+        self.query_history_size = query_history_size
         self.stats = StatsClient()
         self.tracer = Tracer()
         self.telemetry = _telemetry.TelemetrySampler(
-            interval=telemetry_interval, source=self.sample_gauges)
+            interval=telemetry_interval, ring_size=telemetry_ring,
+            source=self.sample_gauges)
+        # the usage ledger, the [slo] objectives and the QoS plane (its
+        # executor set at open); the plane validates the [qos] keys here
+        self.usage = _accounting.UsageLedger(
+            max_principals=usage_max_principals, ring_size=usage_ring)
+        objectives = []
+        if slo_availability_target > 0:
+            objectives.append(_accounting.Objective(
+                "availability", None, None, slo_availability_target))
+        for cls, ms in (("read", slo_read_latency_ms),
+                        ("count", slo_count_latency_ms),
+                        ("topn", slo_topn_latency_ms),
+                        ("groupby", slo_groupby_latency_ms)):
+            if ms > 0:
+                objectives.append(_accounting.Objective(
+                    f"{cls}-latency", cls, ms, slo_latency_target))
+        self.slo = _accounting.SLOTracker(
+            objectives, short_window=slo_window_short,
+            long_window=slo_window_long, burn_yellow=slo_burn_yellow,
+            burn_red=slo_burn_red)
+        self.qos = _qos.QosPlane(
+            mode=qos_mode, default_priority=qos_default_priority,
+            default_deadline=qos_default_deadline,
+            queries_per_s=qos_queries_per_s,
+            device_ms_per_s=qos_device_ms_per_s,
+            bytes_per_s=qos_bytes_per_s, burst_s=qos_burst,
+            max_principals=qos_max_principals, principals=qos_principals,
+            ledger=self.usage, health_fn=self.node_health, logger=_log)
         self._telemetry_prev: tuple = (None, 0.0)
         self._last_hit_rate = 1.0  # carried through windows without lookups
         self._last_plan_hit_rate = 0.0  # the plan cache starts cold
@@ -396,7 +492,8 @@ class Server:
                 for iname, idx in list(self.holder.indexes.items())}
 
     def open(self) -> "Server":
-        self.holder = open_holder(self.data_dir)
+        self.holder = open_holder(self.data_dir,
+                                  wal_fsync=self.wal_fsync == "always")
         for d in self.holder.damaged_fragments():
             frag = f"{d['index']}/{d['field']}/{d['view']}/{d['shard']}"
             if d["quarantinePath"]:
@@ -444,16 +541,26 @@ class Server:
         if ex.coalescer is not None:
             ex.coalescer.admission_s = self.fanout_coalesce_window
             ex.coalescer.max_batch = max(1, self.fanout_coalesce_max_batch)
+        ex.ingest.admission_s = float(self.ingest_batch_window)
+        ex.ingest.max_batch = max(1, self.ingest_max_batch)
+        self.qos.executor = ex
         self.device_profiler = _telemetry.DeviceProfiler(
             ex.runner.device, kernel_names=kernels.DEVICE_KERNELS)
         self.api = API(self.holder, ex, self.cluster_translate,
                        cluster=self.cluster)
         self.api.long_query_time = self.long_query_time
+        self.api.query_history = QueryHistory(self.query_history_size)
+        self.api.max_writes_per_request = self.max_writes_per_request
+        self.api.usage_ledger = self.usage
+        self.api.slo = self.slo
+        self.api.qos_plane = self.qos
+        self.api.health_fn = self.node_health
         self.handler = Handler(self.api, stats=self.stats,
                                telemetry=self.telemetry,
                                device_profiler=self.device_profiler,
                                cluster_message_fn=self.receive_message,
-                               query_timeout=self.query_timeout)
+                               query_timeout=self.query_timeout,
+                               qos_plane=self.qos)
         self.handler.gossip_status_fn = self.gossip_status
         self.http = HTTPServer(self.handler, self.host, self.port)
         self.api.uri = self.http.uri
@@ -2050,10 +2157,11 @@ class Server:
     def sample_gauges(self) -> dict:
         """One telemetry tick (pilosa_tpu/server.py:2095, the parts the
         port has): gauges of the residency, plan cache, planner, batchers,
-        ingest, hybrid leaves, heat map, kernels, device memory and the
-        process, and rates over the window since the previous tick. It
+        ingest, hybrid leaves, heat map, usage, SLOs, QoS, damaged
+        fragments, kernels, device memory and the process, and rates over
+        the window since the previous tick (the 5xx rate among them). It
         also resolves the finished kernel event pairs and ticks the heat
-        map's ring."""
+        map's and the usage ledger's rings."""
         now = time.monotonic()
         g: dict = {}
         raw: dict = {}
@@ -2083,6 +2191,30 @@ class Server:
             g["heat.hot_fragments"] = float(hsum["hotFragments"])
             g["heat.skew"] = float(hsum["skew"])
             g["heat.tracker_entries"] = float(hsum["trackerEntries"])
+        self.usage.sample_tick()
+        ut = self.usage.totals()
+        g["usage.tracked_principals"] = float(
+            self.usage.snapshot(top=1)["trackedPrincipals"])
+        raw["usage.queries"] = ut["queries"]
+        raw["usage.device_ms"] = ut["deviceMs"]
+        raw["usage.rpc_bytes"] = ut["rpcBytes"]
+        worst = 0.0
+        for name, ob in self.slo.evaluate().items():
+            g[f"slo.{name}.burn_short"] = ob["burnShort"]
+            g[f"slo.{name}.burn_long"] = ob["burnLong"]
+            worst = max(worst, {"green": 0.0, "yellow": 1.0,
+                                "red": 2.0}[ob["status"]])
+        g["slo.worst"] = worst
+        qt = self.qos.totals()
+        raw["qos.admitted"] = qt["admitted"]
+        raw["qos.shed"] = qt["shed"] + qt["wouldShed"]
+        raw["qos.throttled"] = qt["throttled"]
+        g["qos.estimated_wait_ms"] = round(self.qos.estimated_wait_ms(), 3)
+        damaged = self.holder.damaged_fragments()
+        g["wal.damaged_fragments"] = float(len(damaged))
+        g["wal.needs_rebuild"] = float(
+            sum(1 for d in damaged if d["needsRebuild"]))
+        raw["http.errors"] = float(self.handler.errors_5xx)
         depth = 0
         for b in (ex.batcher, ex.sum_batcher):
             if b is None:
@@ -2167,5 +2299,44 @@ class Server:
         g["kernels.avg_wait_ms"] = (
             max(0.0, delta("kernels.wait_ms")) / delta("kernels.waited")
             if prev is not None and delta("kernels.waited") > 0 else 0.0)
+        g["usage.queries_per_s"] = rate("usage.queries")
+        g["usage.device_ms_per_s"] = rate("usage.device_ms")
+        g["usage.rpc_bytes_per_s"] = rate("usage.rpc_bytes")
+        g["qos.admitted_per_s"] = rate("qos.admitted")
+        g["qos.shed_per_s"] = rate("qos.shed")
+        g["qos.throttled_per_s"] = rate("qos.throttled")
+        g["http.errors_per_s"] = rate("http.errors")
         self._telemetry_prev = (raw, now)
         return g
+
+    def _health_inputs(self) -> dict:
+        """The health score's live inputs (:2398-2442). /status is the
+        probes' path, so the fragment walk is the sampler's last tick's
+        where it has one, the walk itself only without."""
+        latest = self.telemetry.ring.latest()
+        if "wal.damaged_fragments" in latest:
+            needs_rebuild = int(latest["wal.needs_rebuild"])
+            n_damaged = int(latest["wal.damaged_fragments"])
+        else:
+            damaged = self.holder.damaged_fragments()
+            needs_rebuild = sum(1 for d in damaged if d["needsRebuild"])
+            n_damaged = len(damaged)
+        ps = self.executor.fanout_pool_stats()
+        out = {
+            "needsRebuild": needs_rebuild,
+            "damagedFragments": n_damaged,
+            "errorRate": latest.get("http.errors_per_s", 0.0),
+            "queueSaturation": ps["queued"] / max(1, ps["size"]),
+            "draining": self.draining,
+            "fencedShards": self.executor.fence_snapshot()["fencedShards"],
+        }
+        status, reason = self.slo.worst()
+        if status != "green":
+            out["sloStatus"] = status
+            out["sloReason"] = reason
+        return out
+
+    def node_health(self) -> dict:
+        """This node's {score, reasons}: /status and the QoS plane's
+        healthRed shed."""
+        return _telemetry.health_score(self._health_inputs())

@@ -49,6 +49,7 @@ def hybrid_leaf_from_numpy(arr: np.ndarray, device="cuda") -> torch.Tensor:
     return t if dev.type == "cpu" else t.to(dev)
 
 
-def open_holder(data_dir: str) -> Holder:
-    """The holder of a data dir written by either package."""
-    return Holder(data_dir).open()
+def open_holder(data_dir: str, wal_fsync: bool = False) -> Holder:
+    """The holder of a data dir written by either package; wal_fsync
+    fsyncs every WAL append ([storage] wal-fsync = "always")."""
+    return Holder(data_dir, wal_fsync=wal_fsync).open()

@@ -9,7 +9,8 @@ planner's node of each planned call (planner.py), into which the executor
 writes cache events, hybrid choices and the actual cardinality while the
 call runs; in a cluster, each node batch with its transport and wall time
 (`fanout`, failovers and hedges too), each routing decision (`route`)
-and the remote nodes' own profiles (`remoteProfiles`). to_dict() has the
+and the remote nodes' own profiles (`remoteProfiles`); the QoS context
+(`qos`: priority, deadlineMs, estimatedWaitMs). to_dict() has the
 JAX package's keys. QueryHistory (:243) is the slow-query ring of
 GET /debug/query-history.
 
@@ -42,7 +43,7 @@ class QueryProfile:
     __slots__ = ("trace_id", "node_id", "index", "pql", "start",
                  "start_wall", "elapsed_ms", "calls", "dispatches",
                  "residency_hits", "residency_misses", "h2d_bytes", "plans",
-                 "fanout", "routes", "remotes", "_lock",
+                 "fanout", "routes", "remotes", "qos", "_lock",
                  "_sealed", "_cached_dict")
 
     def __init__(self, trace_id: str = "", node_id: str = "",
@@ -65,6 +66,9 @@ class QueryProfile:
         self.fanout: list[dict] = []  # node batches, failovers, hedges
         self.routes: list[dict] = []  # routing decisions
         self.remotes: list[dict] = []  # remote nodes' profiles
+        # the QoS class, deadline budget and admission-time wait estimate
+        # the query ran under (set by the API where a plane is wired)
+        self.qos: Optional[dict] = None
         self._lock = threading.Lock()
 
     def record_call(self, name: str, ms: float) -> None:
@@ -170,6 +174,8 @@ class QueryProfile:
                 "route": [dict(r) for r in self.routes],
                 "remoteProfiles": list(self.remotes),
             }
+            if self.qos is not None:
+                d["qos"] = dict(self.qos)
             if self._sealed:
                 self._cached_dict = d
             return d

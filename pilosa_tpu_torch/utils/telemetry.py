@@ -25,9 +25,12 @@ Trimmed port of pilosa_tpu/utils/telemetry.py:
   time, and none while another torch.profiler session runs: both answer
   "busy".
 
+* ``health_score`` (:802-856): the node's green/yellow/red verdict from
+  its health inputs, which GET /status reports and the QoS plane's
+  healthRed shed reads.
+
 XLACounters has no counterpart: the port compiles nothing per shape (its
-one nvcc build is logged by ops/_build.py). health_score reads cluster
-inputs and waits with the cluster.
+one nvcc build is logged by ops/_build.py).
 
 Kill switches, read per call: PILOSA_TPU_TORCH_TELEMETRY=0 (sampler and
 kernel statistics), PILOSA_TPU_TORCH_KERNEL_STATS=0 (kernel statistics
@@ -801,3 +804,65 @@ class DeviceProfiler:
                 if os.path.isdir(self.spool_dir) else 0,
                 "captures": self.captures, "errors": self.errors,
                 "busy": self._busy.locked(), "last": self.last}
+
+
+# ---------------------------------------------------------------------------
+# Node health score
+# ---------------------------------------------------------------------------
+
+# 5xx responses a second over the sampler's window
+ERROR_RATE_YELLOW = 0.1
+ERROR_RATE_RED = 2.0
+# fan-out work queued past the pool, as a multiple of its size
+QUEUE_SATURATION_YELLOW = 2.0
+
+_SEVERITY = {"green": 0, "yellow": 1, "red": 2}
+
+
+def health_score(inputs: dict) -> dict:
+    """{"score": green | yellow | red, "reasons": [...]} of a node's
+    health inputs (:802-856), the one definition /status and the QoS
+    plane's healthRed shed read. Inputs, absent meaning healthy:
+    walPoisoned, needsRebuild, damagedFragments, errorRate (5xx/s),
+    queueSaturation (queued / pool size), draining (yellow, never red),
+    fencedShards, and sloStatus/sloReason (SLOTracker.worst()). The JAX
+    input recompileStormActive has no counterpart: the port compiles
+    nothing per shape."""
+    score = "green"
+    reasons: list[str] = []
+
+    def worsen(level: str, why: str) -> None:
+        nonlocal score
+        if _SEVERITY[level] > _SEVERITY[score]:
+            score = level
+        reasons.append(why)
+
+    if inputs.get("walPoisoned"):
+        worsen("red", "WAL poisoned: writes refused until snapshot")
+    n = int(inputs.get("needsRebuild") or 0)
+    if n:
+        worsen("yellow", f"{n} quarantined fragment(s) awaiting replica "
+                         "rebuild")
+    d = int(inputs.get("damagedFragments") or 0)
+    if d and not n:
+        worsen("yellow", f"{d} fragment(s) recovered from damage "
+                         "(quarantine/torn WAL)")
+    err = float(inputs.get("errorRate") or 0.0)
+    if err >= ERROR_RATE_RED:
+        worsen("red", f"HTTP 5xx rate {err:.2f}/s")
+    elif err >= ERROR_RATE_YELLOW:
+        worsen("yellow", f"HTTP 5xx rate {err:.2f}/s")
+    sat = float(inputs.get("queueSaturation") or 0.0)
+    if sat >= QUEUE_SATURATION_YELLOW:
+        worsen("yellow", f"fan-out queue saturated ({sat:.1f}x pool size)")
+    if inputs.get("draining"):
+        worsen("yellow", "node draining (graceful restart in progress)")
+    fenced = int(inputs.get("fencedShards") or 0)
+    if fenced:
+        worsen("yellow", f"{fenced} shard(s) read-fenced pending rejoin "
+                         "parity verification")
+    slo_status = inputs.get("sloStatus")
+    if slo_status in ("yellow", "red"):
+        worsen(slo_status,
+               inputs.get("sloReason") or "SLO burn-rate alert")
+    return {"score": score, "reasons": reasons}

@@ -21,9 +21,9 @@ the primary's byte for byte. A write with a dead replica is refused by
 both packages and acknowledged by neither. The JAX package reopens the
 port nodes' data dirs (fragments, `.keys`, `.id`) and answers the same.
 Three `python -m pilosa_tpu_torch.cli server` processes on the CPU
-converge and answer a distributed Count and a replicated Set, and a
-config key the port does not serve yet, set away from its default, fails
-the start.
+converge and answer a distributed Count and a replicated Set, a config
+key the port does not serve yet, set away from its default, fails the
+start, and the keys it serves start a node.
 """
 
 import os
@@ -341,11 +341,11 @@ def test_cli_nodes_converge_and_serve(tmp_path):
 
 
 @pytest.mark.parametrize("toml", [
-    "[slo]\nread-latency-ms = 10.0\n",
+    "[metric]\ntrace-export = \"file\"\n",
     "[tls]\ncertificate = \"node.crt\"\n",
     "[metric]\nevents-ring = 512\n",
-    "[qos]\nmode = \"enforce\"\n",
-    "[ingest]\nbatch-window = \"5ms\"\n"])
+    "\nlog-path = \"node.log\"\n",
+    "[diagnostics]\nurl = \"http://localhost:1/d\"\n"])
 def test_unported_config_key_fails_the_start(tmp_path, toml):
     cfg = tmp_path / "n.toml"
     cfg.write_text('data-dir = "/nonexistent"\n' + toml)
@@ -356,6 +356,44 @@ def test_unported_config_key_fails_the_start(tmp_path, toml):
     with pytest.raises(NotPortedError):
         from pilosa_tpu_torch.cli.config import load_config
         load_config(str(cfg), environ={})
+
+
+def test_ported_qos_keys_start_a_node(tmp_path):
+    """[qos] (with a principal's table), [slo], [ingest], [storage]
+    wal-fsync, max-writes-per-request and the [metric] and [cluster] keys
+    served since are accepted, and a node starts with them."""
+    from pilosa_tpu_torch.cli.config import load_config
+
+    cfg = tmp_path / "n.toml"
+    cfg.write_text(
+        f'data-dir = "{tmp_path / "d"}"\nbind = "127.0.0.1:0"\n'
+        'max-writes-per-request = 100\n'
+        '[cluster]\nquery-history-size = 10\n'
+        '[qos]\nmode = "observe"\ndefault-deadline = "2s"\n'
+        '[qos.principals."key:etl"]\nqueries-per-s = 5.0\n'
+        'priority = "batch"\n'
+        '[slo]\ncount-latency-ms = 250.0\nwindow-short = "1m"\n'
+        '[ingest]\nbatch-window = "5ms"\nmax-batch = 512\n'
+        '[storage]\nwal-fsync = "always"\n'
+        '[metric]\ntelemetry-ring = 60\nusage-ring = 30\n'
+        'usage-max-principals = 16\n[mesh]\nplatform = "cpu"\n')
+    c = load_config(str(cfg), environ={"PILOSA_TPU_QOS_BURST": "3"})
+    assert c.get("slo", "window_short") == 60.0
+    assert c.get("qos", "burst") == 3.0
+    kw = cli_main.server_kwargs(c)
+    kw["port"] = 0
+    srv = Server(str(tmp_path / "d"), **kw).open()
+    try:
+        assert srv.qos.mode == "observe" and srv.qos.burst_s == 3.0
+        assert srv.qos.overrides == {"key:etl": {"queries_per_s": 5.0,
+                                                 "priority": "batch"}}
+        assert [o.name for o in srv.slo.objectives] == [
+            "availability", "count-latency"]
+        assert srv.api.max_writes_per_request == 100
+        assert srv.executor.ingest.max_batch == 512
+        assert srv.usage.max_principals == 16
+    finally:
+        srv.close()
 
 
 def test_ported_lifecycle_keys_start_a_node(tmp_path):

@@ -247,8 +247,10 @@ def test_profile_trees_match_jax(servers, pql, batcher):
                 pc.enabled = True
         assert t["results"] == j["results"]
         jp, tp = j["profile"], t["profile"]
-        # "qos" is the JAX server's QoS plane, which the port has not
-        assert list(tp) == [k for k in jp if k != "qos"]
+        assert list(tp) == list(jp)
+        # the QoS node: the class and the deadline the query ran under
+        assert (tp["qos"]["priority"], tp["qos"]["deadlineMs"]) == \
+            (jp["qos"]["priority"], jp["qos"]["deadlineMs"])
         assert [c["call"] for c in tp["calls"]] == \
             [c["call"] for c in jp["calls"]]
         assert tp["residency"] == jp["residency"], pql
