@@ -45,7 +45,14 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    with the SLO's reason and the next query is shed (healthRed); the
    objective is restored; (5) the admission's cost: the Count pass in
    four rounds, the plane off, enforce (no quota binds), enforce, off:
-   the q/s ratio (no limit). Also under --count-only.
+   the q/s ratio (no limit); (6) the event journal on the server's
+   /debug/events since the phase began: health.transition to red with
+   the SLO's reason and back (the sampler's tick taken before, at and
+   after the red), qos.quota_debt of key:tenant-b (one query at a quota
+   of QOS_DEBT_QPS, answered 429 with a Retry-After past the plane's
+   QUOTA_DEBT_S), as many qos.shed_storm.start as the plane counted
+   storms and an .end for each that ended; the counts by type printed.
+   Also under --count-only.
 3. Server, BSI path, on the same server and index (BASELINE.json
    configs[3], "BSI int field Range + Sum/Min/Max over 1B rows", the field
    of bench.py:837-842): an int field v with min 0 and max 1023 (depth 10)
@@ -255,7 +262,23 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    node's passes since the restart, their last seconds, blocks merged),
    the planted bit carried to node 0, every outage write and the planted
    bit read back from each owner alone and the cleared bit on neither,
-   and every read through node 2 exact. Printed: node start seconds,
+   and every read through node 2 exact. The event journal (every node
+   logs to node.log in its data dir, node 1 as JSON lines; node 2 spools
+   its events, 1 MiB): every response carries X-Pilosa-HLC; GET
+   /cluster/events through node 0 lists all three ok, in HLC order, each
+   node's seq rising, and holds the drill's chain in causal order (the
+   probe peer.down of node 2 on nodes 0 and 1, then their hint.append
+   for it; node 2's pre-kill events, reloaded from its spool across the
+   SIGKILL, before both marks; its node.start, snapshot.quarantined of
+   the truncated file and fence.armed after every append; each peer's
+   hint.replay after the fence and before every fence.lifted of a shard
+   that waited for the hints; a scrub.pass of node 2 after its last
+   lift); SIGQUIT to node 1 writes events.crash-<ts>.jsonl into its data
+   dir, every line of it in its /debug/events, and a Count through it
+   is exact after; each node's log file parses, its WARN and ERROR
+   records as many as its log.warn and log.error events plus the log
+   lane's evictions; per node the events by type, the spool bytes and
+   the checks' seconds printed. Printed: node start seconds,
    load seconds and forwarded bytes, each kernel's launches per node
    (program_count, pair_stream_counts, topn_counts_packed,
    bsi_sum_counts, bsi_compare, cross_count_matrix and
@@ -289,7 +312,17 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    exact through g0 and g1, both launching kernels; SIGKILL g1, and the
    seconds until g0 marks it down by suspicion; a Count through g0 exact
    while DEGRADED; the cipher's seal and open ms a datagram in g0's
-   process. Phase 5h's launches count with phase 5g's.
+   process. The event journal: drain.start and drain.complete on node 2
+   and peer.draining on nodes 0, 1 and 3 before its SIGTERM, its spool
+   ending with node.stop after; resize.start and resize.complete on the
+   coordinator for the join and the leave, a topology.change naming the
+   node on every other member (the coordinator records its own change as
+   resize.complete, as the JAX package does), node 3's node.start; g0's
+   peer.down of g1 by gossip, its next stamp past the last one g1 sent
+   before the kill; at the end GET /cluster/events through node 0 (node
+   2 absent or down, the rest ok) and `python -m pilosa_tpu_torch.cli
+   timeline --host <node 0>` once (exit 0, one line an event). Phase
+   5h's launches count with phase 5g's.
 6. Server, write path, on the same server and index (bench.py's ingest
    stage, bench.py:1824-1935, cut to a fixed length): 8 keep-alive writers
    each send 2 envelopes of 500 calls, 80 % Set of a column of their own
@@ -439,6 +472,7 @@ formula, operations for every query, is printed beside it.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import http.client
 import json
@@ -4898,6 +4932,10 @@ GOSSIP_SECRET = "phase-5h-secret"
 GOSSIP_SHARDS = 16
 # the kernels node 3 and each gossip node must launch (one of them)
 MEMBER_KERNELS = ("pair_stream_counts", "program_count")
+# the event journal's checks: each node's log file in its data dir, node
+# 2's [metric] events-spool
+NODE_LOG = "node.log"
+EVENTS_SPOOL = 1 << 20
 
 
 def _get_raw(port: int, path: str) -> bytes:
@@ -4983,13 +5021,21 @@ class ClusterNodes:
                        "[anti-entropy]\n"
                        f"interval = {CLUSTER_AE_INTERVAL}\n")
         cfg = os.path.join(self.tmp, f"{self.prefix}{i}.toml")
+        # every node logs into its data dir, node 1 as JSON lines; node 2
+        # spools its events, so they outlive its SIGKILL
+        logging = f'log-path = "{os.path.join(data, NODE_LOG)}"\n'
+        if not gossip and i == 1:
+            logging += 'log-format = "json"\n'
+        spool = (f"[metric]\nevents-spool = {EVENTS_SPOOL}\n"
+                 if not gossip and i == 2 else "")
         with open(cfg, "w") as f:
             f.write(f'data-dir = "{data}"\n'
-                    f'bind = "127.0.0.1:{self.ports[i]}"\n' + cluster
+                    f'bind = "127.0.0.1:{self.ports[i]}"\n' + logging
+                    + cluster
                     # the passes measure the kernels: repeats would hit
                     # the plan cache and launch nothing
-                    + "[query]\nplan-cache-bytes = 0\n"
-                    f'[mesh]\nplatform = "{CLUSTER_PLATFORM}"\n')
+                    + "[query]\nplan-cache-bytes = 0\n" + spool
+                    + f'[mesh]\nplatform = "{CLUSTER_PLATFORM}"\n')
         self.configs.append(cfg)
 
     def add_joiner(self) -> int:
@@ -5874,6 +5920,9 @@ def membership_phase(nodes: ClusterNodes, pair: GossipPair, reads: list,
     l3 = _node_launches(_node_vars(ports[j]))
     if MEMBER_KERNELS and sum(l3[k] for k in MEMBER_KERNELS) < 1:
         raise AssertionError(f"node 3 launched no kernel: {l3}")
+    ev_s = _resize_events(nodes, "join", j, [1, 2, j])
+    if not _has(_feed(ports[j])[0], "node.start"):
+        raise AssertionError("node 3 recorded no node.start")
     dropped = sum(_resize_counts(ports[i])[2] for i in range(3))
     out["join"] = {"serving_s": seen["serving"], "normal_s": normal_s,
                    "fragments": copied[0],
@@ -5928,10 +5977,26 @@ def membership_phase(nodes: ClusterNodes, pair: GossipPair, reads: list,
                              f" {failed[:3]}")
     node2 = {k: v - base[2][k] for k, v in
              _node_launches(_node_vars(ports[2])).items()}
+    t_ev = time.perf_counter()
+    feed2, _ = _feed(ports[2])
+    if not _has(feed2, "drain.start") or not _has(feed2, "drain.complete"):
+        raise AssertionError("node 2 recorded no drain.start and "
+                             "drain.complete")
+    for i in (0, 1, j):
+        if not _has(_feed(ports[i], "?type=peer.draining")[0], "peer.draining",
+                    peer=nodes.ids[2]):
+            raise AssertionError(f"node {i} recorded no peer.draining of "
+                                 "node 2")
+    ev_s += time.perf_counter() - t_ev
     rc, term_s = nodes.terminate(2)
     if rc != 0:
         raise AssertionError(f"node 2 exited {rc} on SIGTERM: "
                              f"{nodes.log_tail(2)}")
+    with open(os.path.join(nodes.tmp, "n2", "events.spool.jsonl"),
+              encoding="utf-8") as f:
+        last = json.loads(f.read().splitlines()[-1])
+    if last["type"] != "node.stop":
+        raise AssertionError(f"node 2's spool ends with {last}")
     out["drain"] = {"drained_s": drain_s, "info": dinfo, "exit": rc,
                     "sigterm_s": term_s,
                     "reads": {k: {"n": len(v), "p50_ms":
@@ -5965,6 +6030,7 @@ def membership_phase(nodes: ClusterNodes, pair: GossipPair, reads: list,
         if extra:
             raise AssertionError(f"node {i} keeps fragments of shards it "
                                  f"does not own: {sorted(extra)[:8]}")
+    ev_s += _resize_events(nodes, "leave", 2, [1, j])
     out["leave"] = {"normal_s": leave_s, "fragments": moved,
                     "read_s": secs}
     log(f"  decommission: remove-node node 2 through node 1, nodes 0, 1 "
@@ -5979,10 +6045,20 @@ def membership_phase(nodes: ClusterNodes, pair: GossipPair, reads: list,
         by_node.append({k: now[k] - (base[i][k] if i < 3 else 0)
                         for k in now})
     out["steps_s"]["leave"] = time.perf_counter() - t0
+    t_ev = time.perf_counter()
+    out["timeline"] = member_timeline(nodes, [0, 1, j])
+    ev_s += time.perf_counter() - t_ev
     t_step = time.perf_counter()
     out["gossip"] = gossip_checks(pair, seed)
     out["steps_s"]["gossip"] = time.perf_counter() - t_step
     by_node += out["gossip"].pop("launches_by_node")
+    out["event_checks_s"] = ev_s + out["gossip"]["event_checks_s"]
+    log(f"  event checks of phase 5h: drain.start and drain.complete on "
+        f"node 2, peer.draining on nodes 0, 1 and 3, node 2's spool ending "
+        f"with node.stop after its SIGTERM; resize.start and "
+        f"resize.complete on the coordinator for the join and the leave, "
+        f"topology.change on the other members, node 3's node.start; "
+        f"g0's gossip peer.down of g1; {out['event_checks_s']:.2f} s")
     out["launches"] = {k: sum(n[k] for n in by_node) for k in node2}
     log(f"  launches in phase 5h (nodes 0-3 and the gossip pair): "
         f"{out['launches']}; seconds by step: " + ", ".join(
@@ -6017,10 +6093,18 @@ def gossip_checks(pair: GossipPair, seed: int) -> dict:
     if MEMBER_KERNELS and min(launched) < 1:
         raise AssertionError(f"gossip pair launches: {launched}")
     g = _node_vars(p0)["gossip"]
+    _, g1_stamp = _feed(p1)  # the last stamp g1 sent before its kill
     t0 = time.perf_counter()
     pair.kill(1)
     down_s = _poll(lambda: _http(p0, "GET", "/status")["state"]
                    == "DEGRADED", 60, "g1 marked down by gossip", 0.05)
+    t_ev = time.perf_counter()
+    downs, g0_stamp = _feed(p0, "?type=peer.down")
+    if not _has(downs, "peer.down", peer="g1", detector="gossip") \
+            or g0_stamp < g1_stamp:
+        raise AssertionError(f"g0: peer.down {downs}, its stamp {g0_stamp}"
+                             f" < g1's {g1_stamp}")
+    ev_s = time.perf_counter() - t_ev
     got = _http(p0, "POST", "/index/d/query", q)["results"][0]
     if got != want:
         raise AssertionError(f"g0 while DEGRADED: {got} != {want}")
@@ -6034,7 +6118,8 @@ def gossip_checks(pair: GossipPair, seed: int) -> dict:
            "seal_ms": seal_ms, "open_ms": open_ms,
            "cipher_backend": g2["cipherBackend"], "stdlib": stdlib,
            "sealed": g2["sealed"], "opened": g2["opened"],
-           "crypto_drops": g2["cryptoDrops"], "encrypted": g["encrypted"]}
+           "crypto_drops": g2["cryptoDrops"], "encrypted": g["encrypted"],
+           "event_checks_s": ev_s}
     log(f"  gossip (period {GOSSIP_PERIOD} s, AES-GCM with a shared "
         f"secret): g0 and g1 serving {seen['serving']:.1f} s after their "
         f"start, members of each other {seen['members']:.1f} s after it, "
@@ -6413,7 +6498,272 @@ def cluster_drill(nodes: ClusterNodes, reads: list, count_mix: list,
         f"{n_back} acknowledged columns (every outage write and the planted "
         f"bit included, the cleared bit absent) from each owner alone; "
         f"{len(reads)} reads through node 2 in {s:.1f} s, exact")
+    out["events"] = drill_events(nodes, bad_shard, reads)
     return out
+
+
+# ------------------------------------------------- the event journal
+
+
+def _feed(port: int, query: str = "") -> tuple:
+    """(a node's /debug/events events, the stamp its response carried)."""
+    from pilosa_tpu_torch.utils import events as ev
+
+    st, h, doc = _raw_http(port, "GET", "/debug/events" + query)
+    stamp = ev.decode_hlc(h.get(ev.HLC_HEADER))
+    if st != 200 or stamp is None:
+        raise AssertionError(f"/debug/events{query}: {st}, stamp {stamp}")
+    return doc["events"], stamp
+
+
+def _has(events: list, etype: str, **match) -> list:
+    """The events of one type whose fields hold `match`."""
+    return [e for e in events if e["type"] == etype
+            and all(e.get(k) == v for k, v in match.items())]
+
+
+def _log_levels(path: str, as_json: bool) -> list:
+    """The level of every record of a node's log file: JSON lines, or
+    "<ts> <LEVEL> <msg>" lines (a line without that head continues the
+    record before it)."""
+    import re
+
+    with open(path, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    if as_json:
+        return [json.loads(line)["level"] for line in lines]
+    levels = []
+    for line in lines:
+        m = re.match(r"\d{4}-\d\d-\d\dT\d\d:\d\d:\d\d "
+                     r"(INFO|WARN|ERROR|DEBUG) ", line)
+        if m is not None:
+            levels.append(m.group(1))
+        elif not levels:
+            raise AssertionError(f"{path}: no record head: {line[:200]!r}")
+    return levels
+
+
+def drill_events(nodes: ClusterNodes, bad_shard: int, reads: list) -> dict:
+    """Phase 5g's event checks after the drill: every response stamped;
+    GET /cluster/events through node 0 with every node ok, in HLC order,
+    each node's seq rising; the drill's causal chain (the peers' probe
+    peer.down, then their hint.append for node 2; node 2's pre-kill events
+    reloaded from its spool, before both marks; node 2's node.start,
+    snapshot.quarantined of the truncated file and fence.armed after every
+    append; each peer's hint.replay after the fence, before every lift of
+    a shard that waited for the hints; a scrub.pass after the last lift);
+    SIGQUIT to node 1: its crash file, every line of it in its feed, and
+    an exact Count through it after; each node's log file parsed, its WARN
+    and ERROR records as many as its log.warn and log.error events plus
+    the log lane's evictions. -> per node: events by type, spool bytes;
+    and the seconds the checks took."""
+    import glob
+    import signal
+
+    from pilosa_tpu_torch.utils import events as ev
+
+    t0 = time.perf_counter()
+    ports, ids = nodes.ports[:3], nodes.ids[:3]
+    for p in ports:
+        for method, path, body in (("GET", "/status", b""),
+                                   ("POST", "/index/d/query",
+                                    b"Count(Row(f=0))"),
+                                   ("GET", "/no/such/route", b"")):
+            _st, h, _ = _raw_http(p, method, path, body)
+            if ev.decode_hlc(h.get(ev.HLC_HEADER)) is None:
+                raise AssertionError(f"{method} {path} on port {p}: no "
+                                     f"{ev.HLC_HEADER} header: {h}")
+    doc = _http(ports[0], "GET", "/cluster/events")
+    status = {n["id"]: n["status"] for n in doc["nodes"]}
+    if status != dict.fromkeys(ids, "ok"):
+        raise AssertionError(f"/cluster/events nodes: {status}")
+    merged = doc["events"]
+    keys = [ev.hlc_sort_key(e) for e in merged]
+    if keys != sorted(keys):
+        raise AssertionError("/cluster/events is not in HLC order")
+    for nid in ids:
+        seqs = [e["seq"] for e in merged if e["node"] == nid]
+        if any(b <= a for a, b in zip(seqs, seqs[1:])):
+            raise AssertionError(f"{nid}'s seq does not rise in HLC order")
+    pos = {id(e): i for i, e in enumerate(merged)}
+
+    def at(etype: str, **match) -> list:
+        return [pos[id(e)] for e in _has(merged, etype, **match)]
+
+    n2 = ids[2]
+    reloaded = _node_vars(ports[2])["events"]["reloaded"]
+    pre = [i for i, e in enumerate(merged)
+           if e["node"] == n2 and e["seq"] <= reloaded]
+    if not _has([merged[i] for i in pre], "node.start"):
+        raise AssertionError(f"node 2 reloaded {reloaded} events from its "
+                             "spool, its first node.start not among them")
+    chain: dict = {}
+    for i in (0, 1):
+        downs = at("peer.down", node=ids[i], peer=n2, detector="probe")
+        appends = at("hint.append", node=ids[i], target=n2)
+        replays = at("hint.replay", node=ids[i], target=n2)
+        if not downs or not appends or not replays \
+                or min(appends) < downs[0]:
+            raise AssertionError(f"node {i}: peer.down {downs}, "
+                                 f"hint.append {appends[:3]}, hint.replay "
+                                 f"{replays}")
+        chain[i] = {"down": downs[0], "appends": appends,
+                    "replay": replays[0]}
+    if max(pre) > min(chain[i]["down"] for i in (0, 1)):
+        raise AssertionError("node 2's pre-kill events sort after a mark")
+    last_append = max(max(chain[i]["appends"]) for i in (0, 1))
+    back = {etype: [i for i in at(etype, node=n2, **match)
+                    if merged[i]["seq"] > reloaded]
+            for etype, match in (
+                ("node.start", {}),
+                ("snapshot.quarantined",
+                 {"fragment": f"d/f/standard/{bad_shard}"}),
+                ("fence.armed", {}))}
+    if any(not v or v[0] < last_append for v in back.values()):
+        raise AssertionError(f"node 2's return {back}, last hint.append "
+                             f"{last_append}")
+    armed = back["fence.armed"][0]
+    lifts = at("fence.lifted", node=n2)
+    waited = [i for i in lifts if merged[i].get("awaitedHints")]
+    last_replay = max(chain[i]["replay"] for i in (0, 1))
+    if min(chain[i]["replay"] for i in (0, 1)) < armed or not waited \
+            or min(waited) < last_replay or min(lifts) < armed:
+        raise AssertionError(f"fence.armed {armed}, hint.replay "
+                             f"{[chain[i]['replay'] for i in (0, 1)]}, "
+                             f"lifts {lifts[:5]}, waited {waited[:5]}")
+    scrubs = [i for i in at("scrub.pass", node=n2) if i > max(lifts)]
+    if not scrubs:
+        raise AssertionError("no scrub.pass of node 2 after its last lift")
+    chain_s = time.perf_counter() - t0
+    # SIGQUIT: node 1 writes its ring into its data dir and serves on
+    t1 = time.perf_counter()
+    d1 = os.path.join(nodes.tmp, "n1")
+    had = set(glob.glob(os.path.join(d1, "events.crash-*.jsonl")))
+    nodes.procs[1].send_signal(signal.SIGQUIT)
+    _poll(lambda: set(glob.glob(os.path.join(
+        d1, "events.crash-*.jsonl"))) - had, 30, "node 1's crash file", 0.05)
+    crash = sorted(set(glob.glob(os.path.join(
+        d1, "events.crash-*.jsonl"))) - had)[0]
+    _http(ports[1], "GET", "/status")  # the handler has returned
+    with open(crash, encoding="utf-8") as f:
+        dumped = [json.loads(line) for line in f]
+    feed1, _ = _feed(ports[1])
+    have = {(e["seq"], e["type"], tuple(e["hlc"])) for e in feed1}
+    if not dumped or any((e["seq"], e["type"], tuple(e["hlc"])) not in have
+                         for e in dumped):
+        raise AssertionError(f"{crash}: {len(dumped)} events, not all in "
+                             "node 1's feed")
+    nodes.check_alive()
+    _check_reads(ports[1], reads[:4], "node 1 after SIGQUIT")
+    quit_s = time.perf_counter() - t1
+    # the log files
+    per_node = []
+    for i, p in enumerate(ports):
+        snap = _node_vars(p)["events"]
+        levels = _log_levels(os.path.join(nodes.tmp, f"n{i}", NODE_LOG),
+                             as_json=i == 1)
+        feed, _ = _feed(p)
+        logged = len(_has(feed, "log.warn")) + len(_has(feed, "log.error"))
+        warn_err = levels.count("WARN") + levels.count("ERROR")
+        if warn_err != logged + snap["evicted"]["log"]:
+            raise AssertionError(f"node {i}: {warn_err} WARN/ERROR records,"
+                                 f" {logged} log events, {snap['evicted']}"
+                                 " evicted")
+        per_node.append({
+            "by_type": dict(sorted(collections.Counter(
+                e["type"] for e in feed).items())),
+            "reloaded": snap["reloaded"], "spool_bytes": snap["spoolBytes"],
+            "log_records": len(levels), "warn_error_records": warn_err})
+    out = {"nodes": per_node, "merged": len(merged),
+           "chain": {"pre_kill": len(pre),
+                     "appends": [len(chain[i]["appends"]) for i in (0, 1)],
+                     "lifts": len(lifts), "waited": len(waited)},
+           "crash_file_events": len(dumped),
+           "seconds": {"timeline": chain_s, "sigquit": quit_s,
+                       "all": time.perf_counter() - t0}}
+    log(f"  event journal: /cluster/events through node 0, {len(merged)} "
+        f"events of 3 nodes in HLC order (each node's seq rising); the "
+        f"chain: peer.down by probe on nodes 0 and 1, their hint.append for "
+        f"node 2 ({out['chain']['appends']}), node 2's {len(pre)} pre-kill "
+        f"events reloaded from its spool, its node.start, "
+        f"snapshot.quarantined of d/f/standard/{bad_shard} and fence.armed, "
+        f"both peers' hint.replay before the {len(waited)} of {len(lifts)} "
+        f"lifts that waited for the hints, a scrub.pass after; every "
+        f"response stamped; SIGQUIT: node 1 wrote {len(dumped)} events to "
+        f"{os.path.basename(crash)}, all in its feed, and serves exact "
+        f"Counts; log files parsed (node 1 JSON), WARN/ERROR records = log "
+        f"events + evictions; {out['seconds']['all']:.2f} s "
+        f"(timeline {chain_s:.2f} s, SIGQUIT {quit_s:.2f} s)")
+    for i, n in enumerate(per_node):
+        log(f"  node {i} events: {json.dumps(n['by_type'])}; spool "
+            f"{n['spool_bytes']} bytes ({n['reloaded']} reloaded); log "
+            f"{n['log_records']} records, {n['warn_error_records']} WARN/"
+            "ERROR")
+    return out
+
+
+def _resize_events(nodes: ClusterNodes, event: str, k: int,
+                   members: list) -> float:
+    """resize.start and resize.complete of the `event` job of node k on
+    the coordinator (node 0), and a topology.change naming node k on every
+    other member (the coordinator records its own change as the job's
+    completion, as the JAX package does). -> the seconds it took."""
+    t0 = time.perf_counter()
+    nid = nodes.ids[k]
+    coord, _ = _feed(nodes.ports[0])
+    for etype in ("resize.start", "resize.complete"):
+        if not _has(coord, etype, event=event, node=nid):
+            raise AssertionError(f"the coordinator recorded no {etype} of "
+                                 f"the {event} of {nid}")
+    for i in members:
+        changes, _ = _feed(nodes.ports[i], "?type=topology.change")
+        if not [e for e in changes
+                if nid in e.get("removed" if event == "leave" else "nodes",
+                                [])]:
+            raise AssertionError(f"node {i} recorded no topology.change of "
+                                 f"the {event} of {nid}: {changes}")
+    return time.perf_counter() - t0
+
+
+def member_timeline(nodes: ClusterNodes, live: list) -> dict:
+    """GET /cluster/events through node 0 after the leave (node 2 absent
+    or down, the others ok), then `python -m pilosa_tpu_torch.cli timeline
+    --host <node 0>` once: exit 0 and one line for each event its header
+    counts, no fewer than the merged document held."""
+    from pilosa_tpu_torch.utils import events as ev
+
+    port = nodes.ports[0]
+    doc = _http(port, "GET", "/cluster/events")
+    status = {n["id"]: n["status"] for n in doc["nodes"]}
+    want = dict.fromkeys((nodes.ids[i] for i in live), "ok")
+    if {k: v for k, v in status.items() if k != nodes.ids[2]} != want \
+            or status.get(nodes.ids[2], "down") != "down":
+        raise AssertionError(f"/cluster/events nodes after the leave: "
+                             f"{status}")
+    keys = [ev.hlc_sort_key(e) for e in doc["events"]]
+    if keys != sorted(keys):
+        raise AssertionError("/cluster/events is not in HLC order")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "timeline", "--host",
+         f"http://127.0.0.1:{port}"], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=120)
+    lines = run.stdout.splitlines()
+    head = lines[0].split() if lines else []
+    n = int(head[2]) if len(head) > 2 and head[2].isdigit() else -1
+    body = lines[lines.index("") + 1:] if "" in lines else []
+    if run.returncode != 0 or n != len(body) or n < len(doc["events"]):
+        raise AssertionError(f"timeline: exit {run.returncode}, header "
+                             f"{lines[:1]}, {len(body)} lines, "
+                             f"{len(doc['events'])} merged; "
+                             f"{run.stderr[-500:]}")
+    log(f"  /cluster/events through node 0 after the leave: {status}, "
+        f"{len(doc['events'])} events in HLC order; `timeline --host node "
+        f"0`: exit 0, {n} events ({time.perf_counter() - t0:.2f} s)")
+    return {"nodes": status, "events": len(doc["events"]),
+            "timeline_events": n}
 
 
 # ------------------------------------------------------- phase 2q: QoS
@@ -6426,6 +6776,8 @@ QOS_QUOTA_SHARE = 0.2
 QOS_TOPNS = 3      # admitted TopNs that feed the class-cost EWMA
 # the admission-cost rounds of the Count pass, interleaved
 QOS_ROUNDS = ("off", "enforce", "enforce", "off")
+# tenant-b's quota for the deep-debt query: its wait passes QUOTA_DEBT_S
+QOS_DEBT_QPS = 0.1
 
 
 def _quota_body(principal: str) -> dict:
@@ -6533,6 +6885,9 @@ def qos_phase(srv, port: int, count_mix: list, pair: np.ndarray,
 
     t_phase = time.perf_counter()
     out: dict = {}
+    # the event journal's cursor and the plane's storm counters before
+    ev_seq = _http(port, "GET", "/debug/events")["seq"]
+    storms0, active0 = srv.qos.storms, srv.qos.storm_active
     quota = max(1.0, QOS_QUOTA_SHARE * count_stats["qps"])
     overrides = {"key:tenant-b": {"queries_per_s": quota,
                                   "priority": "batch"}}
@@ -6584,6 +6939,20 @@ def qos_phase(srv, port: int, count_mix: list, pair: np.ndarray,
             f"the mix, summed over principals {dev_ms:.1f} ms (the "
             f"batchers' wall-time share: host time), device busy in the "
             f"capture {cap['deviceBusyMs']} ms over {cap['seconds']} s")
+        # deep debt: tenant-b's quota cut to QOS_DEBT_QPS, so that one
+        # query's wait passes the plane's QUOTA_DEBT_S (qos.quota_debt)
+        _qos_set(srv, "enforce", {"key:tenant-b": {
+            "queries_per_s": QOS_DEBT_QPS, "priority": "batch"}})
+        st, h, got = _raw_http(port, "POST", "/index/i/query",
+                               count_mix[0][0].encode(),
+                               {"X-API-Key": "tenant-b"})
+        ra = h.get("Retry-After", "")
+        if (st, got) != (429, _quota_body("key:tenant-b")) \
+                or not ra.isdigit() or int(ra) < srv.qos.QUOTA_DEBT_S:
+            raise AssertionError(f"deep debt: {st} {got}, Retry-After {ra}")
+        log(f"  deep debt: key:tenant-b at {QOS_DEBT_QPS} queries/s: 429, "
+            f"Retry-After {ra} s")
+        _qos_set(srv, "enforce", overrides)
 
         # doomed work: admitted TopNs feed the class cost, then a TopN
         # whose deadline is under it is shed before it is planned
@@ -6637,11 +7006,17 @@ def qos_phase(srv, port: int, count_mix: list, pair: np.ndarray,
             f"{h.get('Retry-After')}, no launch")
 
         # health: a count objective far under the pass's p50 burns both
-        # windows; /status turns red and the next query is shed
+        # windows; /status turns red and the next query is shed. The
+        # sampler's tick records each change of the score (one before,
+        # one at red, one after the objective is restored)
+        srv.telemetry.sample_once()
         target = count_stats["p50_ms"] / 100
         srv.slo = srv.api.slo = accounting.SLOTracker([
             accounting.Objective("availability", None, None, 0.999),
             accounting.Objective("count-latency", "count", target, 0.99)])
+        # the four Counts run under a fresh cached verdict: one refreshed
+        # after the first of them would shed the rest (healthRed)
+        srv.qos._health = (time.monotonic(), "green")
         for pql, want in count_mix[:4]:
             if _http(port, "POST", "/index/i/query",
                      pql.encode())["results"][0] != want:
@@ -6658,6 +7033,7 @@ def qos_phase(srv, port: int, count_mix: list, pair: np.ndarray,
                                                 "shedding load",
                                        "code": "shed"}):
             raise AssertionError(f"health: {health}; {st} {h} {got}")
+        srv.telemetry.sample_once()
         out["health"] = {"objective_ms": target, "health": health,
                          "shed": got, "retry_after": h.get("Retry-After")}
         log(f"  SLO count-latency {target:.3f} ms: /status health "
@@ -6667,6 +7043,7 @@ def qos_phase(srv, port: int, count_mix: list, pair: np.ndarray,
         srv.slo = srv.api.slo = old_slo
         srv.qos._health = (0.0, "green")
         _qos_set(srv, "off")
+        srv.telemetry.sample_once()
 
     # the admission's cost: the Count pass with the plane off and in
     # enforce mode with no quota that binds, interleaved
@@ -6685,6 +7062,7 @@ def qos_phase(srv, port: int, count_mix: list, pair: np.ndarray,
            for m in ("off", "enforce")}
     out["admission_rounds"] = rounds
     out["admission_qps_ratio"] = qps["enforce"] / qps["off"]
+    out["events"] = qos_events(srv, port, ev_seq, storms0, active0)
     out["qos_vars"] = _http(port, "GET", "/debug/vars")["qos"]
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  admission's cost: enforce / off q/s {out['admission_qps_ratio']:.4f}"
@@ -6693,6 +7071,40 @@ def qos_phase(srv, port: int, count_mix: list, pair: np.ndarray,
         f" shed, {json.dumps(out['qos_vars']['throttled'])} throttled; "
         f"phase 2q {out['phase_s']:.1f} s")
     return out
+
+
+def qos_events(srv, port: int, seq: int, storms0: int,
+               active0: bool) -> dict:
+    """Phase 2q's events on the server's /debug/events since `seq`:
+    health.transition to red with the SLO's reason and back from red;
+    qos.quota_debt of key:tenant-b; as many qos.shed_storm.start as the
+    plane counted storms (its STORM_N rejections within STORM_WINDOW_S,
+    the JAX thresholds), and one .end for each storm that ended. ->
+    the events by type."""
+    t0 = time.perf_counter()
+    evs, _ = _feed(port, f"?since={seq}")
+    red = [e for e in _has(evs, "health.transition", toScore="red")
+           if any(r.startswith("SLO count-latency") for r in e["reasons"])]
+    back = [e for e in _has(evs, "health.transition", fromScore="red")
+            if not red or e["seq"] > red[0]["seq"]]
+    starts = len(_has(evs, "qos.shed_storm.start"))
+    ends = len(_has(evs, "qos.shed_storm.end"))
+    storms = srv.qos.storms - storms0
+    if not red or not back \
+            or not _has(evs, "qos.quota_debt", principal="key:tenant-b") \
+            or starts != storms \
+            or ends != storms + active0 - srv.qos.storm_active:
+        raise AssertionError(f"phase 2q events: {len(red)} to red, "
+                             f"{len(back)} back, {starts} storm starts and "
+                             f"{ends} ends for {storms} storms; "
+                             f"{[e['type'] for e in evs]}")
+    by_type = dict(sorted(collections.Counter(
+        e["type"] for e in evs).items()))
+    log(f"  events of phase 2q: {json.dumps(by_type)} (storms the plane "
+        f"counted: {storms}; health red with the SLO's reason and back; "
+        f"key:tenant-b's quota debt); checks {time.perf_counter() - t0:.2f}"
+        " s")
+    return by_type
 
 
 def cluster_qos(ports: list, count_mix: list) -> dict:

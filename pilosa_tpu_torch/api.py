@@ -41,11 +41,15 @@ resize_fn, which routes it to the coordinator's leave job), resize_abort
 (abort_fn), drain (drain_fn; not state-gated: a lifecycle call works in
 any state) and fragment_views, the donor's side of a resize copy.
 
-Per-request profiling (api.py:109-125, :270-360): a query gets a
-QueryProfile when the request asks (?profile=true) or while
-long_query_time > 0; such a query also gets a trace id for the whole
-request. Queries slower than long_query_time land in query_history
-(GET /debug/query-history) with their profile. A profiled query that
+Per-request profiling (api.py:109-125, :196-203, :270-375): profile_mode
+(the [cluster] profile) "auto" gives a query a QueryProfile when the
+request asks (?profile=true) or while long_query_time > 0, "on" gives
+every query one and "off" none; PILOSA_TPU_PROFILE=0, read when the API
+is made, is "off" whatever the mode. A profiled or slow-armed query also
+gets a trace id for the whole request. Queries slower than
+long_query_time land in query_history (GET /debug/query-history) with
+their profile, and in the log (`logger`) as "<s>s SLOW QUERY <index>
+<pql, cut at 256> trace=<id>". A profiled query that
 succeeds feeds the planner's calibration ring (api.py:320-331), and
 explain() answers ?explain=true (:399-440).
 
@@ -209,6 +213,11 @@ class API:
         # slow-query threshold in seconds (0: off), and the ring of the
         # queries over it
         self.long_query_time = 0.0
+        self.logger = None  # the server's Logger: the slow-query line
+        self.profile_mode = "auto"
+        self._profile_killed = os.environ.get(
+            "PILOSA_TPU_PROFILE", "1") == "0"
+        self.cluster_events_fn = None  # fn(limit=) -> GET /cluster/events
         self.query_history = qprofile.QueryHistory(100)
         self.max_writes_per_request = 5000  # 0: no limit
         # the server replaces these from its config: the usage ledger the
@@ -222,6 +231,14 @@ class API:
         self.health_fn = None
 
     # -- queries ------------------------------------------------------------
+
+    def _should_profile(self, explicit: bool) -> bool:
+        """Whether a query gets a QueryProfile (profile_mode)."""
+        if self._profile_killed or self.profile_mode == "off":
+            return False
+        if self.profile_mode == "on":
+            return True
+        return explicit or self.long_query_time > 0
 
     def _broadcast(self, msg: dict) -> None:
         if self.broadcast_fn is not None:
@@ -287,9 +304,10 @@ class API:
                     f"remaining deadline {rem * 1e3:.0f} ms",
                     status=503, code="shed")
         slow_armed = self.long_query_time > 0
-        profiling = profile or slow_armed
+        profiling = self._should_profile(profile)
         trace_tok = None
-        if profiling and tracing.current_trace_id.get() is None:
+        if ((profiling or slow_armed)
+                and tracing.current_trace_id.get() is None):
             # one trace id for the whole request: the history entry, the
             # profile and the spans join on it
             trace_tok = tracing.current_trace_id.set(tracing.new_trace_id())
@@ -351,14 +369,20 @@ class API:
                 if plane is not None and ok:
                     plane.observe_service(qclass, elapsed * 1e3)
             if slow_armed and elapsed > self.long_query_time:
+                trace_id = tracing.current_trace_id.get() or "-"
+                short_pql = qprofile.truncate_pql(pql)
                 self.query_history.append({
                     "time": datetime.now(timezone.utc).isoformat(),
                     "index": index_name,
-                    "pql": qprofile.truncate_pql(pql),
+                    "pql": short_pql,
                     "elapsed": round(elapsed, 6),
-                    "traceId": tracing.current_trace_id.get() or "-",
+                    "traceId": trace_id,
                     "profile": prof.to_dict() if prof is not None else None,
                 })
+                if self.logger is not None:
+                    self.logger.printf("%.3fs SLOW QUERY %s %s trace=%s",
+                                       elapsed, index_name, short_pql,
+                                       trace_id)
             if trace_tok is not None:
                 tracing.current_trace_id.reset(trace_tok)
 

@@ -5,13 +5,17 @@ JAX package's TOML format and its environment overrides (PILOSA_TPU_ and
 the key path with dots and dashes as underscores, as
 PILOSA_TPU_CLUSTER_REPLICAS). The keys it serves:
 
-    data-dir, bind, max-writes-per-request
+    data-dir, bind, max-writes-per-request, log-path (the node's log
+               lines are appended there instead of stderr; the JAX server
+               reads the key and keeps stderr), log-format ("plain" or
+               "json"), verbose (debug lines)
     [cluster]  disabled, coordinator, replicas, hosts, membership-interval,
                query-timeout, long-query-time, fanout-pool-size,
                fanout-coalesce-window, fanout-coalesce-max-batch,
                hedge-delay, ici-serving, liveness-threshold,
                probe-timeout, hint-max-bytes, hint-max-age,
-               drain-timeout, query-history-size
+               drain-timeout, query-history-size, profile (off | auto |
+               on; PILOSA_TPU_PROFILE=0 wins over it)
     [qos]      mode, default-priority, default-deadline, queries-per-s,
                device-ms-per-s, bytes-per-s, burst, max-principals, and
                [qos.principals."<principal>"] tables of the quota keys
@@ -28,12 +32,15 @@ PILOSA_TPU_CLUSTER_REPLICAS). The keys it serves:
     [query]    plan, plan-cache-bytes, sparse-threshold, run-threshold
     [storage]  eviction, wal-fsync
     [metric]   telemetry-interval, telemetry-ring, usage-max-principals,
-               usage-ring
+               usage-ring, events-ring, events-spool (the event journal's
+               ring and durable spool, utils/events.py), service
+               ("expvar", "statsd" or any other value: none) and host
+               (the StatsD agent, utils/stats.py new_stats_client)
     [mesh]     platform ("cpu" runs the node on the CPU; "", the default,
                on the card), devices ("auto", "none" or 1: one device)
 
-Every other key the JAX package knows (TLS, the logger, StatsD, the
-event journal, tracing export, diagnostics, ...) must keep its default:
+Every other key the JAX package knows (TLS, [metric] poll-interval,
+tracing export, [tracing], diagnostics, ...) must keep its default:
 set away from it, in the file or the environment, it fails the start
 with NotPortedError naming the key.
 A key neither package knows fails too. Durations may be written as Go
@@ -103,13 +110,15 @@ DEFAULTS: dict[str, dict] = {
 
 # the keys the port serves
 PORTED = {
-    "": {"data_dir", "bind", "max_writes_per_request"},
+    "": {"data_dir", "bind", "max_writes_per_request", "log_path",
+         "log_format", "verbose"},
     "cluster": {"disabled", "coordinator", "replicas", "hosts",
                 "long_query_time", "query_timeout", "membership_interval",
                 "fanout_pool_size", "fanout_coalesce_window",
                 "fanout_coalesce_max_batch", "hedge_delay", "ici_serving",
                 "liveness_threshold", "probe_timeout", "hint_max_bytes",
-                "hint_max_age", "drain_timeout", "query_history_size"},
+                "hint_max_age", "drain_timeout", "query_history_size",
+                "profile"},
     "qos": set(DEFAULTS["qos"]),
     "slo": set(DEFAULTS["slo"]),
     "ingest": {"batch_window", "max_batch"},
@@ -118,7 +127,8 @@ PORTED = {
               "run_threshold"},
     "storage": {"eviction", "wal_fsync"},
     "metric": {"telemetry_interval", "telemetry_ring",
-               "usage_max_principals", "usage_ring"},
+               "usage_max_principals", "usage_ring", "events_ring",
+               "events_spool", "service", "host"},
     "mesh": {"devices", "platform"},
     "gossip": {"port", "seeds", "period", "probe_timeout",
                "push_pull_interval", "secret"},

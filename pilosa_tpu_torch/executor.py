@@ -118,10 +118,11 @@ with a Cluster and an InternalClient and more than one node, a query that
 is not itself a fan-out sub-request (remote=True) is distributed. Options
 is unwrapped first; a read is routed (_ici_route: on the port's one-device
 runner "auto" is always cross_slice, "on" runs a shard set this node holds
-every shard of here), grouped by each shard's first live owner, run on
-this node inline and on every other node through the fan-out pool, each
-node's batch coalesced into /internal/query-batch envelopes by the
-NodeCoalescer (net/coalesce.py), optionally hedged onto another replica
+every shard of here, a decision memoized per topology whose changes and
+flips go to the event journal), grouped by each shard's first live owner,
+run on this node inline and on every other node through the fan-out
+pool, each node's batch coalesced into /internal/query-batch envelopes by
+the NodeCoalescer (net/coalesce.py), optionally hedged onto another replica
 after hedge_delay, and re-mapped shard by shard onto the next replica
 when a node fails. The partials reduce associatively (_reduce); TopN
 recounts its winners exactly on every owner (_recount_topn, ids= without
@@ -230,6 +231,7 @@ from pilosa_tpu_torch.parallel.residency import (
 from pilosa_tpu_torch.pql import Call, Query, parse_string_cached
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
 from pilosa_tpu_torch.utils import accounting
+from pilosa_tpu_torch.utils import events as _events
 from pilosa_tpu_torch.pql.ast import (
     BETWEEN,
     EQ,
@@ -371,6 +373,14 @@ class Executor:
         self.ici_cross_slice = 0
         self.ici_fallback = 0
         self._ici_lock = threading.Lock()
+        # the co-residency memo of "on" routing: (index, shards) -> bool
+        # under one topology fingerprint, the last topology's memo kept to
+        # see a decision flip (:2620-2660); `journal` (the server's
+        # EventJournal) records the flips
+        self.journal = None
+        self._ici_topo_fp = None
+        self._ici_route_memo: OrderedDict = OrderedDict()
+        self._ici_prev_memo: dict = {}
         # announce_shard_fn(index, field, shard): the server's bounded
         # synchronous create-shard broadcast, run before a Set that
         # created a shard is acknowledged
@@ -2574,9 +2584,7 @@ class Executor:
             return self.ROUTE_FALLBACK, "no shards"
         if self.ici_mode == "auto":
             return self.ROUTE_CROSS_SLICE, "no mesh"
-        local = self.cluster.local_id
-        if not all(self.cluster.owns_shard(local, index.name, s)
-                   for s in qshards):
+        if not self._ici_co_resident(index, qshards):
             return self.ROUTE_CROSS_SLICE, "shards not co-resident"
         if self.read_fence:
             with self._fence_lock:
@@ -2586,6 +2594,55 @@ class Executor:
                 # a fenced shard may be stale: the fan-out re-routes it
                 return self.ROUTE_CROSS_SLICE, "read-fenced"
         return self.ROUTE_SLICE_LOCAL, "co-resident"
+
+    # decisions the co-residency memo keeps
+    ICI_MEMO_MAX = 512
+
+    def _ici_topo_fingerprint(self) -> tuple:
+        """Membership, replicas and the down and draining marks: any change
+        of them empties the co-residency memo."""
+        c = self.cluster
+        return (tuple(n.id for n in c.nodes), c.replica_n,
+                frozenset(c.down_ids), frozenset(c.draining_ids))
+
+    def _ici_co_resident(self, index: Index, qshards: list) -> bool:
+        """Whether this node holds a replica of every query shard, memoized
+        per (index, shards) under one topology fingerprint. A new
+        fingerprint records topology.change (observer ici-router), and a
+        decision that differs from the last topology's for the same key
+        records ici.route_flip (:2620-2660)."""
+        fp = self._ici_topo_fingerprint()
+        key = (index.name, tuple(qshards))
+        topo_flipped = False
+        with self._ici_lock:
+            if fp != self._ici_topo_fp:
+                topo_flipped = self._ici_topo_fp is not None
+                self._ici_prev_memo = dict(self._ici_route_memo)
+                self._ici_route_memo.clear()
+                self._ici_topo_fp = fp
+            hit = self._ici_route_memo.get(key)
+            if hit is not None:
+                self._ici_route_memo.move_to_end(key)
+                return hit
+        if topo_flipped:
+            _events.record(self.journal, "topology.change",
+                           observer="ici-router", nodes=len(fp[0]),
+                           down=len(fp[2]), draining=len(fp[3]))
+        local = self.cluster.local_id
+        ok = all(self.cluster.owns_shard(local, index.name, s)
+                 for s in qshards)
+        prev = self._ici_prev_memo.get(key)
+        if prev is not None and prev != ok:
+            _events.record(
+                self.journal, "ici.route_flip", index=index.name,
+                shards=len(qshards),
+                route=self.ROUTE_SLICE_LOCAL if ok else self.ROUTE_CROSS_SLICE)
+        with self._ici_lock:
+            if fp == self._ici_topo_fp:
+                self._ici_route_memo[key] = ok
+                while len(self._ici_route_memo) > self.ICI_MEMO_MAX:
+                    self._ici_route_memo.popitem(last=False)
+        return ok
 
     def _record_route(self, route: str, reason: str, call: Call,
                       n_shards: int) -> None:

@@ -24,9 +24,15 @@ so a remote node charges and orders the work as the original caller's;
 query_proto charges its request and response bytes to the caller's
 account (rpc_bytes, :337-341).
 
-Left out: the calls of the federation (stats, usage, events, heat, hbm;
-ROADMAP Queue A 7g); the failpoint hooks (7j); the HLC piggyback of the
-flight recorder (7e).
+With `hlc` set (the server's HybridLogicalClock, utils/events.py) every
+request carries a fresh stamp as X-Pilosa-HLC and the stamp of every
+response, an error's included, is merged (:176-181, :256-264), so what
+this node records after an RPC sorts after what the peer recorded while
+serving it. debug_events (:483) fetches a peer's /debug/events for the
+merged /cluster/events.
+
+Left out: the other calls of the federation (stats, usage, heat, hbm;
+ROADMAP Queue A 7g); the failpoint hooks (7j).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from typing import Optional
 
 from pilosa_tpu_torch import qos
 from pilosa_tpu_torch.utils import accounting
+from pilosa_tpu_torch.utils import events as _events
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import qctx, tracing
 
@@ -106,6 +113,7 @@ class InternalClient:
         self.bytes_sent = 0
         self.bytes_received = 0
         self._bytes_lock = threading.Lock()
+        self.hlc = None  # the node's HybridLogicalClock, set by the server
 
     # -- low level ----------------------------------------------------------
 
@@ -152,6 +160,8 @@ class InternalClient:
         priority = qos.current_priority.get() if qos.enabled() else None
         if priority:
             headers[qos.PRIORITY_HEADER] = priority
+        if self.hlc is not None:
+            headers[_events.HLC_HEADER] = _events.encode_hlc(self.hlc.now())
         sock_timeout = timeout if timeout is not None else self.timeout
         rem = qctx.remaining()
         if rem is not None:
@@ -200,6 +210,10 @@ class InternalClient:
                 self._drop_conn(key)
                 raise ClientError(f"{method} {path}: short body: read "
                                   f"{len(data)} of {clen} bytes")
+            if self.hlc is not None:
+                stamp = _events.decode_hlc(resp.getheader(_events.HLC_HEADER))
+                if stamp is not None:
+                    self.hlc.update(stamp)
             if resp.will_close:
                 self._drop_conn(key)
             with self._bytes_lock:
@@ -388,6 +402,14 @@ class InternalClient:
 
     def status(self, uri: str, timeout: Optional[float] = None) -> dict:
         out = self._request("GET", uri, "/status", timeout=timeout)
+        return json.loads(out) if out else {}
+
+    def debug_events(self, uri: str,
+                     timeout: Optional[float] = None) -> dict:
+        """A peer's event feed (GET /debug/events) for /cluster/events; a
+        peer without the route answers 404, which the caller reports as
+        a legacy node."""
+        out = self._request("GET", uri, "/debug/events", timeout=timeout)
         return json.loads(out) if out else {}
 
     def fenced_shards(self, uri: str,

@@ -29,6 +29,9 @@ JSON shapes for the public endpoints:
     POST        /recalculate-caches
     POST        /cluster/drain                 (JSON {"abort"?}: this
                                                 node's graceful drain)
+    GET         /cluster/events                (?since=, ?limit=: every
+                                                member's events merged in
+                                                HLC order)
     POST        /cluster/resize/abort
     POST        /cluster/resize/remove-node    (JSON {"id"})
     POST        /cluster/resize/set-coordinator (JSON {"id"})
@@ -48,6 +51,8 @@ arguments and JSON keys, and only the blocks the port has:
     GET         /debug/heat                    (?since=, ?limit=, ?top=)
     GET         /debug/timeseries              (?since=, ?limit=)
     GET         /debug/usage                   (?since=, ?limit=, ?top=)
+    GET         /debug/events                  (?since=, ?limit=, ?type=,
+                                                ?severity=)
     GET         /debug/query-history
     POST        /debug/device-profile          (?seconds=)
     GET         /debug/pprof[/goroutine|/profile]  (?seconds=)
@@ -112,6 +117,13 @@ Deliberate sheds, the API's cost shed among them, are left out of the
 5xx count the health score reads.
 /debug/vars has the usage, slo and qos blocks; /metrics the usage/*,
 slo/* and qos/* families, every time, zeros included.
+
+The event journal (:192-200, :704-707, :897-939, :1266-1276, :1506-1510):
+with `events` (the server's EventJournal) the caller's X-Pilosa-HLC is
+merged into the node's clock before dispatch and every response carries
+the clock's next stamp; /debug/vars has the events block and /metrics
+pilosa_events_total{type=} over the whole registry, zeros included, the
+evictions by lane and the retained and spool gauges.
 """
 
 from __future__ import annotations
@@ -139,6 +151,7 @@ from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.constants import KERNEL_FAMILY_REPS
 from pilosa_tpu_torch.ops import _build, kernels
 from pilosa_tpu_torch.utils import accounting
+from pilosa_tpu_torch.utils import events as _events
 from pilosa_tpu_torch.utils import heat as _heat
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import qctx
@@ -179,6 +192,8 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/version$"), "get_version"),
     ("GET", re.compile(r"^/debug/vars$"), "get_debug_vars"),
     ("GET", re.compile(r"^/debug/usage$"), "get_debug_usage"),
+    ("GET", re.compile(r"^/debug/events$"), "get_debug_events"),
+    ("GET", re.compile(r"^/cluster/events$"), "get_cluster_events"),
     ("GET", re.compile(r"^/debug/heat$"), "get_debug_heat"),
     ("GET", re.compile(r"^/debug/hbm$"), "get_debug_hbm"),
     ("POST", re.compile(r"^/debug/device-profile$"), "post_device_profile"),
@@ -237,6 +252,9 @@ ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "remote",
                       "get_debug_usage": frozenset({"since", "limit",
                                                     "top"}),
                       "get_debug_hbm": frozenset({"top"}),
+                      "get_debug_events": frozenset({"since", "limit",
+                                                     "type", "severity"}),
+                      "get_cluster_events": frozenset({"since", "limit"}),
                       "post_device_profile": frozenset({"seconds"})}
 
 
@@ -244,12 +262,13 @@ class Handler:
     """Route dispatch against an API instance; `stats`, `telemetry` (the
     TelemetrySampler) and `device_profiler` back the observability
     routes, `cluster_message_fn` the cluster's messages, `query_timeout`
-    (seconds, 0: none) caps every query's deadline, and `qos_plane` (a
-    qos.QosPlane, or None) admits external queries."""
+    (seconds, 0: none) caps every query's deadline, `qos_plane` (a
+    qos.QosPlane, or None) admits external queries, and `events` (an
+    EventJournal, or None) serves /debug/events and the HLC headers."""
 
     def __init__(self, api: API, stats=None, telemetry=None,
                  device_profiler=None, cluster_message_fn=None,
-                 query_timeout: float = 0.0, qos_plane=None):
+                 query_timeout: float = 0.0, qos_plane=None, events=None):
         self.api = api
         self.stats = stats
         self.telemetry = telemetry
@@ -257,6 +276,7 @@ class Handler:
         self.cluster_message_fn = cluster_message_fn
         self.query_timeout = query_timeout
         self.qos = qos_plane
+        self.events = events
         self.errors_5xx = 0  # 5xx answers, but deliberate sheds: health
         self.serializer = Serializer()
         self._local = threading.local()  # the request's headers
@@ -283,6 +303,11 @@ class Handler:
         client_addr = getattr(self._local, "client_addr", None)
         trace = headers.get(tracing.TRACE_HEADER) if headers else None
         token = tracing.current_trace_id.set(trace) if trace else None
+        if self.events is not None and headers is not None:
+            # what is recorded while serving sorts after the caller's
+            stamp = _events.decode_hlc(headers.get(_events.HLC_HEADER))
+            if stamp is not None:
+                self.events.clock.update(stamp)
         acct_token = prio_token = None
         principal = None
         ledger = self.api.usage_ledger
@@ -890,6 +915,8 @@ class Handler:
             g = self.gossip_status_fn()
             if g is not None:
                 snap["gossip"] = g
+        if self.events is not None:
+            snap["events"] = self.events.snapshot()
         # usage, SLO burn rates and the QoS plane (:737-749)
         snap["usage"] = self.api.usage_ledger.snapshot(top=20)
         snap["slo"] = self.api.slo.evaluate()
@@ -908,6 +935,37 @@ class Handler:
         out["enabled"] = ledger.enabled and accounting.enabled()
         out["slo"] = self.api.slo.evaluate()
         return self._json(out)
+
+    def get_debug_events(self, params, query, body):
+        """The event feed (:897-926): events newer than ?since=, the newest
+        ?limit=, of one ?type= or ?severity= (lane)."""
+        since, limit = self._int_args(query, since=0, limit=0)
+        etype = self._arg(query, "type")
+        severity = self._arg(query, "severity")
+        if severity and severity not in _events.LANES:
+            raise ApiError(
+                f"invalid severity {severity!r} (expected "
+                f"{' | '.join(_events.LANES)})")
+        if etype and etype not in _events.EVENT_TYPES:
+            raise ApiError(f"unknown event type {etype!r}")
+        if self.events is None:
+            return self._json({"seq": 0, "enabled": False, "node": "",
+                               "events": []})
+        out = self.events.since(since, limit, etype=etype,
+                                severity=severity)
+        out["enabled"] = _events.enabled()
+        out["node"] = self.events.node_id
+        return self._json(out)
+
+    def get_cluster_events(self, params, query, body):
+        """The merged cluster timeline (:928-939, Server.cluster_events)."""
+        if self.api.cluster_events_fn is None:
+            raise ApiError("cluster events not supported", status=501)
+        try:
+            limit = int(self._arg(query, "limit", "0"))
+        except ValueError:
+            raise ApiError("limit must be an integer")
+        return self._json(self.api.cluster_events_fn(limit=limit))
 
     def _process_gauges(self) -> dict:
         """Gauges of this process: the fan-out pool's occupancy, each
@@ -1156,6 +1214,17 @@ class Handler:
             gauges["drain/draining"] = 1.0 if ds["draining"] else 0.0
             gauges["drain/activeQueries"] = ds["activeQueries"]
             counts["drain/shedQueries"] = ds["shedQueries"]
+        # the event families over the whole registry, zeros included
+        # (:1266-1276)
+        if self.events is not None:
+            es = self.events.snapshot()
+            for t in sorted(_events.EVENT_TYPES):
+                counts[f"events,type:{t}"] = es["byType"].get(t, 0)
+            for lane, n in es["evicted"].items():
+                counts[f"events/evicted,lane:{lane}"] = n
+            gauges["events/retained"] = float(
+                sum(es["retained"].values()))
+            gauges["events/spoolBytes"] = float(es["spoolBytes"])
         snap = dict(snap, counts=counts, gauges=gauges, timings=timings)
         return (200, "text/plain; version=0.0.4; charset=utf-8",
                 prometheus_exposition(snap).encode())
@@ -1215,6 +1284,12 @@ class _RequestHandler(BaseHTTPRequestHandler):
         status, ctype, payload = resp[:3]
         self.send_response(status)
         self.send_header("Content-Type", ctype)
+        events = self.handler.events
+        if events is not None:
+            # the caller merges it: its later events sort after this
+            # node's
+            self.send_header(_events.HLC_HEADER,
+                             _events.encode_hlc(events.clock.now()))
         for k, v in (resp[3] if len(resp) > 3 else {}).items():
             self.send_header(k, v)
         self.send_header("Content-Length", str(len(payload)))

@@ -27,10 +27,13 @@ counted in crypto_drops. Seeds are "host:port", a bare host
 (DEFAULT_PORT 14000), ":port" or "[v6]:port" (parse_seed); a wildcard
 bind advertises the host's outbound address.
 
-Left out: the hybrid logical clock stamp ("hlc") that JAX datagrams
-carry for its event journal (the port has no journal; a stamp it
-receives is ignored). Added: the seconds spent sealing and opening and
-the datagrams each covers (seal_s, sealed, open_s, opened).
+With `clock` set (the server's HybridLogicalClock, utils/events.py)
+every datagram sent carries a fresh stamp as "hlc": [ms, logical],
+inside the AES-GCM seal like every other field, and every datagram
+received merges its stamp (:185-190, :336-338, :377-378), so a gossip
+hop orders the event journal as an RPC does. Added: the seconds spent
+sealing and opening and the datagrams each covers (seal_s, sealed,
+open_s, opened).
 """
 
 from __future__ import annotations
@@ -186,6 +189,7 @@ class Gossip:
         self.on_suspect = on_suspect
         self.on_dead = on_dead
         self.logger = logger
+        self.clock = None  # a HybridLogicalClock, set by the server
         self._family = (socket.AF_INET6 if ":" in bind_host
                         else socket.AF_INET)
         self._sock = socket.socket(self._family, socket.SOCK_DGRAM)
@@ -329,6 +333,9 @@ class Gossip:
         # explicit updates (e.g. the tell-the-sender-it-is-suspected ack
         # path) ride in front of the piggyback queue
         msg["updates"] = msg.get("updates", []) + self._take_piggyback()
+        if self.clock is not None:
+            p, lc = self.clock.now()
+            msg["hlc"] = [p, lc]
         data = json.dumps(msg).encode()
         if len(data) > _MAX_DATAGRAM:  # shed piggyback before giving up
             msg["updates"] = []
@@ -375,6 +382,8 @@ class Gossip:
                 msg = json.loads(data)
             except ValueError:
                 continue
+            if self.clock is not None and msg.get("hlc") is not None:
+                self.clock.update(msg["hlc"])
             for u in msg.get("updates", []):
                 self._apply_update(u)
             t = msg.get("t")

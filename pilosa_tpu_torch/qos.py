@@ -29,10 +29,13 @@ and [qos] keys, so port, JAX and mixed clusters enforce one policy):
 PILOSA_TPU_TORCH_QOS=0 (the JAX package's PILOSA_TPU_QOS=0) turns the
 whole plane off, the priority plumbing and pools included; read per call.
 
-The JAX plane writes shed storms and quota debt into the event journal
-(:542-547); the port has no journal yet, so _journal_emit is a no-op and
-only the storm counters remain (ROADMAP Queue A 7e). The dashboard's QoS
-panel waits with the dashboard (7f).
+Shed storms and quota debt go into the event journal (`journal`, the
+server's utils/events.py EventJournal; :542-547, :612-630, :716):
+qos.shed_storm.start when STORM_N rejections fall within STORM_WINDOW_S,
+qos.shed_storm.end at the first admission a window after the last one,
+and qos.quota_debt for a 429 whose Retry-After reaches QUOTA_DEBT_S, at
+most once a principal every DEBT_EMIT_INTERVAL_S. The dashboard's QoS
+panel waits with the dashboard (ROADMAP Queue A 7f).
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ import threading
 import time
 from concurrent.futures import Future
 from typing import Optional
+
+from pilosa_tpu_torch.utils import events as _events
 
 PRIORITY_HEADER = "X-Pilosa-Priority"
 
@@ -319,6 +324,7 @@ class QosPlane:
         self.ledger = ledger
         self.health_fn = health_fn
         self.logger = logger
+        self.journal = None  # an EventJournal, set by the server
         self._storm_times: collections.deque = collections.deque()
         self.storm_active = False
         self._storm_started = 0.0
@@ -482,9 +488,6 @@ class QosPlane:
             storm_started = self._note_rejection(now, "draining")
         self._storm_debt_events(storm_started, False, "", "draining", 0.0)
 
-    def _journal_emit(self, etype: str, **fields) -> None:
-        """No journal in the port yet (ROADMAP Queue A 7e)."""
-
     def _note_rejection(self, now: float, reason: str) -> bool:
         """One rejection toward a storm (under _lock); True when it
         started one."""
@@ -553,14 +556,14 @@ class QosPlane:
                            principal: str, reason: str,
                            retry_after: float) -> None:
         if storm_started:
-            self._journal_emit("qos.shed_storm.start", reason=reason,
-                               mode=self.mode,
-                               windowSeconds=self.STORM_WINDOW_S,
-                               threshold=self.STORM_N)
+            _events.record(self.journal, "qos.shed_storm.start",
+                           reason=reason, mode=self.mode,
+                           windowSeconds=self.STORM_WINDOW_S,
+                           threshold=self.STORM_N)
         if debt:
-            self._journal_emit("qos.quota_debt", principal=principal,
-                               reason=reason,
-                               retryAfterSeconds=round(retry_after, 3))
+            _events.record(self.journal, "qos.quota_debt",
+                           principal=principal, reason=reason,
+                           retryAfterSeconds=round(retry_after, 3))
 
     # -- admission ----------------------------------------------------------
 
@@ -645,7 +648,7 @@ class QosPlane:
             self._pp(principal)["admitted"] += 1
             calm = self._note_calm(now)
         if calm is not None:
-            self._journal_emit("qos.shed_storm.end", **calm)
+            _events.record(self.journal, "qos.shed_storm.end", **calm)
         return None
 
     # -- surfaces -----------------------------------------------------------

@@ -58,8 +58,10 @@ syncs a returning peer before telling it its hints are in, and heals on
 READY only a peer it had marked down: with two replicas a merge is a
 union, so a bit that a stale copy still holds would come back after an
 acknowledged Clear, whether the Clear is a write in flight between the
-replicas or a hint not yet replayed to a returning node. The event
-journal's calls of the JAX code are left out (the port has no journal).
+replicas or a hint not yet replayed to a returning node. So each event
+of the journal fires where the port's state changes, under the JAX
+event's name and fields: a fence.lifted of a shard that waited for the
+peers' hints says so (awaitedHints, the port's own field).
 
 Membership changes (:1681-2093, message types :1472-1550): a node
 opened with join=True treats cluster_hosts as seeds, knocks on them
@@ -136,7 +138,31 @@ and ingest_max_batch ([ingest]: the IngestBatcher's admission window and
 batch bound), query_history_size ([cluster]) and telemetry_ring
 ([metric]).
 
-Not served yet: the /cluster/* federation.
+The event journal and the logger (utils/events.py, utils/logger.py;
+pilosa_tpu/server.py:163-202): the node's HybridLogicalClock stamps every
+event and rides on every internal RPC (net/client.py, both ways) and
+gossip datagram; the EventJournal (events_ring, events_spool; the spool
+at <data_dir>/events.spool.jsonl, reloaded at open) serves GET
+/debug/events, and SIGQUIT writes it to <data_dir>/events.crash-<ts>.jsonl
+(register_crash_dump at open, unregister at close). The events: node.start
+and node.stop; wal.truncated and snapshot.quarantined at open;
+peer.down and peer.up by probe and by gossip; peer.draining and
+peer.rejoined; drain.start, drain.complete and drain.abort;
+fence.armed, fence.lifted and fence.expired; hint.replay (and, in
+storage/hints.py, hint.append and hint.drop); scrub.pass; resize.start,
+resize.complete and resize.abort on the coordinator; topology.change
+where a topology message changes this node's membership (as in the JAX
+package, the coordinator records its own change as resize.complete);
+health.transition on the sampler's tick; the QoS plane's and the
+executor's own. cluster_events() merges every member's feed (GET
+/cluster/events). The Logger (log_path, log_format, verbose; stderr
+without a path) takes every log line at the JAX site's level, and its
+warnf and errorf lines land in the journal's log lane. metric_service
+and metric_host select the StatsClient (utils/stats.py
+new_stats_client); profile_mode is the API's [cluster] profile.
+
+Not served yet: the rest of the /cluster/* federation (stats, heat, hbm,
+usage).
 
 String keys are minted into a TranslateStore at <data_dir>/.keys (its
 sqlite index at .keys.idx; pilosa_tpu/server.py:151) through the
@@ -168,7 +194,6 @@ import io
 import os
 import queue
 import random
-import sys
 import threading
 import time
 import uuid
@@ -202,10 +227,12 @@ from pilosa_tpu_torch.state import open_holder
 from pilosa_tpu_torch.storage.hints import HintStore
 from pilosa_tpu_torch.storage.roaring import Bitmap
 from pilosa_tpu_torch.utils import accounting as _accounting
+from pilosa_tpu_torch.utils import events as _events
 from pilosa_tpu_torch.utils import telemetry as _telemetry
 from pilosa_tpu_torch.utils.profile import QueryHistory
 from pilosa_tpu_torch.utils.cluster_translate import ClusterTranslator
-from pilosa_tpu_torch.utils.stats import StatsClient
+from pilosa_tpu_torch.utils.logger import Logger
+from pilosa_tpu_torch.utils.stats import new_stats_client
 from pilosa_tpu_torch.utils.tracing import Tracer
 from pilosa_tpu_torch.utils.translate import TranslateStore
 
@@ -220,10 +247,6 @@ def process_rss() -> int:
     except OSError:
         pass
     return 0
-
-
-def _log(msg: str) -> None:
-    print(f"pilosa-tpu-torch: {msg}", file=sys.stderr, flush=True)
 
 
 class Server:
@@ -305,7 +328,15 @@ class Server:
                  qos_bytes_per_s: float = 0.0,
                  qos_burst: float = 2.0,
                  qos_max_principals: int = 256,
-                 qos_principals: Optional[dict] = None):
+                 qos_principals: Optional[dict] = None,
+                 events_ring: int = 2048,
+                 events_spool: int = 0,
+                 metric_service: str = "expvar",
+                 metric_host: str = "127.0.0.1:8125",
+                 profile_mode: str = "auto",
+                 log_path: str = "",
+                 log_format: str = "plain",
+                 verbose: bool = False):
         if wal_fsync not in ("off", "always"):
             raise ValueError(f"invalid [storage] wal-fsync {wal_fsync!r} "
                              "(expected off | always)")
@@ -342,6 +373,21 @@ class Server:
                 "[cluster] hint-max-age and drain-timeout must be >= 0")
         if liveness_threshold < 1:
             raise ValueError("[cluster] liveness-threshold must be >= 1")
+        if events_ring < 1:
+            raise ValueError(
+                f"invalid [metric] events-ring {events_ring!r} "
+                "(expected >= 1)")
+        if events_spool < 0:
+            raise ValueError("[metric] events-spool must be >= 0")
+        if profile_mode not in ("off", "auto", "on"):
+            raise ValueError(
+                f"invalid [cluster] profile mode {profile_mode!r} "
+                "(expected off | auto | on)")
+        # Logger validates the format; log_path appends there instead of
+        # stderr
+        self.logger = Logger(verbose=verbose, fmt=log_format)
+        if log_path:
+            self.logger.out = open(log_path, "a")
         self.data_dir = data_dir
         self.node_id = node_id
         self.cluster_hosts = list(cluster_hosts or [])
@@ -428,7 +474,15 @@ class Server:
         self.ingest_batch_window = ingest_batch_window
         self.ingest_max_batch = ingest_max_batch
         self.query_history_size = query_history_size
-        self.stats = StatsClient()
+        self.profile_mode = profile_mode
+        self.stats = new_stats_client(metric_service, metric_host)
+        # the clock of the event journal (made at open, once the node id is
+        # known); here so that a test can skew its wall before open
+        self.clock = _events.HybridLogicalClock()
+        self.events_ring = events_ring
+        self.events_spool = events_spool
+        self.events: Optional[_events.EventJournal] = None
+        self._last_health: Optional[str] = None
         self.tracer = Tracer()
         self.telemetry = _telemetry.TelemetrySampler(
             interval=telemetry_interval, ring_size=telemetry_ring,
@@ -459,7 +513,8 @@ class Server:
             device_ms_per_s=qos_device_ms_per_s,
             bytes_per_s=qos_bytes_per_s, burst_s=qos_burst,
             max_principals=qos_max_principals, principals=qos_principals,
-            ledger=self.usage, health_fn=self.node_health, logger=_log)
+            ledger=self.usage, health_fn=self.node_health,
+            logger=self.logger.printf)
         self._telemetry_prev: tuple = (None, 0.0)
         self._last_hit_rate = 1.0  # carried through windows without lookups
         self._last_plan_hit_rate = 0.0  # the plan cache starts cold
@@ -494,23 +549,42 @@ class Server:
     def open(self) -> "Server":
         self.holder = open_holder(self.data_dir,
                                   wal_fsync=self.wal_fsync == "always")
+        self.node_id = self.node_id or self._load_or_create_id()
+        # the event journal (:171-202): its spool's tail is reloaded here,
+        # so a restarted node's earlier events stay on the timeline
+        self.events = _events.EventJournal(
+            node_id=self.node_id, ring_size=self.events_ring,
+            clock=self.clock,
+            spool_path=(os.path.join(self.data_dir, "events.spool.jsonl")
+                        if self.events_spool > 0 else ""),
+            spool_max_bytes=self.events_spool, stats=self.stats)
+        self.logger.journal = self.events
+        _events.register_crash_dump(self.events, self.data_dir)
         for d in self.holder.damaged_fragments():
             frag = f"{d['index']}/{d['field']}/{d['view']}/{d['shard']}"
             if d["quarantinePath"]:
-                _log(f"fragment {frag} failed its integrity check "
-                     f"({d['corruptionError']}): quarantined to "
-                     f"{d['quarantinePath']}, reopened empty; the scrubber "
-                     "rebuilds it from a replica")
+                self.logger.errorf(
+                    f"fragment {frag} failed its integrity check "
+                    f"({d['corruptionError']}): quarantined to "
+                    f"{d['quarantinePath']}, reopened empty; the scrubber "
+                    "rebuilds it from a replica")
+                self.events.emit("snapshot.quarantined", fragment=frag,
+                                 error=str(d["corruptionError"])[:200],
+                                 quarantinePath=d["quarantinePath"])
             if d["walTruncatedBytes"]:
-                _log(f"fragment {frag} had a torn WAL tail "
-                     f"({d['walTruncateError']}): truncated "
-                     f"{d['walTruncatedBytes']} unacknowledged bytes")
-        self.node_id = self.node_id or self._load_or_create_id()
+                self.logger.warnf(
+                    f"fragment {frag} had a torn WAL tail "
+                    f"({d['walTruncateError']}): truncated "
+                    f"{d['walTruncatedBytes']} unacknowledged bytes")
+                self.events.emit("wal.truncated", fragment=frag,
+                                 bytes=int(d["walTruncatedBytes"]))
         self.cluster = Cluster(
             self.node_id, replica_n=self.replica_n,
             schema_fn=self._schema_shards,
             topology_path=os.path.join(self.data_dir, ".topology"))
         self.client = InternalClient()
+        # every internal RPC carries this node's stamp; responses merge
+        self.client.hlc = self.clock
         self.translate = TranslateStore(
             os.path.join(self.data_dir, ".keys")).open()
         self.cluster_translate = ClusterTranslator(self.translate,
@@ -533,8 +607,10 @@ class Server:
         # hints reach the kernel at append, as the WAL's records do
         self.hints = HintStore(os.path.join(self.data_dir, ".hints"),
                                max_bytes=self.hint_max_bytes,
-                               max_age=self.hint_max_age, stats=self.stats)
+                               max_age=self.hint_max_age, stats=self.stats,
+                               logger=self.logger, journal=self.events)
         ex.hints = self.hints
+        ex.journal = self.events
         ex.fanout_pool_size = self.fanout_pool_size
         ex.hedge_delay = self.hedge_delay
         ex.ici_mode = self.ici_serving
@@ -544,11 +620,15 @@ class Server:
         ex.ingest.admission_s = float(self.ingest_batch_window)
         ex.ingest.max_batch = max(1, self.ingest_max_batch)
         self.qos.executor = ex
+        self.qos.journal = self.events
         self.device_profiler = _telemetry.DeviceProfiler(
             ex.runner.device, kernel_names=kernels.DEVICE_KERNELS)
         self.api = API(self.holder, ex, self.cluster_translate,
                        cluster=self.cluster)
         self.api.long_query_time = self.long_query_time
+        self.api.logger = self.logger
+        self.api.profile_mode = self.profile_mode
+        self.api.cluster_events_fn = self.cluster_events
         self.api.query_history = QueryHistory(self.query_history_size)
         self.api.max_writes_per_request = self.max_writes_per_request
         self.api.usage_ledger = self.usage
@@ -560,7 +640,7 @@ class Server:
                                device_profiler=self.device_profiler,
                                cluster_message_fn=self.receive_message,
                                query_timeout=self.query_timeout,
-                               qos_plane=self.qos)
+                               qos_plane=self.qos, events=self.events)
         self.handler.gossip_status_fn = self.gossip_status
         self.http = HTTPServer(self.handler, self.host, self.port)
         self.api.uri = self.http.uri
@@ -620,6 +700,8 @@ class Server:
             self.request_join()
         if self._gossip_port is not None:
             self._open_gossip()
+        self.events.emit("node.start", uri=self.http.uri,
+                         cluster=bool(self.cluster_hosts))
         if self.cluster_hosts and not joining:
             self.broadcast({"type": "node-state", "id": self.node_id,
                             "state": "READY"})
@@ -642,6 +724,13 @@ class Server:
         self._fence_wake.set()
         self._bcast_queue.put(None)
         self.telemetry.close()
+        if self.events is not None:
+            # node.stop is the node's last event: a scrub pass in flight
+            # stops at its next fragment (sync_holder reads `closed`) and
+            # records no scrub.pass
+            with self._scrub_lock:
+                self.events.emit("node.stop")
+            _events.unregister_crash_dump(self.events)
         if self.http is not None:
             self.http.close()
             self.http = None
@@ -688,7 +777,8 @@ class Server:
             # of every live peer that still has hints
             self._retry_pending_hints()
         except Exception as e:  # noqa: BLE001 — the tick must go on
-            _log(f"membership tick failed: {type(e).__name__}: {e}")
+            self.logger.printf(
+                f"membership tick failed: {type(e).__name__}: {e}")
         finally:
             self._schedule_membership_refresh()
 
@@ -778,8 +868,11 @@ class Server:
                         self._probe_successes[node.id] = ok
                         continue
                     self._probe_successes.pop(node.id, None)
-                    _log(f"liveness: node {node.id} ({node.uri}) back up")
+                    self.logger.printf(
+                        f"liveness: node {node.id} ({node.uri}) back up")
                     self.cluster.mark_up(node.id)
+                    self.events.emit("peer.up", peer=node.id,
+                                     detector="probe")
                     self._on_node_return(node)
                 elif (self.cluster.is_draining(node.id)
                       and states.get(node.id) == "READY"):
@@ -807,16 +900,21 @@ class Server:
             t.join(3 * self.probe_timeout + 3.0)
         for node in suspects:
             if refuted.get(node.id):
-                _log(f"liveness: node {node.id} suspected but refuted by an "
-                     "indirect probe (a link problem, not a death)")
+                self.logger.printf(
+                    f"liveness: node {node.id} suspected but refuted by an "
+                    "indirect probe (a link problem, not a death)")
                 self._probe_failures.pop(node.id, None)
                 self.stats.count("liveness/suspect_refuted")
                 continue
-            _log(f"liveness: node {node.id} ({node.uri}) failed "
-                 f"{self._probe_failures.get(node.id, 0)} probes, marking "
-                 "it down")
+            self.logger.printf(
+                f"liveness: node {node.id} ({node.uri}) failed "
+                f"{self._probe_failures.get(node.id, 0)} probes, marking "
+                "it down")
             self.cluster.mark_down(node.id)
             self.stats.count("liveness/node_down")
+            self.events.emit("peer.down", peer=node.id, detector="probe",
+                             failedProbes=self._probe_failures.get(
+                                 node.id, 0))
 
     def _indirect_confirms_alive(self, target, peers, results) -> bool:
         """Whether any of INDIRECT_PROBES live peers reaches target (asked
@@ -861,9 +959,11 @@ class Server:
         node = self.cluster.node_by_id(nid)
         if state == "DRAINING":
             if node is not None and not self.cluster.is_draining(nid):
-                _log(f"peer {nid} is draining: routing around it")
+                self.logger.printf(
+                    f"peer {nid} is draining: routing around it")
                 self.cluster.mark_draining(nid)
                 self.stats.count("drain/peerDraining")
+                self.events.emit("peer.draining", peer=nid)
         elif state == "READY":
             was_away = (self.cluster.is_down(nid)
                         or self.cluster.is_draining(nid))
@@ -874,7 +974,9 @@ class Server:
                 # a peer that restarted before it was marked down waits
                 # for this node's hints-replayed too
                 if was_away:
-                    _log(f"peer {nid} rejoined: replaying its hints")
+                    self.logger.printf(
+                        f"peer {nid} rejoined: replaying its hints")
+                    self.events.emit("peer.rejoined", peer=nid)
                 self._on_node_return(node)
 
     def _on_node_return(self, node) -> None:
@@ -900,7 +1002,8 @@ class Server:
                         "schema": self.holder.schema(),
                         "availableShards": self._schema_shards()})
                 except ClientError as e:
-                    _log(f"schema re-sync to {node.id} failed: {e}")
+                    self.logger.printf(
+                        f"schema re-sync to {node.id} failed: {e}")
                 claim = self.cluster._explicit_claim
                 if claim:
                     self._send_quiet(node.uri, {"type": "set-coordinator",
@@ -909,7 +1012,7 @@ class Server:
                     _r, _d, complete = self.replay_hints(node)
                 except Exception as e:  # noqa: BLE001 — fall back to sync
                     complete = False
-                    _log(f"hint replay to {node.id} failed: {e}")
+                    self.logger.printf(f"hint replay to {node.id} failed: {e}")
                 self._send_quiet(node.uri, {
                     "type": "hints-replayed", "target": node.id,
                     "from": self.node_id, "complete": complete})
@@ -917,7 +1020,8 @@ class Server:
                     try:
                         self._sync_with_node(node.id)
                     except Exception as e:  # noqa: BLE001 — best effort
-                        _log(f"post-return sync with {node.id} failed: {e}")
+                        self.logger.printf(
+                            f"post-return sync with {node.id} failed: {e}")
             finally:
                 with self._return_lock:
                     self._return_heals.discard(node.id)
@@ -975,9 +1079,13 @@ class Server:
 
         replayed, dropped, complete = self.hints.replay(node.id, apply)
         if replayed or dropped:
-            _log(f"hints: replayed {replayed} to {node.id}, {dropped} "
-                 "dropped" + ("" if complete else
-                              "; anti-entropy finishes the heal"))
+            self.events.emit("hint.replay", target=node.id,
+                             replayed=replayed, dropped=dropped,
+                             complete=complete)
+            self.logger.printf(
+                f"hints: replayed {replayed} to {node.id}, {dropped} "
+                "dropped" + ("" if complete else
+                             "; anti-entropy finishes the heal"))
         return replayed, dropped, complete
 
     def _apply_schema(self, schema: list) -> None:
@@ -1024,10 +1132,13 @@ class Server:
             on_alive=self._on_gossip_alive, on_dead=self._on_gossip_dead,
             secret_key=(derive_key(self._gossip_secret)
                         if self._gossip_secret else None),
-            logger=_log)
+            logger=self.logger.printf)
+        # gossip datagrams carry the clock's stamp, as the RPCs do
+        self.gossip.clock = self.clock
         self.gossip.open(seeds=[parse_seed(s) for s in self._gossip_seeds])
-        _log(f"gossip: listening on {self.gossip.host}:{self.gossip.port} "
-             f"(seeds: {','.join(self._gossip_seeds) or 'none'})")
+        self.logger.printf(
+            f"gossip: listening on {self.gossip.host}:{self.gossip.port} "
+            f"(seeds: {','.join(self._gossip_seeds) or 'none'})")
 
     def _on_gossip_dead(self, member) -> None:
         """Gossip's suspicion of a member expired: route around it."""
@@ -1035,10 +1146,13 @@ class Server:
             return
         if self.cluster.node_by_id(member.id) is not None \
                 and not self.cluster.is_down(member.id):
-            _log(f"gossip: node {member.id} dead (suspicion expired), "
-                 "marking it down")
+            self.logger.printf(
+                f"gossip: node {member.id} dead (suspicion expired), "
+                "marking it down")
             self.cluster.mark_down(member.id)
             self.stats.count("liveness/node_down")
+            self.events.emit("peer.down", peer=member.id,
+                             detector="gossip")
 
     def _on_gossip_alive(self, member) -> None:
         """A member is alive: a down one is marked up and healed; an
@@ -1058,8 +1172,9 @@ class Server:
                         self._apply_membership([{"id": member.id,
                                                  "uri": uri}], http.uri)
         elif self.cluster.is_down(member.id):
-            _log(f"gossip: node {member.id} back up")
+            self.logger.printf(f"gossip: node {member.id} back up")
             self.cluster.mark_up(member.id)
+            self.events.emit("peer.up", peer=member.id, detector="gossip")
             self._on_node_return(node)
 
     def gossip_status(self) -> Optional[dict]:
@@ -1111,7 +1226,8 @@ class Server:
         me = self.cluster.local_node
         if me is not None and me.state == "DRAINING":
             me.state = "READY"
-        _log("drain: aborted, serving again")
+        self.logger.printf("drain: aborted, serving again")
+        self.events.emit("drain.abort")
         self.broadcast({"type": "node-state", "id": self.node_id,
                         "state": "READY"})
 
@@ -1142,8 +1258,10 @@ class Server:
             if me is not None:
                 me.state = "DRAINING"
             self.stats.count("drain/started")
-            _log(f"drain: shedding new external queries (timeout "
-                 f"{timeout:.1f} s)")
+            self.logger.printf(
+                f"drain: shedding new external queries (timeout "
+                f"{timeout:.1f} s)")
+            self.events.emit("drain.start", timeoutSeconds=timeout)
             self.broadcast({"type": "node-state", "id": self.node_id,
                             "state": "DRAINING"})
         inflight_ok = self._drain_wait(
@@ -1159,7 +1277,7 @@ class Server:
         try:
             self.holder.flush_caches()
         except Exception as e:  # noqa: BLE001 — caches are rebuilt
-            _log(f"drain: rank cache flush failed: {e}")
+            self.logger.printf(f"drain: rank cache flush failed: {e}")
         for iname, fname, vname, shard, frag in \
                 list(self.holder.walk_fragments()):
             if frag.op_n <= 0 and not frag._volatile:
@@ -1169,17 +1287,22 @@ class Server:
                 snapshotted += 1
             except (OSError, ValueError) as e:
                 errors += 1
-                _log(f"drain: final snapshot of {iname}/{fname}/{vname}/"
-                     f"{shard} failed: {e}")
+                self.logger.printf(
+                    f"drain: final snapshot of {iname}/{fname}/{vname}/"
+                    f"{shard} failed: {e}")
         self.drained = True
         self._drain_info = {
             "inflightDrained": inflight_ok, "queuesFlushed": flushed_ok,
             "snapshotted": snapshotted, "snapshotErrors": errors,
             "durationSeconds": round(time.monotonic() - t0, 3)}
         self.stats.count("drain/completed")
-        _log(f"drain: done in {self._drain_info['durationSeconds']:.2f} s "
-             f"(in-flight {inflight_ok}, queues {flushed_ok}, snapshots "
-             f"{snapshotted}): the process may stop")
+        self.logger.printf(
+            f"drain: done in {self._drain_info['durationSeconds']:.2f} s "
+            f"(in-flight {inflight_ok}, queues {flushed_ok}, snapshots "
+            f"{snapshotted}): the process may stop")
+        self.events.emit("drain.complete", snapshotted=snapshotted,
+                         snapshotErrors=errors,
+                         durationSeconds=self._drain_info["durationSeconds"])
         return self.drain_status()
 
     def drain_status(self) -> dict:
@@ -1204,8 +1327,10 @@ class Server:
         if not n:
             return
         self.stats.count("readFence/fenced", n)
-        _log(f"rejoin: read-fenced {n} shard(s) until their block "
-             "checksums match a replica")
+        self.logger.printf(
+            f"rejoin: read-fenced {n} shard(s) until their block "
+            "checksums match a replica")
+        self.events.emit("fence.armed", shards=n)
         self._start_fence_worker()
 
     def _start_fence_worker(self) -> None:
@@ -1224,7 +1349,7 @@ class Server:
             try:
                 self._verify_fence_pass()
             except Exception as e:  # noqa: BLE001 — retried next tick
-                _log(f"rejoin: fence check failed: {e}")
+                self.logger.printf(f"rejoin: fence check failed: {e}")
             if not ex.read_fence:
                 break
             if time.monotonic() >= deadline:
@@ -1234,9 +1359,12 @@ class Server:
                     n = len(ex.read_fence)
                     ex.read_fence.clear()
                 self.stats.count("readFence/expired", n)
-                _log(f"rejoin: fence expired after "
-                     f"{self.rejoin_fence_timeout:.0f} s with {n} shard(s) "
-                     "unverified: serving local data")
+                self.logger.warnf(
+                    f"rejoin: fence expired after "
+                    f"{self.rejoin_fence_timeout:.0f} s with {n} shard(s) "
+                    "unverified: serving local data")
+                self.events.emit("fence.expired", shards=n,
+                                 timeoutSeconds=self.rejoin_fence_timeout)
                 break
             self._fence_wake.wait(0.25)
             self._fence_wake.clear()
@@ -1305,6 +1433,12 @@ class Server:
                     healed = True
         ex.unfence_reads(key)
         self.stats.count("readFence/verified")
+        # awaitedHints (the port's own field): the shard's blocks differed
+        # before every live peer had replayed its hints to this node, so it
+        # lifted only after them
+        self.events.emit("fence.lifted", index=iname, shard=shard,
+                         healed=healed,
+                         awaitedHints=key in self._fence_diverged or None)
         if healed:
             self.stats.count("readFence/healed")
         return 1
@@ -1328,7 +1462,8 @@ class Server:
         try:
             self.scrub_pass()
         except Exception as e:  # noqa: BLE001 — the next pass retries
-            _log(f"anti-entropy: pass failed: {type(e).__name__}: {e}")
+            self.logger.printf(
+                f"anti-entropy: pass failed: {type(e).__name__}: {e}")
         finally:
             self._schedule_anti_entropy()
 
@@ -1342,9 +1477,16 @@ class Server:
         if self.executor.read_fence:
             return 0
         with self._scrub_lock:
+            if self.closed:
+                return 0
             t0 = time.monotonic()
             rebuilt = self.repair_quarantined()
             merged = self.sync_holder()
+            if self.closed:
+                return merged  # cut short: close() records node.stop
+            self.events.emit("scrub.pass", blocksMerged=merged,
+                             fragmentsRebuilt=rebuilt,
+                             seconds=round(time.monotonic() - t0, 3))
             self.stats.count("antiEntropy/passes")
             if merged:
                 self.stats.count("antiEntropy/blocksMerged", merged)
@@ -1376,16 +1518,18 @@ class Server:
                 try:
                     frag.import_roaring(data)
                 except (ValueError, OSError) as e:
-                    _log(f"scrubber: rebuild of {iname}/{fname}/{vname}/"
-                         f"{shard} from {node.id} failed: {e}")
+                    self.logger.printf(
+                        f"scrubber: rebuild of {iname}/{fname}/{vname}/"
+                        f"{shard} from {node.id} failed: {e}")
                     continue
                 self._refresh_rank(iname, fname, vname, shard)
                 frag.rebuilt_from = node.id
                 rebuilt += 1
-                _log(f"scrubber: rebuilt quarantined fragment {iname}/"
-                     f"{fname}/{vname}/{shard} from {node.id} "
-                     f"({frag.bit_count()} bits; the damaged file stays at "
-                     f"{frag.quarantine_path})")
+                self.logger.printf(
+                    f"scrubber: rebuilt quarantined fragment {iname}/"
+                    f"{fname}/{vname}/{shard} from {node.id} "
+                    f"({frag.bit_count()} bits; the damaged file stays at "
+                    f"{frag.quarantine_path})")
                 break
         return rebuilt
 
@@ -1813,6 +1957,8 @@ class Server:
         uri_by_id = {n.id: n.uri for n in self.cluster.nodes}
         if job.node is not None:
             uri_by_id.setdefault(job.node.id, job.node.uri)
+        self.events.emit("resize.start", job=job.id, event=job.event,
+                         node=job.node_id)
         self._arm_watchdog(job.id)
         schema = self.holder.schema()
         avail = self._schema_shards()
@@ -1832,8 +1978,9 @@ class Server:
             try:
                 self.client.send_message(uri_by_id[target], msg)
             except ClientError as e:
-                _log(f"resize: instruction undeliverable to {target}: {e}; "
-                     "aborting the job")
+                self.logger.printf(
+                    f"resize: instruction undeliverable to {target}: {e}; "
+                    "aborting the job")
                 with self._resize_lock:
                     self.cluster.abort_resize()
                 self._resize_aborted()
@@ -1929,8 +2076,9 @@ class Server:
             if job is None or job.id != msg.get("job"):
                 return
             if msg.get("error"):
-                _log(f"resize: job {job.id} failed on {msg.get('node')}: "
-                     f"{msg['error']}")
+                self.logger.printf(
+                    f"resize: job {job.id} failed on {msg.get('node')}: "
+                    f"{msg['error']}")
                 self.cluster.abort_resize()
                 aborted, finished = True, False
             else:
@@ -1950,6 +2098,8 @@ class Server:
             return
         if self._resize_watchdog is not None:
             self._resize_watchdog.cancel()
+        self.events.emit("resize.complete", job=job.id, event=job.event,
+                         node=job.node_id)
         if job.event == EVENT_LEAVE:
             # a departed node's hints can never be delivered
             self.hints.drop_target(job.node_id)
@@ -1976,8 +2126,9 @@ class Server:
             job = self.cluster.active_job
             if job is None or job.id != job_id:
                 return
-            _log(f"resize: job {job_id} timed out after "
-                 f"{self.resize_timeout:.0f} s; aborting it")
+            self.logger.printf(
+                f"resize: job {job_id} timed out after "
+                f"{self.resize_timeout:.0f} s; aborting it")
             self.cluster.abort_resize()
         self._resize_aborted()
 
@@ -1989,6 +2140,7 @@ class Server:
     def _resize_aborted(self) -> None:
         """Un-gate the members, then start the next queued join or leave
         (an aborted join knocks again by itself)."""
+        self.events.emit("resize.abort")
         self._broadcast_state(self.cluster.state)
         self._drain_pending_resizes()
 
@@ -2009,7 +2161,8 @@ class Server:
                     if self.cluster.active_job is not None:
                         return  # its end drains the next
             except ValueError as e:
-                _log(f"resize: dropping queued {event}({node.id}): {e}")
+                self.logger.printf(
+                    f"resize: dropping queued {event}({node.id}): {e}")
 
     def _broadcast_topology(self) -> None:
         """The membership after a job, to every node."""
@@ -2039,10 +2192,16 @@ class Server:
             self.cluster.coordinator_id = self.node_id
             self.cluster.save_topology()
             return
+        before = {n.id for n in self.cluster.nodes}
         self.cluster.set_static([Node.from_dict(d) for d in nodes_d
                                  if d["id"] not in self._removed_ids])
         self.cluster.elect_coordinator()
         self.cluster.save_topology()
+        after = {n.id for n in self.cluster.nodes}
+        if after != before:
+            self.events.emit("topology.change", nodes=sorted(after),
+                             added=sorted(after - before),
+                             removed=sorted(before - after))
         self.clean_holder()
 
     def clean_holder(self) -> int:
@@ -2307,6 +2466,16 @@ class Server:
         g["qos.throttled_per_s"] = rate("qos.throttled")
         g["http.errors_per_s"] = rate("http.errors")
         self._telemetry_prev = (raw, now)
+        # the sampler is the one periodic observer of the health score:
+        # each change of it is recorded once, with its reasons
+        health = self.node_health()
+        if self._last_health is not None \
+                and health["score"] != self._last_health:
+            self.events.emit("health.transition",
+                             fromScore=self._last_health,
+                             toScore=health["score"],
+                             reasons=health["reasons"][:5])
+        self._last_health = health["score"]
         return g
 
     def _health_inputs(self) -> dict:
@@ -2340,3 +2509,55 @@ class Server:
         """This node's {score, reasons}: /status and the QoS plane's
         healthRed shed."""
         return _telemetry.health_score(self._health_inputs())
+
+    def cluster_events(self, limit: int = 0) -> dict:
+        """GET /cluster/events (:2710-2760): every member's /debug/events,
+        fetched at once and merged in HLC order (events.merge_events).
+        A peer marked down is skipped without an RPC ("down"), one that
+        answers 404 is a "legacy" node and any other failure is "error";
+        neither fails the merge. The RPCs merge each peer's stamp, so this
+        node's clock has passed every peer's before it sorts."""
+        docs: dict[str, list] = {}
+        nodes: list[dict] = []
+        timeout = max(2.0, self.probe_timeout)
+        fetchers: list = []
+        for n in list(self.cluster.nodes):
+            if n.id == self.node_id:
+                docs[n.id] = self.events.events(0)
+                nodes.append({"id": n.id, "uri": self.uri, "status": "ok"})
+                continue
+            if self.cluster.is_down(n.id) or not n.uri:
+                nodes.append({"id": n.id, "uri": n.uri or "",
+                              "status": "down"})
+                continue
+            entry = {"id": n.id, "uri": n.uri, "status": "pending"}
+            nodes.append(entry)
+
+            def fetch(node=n, entry=entry) -> None:
+                try:
+                    doc = self.client.debug_events(node.uri, timeout)
+                    docs[node.id] = doc.get("events", [])
+                    entry["status"] = "ok"
+                except ClientError as e:
+                    entry["status"] = ("legacy" if e.status == 404
+                                       else "error")
+                except Exception:  # noqa: BLE001 — never fail the merge
+                    entry["status"] = "error"
+
+            t = threading.Thread(target=fetch, name="pilosa-torch-events",
+                                 daemon=True)
+            t.start()
+            fetchers.append((entry, t))
+        for entry, t in fetchers:
+            t.join(timeout + 1.0)
+            if entry["status"] == "pending":
+                entry["status"] = "error"
+        merged = _events.merge_events(dict(docs))
+        if limit > 0:
+            merged = merged[-limit:]
+        return {
+            "events": merged,
+            "nodes": nodes,
+            "generatedBy": self.node_id,
+            "asOf": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        }

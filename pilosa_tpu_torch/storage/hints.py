@@ -18,8 +18,11 @@ and hints older than max_age are dropped at replay. Any drop makes the
 replay incomplete, and the caller falls back to anti-entropy.
 
 An append reaches the kernel before it returns (fsync=True: the disk), as
-the port's WAL appends do. Left out: the failpoint hooks and the event
-journal of the JAX store (the port has neither).
+the port's WAL appends do. With a journal (utils/events.py) an append
+records hint.append, a drop marker or a failed append hint.drop (:212-229);
+with a logger a failed append, a damaged log and a failed replay are
+logged as the JAX store logs them. Left out: the failpoint hooks (the
+port has none).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import threading
 import time
 import zlib
 from typing import Callable, Optional
+
+from pilosa_tpu_torch.utils import events as _events
 
 HINT_MAGIC = 0xFB  # never the WAL's 0xFA, never a legacy op type (0/1)
 HINT_VERSION = 1
@@ -102,8 +107,11 @@ class HintStore:
     node never blocks the hints of another."""
 
     def __init__(self, directory: str, max_bytes: int = 64 << 20,
-                 max_age: float = 3600.0, fsync: bool = False, stats=None):
+                 max_age: float = 3600.0, fsync: bool = False, stats=None,
+                 logger=None, journal=None):
         self.dir = directory
+        self.logger = logger
+        self.journal = journal
         self.max_bytes = int(max_bytes)
         self.max_age = float(max_age)
         self.fsync = fsync
@@ -167,10 +175,16 @@ class HintStore:
                     f.flush()
                     if self.fsync:
                         os.fsync(f.fileno())
-            except OSError:
+            except OSError as e:
                 with self._meta_lock:
                     self.dropped += 1
                 self._count("dropped")
+                _events.record(self.journal, "hint.drop", target=node_id,
+                               index=index, reason="append-failed")
+                if self.logger is not None:
+                    self.logger.printf(
+                        "hints: append for %s failed (%s) — write will "
+                        "heal via anti-entropy", node_id, e)
                 return False
         with self._meta_lock:
             if dropped:
@@ -178,6 +192,12 @@ class HintStore:
             else:
                 self.queued += 1
         self._count("dropped" if dropped else "queued")
+        if dropped:
+            _events.record(self.journal, "hint.drop", target=node_id,
+                           index=index, reason="over-byte-cap")
+        else:
+            _events.record(self.journal, "hint.append", target=node_id,
+                           index=index, bytes=len(payload))
         return not dropped
 
     def pending(self, node_id: str) -> int:
@@ -221,8 +241,13 @@ class HintStore:
                 return 0, 0, True  # no log: nothing was skipped
             if not data:
                 return 0, 0, True
-            records, _valid_end, err = parse_hint_log(data)
+            records, valid_end, err = parse_hint_log(data)
         dropped = 1 if err else 0  # what followed the damage is unknown
+        if err and self.logger is not None:
+            self.logger.printf(
+                "hints: log for %s damaged at byte %d (%s): replaying the "
+                "valid prefix, anti-entropy will finish the heal", node_id,
+                valid_end, err)
         now = time.time()  # against timestamps an earlier process wrote
         replayed = 0
         # applied outside the target's lock: each hint is an RPC, and
@@ -238,12 +263,17 @@ class HintStore:
                     continue
                 apply_fn(doc)
                 replayed += 1
-        except Exception:  # noqa: BLE001 — any failure keeps the log
+        except Exception as e:  # noqa: BLE001 — any failure keeps the log
             with self._meta_lock:
                 self.replayed += replayed
                 self.replay_failures += 1
             if replayed:
                 self._count("replayed", replayed)
+            if self.logger is not None:
+                self.logger.printf(
+                    "hints: replay to %s failed after %d records (%s: %s) "
+                    "— will retry on its next return", node_id, replayed,
+                    type(e).__name__, e)
             return replayed, 0, False
         # a full pass: retire exactly the bytes replayed
         with self._lock_for(node_id):

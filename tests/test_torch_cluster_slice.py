@@ -26,6 +26,7 @@ key the port does not serve yet, set away from its default, fails the
 start, and the keys it serves start a node.
 """
 
+import json
 import os
 import socket
 import subprocess
@@ -343,8 +344,8 @@ def test_cli_nodes_converge_and_serve(tmp_path):
 @pytest.mark.parametrize("toml", [
     "[metric]\ntrace-export = \"file\"\n",
     "[tls]\ncertificate = \"node.crt\"\n",
-    "[metric]\nevents-ring = 512\n",
-    "\nlog-path = \"node.log\"\n",
+    "[metric]\npoll-interval = 5.0\n",
+    "[tracing]\nsampler-type = \"const\"\n",
     "[diagnostics]\nurl = \"http://localhost:1/d\"\n"])
 def test_unported_config_key_fails_the_start(tmp_path, toml):
     cfg = tmp_path / "n.toml"
@@ -394,6 +395,43 @@ def test_ported_qos_keys_start_a_node(tmp_path):
         assert srv.usage.max_principals == 16
     finally:
         srv.close()
+
+
+def test_ported_event_keys_start_a_node(tmp_path):
+    """log-path, log-format, verbose, [metric] events-ring, events-spool,
+    service and host, and [cluster] profile are served: a node starts
+    with them, its log lines in the file and its events in the spool."""
+    from pilosa_tpu_torch.cli.config import load_config
+    from pilosa_tpu_torch.utils.stats import StatsDClient
+
+    cfg = tmp_path / "n.toml"
+    log = tmp_path / "node.log"
+    cfg.write_text(
+        f'data-dir = "{tmp_path / "d"}"\nbind = "127.0.0.1:0"\n'
+        f'log-path = "{log}"\nlog-format = "json"\nverbose = true\n'
+        '[cluster]\nprofile = "on"\n'
+        '[metric]\nevents-ring = 64\nevents-spool = 65536\n'
+        'service = "statsd"\nhost = "127.0.0.1:9"\n'
+        '[mesh]\nplatform = "cpu"\n')
+    c = load_config(str(cfg), environ={})
+    kw = cli_main.server_kwargs(c)
+    kw["port"] = 0
+    srv = Server(str(tmp_path / "d"), **kw).open()
+    try:
+        assert srv.events.ring_size == 64
+        assert isinstance(srv.stats, StatsDClient)
+        assert srv.api.profile_mode == "on" and srv.logger.verbose
+        srv.logger.warnf("a %s line", "warn")
+        assert [e["type"] for e in srv.events.events(0)] == [
+            "node.start", "log.warn"]
+    finally:
+        srv.close()
+    lines = [json.loads(x) for x in log.read_text().splitlines()]
+    assert {"level": "WARN", "msg": "a warn line"}.items() <= \
+        lines[-1].items()
+    spool = tmp_path / "d" / "events.spool.jsonl"
+    assert [json.loads(x)["type"] for x in spool.read_text().splitlines()] \
+        == ["node.start", "log.warn", "node.stop"]
 
 
 def test_ported_lifecycle_keys_start_a_node(tmp_path):
