@@ -4902,8 +4902,9 @@ CLUSTER_CLIENTS, CLUSTER_PER_CLIENT = 32, 8
 # the coalescing A/B rounds: one of each since the drill's healing steps
 # (two of each before)
 CLUSTER_AB = ("off", "on")
-# 4 envelopes a writer since phase 5h joined the run (6 before)
-CLUSTER_WRITERS, CLUSTER_ENVELOPES, CLUSTER_CALLS = 4, 4, 500
+# 3 envelopes a writer since the fleet checks joined phase 5g (4 since
+# phase 5h joined the run, 6 before)
+CLUSTER_WRITERS, CLUSTER_ENVELOPES, CLUSTER_CALLS = 4, 3, 500
 CLUSTER_READERS = 16
 CLUSTER_W_ROWS = 8  # rows of the written field w
 CLUSTER_NEW_KEYS = 100  # lang keys minted by the keyed envelope
@@ -4925,8 +4926,8 @@ CLUSTER_KERNELS = ("program_count", "pair_stream_counts",
 # and secret, and its index's shards
 MEMBER_READERS, MEMBER_WRITERS, DRAIN_READERS = 4, 1, 8
 # seconds the join's readers and writer go on after NORMAL (reads and
-# acknowledged writes under the new topology)
-MEMBER_AFTER_S = 2.0
+# acknowledged writes under the new topology; 2 before the fleet checks)
+MEMBER_AFTER_S = 1.0
 GOSSIP_PERIOD = 0.25
 GOSSIP_SECRET = "phase-5h-secret"
 GOSSIP_SHARDS = 16
@@ -4936,6 +4937,9 @@ MEMBER_KERNELS = ("pair_stream_counts", "program_count")
 # 2's [metric] events-spool
 NODE_LOG = "node.log"
 EVENTS_SPOOL = 1 << 20
+# node 0 exports its traces ([metric] trace-export) to this file in its
+# data dir
+TRACE_SPOOL = "trace-spool.jsonl"
 
 
 def _get_raw(port: int, path: str) -> bytes:
@@ -5021,13 +5025,18 @@ class ClusterNodes:
                        "[anti-entropy]\n"
                        f"interval = {CLUSTER_AE_INTERVAL}\n")
         cfg = os.path.join(self.tmp, f"{self.prefix}{i}.toml")
-        # every node logs into its data dir, node 1 as JSON lines; node 2
-        # spools its events, so they outlive its SIGKILL
+        # every node logs into its data dir, node 1 as JSON lines
         logging = f'log-path = "{os.path.join(data, NODE_LOG)}"\n'
         if not gossip and i == 1:
             logging += 'log-format = "json"\n'
+        # node 2 spools its events, node 0 exports its traces
         spool = (f"[metric]\nevents-spool = {EVENTS_SPOOL}\n"
-                 if not gossip and i == 2 else "")
+                 if not gossip and i == 2 else
+                 '[metric]\ntrace-export = "file"\n'
+                 f'trace-export-path = "{os.path.join(data, TRACE_SPOOL)}"'
+                 '\ntrace-export-format = "jaeger"\n'
+                 "trace-export-sample = 1.0\n"
+                 if not gossip and i == 0 else "")
         with open(cfg, "w") as f:
             f.write(f'data-dir = "{data}"\n'
                     f'bind = "127.0.0.1:{self.ports[i]}"\n' + logging
@@ -5583,6 +5592,7 @@ def cluster_phase(seed: int, started: ClusterNodes | None = None,
                     f"busy {c.get('deviceBusyMs')} ms, idle share "
                     f"{c.get('idleShare')} (this node's kernels only), "
                     f"kernels {c.get('kernels')}")
+            out["fleet"] = fleet_checks(nodes, count_mix, n_shards)
             ab = []
             for r, mode in enumerate(CLUSTER_AB):
                 _http(ports[0], "POST", "/debug/net-coalesce",
@@ -5685,6 +5695,13 @@ def cluster_phase(seed: int, started: ClusterNodes | None = None,
             # the launches of phase 5h's reads and writes count too
             for k, v in out["membership"]["launches"].items():
                 total[k] += v
+            fleet_s = [out["fleet"]["seconds"],
+                       out["drill"]["fleet"]["seconds"],
+                       out["membership"]["drain"]["fleet_s"]]
+            out["fleet"]["all_seconds"] = sum(fleet_s)
+            log(f"fleet view checks: {sum(fleet_s):.2f} s (after the pass "
+                f"{fleet_s[0]:.2f}, during the kill {fleet_s[1]:.2f}, the "
+                f"drain {fleet_s[2]:.2f})")
         finally:
             nodes.stop()
             if pair is not None:
@@ -5966,6 +5983,14 @@ def membership_phase(nodes: ClusterNodes, pair: GossipPair, reads: list,
     drain_s = _poll(lambda: _node_vars(ports[2])["drain"]["drained"], 60,
                     "node 2's drain", 0.05)
     dinfo = _node_vars(ports[2])["drain"]
+    # drained, node 2 stays DRAINING until its process goes
+    t_fleet = time.perf_counter()
+    n2 = next(n for n in _http(ports[0], "GET", "/cluster/stats")["fleet"][
+        "nodes"] if n["id"] == nodes.ids[2])
+    if n2["state"] != "DRAINING" or n2["health"]["score"] != "yellow":
+        raise AssertionError(f"/cluster/stats of the draining node: "
+                             f"{n2['state']}, {n2['health']}")
+    fleet_s = time.perf_counter() - t_fleet
     phase["now"] = "drained"
     _poll(lambda: len(lat.get("drained", [])) >= 2 * DRAIN_READERS, 60,
           "reads after the drain")
@@ -5998,7 +6023,7 @@ def membership_phase(nodes: ClusterNodes, pair: GossipPair, reads: list,
     if last["type"] != "node.stop":
         raise AssertionError(f"node 2's spool ends with {last}")
     out["drain"] = {"drained_s": drain_s, "info": dinfo, "exit": rc,
-                    "sigterm_s": term_s,
+                    "sigterm_s": term_s, "fleet_s": fleet_s,
                     "reads": {k: {"n": len(v), "p50_ms":
                                   statistics.median(v)}
                               for k, v in lat.items()}}
@@ -6006,8 +6031,9 @@ def membership_phase(nodes: ClusterNodes, pair: GossipPair, reads: list,
         f"{drain_s:.2f} s ({dinfo['snapshotted']} fragments snapshotted, "
         f"{dinfo['shedQueries']} queries shed: 503, X-Pilosa-Shed-Reason "
         f"draining, Retry-After 1); {DRAIN_READERS} readers through node 0 "
-        f"{_lat_line(sum(lat.values(), []))}, 0 failed; SIGTERM: exit "
-        f"{rc} after {term_s:.2f} s")
+        f"{_lat_line(sum(lat.values(), []))}, 0 failed; /cluster/stats "
+        f"through node 0: node 2 DRAINING, yellow ({n2['health']['reasons']};"
+        f" {fleet_s:.2f} s); SIGTERM: exit {rc} after {term_s:.2f} s")
     out["steps_s"]["drain"] = time.perf_counter() - t_step
     # (3) decommission node 2 through node 1
     live = [0, 1, j]
@@ -6326,6 +6352,7 @@ def cluster_drill(nodes: ClusterNodes, reads: list, count_mix: list,
     if failover:
         raise AssertionError(f"reads after the mark still fail over: "
                              f"{failover[:2]}")
+    out["fleet"] = fleet_during_kill(ports, ids)
     out["mark_s"] = marks
     out["reads"] = {k: {"n": len(v), "p50_ms": statistics.median(v),
                         "max_ms": max(v)} for k, v in lat.items()}
@@ -6500,6 +6527,299 @@ def cluster_drill(nodes: ClusterNodes, reads: list, count_mix: list,
         f"{len(reads)} reads through node 2 in {s:.1f} s, exact")
     out["events"] = drill_events(nodes, bad_shard, reads)
     return out
+
+
+# ------------------------------------------------- the fleet view
+
+
+def _get_text(port: int, path: str) -> tuple:
+    """(status, content type, body text) of a GET."""
+    conn = http.client.HTTPConnection("localhost", port, timeout=600)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return (resp.status, resp.getheader("Content-Type", ""),
+                resp.read().decode())
+    finally:
+        conn.close()
+
+
+def _advice_lines(text: str) -> list:
+    """Rendered advice without its decaying numbers (scores, reads a
+    second and the fleet skew fall between two reads of a quiet node)."""
+    import re
+
+    return [re.sub(r"(score|reads/s|fleet)=\S+", r"\1=", line)
+            for line in text.splitlines()]
+
+
+def _spool_spans(path: str) -> list:
+    """Every span of a Jaeger spool (one JSON batch a line; a line cut
+    by a flush in progress is the last one and is skipped)."""
+    if not os.path.exists(path):
+        return []
+    spans = []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            try:
+                spans += json.loads(line)["spans"]
+            except ValueError:
+                break
+    return spans
+
+
+def _trace_tree(spans: list, root_node: str, peers: list) -> bool:
+    """One trace's spans hold a pilosa.query root of root_node, a
+    fanout.<peer> span under it for every peer, and a pilosa.query span
+    of that peer under its fan-out span."""
+
+    def tags(s: dict) -> dict:
+        return {t["key"]: t["value"] for t in s["tags"]}
+
+    def parent(s: dict) -> str:
+        return s["references"][0]["spanID"] if s["references"] else ""
+
+    roots = [s for s in spans if s["operationName"] == "pilosa.query"
+             and not parent(s)]
+    if len(roots) != 1 or tags(roots[0]).get("node") != root_node:
+        return False
+    root = roots[0]["spanID"]
+    for peer in peers:
+        fan = {s["spanID"] for s in spans
+               if s["operationName"] == f"fanout.{peer}"
+               and parent(s) == root}
+        if not any(s["operationName"] == "pilosa.query"
+                   and tags(s).get("node") == peer and parent(s) in fan
+                   for s in spans):
+            return False
+    return True
+
+
+def fleet_checks(nodes: ClusterNodes, count_mix: list, n_shards: int,
+                 field_f: tuple = ("d", "f", "standard")) -> dict:
+    """Phase 5g's fleet-view checks through node 0, right after the pass
+    (nothing else runs meanwhile): four ?profile=true Count(Intersect)
+    exported to node 0's spool as one tree a trace, every node's
+    pilosa.query grafted under its fan-out span; /cluster/stats every
+    node green with the card's allocator bytes at least its resident
+    bytes; /cluster/hbm's totals the sums of the nodes' /debug/hbm (read
+    before and after it, and again while any node's residency moved);
+    /cluster/heat's fragments the union of the nodes' /debug/heat?top=0
+    with their cumulative charges summed; /cluster/usage's per-principal
+    queries the sums of the nodes' /debug/usage; /debug/heat?advice=true
+    with a pin set among f's fragments, eviction candidates with uploads,
+    and advice equal to advise() of its own document; the dashboard with
+    no http(s) URL and every route it fetches answering 200; the advise
+    subcommand exiting 0 with the same recommendations. -> what was read,
+    and the seconds it took."""
+    from pilosa_tpu_torch.analysis.advisor import advise, render_advice
+    from pilosa_tpu_torch.utils.heat import FIELDS, merge_heat_docs
+
+    t0 = time.perf_counter()
+    ports, ids = nodes.ports[:3], nodes.ids[:3]
+    primaries = _primaries(ids, n_shards)
+    peers = [i for i in primaries if i != ids[0]]
+    out: dict = {}
+    # (1) profiled queries: node 0 exports each finished tree
+    traces = [_http(ports[0], "POST", "/index/d/query?profile=true",
+                    count_mix[k][0].encode())["profile"]["traceId"]
+              for k in range(4)]
+    # (2) the fleet document
+    fleet = _http(ports[0], "GET", "/cluster/stats")["fleet"]
+    hbm = [_http(p, "GET", "/debug/hbm?top=0") for p in ports]
+    by_id = {n["id"]: n for n in fleet["nodes"]}
+    if [n["id"] for n in fleet["nodes"]] != ids or fleet["health"] != \
+            "green" or fleet["counts"] != {"green": 3}:
+        raise AssertionError(f"/cluster/stats: {fleet['health']}, "
+                             f"{fleet['counts']}, "
+                             f"{[n['id'] for n in fleet['nodes']]}")
+    in_use = []
+    for i, nid in enumerate(ids):
+        n = by_id[nid]
+        if n["state"] != "NORMAL" or n["xla"] is not None \
+                or "kernels.dispatches_per_s" not in n["gauges"]:
+            raise AssertionError(f"/cluster/stats {nid}: {n['state']}, "
+                                 f"{n['xla']}, {sorted(n['gauges'])}")
+        mem = [d["memoryStats"] for d in n["deviceMemory"]]
+        # the sampler's device-memory gauge, and the allocator now
+        if CLUSTER_PLATFORM == "" and (
+                len(mem) != 1 or "device.bytes_in_use" not in n["gauges"]
+                or mem[0]["bytes_in_use"] < hbm[i]["residentBytes"]):
+            raise AssertionError(f"{nid}: device memory {mem}, resident "
+                                 f"{hbm[i]['residentBytes']}")
+        in_use.append(mem[0]["bytes_in_use"] if mem else None)
+    out["stats"] = {"health": fleet["health"], "bytes_in_use": in_use,
+                    "resident": [d["residentBytes"] for d in hbm]}
+    # (3) the fleet's residency: a node whose residency moved between the
+    # reads around /cluster/hbm makes the reading start again
+
+    def moved(a: list, b: list) -> bool:
+        return [(d["residentBytes"], d["entries"], d["planCacheBytes"])
+                for d in a] != [(d["residentBytes"], d["entries"],
+                                 d["planCacheBytes"]) for d in b]
+
+    for attempt in range(3):
+        before = hbm if attempt == 0 else [
+            _http(p, "GET", "/debug/hbm?top=0") for p in ports]
+        doc = _http(ports[0], "GET", "/cluster/hbm")
+        hbm = [_http(p, "GET", "/debug/hbm?top=0") for p in ports]
+        if not moved(before, hbm):
+            break
+    else:
+        raise AssertionError("residency moved in every /cluster/hbm read")
+    want = {f: sum(int(d.get(f, 0) or 0) for d in hbm)
+            for f in doc["totals"]}
+    if doc["totals"] != want or _fleet_status(doc) != dict.fromkeys(
+            ids, "ok") or sorted(doc["byNode"]) != sorted(ids):
+        raise AssertionError(f"/cluster/hbm totals {doc['totals']} != "
+                             f"{want}; nodes {doc['nodes']}")
+    card = in_use and by_id[ids[0]]["deviceMemory"]
+    limit = card[0]["memoryStats"]["bytes_limit"] if card else 0
+    out["hbm"] = {"totals": doc["totals"], "attempts": attempt + 1,
+                  "card_bytes": limit,
+                  "budget_over_card": (doc["totals"]["budgetBytes"] / limit
+                                       if limit else None)}
+    # (4) the fleet's heat: cumulative charges summed over the replicas
+    # (the scores decay between the reads and are not compared)
+    doc = _http(ports[0], "GET", "/cluster/heat")
+    heat = {nid: _http(p, "GET", "/debug/heat?top=0")
+            for nid, p in zip(ids, ports)}
+    want = merge_heat_docs(heat)
+
+    def frags(d: dict) -> dict:
+        return {(e["index"], e["field"], e["view"], e["shard"]):
+                (e["nodes"], [e[f] for f in FIELDS]) for e in d["hot"]}
+
+    got_f, want_f = frags(doc), frags(want)
+    if got_f != want_f or doc["totals"] != want["totals"] \
+            or _fleet_status(doc) != dict.fromkeys(ids, "ok"):
+        diff = sorted(set(got_f.items()) ^ set(want_f.items()))[:4]
+        raise AssertionError(f"/cluster/heat: {len(got_f)} fragments "
+                             f"against {len(want_f)}, e.g. {diff}; "
+                             f"nodes {doc['nodes']}")
+    replicated = sum(1 for n, _ in got_f.values() if n > 1)
+    out["heat"] = {"fragments": len(got_f), "on_two_nodes": replicated,
+                   "hot": doc["hotFragments"], "skew": doc["skew"]}
+    # (5) the fleet's usage
+    doc = _http(ports[0], "GET", "/cluster/usage")
+    usage = [_http(p, "GET", "/debug/usage")["principals"] for p in ports]
+    want = {}
+    for u in usage:
+        for name, e in u.items():
+            want[name] = want.get(name, 0.0) + e["queries"]
+    got = {name: e["queries"] for name, e in doc["principals"].items()}
+    if got != want or _fleet_status(doc) != dict.fromkeys(ids, "ok"):
+        raise AssertionError(f"/cluster/usage queries {got} != {want}")
+    out["usage"] = got
+    # (6) the advice, held against advise() of its own document
+    doc = _http(ports[0], "GET", "/debug/heat?advice=true&top=0")
+    advice = doc["advice"]
+    pins = {(e["index"], e["field"], e["view"], e["shard"])
+            for e in advice["hbmPinSet"]}
+    f_frags = {(*field_f, s) for s in range(n_shards)}
+    res = advice["residency"]
+    again = advise(doc, residency=res, budget_bytes=res["budget"])
+    # node 0 reads f's fragments of the shards it is the first owner of
+    # (none of 4 shards in a CPU rehearsal)
+    if (ids[0] in primaries and not pins) or not pins <= f_frags or any(
+            e["uploads"] <= 0 for e in advice["evictionCandidates"]) \
+            or again != advice:
+        raise AssertionError(f"/debug/heat?advice=true: pins {sorted(pins)}"
+                             f", evictions {advice['evictionCandidates']}, "
+                             f"advise() equal: {again == advice}")
+    out["advice"] = {"pins": len(pins),
+                     "evictions": len(advice["evictionCandidates"]),
+                     "tiers": {k: advice["tiers"][k]
+                               for k in ("hbm", "host", "cold")}}
+    # (7) the dashboard and every route it fetches
+    import re
+
+    st, ctype, html = _get_text(ports[0], "/debug/dashboard")
+    urls = re.findall(r"https?://", html, re.IGNORECASE)
+    paths = re.findall(r'fetch\("([^"]+)"', html)
+    if st != 200 or not ctype.startswith("text/html") or urls or not paths:
+        raise AssertionError(f"/debug/dashboard: {st} {ctype}, URLs {urls},"
+                             f" fetches {paths}")
+    for path in paths:
+        _http(ports[0], "GET", path + ("0" if path.endswith("=") else ""))
+    # (8) the advise subcommand against node 0
+    t_cli = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = subprocess.run(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "advise", "--host",
+         f"http://127.0.0.1:{ports[0]}"], cwd=root, capture_output=True,
+        text=True, timeout=120, env=dict(os.environ, PYTHONPATH=root))
+    cli_s = time.perf_counter() - t_cli
+    now = _http(ports[0], "GET", "/debug/heat?advice=true&top=0")["advice"]
+    if cli.returncode != 0 or _advice_lines(cli.stdout.rstrip("\n")) != \
+            _advice_lines(render_advice(now)):
+        raise AssertionError(f"advise: exit {cli.returncode}, "
+                             f"{cli.stdout[:600]!r} {cli.stderr[-600:]!r}")
+    # (9) node 0's spool: one tree per profiled trace (flushed every 2 s)
+    spool = os.path.join(nodes.tmp, "n0", TRACE_SPOOL)
+    trees: dict = {}
+
+    def exported() -> bool:
+        spans = _spool_spans(spool)
+        for t in traces:
+            mine = [s for s in spans if s["traceID"] == t]
+            if _trace_tree(mine, ids[0], peers):
+                trees[t] = len(mine)
+        return len(trees) == len(traces)
+
+    _poll(exported, 30, "the profiled traces in node 0's spool", 0.1)
+    out["traces"] = list(trees.values())
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  fleet view through node 0: /cluster/stats all green, allocator "
+        f"bytes {in_use} >= resident {out['stats']['resident']}; "
+        f"/cluster/hbm totals = the sums of 3 /debug/hbm "
+        f"({attempt + 1} read(s)): {doc_totals(out['hbm'])}; "
+        f"/cluster/heat {len(got_f)} fragments, {replicated} on two nodes, "
+        f"charges summed; /cluster/usage queries {got}; advice: "
+        f"{len(pins)} pinned (all f's), {len(advice['evictionCandidates'])}"
+        f" eviction candidates, tiers {out['advice']['tiers']}, advise() "
+        f"of its document equal; dashboard self-contained, {len(paths)} "
+        f"routes it fetches answer 200; advise subcommand exit 0, same "
+        f"recommendations ({cli_s:.2f} s); {len(traces)} profiled traces "
+        f"in node 0's spool, spans {out['traces']}, every remote "
+        f"pilosa.query under its fanout span")
+    log(f"  fleet checks: {out['seconds']:.2f} s")
+    return out
+
+
+def doc_totals(h: dict) -> str:
+    t = h["totals"]
+    over = h["budget_over_card"]
+    return (f"resident {t['residentBytes']}, budget {t['budgetBytes']} "
+            f"({'%.3f' % over if over else 'no card'} x the card's "
+            f"{h['card_bytes']} bytes), entries {t['entries']}")
+
+
+def _fleet_status(doc: dict) -> dict:
+    return {n["id"]: n["status"] for n in doc["nodes"]}
+
+
+def fleet_during_kill(ports: list, ids: list) -> dict:
+    """While node 2 is SIGKILLed and marked down: node 0's /cluster/stats
+    has it red for its liveness mark, and /cluster/heat and /cluster/usage
+    answer with it down and every other node ok."""
+    t0 = time.perf_counter()
+    fleet = _http(ports[0], "GET", "/cluster/stats")["fleet"]
+    n2 = next(n for n in fleet["nodes"] if n["id"] == ids[2])
+    if n2["health"] != {"score": "red",
+                        "reasons": ["node marked down (liveness)"]} \
+            or fleet["health"] != "red":
+        raise AssertionError(f"/cluster/stats during the kill: {n2}")
+    want = {ids[0]: "ok", ids[1]: "ok", ids[2]: "down"}
+    for path in ("/cluster/heat", "/cluster/usage"):
+        doc = _http(ports[0], "GET", path)
+        if _fleet_status(doc) != want:
+            raise AssertionError(f"{path} during the kill: {doc['nodes']}")
+    s = time.perf_counter() - t0
+    log(f"  fleet view during the kill: node 2 red (node marked down "
+        f"(liveness)), /cluster/heat and /cluster/usage with node 2 down, "
+        f"no error ({s:.2f} s)")
+    return {"seconds": s}
 
 
 # ------------------------------------------------- the event journal

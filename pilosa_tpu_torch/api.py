@@ -51,7 +51,10 @@ long_query_time land in query_history (GET /debug/query-history) with
 their profile, and in the log (`logger`) as "<s>s SLOW QUERY <index>
 <pql, cut at 256> trace=<id>". A profiled query that
 succeeds feeds the planner's calibration ring (api.py:320-331), and
-explain() answers ?explain=true (:399-440).
+explain() answers ?explain=true (:399-440). With trace_exporter set
+([metric] trace-export, :151-153, :350-355) the finished profile tree of
+every query this node coordinated is exported, remote fragments
+included; a remote sub-request exports nothing.
 
 Limits, QoS and accounting (api.py:110, :233-350, :482-495, :926-940): a
 query of more than max_writes_per_request write calls (an Options()
@@ -217,7 +220,17 @@ class API:
         self.profile_mode = "auto"
         self._profile_killed = os.environ.get(
             "PILOSA_TPU_PROFILE", "1") == "0"
-        self.cluster_events_fn = None  # fn(limit=) -> GET /cluster/events
+        # the fleet view's hooks (the server's methods): GET
+        # /cluster/events, /internal/stats, /cluster/stats, /cluster/usage,
+        # /cluster/hbm and /cluster/heat
+        self.cluster_events_fn = None  # fn(limit=)
+        self.node_stats_fn = None
+        self.cluster_stats_fn = None
+        self.cluster_usage_fn = None
+        self.cluster_hbm_fn = None
+        self.cluster_heat_fn = None
+        # [metric] trace-export (utils/tracing.py TraceExporter; None: off)
+        self.trace_exporter = None
         self.query_history = qprofile.QueryHistory(100)
         self.max_writes_per_request = 5000  # 0: no limit
         # the server replaces these from its config: the usage ledger the
@@ -368,6 +381,12 @@ class API:
                     self.slo.observe(qclass, elapsed, ok)
                 if plane is not None and ok:
                     plane.observe_service(qclass, elapsed * 1e3)
+            if (prof is not None and not remote
+                    and self.trace_exporter is not None):
+                # the coordinator's tree holds the remote ones: exported
+                # once there, every node's spans share one trace id (a
+                # remote exporting its own would duplicate them)
+                self.trace_exporter.export_profile(prof.to_dict())
             if slow_armed and elapsed > self.long_query_time:
                 trace_id = tracing.current_trace_id.get() or "-"
                 short_pql = qprofile.truncate_pql(pql)

@@ -34,13 +34,22 @@ PILOSA_TPU_CLUSTER_REPLICAS). The keys it serves:
     [metric]   telemetry-interval, telemetry-ring, usage-max-principals,
                usage-ring, events-ring, events-spool (the event journal's
                ring and durable spool, utils/events.py), service
-               ("expvar", "statsd" or any other value: none) and host
-               (the StatsD agent, utils/stats.py new_stats_client)
+               ("expvar", "statsd" or any other value: none), host
+               (the StatsD agent, utils/stats.py new_stats_client),
+               trace-export (off | file | http), trace-export-path (the
+               spool; <data-dir>/trace-spool.jsonl by default),
+               trace-export-endpoint, trace-export-format (jaeger |
+               otlp) and trace-export-sample (utils/tracing.py
+               TraceExporter; bad values are refused by the server with
+               the JAX texts)
+    [tracing]  sampler-type (off | const | probabilistic),
+               sampler-param, agent-host-port (the SpanExporter's
+               endpoint, "host:port" or a URL)
     [mesh]     platform ("cpu" runs the node on the CPU; "", the default,
                on the card), devices ("auto", "none" or 1: one device)
 
 Every other key the JAX package knows (TLS, [metric] poll-interval,
-tracing export, [tracing], diagnostics, ...) must keep its default:
+diagnostics, [mesh] host-devices and replicas) must keep its default:
 set away from it, in the file or the environment, it fails the start
 with NotPortedError naming the key.
 A key neither package knows fails too. Durations may be written as Go
@@ -128,7 +137,10 @@ PORTED = {
     "storage": {"eviction", "wal_fsync"},
     "metric": {"telemetry_interval", "telemetry_ring",
                "usage_max_principals", "usage_ring", "events_ring",
-               "events_spool", "service", "host"},
+               "events_spool", "service", "host", "trace_export",
+               "trace_export_path", "trace_export_endpoint",
+               "trace_export_format", "trace_export_sample"},
+    "tracing": {"sampler_type", "sampler_param", "agent_host_port"},
     "mesh": {"devices", "platform"},
     "gossip": {"port", "seeds", "period", "probe_timeout",
                "push_pull_interval", "secret"},

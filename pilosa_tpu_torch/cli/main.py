@@ -2,7 +2,8 @@
 [--bind HOST:PORT] [--join] [--log-format plain|json] [--verbose]`: run
 one node of the port. `python -m pilosa_tpu_torch.cli timeline [--host
 URI] [--limit N] [--type T] [--node ID] [--json]`: the merged cluster
-timeline.
+timeline. `python -m pilosa_tpu_torch.cli advise [--host URI] [--json]`:
+the placement advisor's dry run.
 
 Trimmed port of pilosa_tpu/cli/main.py (cmd_server, :127-276): the
 configuration is the JAX package's TOML and PILOSA_TPU_* environment
@@ -22,8 +23,13 @@ cuts the drain short (:249-265).
 order (a logical tie-break as "+N" after the time, a health transition
 called out with its from and to scores), or with --json the document.
 
+`advise` (cmd_advise: :90, :428-449) fetches GET
+/debug/heat?advice=true&top=0 from --host and prints the advice
+(analysis/advisor.py render_advice), or with --json the advice document;
+it exits 1 when the node tracks no heat.
+
 The JAX CLI's other subcommands (import, export, inspect, check, config,
-generate-config, advise, profile-capture) are not ported yet.
+generate-config, profile-capture) are not ported yet.
 """
 
 from __future__ import annotations
@@ -70,6 +76,13 @@ def build_parser() -> argparse.ArgumentParser:
     tl.add_argument("--node", help="only events recorded by this node id")
     tl.add_argument("--json", action="store_true", dest="as_json",
                     help="print the merged document instead")
+    ap = sub.add_parser(
+        "advise", help="fetch the fragment heat map and print the "
+                       "placement advisor's dry-run recommendations")
+    ap.add_argument("--host", default="http://localhost:10101")
+    ap.add_argument("--json", action="store_true", dest="as_json",
+                    help="print the raw advice document instead of the "
+                         "rendered report")
     return p
 
 
@@ -126,6 +139,14 @@ def server_kwargs(cfg) -> dict:
         usage_ring=m["usage_ring"],
         events_ring=m["events_ring"], events_spool=m["events_spool"],
         metric_service=m["service"], metric_host=m["host"],
+        trace_export=m["trace_export"],
+        trace_export_path=m["trace_export_path"],
+        trace_export_endpoint=m["trace_export_endpoint"],
+        trace_export_format=m["trace_export_format"],
+        trace_export_sample=m["trace_export_sample"],
+        tracing_sampler_type=cfg.get("tracing", "sampler_type"),
+        tracing_sampler_param=cfg.get("tracing", "sampler_param"),
+        tracing_endpoint=cfg.get("tracing", "agent_host_port"),
         profile_mode=c["profile"],
         log_path=cfg.get("", "log_path"),
         log_format=cfg.get("", "log_format"),
@@ -241,10 +262,33 @@ def cmd_timeline(args) -> int:
     return 0
 
 
+def cmd_advise(args) -> int:
+    """GET /debug/heat?advice=true&top=0 from --host: the advice,
+    rendered (or as JSON)."""
+    from pilosa_tpu_torch.analysis.advisor import render_advice
+
+    url = args.host + "/debug/heat?advice=true&top=0"
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            doc = json.loads(resp.read())
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"error: fetching {url}: {e}")
+    if not doc.get("enabled", False) and not doc.get("trackedFragments"):
+        print("heat tracking is disabled or has no data yet "
+              "(PILOSA_TPU_TORCH_HEAT=0, or no traffic)")
+        return 1
+    advice = doc.get("advice") or {}
+    if args.as_json:
+        print(json.dumps(advice, indent=2, sort_keys=True))
+    else:
+        print(render_advice(advice))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return {"server": cmd_server,
-            "timeline": cmd_timeline}[args.command](args)
+    return {"server": cmd_server, "timeline": cmd_timeline,
+            "advise": cmd_advise}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,10 @@ and the calls the data plane makes: query_proto (:317), query_batch_raw
 send_message, nodes, status, translate_keys and translate_data; and those
 of liveness and healing (:397-463): fragment_blocks, block_data,
 column_attr_diff, row_attr_diff, retrieve_shard and probe_indirect; and
-resize's fragment_views (:431). A peer's error code
+resize's fragment_views (:431); and the federation's node_stats,
+debug_usage, debug_events, debug_heat and debug_hbm (:469-510), whose
+404 from a peer without the route is a ClientError with status 404 (the
+caller's "legacy" node). A peer's error code
 (`fragment-not-found`, `read-fenced`) rides ClientError.code.
 
 Every request carries the request's usage principal as
@@ -410,6 +413,31 @@ class InternalClient:
         peer without the route answers 404, which the caller reports as
         a legacy node."""
         out = self._request("GET", uri, "/debug/events", timeout=timeout)
+        return json.loads(out) if out else {}
+
+    def node_stats(self, uri: str, timeout: Optional[float] = None) -> dict:
+        """A peer's fleet-telemetry document (GET /internal/stats) for
+        /cluster/stats (:469-474); a peer without the route answers 404,
+        a ClientError the caller reports as a legacy node."""
+        out = self._request("GET", uri, "/internal/stats", timeout=timeout)
+        return json.loads(out) if out else {}
+
+    def debug_usage(self, uri: str, timeout: Optional[float] = None) -> dict:
+        """A peer's usage ledger (GET /debug/usage) for /cluster/usage
+        (:476-481); a 404 as for node_stats."""
+        out = self._request("GET", uri, "/debug/usage", timeout=timeout)
+        return json.loads(out) if out else {}
+
+    def debug_heat(self, uri: str, timeout: Optional[float] = None) -> dict:
+        """A peer's whole heat table (GET /debug/heat?top=0) for
+        /cluster/heat (:493-501); a 404 as for node_stats."""
+        out = self._request("GET", uri, "/debug/heat?top=0", timeout=timeout)
+        return json.loads(out) if out else {}
+
+    def debug_hbm(self, uri: str, timeout: Optional[float] = None) -> dict:
+        """A peer's whole residency map (GET /debug/hbm?top=0) for
+        /cluster/hbm (:503-510); a 404 as for node_stats."""
+        out = self._request("GET", uri, "/debug/hbm?top=0", timeout=timeout)
         return json.loads(out) if out else {}
 
     def fenced_shards(self, uri: str,

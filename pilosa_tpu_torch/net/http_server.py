@@ -32,6 +32,11 @@ JSON shapes for the public endpoints:
     GET         /cluster/events                (?since=, ?limit=: every
                                                 member's events merged in
                                                 HLC order)
+    GET         /cluster/stats, /cluster/usage, /cluster/hbm, /cluster/heat
+                                               (the fleet view: every
+                                                member's document merged;
+                                                a peer without the route
+                                                is "legacy")
     POST        /cluster/resize/abort
     POST        /cluster/resize/remove-node    (JSON {"id"})
     POST        /cluster/resize/set-coordinator (JSON {"id"})
@@ -48,7 +53,10 @@ arguments and JSON keys, and only the blocks the port has:
     GET         /debug/vars                    (expvar JSON)
     GET         /metrics                       (Prometheus text)
     GET         /debug/hbm                     (?top=)
-    GET         /debug/heat                    (?since=, ?limit=, ?top=)
+    GET         /debug/heat                    (?since=, ?limit=, ?top=,
+                                                ?advice=true)
+    GET         /debug/dashboard               (one self-contained HTML
+                                                page)
     GET         /debug/timeseries              (?since=, ?limit=)
     GET         /debug/usage                   (?since=, ?limit=, ?top=)
     GET         /debug/events                  (?since=, ?limit=, ?type=,
@@ -67,6 +75,8 @@ and the cluster's internal routes (:63-79, handlers :1361-1460):
                                                 messages)
     GET         /internal/nodes, /internal/shards/max
     GET         /internal/probe                (?uri=)
+    GET         /internal/stats                (this node's fleet-telemetry
+                                                document)
     GET         /internal/fragment/nodes       (?index=&shard=)
     GET         /internal/fragment/blocks      (?index=&field=&view=&shard=:
                                                 anti-entropy's checksums)
@@ -143,11 +153,13 @@ from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch import planner as _planner
+from pilosa_tpu_torch.analysis.advisor import advise
 from pilosa_tpu_torch import qos
 from pilosa_tpu_torch.api import API, ApiError
 from pilosa_tpu_torch.encoding.protobuf import CONTENT_TYPE as PROTO_CONTENT_TYPE
 from pilosa_tpu_torch.encoding.protobuf import Serializer
 from pilosa_tpu_torch.models.field import FieldOptions
+from pilosa_tpu_torch.net.dashboard import render_dashboard
 from pilosa_tpu_torch.constants import KERNEL_FAMILY_REPS
 from pilosa_tpu_torch.ops import _build, kernels
 from pilosa_tpu_torch.utils import accounting
@@ -190,6 +202,11 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/schema$"), "get_schema"),
     ("GET", re.compile(r"^/status$"), "get_status"),
     ("GET", re.compile(r"^/version$"), "get_version"),
+    ("GET", re.compile(r"^/cluster/stats$"), "get_cluster_stats"),
+    ("GET", re.compile(r"^/cluster/usage$"), "get_cluster_usage"),
+    ("GET", re.compile(r"^/cluster/heat$"), "get_cluster_heat"),
+    ("GET", re.compile(r"^/cluster/hbm$"), "get_cluster_hbm"),
+    ("GET", re.compile(r"^/debug/dashboard$"), "get_debug_dashboard"),
     ("GET", re.compile(r"^/debug/vars$"), "get_debug_vars"),
     ("GET", re.compile(r"^/debug/usage$"), "get_debug_usage"),
     ("GET", re.compile(r"^/debug/events$"), "get_debug_events"),
@@ -222,6 +239,7 @@ ROUTES: list[tuple[str, re.Pattern, str]] = [
      "delete_remote_available_shard"),
     ("GET", re.compile(r"^/internal/nodes$"), "get_nodes"),
     ("GET", re.compile(r"^/internal/probe$"), "get_internal_probe"),
+    ("GET", re.compile(r"^/internal/stats$"), "get_internal_stats"),
     ("POST", re.compile(r"^/internal/query-batch$"), "post_query_batch"),
     ("GET", re.compile(r"^/internal/shards/max$"), "get_shards_max"),
     ("GET", re.compile(r"^/internal/translate/data$"), "get_translate_data"),
@@ -248,7 +266,8 @@ ALLOWED_QUERY_ARGS = {"post_query": frozenset({"shards", "remote",
                       "post_import_roaring": frozenset({"clear", "remote"}),
                       "get_debug_pprof": frozenset({"seconds"}),
                       "get_debug_timeseries": frozenset({"since", "limit"}),
-                      "get_debug_heat": frozenset({"since", "limit", "top"}),
+                      "get_debug_heat": frozenset({"since", "limit", "top",
+                                                   "advice"}),
                       "get_debug_usage": frozenset({"since", "limit",
                                                     "top"}),
                       "get_debug_hbm": frozenset({"top"}),
@@ -957,6 +976,44 @@ class Handler:
         out["node"] = self.events.node_id
         return self._json(out)
 
+    def get_internal_stats(self, params, query, body):
+        """This node's fleet-telemetry document (:958-964), which a peer's
+        /cluster/stats fetches; a node without the route answers 404 and
+        is reported as legacy."""
+        if self.api.node_stats_fn is None:
+            raise ApiError("node stats not supported", status=501)
+        return self._json(self.api.node_stats_fn())
+
+    def get_cluster_stats(self, params, query, body):
+        """The fleet document (:966-972, Server.cluster_stats)."""
+        if self.api.cluster_stats_fn is None:
+            raise ApiError("cluster stats not supported", status=501)
+        return self._json(self.api.cluster_stats_fn())
+
+    def get_cluster_usage(self, params, query, body):
+        """The fleet's per-principal usage (:950-956,
+        Server.cluster_usage)."""
+        if self.api.cluster_usage_fn is None:
+            raise ApiError("cluster usage not supported", status=501)
+        return self._json(self.api.cluster_usage_fn())
+
+    def get_cluster_hbm(self, params, query, body):
+        """The fleet's residency maps (:777-784, Server.cluster_hbm)."""
+        if self.api.cluster_hbm_fn is None:
+            raise ApiError("cluster hbm not supported", status=501)
+        return self._json(self.api.cluster_hbm_fn())
+
+    def get_cluster_heat(self, params, query, body):
+        """The fleet's heat map (:941-948, Server.cluster_heat)."""
+        if self.api.cluster_heat_fn is None:
+            raise ApiError("cluster heat not supported", status=501)
+        return self._json(self.api.cluster_heat_fn())
+
+    def get_debug_dashboard(self, params, query, body):
+        """The self-contained fleet dashboard (:831-836,
+        net/dashboard.py)."""
+        return 200, "text/html; charset=utf-8", render_dashboard().encode()
+
     def get_cluster_events(self, params, query, body):
         """The merged cluster timeline (:928-939, Server.cluster_events)."""
         if self.api.cluster_events_fn is None:
@@ -1033,9 +1090,11 @@ class Handler:
         return self._json(out)
 
     def get_debug_heat(self, params, query, body):
-        """The fragment heat map (:861): hot and cold lists, exact totals,
-        the distribution and skew, and the summary ring since ?since=.
-        With heat off (PILOSA_TPU_TORCH_HEAT=0) an empty document."""
+        """The fragment heat map (:861-898): hot and cold lists, exact
+        totals, the distribution and skew, and the summary ring since
+        ?since=; ?advice=true adds the placement advisor's dry run
+        (analysis/advisor.py) over the whole table. With heat off
+        (PILOSA_TPU_TORCH_HEAT=0) an empty document."""
         since, limit, top = self._int_args(query, since=0, limit=0, top=20)
         tracker = self.api.executor.heat
         if tracker is None:
@@ -1043,9 +1102,18 @@ class Handler:
                                "totals": {}, "trackedFragments": 0,
                                "spilledFragments": 0, "hotFragments": 0,
                                "skew": 1.0, "seq": 0, "samples": []})
-        out = tracker.snapshot(top=top)
+        full = (tracker.snapshot(top=0)
+                if self._arg(query, "advice") in ("1", "true") else None)
+        # with ?top=0 the document and the advice read one snapshot, so
+        # advise() of the document gives the advice it carries
+        out = (dict(full) if full is not None and top == 0
+               else tracker.snapshot(top=top))
         out.update(tracker.since(since, limit))
         out["enabled"] = tracker.enabled and _heat.enabled()
+        if full is not None:
+            res = self.api.executor.residency
+            out["advice"] = advise(full, residency=res.snapshot(),
+                                   budget_bytes=res.budget)
         return self._json(out)
 
     def get_metrics(self, params, query, body):

@@ -161,8 +161,21 @@ warnf and errorf lines land in the journal's log lane. metric_service
 and metric_host select the StatsClient (utils/stats.py
 new_stats_client); profile_mode is the API's [cluster] profile.
 
-Not served yet: the rest of the /cluster/* federation (stats, heat, hbm,
-usage).
+The fleet view (pilosa_tpu/server.py:2448-2826): node_stats() is GET
+/internal/stats; cluster_stats(), cluster_usage(), cluster_hbm(),
+cluster_heat() and cluster_events() fetch every member's document at
+once, each on a thread of its own, and merge them (GET /cluster/stats,
+/cluster/usage, /cluster/hbm, /cluster/heat, /cluster/events). A peer
+marked down gets no RPC, a 404 peer is "legacy" and any other failure is
+yellow in the stats and "error" elsewhere; none fails the merge, and no
+join waits longer than max(2, probe_timeout) + 1 seconds.
+
+Trace export (:156-167, :361-382): tracing_endpoint (the [tracing]
+agent-host-port) ships the recording tracer's spans through a
+SpanExporter under tracing_sampler_type and tracing_sampler_param;
+trace_export ("off", "file" or "http", the [metric] trace-export keys)
+sets up a TraceExporter that the API gives every finished profile tree
+of a query this node coordinated. close() flushes both.
 
 String keys are minted into a TranslateStore at <data_dir>/.keys (its
 sqlite index at .keys.idx; pilosa_tpu/server.py:151) through the
@@ -228,12 +241,13 @@ from pilosa_tpu_torch.storage.hints import HintStore
 from pilosa_tpu_torch.storage.roaring import Bitmap
 from pilosa_tpu_torch.utils import accounting as _accounting
 from pilosa_tpu_torch.utils import events as _events
+from pilosa_tpu_torch.utils import heat as _heat
 from pilosa_tpu_torch.utils import telemetry as _telemetry
 from pilosa_tpu_torch.utils.profile import QueryHistory
 from pilosa_tpu_torch.utils.cluster_translate import ClusterTranslator
 from pilosa_tpu_torch.utils.logger import Logger
 from pilosa_tpu_torch.utils.stats import new_stats_client
-from pilosa_tpu_torch.utils.tracing import Tracer
+from pilosa_tpu_torch.utils.tracing import SpanExporter, TraceExporter, Tracer
 from pilosa_tpu_torch.utils.translate import TranslateStore
 
 
@@ -336,7 +350,15 @@ class Server:
                  profile_mode: str = "auto",
                  log_path: str = "",
                  log_format: str = "plain",
-                 verbose: bool = False):
+                 verbose: bool = False,
+                 trace_export: str = "off",
+                 trace_export_path: str = "",
+                 trace_export_endpoint: str = "",
+                 trace_export_format: str = "jaeger",
+                 trace_export_sample: float = 1.0,
+                 tracing_sampler_type: str = "off",
+                 tracing_sampler_param: float = 0.0,
+                 tracing_endpoint: str = ""):
         if wal_fsync not in ("off", "always"):
             raise ValueError(f"invalid [storage] wal-fsync {wal_fsync!r} "
                              "(expected off | always)")
@@ -383,6 +405,10 @@ class Server:
             raise ValueError(
                 f"invalid [cluster] profile mode {profile_mode!r} "
                 "(expected off | auto | on)")
+        if trace_export not in ("off", "file", "http"):
+            raise ValueError(
+                f"invalid [metric] trace-export {trace_export!r} "
+                "(expected off | file | http)")
         # Logger validates the format; log_path appends there instead of
         # stderr
         self.logger = Logger(verbose=verbose, fmt=log_format)
@@ -483,7 +509,32 @@ class Server:
         self.events_spool = events_spool
         self.events: Optional[_events.EventJournal] = None
         self._last_health: Optional[str] = None
-        self.tracer = Tracer()
+        # [tracing]: an agent endpoint ("host:port" or a URL) ships the
+        # recording tracer's spans as the sampler allows
+        if tracing_endpoint and "://" not in tracing_endpoint:
+            tracing_endpoint = f"http://{tracing_endpoint}/api/traces"
+        self.tracer = Tracer(
+            exporter=(SpanExporter(tracing_endpoint)
+                      if tracing_endpoint else None),
+            sampler_type=tracing_sampler_type,
+            sampler_param=tracing_sampler_param)
+        # [metric] trace-export: finished cross-node profile trees (and,
+        # when no [tracing] endpoint took the tracer, its spans) go as
+        # Jaeger or OTLP batches to a spool (<data_dir>/trace-spool.jsonl
+        # by default) or a collector
+        self.trace_exporter: Optional[TraceExporter] = None
+        if trace_export != "off":
+            self.trace_exporter = TraceExporter(
+                mode=trace_export,
+                path=trace_export_path or os.path.join(
+                    data_dir, "trace-spool.jsonl"),
+                endpoint=trace_export_endpoint, fmt=trace_export_format,
+                sample=trace_export_sample)
+            if self.tracer.exporter is None:
+                self.tracer.exporter = self.trace_exporter
+                if tracing_sampler_type == "off":
+                    self.tracer.sampler_type = "probabilistic"
+                    self.tracer.sampler_param = trace_export_sample
         self.telemetry = _telemetry.TelemetrySampler(
             interval=telemetry_interval, ring_size=telemetry_ring,
             source=self.sample_gauges)
@@ -629,6 +680,12 @@ class Server:
         self.api.logger = self.logger
         self.api.profile_mode = self.profile_mode
         self.api.cluster_events_fn = self.cluster_events
+        self.api.node_stats_fn = self.node_stats
+        self.api.cluster_stats_fn = self.cluster_stats
+        self.api.cluster_usage_fn = self.cluster_usage
+        self.api.cluster_hbm_fn = self.cluster_hbm
+        self.api.cluster_heat_fn = self.cluster_heat
+        self.api.trace_exporter = self.trace_exporter
         self.api.query_history = QueryHistory(self.query_history_size)
         self.api.max_writes_per_request = self.max_writes_per_request
         self.api.usage_ledger = self.usage
@@ -734,6 +791,12 @@ class Server:
         if self.http is not None:
             self.http.close()
             self.http = None
+        # the last batches (TraceExporter.close is idempotent where it is
+        # the tracer's exporter too)
+        if self.tracer.exporter is not None:
+            self.tracer.exporter.close()
+        if self.trace_exporter is not None:
+            self.trace_exporter.close()
         if self.executor is not None:
             self.executor.shutdown()
         if self.holder is not None:
@@ -2510,20 +2573,62 @@ class Server:
         healthRed shed."""
         return _telemetry.health_score(self._health_inputs())
 
-    def cluster_events(self, limit: int = 0) -> dict:
-        """GET /cluster/events (:2710-2760): every member's /debug/events,
-        fetched at once and merged in HLC order (events.merge_events).
-        A peer marked down is skipped without an RPC ("down"), one that
-        answers 404 is a "legacy" node and any other failure is "error";
-        neither fails the merge. The RPCs merge each peer's stamp, so this
-        node's clock has passed every peer's before it sorts."""
-        docs: dict[str, list] = {}
+    # samples of the telemetry ring a node's stats document carries (the
+    # dashboard's sparklines)
+    STATS_TAIL_SAMPLES = 60
+
+    def node_stats(self) -> dict:
+        """This node's fleet-telemetry document (GET /internal/stats,
+        :2448-2479): identity, health and its inputs, the latest sampled
+        gauges, device memory and the ring's tail. The JAX document's
+        `xla` block counts XLA compiles; the port compiles nothing per
+        shape (its kernels are built once per process from
+        csrc/bitmap_kernels.cu), so `xla` is null, and the card's work
+        shows in the gauges (device.bytes_in_use, kernels.*)."""
+        from pilosa_tpu_torch import __version__
+
+        inputs = self._health_inputs()
+        ring = self.telemetry.ring
+        return {
+            "id": self.node_id,
+            "uri": self.http.uri,
+            # a draining node says so (its health inputs make it yellow)
+            "state": "DRAINING" if self.draining else self.cluster.state,
+            "version": __version__,
+            "uptimeSeconds": int(time.monotonic() - self.api.start_time),
+            "health": _telemetry.health_score(inputs),
+            "healthInputs": inputs,
+            "damagedFragments": inputs["damagedFragments"],
+            "gauges": ring.latest(),
+            "counters": {
+                "http5xx": self.handler.errors_5xx,
+                "hedgesFired": self.executor.hedges_fired,
+                "sampleErrors": self.telemetry.sample_errors,
+            },
+            "xla": None,
+            "deviceMemory": _telemetry.device_memory_stats(),
+            "timeseries": ring.since(0, limit=self.STATS_TAIL_SAMPLES),
+        }
+
+    def _fetch_timeout(self) -> float:
+        return max(2.0, self.probe_timeout)
+
+    def _federate(self, local_fn, fetch_fn, what: str) -> tuple:
+        """Every member's document for a /cluster/* merge (:2586-2826):
+        this node's from local_fn(), each live peer's from fetch_fn(uri,
+        timeout) on a short-lived thread of its own (not the fan-out
+        pool, where a fetch queued behind query RPCs would time out). A
+        peer marked down, or without a URI, gets no RPC ("down"); a 404
+        is a "legacy" peer, any other failure or a fetch past the join
+        bound "error"; none fails the merge. -> ({id: document},
+        [{id, uri, status}] in membership order)."""
+        docs: dict = {}
         nodes: list[dict] = []
-        timeout = max(2.0, self.probe_timeout)
+        timeout = self._fetch_timeout()
         fetchers: list = []
         for n in list(self.cluster.nodes):
             if n.id == self.node_id:
-                docs[n.id] = self.events.events(0)
+                docs[n.id] = local_fn()
                 nodes.append({"id": n.id, "uri": self.uri, "status": "ok"})
                 continue
             if self.cluster.is_down(n.id) or not n.uri:
@@ -2535,8 +2640,7 @@ class Server:
 
             def fetch(node=n, entry=entry) -> None:
                 try:
-                    doc = self.client.debug_events(node.uri, timeout)
-                    docs[node.id] = doc.get("events", [])
+                    docs[node.id] = fetch_fn(node.uri, timeout)
                     entry["status"] = "ok"
                 except ClientError as e:
                     entry["status"] = ("legacy" if e.status == 404
@@ -2544,7 +2648,7 @@ class Server:
                 except Exception:  # noqa: BLE001 — never fail the merge
                     entry["status"] = "error"
 
-            t = threading.Thread(target=fetch, name="pilosa-torch-events",
+            t = threading.Thread(target=fetch, name=f"pilosa-torch-{what}",
                                  daemon=True)
             t.start()
             fetchers.append((entry, t))
@@ -2552,12 +2656,178 @@ class Server:
             t.join(timeout + 1.0)
             if entry["status"] == "pending":
                 entry["status"] = "error"
-        merged = _events.merge_events(dict(docs))
+        # a fetch that finishes after its join bound must not show up
+        ok = {e["id"] for e in nodes if e["status"] == "ok"}
+        return {k: v for k, v in list(docs.items()) if k in ok}, nodes
+
+    @staticmethod
+    def _stamped(out: dict, node_id: str) -> dict:
+        out["generatedBy"] = node_id
+        out["asOf"] = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+        return out
+
+    def cluster_stats(self) -> dict:
+        """The fleet document (GET /cluster/stats, :2481-2584): every
+        member's node_stats with its health. A peer marked down is red
+        (no RPC), a draining one that stopped answering yellow, one
+        without /internal/stats (404) "legacy", a failed or timed-out
+        fetch yellow; legacy and unknown never worsen the fleet's
+        health."""
+        entries: dict[str, dict] = {self.node_id: self.node_stats()}
+        order: list[str] = []
+        timeout = self._fetch_timeout()
+        draining_doc = {"state": "DRAINING", "health": {
+            "score": "yellow",
+            "reasons": ["node draining (rolling restart in progress)"]}}
+        fetchers: list = []
+        for n in list(self.cluster.nodes):
+            order.append(n.id)
+            if n.id == self.node_id:
+                continue
+            if self.cluster.is_down(n.id):
+                # a drained node that went away is mid-restart, not failed
+                entries[n.id] = {"id": n.id, "uri": n.uri, **(
+                    draining_doc if self.cluster.is_draining(n.id) else
+                    {"state": "down", "health": {"score": "red", "reasons": [
+                        "node marked down (liveness)"]}})}
+                continue
+            if not n.uri:
+                entries[n.id] = {
+                    "id": n.id, "uri": "", "state": "unknown",
+                    "health": {"score": "yellow",
+                               "reasons": ["no known URI"]}}
+                continue
+
+            def fetch(node=n) -> None:
+                draining = self.cluster.is_draining(node.id)
+                try:
+                    doc = self.client.node_stats(node.uri, timeout)
+                    doc.setdefault("id", node.id)
+                    doc.setdefault("uri", node.uri)
+                    entries[node.id] = doc
+                except ClientError as e:
+                    if draining:
+                        entries[node.id] = {"id": node.id, "uri": node.uri,
+                                            **draining_doc}
+                    elif e.status == 404:
+                        entries[node.id] = {
+                            "id": node.id, "uri": node.uri, "state": "up",
+                            "health": {"score": "legacy", "reasons": [
+                                "peer predates /internal/stats "
+                                "(legacy protocol)"]}}
+                    else:
+                        entries[node.id] = {
+                            "id": node.id, "uri": node.uri, "state": "up",
+                            "health": {"score": "yellow", "reasons": [
+                                f"stats fetch failed: {e}"]}}
+                except Exception as e:  # noqa: BLE001 — never fail it all
+                    entries[node.id] = {
+                        "id": node.id, "uri": node.uri, "state": "up",
+                        "health": {"score": "yellow", "reasons": [
+                            f"stats fetch failed: "
+                            f"{type(e).__name__}: {e}"]}}
+
+            t = threading.Thread(target=fetch, name="pilosa-torch-stats",
+                                 daemon=True)
+            t.start()
+            fetchers.append((n, t))
+        for n, t in fetchers:
+            t.join(timeout + 1.0)
+            if n.id not in entries:
+                entries[n.id] = {
+                    "id": n.id, "uri": n.uri, "state": "up",
+                    "health": {"score": "yellow", "reasons": [
+                        f"stats fetch timed out after {timeout:.1f}s"]}}
+        nodes = [entries[i] for i in order]
+        counts: dict[str, int] = {}
+        worst = "green"
+        sev = {"green": 0, "yellow": 1, "red": 2}
+        for nd in nodes:
+            score = (nd.get("health") or {}).get("score", "unknown")
+            counts[score] = counts.get(score, 0) + 1
+            if score in sev and sev[score] > sev[worst]:
+                worst = score
+        return self._stamped(
+            {"fleet": {"health": worst, "counts": counts, "nodes": nodes}},
+            self.node_id)
+
+    def cluster_usage(self) -> dict:
+        """The fleet's per-principal usage (GET /cluster/usage,
+        :2586-2651): every member's /debug/usage summed per principal,
+        ordered by device ms, then queries, then name."""
+        docs, nodes = self._federate(self.usage.snapshot,
+                                     self.client.debug_usage, "usage")
+        merged: dict[str, dict] = {}
+        totals = dict.fromkeys(_accounting.FIELDS, 0.0)
+        spilled = 0
+        for doc in docs.values():
+            for p, e in (doc.get("principals") or {}).items():
+                acc = merged.setdefault(
+                    p, dict.fromkeys(_accounting.FIELDS, 0.0))
+                for f in _accounting.FIELDS:
+                    acc[f] += float(e.get(f, 0.0))
+                acc["nodes"] = acc.get("nodes", 0) + 1
+            for f in _accounting.FIELDS:
+                totals[f] += float((doc.get("totals") or {}).get(f, 0.0))
+            spilled += int(doc.get("spilledPrincipals", 0))
+        ordered = dict(sorted(merged.items(),
+                              key=lambda kv: (-kv[1]["deviceMs"],
+                                              -kv[1]["queries"], kv[0])))
+        return self._stamped({"principals": ordered, "totals": totals,
+                              "spilledPrincipals": spilled, "nodes": nodes},
+                             self.node_id)
+
+    def cluster_hbm(self) -> dict:
+        """The fleet's residency maps (GET /cluster/hbm, :2653-2708):
+        every member's /debug/hbm under byNode and its byte totals summed.
+        Nodes that share one card each count their own residency budget,
+        so budgetBytes and headroomBytes sum past the card's memory."""
+        docs, nodes = self._federate(self.executor.hbm_snapshot,
+                                     self.client.debug_hbm, "hbm")
+        totals = {"residentBytes": 0, "budgetBytes": 0, "headroomBytes": 0,
+                  "planCacheBytes": 0, "entries": 0}
+        drift = None
+        for doc in docs.values():
+            for f in totals:
+                totals[f] += int(doc.get(f, 0) or 0)
+            d = doc.get("hbmDriftBytes")
+            if d is not None:
+                drift = (drift or 0) + int(d)
+        return self._stamped({"byNode": docs, "totals": totals,
+                              "hbmDriftBytes": drift, "nodes": nodes},
+                             self.node_id)
+
+    def cluster_heat(self) -> dict:
+        """The fleet's heat map (GET /cluster/heat, :2765-2826): every
+        member's whole /debug/heat table merged per fragment
+        (heat.merge_heat_docs: replica heat sums), and each node entry
+        with its skew, hot and tracked fragments (the advisor's node
+        input)."""
+        tracker = self.executor.heat
+        docs, nodes = self._federate(
+            lambda: tracker.snapshot(top=0) if tracker is not None else {},
+            self.client.debug_heat, "heat")
+        out = _heat.merge_heat_docs(docs)
+        for entry in nodes:
+            doc = docs.get(entry["id"])
+            if doc:
+                entry["skew"] = doc.get("skew", 1.0)
+                entry["hotFragments"] = doc.get("hotFragments", 0)
+                entry["trackedFragments"] = doc.get("trackedFragments", 0)
+        out["nodes"] = nodes
+        return self._stamped(out, self.node_id)
+
+    def cluster_events(self, limit: int = 0) -> dict:
+        """GET /cluster/events (:2710-2760): every member's /debug/events
+        merged in HLC order (events.merge_events). The RPCs merge each
+        peer's stamp, so this node's clock has passed every peer's before
+        it sorts."""
+        docs, nodes = self._federate(
+            lambda: self.events.events(0),
+            lambda uri, timeout: self.client.debug_events(
+                uri, timeout).get("events", []), "events")
+        merged = _events.merge_events(docs)
         if limit > 0:
             merged = merged[-limit:]
-        return {
-            "events": merged,
-            "nodes": nodes,
-            "generatedBy": self.node_id,
-            "asOf": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
-        }
+        return self._stamped({"events": merged, "nodes": nodes},
+                             self.node_id)

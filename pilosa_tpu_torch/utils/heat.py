@@ -27,6 +27,9 @@ its own `now`, before every read and at the telemetry sampler's tick, so
 
 PILOSA_TPU_TORCH_HEAT=0 (the JAX package's PILOSA_TPU_HEAT) builds no
 tracker: every charge site is one None check and eviction stays LRU.
+
+merge_heat_docs (:390) merges the nodes' documents into the fleet's
+(GET /cluster/heat).
 """
 
 from __future__ import annotations
@@ -41,8 +44,6 @@ import time
 from typing import NamedTuple, Optional
 
 import numpy as np
-
-from pilosa_tpu_torch.utils.telemetry import Ring
 
 # the spill bucket: charges of fragments beyond the table bound
 SPILL = "~other"
@@ -288,6 +289,10 @@ class HeatTracker:
         self._count = 0
         self._other = dict.fromkeys(FIELDS, 0.0)  # the SPILL aggregate
         self.spilled_fragments = 0
+        # imported here: the advisor's command line reads HOT_SCORE and
+        # merge_heat_docs without loading torch (telemetry's import)
+        from pilosa_tpu_torch.utils.telemetry import Ring
+
         self.ring = Ring(ring_size)
 
     # -- charging ------------------------------------------------------------
@@ -744,3 +749,47 @@ class HeatTracker:
             self._count = 0
             self._other = dict.fromkeys(FIELDS, 0.0)
             self.spilled_fragments = 0
+
+
+def merge_heat_docs(docs: dict) -> dict:
+    """The fleet's heat map (GET /cluster/heat) from each node's
+    /debug/heat document (copy of pilosa_tpu/utils/heat.py:390): a
+    fragment's fields and scores sum over the nodes that report it (two
+    replicas serving its reads make it twice as hot fleet-wide), totals
+    and spills sum, and the skew is recomputed over the merged scores.
+    `docs` maps node id -> that node's document."""
+    merged: dict = {}
+    totals = dict.fromkeys(FIELDS, 0.0)
+    spilled = 0
+    for doc in docs.values():
+        for e in (doc.get("hot") or []):
+            key = (e.get("index"), e.get("field"), e.get("view"),
+                   int(e.get("shard", 0)))
+            acc = merged.get(key)
+            if acc is None:
+                acc = merged[key] = {
+                    "index": key[0], "field": key[1], "view": key[2],
+                    "shard": key[3], "score": 0.0, "readsPerS": 0.0,
+                    "writesPerS": 0.0, "nodes": 0,
+                    **{f: 0.0 for f in FIELDS}}
+            for f in FIELDS:
+                acc[f] = round(acc[f] + float(e.get(f, 0.0)), 3)
+            for f in ("score", "readsPerS", "writesPerS"):
+                acc[f] = round(acc[f] + float(e.get(f, 0.0)), 6)
+            acc["nodes"] += 1
+        for f in FIELDS:
+            totals[f] += float((doc.get("totals") or {}).get(f, 0.0))
+        spilled += int(doc.get("spilledFragments", 0))
+    ordered = sorted(merged.values(),
+                     key=lambda e: (-e["score"], e["index"], e["field"],
+                                    e["view"], e["shard"]))
+    scores = [e["score"] for e in ordered]
+    mean = (sum(scores) / len(scores)) if scores else 0.0
+    return {
+        "hot": ordered,
+        "totals": {f: round(v, 3) for f, v in totals.items()},
+        "trackedFragments": len(ordered),
+        "spilledFragments": spilled,
+        "hotFragments": sum(1 for s in scores if s >= HOT_SCORE),
+        "skew": round(scores[0] / mean, 4) if mean > 0 else 1.0,
+    }

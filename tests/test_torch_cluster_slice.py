@@ -342,10 +342,10 @@ def test_cli_nodes_converge_and_serve(tmp_path):
 
 
 @pytest.mark.parametrize("toml", [
-    "[metric]\ntrace-export = \"file\"\n",
+    "[tls]\nkey = \"node.key\"\n",
     "[tls]\ncertificate = \"node.crt\"\n",
     "[metric]\npoll-interval = 5.0\n",
-    "[tracing]\nsampler-type = \"const\"\n",
+    "[mesh]\nhost-devices = 2\n",
     "[diagnostics]\nurl = \"http://localhost:1/d\"\n"])
 def test_unported_config_key_fails_the_start(tmp_path, toml):
     cfg = tmp_path / "n.toml"

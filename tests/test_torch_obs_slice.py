@@ -363,8 +363,11 @@ def test_debug_routes(servers):
     assert all(s["seq"] > ts["seq"] for s in again["samples"])
     status, _ = _call(uri, "GET", "/debug/timeseries?since=x")
     assert status == 400
-    status, _ = _call(uri, "GET", "/debug/heat?advice=true")
-    assert status == 400  # the cluster advisor's argument: not served
+    # the placement advisor's dry run rides on the heat document
+    status, heat = _call(uri, "GET", "/debug/heat?advice=true")
+    assert status == 200 and heat["advice"]["dryRun"] is True
+    status, _ = _call(uri, "GET", "/debug/heat?advise=true")
+    assert status == 400
     _, prof = _post(uri, "/debug/device-profile?seconds=0.05", b"")
     assert prof["status"] == "ok" and prof["activity"] == "cpu"
     assert _call(uri, "GET", "/debug/pprof")[1]["profiles"] == \
