@@ -152,7 +152,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    (quantum YMD) where user u of 256 stars about 200,000 / (u + 1)
    uniformly random repositories (about 1.2M stars; the shape's 2,000,000
    cut ten times, see TYPED_STARS_HEAD) at uniform timestamps over
-   2019-01-25..2019-02-28 (35 day views, 2 month views, the year view and
+   2019-01-29..2019-02-28 (31 day views, 2 month views, the year view and
    the standard view; epoch numbers, the last chunk ISO-8601 strings); a
    mutex field license of 16 rows over the starred repositories, imported
    once and then a seeded 10 % reassigned (the last write wins); a bool
@@ -323,6 +323,38 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    2 absent or down, the rest ok) and `python -m pilosa_tpu_torch.cli
    timeline --host <node 0>` once (exit 0, one line an event). Phase
    5h's launches count with phase 5g's.
+5i. Faults and operations (the JAX chaos suite, tests/test_chaos.py,
+   against port nodes, with the operator's surfaces), after phase 5h:
+   (a) three in-process port nodes on the card, replicas 2, 4 rows of f
+   over 128 shards at phase 2's density imported through node 0 before
+   any fault is armed; the failpoints' chaos schedule armed with the JAX
+   suite's seed 20250804 at rate 0.08 on its five storm points (torn WAL
+   appends, failed and partial RPC sends and reads, injected fan-out and
+   dispatch faults); 8 clients send 320 Count(Intersect) and 192 Set
+   through nodes 0 and 1, and node 2's listener closes halfway: every
+   answer equals the oracle or is a clean JSON error; the fired counts
+   by point, the acknowledged and refused Sets and the kernel launches
+   during the storm (/debug/vars) are printed; faults reset, paced scrub
+   passes until the co-owned block checksums agree (seconds); every
+   acknowledged Set reads back on each survivor alone and through it,
+   every Count equals the oracle; node 2 marked down, Sets into its
+   shards acknowledged with hints. (b) A port writer process (the
+   batched write path, PILOSA_TPU_WAL_FSYNC=always,
+   PILOSA_TPU_CONTAINER_STORE=btree), started beside phase 5f, SIGKILLed
+   after 2,000 acknowledged bits; a port server on the card opens its
+   data dir and every acknowledged bit reads back through Row and Count.
+   (c) Two port nodes over HTTPS with a throwaway certificate (openssl
+   req) and skip-verify: Count(Intersect) over 16 shards fanned out over
+   HTTPS equals the oracle. (d) The CLI against the storm's nodes: a CSV
+   imported and exported back unchanged, check and inspect on fragment
+   files and hint logs (OK; a damaged copy of each FAILED),
+   profile-capture against node 0 (ok, its spool exists). (e) The first
+   TLS node phones home to a listener inside the script every 0.5 s:
+   exactly the documents sent are received, none after close; its
+   [metric] poll-interval gauges are on /metrics. Launch counts are
+   zeroed before the storm and read at the end: pair_stream_counts and
+   program_count must have launched. `--faults-only` runs phases 1 and
+   5i alone.
 6. Server, write path, on the same server and index (bench.py's ingest
    stage, bench.py:1824-1935, cut to a fixed length): 8 keep-alive writers
    each send 2 envelopes of 500 calls, 80 % Set of a column of their own
@@ -369,7 +401,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    units, at every K the hybrid phase served and at K = 16384 (event,
    device and host times). Times by CUDA events (warm, median).
 8. The last lines: nvidia-smi's name and power limit, one JSON object with
-   a record per kernel (its launches summed over the ten paths, with
+   a record per kernel (its launches summed over the eleven paths, with
    launches_by_path beside; bsi_sum_counts adds its launches by form and
    the form the served shape takes; served_device_ms_p50 is its device
    ms as served, from the paths' device-profile captures, over
@@ -3974,14 +4006,15 @@ TYPED_LICENSES = 16
 TYPED_FORK_SHARE = 0.2
 TYPED_MOVED_SHARE = 0.1
 TYPED_CHUNK_SHARDS = 64  # shards per HTTP import request
-# 35 days since phase 5h joined the run (45 since the drill's healing
-# steps joined phase 5g, 90 from 2019-01-01 before): 39,936 fragments of
-# the stargazer field (39 views), not 51,200 or 97,280. They hold the
-# whole of February, so that every window below spans views that hold
-# data: the ragged span 7 days of January, the month of February and 9
-# days of March (17 views, 8 of them with data)
-TYPED_T0 = "2019-01-25T00:00:00"
-TYPED_DAYS = 35  # 2019-01-25 .. 2019-02-28
+# 31 days since phase 5i joined the run (35 since phase 5h joined it, 45
+# since the drill's healing steps joined phase 5g, 90 from 2019-01-01
+# before): 35,840 fragments of the stargazer field (35 views), not 39,936,
+# 51,200 or 97,280. They hold the whole of February, so that every window
+# below spans views that hold data: the ragged span 7 days of January (3
+# of them with data), the month of February and 9 days of March (17
+# views, 4 of them with data)
+TYPED_T0 = "2019-01-29T00:00:00"
+TYPED_DAYS = 31  # 2019-01-29 .. 2019-02-28
 TYPED_WINDOWS = (("2019-02-04T00:00", "2019-02-11T00:00", "one week"),
                  ("2019-02-01T00:00", "2019-03-01T00:00", "one month"),
                  ("2019-01-25T00:00", "2019-03-10T00:00", "ragged span"),
@@ -4406,7 +4439,8 @@ KEYED_USER = 4  # phase 5e's ClearRow empties another user's stars
 KEYED_CLIENTS, KEYED_PER_CLIENT = 32, 4  # 4 since phase 5g (8 before)
 # part B: a keyed-column index of user logins (2^20 - 1 keys since phase
 # 5h joined the run, 2^21 - 1 before: ids start at 1, so they fill shard
-# 0 exactly)
+# 0 exactly, and the logins the keyed envelope mints land in shard 1,
+# which the /export check of shard 0 relies on)
 LOGIN_INDEX = "logins"
 LOGINS = (1 << 20) - 1
 LOGIN_EXPORT_SHARD = 0
@@ -7471,6 +7505,761 @@ def cluster_qos(ports: list, count_mix: list) -> dict:
     return out
 
 
+# ----------------------------------------- phase 5i: faults and operations
+
+FAULT_SHARDS = 128  # the size of phase 5g
+FAULT_ROWS = 4  # rows of f at phase 2's density
+FAULT_SEED = 20250804  # the JAX chaos suite's seed (tests/test_chaos.py)
+FAULT_RATE = 0.08
+FAULT_POINTS = ("storage.wal.append", "net.client.send", "net.client.read",
+                "executor.fanout", "http.server.dispatch")
+FAULT_CLIENTS = 8
+FAULT_COUNTS, FAULT_SETS = 320, 192  # in all, over the clients
+FAULT_WRITE_ROW = 9
+FAULT_CRASH_ACKS = 2000  # acknowledged bits before the writer's SIGKILL
+FAULT_CRASH_THREADS = 4
+FAULT_HINTED = 12  # Sets acknowledged with a hint for the dead node
+FAULT_CSV_BITS = 4000  # the CLI's CSV, over shards nodes 0 and 1 own
+FAULT_TLS_SHARDS = 16
+FAULT_DIAG_INTERVAL = 0.5
+FAULT_POLL_INTERVAL = 0.25
+FAULT_KERNELS = ("pair_stream_counts", "program_count")
+
+CRASH_WRITER = r"""
+import sys, threading
+from pilosa_tpu_torch.executor import Executor
+from pilosa_tpu_torch.models.holder import Holder
+
+h = Holder(sys.argv[1]).open()
+idx = h.create_index("i")
+idx.create_field("f")
+ex = Executor(h, device="cpu")  # the write path only: no card needed
+plock = threading.Lock()
+
+def writer(tid):
+    col = tid * 1000003
+    while True:  # SIGKILLed mid-stream
+        cols = list(range(col, col + 5))
+        ex.execute("i", "".join(f"Set({c}, f={tid})" for c in cols))
+        # acknowledged: the batch's WAL records are written and fsynced
+        with plock:
+            print("".join(f"ACK {tid} {c}\n" for c in cols), end="",
+                  flush=True)
+        col += 5
+
+ts = [threading.Thread(target=writer, args=(t,), daemon=True)
+      for t in range(int(sys.argv[2]))]
+for t in ts:
+    t.start()
+for t in ts:
+    t.join()
+"""
+
+
+class CrashWriter:
+    """A port writer process (Holder + Executor, the batched write path)
+    with PILOSA_TPU_WAL_FSYNC=always and PILOSA_TPU_CONTAINER_STORE=btree,
+    SIGKILLed from a reader thread once FAULT_CRASH_ACKS bits are
+    acknowledged; the acks printed before the kill are kept."""
+
+    def __init__(self, data_dir: str):
+        import signal
+
+        self.data_dir = data_dir
+        env = dict(os.environ, PILOSA_TPU_WAL_FSYNC="always",
+                   PILOSA_TPU_CONTAINER_STORE="btree",
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__))
+                   + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        env.pop("PILOSA_TPU_TORCH_INGEST", None)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", CRASH_WRITER, data_dir,
+             str(FAULT_CRASH_THREADS)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, env=env)
+        self.acked: list = []
+        self.first_ack_s = None
+        self.killed_s = None
+        self.done = threading.Event()
+
+        def read():
+            try:
+                for line in self.proc.stdout:
+                    parts = line.split()
+                    if len(parts) != 3 or parts[0] != b"ACK":
+                        continue
+                    if self.first_ack_s is None:
+                        self.first_ack_s = time.perf_counter() - self.t0
+                    self.acked.append((int(parts[1]), int(parts[2])))
+                    if len(self.acked) >= FAULT_CRASH_ACKS \
+                            and self.killed_s is None:
+                        os.kill(self.proc.pid, signal.SIGKILL)
+                        self.killed_s = time.perf_counter() - self.t0
+            finally:
+                self.done.set()
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+
+    def wait(self, timeout: float = 300.0) -> list:
+        if not self.done.wait(timeout):
+            self.proc.kill()
+            raise AssertionError("the crash writer did not reach "
+                                 f"{FAULT_CRASH_ACKS} acks in {timeout} s")
+        self.proc.wait(timeout=30)
+        err = self.proc.stderr.read().decode(errors="replace")
+        if self.killed_s is None:
+            raise AssertionError(f"the crash writer exited by itself "
+                                 f"({self.proc.returncode}): {err[-2000:]}")
+        return self.acked
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def _open_unprofiled(server):
+    """server.open() without the device profiler's empty warm-up capture
+    (the run's first server on this thread made it; of phase 5i's nodes
+    only the storm's node 0 is captured): about 2 s an open on the card."""
+    name = "PILOSA_TPU_TORCH_DEVICE_PROFILE"
+    old = os.environ.get(name)
+    os.environ[name] = "0"
+    try:
+        return server.open()
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def _status_json(port: int, path: str, body: bytes = b"",
+                 method: str = "POST", timeout: float = 60.0) -> tuple:
+    """(status, parsed JSON or the raw text) of one request."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        raw = resp.read()
+    finally:
+        conn.close()
+    try:
+        return resp.status, json.loads(raw or b"null")
+    except ValueError:
+        return resp.status, raw.decode(errors="replace")
+
+
+def _block_sums(servers) -> list:
+    sums = []
+    for s in servers:
+        m = {}
+        for iname, fname, vname, shard, frag in s.holder.walk_fragments():
+            if s.cluster.owns_shard(s.node_id, iname, shard):
+                m[(iname, fname, vname, shard)] = {
+                    b: c.hex() for b, c in frag.blocks()}
+        sums.append(m)
+    return sums
+
+
+def _converged(servers) -> bool:
+    """Every fragment two live nodes co-own carries the same block
+    checksums on both (the JAX chaos suite's test)."""
+    a, b = _block_sums(servers)
+    shared = set(a) & set(b)
+    return bool(shared) and all(a[k] == b[k] for k in shared)
+
+
+def _fault_storm(servers, mix: list, n_shards: int, seed: int) -> dict:
+    """FAULT_CLIENTS threads send FAULT_COUNTS Count(Intersect) and
+    FAULT_SETS Set through nodes 0 and 1 in turn under the armed chaos
+    schedule; node 2's listener closes when half the operations are
+    done. Every answer is right or a clean JSON error."""
+    from pilosa_tpu_torch.utils import failpoints
+
+    rng = np.random.default_rng(seed + 83)
+    ops = [("count",) + mix[int(rng.integers(len(mix)))]
+           for _ in range(FAULT_COUNTS)]
+    for i in range(FAULT_SETS):
+        shard = (i * 37) % n_shards
+        ops.append(("set", shard * SHARD_WIDTH + 900_000 + i, None))
+    order = rng.permutation(len(ops))
+    dealt = [[ops[k] for k in order[c::FAULT_CLIENTS]]
+             for c in range(FAULT_CLIENTS)]
+    ports = [s.http.port for s in servers]
+    lock = threading.Lock()
+    done = [0]
+    acked, refused, bad, errors = [], [], [], collections.Counter()
+    kill_at = len(ops) // 2
+    killed = threading.Event()
+
+    def client(c: int) -> None:
+        for k, (kind, arg, want) in enumerate(dealt[c]):
+            port = ports[(c + k) % 2]
+            if kind == "count":
+                st, out = _status_json(port, "/index/x/query", arg.encode())
+                if st == 200:
+                    if out.get("results") != [want]:
+                        bad.append((arg, out, want))
+                elif not (isinstance(out, dict) and "error" in out):
+                    bad.append(("error shape", st, out))
+                else:
+                    errors[st] += 1
+            else:
+                st, out = _status_json(
+                    port, "/index/x/query",
+                    f"Set({arg}, f={FAULT_WRITE_ROW})".encode())
+                with lock:
+                    if st == 200 and out.get("results") == [True]:
+                        acked.append(arg)
+                    elif st == 200:
+                        bad.append(("set not true", arg, out))
+                    elif isinstance(out, dict) and "error" in out:
+                        refused.append(arg)
+                        errors[st] += 1
+                    else:
+                        bad.append(("set error shape", st, out))
+            with lock:
+                done[0] += 1
+                kill = done[0] >= kill_at and not killed.is_set()
+                if kill:
+                    killed.set()
+            if kill:
+                servers[2].http.close()  # node 2 dies mid-storm
+
+    failpoints.arm_chaos(FAULT_SEED, rate=FAULT_RATE,
+                         points=set(FAULT_POINTS))
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(FAULT_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        fired = {n: c["fired"] for n, c in failpoints.counters().items()
+                 if c["fired"]}
+        schedule = failpoints.describe()
+    finally:
+        failpoints.reset()
+    storm_s = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"storm: {len(bad)} wrong answers or unclean "
+                             f"errors, first {bad[:3]}; replay:\n{schedule}")
+    if not killed.is_set():
+        raise AssertionError("node 2 was never killed")
+    if sum(fired.values()) < 1:
+        raise AssertionError("no failpoint fired in the storm")
+    return {"seconds": storm_s, "fired": fired, "acked": sorted(acked),
+            "refused": len(refused), "errors_by_status": dict(errors),
+            "operations": len(ops)}
+
+
+def _fault_cli(servers, tmp: str, n_shards: int, seed: int) -> dict:
+    """The CLI against the storm's nodes: a CSV imported and exported back
+    unchanged through node 0 (shards nodes 0 and 1 own), check and inspect
+    on fragment files and hint logs (all OK, a damaged copy of each
+    FAILED), profile-capture against node 0."""
+    import contextlib
+    import io
+    import shutil
+
+    from pilosa_tpu_torch.cli import main as cli
+
+    def run(argv: list) -> tuple:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            try:
+                rc = cli.main(argv)
+            except SystemExit as e:
+                rc = e.code
+        return rc, buf.getvalue()
+
+    t0 = time.perf_counter()
+    s0 = servers[0]
+    host = s0.uri
+    pair_ids = {servers[0].node_id, servers[1].node_id}
+    shards = [s for s in range(4 * n_shards)
+              if {n.id for n in s0.cluster.shard_nodes("csv", s)}
+              == pair_ids][:4]
+    rng = np.random.default_rng(seed + 97)
+    cols = np.concatenate([s * SHARD_WIDTH + rng.integers(
+        0, SHARD_WIDTH, FAULT_CSV_BITS // len(shards)) for s in shards])
+    rows = rng.integers(0, 6, cols.size)
+    want = sorted(set(zip(rows.tolist(), cols.tolist())))
+    csv_in = os.path.join(tmp, "in.csv")
+    with open(csv_in, "w") as f:
+        f.writelines(f"{r},{c}\n" for r, c in zip(rows.tolist(),
+                                                  cols.tolist()))
+    rc, out = run(["import", "--host", host, "--index", "csv", "--field",
+                   "f", "--create", "--batch-size", "1000", csv_in])
+    if rc != 0 or f"imported {cols.size} records" not in out:
+        raise AssertionError(f"cli import: rc {rc}: {out}")
+    csv_out = os.path.join(tmp, "out.csv")
+    rc, out = run(["export", "--host", host, "--index", "csv", "--field",
+                   "f", "-o", csv_out])
+    with open(csv_out) as f:
+        got = sorted(tuple(map(int, line.split(","))) for line in f
+                     if line.strip())
+    if rc != 0 or got != want:
+        raise AssertionError(f"cli export: rc {rc}, {len(got)} lines, "
+                             f"want {len(want)}")
+    import_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    frags = [frag.path for *_k, frag in s0.holder.walk_fragments()
+             if frag.field == "f" and frag.index == "x"][:8]
+    hint_logs = []
+    for s in servers[:2]:
+        d = os.path.join(s.data_dir, ".hints")
+        if os.path.isdir(d):
+            hint_logs += [os.path.join(d, n) for n in sorted(os.listdir(d))
+                          if n.endswith(".hints")]
+    if not hint_logs:
+        raise AssertionError("no hint log to check")
+    rc, out = run(["check", *frags, *hint_logs])
+    oks = out.count(": OK (")
+    if rc != 0 or oks != len(frags) + len(hint_logs):
+        raise AssertionError(f"cli check: rc {rc}: {out}")
+    inspected = []
+    for path in frags[:2]:
+        rc, out = run(["inspect", path])
+        doc = json.loads(out)
+        if rc != 0 or doc["bits"] < 1:
+            raise AssertionError(f"cli inspect {path}: {out}")
+        inspected.append({k: doc[k] for k in ("bits", "containers",
+                                              "containerKinds", "opN")})
+    bad_frag = os.path.join(tmp, "damaged-fragment")
+    shutil.copy(frags[0], bad_frag)
+    size = os.path.getsize(bad_frag)
+    with open(bad_frag, "r+b") as f:
+        f.seek(size // 2)
+        b = f.read(1)
+        f.seek(size // 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+    bad_hints = os.path.join(tmp, "damaged.hints")
+    shutil.copy(hint_logs[0], bad_hints)
+    with open(bad_hints, "r+b") as f:
+        f.truncate(os.path.getsize(bad_hints) - 3)
+    rc, out = run(["check", frags[1], bad_frag, bad_hints])
+    if rc != 1 or out.count(": FAILED: ") != 2 or out.count(": OK (") != 1:
+        raise AssertionError(f"cli check of the damaged copies: rc {rc}: "
+                             f"{out}")
+    failed_lines = [line for line in out.splitlines() if "FAILED" in line]
+    check_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rc, out = run(["profile-capture", "--host", host, "--seconds", "0.5",
+                   "--json"])
+    doc = json.loads(out)
+    if rc != 0 or doc.get("status") != "ok" \
+            or not os.path.exists(doc.get("trace", "")):
+        raise AssertionError(f"cli profile-capture: rc {rc}: {out[:500]}")
+    log(f"  cli: import {cols.size} records and export them back unchanged "
+        f"({import_s:.2f} s); check OK on {len(frags)} fragment files and "
+        f"{len(hint_logs)} hint logs, FAILED on the damaged copies "
+        f"({failed_lines[0].split(': FAILED: ')[1][:60]}...; "
+        f"{failed_lines[1].split(': FAILED: ')[1][:60]}...) "
+        f"({check_s:.2f} s); inspect {inspected[0]}; profile-capture ok, "
+        f"{doc.get('bytes')} bytes spooled ({time.perf_counter() - t0:.2f}"
+        " s)")
+    return {"import_export_s": import_s, "check_s": check_s,
+            "fragments_checked": len(frags), "hint_logs": len(hint_logs),
+            "inspect": inspected, "capture_bytes": doc.get("bytes")}
+
+
+def _self_signed_pair(tmp: str) -> tuple:
+    crt, key = os.path.join(tmp, "crt.pem"), os.path.join(tmp, "key.pem")
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048",
+                    "-nodes", "-subj", "/CN=localhost", "-keyout", key,
+                    "-out", crt, "-days", "1"], check=True,
+                   capture_output=True)
+    return crt, key
+
+
+class _DiagSink:
+    """A local listener that keeps the diagnostics documents it receives."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+
+        docs = self.docs = []
+
+        class H(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                docs.append(json.loads(self.rfile.read(n)))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = HTTPServer(("127.0.0.1", 0), H)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}/diag"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def _fault_tls_diag(tmp: str, rows: list, device: str) -> dict:
+    """Two port nodes over HTTPS (a throwaway certificate, skip-verify),
+    FAULT_TLS_SHARDS shards of f loaded through node 0; Count(Intersect)
+    fanned out over HTTPS equals the oracle. Node 0 also phones home to a
+    local listener every FAULT_DIAG_INTERVAL s and samples the runtime
+    gauges every FAULT_POLL_INTERVAL s."""
+    import ssl
+
+    from pilosa_tpu_torch.server import Server
+
+    t0 = time.perf_counter()
+    crt, key = _self_signed_pair(tmp)
+    sink = _DiagSink()
+    nodes = []
+    try:
+        for i in range(2):
+            kw = dict(diagnostics_url=sink.url,
+                      diagnostics_interval=FAULT_DIAG_INTERVAL,
+                      metric_poll_interval=FAULT_POLL_INTERVAL) if i == 0 \
+                else {}
+            s = _open_unprofiled(Server(
+                os.path.join(tmp, f"tls{i}"), port=0, device=device,
+                node_id=f"tls{i}", tls_certificate=crt, tls_key=key,
+                tls_skip_verify=True, **kw))
+            s.executor.plan_cache.enabled = False
+            nodes.append(s)
+        sent = [0]
+        flush = nodes[0].diagnostics.flush
+
+        def counted_flush():
+            ok = flush()
+            if ok:
+                sent[0] += 1
+            return ok
+
+        nodes[0].diagnostics.flush = counted_flush
+        uris = [s.uri for s in nodes]
+        if not all(u.startswith("https://") for u in uris):
+            raise AssertionError(f"TLS nodes serve {uris}")
+        for s in nodes:
+            s.cluster_hosts = uris
+            s.refresh_membership()
+        ctx = ssl.create_default_context()
+        ctx.check_hostname = False
+        ctx.verify_mode = ssl.CERT_NONE
+
+        def https(path: str, body: bytes = b"", method: str = "POST"):
+            conn = http.client.HTTPSConnection(
+                "localhost", nodes[0].http.port, timeout=120, context=ctx)
+            try:
+                conn.request(method, path, body=body)
+                resp = conn.getresponse()
+                raw = resp.read()
+                if resp.status != 200:
+                    raise AssertionError(f"https {path}: {resp.status} "
+                                         f"{raw[:300]}")
+                return raw
+            finally:
+                conn.close()
+
+        https("/index/t", b"{}")
+        https("/index/t/field/f", b"{}")
+        cut = [r[r < FAULT_TLS_SHARDS * SHARD_WIDTH] for r in rows]
+        for s, body in enumerate(_roaring_shards(cut, FAULT_TLS_SHARDS)):
+            https(f"/index/t/field/f/import-roaring/{s}", body)
+        packed = [packed_row(c, FAULT_TLS_SHARDS) for c in cut]
+        owners = {n.id for s in range(FAULT_TLS_SHARDS)
+                  for n in nodes[0].cluster.shard_nodes("t", s)}
+        if len(owners) != 2:
+            raise AssertionError(f"the TLS pair's shards sit on {owners}")
+        checked = 0
+        for a in range(FAULT_ROWS):
+            for b in range(a + 1, FAULT_ROWS):
+                pql = f"Count(Intersect(Row(f={a}), Row(f={b})))"
+                got = json.loads(https("/index/t/query",
+                                       pql.encode()))["results"][0]
+                want = _and_count(packed[a], packed[b])
+                if got != want:
+                    raise AssertionError(f"https {pql}: port {got} != "
+                                         f"oracle {want}")
+                checked += 1
+        tls_s = time.perf_counter() - t0
+        # diagnostics: at least three documents, then the node closes
+        deadline = time.monotonic() + 30
+        while sent[0] < 3 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        metrics = https("/metrics", method="GET").decode()
+        dv = json.loads(https("/debug/vars", method="GET"))
+        for s in nodes:
+            s.close()
+        closed_sent = sent[0]
+        time.sleep(2 * FAULT_DIAG_INTERVAL)
+        received = len(sink.docs)
+        if closed_sent < 3 or received != closed_sent \
+                or sent[0] != closed_sent:
+            raise AssertionError(f"diagnostics: {sent[0]} sent, "
+                                 f"{received} received")
+        doc = sink.docs[-1]
+        if doc.get("NumIndexes") != 1 or doc.get("NumNodes") != 2:
+            raise AssertionError(f"diagnostics document {doc}")
+        g = dv["gauges"]
+        need = ('pilosa_memory{key="rss"}', "# TYPE pilosa_threads gauge",
+                'pilosa_garbage{key="collections"}')
+        if not all(n in metrics for n in need) or g.get("threads", 0) < 1:
+            raise AssertionError("the poll-interval gauges are missing")
+    finally:
+        for s in nodes:
+            if not s.closed:
+                s.close()
+        sink.close()
+    log(f"  TLS: two port nodes at {uris[0]} and {uris[1]} (self-signed, "
+        f"skip-verify), {FAULT_TLS_SHARDS} shards of f over HTTPS, "
+        f"{checked} Count(Intersect) fanned out over HTTPS = oracle "
+        f"({tls_s:.2f} s)")
+    log(f"  diagnostics: {closed_sent} documents sent every "
+        f"{FAULT_DIAG_INTERVAL} s, {received} received, none after close "
+        f"(Version {doc['Version']}, NumCPU {doc['NumCPU']}, MemTotal "
+        f"{doc['MemTotal']}); poll-interval gauges on /metrics: threads "
+        f"{g['threads']:.0f}, memory/rss {g['memory/rss']:.0f}")
+    return {"tls_s": tls_s, "tls_checked": checked,
+            "diagnostics_sent": closed_sent, "diagnostics_received": received,
+            "runtime_gauges": {k: g[k] for k in ("threads", "memory/rss",
+                                                  "garbage/collections")}}
+
+
+def _fault_crash(writer: CrashWriter, device: str) -> dict:
+    """Phase 5i (b): the writer was SIGKILLed after FAULT_CRASH_ACKS
+    acknowledged bits; a port server on the card opens its data dir and
+    every acknowledged bit reads back through Row and Count."""
+    from pilosa_tpu_torch.server import Server
+
+    acked = writer.wait()
+    t0 = time.perf_counter()
+    s = _open_unprofiled(Server(writer.data_dir, port=0, device=device))
+    try:
+        s.executor.plan_cache.enabled = False
+        port = s.http.port
+        by_row: dict = collections.defaultdict(set)
+        for r, c in acked:
+            by_row[r].add(c)
+        counts = {}
+        for r, cols in sorted(by_row.items()):
+            got = set(_http(port, "POST", "/index/i/query",
+                            f"Row(f={r})".encode())["results"][0]["columns"])
+            missing = cols - got
+            if missing:
+                raise AssertionError(f"crash: {len(missing)} acknowledged "
+                                     f"bits of row {r} lost")
+            n = _http(port, "POST", "/index/i/query",
+                      f"Count(Row(f={r}))".encode())["results"][0]
+            # at most one unacknowledged envelope a writer thread
+            if not len(cols) <= n <= len(cols) + 5 or n != len(got):
+                raise AssertionError(f"crash: Count(Row(f={r})) {n}, "
+                                     f"{len(cols)} acknowledged")
+            counts[r] = n
+        damaged = s.holder.damaged_fragments()
+    finally:
+        s.close()
+    log(f"  crash: the writer (fsync always, B+Tree store) acknowledged "
+        f"its first bit {writer.first_ack_s:.1f} s after its start and was "
+        f"SIGKILLed at {writer.killed_s:.1f} s with {len(acked)} "
+        f"acknowledged bits; a port server on the card read every one back "
+        f"(counts by row {counts}; torn tails truncated: "
+        f"{sum(1 for d in damaged if d.get('walTruncatedBytes'))}) "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return {"acked": len(acked), "first_ack_s": writer.first_ack_s,
+            "killed_s": writer.killed_s, "counts": counts,
+            "truncated_tails": sum(1 for d in damaged
+                                   if d.get("walTruncatedBytes"))}
+
+
+def faults_phase(seed: int, device: str = "cuda",
+                 writer: "CrashWriter | None" = None) -> dict:
+    """Phase 5i: the JAX chaos suite's storm against three in-process port
+    nodes on the card, crash durability, TLS, the CLI and diagnostics.
+    `writer`: a CrashWriter the caller started earlier (stopped here)."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.server import Server
+
+    t_phase = time.perf_counter()
+    n_shards = FAULT_SHARDS
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="pilosa_torch_faults_") as tmp:
+        if writer is None:
+            writer = CrashWriter(os.path.join(tmp, "crash"))
+        servers = []
+        try:
+            t0 = time.perf_counter()
+            rows = make_rows(FAULT_ROWS, n_shards, seed + 71)
+            packed = [packed_row(c, n_shards) for c in rows]
+            # the pairs batch into pair_stream_counts; the triples run
+            # as programs (program_count) on every owner
+            mix = [(f"Count(Intersect(Row(f={a}), Row(f={b})))",
+                    _and_count(packed[a], packed[b]))
+                   for a in range(FAULT_ROWS) for b in range(FAULT_ROWS)
+                   if a != b]
+            mix += [(f"Count(Intersect(Row(f={a}), Row(f={b}), "
+                     f"Row(f={c})))", _and_count(packed[a], packed[b],
+                                                 packed[c]))
+                    for a, b, c in ((0, 1, 2), (1, 2, 3), (0, 2, 3),
+                                    (0, 1, 3))]
+            bodies = _roaring_shards(rows, n_shards)
+            data_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for i in range(3):
+                s = Server(os.path.join(tmp, f"n{i}"), port=0,
+                           device=device, replica_n=2, node_id=f"node{i}")
+                s = s.open() if i == 0 else _open_unprofiled(s)
+                s.executor.plan_cache.enabled = False
+                servers.append(s)
+            open_s = time.perf_counter() - t0
+            uris = [s.uri for s in servers]
+            for s in servers:
+                s.cluster_hosts = uris
+                s.refresh_membership()
+            p0 = servers[0].http.port
+            _http(p0, "POST", "/index/x", b"{}")
+            _http(p0, "POST", "/index/x/field/f", b"{}")
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(8) as pool:
+                list(pool.map(lambda sb: _http(
+                    p0, "POST", f"/index/x/field/f/import-roaring/{sb[0]}",
+                    sb[1]), enumerate(bodies)))
+            bits = sum(r.size for r in rows)
+            load_s = time.perf_counter() - t0 - open_s
+            for pql, want in mix[:3]:
+                got = _http(p0, "POST", "/index/x/query",
+                            pql.encode())["results"][0]
+                if got != want:
+                    raise AssertionError(f"before the storm: {pql}: port "
+                                         f"{got} != oracle {want}")
+            log(f"  3 in-process port nodes (replicas 2), {FAULT_ROWS} rows "
+                f"of f over {n_shards} shards ({bits} bits, 8.5k-40k a "
+                f"shard and row) loaded through node 0 before any fault "
+                f"was armed (data {data_s:.1f} s, the nodes' open "
+                f"{open_s:.1f} s, the load {load_s:.1f} s)")
+
+            start_window()  # the faults path starts here
+            storm = _fault_storm(servers, mix, n_shards, seed)
+            storm_launches = kernels.launch_counts()
+            dv_launches = _node_launches(_node_vars(p0))
+            log(f"  storm: {storm['operations']} operations by "
+                f"{FAULT_CLIENTS} clients in {storm['seconds']:.2f} s "
+                f"(seed {FAULT_SEED}, rate {FAULT_RATE}); node 2 closed "
+                f"halfway; fired by point {storm['fired']}; "
+                f"{len(storm['acked'])} Sets acknowledged, "
+                f"{storm['refused']} refused with clean errors (by "
+                f"status {storm['errors_by_status']}); 0 wrong answers")
+            log(f"  kernel launches during the storm: {storm_launches} "
+                f"(/debug/vars kernelLaunches: {dv_launches})")
+
+            live = servers[:2]
+            t0 = time.perf_counter()
+            for s in live:
+                s.anti_entropy_pace = 0.0
+            passes = 0
+            while True:
+                for s in live:
+                    s.scrub_pass()
+                passes += 1
+                if _converged(live):
+                    break
+                if time.perf_counter() - t0 > 120:
+                    raise AssertionError("the replicas did not converge")
+            converge_s = time.perf_counter() - t0
+            for s in live:
+                owned = [sh for sh in range(n_shards)
+                         if s.cluster.owns_shard(s.node_id, "x", sh)]
+                got = set(_http(
+                    s.http.port, "POST",
+                    "/index/x/query?remote=true&shards="
+                    + ",".join(map(str, owned)),
+                    f"Row(f={FAULT_WRITE_ROW})".encode())["results"][0][
+                    "columns"])
+                mine = [c for c in storm["acked"]
+                        if c // SHARD_WIDTH in set(owned)]
+                lost = [c for c in mine if c not in got]
+                if lost:
+                    raise AssertionError(f"{len(lost)} acknowledged Sets "
+                                         f"lost on {s.node_id}")
+                fan = set(_http(s.http.port, "POST", "/index/x/query",
+                                f"Row(f={FAULT_WRITE_ROW})".encode())[
+                    "results"][0]["columns"])
+                if not set(storm["acked"]) <= fan:
+                    raise AssertionError(f"acknowledged Sets missing "
+                                         f"through {s.node_id}")
+                for pql, want in mix:
+                    got = _http(s.http.port, "POST", "/index/x/query",
+                                pql.encode())["results"][0]
+                    if got != want:
+                        raise AssertionError(f"after the storm through "
+                                             f"{s.node_id}: {pql}: port "
+                                             f"{got} != oracle {want}")
+            log(f"  faults reset; {passes} paced scrub passes a node "
+                f"converged the co-owned block checksums in "
+                f"{converge_s:.2f} s; every acknowledged Set reads back on "
+                f"both survivors alone (remote=true) and through them; "
+                f"{len(mix)} Counts through each = oracle")
+
+            # hinted handoff: node 2 marked down, Sets into its shards are
+            # acknowledged with a hint (the hint logs the CLI checks)
+            dead = servers[2].node_id
+            for s in live:
+                s.cluster.mark_down(dead)
+            hinted = []
+            for sh in range(n_shards):
+                if len(hinted) >= FAULT_HINTED:
+                    break
+                if dead in {n.id for n in
+                            servers[0].cluster.shard_nodes("x", sh)}:
+                    col = sh * SHARD_WIDTH + 777_777
+                    got = _http(p0, "POST", "/index/x/query",
+                                f"Set({col}, f={FAULT_WRITE_ROW})".encode())
+                    if got["results"] != [True]:
+                        raise AssertionError(f"hinted Set: {got}")
+                    hinted.append(col)
+            pending = sum(s.hints.pending(dead) for s in live)
+            if pending < 1:
+                raise AssertionError("no hint was logged for node 2")
+            log(f"  node 2 marked down: {len(hinted)} Sets acknowledged "
+                f"with hints ({pending} bytes of hint logs)")
+            out["cli"] = _fault_cli(servers, tmp, n_shards, seed)
+            for s in servers:
+                s.close()
+            out["crash"] = _fault_crash(writer, device)
+            out["tls"] = _fault_tls_diag(tmp, rows, device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            launches = kernels.launch_counts()  # the faults path ends here
+        finally:
+            for s in servers:
+                if not s.closed:
+                    s.close()
+            writer.stop()
+    log(f"  launches on the faults path: {launches}")
+    if device == "cuda":
+        for k in FAULT_KERNELS:
+            if launches[k] < 1:
+                raise AssertionError(f"{k} never launched on the faults "
+                                     "path")
+    out.update(storm={k: v for k, v in storm.items() if k != "acked"},
+               acked=len(storm["acked"]), converge_s=converge_s,
+               open_s=open_s, load_s=load_s,
+               scrub_passes=passes, hinted=len(hinted),
+               storm_launches=storm_launches, launches=launches,
+               obs={"scrape": {"kernels": {}}})
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 5i: {out['phase_s']:.1f} s")
+    return out
+
+
 def server_phase(device, n_shards: int, n_rows: int, seed: int,
                  clients: int, per_client: int, profile: bool,
                  bsi: tuple, topn: tuple, hybrid: tuple, ingest: tuple,
@@ -7735,34 +8524,49 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                     prefix="pilosa_torch_cluster_")
                 cl_nodes = ClusterNodes(cl_tmp.name, CLUSTER_NODES)
                 gossip = None
+                # phase 5i's crash writer starts here too (its own data
+                # dir): it is SIGKILLed once it has acknowledged
+                # FAULT_CRASH_ACKS bits, and phase 5i reopens its dir
+                fw_tmp = tempfile.TemporaryDirectory(
+                    prefix="pilosa_torch_crash_")
+                fault_writer = CrashWriter(os.path.join(fw_tmp.name, "d"))
                 try:
-                    for i in range(CLUSTER_NODES):
-                        cl_nodes.start(i)
-                    gossip = GossipPair(cl_tmp.name)
-                    log("phase 5f: string keys and attributes (a keyed "
-                        "language field on the Star Trace index, a "
-                        "keyed-column index of user logins) on the same "
-                        "server")
-                    out["keyed"] = keyed_phase(srv, port, n_shards, seed,
-                                               out["typed"].pop("data"))
-                    delete_typed(srv, out["typed"]["stats"])
-                    # the node processes share the card: this server's
-                    # resident leaves and cached results go (phase 6
-                    # rebuilds what it reads), and so do the allocator's
-                    # free blocks; with them kept, 5.9 GB was left and a
-                    # node ran out
-                    srv.executor.clear_caches()
-                    torch.cuda.empty_cache()
-                    log(f"phase 5g: the cluster, {CLUSTER_NODES} port node "
-                        f"processes over {CLUSTER_SHARDS} shards, replicas "
-                        f"2 (device memory free "
+                    try:
+                        for i in range(CLUSTER_NODES):
+                            cl_nodes.start(i)
+                        gossip = GossipPair(cl_tmp.name)
+                        log("phase 5f: string keys and attributes (a keyed "
+                            "language field on the Star Trace index, a "
+                            "keyed-column index of user logins) on the same "
+                            "server")
+                        out["keyed"] = keyed_phase(srv, port, n_shards, seed,
+                                                   out["typed"].pop("data"))
+                        delete_typed(srv, out["typed"]["stats"])
+                        # the node processes share the card: this server's
+                        # resident leaves and cached results go (phase 6
+                        # rebuilds what it reads), and so do the allocator's
+                        # free blocks; with them kept, 5.9 GB was left and a
+                        # node ran out
+                        srv.executor.clear_caches()
+                        torch.cuda.empty_cache()
+                        log(f"phase 5g: the cluster, {CLUSTER_NODES} port "
+                            f"node processes over {CLUSTER_SHARDS} shards, "
+                            f"replicas 2 (device memory free "
+                            f"{torch.cuda.mem_get_info()[0]} bytes)")
+                        out["cluster"] = cluster_phase(seed, cl_nodes, gossip)
+                    finally:
+                        cl_nodes.stop()
+                        if gossip is not None:
+                            gossip.stop()
+                        cl_tmp.cleanup()
+                    log(f"phase 5i: faults and operations, 3 in-process "
+                        f"port nodes over {FAULT_SHARDS} shards, replicas 2 "
+                        f"(device memory free "
                         f"{torch.cuda.mem_get_info()[0]} bytes)")
-                    out["cluster"] = cluster_phase(seed, cl_nodes, gossip)
+                    out["faults"] = faults_phase(seed, device, fault_writer)
                 finally:
-                    cl_nodes.stop()
-                    if gossip is not None:
-                        gossip.stop()
-                    cl_tmp.cleanup()
+                    fault_writer.stop()
+                    fw_tmp.cleanup()
             log("phase 6: write path (coalesced Set/Clear) on the same "
                 "server, under concurrent reads")
             out["ingest"] = ingest_phase(srv, port, p, exists_all, s_rows,
@@ -7915,6 +8719,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cluster-only", action="store_true",
                     help="run phases 1, 5g and 5h alone and print their "
                          "numbers")
+    ap.add_argument("--faults-only", action="store_true",
+                    help="run phases 1 and 5i alone and print their "
+                         "numbers")
     ap.add_argument("--kernel-times", action="store_true",
                     help="time program_count, intersect_count and "
                          "sparse_intersect_dense alone (no server) and "
@@ -7965,6 +8772,14 @@ def main(argv=None) -> int:
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         print(smi_name)
         print(json.dumps({"cluster": measured}), flush=True)
+        return 0
+    if args.faults_only:
+        log(f"phase 5i: faults and operations, 3 in-process port nodes "
+            f"over {FAULT_SHARDS} shards, replicas 2")
+        measured = faults_phase(args.seed, device)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        print(smi_name)
+        print(json.dumps({"faults": measured}), flush=True)
         return 0
     if args.keyed_only:
         measured = keyed_only(device, args.seed)
@@ -8035,7 +8850,7 @@ def main(argv=None) -> int:
              "hybrid": served["hybrid"], "planner": served["planner"],
              "frozen": served["frozen"], "typed": served["typed"],
              "keyed": served["keyed"], "cluster": served["cluster"],
-             "ingest": served["ingest"]}
+             "faults": served["faults"], "ingest": served["ingest"]}
     for name, m in measured.items():
         # launches on every path of the main run (each path zeroes the
         # counts before its first query and reads them after its last)

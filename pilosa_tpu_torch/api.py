@@ -72,7 +72,6 @@ installs each entry's principal and priority beside its trace id.
 
 from __future__ import annotations
 
-import contextvars
 import csv
 import dataclasses
 import io
@@ -110,7 +109,7 @@ from pilosa_tpu_torch.pql.ast import WRITE_CALLS
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
 from pilosa_tpu_torch.utils import accounting
 from pilosa_tpu_torch.utils import profile as qprofile
-from pilosa_tpu_torch.utils import qctx, tracing
+from pilosa_tpu_torch.utils import qctx, threads, tracing
 from pilosa_tpu_torch.utils.attrstore import attr_diff
 from pilosa_tpu_torch.utils.translate import TranslateStore
 
@@ -497,8 +496,7 @@ class API:
             return [one(e) for e in entries]
         # copied contexts: the request's trace id and deadline follow
         pool = self.executor.batch_exec_pool
-        futs = [pool.submit(contextvars.copy_context().run, one, e)
-                for e in entries]
+        futs = [threads.submit_ctx(pool, one, e) for e in entries]
         return [f.result() for f in futs]
 
     def explain(self, index_name: str, pql: str,
@@ -675,14 +673,13 @@ class API:
             except Exception as e:  # noqa: BLE001 — a 502, not a 500
                 errors.append((uri, e))
 
-        threads = [threading.Thread(target=contextvars.copy_context().run,
-                                    args=(run, uri, send), daemon=True)
+        workers = [threads.ctx_thread(run, args=(uri, send))
                    for uri, send in sends]
-        for t in threads:
+        for t in workers:
             t.start()
 
         def wait() -> None:
-            for t in threads:
+            for t in workers:
                 t.join()
             if errors:
                 uri, e = errors[0]

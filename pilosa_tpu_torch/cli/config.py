@@ -1,6 +1,6 @@
 """Server configuration: defaults <- TOML file <- PILOSA_TPU_* environment.
 
-Trimmed port of pilosa_tpu/cli/config.py (:312-541): the port reads the
+Port of pilosa_tpu/cli/config.py (:312-541): the port reads the
 JAX package's TOML format and its environment overrides (PILOSA_TPU_ and
 the key path with dots and dashes as underscores, as
 PILOSA_TPU_CLUSTER_REPLICAS). The keys it serves:
@@ -9,6 +9,9 @@ PILOSA_TPU_CLUSTER_REPLICAS). The keys it serves:
                lines are appended there instead of stderr; the JAX server
                reads the key and keeps stderr), log-format ("plain" or
                "json"), verbose (debug lines)
+    [tls]      certificate, key (the listener speaks HTTPS; a pair that
+               does not load stops the start), skip-verify (the internal
+               client trusts any certificate)
     [cluster]  disabled, coordinator, replicas, hosts, membership-interval,
                query-timeout, long-query-time, fanout-pool-size,
                fanout-coalesce-window, fanout-coalesce-max-batch,
@@ -31,7 +34,8 @@ PILOSA_TPU_CLUSTER_REPLICAS). The keys it serves:
     [anti-entropy] interval, jitter, pace, max-blocks
     [query]    plan, plan-cache-bytes, sparse-threshold, run-threshold
     [storage]  eviction, wal-fsync
-    [metric]   telemetry-interval, telemetry-ring, usage-max-principals,
+    [metric]   poll-interval (the runtime monitor's gauges),
+               telemetry-interval, telemetry-ring, usage-max-principals,
                usage-ring, events-ring, events-spool (the event journal's
                ring and durable spool, utils/events.py), service
                ("expvar", "statsd" or any other value: none), host
@@ -42,22 +46,26 @@ PILOSA_TPU_CLUSTER_REPLICAS). The keys it serves:
                otlp) and trace-export-sample (utils/tracing.py
                TraceExporter; bad values are refused by the server with
                the JAX texts)
+    [diagnostics] url, interval (the phone-home document; off unless
+               both are set)
     [tracing]  sampler-type (off | const | probabilistic),
                sampler-param, agent-host-port (the SpanExporter's
                endpoint, "host:port" or a URL)
     [mesh]     platform ("cpu" runs the node on the CPU; "", the default,
                on the card), devices ("auto", "none" or 1: one device)
 
-Every other key the JAX package knows (TLS, [metric] poll-interval,
-diagnostics, [mesh] host-devices and replicas) must keep its default:
-set away from it, in the file or the environment, it fails the start
-with NotPortedError naming the key.
+The other keys the JAX package knows ([mesh] host-devices and replicas,
+which belong to several devices) must keep their defaults: set away
+from them, in the file or the environment, they fail the start with
+NotPortedError naming the key.
 A key neither package knows fails too. Durations may be written as Go
 durations ("250ms", "1h30m") where the default is a number of seconds.
 An environment name the table does not hold (the port's
 PILOSA_TPU_TORCH_* switches, the JAX package's PILOSA_TPU_QOS=0) is left
 to whoever reads it. Nothing here needs a TOML package beyond the
-standard library's tomllib.
+standard library's tomllib. to_toml() prints the configuration as the
+JAX package's Config.to_toml does, line for line (the `config` and
+`generate-config` subcommands).
 """
 
 from __future__ import annotations
@@ -121,6 +129,8 @@ DEFAULTS: dict[str, dict] = {
 PORTED = {
     "": {"data_dir", "bind", "max_writes_per_request", "log_path",
          "log_format", "verbose"},
+    "tls": {"certificate", "key", "skip_verify"},
+    "diagnostics": {"url", "interval"},
     "cluster": {"disabled", "coordinator", "replicas", "hosts",
                 "long_query_time", "query_timeout", "membership_interval",
                 "fanout_pool_size", "fanout_coalesce_window",
@@ -135,7 +145,7 @@ PORTED = {
     "query": {"plan", "plan_cache_bytes", "sparse_threshold",
               "run_threshold"},
     "storage": {"eviction", "wal_fsync"},
-    "metric": {"telemetry_interval", "telemetry_ring",
+    "metric": {"poll_interval", "telemetry_interval", "telemetry_ring",
                "usage_max_principals", "usage_ring", "events_ring",
                "events_spool", "service", "host", "trace_export",
                "trace_export_path", "trace_export_endpoint",
@@ -161,6 +171,9 @@ class Config:
     def get(self, section: str, key: str):
         return self.values[section][key]
 
+    def to_toml(self) -> str:
+        return to_toml(self)
+
     @property
     def host(self) -> str:
         return self.values[""]["bind"].rsplit(":", 1)[0] or "localhost"
@@ -182,9 +195,7 @@ class Config:
         if defaults is None or key not in defaults:
             raise ValueError(f"unknown config key {_dashed(section, key)} "
                              f"({where})")
-        default = defaults[key]
-        if isinstance(default, float) and isinstance(value, (str, int)) \
-                and not isinstance(value, bool):
+        if isinstance(defaults[key], float) and isinstance(value, str):
             value = parse_duration(value)
         self.values[section][key] = value
 
@@ -237,6 +248,73 @@ class Config:
             raise NotPortedError(
                 f"config key [mesh] devices = {mesh['devices']!r} is not "
                 "ported yet (a node drives one device)")
+
+
+# the JAX package's to_toml, section by section and key by key
+TOML_ORDER: list[tuple[str, tuple[str, ...]]] = [
+    ("", ("data_dir", "bind", "max_writes_per_request", "log_path",
+          "log_format", "verbose")),
+    ("tls", ("certificate", "key", "skip_verify")),
+    ("cluster", ("disabled", "coordinator", "replicas", "hosts",
+                 "long_query_time", "query_timeout", "liveness_threshold",
+                 "probe_timeout", "membership_interval", "fanout_pool_size",
+                 "fanout_coalesce_window", "fanout_coalesce_max_batch",
+                 "hedge_delay", "ici_serving", "profile",
+                 "query_history_size", "hint_max_bytes", "hint_max_age",
+                 "drain_timeout")),
+    ("query", ("plan", "plan_cache_bytes", "sparse_threshold",
+               "run_threshold")),
+    ("qos", ("mode", "default_priority", "default_deadline",
+             "queries_per_s", "device_ms_per_s", "bytes_per_s", "burst",
+             "max_principals")),
+    ("slo", ("read_latency_ms", "count_latency_ms", "topn_latency_ms",
+             "groupby_latency_ms", "latency_target", "availability_target",
+             "burn_yellow", "burn_red", "window_short", "window_long")),
+    ("storage", ("wal_fsync", "eviction")),
+    ("ingest", ("batch_window", "max_batch")),
+    ("anti_entropy", ("interval", "jitter", "pace", "max_blocks")),
+    ("metric", ("service", "host", "poll_interval", "telemetry_interval",
+                "telemetry_ring", "usage_max_principals", "usage_ring",
+                "trace_export", "trace_export_path", "trace_export_endpoint",
+                "trace_export_format", "trace_export_sample", "events_ring",
+                "events_spool")),
+    ("diagnostics", ("url", "interval")),
+    ("tracing", ("sampler_type", "sampler_param", "agent_host_port")),
+    ("gossip", ("port", "seeds", "period", "probe_timeout",
+                "push_pull_interval", "secret")),
+    ("mesh", ("devices", "platform", "host_devices", "replicas")),
+]
+
+
+def _toml_value(default, value) -> str:
+    """A value as the JAX to_toml writes it: by the key's default type."""
+    if isinstance(default, bool):
+        return str(value).lower()
+    if isinstance(default, str):
+        return f'"{value}"'
+    if isinstance(default, list):
+        return f"[{', '.join(repr(h) for h in value)}]"
+    return str(value)
+
+
+def to_toml(cfg: "Config") -> str:
+    """The configuration as TOML, line for line the JAX Config.to_toml
+    (pilosa_tpu/cli/config.py:397-527)."""
+    lines: list[str] = []
+    for section, keys in TOML_ORDER:
+        if section:
+            lines += ["", f"[{section.replace('_', '-')}]"]
+        vals = cfg.values[section]
+        for key in keys:
+            lines.append(f"{key.replace('_', '-')} = "
+                         + _toml_value(DEFAULTS[section][key], vals[key]))
+        if section == "qos":
+            for pname, over in vals["principals"].items():
+                lines += ["", f'[qos.principals."{pname}"]']
+                lines += [f"{str(k).replace('_', '-')} = "
+                          + (f'"{v}"' if isinstance(v, str) else str(v))
+                          for k, v in over.items()]
+    return "\n".join(lines) + "\n"
 
 
 def _coerce(raw: str, current):

@@ -172,7 +172,6 @@ API).
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import heapq
 import os
 import threading
@@ -232,6 +231,7 @@ from pilosa_tpu_torch.pql import Call, Query, parse_string_cached
 from pilosa_tpu_torch.pql.parser import parse_mutations_fast
 from pilosa_tpu_torch.utils import accounting
 from pilosa_tpu_torch.utils import events as _events
+from pilosa_tpu_torch.utils import failpoints, threads
 from pilosa_tpu_torch.pql.ast import (
     BETWEEN,
     EQ,
@@ -2711,9 +2711,8 @@ class Executor:
             return self._reduce(call, partials, index, shards)
         local_shards = groups.pop(self.cluster.local_id, None)
         pool = self.fanout_pool
-        futures = [pool.submit(contextvars.copy_context().run,
-                               self._map_node, index, fan_call, node_id,
-                               node_shards, set())
+        futures = [threads.submit_ctx(pool, self._map_node, index, fan_call,
+                                      node_id, node_shards, set())
                    for node_id, node_shards in groups.items()]
         partials = []
         if local_shards is not None:
@@ -2792,7 +2791,10 @@ class Executor:
                           node_shards: list, hedge: bool = False):
         """The node RPC: a coalesced envelope entry when the coalescer is
         on and the call reads, per query otherwise. Its wall time goes to
-        the fanoutLatency/<node> timing and the query's profile."""
+        the fanoutLatency/<node> timing and the query's profile. The
+        failpoint executor.fanout raises a ClientError, so an injected
+        fault takes the failover a real peer failure takes."""
+        failpoints.hit("executor.fanout", exc=ClientError)
         t0 = time.perf_counter()
         err = ""
         coalesced = (self.coalescer is not None
@@ -2851,7 +2853,7 @@ class Executor:
             started.set()
             return self._timed_node_query(index, call, node, node_shards)
 
-        primary = pool.submit(contextvars.copy_context().run, primary_rpc)
+        primary = threads.submit_ctx(pool, primary_rpc)
         # the clock starts when the RPC starts, not when it was queued
         started.wait()
         done, _ = futures_wait([primary], timeout=self.hedge_delay)
@@ -2870,12 +2872,10 @@ class Executor:
                                        "local", hedge=True)
                 return out
 
-            backup = pool.submit(contextvars.copy_context().run,
-                                 local_backup)
+            backup = threads.submit_ctx(pool, local_backup)
         else:
-            backup = pool.submit(contextvars.copy_context().run,
-                                 self._timed_node_query, index, call,
-                                 hedge_node, node_shards, True)
+            backup = threads.submit_ctx(pool, self._timed_node_query, index,
+                                        call, hedge_node, node_shards, True)
         done, pending = futures_wait([primary, backup],
                                      return_when=FIRST_COMPLETED)
         winner = next((f for f in done if f.exception() is None), None)

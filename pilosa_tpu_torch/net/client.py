@@ -34,8 +34,11 @@ this node records after an RPC sorts after what the peer recorded while
 serving it. debug_events (:483) fetches a peer's /debug/events for the
 merged /cluster/events.
 
-Left out: the other calls of the federation (stats, usage, heat, hbm;
-ROADMAP Queue A 7g); the failpoint hooks (7j).
+The failpoints `net.client.send` (before the request goes out) and
+`net.client.read` (on the response body; a partial read is caught by the
+short-body check) are the JAX package's (:203, :238), and
+`tls_skip_verify` gives https connections an unverifying context, the
+`[tls] skip-verify` key (:92-109, :294).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import http.client
 import json
 import random
 import socket
+import ssl
 import threading
 import time
 import urllib.parse
@@ -53,6 +57,7 @@ from typing import Optional
 from pilosa_tpu_torch import qos
 from pilosa_tpu_torch.utils import accounting
 from pilosa_tpu_torch.utils import events as _events
+from pilosa_tpu_torch.utils import failpoints
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import qctx, tracing
 
@@ -108,8 +113,13 @@ class ClientError(Exception):
 
 
 class InternalClient:
-    def __init__(self, timeout: float = 30.0):
+    def __init__(self, timeout: float = 30.0, tls_skip_verify: bool = False):
         self.timeout = timeout
+        self._ssl_ctx: Optional[ssl.SSLContext] = None
+        if tls_skip_verify:
+            self._ssl_ctx = ssl.create_default_context()
+            self._ssl_ctx.check_hostname = False
+            self._ssl_ctx.verify_mode = ssl.CERT_NONE
         # per-thread keep-alive connections keyed by (scheme, host:port)
         self._local = threading.local()
         # request and response body bytes of every RPC
@@ -179,6 +189,9 @@ class InternalClient:
         for attempt in (0, 1):
             conn, fresh = self._conn_for(key, sock_timeout)
             try:
+                # an injected FailpointError is an OSError: it takes the
+                # transport-failure path below, with no retry
+                failpoints.hit("net.client.send")
                 conn.request(method, path, body=body, headers=headers)
                 resp = conn.getresponse()
             except socket.timeout as e:
@@ -204,6 +217,11 @@ class InternalClient:
                 self._drop_conn(key)
                 raise ClientError(f"{method} {path}: timed out: {e}")
             except (OSError, http.client.HTTPException) as e:
+                self._drop_conn(key)
+                raise ClientError(f"{method} {path}: {type(e).__name__}: {e}")
+            try:
+                data = failpoints.corrupt_read("net.client.read", data)
+            except failpoints.FailpointError as e:
                 self._drop_conn(key)
                 raise ClientError(f"{method} {path}: {type(e).__name__}: {e}")
             clen = resp.getheader("Content-Length")
@@ -249,8 +267,8 @@ class InternalClient:
         if fresh:
             scheme, netloc = key
             if scheme == "https":
-                conn = http.client.HTTPSConnection(netloc,
-                                                   timeout=sock_timeout)
+                conn = http.client.HTTPSConnection(
+                    netloc, timeout=sock_timeout, context=self._ssl_ctx)
             else:
                 conn = http.client.HTTPConnection(netloc,
                                                   timeout=sock_timeout)

@@ -134,6 +134,14 @@ merged into the node's clock before dispatch and every response carries
 the clock's next stamp; /debug/vars has the events block and /metrics
 pilosa_events_total{type=} over the whole registry, zeros included, the
 evictions by lane and the retained and spool gauges.
+
+Failpoints (utils/failpoints.py): http.server.dispatch is evaluated
+before a matched route's handler runs (:261), so an injected fault
+answers a clean JSON 500; /debug/vars has the failpoints block once a
+point has been evaluated or anything is armed (:730-736), and /metrics a
+failpoints/<name> counter of each point that fired (:983-990). With
+tls_certificate and tls_key the listener speaks HTTPS (:1543-1551); a
+pair that does not load stops the start.
 """
 
 from __future__ import annotations
@@ -164,10 +172,12 @@ from pilosa_tpu_torch.constants import KERNEL_FAMILY_REPS
 from pilosa_tpu_torch.ops import _build, kernels
 from pilosa_tpu_torch.utils import accounting
 from pilosa_tpu_torch.utils import events as _events
+from pilosa_tpu_torch.utils import failpoints
 from pilosa_tpu_torch.utils import heat as _heat
 from pilosa_tpu_torch.utils import profile as qprofile
 from pilosa_tpu_torch.utils import qctx
 from pilosa_tpu_torch.utils import telemetry as _telemetry
+from pilosa_tpu_torch.utils import threads as _threads
 from pilosa_tpu_torch.utils import tracing
 from pilosa_tpu_torch.utils.duration import parse_duration
 from pilosa_tpu_torch.utils.stats import prometheus_exposition
@@ -417,6 +427,7 @@ class Handler:
                 with self._counter_lock:
                     self.active_queries += 1
             try:
+                failpoints.hit("http.server.dispatch")
                 dl_token = self._set_deadline(name, query)
                 external = name == "post_query" and not self._inherited(query)
                 if self.draining and external:
@@ -927,6 +938,9 @@ class Handler:
         damaged = self.api.holder.damaged_fragments()
         if damaged:
             snap["damagedFragments"] = damaged
+        fps = failpoints.snapshot()
+        if fps["points"] or fps["armed"]:
+            snap["failpoints"] = fps
         # this node's drain (:701-703), and gossip while it runs
         if self.api.drain_status_fn is not None:
             snap["drain"] = self.api.drain_status_fn()
@@ -1126,6 +1140,9 @@ class Handler:
         snap = self.stats.snapshot() if self.stats is not None else {}
         counts = dict(snap.get("counts", {}))
         gauges = dict(snap.get("gauges", {}))
+        counts.update({f"failpoints/{name}": c["fired"]
+                       for name, c in failpoints.counters().items()
+                       if c["fired"]})
         ex = self.api.executor
         res = ex.residency
         rs = res.snapshot()
@@ -1387,9 +1404,23 @@ class HTTPServer:
     """Threaded HTTP server with a background serve loop."""
 
     def __init__(self, handler: Handler, host: str = "localhost",
-                 port: int = 0):
+                 port: int = 0, tls_certificate: str = "",
+                 tls_key: str = ""):
         cls = type("BoundHandler", (_RequestHandler,), {"handler": handler})
         self._srv = _Server((host, port), cls)
+        self._scheme = "http"
+        if tls_certificate and tls_key:
+            import ssl
+
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            try:
+                ctx.load_cert_chain(tls_certificate, tls_key)
+            except BaseException:
+                self._srv.server_close()
+                raise
+            self._srv.socket = ctx.wrap_socket(self._srv.socket,
+                                               server_side=True)
+            self._scheme = "https"
         self._thread: Optional[threading.Thread] = None
 
     @property
@@ -1398,12 +1429,11 @@ class HTTPServer:
 
     @property
     def uri(self) -> str:
-        return f"http://{self._srv.server_address[0]}:{self.port}"
+        return f"{self._scheme}://{self._srv.server_address[0]}:{self.port}"
 
     def serve_background(self) -> None:
-        self._thread = threading.Thread(target=self._srv.serve_forever,
-                                        name="pilosa-torch-http", daemon=True)
-        self._thread.start()
+        self._thread = _threads.spawn(self._srv.serve_forever,
+                                      name="pilosa-torch-http")
 
     def close(self) -> None:
         self._srv.shutting_down = True

@@ -47,6 +47,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+from pilosa_tpu_torch.utils import threads
+
 
 ALIVE = "alive"
 SUSPECT = "suspect"
@@ -57,12 +59,6 @@ _MAX_PIGGYBACK = 8
 # the reference's gossip port default (server/config.go:126 sets
 # Config.Gossip.Port = "14000"); used for seeds given as bare hosts
 DEFAULT_PORT = 14000
-
-
-def _spawn(target, *args, name: str = "pilosa-torch-gossip"):
-    t = threading.Thread(target=target, args=args, name=name, daemon=True)
-    t.start()
-    return t
 
 
 def parse_seed(s: str) -> tuple[str, int]:
@@ -236,7 +232,7 @@ class Gossip:
         self._closed.clear()
         for target, name in ((self._recv_loop, "gossip-recv"),
                              (self._probe_loop, "gossip-probe")):
-            self._threads.append(_spawn(
+            self._threads.append(threads.spawn(
                 target, name=f"{name}-{self.node_id}"))
         self._sync_seeds()
 
@@ -440,7 +436,7 @@ class Gossip:
                 with self._lock:
                     self._acks.pop(seq, None)
 
-        _spawn(run)
+        threads.spawn(run, name="pilosa-torch-gossip")
 
     def _refresh_alive(self, node_id: Optional[str]) -> None:
         if not node_id:

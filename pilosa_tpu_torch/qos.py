@@ -52,6 +52,7 @@ from concurrent.futures import Future
 from typing import Optional
 
 from pilosa_tpu_torch.utils import events as _events
+from pilosa_tpu_torch.utils import threads
 
 PRIORITY_HEADER = "X-Pilosa-Priority"
 
@@ -93,16 +94,6 @@ def current_level() -> int:
     if not enabled():
         return DEFAULT_LEVEL
     return priority_level(current_priority.get())
-
-
-def _spawn(target, name: str) -> threading.Thread:
-    """A started daemon thread running `target` in a copy of the
-    caller's context (pilosa_tpu/utils/threads.py spawn)."""
-    ctx = contextvars.copy_context()
-    t = threading.Thread(target=lambda: ctx.run(target), name=name,
-                         daemon=True)
-    t.start()
-    return t
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +166,7 @@ class PriorityPool:
             # one worker a submit up to the cap, as ThreadPoolExecutor;
             # a task's context rides its submit, not the worker
             if len(self._threads) < self._max_workers:
-                self._threads.append(_spawn(
+                self._threads.append(threads.spawn(
                     self._worker,
                     name=f"{self._prefix}_{len(self._threads)}"))
         return fut
@@ -210,9 +201,9 @@ class PriorityPool:
                         item[2].cancel()
             self._work_queue.put((_SHUTDOWN_LEVEL, next(self._seq),
                                   None, None, (), {}))
-            threads = list(self._threads)
+            workers = list(self._threads)
         if wait:
-            for t in threads:
+            for t in workers:
                 t.join(timeout=5.0)
 
 

@@ -128,8 +128,19 @@ sampler's last tick), the 5xx rate, the fan-out queue's saturation, the
 drain, the read fence and the worst SLO; /status reports it and the
 plane's healthRed shed reads it. The drain's sheds count in the plane.
 The sampler ticks the ledger's ring and samples usage.*, slo.* and qos.*
-gauges. The JAX input walPoisoned has no counterpart (the port has no
-WAL poisoning, storage/roaring.py append_ops).
+gauges. walPoisoned is true while a fragment's WAL is poisoned (a torn
+append that could not be rewound, storage/roaring.py), sampled as
+wal.poisoned_fragments (:2249-2254, :2409-2416).
+
+TLS and operations (:62-67, :153, :203-215, :441, :628-629): with
+tls_certificate and tls_key the listener speaks HTTPS and the node's URI
+is https://; tls_skip_verify gives the internal client an unverifying
+context; metric_poll_interval samples the runtime monitor's gauges
+(threads, memory/rss, garbage/*) and diagnostics_url with
+diagnostics_interval phones home (utils/diagnostics.py). Background work
+starts in a copy of the starting context (utils/threads.py), and the
+anti-entropy walk evaluates the failpoint server.scrub.fragment per
+fragment (:3045).
 
 Limits and plain keys: max_writes_per_request (the top-level
 max-writes-per-request; 0: none), wal_fsync ([storage] wal-fsync, "off"
@@ -243,8 +254,14 @@ from pilosa_tpu_torch.utils import accounting as _accounting
 from pilosa_tpu_torch.utils import events as _events
 from pilosa_tpu_torch.utils import heat as _heat
 from pilosa_tpu_torch.utils import telemetry as _telemetry
+from pilosa_tpu_torch.utils import threads as _threads
+from pilosa_tpu_torch.utils import failpoints
 from pilosa_tpu_torch.utils.profile import QueryHistory
 from pilosa_tpu_torch.utils.cluster_translate import ClusterTranslator
+from pilosa_tpu_torch.utils.diagnostics import (
+    DiagnosticsCollector,
+    RuntimeMonitor,
+)
 from pilosa_tpu_torch.utils.logger import Logger
 from pilosa_tpu_torch.utils.stats import new_stats_client
 from pilosa_tpu_torch.utils.tracing import SpanExporter, TraceExporter, Tracer
@@ -358,7 +375,13 @@ class Server:
                  trace_export_sample: float = 1.0,
                  tracing_sampler_type: str = "off",
                  tracing_sampler_param: float = 0.0,
-                 tracing_endpoint: str = ""):
+                 tracing_endpoint: str = "",
+                 tls_certificate: str = "",
+                 tls_key: str = "",
+                 tls_skip_verify: bool = False,
+                 metric_poll_interval: float = 0.0,
+                 diagnostics_url: str = "",
+                 diagnostics_interval: float = 0.0):
         if wal_fsync not in ("off", "always"):
             raise ValueError(f"invalid [storage] wal-fsync {wal_fsync!r} "
                              "(expected off | always)")
@@ -502,6 +525,16 @@ class Server:
         self.query_history_size = query_history_size
         self.profile_mode = profile_mode
         self.stats = new_stats_client(metric_service, metric_host)
+        self.tls_certificate = tls_certificate
+        self.tls_key = tls_key
+        self.tls_skip_verify = tls_skip_verify
+        # the process gauges every [metric] poll-interval, and the
+        # diagnostics phone-home (off unless both url and interval are set)
+        self.runtime_monitor = RuntimeMonitor(self.stats,
+                                              metric_poll_interval)
+        self.diagnostics_url = diagnostics_url
+        self.diagnostics_interval = diagnostics_interval
+        self.diagnostics: Optional[DiagnosticsCollector] = None
         # the clock of the event journal (made at open, once the node id is
         # known); here so that a test can skew its wall before open
         self.clock = _events.HybridLogicalClock()
@@ -633,7 +666,7 @@ class Server:
             self.node_id, replica_n=self.replica_n,
             schema_fn=self._schema_shards,
             topology_path=os.path.join(self.data_dir, ".topology"))
-        self.client = InternalClient()
+        self.client = InternalClient(tls_skip_verify=self.tls_skip_verify)
         # every internal RPC carries this node's stamp; responses merge
         self.client.hlc = self.clock
         self.translate = TranslateStore(
@@ -699,7 +732,9 @@ class Server:
                                query_timeout=self.query_timeout,
                                qos_plane=self.qos, events=self.events)
         self.handler.gossip_status_fn = self.gossip_status
-        self.http = HTTPServer(self.handler, self.host, self.port)
+        self.http = HTTPServer(self.handler, self.host, self.port,
+                               tls_certificate=self.tls_certificate,
+                               tls_key=self.tls_key)
         self.api.uri = self.http.uri
         self.holder.set_shard_hook(self._on_shard_added)
         me = Node(id=self.node_id, uri=self.http.uri,
@@ -737,13 +772,19 @@ class Server:
             lambda uri: bool(self.client.status(
                 uri, timeout=self.probe_timeout)))
         ex.announce_shard_fn = self._announce_shard_bounded
-        self._bcast_thread = threading.Thread(
-            target=self._bcast_worker, name="pilosa-torch-bcast",
-            daemon=True)
-        self._bcast_thread.start()
+        self._bcast_thread = _threads.spawn(self._bcast_worker,
+                                            name="pilosa-torch-bcast")
         if self.anti_entropy_interval > 0:
             self._schedule_anti_entropy()
         self.telemetry.start()
+        from pilosa_tpu_torch import __version__
+
+        self.diagnostics = DiagnosticsCollector(
+            __version__, url=self.diagnostics_url,
+            interval=self.diagnostics_interval, holder=self.holder,
+            cluster=self.cluster, logger=self.logger)
+        self.runtime_monitor.start()
+        self.diagnostics.start()
         # the rejoin: fence what may have missed writes while this node was
         # away (before the first request is served: the listener is bound
         # and the peers known), then announce the return so peers replay
@@ -781,6 +822,9 @@ class Server:
         self._fence_wake.set()
         self._bcast_queue.put(None)
         self.telemetry.close()
+        self.runtime_monitor.close()
+        if self.diagnostics is not None:
+            self.diagnostics.close()
         if self.events is not None:
             # node.stop is the node's last event: a scrub pass in flight
             # stops at its next fragment (sync_holder reads `closed`) and
@@ -810,9 +854,8 @@ class Server:
     def _schedule_membership_refresh(self) -> None:
         if self.closed:
             return
-        self._member_timer = threading.Timer(self.membership_interval,
-                                             self._membership_tick)
-        self._member_timer.daemon = True
+        self._member_timer = _threads.ctx_timer(self.membership_interval,
+                                                self._membership_tick)
         self._member_timer.start()
 
     def _membership_tick(self) -> None:
@@ -915,10 +958,7 @@ class Server:
             except Exception:  # noqa: BLE001 — any failure: not alive
                 results[node.id] = False
 
-        threads = [threading.Thread(target=probe, args=(n,), daemon=True)
-                   for n in peers]
-        for t in threads:
-            t.start()
+        threads = [_threads.spawn(probe, n) for n in peers]
         for t in threads:
             t.join(self.probe_timeout + 1.0)
         suspects = []
@@ -953,10 +993,10 @@ class Server:
         # the suspects are checked through other peers, all at once: a
         # broken link from here must not evict a node the others reach
         refuted: dict[str, bool] = {}
-        checkers = [threading.Thread(
-            target=lambda nd=node: refuted.__setitem__(
-                nd.id, self._indirect_confirms_alive(nd, peers, results)),
-            daemon=True) for node in suspects]
+        checkers = [_threads.ctx_thread(
+            lambda nd=node: refuted.__setitem__(
+                nd.id, self._indirect_confirms_alive(nd, peers, results)))
+            for node in suspects]
         for t in checkers:
             t.start()
         for t in checkers:
@@ -1004,7 +1044,7 @@ class Server:
                 done.set()
 
         for h in helpers:
-            threading.Thread(target=ask, args=(h,), daemon=True).start()
+            _threads.spawn(ask, h)
         deadline = time.monotonic() + outer + 1.0
         while time.monotonic() < deadline:
             if vouched.wait(0.05) or done.is_set():
@@ -1089,8 +1129,7 @@ class Server:
                 with self._return_lock:
                     self._return_heals.discard(node.id)
 
-        threading.Thread(target=heal, name="pilosa-torch-heal",
-                         daemon=True).start()
+        _threads.spawn(heal, name="pilosa-torch-heal")
 
     def _await_unfenced(self, node) -> bool:
         """Whether node's read fence lifted within rejoin_fence_timeout
@@ -1272,10 +1311,8 @@ class Server:
             if self._drain_thread is None \
                     or not self._drain_thread.is_alive():
                 self._drain_abort.clear()
-                self._drain_thread = threading.Thread(
-                    target=self.drain, args=(timeout,),
-                    name="pilosa-torch-drain", daemon=True)
-                self._drain_thread.start()
+                self._drain_thread = _threads.spawn(
+                    self.drain, timeout, name="pilosa-torch-drain")
         return self.drain_status()
 
     def abort_drain(self) -> None:
@@ -1401,9 +1438,8 @@ class Server:
         t = self._fence_thread
         if t is not None and t.is_alive():
             return
-        self._fence_thread = threading.Thread(
-            target=self._fence_worker, name="pilosa-torch-fence", daemon=True)
-        self._fence_thread.start()
+        self._fence_thread = _threads.spawn(self._fence_worker,
+                                            name="pilosa-torch-fence")
 
     def _fence_worker(self) -> None:
         deadline = time.monotonic() + self.rejoin_fence_timeout
@@ -1516,9 +1552,8 @@ class Server:
             # replicas that scrub at the same instant double the load
             interval *= 1.0 + random.uniform(-self.anti_entropy_jitter,
                                              self.anti_entropy_jitter)
-        self._ae_timer = threading.Timer(max(interval, 0.01),
-                                         self._anti_entropy_tick)
-        self._ae_timer.daemon = True
+        self._ae_timer = _threads.ctx_timer(max(interval, 0.01),
+                                            self._anti_entropy_tick)
         self._ae_timer.start()
 
     def _anti_entropy_tick(self) -> None:
@@ -1691,7 +1726,8 @@ class Server:
         block is merged only when self._ae_seen holds the same divergence
         from the walk before; every divergence met is put in `seen`. The
         peers in `skip` neither vote nor receive. Returns the blocks
-        merged."""
+        merged. The failpoint server.scrub.fragment runs first."""
+        failpoints.hit("server.scrub.fragment")
         idx = self.holder.index(iname)
         f = idx.field(fname) if idx is not None else None
         view = f.view(vname) if f is not None else None
@@ -1843,9 +1879,8 @@ class Server:
             self._handle_leave_request(msg["id"])
         elif mtype == "resize-instruction":
             # the copies run off the coordinator's request
-            threading.Thread(target=self.follow_resize_instruction,
-                             args=(msg,), name="pilosa-torch-resize",
-                             daemon=True).start()
+            _threads.spawn(self.follow_resize_instruction, msg,
+                           name="pilosa-torch-resize")
         elif mtype == "resize-complete":
             self._handle_resize_complete(msg)
         elif mtype == "resize-abort":
@@ -2034,9 +2069,8 @@ class Server:
                                     fromURI=uri_by_id.get(s.from_node, ""))
                                for s in sources]}
             if target == self.node_id:
-                threading.Thread(target=self.follow_resize_instruction,
-                                 args=(msg,), name="pilosa-torch-resize",
-                                 daemon=True).start()
+                _threads.spawn(self.follow_resize_instruction, msg,
+                               name="pilosa-torch-resize")
                 continue
             try:
                 self.client.send_message(uri_by_id[target], msg)
@@ -2178,9 +2212,8 @@ class Server:
             self._resize_watchdog.cancel()
         if self.resize_timeout <= 0:
             return
-        t = threading.Timer(self.resize_timeout, self._watchdog_fire,
-                            args=(job_id,))
-        t.daemon = True
+        t = _threads.ctx_timer(self.resize_timeout, self._watchdog_fire,
+                               args=(job_id,))
         t.start()
         self._resize_watchdog = t
 
@@ -2309,11 +2342,8 @@ class Server:
     def broadcast(self, msg: dict) -> None:
         """To every peer at once, waiting for all (:1569); a peer that
         fails is skipped."""
-        threads = [threading.Thread(target=self._send_quiet, args=(u, msg),
-                                    daemon=True)
+        threads = [_threads.spawn(self._send_quiet, u, msg)
                    for u in self._peer_uris()]
-        for t in threads:
-            t.start()
         for t in threads:
             t.join()
 
@@ -2323,11 +2353,8 @@ class Server:
         acknowledged, waiting at most ANNOUNCE_SHARD_BUDGET_S (:1604)."""
         msg = {"type": "create-shard", "index": iname, "field": fname,
                "shard": shard}
-        threads = [threading.Thread(target=self._send_quiet, args=(u, msg),
-                                    daemon=True)
+        threads = [_threads.spawn(self._send_quiet, u, msg)
                    for u in self._peer_uris()]
-        for t in threads:
-            t.start()
         deadline = time.monotonic() + self.ANNOUNCE_SHARD_BUDGET_S
         for t in threads:
             t.join(max(0.0, deadline - time.monotonic()))
@@ -2368,9 +2395,8 @@ class Server:
                 q = peer_queues.get(uri)
                 if q is None:
                     q = peer_queues[uri] = queue.Queue()
-                    threading.Thread(target=peer_sender, args=(uri, q),
-                                     name="pilosa-torch-bcast-peer",
-                                     daemon=True).start()
+                    _threads.spawn(peer_sender, uri, q,
+                                   name="pilosa-torch-bcast-peer")
                 if q.qsize() < self.BCAST_PEER_QUEUE_MAX:
                     q.put(msg)
                 else:
@@ -2433,6 +2459,7 @@ class Server:
         raw["qos.throttled"] = qt["throttled"]
         g["qos.estimated_wait_ms"] = round(self.qos.estimated_wait_ms(), 3)
         damaged = self.holder.damaged_fragments()
+        g["wal.poisoned_fragments"] = float(self._poisoned_fragments())
         g["wal.damaged_fragments"] = float(len(damaged))
         g["wal.needs_rebuild"] = float(
             sum(1 for d in damaged if d["needsRebuild"]))
@@ -2547,14 +2574,17 @@ class Server:
         where it has one, the walk itself only without."""
         latest = self.telemetry.ring.latest()
         if "wal.damaged_fragments" in latest:
+            poisoned = latest.get("wal.poisoned_fragments", 0.0) > 0
             needs_rebuild = int(latest["wal.needs_rebuild"])
             n_damaged = int(latest["wal.damaged_fragments"])
         else:
+            poisoned = self._poisoned_fragments() > 0
             damaged = self.holder.damaged_fragments()
             needs_rebuild = sum(1 for d in damaged if d["needsRebuild"])
             n_damaged = len(damaged)
         ps = self.executor.fanout_pool_stats()
         out = {
+            "walPoisoned": poisoned,
             "needsRebuild": needs_rebuild,
             "damagedFragments": n_damaged,
             "errorRate": latest.get("http.errors_per_s", 0.0),
@@ -2567,6 +2597,10 @@ class Server:
             out["sloStatus"] = status
             out["sloReason"] = reason
         return out
+
+    def _poisoned_fragments(self) -> int:
+        return sum(1 for *_, frag in self.holder.walk_fragments()
+                   if frag.storage.wal_poisoned)
 
     def node_health(self) -> dict:
         """This node's {score, reasons}: /status and the QoS plane's
@@ -2648,9 +2682,7 @@ class Server:
                 except Exception:  # noqa: BLE001 — never fail the merge
                     entry["status"] = "error"
 
-            t = threading.Thread(target=fetch, name=f"pilosa-torch-{what}",
-                                 daemon=True)
-            t.start()
+            t = _threads.spawn(fetch, name=f"pilosa-torch-{what}")
             fetchers.append((entry, t))
         for entry, t in fetchers:
             t.join(timeout + 1.0)
@@ -2727,9 +2759,7 @@ class Server:
                             f"stats fetch failed: "
                             f"{type(e).__name__}: {e}"]}}
 
-            t = threading.Thread(target=fetch, name="pilosa-torch-stats",
-                                 daemon=True)
-            t.start()
+            t = _threads.spawn(fetch, name="pilosa-torch-stats")
             fetchers.append((n, t))
         for n, t in fetchers:
             t.join(timeout + 1.0)

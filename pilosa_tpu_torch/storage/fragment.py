@@ -21,8 +21,16 @@ and re-attaches the WAL. The typed fields' writes: bulk_import_mutex
 (with the frozen rewrite), set_row and clear_row (Store and ClearRow,
 which the port logs to the WAL: durable across a reopen, unlike the JAX
 package's) and import_roaring (with the in-place clear over a frozen
-store). Left out: anti-entropy blocks, corruption quarantine (a damaged
-file raises at open) and hints.
+store). Anti-entropy's blocks (blocks, block_data,
+merge_block_majority) and the quarantine of a damaged file at open
+(:325-338) are the JAX package's.
+
+Failpoints (utils/failpoints.py) at the JAX sites: storage.fragment.open
+before the file is parsed (:249), storage.snapshot.write on the temp
+file's writes and storage.snapshot.replace before its rename
+(:1067-1092); a failed snapshot leaves the old file and its WAL as they
+were. PILOSA_TPU_WAL_FSYNC (any non-empty value; "always" turns fsync
+on) overrides the wal_fsync argument, as in the JAX package (:130-133).
 
 Row r of the shard occupies absolute bit positions [r*2^20, (r+1)*2^20).
 In a BSI view rows 0..depth-1 hold the place values of each column's
@@ -53,6 +61,7 @@ from pilosa_tpu_torch.storage.roaring import (
     is_frozen_store,
     sorted_unique,
 )
+from pilosa_tpu_torch.utils import failpoints
 
 SNAPSHOT_EXT = ".snapshotting"
 
@@ -139,6 +148,14 @@ class WalAppender:
         self.ready = True
         return len(data)
 
+    def rewind(self, n: int) -> None:
+        """Cut the last n bytes off the file: a torn append's bytes
+        (Bitmap._rewind_torn_write). Raises OSError where it cannot."""
+        if self.fd is not None:
+            os.ftruncate(self.fd, os.fstat(self.fd).st_size - n)
+        else:
+            os.truncate(self.path, os.path.getsize(self.path) - n)
+
     def release(self) -> None:
         """Close the kept descriptor, if any."""
         if self.fd is not None:
@@ -177,17 +194,20 @@ class Fragment:
     """Host-authoritative storage for one shard of one view of one field."""
 
     def __init__(self, path: str, index: str, field: str, view: str,
-                 shard: int, wal_fsync: bool = False):
+                 shard: int, wal_fsync: Optional[bool] = None):
         self.path = path
         self.index = index
         self.field = field
         self.view = view
         self.shard = shard
-        self.wal_fsync = wal_fsync
+        env = os.environ.get("PILOSA_TPU_WAL_FSYNC", "")
+        if env:
+            wal_fsync = env == "always"
+        self.wal_fsync = bool(wal_fsync)
         self.mu = threading.RLock()  # snapshot() runs under bulk paths
         self.storage = Bitmap()
         self.op_n = 0
-        self._wal = WalAppender(path, wal_fsync)
+        self._wal = WalAppender(path, self.wal_fsync)
         self.closed = True
         self.fresh = False  # open() found no file, or an empty one
         # row generations: bumped on any mutation touching the row; the
@@ -246,6 +266,7 @@ class Fragment:
             except FileNotFoundError:
                 pass
         self.fresh = not data
+        failpoints.hit("storage.fragment.open")
         if not self.fresh:
             try:
                 self.storage = Bitmap.from_bytes(data, recover_wal=True)
@@ -1092,12 +1113,15 @@ class Fragment:
                 os.makedirs(os.path.dirname(tmp), exist_ok=True)
                 f = open(tmp, "wb")
             with f:
-                self.storage.write_snapshot(f)
+                self.storage.write_snapshot(
+                    failpoints.wrap_writer("storage.snapshot.write", f))
                 f.flush()
                 os.fsync(f.fileno())
+            failpoints.hit("storage.snapshot.replace")
             os.replace(tmp, self.path)
             replaced = True
             self._wal.ready = True
+            self.storage.wal_poisoned = False  # the file was rewritten
         finally:
             if not replaced:
                 try:

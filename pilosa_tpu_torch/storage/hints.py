@@ -21,8 +21,10 @@ An append reaches the kernel before it returns (fsync=True: the disk), as
 the port's WAL appends do. With a journal (utils/events.py) an append
 records hint.append, a drop marker or a failed append hint.drop (:212-229);
 with a logger a failed append, a damaged log and a failed replay are
-logged as the JAX store logs them. Left out: the failpoint hooks (the
-port has none).
+logged as the JAX store logs them. The failpoints storage.hints.append
+(before the write; an injected fault counts as a dropped hint, :186) and
+storage.hints.replay (before each record is applied; the log is kept for
+the next return, :308) are the JAX package's.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import zlib
 from typing import Callable, Optional
 
 from pilosa_tpu_torch.utils import events as _events
+from pilosa_tpu_torch.utils import failpoints
 
 HINT_MAGIC = 0xFB  # never the WAL's 0xFA, never a legacy op type (0/1)
 HINT_VERSION = 1
@@ -155,6 +158,7 @@ class HintStore:
         path = self._path(node_id)
         with self._lock_for(node_id):
             try:
+                failpoints.hit("storage.hints.append")
                 os.makedirs(self.dir, exist_ok=True)
                 try:
                     size = os.path.getsize(path)
@@ -261,6 +265,7 @@ class HintStore:
                 if self.max_age > 0 and now - ts > self.max_age:
                     dropped += 1
                     continue
+                failpoints.hit("storage.hints.replay")
                 apply_fn(doc)
                 replayed += 1
         except Exception as e:  # noqa: BLE001 — any failure keeps the log

@@ -2,13 +2,20 @@
 
 Trimmed copy of pilosa_tpu/storage/roaring.py: the numpy path only (the
 reference's optional C++ accelerator in pilosa_tpu/native is left out),
-eager parsing from bytes (no mmap-lazy containers), two container stores
-(a plain dict, and the frozen array-backed store of storage/frozen.py for
-bulk loads; the B+Tree store of pilosa_tpu/storage/containers.py is left
-out: keys are sorted where order matters), and only what the fragment
-layer needs. A file of at least frozen.FROZEN_PARSE_MIN containers parses
-into a frozen store (the JAX package takes that branch on its lazy mmap
-opens; the port parses eagerly, so it takes it by size alone).
+eager parsing from bytes (no mmap-lazy containers), three container
+stores (a plain dict, the B+Tree of storage/containers.py, picked with
+`store=` or PILOSA_TPU_CONTAINER_STORE as in the JAX package (:550-560),
+and the frozen array-backed store of storage/frozen.py for bulk loads),
+set algebra whose results inherit their source's store kind (:866-908),
+and what the fragment layer needs. A file of at least
+frozen.FROZEN_PARSE_MIN containers parses into a frozen store (the JAX
+package takes that branch on its lazy mmap opens; the port parses
+eagerly, so it takes it by size alone).
+
+The WAL append is the failpoint `storage.wal.append` (:659-698): a torn
+append is rewound off the log and raises, so it is never acknowledged;
+one that cannot be rewound poisons the WAL, and every later append
+refuses until a snapshot rewrites the file.
 
 The on-disk format is the reference's, byte for byte compatible:
   bytes 0-1  magic 12348        (u16 LE)
@@ -32,9 +39,11 @@ and runs as (start, length) where Pilosa's are (start, last).
 from __future__ import annotations
 
 import hashlib
+import io
+import os
 import struct
 import zlib
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -44,6 +53,11 @@ from pilosa_tpu_torch.constants import (
     MAGIC_NUMBER,
     STORAGE_VERSION,
 )
+from pilosa_tpu_torch.storage.containers import (
+    make_container_store,
+    resolve_store_kind,
+)
+from pilosa_tpu_torch.utils import failpoints
 
 BITMAP_WORDS = CONTAINER_BITS // 64  # 1024 x uint64
 HEADER_BASE_SIZE = 8
@@ -328,6 +342,24 @@ class Container:
                           ~(np.uint64(1) << (idx & 63).astype(np.uint64)))
         return Container("bitmap", words)._normalize()
 
+    def op(self, other: "Container", kind: str) -> "Container":
+        """A new container of self <kind> other ("and", "or", "andnot",
+        "xor"): two arrays by a sorted merge, anything else over the
+        words (pilosa_tpu/storage/roaring.py:311, without its native
+        run paths)."""
+        if self.kind == "array" and other.kind == "array":
+            a, b = self.data, other.data
+            out = {"and": lambda: np.intersect1d(a, b, assume_unique=True),
+                   "or": lambda: np.union1d(a, b),
+                   "andnot": lambda: np.setdiff1d(a, b, assume_unique=True),
+                   "xor": lambda: np.setxor1d(a, b, assume_unique=True),
+                   }[kind]()
+            return Container.from_values(out.astype(np.uint16))
+        aw, bw = self.words(), other.words()
+        out = {"and": aw & bw, "or": aw | bw, "andnot": aw & ~bw,
+               "xor": aw ^ bw}[kind]
+        return Container("bitmap", out)._normalize()
+
     def encode_current(self):
         """(type_code, payload bytes) in the current encoding."""
         if self.kind == "array":
@@ -367,19 +399,28 @@ class Container:
 class Bitmap:
     """64-bit roaring bitmap: {key = position >> 16} -> Container.
 
-    `containers` is a dict, or a FrozenContainers after `frozen()` or the
-    frozen parse; both serve the mapping protocol. `op_writer` is the WAL
-    hook (the fragment's WalAppender, which fsyncs when asked): when set,
-    single-value add/remove append one framed op record each."""
+    `containers` is a dict or a BTreeContainers (`store` "dict" or
+    "btree"; None: PILOSA_TPU_CONTAINER_STORE, else "dict"), or a
+    FrozenContainers after `frozen()` or the frozen parse; all serve the
+    mapping protocol. `op_writer` is the WAL hook (the fragment's
+    WalAppender, which fsyncs when asked): when set, single-value
+    add/remove append one framed op record each."""
 
-    def __init__(self):
-        self.containers: dict[int, Container] = {}
+    def __init__(self, values=None, store: Optional[str] = None):
+        self.store_kind = resolve_store_kind(store)
+        self.containers = make_container_store(self.store_kind)
         self._dirty: set[int] = set()  # keys changed since optimize()
         self.op_writer = None
         self.op_n = 0
         # WAL recovery report of from_bytes(recover_wal=True)
         self.wal_valid_end: Optional[int] = None
         self.wal_error: Optional[str] = None
+        # a failed append could not be rewound off the log: the file ends
+        # in garbage that recovery would truncate along with any record
+        # appended after it, so appends refuse until a snapshot rewrites
+        self.wal_poisoned = False
+        if values is not None:
+            self.add_many(np.asarray(values, dtype=np.uint64))
 
     @classmethod
     def frozen(cls, positions: np.ndarray,
@@ -434,8 +475,8 @@ class Bitmap:
 
     def add_many(self, values: np.ndarray) -> None:
         """Bulk insert (no op-log; callers snapshot)."""
-        if (type(self.containers) is dict and not self.containers
-                and np.size(values)):
+        if (not self.containers and np.size(values)
+                and not is_frozen_store(self.containers)):
             self._fill(values)
             return
         for key, lows in self._chunks(values):
@@ -443,26 +484,27 @@ class Bitmap:
 
     def reset(self, positions: np.ndarray) -> None:
         """Replace every container with the given sorted unique positions:
-        a frozen store is rebuilt from them in numpy, a dict store refilled
-        with optimally encoded containers (_fill). The op-log hook stays."""
+        a frozen store is rebuilt from them in numpy, a dict or B+Tree
+        store refilled with optimally encoded containers (_fill). The
+        op-log hook stays."""
         if is_frozen_store(self.containers):
             from pilosa_tpu_torch.storage.frozen import FrozenContainers
 
             self.containers = FrozenContainers.from_positions(positions)
             return
-        self.containers = {}
+        self.containers = make_container_store(self.store_kind)
         self._dirty.clear()
         if np.size(positions):
             self._fill(positions)
 
     def _fill(self, values: np.ndarray) -> None:
-        """add_many into an empty dict store: the containers are cut from
-        the sorted positions in numpy and each is built in the encoding
-        Container.optimize would pick (the smallest of array, bitmap and
-        run, ties in that order), so none is left for optimize() to
-        re-pick: the snapshot's bytes are the ones the per-container path
-        writes, and a bulk load of many small fragments pays no
-        per-container sort, merge or run count."""
+        """add_many into an empty dict or B+Tree store: the containers are
+        cut from the sorted positions in numpy and each is built in the
+        encoding Container.optimize would pick (the smallest of array,
+        bitmap and run, ties in that order), so none is left for
+        optimize() to re-pick: the snapshot's bytes are the ones the
+        per-container path writes, and a bulk load of many small
+        fragments pays no per-container sort, merge or run count."""
         pos = sorted_unique(np.asarray(values, dtype=np.uint64))
         keys = (pos >> np.uint64(16)).astype(np.int64)
         lows = (pos & np.uint64(0xFFFF)).astype(np.uint16)
@@ -529,18 +571,44 @@ class Bitmap:
         self._write_op(OP_REMOVE, value)
         return changed
 
+    def _check_wal_clean(self) -> None:
+        if self.wal_poisoned:
+            raise OSError(
+                "WAL poisoned by an earlier failed append (un-rewindable "
+                "torn record); snapshot the fragment to restore durability")
+
+    def _rewind_torn_write(self, n_written: int, torn: Exception) -> None:
+        """Cut a torn record's bytes off the log and raise (:644-657):
+        recovery truncates at the first bad record, so a record
+        acknowledged after the garbage would be lost at the next open. A
+        crash between the write and the rewind leaves the torn tail,
+        which recovery truncates with nothing acknowledged after it. If
+        the rewind fails too, the WAL is poisoned."""
+        try:
+            self.op_writer.rewind(n_written)
+        except (OSError, ValueError):
+            self.wal_poisoned = True
+        raise torn
+
     def _write_op(self, typ: int, value: int) -> None:
+        # the poisoned check first: a poisoned WAL must refuse even with
+        # no writer attached
+        self._check_wal_clean()
         if self.op_writer is None:
             return
-        self.op_writer.write(frame_op(typ, int(value)))
+        rec, torn = failpoints.corrupt_write("storage.wal.append",
+                                             frame_op(typ, int(value)))
+        self.op_writer.write(rec)
+        if torn is not None:
+            self._rewind_torn_write(len(rec), torn)
         self.op_n += 1
 
     def append_ops(self, adds: np.ndarray, removes: np.ndarray) -> None:
         """WAL-append a batch's net deltas as OP_ADD / OP_REMOVE records in
-        ONE write (pilosa_tpu/storage/roaring.py:677). The caller has already applied them; these are
-        redo records for replay. The port has no failpoints, so the JAX
-        package's torn-write rewind (_rewind_torn_write) and WAL poisoning
-        are left out: a failed write raises to the caller."""
+        ONE write (pilosa_tpu/storage/roaring.py:677). The caller has
+        already applied them; these are redo records for replay. A torn
+        buffer is rewound whole: none of the delta is acknowledged."""
+        self._check_wal_clean()
         if self.op_writer is None:
             return
         parts = [frame_op(typ, v)
@@ -548,7 +616,11 @@ class Bitmap:
                  for v in np.asarray(vals, dtype=np.uint64).tolist()]
         if not parts:
             return
-        self.op_writer.write(b"".join(parts))
+        buf, torn = failpoints.corrupt_write("storage.wal.append",
+                                             b"".join(parts))
+        self.op_writer.write(buf)
+        if torn is not None:
+            self._rewind_torn_write(len(buf), torn)
         self.op_n += len(parts)
 
     # -- queries ------------------------------------------------------------
@@ -599,6 +671,8 @@ class Bitmap:
             return list(self.containers.irange(lo, hi))
         if hi - lo < len(self.containers):  # a row: probe its 16 keys
             return [k for k in range(lo, hi + 1) if k in self.containers]
+        if hasattr(self.containers, "irange"):  # the B+Tree's range walk
+            return list(self.containers.irange(lo, hi))
         return sorted(k for k in self.containers if lo <= k <= hi)
 
     def slice(self, start: int = 0, stop: Optional[int] = None) -> np.ndarray:
@@ -645,6 +719,99 @@ class Bitmap:
                       np.left_shift(np.uint32(1), (pos & 31).astype(np.uint32)))
         return out
 
+    def min(self) -> Optional[int]:
+        """The smallest set position, or None (:801)."""
+        keys = self._sorted_keys()
+        if not keys:
+            return None
+        return (keys[0] << 16) | int(self.containers[keys[0]].values()[0])
+
+    def max(self) -> Optional[int]:
+        """The largest set position, or None (:809)."""
+        keys = self._sorted_keys()
+        if not keys:
+            return None
+        return (keys[-1] << 16) | int(self.containers[keys[-1]].values()[-1])
+
+    def _sorted_keys(self) -> list[int]:
+        store = self.containers
+        if hasattr(store, "irange") and not is_frozen_store(store):
+            return list(store)  # the B+Tree iterates in key order
+        return sorted(k for k, c in store.items() if c.n)
+
+    def any(self) -> bool:
+        return bool(self.containers)
+
+    def __iter__(self) -> Iterator[int]:
+        for key in self._sorted_keys():
+            base = key << 16
+            for v in self.containers[key].values().tolist():
+                yield base | v
+
+    # -- set algebra (:866-908): results inherit the store kind ------------
+
+    def _binary(self, other: "Bitmap", kind: str) -> "Bitmap":
+        out = Bitmap(store=self.store_kind)
+        if kind == "and":
+            keys = set(self.containers) & set(other.containers)
+        elif kind == "andnot":
+            keys = set(self.containers)
+        else:
+            keys = set(self.containers) | set(other.containers)
+        for key in sorted(keys):
+            a = self.containers.get(key)
+            b = other.containers.get(key)
+            if a is None:
+                res = (Container(b.kind, b.data.copy())
+                       if kind in ("or", "xor") else None)
+            elif b is None:
+                res = (Container(a.kind, a.data.copy())
+                       if kind in ("or", "xor", "andnot") else None)
+            else:
+                res = a.op(b, kind)
+            if res is not None and res.n:
+                out.containers[key] = res
+        return out
+
+    def intersect(self, other: "Bitmap") -> "Bitmap":
+        return self._binary(other, "and")
+
+    def union(self, other: "Bitmap") -> "Bitmap":
+        return self._binary(other, "or")
+
+    def difference(self, other: "Bitmap") -> "Bitmap":
+        return self._binary(other, "andnot")
+
+    def xor(self, other: "Bitmap") -> "Bitmap":
+        return self._binary(other, "xor")
+
+    def intersection_count(self, other: "Bitmap") -> int:
+        return sum(self.containers[k].op(other.containers[k], "and").n
+                   for k in set(self.containers) & set(other.containers))
+
+    def check(self) -> None:
+        """Consistency check of every container (Bitmap.Check, :1299):
+        no empty container, arrays strictly ascending, runs ordered,
+        disjoint and not adjacent. Raises ValueError."""
+        for key, c in self.containers.items():
+            if c.n == 0:
+                raise ValueError(f"empty container at key {key}")
+            if c.kind == "array":
+                if c.data.size and not np.all(
+                        np.diff(c.data.astype(np.int64)) > 0):
+                    raise ValueError(
+                        f"unsorted/duplicate array container at key {key}")
+            elif c.kind == "run":
+                iv = c.data.astype(np.int64)
+                if iv.size:
+                    if not np.all(iv[:, 1] >= iv[:, 0]):
+                        raise ValueError(
+                            f"inverted run in container at key {key}")
+                    if not np.all(iv[1:, 0] > iv[:-1, 1] + 1):
+                        raise ValueError(
+                            "unsorted/overlapping/adjacent runs at key "
+                            f"{key}")
+
     # -- serialization ------------------------------------------------------
 
     def write_to(self, w) -> int:
@@ -670,6 +837,11 @@ class Bitmap:
         data = header + desc + b"".join(offsets) + b"".join(p for *_, p in encs)
         w.write(data)
         return len(data)
+
+    def to_bytes(self) -> bytes:
+        buf = io.BytesIO()
+        self.write_to(buf)
+        return buf.getvalue()
 
     def write_snapshot(self, w) -> int:
         """write_to + the blake2b integrity trailer (durable files)."""

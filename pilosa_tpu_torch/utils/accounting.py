@@ -24,9 +24,8 @@ The kill switch is PILOSA_TPU_TORCH_ACCOUNTING=0 (the JAX package's
 PILOSA_TPU_ACCOUNTING=0), read per request where the account is
 installed; every charge site is a no-op without an account.
 
-Not ported yet: the fleet's merged ledger (GET /cluster/usage) and the
-trace exporter wait with the federation (ROADMAP Queue A 7g), the
-dashboard's usage and SLO panels with the dashboard (7f).
+The fleet's merged ledger is served by server.py (GET /cluster/usage)
+and the dashboard's usage and SLO panels by net/dashboard.py.
 """
 
 from __future__ import annotations

@@ -50,6 +50,7 @@ from typing import Callable, Optional
 import torch
 
 from pilosa_tpu_torch.constants import KERNEL_FAMILY_REPS
+from pilosa_tpu_torch.utils import threads
 from pilosa_tpu_torch.utils.stats import _pow2_bucket
 
 
@@ -173,9 +174,8 @@ class TelemetrySampler:
         with self._lock:
             if not self.running or self.closed or gen != self._gen:
                 return
-            self._timer = threading.Timer(self.interval, self._tick,
-                                          args=(gen,))
-            self._timer.daemon = True
+            self._timer = threads.ctx_timer(self.interval, self._tick,
+                                            args=(gen,))
             self._timer.start()
 
     def _tick(self, gen: int) -> None:

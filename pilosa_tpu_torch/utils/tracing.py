@@ -38,6 +38,8 @@ import urllib.request
 import zlib
 from typing import Optional
 
+from pilosa_tpu_torch.utils import threads
+
 TRACE_HEADER = "X-Pilosa-Trace-Id"
 
 # process-seeded PRNG for trace ids: uniqueness, not cryptographic
@@ -105,8 +107,7 @@ class _Shipper:
     def _schedule(self) -> None:
         if self._closed or self.flush_interval <= 0:
             return
-        self._timer = threading.Timer(self.flush_interval, self._tick)
-        self._timer.daemon = True
+        self._timer = threads.ctx_timer(self.flush_interval, self._tick)
         self._timer.start()
 
     def _tick(self) -> None:
@@ -127,8 +128,7 @@ class _Shipper:
             if spawn:
                 self._flush_pending = True
         if spawn:
-            threading.Thread(target=self._bg_flush, daemon=True,
-                             name="pilosa-torch-trace-flush").start()
+            threads.spawn(self._bg_flush, name="pilosa-torch-trace-flush")
 
     def _bg_flush(self) -> None:
         try:

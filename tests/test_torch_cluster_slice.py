@@ -342,11 +342,9 @@ def test_cli_nodes_converge_and_serve(tmp_path):
 
 
 @pytest.mark.parametrize("toml", [
-    "[tls]\nkey = \"node.key\"\n",
-    "[tls]\ncertificate = \"node.crt\"\n",
-    "[metric]\npoll-interval = 5.0\n",
     "[mesh]\nhost-devices = 2\n",
-    "[diagnostics]\nurl = \"http://localhost:1/d\"\n"])
+    "[mesh]\nreplicas = 2\n",
+    "[mesh]\ndevices = 2\n"])
 def test_unported_config_key_fails_the_start(tmp_path, toml):
     cfg = tmp_path / "n.toml"
     cfg.write_text('data-dir = "/nonexistent"\n' + toml)

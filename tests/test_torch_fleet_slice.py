@@ -177,10 +177,9 @@ def mixed(tmp_path_factory):
 
 def _stats_view(doc: dict) -> dict:
     """What a port and a JAX node report alike."""
-    # the JAX inputs walPoisoned and recompileStormActive have no port
-    # counterpart (no WAL poisoning, no XLA)
+    # the JAX input recompileStormActive has no port counterpart (no XLA)
     inputs = {k: v for k, v in doc["healthInputs"].items()
-              if k not in ("walPoisoned", "recompileStormActive")}
+              if k != "recompileStormActive"}
     return {"id": doc["id"], "state": doc["state"], "health": doc["health"],
             "healthInputs": inputs,
             "damagedFragments": doc["damagedFragments"],

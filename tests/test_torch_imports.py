@@ -75,5 +75,6 @@ def test_the_walk_covers_the_port():
     names = {p.name for p in FILES}
     assert {"kernels.py", "executor.py", "server.py", "chip_smoke.py",
             "frozen.py", "batcher.py", "bsi.py", "timequantum.py",
-            "translate.py", "attrstore.py", "protobuf.py"} <= names
+            "translate.py", "attrstore.py", "protobuf.py", "failpoints.py",
+            "containers.py", "diagnostics.py", "threads.py"} <= names
     assert (ROOT / "pilosa_tpu_torch" / "csrc" / "bitmap_kernels.cu").exists()
