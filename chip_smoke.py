@@ -8567,6 +8567,14 @@ def server_phase(device, n_shards: int, n_rows: int, seed: int,
                 finally:
                     fault_writer.stop()
                     fw_tmp.cleanup()
+                srv.executor.clear_caches()
+                torch.cuda.empty_cache()
+                log(f"phase 5j: the replica x shard mesh, a second server "
+                    f"over {MESH_REPLICAS} x {MESH_SLOTS} positions of "
+                    f"cuda:0 at {n_shards} shards")
+                out["mesh"] = mesh_phase(srv, port, rows, p, exists_all,
+                                         values, wide, pair, n_shards, seed,
+                                         device)
             log("phase 6: write path (coalesced Set/Clear) on the same "
                 "server, under concurrent reads")
             out["ingest"] = ingest_phase(srv, port, p, exists_all, s_rows,
@@ -8668,6 +8676,406 @@ def frozen_only(device, scale, configs, seed: int) -> dict:
     return {"scale": scale, "launches": out["launches"], **out["stats"]}
 
 
+# ------------------------------------------------------ phase 5j: the mesh
+
+# the two mesh compositions of pallas_kernels.py (rows 9a and 9b), each
+# the hand-written kernel of its body launched per block
+MESH_REPLACES = {
+    "program_count_mesh": "pilosa_tpu/ops/pallas_kernels.py:571",
+    "pair_stream_counts_mesh": "pilosa_tpu/ops/pallas_kernels.py:602",
+}
+MESH_BODY = {"program_count_mesh": "program_count",
+             "pair_stream_counts_mesh": "pair_stream_counts"}
+MESH_COMPOSITION = "pilosa_tpu_torch/ops/kernels.py"
+MESH_REPLICAS, MESH_SLOTS = 2, 4  # phase 5j's mesh, all on card 0
+MESH_CLIENTS, MESH_PER_CLIENT = 32, 8
+MESH_RAGGED_SHARDS = 1021  # the ragged check, on a 1 x 4 mesh
+MESH_SUM_X = 511  # Sum(Range(v > x))
+
+
+def copy_index(src: str, dst: str, index: str, fields: tuple) -> None:
+    """Copy an index's directory from one data dir to another with only
+    `fields` (their fragment files, views and metadata)."""
+    import shutil
+
+    src, dst = os.path.join(src, index), os.path.join(dst, index)
+    os.makedirs(dst)
+    for name in os.listdir(src):
+        path = os.path.join(src, name)
+        if os.path.isdir(path):
+            if name in fields:
+                shutil.copytree(path, os.path.join(dst, name))
+        else:
+            shutil.copy2(path, dst)
+
+
+def mesh_phase(srv, port: int, rows: list, p: list, exists: np.ndarray,
+               values: tuple, wide: list, pair: np.ndarray, n_shards: int,
+               seed: int, device: str = "cuda") -> dict:
+    """Phase 5j: a second in-process server over a 2 x 4 mesh of cuda:0
+    positions (the JAX package's mesh of 8 virtual devices on one host,
+    here 8 positions on one card), opened over a copy of the single
+    server's index i with f, v and the existence field (its fragment
+    files, the cheapest load through the port's own open); Count
+    (Intersect), a 40-leaf Count, Row results (one over 3 shards: ragged
+    on 4 slots), Not over all shards and over 1021 (ragged),
+    GroupBy(Rows(f)) and Sum(Range(v > x)) checked against the numpy
+    oracle and against the single-device server (asked first, outside
+    the mesh's window); one query alone to count each mesh call's block
+    launches; 32 clients x 8 Count(Intersect) through the batcher's
+    replica scatter. `exists` is index i's existence as the copy holds
+    it. Its own launch counts (zeroed before its first mesh query)."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel.mesh import make_mesh
+    from pilosa_tpu_torch.server import Server
+
+    t_phase = time.perf_counter()
+    card = (torch.device("cuda", 0) if device == "cuda"
+            else torch.device(device))
+    mesh = make_mesh([card] * (MESH_REPLICAS * MESH_SLOTS),
+                     replicas=MESH_REPLICAS)
+    cols_v, vals_v = values
+    with tempfile.TemporaryDirectory(prefix="pilosa_torch_mesh_") as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "data")
+        copy_index(srv.data_dir, data, "i", ("f", "v", "_exists"))
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        msrv = Server(data, port=0, device=device, mesh=mesh).open()
+        mport = msrv.http.port
+        open_s = time.perf_counter() - t0
+        msrv.executor.plan_cache.enabled = False
+        try:
+            log(f"  mesh server: {mesh.shape} positions on {card}; index i "
+                f"with f ({sum(r.size for r in rows)} bits), v "
+                f"({cols_v.size} values) and existence copied from the "
+                f"single server's data dir in {copy_s:.1f} s, opened in "
+                f"{open_s:.1f} s")
+            t0 = time.perf_counter()
+            ex = exists
+            shard_bytes = SHARD_WIDTH // 8
+            ragged = MESH_RAGGED_SHARDS * shard_bytes
+            xor_all = np.zeros_like(p[0])
+            for r in wide:
+                xor_all ^= p[r]
+            wide_pql = ", ".join(f"Row(f={r})" for r in wide)
+            row_cols = rows[2][rows[2] < 2 * SHARD_WIDTH]
+            inter3 = np.intersect1d(rows[0][rows[0] < 3 * SHARD_WIDTH],
+                                    rows[1][rows[1] < 3 * SHARD_WIDTH])
+            big = vals_v > MESH_SUM_X
+            sub = "?shards=" + ",".join(map(str, range(MESH_RAGGED_SHARDS)))
+            groups = [{"group": [{"field": "f", "rowID": r}],
+                       "count": _popcount(p[r])} for r in range(len(p))
+                      if _popcount(p[r])]
+            # (pql, path suffix, oracle)
+            checks = [
+                ("Count(Intersect(Row(f=0), Row(f=1)))", "", int(pair[0, 1])),
+                (f"Count(Xor({wide_pql}))", "", _popcount(xor_all)),
+                ("Row(f=2)", "?shards=0,1", row_cols.tolist()),
+                ("Intersect(Row(f=0), Row(f=1))", "?shards=0,1,2",
+                 inter3.tolist()),
+                ("Count(Not(Row(f=7)))", "", _popcount(ex & ~p[7])),
+                ("Count(Not(Row(f=7)))", sub,
+                 _popcount((ex & ~p[7])[:ragged])),
+                ("GroupBy(Rows(field=f))", "", groups),
+                (f"Sum(Range(v > {MESH_SUM_X}), field=v)", "",
+                 {"value": int(vals_v[big].sum()), "count": int(big.sum())}),
+            ]
+            oracle_s = time.perf_counter() - t0
+
+            def ask(at_port: int, pql: str, suffix: str):
+                got = _http(at_port, "POST", "/index/i/query" + suffix,
+                            pql.encode())["results"][0]
+                if isinstance(got, dict) and "columns" in got:
+                    return got["columns"]  # a Row result: its columns
+                return got
+
+            t0 = time.perf_counter()
+            singles = [ask(port, pql, suffix)
+                       for pql, suffix, _ in checks]
+            single_s = time.perf_counter() - t0
+            start_window()  # the mesh path starts here
+            t0 = time.perf_counter()
+            for (pql, suffix, want), one in zip(checks, singles):
+                got = ask(mport, pql, suffix)
+                if got != want:
+                    raise AssertionError(f"mesh {pql[:80]}{suffix[:20]}: "
+                                         f"port {str(got)[:200]} != oracle "
+                                         f"{str(want)[:200]}")
+                if one != got:
+                    raise AssertionError(f"mesh {pql[:80]}: differs from "
+                                         "the single-device server")
+                log(f"  mesh {pql[:70]}{suffix[:16]}: the oracle and the "
+                    "single-device server agree")
+            checks_s = time.perf_counter() - t0
+
+            # each mesh call's block launches, one query alone
+            per_call = {}
+            for name, pql in (
+                    ("program_count_mesh", f"Count(Xor({wide_pql}))"),
+                    ("pair_stream_counts_mesh",
+                     "Count(Intersect(Row(f=2), Row(f=3)))")):
+                torch.cuda.synchronize()
+                l0, m0 = kernels.launch_counts(), kernels.mesh_launch_counts()
+                _http(mport, "POST", "/index/i/query", pql.encode())
+                torch.cuda.synchronize()
+                l1, m1 = kernels.launch_counts(), kernels.mesh_launch_counts()
+                per_call[name] = {
+                    "mesh_calls": m1[name] - m0[name],
+                    "block_launches": (l1[MESH_BODY[name]]
+                                       - l0[MESH_BODY[name]])}
+                want_blocks = (MESH_SLOTS if name == "program_count_mesh"
+                               else MESH_SLOTS * MESH_REPLICAS)
+                if per_call[name] != {"mesh_calls": 1,
+                                      "block_launches": want_blocks}:
+                    raise AssertionError(f"{name}: {per_call[name]} for one "
+                                         f"query, want 1 call of "
+                                         f"{want_blocks} block launches")
+                log(f"  {name}: one call of {want_blocks} block launches of "
+                    f"{MESH_BODY[name]} for {pql[:40]}")
+
+            count_mix = [(f"Count(Intersect(Row(f={a}), Row(f={b})))",
+                          int(pair[a, b]))
+                         for a in range(len(p)) for b in range(len(p))]
+            lat, wall, _ = concurrent_mix(mport, MESH_CLIENTS,
+                                          MESH_PER_CLIENT, count_mix,
+                                          seed + 5000)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()  # the mesh path ends here
+            mesh_launches = kernels.mesh_launch_counts()
+            b = msrv.executor.batcher.snapshot()
+            res = msrv.executor.residency.snapshot()
+            stats = {
+                "mesh": mesh.shape, "copy_s": copy_s, "open_s": open_s,
+                "oracle_s": oracle_s, "single_s": single_s,
+                "checks_s": checks_s,
+                "checks": len(checks), "wrong": 0,
+                "queries": len(lat), "qps": len(lat) / wall,
+                "p50_ms": statistics.median(lat) * 1e3,
+                "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+                "max_batch_seen": b["max_batch_seen"],
+                "batches": b["batches"], "per_call": per_call,
+                "resident_bytes": res["bytes"],
+                "resident_entries": res["entries"],
+                "budget": res["budget"],
+                "device_bytes": torch.cuda.memory_allocated()}
+            log(f"  mesh: {MESH_CLIENTS} clients x {MESH_PER_CLIENT} "
+                f"Count(Intersect) through the replica scatter: "
+                f"{stats['qps']:.1f} q/s, p50 {stats['p50_ms']:.2f} ms, p99 "
+                f"{stats['p99_ms']:.2f} ms, max_batch_seen "
+                f"{stats['max_batch_seen']}; resident {res['entries']} "
+                f"leaves, {res['bytes']} bytes (one copy; budget "
+                f"{res['budget']})")
+            log(f"  launches on the mesh path: {launches}; mesh calls "
+                f"{mesh_launches}")
+            for name in MESH_REPLACES:
+                if mesh_launches[name] < 1 or launches[MESH_BODY[name]] < 1:
+                    raise AssertionError(f"{name} never launched on the mesh "
+                                         "path")
+        finally:
+            msrv.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"  (phase 5j: {stats['phase_s']:.1f} s)")
+    return {"launches": launches, "mesh_launches": mesh_launches,
+            "stats": stats, "obs": {"scrape": {"kernels": {}}}}
+
+
+def mesh_only(device, n_shards: int, n_rows: int, seed: int, k: int,
+              runs: int) -> dict:
+    """Phases 5j and 7j alone: a single-device server with phase 2's f and
+    phase 3's v (the comparisons' other side), then the mesh."""
+    from pilosa_tpu_torch.server import Server
+
+    rows = make_rows(n_rows, n_shards, seed)
+    p = [packed_row(c, n_shards) for c in rows]
+    exists = p[0].copy()
+    for x in p[1:]:
+        exists |= x
+    values = last_wins(*make_values(n_shards, 32768, seed))
+    wide = [int(r) for r in np.random.default_rng(seed).permutation(
+        np.arange(40) % n_rows)]
+    pair = np.zeros((n_rows, n_rows), dtype=np.int64)
+    for a in range(n_rows):
+        for b in range(a, n_rows):
+            pair[a, b] = pair[b, a] = _and_count(p[a], p[b])
+    with tempfile.TemporaryDirectory(prefix="pilosa_torch_smoke_") as tmp:
+        srv = Server(os.path.join(tmp, "data"), port=0, device=device).open()
+        port = srv.http.port
+        try:
+            _http(port, "POST", "/index/i",
+                  json.dumps({"options": {"trackExistence": True}}).encode())
+            _http(port, "POST", "/index/i/field/f", b"{}")
+            _http(port, "POST", "/index/i/field/v", json.dumps(
+                {"options": {"type": "int", "min": 0,
+                             "max": (1 << BSI_DEPTH) - 1}}).encode())
+            srv.api.import_bits("i", "f", *shard_major(rows, n_shards))
+            srv.api.import_values("i", "v", *values)
+            # the value columns join existence (sorted, unique): one OR of
+            # their bits per byte
+            at = values[0] >> 3
+            first = np.flatnonzero(np.r_[True, at[1:] != at[:-1]])
+            exists[at[first]] |= np.bitwise_or.reduceat(
+                (1 << (values[0] & 7)).astype(np.uint8), first)
+            log("phase 5j: the replica x shard mesh")
+            out = {"mesh": mesh_phase(srv, port, rows, p, exists, values,
+                                      wide, pair, n_shards, seed, device)}
+        finally:
+            srv.close()
+    log(f"phase 7j: the mesh compositions at S={n_shards}, W=32768")
+    out["kernels"] = mesh_kernel_phase(device, n_shards, 32768, k, seed,
+                                       runs)
+    return out
+
+
+def _blocked(t, replicas: int, slots: int):
+    """A device [S, W] tensor as a blocked leaf: zero-padded to a multiple
+    of `slots`, one cloned block per position (as put_leaf places host
+    rows)."""
+    import torch
+
+    from pilosa_tpu_torch.parallel.blocks import Blocked
+
+    pad = (-t.shape[0]) % slots
+    if pad:
+        t = torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+    parts = t.chunk(slots)
+    return Blocked([[x.clone() for x in parts] for _ in range(replicas)], 0,
+                   t.shape[0])
+
+
+def mesh_kernel_phase(device, n_shards: int, words: int, k: int, seed: int,
+                      runs: int) -> dict:
+    """Rows 9a and 9b at S = n_shards on 1 x 4 and 2 x 4 meshes of card 0,
+    against program_count and pair_stream_counts alone at the same S and
+    K, and against their plain versions (max abs err 0); the ragged
+    S = 1021 on 1 x 4. The bound is the body kernel's: the same bytes."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.ops.bitvector import total_count
+    from pilosa_tpu_torch.parallel.mesh import make_mesh
+
+    rates = int_rates()
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    leaves = [torch.randint(-2**31, 2**31, (n_shards, words),
+                            dtype=torch.int64, device=device,
+                            generator=gen).to(torch.int32) for _ in range(8)]
+    plane_bytes = n_shards * words * 4
+    n_words = n_shards * words
+    rng = np.random.default_rng(seed + 9)
+    ii = rng.integers(0, 8, size=k)
+    jj = rng.integers(0, 8, size=k)
+    plan = kernels.plan_pairs(ii, jj, "and")
+    card = (torch.device("cuda", 0) if device == "cuda"
+            else torch.device(device))
+    meshes = {f"{r}x{MESH_SLOTS}": make_mesh([card] * (r * MESH_SLOTS),
+                                             replicas=r)
+              for r in (1, MESH_REPLICAS)}
+    want_pc = total_count(kernels.program_count(leaves[:4], PROGRAM))
+    want_ps = (kernels.pair_stream_counts(leaves, ii, jj, "and")
+               .cpu().numpy().astype(np.int64).sum(axis=1))
+    body = {"program_count_mesh": cuda_ms(
+                lambda: kernels.program_count(leaves[:4], PROGRAM), runs),
+            "pair_stream_counts_mesh": cuda_ms(
+                lambda: kernels.pair_stream_counts(leaves, plan.a, plan.b,
+                                                   "and"), runs)}
+    out = {name: {"by_mesh": {}, "body_ms": body[name]}
+           for name in MESH_REPLACES}
+    for label, mesh in meshes.items():
+        reps = mesh.shape.get("replica", 1)
+        bl = [_blocked(t, reps, MESH_SLOTS) for t in leaves]
+        got = kernels.program_count_mesh(mesh, bl[:4], PROGRAM)
+        plain = kernels.program_count_mesh_plain(mesh, bl[:4], PROGRAM)
+        err_pc = max(abs(got - plain), abs(got - want_pc))
+        got_ps = kernels.pair_stream_counts_mesh(mesh, bl, ii, jj)
+        plain_ps = kernels.pair_stream_counts_mesh_plain(mesh, bl, ii, jj)
+        err_ps = int(max(np.abs(got_ps - plain_ps).max(),
+                         np.abs(got_ps - want_ps).max()))
+        if err_pc or err_ps:
+            raise AssertionError(f"mesh kernels on {label}: max abs err "
+                                 f"{err_pc} / {err_ps}")
+        rec_pc = {"ms": cuda_ms(lambda: kernels.program_count_mesh(
+                      mesh, bl[:4], PROGRAM), runs),
+                  "plain_ms": cuda_ms(lambda: kernels.program_count_mesh_plain(
+                      mesh, bl[:4], PROGRAM), 1, 1),
+                  "device_ms": device_ms(lambda: kernels.program_count_mesh(
+                      mesh, bl[:4], PROGRAM), runs, "program_count",
+                      MESH_SLOTS),
+                  "max_abs_err": err_pc}
+        # the pairs as the CountBatcher gives them: its distinct pairs
+        rec_ps = {"ms": cuda_ms(lambda: kernels.pair_stream_counts_mesh(
+                      mesh, bl, plan.a, plan.b), runs),
+                  "plain_ms": cuda_ms(
+                      lambda: kernels.pair_stream_counts_mesh_plain(
+                          mesh, bl, plan.a, plan.b), 1, 1),
+                  "device_ms": device_ms(
+                      lambda: kernels.pair_stream_counts_mesh(
+                          mesh, bl, plan.a, plan.b), runs,
+                      "pair_stream_kernel", MESH_SLOTS * reps),
+                  "max_abs_err": err_ps}
+        out["program_count_mesh"]["by_mesh"][label] = rec_pc
+        out["pair_stream_counts_mesh"]["by_mesh"][label] = rec_ps
+        log(f"  program_count_mesh {label}: {rec_pc['ms'] * 1e3:.1f} us "
+            f"(device {_us(rec_pc['device_ms'])} us over {MESH_SLOTS} "
+            f"blocks; program_count alone "
+            f"{body['program_count_mesh'] * 1e3:.1f} us), plain "
+            f"{rec_pc['plain_ms']:.2f} ms, exact")
+        log(f"  pair_stream_counts_mesh {label} K={k} ({plan.a.size} "
+            f"distinct pairs): {rec_ps['ms'] * 1e3:.1f} us (device "
+            f"{_us(rec_ps['device_ms'])} us over {MESH_SLOTS * reps} blocks; "
+            f"pair_stream_counts alone "
+            f"{body['pair_stream_counts_mesh'] * 1e3:.1f} us), plain "
+            f"{rec_ps['plain_ms']:.2f} ms, exact")
+        del bl
+    # the ragged S on 1 x 4: three pad shards, zero in every leaf
+    mesh = meshes[f"1x{MESH_SLOTS}"]
+    cut = [t[:MESH_RAGGED_SHARDS] for t in leaves[:4]]
+    bl = [_blocked(t, 1, MESH_SLOTS) for t in cut]
+    ragged_pc = kernels.program_count_mesh(mesh, bl, PROGRAM)
+    ragged_want = total_count(kernels.program_count(
+        [t.contiguous() for t in cut], PROGRAM))
+    ragged_ps = kernels.pair_stream_counts_mesh(mesh, bl, ii % 4, jj % 4)
+    ragged_ps_want = (kernels.pair_stream_counts(
+        [t.contiguous() for t in cut], ii % 4, jj % 4, "and")
+        .cpu().numpy().astype(np.int64).sum(axis=1))
+    if ragged_pc != ragged_want or not np.array_equal(ragged_ps,
+                                                      ragged_ps_want):
+        raise AssertionError("the ragged S: a pad shard reached a count")
+    log(f"  ragged S={MESH_RAGGED_SHARDS} on 1x{MESH_SLOTS} (pad "
+        f"{(-MESH_RAGGED_SHARDS) % MESH_SLOTS} shards): both mesh kernels "
+        "equal their bodies over the real shards")
+    del bl, cut
+    # the bound: the body's bytes (each leaf read once) and operations
+    codes, _, _ = kernels.encode_program(PROGRAM)
+    combining = sum(c != kernels.LEAF for c in codes)
+    nbytes = 4 * plane_bytes + n_shards * 4
+    b_pc = bound(nbytes, (combining + 1.0) * n_words, 1.0 * n_words, rates)
+    n_chunks = -(-n_shards // kernels.SUM_SHARD_CHUNK)
+    p_ = plan.a.size
+    nbytes_ps = plan.leaves.size * plane_bytes + 2 * p_ * 8 + p_ * n_chunks * 4
+    b_ps = bound(nbytes_ps, 2.0 * p_ * n_words, 1.0 * p_ * n_words, rates)
+    main = f"{MESH_REPLICAS}x{MESH_SLOTS}"
+    for name, (b_ms, b_by), nb in (("program_count_mesh", b_pc, nbytes),
+                                   ("pair_stream_counts_mesh", b_ps,
+                                    nbytes_ps)):
+        rec = out[name]
+        m = rec["by_mesh"][main]
+        rec.update(ms=m["ms"], plain_ms=m["plain_ms"],
+                   device_ms=m["device_ms"], max_abs_err=0, bound_ms=b_ms,
+                   bound_by=b_by, bytes_once=nb, mesh=main,
+                   ragged_shards=MESH_RAGGED_SHARDS)
+        log(f"  {name}: bound {b_ms * 1e3:.1f} us by {b_by} (the body's "
+            "bytes)")
+    out["pair_stream_counts_mesh"].update(k=k, distinct_pairs=int(p_))
+    del leaves
+    torch.cuda.empty_cache()
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -8722,6 +9130,9 @@ def main(argv=None) -> int:
     ap.add_argument("--faults-only", action="store_true",
                     help="run phases 1 and 5i alone and print their "
                          "numbers")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run phases 1, 5j and 7j alone (the mesh) and "
+                         "print their numbers")
     ap.add_argument("--kernel-times", action="store_true",
                     help="time program_count, intersect_count and "
                          "sparse_intersect_dense alone (no server) and "
@@ -8780,6 +9191,13 @@ def main(argv=None) -> int:
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         print(smi_name)
         print(json.dumps({"faults": measured}), flush=True)
+        return 0
+    if args.mesh_only:
+        measured = mesh_only(device, args.shards, args.rows, args.seed, 64,
+                             args.runs)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        print(smi_name)
+        print(json.dumps(measured), flush=True)
         return 0
     if args.keyed_only:
         measured = keyed_only(device, args.seed)
@@ -8844,13 +9262,17 @@ def main(argv=None) -> int:
                                       args.runs))
     measured.update(hybrid_kernel_phase(device, args.shards, 32768, served_k,
                                         args.seed, args.runs))
+    log(f"phase 7j: the mesh compositions at S={args.shards}, W=32768")
+    mesh_measured = mesh_kernel_phase(device, args.shards, 32768, k_served,
+                                      args.seed, args.runs)
 
     records = []
     paths = {"count": served, "bsi": served["bsi"], "topn": served["topn"],
              "hybrid": served["hybrid"], "planner": served["planner"],
              "frozen": served["frozen"], "typed": served["typed"],
              "keyed": served["keyed"], "cluster": served["cluster"],
-             "faults": served["faults"], "ingest": served["ingest"]}
+             "faults": served["faults"], "mesh": served["mesh"],
+             "ingest": served["ingest"]}
     for name, m in measured.items():
         # launches on every path of the main run (each path zeroes the
         # counts before its first query and reads them after its last)
@@ -8873,11 +9295,26 @@ def main(argv=None) -> int:
             record["launches_by_form"] = by_form
             record["form"] = m["form"]
         records.append(record)
+    mp = served["mesh"]
+    for name, m in mesh_measured.items():
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "composition": MESH_COMPOSITION,
+            "replaces": MESH_REPLACES[name],
+            "launches": mp["mesh_launches"][name],
+            "launches_by_path": {"mesh": mp["mesh_launches"][name]},
+            "block_launches": mp["launches"][MESH_BODY[name]],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "device_ms": m["device_ms"], "mesh": m["mesh"],
+            "body_ms": m["body_ms"], "by_mesh": m["by_mesh"]})
     log("  library_ms: none (no single PyTorch call computes a popcount of "
         "a bitwise op, a bit-sliced comparison, per-plane filtered "
         "popcounts, packed TopN counts or a popcount cross matrix: torch "
         "has no popcount; nor a gather, bit test and ordered compaction)")
-    details = {"kernels": measured, **served, "minmax_descent": descent}
+    details = {"kernels": measured, "mesh_kernels": mesh_measured,
+               **served, "minmax_descent": descent}
     log(f"  details: {json.dumps(details)}")
     log("  observability: "
         + json.dumps(obs_summary(paths, touch, served["spill"])))

@@ -52,13 +52,16 @@ PILOSA_TPU_CLUSTER_REPLICAS). The keys it serves:
                sampler-param, agent-host-port (the SpanExporter's
                endpoint, "host:port" or a URL)
     [mesh]     platform ("cpu" runs the node on the CPU; "", the default,
-               on the card), devices ("auto", "none" or 1: one device)
+               on the card), devices ("auto", "none" or a count),
+               host-devices (N > 0: a mesh of N logical CPU devices) and
+               replicas (the mesh's replica rows; 0: one per slice),
+               built by parallel/mesh.py mesh_from_config with the JAX
+               package's rules and texts (:156-188)
 
-The other keys the JAX package knows ([mesh] host-devices and replicas,
-which belong to several devices) must keep their defaults: set away
-from them, in the file or the environment, they fail the start with
-NotPortedError naming the key.
-A key neither package knows fails too. Durations may be written as Go
+A key the port does not serve that is set away from its default, in the
+file or the environment, fails the start with NotPortedError naming the
+key; every key the JAX package knows is served now. A key neither
+package knows fails too. Durations may be written as Go
 durations ("250ms", "1h30m") where the default is a number of seconds.
 An environment name the table does not hold (the port's
 PILOSA_TPU_TORCH_* switches, the JAX package's PILOSA_TPU_QOS=0) is left
@@ -151,7 +154,7 @@ PORTED = {
                "trace_export_path", "trace_export_endpoint",
                "trace_export_format", "trace_export_sample"},
     "tracing": {"sampler_type", "sampler_param", "agent_host_port"},
-    "mesh": {"devices", "platform"},
+    "mesh": {"devices", "platform", "host_devices", "replicas"},
     "gossip": {"port", "seeds", "period", "probe_timeout",
                "push_pull_interval", "secret"},
 }
@@ -185,8 +188,11 @@ class Config:
 
     @property
     def device(self) -> str:
-        """The node's device: "cpu" only where [mesh] platform asks."""
-        return "cpu" if self.values["mesh"]["platform"] == "cpu" else "cuda"
+        """The node's device: "cpu" where [mesh] platform asks or
+        host-devices makes CPU devices (mesh_from_config's rule)."""
+        m = self.values["mesh"]
+        return ("cpu" if m["platform"] == "cpu" or m["host_devices"] > 0
+                else "cuda")
 
     # -- merge layers -------------------------------------------------------
 
@@ -244,10 +250,6 @@ class Config:
         if mesh["platform"] not in ("", "cpu"):
             raise ValueError(f"invalid [mesh] platform {mesh['platform']!r}"
                              " (expected \"\" for the card or \"cpu\")")
-        if str(mesh["devices"]) not in ("auto", "none", "1"):
-            raise NotPortedError(
-                f"config key [mesh] devices = {mesh['devices']!r} is not "
-                "ported yet (a node drives one device)")
 
 
 # the JAX package's to_toml, section by section and key by key

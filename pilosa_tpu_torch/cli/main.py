@@ -1,8 +1,8 @@
 """The port's command line, `python -m pilosa_tpu_torch.cli <command>`:
 
     server           run one node: --config <toml> [--data-dir DIR]
-                     [--bind HOST:PORT] [--join] [--log-format plain|json]
-                     [--verbose]
+                     [--bind HOST:PORT] [--join] [--mesh-devices N]
+                     [--log-format plain|json] [--verbose]
     import           bulk-import CSV files (row,col; or col,value with
                      --field-type int) through a node's import route
     export           a field as CSV (row,col lines, shard by shard)
@@ -21,8 +21,11 @@ subcommands, flags and output, the advisor's and the timeline's
 renderings included. `server`: the configuration is the JAX package's
 TOML and PILOSA_TPU_* environment (cli/config.py); --data-dir and --bind
 win over both. The node runs on the card unless [mesh] platform =
-"cpu"; on the card the kernel library is built (or loaded) before the
-node listens, so a build failure stops the start and no query pays for
+"cpu" (or host-devices is set); [mesh] devices, replicas and
+host-devices (--mesh-devices overrides devices) build its replica x
+shard mesh by the JAX package's rules (build_mesh), one device when
+fewer than two are named. On the card the kernel library is built (or
+loaded) before the node listens, so a build failure stops the start and no query pays for
 it. [tls] certificate and key make the listener speak HTTPS, and
 skip-verify lets the internal client trust any certificate; [metric]
 poll-interval and [diagnostics] url and interval start the runtime
@@ -72,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--join", action="store_true",
                     help="join a running cluster through the [cluster] "
                          "hosts (the coordinator runs a resize job)")
+    sp.add_argument("--mesh-devices",
+                    help="device mesh: auto (all local devices when >1), "
+                         "none, or an integer count")
     sp.add_argument("--log-format", choices=["plain", "json"],
                     help="log line format; json carries the trace id as a "
                          "field")
@@ -217,6 +223,21 @@ def server_kwargs(cfg) -> dict:
         **{f"slo_{k}": v for k, v in cfg.values["slo"].items()})
 
 
+def build_mesh(cfg):
+    """The node's mesh from the [mesh] keys (JAX cli/main.py:155-167): None
+    for one device; a bad value stops the start with the JAX text."""
+    from pilosa_tpu_torch.parallel.mesh import mesh_from_config
+
+    m = cfg.values["mesh"]
+    try:
+        return mesh_from_config(devices=str(m["devices"]),
+                                platform=m["platform"],
+                                host_devices=m["host_devices"],
+                                replicas=m["replicas"])
+    except ValueError as e:
+        raise SystemExit(f"error: building device mesh: {e}")
+
+
 def cmd_server(args) -> int:
     try:
         cfg = load_config(args.config)
@@ -230,16 +251,24 @@ def cmd_server(args) -> int:
         cfg.values[""]["log_format"] = args.log_format
     if args.verbose:
         cfg.values[""]["verbose"] = True
+    if args.mesh_devices:
+        cfg.values["mesh"]["devices"] = args.mesh_devices
     from pilosa_tpu_torch.server import Server
+
+    mesh = build_mesh(cfg)
 
     if cfg.device == "cuda":
         from pilosa_tpu_torch.ops import _build
         _build.load()
     data_dir = os.path.expanduser(cfg.get("", "data_dir"))
-    server = Server(data_dir, join=args.join, **server_kwargs(cfg)).open()
+    server = Server(data_dir, join=args.join, mesh=mesh,
+                    **server_kwargs(cfg)).open()
+    runner = server.executor.runner
+    where = (runner.device if runner.mesh is None
+             else f"{runner.device}, mesh {runner.mesh.shape}")
     print(f"pilosa-tpu-torch {__version__} serving at {server.uri} "
           f"(data: {data_dir}, node: {server.node_id}, device: "
-          f"{server.executor.runner.device})", flush=True)
+          f"{where})", flush=True)
     stop = threading.Event()
     signals_seen = []
 

@@ -116,9 +116,10 @@ whose attribute is one of the values (:1860-1892).
 The cluster (executor.py:491-560, :2664-3156, :3266-3427, :3751-3822):
 with a Cluster and an InternalClient and more than one node, a query that
 is not itself a fan-out sub-request (remote=True) is distributed. Options
-is unwrapped first; a read is routed (_ici_route: on the port's one-device
-runner "auto" is always cross_slice, "on" runs a shard set this node holds
-every shard of here, a decision memoized per topology whose changes and
+is unwrapped first; a read is routed (_ici_route: "auto" runs a shard set
+this node holds every shard of here as one mesh program where its runner
+has a mesh, and crosses nodes on a single-device runner; "on" runs such a
+set here on either, a decision memoized per topology whose changes and
 flips go to the event journal), grouped by each shard's first live owner,
 run on this node inline and on every other node through the fan-out
 pool, each node's batch coalesced into /internal/query-batch envelopes by
@@ -165,6 +166,13 @@ or the hybrid kernels) charge their wall time to the request's account
 as device_ms (a batched Count is charged by the batcher); the ingest
 apply runs under the `batch` class.
 
+The mesh (Executor(mesh=), parallel/mesh.py): every leaf is blocked over
+the mesh's positions, the kernel wrappers and the shard-local steps run
+per block (parallel/blocks.py), counts finish in int64 over the slots,
+and a host result reads the first replica row's blocks and keeps the
+real shards only (pad shards are empty in every form, and Not() goes
+through existence).
+
 Calls and options outside the slice raise NotPortedError (a 400 at the
 API).
 """
@@ -191,7 +199,6 @@ from pilosa_tpu_torch.constants import (
     SHARD_WIDTH,
     WORDS_PER_SHARD,
 )
-from pilosa_tpu_torch.device import planes_to_tensor
 from pilosa_tpu_torch.models.cache import merge_pair_arrays, merge_pairs
 from pilosa_tpu_torch.models import timequantum
 from pilosa_tpu_torch.models.field import INT, SET, NotPortedError
@@ -221,7 +228,11 @@ from pilosa_tpu_torch.parallel.ingest import (
     Mutation,
     ingest_env_enabled,
 )
-from pilosa_tpu_torch.parallel.mesh import DeviceRunner
+from pilosa_tpu_torch.parallel.blocks import is_blocked
+from pilosa_tpu_torch.parallel.mesh import (
+    DeviceRunner,
+    ici_program_cache_stats,
+)
 from pilosa_tpu_torch.parallel.residency import (
     DeviceResidency,
     HybridManager,
@@ -343,7 +354,7 @@ class Executor:
     ROUTE_FALLBACK = "fallback"
 
     def __init__(self, holder, device="cuda", translator=None,
-                 cluster=None, client=None):
+                 cluster=None, client=None, mesh=None):
         self.holder = holder
         # utils/translate.py TranslateStore, or a server's
         # ClusterTranslator (None: string keys raise)
@@ -394,19 +405,25 @@ class Executor:
         self.fence_rerouted = 0  # local fenced shards planned elsewhere
         self.fence_refused = 0  # remote reads refused into failover
         self.fence_served_stale = 0  # no live replica: served from here
-        self.runner = DeviceRunner(device)
+        # with a mesh (parallel/mesh.py), every leaf is blocked over its
+        # positions and the kernels launch per block
+        self.runner = DeviceRunner(device, mesh=mesh)
         # observability: nop until a Server installs its stats client and
         # tracer; the heat map unless PILOSA_TPU_TORCH_HEAT=0
         self.stats = NopStatsClient()
         self.tracer = NopTracer()
         self.heat = _heat.HeatTracker() if _heat.enabled() else None
         self.residency = DeviceResidency(self.runner)
+        # a mesh holds a copy of each leaf per replica row: the budget
+        # counts one (parallel/residency.py)
+        self.residency.budget = int(self.residency.budget
+                                    * self.runner.budget_scale)
         self.residency.heat = self.heat
         self.hybrid = HybridManager(heat=self.heat)
         # PILOSA_TPU_TORCH_BATCH=0: one launch per Count and per Sum, no
         # coalescing
         batch = os.environ.get("PILOSA_TPU_TORCH_BATCH", "1") != "0"
-        self.batcher = CountBatcher() if batch else None
+        self.batcher = CountBatcher(runner=self.runner) if batch else None
         self.sum_batcher = PlaneSumBatcher() if batch else None
         self.minmax_batcher = MinMaxBatcher() if batch else None
         # the planner and the plan cache, unless PILOSA_TPU_TORCH_PLANNER=0
@@ -1171,7 +1188,7 @@ class Executor:
             return Row()
         kind, arr = self._composed_row(index, call, shards, sparse_root=True)
         if kind == "sparse":
-            host = arr.cpu().numpy()
+            host = (arr.gather() if is_blocked(arr) else arr).cpu().numpy()
             per_shard = [r[r < hy.SPARSE_SENTINEL].astype(np.int64)
                          for r in host]
         else:
@@ -1733,21 +1750,22 @@ class Executor:
                shards_t, tuple(row_ids), gens)
 
         def make():
-            slab = torch.empty((len(row_ids), len(shards), WORDS_PER_SHARD),
-                               dtype=torch.int32, device=self.runner.device)
+            runner = self.runner
+            slab = runner.empty_slab(len(row_ids), len(shards),
+                                     WORDS_PER_SHARD)
             for i, rid in enumerate(row_ids):
                 leaf = self.residency.peek(("row", index.name, field_name,
                                             VIEW_STANDARD, rid, shards_t,
                                             gens[i]))
                 if leaf is not None:
-                    slab[i].copy_(leaf)
+                    runner.set_slab_row(slab, i, leaf)
                     continue
                 host = np.zeros((len(shards), WORDS_PER_SHARD),
                                 dtype=np.uint32)
                 for j, fr in enumerate(frags):
                     if fr is not None:
                         fr.row_dense(rid, host[j])
-                slab[i].copy_(planes_to_tensor(host, "cpu"))
+                runner.set_slab_row(slab, i, host)
             return slab
 
         return self.residency.leaf(key, make)
@@ -1802,7 +1820,8 @@ class Executor:
         fname0, rows0, slab0 = axes[0]
         if len(axes) == 1:
             # per-row counts of slab0 & filter: one kernel pass, one fetch
-            src = filt if filt is not None else torch.zeros_like(slab0[0])
+            src = (filt if filt is not None
+                   else self.runner.zeros_like_row(slab0))
             packed = kernels.topn_counts_packed(slab0, src).cpu().numpy()
             counts = packed[0] if filt is not None else packed[1]
             self._count_sync()
@@ -1810,7 +1829,7 @@ class Executor:
             comb, counts = [live], counts[live]
         else:
             if filt is not None:
-                slab0 = torch.bitwise_and(slab0, filt)
+                slab0 = band(slab0, filt)
             axis_slabs = [slab0] + [a[2] for a in axes[1:]]
             comb = [np.arange(len(rows0))]
             for li in range(1, len(axes)):
@@ -2572,17 +2591,17 @@ class Executor:
     def _ici_route(self, call: Call, index: Index,
                    qshards: list) -> tuple[str, str]:
         """(route, reason) of one distributed read (:2664-2694).
-        slice_local runs the whole shard set here, with no envelope; the
-        port's runner is one device, so "auto" always crosses nodes and
-        only "on" serves a shard set this node holds a replica of every
-        shard of locally."""
+        slice_local runs the whole shard set here, with no envelope.
+        "auto" serves it so where this node's runner has a mesh (a
+        single-device runner is not a slice: "auto" crosses nodes there);
+        "on" wherever this node holds a replica of every query shard."""
         if not self.ici_enabled():
             return self.ROUTE_FALLBACK, "disabled"
         if self._call_has_write(call):
             return self.ROUTE_FALLBACK, "write"
         if not qshards:
             return self.ROUTE_FALLBACK, "no shards"
-        if self.ici_mode == "auto":
+        if self.ici_mode == "auto" and self.runner.mesh is None:
             return self.ROUTE_CROSS_SLICE, "no mesh"
         if not self._ici_co_resident(index, qshards):
             return self.ROUTE_CROSS_SLICE, "shards not co-resident"
@@ -2659,12 +2678,15 @@ class Executor:
                                "call": call.name, "shards": n_shards})
 
     def ici_snapshot(self) -> dict:
-        """The route counters (/debug/vars iciServing, /metrics)."""
+        """The route counters (/debug/vars iciServing, /metrics) and the
+        mesh program cache's (JAX executor.py:2712-2724)."""
         with self._ici_lock:
-            return {"mode": self.ici_mode,
-                    "sliceLocal": self.ici_slice_local,
-                    "crossSlice": self.ici_cross_slice,
-                    "fallback": self.ici_fallback}
+            out = {"mode": self.ici_mode,
+                   "sliceLocal": self.ici_slice_local,
+                   "crossSlice": self.ici_cross_slice,
+                   "fallback": self.ici_fallback}
+        out["programCache"] = ici_program_cache_stats()
+        return out
 
     def _execute_distributed(self, index: Index, call: Call, shards):
         """One call over the cluster (:2727-2758): Options unwrapped
@@ -3458,9 +3480,8 @@ class Executor:
         other: dict = {}
         storages: dict = {}
         waste_by_rep = {"dense": 0, "sparse": 0, "run": 0}
-        for key, nbytes, (ptr, st_bytes) in \
-                self.residency.entries_snapshot():
-            storages[ptr] = st_bytes
+        for key, nbytes, held in self.residency.entries_snapshot():
+            storages.update(held)
             kind = key[0] if isinstance(key, tuple) and key else "?"
             rep = self._LEAF_KIND_REP.get(kind)
             if rep is not None and len(key) >= 6:

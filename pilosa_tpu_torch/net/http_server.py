@@ -1190,6 +1190,10 @@ class Handler:
         counts["iciServing,route:slice_local"] = isnap["sliceLocal"]
         counts["iciServing,route:cross_slice"] = isnap["crossSlice"]
         counts["iciServing,route:fallback"] = isnap["fallback"]
+        ipc = isnap["programCache"]
+        counts["iciProgramCache/hits"] = ipc["hits"]
+        counts["iciProgramCache/misses"] = ipc["misses"]
+        gauges["iciProgramCache/programs"] = ipc["programs"]
         gauges["iciServing/mode"] = {"off": 0.0, "auto": 1.0,
                                      "on": 2.0}.get(isnap["mode"], 1.0)
         # hinted handoff and the rejoin fence, zeros included (:1106-1129)

@@ -23,28 +23,34 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.constants import SHARD_WIDTH, WORD_BITS
+from pilosa_tpu_torch.parallel.blocks import Blocked, blockwise
 
 
+@blockwise("map", None)
 def band(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Intersection: a & b."""
     return torch.bitwise_and(a, b)
 
 
+@blockwise("map", None)
 def bor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Union: a | b."""
     return torch.bitwise_or(a, b)
 
 
+@blockwise("map", None)
 def bxor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Symmetric difference: a ^ b."""
     return torch.bitwise_xor(a, b)
 
 
+@blockwise("map", None)
 def bandnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Difference: a &~ b."""
     return torch.bitwise_and(a, torch.bitwise_not(b))
 
 
+@blockwise("map", None)
 def bnot(a: torch.Tensor) -> torch.Tensor:
     """Complement over the full shard width (the executor intersects with
     the existence row for Not() semantics)."""
@@ -206,7 +212,11 @@ def patch_dense_words(plane: torch.Tensor, sidx, widx, set_mask,
     out-of-range shard and lets the scatter drop it; torch has no dropping
     scatter (an out-of-range index raises on the CPU and is a device-side
     assert on CUDA), and needs no static shapes, so nothing is padded and
-    both rules are checked here on the host."""
+    both rules are checked here on the host. On a blocked leaf (a mesh)
+    each block takes the coordinates of its own shards, at every
+    position."""
+    if isinstance(plane, Blocked):
+        return _patch_blocks(plane, sidx, widx, set_mask, clear_mask)
     s, w = plane.shape
     sidx = np.asarray(sidx, dtype=np.int64).reshape(-1)
     widx = np.asarray(widx, dtype=np.int64).reshape(-1)
@@ -234,13 +244,46 @@ def patch_dense_words(plane: torch.Tensor, sidx, widx, set_mask,
     return out
 
 
+def _patch_blocks(plane: Blocked, sidx, widx, set_mask, clear_mask):
+    """patch_dense_words of a blocked [S, W] leaf: the coordinates of slot
+    j's shards, shifted to the block, patch slot j's block in every
+    replica row."""
+    sidx = np.asarray(sidx, dtype=np.int64).reshape(-1)
+    widx = np.asarray(widx, dtype=np.int64).reshape(-1)
+    smask = np.asarray(set_mask, dtype=np.uint32).reshape(-1)
+    cmask = np.asarray(clear_mask, dtype=np.uint32).reshape(-1)
+    if sidx.size and (sidx.min() < 0 or sidx.max() >= plane.length):
+        raise IndexError("patch coordinate outside the blocked plane")
+    per = plane.length // plane.n_slots
+    out = []
+    for row in plane.blocks:
+        blocks = []
+        for s, b in enumerate(row):
+            sel = (sidx >= s * per) & (sidx < (s + 1) * per)
+            blocks.append(patch_dense_words(b, sidx[sel] - s * per,
+                                            widx[sel], smask[sel],
+                                            cmask[sel]))
+        out.append(blocks)
+    return Blocked(out, plane.axis, plane.length)
+
+
 def patch_sparse_rows(sp: torch.Tensor, adds, removes) -> torch.Tensor:
     """A patched copy of a sparse row leaf int32[S, K]: per shard, the
     sorted-dedup union of its entries and adds[S, A] minus removes[S, R]
     (both sorted and SPARSE_SENTINEL-padded, host arrays or tensors),
     re-padded to the same K slots (bitvector.py:645). The caller has
     checked that the patched row still fits K; otherwise it drops the leaf
-    and the next read re-uploads it."""
+    and the next read re-uploads it. On a blocked leaf (a mesh), adds and
+    removes have a row per logical shard, pad shards included, and each
+    block takes its own rows."""
+    if isinstance(sp, Blocked):
+        adds, removes = np.asarray(adds), np.asarray(removes)
+        per = sp.length // sp.n_slots
+        return Blocked(
+            [[patch_sparse_rows(b, adds[s * per:(s + 1) * per],
+                                removes[s * per:(s + 1) * per])
+              for s, b in enumerate(row)] for row in sp.blocks],
+            sp.axis, sp.length)
     k = sp.shape[-1]
 
     def on_device(x) -> torch.Tensor:
@@ -286,7 +329,11 @@ def columns_from_planes(planes: torch.Tensor) -> list:
     words: each row's set-bit positions as int64 offsets. The nonzero
     words are found where the tensor lies and only they go to the host: a
     Row result at 1024 shards is 32M words (128 MiB), and it holds a few
-    thousand bits."""
+    thousand bits. A blocked tensor (a mesh) reads the first replica
+    row's blocks in shard order, pad shards last."""
+    if isinstance(planes, Blocked):
+        return [cols for blk in planes.blocks[0]
+                for cols in columns_from_planes(blk)]
     s, w = planes.shape
     flat = planes.reshape(-1)
     idx = torch.nonzero(flat).squeeze(1)  # ascending, as flatnonzero

@@ -34,6 +34,7 @@ import torch
 
 from pilosa_tpu_torch.ops import bitvector as bv
 from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.parallel.blocks import blockwise
 
 LT, LTE, GT, GTE, EQ, NEQ = kernels.BSI_OPS
 
@@ -73,6 +74,7 @@ def _descent(planes: torch.Tensor, candidate: torch.Tensor,
     return torch.stack(bits + [count])
 
 
+@blockwise("cat", -1)
 def bsi_min_packed(planes: torch.Tensor, candidate: torch.Tensor) -> torch.Tensor:
     """int32[D+1, S]: per shard the bits of the least stored value among
     `candidate` (exists & filter) in rows 0..D-1, and how many columns
@@ -80,6 +82,7 @@ def bsi_min_packed(planes: torch.Tensor, candidate: torch.Tensor) -> torch.Tenso
     return _descent(planes, candidate, is_min=True)
 
 
+@blockwise("cat", -1)
 def bsi_max_packed(planes: torch.Tensor, candidate: torch.Tensor) -> torch.Tensor:
     """Mirror of bsi_min_packed for the greatest stored value."""
     return _descent(planes, candidate, is_min=False)
@@ -141,6 +144,7 @@ def _batched_descent(planes: torch.Tensor, candidates, is_min: bool,
     return out
 
 
+@blockwise("cat", -1)
 def bsi_min_max_batched(planes: torch.Tensor, candidates,
                         is_min: bool) -> torch.Tensor:
     """int32[K, D+1, S]: bsi_min_packed (is_min) or bsi_max_packed of each
@@ -150,6 +154,7 @@ def bsi_min_max_batched(planes: torch.Tensor, candidates,
                             kernels.bsi_sum_counts)
 
 
+@blockwise("cat", -1)
 def bsi_min_max_batched_plain(planes: torch.Tensor, candidates,
                               is_min: bool) -> torch.Tensor:
     """bsi_min_max_batched with its counts in plain torch on any device

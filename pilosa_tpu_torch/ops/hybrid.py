@@ -29,6 +29,7 @@ import torch
 
 from pilosa_tpu_torch.constants import WORD_BITS, WORDS_PER_SHARD
 from pilosa_tpu_torch.ops import bitvector as bv
+from pilosa_tpu_torch.parallel.blocks import blockwise
 # SPARSE_SENTINEL is one past the last legal column offset: it sorts after
 # every real entry; its word index (SHARD_WIDTH >> 5) is one past the last
 # dense word
@@ -138,6 +139,7 @@ def sparse_xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _resort(srt, ~dup_prev & ~dup_next & (srt < SPARSE_SENTINEL))
 
 
+@blockwise("map", 0)
 def sparse_to_dense(sp: torch.Tensor,
                     n_words: int = WORDS_PER_SHARD) -> torch.Tensor:
     """sparse[..., K] -> dense int32[..., n_words]. Each entry's bit is
@@ -245,6 +247,7 @@ def _bit_span(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return ((1 << (hi + 1)) - 1) ^ ((1 << lo) - 1)
 
 
+@blockwise("map", 0)
 def run_to_dense(runs: torch.Tensor,
                  n_words: int = WORDS_PER_SHARD) -> torch.Tensor:
     """run[..., 2, R] -> dense int32[..., n_words], built word by word:
@@ -331,6 +334,7 @@ def runs_from_columns(columns: np.ndarray, slots: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+@blockwise("map", 0)
 def eval_hybrid(program, leaves: list, kinds: list,
                 n_words: int = WORDS_PER_SHARD, sparse_dense_fn=None,
                 sparse_diff_dense_fn=None):
@@ -407,6 +411,7 @@ def eval_hybrid(program, leaves: list, kinds: list,
     return ev(program)
 
 
+@blockwise("sum")
 def hybrid_count(program, leaves: list, kinds: list,
                  n_words: int = WORDS_PER_SHARD, sparse_dense_fn=None,
                  sparse_diff_dense_fn=None) -> int:

@@ -57,6 +57,24 @@ One more carries the hybrid sparse/run read path (ops/hybrid.py):
   count as launches of sparse_intersect_dense. Its work unit (a warp or a
   block per shard) and entries per thread follow K (``sparse_plan``).
 
+Two compositions carry the replica x shard mesh (parallel/mesh.py), over
+blocked leaves (parallel/blocks.py: one block per mesh position):
+
+* ``program_count_mesh``: the program_count kernel on each shard slot's
+  blocks of the first replica row, the partials summed in int64.
+  Replaces the Pallas mesh form program_count_mesh (pallas_kernels.py:571).
+* ``pair_stream_counts_mesh``: the queries split over the replica rows
+  (``scatter_queries``), the pair_stream_counts kernel on each position's
+  blocks, each query's partials summed over the slots in int64. Replaces
+  the Pallas mesh form pair_stream_counts_mesh (pallas_kernels.py:602)
+  and serves the CountBatcher on a mesh.
+
+Their block launches count under program_count and pair_stream_counts;
+each call on the card also counts once in ``mesh_launch_counts``. Every
+other wrapper given blocked operands runs per block (``blockwise``): row
+results stay blocked, per-shard counts are concatenated over the slots,
+summed counts are summed over them.
+
 Routing: a CPU tensor takes the plain version (``<name>_plain``, plain
 torch). A CUDA tensor launches the kernel or raises; nothing falls back.
 Each wrapper adds one to its launch count where it launches its kernel;
@@ -87,6 +105,7 @@ from pilosa_tpu_torch.constants import WORDS_PER_SHARD
 from pilosa_tpu_torch.ops import _build
 from pilosa_tpu_torch.ops import bitvector as bv
 from pilosa_tpu_torch.ops import hybrid
+from pilosa_tpu_torch.parallel.blocks import Blocked, blockwise
 from pilosa_tpu_torch.utils import telemetry
 
 # int32 partials per chunk of shards: 2016 shards x 2^20 bits < 2^31, so a
@@ -140,6 +159,9 @@ _launches = {"pair_stream_counts": 0, "program_count": 0,
              "topn_counts_packed": 0, "cross_count_matrix": 0,
              "sparse_intersect_dense": 0}
 _form_launches = {f"bsi_sum_counts/{f}": 0 for f in SUM_FORMS}
+# calls of the two mesh compositions (their block launches count under
+# program_count and pair_stream_counts)
+_mesh_launches = {"program_count_mesh": 0, "pair_stream_counts_mesh": 0}
 
 # the kernel family of every launch here (constants.KERNEL_FAMILY_REPS)
 FAMILY = "pallas"
@@ -166,12 +188,19 @@ def form_launch_counts() -> dict:
         return dict(_form_launches)
 
 
+def mesh_launch_counts() -> dict:
+    """Calls of program_count_mesh and pair_stream_counts_mesh on the card
+    since the last reset; each call's block launches count under
+    program_count and pair_stream_counts in launch_counts()."""
+    with _launch_lock:
+        return dict(_mesh_launches)
+
+
 def reset_launch_counts() -> None:
     with _launch_lock:
-        for k in _launches:
-            _launches[k] = 0
-        for k in _form_launches:
-            _form_launches[k] = 0
+        for d in (_launches, _form_launches, _mesh_launches):
+            for k in d:
+                d[k] = 0
 
 
 def _checked(lib, rc: int, what: str, token) -> None:
@@ -258,6 +287,7 @@ def _check_program(program, n_leaves: int) -> tuple:
     return codes, args
 
 
+@blockwise("map", 0)
 def eval_program_plain(leaves, program) -> torch.Tensor:
     """Evaluate a nested program over [S, W] leaves in plain torch — the
     _eval of pilosa_tpu/parallel/mesh.py:197."""
@@ -410,6 +440,7 @@ def intersect_count_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return bv.intersect_count(a, b)
 
 
+@blockwise("cat", -1)
 def intersect_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[S, W] x [S, W] -> int32[S] per-shard intersection counts."""
     t0 = time.perf_counter()
@@ -448,6 +479,7 @@ def _program_static(program, n_leaves: int) -> tuple:
     return len(codes), program_plan(program, n_leaves), _instructions(program)
 
 
+@blockwise("cat", -1)
 def program_count(leaves, program) -> torch.Tensor:
     """L x [S, W] leaves (list or stacked [L, S, W]) + nested program ->
     int32[S]: the whole program and its popcount in one pass, no
@@ -573,6 +605,7 @@ def plan_pairs(ii, jj, op: str) -> PairPlan:
                     inverse=np.array(inverse, dtype=np.int64))
 
 
+@blockwise("cat", -1)
 def pair_stream_counts(leaves, ii, jj, op: str = "and") -> torch.Tensor:
     """K queries op(leaves[ii[k]], leaves[jj[k]]) over L x [S, W] leaves
     (list of resident tensors, or stacked [L, S, W]) -> int32[K, C]
@@ -607,6 +640,139 @@ def pair_stream_counts(leaves, ii, jj, op: str = "and") -> torch.Tensor:
     _count_launch("pair_stream_counts", tok, t0, dev, len(leaves),
                   meta.numel() * 8)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Mesh compositions: program_count_mesh and pair_stream_counts_mesh
+# ---------------------------------------------------------------------------
+# pilosa_tpu/ops/pallas_kernels.py:553-613 runs the single-device Pallas
+# kernel under shard_map, each device on its local shard slice, and psums
+# the partials over "shard" outside the pallas_call. Here the same: the
+# hand-written kernel is launched on each position's block of the blocked
+# leaves (parallel/blocks.py), and the partials are summed over the shard
+# slots in int64. The replicas hold copies of the same data, so a program's
+# count needs one replica row; the pair stream splits its queries over the
+# replica rows instead, each row counting its part against its own copy.
+
+
+def _mesh_layout(mesh, leaves) -> tuple[int, int]:
+    """(replicas, shard slots) of `mesh`, checked against the blocked
+    leaves."""
+    n_rep = mesh.shape.get("replica", 1)
+    n_slots = mesh.shape["shard"]
+    for t in leaves:
+        if not isinstance(t, Blocked):
+            raise TypeError("mesh kernels take blocked leaves "
+                            "(DeviceRunner.put_leaf on a mesh)")
+        if (t.n_replicas, t.n_slots) != (n_rep, n_slots):
+            raise ValueError(
+                f"leaf blocked {t.n_replicas}x{t.n_slots}, mesh is "
+                f"{n_rep}x{n_slots}")
+    return n_rep, n_slots
+
+
+def _count_mesh_call(name: str, dev: torch.device) -> None:
+    """One call of a mesh composition (its block launches are counted
+    under their kernel); counted where the blocks lie on the card."""
+    if dev.type == "cuda":
+        with _launch_lock:
+            _mesh_launches[name] += 1
+
+
+def _program_count_mesh(mesh, leaves, program, fn) -> int:
+    leaves = list(leaves)
+    _n_rep, n_slots = _mesh_layout(mesh, leaves)
+    dev = leaves[0].device
+    total = None
+    for s in range(n_slots):
+        part = fn([t.blocks[0][s] for t in leaves], program).to(
+            device=dev).sum(dtype=torch.int64)
+        total = part if total is None else total + part
+    return int(total)
+
+
+def program_count_mesh(mesh, leaves, program) -> int:
+    """Blocked [S, W] leaves (sharded over the mesh's shard axis,
+    replicated over its replica axis) + nested program -> total count:
+    the program_count kernel on each shard slot's blocks of the first
+    replica row, the per-shard partials summed over the slots in int64.
+    Replaces the Pallas mesh form pallas_kernels.py:571."""
+    out = _program_count_mesh(mesh, leaves, program, program_count)
+    _count_mesh_call("program_count_mesh", list(leaves)[0].device)
+    return out
+
+
+def program_count_mesh_plain(mesh, leaves, program) -> int:
+    """program_count_mesh through program_count_plain on every block."""
+    return _program_count_mesh(mesh, leaves, program, program_count_plain)
+
+
+def scatter_queries(n_rep: int, ii, jj) -> tuple:
+    """(parts, k): the query indices padded with (0, 0) queries to a
+    multiple of the replica count and cut into n_rep contiguous parts,
+    part r for replica row r (pilosa_tpu/parallel/mesh.py:350-367: ii/jj
+    placed P("replica")); k the real count, whose padding is dropped."""
+    ii = np.asarray(ii.cpu() if isinstance(ii, torch.Tensor) else ii,
+                    dtype=np.int64).reshape(-1)
+    jj = np.asarray(jj.cpu() if isinstance(jj, torch.Tensor) else jj,
+                    dtype=np.int64).reshape(-1)
+    if ii.shape != jj.shape:
+        raise ValueError("ii and jj differ in length")
+    k = int(ii.size)
+    pad = (-k) % n_rep
+    if pad:
+        ii = np.concatenate([ii, np.zeros(pad, np.int64)])
+        jj = np.concatenate([jj, np.zeros(pad, np.int64)])
+    per = ii.size // n_rep
+    return [(ii[r * per:(r + 1) * per], jj[r * per:(r + 1) * per])
+            for r in range(n_rep)], k
+
+
+def _pair_stream_mesh(mesh, rows, ii, jj, op: str, fn) -> np.ndarray:
+    rows = [rows] if isinstance(rows, Blocked) else list(rows)
+    n_rep, n_slots = _mesh_layout(mesh, rows)
+    if len(rows) == 1 and rows[0].dim() == 3:
+        def block(r, s):  # a stacked [R, S, W] slab
+            return rows[0].blocks[r][s]
+    else:
+        def block(r, s):
+            return [t.blocks[r][s] for t in rows]
+    parts, k = scatter_queries(n_rep, ii, jj)
+    if k == 0:
+        return np.zeros(0, dtype=np.int64)
+    dev = rows[0].device
+    out = []
+    for r, (ir, jr) in enumerate(parts):
+        acc = None
+        for s in range(n_slots):
+            part = fn(block(r, s), ir, jr, op).to(device=dev).sum(
+                dim=1, dtype=torch.int64)
+            acc = part if acc is None else acc + part
+        out.append(acc)
+    return torch.cat(out).cpu().numpy()[:k]
+
+
+def pair_stream_counts_mesh(mesh, rows, ii, jj,
+                            op: str = "and") -> np.ndarray:
+    """K queries op(rows[ii[k]], rows[jj[k]]) on a replica x shard mesh ->
+    host int64[K]. `rows` is a list of blocked [S, W] leaves or one
+    blocked [R, S, W] slab. The queries are split over the replica rows
+    (scatter_queries), each row runs the pair_stream_counts kernel on each
+    of its shard slots' blocks against its own copy of the data, and each
+    query's partials are summed over the slots in int64. Replaces the
+    Pallas mesh form pallas_kernels.py:602."""
+    out = _pair_stream_mesh(mesh, rows, ii, jj, op, pair_stream_counts)
+    first = rows if isinstance(rows, Blocked) else list(rows)[0]
+    _count_mesh_call("pair_stream_counts_mesh", first.device)
+    return out
+
+
+def pair_stream_counts_mesh_plain(mesh, rows, ii, jj,
+                                  op: str = "and") -> np.ndarray:
+    """pair_stream_counts_mesh through pair_stream_counts_plain on every
+    block."""
+    return _pair_stream_mesh(mesh, rows, ii, jj, op,
+                             pair_stream_counts_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -683,6 +849,7 @@ def bsi_compare_plain(planes: torch.Tensor, exists: torch.Tensor, pred_bits,
     return matched
 
 
+@blockwise("map", 0)
 def bsi_compare(planes: torch.Tensor, exists: torch.Tensor, pred_bits,
                 op: str) -> torch.Tensor:
     """[D, S, W] planes x [S, W] exists x int32[D] predicate bits (LSB
@@ -732,6 +899,7 @@ def sum_form(k: int) -> str:
     return "grid" if k == 1 else "staged"
 
 
+@blockwise("cat", -1)
 def bsi_sum_counts(planes: torch.Tensor, filters,
                    form: str | None = None) -> torch.Tensor:
     """[D, S, W] planes x filters -> per-plane per-shard counts of
@@ -802,6 +970,7 @@ def topn_counts_packed_plain(leaves, src: torch.Tensor) -> torch.Tensor:
     return torch.stack([inter, rows, _total(src).expand(r)])
 
 
+@blockwise("sum")
 def topn_counts_packed(leaves, src: torch.Tensor) -> torch.Tensor:
     """R candidate leaves (list of [S, W] tensors, or stacked [R, S, W]) x
     [S, W] src -> int64[3, R]: row 0 |leaf & src|, row 1 |leaf|, row 2
@@ -869,6 +1038,7 @@ def cross_count_matrix_plain(prefix: torch.Tensor,
     return out
 
 
+@blockwise("sum")
 def cross_count_matrix(prefix: torch.Tensor,
                        axis: torch.Tensor) -> torch.Tensor:
     """[P, S, W] prefixes x [R, S, W] axis rows -> int64[P, R]:
@@ -981,6 +1151,7 @@ def _sparse_dense_launch(sp: torch.Tensor, dense: torch.Tensor,
     return out
 
 
+@blockwise("map", 0)
 def sparse_intersect_dense(sp: torch.Tensor,
                            dense: torch.Tensor) -> torch.Tensor:
     """int32[S, K] sparse rows x int32[S, W] planes -> int32[S, K]: each
@@ -999,6 +1170,7 @@ def sparse_intersect_dense(sp: torch.Tensor,
     return _sparse_dense_launch(sp, dense, 1, t0)
 
 
+@blockwise("map", 0)
 def sparse_difference_dense(sp: torch.Tensor,
                             dense: torch.Tensor) -> torch.Tensor:
     """int32[S, K] x int32[S, W] -> int32[S, K]: the entries whose bit is

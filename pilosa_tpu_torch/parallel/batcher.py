@@ -310,7 +310,16 @@ class CountBatcher(ContinuousBatcher):
     """Batches Count over 1- and 2-leaf programs into one pair-stream
     launch. Compatibility key = (op, leaf shape, dtype, device). A batch is
     launched over its distinct canonical pairs (ops/kernels.py plan_pairs:
-    concurrent clients asking about the same rows are counted once)."""
+    concurrent clients asking about the same rows are counted once).
+
+    With a replica x shard mesh runner (:466-558), the pairs go through
+    pair_stream_counts_mesh, padded to a multiple of the replica count and
+    split over the replica rows, each row counting its part against its
+    own copy of the leaves, so a batch costs each replica 1/R of it."""
+
+    def __init__(self, max_batch: int = MAX_BATCH, runner=None):
+        super().__init__(max_batch)
+        self.runner = runner
 
     def count(self, op: str, a: torch.Tensor,
               b: Optional[torch.Tensor]) -> int:
@@ -332,6 +341,12 @@ class CountBatcher(ContinuousBatcher):
 
         plan = kernels.plan_pairs([slot(a) for a, _ in payloads],
                                   [slot(b) for _, b in payloads], key[0])
+        mesh = None if self.runner is None else self.runner.mesh
+        if mesh is not None:
+            # the replica scatter: host int64[P], fetched per replica row
+            return (kernels.pair_stream_counts_mesh(mesh, leaves, plan.a,
+                                                    plan.b, key[0]),
+                    plan.inverse)
         # launched, not fetched: the int32[P, C] partials stay on the
         # device until _finalize
         return (kernels.pair_stream_counts(leaves, plan.a, plan.b, key[0]),
@@ -339,6 +354,8 @@ class CountBatcher(ContinuousBatcher):
 
     def _finalize(self, key: tuple, handle, payloads: list) -> list:
         parts, inverse = handle
+        if isinstance(parts, np.ndarray):  # a mesh's totals, already here
+            return parts[inverse].tolist()
         # the batch's one device->host fetch; exact int64 finish
         counts = parts.cpu().numpy().astype(np.int64).sum(axis=-1)
         return counts[inverse].tolist()

@@ -20,7 +20,12 @@ tracker's, never the reverse.
 The default budget is half of the card's memory
 (torch.cuda.get_device_properties(0).total_memory // 2), leaving the rest
 to query intermediates and the batcher's outputs. On the CPU (tests) it is
-a fixed 1 GiB.
+a fixed 1 GiB. A leaf costs its nbytes, one copy of its logical (padded)
+shape, as a sharded jax.Array's nbytes counts it; on a mesh every replica
+row holds a copy, so the executor scales the budget by its runner's
+budget_scale (shard slots over the most positions one device holds: half
+on a 2 x 4 mesh on one card), and a device's own share stays within the
+half.
 
 HybridManager (:290-520) picks each row leaf's form: sparse index array,
 run intervals or dense plane. PlanCache (:520-609) holds evaluated bitmap
@@ -38,6 +43,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.parallel.blocks import Blocked
 from pilosa_tpu_torch.utils import accounting
 from pilosa_tpu_torch.utils import heat as _heat
 from pilosa_tpu_torch.utils import profile as qprofile
@@ -93,7 +99,7 @@ class DeviceResidency:
         # built and uploaded outside the lock: concurrent misses of other
         # keys must not serialize behind one host->device transfer
         host = make()
-        uploaded = not isinstance(host, torch.Tensor)
+        uploaded = not isinstance(host, (torch.Tensor, Blocked))
         arr = (put or self.runner.put_leaf)(host) if uploaded else host
         if prof is not None:
             prof.record_residency(hit=False,
@@ -229,12 +235,13 @@ class DeviceResidency:
             return None
 
     def entries_snapshot(self) -> list[tuple]:
-        """[(key, nbytes, storage)] of every resident entry (GET
-        /debug/hbm): storage is (data pointer, bytes) of the memory the
-        tensor views, shared where entries alias one tensor (a Range mask
-        that is the field's not-null row is cached under both keys)."""
+        """[(key, nbytes, storages)] of every resident entry (GET
+        /debug/hbm): storages lists (data pointer, bytes) of the memory
+        the tensor views, one per block of a blocked leaf, shared where
+        entries alias one tensor (a Range mask that is the field's
+        not-null row is cached under both keys)."""
         with self._lock:
-            return [(key, arr.nbytes, tensor_storage(arr))
+            return [(key, arr.nbytes, held_storages(arr))
                     for key, arr in self._lru.items()]
 
     def clear(self) -> None:
@@ -512,6 +519,14 @@ def tensor_storage(t: torch.Tensor) -> tuple:
     return st.data_ptr(), st.nbytes()
 
 
+def held_storages(t) -> list:
+    """tensor_storage of a tensor, or of each block of a blocked one (a
+    mesh leaf: every position's copy is device memory)."""
+    if isinstance(t, Blocked):
+        return t.storages()
+    return [tensor_storage(t)]
+
+
 class PlanCache:
     """Generation-keyed cross-query result cache (:520-609).
 
@@ -586,8 +601,9 @@ class PlanCache:
         """(data pointer, bytes) of every cached tensor's memory; scalars
         hold none."""
         with self._lock:
-            return [tensor_storage(v) for v, _ in self._lru.values()
-                    if isinstance(v, torch.Tensor)]
+            return [st for v, _ in self._lru.values()
+                    if isinstance(v, (torch.Tensor, Blocked))
+                    for st in held_storages(v)]
 
     def clear(self) -> None:
         with self._lock:

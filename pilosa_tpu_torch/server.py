@@ -5,7 +5,11 @@ pilosa_tpu.server.
     ... POST srv.uri + "/index/i/query" ...
     srv.close()
 
-One Server is one node on one device. Its id is kept in <data_dir>/.id
+One Server is one node on one device, or, with mesh= (a parallel/mesh.py
+Mesh: the [mesh] keys through mesh_from_config, JAX :152), on a replica x
+shard mesh of positions, where every leaf is blocked and every kernel
+launches per block; "auto" ici-serving then serves a shard set this node
+holds whole as one mesh program (slice_local). Its id is kept in <data_dir>/.id
 (the JAX package's file, :529). Without cluster_hosts it is a one-node
 cluster. With them (every node's URI, this one's included) it is a node
 of a static cluster (:580-600): it starts as a cluster of itself and
@@ -300,7 +304,7 @@ class Server:
     RESIZE_SETTLE_S = 10.0
 
     def __init__(self, data_dir: str, host: str = "localhost", port: int = 0,
-                 device="cuda",
+                 device="cuda", mesh=None,
                  sparse_threshold: int = DEFAULT_SPARSE_THRESHOLD,
                  run_threshold: int = DEFAULT_RUN_THRESHOLD,
                  long_query_time: float = 0.0,
@@ -512,6 +516,9 @@ class Server:
         self.host = host
         self.port = port
         self.device = device
+        # a replica x shard mesh (parallel/mesh.py make_mesh or
+        # mesh_from_config; JAX server.py:152): None is one device
+        self.mesh = mesh
         self.sparse_threshold = sparse_threshold
         self.run_threshold = run_threshold
         self.long_query_time = long_query_time
@@ -675,7 +682,8 @@ class Server:
                                                    self.cluster, self.client)
         self.executor = Executor(self.holder, device=self.device,
                                  translator=self.cluster_translate,
-                                 cluster=self.cluster, client=self.client)
+                                 cluster=self.cluster, client=self.client,
+                                 mesh=self.mesh)
         ex = self.executor
         ex.hybrid.threshold = self.sparse_threshold
         ex.hybrid.run_threshold = self.run_threshold
@@ -698,6 +706,9 @@ class Server:
         ex.fanout_pool_size = self.fanout_pool_size
         ex.hedge_delay = self.hedge_delay
         ex.ici_mode = self.ici_serving
+        if self.ici_serving == "off":
+            # the mesh's counts and rows run their kernels uncached
+            ex.runner.ici_serving = False
         if ex.coalescer is not None:
             ex.coalescer.admission_s = self.fanout_coalesce_window
             ex.coalescer.max_batch = max(1, self.fanout_coalesce_max_batch)

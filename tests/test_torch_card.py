@@ -612,3 +612,67 @@ def test_ingest_apply_patch_and_read_on_card(cuda_device, tmp_path):
         assert counts["sparse_intersect_dense"] >= 1
     finally:
         srv.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [1, 2])
+@pytest.mark.parametrize("s", [8, 1021])
+def test_mesh_kernels_launch_per_block_on_card(cuda_device, replicas, s):
+    """program_count_mesh and pair_stream_counts_mesh on a mesh of card 0
+    positions: the body kernel launched once per block (the first replica
+    row for the program, every position for the pair stream), one mesh
+    call counted, and exact against the plain twins and the body kernels
+    over the unblocked planes (a ragged S included)."""
+    from pilosa_tpu_torch.ops.bitvector import total_count
+    from pilosa_tpu_torch.parallel.mesh import make_mesh
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh([card] * (4 * replicas), replicas=replicas)
+    runner = DeviceRunner(mesh=mesh)
+    rng = np.random.default_rng(s)
+    host = [rng.integers(0, 2**32, size=(s, 256), dtype=np.uint64)
+            .astype(np.uint32) for _ in range(5)]
+    leaves = [runner.put_leaf(h) for h in host]
+    flat = [torch.from_numpy(h.view(np.int32)).to(card) for h in host]
+    program = PROGRAMS[2]
+    kernels.reset_launch_counts()
+    got = kernels.program_count_mesh(mesh, leaves, program)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["program_count"] == 4
+    assert got == kernels.program_count_mesh_plain(mesh, leaves, program)
+    assert got == total_count(kernels.program_count(flat, program))
+    ii = rng.integers(0, 5, size=9)
+    jj = rng.integers(0, 5, size=9)
+    kernels.reset_launch_counts()
+    pairs = kernels.pair_stream_counts_mesh(mesh, leaves, ii, jj, "xor")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["pair_stream_counts"] == 4 * replicas
+    assert kernels.mesh_launch_counts() == {"program_count_mesh": 0,
+                                            "pair_stream_counts_mesh": 1}
+    np.testing.assert_array_equal(
+        pairs, kernels.pair_stream_counts_mesh_plain(mesh, leaves, ii, jj,
+                                                     "xor"))
+    np.testing.assert_array_equal(
+        pairs, kernels.pair_stream_counts(flat, ii, jj, "xor")
+        .cpu().numpy().astype(np.int64).sum(axis=1))
+
+
+@pytest.mark.gpu
+def test_mesh_over_distinct_cards_matches_one_card(cuda_device):
+    """A 2 x 2 mesh over two cards answers as a 2 x 2 mesh standing on
+    one card (ROADMAP Queue A 8: waits for a machine with more cards)."""
+    from pilosa_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs more than one card")
+
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    two = DeviceRunner(mesh=make_mesh([c0, c1, c0, c1], replicas=2))
+    one = DeviceRunner(mesh=make_mesh([c0] * 4, replicas=2))
+    rng = np.random.default_rng(3)
+    host = [rng.integers(0, 2**32, size=(7, 256), dtype=np.uint64)
+            .astype(np.uint32) for _ in range(3)]
+    for program in PROGRAMS[:3]:
+        assert two.count_total_leaves([two.put_leaf(h) for h in host],
+                                      program) == \
+            one.count_total_leaves([one.put_leaf(h) for h in host], program)

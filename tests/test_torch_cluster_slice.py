@@ -40,7 +40,6 @@ import pytest
 
 from pilosa_tpu.server import Server as JaxServer
 from pilosa_tpu_torch.cli import main as cli_main
-from pilosa_tpu_torch.models.field import NotPortedError
 from pilosa_tpu_torch.server import Server
 
 from tests.test_torch_obs_slice import _call, _post
@@ -344,17 +343,60 @@ def test_cli_nodes_converge_and_serve(tmp_path):
 @pytest.mark.parametrize("toml", [
     "[mesh]\nhost-devices = 2\n",
     "[mesh]\nreplicas = 2\n",
-    "[mesh]\ndevices = 2\n"])
+    "[mesh]\ndevices = 2\n",
+    "[mesh]\nhost-devices = 8\nreplicas = 2\n",
+    "[mesh]\nhost-devices = 8\ndevices = 9\n"])
 def test_unported_config_key_fails_the_start(tmp_path, toml):
+    """The [mesh] keys devices, replicas and host-devices are served now
+    (they failed the start while a node drove one device): they build
+    the node's mesh by the JAX package's rules, so a count past the
+    devices there are fails the start with the JAX text, host-devices
+    starts a node on a CPU mesh, and replicas alone over one device (or
+    none) leaves a single-device node, as mesh_from_config gives None for
+    fewer than two devices."""
+    import torch
+
+    from pilosa_tpu.parallel.mesh import mesh_from_config as jax_mesh
+    from pilosa_tpu_torch.cli.config import load_config
+
     cfg = tmp_path / "n.toml"
-    cfg.write_text('data-dir = "/nonexistent"\n' + toml)
-    with pytest.raises(SystemExit) as e:
-        cli_main.main(["server", "--config", str(cfg)])
-    key = toml.split("\n")[1].split(" =")[0]
-    assert "not ported yet" in str(e.value) and key in str(e.value)
-    with pytest.raises(NotPortedError):
-        from pilosa_tpu_torch.cli.config import load_config
-        load_config(str(cfg), environ={})
+    cfg.write_text(f'data-dir = "{tmp_path / "d"}"\n'
+                   'bind = "127.0.0.1:0"\n' + toml)
+    c = load_config(str(cfg), environ={})  # no NotPortedError
+    m = c.values["mesh"]
+    if m["devices"] not in ("auto", "none"):
+        n = int(m["devices"])
+        avail = m["host_devices"] or torch.cuda.device_count()
+        if n > avail:
+            want = (f"error: building device mesh: [mesh] devices = {n} "
+                    f"out of range: {avail} available")
+            with pytest.raises(SystemExit) as e:
+                cli_main.main(["server", "--config", str(cfg)])
+            assert str(e.value) == want
+            if m["host_devices"] == 8:  # the JAX side's 8 CPU devices
+                with pytest.raises(ValueError) as je:
+                    jax_mesh(devices=str(n), host_devices=8)
+                assert want.endswith(str(je.value))
+            return
+    mesh = cli_main.build_mesh(c)
+    if not m["host_devices"]:
+        assert torch.cuda.device_count() >= 2 or mesh is None
+        return
+    assert c.device == "cpu"
+    assert mesh.shape == ({"replica": 2, "shard": 4} if m["replicas"] == 2
+                          else {"shard": m["host_devices"]})
+    srv = Server(str(tmp_path / "d"), mesh=mesh,
+                 **cli_main.server_kwargs(c)).open()
+    try:
+        assert srv.executor.runner.mesh is mesh
+        assert _post(srv.uri, "/index/i", {})[0] == 200
+        assert _post(srv.uri, "/index/i/field/f", {})[0] == 200
+        assert _post(srv.uri, "/index/i/query",
+                     f"Set(3, f=1) Set({3 << 20}, f=1)")[0] == 200
+        assert _post(srv.uri, "/index/i/query", "Count(Row(f=1))") == \
+            (200, {"results": [2]})
+    finally:
+        srv.close()
 
 
 def test_ported_qos_keys_start_a_node(tmp_path):

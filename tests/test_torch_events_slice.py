@@ -150,6 +150,9 @@ class Trio:
     def __init__(self, tmp: Path, kinds: str, skews: dict | None = None,
                  **extra):
         self.tmp, self.kinds, self.extra = tmp, kinds, extra
+        # whether a joiner's open() waits, after its knock, until the
+        # coordinator's resize has sent it a fragment
+        self.hold_join = False
         self.skews = skews or {}
         self.ports = _free_ports(4)
         self.uris = [f"http://127.0.0.1:{p}" for p in self.ports]
@@ -172,6 +175,8 @@ class Trio:
                               else {}))
         if i in self.skews:
             _skew(srv, self.skews[i])
+        if join:
+            _watch_join(srv, self.hold_join)
         self.nodes[i] = srv.open()
         return self.nodes[i]
 
@@ -182,6 +187,45 @@ class Trio:
         for n in self.nodes:
             if n is not None and not n.closed:
                 n.close()
+
+
+def _watch_join(srv, hold: bool) -> None:
+    """Record, on a joiner, the (index, shard) pairs it holds when its
+    open() reaches the read fence (`fenced_at_arm`; the port's joiner
+    arms none and records None). With `hold`, open() waits after the
+    knock until the resize has sent it a fragment: the JAX package's
+    joiner knocks at server.py:586 and arms the fence at :648, and a
+    resize that lands in between is fenced (ROADMAP, JAX fault 14)."""
+    srv.fenced_at_arm = None
+    knock = srv.request_join
+
+    def request_join():
+        knock()
+        if hold:
+            _wait(lambda: any(True for _ in srv.holder.walk_fragments()),
+                  what="a fragment from the resize")
+
+    srv.request_join = request_join
+    if isinstance(srv, JaxServer):
+        arm = srv._arm_read_fence
+
+        def arm_read_fence():
+            srv.fenced_at_arm = sorted(
+                {(i, s) for i, _f, _v, s, _fr in srv.holder.walk_fragments()})
+            arm()
+
+        srv._arm_read_fence = arm_read_fence
+
+
+def _join_race(n, counts: dict) -> bool:
+    """Whether the JAX joiner `n` armed its fence over fragments the
+    resize had already sent it: its data directory started empty, so
+    every pair it held at the fence came by the resize, and its journal's
+    one fence.armed fenced exactly those."""
+    armed = [e for e in n.events.events(0) if e["type"] == "fence.armed"]
+    return (bool(n.fenced_at_arm) and counts.get("fence.armed") == 1
+            and len(armed) == 1
+            and armed[0]["shards"] == len(n.fenced_at_arm))
 
 
 def _load(t: Trio) -> None:
@@ -259,16 +303,23 @@ def _counts(t: Trio) -> dict:
 def test_event_counts_match_a_jax_cluster(tmp_path):
     qos = dict(qos_mode="enforce",
                qos_principals={"key:b": {"queries-per-s": 0.1}})
-    counts = {}
+    counts, race = {}, False
     for kind in ("j", "p"):
         t = Trio(tmp_path / kind, kind * 4, **qos)
         try:
             _script(t)
             counts[kind] = _counts(t)
+            if kind == "j":
+                race = _join_race(t.nodes[3], counts["j"]["d"])
         finally:
             t.close()
+    if race:
+        # the JAX joiner fenced what the resize had sent it (JAX fault
+        # 14): its one fence.armed is the race, every other count equal
+        del counts["j"]["d"]["fence.armed"]
     assert counts["p"] == counts["j"]
     a, b, c, d = (counts["p"][i] for i in IDS)
+    assert "fence.armed" not in d  # the port's joiner never fences
     assert a["qos.quota_debt"] == 1 and a["qos.shed_storm.start"] == 1
     assert c["drain.start"] == c["drain.complete"] == 1
     assert c["snapshot.quarantined"] == 1
@@ -278,6 +329,35 @@ def test_event_counts_match_a_jax_cluster(tmp_path):
     assert a["resize.start"] == a["resize.complete"] == 1
     assert b["topology.change"] == c["topology.change"] == \
         d["topology.change"] == 1 and d["node.start"] == 1
+
+
+@pytest.mark.parametrize("kind", ["j", "p"])
+def test_joiner_fence_race_is_the_reference_s(tmp_path, kind):
+    """The joiner's open() held after its knock until the resize has sent
+    it a fragment: the JAX joiner then fences that fragment and records
+    fence.armed; the port's records none and answers reads through
+    itself at once."""
+    t = Trio(tmp_path, kind * 4)
+    try:
+        _load(t)
+        t.hold_join = True
+        d = t.open(3, join=True)
+        _wait(lambda: all(len(n.cluster.nodes) == 4
+                          and n.cluster.state == "NORMAL" for n in t.nodes),
+              what="d joined")
+        armed = [e for e in d.events.events(0) if e["type"] == "fence.armed"]
+        if kind == "j":
+            assert d.fenced_at_arm and len(armed) == 1
+            assert armed[0]["shards"] == len(d.fenced_at_arm)
+            assert _join_race(d, {"fence.armed": 1})
+        else:
+            assert armed == [] and d.fenced_at_arm is None
+            assert _fenced(d) == 0
+            for u in t.uris:
+                assert _json(u, "POST", "/index/d/query",
+                             "Count(Row(f=1))")[2] == {"results": [20]}
+    finally:
+        t.close()
 
 
 # -- mixed clusters -------------------------------------------------------------
